@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port: the quickest proof that it builds
+and runs on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero before the result line):
+
+1. device  - the card's name, count, and nvidia-smi name/power limit;
+2. build   - nvcc builds every kernel from csrc/ (sm_90a) and prints the
+             ptxas report (registers, shared memory, spills);
+3. kernels - each flash kernel against its plain PyTorch version on the
+             same bf16 inputs, at the main-path shape, at L=2048 causal and
+             non-causal, and at a GQA shape; times for the kernel, the plain
+             version and scaled_dot_product_attention (a yardstick the port
+             never calls), beside the least time the card could take;
+4. path    - the port's CLI flow (main.run) trains full-width gpt2_small
+             with --attention_impl flash on synthetic_lm, with launch
+             counters reset just before and read just after; checks the
+             counts, finite and falling losses, and the trained model's
+             flash logits against its dense logits on a small input;
+5. profile - device time by kernel over a few more train steps of the
+             trained model (torch.profiler), and the device's busy share.
+
+The last lines are the nvidia-smi line, one JSON object with a row per
+kernel, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+PKG = "learning_deep_neural_network_in_distributed_computing_environment_tpu_torch"
+JAX_PKG = "learning_deep_neural_network_in_distributed_computing_environment_tpu"
+# H100 SXM data-sheet peaks: HBM3
+# bytes/s and dense bf16 tensor-core FLOP/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+LAYERS = 12                   # gpt2_small blocks: one launch each per pass
+PATH_BATCH, PATH_LEN = 64, 128
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # the path's plots
+PATH_ARGV = ["--model", "gpt2_small", "--dataset", "synthetic_lm",
+             "--attention_impl", "flash", "--epochs_global", "1",
+             "--epochs_local", "1", "--batch_size", str(PATH_BATCH),
+             "--limit_train_samples", "1280", "--limit_eval_samples", "256",
+             "--out_dir", OUT_DIR]
+PROFILE_STEPS = 4              # 4 x 64 sequences of the 256-sequence test set
+
+# (label, B, L, H, KV, D, causal); the first row is the main-path shape
+SHAPES = [
+    ("main", PATH_BATCH, PATH_LEN, 12, 12, 64, True),
+    ("L2048_causal", 4, 2048, 12, 12, 64, True),
+    ("L2048", 4, 2048, 12, 12, 64, False),
+    ("gqa_llama_medium", 2, 1024, 16, 4, 64, True),
+]
+# Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
+# plain version computes in fp32 on the same bf16 values).  O and the
+# gradients are rounded to bf16 (relative spacing 2^-8) after fp32
+# accumulation in a different order: 1e-2 for O, 2e-2 for the gradients,
+# whose terms are larger products.  lse stays fp32 end to end: 1e-3 absolute.
+TOL_O, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 1e-3
+KERNELS = {
+    "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66"),
+    "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192"),
+    "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call from CUDA events, after two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least milliseconds the card could take: the larger of bytes over the
+    memory rate and operations over the bf16 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device() -> tuple[str, str]:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[device] {name}; count {torch.cuda.device_count()}; "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"[device] nvidia-smi: {smi}")
+    return name, smi
+
+
+def phase_build() -> None:
+    from importlib import import_module
+    build = import_module(f"{PKG}.ops._build")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"[build] {len(logs)} librar{'y' if len(logs) == 1 else 'ies'} "
+          f"built in {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if any(w in line.lower() for w in ("ptxas", "spill", "error")):
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _err(out, ref) -> tuple[float, float]:
+    """(max abs error, max abs error / max |ref|)."""
+    e = (out.float() - ref.float()).abs().max().item()
+    return e, e / max(ref.float().abs().max().item(), 1e-30)
+
+
+def check_shape(label, b, l, h, kv, d, causal) -> dict:
+    """Each kernel against its plain version at one shape; returns the
+    per-kernel numbers for that shape."""
+    import torch
+    import torch.nn.functional as F
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda",
+                                 dtype=torch.bfloat16)
+    q, k, v, do = rnd(b, l, h, d), rnd(b, l, kv, d), rnd(b, l, kv, d), \
+        rnd(b, l, h, d)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = fl.plain_forward(*f32[:3], causal)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    dq_ref = fl.plain_bwd_dq(*f32, lse_ref, delta, causal)
+    dk_ref, dv_ref = fl.plain_bwd_dkv(*f32, lse_ref, delta, causal)
+
+    o, lse = fl.kernel_forward(q, k, v, causal, with_lse=True)
+    dq = fl.kernel_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fl.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    checks = {"flash_fwd": [("o", o, o_ref, TOL_O)],
+              "flash_bwd_dq": [("dq", dq, dq_ref, TOL_GRAD)],
+              "flash_bwd_dkv": [("dk", dk, dk_ref, TOL_GRAD),
+                                ("dv", dv, dv_ref, TOL_GRAD)]}
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err <= TOL_LSE:
+        fail(f"{label}: flash_fwd lse differs from plain by {lse_err}")
+
+    # work each kernel must do at this shape (causal: the visible pairs)
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    qb, kvb, rowb = b * l * h * d * 2, b * l * kv * d * 2, b * h * l * 4
+    work = {"flash_fwd": (2 * qb + 2 * kvb + rowb, 4 * pairs * d),
+            "flash_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb, 6 * pairs * d),
+            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * pairs * d)}
+    iters = 20 if l <= 128 else 5
+    times = {
+        "flash_fwd": (lambda: fl.kernel_forward(q, k, v, causal, True),
+                      lambda: fl.plain_forward(q, k, v, causal)),
+        "flash_bwd_dq": (
+            lambda: fl.kernel_bwd_dq(q, k, v, do, lse_ref, delta, causal),
+            lambda: fl.plain_bwd_dq(q, k, v, do, lse_ref, delta, causal)),
+        "flash_bwd_dkv": (
+            lambda: fl.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal),
+            lambda: fl.plain_bwd_dkv(q, k, v, do, lse_ref, delta, causal)),
+    }
+    # yardsticks the port never calls: SDPA forward, and forward+backward
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, is_causal=causal, enable_gqa=kv != h)
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt), iters)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    dot = do.transpose(1, 2)
+    sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg), (qg, kg, vg), dot), iters)
+
+    rows = {}
+    for name, pairs_ in checks.items():
+        errs = []
+        for what, out, ref, tol in pairs_:
+            e, rel = _err(out, ref)
+            if not (math.isfinite(e) and rel <= tol):
+                fail(f"{label}: {name} {what} max abs err {e:.3g} "
+                     f"({rel:.3g} of max |plain|) exceeds {tol}")
+            errs.append(e)
+        kernel_fn, plain_fn = times[name]
+        b_ms, b_by = bound(*work[name])
+        rows[name] = dict(
+            max_abs_err=max(errs), ms=cuda_ms(kernel_fn, iters),
+            plain_ms=cuda_ms(plain_fn, max(iters // 4, 2)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=sdpa_fwd_ms if name == "flash_fwd" else None,
+            library_fwd_bwd_ms=sdpa_fb_ms)
+        r = rows[name]
+        lib = ("sdpa fwd" if name == "flash_fwd" else "sdpa fwd+bwd",
+               sdpa_fwd_ms if name == "flash_fwd" else sdpa_fb_ms)
+        print(f"[kernels] {label} [B={b} L={l} H={h} KV={kv} D={d} "
+              f"causal={causal}] {name}: kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} library_ms ({lib[0]}) {lib[1]:.4f} "
+              f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
+    return rows
+
+
+def phase_kernels() -> dict:
+    import torch
+    # the plain versions' fp32 products must not drop to TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main_rows = None
+    for shape in SHAPES:
+        rows = check_shape(*shape)
+        main_rows = main_rows or rows
+    return main_rows
+
+
+def phase_path() -> tuple[dict, dict]:
+    import numpy as np
+    import torch
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    main = import_module(f"{PKG}.main")
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main.run(PATH_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fl.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    rt = results["round_timings"]
+    train_steps = sum(r["train_steps"] for r in rt)
+    val_steps = sum(r["val_steps"] for r in rt)
+    eval_batches = -(-len(results["test"].labels) // PATH_BATCH)
+    probe_passes = 1 + 10          # warm-up + --probe_batches default
+    expect = {
+        "flash_fwd": LAYERS * (probe_passes + train_steps + val_steps
+                               + eval_batches),
+        "flash_bwd_dq": LAYERS * (probe_passes + train_steps),
+        "flash_bwd_dkv": LAYERS * (probe_passes + train_steps),
+    }
+    print(f"[path] launches {counts}; expected {expect} "
+          f"({train_steps} train steps, {val_steps} val steps, "
+          f"{eval_batches} eval batches, {probe_passes} probe passes)")
+    if train_steps < 12:
+        fail(f"path ran only {train_steps} train steps")
+    if any(counts[n] == 0 for n in counts) or counts != expect:
+        fail(f"launch counts {counts} do not match the path's {expect}")
+    losses = results["all_workers_losses"][0]
+    curves = [losses] + [results[k] for k in (
+        "global_train_losses", "global_val_losses",
+        "worker_specific_train_losses")]
+    if not all(math.isfinite(x) for c in curves for x in c):
+        fail("non-finite loss in the path's metrics")
+    first, last = losses[0], results["worker_specific_train_losses"][-1]
+    if not last < first:
+        fail(f"train loss did not fall: first batch {first}, last epoch "
+             f"{last}")
+    if not math.isfinite(results["test_eval"]["loss"]):
+        fail("non-finite test loss")
+
+    # the trained model's flash logits against its dense logits (the
+    # port's reference attention) on a small input
+    model = results["model"]
+    x = torch.from_numpy(np.asarray(results["test"].images[:4])).to(
+        next(model.parameters()).device, torch.long)
+    with torch.no_grad():
+        flash_logits = model(x)
+        attns = [m for m in model.modules() if hasattr(m, "attention_impl")]
+        for m in attns:
+            m.attention_impl = "dense"
+        dense_logits = model(x)
+        for m in attns:
+            m.attention_impl = "flash"
+    want = (4, PATH_LEN, results["test"].num_classes)
+    if tuple(flash_logits.shape) != want:
+        fail(f"logits shape {tuple(flash_logits.shape)}, expected {want}")
+    e, rel = _err(flash_logits, dense_logits)
+    print(f"[path] flash vs dense logits on 4 test sequences: max abs err "
+          f"{e:.4g} ({rel:.3g} of max |dense|)")
+    if not (math.isfinite(e) and rel <= 5e-2):
+        fail("flash and dense logits disagree beyond bf16 tolerance 5e-2")
+
+    train_ms = sum(r["train_ms"] for r in rt)
+    step_ms = train_ms / train_steps
+    print(f"[path] wall {wall:.1f} s; train step {step_ms:.3f} ms; "
+          f"{train_steps * PATH_BATCH * PATH_LEN / (train_ms / 1e3):.0f} "
+          f"tokens/s; first-batch loss {first:.4f} -> last-epoch mean "
+          f"{last:.4f}; val loss {results['global_val_losses'][-1]:.4f}; "
+          f"test loss {results['test_eval']['loss']:.4f}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    return counts, results
+
+
+def phase_profile(results) -> None:
+    """Where a train step's device time goes: one more round of
+    PROFILE_STEPS train steps of the trained model under torch.profiler,
+    after the path's counts were read.  Prints device time by kernel and
+    the device's busy share of the round's wall time."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    from torch.profiler import ProfilerActivity, profile
+    cfg = import_module(f"{PKG}.config").config_from_args(PATH_ARGV)
+    train = import_module(f"{PKG}.train")
+    device = next(results["model"].parameters()).device
+    engine = train.LocalSGDEngine(results["model"], cfg, device)
+    state = results["state"]
+    test = results["test"]
+    n = PROFILE_STEPS * PATH_BATCH
+    shape = (1, PROFILE_STEPS, PATH_BATCH, -1)
+    pack = (test.images[:n].reshape(shape), test.labels[:n].reshape(shape),
+            np.ones((1, PROFILE_STEPS, PATH_BATCH), np.float32))
+    val = tuple(a[:, :1] for a in pack)
+    engine.round(state, pack, val)              # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.round(state, pack, val)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kind = (torch.autograd.DeviceType.CUDA if device.type == "cuda"
+            else torch.autograd.DeviceType.CPU)
+    rows = [e for e in prof.key_averages() if e.device_type == kind]
+    attr = ("self_device_time_total" if device.type == "cuda"
+            else "self_cpu_time_total")
+    dev_us = lambda e: getattr(e, attr)
+    rows.sort(key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows)
+    if not busy > 0:
+        fail("the profiler recorded no device time")
+    print(f"[profile] {PROFILE_STEPS} train steps + 1 val step: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / wall_us:.1f}%), idle "
+          f"{100 * (1 - busy / wall_us):.1f}%")
+    for e in rows[:20]:
+        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / busy:5.1f}%"
+              f" x{e.count:<5d} {e.key[:110]}")
+
+
+def main() -> int:
+    name, smi = phase_device()
+    import torch  # noqa: F401  (device phase checked the card)
+    phase_build()
+    rows = phase_kernels()
+    counts, results = phase_path()
+    phase_profile(results)
+    kernels = []
+    for kname, (src, replaces) in KERNELS.items():
+        kernels.append(dict(
+            name=kname, route="cuda", source=f"{PKG}/{src}",
+            replaces=f"{JAX_PKG}/{replaces}", launches=counts[kname],
+            **rows[kname]))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

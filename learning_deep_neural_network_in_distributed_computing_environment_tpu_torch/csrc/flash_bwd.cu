@@ -1,0 +1,292 @@
+// Flash-attention backward for Hopper (sm_90a), written by hand: the
+// two-pass FlashAttention-2 construction.
+//
+// Replaces: ops/pallas_ops.py::_bwd_dq_kernel and ::_bwd_dkv_kernel of the
+// JAX package, reached via _flash_backward.
+//
+// What they compute, from q, k, v, dO, the forward's lse and
+// delta = rowsum(dO * O) (computed outside, as in the JAX package):
+//   p  = exp(q k^T * scale - lse)            (recomputed per tile pair)
+//   ds = p * (dO v^T - delta) * scale
+//   dq = ds k                                 (bwd_dq_kernel)
+//   dv = p^T dO,  dk = ds^T q                 (bwd_dkv_kernel)
+// For grouped-query attention dk/dv of a K/V head sum over its H / KV
+// query heads.
+//
+// What bounds them on this card: at the main-path shape (B=64, L=128,
+// H=12, D=64, causal, bf16) each pass does 3-4 small products per visible
+// (query, key) pair against ~60 MB of operands, so an ideal kernel is
+// memory-bound; this first version runs its products on the fp32 FMA pipes
+// from shared memory and is bound by shared-memory traffic and FMA issue.
+//
+// What the design does about it: every block keeps its accumulators in
+// registers for its whole loop and writes each output once, so nothing is
+// carried between blocks and no atomics are needed.
+// - bwd_dq_kernel: one block per (query tile, query head, batch); a loop
+//   over key tiles replaces the TPU's sequential grid axis, stopping at the
+//   last tile with a visible key under causal.
+// - bwd_dkv_kernel: one block per (key tile, K/V head, batch); the loop
+//   runs over the rep = H / KV query heads of the group and, for each,
+//   over the query tiles that can see this key tile (causal skips the
+//   earlier ones), so the group's dk/dv sum in registers.
+// Diagonal and ragged tiles are masked element-wise.
+#include "flash_common.cuh"
+
+namespace flash {
+
+// For one (query tile, key tile) pair staged in shared memory, compute the
+// 4 x 4 micro-tile of p and ds this thread owns (query rows ty*4+i, key
+// columns tx+16j) and store them to sP / sDS (either may be null).
+template <int D>
+__device__ __forceinline__ void probs_and_ds(const float* sQ, const float* sdO, const float* sK,
+                                             const float* sV, const float* sLse,
+                                             const float* sDelta, float* sP, float* sDS, int q0,
+                                             int k0, int Lk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], g[4], kk[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = sQ[(ty * 4 + i) * LD + d];
+      g[i] = sdO[(ty * 4 + i) * LD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kk[j] = sK[(tx + 16 * j) * LD + d];
+      vv[j] = sV[(tx + 16 * j) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const float lse = sLse[r], delta = sDelta[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const float p = visible(q0 + r, k0 + c, Lk, causal) ? expf(s[i][j] * scale - lse) : 0.f;
+      if (sP != nullptr) sP[r * LS + c] = p;
+      sDS[r * LS + c] = p * (dp[i][j] - delta) * scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Lq, int Lk,
+              long long sqb, long long sql, long long sqh, long long skb, long long skl,
+              long long skh, long long svb, long long svl, long long svh, long long sdb,
+              long long sdl, long long sdh, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, DJ = Tile<D>::DJ;
+  extern __shared__ float smem[];
+  float* sQ = smem;              // [BQ][LD]
+  float* sdO = sQ + BQ * LD;     // [BQ][LD]
+  float* sK = sdO + BQ * LD;     // [BK][LD]
+  float* sV = sK + BK * LD;      // [BK][LD]
+  float* sDS = sV + BK * LD;     // [BQ][LS]
+  float* sLse = sDS + BQ * LS;   // [BQ]
+  float* sDelta = sLse + BQ;     // [BQ]
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / KV);
+  const int q0 = qt * BQ;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  load_rows<T, D>(sQ, q + b * sqb + h * sqh, sql, q0, BQ, Lq);
+  load_rows<T, D>(sdO, dout + b * sdb + h * sdh, sdl, q0, BQ, Lq);
+  for (int r = threadIdx.x; r < BQ; r += NT) {
+    const bool in = q0 + r < Lq;
+    const long long at = ((long long)b * H + h) * Lq + q0 + r;
+    sLse[r] = in ? lse[at] : 0.f;
+    sDelta[r] = in ? delta[at] : 0.f;
+  }
+  const T* kb = k + b * skb + g * skh;
+  const T* vb = v + b * svb + g * svh;
+
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  const int nk = (Lk + BK - 1) / BK;
+  const int kt_end = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // previous tile's readers are done with sK/sV/sDS
+    load_rows<T, D>(sK, kb, skl, k0, BK, Lk);
+    load_rows<T, D>(sV, vb, svl, k0, BK, Lk);
+    __syncthreads();
+    probs_and_ds<D>(sQ, sdO, sK, sV, sLse, sDelta, nullptr, sDS, q0, k0, Lk, causal, scale);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float ds[4], kk[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = sDS[(ty * 4 + i) * LS + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kk[j] = sK[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kk[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= Lq) continue;
+    T* row = dq + (((long long)b * Lq + qpos) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
+               int KV, int Lq, int Lk, long long sqb, long long sql, long long sqh, long long skb,
+               long long skl, long long skh, long long svb, long long svl, long long svh,
+               long long sdb, long long sdl, long long sdh, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, DJ = Tile<D>::DJ;
+  extern __shared__ float smem[];
+  float* sK = smem;              // [BK][LD]
+  float* sV = sK + BK * LD;      // [BK][LD]
+  float* sQ = sV + BK * LD;      // [BQ][LD]
+  float* sdO = sQ + BQ * LD;     // [BQ][LD]
+  float* sP = sdO + BQ * LD;     // [BQ][LS]
+  float* sDS = sP + BQ * LS;     // [BQ][LS]
+  float* sLse = sDS + BQ * LS;   // [BQ]
+  float* sDelta = sLse + BQ;     // [BQ]
+
+  const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int rep = H / KV;
+  const int k0 = kt * BK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  load_rows<T, D>(sK, k + b * skb + g * skh, skl, k0, BK, Lk);
+  load_rows<T, D>(sV, v + b * svb + g * svh, svl, k0, BK, Lk);
+
+  // this thread owns key rows ty*4+i, head-dim columns tx+16j of dk and dv
+  float dk_acc[4][DJ], dv_acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (Lq + BQ - 1) / BQ;
+  // causal: query tile i sees this key tile iff i*BQ + BQ - 1 >= k0,
+  // i.e. i >= floor(k0 / BQ)
+  const int qt_begin = causal ? k0 / BQ : 0;
+  for (int m = 0; m < rep; ++m) {
+    const int h = g * rep + m;
+    const T* qb = q + b * sqb + h * sqh;
+    const T* db = dout + b * sdb + h * sdh;
+    for (int qt = qt_begin; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // previous tile's readers are done with sQ/sdO/sP/sDS
+      load_rows<T, D>(sQ, qb, sql, q0, BQ, Lq);
+      load_rows<T, D>(sdO, db, sdl, q0, BQ, Lq);
+      for (int r = threadIdx.x; r < BQ; r += NT) {
+        const bool in = q0 + r < Lq;
+        const long long at = ((long long)b * H + h) * Lq + q0 + r;
+        sLse[r] = in ? lse[at] : 0.f;
+        sDelta[r] = in ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      probs_and_ds<D>(sQ, sdO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, Lk, causal, scale);
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float p[4], ds[4], go[DJ], qq[DJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = sP[r * LS + ty * 4 + i];
+          ds[i] = sDS[r * LS + ty * 4 + i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          go[j] = sdO[r * LD + tx + 16 * j];
+          qq[j] = sQ[r * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            dv_acc[i][j] = fmaf(p[i], go[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(ds[i], qq[j], dk_acc[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty * 4 + i;
+    if (kpos >= Lk) continue;
+    const long long at = (((long long)b * Lk + kpos) * KV + g) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[at + tx + 16 * j] = from_f<T>(dk_acc[i][j]);
+      dv[at + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+}  // namespace flash
+
+// q/dout [B, Lq, H, D], k/v [B, Lk, KV, D] (strided; head_dim contiguous);
+// lse/delta contiguous fp32 [B, H, Lq]; dq contiguous [B, Lq, H, D] in the
+// input dtype.  Returns the launch status.
+extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq, int dtype, int B,
+                            int H, int KV, int Lq, int Lk, int head_dim, long long sqb,
+                            long long sql, long long sqh, long long skb, long long skl,
+                            long long skh, long long svb, long long svl, long long svh,
+                            long long sdb, long long sdl, long long sdh, int causal,
+                            float scale, void* stream) {
+  using namespace flash;
+  const dim3 grid((Lq + BQ - 1) / BQ, H, B);
+  FLASH_DISPATCH(dtype, head_dim, {
+    constexpr int LD = Tile<D>::LD;
+    const size_t smem = sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * LS + 2 * BQ);
+    return launch(bwd_dq_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, lse, delta, (T*)dq, H, KV, Lq, Lk, sqb, sql,
+                  sqh, skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);
+  });
+}
+
+// As flash_bwd_dq; dk/dv contiguous [B, Lk, KV, D] in the input dtype.
+extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dk, void* dv,
+                             int dtype, int B, int H, int KV, int Lq, int Lk, int head_dim,
+                             long long sqb, long long sql, long long sqh, long long skb,
+                             long long skl, long long skh, long long svb, long long svl,
+                             long long svh, long long sdb, long long sdl, long long sdh,
+                             int causal, float scale, void* stream) {
+  using namespace flash;
+  const dim3 grid((Lk + BK - 1) / BK, KV, B);
+  FLASH_DISPATCH(dtype, head_dim, {
+    constexpr int LD = Tile<D>::LD;
+    const size_t smem = sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * LS + 2 * BQ);
+    return launch(bwd_dkv_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, lse, delta, (T*)dk, (T*)dv, H, KV, Lq, Lk, sqb,
+                  sql, sqh, skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);
+  });
+}

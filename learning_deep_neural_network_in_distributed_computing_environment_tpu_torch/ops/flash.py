@@ -1,0 +1,273 @@
+"""Flash attention: wrappers around the hand-written Hopper kernels, their
+plain PyTorch versions, and the autograd glue (port of the JAX package's
+``ops/pallas_ops.py:118-563``).
+
+Three kernels (``csrc/``, built by ``ops/_build.py``):
+
+- ``flash_fwd``      <- ``_flash_kernel`` / ``_fwd_kernel_nolse``: O and,
+  when training, the per-row log-sum-exp (fp32 [B, H, Lq]);
+- ``flash_bwd_dq``   <- ``_bwd_dq_kernel``: dq, key tiles innermost;
+- ``flash_bwd_dkv``  <- ``_bwd_dkv_kernel``: dk/dv, query tiles innermost,
+  summed over each K/V head's query group.
+
+A wrapper launches its kernel for CUDA tensors (or raises) and computes the
+plain fp32 version for CPU tensors; ``LAUNCHES`` counts kernel launches, one
+per launch and nowhere else, so a run can show which path it took.  The
+plain versions are also what ``chip_smoke.py`` holds the kernels against.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import torch
+
+from .attention import NEG_INF, dot_product_attention, kv_group_size
+
+log = logging.getLogger(__name__)
+
+# head dims the kernels are instantiated for (csrc/flash_common.cuh
+# FLASH_DISPATCH lists the same)
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the last reset_launch_counts()
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Shapes and types the CUDA kernels take.  They mask ragged sequence
+    tails themselves, so unlike the TPU kernel there is no 128-multiple
+    rule; what remains is the instantiated head dims, whole query groups,
+    and bf16/fp32 inputs of one dtype."""
+    return (q.shape[-1] in SUPPORTED_HEAD_DIMS
+            and q.shape[2] % k.shape[2] == 0
+            and q.dtype in _DTYPE_CODES
+            and q.dtype == k.dtype == v.dtype)
+
+
+_DENSE_LOGGED: set = set()
+
+
+def _log_dense(reason: str, q: torch.Tensor) -> None:
+    """Warn once per (reason, shape) when requested flash attention runs the
+    dense path instead, so a config that asks for flash cannot quietly
+    measure dense."""
+    key = (reason, tuple(q.shape))
+    if key not in _DENSE_LOGGED:
+        _DENSE_LOGGED.add(key)
+        log.warning("flash attention requested but running dense for q "
+                    "shape %s: %s", tuple(q.shape), reason)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions (fp32), the CPU path and the kernels' reference
+# --------------------------------------------------------------------------
+
+def _scores(q, k, causal):
+    """Scaled fp32 scores [B, KV, rep, Lq, Lk], masked with NEG_INF."""
+    b, lq, h, d = q.shape
+    lk, kv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, lq, kv, h // kv, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * d ** -0.5
+    if causal:
+        keep = (torch.arange(lk, device=q.device)[None, :]
+                <= torch.arange(lq, device=q.device)[:, None])
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def plain_forward(q, k, v, causal=False):
+    """(O in q's dtype [B, Lq, H, D], lse fp32 [B, H, Lq])."""
+    b, lq, h, d = q.shape
+    s = _scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float()).reshape(b, lq, h, d)
+    return o.to(q.dtype), lse.reshape(b, h, lq)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal):
+    b, lq, h, d = q.shape
+    kv = k.shape[2]
+    s = _scores(q, k, causal)
+    p = torch.exp(s - lse.reshape(b, kv, h // kv, lq)[..., None])
+    dog = do.float().reshape(b, lq, kv, h // kv, d)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    ds = p * (dp - delta.reshape(b, kv, h // kv, lq)[..., None]) * d ** -0.5
+    return p, ds
+
+
+def plain_bwd_dq(q, k, v, do, lse, delta, causal=False):
+    """dq in q's dtype, from lse and delta = rowsum(dO * O) [B, H, Lq]."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float())
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def plain_bwd_dkv(q, k, v, do, lse, delta, causal=False):
+    """(dk, dv) in k's dtype, summed over each K/V head's query group."""
+    b, lq, h, d = q.shape
+    kv = k.shape[2]
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    qg = q.float().reshape(b, lq, kv, h // kv, d)
+    dog = do.float().reshape(b, lq, kv, h // kv, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernel launches
+# --------------------------------------------------------------------------
+
+def _head_dim_contiguous(*ts):
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+
+
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _common_args(q, k):
+    b, lq, h, d = q.shape
+    return [_DTYPE_CODES[q.dtype], b, h, k.shape[2], lq, k.shape[1], d]
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def kernel_forward(q, k, v, causal=False, with_lse=False):
+    """Launch ``flash_fwd``: (O, lse or None)."""
+    from ._build import function
+    q, k, v = _head_dim_contiguous(q, k, v)
+    b, lq, h, d = q.shape
+    o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):
+        err = function("flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), *_common_args(q, k),
+            *_strides(q, k, v), int(causal), d ** -0.5, _stream(q))
+    _check(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def kernel_bwd_dq(q, k, v, do, lse, delta, causal=False):
+    from ._build import function
+    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = function("flash_bwd_dq")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_common_args(q, k), *_strides(q, k, v, do), int(causal),
+            q.shape[-1] ** -0.5, _stream(q))
+    _check(err, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def kernel_bwd_dkv(q, k, v, do, lse, delta, causal=False):
+    from ._build import function
+    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        err = function("flash_bwd_dkv")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_common_args(q, k), *_strides(q, k, v, do), int(causal),
+            q.shape[-1] ** -0.5, _stream(q))
+    _check(err, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+# --------------------------------------------------------------------------
+# dispatch: the kernel for CUDA tensors, the plain version for CPU tensors
+# --------------------------------------------------------------------------
+
+def _on_cuda(q: torch.Tensor) -> bool:
+    if q.is_cuda:
+        return True
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention takes CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return False
+
+
+def flash_forward(q, k, v, causal=False, with_lse=False):
+    if _on_cuda(q):
+        return kernel_forward(q, k, v, causal, with_lse)
+    o, lse = plain_forward(q, k, v, causal)
+    return o, (lse if with_lse else None)
+
+
+def flash_backward(q, k, v, o, lse, do, causal=False):
+    """(dq, dk, dv); delta = rowsum(dO * O) is a plain reduction, as in the
+    JAX package."""
+    b, lq, h, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    if _on_cuda(q):
+        dq = kernel_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = kernel_bwd_dkv(q, k, v, do, lse, delta, causal)
+    else:
+        dq = plain_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = plain_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward keeps q, k, v, O and lse
+    as residuals and the backward runs the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    causal: bool = False) -> torch.Tensor:
+    """[B, Lq, H, D] flash attention (K/V may carry fewer heads — GQA).
+
+    An arbitrary ``mask`` is not tiled: it runs the dense path, logged once
+    per shape.  A CUDA input the kernels do not take raises."""
+    if mask is not None:
+        _log_dense("arbitrary masks are not tiled (use causal=True for "
+                   "autoregressive masking)", q)
+        return dot_product_attention(q, k, v, mask, causal=causal)
+    kv_group_size(q, k)
+    if q.is_cuda and not _supported(q, k, v):
+        raise ValueError(
+            f"flash attention kernels take head_dim in {SUPPORTED_HEAD_DIMS}, "
+            f"query heads divisible by kv heads and bf16/fp32 inputs of one "
+            f"dtype; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
+            f"{k.dtype}, v {v.dtype} (use --attention_impl dense)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_forward(q, k, v, causal)[0]

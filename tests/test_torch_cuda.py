@@ -1,0 +1,101 @@
+"""Card-only tests of the PyTorch port's CUDA kernels (marker ``cuda``).
+
+The kernels have no CPU mode, so every test here skips without a CUDA
+device.  The file imports nothing of JAX, so it also runs on a machine
+without it, skipping the repository's JAX conftest:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+
+``chip_smoke.py`` runs the same comparisons at the main path's full size.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.ops import (
+    flash as t_flash,
+)
+
+pytestmark = pytest.mark.cuda
+
+# bf16 outputs of fp32 accumulations in another order than the fp32 plain
+# version: 2e-2 of each tensor's largest magnitude (bf16 spacing is 2^-8
+# relative); lse stays fp32 end to end: 1e-3 absolute
+REL_TOL, LSE_TOL = 2e-2, 1e-3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(cuda, b, l, h, kv, d, dtype=torch.bfloat16, seed=4):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(cuda, dtype)
+    return mk(b, l, h, d), mk(b, l, kv, d), mk(b, l, kv, d), mk(b, l, h, d)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_kernels_match_plain_versions_on_ragged_gqa(cuda, causal, dtype):
+    """L=200 (not a tile multiple) and 8 query heads over 4 K/V heads."""
+    q, k, v, do = _inputs(cuda, 2, 200, 8, 4, 64, dtype)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], causal)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    o, lse = t_flash.kernel_forward(q, k, v, causal, with_lse=True)
+    dq = t_flash.kernel_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = t_flash.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    want = (o_ref, t_flash.plain_bwd_dq(*f32, lse_ref, delta, causal),
+            *t_flash.plain_bwd_dkv(*f32, lse_ref, delta, causal))
+    for name, got, ref in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), want):
+        assert got.dtype == dtype, name
+        assert _rel(got, ref) <= REL_TOL, name
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
+def test_autograd_on_strided_views_matches_cpu_plain_path(cuda):
+    """q/k/v as strided views of one fused projection, as the model hands
+    them over: the kernels' gradients against the plain path on the CPU,
+    and one launch of each kernel per call."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.normal(size=(2, 96, 3, 4, 32)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 96, 4, 32)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        x = qkv.to(dev).requires_grad_()
+        q, k, v = x.unbind(2)
+        t_flash.reset_launch_counts()
+        out = t_flash.flash_attention(q, k, v, causal=True)
+        (dx,) = torch.autograd.grad(out, x, g.to(dev))
+        grads[dev] = (out.detach().cpu(), dx.cpu())
+        launches = dict(t_flash.LAUNCHES)
+        assert launches == ({"flash_fwd": 1, "flash_bwd_dq": 1,
+                             "flash_bwd_dkv": 1} if dev == "cuda" else
+                            {"flash_fwd": 0, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0})
+    # fp32 on both sides, different summation order
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
+
+
+def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
+    q = torch.zeros(1, 16, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="attention_impl dense"):
+        t_flash.flash_attention(q, q, q, causal=True)
+    q = torch.zeros(1, 16, 4, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        t_flash.flash_attention(q, q, q, causal=True)

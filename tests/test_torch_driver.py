@@ -1,0 +1,172 @@
+"""The PyTorch port end to end on the CPU: ``main`` through the driver, the
+device rule of its entry points, the config's rejections of features not
+ported yet, and the guard that the port imports nothing of JAX."""
+
+import ast
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+    config as t_config,
+    driver as t_driver,
+    main as t_main,
+    viz as t_viz,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = "learning_deep_neural_network_in_distributed_computing_environment_tpu_torch"
+JAX_PKG = "learning_deep_neural_network_in_distributed_computing_environment_tpu"
+
+# the reference's metric structures (the JAX driver's results keys)
+REFERENCE_KEYS = (
+    "all_workers_losses", "all_epochs_losses", "global_epoch_losses",
+    "global_epoch_accuracies", "global_train_losses",
+    "global_train_accuracies", "global_val_losses", "global_val_accuracies",
+    "worker_specific_train_losses", "worker_specific_train_accuracies",
+    "worker_specific_val_losses", "worker_specific_val_accuracies",
+    "step_caps", "shard_sizes", "round_timings")
+PLOTS = ("training_metrics", "training_metrics_0",
+         "loss_distribution_by_worker", "loss_distribution_per_epoch",
+         "loss_distribution_per_epoch_global",
+         "accuracy_distribution_per_epoch_global")
+
+
+def _argv(out_dir, *extra):
+    return ["--model", "gpt_tiny", "--dataset", "synthetic_lm",
+            "--epochs_global", "1", "--epochs_local", "2",
+            "--batch_size", "8", "--limit_train_samples", "40",
+            "--limit_eval_samples", "8", "--probe_batches", "1",
+            "--compute_dtype", "float32", "--out_dir", str(out_dir), *extra]
+
+
+@pytest.mark.parametrize("attention_impl", ["dense", "flash"])
+def test_main_one_round_on_cpu(tmp_path, monkeypatch, attention_impl):
+    """One round of gpt_tiny through ``main``: the reference metric keys,
+    finite losses, the test evaluation, and the six plots as the JSON the
+    card machine writes (it has no matplotlib)."""
+    monkeypatch.setattr(t_viz, "_plt", lambda: None)
+    results = t_main.run(_argv(tmp_path, "--device", "cpu",
+                               "--attention_impl", attention_impl))
+    for key in REFERENCE_KEYS:
+        assert key in results, key
+    assert len(results["global_train_losses"]) == 1
+    assert len(results["worker_specific_train_losses"]) == 2
+    # 40 samples -> 32 train / 8 val; one worker -> 4 steps per epoch
+    assert results["shard_sizes"] == [[32]]
+    assert results["round_timings"][0]["train_steps"] == 2 * 4
+    assert len(results["all_workers_losses"][0]) == 2 * 4
+    assert all(math.isfinite(x) for x in results["all_workers_losses"][0])
+    ev = results["test_eval"]
+    assert math.isfinite(ev["loss"]) and 0.0 <= ev["accuracy"] <= 100.0
+    assert set(results["variables"]) == set(results["model"].state_dict())
+    for name in PLOTS:
+        payload = json.loads((tmp_path / f"{name}.json").read_text())
+        assert payload
+    assert not any(tmp_path.glob("*.png"))
+
+
+def test_train_global_repartitions_across_rounds():
+    """Two rounds with pinned probe durations: the shard is re-drawn
+    between rounds and keeps its size at one worker."""
+    cfg = t_config.Config(model="gpt_tiny", dataset="synthetic_lm",
+                          epochs_global=2, epochs_local=1, batch_size=8,
+                          limit_train_samples=40, limit_eval_samples=8,
+                          compute_dtype="float32", device="cpu")
+    results = t_driver.train_global(cfg, simulated_durations=[1.0],
+                                    progress=False)
+    assert results["shard_sizes"] == [[32], [32]]
+    assert len(results["global_val_losses"]) == 2
+    assert np.isfinite(results["global_val_losses"]).all()
+
+
+def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """Without --device cpu the port needs a card; it never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_main.run(_argv(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_driver.resolve_device(None)
+    assert t_driver.resolve_device("cpu") == torch.device("cpu")
+    assert not any(tmp_path.iterdir())
+
+
+def test_serve_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A.10"):
+        t_main.run(["serve", "--checkpoint_dir", "x"])
+
+
+@pytest.mark.parametrize("flags,where", [
+    (["--sync_mode", "sharded"], "A.8"),
+    (["--remat_policy", "everything"], "A.7"),
+    (["--grad_accum", "2"], "A.7"),
+    (["--num_experts", "4"], "A.7"),
+    (["--mesh_shape", "data=1,model=2"], "A.11"),
+    (["--num_workers", "2"], "A.5"),
+], ids=["sync_mode", "remat_policy", "grad_accum", "num_experts",
+        "mesh_shape", "num_workers"])
+def test_config_rejects_features_not_ported(flags, where):
+    with pytest.raises(ValueError, match=where):
+        t_config.config_from_args(["--device", "cpu", *flags])
+
+
+def test_config_keeps_reference_names_and_defaults():
+    cfg = t_config.config_from_args(["--mesh_shape", "data=1"])
+    assert (cfg.model, cfg.dataset, cfg.compute_dtype, cfg.attention_impl,
+            cfg.lr_step_size, cfg.lr_gamma, cfg.probe_batches,
+            cfg.out_dir) == ("enhanced_cnn", "cifar10", "bfloat16", "dense",
+                             25, 0.1, 10, "Graphs")
+    assert cfg.device is None and cfg.augment
+    # the reference's dead flags parse as no-ops
+    t_config.config_from_args(["--local-rank", "0", "--gpu_weight", "1.0",
+                               "--dist-url", "tcp://x", "--backend", "nccl"])
+
+
+def _port_sources():
+    return sorted((ROOT / PORT).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_jax_imports_in_port_sources():
+    """AST scan: no import of jax, flax, optax or the JAX package in the
+    port or in chip_smoke.py (``import_module("...")`` included)."""
+    banned = ("jax", "jaxlib", "flax", "optax", JAX_PKG)
+    offenders = []
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Call) and node.args
+                  and getattr(node.func, "id", getattr(node.func, "attr", ""))
+                  in ("import_module", "__import__")
+                  and isinstance(node.args[0], ast.Constant)):
+                names = [node.args[0].value]
+            for name in names:
+                if name.split(".")[0] in banned and name != PORT \
+                        and not name.startswith(PORT + "."):
+                    offenders.append(f"{path.name}: {name}")
+    assert not offenders, offenders
+    assert len(_port_sources()) > 15
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (f"import sys\n"
+            f"import {PORT}.main, {PORT}.driver, {PORT}.ops.flash\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"('jax', 'jaxlib', 'flax', 'optax', '{JAX_PKG}'))\n"
+            f"print(bad)\n"
+            f"assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

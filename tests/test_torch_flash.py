@@ -1,0 +1,110 @@
+"""The PyTorch port's flash attention against the JAX package's Pallas
+kernels (run in interpret mode on the CPU, outside shard_map).
+
+On CPU tensors the port's wrappers compute the plain fp32 versions of the
+CUDA kernels, so these tests hold the plain versions (the kernels'
+reference on the card, see chip_smoke.py) against the TPU kernels'
+arithmetic.  Inputs are made with numpy from a seed and handed to both.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learning_deep_neural_network_in_distributed_computing_environment_tpu.ops import (
+    pallas_ops,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.ops import (
+    attention as t_attn,
+    flash as t_flash,
+)
+
+B, L, H, D = 1, 128, 4, 16
+# forward: both sides compute in fp32, differing only in summation order
+FWD_ATOL = 1e-5
+# gradients: three chained products per element, fp32 rounding accumulates
+GRAD_ATOL = 1e-4
+CASES = [pytest.param(causal, kv, id=f"{'causal' if causal else 'full'}-"
+                      f"{'mha' if kv == H else 'gqa2'}")
+         for causal in (False, True) for kv in (H, H // 2)]
+
+
+def _inputs(kv, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, L, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, L, kv, D)).astype(np.float32)
+    v = rng.normal(size=(B, L, kv, D)).astype(np.float32)
+    g = rng.normal(size=(B, L, H, D)).astype(np.float32)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("causal,kv", CASES)
+def test_forward_and_lse_match_pallas(causal, kv):
+    q, k, v, _ = _inputs(kv)
+    want = pallas_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal=causal)
+    got = t_attn.attend(*map(torch.from_numpy, (q, k, v)), impl="flash",
+                        causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_ATOL)
+    _, lse_want = pallas_ops._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+        with_lse=True)
+    _, lse_got = t_flash.flash_forward(*map(torch.from_numpy, (q, k, v)),
+                                       causal, with_lse=True)
+    np.testing.assert_allclose(lse_got.numpy(), np.asarray(lse_want)[..., 0],
+                               atol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("causal,kv", CASES)
+def test_grads_match_pallas(causal, kv):
+    q, k, v, g = _inputs(kv, seed=1)
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: pallas_ops.flash_attention(q_, k_, v_,
+                                                      causal=causal),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = t_attn.attend(qt, kt, vt, impl="flash", causal=causal)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_plain_path_launches_no_kernel_and_matches_dense():
+    q, k, v, _ = _inputs(H // 2, seed=2)
+    t_flash.reset_launch_counts()
+    got = t_flash.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                  causal=True)
+    want = t_attn.dot_product_attention(*map(torch.from_numpy, (q, k, v)),
+                                        causal=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=FWD_ATOL)
+    assert all(n == 0 for n in t_flash.LAUNCHES.values())
+
+
+def test_mask_runs_dense_path():
+    q, k, v, _ = map(torch.from_numpy, _inputs(H, seed=3))
+    mask = torch.from_numpy(np.random.default_rng(0).random((L, L)) > 0.3)
+    mask |= torch.eye(L, dtype=torch.bool)
+    np.testing.assert_allclose(
+        t_flash.flash_attention(q, k, v, mask=mask).numpy(),
+        t_attn.dot_product_attention(q, k, v, mask).numpy(), atol=0)
+
+
+def test_kernel_shape_rules():
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    assert t_flash._supported(q, k, k)
+    assert not t_flash._supported(q[..., :16], k[..., :16], k[..., :16])
+    assert not t_flash._supported(q.half(), k.half(), k.half())
+    assert not t_flash._supported(q, k.float(), k)
+    # no 128-multiple rule: the kernels mask ragged tails themselves
+    assert t_flash._supported(q[:, :5], k[:, :5], k[:, :5])
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 8, 4, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        t_flash.flash_attention(q, q, q, causal=True)
