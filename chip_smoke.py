@@ -10,17 +10,21 @@ Phases (any failure exits non-zero before the result line):
 2. build   - nvcc builds every kernel from csrc/ (sm_90a) and prints the
              ptxas report (registers, shared memory, spills);
 3. kernels - each flash kernel against its plain PyTorch version on the
-             same bf16 inputs, at the main-path shape, at L=2048 causal and
-             non-causal, and at a GQA shape; times for the kernel, the plain
-             version and scaled_dot_product_attention (a yardstick the port
-             never calls), beside the least time the card could take;
+             same bf16 inputs, at both paths' shapes, at L=2048 causal and
+             non-causal, and at a long GQA shape; times for the kernel, the
+             plain version and a PyTorch attention call (a yardstick the
+             port never calls), beside the least time the card could take;
 4. path    - the port's CLI flow (main.run) trains full-width gpt2_small
-             with --attention_impl flash on synthetic_lm, with launch
-             counters reset just before and read just after; checks the
-             counts, finite and falling losses, and the trained model's
-             flash logits against its dense logits on a small input;
+             with --attention_impl flash on synthetic_lm (two-pass
+             backward), with launch counters reset just before and read
+             just after; checks the counts, finite and falling losses, and
+             the trained model's flash logits against its dense logits on a
+             small input;
 5. profile - device time by kernel over a few more train steps of the
-             trained model (torch.profiler), and the device's busy share.
+             trained model (torch.profiler), and the device's busy share;
+6. llama   - the same two phases for full-width llama_medium with 4 K/V
+             heads under FLASH_BWD=fused (the fused backward kernel), in a
+             child process, since the switch is read once at import.
 
 The last lines are the nvidia-smi line, one JSON object with a row per
 kernel, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -44,33 +48,52 @@ JAX_PKG = "learning_deep_neural_network_in_distributed_computing_environment_tpu
 # bytes/s and dense bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-LAYERS = 12                   # gpt2_small blocks: one launch each per pass
 PATH_BATCH, PATH_LEN = 64, 128
-OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # the path's plots
-PATH_ARGV = ["--model", "gpt2_small", "--dataset", "synthetic_lm",
-             "--attention_impl", "flash", "--epochs_global", "1",
-             "--epochs_local", "1", "--batch_size", str(PATH_BATCH),
-             "--limit_train_samples", "1280", "--limit_eval_samples", "256",
-             "--out_dir", OUT_DIR]
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # the paths' plots
+_COMMON_ARGV = ["--dataset", "synthetic_lm", "--attention_impl", "flash",
+                "--epochs_global", "1", "--epochs_local", "1",
+                "--batch_size", str(PATH_BATCH), "--limit_train_samples",
+                "1280", "--limit_eval_samples", "256"]
+# path name -> (argv of main.run, layers: one launch each per pass)
+PATHS = {
+    "gpt2": (["--model", "gpt2_small", *_COMMON_ARGV, "--out_dir",
+              os.path.join(OUT_DIR, "gpt2")], 12),
+    "llama": (["--model", "llama_medium", "--num_kv_heads", "4",
+               *_COMMON_ARGV, "--out_dir", os.path.join(OUT_DIR, "llama")],
+              16),
+}
 PROFILE_STEPS = 4              # 4 x 64 sequences of the 256-sequence test set
+LLAMA_PHASE = "llama"          # the child's argument
+RESULT_TAG = "chip_smoke-llama-result "
 
-# (label, B, L, H, KV, D, causal); the first row is the main-path shape
+# (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape and
+# "llama_path" the llama path's
 SHAPES = [
     ("main", PATH_BATCH, PATH_LEN, 12, 12, 64, True),
     ("L2048_causal", 4, 2048, 12, 12, 64, True),
     ("L2048", 4, 2048, 12, 12, 64, False),
     ("gqa_llama_medium", 2, 1024, 16, 4, 64, True),
+    ("llama_path", PATH_BATCH, PATH_LEN, 16, 4, 64, True),
 ]
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
 # gradients are rounded to bf16 (relative spacing 2^-8) after fp32
 # accumulation in a different order: 1e-2 for O, 2e-2 for the gradients,
-# whose terms are larger products.  lse stays fp32 end to end: 1e-3 absolute.
+# whose terms are larger products.  The fused kernel's dq is summed by
+# fp32 atomics whose order changes from run to run; it is rounded to bf16
+# once, so the same 2e-2 holds.  lse stays fp32 end to end: 1e-3 absolute.
 TOL_O, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 1e-3
+# kernel -> (source, TPU kernel it replaces, the path and shape its JSON
+# row reports)
 KERNELS = {
-    "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66"),
-    "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192"),
-    "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235"),
+    "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66", "gpt2",
+                  "main"),
+    "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192", "gpt2",
+                     "main"),
+    "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235", "gpt2",
+                      "main"),
+    "flash_bwd_fused": ("csrc/flash_bwd_fused.cu", "ops/pallas_ops.py:290",
+                        "llama", "llama_path"),
 }
 
 
@@ -137,6 +160,43 @@ def _err(out, ref) -> tuple[float, float]:
     return e, e / max(ref.float().abs().max().item(), 1e-30)
 
 
+def _sdpa_backward_ms(q, k, v, do, causal, iters):
+    """Yardstick the port never calls: PyTorch's flash-attention backward
+    (``aten._scaled_dot_product_flash_attention_backward``) alone, on its
+    own forward's outputs, with grouped K/V as given (GQA).  Should that
+    call refuse grouped K/V, it is timed on K/V expanded to full heads and
+    the note says so.  Returns (ms or None, note)."""
+    import torch
+    aten = torch.ops.aten
+    dot = do.transpose(1, 2)
+
+    def timed(k_, v_):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k_, v_))
+        fwd = aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, causal, False)
+        out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+        bwd = lambda: aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
+            offset)
+        return cuda_ms(bwd, iters)
+
+    note = "aten flash-attention backward"
+    try:                                         # a yardstick, not the port
+        return timed(k, v), note + ("" if k.shape[2] == q.shape[2]
+                                    else " on grouped K/V")
+    except (RuntimeError, TypeError, ValueError) as e:
+        if k.shape[2] == q.shape[2]:
+            return None, f"{note} unavailable: {e}"
+        refused = str(e).splitlines()[0][:120]
+    rep = q.shape[2] // k.shape[2]
+    try:
+        ms = timed(*(t.repeat_interleave(rep, 2) for t in (k, v)))
+        return ms, (f"{note} on K/V expanded to full heads (grouped K/V "
+                    f"refused: {refused})")
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, f"{note} unavailable: {refused}; expanded: {e}"
+
+
 def check_shape(label, b, l, h, kv, d, causal) -> dict:
     """Each kernel against its plain version at one shape; returns the
     per-kernel numbers for that shape."""
@@ -154,25 +214,34 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
     delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
     dq_ref = fl.plain_bwd_dq(*f32, lse_ref, delta, causal)
     dk_ref, dv_ref = fl.plain_bwd_dkv(*f32, lse_ref, delta, causal)
+    fused_ref = fl.plain_bwd_fused(*f32, lse_ref, delta, causal)
 
     o, lse = fl.kernel_forward(q, k, v, causal, with_lse=True)
     dq = fl.kernel_bwd_dq(q, k, v, do, lse_ref, delta, causal)
     dk, dv = fl.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    fused = fl.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
     torch.cuda.synchronize()
     checks = {"flash_fwd": [("o", o, o_ref, TOL_O)],
               "flash_bwd_dq": [("dq", dq, dq_ref, TOL_GRAD)],
               "flash_bwd_dkv": [("dk", dk, dk_ref, TOL_GRAD),
-                                ("dv", dv, dv_ref, TOL_GRAD)]}
+                                ("dv", dv, dv_ref, TOL_GRAD)],
+              "flash_bwd_fused": [(n, got, ref, TOL_GRAD) for n, got, ref
+                                  in zip(("dq", "dk", "dv"), fused,
+                                         fused_ref)]}
     lse_err = (lse - lse_ref).abs().max().item()
     if not lse_err <= TOL_LSE:
         fail(f"{label}: flash_fwd lse differs from plain by {lse_err}")
 
-    # work each kernel must do at this shape (causal: the visible pairs)
+    # work each function must do at this shape (causal: the visible pairs),
+    # each input read once and each output written once in its own dtype:
+    # the fused kernel's fp32 dq accumulator is its design, not the work
     pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
     qb, kvb, rowb = b * l * h * d * 2, b * l * kv * d * 2, b * h * l * 4
     work = {"flash_fwd": (2 * qb + 2 * kvb + rowb, 4 * pairs * d),
             "flash_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb, 6 * pairs * d),
-            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * pairs * d)}
+            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * pairs * d),
+            "flash_bwd_fused": (3 * qb + 4 * kvb + 2 * rowb,
+                                10 * pairs * d)}
     iters = 20 if l <= 128 else 5
     times = {
         "flash_fwd": (lambda: fl.kernel_forward(q, k, v, causal, True),
@@ -183,8 +252,12 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
         "flash_bwd_dkv": (
             lambda: fl.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal),
             lambda: fl.plain_bwd_dkv(q, k, v, do, lse_ref, delta, causal)),
+        "flash_bwd_fused": (
+            lambda: fl.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal),
+            lambda: fl.plain_bwd_fused(q, k, v, do, lse_ref, delta, causal)),
     }
-    # yardsticks the port never calls: SDPA forward, and forward+backward
+    # yardsticks the port never calls: SDPA forward, forward+backward, and
+    # PyTorch's flash backward alone
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
         a, b_, c, is_causal=causal, enable_gqa=kv != h)
@@ -193,6 +266,13 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
     dot = do.transpose(1, 2)
     sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(
         sdpa(qg, kg, vg), (qg, kg, vg), dot), iters)
+    bwd_ms, bwd_note = _sdpa_backward_ms(q, k, v, do, causal, iters)
+    library = {"flash_fwd": (sdpa_fwd_ms, "sdpa fwd"),
+               "flash_bwd_dq": (None, "no one call; sdpa fwd+bwd "
+                                      f"{sdpa_fb_ms:.4f}"),
+               "flash_bwd_dkv": (None, "no one call; sdpa fwd+bwd "
+                                       f"{sdpa_fb_ms:.4f}"),
+               "flash_bwd_fused": (bwd_ms, bwd_note)}
 
     rows = {}
     for name, pairs_ in checks.items():
@@ -205,18 +285,18 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
             errs.append(e)
         kernel_fn, plain_fn = times[name]
         b_ms, b_by = bound(*work[name])
+        lib_ms, lib_note = library[name]
         rows[name] = dict(
             max_abs_err=max(errs), ms=cuda_ms(kernel_fn, iters),
             plain_ms=cuda_ms(plain_fn, max(iters // 4, 2)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=sdpa_fwd_ms if name == "flash_fwd" else None,
-            library_fwd_bwd_ms=sdpa_fb_ms)
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library_note=lib_note, library_fwd_bwd_ms=sdpa_fb_ms,
+            shape=[b, l, h, kv, d, causal])
         r = rows[name]
-        lib = ("sdpa fwd" if name == "flash_fwd" else "sdpa fwd+bwd",
-               sdpa_fwd_ms if name == "flash_fwd" else sdpa_fb_ms)
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernels] {label} [B={b} L={l} H={h} KV={kv} D={d} "
               f"causal={causal}] {name}: kernel_ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} library_ms ({lib[0]}) {lib[1]:.4f} "
+              f"{r['plain_ms']:.4f} library_ms {lib} ({lib_note}) "
               f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
     return rows
 
@@ -226,23 +306,23 @@ def phase_kernels() -> dict:
     # the plain versions' fp32 products must not drop to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    main_rows = None
-    for shape in SHAPES:
-        rows = check_shape(*shape)
-        main_rows = main_rows or rows
-    return main_rows
+    return {shape[0]: check_shape(*shape) for shape in SHAPES}
 
 
-def phase_path() -> tuple[dict, dict]:
+def run_path(name: str) -> tuple[dict, dict]:
+    """Drive one path through main.run with the launch counters reset just
+    before and read just after; check the counts, the losses and the flash
+    logits against the dense ones; print the step time and memory."""
     import numpy as np
     import torch
     from importlib import import_module
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
+    argv, layers = PATHS[name]
     torch.cuda.reset_peak_memory_stats()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
-    results = main.run(PATH_ARGV)
+    results = main.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fl.LAUNCHES)
@@ -253,31 +333,35 @@ def phase_path() -> tuple[dict, dict]:
     val_steps = sum(r["val_steps"] for r in rt)
     eval_batches = -(-len(results["test"].labels) // PATH_BATCH)
     probe_passes = 1 + 10          # warm-up + --probe_batches default
-    expect = {
-        "flash_fwd": LAYERS * (probe_passes + train_steps + val_steps
-                               + eval_batches),
-        "flash_bwd_dq": LAYERS * (probe_passes + train_steps),
-        "flash_bwd_dkv": LAYERS * (probe_passes + train_steps),
-    }
-    print(f"[path] launches {counts}; expected {expect} "
+    fwd = layers * (probe_passes + train_steps + val_steps + eval_batches)
+    bwd = layers * (probe_passes + train_steps)
+    fused = fl._use_fused_bwd()
+    expect = {"flash_fwd": fwd,
+              "flash_bwd_dq": 0 if fused else bwd,
+              "flash_bwd_dkv": 0 if fused else bwd,
+              "flash_bwd_fused": bwd if fused else 0}
+    print(f"[{name}] launches {counts}; expected {expect} "
           f"({train_steps} train steps, {val_steps} val steps, "
-          f"{eval_batches} eval batches, {probe_passes} probe passes)")
+          f"{eval_batches} eval batches, {probe_passes} probe passes, "
+          f"FLASH_BWD={'fused' if fused else 'two-pass'})")
     if train_steps < 12:
-        fail(f"path ran only {train_steps} train steps")
-    if any(counts[n] == 0 for n in counts) or counts != expect:
-        fail(f"launch counts {counts} do not match the path's {expect}")
+        fail(f"{name} path ran only {train_steps} train steps")
+    if counts != expect or not all(counts[n] > 0 for n in expect
+                                   if expect[n]):
+        fail(f"{name}: launch counts {counts} do not match the path's "
+             f"{expect}")
     losses = results["all_workers_losses"][0]
     curves = [losses] + [results[k] for k in (
         "global_train_losses", "global_val_losses",
         "worker_specific_train_losses")]
     if not all(math.isfinite(x) for c in curves for x in c):
-        fail("non-finite loss in the path's metrics")
+        fail(f"non-finite loss in the {name} path's metrics")
     first, last = losses[0], results["worker_specific_train_losses"][-1]
     if not last < first:
-        fail(f"train loss did not fall: first batch {first}, last epoch "
-             f"{last}")
+        fail(f"{name}: train loss did not fall: first batch {first}, last "
+             f"epoch {last}")
     if not math.isfinite(results["test_eval"]["loss"]):
-        fail("non-finite test loss")
+        fail(f"{name}: non-finite test loss")
 
     # the trained model's flash logits against its dense logits (the
     # port's reference attention) on a small input
@@ -294,25 +378,29 @@ def phase_path() -> tuple[dict, dict]:
             m.attention_impl = "flash"
     want = (4, PATH_LEN, results["test"].num_classes)
     if tuple(flash_logits.shape) != want:
-        fail(f"logits shape {tuple(flash_logits.shape)}, expected {want}")
+        fail(f"{name}: logits shape {tuple(flash_logits.shape)}, expected "
+             f"{want}")
     e, rel = _err(flash_logits, dense_logits)
-    print(f"[path] flash vs dense logits on 4 test sequences: max abs err "
+    print(f"[{name}] flash vs dense logits on 4 test sequences: max abs err "
           f"{e:.4g} ({rel:.3g} of max |dense|)")
     if not (math.isfinite(e) and rel <= 5e-2):
-        fail("flash and dense logits disagree beyond bf16 tolerance 5e-2")
+        fail(f"{name}: flash and dense logits disagree beyond bf16 "
+             f"tolerance 5e-2")
 
     train_ms = sum(r["train_ms"] for r in rt)
     step_ms = train_ms / train_steps
-    print(f"[path] wall {wall:.1f} s; train step {step_ms:.3f} ms; "
-          f"{train_steps * PATH_BATCH * PATH_LEN / (train_ms / 1e3):.0f} "
-          f"tokens/s; first-batch loss {first:.4f} -> last-epoch mean "
-          f"{last:.4f}; val loss {results['global_val_losses'][-1]:.4f}; "
-          f"test loss {results['test_eval']['loss']:.4f}; "
-          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    tokens_s = train_steps * PATH_BATCH * PATH_LEN / (train_ms / 1e3)
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[{name}] {params:,} params; wall {wall:.1f} s; train step "
+          f"{step_ms:.3f} ms; {tokens_s:.0f} tokens/s; first-batch loss "
+          f"{first:.4f} -> last-epoch mean {last:.4f}; val loss "
+          f"{results['global_val_losses'][-1]:.4f}; test loss "
+          f"{results['test_eval']['loss']:.4f}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
     return counts, results
 
 
-def phase_profile(results) -> None:
+def phase_profile(name: str, results) -> None:
     """Where a train step's device time goes: one more round of
     PROFILE_STEPS train steps of the trained model under torch.profiler,
     after the path's counts were read.  Prints device time by kernel and
@@ -321,7 +409,7 @@ def phase_profile(results) -> None:
     import torch
     from importlib import import_module
     from torch.profiler import ProfilerActivity, profile
-    cfg = import_module(f"{PKG}.config").config_from_args(PATH_ARGV)
+    cfg = import_module(f"{PKG}.config").config_from_args(PATHS[name][0])
     train = import_module(f"{PKG}.train")
     device = next(results["model"].parameters()).device
     engine = train.LocalSGDEngine(results["model"], cfg, device)
@@ -350,28 +438,72 @@ def phase_profile(results) -> None:
     busy = sum(dev_us(e) for e in rows)
     if not busy > 0:
         fail("the profiler recorded no device time")
-    print(f"[profile] {PROFILE_STEPS} train steps + 1 val step: wall "
+    tag = f"[profile {name}]"
+    print(f"{tag} {PROFILE_STEPS} train steps + 1 val step: wall "
           f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({100 * busy / wall_us:.1f}%), idle "
           f"{100 * (1 - busy / wall_us):.1f}%")
     for e in rows[:20]:
-        print(f"[profile] {dev_us(e) / 1e3:9.3f} ms {100 * dev_us(e) / busy:5.1f}%"
-              f" x{e.count:<5d} {e.key[:110]}")
+        print(f"{tag} {dev_us(e) / 1e3:9.3f} ms "
+              f"{100 * dev_us(e) / busy:5.1f}% x{e.count:<5d} {e.key[:100]}")
+
+
+def llama_child() -> int:
+    """The llama path, run in a child process whose environment has
+    FLASH_BWD=fused before the port is imported; prints its counts as one
+    tagged JSON line for the parent."""
+    from importlib import import_module
+    if not import_module(f"{PKG}.ops.flash")._use_fused_bwd():
+        fail("the llama child does not see FLASH_BWD=fused")
+    counts, results = run_path("llama")
+    phase_profile("llama", results)
+    print(RESULT_TAG + json.dumps({"counts": counts}), flush=True)
+    return 0
+
+
+def phase_llama() -> dict:
+    """Run llama_child in a child process with FLASH_BWD=fused; echo its
+    output and return its launch counts."""
+    env = {**os.environ, "FLASH_BWD": "fused"}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           LLAMA_PHASE], env=env, capture_output=True,
+                          text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(RESULT_TAG):
+            result = json.loads(line[len(RESULT_TAG):])
+        else:
+            print(line)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"the llama child exited with {proc.returncode}"
+             + ("" if result else " and printed no result line"))
+    return result["counts"]
 
 
 def main() -> int:
+    if sys.argv[1:] == [LLAMA_PHASE]:
+        return llama_child()
+    # the gpt2 path runs the two-pass backward: the switch is read once, at
+    # the port's import, so it must be gone before anything imports it
+    os.environ.pop("FLASH_BWD", None)
     name, smi = phase_device()
     import torch  # noqa: F401  (device phase checked the card)
     phase_build()
     rows = phase_kernels()
-    counts, results = phase_path()
-    phase_profile(results)
+    counts = {}
+    counts["gpt2"], results = run_path("gpt2")
+    phase_profile("gpt2", results)
+    del results                    # give the card back for the child
+    torch.cuda.empty_cache()
+    counts["llama"] = phase_llama()
     kernels = []
-    for kname, (src, replaces) in KERNELS.items():
+    for kname, (src, replaces, path, shape) in KERNELS.items():
         kernels.append(dict(
             name=kname, route="cuda", source=f"{PKG}/{src}",
-            replaces=f"{JAX_PKG}/{replaces}", launches=counts[kname],
-            **rows[kname]))
+            replaces=f"{JAX_PKG}/{replaces}", launches=counts[path][kname],
+            launches_by_path={p: c[kname] for p, c in counts.items()},
+            path=path, **rows[shape][kname]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,6 @@ NOT_PORTED = {
     "remat_policy": ("none", "A.7 (transformer slice: torch.utils.checkpoint)"),
     "grad_accum": (1, "A.7 (transformer slice: gradient accumulation)"),
     "num_experts": (0, "A.7 (transformer slice: MoE FFN)"),
-    "num_kv_heads": (0, "A.7 (transformer slice: llama GQA)"),
     "layer_scan": ("auto", "A.7 (the port keeps per-block params; weights.py "
                            "converts both JAX layouts)"),
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
@@ -80,6 +79,7 @@ class Config:
     limit_eval_samples: int = 0
     augment: bool = True          # image augmentation (no-op for tokens)
     attention_impl: str = "dense"  # dense | flash (hand-written CUDA kernels)
+    num_kv_heads: int = 0         # > 0 => grouped-query attention (llama_*)
     device: str | None = None     # None => cuda; "cpu" runs the plain paths
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
@@ -90,7 +90,6 @@ class Config:
     remat_policy: str = "none"
     grad_accum: int = 1
     num_experts: int = 0
-    num_kv_heads: int = 0
     layer_scan: str = "auto"
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
@@ -153,7 +152,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["jax", "gloo", "nccl", "mpi"])
     for name in ("epochs_local", "epochs_global", "batch_size", "num_workers",
                  "seed", "probe_batches", "limit_train_samples",
-                 "limit_eval_samples"):
+                 "limit_eval_samples", "num_kv_heads"):
         p.add_argument(f"--{name}", type=int, default=getattr(d, name))
     for name in ("lr", "time_limit", "prev_fraction", "next_fraction",
                  "local_weight", "fixed_ratio"):

@@ -1,0 +1,188 @@
+// Flash-attention backward for Hopper (sm_90a), written by hand: the
+// single-pass fused construction.
+//
+// Replaces: ops/pallas_ops.py::_bwd_fused_kernel of the JAX package,
+// reached via _flash_backward_fused (selected there and here by
+// FLASH_BWD=fused).
+//
+// What it computes, from q, k, v, dO, the forward's lse and
+// delta = rowsum(dO * O) (computed outside, as in the JAX package):
+//   p  = exp(q k^T * scale - lse)            (recomputed ONCE per tile pair)
+//   ds = p * (dO v^T - delta) * scale
+//   dv = p^T dO,  dk = ds^T q,  dq = ds k     (all three from that one p)
+// For grouped-query attention dk/dv of a K/V head sum over its H / KV
+// query heads.
+//
+// What bounds it on this card: at the llama path shape (B=64, L=128,
+// H=16, KV=4, D=64, causal, bf16) it does five small products per visible
+// (query, key) pair against ~68 MB of inputs and outputs (dq, dk, dv in
+// bf16), so an ideal kernel is memory-bound; the fp32 dq accumulator
+// below writes ~17 MB more than a bf16 dq.  This first version runs its
+// products on the fp32 FMA pipes from shared memory, like the two-pass
+// kernels, and is bound by
+// shared-memory traffic and FMA throughput.
+//
+// What the design does about it: one block per (key tile, K/V head,
+// batch), the layout of bwd_dkv_kernel.  The block loops over the rep
+// query heads of its group and, for each, over the query tiles that can see
+// its key tile (causal skips the earlier ones), so dk/dv sum in registers
+// across the whole group and are written once, with no atomics.  dq is the
+// one output several blocks add into: TPU grid steps run in order and the
+// Pallas kernel writes per-key-tile fp32 partials [B, H, nj, L, D] summed
+// outside, but Hopper blocks run in no order, so each (query tile, key
+// tile) cell's ds k is added straight into a zero-filled fp32 accumulator
+// [B, L, H, D] (red.global.add.f32), cast to q's dtype once by the caller.
+// That keeps the sum in fp32 like the JAX reduction and costs 1x the dq
+// bytes instead of nj x; masked cells add nothing, so the Pallas kernel's
+// partial-zeroing branch has no counterpart.  The atomics make the
+// summation order, and so the last bits of dq, change from run to run.
+#include "flash_common.cuh"
+
+namespace flash {
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+bwd_fused_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq_acc,
+                 T* __restrict__ dk, T* __restrict__ dv, int H, int KV, int Lq, int Lk,
+                 long long sqb, long long sql, long long sqh, long long skb, long long skl,
+                 long long skh, long long svb, long long svl, long long svh, long long sdb,
+                 long long sdl, long long sdh, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD, DJ = Tile<D>::DJ;
+  extern __shared__ float smem[];
+  float* sK = smem;              // [BK][LD]
+  float* sV = sK + BK * LD;      // [BK][LD]
+  float* sQ = sV + BK * LD;      // [BQ][LD]
+  float* sdO = sQ + BQ * LD;     // [BQ][LD]
+  float* sP = sdO + BQ * LD;     // [BQ][LS]
+  float* sDS = sP + BQ * LS;     // [BQ][LS]
+  float* sLse = sDS + BQ * LS;   // [BQ]
+  float* sDelta = sLse + BQ;     // [BQ]
+
+  const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int rep = H / KV;
+  const int k0 = kt * BK;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  load_rows<T, D>(sK, k + b * skb + g * skh, skl, k0, BK, Lk);
+  load_rows<T, D>(sV, v + b * svb + g * svh, svl, k0, BK, Lk);
+
+  // this thread owns key rows ty*4+i, head-dim columns tx+16j of dk and dv
+  float dk_acc[4][DJ], dv_acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  const int nq = (Lq + BQ - 1) / BQ;
+  // causal: query tile i sees this key tile iff i*BQ + BQ - 1 >= k0
+  const int qt_begin = causal ? k0 / BQ : 0;
+  for (int m = 0; m < rep; ++m) {
+    const int h = g * rep + m;  // query head m of K/V head g's group
+    const T* qb = q + b * sqb + h * sqh;
+    const T* db = dout + b * sdb + h * sdh;
+    for (int qt = qt_begin; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();  // previous tile's readers are done with sQ/sdO/sP/sDS
+      load_rows<T, D>(sQ, qb, sql, q0, BQ, Lq);
+      load_rows<T, D>(sdO, db, sdl, q0, BQ, Lq);
+      for (int r = threadIdx.x; r < BQ; r += NT) {
+        const bool in = q0 + r < Lq;
+        const long long at = ((long long)b * H + h) * Lq + q0 + r;
+        sLse[r] = in ? lse[at] : 0.f;
+        sDelta[r] = in ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      probs_and_ds<D>(sQ, sdO, sK, sV, sLse, sDelta, sP, sDS, q0, k0, Lk, causal, scale);
+      __syncthreads();
+
+      // dv += p^T dO, dk += ds^T q over this tile's query rows
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float p[4], ds[4], go[DJ], qq[DJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          p[i] = sP[r * LS + ty * 4 + i];
+          ds[i] = sDS[r * LS + ty * 4 + i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          go[j] = sdO[r * LD + tx + 16 * j];
+          qq[j] = sQ[r * LD + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            dv_acc[i][j] = fmaf(p[i], go[j], dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(ds[i], qq[j], dk_acc[i][j]);
+          }
+      }
+
+      // this cell's dq = ds k for query rows ty*4+i, columns tx+16j,
+      // added into the fp32 accumulator
+      float dq_part[4][DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) dq_part[i][j] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < BK; ++c) {
+        float ds[4], kk[DJ];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[i] = sDS[(ty * 4 + i) * LS + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) kk[j] = sK[c * LD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) dq_part[i][j] = fmaf(ds[i], kk[j], dq_part[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qpos = q0 + ty * 4 + i;
+        if (qpos >= Lq) continue;
+        float* row = dq_acc + (((long long)b * Lq + qpos) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) atomicAdd(row + tx + 16 * j, dq_part[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kpos = k0 + ty * 4 + i;
+    if (kpos >= Lk) continue;
+    const long long at = (((long long)b * Lk + kpos) * KV + g) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[at + tx + 16 * j] = from_f<T>(dk_acc[i][j]);
+      dv[at + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+}  // namespace flash
+
+// q/dout [B, Lq, H, D], k/v [B, Lk, KV, D] (strided; head_dim contiguous);
+// lse/delta contiguous fp32 [B, H, Lq]; dq_acc contiguous fp32
+// [B, Lq, H, D], zero-filled by the caller; dk/dv contiguous
+// [B, Lk, KV, D] in the input dtype.  Returns the launch status.
+extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, float* dq_acc, void* dk,
+                               void* dv, int dtype, int B, int H, int KV, int Lq, int Lk,
+                               int head_dim, long long sqb, long long sql, long long sqh,
+                               long long skb, long long skl, long long skh, long long svb,
+                               long long svl, long long svh, long long sdb, long long sdl,
+                               long long sdh, int causal, float scale, void* stream) {
+  using namespace flash;
+  const dim3 grid((Lk + BK - 1) / BK, KV, B);
+  FLASH_DISPATCH(dtype, head_dim, {
+    constexpr int LD = Tile<D>::LD;
+    const size_t smem = sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * LS + 2 * BQ);
+    return launch(bwd_fused_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, lse, delta, dq_acc, (T*)dk, (T*)dv, H, KV, Lq,
+                  Lk, sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal,
+                  scale);
+  });
+}

@@ -56,6 +56,56 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Lk, int causal) 
   return kpos < Lk && (!causal || kpos <= qpos);
 }
 
+// For one (query tile, key tile) pair staged in shared memory, compute the
+// 4 x 4 micro-tile of p and ds this thread owns (query rows ty*4+i, key
+// columns tx+16j) and store them to sP / sDS (either may be null).
+template <int D>
+__device__ __forceinline__ void probs_and_ds(const float* sQ, const float* sdO, const float* sK,
+                                             const float* sV, const float* sLse,
+                                             const float* sDelta, float* sP, float* sDS, int q0,
+                                             int k0, int Lk, int causal, float scale) {
+  constexpr int LD = Tile<D>::LD;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[4], g[4], kk[4], vv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = sQ[(ty * 4 + i) * LD + d];
+      g[i] = sdO[(ty * 4 + i) * LD + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      kk[j] = sK[(tx + 16 * j) * LD + d];
+      vv[j] = sV[(tx + 16 * j) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i], kk[j], s[i][j]);
+        dp[i][j] = fmaf(g[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+    const float lse = sLse[r], delta = sDelta[r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const float p = visible(q0 + r, k0 + c, Lk, causal) ? expf(s[i][j] * scale - lse) : 0.f;
+      if (sP != nullptr) sP[r * LS + c] = p;
+      sDS[r * LS + c] = p * (dp[i][j] - delta) * scale;
+    }
+  }
+}
+
 // Launch one template instance: opt in to the dynamic shared memory it
 // needs beyond 48 KB, launch on the caller's stream, and report the launch
 // status (a refused launch never runs, so the caller must check it).

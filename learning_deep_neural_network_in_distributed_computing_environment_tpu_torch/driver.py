@@ -95,8 +95,16 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device):
     initialized from ``cfg.seed`` with a generator on ``device``."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
+    kw = {}
+    if cfg.num_kv_heads > 0:
+        # grouped-query attention (models/llama.py; the Llama-2/3 recipe)
+        if not cfg.model.startswith("llama"):
+            raise ValueError(
+                f"--num_kv_heads applies to llama_* models; got --model "
+                f"{cfg.model}")
+        kw["num_kv_heads"] = cfg.num_kv_heads
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
-                      attention_impl=cfg.attention_impl, device=device)
+                      attention_impl=cfg.attention_impl, device=device, **kw)
     model.init_parameters(torch.Generator(device=device).manual_seed(cfg.seed))
     return model
 

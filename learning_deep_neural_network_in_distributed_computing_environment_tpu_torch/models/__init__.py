@@ -1,8 +1,8 @@
 """Model zoo of the port (JAX package: ``models/__init__.py:13-168``).
 
-Ported so far: the GPT-2 family.  Every other registry name of the JAX
-package is known here and raises "not yet ported" with the ROADMAP item
-that ports it.
+Ported so far: the GPT-2 and Llama families.  Every other registry name
+of the JAX package is known here and raises "not yet ported" with the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -34,6 +34,11 @@ _GPT_SIZES = {
     "gpt_small": dict(num_layers=4, hidden=128, num_heads=4, ffn_dim=256),
     "gpt_tiny": dict(num_layers=2, hidden=64, num_heads=4, ffn_dim=128),
 }
+# sizes of the Llama family (the JAX registry's defaults)
+_LLAMA_SIZES = {
+    "llama_medium": {},
+    "llama_tiny": dict(num_layers=2, hidden=64, num_heads=4, ffn_dim=176),
+}
 
 
 def get_model(name: str, **kw: Any):
@@ -45,6 +50,9 @@ def get_model(name: str, **kw: Any):
     if name in _GPT_SIZES:
         from .gpt import GPTForCausalLM
         return GPTForCausalLM(**{**_GPT_SIZES[name], **kw})
+    if name in _LLAMA_SIZES:
+        from .llama import LlamaForCausalLM
+        return LlamaForCausalLM(**{**_LLAMA_SIZES[name], **kw})
     where = ("A.2 (CNN main path)" if name in (
         "enhanced_cnn", "mlp", "lenet5", "resnet18", "resnet50")
         else "A.7 (transformer families)")

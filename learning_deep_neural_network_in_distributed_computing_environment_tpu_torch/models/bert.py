@@ -39,11 +39,14 @@ class SelfAttention(nn.Module):
     Projection weights are ``nn.Linear`` [out, in] with the output features
     ordered like the flax ``DenseGeneral`` kernels' trailing axes
     ((3, H, Dh) for ``qkv``, (2, KV, Dh) for ``kv``); ``weights.py``
-    converts between the two layouts."""
+    converts between the two layouts.  ``rope_theta`` rotates q and k
+    (never v) at positions ``arange(L)`` before ``attend`` (the Llama
+    recipe)."""
 
     def __init__(self, hidden: int, num_heads: int, *,
                  num_kv_heads: Optional[int] = None, use_bias: bool = True,
                  causal: bool = False, attention_impl: str = "dense",
+                 rope_theta: Optional[float] = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if hidden % num_heads:
@@ -58,6 +61,7 @@ class SelfAttention(nn.Module):
             raise ValueError(f"num_heads {num_heads} not divisible by "
                              f"num_kv_heads {num_kv_heads}")
         self.causal = causal
+        self.rope_theta = rope_theta
         self.attention_impl = attention_impl
         self.dtype = dtype
         inner = num_heads * self.head_dim
@@ -74,7 +78,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        from ..ops.attention import attend
+        from ..ops.attention import attend, rope
         b, l, _ = x.shape
         h, kv, dh = self.num_heads, self.num_kv_heads, self.head_dim
         if self.gqa:
@@ -83,8 +87,13 @@ class SelfAttention(nn.Module):
         else:
             q, k, v = dense(x, self.qkv, self.dtype).view(
                 b, l, 3, h, dh).unbind(2)
-        # q/k/v stay strided views of the projection output; the flash
-        # kernels read them through their strides
+        if self.rope_theta is not None:
+            pos = torch.arange(l, device=x.device)
+            q = rope(q, pos, self.rope_theta)
+            k = rope(k, pos, self.rope_theta)
+        # q/k/v stay strided views of the projection output (q/k are new
+        # tensors under RoPE); the flash kernels read them through their
+        # strides
         out = attend(q, k, v, mask=mask, impl=self.attention_impl,
                      causal=self.causal)
         y = dense(out.reshape(b, l, h * dh), self.out, self.dtype)

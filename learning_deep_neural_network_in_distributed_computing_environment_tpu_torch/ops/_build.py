@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # library name -> its source; every library also depends on the headers
-SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "flash_bwd_fused": "flash_bwd_fused.cu"}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _STRIDES = [_LL] * 9
@@ -37,6 +38,8 @@ SIGNATURES = {
                      + [_I, _F, _P]),
     "flash_bwd_dkv": ("flash_bwd", [_P] * 8 + [_I] * 7 + _STRIDES + [_LL] * 3
                       + [_I, _F, _P]),
+    "flash_bwd_fused": ("flash_bwd_fused", [_P] * 9 + [_I] * 7 + _STRIDES
+                        + [_LL] * 3 + [_I, _F, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -19,6 +19,24 @@ import torch
 NEG_INF = -1e30
 
 
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0
+         ) -> torch.Tensor:
+    """Rotary position embedding, rotate-half convention (JAX package:
+    ``ops/attention.py:32-48``).
+
+    ``x`` [B, L, H, Dh], ``pos`` [L] absolute token positions.  Angles are
+    computed in fp32 and the result is cast back to ``x``'s dtype."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)      # [Dh/2]
+    ang = pos.float()[:, None] * freqs[None, :]                  # [L, Dh/2]
+    cos = torch.cos(ang)[None, :, None, :]
+    sin = torch.sin(ang)[None, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
 def causal_mask(lq: int, lk: int, q_offset: int = 0, k_offset: int = 0,
                 device=None) -> torch.Tensor:
     """[lq, lk] bool mask: query at global position q_offset+i may attend

@@ -2,13 +2,19 @@
 plain PyTorch versions, and the autograd glue (port of the JAX package's
 ``ops/pallas_ops.py:118-563``).
 
-Three kernels (``csrc/``, built by ``ops/_build.py``):
+Four kernels (``csrc/``, built by ``ops/_build.py``):
 
-- ``flash_fwd``      <- ``_flash_kernel`` / ``_fwd_kernel_nolse``: O and,
+- ``flash_fwd``       <- ``_flash_kernel`` / ``_fwd_kernel_nolse``: O and,
   when training, the per-row log-sum-exp (fp32 [B, H, Lq]);
-- ``flash_bwd_dq``   <- ``_bwd_dq_kernel``: dq, key tiles innermost;
-- ``flash_bwd_dkv``  <- ``_bwd_dkv_kernel``: dk/dv, query tiles innermost,
-  summed over each K/V head's query group.
+- ``flash_bwd_dq``    <- ``_bwd_dq_kernel``: dq, key tiles innermost;
+- ``flash_bwd_dkv``   <- ``_bwd_dkv_kernel``: dk/dv, query tiles innermost,
+  summed over each K/V head's query group;
+- ``flash_bwd_fused`` <- ``_bwd_fused_kernel``: dq, dk and dv in one pass
+  (p recomputed once per tile pair), selected by ``FLASH_BWD=fused``.
+
+``FLASH_BWD`` is read once, at import, as the JAX package reads it
+(``pallas_ops.py:522-534``): the backward of every flash call in the
+process is either the two-pass pair or the fused kernel, never a mix.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the
 plain fp32 version for CPU tensors; ``LAUNCHES`` counts kernel launches, one
@@ -19,6 +25,7 @@ plain versions are also what ``chip_smoke.py`` holds the kernels against.
 from __future__ import annotations
 
 import logging
+import os
 from typing import Optional
 
 import torch
@@ -33,7 +40,17 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset_launch_counts()
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": 0}
+
+# The backward switch: FLASH_BWD=fused runs the single-pass fused backward
+# instead of the two-pass pair.  Read once at import (A/B the two in
+# separate processes, as the JAX package does).
+_FUSED_BWD = os.environ.get("FLASH_BWD") == "fused"
+
+
+def _use_fused_bwd() -> bool:
+    return _FUSED_BWD
 
 
 def reset_launch_counts() -> None:
@@ -104,23 +121,38 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal):
     return p, ds
 
 
-def plain_bwd_dq(q, k, v, do, lse, delta, causal=False):
-    """dq in q's dtype, from lse and delta = rowsum(dO * O) [B, H, Lq]."""
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+def _dq(q, k, ds):
     dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k.float())
     return dq.reshape(q.shape).to(q.dtype)
 
 
-def plain_bwd_dkv(q, k, v, do, lse, delta, causal=False):
-    """(dk, dv) in k's dtype, summed over each K/V head's query group."""
+def _dkv(q, k, v, do, p, ds):
     b, lq, h, d = q.shape
     kv = k.shape[2]
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
     qg = q.float().reshape(b, lq, kv, h // kv, d)
     dog = do.float().reshape(b, lq, kv, h // kv, d)
     dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qg)
     dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dog)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def plain_bwd_dq(q, k, v, do, lse, delta, causal=False):
+    """dq in q's dtype, from lse and delta = rowsum(dO * O) [B, H, Lq]."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    return _dq(q, k, ds)
+
+
+def plain_bwd_dkv(q, k, v, do, lse, delta, causal=False):
+    """(dk, dv) in k's dtype, summed over each K/V head's query group."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    return _dkv(q, k, v, do, p, ds)
+
+
+def plain_bwd_fused(q, k, v, do, lse, delta, causal=False):
+    """(dq, dk, dv) in the inputs' dtypes from one computation of p and
+    ds, as the fused kernel does."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    return (_dq(q, k, ds), *_dkv(q, k, v, do, p, ds))
 
 
 # --------------------------------------------------------------------------
@@ -198,6 +230,26 @@ def kernel_bwd_dkv(q, k, v, do, lse, delta, causal=False):
     return dk, dv
 
 
+def kernel_bwd_fused(q, k, v, do, lse, delta, causal=False):
+    """Launch ``flash_bwd_fused``: (dq, dk, dv).  dq is summed in a
+    zero-filled fp32 accumulator by atomic adds from the key-tile blocks,
+    then cast to q's dtype once."""
+    from ._build import function
+    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        err = function("flash_bwd_fused")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_common_args(q, k), *_strides(q, k, v, do),
+            int(causal), q.shape[-1] ** -0.5, _stream(q))
+    _check(err, "flash_bwd_fused")
+    LAUNCHES["flash_bwd_fused"] += 1
+    return dq.to(q.dtype), dk, dv
+
+
 # --------------------------------------------------------------------------
 # dispatch: the kernel for CUDA tensors, the plain version for CPU tensors
 # --------------------------------------------------------------------------
@@ -219,10 +271,13 @@ def flash_forward(q, k, v, causal=False, with_lse=False):
 
 
 def flash_backward(q, k, v, o, lse, do, causal=False):
-    """(dq, dk, dv); delta = rowsum(dO * O) is a plain reduction, as in the
-    JAX package."""
-    b, lq, h, _ = q.shape
+    """(dq, dk, dv) from the fused kernel under ``FLASH_BWD=fused``, else
+    from the two-pass pair; delta = rowsum(dO * O) is a plain reduction, as
+    in the JAX package."""
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    if _use_fused_bwd():
+        fused = kernel_bwd_fused if _on_cuda(q) else plain_bwd_fused
+        return fused(q, k, v, do, lse, delta, causal)
     if _on_cuda(q):
         dq = kernel_bwd_dq(q, k, v, do, lse, delta, causal)
         dk, dv = kernel_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -234,7 +289,8 @@ def flash_backward(q, k, v, o, lse, do, causal=False):
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward keeps q, k, v, O and lse
-    as residuals and the backward runs the two backward kernels."""
+    as residuals and the backward runs the two backward kernels, or the
+    fused one under ``FLASH_BWD=fused``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):

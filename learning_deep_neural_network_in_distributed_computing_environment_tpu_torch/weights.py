@@ -1,5 +1,6 @@
 """Convert between a flax ``params`` tree of numpy arrays (the JAX
-package's GPT layout) and the port's ``state_dict`` naming and layout.
+package's GPT or Llama layout) and the port's ``state_dict`` naming and
+layout.
 
 The flax tree is either stacked (``--layer_scan auto``: one ``layers/layer``
 subtree whose leaves carry a leading [num_layers] axis) or unrolled
@@ -8,6 +9,11 @@ subtree whose leaves carry a leading [num_layers] axis) or unrolled
 their head axes (``qkv`` [hidden, 3, H, Dh] <-> [3*H*Dh, hidden], ``out``
 [H, Dh, hidden] <-> [hidden, H*Dh]).  Both directions only transpose and
 reshape, so a round trip is exact.
+
+The family follows from the leaves present: GPT has LayerNorms (``ln1``,
+``ln2``, ``ln_f``), a position table and FFN biases; Llama has RMSNorms
+(``rms1``, ``rms2``, ``rms_f``), a SwiGLU ``ffn_up`` and an untied
+``lm_head``, and no biases.
 """
 
 from __future__ import annotations
@@ -16,16 +22,19 @@ from collections.abc import Mapping
 
 import numpy as np
 
-# flax leaf (module path, leaf name) <-> port key suffix, per block
+# flax leaf name <-> port key suffix
 _LN = {"scale": "weight", "bias": "bias"}
 _DENSE = {"kernel": "weight", "bias": "bias"}
+_NORMS = ("ln1", "ln2", "rms1", "rms2")
+_FFN = ("ffn_in", "ffn_up", "ffn_out")
 
 
 def _block_to_torch(block: dict) -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
-    for ln in ("ln1", "ln2"):
+    for norm in _NORMS:
         for leaf, key in _LN.items():
-            out[f"{ln}.{key}"] = block[ln][leaf]
+            if leaf in block.get(norm, {}):
+                out[f"{norm}.{key}"] = block[norm][leaf]
     attn = block["attn"]
     for proj in ("qkv", "q", "kv"):
         if proj in attn:
@@ -37,52 +46,67 @@ def _block_to_torch(block: dict) -> dict[str, np.ndarray]:
     out["attn.out.weight"] = kern.reshape(-1, kern.shape[-1]).T
     if "out_bias" in attn:
         out["attn.out_bias"] = attn["out_bias"]
-    for dense in ("ffn_in", "ffn_out"):
+    for dense in _FFN:
         for leaf, key in _DENSE.items():
-            if leaf in block[dense]:
+            if leaf in block.get(dense, {}):
                 arr = block[dense][leaf]
                 out[f"{dense}.{key}"] = arr.T if leaf == "kernel" else arr
-    out["ffn_bias"] = block["ffn_bias"]
+    if "ffn_bias" in block:
+        out["ffn_bias"] = block["ffn_bias"]
     return out
 
 
 def _block_to_flax(sd: dict, prefix: str, num_heads: int,
                    num_kv_heads: int) -> dict:
     get = lambda k: sd[prefix + k]
-    block: dict = {ln: {leaf: get(f"{ln}.{key}") for leaf, key in _LN.items()}
-                   for ln in ("ln1", "ln2")}
+    has = lambda k: prefix + k in sd
+    block: dict = {norm: {leaf: get(f"{norm}.{key}")
+                          for leaf, key in _LN.items() if has(f"{norm}.{key}")}
+                   for norm in _NORMS if has(f"{norm}.weight")}
     attn: dict = {}
-    hidden = get("ln1.weight").shape[0]
+    hidden = get("attn.out.weight").shape[0]
     dh = hidden // num_heads
     heads = {"qkv": (3, num_heads, dh), "q": (num_heads, dh),
              "kv": (2, num_kv_heads or num_heads, dh)}
     for proj, shape in heads.items():
-        if prefix + f"attn.{proj}.weight" in sd:
+        if has(f"attn.{proj}.weight"):
             w = get(f"attn.{proj}.weight")
             attn[proj] = {"kernel": w.T.reshape(w.shape[1], *shape)}
-            if prefix + f"attn.{proj}.bias" in sd:
+            if has(f"attn.{proj}.bias"):
                 attn[proj]["bias"] = get(f"attn.{proj}.bias").reshape(shape)
     attn["out"] = {"kernel": get("attn.out.weight").T.reshape(
         num_heads, dh, hidden)}
-    if prefix + "attn.out_bias" in sd:
+    if has("attn.out_bias"):
         attn["out_bias"] = get("attn.out_bias")
     block["attn"] = attn
-    block["ffn_in"] = {"kernel": get("ffn_in.weight").T,
-                       "bias": get("ffn_in.bias")}
-    block["ffn_out"] = {"kernel": get("ffn_out.weight").T}
-    block["ffn_bias"] = get("ffn_bias")
+    for dense in _FFN:
+        if has(f"{dense}.weight"):
+            block[dense] = {"kernel": get(f"{dense}.weight").T}
+            if has(f"{dense}.bias"):
+                block[dense]["bias"] = get(f"{dense}.bias")
+    if has("ffn_bias"):
+        block["ffn_bias"] = get("ffn_bias")
     return block
 
 
+# top-level leaves: flax (module, leaf) <-> port key, where present
+_TOP = {("tok_emb", "embedding"): "tok_emb.weight",
+        ("pos_emb", "embedding"): "pos_emb.weight",
+        ("ln_f", "scale"): "ln_f.weight", ("ln_f", "bias"): "ln_f.bias",
+        ("rms_f", "scale"): "rms_f.weight",
+        ("lm_head", "kernel"): "lm_head.weight"}
+
+
 def flax_to_torch(params: dict) -> dict[str, np.ndarray]:
-    """flax GPT ``params`` (stacked or unrolled) -> port ``state_dict``
-    entries as numpy arrays (hand to ``torch.as_tensor`` /
+    """flax GPT or Llama ``params`` (stacked or unrolled) -> port
+    ``state_dict`` entries as numpy arrays (hand to ``torch.as_tensor`` /
     ``load_state_dict``)."""
     params = _to_numpy(params)
-    sd = {"tok_emb.weight": params["tok_emb"]["embedding"],
-          "pos_emb.weight": params["pos_emb"]["embedding"],
-          "ln_f.weight": params["ln_f"]["scale"],
-          "ln_f.bias": params["ln_f"]["bias"]}
+    sd = {}
+    for (module, leaf), key in _TOP.items():
+        if leaf in params.get(module, {}):
+            arr = params[module][leaf]
+            sd[key] = arr.T if leaf == "kernel" else arr
     if "layers" in params:
         stacked = params["layers"]["layer"]
         blocks = [_index(stacked, i) for i in range(_leading(stacked))]
@@ -96,15 +120,19 @@ def flax_to_torch(params: dict) -> dict[str, np.ndarray]:
 
 def torch_to_flax(state_dict: dict, *, num_heads: int,
                   num_kv_heads: int = 0, stacked: bool = True) -> dict:
-    """Port ``state_dict`` (tensors or arrays) -> flax GPT ``params`` of
-    numpy arrays, stacked (``layers/layer``) or unrolled (``layerN``)."""
+    """Port ``state_dict`` (tensors or arrays) -> flax GPT or Llama
+    ``params`` of numpy arrays, stacked (``layers/layer``) or unrolled
+    (``layerN``)."""
     sd = {k: _as_numpy(v) for k, v in state_dict.items()}
     n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
     blocks = [_block_to_flax(sd, f"blocks.{i}.", num_heads, num_kv_heads)
               for i in range(n)]
-    params = {"tok_emb": {"embedding": sd["tok_emb.weight"]},
-              "pos_emb": {"embedding": sd["pos_emb.weight"]},
-              "ln_f": {"scale": sd["ln_f.weight"], "bias": sd["ln_f.bias"]}}
+    params: dict = {}
+    for (module, leaf), key in _TOP.items():
+        if key in sd:
+            arr = sd[key]
+            params.setdefault(module, {})[leaf] = (
+                arr.T if leaf == "kernel" else arr)
     if stacked:
         params["layers"] = {"layer": _stack(blocks)}
     else:

@@ -84,10 +84,59 @@ def test_autograd_on_strided_views_matches_cpu_plain_path(cuda):
         grads[dev] = (out.detach().cpu(), dx.cpu())
         launches = dict(t_flash.LAUNCHES)
         assert launches == ({"flash_fwd": 1, "flash_bwd_dq": 1,
-                             "flash_bwd_dkv": 1} if dev == "cuda" else
+                             "flash_bwd_dkv": 1, "flash_bwd_fused": 0}
+                            if dev == "cuda" else
                             {"flash_fwd": 0, "flash_bwd_dq": 0,
-                             "flash_bwd_dkv": 0})
+                             "flash_bwd_dkv": 0, "flash_bwd_fused": 0})
     # fp32 on both sides, different summation order
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_fused_kernel_matches_plain_version_on_ragged_gqa(cuda, causal,
+                                                          dtype):
+    """L=200 (not a tile multiple), 8 query heads over 4 K/V heads (two
+    members per group, so the group loop and the dq atomics from several
+    key tiles both run).  The dq atomics sum in another order each run."""
+    q, k, v, do = _inputs(cuda, 2, 200, 8, 4, 64, dtype, seed=6)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], causal)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    t_flash.reset_launch_counts()
+    got = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert t_flash.LAUNCHES["flash_bwd_fused"] == 1
+    want = t_flash.plain_bwd_fused(*f32, lse_ref, delta, causal)
+    for name, g, ref in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype, name
+        assert _rel(g, ref) <= REL_TOL, name
+
+
+def test_fused_autograd_on_strided_views_matches_cpu_plain_path(
+        cuda, monkeypatch):
+    """With the switch on, grads through q/k/v views of one GQA projection
+    against the CPU plain path, and one fused launch per backward."""
+    monkeypatch.setattr(t_flash, "_FUSED_BWD", True)
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(size=(2, 96, 8, 32)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.normal(size=(2, 96, 4, 32)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        x = qkv.to(dev).requires_grad_()
+        q, k, v = x[:, :, :4], x[:, :, 4:6], x[:, :, 6:]
+        t_flash.reset_launch_counts()
+        out = t_flash.flash_attention(q, k, v, causal=True)
+        (dx,) = torch.autograd.grad(out, x, g.to(dev))
+        grads[dev] = (out.detach().cpu(), dx.cpu())
+        n = int(dev == "cuda")
+        assert dict(t_flash.LAUNCHES) == {
+            "flash_fwd": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_fused": n}
+    # fp32 on both sides, different summation order (dq by atomics)
     for got, ref in zip(grads["cuda"], grads["cpu"]):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
 
@@ -99,3 +148,15 @@ def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     q = torch.zeros(1, 16, 4, 48, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         t_flash.flash_attention(q, q, q, causal=True)
+
+
+def test_fused_kernel_refuses_inputs_it_does_not_take(cuda, monkeypatch):
+    monkeypatch.setattr(t_flash, "_FUSED_BWD", True)
+    q = torch.zeros(1, 16, 4, 48, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        t_flash.flash_attention(q, q, q, causal=True)
+    q = torch.zeros(1, 16, 4, 48, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="flash_bwd_fused kernel launch"):
+        t_flash.kernel_bwd_fused(q, q, q, q, lse, lse, True)

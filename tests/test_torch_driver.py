@@ -73,6 +73,28 @@ def test_main_one_round_on_cpu(tmp_path, monkeypatch, attention_impl):
     assert not any(tmp_path.glob("*.png"))
 
 
+def test_main_llama_gqa_one_round_on_cpu(tmp_path, monkeypatch):
+    """One round of llama_tiny with 2 KV heads and flash attention through
+    ``main``: the model is the GQA Llama and the losses are finite."""
+    monkeypatch.setattr(t_viz, "_plt", lambda: None)
+    argv = _argv(tmp_path, "--device", "cpu", "--attention_impl", "flash",
+                 "--num_kv_heads", "2")
+    argv[argv.index("gpt_tiny")] = "llama_tiny"
+    results = t_main.run(argv)
+    attn = results["model"].blocks[0].attn
+    assert (attn.num_kv_heads, attn.rope_theta) == (2, 10000.0)
+    assert "rms_f.weight" in results["variables"]
+    assert results["round_timings"][0]["train_steps"] == 2 * 4
+    assert all(math.isfinite(x) for x in results["all_workers_losses"][0])
+    assert math.isfinite(results["test_eval"]["loss"])
+
+
+def test_num_kv_heads_applies_to_llama_only(tmp_path):
+    """The JAX driver's rule (driver.py:571-577)."""
+    with pytest.raises(ValueError, match="applies to llama_"):
+        t_main.run(_argv(tmp_path, "--device", "cpu", "--num_kv_heads", "2"))
+
+
 def test_train_global_repartitions_across_rounds():
     """Two rounds with pinned probe durations: the shard is re-drawn
     between rounds and keeps its size at one worker."""
@@ -162,6 +184,7 @@ def test_no_jax_imports_in_port_sources():
 def test_importing_the_port_loads_no_jax():
     code = (f"import sys\n"
             f"import {PORT}.main, {PORT}.driver, {PORT}.ops.flash\n"
+            f"import {PORT}.models.llama, {PORT}.weights\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"('jax', 'jaxlib', 'flax', 'optax', '{JAX_PKG}'))\n"
             f"print(bad)\n"

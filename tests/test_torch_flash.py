@@ -7,6 +7,11 @@ reference on the card, see chip_smoke.py) against the TPU kernels'
 arithmetic.  Inputs are made with numpy from a seed and handed to both.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +26,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     flash as t_flash,
 )
 
+ROOT = Path(__file__).resolve().parents[1]
 B, L, H, D = 1, 128, 4, 16
 # forward: both sides compute in fp32, differing only in summation order
 FWD_ATOL = 1e-5
@@ -108,3 +114,65 @@ def test_other_devices_raise():
     q = torch.empty(1, 8, 4, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         t_flash.flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("causal,kv", CASES)
+def test_plain_fused_backward_matches_pallas_fused(monkeypatch, causal, kv):
+    """``plain_bwd_fused`` against ``_flash_backward_fused`` with 128-row
+    blocks at L=256: the Pallas kernel runs a 2x2 block grid, so its dq
+    comes from multi-block partials (and, causal, a zeroed masked tile)."""
+    monkeypatch.setattr(pallas_ops, "BQ", 128)
+    monkeypatch.setattr(pallas_ops, "BK", 128)
+    rng = np.random.default_rng(6)
+    mk = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, k, v, g = mk(B, 256, H, D), mk(B, 256, kv, D), mk(B, 256, kv, D), \
+        mk(B, 256, H, D)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o, lse = pallas_ops._flash_forward(jq, jk, jv, causal, with_lse=True)
+    want = pallas_ops._flash_backward_fused(jq, jk, jv, o, lse, jg, causal)
+    o_np = np.asarray(o)
+    delta = torch.from_numpy((g * o_np).sum(-1).transpose(0, 2, 1).copy())
+    got = t_flash.plain_bwd_fused(
+        *map(torch.from_numpy, (q, k, v, g)),
+        torch.from_numpy(np.asarray(lse)[..., 0].copy()), delta, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("env,want", [({"FLASH_BWD": "fused"}, True),
+                                      ({"FLASH_BWD": "twopass"}, False),
+                                      ({}, False)],
+                         ids=["fused", "other", "unset"])
+def test_flash_bwd_switch_is_read_at_import(env, want):
+    """A process that imports only the port sees the switch as the JAX
+    package does (``pallas_ops.py:524``): on exactly for "fused"."""
+    code = (f"import sys\n"
+            f"from {t_flash.__name__} import _use_fused_bwd\n"
+            f"assert not any(m.split('.')[0] == 'jax' for m in sys.modules)\n"
+            f"print(_use_fused_bwd())\n")
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("FLASH_BWD", "PYTHONSTARTUP")}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**base, **env}, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == str(want)
+
+
+@pytest.mark.parametrize("causal,kv", CASES)
+def test_fused_switch_on_cpu_gives_two_pass_grads(monkeypatch, causal, kv):
+    """Under the switch the CPU autograd path runs the fused plain version:
+    the two-pass grads, and no kernel launch."""
+    q, k, v, g = map(torch.from_numpy, _inputs(kv, seed=7))
+    grads = {}
+    for fused in (False, True):
+        monkeypatch.setattr(t_flash, "_FUSED_BWD", fused)
+        t_flash.reset_launch_counts()
+        qt, kt, vt = (a.clone().requires_grad_() for a in (q, k, v))
+        out = t_attn.attend(qt, kt, vt, impl="flash", causal=causal)
+        grads[fused] = torch.autograd.grad(out, (qt, kt, vt), g)
+        assert all(n == 0 for n in t_flash.LAUNCHES.values())
+    for name, a, b in zip(("dq", "dk", "dv"), grads[True], grads[False]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   err_msg=name)

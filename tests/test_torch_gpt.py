@@ -114,6 +114,6 @@ def test_registry_names():
     with pytest.raises(NotImplementedError, match="A.2"):
         get_model("enhanced_cnn")
     with pytest.raises(NotImplementedError, match="A.7"):
-        get_model("llama_tiny")
+        get_model("bert_tiny")
     with pytest.raises(ValueError, match="unknown model"):
         get_model("nope")

@@ -1,9 +1,10 @@
 """The PyTorch port's local training phase against the JAX package's
 ``train.py``: StepLR, the clamped cross-entropy, masking, Adam, and one
 single-worker local-SGD round from the same transplanted state on the same
-numpy packs (dense attention on both sides: the JAX engine runs attention
-inside shard_map, where the Pallas interpreter falls back to dense on the
-CPU; flash parity is carried by tests/test_torch_flash.py)."""
+numpy packs.  The JAX engine runs attention inside shard_map, where the
+Pallas interpreter falls back to dense on the CPU, so a flash case here
+holds the port's plain flash path against dense; kernel-level flash
+parity is carried by tests/test_torch_flash.py."""
 
 import jax
 import jax.numpy as jnp
@@ -116,29 +117,48 @@ def _packs(vocab_seed=0, steps=4, batch=4):
     return (x[:1], y[:1], m[None]), (x[1:], y[1:], np.ones_like(m)[None])
 
 
-def _kw():
-    return dict(model="gpt_tiny", dataset="synthetic_lm", epochs_local=2,
-                batch_size=4, compute_dtype="float32", augment=False,
-                attention_impl="dense", aggregation_by="weights", lr=3e-3)
+def _kw(**over):
+    return {**dict(model="gpt_tiny", dataset="synthetic_lm", epochs_local=2,
+                   batch_size=4, compute_dtype="float32", augment=False,
+                   attention_impl="dense", aggregation_by="weights",
+                   lr=3e-3), **over}
 
 
-def _port_engine(params):
-    model = t_get_model("gpt_tiny", num_classes=1000)
+def _port_engine(params, **over):
+    kw = _kw(**over)
+    model_kw = ({"num_kv_heads": kw["num_kv_heads"]}
+                if kw.get("num_kv_heads") else {})
+    model = t_get_model(kw["model"], num_classes=1000,
+                        attention_impl=kw["attention_impl"], **model_kw)
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                            weights.flax_to_torch(params).items()})
-    return t_train.LocalSGDEngine(model, TConfig(device="cpu", **_kw()), CPU)
+    return t_train.LocalSGDEngine(model, TConfig(device="cpu", **kw), CPU)
 
 
 def test_one_worker_round_matches_jax_engine(devices):
     """Per-epoch losses/accuracies at rtol 1e-4 and final params at atol
     1e-4: fp32 on both sides, differing in summation order only."""
+    _round_matches_jax_engine(devices)
+
+
+def test_one_worker_llama_round_matches_jax_engine(devices):
+    """The same on llama_tiny with 2 KV heads and the port's flash path."""
+    _round_matches_jax_engine(devices, model="llama_tiny", num_kv_heads=2,
+                              attention_impl="flash")
+
+
+def _round_matches_jax_engine(devices, **over):
     train_pack, val_pack = _packs()
-    j_model = j_get_model("gpt_tiny", num_classes=1000, scan_layers=True)
+    kw = _kw(**over)
+    j_model_kw = ({"num_kv_heads": kw["num_kv_heads"]}
+                  if kw.get("num_kv_heads") else {})
+    j_model = j_get_model(kw["model"], num_classes=1000, scan_layers=True,
+                          attention_impl=kw["attention_impl"], **j_model_kw)
     j_engine = j_train.LocalSGDEngine(
-        j_model, build_mesh({"data": 1}, devices[:1]), JConfig(**_kw()))
+        j_model, build_mesh({"data": 1}, devices[:1]), JConfig(**kw))
     j_state = j_engine.init_state(jax.random.key(0), train_pack[0][0, 0])
     params0 = jax.device_get(j_engine.rank0_variables(j_state)["params"])
-    engine = _port_engine(params0)
+    engine = _port_engine(params0, **over)
     state = engine.init_state()
 
     j_state, j_mx = j_engine.round(j_state, train_pack, val_pack)
@@ -151,7 +171,8 @@ def test_one_worker_round_matches_jax_engine(devices):
     want = jax.tree_util.tree_flatten_with_path(jax.device_get(
         j_engine.rank0_variables(j_state)["params"]))[0]
     got = dict(jax.tree_util.tree_flatten_with_path(weights.torch_to_flax(
-        engine.model.state_dict(), num_heads=4))[0])
+        engine.model.state_dict(), num_heads=4,
+        num_kv_heads=kw.get("num_kv_heads", 0)))[0])
     for path, leaf in want:
         np.testing.assert_allclose(got[path], leaf, atol=1e-4,
                                    err_msg=jax.tree_util.keystr(path))
