@@ -8,7 +8,10 @@ Phases (any failure exits non-zero before the result line):
 
 1. device  - the card's name, count, and nvidia-smi name/power limit;
 2. build   - nvcc builds every kernel from csrc/ (sm_90a) and prints the
-             ptxas report (registers, shared memory, spills);
+             ptxas report (registers, shared memory, spills); cuobjdump
+             lists the tensor-core instructions (HMMA, HGMMA) in each
+             kernel's bf16 instance, and the phase fails if a kernel
+             designed for the tensor cores has none;
 3. kernels - each flash kernel against its plain PyTorch version on the
              same bf16 inputs, at both paths' shapes, at L=2048 causal and
              non-causal, and at a long GQA shape; times for the kernel, the
@@ -35,6 +38,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -48,6 +53,8 @@ JAX_PKG = "learning_deep_neural_network_in_distributed_computing_environment_tpu
 # bytes/s and dense bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+# torch.cuda._sleep cycles per millisecond at the 1.98 GHz boost clock
+SLEEP_CYCLES_PER_MS = 1.98e6
 PATH_BATCH, PATH_LEN = 64, 128
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # the paths' plots
 _COMMON_ARGV = ["--dataset", "synthetic_lm", "--attention_impl", "flash",
@@ -84,17 +91,24 @@ SHAPES = [
 # once, so the same 2e-2 holds.  lse stays fp32 end to end: 1e-3 absolute.
 TOL_O, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 1e-3
 # kernel -> (source, TPU kernel it replaces, the path and shape its JSON
-# row reports)
+# row reports, design of its bf16 instance)
 KERNELS = {
     "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66", "gpt2",
-                  "main"),
+                  "main", "tensor-core"),
     "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192", "gpt2",
-                     "main"),
+                     "main", "fp32-fma"),
     "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235", "gpt2",
-                      "main"),
+                      "main", "fp32-fma"),
     "flash_bwd_fused": ("csrc/flash_bwd_fused.cu", "ops/pallas_ops.py:290",
-                        "llama", "llama_path"),
+                        "llama", "llama_path", "tensor-core"),
 }
+# kernel -> (its library in ops/_build.py, a name its device functions
+# carry); a bf16 instance has __nv_bfloat16 in its mangled name
+SASS_SYMBOLS = {"flash_fwd": ("flash_fwd", "fwd_kernel"),
+                "flash_bwd_dq": ("flash_bwd", "bwd_dq_kernel"),
+                "flash_bwd_dkv": ("flash_bwd", "bwd_dkv_kernel"),
+                "flash_bwd_fused": ("flash_bwd_fused", "bwd_fused_kernel")}
+TENSOR_CORE_OP = re.compile(r"\bHG?MMA(?:\.\w+)+")
 
 
 def fail(msg: str) -> None:
@@ -102,20 +116,35 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call from CUDA events, after two warm-up calls."""
+def cuda_ms(fn, iters: int, paced: bool = False) -> float:
+    """Mean milliseconds per call from CUDA events, after two warm-up calls.
+
+    By default the device's time: a device-side sleep queued first keeps
+    the card busy while the host enqueues all the calls, so the host's cost
+    per call (Python, allocation, the launch) leaves no gap between them;
+    the sleep is doubled until the host finished enqueueing before the
+    first event was reached.  ``paced=True`` times the calls back to back
+    with no sleep, so a call that the host enqueues more slowly than the
+    card runs it is timed at the host's pace."""
     import torch
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    sleep_ms = 1.0 + 0.5 * iters
+    while True:
+        if not paced:
+            torch.cuda._sleep(int(sleep_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = paced or not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / iters
+        sleep_ms *= 2
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -152,6 +181,63 @@ def phase_build() -> None:
         for line in text.splitlines():
             if any(w in line.lower() for w in ("ptxas", "spill", "error")):
                 print(f"[build] {name}: {line.strip()}")
+
+
+def tensor_core_ops(sass: str) -> dict[str, list[str]]:
+    """Each device function in ``cuobjdump -sass`` text -> the distinct
+    tensor-core instructions (HMMA, HGMMA) in it, sorted."""
+    ops: dict[str, set] = {}
+    name = None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            name = head.group(1)
+            ops[name] = set()
+        elif name is not None:
+            ops[name].update(TENSOR_CORE_OP.findall(line))
+    return {n: sorted(found) for n, found in ops.items()}
+
+
+def check_tensor_cores(sass_by_library: dict[str, str]) -> dict[str, bool]:
+    """kernel -> whether every bf16 instance of it runs tensor-core
+    instructions; fails if a kernel designed for the tensor cores has no
+    bf16 instance or one without them."""
+    result = {}
+    for kernel, (library, symbol) in SASS_SYMBOLS.items():
+        found = {n: o for n, o in tensor_core_ops(
+            sass_by_library[library]).items()
+                 if symbol in n and "__nv_bfloat16" in n}
+        for fn, ops in sorted(found.items()):
+            print(f"[build] sass {kernel} {fn[:70]}: "
+                  f"{' '.join(ops) or 'no tensor-core instruction'}")
+        result[kernel] = bool(found) and all(found.values())
+        if KERNELS[kernel][4] == "tensor-core" and not result[kernel]:
+            fail(f"{kernel} is designed for the tensor cores but its bf16 "
+                 f"instances {sorted(found) or '(none found)'} hold no "
+                 f"HMMA/HGMMA instruction")
+    return result
+
+
+def find_cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found is None and os.path.exists("/usr/local/cuda/bin/cuobjdump"):
+        found = "/usr/local/cuda/bin/cuobjdump"
+    if found is None:
+        fail("cuobjdump not found (it ships with nvcc): the build phase "
+             "needs it to check the kernels' tensor-core instructions")
+    return found
+
+
+def phase_sass() -> dict[str, bool]:
+    """``cuobjdump -sass`` of each built library, then check_tensor_cores."""
+    from importlib import import_module
+    build = import_module(f"{PKG}.ops._build")
+    tool = find_cuobjdump()
+    sass = {lib: subprocess.run(
+        [tool, "-sass", str(build._library_path(lib))], capture_output=True,
+        text=True, check=True).stdout
+        for lib in sorted({lib for lib, _ in SASS_SYMBOLS.values()})}
+    return check_tensor_cores(sass)
 
 
 def _err(out, ref) -> tuple[float, float]:
@@ -288,6 +374,7 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
         lib_ms, lib_note = library[name]
         rows[name] = dict(
             max_abs_err=max(errs), ms=cuda_ms(kernel_fn, iters),
+            paced_ms=cuda_ms(kernel_fn, iters, paced=True),
             plain_ms=cuda_ms(plain_fn, max(iters // 4, 2)),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library_note=lib_note, library_fwd_bwd_ms=sdpa_fb_ms,
@@ -295,7 +382,8 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
         r = rows[name]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernels] {label} [B={b} L={l} H={h} KV={kv} D={d} "
-              f"causal={causal}] {name}: kernel_ms {r['ms']:.4f} plain_ms "
+              f"causal={causal}] {name}: kernel_ms {r['ms']:.4f} (host-paced "
+              f"{r['paced_ms']:.4f}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms {lib} ({lib_note}) "
               f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
     return rows
@@ -490,6 +578,7 @@ def main() -> int:
     name, smi = phase_device()
     import torch  # noqa: F401  (device phase checked the card)
     phase_build()
+    tensor_cores = phase_sass()
     rows = phase_kernels()
     counts = {}
     counts["gpt2"], results = run_path("gpt2")
@@ -498,12 +587,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
     kernels = []
-    for kname, (src, replaces, path, shape) in KERNELS.items():
+    for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(
             name=kname, route="cuda", source=f"{PKG}/{src}",
             replaces=f"{JAX_PKG}/{replaces}", launches=counts[path][kname],
             launches_by_path={p: c[kname] for p, c in counts.items()},
-            path=path, **rows[shape][kname]))
+            path=path, tensor_cores=tensor_cores[kname], design=design,
+            **rows[shape][kname]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

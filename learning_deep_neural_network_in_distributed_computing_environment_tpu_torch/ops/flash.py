@@ -16,10 +16,17 @@ Four kernels (``csrc/``, built by ``ops/_build.py``):
 (``pallas_ops.py:522-534``): the backward of every flash call in the
 process is either the two-pass pair or the fused kernel, never a mix.
 
+The bf16 instances of ``flash_fwd`` and ``flash_bwd_fused`` run their
+products on the tensor cores; the fp32 instances and the two-pass pair run
+on the fp32 FMA pipes.
+
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the
-plain fp32 version for CPU tensors; ``LAUNCHES`` counts kernel launches, one
-per launch and nowhere else, so a run can show which path it took.  The
-plain versions are also what ``chip_smoke.py`` holds the kernels against.
+plain fp32 version for CPU tensors.  Before a launch it copies an operand
+the kernels cannot read in place (``_kernel_layout``: head_dim not
+contiguous, or rows not 16-byte aligned for cp.async).  ``LAUNCHES`` counts
+kernel launches, one per launch and nowhere else, so a run can show which
+path it took.  The plain versions are also what ``chip_smoke.py`` holds the
+kernels against.
 """
 
 from __future__ import annotations
@@ -159,8 +166,26 @@ def plain_bwd_fused(q, k, v, do, lse, delta, causal=False):
 # kernel launches
 # --------------------------------------------------------------------------
 
-def _head_dim_contiguous(*ts):
-    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+# cp.async stages operand rows in 16-byte chunks
+_ROW_ALIGN = 16
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether a kernel can read ``t`` [B, L, H, D] where it lies: head_dim
+    contiguous, and the base address and the batch/seq/head strides
+    multiples of 16 bytes."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % _ROW_ALIGN == 0
+            and all(s * size % _ROW_ALIGN == 0 for s in t.stride()[:3]))
+
+
+def _kernel_layout(*ts):
+    """The explicit layout fix before a launch: an operand whose head_dim is
+    not contiguous or whose rows are not 16-byte aligned is copied to a
+    fresh contiguous tensor; every other operand, such as the model's q/k/v
+    views of one projection, goes in as it is."""
+    return [t if _rows_aligned(t) else
+            t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 
 def _strides(*ts):
@@ -184,7 +209,7 @@ def _stream(t):
 def kernel_forward(q, k, v, causal=False, with_lse=False):
     """Launch ``flash_fwd``: (O, lse or None)."""
     from ._build import function
-    q, k, v = _head_dim_contiguous(q, k, v)
+    q, k, v = _kernel_layout(q, k, v)
     b, lq, h, d = q.shape
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -201,7 +226,7 @@ def kernel_forward(q, k, v, causal=False, with_lse=False):
 
 def kernel_bwd_dq(q, k, v, do, lse, delta, causal=False):
     from ._build import function
-    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    q, k, v, do = _kernel_layout(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = function("flash_bwd_dq")(
@@ -216,7 +241,7 @@ def kernel_bwd_dq(q, k, v, do, lse, delta, causal=False):
 
 def kernel_bwd_dkv(q, k, v, do, lse, delta, causal=False):
     from ._build import function
-    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    q, k, v, do = _kernel_layout(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
@@ -235,7 +260,7 @@ def kernel_bwd_fused(q, k, v, do, lse, delta, causal=False):
     zero-filled fp32 accumulator by atomic adds from the key-tile blocks,
     then cast to q's dtype once."""
     from ._build import function
-    q, k, v, do = _head_dim_contiguous(q, k, v, do)
+    q, k, v, do = _kernel_layout(q, k, v, do)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)

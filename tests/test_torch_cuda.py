@@ -141,6 +141,89 @@ def test_fused_autograd_on_strided_views_matches_cpu_plain_path(
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4)
 
 
+def _close(got, ref, tol=REL_TOL):
+    """max |got - ref| within ``tol`` of max |ref|; a reference that is
+    zero to rounding (dq and dk at L=1, where ds = p (dp - delta) cancels)
+    is measured against 1e-3 instead."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err <= tol * max(ref.float().abs().max().item(), 1e-3)
+
+
+def _check_tensor_core_kernels(q, k, v, do, causal):
+    """The bf16 forward (with and without lse) and fused backward against
+    the plain versions on the same bf16 values."""
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], causal)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    o, lse = t_flash.kernel_forward(q, k, v, causal, with_lse=True)
+    o_nolse, no_lse = t_flash.kernel_forward(q, k, v, causal)
+    got = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert no_lse is None and torch.equal(o_nolse, o)
+    assert o.dtype == torch.bfloat16 and _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    want = t_flash.plain_bwd_fused(*f32, lse_ref, delta, causal)
+    for name, g, ref in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        assert _close(g, ref), name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 129, 200])
+def test_tensor_core_kernels_at_tile_edges(cuda, length, causal):
+    """Lengths on and around the 64-row tiles (ragged tails, a single
+    row), 8 query heads over 4 K/V heads, D=64."""
+    _check_tensor_core_kernels(*_inputs(cuda, 2, length, 8, 4, 64, seed=8),
+                               causal)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_tensor_core_kernels_across_head_dims_and_groups(cuda, head_dim,
+                                                         rep):
+    """Every instantiated head dim (D=128 runs 32-row query tiles in the
+    backward) with 4 query heads over 4, 2 or 1 K/V heads, L=129."""
+    _check_tensor_core_kernels(
+        *_inputs(cuda, 2, 129, 4, 4 // rep, head_dim, seed=9), True)
+
+
+def test_tensor_core_kernels_take_views_and_copy_misaligned_rows(cuda):
+    """q/k/v as strided views of one GQA projection go in without a copy;
+    an operand whose rows are misaligned on purpose (base 2 bytes off) is
+    copied, not refused, and gives the same results."""
+    rng = np.random.default_rng(10)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(cuda, torch.bfloat16)
+    proj, do = mk(2, 129, 12, 64), mk(2, 129, 8, 64)
+    q, k, v = proj[:, :, :8], proj[:, :, 8:10], proj[:, :, 10:]
+    assert all(t_flash._rows_aligned(t) for t in (q, k, v, do))
+    _check_tensor_core_kernels(q, k, v, do, True)
+
+    buf = torch.empty(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    q_off = buf[1:].view(q.shape).copy_(q)
+    assert not t_flash._rows_aligned(q_off)
+    _check_tensor_core_kernels(q_off, k, v, do, True)
+    o, lse = t_flash.kernel_forward(q, k, v, True, with_lse=True)
+    o_off, lse_off = t_flash.kernel_forward(q_off, k, v, True, with_lse=True)
+    assert torch.equal(o_off, o) and torch.equal(lse_off, lse)
+
+
+def test_fused_tensor_core_kernel_repeats_within_tolerance(cuda):
+    """Two runs on the same inputs: dk and dv (summed in registers) are
+    identical; dq, summed by atomics in an order that changes from run to
+    run, agrees within the tolerance."""
+    q, k, v, do = _inputs(cuda, 2, 200, 8, 2, 64, seed=11)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], True)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    first = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, True)
+    second = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, True)
+    torch.cuda.synchronize()
+    assert _close(second[0], first[0])
+    assert torch.equal(second[1], first[1])
+    assert torch.equal(second[2], first[2])
+
+
 def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):
     q = torch.zeros(1, 16, 4, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="attention_impl dense"):

@@ -3,6 +3,7 @@ device rule of its entry points, the config's rejections of features not
 ported yet, and the guard that the port imports nothing of JAX."""
 
 import ast
+import importlib.util
 import json
 import math
 import os
@@ -193,3 +194,76 @@ def test_importing_the_port_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its top level imports only the
+    standard library)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _sass(*functions):
+    """Canned ``cuobjdump -sass`` text: (mangled name, instructions)."""
+    lines = ["", "Fatbin elf code:", "================", "arch = sm_90a",
+             "", "\tcode for sm_90a"]
+    for name, ops in functions:
+        lines += [f"\t\tFunction : {name}",
+                  '\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_SM90"']
+        lines += [f"        /*{16 * i:04x}*/                   {op} ;"
+                  f"   /* 0x000fe200000018ff */" for i, op in enumerate(ops)]
+        lines.append("\t\t..........")
+    return "\n".join(lines) + "\n"
+
+
+_BF16_FWD = "_ZN5flash2tc13fwd_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_PS2_Pf"
+_F32_FWD = "_ZN5flash10fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiiii"
+_BF16_DQ = "_ZN5flash13bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
+_BF16_DKV = "_ZN5flash14bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
+_BF16_FUSED = ("_ZN5flash2tc19bwd_fused_kernel_tcILi64EEEvPK13__nv_bfloat16"
+               "S4_S4_S4_PKfS6_PfPS2_S8_")
+_HMMA = "HMMA.16816.F32.BF16 R24, R4.reuse, R16, R24"
+_FMA = ["LDS R8, [R2+0x100]", "FFMA R4, R8, R9, R4", "EXIT"]
+
+
+def _libraries(fwd_ops, fused_ops):
+    return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, fwd_ops)),
+            "flash_bwd": _sass((_BF16_DQ, _FMA), (_BF16_DKV, _FMA)),
+            "flash_bwd_fused": _sass((_BF16_FUSED, fused_ops))}
+
+
+def test_smoke_sass_check_finds_tensor_core_instructions():
+    smoke = _chip_smoke()
+    text = _sass((_BF16_FWD, ["LDSM.16.M88.4 R4, [R2]", _HMMA,
+                              "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24",
+                              _HMMA, "EXIT"]), (_F32_FWD, _FMA))
+    assert smoke.tensor_core_ops(text) == {
+        _BF16_FWD: ["HGMMA.64x64x16.F32.BF16", "HMMA.16816.F32.BF16"],
+        _F32_FWD: []}
+    found = smoke.check_tensor_cores(_libraries([_HMMA], [_HMMA, _HMMA]))
+    assert found == {"flash_fwd": True, "flash_bwd_dq": False,
+                     "flash_bwd_dkv": False, "flash_bwd_fused": True}
+
+
+@pytest.mark.parametrize("fwd_ops,fused_ops", [(_FMA, [_HMMA]),
+                                               ([_HMMA], _FMA)],
+                         ids=["forward", "fused"])
+def test_smoke_sass_check_fails_without_tensor_core_instructions(
+        capsys, fwd_ops, fused_ops):
+    """A kernel designed for the tensor cores whose bf16 instance runs only
+    FMA instructions fails the build phase."""
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(_libraries(fwd_ops, fused_ops))
+    assert "hold no HMMA/HGMMA" in capsys.readouterr().err
+
+
+def test_smoke_sass_check_fails_without_cuobjdump(capsys, monkeypatch):
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke.shutil, "which", lambda name: None)
+    monkeypatch.setattr(smoke.os.path, "exists", lambda path: False)
+    with pytest.raises(SystemExit):
+        smoke.find_cuobjdump()
+    assert "cuobjdump not found" in capsys.readouterr().err

@@ -110,6 +110,44 @@ def test_kernel_shape_rules():
     assert t_flash._supported(q[:, :5], k[:, :5], k[:, :5])
 
 
+def _shifted(shape, dtype, elements):
+    """A contiguous tensor whose base lies ``elements`` past an aligned
+    allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elements, dtype=dtype)[elements:].view(shape)
+
+
+@pytest.mark.parametrize("make,copied", [
+    (lambda: torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16), False),
+    (lambda: torch.zeros(2, 8, 3, 4, 64, dtype=torch.bfloat16)[:, :, 1],
+     False),
+    (lambda: torch.zeros(2, 8, 6, 32, dtype=torch.float32)[:, :, 4:], False),
+    (lambda: _shifted((2, 8, 4, 64), torch.bfloat16, 8), False),
+    (lambda: _shifted((2, 8, 4, 64), torch.bfloat16, 1), True),
+    (lambda: _shifted((2, 8, 4, 32), torch.float32, 2), True),
+    (lambda: torch.zeros(2, 8, 4, 68, dtype=torch.bfloat16)[..., :64], True),
+    (lambda: torch.zeros(2, 9, 4, 64, dtype=torch.bfloat16)[:, 1:], False),
+    (lambda: torch.zeros(2, 8, 64, 4, dtype=torch.bfloat16).transpose(2, 3),
+     True),
+], ids=["contiguous", "qkv-view", "gqa-kv-view-fp32", "base-16-bytes-on",
+        "base-2-bytes-off", "base-8-bytes-off-fp32", "head-stride-136-bytes",
+        "seq-slice", "head-dim-strided"])
+def test_kernel_layout_copies_only_operands_it_cannot_read(make, copied):
+    """The wrappers' layout rule (``_kernel_layout``): an operand goes to
+    the kernel where it lies when its head_dim is contiguous and its base
+    and batch/seq/head strides are 16-byte multiples (cp.async moves
+    16-byte row chunks); otherwise it is copied to a fresh contiguous
+    tensor with the same values."""
+    t = make()
+    t.copy_(torch.arange(t.numel(), dtype=torch.float32).view(t.shape))
+    (out,) = t_flash._kernel_layout(t)
+    assert (out is not t) == copied
+    assert t_flash._rows_aligned(out)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, t)
+    if copied:
+        assert out.is_contiguous()
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 8, 4, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
