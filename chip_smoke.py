@@ -10,13 +10,16 @@ Phases (any failure exits non-zero before the result line):
 2. build   - nvcc builds every kernel from csrc/ (sm_90a) and prints the
              ptxas report (registers, shared memory, spills); cuobjdump
              lists the tensor-core instructions (HMMA, HGMMA) in each
-             kernel's bf16 instance, and the phase fails if a kernel
-             designed for the tensor cores has none;
+             kernel's bf16 instances, and the phase fails if a kernel
+             designed for the tensor cores (all four) has a bf16 instance
+             without them;
 3. kernels - each flash kernel against its plain PyTorch version on the
              same bf16 inputs, at both paths' shapes, at L=2048 causal and
              non-causal, and at a long GQA shape; times for the kernel, the
              plain version and a PyTorch attention call (a yardstick the
-             port never calls), beside the least time the card could take;
+             port never calls), beside the least time the card could take,
+             and the two-pass pair (dq + dkv) against PyTorch's flash
+             backward;
 4. path    - the port's CLI flow (main.run) trains full-width gpt2_small
              with --attention_impl flash on synthetic_lm (two-pass
              backward), with launch counters reset just before and read
@@ -96,9 +99,9 @@ KERNELS = {
     "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66", "gpt2",
                   "main", "tensor-core"),
     "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192", "gpt2",
-                     "main", "fp32-fma"),
+                     "main", "tensor-core"),
     "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235", "gpt2",
-                      "main", "fp32-fma"),
+                      "main", "tensor-core"),
     "flash_bwd_fused": ("csrc/flash_bwd_fused.cu", "ops/pallas_ops.py:290",
                         "llama", "llama_path", "tensor-core"),
 }
@@ -386,6 +389,15 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
               f"{r['paced_ms']:.4f}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms {lib} ({lib_note}) "
               f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
+    # the two-pass pair computes what aten's flash backward computes
+    pair_ms = rows["flash_bwd_dq"]["ms"] + rows["flash_bwd_dkv"]["ms"]
+    ratio = "null" if bwd_ms is None else f"{pair_ms / bwd_ms:.3f}"
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name].update(pair_ms=pair_ms, pair_library_ms=bwd_ms)
+    print(f"[kernels] {label} two-pass pair (flash_bwd_dq + flash_bwd_dkv): "
+          f"kernel_ms {pair_ms:.4f} library_ms "
+          f"{'null' if bwd_ms is None else f'{bwd_ms:.4f}'} ({bwd_note}) "
+          f"x library {ratio}")
     return rows
 
 

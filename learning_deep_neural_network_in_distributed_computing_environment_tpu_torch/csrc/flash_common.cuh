@@ -1,9 +1,11 @@
-// Shared pieces of the hand-written flash-attention kernels (sm_90a).
+// Shared pieces of the hand-written flash-attention kernels (sm_90a), and
+// the fp32 FMA kernels' helpers.
 //
 // Tensors keep the JAX layout [batch, seq, heads, head_dim] and are read
 // through their batch/seq/head strides (head_dim must be the contiguous
-// axis), so no transpose copy is ever made.  Every tile is staged in
-// shared memory as fp32; all softmax state and accumulators are fp32.
+// axis), so no transpose copy is ever made.  The fp32 kernels stage every
+// tile in shared memory as fp32; all softmax state and accumulators are
+// fp32 in every kernel.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,16 +28,11 @@ struct Tile {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Stage rows [row0, row0 + rows) of one (batch, head) slice of a strided
 // [*, L, *, D] tensor into tile[r * LD + d] as fp32; rows past L read 0.
@@ -123,26 +120,3 @@ int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
 // dtype codes shared with ops/flash.py
 #define FLASH_DTYPE_F32 0
 #define FLASH_DTYPE_BF16 1
-
-// Expand the body (the variadic argument) once per supported (element type, head_dim) pair; unsupported
-// pairs return cudaErrorInvalidValue.  ops/flash.py::SUPPORTED_HEAD_DIMS
-// lists the same head dims.
-#define FLASH_DISPATCH(dtype, head_dim, ...)                           \
-  do {                                                                 \
-    if (dtype == FLASH_DTYPE_F32) {                                    \
-      using T = float;                                                 \
-      switch (head_dim) {                                              \
-        case 32: { constexpr int D = 32; __VA_ARGS__; }                       \
-        case 64: { constexpr int D = 64; __VA_ARGS__; }                       \
-        case 128: { constexpr int D = 128; __VA_ARGS__; }                     \
-      }                                                                \
-    } else if (dtype == FLASH_DTYPE_BF16) {                            \
-      using T = __nv_bfloat16;                                         \
-      switch (head_dim) {                                              \
-        case 32: { constexpr int D = 32; __VA_ARGS__; }                       \
-        case 64: { constexpr int D = 64; __VA_ARGS__; }                       \
-        case 128: { constexpr int D = 128; __VA_ARGS__; }                     \
-      }                                                                \
-    }                                                                  \
-    return (int)cudaErrorInvalidValue;                                 \
-  } while (0)

@@ -16,9 +16,11 @@ Four kernels (``csrc/``, built by ``ops/_build.py``):
 (``pallas_ops.py:522-534``): the backward of every flash call in the
 process is either the two-pass pair or the fused kernel, never a mix.
 
-The bf16 instances of ``flash_fwd`` and ``flash_bwd_fused`` run their
-products on the tensor cores; the fp32 instances and the two-pass pair run
-on the fp32 FMA pipes.
+The bf16 instances of all four kernels run their products on the tensor
+cores (``mma.sync`` from ``cp.async``-staged bf16 tiles); the fp32
+instances keep full fp32 products on the FMA pipes.  The two-pass pair
+writes each output once from registers, so its gradients are the same bits
+from run to run; the fused kernel sums dq by atomics.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the
 plain fp32 version for CPU tensors.  Before a launch it copies an operand
@@ -41,8 +43,8 @@ from .attention import NEG_INF, dot_product_attention, kv_group_size
 
 log = logging.getLogger(__name__)
 
-# head dims the kernels are instantiated for (csrc/flash_common.cuh
-# FLASH_DISPATCH lists the same)
+# head dims the kernels are instantiated for (csrc/flash_mma.cuh
+# FLASH_HEAD_DIM lists the same)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

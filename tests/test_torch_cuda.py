@@ -150,22 +150,25 @@ def _close(got, ref, tol=REL_TOL):
 
 
 def _check_tensor_core_kernels(q, k, v, do, causal):
-    """The bf16 forward (with and without lse) and fused backward against
-    the plain versions on the same bf16 values."""
+    """The bf16 forward (with and without lse), the two-pass pair and the
+    fused backward against the plain versions on the same bf16 values."""
     f32 = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = t_flash.plain_forward(*f32[:3], causal)
     delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
     o, lse = t_flash.kernel_forward(q, k, v, causal, with_lse=True)
     o_nolse, no_lse = t_flash.kernel_forward(q, k, v, causal)
-    got = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
+    dq = t_flash.kernel_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = t_flash.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    fused = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
     torch.cuda.synchronize()
     assert no_lse is None and torch.equal(o_nolse, o)
     assert o.dtype == torch.bfloat16 and _close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
     want = t_flash.plain_bwd_fused(*f32, lse_ref, delta, causal)
-    for name, g, ref in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == torch.bfloat16, name
-        assert _close(g, ref), name
+    for kernel, got in (("pair", (dq, dk, dv)), ("fused", fused)):
+        for name, g, ref in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == torch.bfloat16, (kernel, name)
+            assert _close(g, ref), (kernel, name)
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
@@ -222,6 +225,21 @@ def test_fused_tensor_core_kernel_repeats_within_tolerance(cuda):
     assert _close(second[0], first[0])
     assert torch.equal(second[1], first[1])
     assert torch.equal(second[2], first[2])
+
+
+def test_two_pass_tensor_core_kernels_repeat_bitwise(cuda):
+    """Two runs of the pair on the same inputs give the same bits: every
+    block writes its outputs once from registers, with no atomics."""
+    q, k, v, do = _inputs(cuda, 2, 200, 8, 2, 64, seed=12)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], True)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    runs = [(t_flash.kernel_bwd_dq(q, k, v, do, lse_ref, delta, True),
+             *t_flash.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(second, first), name
 
 
 def test_cuda_inputs_the_kernels_do_not_take_raise(cuda):

@@ -221,18 +221,27 @@ def _sass(*functions):
 
 _BF16_FWD = "_ZN5flash2tc13fwd_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_PS2_Pf"
 _F32_FWD = "_ZN5flash10fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiiii"
-_BF16_DQ = "_ZN5flash13bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
-_BF16_DKV = "_ZN5flash14bwd_dkv_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
+_BF16_DQ = ("_ZN5flash2tc16bwd_dq_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_S4_"
+            "PKfS6_PS2_")
+_BF16_DKV = ("_ZN5flash2tc17bwd_dkv_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_S4_"
+             "PKfS6_PS2_S7_")
+_F32_DQ = "_ZN5flash13bwd_dq_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS6_PS1_"
+_BF16_DQ_FMA = "_ZN5flash13bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
 _BF16_FUSED = ("_ZN5flash2tc19bwd_fused_kernel_tcILi64EEEvPK13__nv_bfloat16"
                "S4_S4_S4_PKfS6_PfPS2_S8_")
 _HMMA = "HMMA.16816.F32.BF16 R24, R4.reuse, R16, R24"
 _FMA = ["LDS R8, [R2+0x100]", "FFMA R4, R8, R9, R4", "EXIT"]
+_KERNEL_IDS = ("forward", "fused", "dq", "dkv")
 
 
-def _libraries(fwd_ops, fused_ops):
-    return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, fwd_ops)),
-            "flash_bwd": _sass((_BF16_DQ, _FMA), (_BF16_DKV, _FMA)),
-            "flash_bwd_fused": _sass((_BF16_FUSED, fused_ops))}
+def _libraries(forward=(_HMMA,), fused=(_HMMA,), dq=(_HMMA,), dkv=(_HMMA,),
+               extra_bwd=()):
+    """Canned cuobjdump text of the three libraries: each kernel's bf16
+    instance with the given instructions beside its fp32 FMA instance."""
+    return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, forward)),
+            "flash_bwd": _sass((_F32_DQ, _FMA), (_BF16_DQ, dq),
+                               (_BF16_DKV, dkv), *extra_bwd),
+            "flash_bwd_fused": _sass((_BF16_FUSED, fused))}
 
 
 def test_smoke_sass_check_finds_tensor_core_instructions():
@@ -243,21 +252,29 @@ def test_smoke_sass_check_finds_tensor_core_instructions():
     assert smoke.tensor_core_ops(text) == {
         _BF16_FWD: ["HGMMA.64x64x16.F32.BF16", "HMMA.16816.F32.BF16"],
         _F32_FWD: []}
-    found = smoke.check_tensor_cores(_libraries([_HMMA], [_HMMA, _HMMA]))
-    assert found == {"flash_fwd": True, "flash_bwd_dq": False,
-                     "flash_bwd_dkv": False, "flash_bwd_fused": True}
+    found = smoke.check_tensor_cores(_libraries(fused=[_HMMA, _HMMA]))
+    assert found == {"flash_fwd": True, "flash_bwd_dq": True,
+                     "flash_bwd_dkv": True, "flash_bwd_fused": True}
 
 
-@pytest.mark.parametrize("fwd_ops,fused_ops", [(_FMA, [_HMMA]),
-                                               ([_HMMA], _FMA)],
-                         ids=["forward", "fused"])
+@pytest.mark.parametrize("kernel", _KERNEL_IDS, ids=_KERNEL_IDS)
 def test_smoke_sass_check_fails_without_tensor_core_instructions(
-        capsys, fwd_ops, fused_ops):
+        capsys, kernel):
     """A kernel designed for the tensor cores whose bf16 instance runs only
     FMA instructions fails the build phase."""
     with pytest.raises(SystemExit):
-        _chip_smoke().check_tensor_cores(_libraries(fwd_ops, fused_ops))
+        _chip_smoke().check_tensor_cores(_libraries(**{kernel: _FMA}))
     assert "hold no HMMA/HGMMA" in capsys.readouterr().err
+
+
+def test_smoke_sass_check_fails_on_a_bf16_fma_instance_left_beside(capsys):
+    """A bf16 FMA-only bwd_dq_kernel instance left instantiated beside the
+    tensor-core one fails the check, though the _tc instance holds HMMA."""
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(
+            _libraries(extra_bwd=[(_BF16_DQ_FMA, _FMA)]))
+    err = capsys.readouterr().err
+    assert "flash_bwd_dq" in err and "hold no HMMA/HGMMA" in err
 
 
 def test_smoke_sass_check_fails_without_cuobjdump(capsys, monkeypatch):
