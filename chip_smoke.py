@@ -30,7 +30,18 @@ Phases (any failure exits non-zero before the result line):
              trained model (torch.profiler), and the device's busy share;
 6. llama   - the same two phases for full-width llama_medium with 4 K/V
              heads under FLASH_BWD=fused (the fused backward kernel), in a
-             child process, since the switch is read once at import.
+             child process, since the switch is read once at import;
+7. cnn     - the reference's own run through main.run: enhanced_cnn at
+             full width (44,595,786 params) on cifar10 (the seeded
+             synthetic data), bf16 compute, augmentation on, 2 global x 2
+             local epochs on 5,120 images; checks that no flash kernel
+             launched, the param count, finite and falling losses, finite
+             BatchNorm statistics that moved off their init, a finite test
+             evaluation, and the trained model's eval-mode logits on 8 test
+             images (bf16, channels_last) against the same weights run in
+             fp32 on the CPU; then its profile.  It runs after the kernels
+             phase turned TF32 off, which touches none of its bf16 convs
+             and none of its CPU reference.
 
 The last lines are the nvidia-smi line, one JSON object with a row per
 kernel, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -72,7 +83,15 @@ PATHS = {
                *_COMMON_ARGV, "--out_dir", os.path.join(OUT_DIR, "llama")],
               16),
 }
-PROFILE_STEPS = 4              # 4 x 64 sequences of the 256-sequence test set
+# the reference's run, cut to 2 rounds of 2 local epochs on 5,120 images;
+# batch 64, bf16, augmentation and width 64 are main's defaults
+CNN_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
+            "--epochs_global", "2", "--epochs_local", "2",
+            "--limit_train_samples", "5120", "--limit_eval_samples", "1024",
+            "--out_dir", os.path.join(OUT_DIR, "cnn")]
+CNN_PARAMS = 44_595_786
+CNN_LOGIT_TOL = 5e-2           # bf16 on the card vs fp32 on the CPU
+PROFILE_STEPS = 4              # 4 x 64 examples of the test set
 LLAMA_PHASE = "llama"          # the child's argument
 RESULT_TAG = "chip_smoke-llama-result "
 
@@ -409,6 +428,26 @@ def phase_kernels() -> dict:
     return {shape[0]: check_shape(*shape) for shape in SHAPES}
 
 
+def check_losses(name: str, results: dict) -> tuple[float, float]:
+    """Fail unless a path's losses are finite, its last-epoch train loss is
+    below its first batch's, and its test evaluation is finite; returns
+    (first-batch loss, last-epoch loss)."""
+    losses = results["all_workers_losses"][0]
+    curves = [losses] + [results[k] for k in (
+        "global_train_losses", "global_val_losses",
+        "worker_specific_train_losses")]
+    if not all(math.isfinite(x) for c in curves for x in c):
+        fail(f"non-finite loss in the {name} path's metrics")
+    first, last = losses[0], results["worker_specific_train_losses"][-1]
+    if not last < first:
+        fail(f"{name}: train loss did not fall: first batch {first}, last "
+             f"epoch {last}")
+    ev = results["test_eval"]
+    if not (math.isfinite(ev["loss"]) and math.isfinite(ev["accuracy"])):
+        fail(f"{name}: non-finite test evaluation {ev}")
+    return first, last
+
+
 def run_path(name: str) -> tuple[dict, dict]:
     """Drive one path through main.run with the launch counters reset just
     before and read just after; check the counts, the losses and the flash
@@ -450,18 +489,7 @@ def run_path(name: str) -> tuple[dict, dict]:
                                    if expect[n]):
         fail(f"{name}: launch counts {counts} do not match the path's "
              f"{expect}")
-    losses = results["all_workers_losses"][0]
-    curves = [losses] + [results[k] for k in (
-        "global_train_losses", "global_val_losses",
-        "worker_specific_train_losses")]
-    if not all(math.isfinite(x) for c in curves for x in c):
-        fail(f"non-finite loss in the {name} path's metrics")
-    first, last = losses[0], results["worker_specific_train_losses"][-1]
-    if not last < first:
-        fail(f"{name}: train loss did not fall: first batch {first}, last "
-             f"epoch {last}")
-    if not math.isfinite(results["test_eval"]["loss"]):
-        fail(f"{name}: non-finite test loss")
+    first, last = check_losses(name, results)
 
     # the trained model's flash logits against its dense logits (the
     # port's reference attention) on a small input
@@ -500,25 +528,28 @@ def run_path(name: str) -> tuple[dict, dict]:
     return counts, results
 
 
-def phase_profile(name: str, results) -> None:
+def phase_profile(name: str, results, argv: list[str]) -> None:
     """Where a train step's device time goes: one more round of
     PROFILE_STEPS train steps of the trained model under torch.profiler,
-    after the path's counts were read.  Prints device time by kernel and
-    the device's busy share of the round's wall time."""
+    after the path's counts were read (``argv``: the path's).  Prints
+    device time by kernel and the device's busy share of the round's wall
+    time."""
     import numpy as np
     import torch
     from importlib import import_module
     from torch.profiler import ProfilerActivity, profile
-    cfg = import_module(f"{PKG}.config").config_from_args(PATHS[name][0])
+    cfg = import_module(f"{PKG}.config").config_from_args(
+        [*argv, "--epochs_local", "1"])
     train = import_module(f"{PKG}.train")
     device = next(results["model"].parameters()).device
     engine = train.LocalSGDEngine(results["model"], cfg, device)
     state = results["state"]
     test = results["test"]
     n = PROFILE_STEPS * PATH_BATCH
-    shape = (1, PROFILE_STEPS, PATH_BATCH, -1)
-    pack = (test.images[:n].reshape(shape), test.labels[:n].reshape(shape),
-            np.ones((1, PROFILE_STEPS, PATH_BATCH), np.float32))
+    steps = (1, PROFILE_STEPS, PATH_BATCH)
+    pack = (test.images[:n].reshape(steps + test.images.shape[1:]),
+            test.labels[:n].reshape(steps + test.labels.shape[1:]),
+            np.ones(steps, np.float32))
     val = tuple(a[:, :1] for a in pack)
     engine.round(state, pack, val)              # warm-up
     torch.cuda.synchronize()
@@ -548,6 +579,85 @@ def phase_profile(name: str, results) -> None:
               f"{100 * dev_us(e) / busy:5.1f}% x{e.count:<5d} {e.key[:100]}")
 
 
+def run_cnn() -> tuple[dict, dict]:
+    """Drive the reference's run (CNN_ARGV) through main.run with the
+    launch counters reset just before and read just after; check it and
+    print its step time, throughput and memory."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    main = import_module(f"{PKG}.main")
+    models = import_module(f"{PKG}.models")
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main.run(CNN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fl.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    rt = results["round_timings"]
+    train_steps = sum(r["train_steps"] for r in rt)
+    print(f"[cnn] launches {counts} (the CNN path has no attention: all 0)")
+    if any(counts.values()):
+        fail(f"cnn: flash kernels launched on the CNN path: {counts}")
+    if train_steps < 12:
+        fail(f"cnn path ran only {train_steps} train steps")
+    model = results["model"]
+    params = sum(p.numel() for p in model.parameters())
+    if params != CNN_PARAMS:
+        fail(f"cnn: {params:,} params, expected {CNN_PARAMS:,}")
+    first, last = check_losses("cnn", results)
+    variables = results["variables"]
+    stats = {k: v for k, v in variables.items() if ".running_" in k}
+    unmoved = [k for k, v in stats.items() if torch.equal(
+        v, torch.full_like(v, 1.0 if k.endswith("var") else 0.0))]
+    if not stats or not all(torch.isfinite(v).all() for v in stats.values()):
+        fail("cnn: BatchNorm statistics missing or not finite")
+    if unmoved:
+        fail(f"cnn: BatchNorm statistics still at their init: {unmoved}")
+    ev = results["test_eval"]
+
+    # the trained model's eval-mode logits on the card (bf16,
+    # channels_last) against the same state_dict in fp32 on the CPU
+    x = torch.from_numpy(np.asarray(results["test"].images[:8]))
+    model.eval()
+    with torch.no_grad():
+        card = model(x.to(next(model.parameters()).device)).float().cpu()
+        cpu_model = models.get_model(
+            "enhanced_cnn", num_classes=results["test"].num_classes,
+            width=model.prep_conv.out_channels, dtype=torch.float32,
+            device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in variables.items()})
+        cpu_model = cpu_model.to(memory_format=torch.channels_last).eval()
+        ref = cpu_model(x)
+    if tuple(card.shape) != (8, results["test"].num_classes):
+        fail(f"cnn: logits shape {tuple(card.shape)}")
+    e, rel = _err(card, ref)
+    print(f"[cnn] card bf16 vs CPU fp32 eval-mode logits on 8 test images: "
+          f"max abs err {e:.4g} ({rel:.3g} of max |cpu|)")
+    if not (math.isfinite(e) and rel <= CNN_LOGIT_TOL):
+        fail(f"cnn: card and CPU logits disagree beyond {CNN_LOGIT_TOL}")
+
+    train_ms = sum(r["train_ms"] for r in rt)
+    step_ms = train_ms / train_steps
+    images_s = train_steps * PATH_BATCH / (train_ms / 1e3)
+    print(f"[cnn] {params:,} params; {len(stats) // 2} BatchNorms, all "
+          f"statistics finite and moved; wall {wall:.1f} s; "
+          f"{train_steps} train steps; train step {step_ms:.3f} ms; "
+          f"{images_s:.0f} images/s; first-batch loss {first:.4f} -> "
+          f"last-epoch mean {last:.4f}; val loss "
+          f"{results['global_val_losses'][-1]:.4f}; test loss "
+          f"{ev['loss']:.4f}, accuracy {ev['accuracy']:.2f}%; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    for r in rt:
+        print(f"[cnn] round {r['epoch']}: {r['train_steps']} train steps in "
+              f"{r['train_ms']:.1f} ms; round wall {r['compute_ms']:.1f} ms")
+    return counts, results
+
+
 def llama_child() -> int:
     """The llama path, run in a child process whose environment has
     FLASH_BWD=fused before the port is imported; prints its counts as one
@@ -556,7 +666,7 @@ def llama_child() -> int:
     if not import_module(f"{PKG}.ops.flash")._use_fused_bwd():
         fail("the llama child does not see FLASH_BWD=fused")
     counts, results = run_path("llama")
-    phase_profile("llama", results)
+    phase_profile("llama", results, PATHS["llama"][0])
     print(RESULT_TAG + json.dumps({"counts": counts}), flush=True)
     return 0
 
@@ -594,10 +704,13 @@ def main() -> int:
     rows = phase_kernels()
     counts = {}
     counts["gpt2"], results = run_path("gpt2")
-    phase_profile("gpt2", results)
+    phase_profile("gpt2", results, PATHS["gpt2"][0])
     del results                    # give the card back for the child
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
+    counts["cnn"], results = run_cnn()
+    phase_profile("cnn", results, CNN_ARGV)
+    del results
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

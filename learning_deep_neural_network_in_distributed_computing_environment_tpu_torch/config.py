@@ -27,7 +27,6 @@ NOT_PORTED = {
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
     "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
     "stream_chunk_steps": (0, "A.3 (streamed input pipeline)"),
-    "model_width": (0, "A.2 (CNN main path)"),
     "checkpoint_dir": ("", "A.9 (checkpoint engine)"),
     "chaos": ("", "A.11 (elastic membership + chaos)"),
     "sim_workers": (0, "A.11 (scenario lab)"),
@@ -81,6 +80,7 @@ class Config:
     attention_impl: str = "dense"  # dense | flash (hand-written CUDA kernels)
     num_kv_heads: int = 0         # > 0 => grouped-query attention (llama_*)
     device: str | None = None     # None => cuda; "cpu" runs the plain paths
+    model_width: int = 0          # > 0 => enhanced_cnn channel base (64)
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     sync_mode: str = "auto"
@@ -94,7 +94,6 @@ class Config:
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
     stream_chunk_steps: int = 0
-    model_width: int = 0
     checkpoint_dir: str = ""
     chaos: str = ""
     sim_workers: int = 0
@@ -152,7 +151,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["jax", "gloo", "nccl", "mpi"])
     for name in ("epochs_local", "epochs_global", "batch_size", "num_workers",
                  "seed", "probe_batches", "limit_train_samples",
-                 "limit_eval_samples", "num_kv_heads"):
+                 "limit_eval_samples", "num_kv_heads", "model_width"):
         p.add_argument(f"--{name}", type=int, default=getattr(d, name))
     for name in ("lr", "time_limit", "prev_fraction", "next_fraction",
                  "local_weight", "fixed_ratio"):

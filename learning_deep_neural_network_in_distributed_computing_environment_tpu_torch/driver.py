@@ -41,8 +41,8 @@ from .data import (
     step_budget,
     train_val_split,
 )
-from .models import get_model
-from .train import LocalSGDEngine
+from .models import SHAPED_BY_INPUT, get_model, is_attention_model
+from .train import LocalSGDEngine, to_device
 
 log = logging.getLogger(__name__)
 
@@ -90,12 +90,18 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
         np.asarray(mx["val_acc"])[0].tolist())
 
 
-def build_model_for(cfg: Config, num_classes: int, device: torch.device):
-    """The registry model at the configured compute dtype and attention,
-    initialized from ``cfg.seed`` with a generator on ``device``."""
+def build_model_for(cfg: Config, num_classes: int, device: torch.device,
+                    input_shape: tuple | None = None):
+    """The registry model at the configured compute dtype (and attention,
+    for transformers), initialized from ``cfg.seed`` with a generator on
+    ``device``, in ``channels_last`` (a no-op for models without 4-D
+    weights).  ``input_shape`` (one example's) sizes the first layer of
+    the models flax sizes from their input (``mlp``, ``lenet5``)."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
+    if is_attention_model(cfg.model):
+        kw["attention_impl"] = cfg.attention_impl
     if cfg.num_kv_heads > 0:
         # grouped-query attention (models/llama.py; the Llama-2/3 recipe)
         if not cfg.model.startswith("llama"):
@@ -103,10 +109,19 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device):
                 f"--num_kv_heads applies to llama_* models; got --model "
                 f"{cfg.model}")
         kw["num_kv_heads"] = cfg.num_kv_heads
+    if cfg.model_width:
+        # the JAX driver's rule (driver.py:119-124)
+        if cfg.model != "enhanced_cnn":
+            raise ValueError(
+                f"--model_width applies to --model enhanced_cnn; got "
+                f"{cfg.model}")
+        kw["width"] = cfg.model_width
+    if input_shape is not None and cfg.model in SHAPED_BY_INPUT:
+        kw["input_shape"] = tuple(input_shape)
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
-                      attention_impl=cfg.attention_impl, device=device, **kw)
+                      device=device, **kw)
     model.init_parameters(torch.Generator(device=device).manual_seed(cfg.seed))
-    return model
+    return model.to(memory_format=torch.channels_last)
 
 
 def _pack(ds, parts, batch: int, caps=None):
@@ -138,12 +153,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     else:
         trainset, valset, test = datasets
     batch = cfg.batch_size
-    model = build_model_for(cfg, trainset.num_classes, device)
+    model = build_model_for(cfg, trainset.num_classes, device,
+                            trainset.images.shape[1:])
     engine = LocalSGDEngine(model, cfg, device)
     state = engine.init_state()
 
     # --- probe -> ratios -> initial partition ---------------------------
-    sample = torch.from_numpy(trainset.images[:batch]).to(device, torch.long)
+    sample = to_device(trainset.images[:batch], device)
     durations, sec_per_batch = probe_lib.estimate_epoch_duration(
         model, sample, n, cfg.probe_batches, simulated_durations)
     ratios = efficiency_ratios(durations, cfg.proportionality)

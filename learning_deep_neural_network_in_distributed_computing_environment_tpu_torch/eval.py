@@ -9,7 +9,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from .train import masked_token_stats
+from .train import masked_token_stats, to_device
 from .utils.batching import pad_to_batches
 
 
@@ -46,20 +46,23 @@ def _prf(labels: np.ndarray, preds: np.ndarray, num_classes: int,
 def evaluate(model: torch.nn.Module, variables: dict, images: np.ndarray,
              labels: np.ndarray, batch_size: int, *, rank: int = 0,
              verbose: bool = True):
-    """Full test-set evaluation of ``model`` with parameters ``variables``
-    (``state_dict`` names -> tensors, on the device to run on).
+    """Full test-set evaluation of ``model`` in eval mode with parameters
+    and BatchNorm statistics ``variables`` (``state_dict`` names ->
+    tensors, on the device to run on); images go in as fp32, token ids as
+    int64.
 
     Returns (loss, accuracy, all_preds, all_labels, metrics_dict).  The tail
     batch pads and is masked out."""
     device = next(iter(variables.values())).device
     n = len(labels)
     x, y, m = pad_to_batches(images, labels, batch_size)
+    model.eval()                     # flax: apply(..., train=False)
     preds = []
     sums = torch.zeros(3, dtype=torch.float64, device=device)
     for xb, yb, mb in zip(x, y, m):
-        xb = torch.from_numpy(xb).to(device, torch.long)
-        yb = torch.from_numpy(yb).to(device, torch.long)
-        mb = torch.from_numpy(mb).to(device)
+        xb = to_device(xb, device)
+        yb = to_device(yb, device, torch.long)
+        mb = to_device(mb, device)
         out = functional_call(model, variables, (xb,))
         ce, w, c = masked_token_stats(out, yb, mb)
         sums += torch.stack([(ce * w).sum(), c, w.sum()]).double()

@@ -1,8 +1,9 @@
 """Model zoo of the port (JAX package: ``models/__init__.py:13-168``).
 
-Ported so far: the GPT-2 and Llama families.  Every other registry name
-of the JAX package is known here and raises "not yet ported" with the
-ROADMAP item that ports it.
+Ported so far: the CNN ladder (``enhanced_cnn``, the reference's model;
+``mlp``, ``lenet5``, ``resnet18``, ``resnet50``) and the GPT-2 and Llama
+families.  Every other registry name of the JAX package is known here and
+raises "not yet ported" with the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -40,6 +41,16 @@ _LLAMA_SIZES = {
     "llama_tiny": dict(num_layers=2, hidden=64, num_heads=4, ffn_dim=176),
 }
 
+# image models that infer their first layer from the input shape in flax
+# (here: ``input_shape=(H, W, C)``)
+SHAPED_BY_INPUT = ("mlp", "lenet5")
+
+
+def is_attention_model(name: str) -> bool:
+    """Transformer families: they take ``attention_impl``; the CNNs do
+    not (the JAX package's ``models/__init__.py:98``)."""
+    return name.lower().startswith(("bert", "gpt", "llama", "vit"))
+
 
 def get_model(name: str, **kw: Any):
     """Build a torch module by registry name."""
@@ -47,15 +58,27 @@ def get_model(name: str, **kw: Any):
     if name not in MODEL_INPUT_SPECS:
         raise ValueError(
             f"unknown model {name!r}; available: {sorted(MODEL_INPUT_SPECS)}")
+    if name in SHAPED_BY_INPUT and "input_shape" not in kw:
+        kw["input_shape"] = MODEL_INPUT_SPECS[name][0]
+    if name == "enhanced_cnn":
+        from .cnn import EnhancedCNNModel
+        return EnhancedCNNModel(**kw)
+    if name == "mlp":
+        from .mlp import MLP
+        return MLP(**kw)
+    if name == "lenet5":
+        from .lenet import LeNet5
+        return LeNet5(**kw)
+    if name in ("resnet18", "resnet50"):
+        from . import resnet
+        return (resnet.ResNet18 if name == "resnet18" else resnet.ResNet50)(
+            **kw)
     if name in _GPT_SIZES:
         from .gpt import GPTForCausalLM
         return GPTForCausalLM(**{**_GPT_SIZES[name], **kw})
     if name in _LLAMA_SIZES:
         from .llama import LlamaForCausalLM
         return LlamaForCausalLM(**{**_LLAMA_SIZES[name], **kw})
-    where = ("A.2 (CNN main path)" if name in (
-        "enhanced_cnn", "mlp", "lenet5", "resnet18", "resnet50")
-        else "A.7 (transformer families)")
     raise NotImplementedError(
         f"model {name!r} is not yet ported to the PyTorch package; it "
-        f"arrives with ROADMAP queue {where}")
+        f"arrives with ROADMAP queue A.7 (transformer families)")

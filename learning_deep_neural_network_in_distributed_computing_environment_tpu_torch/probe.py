@@ -4,16 +4,23 @@ of the JAX package's ``probe.py:195-219, 305-314``).
 Times are host-clock seconds around work that ends in
 ``torch.cuda.synchronize()`` (PyTorch returns before the card finishes), so
 they measure the card, not the launch queue; one untimed warm-up step
-comes first.
+comes first (it also absorbs cuDNN's first use; its heuristics pick the
+conv algorithms, since a ``cudnn.benchmark`` search found kernels no
+faster on an H100 and cost seconds at first use).  The module runs in eval
+mode, as the JAX probe applies it with ``train=False``, so BatchNorm
+normalises with its running statistics and leaves them untouched.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
 import torch
 from torch import nn
+
+log = logging.getLogger(__name__)
 
 
 def _sync(device: torch.device) -> None:
@@ -23,20 +30,29 @@ def _sync(device: torch.device) -> None:
 
 def measure_step_time(model: nn.Module, sample_batch: torch.Tensor,
                       num_batches: int = 10) -> float:
-    """Seconds for ``num_batches`` fwd+bwd executions after one warm-up."""
+    """Seconds for ``num_batches`` fwd+bwd executions after one warm-up,
+    with ``model`` in eval mode (its mode is restored after)."""
     params = [p for p in model.parameters() if p.requires_grad]
 
     def fwd_bwd():
         return torch.autograd.grad(model(sample_batch).float().sum(), params)
 
     num_batches = max(num_batches, 1)
-    fwd_bwd()
-    _sync(sample_batch.device)
-    t0 = time.perf_counter()
-    for _ in range(num_batches):
+    was_training = model.training
+    model.eval()
+    try:
+        t0 = time.perf_counter()
         fwd_bwd()
-    _sync(sample_batch.device)
-    return time.perf_counter() - t0
+        _sync(sample_batch.device)
+        log.info("probe warm-up pass (first call): %.3f s",
+                 time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(num_batches):
+            fwd_bwd()
+        _sync(sample_batch.device)
+        return time.perf_counter() - t0
+    finally:
+        model.train(was_training)
 
 
 def gather_durations(local_duration: float, world_size: int,

@@ -6,8 +6,15 @@ bodies :1676-1823, and the single-worker part of ``round`` :2343).
 PyTorch runs eagerly, so the round is a Python loop over steps instead of
 a compiled scan.  A step whose batch is all padding (or ignore-index) is
 skipped on the host before any work: in the JAX engine such a step leaves
-params, optimizer state and carried gradients untouched and records a
-zero loss, which is exactly what skipping does.
+params, optimizer state, carried gradients and BatchNorm statistics
+untouched and records a zero loss, which is exactly what skipping does.
+
+Train steps run the module in train mode (``train=True`` in flax), with
+on-device augmentation of image batches when ``cfg.augment`` is set (the
+JAX engine's rule, ``train.py:1827``: the pack is [S, B, H, W, C]);
+validation runs it in eval mode, without augmentation.  BatchNorm
+statistics live in the module as buffers, so they carry across rounds
+with it and ``rank0_variables`` returns them.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from torch import nn
 
 from . import comms
 from .config import Config
+from .data.augment import augment_batch
 
 
 def steplr(lr0: float, gamma: float, step_size: int, epoch: int) -> float:
@@ -113,6 +121,16 @@ class Adam:
         return self.mu + self.nu
 
 
+def to_device(a: np.ndarray, device: torch.device,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array on ``device``: images as fp32 (NHWC), token ids as
+    int64, unless ``dtype`` says otherwise."""
+    if dtype is None:
+        dtype = (torch.float32 if np.issubdtype(a.dtype, np.floating)
+                 else torch.long)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+
 @dataclasses.dataclass
 class TrainState:
     """One worker's state between rounds.  The parameters live in the
@@ -133,6 +151,8 @@ class LocalSGDEngine:
         self.device = device
         self.n_workers = 1
         self.params = [p for p in model.parameters()]
+        # the augmentation draws: one stream per engine, on its device
+        self.generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     def init_state(self) -> TrainState:
         return TrainState(opt=Adam(self.params))
@@ -143,13 +163,16 @@ class LocalSGDEngine:
 
     def _to_device(self, pack):
         x, y, m = (np.asarray(a)[0] for a in pack)     # worker 0 of [N, S, ...]
-        t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a)).to(
-            self.device, dt)
         real = (masked_weights(torch.from_numpy(y), torch.from_numpy(m))
                 .reshape(len(m), -1).sum(-1).numpy())
-        return t(x, torch.long), t(y, torch.long), t(m, torch.float32), real
+        dev = self.device
+        return (to_device(x, dev), to_device(y, dev, torch.long),
+                to_device(m, dev, torch.float32), real)
 
-    def _train_step(self, state: TrainState, x, y, m, lr: float):
+    def _train_step(self, state: TrainState, x, y, m, lr: float,
+                    augment: bool):
+        if augment:
+            x = augment_batch(x, self.generator)
         logits = self.model(x)
         ce, w, correct = masked_token_stats(logits, y, m)
         total = w.sum()
@@ -175,6 +198,7 @@ class LocalSGDEngine:
         cfg = self.cfg
         x, y, m, real = self._to_device(train_pack)
         xv, yv, mv, real_v = self._to_device(val_pack)
+        augment = cfg.augment and x.ndim == 5       # [S, B, H, W, C]
         dev = self.device
         steps = len(real)
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
@@ -187,13 +211,14 @@ class LocalSGDEngine:
                         state.lr_epoch)
             losses = torch.zeros(steps, device=dev)
             corrects = torch.zeros(steps, device=dev)
+            self.model.train()
             self._sync()
             t0 = time.perf_counter()
             for s in range(steps):
                 if real[s] == 0:      # all padding: the step is a no-op
                     continue
                 losses[s], corrects[s], last_grads = self._train_step(
-                    state, x[s], y[s], m[s], lr)
+                    state, x[s], y[s], m[s], lr, augment)
                 train_steps += 1
             self._sync()
             train_s += time.perf_counter() - t0
@@ -205,6 +230,7 @@ class LocalSGDEngine:
             train_loss = (losses * real_step).sum() / real_step.sum().clamp_min(1)
             train_acc = 100.0 * corrects.sum() / totals.sum().clamp_min(1)
             vsum = torch.zeros(3, device=dev)
+            self.model.eval()
             for s in range(len(real_v)):
                 if real_v[s] > 0:
                     vsum += self._eval_step(xv[s], yv[s], mv[s])

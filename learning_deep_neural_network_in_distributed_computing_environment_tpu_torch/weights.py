@@ -1,19 +1,28 @@
-"""Convert between a flax ``params`` tree of numpy arrays (the JAX
-package's GPT or Llama layout) and the port's ``state_dict`` naming and
+"""Convert between flax variables of numpy arrays (the JAX package's GPT,
+Llama and image-model layouts) and the port's ``state_dict`` naming and
 layout.
 
-The flax tree is either stacked (``--layer_scan auto``: one ``layers/layer``
+Image models (``enhanced_cnn``, ``resnet*``, ``lenet5``, ``mlp``;
+``cnn_flax_to_torch`` / ``cnn_torch_to_flax``): the flax module path is
+the torch key with ``.`` between modules.  Conv kernels are [kh, kw, cin,
+cout] in flax and [cout, cin, kh, kw] here, Dense kernels [in, out] and
+[out, in]; BatchNorm ``scale``/``bias`` are ``weight``/``bias``, and the
+``batch_stats`` collection's ``mean``/``var`` are the ``running_mean`` /
+``running_var`` buffers.
+
+Transformers (``flax_to_torch`` / ``torch_to_flax``, ``params`` only): the
+flax tree is either stacked (``--layer_scan auto``: one ``layers/layer``
 subtree whose leaves carry a leading [num_layers] axis) or unrolled
 (``layer0``, ``layer1``, ...).  Dense kernels are [in, out...] in flax and
 ``nn.Linear`` weights [out, in] here; ``DenseGeneral`` kernels flatten
 their head axes (``qkv`` [hidden, 3, H, Dh] <-> [3*H*Dh, hidden], ``out``
 [H, Dh, hidden] <-> [hidden, H*Dh]).  Both directions only transpose and
-reshape, so a round trip is exact.
+reshape, so a round trip is exact, for the image models too.
 
-The family follows from the leaves present: GPT has LayerNorms (``ln1``,
-``ln2``, ``ln_f``), a position table and FFN biases; Llama has RMSNorms
-(``rms1``, ``rms2``, ``rms_f``), a SwiGLU ``ffn_up`` and an untied
-``lm_head``, and no biases.
+The transformer family follows from the leaves present: GPT has
+LayerNorms (``ln1``, ``ln2``, ``ln_f``), a position table and FFN biases;
+Llama has RMSNorms (``rms1``, ``rms2``, ``rms_f``), a SwiGLU ``ffn_up``
+and an untied ``lm_head``, and no biases.
 """
 
 from __future__ import annotations
@@ -138,6 +147,57 @@ def torch_to_flax(state_dict: dict, *, num_heads: int,
     else:
         params.update({f"layer{i}": b for i, b in enumerate(blocks)})
     return params
+
+
+def cnn_flax_to_torch(variables: dict) -> dict[str, np.ndarray]:
+    """flax image-model ``{"params": ..., "batch_stats": ...}`` (the
+    second collection absent for models without BatchNorm) -> port
+    ``state_dict`` entries as numpy arrays."""
+    variables = _to_numpy(variables)
+    sd = {}
+    for path, arr in _leaves(variables["params"]):
+        key, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            sd[f"{key}.weight"] = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4
+                                   else arr.T)
+        else:
+            sd[f"{key}.{_LN[leaf]}"] = arr
+    for path, arr in _leaves(variables.get("batch_stats", {})):
+        sd[f"{'.'.join(path[:-1])}.running_{path[-1]}"] = arr
+    return sd
+
+
+def cnn_torch_to_flax(state_dict: dict) -> dict:
+    """Port ``state_dict`` of an image model (tensors or arrays) -> flax
+    ``{"params": ..., "batch_stats": ...}`` of numpy arrays (no
+    ``batch_stats`` for a model without BatchNorm)."""
+    variables: dict = {"params": {}}
+    for key, value in state_dict.items():
+        arr = _as_numpy(value)
+        *modules, leaf = key.split(".")
+        if leaf.startswith("running_"):
+            collection, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "bias":
+            collection, name = "params", "bias"
+        elif arr.ndim == 1:                     # BatchNorm weight
+            collection, name = "params", "scale"
+        else:
+            collection, name = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = variables.setdefault(collection, {})
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[name] = arr
+    return variables
+
+
+def _leaves(tree, path=()):
+    """(path tuple, leaf) pairs of a nested mapping, depth first."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
 
 
 def _as_numpy(x) -> np.ndarray:

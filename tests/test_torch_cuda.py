@@ -1,4 +1,6 @@
-"""Card-only tests of the PyTorch port's CUDA kernels (marker ``cuda``).
+"""Card-only tests of the PyTorch port (marker ``cuda``): its CUDA kernels,
+and the image models, BatchNorm and augmentation on the card against the
+CPU path.
 
 The kernels have no CPU mode, so every test here skips without a CUDA
 device.  The file imports nothing of JAX, so it also runs on a machine
@@ -13,6 +15,16 @@ import numpy as np
 import pytest
 import torch
 
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
+    augment as t_augment,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
+    MODEL_INPUT_SPECS,
+    get_model,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models.norm import (
+    BatchNorm,
+)
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.ops import (
     flash as t_flash,
 )
@@ -261,3 +273,91 @@ def test_fused_kernel_refuses_inputs_it_does_not_take(cuda, monkeypatch):
     lse = torch.zeros(1, 4, 16, device=cuda)
     with pytest.raises(RuntimeError, match="flash_bwd_fused kernel launch"):
         t_flash.kernel_bwd_fused(q, q, q, q, lse, lse, True)
+
+
+CNN_MODELS = ("enhanced_cnn", "mlp", "lenet5", "resnet18", "resnet50")
+# bf16 on the card against fp32 on the CPU through the whole network, one
+# bf16 rounding per layer each way: logits within 5e-2 of the largest; the
+# gradient of all parameters within 0.1 of its largest element and 0.15
+# of its norm (backward roundings compound towards the input: the CPU's
+# own bf16 path on these inputs is off by up to 5.1e-2 and 9.1e-2 of
+# them, 15 % on the first layers' tensors)
+LOGIT_TOL, GRAD_MAX_TOL, GRAD_NORM_TOL = 5e-2, 0.1, 0.15
+
+
+def _cnn_pass(name, device, dtype, state, x, cot):
+    """Eval-mode logits and parameter gradients of <logits, cot> of the
+    full-width model ``name`` loaded from ``state``, in ``channels_last``;
+    returned on the CPU as fp32."""
+    model = get_model(name, num_classes=10, dtype=dtype, device=device)
+    model.load_state_dict(state)
+    model = model.to(memory_format=torch.channels_last).eval()
+    logits = model(x.to(device))
+    (logits * cot.to(device)).sum().backward()
+    return (logits.detach().float().cpu(),
+            [p.grad.float().cpu() for p in model.parameters()])
+
+
+@pytest.mark.parametrize("name", CNN_MODELS)
+def test_cnn_bf16_channels_last_on_card_matches_cpu_fp32(cuda, name):
+    """Batch 8, eval mode on BatchNorm statistics moved off their init
+    values (in train mode a small batch's statistics amplify rounding far
+    beyond bf16's own error, see tests/test_torch_cnn.py)."""
+    torch.manual_seed(0)
+    model = get_model(name, num_classes=10)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    for key, t in state.items():
+        if key.endswith(("running_var", "bn1.weight", "bn2.weight")):
+            t.uniform_(0.5, 1.5)
+        elif key.endswith("running_mean"):
+            t.normal_(0.0, 0.1)
+    x = torch.randn(8, *MODEL_INPUT_SPECS[name][0])
+    cot = torch.randn(8, 10)
+    ref_logits, ref_grads = _cnn_pass(name, "cpu", torch.float32, state, x,
+                                      cot)
+    logits, grads = _cnn_pass(name, cuda, torch.bfloat16, state, x, cot)
+    assert _rel(logits, ref_logits) <= LOGIT_TOL
+    got, ref = torch.cat([g.flatten() for g in grads]), torch.cat(
+        [g.flatten() for g in ref_grads])
+    assert _rel(got, ref) <= GRAD_MAX_TOL
+    assert ((got - ref).norm() / ref.norm()).item() <= GRAD_NORM_TOL
+
+
+def test_batchnorm_update_on_card_matches_cpu(cuda):
+    """The same bf16 values through train mode on the card (bf16) and on the
+    CPU (fp32): fp32 statistics in another summation order, 1e-5 of their
+    size; the bf16 output within bf16 rounding."""
+    x = (torch.randn(16, 64, 32, 32) * 2 + 1).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    out = {}
+    for dev, inp in (("cpu", x.float()), (cuda, x.to(cuda))):
+        bn = BatchNorm(64, device=dev).train()
+        y = bn(inp)
+        out[str(dev)] = (y.detach().float().cpu(), bn.running_mean.cpu(),
+                         bn.running_var.cpu())
+        assert y.dtype == inp.dtype and bn.running_var.dtype == torch.float32
+    (y_ref, mean_ref, var_ref), (y, mean, var) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(mean, mean_ref, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, var_ref, rtol=1e-5, atol=1e-6)
+    assert _rel(y, y_ref) <= 1e-2
+
+
+def test_augment_batch_on_a_cuda_generator(cuda):
+    """Shape, dtype and device kept, a seed repeats, every cutout square is
+    zero, and the same draws give the CPU's result."""
+    x = torch.randn(64, 32, 32, 3, device=cuda)
+    runs = [t_augment.augment_batch(
+        x, torch.Generator(device=cuda).manual_seed(3)) for _ in range(2)]
+    assert runs[0].shape == x.shape and runs[0].dtype == x.dtype
+    assert runs[0].device == x.device and torch.equal(runs[0], runs[1])
+    draws = t_augment.draw(64, 32, 32,
+                           torch.Generator(device=cuda).manual_seed(3), cuda)
+    assert all(d.device == x.device for d in draws.values())
+    for i in range(64):
+        cy, cx = int(draws["cy"][i]), int(draws["cx"][i])
+        assert runs[0][i, max(cy - 4, 0):cy + 5,
+                       max(cx - 4, 0):cx + 5].eq(0).all()
+    cpu = t_augment.apply_augment(x.cpu(), {k: v.cpu() for k, v in
+                                            draws.items()})
+    torch.testing.assert_close(runs[0].cpu(), cpu, rtol=0, atol=1e-6)

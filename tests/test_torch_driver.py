@@ -96,6 +96,43 @@ def test_num_kv_heads_applies_to_llama_only(tmp_path):
         t_main.run(_argv(tmp_path, "--device", "cpu", "--num_kv_heads", "2"))
 
 
+def test_main_cnn_defaults_two_rounds_on_cpu(tmp_path, monkeypatch):
+    """The reference's own run (enhanced_cnn on cifar10, bf16 compute,
+    augmentation on) through ``main`` at small size: two rounds, the
+    metric structures, finite losses, BatchNorm statistics among the
+    variables, a finite test evaluation and the six plots."""
+    monkeypatch.setattr(t_viz, "_plt", lambda: None)
+    results = t_main.run(["--device", "cpu", "--model_width", "8",
+                          "--epochs_global", "2", "--epochs_local", "1",
+                          "--limit_train_samples", "256",
+                          "--limit_eval_samples", "64", "--batch_size", "32",
+                          "--out_dir", str(tmp_path)])
+    for key in REFERENCE_KEYS:
+        assert key in results, key
+    model = results["model"]
+    assert type(model).__name__ == "EnhancedCNNModel"
+    assert model.dtype == torch.bfloat16 and model.prep_conv.out_channels == 8
+    # 256 samples -> 204 train / 52 val; one worker -> 7 steps per epoch
+    assert results["shard_sizes"] == [[204], [204]]
+    assert [r["train_steps"] for r in results["round_timings"]] == [7, 7]
+    assert len(results["global_train_losses"]) == 2
+    assert all(math.isfinite(x) for x in results["all_workers_losses"][0])
+    assert np.isfinite(results["global_val_losses"]).all()
+    stats = results["variables"]["prep_bn.running_var"]
+    assert torch.isfinite(stats).all() and not torch.equal(
+        stats, torch.ones_like(stats))
+    ev = results["test_eval"]
+    assert math.isfinite(ev["loss"]) and 0.0 <= ev["accuracy"] <= 100.0
+    for name in PLOTS:
+        assert json.loads((tmp_path / f"{name}.json").read_text())
+
+
+def test_model_width_applies_to_enhanced_cnn_only(tmp_path):
+    """The JAX driver's rule (driver.py:119-124)."""
+    with pytest.raises(ValueError, match="applies to --model enhanced_cnn"):
+        t_main.run(_argv(tmp_path, "--device", "cpu", "--model_width", "8"))
+
+
 def test_train_global_repartitions_across_rounds():
     """Two rounds with pinned probe durations: the shard is re-drawn
     between rounds and keeps its size at one worker."""

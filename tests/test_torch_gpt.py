@@ -111,8 +111,9 @@ def test_init_matches_flax_initializer_statistics():
 
 
 def test_registry_names():
-    with pytest.raises(NotImplementedError, match="A.2"):
-        get_model("enhanced_cnn")
+    cnn = get_model("enhanced_cnn", width=8)
+    assert type(cnn).__name__ == "EnhancedCNNModel"
+    assert cnn(torch.zeros(2, 32, 32, 3)).shape == (2, 10)
     with pytest.raises(NotImplementedError, match="A.7"):
         get_model("bert_tiny")
     with pytest.raises(ValueError, match="unknown model"):

@@ -193,3 +193,82 @@ def test_all_padding_round_leaves_state_bit_identical():
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert state.opt.count == 0 and state.lr_epoch == 2
     assert mx["train_steps"] == 0 and not mx["batch_mask"].any()
+
+
+def _image_packs(steps=4, batch=4):
+    """Train/val packs [1, S, B, 32, 32, 3] of synthetic cifar10; train
+    step 2 is half padding and the last step all padding."""
+    train, _ = load_dataset("cifar10", seed=0, limit_train=2 * steps * batch,
+                            limit_test=1)
+    x = train.images.reshape(2, steps, batch, 32, 32, 3)
+    y = train.labels.reshape(2, steps, batch)
+    m = np.ones((steps, batch), np.float32)
+    m[2, batch // 2:] = 0.0
+    m[-1] = 0.0
+    return (x[:1], y[:1], m[None]), (x[1:], y[1:], np.ones_like(m)[None])
+
+
+def _cnn_port_engine(variables, **over):
+    model = t_get_model("enhanced_cnn", num_classes=10, width=8)
+    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
+                           weights.cnn_flax_to_torch(variables).items()})
+    model = model.to(memory_format=torch.channels_last)
+    kw = _kw(model="enhanced_cnn", dataset="cifar10", lr=1e-3, **over)
+    return t_train.LocalSGDEngine(model, TConfig(device="cpu", **kw), CPU)
+
+
+def test_one_worker_cnn_round_matches_jax_engine(devices):
+    """enhanced_cnn at width 8, fp32, no augmentation, 2 local epochs, a
+    shard whose last step is all padding, against the JAX engine from the
+    same transplanted state: per-epoch metrics at rtol 1e-4, BatchNorm
+    statistics at atol 1e-4, and params at atol 1e-4 but for at most one
+    element in 1e4.  Adam's step is m / sqrt(v): where an element's
+    gradient is near zero the two frameworks' fp32 difference can flip its
+    sign, moving it by up to 2 lr per step, so those are held to that
+    bound.  The padding step leaves everything bit-identical (the same
+    round without it)."""
+    train_pack, val_pack = _image_packs()
+    kw = _kw(model="enhanced_cnn", dataset="cifar10", lr=1e-3)
+    j_engine = j_train.LocalSGDEngine(
+        j_get_model("enhanced_cnn", num_classes=10, width=8),
+        build_mesh({"data": 1}, devices[:1]), JConfig(**kw))
+    j_state = j_engine.init_state(jax.random.key(0), train_pack[0][0, 0])
+    variables0 = jax.device_get(j_engine.rank0_variables(j_state))
+    assert "batch_stats" in variables0
+    engine = _cnn_port_engine(variables0)
+    state = engine.init_state()
+
+    j_state, j_mx = j_engine.round(j_state, train_pack, val_pack)
+    state, mx = engine.round(state, train_pack, val_pack)
+    for key in ("train_loss", "train_acc", "val_loss", "val_acc",
+                "batch_losses", "batch_mask", "global_train_loss",
+                "global_val_loss"):
+        np.testing.assert_allclose(mx[key], np.asarray(j_mx[key]),
+                                   rtol=1e-4, atol=1e-6, err_msg=key)
+    assert state.lr_epoch == 2 and state.opt.count == 2 * 3
+    want = jax.tree_util.tree_flatten_with_path(jax.device_get(
+        j_engine.rank0_variables(j_state)))[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(
+        weights.cnn_torch_to_flax(engine.model.state_dict()))[0])
+    assert len(got) == len(want)
+    lr, flipped, total = 1e-3, 0, 0
+    for path, leaf in want:
+        where = jax.tree_util.keystr(path)
+        err = np.abs(got[path] - leaf)
+        if "batch_stats" in where:
+            assert err.max() <= 1e-4, where
+        else:
+            assert err.max() <= 2 * lr * state.opt.count, where
+            flipped += int((err > 1e-4).sum())
+            total += err.size
+    assert flipped <= total * 1e-4, (flipped, total)
+
+    # the all-padding last step is a no-op: the round without it ends in
+    # the same bits, BatchNorm statistics included
+    twin = _cnn_port_engine(variables0)
+    twin_state = twin.init_state()
+    twin.round(twin_state, tuple(a[:, :-1] for a in train_pack), val_pack)
+    assert twin_state.opt.count == state.opt.count
+    for (k, a), b in zip(engine.model.state_dict().items(),
+                         twin.model.state_dict().values()):
+        assert torch.equal(a, b), k
