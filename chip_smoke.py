@@ -42,6 +42,21 @@ Phases (any failure exits non-zero before the result line):
              fp32 on the CPU; then its profile.  It runs after the kernels
              phase turned TF32 off, which touches none of its bf16 convs
              and none of its CPU reference.
+8. sync    - the N-worker slice: (a) all 12 sync modes (six blends, each
+             serving gradients and weights) on CUDA tensors of odd sizes
+             in 2 and in 4 worker processes of a gloo group, staged
+             through pinned host memory, against a float64 numpy formula
+             of each mode (rtol 1e-6, atol 1e-6), with post-sync
+             checksums; (b) main.run on the cnn phase's run with
+             --num_workers 2 and 4 and --aggregation_by weights (N=2
+             equal/allreduce balanced, N=4 equal/allreduce balanced, N=4
+             weighted/double_ring disbalanced), each worker its own
+             process on the one card: per-worker step time, summed
+             images/s beside the cnn phase's one worker, the sync wall
+             per round and the bytes per worker, each process's peak
+             memory, the host's core count; checks finite and falling
+             losses, no flash launch, and bitwise-identical parameters on
+             every rank after an equal all-reduce.
 
 The last lines are the nvidia-smi line, one JSON object with a row per
 kernel, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -90,6 +105,20 @@ CNN_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
             "--limit_train_samples", "5120", "--limit_eval_samples", "1024",
             "--out_dir", os.path.join(OUT_DIR, "cnn")]
 CNN_PARAMS = 44_595_786
+# phase 8: (label, workers, extra argv of main.run) of the N-worker runs
+SYNC_RUNS = [
+    ("n2_equal_allreduce", 2, ["--aggregation_type", "equal", "--topology",
+                               "allreduce", "--data_mode", "balanced"]),
+    ("n4_equal_allreduce", 4, ["--aggregation_type", "equal", "--topology",
+                               "allreduce", "--data_mode", "balanced"]),
+    ("n4_weighted_double_ring", 4, [
+        "--aggregation_type", "weighted", "--topology", "double_ring",
+        "--data_mode", "disbalanced", "--local_weight", "0.7"]),
+]
+SYNC_MODE_SIZES = [(7,), (3, 5), (1,), (129,), (1_000_003,)]
+SYNC_LOCAL_WEIGHT = 0.7
+SYNC_TOL = 1e-6                # rtol and atol against the float64 formula
+SYNC_DEVICE = "cuda"           # phase 8a's tensors
 CNN_LOGIT_TOL = 5e-2           # bf16 on the card vs fp32 on the CPU
 PROFILE_STEPS = 4              # 4 x 64 examples of the test set
 LLAMA_PHASE = "llama"          # the child's argument
@@ -658,6 +687,167 @@ def run_cnn() -> tuple[dict, dict]:
     return counts, results
 
 
+def modes_reference(x, n: int, how: str, topology: str, w: float):
+    """The float64 numpy formula of one sync mode on worker-stacked
+    leaves ``x`` [n, ...]: every worker's result, [n, ...]."""
+    import numpy as np
+    x = np.asarray(x, np.float64)
+    if topology == "allreduce":
+        total = x.sum(axis=0, keepdims=True)
+        if how == "equal":
+            return np.broadcast_to(total / n, x.shape)
+        return w * x + (1 - w) * (total - x) / (n - 1)
+    r1 = np.roll(x, 1, axis=0)               # worker i receives i - 1
+    if topology == "ring":
+        return (x + r1) / 2 if how == "equal" else w * x + (1 - w) * r1
+    r2 = np.roll(x, 2, axis=0)               # i - 2 (itself at n = 2)
+    if how == "equal":
+        return (x + r1 + r2) / 3
+    return w * x + (1 - w) / 2 * (r1 + r2)
+
+
+def check_sync_modes(n: int, work_dir: str) -> dict:
+    """Phase 8a at ``n`` workers: comms.modes_worker in ``n`` processes on
+    the card; each mode against modes_reference.  Returns label -> ms."""
+    import numpy as np
+    from importlib import import_module
+    comms = import_module(f"{PKG}.comms")
+    mesh = import_module(f"{PKG}.mesh")
+    d = os.path.join(work_dir, f"modes{n}")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(n)
+    leaves = [rng.normal(size=(n, *s)).astype(np.float32)
+              for s in SYNC_MODE_SIZES]
+    np.savez(os.path.join(d, "in.npz"),
+             **{f"leaf{j}": a for j, a in enumerate(leaves)})
+    store = mesh.new_store_path()
+    t0 = time.perf_counter()
+    try:
+        mesh.join_workers(mesh.spawn_workers(
+            comms.modes_worker, n,
+            (store, SYNC_DEVICE, os.path.join(d, "in.npz"), d,
+             SYNC_LOCAL_WEIGHT,
+             120.0), ranks=range(n)), timeout_s=300.0)
+    finally:
+        mesh.remove_store(store)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(n):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as f:
+            outs.append({k: f[k] for k in f.files})
+    ms, worst = {}, 0.0
+    for how, topology in comms.MODES:
+        for j, x in enumerate(leaves):
+            want = modes_reference(x, n, how, topology, SYNC_LOCAL_WEIGHT)
+            for r in range(n):
+                got = outs[r][f"{how}-{topology}-leaf{j}"]
+                err = np.abs(got.astype(np.float64) - want[r])
+                bad = err > SYNC_TOL + SYNC_TOL * np.abs(want[r])
+                if got.dtype != np.float32 or bad.any():
+                    fail(f"sync n={n} {how}/{topology} leaf{j} rank {r}: "
+                         f"max abs err {err.max():.3g} beyond rtol=atol="
+                         f"{SYNC_TOL} ({got.dtype})")
+                worst = max(worst, float(err.max()))
+        ms[f"{how}/{topology}"] = max(float(o[f"ms-{how}-{topology}"])
+                                      for o in outs)
+    sums = {str(o["checksum-equal-allreduce"]) for o in outs}
+    if len(sums) != 1:
+        fail(f"sync n={n}: ranks differ after equal/allreduce: {sums}")
+    numel = sum(int(np.prod(s)) for s in SYNC_MODE_SIZES)
+    print(f"[sync] modes n={n}: 12/12 modes (6 blends x gradients|weights, "
+          f"one aggregate serves both) on {SYNC_DEVICE} match the float64 "
+          f"formula "
+          f"(max abs err {worst:.3g}, rtol=atol={SYNC_TOL}); equal/allreduce "
+          f"bitwise identical on all {n} ranks; {numel:,} fp32 elements per "
+          f"worker; slowest rank's sync ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; {n} processes in {wall:.1f} s")
+    return ms
+
+
+def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
+             ) -> tuple[dict, dict]:
+    """Phase 8b: one N-worker run of CNN_ARGV through main.run (rank 0 in
+    this process) with the launch counters reset just before and read just
+    after; checks it and prints its throughput, sync and memory."""
+    import torch
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    main = import_module(f"{PKG}.main")
+    argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label), "--num_workers",
+            str(n), "--aggregation_by", "weights", *extra]
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fl.LAUNCHES)
+    tag = f"[sync {label}]"
+    print(f"{tag} launches {counts} (rank 0's process; no attention: all 0)")
+    if any(counts.values()):
+        fail(f"sync {label}: flash kernels launched: {counts}")
+    if len(results["all_workers_losses"]) != n:
+        fail(f"sync {label}: {len(results['all_workers_losses'])} workers")
+    first, last = check_losses(f"sync {label}", results)
+    rt = results["round_timings"]
+    steps = [sum(r["workers_train_steps"][i] for r in rt) for i in range(n)]
+    train_ms = [sum(r["workers_train_ms"][i] for r in rt) for i in range(n)]
+    if min(steps) < 4:
+        fail(f"sync {label}: a worker ran only {min(steps)} train steps")
+    step_ms = [t / s for t, s in zip(train_ms, steps)]
+    summed = sum(s * PATH_BATCH / (t / 1e3) for s, t in zip(steps, train_ms))
+    pooled = sum(steps) * PATH_BATCH / (max(train_ms) / 1e3)
+    sums = results["param_checksums"]
+    same = len(set(sums)) == 1
+    equal_allreduce = "equal" in extra and "allreduce" in extra
+    if equal_allreduce and not same:
+        fail(f"sync {label}: ranks hold different parameters after an "
+             f"equal all-reduce: {sums}")
+    mb = rt[-1]["sync_bytes"] / 1e6
+    wire_mb = rt[-1]["sync_wire_bytes"] / 1e6
+    peaks = rt[-1]["workers_max_memory_allocated"]
+    print(f"{tag} {n} worker processes on one card; wall {wall:.1f} s; "
+          f"train steps per worker {steps}; step ms per worker "
+          + "[" + ", ".join(f"{x:.3f}" for x in step_ms) + "]"
+          f"; summed images/s {summed:.0f} (one worker, cnn phase of this "
+          f"call: {one_worker_images_s:.0f}; x{summed / one_worker_images_s:.2f})"
+          f"; pooled images/s over the slowest worker's train time "
+          f"{pooled:.0f}; first-batch loss {first:.4f} -> last-epoch mean "
+          f"{last:.4f}; test loss {results['test_eval']['loss']:.4f}, "
+          f"accuracy {results['test_eval']['accuracy']:.2f}%")
+    for r in rt:
+        print(f"{tag} round {r['epoch']}: sync ms per rank "
+              + "[" + ", ".join(f"{x:.1f}" for x in r["workers_sync_ms"])
+              + f"]; round wall {r['compute_ms']:.1f} ms; train steps "
+              f"{r['workers_train_steps']}")
+    print(f"{tag} sync buffer {mb:.1f} MB per worker per round (staged to "
+          f"pinned host memory and back), modeled wire {wire_mb:.1f} MB sent "
+          f"per worker; least sync ms over the ranks per round "
+          + str([round(min(r["workers_sync_ms"]), 1) for r in rt])
+          + "; max_memory_allocated per process (GiB) "
+          + "[" + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + "]"
+          f"; sched_getaffinity {len(os.sched_getaffinity(0))} cores; "
+          f"param checksums {'all equal' if same else 'differ'} across "
+          f"ranks")
+    return counts, dict(summed_images_s=summed, step_ms=step_ms, wall=wall)
+
+
+def phase_sync(one_worker_images_s: float) -> dict:
+    """Phase 8: the modes on CUDA at n=2 and 4, then the three N-worker
+    runs; returns rank 0's summed launch counts."""
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke", "sync")
+    for n in (2, 4):
+        check_sync_modes(n, work)
+    counts = {}
+    for label, n, extra in SYNC_RUNS:
+        c, _ = run_sync(label, n, extra, one_worker_images_s)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    print(f"[sync] phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def llama_child() -> int:
     """The llama path, run in a child process whose environment has
     FLASH_BWD=fused before the port is imported; prints its counts as one
@@ -710,7 +900,12 @@ def main() -> int:
     counts["llama"] = phase_llama()
     counts["cnn"], results = run_cnn()
     phase_profile("cnn", results, CNN_ARGV)
+    rt = results["round_timings"]
+    images_s = (sum(r["train_steps"] for r in rt) * PATH_BATCH
+                / (sum(r["train_ms"] for r in rt) / 1e3))
     del results
+    torch.cuda.empty_cache()
+    counts["sync"] = phase_sync(images_s)
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

@@ -45,7 +45,7 @@ class Config:
     as the JAX ``Config``)."""
 
     # --- reference-parity flags -------------------------------------------
-    backend: str = "jax"          # gloo|nccl|mpi accepted as compat no-ops
+    backend: str = "jax"          # jax|gloo|mpi: the gloo group; nccl: A.12
     epochs_local: int = 5
     epochs_global: int = 20
     batch_size: int = 64
@@ -63,7 +63,7 @@ class Config:
     # --- framework knobs -----------------------------------------------------
     model: str = "enhanced_cnn"
     dataset: str = "cifar10"
-    num_workers: int = 0          # 0 => one worker per device (one here)
+    num_workers: int = 0          # 0 => one per CUDA device; 1 on the CPU
     seed: int = 0
     dtype: str = "float32"        # param dtype
     compute_dtype: str = "bfloat16"
@@ -128,11 +128,17 @@ class Config:
             raise ValueError(
                 f"--{name} {value} is not ported to the PyTorch package yet; "
                 f"it arrives with ROADMAP queue {where}")
-        if self.num_workers > 1:
+        if self.backend == "nccl":
+            # N workers share one card here as N processes of a gloo group
+            # (mesh.py); NCCL refuses two ranks on one device
             raise ValueError(
-                f"--num_workers {self.num_workers}: the PyTorch port runs one "
-                "worker so far; the multi-worker sync matrix on "
-                "torch.distributed is ROADMAP queue A.5")
+                "--backend nccl: the PyTorch port runs its workers as a gloo "
+                "group with host-staged syncs (--backend jax|gloo|mpi); "
+                "NCCL with one rank per card is ROADMAP queue A.12")
+        if self.num_workers < 0:
+            raise ValueError(
+                f"--num_workers must be >= 0 (0 = one per device), got "
+                f"{self.num_workers}")
         if self.epochs_local < 1 or self.batch_size < 1:
             raise ValueError("epochs_local and batch_size must be >= 1")
 

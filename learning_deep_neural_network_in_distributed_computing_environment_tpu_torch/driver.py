@@ -1,5 +1,6 @@
 """``train_global``: the orchestration loop (port of the JAX package's
-``driver.py:67-125, 235``, single worker, serial).
+``driver.py:67-125, 213-235``, serial), run by every rank of the worker
+group (one call per process; ``group=None`` is the one-worker run).
 
 1. load -> 80/20 train/val split;
 2. timing probe -> shard-share ratios;
@@ -8,25 +9,37 @@
 4. per global epoch: pack the worker's capped shard, run the round
    (``epochs_local`` x train + validation, then the sync point), assemble
    the reference metrics;
-5. straggler feedback: the measured round wall feeds the sec/batch EMA one
-   round late (as in the JAX driver's overlapped pipeline, whose serial
-   mode uses the same delay), and the shard is re-partitioned from
-   ``prev_fraction`` of its own indices plus ``next_fraction`` of the pool.
+5. straggler feedback: every worker's measured round wall, divided by
+   ``epochs_local``, feeds the sec/batch EMA one round late (as in the JAX
+   driver's overlapped pipeline, whose serial mode uses the same delay),
+   and each shard is re-partitioned from ``prev_fraction`` of its own
+   indices plus ``next_fraction`` of the pool.
+
+Every rank computes every worker's partition from the same
+``np.random.default_rng(cfg.seed)`` stream and the same gathered inputs
+(probe durations, walls), and packs the same worker-stacked arrays; the
+engine trains on its own row.  A float that differed between ranks would
+desynchronise the shards without a sound, so the init and each round's
+partition are checked by a gathered checksum.
 
 Returns the reference's metric structures under their original names,
-plus ``step_caps``, ``shard_sizes``, ``round_timings`` and the final
-``model``, ``variables`` and ``test`` set.
+plus ``step_caps``, ``shard_sizes``, ``round_timings``, the final
+``model``, ``variables`` and ``test`` set, and with several workers the
+round-0 train shards and every rank's final parameter checksum.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from . import comms, mesh
 from . import probe as probe_lib
 from .config import Config
 from .data import (
@@ -48,15 +61,32 @@ log = logging.getLogger(__name__)
 
 
 def resolve_device(name: str | None) -> torch.device:
-    """``cpu`` only when asked for; otherwise CUDA, or an error when there
-    is no card (the port never falls back to the CPU on its own)."""
-    if name == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    """``cpu`` only when asked for; otherwise the card, or an error when
+    there is none (the port never falls back to the CPU on its own)."""
+    return mesh.worker_device(0, name)
+
+
+def measured_worker_walls(walls_s, epochs_local: int) -> np.ndarray:
+    """Every worker's measured round wall as the EMA takes it: divided by
+    ``epochs_local``, since a round runs that many passes over the shard
+    (JAX ``driver.py:1240-1241``)."""
+    return np.asarray(walls_s, np.float64) / max(epochs_local, 1)
+
+
+def _check_same(group, what: str, value: str) -> None:
+    """Raise unless every rank of ``group`` holds the same ``value``."""
+    values = mesh.all_gather(group, value)
+    if len(set(values)) > 1:
         raise RuntimeError(
-            "CUDA is not available: the PyTorch port runs on the GPU unless "
-            "the CPU is asked for (--device cpu / device='cpu')")
-    return torch.device("cuda")
+            f"the workers disagree on {what}: {values} (rank order); every "
+            "rank must compute it from the same inputs")
+
+
+def _partition_digest(train_parts, val_parts, caps) -> str:
+    h = hashlib.sha256(np.asarray(caps, np.int64).tobytes())
+    for p in (*train_parts, *val_parts):
+        h.update(np.asarray(p, np.int64).tobytes())
+    return h.hexdigest()
 
 
 def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
@@ -136,14 +166,28 @@ def _pack(ds, parts, batch: int, caps=None):
 
 
 def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
-                 progress: bool = True) -> dict[str, Any]:
-    """Run the experiment; returns the reference's metric structures.
+                 simulated_round_durations: Callable | None = None,
+                 group: mesh.Group | None = None, progress: bool = True
+                 ) -> dict[str, Any]:
+    """Run the experiment as worker ``group.rank`` of ``group`` (the one
+    worker when None); returns the reference's metric structures.
 
     ``datasets``: optional (train, val, test) ``Dataset`` triple override.
     ``simulated_durations``: per-worker probe durations to use instead of
-    measuring (tests, heterogeneity experiments)."""
-    device = resolve_device(cfg.device)
-    n = 1
+    measuring (tests, heterogeneity experiments).
+    ``simulated_round_durations``: callable ``epoch -> [N] seconds`` used
+    instead of the measured round walls (not divided by ``epochs_local``),
+    as in the JAX driver (tests of the straggler feedback).
+    ``progress``: the report lines and the "Global Epochs" bar (rank 0)."""
+    if group is None and mesh.resolve_num_workers(cfg.num_workers,
+                                                  cfg.device) > 1:
+        raise ValueError(
+            f"--num_workers {cfg.num_workers}: train_global runs one rank; "
+            "N workers run through main.run (or driver.train_rank per rank)")
+    n = 1 if group is None else group.world_size
+    rank = 0 if group is None else group.rank
+    device = resolve_device(cfg.device) if group is None else group.device
+    progress = progress and rank == 0
     rng = np.random.default_rng(cfg.seed)
     if datasets is None:
         full_train, test = load_dataset(
@@ -155,13 +199,18 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     batch = cfg.batch_size
     model = build_model_for(cfg, trainset.num_classes, device,
                             trainset.images.shape[1:])
-    engine = LocalSGDEngine(model, cfg, device)
+    engine = LocalSGDEngine(model, cfg, device, group)
     state = engine.init_state()
+    if group is not None:
+        # one init on every rank: the same seed gives the same init on one
+        # device type; the JAX engine tiles one init (train.py:1187-1227)
+        _check_same(group, "the initial parameters",
+                    comms.checksum(engine.params))
 
     # --- probe -> ratios -> initial partition ---------------------------
     sample = to_device(trainset.images[:batch], device)
     durations, sec_per_batch = probe_lib.estimate_epoch_duration(
-        model, sample, n, cfg.probe_batches, simulated_durations)
+        model, sample, n, cfg.probe_batches, simulated_durations, group)
     ratios = efficiency_ratios(durations, cfg.proportionality)
     log.info("probe durations %s -> ratios %s", durations, ratios)
     disbalanced = cfg.data_mode == "disbalanced"
@@ -184,8 +233,21 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "worker_specific_val_accuracies", "step_caps", "shard_sizes",
             "round_timings")},
     }
+    if group is not None:
+        results["initial_train_shards"] = [p.copy() for p in train_parts]
+    epochs = range(cfg.epochs_global)
+    pbar = None
+    if progress:
+        try:  # the reference's global-epoch bar (trainer.py:27,174)
+            from tqdm import tqdm
+            pbar = tqdm(epochs, desc="Global Epochs",
+                        total=cfg.epochs_global)
+            epochs = pbar
+        except ImportError:
+            pass
     walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    for epoch in range(cfg.epochs_global):
+    sync_bytes = 4 * sum(p.numel() for p in engine.params)
+    for epoch in epochs:
         # straggler protocol: per-worker step cap from the sec/batch EMA
         # and the time_limit budget
         caps = [budget_from_time_limit(int(np.ceil(len(p) / batch)),
@@ -195,6 +257,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         steps_run = np.array([min(int(np.ceil(len(p) / batch)), caps[i])
                               for i, p in enumerate(train_parts)],
                              np.float64)
+        if group is not None:
+            _check_same(group, f"round {epoch}'s partition",
+                        _partition_digest(train_parts, val_parts, caps))
         train_pack = _pack(trainset, train_parts, batch, caps)
         val_pack = _pack(valset, val_parts, batch)
         t0 = time.perf_counter()
@@ -203,13 +268,29 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         _assemble_round_metrics(results, mx, n)
         results["step_caps"].append(caps)
         results["shard_sizes"].append([len(p) for p in train_parts])
-        results["round_timings"].append({
+        timing = {
             "epoch": epoch, "compute_ms": wall * 1e3,
             "train_ms": mx["train_ms"], "train_steps": mx["train_steps"],
-            "val_steps": mx["val_steps"]})
+            "val_steps": mx["val_steps"]}
+        if group is not None:
+            timing.update(
+                {k: mx[k] for k in mx if k.startswith("workers_")},
+                sync_bytes=sync_bytes, sync_wire_bytes=comms.wire_bytes(
+                    sync_bytes // 4, cfg.topology, n))
+        results["round_timings"].append(timing)
         if progress:
-            _report(cfg, mx, epoch, wall, results)
-        walls[epoch] = (np.full(n, wall), steps_run)
+            _report(cfg, mx, epoch, wall, results, pbar)
+        if simulated_round_durations is not None:
+            worker_walls = np.asarray(simulated_round_durations(epoch),
+                                      np.float64)
+            if worker_walls.shape != (n,):
+                raise ValueError(
+                    f"simulated_round_durations({epoch}) returned shape "
+                    f"{worker_walls.shape}; the run has {n} workers")
+        else:
+            worker_walls = measured_worker_walls(mx["workers_wall_s"],
+                                                 cfg.epochs_local)
+        walls[epoch] = (worker_walls, steps_run)
         if epoch + 1 == cfg.epochs_global:
             break
         # the EMA consumes walls one round late: rounds < epoch
@@ -231,6 +312,11 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                  for i, p in enumerate(parts)]
                 for ds, parts in ((trainset, train_parts),
                                   (valset, val_parts)))
+    if pbar is not None:
+        pbar.close()
+    if group is not None:
+        results["param_checksums"] = mesh.all_gather(
+            group, comms.checksum(engine.params))
 
     results["state"] = state
     results["variables"] = engine.rank0_variables()
@@ -239,20 +325,71 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     return results
 
 
+def train_rank(rank: int, world_size: int, store_path: str,
+               timeout_s: float, cfg: Config,
+               train_kwargs: dict | None = None) -> dict[str, Any]:
+    """Run ``train_global(cfg, **train_kwargs)`` as rank ``rank`` of a
+    ``world_size``-worker group that meets at the FileStore
+    ``store_path`` (``main.run``'s ranks; a spawn target)."""
+    device = mesh.worker_device(rank, cfg.device)
+    with mesh.init_group(rank, world_size, device, store_path,
+                         timeout_s) as group:
+        return train_global(cfg, group=group, **(train_kwargs or {}))
+
+
+def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
+                 num_classes: int, state_path: str, packs_path: str,
+                 out_dir: str, timeout_s: float = mesh.GROUP_TIMEOUT_S
+                 ) -> None:
+    """One rank of a one-round check (a spawn target): for each config of
+    ``cfgs``, builds the model from the ``state_dict`` in ``state_path``
+    (``torch.save``), runs one engine round over the group on its row of
+    the worker-stacked packs in ``packs_path`` (npz: x, y, m, xv, yv, mv)
+    and saves ``{out_dir}/rank{rank}-{i}.pt``: the round's metrics and the
+    model's ``state_dict`` after it."""
+    state_dict = torch.load(state_path)
+    with np.load(packs_path) as f:
+        train_pack = (f["x"], f["y"], f["m"])
+        val_pack = (f["xv"], f["yv"], f["mv"])
+    device = mesh.worker_device(rank, cfgs[0].device)
+    with mesh.init_group(rank, world_size, device, store_path,
+                         timeout_s) as group:
+        for i, cfg in enumerate(cfgs):
+            model = build_model_for(cfg, num_classes, device,
+                                    train_pack[0].shape[3:])
+            model.load_state_dict(state_dict)
+            engine = LocalSGDEngine(model, cfg, device, group)
+            state, mx = engine.round(engine.init_state(), train_pack,
+                                     val_pack)
+            torch.save({"mx": mx, "state_dict": model.state_dict(),
+                        "opt_count": state.opt.count},
+                       os.path.join(out_dir, f"rank{rank}-{i}.pt"))
+
+
 def _report(cfg: Config, mx: dict, epoch: int, wall: float,
-            results: dict) -> None:
-    """The reference's per-local-epoch report lines (trainer.py:109-110)
-    and a global-epoch summary."""
-    for e in range(np.asarray(mx["train_loss"]).shape[1]):
-        print(f"Rank 0, Global Epoch {epoch + 1}, Local Epoch {e + 1}, "
-              f"Loss: {mx['train_loss'][0, e]}, "
-              f"Accuracy: {mx['train_acc'][0, e]}")
-        print(f"Worker 0, Global Epoch {epoch + 1}, "
-              f"Validation Loss: {mx['val_loss'][0, e]:.4f}, "
-              f"Validation Accuracy: {mx['val_acc'][0, e]:.2f}%")
-    print(f"Global Epoch {epoch + 1}/{cfg.epochs_global}: "
-          f"loss={results['global_train_losses'][-1]:.4f} "
-          f"acc={results['global_train_accuracies'][-1]:.2f}% "
-          f"val_loss={results['global_val_losses'][-1]:.4f} "
-          f"val_acc={results['global_val_accuracies'][-1]:.2f}% "
-          f"({wall:.1f}s)")
+            results: dict, pbar=None) -> None:
+    """The reference's per-rank per-local-epoch report lines
+    (trainer.py:109-110) for every worker, through ``pbar.write`` under
+    the "Global Epochs" bar (its loss/accuracy/wall postfix then stands
+    for the summary line), else ``print`` and a global-epoch summary."""
+    say = pbar.write if pbar is not None else print
+    n, epochs_local = np.asarray(mx["train_loss"]).shape
+    for r in range(n):
+        for e in range(epochs_local):
+            say(f"Rank {r}, Global Epoch {epoch + 1}, Local Epoch {e + 1}, "
+                f"Loss: {mx['train_loss'][r, e]}, "
+                f"Accuracy: {mx['train_acc'][r, e]}")
+            say(f"Worker {r}, Global Epoch {epoch + 1}, "
+                f"Validation Loss: {mx['val_loss'][r, e]:.4f}, "
+                f"Validation Accuracy: {mx['val_acc'][r, e]:.2f}%")
+    if pbar is not None:  # trainer.py:174 postfix
+        pbar.set_postfix(loss=results["global_train_losses"][-1],
+                         accuracy=results["global_train_accuracies"][-1],
+                         wall=f"{wall:.1f}s")
+    else:
+        print(f"Global Epoch {epoch + 1}/{cfg.epochs_global}: "
+              f"loss={results['global_train_losses'][-1]:.4f} "
+              f"acc={results['global_train_accuracies'][-1]:.2f}% "
+              f"val_loss={results['global_val_losses'][-1]:.4f} "
+              f"val_acc={results['global_val_accuracies'][-1]:.2f}% "
+              f"({wall:.1f}s)")

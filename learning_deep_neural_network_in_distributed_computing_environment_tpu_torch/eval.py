@@ -59,7 +59,14 @@ def evaluate(model: torch.nn.Module, variables: dict, images: np.ndarray,
     model.eval()                     # flax: apply(..., train=False)
     preds = []
     sums = torch.zeros(3, dtype=torch.float64, device=device)
-    for xb, yb, mb in zip(x, y, m):
+    batches = zip(x, y, m)
+    if verbose:
+        try:  # the reference's "Testing" bar (evaluator.py:15,30-31)
+            from tqdm import tqdm
+            batches = tqdm(batches, total=len(x), desc="Testing")
+        except ImportError:
+            pass
+    for xb, yb, mb in batches:
         xb = to_device(xb, device)
         yb = to_device(yb, device, torch.long)
         mb = to_device(mb, device)

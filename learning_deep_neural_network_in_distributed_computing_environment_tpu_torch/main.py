@@ -4,10 +4,18 @@ Run flow: config -> ``train_global`` (probe, partition, local-SGD rounds)
 -> rank-0 test evaluation with P/R/F1 -> the six plots.  Runs on CUDA
 unless ``--device cpu`` is given.
 
-Example::
+With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
+worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
+0 runs in the calling process and returns the results, evaluates and
+plots.  A child that fails makes the run raise (a dead peer ends the
+others' collectives at the group timeout, never in a hang).
+
+Examples::
 
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --model gpt2_small --dataset synthetic_lm --attention_impl flash
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --num_workers 4 --aggregation_by weights --topology double_ring
 """
 
 from __future__ import annotations
@@ -30,11 +38,15 @@ def run(argv=None) -> dict:
         level=getattr(logging, cfg.log_level.upper(), logging.INFO),
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
 
-    from . import viz
+    from . import mesh, viz
     from .driver import train_global
     from .eval import evaluate
 
-    results = train_global(cfg)
+    n = mesh.resolve_num_workers(cfg.num_workers, cfg.device)
+    if n == 1:
+        results = train_global(cfg)
+    else:
+        results = _run_group(cfg, argv, n)
     test = results["test"]
     loss, acc, _preds, _labels, metrics = evaluate(
         results["model"], results["variables"], test.images, test.labels,
@@ -42,6 +54,48 @@ def run(argv=None) -> dict:
     results["test_eval"] = dict(loss=loss, accuracy=acc, **metrics)
     viz.write_all(results, len(results["global_train_losses"]),
                   cfg.epochs_local, cfg.out_dir)
+    return results
+
+
+def _worker(rank: int, world_size: int, argv: list[str], store_path: str,
+            timeout_s: float) -> None:
+    """A spawned rank of ``main.run``: the same flags, its own worker."""
+    from .config import config_from_args
+    from .driver import train_rank
+    cfg = config_from_args(argv)
+    logging.basicConfig(
+        level=getattr(logging, cfg.log_level.upper(), logging.INFO),
+        format=f"%(asctime)s rank {rank} %(name)s %(levelname)s: "
+               "%(message)s")
+    train_rank(rank, world_size, store_path, timeout_s, cfg)
+
+
+def _run_group(cfg, argv: list[str], n: int) -> dict:
+    """Spawn ranks 1..n-1, run rank 0 here (with its share of the
+    threads), join the children; raise if any of them failed."""
+    import torch
+
+    from . import mesh
+    from .driver import train_rank
+    store = mesh.new_store_path()
+    timeout_s = mesh.GROUP_TIMEOUT_S
+    threads = torch.get_num_threads()
+    procs = mesh.spawn_workers(_worker, n, (argv, store, timeout_s))
+    try:
+        torch.set_num_threads(mesh.rank_threads(n))
+        results = train_rank(0, n, store, timeout_s, cfg)
+    except BaseException as err:
+        # a child that failed first is the likelier cause: name it
+        failed = mesh.stop_workers(procs, wait_s=5.0)
+        if failed:
+            raise RuntimeError(
+                f"worker process(es) failed, exit codes {failed}") from err
+        raise
+    else:
+        mesh.join_workers(procs, timeout_s)
+    finally:
+        torch.set_num_threads(threads)
+        mesh.remove_store(store)
     return results
 
 

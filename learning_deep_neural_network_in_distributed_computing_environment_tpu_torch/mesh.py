@@ -1,0 +1,181 @@
+"""The worker group: one process per local-SGD worker, joined in a
+``torch.distributed`` gloo group (counterpart of the JAX package's
+``mesh.py``: ``initialize_distributed`` :44, ``resolve_axes`` :64; ROADMAP
+queue A.5, the N-worker sync slice).
+
+The JAX package runs N workers as one SPMD program on an N-device mesh.
+The port runs them as N processes, as the reference does.  On a host with
+one card all N processes share it: NCCL refuses two ranks on one device,
+so the group is gloo, whose collectives run on CPU tensors; ``comms``
+stages the once-per-round sync through pinned host memory.  NCCL with one
+rank per card is ROADMAP item A.12.
+
+The rendezvous is a ``FileStore`` in a fresh temporary directory (a TCP
+port could collide between concurrent runs on one host), every collective
+waits at most ``GROUP_TIMEOUT_S``, and the group is destroyed when the
+rank's work ends, also when it raises.  Children are started with the
+``spawn`` method (CUDA cannot fork) and import nothing but the port.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import os
+import shutil
+import tempfile
+from typing import Callable, Iterator, Sequence
+
+import torch
+import torch.distributed as dist
+
+# seconds any collective (and the rendezvous) may wait for a peer: longer
+# than the widest gap between two ranks reaching the same sync point
+# (a full-data round of the reference's run), short enough that a dead
+# peer ends the run instead of hanging it
+GROUP_TIMEOUT_S = 300.0
+
+
+@dataclasses.dataclass
+class Group:
+    """One rank's view of the worker group, and the pinned host buffers
+    its syncs stage through (kept across rounds: pinning is slow)."""
+
+    rank: int
+    world_size: int
+    device: torch.device
+    _host: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def host_buffer(self, slot: str, numel: int) -> torch.Tensor:
+        """A reusable fp32 host buffer of ``numel`` elements, pinned when
+        the group's device is a card."""
+        buf = self._host.get(slot)
+        if buf is None or buf.numel() != numel:
+            buf = torch.empty(numel, dtype=torch.float32,
+                              pin_memory=self.device.type == "cuda")
+            self._host[slot] = buf
+        return buf
+
+    def all_gather(self, obj) -> list:
+        """Every rank's ``obj`` (picklable), in rank order."""
+        out = [None] * self.world_size
+        dist.all_gather_object(out, obj)
+        return out
+
+
+def all_gather(group: Group | None, obj) -> list:
+    """``group.all_gather(obj)``, or ``[obj]`` without a group (one worker)."""
+    return [obj] if group is None else group.all_gather(obj)
+
+
+def resolve_num_workers(num_workers: int, device: str | None) -> int:
+    """``--num_workers``: 0 means one worker per visible CUDA device (the
+    JAX package's one per device), and one under ``--device cpu``."""
+    if num_workers > 0:
+        return num_workers
+    if device == "cpu":
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def worker_device(rank: int, device: str | None) -> torch.device:
+    """Rank ``rank``'s device: ``cuda:{rank % device_count}`` (every rank
+    on ``cuda:0`` on a one-card host), or the CPU when asked for; raises
+    without a card unless the CPU was asked for."""
+    if device == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the PyTorch port runs on the GPU unless "
+            "the CPU is asked for (--device cpu / device='cpu')")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+@contextlib.contextmanager
+def init_group(rank: int, world_size: int, device: torch.device,
+               store_path: str, timeout_s: float = GROUP_TIMEOUT_S
+               ) -> Iterator[Group]:
+    """Join the gloo group through the FileStore at ``store_path``; the
+    group is destroyed on exit, also when the body raises."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world_size), rank=rank,
+        world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        yield Group(rank, world_size, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def new_store_path() -> str:
+    """A FileStore path in a fresh temporary directory; the caller removes
+    the directory (``remove_store``) when every rank is done."""
+    return os.path.join(tempfile.mkdtemp(prefix="torch-group-"), "store")
+
+
+def remove_store(store_path: str) -> None:
+    shutil.rmtree(os.path.dirname(store_path), ignore_errors=True)
+
+
+def rank_threads(world_size: int) -> int:
+    """Intra-op threads of one rank: an equal share of the caller's
+    (``torch.get_num_threads()``, one per core unless the caller set
+    fewer), so N CPU ranks do not oversubscribe the host."""
+    return max(1, torch.get_num_threads() // world_size)
+
+
+def _bootstrap(target: Callable, rank: int, world_size: int, threads: int,
+               args: tuple) -> None:
+    """A spawned rank: its share of the threads, then ``target``."""
+    torch.set_num_threads(threads)
+    target(rank, world_size, *args)
+
+
+def spawn_workers(target: Callable, world_size: int, args: tuple = (),
+                  ranks: Sequence[int] | None = None) -> list:
+    """Start ``target(rank, world_size, *args)`` in a fresh ``spawn``
+    process for each of ``ranks`` (default 1..world_size-1: rank 0 runs in
+    the caller), each with ``rank_threads(world_size)`` intra-op threads.
+    ``target`` must be a module-level function of the port."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    threads = rank_threads(world_size)
+    procs = []
+    for rank in (range(1, world_size) if ranks is None else ranks):
+        p = ctx.Process(target=_bootstrap,
+                        args=(target, rank, world_size, threads, args),
+                        name=f"worker-{rank}")
+        p.start()
+        procs.append(p)
+    return procs
+
+
+def join_workers(procs: list, timeout_s: float = GROUP_TIMEOUT_S) -> None:
+    """Wait for every child; raise if one exited with a code other than 0
+    or was still running after ``timeout_s`` (it is then terminated)."""
+    failed = stop_workers(procs, wait_s=timeout_s)
+    hung = [p.name for p in procs if p.name not in failed and p.exitcode]
+    if failed or hung:
+        raise RuntimeError(
+            f"worker process(es) failed: exit codes {failed}"
+            + (f"; terminated after {timeout_s} s: {hung}" if hung else ""))
+
+
+def stop_workers(procs: list, wait_s: float = 0.0) -> dict[str, int]:
+    """Give each child ``wait_s`` to exit, then terminate any still
+    running (its group is lost).  Returns the exit codes of the children
+    that exited on their own with a code other than 0."""
+    for p in procs:
+        p.join(wait_s)
+    failed = {p.name: p.exitcode for p in procs
+              if p.exitcode is not None and p.exitcode != 0}
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(5.0)
+        if p.is_alive():
+            p.kill()
+            p.join(5.0)
+    return failed

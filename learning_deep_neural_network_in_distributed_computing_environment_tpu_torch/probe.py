@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import mesh
+
 log = logging.getLogger(__name__)
 
 
@@ -56,10 +58,11 @@ def measure_step_time(model: nn.Module, sample_batch: torch.Tensor,
 
 
 def gather_durations(local_duration: float, world_size: int,
-                     simulated_durations=None) -> np.ndarray:
-    """All workers' probe durations as a [world_size] vector;
-    ``simulated_durations`` overrides (tests, heterogeneity experiments on
-    homogeneous hardware)."""
+                     simulated_durations=None, group=None) -> np.ndarray:
+    """All workers' probe durations as a [world_size] vector, in rank
+    order (JAX ``probe.py:222-250``): each rank's own measurement,
+    gathered over ``group``.  ``simulated_durations`` overrides (tests,
+    heterogeneity experiments on homogeneous hardware)."""
     if simulated_durations is not None:
         d = np.asarray(simulated_durations, np.float64)
         if d.shape != (world_size,):
@@ -67,16 +70,20 @@ def gather_durations(local_duration: float, world_size: int,
                 f"simulated_durations must have shape ({world_size},), "
                 f"got {d.shape}")
         return d
-    return np.full(world_size, local_duration, np.float64)
+    return np.asarray(mesh.all_gather(group, float(local_duration)),
+                      np.float64)
 
 
 def estimate_epoch_duration(model: nn.Module, sample_batch: torch.Tensor,
                             world_size: int, num_batches: int = 10,
-                            simulated_durations=None):
-    """Returns (durations [world_size], sec_per_batch [world_size])."""
+                            simulated_durations=None, group=None):
+    """Returns (durations [world_size], sec_per_batch [world_size]).  With
+    several workers on one card all ranks probe at once, so each duration
+    includes the others' contention for the card and the host."""
     if simulated_durations is None:
         local = measure_step_time(model, sample_batch, num_batches)
     else:
         local = float(np.asarray(simulated_durations).ravel()[0])
-    durations = gather_durations(local, world_size, simulated_durations)
+    durations = gather_durations(local, world_size, simulated_durations,
+                                 group)
     return durations, durations / max(num_batches, 1)

@@ -1,7 +1,7 @@
 """Local training phase: the per-step loss, Adam, and one worker's local-SGD
 round (port of the JAX package's ``train.py``: ``TrainState`` :71-134,
 ``steplr``/CE/masking :232-320, Adam :518 + :1718-1720, the step and round
-bodies :1676-1823, and the single-worker part of ``round`` :2343).
+bodies :1676-1823, and ``round`` :2343 for one worker of the group).
 
 PyTorch runs eagerly, so the round is a Python loop over steps instead of
 a compiled scan.  A step whose batch is all padding (or ignore-index) is
@@ -15,6 +15,12 @@ JAX engine's rule, ``train.py:1827``: the pack is [S, B, H, W, C]);
 validation runs it in eval mode, without augmentation.  BatchNorm
 statistics live in the module as buffers, so they carry across rounds
 with it and ``rank0_variables`` returns them.
+
+With N workers each process runs one engine on its own row of the
+worker-stacked packs; the sync point aggregates over the group
+(``comms.aggregate``), and the round's metrics are gathered so that every
+rank returns the JAX engine's [N, ...] arrays, the cross-worker means
+included.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import comms
+from . import comms, mesh
 from .config import Config
 from .data.augment import augment_batch
 
@@ -131,6 +137,17 @@ def to_device(a: np.ndarray, device: torch.device,
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
 
+def worker_seed(seed: int, rank: int) -> int:
+    """Seed of worker ``rank``'s augmentation stream, the twin of JAX
+    ``fold_in(key(seed), rank)``: ``seed`` itself for worker 0 (so one
+    worker draws what it always drew), a ``SeedSequence`` of (seed, rank)
+    for the others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, rank]).generate_state(
+        1, np.uint64)[0])
+
+
 @dataclasses.dataclass
 class TrainState:
     """One worker's state between rounds.  The parameters live in the
@@ -143,16 +160,21 @@ class TrainState:
 
 class LocalSGDEngine:
     """One worker's local-SGD rounds: ``epochs_local`` x (train loop +
-    per-epoch validation on the worker's own shard), then the sync point."""
+    per-epoch validation on the worker's own shard), then the sync point
+    over ``group`` (None: one worker)."""
 
-    def __init__(self, model: nn.Module, cfg: Config, device: torch.device):
+    def __init__(self, model: nn.Module, cfg: Config, device: torch.device,
+                 group: mesh.Group | None = None):
         self.model = model
         self.cfg = cfg
         self.device = device
-        self.n_workers = 1
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.n_workers = 1 if group is None else group.world_size
         self.params = [p for p in model.parameters()]
-        # the augmentation draws: one stream per engine, on its device
-        self.generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        # the augmentation draws: one stream per worker, on its device
+        self.generator = torch.Generator(device=device).manual_seed(
+            worker_seed(cfg.seed, self.rank))
 
     def init_state(self) -> TrainState:
         return TrainState(opt=Adam(self.params))
@@ -162,7 +184,7 @@ class LocalSGDEngine:
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
     def _to_device(self, pack):
-        x, y, m = (np.asarray(a)[0] for a in pack)     # worker 0 of [N, S, ...]
+        x, y, m = (np.asarray(a)[self.rank] for a in pack)  # row of [N, S, ..]
         real = (masked_weights(torch.from_numpy(y), torch.from_numpy(m))
                 .reshape(len(m), -1).sum(-1).numpy())
         dev = self.device
@@ -191,11 +213,18 @@ class LocalSGDEngine:
             torch.cuda.synchronize(self.device)
 
     def round(self, state: TrainState, train_pack, val_pack):
-        """Run one round on numpy packs ``(x, y, mask)`` of shape
-        [1, S, B, ...]; returns ``(state, metrics)`` with the JAX engine's
-        per-worker metric arrays (leading worker axis of 1) plus host
-        timings (``train_ms``, ``train_steps``, ``val_steps``)."""
+        """Run one round on worker-stacked numpy packs ``(x, y, mask)`` of
+        shape [N, S, B, ...] (this worker reads row ``rank``); returns
+        ``(state, metrics)`` with the JAX engine's per-worker metric arrays
+        (leading worker axis N, gathered over the group) plus host timings:
+        this worker's ``train_ms``, ``train_steps`` and ``val_steps``, and
+        every worker's ``wall_s`` (round start to its sync point: a wait
+        for slower peers is not its own time), ``train_ms``,
+        ``train_steps``, ``sync_ms`` and its process's peak
+        ``max_memory_allocated`` on a card (0 on the CPU) under
+        ``workers_*``."""
         cfg = self.cfg
+        t_round = time.perf_counter()
         x, y, m, real = self._to_device(train_pack)
         xv, yv, mv, real_v = self._to_device(val_pack)
         augment = cfg.augment and x.ndim == 5       # [S, B, H, W, C]
@@ -243,25 +272,49 @@ class LocalSGDEngine:
             per_epoch["val_acc"].append(100.0 * vsum[1] / vsum[2].clamp_min(1))
             state.lr_epoch += 1
 
-        # --- the sync point (identity at one worker) ---------------------
+        self._sync()
+        wall_s = time.perf_counter() - t_round
+
+        # --- the sync point (the identity at one worker) -----------------
+        # weights mode aggregates the parameters only: BatchNorm
+        # statistics and Adam moments stay per worker (JAX models/cnn.py:
+        # 13-16); gradients mode aggregates the last real step's
+        # gradients (zeros if the worker ran none) into agg_grad_norm and
+        # leaves the parameters untouched (JAX train.py:818-822)
+        t0 = time.perf_counter()
+        sync = dict(how=cfg.aggregation_type, topology=cfg.topology,
+                    local_weight=cfg.local_weight, group=self.group)
         agg_norm = torch.zeros((), device=dev)
         if cfg.aggregation_by == "weights":
-            comms.aggregate(self.params, how=cfg.aggregation_type,
-                            topology=cfg.topology,
-                            local_weight=cfg.local_weight,
-                            world_size=self.n_workers)
-        elif last_grads is not None:
-            agg_norm = comms.global_norm(comms.aggregate(
-                last_grads, how=cfg.aggregation_type, topology=cfg.topology,
-                local_weight=cfg.local_weight, world_size=self.n_workers))
+            agg = comms.aggregate(self.params, **sync)
+            if self.group is not None:
+                with torch.no_grad():
+                    torch._foreach_copy_(self.params, agg)
+        else:
+            grads = (last_grads if last_grads is not None
+                     else [torch.zeros_like(p) for p in self.params])
+            agg_norm = comms.global_norm(comms.aggregate(grads, **sync))
+        self._sync()
+        sync_ms = (time.perf_counter() - t0) * 1e3
 
-        mx = {k: torch.stack(v)[None].cpu().numpy()
-              for k, v in per_epoch.items()}
-        mx["avg_acc"] = mx["train_acc"]       # mean over the one worker
+        own = {k: torch.stack(v).cpu().numpy() for k, v in per_epoch.items()}
+        own["agg_grad_norm"] = agg_norm.cpu().numpy()
+        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+                else 0)
+        own["timing"] = (wall_s, train_s * 1e3, train_steps, sync_ms, peak)
+        rows = mesh.all_gather(self.group, own)
+        mx = {k: np.stack([r[k] for r in rows]) for k in own if k != "timing"}
+        # cross-worker means (JAX train.py:1862, 1887-1898)
+        mx["avg_acc"] = np.broadcast_to(mx["train_acc"].mean(axis=0),
+                                        mx["train_acc"].shape)
         for k in ("train_loss", "train_acc", "val_loss", "val_acc"):
-            mx[f"global_{k}"] = mx[k].mean(axis=1)
-        mx["agg_grad_norm"] = agg_norm.cpu().numpy()[None]
+            per_worker = mx[k].mean(axis=1)
+            mx[f"global_{k}"] = np.broadcast_to(
+                per_worker.mean(keepdims=True), per_worker.shape)
         mx["train_ms"] = train_s * 1e3
         mx["train_steps"] = train_steps
         mx["val_steps"] = val_steps
+        for i, k in enumerate(("wall_s", "train_ms", "train_steps",
+                               "sync_ms", "max_memory_allocated")):
+            mx[f"workers_{k}"] = [r["timing"][i] for r in rows]
         return state, mx

@@ -169,7 +169,7 @@ def test_serve_is_not_ported():
     (["--grad_accum", "2"], "A.7"),
     (["--num_experts", "4"], "A.7"),
     (["--mesh_shape", "data=1,model=2"], "A.11"),
-    (["--num_workers", "2"], "A.5"),
+    (["--num_workers", "2", "--backend", "nccl"], "A.12"),
 ], ids=["sync_mode", "remat_policy", "grad_accum", "num_experts",
         "mesh_shape", "num_workers"])
 def test_config_rejects_features_not_ported(flags, where):
@@ -184,9 +184,12 @@ def test_config_keeps_reference_names_and_defaults():
             cfg.out_dir) == ("enhanced_cnn", "cifar10", "bfloat16", "dense",
                              25, 0.1, 10, "Graphs")
     assert cfg.device is None and cfg.augment
-    # the reference's dead flags parse as no-ops
+    # the reference's dead flags parse as no-ops; --backend jax|gloo|mpi
+    # all run the gloo group, nccl is not ported (one rank per card)
     t_config.config_from_args(["--local-rank", "0", "--gpu_weight", "1.0",
-                               "--dist-url", "tcp://x", "--backend", "nccl"])
+                               "--dist-url", "tcp://x", "--backend", "gloo"])
+    with pytest.raises(ValueError, match="A.12"):
+        t_config.config_from_args(["--backend", "nccl"])
 
 
 def _port_sources():
