@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
              designed for the tensor cores (all four) has a bf16 instance
              without them;
 3. kernels - each flash kernel against its plain PyTorch version on the
-             same bf16 inputs, at both paths' shapes, at L=2048 causal and
+             same bf16 inputs, at the gpt2 and llama paths' shapes, at the
+             bert/moe [64,128,12,64] and vit [64,196,6,64] instances (full
+             attention; vit's last tile holds 4 rows), at L=2048 causal and
              non-causal, and at a long GQA shape; times for the kernel, the
              plain version and a PyTorch attention call (a yardstick the
              port never calls), beside the least time the card could take,
@@ -31,7 +33,23 @@ Phases (any failure exits non-zero before the result line):
 6. llama   - the same two phases for full-width llama_medium with 4 K/V
              heads under FLASH_BWD=fused (the fused backward kernel), in a
              child process, since the switch is read once at import;
-7. cnn     - the reference's own run through main.run: enhanced_cnn at
+7. bert, vit, moe - the encoder families through main.run, as the path
+             phase does: bert_base MLM (87,578,344 params) and bert_base
+             with 8 Switch experts (484,336,360) on synthetic_mlm at lr
+             1e-4, vit_s16 (22,049,128) on the synthetic imagenet at 224²
+             with augmentation, at least 16 train steps each; launches
+             exactly layers x passes, falling losses, flash against dense
+             (logits for bert and vit; for moe every layer's attention
+             output in bf16 and the logits in fp32, since a near-tie gate
+             flips an expert under bf16 rounding), each moe layer's aux
+             loss and dropped share; a profile of bert and vit;
+   remat   - bert at 4 train steps under remat none, everything,
+             dots_saveable, save_names:attn_out,block_out and
+             offload_names:attn_out, and under --grad_accum 4: launches
+             (a remat'd forward runs twice), the same batch losses under
+             every policy, K=4 against K=1, and each train step's ms and
+             peak memory;
+8. cnn     - the reference's own run through main.run: enhanced_cnn at
              full width (44,595,786 params) on cifar10 (the seeded
              synthetic data), bf16 compute, augmentation on, 2 global x 2
              local epochs on 5,120 images; checks that no flash kernel
@@ -42,7 +60,7 @@ Phases (any failure exits non-zero before the result line):
              fp32 on the CPU; then its profile.  It runs after the kernels
              phase turned TF32 off, which touches none of its bf16 convs
              and none of its CPU reference.
-8. sync    - the N-worker slice: (a) all 12 sync modes (six blends, each
+9. sync    - the N-worker slice: (a) all 12 sync modes (six blends, each
              serving gradients and weights) on CUDA tensors of odd sizes
              in 2 and in 4 worker processes of a gloo group, staged
              through pinned host memory, against a float64 numpy formula
@@ -86,18 +104,58 @@ PEAK_BF16_FLOPS = 989e12
 SLEEP_CYCLES_PER_MS = 1.98e6
 PATH_BATCH, PATH_LEN = 64, 128
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")   # the paths' plots
-_COMMON_ARGV = ["--dataset", "synthetic_lm", "--attention_impl", "flash",
-                "--epochs_global", "1", "--epochs_local", "1",
-                "--batch_size", str(PATH_BATCH), "--limit_train_samples",
-                "1280", "--limit_eval_samples", "256"]
+_COMMON_ARGV = ["--attention_impl", "flash", "--epochs_global", "1",
+                "--batch_size", str(PATH_BATCH)]
+# token paths: 1,280 sequences -> 1,024 train (16 steps) / 256 val, and 256
+# test sequences, one local epoch
+_TOKENS_ARGV = [*_COMMON_ARGV, "--epochs_local", "1",
+                "--limit_train_samples", "1280", "--limit_eval_samples", "256"]
+# the encoders train at BERT's own peak rate, 1e-4: at the repo's 1e-3 the
+# post-LN stack with 8 experts climbs over its first 16 steps (7.198 ->
+# 7.375 on the card), as post-LN BERT does without warm-up
+_MLM_ARGV = ["--dataset", "synthetic_mlm", "--lr", "1e-4"]
+# the vit path: the seeded synthetic imagenet is random pixels under random
+# labels, so there is nothing to learn but the training images themselves:
+# 320 images -> 256 train (4 steps) / 64 val, 4 local epochs over them (16
+# steps), and 256 test images (0.35 GB of fp32 pixels in all)
+_VIT_ARGV = [*_COMMON_ARGV, "--dataset", "imagenet", "--epochs_local", "4",
+             "--limit_train_samples", "320", "--limit_eval_samples", "256"]
 # path name -> (argv of main.run, layers: one launch each per pass)
 PATHS = {
-    "gpt2": (["--model", "gpt2_small", *_COMMON_ARGV, "--out_dir",
-              os.path.join(OUT_DIR, "gpt2")], 12),
+    "gpt2": (["--model", "gpt2_small", "--dataset", "synthetic_lm",
+              *_TOKENS_ARGV, "--out_dir", os.path.join(OUT_DIR, "gpt2")], 12),
     "llama": (["--model", "llama_medium", "--num_kv_heads", "4",
-               *_COMMON_ARGV, "--out_dir", os.path.join(OUT_DIR, "llama")],
-              16),
+               "--dataset", "synthetic_lm", *_TOKENS_ARGV, "--out_dir",
+               os.path.join(OUT_DIR, "llama")], 16),
+    "bert": (["--model", "bert_base", *_MLM_ARGV, *_TOKENS_ARGV, "--out_dir",
+              os.path.join(OUT_DIR, "bert")], 12),
+    "vit": (["--model", "vit_s16", *_VIT_ARGV, "--out_dir",
+             os.path.join(OUT_DIR, "vit")], 12),
+    # Switch-Base-8: bert_base with 8 top-1 experts at the JAX defaults
+    # (capacity factor 1.25, aux weight 0.01)
+    "moe": (["--model", "bert_base", "--num_experts", "8", *_MLM_ARGV,
+             *_TOKENS_ARGV, "--out_dir", os.path.join(OUT_DIR, "moe")], 12),
 }
+# phase remat: the bert path cut to 4 train steps (320 sequences -> 256
+# train / 64 val; 256 test), under each policy, and under --grad_accum 4
+REMAT_ARGV = ["--model", "bert_base", *_MLM_ARGV, *_COMMON_ARGV,
+              "--epochs_local", "1", "--limit_train_samples", "320",
+              "--limit_eval_samples", "256", "--probe_batches", "1"]
+REMAT_POLICIES = ["none", "everything", "dots_saveable",
+                  "save_names:attn_out,block_out", "offload_names:attn_out"]
+GRAD_ACCUM = 4
+# Every policy computes the same values (the recompute repeats the same
+# kernels on the same shapes, and the two-pass backward has no atomics):
+# the batch losses of all policies agree to 1e-6 of their value.
+REMAT_LOSS_RTOL = 1e-6
+# K=4 against K=1, both bf16 (products at another row count round
+# elsewhere): each batch loss to 1e-3 of its value, and the parameters'
+# updates after 4 Adam steps to 0.05 in relative L2 norm.  Each limit lies
+# between the sound reading on the H100 (2.04e-5; 0.0165) and the smallest
+# reading of a planted accumulation fault (5.64e-3, keeping only the last
+# slice's gradient; 0.1333, each slice over its own denominator).
+ACCUM_LOSS_RTOL, ACCUM_UPDATE_RTOL = 1e-3, 0.05
+MOE_EXPERTS = 8
 # the reference's run, cut to 2 rounds of 2 local epochs on 5,120 images;
 # batch 64, bf16, augmentation and width 64 are main's defaults
 CNN_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
@@ -122,17 +180,24 @@ SYNC_DEVICE = "cuda"           # phase 8a's tensors
 CNN_LOGIT_TOL = 5e-2           # bf16 on the card vs fp32 on the CPU
 PROFILE_STEPS = 4              # 4 x 64 examples of the test set
 LLAMA_PHASE = "llama"          # the child's argument
+ACCUM_PHASE = "grad_accum"     # runs phase remat's K=4 vs K=1 alone
 RESULT_TAG = "chip_smoke-llama-result "
 
-# (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape and
-# "llama_path" the llama path's
+# (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape,
+# "llama_path" the llama path's, "bert_path" the bert and moe paths'
+# (bidirectional) and "vit_path" the vit path's (bidirectional, 196 = 3 x 64
+# + 4: a ragged last tile)
 SHAPES = [
     ("main", PATH_BATCH, PATH_LEN, 12, 12, 64, True),
     ("L2048_causal", 4, 2048, 12, 12, 64, True),
     ("L2048", 4, 2048, 12, 12, 64, False),
     ("gqa_llama_medium", 2, 1024, 16, 4, 64, True),
     ("llama_path", PATH_BATCH, PATH_LEN, 16, 4, 64, True),
+    ("bert_path", PATH_BATCH, PATH_LEN, 12, 12, 64, False),
+    ("vit_path", PATH_BATCH, 196, 6, 6, 64, False),
 ]
+# shapes whose numbers every kernel's JSON row carries beside its path's
+ENCODER_SHAPES = ("bert_path", "vit_path")
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
 # gradients are rounded to bf16 (relative spacing 2^-8) after fp32
@@ -477,16 +542,20 @@ def check_losses(name: str, results: dict) -> tuple[float, float]:
     return first, last
 
 
-def run_path(name: str) -> tuple[dict, dict]:
-    """Drive one path through main.run with the launch counters reset just
-    before and read just after; check the counts, the losses and the flash
-    logits against the dense ones; print the step time and memory."""
-    import numpy as np
+def drive(tag: str, argv: list[str], layers: int):
+    """main.run(argv) with the launch counters reset just before and read
+    just after; fails unless every kernel launched exactly layers x its
+    passes.  A pass is a forward (train step, probe pass, validation or
+    evaluation batch) or a backward (train step, probe pass); a train step
+    runs one of each per --grad_accum microbatch, and a remat policy other
+    than none runs each forward of a pass with a backward twice (the
+    backward recomputes it).  Returns (counts, results, wall s, peak
+    bytes)."""
     import torch
     from importlib import import_module
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
-    argv, layers = PATHS[name]
+    cfg = import_module(f"{PKG}.config").config_from_args(argv)
     torch.cuda.reset_peak_memory_stats()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -499,74 +568,300 @@ def run_path(name: str) -> tuple[dict, dict]:
     rt = results["round_timings"]
     train_steps = sum(r["train_steps"] for r in rt)
     val_steps = sum(r["val_steps"] for r in rt)
-    eval_batches = -(-len(results["test"].labels) // PATH_BATCH)
-    probe_passes = 1 + 10          # warm-up + --probe_batches default
-    fwd = layers * (probe_passes + train_steps + val_steps + eval_batches)
-    bwd = layers * (probe_passes + train_steps)
+    eval_batches = -(-len(results["test"].labels) // cfg.batch_size)
+    probe_passes = 1 + cfg.probe_batches        # warm-up + timed
+    remat = cfg.remat_policy != "none"
+    grad_passes = probe_passes + train_steps * cfg.grad_accum
+    fwd = layers * (grad_passes * (2 if remat else 1) + val_steps
+                    + eval_batches)
+    bwd = layers * grad_passes
     fused = fl._use_fused_bwd()
     expect = {"flash_fwd": fwd,
               "flash_bwd_dq": 0 if fused else bwd,
               "flash_bwd_dkv": 0 if fused else bwd,
               "flash_bwd_fused": bwd if fused else 0}
-    print(f"[{name}] launches {counts}; expected {expect} "
-          f"({train_steps} train steps, {val_steps} val steps, "
-          f"{eval_batches} eval batches, {probe_passes} probe passes, "
+    print(f"{tag} launches {counts}; expected {expect} ({layers} layers; "
+          f"{train_steps} train steps x {cfg.grad_accum} microbatch(es), "
+          f"{val_steps} val steps, {eval_batches} eval batches, "
+          f"{probe_passes} probe passes; remat {cfg.remat_policy}: forward "
+          f"x{2 if remat else 1} where a backward follows; "
           f"FLASH_BWD={'fused' if fused else 'two-pass'})")
-    if train_steps < 12:
-        fail(f"{name} path ran only {train_steps} train steps")
     if counts != expect or not all(counts[n] > 0 for n in expect
                                    if expect[n]):
-        fail(f"{name}: launch counts {counts} do not match the path's "
+        fail(f"{tag}: launch counts {counts} do not match the path's "
              f"{expect}")
+    return counts, results, wall, peak
+
+
+def _set_attention(model, impl: str) -> None:
+    for m in model.modules():
+        if hasattr(m, "attention_impl"):
+            m.attention_impl = impl
+
+
+def _set_compute_dtype(model, dtype) -> None:
+    """Every module's compute dtype (the parameters stay fp32)."""
+    import torch
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+
+
+def flash_vs_dense(name: str, model, x):
+    """The trained model's flash logits against its dense logits (the
+    port's reference attention) on the 4 test inputs ``x``, at the path's
+    bf16 compute.  With experts the top-1 routing is discrete: a token
+    whose two best gate scores lie within bf16 rounding of each other may
+    take another expert under dense attention, and then its logits differ
+    by design.  So the moe path holds every layer's attention output of
+    the trained model, flash against dense on the same captured bf16
+    inputs, and the logits in fp32 compute (the kernels' fp32 instance),
+    where such ties are far below the rounding.  Returns the flash
+    logits."""
+    import torch
+    with torch.no_grad():
+        if getattr(model, "num_experts", 0):
+            inputs = []
+            attns = [b.attn for b in model.blocks]
+            hooks = [a.register_forward_hook(
+                lambda m, inp, out: inputs.append(inp[0])) for a in attns]
+            model(x)
+            for h in hooks:
+                h.remove()
+            worst = 0.0
+            for a, inp in zip(attns, inputs):
+                a.attention_impl = "dense"
+                dense = a(inp)
+                a.attention_impl = "flash"
+                _, rel = _err(a(inp), dense)
+                worst = max(worst, rel)
+            print(f"[{name}] flash vs dense attention outputs of all "
+                  f"{len(attns)} layers on the trained model's bf16 inputs "
+                  f"(4 test sequences): worst max abs err / max |dense| "
+                  f"{worst:.3g}")
+            if not (math.isfinite(worst) and worst <= 5e-2):
+                fail(f"{name}: flash and dense attention outputs disagree "
+                     f"beyond bf16 tolerance 5e-2")
+            dtype = model.dtype
+            _set_compute_dtype(model, torch.float32)
+            label = "fp32 compute"
+        else:
+            label = "bf16 compute"
+        flash_logits = model(x)
+        _set_attention(model, "dense")
+        dense_logits = model(x)
+        _set_attention(model, "flash")
+        if getattr(model, "num_experts", 0):
+            _set_compute_dtype(model, dtype)
+    e, rel = _err(flash_logits, dense_logits)
+    print(f"[{name}] flash vs dense logits on 4 test inputs ({label}, "
+          f"shape {tuple(flash_logits.shape)}): max abs err {e:.4g} "
+          f"({rel:.3g} of max |dense|)")
+    if not (math.isfinite(e) and rel <= 5e-2):
+        fail(f"{name}: flash and dense logits disagree beyond tolerance "
+             f"5e-2")
+    return flash_logits
+
+
+def moe_routing(model, x) -> None:
+    """The moe path's routing on one train-size batch ``x`` of the trained
+    model: each layer's Switch aux loss E * sum_e f_e P_e (1 at a uniform
+    gate or perfect balance; at least 1/E in any case) and its share of
+    dropped tokens."""
+    import torch
+    from importlib import import_module
+    moe_cls = import_module(f"{PKG}.models.moe").MoEFFN
+    stats = []
+
+    def record(m, inp, out):
+        toks = inp[0].reshape(-1, inp[0].shape[-1])
+        probs, onehot, _, keep, cap = m.route(toks)
+        aux = m.num_experts * (onehot.mean(0) * probs.mean(0)).sum()
+        stats.append((aux.item(), 1.0 - keep.mean().item(), cap,
+                      onehot.sum(0).tolist()))
+
+    moes = [m for m in model.modules() if isinstance(m, moe_cls)]
+    hooks = [m.register_forward_hook(record) for m in moes]
+    with torch.no_grad():
+        _, aux_total = model(x, with_aux=True)
+    for h in hooks:
+        h.remove()
+    for i, (aux, drop, cap, load) in enumerate(stats):
+        print(f"[moe] layer {i}: aux {aux:.4f}, dropped {100 * drop:.2f}% "
+              f"of {x.shape[0] * x.shape[1]} tokens (capacity {cap}), "
+              f"tokens per expert {[int(n) for n in load]}")
+    auxes = [a for a, *_ in stats]
+    print(f"[moe] aux summed over {len(stats)} layers {aux_total.item():.4f}"
+          f" (the engine adds 0.01 x this); per layer {min(auxes):.4f} to "
+          f"{max(auxes):.4f}; all >= 1: {all(a >= 1 for a in auxes)}")
+    if len(stats) != len(model.blocks) or not all(
+            math.isfinite(a) and a >= 1.0 / MOE_EXPERTS - 1e-6
+            for a in auxes):
+        fail(f"moe: aux losses {auxes} not finite or below 1/E")
+    if not math.isclose(aux_total.item(), sum(auxes), rel_tol=1e-4):
+        fail(f"moe: the model's summed aux {aux_total.item()} is not the "
+             f"sum of its layers' {sum(auxes)}")
+
+
+def run_path(name: str) -> tuple[dict, dict]:
+    """Drive one path through main.run (``drive``); check the losses and
+    the flash logits against the dense ones; print the step time, the rate
+    and memory."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    train = import_module(f"{PKG}.train")
+    argv, layers = PATHS[name]
+    counts, results, wall, peak = drive(f"[{name}]", argv, layers)
+    rt = results["round_timings"]
+    train_steps = sum(r["train_steps"] for r in rt)
+    if train_steps < 16:
+        fail(f"{name} path ran only {train_steps} train steps")
     first, last = check_losses(name, results)
 
-    # the trained model's flash logits against its dense logits (the
-    # port's reference attention) on a small input
     model = results["model"]
-    x = torch.from_numpy(np.asarray(results["test"].images[:4])).to(
-        next(model.parameters()).device, torch.long)
-    with torch.no_grad():
-        flash_logits = model(x)
-        attns = [m for m in model.modules() if hasattr(m, "attention_impl")]
-        for m in attns:
-            m.attention_impl = "dense"
-        dense_logits = model(x)
-        for m in attns:
-            m.attention_impl = "flash"
-    want = (4, PATH_LEN, results["test"].num_classes)
-    if tuple(flash_logits.shape) != want:
-        fail(f"{name}: logits shape {tuple(flash_logits.shape)}, expected "
-             f"{want}")
-    e, rel = _err(flash_logits, dense_logits)
-    print(f"[{name}] flash vs dense logits on 4 test sequences: max abs err "
-          f"{e:.4g} ({rel:.3g} of max |dense|)")
-    if not (math.isfinite(e) and rel <= 5e-2):
-        fail(f"{name}: flash and dense logits disagree beyond bf16 "
-             f"tolerance 5e-2")
+    test = results["test"]
+    device = next(model.parameters()).device
+    x = train.to_device(np.asarray(test.images[:4]), device)
+    logits = flash_vs_dense(name, model, x)
+    tokens = x.ndim == 2
+    want = ((4, x.shape[1], test.num_classes) if tokens
+            else (4, test.num_classes))
+    if tuple(logits.shape) != want:
+        fail(f"{name}: logits shape {tuple(logits.shape)}, expected {want}")
+    if getattr(model, "num_experts", 0):
+        moe_routing(model, train.to_device(
+            np.asarray(test.images[:PATH_BATCH]), device))
 
     train_ms = sum(r["train_ms"] for r in rt)
     step_ms = train_ms / train_steps
-    tokens_s = train_steps * PATH_BATCH * PATH_LEN / (train_ms / 1e3)
+    per_step = PATH_BATCH * (x.shape[1] if tokens else 1)
+    rate = train_steps * per_step / (train_ms / 1e3)
     params = sum(p.numel() for p in model.parameters())
     print(f"[{name}] {params:,} params; wall {wall:.1f} s; train step "
-          f"{step_ms:.3f} ms; {tokens_s:.0f} tokens/s; first-batch loss "
-          f"{first:.4f} -> last-epoch mean {last:.4f}; val loss "
-          f"{results['global_val_losses'][-1]:.4f}; test loss "
+          f"{step_ms:.3f} ms; {rate:.0f} {'tokens' if tokens else 'images'}"
+          f"/s; first-batch loss {first:.4f} -> last-epoch mean {last:.4f}; "
+          f"val loss {results['global_val_losses'][-1]:.4f}; test loss "
           f"{results['test_eval']['loss']:.4f}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB")
     return counts, results
 
 
-def phase_profile(name: str, results, argv: list[str]) -> None:
-    """Where a train step's device time goes: one more round of
-    PROFILE_STEPS train steps of the trained model under torch.profiler,
-    after the path's counts were read (``argv``: the path's).  Prints
-    device time by kernel and the device's busy share of the round's wall
-    time."""
-    import numpy as np
+def _recording_inits(t_driver, inits: list):
+    """``t_driver.build_model_for``, recording a float host copy of each
+    model's state_dict as it is built (the run's initial parameters; on
+    the host, so the train steps' peak memory holds none of it)."""
+    import torch
+    build = t_driver.build_model_for
+
+    def spy(*args, **kwargs):
+        model = build(*args, **kwargs)
+        inits.append({k: v.detach().to("cpu", torch.float32, copy=True)
+                      for k, v in model.state_dict().items()})
+        return model
+    return spy
+
+
+def phase_remat(policies: list[str]) -> None:
+    """The bert path at 4 train steps under each remat policy of
+    ``policies`` (the first is none) and under --grad_accum 4, in this
+    process: launches (checked by ``drive``), and the step ms and peak
+    memory of one more round of each trained model; every policy's batch
+    losses against none's (REMAT_LOSS_RTOL); K=4 against K=1 (none): the
+    initial parameters bitwise, then the batch losses and the parameters'
+    updates from those initial parameters (ACCUM_*)."""
     import torch
     from importlib import import_module
-    from torch.profiler import ProfilerActivity, profile
+    from unittest import mock
+    t_driver = import_module(f"{PKG}.driver")
+    t0 = time.perf_counter()
+    runs, params, inits = {}, {}, {}
+    variants = [(f"remat {p}", ["--remat_policy", p]) for p in policies]
+    variants.append((f"grad_accum {GRAD_ACCUM}",
+                     ["--grad_accum", str(GRAD_ACCUM)]))
+    for label, extra in variants:
+        argv = [*REMAT_ARGV, *extra, "--out_dir",
+                os.path.join(OUT_DIR, "remat")]
+        built = []
+        with mock.patch.object(t_driver, "build_model_for",
+                               _recording_inits(t_driver, built)):
+            _, results, wall, peak = drive(f"[remat] {label}", argv,
+                                           PATHS["bert"][1])
+        if len(built) != 1:
+            fail(f"remat {label}: the run built {len(built)} models")
+        rt = results["round_timings"]
+        steps = sum(r["train_steps"] for r in rt)
+        step_ms = sum(r["train_ms"] for r in rt) / steps
+        losses = results["all_workers_losses"][0]
+        if steps != 4 or not all(math.isfinite(v) for v in losses):
+            fail(f"remat {label}: {steps} train steps, losses {losses}")
+        if label in ("remat none", f"grad_accum {GRAD_ACCUM}"):
+            inits[label] = built[0]
+            params[label] = {
+                k: v.detach().to("cpu", torch.float32, copy=True)
+                for k, v in results["model"].state_dict().items()}
+        # the train step's own peak and pace: one more round of the
+        # trained model (the run's peak also holds the probe's full-batch
+        # pass, which --grad_accum does not split), after a warm-up round
+        _, one_round = steady_round(results, argv)
+        one_round()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mx = one_round()[1]
+        step_peak = torch.cuda.max_memory_allocated()
+        steady_ms = mx["train_ms"] / mx["train_steps"]
+        print(f"[remat] {label}: run's train step {step_ms:.3f} ms, run's "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB; steady round: "
+              f"train step {steady_ms:.3f} ms, max_memory_allocated "
+              f"{step_peak / 2**30:.3f} GiB; batch losses "
+              f"{[round(v, 6) for v in losses]}; wall {wall:.1f} s")
+        runs[label] = dict(step_ms=steady_ms, peak=step_peak, losses=losses)
+        del results
+        torch.cuda.empty_cache()
+    base = runs["remat none"]["losses"]
+    for p in policies[1:]:
+        got = runs[f"remat {p}"]["losses"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(got, base))
+        print(f"[remat] {p} vs none: batch losses differ by {worst:.3g} of "
+              f"their value at most (tolerance {REMAT_LOSS_RTOL})")
+        if not worst <= REMAT_LOSS_RTOL:
+            fail(f"remat {p}: losses {got} differ from none's {base}")
+    k = f"grad_accum {GRAD_ACCUM}"
+    init, init_k = inits["remat none"], inits[k]
+    if init.keys() != init_k.keys() or not all(
+            torch.equal(init[n], init_k[n]) for n in init):
+        fail(f"grad_accum: K={GRAD_ACCUM} and K=1 start from different "
+             "parameters")
+    got = runs[k]["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, base))
+    num = den = 0.0
+    k1, kk = params["remat none"], params[k]
+    max_err = 0.0
+    for name, p0 in init.items():
+        u1, uk = k1[name] - p0, kk[name] - p0
+        num += float((uk - u1).square().sum())
+        den += float(u1.square().sum())
+        max_err = max(max_err, float((uk - u1).abs().max()))
+    rel = math.sqrt(num / den)
+    print(f"[grad_accum] K={GRAD_ACCUM} vs K=1 from bitwise-equal initial "
+          f"parameters: batch losses differ by {worst:.3g} of their value "
+          f"at most (tolerance {ACCUM_LOSS_RTOL}); parameter updates after "
+          f"4 Adam steps differ by {rel:.4f} in relative L2 norm "
+          f"(tolerance {ACCUM_UPDATE_RTOL}), max abs {max_err:.3g}; "
+          f"train-step peak {runs['remat none']['peak'] / 2**30:.3f} GiB at "
+          f"K=1, {runs[k]['peak'] / 2**30:.3f} GiB at K={GRAD_ACCUM}")
+    if not (worst <= ACCUM_LOSS_RTOL and rel <= ACCUM_UPDATE_RTOL):
+        fail(f"grad_accum: K={GRAD_ACCUM} departs from K=1 beyond the "
+             f"stated tolerances")
+    print(f"[remat] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def steady_round(results, argv: list[str]):
+    """An engine over the trained model of a path's run (``argv``: the
+    path's, one local epoch) and a callable that runs one more round of
+    PROFILE_STEPS train steps and 1 validation step on its test set."""
+    import numpy as np
+    from importlib import import_module
     cfg = import_module(f"{PKG}.config").config_from_args(
         [*argv, "--epochs_local", "1"])
     train = import_module(f"{PKG}.train")
@@ -580,12 +875,25 @@ def phase_profile(name: str, results, argv: list[str]) -> None:
             test.labels[:n].reshape(steps + test.labels.shape[1:]),
             np.ones(steps, np.float32))
     val = tuple(a[:, :1] for a in pack)
-    engine.round(state, pack, val)              # warm-up
+    return engine, lambda: engine.round(state, pack, val)
+
+
+def phase_profile(name: str, results, argv: list[str]) -> None:
+    """Where a train step's device time goes: one more round of
+    PROFILE_STEPS train steps of the trained model under torch.profiler,
+    after the path's counts were read (``argv``: the path's).  Prints
+    device time by kernel and the device's busy share of the round's wall
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    engine, one_round = steady_round(results, argv)
+    device = engine.device
+    one_round()                                 # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.round(state, pack, val)
+        one_round()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kind = (torch.autograd.DeviceType.CUDA if device.type == "cuda"
@@ -884,6 +1192,12 @@ def phase_llama() -> dict:
 def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
+    if sys.argv[1:] == [ACCUM_PHASE]:
+        # the [grad_accum] comparison alone (K=4 against K=1), e.g. on a
+        # copy of the port with a fault planted in the accumulation
+        phase_device()
+        phase_remat(["none"])
+        return 0
     # the gpt2 path runs the two-pass backward: the switch is read once, at
     # the port's import, so it must be gone before anything imports it
     os.environ.pop("FLASH_BWD", None)
@@ -898,6 +1212,13 @@ def main() -> int:
     del results                    # give the card back for the child
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
+    for path in ("bert", "vit", "moe"):
+        counts[path], results = run_path(path)
+        if path != "moe":
+            phase_profile(path, results, PATHS[path][0])
+        del results
+        torch.cuda.empty_cache()
+    phase_remat(REMAT_POLICIES)
     counts["cnn"], results = run_cnn()
     phase_profile("cnn", results, CNN_ARGV)
     rt = results["round_timings"]
@@ -913,7 +1234,9 @@ def main() -> int:
             replaces=f"{JAX_PKG}/{replaces}", launches=counts[path][kname],
             launches_by_path={p: c[kname] for p, c in counts.items()},
             path=path, tensor_cores=tensor_cores[kname], design=design,
-            **rows[shape][kname]))
+            **rows[shape][kname],
+            at_shapes={label: rows[label][kname]
+                       for label in ENCODER_SHAPES}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

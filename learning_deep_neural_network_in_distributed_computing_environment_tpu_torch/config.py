@@ -19,11 +19,9 @@ NOT_PORTED = {
     "sync_dtype": ("float32", "A.8 (compressed sync wire)"),
     "sync_compression": ("none", "A.8 (error-feedback residuals)"),
     "sync_staleness": (0, "A.8 (semi-synchronous rounds)"),
-    "remat_policy": ("none", "A.7 (transformer slice: torch.utils.checkpoint)"),
-    "grad_accum": (1, "A.7 (transformer slice: gradient accumulation)"),
-    "num_experts": (0, "A.7 (transformer slice: MoE FFN)"),
-    "layer_scan": ("auto", "A.7 (the port keeps per-block params; weights.py "
-                           "converts both JAX layouts)"),
+    "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
+                           "which is what auto gives; weights.py converts "
+                           "both JAX layouts)"),
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
     "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
     "stream_chunk_steps": (0, "A.3 (streamed input pipeline)"),
@@ -81,15 +79,20 @@ class Config:
     num_kv_heads: int = 0         # > 0 => grouped-query attention (llama_*)
     device: str | None = None     # None => cuda; "cpu" runs the plain paths
     model_width: int = 0          # > 0 => enhanced_cnn channel base (64)
+    # transformer families (JAX config.py:107-149)
+    # none | dots_saveable | everything | save_names:<set> |
+    # offload_names:<set> (models/remat.py; names: models.REMAT_NAMES)
+    remat_policy: str = "none"
+    grad_accum: int = 1           # microbatches per train step
+    num_experts: int = 0          # > 0 => Switch-MoE FFN in every block
+    expert_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01  # load-balance aux loss coefficient
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     sync_mode: str = "auto"
     sync_dtype: str = "float32"
     sync_compression: str = "none"
     sync_staleness: int = 0
-    remat_policy: str = "none"
-    grad_accum: int = 1
-    num_experts: int = 0
     layer_scan: str = "auto"
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
@@ -114,6 +117,7 @@ class Config:
         _choices("compute_dtype", self.compute_dtype,
                  ("bfloat16", "float32"))
         _choices("device", self.device, (None, "cuda", "cpu"))
+        self.parse_remat_policy()
         if self.dtype != "float32":
             raise NotImplementedError(
                 "param dtype other than float32 is not supported; use "
@@ -141,6 +145,41 @@ class Config:
                 f"{self.num_workers}")
         if self.epochs_local < 1 or self.batch_size < 1:
             raise ValueError("epochs_local and batch_size must be >= 1")
+        if self.grad_accum < 1:
+            raise ValueError(
+                f"grad_accum must be >= 1, got {self.grad_accum}")
+        if self.grad_accum > 1 and self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"--batch_size {self.batch_size} must be divisible by "
+                f"--grad_accum {self.grad_accum} (microbatch split)")
+
+    def parse_remat_policy(self) -> tuple[str, tuple[str, ...]]:
+        """``--remat_policy`` as ``(kind, names)``, validated as the JAX
+        config does (``config.py:1050-1080``): the spelling, and each name
+        of a named policy against the model family's vocabulary
+        (``models.remat_name_vocab``), so a typo fails here instead of
+        saving nothing."""
+        from .models import remat_name_vocab
+        from .models.remat import split_remat_policy
+        kind, names = split_remat_policy(self.remat_policy)
+        if not names:
+            return kind, names
+        vocab = remat_name_vocab(self.model, self.num_experts)
+        if not vocab:
+            raise ValueError(
+                f"--remat_policy {kind}:... selects checkpoint_name-"
+                f"annotated activations of the transformer blocks; --model "
+                f"{self.model} has none (bert_*/gpt_*/llama_*/vit_* do)")
+        unknown = [n for n in names if n not in vocab]
+        if unknown:
+            moe = (f" (num_experts={self.num_experts})"
+                   if self.num_experts else "")
+            raise ValueError(
+                f"--remat_policy {kind}: unknown activation name(s) "
+                f"{unknown} — the {self.model} family{moe} emits exactly "
+                f"{sorted(vocab)} (a name outside the vocabulary would "
+                "silently degrade the policy to save-nothing)")
+        return kind, names
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -157,10 +196,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["jax", "gloo", "nccl", "mpi"])
     for name in ("epochs_local", "epochs_global", "batch_size", "num_workers",
                  "seed", "probe_batches", "limit_train_samples",
-                 "limit_eval_samples", "num_kv_heads", "model_width"):
+                 "limit_eval_samples", "num_kv_heads", "model_width",
+                 "grad_accum", "num_experts"):
         p.add_argument(f"--{name}", type=int, default=getattr(d, name))
     for name in ("lr", "time_limit", "prev_fraction", "next_fraction",
-                 "local_weight", "fixed_ratio"):
+                 "local_weight", "fixed_ratio", "expert_capacity_factor",
+                 "moe_aux_weight"):
         p.add_argument(f"--{name}", type=float, default=getattr(d, name))
     p.add_argument("--aggregation_type", default=d.aggregation_type,
                    choices=["equal", "weighted"])
@@ -178,6 +219,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "hand-written Hopper kernels)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (plain PyTorch paths)")
+    p.add_argument("--remat_policy", default=d.remat_policy,
+                   help="per-block rematerialization: none | dots_saveable "
+                        "| everything | save_names:<a,b> | "
+                        "offload_names:<a,b> (names: attn_out, mlp_out, "
+                        "block_out, moe_dispatch)")
     for name in ("model", "dataset", "dtype", "compute_dtype", "data_dir",
                  "out_dir", "log_level"):
         p.add_argument(f"--{name}", type=str, default=getattr(d, name))

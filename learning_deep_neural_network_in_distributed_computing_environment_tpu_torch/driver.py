@@ -122,16 +122,40 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
 
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
                     input_shape: tuple | None = None):
-    """The registry model at the configured compute dtype (and attention,
-    for transformers), initialized from ``cfg.seed`` with a generator on
+    """The registry model at the configured compute dtype (and, for
+    transformers, attention, remat policy and MoE FFN), initialized from
+    ``cfg.seed`` with a generator on
     ``device``, in ``channels_last`` (a no-op for models without 4-D
     weights).  ``input_shape`` (one example's) sizes the first layer of
     the models flax sizes from their input (``mlp``, ``lenet5``)."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
-    if is_attention_model(cfg.model):
+    attention = is_attention_model(cfg.model)
+    if attention:
         kw["attention_impl"] = cfg.attention_impl
+    # the JAX driver's rules for the transformer knobs (driver.py:465-505,
+    # 580-595): remat applies to the blocks of a transformer; the CNNs
+    # have no blocks and run unrolled
+    if cfg.remat_policy != "none":
+        if not attention:
+            raise ValueError(
+                f"--remat_policy {cfg.remat_policy} applies to the layer "
+                "stack of a homogeneous-block model (bert_*/gpt_*/llama_*/"
+                f"vit_*); --model {cfg.model} runs unrolled")
+        kw["remat_policy"] = cfg.remat_policy
+    if cfg.grad_accum > 1 and not attention:
+        raise ValueError(
+            f"--grad_accum applies to attention models (bert_*/gpt_*/"
+            f"vit_*/llama_* — no BatchNorm running stats to split across "
+            f"microbatches); got --model {cfg.model}")
+    if cfg.num_experts > 0:
+        if not attention:
+            raise ValueError(
+                f"--num_experts applies to attention models (bert_*/gpt_*/"
+                f"vit_*/llama_*); got --model {cfg.model}")
+        kw.update(num_experts=cfg.num_experts,
+                  capacity_factor=cfg.expert_capacity_factor)
     if cfg.num_kv_heads > 0:
         # grouped-query attention (models/llama.py; the Llama-2/3 recipe)
         if not cfg.model.startswith("llama"):

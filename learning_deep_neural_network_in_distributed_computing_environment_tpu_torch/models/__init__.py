@@ -1,9 +1,9 @@
 """Model zoo of the port (JAX package: ``models/__init__.py:13-168``).
 
-Ported so far: the CNN ladder (``enhanced_cnn``, the reference's model;
-``mlp``, ``lenet5``, ``resnet18``, ``resnet50``) and the GPT-2 and Llama
-families.  Every other registry name of the JAX package is known here and
-raises "not yet ported" with the ROADMAP item that ports it.
+Every registry name of the JAX package: the CNN ladder (``enhanced_cnn``,
+the reference's model; ``mlp``, ``lenet5``, ``resnet18``, ``resnet50``) and
+the transformer families (BERT MLM, GPT-2, Llama, ViT), each of the latter
+with an optional Switch-MoE FFN (``num_experts``) and a ``remat_policy``.
 """
 
 from __future__ import annotations
@@ -40,16 +40,48 @@ _LLAMA_SIZES = {
     "llama_medium": {},
     "llama_tiny": dict(num_layers=2, hidden=64, num_heads=4, ffn_dim=176),
 }
+# sizes of the BERT family (the JAX registry's defaults)
+_BERT_SIZES = {
+    "bert_base": {},
+    "bert_tiny": dict(num_layers=2, hidden=64, num_heads=4, ffn_dim=128),
+}
+# sizes of the ViT family (the JAX registry's defaults)
+_VIT_SIZES = {
+    "vit_s16": {},
+    "vit_b16": dict(hidden=768, num_heads=12, ffn_dim=3072),
+    "vit_tiny": dict(patch=8, num_layers=2, hidden=64, num_heads=4,
+                     ffn_dim=128),
+}
 
-# image models that infer their first layer from the input shape in flax
-# (here: ``input_shape=(H, W, C)``)
-SHAPED_BY_INPUT = ("mlp", "lenet5")
+# image models that infer their first layer (or ViT's position table) from
+# the input shape in flax (here: ``input_shape=(H, W, C)``)
+SHAPED_BY_INPUT = ("mlp", "lenet5", *_VIT_SIZES)
+
+# The named-activation vocabulary of the transformer blocks (JAX
+# ``models/__init__.py:137-150``): the ``checkpoint_name`` labels a
+# ``--remat_policy save_names:<set>`` / ``offload_names:<set>`` selects from
+# (``models/remat.py``):
+# - ``attn_out``: the attention sublayer's output [B, L, H];
+# - ``mlp_out``: the FFN / MoE sublayer's output [B, L, H];
+# - ``block_out``: the block's output (the layer boundary);
+# - ``moe_dispatch``: the MoE dispatch product's expert-batched tokens
+#   [E, C, H], emitted only with ``num_experts > 0``.
+REMAT_NAMES = ("attn_out", "mlp_out", "block_out", "moe_dispatch")
 
 
 def is_attention_model(name: str) -> bool:
     """Transformer families: they take ``attention_impl``; the CNNs do
     not (the JAX package's ``models/__init__.py:98``)."""
     return name.lower().startswith(("bert", "gpt", "llama", "vit"))
+
+
+def remat_name_vocab(name: str, num_experts: int = 0) -> tuple[str, ...]:
+    """The ``checkpoint_name`` labels the ``name`` family's blocks emit:
+    none for the CNN/MLP families, ``moe_dispatch`` only with experts."""
+    if not is_attention_model(name):
+        return ()
+    base = REMAT_NAMES[:3]
+    return base + REMAT_NAMES[3:] if num_experts > 0 else base
 
 
 def get_model(name: str, **kw: Any):
@@ -79,6 +111,8 @@ def get_model(name: str, **kw: Any):
     if name in _LLAMA_SIZES:
         from .llama import LlamaForCausalLM
         return LlamaForCausalLM(**{**_LLAMA_SIZES[name], **kw})
-    raise NotImplementedError(
-        f"model {name!r} is not yet ported to the PyTorch package; it "
-        f"arrives with ROADMAP queue A.7 (transformer families)")
+    if name in _BERT_SIZES:
+        from .bert import BertForMLM
+        return BertForMLM(**{**_BERT_SIZES[name], **kw})
+    from .vit import ViT
+    return ViT(**{**_VIT_SIZES[name], **kw})

@@ -1,6 +1,12 @@
-"""Self-attention shared by the transformer families (port of the JAX
-package's ``models/bert.py:36-112``; ``BertForMLM`` itself waits for
-ROADMAP queue A.7).
+"""BERT masked-LM and the pieces the transformer families share (port of
+the JAX package's ``models/bert.py:36-383``): ``SelfAttention``, the
+post-LN ``EncoderLayer`` (BERT and ViT), ``BertForMLM`` and ``run_stack``,
+which applies a stack of blocks under the ``--remat_policy`` and sums the
+MoE load-balance losses they return.
+
+BERT-base defaults: 12 layers, hidden 768, 12 heads, FFN 3072, position
+table 512.  The model takes no attention mask, as the JAX model is called
+without one: its attention is the full bidirectional kernel.
 
 Compute-dtype semantics mirror flax's ``dtype=``: parameters stay fp32 and
 each dense op casts its input, weight and bias to the compute dtype
@@ -15,6 +21,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .remat import Remat, checkpoint_name
+
+INIT_STD = 0.02
+LN_EPS = 1e-12
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
@@ -100,3 +111,138 @@ class SelfAttention(nn.Module):
         if self.out_bias is None:
             return y
         return y + self.out_bias.to(self.dtype)
+
+
+def run_stack(blocks, x: torch.Tensor, remat: Remat):
+    """Apply ``blocks`` in order, each under ``remat``; every block returns
+    ``(x, aux)`` with ``aux`` its MoE load-balance loss or None.  Returns
+    ``(x, sum of the aux losses or None)``: the aux losses are outputs of
+    the block calls, so a recomputed forward never adds them again."""
+    aux = None
+    for block in blocks:
+        x, a = remat(block, x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+@torch.no_grad()
+def init_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """The flax initializers of the BERT, GPT and ViT families: N(0, 0.02)
+    for every dense kernel, embedding, position table, MoE gate and expert
+    kernel, zeros for biases, ones/zeros for LayerNorm, each drawn once
+    from ``generator`` (on the parameters' device)."""
+    from .moe import MoEFFN
+    for module in model.modules():
+        if isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, (nn.Linear, nn.Embedding)):
+            module.weight.normal_(0.0, INIT_STD, generator=generator)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+        elif isinstance(module, MoEFFN):
+            module.init_parameters(generator)
+    if isinstance(getattr(model, "pos_emb", None), nn.Parameter):  # ViT
+        model.pos_emb.normal_(0.0, INIT_STD, generator=generator)
+    for module in model.modules():
+        for name in ("ffn_bias", "out_bias"):
+            p = getattr(module, name, None)
+            if isinstance(p, nn.Parameter):
+                p.zero_()
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN encoder block (original BERT): ``h = LN(x + attn(x))``, then
+    ``LN(h + ffn(h))`` with an exact-GELU FFN whose output bias is added
+    after ``ffn_out``, or a Switch-MoE FFN (``num_experts > 0``).  Both
+    LayerNorms take eps 1e-12 and give the compute dtype.  Returns ``(y,
+    aux)``: aux is the MoE layer's load-balance loss, or None."""
+
+    def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
+                 num_experts: int = 0, capacity_factor: float = 1.25,
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "dense", device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.attn = SelfAttention(hidden, num_heads,
+                                  attention_impl=attention_impl, dtype=dtype,
+                                  device=device)
+        self.ln_attn = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        if num_experts:
+            from .moe import MoEFFN
+            self.moe = MoEFFN(hidden, num_experts, ffn_dim,
+                              capacity_factor=capacity_factor, dtype=dtype,
+                              device=device)
+        else:
+            self.ffn_in = nn.Linear(hidden, ffn_dim, device=device)
+            self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False,
+                                     device=device)
+            self.ffn_bias = nn.Parameter(torch.zeros(hidden, device=device))
+        self.ln_ffn = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+
+    def forward(self, x: torch.Tensor):
+        a = checkpoint_name(self.attn(x), "attn_out")
+        x = layer_norm(x + a, self.ln_attn, self.dtype)
+        aux = None
+        if hasattr(self, "moe"):
+            f, aux = self.moe(x)
+        else:
+            f = F.gelu(dense(x, self.ffn_in, self.dtype), approximate="none")
+            f = dense(f, self.ffn_out, self.dtype) + self.ffn_bias.to(
+                self.dtype)
+        f = checkpoint_name(f, "mlp_out")
+        y = layer_norm(x + f, self.ln_ffn, self.dtype)
+        return checkpoint_name(y, "block_out"), aux
+
+
+class BertForMLM(nn.Module):
+    """Token ids [B, L] -> MLM logits [B, L, vocab] in the compute dtype.
+
+    Embeddings (token + learned position) and ``ln_emb`` run in fp32 and
+    the result is cast to the compute dtype (``models/bert.py:331-332``);
+    the untied MLM head (dense -> exact GELU -> LayerNorm -> decoder) runs
+    in the compute dtype.  ``forward(ids, with_aux=True)`` also returns
+    the summed MoE load-balance loss (None without experts)."""
+
+    def __init__(self, num_classes: int = 30522, num_layers: int = 12,
+                 hidden: int = 768, num_heads: int = 12, ffn_dim: int = 3072,
+                 max_len: int = 512, *, num_experts: int = 0,
+                 capacity_factor: float = 1.25, remat_policy: str = "none",
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "dense", device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_heads = num_heads
+        self.num_experts = num_experts
+        self.max_len = max_len
+        self.dtype = dtype
+        self.remat = Remat(remat_policy)
+        self.tok_emb = nn.Embedding(num_classes, hidden, device=device)
+        self.pos_emb = nn.Embedding(max_len, hidden, device=device)
+        self.ln_emb = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.blocks = nn.ModuleList(
+            EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
+                         capacity_factor=capacity_factor, dtype=dtype,
+                         attention_impl=attention_impl, device=device)
+            for _ in range(num_layers))
+        self.mlm_dense = nn.Linear(hidden, hidden, device=device)
+        self.mlm_ln = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
+        self.mlm_decoder = nn.Linear(hidden, num_classes, device=device)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        init_flax(self, generator)
+
+    def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
+        l = input_ids.shape[1]
+        if l > self.max_len:
+            raise ValueError(f"sequence length {l} exceeds max_len "
+                             f"{self.max_len}")
+        x = self.tok_emb(input_ids) + self.pos_emb.weight[:l]
+        x = F.layer_norm(x, self.ln_emb.normalized_shape, self.ln_emb.weight,
+                         self.ln_emb.bias, LN_EPS).to(self.dtype)
+        x, aux = run_stack(self.blocks, x, self.remat)
+        x = F.gelu(dense(x, self.mlm_dense, self.dtype), approximate="none")
+        x = layer_norm(x, self.mlm_ln, self.dtype)
+        logits = dense(x, self.mlm_decoder, self.dtype)
+        return (logits, aux) if with_aux else logits

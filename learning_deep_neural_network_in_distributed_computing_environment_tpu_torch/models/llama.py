@@ -5,9 +5,10 @@ anywhere, and an untied LM head.  ``num_kv_heads`` below ``num_heads``
 gives grouped-query attention.
 
 Parameters are fp32; ``dtype`` is the compute dtype, applied per op as in
-flax (``models/bert.py::dense``), and the logits come out in it.  MoE
-FFNs, layer scan, tensor/pipeline parallelism and remat are not ported
-(the config rejects them).
+flax (``models/bert.py::dense``), and the logits come out in it.
+``num_experts > 0`` swaps SwiGLU for the Switch-MoE FFN; blocks run under
+the ``--remat_policy`` (``models/remat.py``).  Tensor/pipeline parallelism
+is not ported (the config rejects it).
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bert import SelfAttention, dense
+from .bert import SelfAttention, dense, run_stack
+from .remat import Remat, checkpoint_name
 
 INIT_STD = 0.02
 RMS_EPS = 1e-5
@@ -40,10 +42,13 @@ class RMSNorm(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    """Pre-norm decoder block: x + attn(rms1(x)); x + swiglu(rms2(x))."""
+    """Pre-norm decoder block: x + attn(rms1(x)); x + swiglu(rms2(x)).
+    Returns ``(y, aux)``: aux is the MoE FFN's load-balance loss, or
+    None."""
 
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
-                 num_kv_heads: Optional[int] = None,
+                 num_kv_heads: Optional[int] = None, num_experts: int = 0,
+                 capacity_factor: float = 1.25,
                  rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", device=None):
@@ -56,16 +61,32 @@ class LlamaBlock(nn.Module):
                                   rope_theta=rope_theta, dtype=dtype,
                                   device=device)
         self.rms2 = RMSNorm(hidden, device=device)
-        self.ffn_in = nn.Linear(hidden, ffn_dim, bias=False, device=device)
-        self.ffn_up = nn.Linear(hidden, ffn_dim, bias=False, device=device)
-        self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False, device=device)
+        if num_experts:
+            from .moe import MoEFFN
+            self.moe = MoEFFN(hidden, num_experts, ffn_dim,
+                              capacity_factor=capacity_factor, dtype=dtype,
+                              device=device)
+        else:
+            self.ffn_in = nn.Linear(hidden, ffn_dim, bias=False,
+                                    device=device)
+            self.ffn_up = nn.Linear(hidden, ffn_dim, bias=False,
+                                    device=device)
+            self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False,
+                                     device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.rms1(x, self.dtype))
+    def forward(self, x: torch.Tensor):
+        a = checkpoint_name(self.attn(self.rms1(x, self.dtype)), "attn_out")
+        x = x + a
         f = self.rms2(x, self.dtype)
-        gate = dense(f, self.ffn_in, self.dtype)
-        up = dense(f, self.ffn_up, self.dtype)
-        return x + dense(F.silu(gate) * up, self.ffn_out, self.dtype)
+        aux = None
+        if hasattr(self, "moe"):
+            f, aux = self.moe(f)
+        else:
+            gate = dense(f, self.ffn_in, self.dtype)
+            up = dense(f, self.ffn_up, self.dtype)
+            f = dense(F.silu(gate) * up, self.ffn_out, self.dtype)
+        f = checkpoint_name(f, "mlp_out")
+        return checkpoint_name(x + f, "block_out"), aux
 
 
 class LlamaForCausalLM(nn.Module):
@@ -76,16 +97,22 @@ class LlamaForCausalLM(nn.Module):
                  hidden: int = 1024, num_heads: int = 16, ffn_dim: int = 2816,
                  rope_theta: float = 10000.0,
                  num_kv_heads: Optional[int] = None, *,
+                 num_experts: int = 0, capacity_factor: float = 1.25,
+                 remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", device=None):
         super().__init__()
         self.num_classes = num_classes
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
+        self.num_experts = num_experts
         self.dtype = dtype
+        self.remat = Remat(remat_policy)
         self.tok_emb = nn.Embedding(num_classes, hidden, device=device)
         self.blocks = nn.ModuleList(
             LlamaBlock(hidden, num_heads, ffn_dim, num_kv_heads=num_kv_heads,
+                       num_experts=num_experts,
+                       capacity_factor=capacity_factor,
                        rope_theta=rope_theta, dtype=dtype,
                        attention_impl=attention_impl, device=device)
             for _ in range(num_layers))
@@ -98,14 +125,19 @@ class LlamaForCausalLM(nn.Module):
         """The flax initializers: N(0, 0.02) for every dense kernel and
         embedding, ones for the RMSNorm scales, drawn from ``generator``
         (on the parameters' device)."""
+        from .moe import MoEFFN
         for module in self.modules():
             if isinstance(module, RMSNorm):
                 module.weight.fill_(1.0)
+            elif isinstance(module, MoEFFN):
+                module.init_parameters(generator)
             elif isinstance(module, (nn.Linear, nn.Embedding)):
                 module.weight.normal_(0.0, INIT_STD, generator=generator)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
+        """Logits, and with ``with_aux`` also the summed MoE load-balance
+        loss (None without experts)."""
         x = F.embedding(input_ids, self.tok_emb.weight.to(self.dtype))
-        for block in self.blocks:
-            x = block(x)
-        return dense(self.rms_f(x, self.dtype), self.lm_head, self.dtype)
+        x, aux = run_stack(self.blocks, x, self.remat)
+        logits = dense(self.rms_f(x, self.dtype), self.lm_head, self.dtype)
+        return (logits, aux) if with_aux else logits

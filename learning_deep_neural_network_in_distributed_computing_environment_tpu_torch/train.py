@@ -1,7 +1,8 @@
 """Local training phase: the per-step loss, Adam, and one worker's local-SGD
 round (port of the JAX package's ``train.py``: ``TrainState`` :71-134,
-``steplr``/CE/masking :232-320, Adam :518 + :1718-1720, the step and round
-bodies :1676-1823, and ``round`` :2343 for one worker of the group).
+``steplr``/CE/masking :232-320, Adam :518 + :1718-1720, the MoE aux loss
+:1596-1615, gradient accumulation :1625-1674, the step and round bodies
+:1676-1823, and ``round`` :2343 for one worker of the group).
 
 PyTorch runs eagerly, so the round is a Python loop over steps instead of
 a compiled scan.  A step whose batch is all padding (or ignore-index) is
@@ -191,15 +192,39 @@ class LocalSGDEngine:
         return (to_device(x, dev), to_device(y, dev, torch.long),
                 to_device(m, dev, torch.float32), real)
 
+    def _loss(self, x, y, m, denom, aux_div: float):
+        """(loss, correct) of one forward: the masked CE numerator over
+        ``denom``, plus ``moe_aux_weight`` times the summed MoE
+        load-balance loss over ``aux_div`` (JAX ``train.py:1596-1615``)."""
+        if self.cfg.num_experts > 0:
+            logits, aux = self.model(x, with_aux=True)
+        else:
+            logits, aux = self.model(x), None
+        ce, w, correct = masked_token_stats(logits, y, m)
+        loss = (ce * w).sum() / denom
+        if aux is not None:
+            loss = loss + self.cfg.moe_aux_weight * aux / aux_div
+        return loss, correct
+
     def _train_step(self, state: TrainState, x, y, m, lr: float,
                     augment: bool):
         if augment:
             x = augment_batch(x, self.generator)
-        logits = self.model(x)
-        ce, w, correct = masked_token_stats(logits, y, m)
-        total = w.sum()
-        loss = (ce * w).sum() / total.clamp_min(1.0)
-        grads = torch.autograd.grad(loss, self.params)
+        # --grad_accum K (JAX train.py:1625-1674): K slices of the batch,
+        # each slice's numerator over the full step's denominator and its
+        # aux over K, gradients summed in fp32, one Adam step; MoE capacity
+        # is per slice, as in JAX.  K=1 is the plain step.
+        k = self.cfg.grad_accum
+        denom = masked_weights(y, m).sum().clamp_min(1.0)
+        loss = correct = grads = None
+        for xs, ys, ms in zip(*(t.chunk(k) for t in (x, y, m))):
+            loss_k, correct_k = self._loss(xs, ys, ms, denom, float(k))
+            g_k = torch.autograd.grad(loss_k, self.params)
+            if grads is None:
+                loss, correct, grads = loss_k.detach(), correct_k, g_k
+            else:
+                loss, correct = loss + loss_k.detach(), correct + correct_k
+                torch._foreach_add_(grads, g_k)
         state.opt.step(self.params, grads, lr)
         return loss.detach(), correct.detach(), grads
 

@@ -1,6 +1,6 @@
 """Convert between flax variables of numpy arrays (the JAX package's GPT,
-Llama and image-model layouts) and the port's ``state_dict`` naming and
-layout.
+Llama, BERT, ViT and image-model layouts) and the port's ``state_dict``
+naming and layout.
 
 Image models (``enhanced_cnn``, ``resnet*``, ``lenet5``, ``mlp``;
 ``cnn_flax_to_torch`` / ``cnn_torch_to_flax``): the flax module path is
@@ -22,7 +22,14 @@ reshape, so a round trip is exact, for the image models too.
 The transformer family follows from the leaves present: GPT has
 LayerNorms (``ln1``, ``ln2``, ``ln_f``), a position table and FFN biases;
 Llama has RMSNorms (``rms1``, ``rms2``, ``rms_f``), a SwiGLU ``ffn_up``
-and an untied ``lm_head``, and no biases.
+and an untied ``lm_head``, and no biases; BERT has post-LN blocks
+(``ln_attn``, ``ln_ffn``), ``ln_emb`` and the MLM head (``mlm_dense``,
+``mlm_ln``, ``mlm_decoder``); ViT has ``patch_embed`` (kernel [p*p*c, H]),
+a ``pos_emb`` array [1, N, H] (a parameter of the model, not a table
+module) and ``head``.  A Switch-MoE block has a ``moe`` subtree in place of
+the FFN: ``gate`` (kernel [H, E] <-> weight [E, H]) and the expert stacks
+``w1`` [E, H, F], ``b1`` [E, F], ``w2`` [E, F, H], ``b2`` [E, H], which keep
+their layout.
 """
 
 from __future__ import annotations
@@ -34,8 +41,9 @@ import numpy as np
 # flax leaf name <-> port key suffix
 _LN = {"scale": "weight", "bias": "bias"}
 _DENSE = {"kernel": "weight", "bias": "bias"}
-_NORMS = ("ln1", "ln2", "rms1", "rms2")
+_NORMS = ("ln1", "ln2", "rms1", "rms2", "ln_attn", "ln_ffn")
 _FFN = ("ffn_in", "ffn_up", "ffn_out")
+_EXPERTS = ("w1", "b1", "w2", "b2")
 
 
 def _block_to_torch(block: dict) -> dict[str, np.ndarray]:
@@ -62,6 +70,11 @@ def _block_to_torch(block: dict) -> dict[str, np.ndarray]:
                 out[f"{dense}.{key}"] = arr.T if leaf == "kernel" else arr
     if "ffn_bias" in block:
         out["ffn_bias"] = block["ffn_bias"]
+    if "moe" in block:
+        moe = block["moe"]
+        out["moe.gate.weight"] = moe["gate"]["kernel"].T
+        for leaf in _EXPERTS:
+            out[f"moe.{leaf}"] = moe[leaf]
     return out
 
 
@@ -95,6 +108,9 @@ def _block_to_flax(sd: dict, prefix: str, num_heads: int,
                 block[dense]["bias"] = get(f"{dense}.bias")
     if has("ffn_bias"):
         block["ffn_bias"] = get("ffn_bias")
+    if has("moe.gate.weight"):
+        block["moe"] = {"gate": {"kernel": get("moe.gate.weight").T},
+                        **{leaf: get(f"moe.{leaf}") for leaf in _EXPERTS}}
     return block
 
 
@@ -103,19 +119,28 @@ _TOP = {("tok_emb", "embedding"): "tok_emb.weight",
         ("pos_emb", "embedding"): "pos_emb.weight",
         ("ln_f", "scale"): "ln_f.weight", ("ln_f", "bias"): "ln_f.bias",
         ("rms_f", "scale"): "rms_f.weight",
-        ("lm_head", "kernel"): "lm_head.weight"}
+        ("lm_head", "kernel"): "lm_head.weight",
+        **{(m, leaf): f"{m}.{key}"
+           for m in ("ln_emb", "mlm_ln") for leaf, key in _LN.items()},
+        **{(m, leaf): f"{m}.{key}"
+           for m in ("mlm_dense", "mlm_decoder", "patch_embed", "head")
+           for leaf, key in _DENSE.items()}}
+# ViT's position table: a bare [1, N, H] parameter (``models/vit.py:117``)
+_VIT_POS = "pos_emb"
 
 
 def flax_to_torch(params: dict) -> dict[str, np.ndarray]:
-    """flax GPT or Llama ``params`` (stacked or unrolled) -> port
-    ``state_dict`` entries as numpy arrays (hand to ``torch.as_tensor`` /
-    ``load_state_dict``)."""
+    """flax GPT, Llama, BERT or ViT ``params`` (stacked or unrolled) ->
+    port ``state_dict`` entries as numpy arrays (hand to
+    ``torch.as_tensor`` / ``load_state_dict``)."""
     params = _to_numpy(params)
     sd = {}
     for (module, leaf), key in _TOP.items():
-        if leaf in params.get(module, {}):
-            arr = params[module][leaf]
-            sd[key] = arr.T if leaf == "kernel" else arr
+        node = params.get(module, {})
+        if isinstance(node, Mapping) and leaf in node:
+            sd[key] = node[leaf].T if leaf == "kernel" else node[leaf]
+    if not isinstance(params.get(_VIT_POS, {}), Mapping):
+        sd[_VIT_POS] = params[_VIT_POS]
     if "layers" in params:
         stacked = params["layers"]["layer"]
         blocks = [_index(stacked, i) for i in range(_leading(stacked))]
@@ -129,8 +154,8 @@ def flax_to_torch(params: dict) -> dict[str, np.ndarray]:
 
 def torch_to_flax(state_dict: dict, *, num_heads: int,
                   num_kv_heads: int = 0, stacked: bool = True) -> dict:
-    """Port ``state_dict`` (tensors or arrays) -> flax GPT or Llama
-    ``params`` of numpy arrays, stacked (``layers/layer``) or unrolled
+    """Port ``state_dict`` (tensors or arrays) -> flax GPT, Llama, BERT or
+    ViT ``params`` of numpy arrays, stacked (``layers/layer``) or unrolled
     (``layerN``)."""
     sd = {k: _as_numpy(v) for k, v in state_dict.items()}
     n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
@@ -142,6 +167,8 @@ def torch_to_flax(state_dict: dict, *, num_heads: int,
             arr = sd[key]
             params.setdefault(module, {})[leaf] = (
                 arr.T if leaf == "kernel" else arr)
+    if _VIT_POS in sd:
+        params[_VIT_POS] = sd[_VIT_POS]
     if stacked:
         params["layers"] = {"layer": _stack(blocks)}
     else:

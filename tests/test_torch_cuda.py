@@ -361,3 +361,79 @@ def test_augment_batch_on_a_cuda_generator(cuda):
     cpu = t_augment.apply_augment(x.cpu(), {k: v.cpu() for k, v in
                                             draws.items()})
     torch.testing.assert_close(runs[0].cpu(), cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(64, 128, 12, 12), (64, 196, 6, 6)],
+                         ids=["bert_path", "vit_path"])
+def test_tensor_core_kernels_at_encoder_path_shapes(cuda, shape):
+    """The bidirectional instances the encoder paths run: BERT-base's
+    [64, 128, 12, 64] and ViT-S/16's [64, 196, 6, 64], whose last key and
+    query tiles hold 4 rows (196 = 3 x 64 + 4)."""
+    _check_tensor_core_kernels(*_inputs(cuda, *shape, 64, seed=9),
+                               causal=False)
+
+
+def _encoder_pass(name, device, state, x, cot, **kw):
+    model = get_model(name, num_classes=cot.shape[-1],
+                      attention_impl="flash", device=device, **kw)
+    model.load_state_dict(state)
+    logits, aux = model(x.to(device), with_aux=True)
+    loss = (logits * cot.to(device)).sum() + (0 if aux is None else aux)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return logits.detach().cpu(), [g.cpu() for g in grads]
+
+
+@pytest.mark.parametrize("name,experts,policy", [
+    ("bert_tiny", 0, "none"), ("vit_tiny", 0, "none"),
+    ("bert_tiny", 4, "none"), ("bert_tiny", 0, "offload_names:attn_out"),
+    ("bert_tiny", 4, "save_names:moe_dispatch,block_out"),
+], ids=["bert", "vit", "bert_moe", "bert_offload", "bert_moe_names"])
+def test_encoder_families_on_card_match_cpu_fp32(cuda, name, experts,
+                                                  policy):
+    """fp32 on both sides (the flash kernels' fp32 instance on the card,
+    the plain version on the CPU): logits and every gradient at atol 1e-4.
+    vit_tiny at 48 x 48 has 36 patches, a ragged tile; on the card
+    offload_names keeps attn_out in pinned host memory."""
+    torch.manual_seed(0)
+    # hidden 128 over 4 heads: head_dim 32, an instance the kernels take
+    kw = dict(num_experts=experts, remat_policy=policy, hidden=128)
+    if name == "vit_tiny":
+        kw["input_shape"] = (48, 48, 3)
+        x, ncls = torch.randn(2, 48, 48, 3), 10
+        cot = torch.randn(2, ncls)
+    else:
+        x, ncls = torch.randint(0, 97, (2, 96)), 97
+        cot = torch.randn(2, 96, ncls) / 192
+    model = get_model(name, num_classes=ncls, **kw)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    ref = _encoder_pass(name, "cpu", state, x, cot, **kw)
+    got = _encoder_pass(name, cuda, state, x, cot, **kw)
+    np.testing.assert_allclose(got[0].numpy(), ref[0].numpy(), atol=1e-4)
+    for g, r in zip(got[1], ref[1]):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-4)
+
+
+def test_remat_policies_on_card_are_bitwise_none(cuda):
+    """bf16 bert_tiny (hidden 128) with flash on the card: every policy's
+    loss and gradients are the same bits as none's (the recompute repeats
+    the same deterministic kernels; offload_names really goes through
+    pinned host memory here)."""
+    x = torch.randint(0, 97, (4, 128), device=cuda)
+    base = get_model("bert_tiny", num_classes=97, attention_impl="flash",
+                     dtype=torch.bfloat16, hidden=128, device=cuda)
+    base.init_parameters(torch.Generator(device=cuda).manual_seed(0))
+    results = {}
+    for policy in ("none", "everything", "dots_saveable",
+                   "save_names:attn_out,block_out", "offload_names:attn_out"):
+        model = get_model("bert_tiny", num_classes=97, attention_impl="flash",
+                          dtype=torch.bfloat16, remat_policy=policy,
+                          hidden=128, device=cuda)
+        model.load_state_dict(base.state_dict())
+        loss = model(x).float().square().mean()
+        results[policy] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    loss0, grads0 = results.pop("none")
+    for policy, (loss, grads) in results.items():
+        assert torch.equal(loss, loss0), policy
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), policy

@@ -165,13 +165,16 @@ def test_serve_is_not_ported():
 
 @pytest.mark.parametrize("flags,where", [
     (["--sync_mode", "sharded"], "A.8"),
-    (["--remat_policy", "everything"], "A.7"),
-    (["--grad_accum", "2"], "A.7"),
-    (["--num_experts", "4"], "A.7"),
+    # the transformer knobs are ported; what stays refused is refused as
+    # the JAX config refuses it
+    (["--remat_policy", "save_names:attn_out"], "enhanced_cnn has none"),
+    (["--grad_accum", "3"], "divisible by --grad_accum"),
+    (["--num_experts", "4", "--mesh_shape", "data=1,expert=2"], "A.11"),
     (["--mesh_shape", "data=1,model=2"], "A.11"),
     (["--num_workers", "2", "--backend", "nccl"], "A.12"),
+    (["--model", "bert_tiny", "--layer_scan", "off"], "A.11"),
 ], ids=["sync_mode", "remat_policy", "grad_accum", "num_experts",
-        "mesh_shape", "num_workers"])
+        "mesh_shape", "num_workers", "layer_scan"])
 def test_config_rejects_features_not_ported(flags, where):
     with pytest.raises(ValueError, match=where):
         t_config.config_from_args(["--device", "cpu", *flags])

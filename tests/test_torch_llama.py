@@ -231,6 +231,5 @@ def test_registry_names():
     medium = get_model("llama_medium", device="meta")
     assert (len(medium.blocks), medium.blocks[0].ffn_up.out_features,
             medium.num_classes) == (16, 2816, 32000)
-    for name in ("bert_base", "vit_s16"):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            get_model(name)
+    for name, cls in (("bert_base", "BertForMLM"), ("vit_s16", "ViT")):
+        assert type(get_model(name, device="meta")).__name__ == cls
