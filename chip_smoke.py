@@ -60,6 +60,30 @@ Phases (any failure exits non-zero before the result line):
              fp32 on the CPU; then its profile.  It runs after the kernels
              phase turned TF32 off, which touches none of its bf16 convs
              and none of its CPU reference.
+   ckpt    - checkpoints (after the gpt2 path): the gpt2 path at 2 rounds
+             with --checkpoint_dir --checkpoint_every 1 --ckpt_keep 2, then
+             epoch 2 restored into a fresh engine and held against the
+             run's final state bit for bit (parameters, Adam moments and
+             count, StepLR clock, generator seed), then the same run with
+             --epochs_global 3 --resume, which must train exactly one
+             round and leave committed epochs [2, 3]; snapshot and write
+             ms per save, payload bytes, restore wall;
+   serve gpt2 - `main serve` off that checkpoint: 32 greedy requests of 64
+             new tokens at 8 decode slots (pages of 16, 160 pages, prompt
+             buckets 32 and 128): 2,048 tokens, no page leaked, the
+             dispatched (program, shape) pairs exactly the used buckets
+             and one decode shape; 4 requests' paged logits at every
+             generated position against a full-sequence forward of the
+             served model (flash attention) within 5e-2 of max |full|,
+             and the token the full forward's argmax wherever its top-2
+             margin exceeds that limit; then a shared 96-token prompt
+             with --serve_prefill_chunk 32, cold and with
+             --serve_prefix_cache, whose streams must all be equal, with
+             pages reused; tokens/s, decode and TTFT p50/p99, peak
+             memory, restore ms;
+   serve llama - in the llama child, the llama path's run writes one
+             checkpoint, and the child serves from it as serve gpt2 does
+             (GQA and RoPE at the cache offsets);
 9. sync    - the N-worker slice: (a) all 12 sync modes (six blends, each
              serving gradients and weights) on CUDA tensors of odd sizes
              in 2 and in 4 worker processes of a gloo group, staged
@@ -120,13 +144,16 @@ _MLM_ARGV = ["--dataset", "synthetic_mlm", "--lr", "1e-4"]
 # steps), and 256 test images (0.35 GB of fp32 pixels in all)
 _VIT_ARGV = [*_COMMON_ARGV, "--dataset", "imagenet", "--epochs_local", "4",
              "--limit_train_samples", "320", "--limit_eval_samples", "256"]
+LLAMA_CKPT_DIR = os.path.join(OUT_DIR, "ckpt_llama")
 # path name -> (argv of main.run, layers: one launch each per pass)
 PATHS = {
     "gpt2": (["--model", "gpt2_small", "--dataset", "synthetic_lm",
               *_TOKENS_ARGV, "--out_dir", os.path.join(OUT_DIR, "gpt2")], 12),
+    # the llama run also writes one checkpoint, which the child serves
     "llama": (["--model", "llama_medium", "--num_kv_heads", "4",
                "--dataset", "synthetic_lm", *_TOKENS_ARGV, "--out_dir",
-               os.path.join(OUT_DIR, "llama")], 16),
+               os.path.join(OUT_DIR, "llama"), "--checkpoint_dir",
+               LLAMA_CKPT_DIR, "--checkpoint_every", "1"], 16),
     "bert": (["--model", "bert_base", *_MLM_ARGV, *_TOKENS_ARGV, "--out_dir",
               os.path.join(OUT_DIR, "bert")], 12),
     "vit": (["--model", "vit_s16", *_VIT_ARGV, "--out_dir",
@@ -136,6 +163,25 @@ PATHS = {
     "moe": (["--model", "bert_base", "--num_experts", "8", *_MLM_ARGV,
              *_TOKENS_ARGV, "--out_dir", os.path.join(OUT_DIR, "moe")], 12),
 }
+# phase ckpt: the gpt2 path at 2 rounds, saving every round, keeping 2
+CKPT_DIR = os.path.join(OUT_DIR, "ckpt_gpt2")
+CKPT_ARGV = [*PATHS["gpt2"][0], "--epochs_global", "2", "--checkpoint_dir",
+             CKPT_DIR, "--checkpoint_every", "1", "--ckpt_keep", "2"]
+# phase serve: 32 greedy requests of 64 new tokens at 8 decode slots
+SERVE_ARGV = ["--serve_max_batch", "8", "--serve_page_size", "16",
+              "--serve_max_pages", "160", "--serve_prompt_buckets", "32,128",
+              "--serve_requests", "32", "--serve_max_new_tokens", "64"]
+SERVE_TOKENS = 32 * 64
+SERVE_CHECKED = 4              # requests held against a full forward
+# paged logits vs a full-sequence forward with the flash kernels, bf16:
+# the flash-vs-dense limit of the paths, as a share of max |full|
+SERVE_LOGIT_TOL = 5e-2
+# a shared 96-token prompt (6 full pages; a hit reuses 5 and prefills
+# the last 16 tokens)
+SHARED_PROMPT = ",".join(str((7 * i * i + 3 * i + 11) % 1000)
+                         for i in range(96))
+SHARED_ARGV = ["--serve_prefill_chunk", "32", "--serve_prompt",
+               SHARED_PROMPT]
 # phase remat: the bert path cut to 4 train steps (320 sequences -> 256
 # train / 64 val; 256 test), under each policy, and under --grad_accum 4
 REMAT_ARGV = ["--model", "bert_base", *_MLM_ARGV, *_COMMON_ARGV,
@@ -887,13 +933,23 @@ def phase_profile(name: str, results, argv: list[str]) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     engine, one_round = steady_round(results, argv)
-    device = engine.device
-    one_round()                                 # warm-up
+    profile_window(f"[profile {name}]",
+                   f"{PROFILE_STEPS} train steps + 1 val step", one_round,
+                   engine.device)
+
+
+def profile_window(tag: str, what: str, fn, device) -> None:
+    """``fn`` once to warm up, then once under torch.profiler: prints the
+    window's wall, the device's busy and idle share, and device time by
+    kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                        # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        one_round()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kind = (torch.autograd.DeviceType.CUDA if device.type == "cuda"
@@ -906,11 +962,10 @@ def phase_profile(name: str, results, argv: list[str]) -> None:
     busy = sum(dev_us(e) for e in rows)
     if not busy > 0:
         fail("the profiler recorded no device time")
-    tag = f"[profile {name}]"
-    print(f"{tag} {PROFILE_STEPS} train steps + 1 val step: wall "
-          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-          f"({100 * busy / wall_us:.1f}%), idle "
-          f"{100 * (1 - busy / wall_us):.1f}%")
+    print(f"{tag} {what}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), idle "
+          f"{100 * (1 - busy / wall_us):.1f}%; "
+          f"{sum(e.count for e in rows)} device kernels")
     for e in rows[:20]:
         print(f"{tag} {dev_us(e) / 1e3:9.3f} ms "
               f"{100 * dev_us(e) / busy:5.1f}% x{e.count:<5d} {e.key[:100]}")
@@ -993,6 +1048,258 @@ def run_cnn() -> tuple[dict, dict]:
         print(f"[cnn] round {r['epoch']}: {r['train_steps']} train steps in "
               f"{r['train_ms']:.1f} ms; round wall {r['compute_ms']:.1f} ms")
     return counts, results
+
+
+def _worker_state_host(engine, state) -> dict:
+    """Every tensor of a worker's checkpointed state, copied to the host,
+    with its count, StepLR clock and seed words."""
+    ws = engine.checkpoint_state(state)
+    out = {k: v.detach().to("cpu", copy=True)
+           for k, v in ws.tensors().items()}
+    out.update(count=ws.count, lr_epoch=ws.lr_epoch,
+               rng=[int(w) for w in ws.rng])
+    return out
+
+
+def phase_ckpt() -> dict:
+    """Phase ckpt: the gpt2 path at 2 rounds saving every round (kept 2),
+    epoch 2 restored into a fresh engine against the run's final state,
+    then --resume to 3 rounds.  Returns the two runs' summed launches."""
+    import torch
+    from importlib import import_module
+    t_ckpt = import_module(f"{PKG}.checkpoint")
+    t_driver = import_module(f"{PKG}.driver")
+    train = import_module(f"{PKG}.train")
+    cfg = import_module(f"{PKG}.config").config_from_args(CKPT_ARGV)
+    t0 = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    counts, res, wall, _ = drive("[ckpt] 2 rounds", CKPT_ARGV,
+                                 PATHS["gpt2"][1])
+    check_losses("ckpt", res)
+    rt = res["round_timings"]
+    summary = res["checkpoint"]
+    if len(rt) != 2 or summary["saves"] != 2 or t_ckpt.committed_epochs(
+            CKPT_DIR) != [1, 2]:
+        fail(f"ckpt: {len(rt)} rounds, summary {summary}, committed "
+             f"{t_ckpt.committed_epochs(CKPT_DIR)}")
+    device = next(res["model"].parameters()).device
+    final = _worker_state_host(
+        train.LocalSGDEngine(res["model"], cfg, device), res["state"])
+    for r in rt:
+        if not (r["ckpt_snapshot_ms"] > 0 and r["ckpt_write_ms"] > 0):
+            fail(f"ckpt: round {r['epoch']} timings {r}")
+        print(f"[ckpt] round {r['epoch']}: snapshot "
+              f"{r['ckpt_snapshot_ms']:.3f} ms (the round loop's stall), "
+              f"write {r['ckpt_write_ms']:.3f} ms (writer thread), train "
+              f"{r['train_ms']:.1f} ms")
+    shard = os.path.join(CKPT_DIR, "ckpt_2", "shard_0.msgpack")
+    print(f"[ckpt] {summary['saves']} saves of {summary['bytes_per_host']:,} "
+          f"payload bytes each; shard file {os.path.getsize(shard):,}"
+          f" bytes; stall total {summary['stall_ms_total']:.3f} ms, write "
+          f"total {summary['write_ms_total']:.3f} ms; run wall {wall:.1f} s")
+    del res
+    torch.cuda.empty_cache()
+
+    # epoch 2 into a fresh engine: every tensor bit for bit
+    t1 = time.perf_counter()
+    model = t_driver.build_model_for(cfg, 1000, device, (PATH_LEN,))
+    engine = train.LocalSGDEngine(model, cfg, device)
+    state = engine.init_state()
+    restored, epoch = t_ckpt.restore_checkpoint(
+        os.path.join(CKPT_DIR, "ckpt_2"), engine.checkpoint_state(state))
+    state = engine.load_checkpoint_state(state, restored)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    got = _worker_state_host(engine, state)
+    differ = [k for k in final if not (
+        torch.equal(final[k], got[k]) if isinstance(final[k], torch.Tensor)
+        else final[k] == got[k])]
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in final.values())
+    print(f"[ckpt] epoch {epoch} restored into a fresh engine in "
+          f"{restore_s * 1e3:.1f} ms (read, crc32, decode, convert, copy to "
+          f"the card): {n_tensors} tensors + count/lr_epoch/rng, "
+          f"{len(differ)} differ from the run's final state")
+    if epoch != 2 or differ:
+        fail(f"ckpt: restored epoch {epoch}; differing: {differ[:5]}")
+    del model, engine, state, restored, final, got
+    torch.cuda.empty_cache()
+
+    argv = [*CKPT_ARGV, "--epochs_global", "3", "--resume"]
+    counts2, res2, wall2, _ = drive("[ckpt] --resume to 3 rounds", argv,
+                                    PATHS["gpt2"][1])
+    rounds = [r["epoch"] for r in res2["round_timings"]]
+    committed = t_ckpt.committed_epochs(CKPT_DIR)
+    print(f"[ckpt] resumed run trained rounds {rounds} in {wall2:.1f} s; "
+          f"committed epochs {committed}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    if rounds != [2] or committed != [2, 3]:
+        fail(f"ckpt: the resumed run trained rounds {rounds}, committed "
+             f"{committed} (expected [2] and [2, 3])")
+    del res2
+    torch.cuda.empty_cache()
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
+def _serve(argv: list[str], record: int = 0):
+    """main.run(["serve", *argv]) with the launch counters reset; with
+    ``record``, the logits of requests 0..record-1 at every generated
+    position (prefill's last position, then each decode step), on the
+    host.  Returns (results, {rid: [logits]}, launches, wall s)."""
+    import torch
+    from importlib import import_module
+    from unittest import mock
+    fl = import_module(f"{PKG}.ops.flash")
+    main = import_module(f"{PKG}.main")
+    engine_cls = import_module(f"{PKG}.serve.engine").ServeEngine
+    seen: dict[int, list] = {}
+    prefill, decode = engine_cls.prefill, engine_cls.decode
+
+    def rec_prefill(self, prompt, page_row, temperature, rid, **kw):
+        tok, last = prefill(self, prompt, page_row, temperature, rid, **kw)
+        if rid < record:
+            seen.setdefault(rid, []).append(last.float().cpu())
+        return tok, last
+
+    def rec_decode(self, tokens, lengths, table, temps, rids, active):
+        nxt, logits = decode(self, tokens, lengths, table, temps, rids,
+                             active)
+        for i in range(len(rids)):
+            if active[i] and rids[i] < record:
+                seen[int(rids[i])].append(logits[i].float().cpu())
+        return nxt, logits
+
+    fl.reset_launch_counts()
+    with mock.patch.object(engine_cls, "prefill", rec_prefill), \
+            mock.patch.object(engine_cls, "decode", rec_decode):
+        t0 = time.perf_counter()
+        results = main.run(["serve", *argv])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return results, seen, dict(fl.LAUNCHES), wall
+
+
+def _serve_checks(name: str, results, want_programs: set) -> dict:
+    tele = results["serve"]
+    programs = {(p, tuple(shape)) for p, shape in tele["programs"]}
+    if tele["pages"]["leaked"] or programs != want_programs:
+        fail(f"serve {name}: leaked {tele['pages']['leaked']} pages; "
+             f"programs {sorted(programs)}, expected {sorted(want_programs)}")
+    return tele
+
+
+def phase_serve(name: str, ckpt_dir: str) -> dict:
+    """Phase serve: 32 greedy requests off ``ckpt_dir`` through `main
+    serve`, with the checks of the module docstring; returns the
+    telemetry."""
+    import torch
+    argv = ["--checkpoint_dir", ckpt_dir, *SERVE_ARGV]
+    results, seen, launches, wall = _serve(argv, record=SERVE_CHECKED)
+    tele = results["serve"]
+    buckets = tele["prefill_buckets"]
+    want = {("prefill", (1, b)) for b in buckets} | {("decode", (8, 1))}
+    _serve_checks(name, results, want)
+    tag = f"[serve {name}]"
+    if (tele["tokens_generated"] != SERVE_TOKENS
+            or not set(buckets) <= {32, 128}):
+        fail(f"serve {name}: {tele['tokens_generated']} tokens, buckets "
+             f"{buckets}")
+    engine = results["engine"]
+    model = engine.model
+    _set_attention(model, "flash")
+    worst, checked, agree, margins = 0.0, 0, 0, 0
+    for c in results["completions"][:SERVE_CHECKED]:
+        paged = torch.stack(seen[c.rid])
+        prompt = [int(t) for t in results["requests"][c.rid].prompt]
+        ids = torch.tensor([prompt + c.tokens], device=engine.device)
+        with torch.no_grad():
+            full = model(ids)[0, len(prompt) - 1:-1].float().cpu()
+        if paged.shape != full.shape or len(c.tokens) != 64:
+            fail(f"serve {name}: request {c.rid}: paged {tuple(paged.shape)} "
+                 f"vs full {tuple(full.shape)}")
+        scale = full.abs().amax(-1)
+        err = (paged - full).abs().amax(-1) / scale
+        worst = max(worst, float(err.max()))
+        top2 = full.topk(2, -1).values
+        sure = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_TOL * scale
+        toks = torch.tensor(c.tokens)
+        margins += int(sure.sum())
+        agree += int((toks[sure] == full.argmax(-1)[sure]).sum())
+        checked += len(c.tokens)
+    print(f"{tag} paged vs full-sequence forward (flash, "
+          f"{model.dtype}) over {checked} generated positions of "
+          f"{SERVE_CHECKED} requests: worst max abs err / max |full| "
+          f"{worst:.3g} (limit {SERVE_LOGIT_TOL}); token = full argmax at "
+          f"{agree} of the {margins} positions whose top-2 margin exceeds "
+          f"the limit")
+    if not (math.isfinite(worst) and worst <= SERVE_LOGIT_TOL
+            and agree == margins):
+        fail(f"serve {name}: paged decode departs from the full forward")
+    mem = tele["memory"]
+    print(f"{tag} launches {launches} (paged decode runs no custom kernel)")
+    print(f"{tag} {tele['tokens_generated']} tokens from "
+          f"{tele['requests']} requests in {tele['wall_s']:.3f} s: "
+          f"{tele['tokens_per_s']:.1f} tokens/s; decode latency p50 "
+          f"{tele['latency_ms']['p50']:.3f} ms p99 "
+          f"{tele['latency_ms']['p99']:.3f} ms; TTFT p50 "
+          f"{tele['ttft_ms']['p50']:.3f} ms p99 {tele['ttft_ms']['p99']:.3f}"
+          f" ms; {tele['decode_steps']} decode steps; peak pages "
+          f"{tele['pages']['peak_in_use']} ({tele['pages']['peak_bytes']:,} "
+          f"bytes); max_memory_allocated "
+          f"{mem['max_memory_allocated'] / 2**30:.3f} GiB (params "
+          f"{mem['params_bytes'] / 2**30:.3f}, pools "
+          f"{mem['kv_pool_bytes'] / 2**30:.3f}); restore "
+          f"{tele['restore_ms']:.1f} ms; programs {tele['programs']}; "
+          f"main.run wall {wall:.1f} s")
+    profile_serve(name, engine)
+    return tele
+
+
+def profile_serve(name: str, engine) -> None:
+    """Where a decode step's time goes: 8 requests of 32 prompt tokens and
+    16 new ones (one batch: 8 prefills, 15 decode steps) through the
+    served engine under torch.profiler."""
+    import numpy as np
+    from importlib import import_module
+    sched = import_module(f"{PKG}.serve.scheduler")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, engine.spec.vocab, 32).tolist()
+               for _ in range(8)]
+
+    def window():
+        sched.ContinuousBatchingScheduler(engine).run(
+            [sched.Request(rid=i, prompt=p, max_new_tokens=16)
+             for i, p in enumerate(prompts)])
+    profile_window(f"[profile serve {name}]",
+                   "8 requests x (32 prompt + 16 new) tokens, 8 prefills + "
+                   "15 decode steps", window, engine.device)
+
+
+def phase_serve_shared(ckpt_dir: str) -> None:
+    """The shared 96-token prompt with --serve_prefill_chunk 32: 8
+    requests cold, then 32 with --serve_prefix_cache; every stream must be
+    the cold one, with pages reused."""
+    base = ["--checkpoint_dir", ckpt_dir, *SERVE_ARGV, *SHARED_ARGV]
+    want = {("prefill_chunk", (1, 32)), ("decode", (8, 1))}
+    cold, _, _, _ = _serve([*base, "--serve_requests", "8"])
+    warm, _, _, _ = _serve([*base, "--serve_prefix_cache"])
+    streams = {tuple(c.tokens) for c in cold["completions"]}
+    tele_c = _serve_checks("gpt2 shared cold", cold, want)
+    tele = _serve_checks("gpt2 shared prefix", warm, want)
+    same = sum(tuple(c.tokens) in streams for c in warm["completions"])
+    print(f"[serve gpt2] shared 96-token prompt, prefill chunk 32: cold "
+          f"({tele_c['requests']} requests) {tele_c['tokens_per_s']:.1f} "
+          f"tokens/s, TTFT p50 {tele_c['ttft_ms']['p50']:.3f} ms; prefix "
+          f"cache ({tele['requests']} requests) {tele['tokens_per_s']:.1f} "
+          f"tokens/s, TTFT p50 {tele['ttft_ms']['p50']:.3f} ms p99 "
+          f"{tele['ttft_ms']['p99']:.3f} ms, page_reuse_ratio "
+          f"{tele['page_reuse_ratio']}, prefill tokens saved "
+          f"{tele['prefill_tokens_saved']}, {tele['prefill_chunks']} chunks; "
+          f"{same} of {len(warm['completions'])} streams equal the cold "
+          f"stream ({len(streams)} distinct cold stream(s))")
+    if (len(streams) != 1 or same != len(warm["completions"])
+            or not tele["page_reuse_ratio"] > 0):
+        fail("serve gpt2: prefix-cache streams differ from the cold run's, "
+             "or no page was reused")
 
 
 def modes_reference(x, n: int, how: str, topology: str, w: float):
@@ -1163,8 +1470,19 @@ def llama_child() -> int:
     from importlib import import_module
     if not import_module(f"{PKG}.ops.flash")._use_fused_bwd():
         fail("the llama child does not see FLASH_BWD=fused")
+    shutil.rmtree(LLAMA_CKPT_DIR, ignore_errors=True)
     counts, results = run_path("llama")
+    r, summary = results["round_timings"][0], results["checkpoint"]
+    print(f"[ckpt llama] one save of {summary['bytes_per_host']:,} payload "
+          f"bytes: snapshot {r['ckpt_snapshot_ms']:.3f} ms, write "
+          f"{r['ckpt_write_ms']:.3f} ms (writer thread), train "
+          f"{r['train_ms']:.1f} ms")
     phase_profile("llama", results, PATHS["llama"][0])
+    del results
+    import torch
+    torch.cuda.empty_cache()
+    phase_serve("llama", LLAMA_CKPT_DIR)
+    shutil.rmtree(LLAMA_CKPT_DIR, ignore_errors=True)
     print(RESULT_TAG + json.dumps({"counts": counts}), flush=True)
     return 0
 
@@ -1209,7 +1527,12 @@ def main() -> int:
     counts = {}
     counts["gpt2"], results = run_path("gpt2")
     phase_profile("gpt2", results, PATHS["gpt2"][0])
-    del results                    # give the card back for the child
+    del results                    # give the card back
+    torch.cuda.empty_cache()
+    counts["ckpt"] = phase_ckpt()
+    phase_serve("gpt2", CKPT_DIR)
+    phase_serve_shared(CKPT_DIR)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
     for path in ("bert", "vit", "moe"):

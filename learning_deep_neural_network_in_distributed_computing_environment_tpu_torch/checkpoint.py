@@ -1,0 +1,652 @@
+"""Async sharded checkpoints in the JAX package's format 2 (port of its
+``checkpoint.py:1-43, 84-156, 156-617``), read and written with the port's
+own MessagePack codec (``serialization.py``).
+
+On disk, exactly as the JAX package lays it out::
+
+    ckpt_dir/
+      ckpt_<E>/
+        shard_<P>.msgpack   {"format": 2, "process": P,
+                             "leaves": {key: [[index, array], ...]}}
+        MANIFEST.json       the commit marker, written last
+
+Every leaf is a ``TrainState`` leaf of the JAX package under its key path
+(``weights.state_to_jax_leaves``) with the leading worker axis [N, ...];
+``index`` is the piece's global [[start, stop], ...].  Rank r of an
+N-worker group writes ``shard_r.msgpack`` holding its worker row; a
+one-worker run writes ``shard_0``.  So a checkpoint the port writes
+restores into the JAX package (``restore_checkpoint``, ``host_tree``,
+``ServeEngine.from_checkpoint``), and one the JAX package writes restores
+here.
+
+The commit, as in the JAX engine: the round loop pays only the snapshot
+(device-to-host copies behind ``torch.cuda.synchronize()``); one writer
+thread converts the layout, serializes, checksums (crc32), fsyncs and
+renames the shard into place; then the manifest is written to a temporary
+file, fsynced and renamed over ``MANIFEST.json`` (the commit point).  At
+most one write is in flight: the next save waits for it (backpressure).
+With N worker processes the commit needs every rank's (bytes, crc32,
+payload bytes): a gather over the group, run on the main thread at the
+next ``save``/``wait``/``close`` in the same order on every rank.  A crash
+anywhere before the manifest's rename leaves an unmanifested directory
+that ``latest_checkpoint`` ignores and the next engine open sweeps.
+
+Not ported, refused with the ROADMAP queue that ports them: the legacy
+v1 single-file restore (the rest of A.9), the re-layouts of the
+scatter-resident parameters, the sharded round optimizer and the
+error-feedback residuals (A.8), and per-slice hierarchical states (A.11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import re
+import shutil
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import mesh, serialization, weights
+
+log = logging.getLogger(__name__)
+
+_LEGACY_RE = re.compile(r"ckpt_(\d+)\.msgpack$")
+_DIR_RE = re.compile(r"ckpt_(\d+)$")
+MANIFEST = "MANIFEST.json"
+FORMAT = 2
+
+# Test hook: crash the process at a defined point inside a save, so the
+# files on disk are what a SIGKILL there leaves.  Values: "mid_shard" (the
+# shard's temporary file written, not renamed), "before_manifest" (the
+# shard in place, no manifest).
+_CRASH_ENV = "PORT_CKPT_TEST_CRASH"
+
+# leaves of the JAX TrainState the port has no counterpart for yet
+_REFUSED = ((".params_resident", "A.8 (scatter-resident parameters)"),
+            (".round_opt", "A.8 (the sharded round optimizer)"),
+            (".sync_residual_outer", "A.11 (hierarchical sync residuals)"),
+            (".sync_residual", "A.8 (error-feedback residuals)"))
+
+
+def _maybe_crash(point: str) -> None:
+    if os.environ.get(_CRASH_ENV) == point:
+        os._exit(42)
+
+
+@dataclasses.dataclass
+class WorkerState:
+    """One worker's train state as the checkpoint sees it: tensors (or
+    host arrays) by ``state_dict`` name, optax Adam's count, the StepLR
+    clock and the generator seed (uint32[2]), with the conversion layout
+    (``weights.state_layout``) and this worker's row of the N workers."""
+
+    params: dict
+    buffers: dict
+    mu: dict
+    nu: dict
+    count: int
+    lr_epoch: int
+    rng: np.ndarray
+    layout: dict
+    worker: int = 0
+    n_workers: int = 1
+
+    def tensors(self) -> dict:
+        return {**{f"params/{k}": v for k, v in self.params.items()},
+                **{f"buffers/{k}": v for k, v in self.buffers.items()},
+                **{f"mu/{k}": v for k, v in self.mu.items()},
+                **{f"nu/{k}": v for k, v in self.nu.items()}}
+
+
+def snapshot(state: WorkerState) -> WorkerState:
+    """Host copies of ``state``'s tensors behind ``torch.cuda.synchronize``
+    (the counterpart of ``jax.block_until_ready``): once this returns the
+    training may overwrite the live tensors."""
+    tensors = state.tensors()
+    if any(t.is_cuda for t in tensors.values()):
+        torch.cuda.synchronize()
+    host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+    part = lambda p: {k[len(p) + 1:]: v for k, v in host.items()
+                      if k.startswith(p + "/")}
+    return dataclasses.replace(
+        state, params=part("params"), buffers=part("buffers"),
+        mu=part("mu"), nu=part("nu"), rng=np.array(state.rng, np.uint32))
+
+
+def _numpy(d: dict) -> dict:
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in d.items()}
+
+
+def jax_leaves(state: WorkerState) -> dict[str, np.ndarray]:
+    """A host ``WorkerState`` -> its row of every JAX TrainState leaf."""
+    return weights.state_to_jax_leaves(
+        _numpy(state.params), _numpy(state.buffers), _numpy(state.mu),
+        _numpy(state.nu), state.count, state.lr_epoch, state.rng,
+        state.layout)
+
+
+# ----------------------------------------------------------------------
+# The engine
+# ----------------------------------------------------------------------
+
+class CheckpointEngine:
+    """Per-run checkpoint engine (JAX ``CheckpointEngine``): sweeps stale
+    leftovers on open, then takes off-critical-path saves and prunes to
+    the ``keep`` newest committed epochs.  ``async_write=False`` runs the
+    same write path inline.  ``timing`` dicts given to ``save`` get
+    ``ckpt_snapshot_ms`` at once and ``ckpt_write_ms`` when the write
+    lands.  ``group``: the worker group (None: one worker); every rank
+    must call ``save``/``wait``/``close`` at the same points."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3,
+                 async_write: bool = True, metadata: dict | None = None,
+                 group: mesh.Group | None = None):
+        self.dir = ckpt_dir
+        self.keep = max(1, int(keep))
+        self.async_write = bool(async_write)
+        self.metadata = dict(metadata) if metadata else {}
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.process_count = 1 if group is None else group.world_size
+        os.makedirs(ckpt_dir, exist_ok=True)
+        self._sweep_stale()
+        self._pool = None         # writer thread, started at the first save
+        self._pending = None      # (future, epoch, timing)
+        self.stats = {"saves": 0, "payload_bytes_per_save": 0,
+                      "snapshot_ms_total": 0.0, "write_ms_total": 0.0}
+
+    def _sweep_stale(self) -> None:
+        """Delete what a crash mid-save left: ``*.tmp.*`` files and
+        ``ckpt_<E>/`` directories without a manifest.  Nothing is in
+        flight when an engine opens."""
+        def rm(path):
+            # every rank sweeps the same directory: losing the race to a
+            # peer is success
+            try:
+                os.remove(path)
+                return True
+            except FileNotFoundError:
+                return False
+
+        swept = []
+        for name in sorted(os.listdir(self.dir)):
+            path = os.path.join(self.dir, name)
+            if ".tmp." in name and os.path.isfile(path):
+                if rm(path):
+                    swept.append(name)
+            elif _DIR_RE.match(name) and os.path.isdir(path):
+                if not os.path.isfile(os.path.join(path, MANIFEST)):
+                    shutil.rmtree(path, ignore_errors=True)
+                    swept.append(name + "/")
+                    continue
+                try:
+                    inners = sorted(os.listdir(path))
+                except FileNotFoundError:
+                    continue       # a peer pruned it while we listed
+                for inner in inners:
+                    if ".tmp." in inner and rm(os.path.join(path, inner)):
+                        swept.append(f"{name}/{inner}")
+        if swept:
+            log.info("swept %d stale checkpoint leftover(s) in %s: %s",
+                     len(swept), self.dir, ", ".join(swept))
+
+    # -- save ----------------------------------------------------------
+    def save(self, state: WorkerState, global_epoch: int,
+             timing: dict | None = None) -> str:
+        """Snapshot ``state`` and commit it as epoch ``global_epoch``.
+        The blocking part, all of it ``ckpt_snapshot_ms``: waiting out the
+        write in flight (backpressure), then the fence and the host copies.
+        Async mode returns there; the layout conversion, serialization,
+        checksum, fsync and manifest ride the writer thread."""
+        t0 = time.perf_counter()
+        self._finalize()
+        host = snapshot(state)
+        snapshot_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        payload = (sum(t.numel() * t.element_size()
+                       for t in host.tensors().values())
+                   + 4 + 4 + 8)        # count, lr_epoch, rng
+        if timing is not None:
+            timing["ckpt_snapshot_ms"] = snapshot_ms
+        self.stats["saves"] += 1
+        self.stats["payload_bytes_per_save"] = payload
+        self.stats["snapshot_ms_total"] = round(
+            self.stats["snapshot_ms_total"] + snapshot_ms, 3)
+        epoch = int(global_epoch)
+        job = lambda: self._write_shard(host, epoch, timing)
+        if self.async_write:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ckpt-writer")
+            self._pending = (self._pool.submit(job), epoch, timing)
+        else:
+            local, meta = job()
+            if self.process_count > 1:
+                self._commit(epoch, local, meta, timing)
+        return os.path.join(self.dir, f"ckpt_{epoch}")
+
+    def wait(self) -> None:
+        """Block until the save in flight is committed (with N workers a
+        collective: the deferred commit runs here)."""
+        self._finalize()
+
+    def close(self) -> None:
+        """``wait()``, then release the writer thread (it restarts at the
+        next async save)."""
+        self._finalize()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def abort(self) -> None:
+        """The unwinding twin of ``close``: join the writer without the
+        commit (a collective a failing peer may never enter).  The epoch
+        stays unmanifested and is swept at the next open; a writer failure
+        is logged so the original exception propagates."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            try:
+                pending[0].result()
+            except Exception:  # noqa: BLE001 — the unwind must go on
+                log.exception("checkpoint writer failed during abort")
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+    def _finalize(self) -> None:
+        if self._pending is None:
+            return
+        fut, epoch, timing = self._pending
+        self._pending = None
+        local, meta = fut.result()   # re-raises a failed background write
+        if self.process_count > 1:
+            # the commit is collective: here, on the main thread, in the
+            # same program order on every rank
+            self._commit(epoch, local, meta, timing)
+
+    def _write_shard(self, host: WorkerState, epoch: int, timing
+                     ) -> tuple[dict, dict]:
+        """Convert, serialize, checksum and fsync this rank's shard file.
+        Returns ({"bytes", "crc32", "payload_bytes"}, leaf metadata).  One
+        worker commits here; N workers commit on the main thread."""
+        t0 = time.perf_counter()
+        n, w = host.n_workers, host.worker
+        pieces, meta = {}, {}
+        for key, arr in jax_leaves(host).items():
+            shape = [n, *arr.shape]
+            pieces[key] = [[[[w, w + 1]] + [[0, int(d)] for d in arr.shape],
+                            arr[None]]]
+            meta[key] = {"shape": shape, "dtype": str(arr.dtype),
+                         "bytes": int(np.prod(shape, dtype=np.int64))
+                         * arr.dtype.itemsize}
+        d = os.path.join(self.dir, f"ckpt_{epoch}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"shard_{self.rank}.msgpack")
+        tmp = f"{path}.tmp.{self.rank}"
+        with open(tmp, "wb") as f:
+            size, crc = serialization.write(
+                f, {"format": FORMAT, "process": self.rank,
+                    "leaves": pieces})
+            _maybe_crash("mid_shard")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        local = {"bytes": size, "crc32": crc,
+                 "payload_bytes": sum(int(p[0][1].nbytes)
+                                      for p in pieces.values())}
+        _maybe_crash("before_manifest")
+        if self.process_count == 1:
+            self._commit(epoch, local, meta, timing, t_start=t0)
+        else:
+            write_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            self.stats["write_ms_total"] = round(
+                self.stats["write_ms_total"] + write_ms, 3)
+            if timing is not None:
+                timing["ckpt_write_ms"] = write_ms
+        return local, meta
+
+    def _commit(self, epoch: int, local: dict, meta: dict, timing,
+                t_start: float | None = None) -> None:
+        """Publish MANIFEST.json (tmp, fsync, rename: the commit point),
+        then prune.  With N workers the gathered (bytes, crc32, payload)
+        of every shard doubles as the all-shards-durable barrier, and
+        every rank writes the same manifest."""
+        t0 = t_start if t_start is not None else time.perf_counter()
+        if self.process_count > 1:
+            rows = mesh.all_gather(self.group, [
+                local["bytes"], local["crc32"], local["payload_bytes"]])
+            shards = {f"shard_{q}.msgpack": {
+                "bytes": int(r[0]), "crc32": int(r[1]),
+                "payload_bytes": int(r[2])} for q, r in enumerate(rows)}
+        else:
+            shards = {"shard_0.msgpack": local}
+        manifest = {"format": FORMAT, "global_epoch": int(epoch),
+                    "process_count": self.process_count, "shards": shards,
+                    "leaves": meta}
+        if self.metadata:
+            manifest["metadata"] = self.metadata
+        path = os.path.join(self.dir, f"ckpt_{epoch}", MANIFEST)
+        tmp = f"{path}.tmp.{self.rank}"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)              # <- the commit point
+        self._prune()
+        write_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        self.stats["write_ms_total"] = round(
+            self.stats["write_ms_total"] + write_ms, 3)
+        if timing is not None:
+            # += : with N workers the wall splits between the writer
+            # thread (the shard) and this commit
+            timing["ckpt_write_ms"] = round(
+                timing.get("ckpt_write_ms", 0.0) + write_ms, 3)
+
+    def _prune(self) -> None:
+        """Every rank prunes to the ``keep`` newest manifested epochs
+        (uncommitted directories belong to the open-time sweep)."""
+        committed = sorted(set(_manifested_epochs(self.dir))
+                           | set(_legacy_epochs(self.dir)))
+        for old in committed[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"ckpt_{old}"),
+                          ignore_errors=True)
+            try:
+                os.remove(os.path.join(self.dir, f"ckpt_{old}.msgpack"))
+            except FileNotFoundError:
+                pass
+
+    # -- queries -------------------------------------------------------
+    def latest_checkpoint(self) -> Optional[str]:
+        return latest_checkpoint(self.dir, self.group)
+
+    def summary(self) -> dict:
+        """Run-level telemetry for ``results["checkpoint"]`` (the JAX
+        engine's keys)."""
+        return {"enabled": True, "async": self.async_write,
+                "layout": "sharded", "keep": self.keep,
+                "saves": self.stats["saves"],
+                "bytes_per_host": self.stats["payload_bytes_per_save"],
+                "stall_ms_total": self.stats["snapshot_ms_total"],
+                "write_ms_total": self.stats["write_ms_total"]}
+
+
+# ----------------------------------------------------------------------
+# Listing / validation
+# ----------------------------------------------------------------------
+
+def _legacy_epochs(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
+                  if (m := _LEGACY_RE.match(name)))
+
+
+def read_manifest(epoch_dir: str) -> Optional[dict]:
+    try:
+        with open(os.path.join(epoch_dir, MANIFEST)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def _file_crc(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 22):
+            crc = zlib.crc32(chunk, crc)
+    return crc
+
+
+def _valid_sharded(epoch_dir: str) -> bool:
+    """Restorable iff the manifest parses and every manifested shard is
+    present at its manifested size and crc32: a missing, truncated or
+    corrupt shard drops the epoch, so ``latest_checkpoint`` falls back."""
+    manifest = read_manifest(epoch_dir)
+    if not manifest or "shards" not in manifest:
+        return False
+    for fname, info in manifest["shards"].items():
+        path = os.path.join(epoch_dir, fname)
+        if (not os.path.isfile(path)
+                or os.path.getsize(path) != int(info["bytes"])):
+            return False
+        try:
+            crc = _file_crc(path)
+        except OSError:
+            return False
+        if crc != int(info["crc32"]):
+            log.warning("checkpoint shard %s is corrupt (size matches, "
+                        "crc32 does not): dropping its epoch", path)
+            return False
+    return True
+
+
+def _sharded_epochs(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(ckpt_dir)
+                  if (m := _DIR_RE.match(name))
+                  and _valid_sharded(os.path.join(ckpt_dir, name)))
+
+
+def _manifested_epochs(ckpt_dir: str) -> list[int]:
+    """Epochs whose commit marker exists, restorable or not (the prune
+    population)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(
+        int(m.group(1)) for name in os.listdir(ckpt_dir)
+        if (m := _DIR_RE.match(name))
+        and os.path.isfile(os.path.join(ckpt_dir, name, MANIFEST)))
+
+
+def committed_epochs(ckpt_dir: str) -> list[int]:
+    """Restorable epochs (intact sharded directories, plus legacy single
+    files, which are listed though not restored here), ascending."""
+    return sorted(set(_sharded_epochs(ckpt_dir))
+                  | set(_legacy_epochs(ckpt_dir)))
+
+
+def manifest_metadata(path: str) -> dict:
+    """The ``metadata`` block of a committed ``ckpt_<E>`` directory, or of
+    the newest committed one under a checkpoint root; ``{}`` if none."""
+    manifest = read_manifest(path)
+    if manifest is None:
+        epochs = _sharded_epochs(path)
+        if not epochs:
+            return {}
+        manifest = read_manifest(os.path.join(path, f"ckpt_{epochs[-1]}"))
+    return dict((manifest or {}).get("metadata", {}))
+
+
+def latest_checkpoint(ckpt_dir: str, group: mesh.Group | None = None
+                      ) -> Optional[str]:
+    """Path of the newest committed checkpoint.  With a group every rank
+    must call this: rank 0's epoch is taken, and a rank that cannot
+    restore it raises instead of resuming elsewhere."""
+    epochs = committed_epochs(ckpt_dir)
+    local = max(epochs) if epochs else -1
+    if group is not None:
+        agreed = int(mesh.all_gather(group, local)[0])
+        if agreed >= 0 and agreed not in epochs:
+            raise FileNotFoundError(
+                f"rank {group.rank} is missing checkpoint epoch {agreed} "
+                f"present on rank 0 ({ckpt_dir}); cannot resume "
+                "consistently")
+        local = agreed
+    if local < 0:
+        return None
+    d = os.path.join(ckpt_dir, f"ckpt_{local}")
+    if _valid_sharded(d):
+        return d
+    return os.path.join(ckpt_dir, f"ckpt_{local}.msgpack")
+
+
+# ----------------------------------------------------------------------
+# Restore
+# ----------------------------------------------------------------------
+
+def manifest_worker_axis(epoch_dir: str) -> Optional[int]:
+    """The leading worker-axis size of a committed epoch's leaves, read
+    from the manifest alone; None when unreadable or the leaves disagree."""
+    manifest = read_manifest(epoch_dir)
+    if not manifest or not manifest.get("leaves"):
+        return None
+    heads = {tuple(i["shape"])[0] if i["shape"] else None
+             for i in manifest["leaves"].values()}
+    if len(heads) != 1 or None in heads:
+        return None
+    return int(heads.pop())
+
+
+def verified_shards(path: str, manifest: dict):
+    """Each present shard file's decoded payload, one file at a time, after
+    the manifest's size and crc32 checks (a mismatch raises)."""
+    for fname, info in manifest["shards"].items():
+        fp = os.path.join(path, fname)
+        if not os.path.isfile(fp):
+            continue
+        raw = bytearray(os.path.getsize(fp))     # writable leaves
+        with open(fp, "rb") as f:
+            f.readinto(raw)
+        if (len(raw) != int(info["bytes"])
+                or zlib.crc32(raw) != int(info["crc32"])):
+            raise ValueError(f"checkpoint shard {fp} is corrupt (size/crc "
+                             "mismatch vs manifest)")
+        yield serialization.loads(raw)
+
+
+def _place(out, index, arr) -> int:
+    out[tuple(slice(a, b) for a, b in index)] = arr
+    return int(np.prod(np.shape(arr), dtype=np.int64))
+
+
+def host_tree(path: str) -> tuple[dict[str, np.ndarray], int]:
+    """Every leaf of a committed sharded epoch merged into a full host
+    array (worker axis first), with the epoch; crc32 checked per shard."""
+    manifest = read_manifest(path)
+    if not manifest:
+        raise FileNotFoundError(f"no committed manifest under {path}")
+    out, filled = {}, {}
+    for payload in verified_shards(path, manifest):
+        for key, plist in payload["leaves"].items():
+            info = manifest["leaves"][key]
+            if key not in out:
+                out[key] = np.empty(tuple(info["shape"]),
+                                    np.dtype(info["dtype"]))
+                filled[key] = 0
+            for index, arr in plist:
+                filled[key] += _place(out[key], index, arr)
+    for key in manifest["leaves"]:
+        if key not in out or filled[key] != out[key].size:
+            raise ValueError(
+                f"checkpoint leaf {key} is incomplete under {path} "
+                "(missing shard file?)")
+    return ({k: out[k] for k in manifest["leaves"]},
+            int(manifest["global_epoch"]))
+
+
+def load_row(path: str, manifest: dict, row: int, keep=None
+             ) -> dict[str, np.ndarray]:
+    """Worker ``row`` of every leaf (or of the leaves ``keep(key)``
+    selects), streamed one shard file at a time: the other workers' rows
+    are never assembled.  A leaf the shards do not cover raises."""
+    want = {k: i for k, i in manifest["leaves"].items()
+            if keep is None or keep(k)}
+    out, filled = {}, {}
+    for payload in verified_shards(path, manifest):
+        for key, plist in payload["leaves"].items():
+            if key not in want:
+                continue
+            for index, arr in plist:
+                lo, hi = index[0]
+                if not lo <= row < hi:
+                    continue
+                if key not in out:
+                    out[key] = np.empty(tuple(want[key]["shape"][1:]),
+                                        np.dtype(want[key]["dtype"]))
+                    filled[key] = 0
+                filled[key] += _place(out[key], index[1:], arr[row - lo])
+    for key in want:
+        if key not in out or filled[key] != out[key].size:
+            raise ValueError(
+                f"checkpoint {path} has no complete row {row} of leaf "
+                f"{key} (missing shard file?)")
+    return {k: out[k] for k in want}
+
+
+def _refuse_unported(path: str, manifest: dict) -> None:
+    meta = manifest.get("metadata", {})
+    if int(meta.get("num_slices", 1) or 1) > 1:
+        raise ValueError(
+            f"checkpoint {path} holds a per-slice hierarchical state "
+            f"({meta['num_slices']} slices): its restore arrives with "
+            "ROADMAP queue A.11")
+    for key in manifest["leaves"]:
+        for prefix, where in _REFUSED:
+            if key.startswith(prefix):
+                raise ValueError(
+                    f"checkpoint {path} holds {prefix} leaves ({key}); "
+                    f"their re-layout arrives with ROADMAP queue {where}")
+
+
+def restore_checkpoint(path: str, template: WorkerState
+                       ) -> tuple[WorkerState, int]:
+    """``(state, global_epoch)`` from a committed sharded epoch: worker
+    ``template.worker``'s row of every leaf, converted to the port's
+    layout, as host numpy arrays in a ``WorkerState`` shaped like
+    ``template`` (its tensors give the names, shapes and dtypes; a
+    missing leaf or a shape or dtype mismatch raises)."""
+    if not os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a legacy single-file (format 1) checkpoint: its "
+            "restore is the rest of ROADMAP queue A.9; the port restores "
+            "the sharded format 2")
+    manifest = read_manifest(path)
+    if not manifest:
+        raise FileNotFoundError(f"no committed manifest under {path}")
+    _refuse_unported(path, manifest)
+    axis = manifest_worker_axis(path)
+    if axis != template.n_workers:
+        raise ValueError(
+            f"checkpoint {path} was written with {axis} worker(s) but this "
+            f"run has {template.n_workers}: restart fresh or resume with "
+            f"--num_workers {axis}")
+    row = load_row(path, manifest, template.worker)
+    for key in weights.SCALAR_KEYS:
+        if key not in row:
+            raise ValueError(f"checkpoint {path} has no leaf {key} required "
+                             "by the restore template")
+    got = weights.state_from_jax_leaves(row, template.layout)
+    for part in ("params", "buffers", "mu", "nu"):
+        want, have = getattr(template, part), got[part]
+        for name, t in want.items():
+            if name not in have:
+                raise ValueError(
+                    f"checkpoint {path} has no leaf for {part} {name} "
+                    "required by the restore template (another model?)")
+            a = have[name]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(
+                    f"checkpoint {part} {name} shape {tuple(a.shape)} does "
+                    f"not match template {tuple(t.shape)}")
+            if str(a.dtype) != str(t.dtype).removeprefix("torch."):
+                raise ValueError(
+                    f"checkpoint {part} {name} dtype {a.dtype} does not "
+                    f"match template {t.dtype} (saved with another "
+                    "--dtype?)")
+        extra = sorted(set(have) - set(want))
+        if extra:
+            raise ValueError(f"checkpoint {path} has {part} {extra[:3]} the "
+                             "restore template lacks (another model?)")
+    state = dataclasses.replace(
+        template, params=got["params"], buffers=got["buffers"],
+        mu=got["mu"], nu=got["nu"], count=got["count"],
+        lr_epoch=got["lr_epoch"], rng=got["rng"])
+    return state, int(manifest["global_epoch"])

@@ -25,10 +25,11 @@ NOT_PORTED = {
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
     "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
     "stream_chunk_steps": (0, "A.3 (streamed input pipeline)"),
-    "checkpoint_dir": ("", "A.9 (checkpoint engine)"),
     "chaos": ("", "A.11 (elastic membership + chaos)"),
     "sim_workers": (0, "A.11 (scenario lab)"),
     "num_slices": (1, "A.11 (hierarchical two-level sync)"),
+    "serve_draft_ckpt": ("", "A.10b (speculative decoding)"),
+    "serve_spec_tokens": (0, "A.10b (speculative decoding)"),
 }
 
 
@@ -87,6 +88,27 @@ class Config:
     num_experts: int = 0          # > 0 => Switch-MoE FFN in every block
     expert_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01  # load-balance aux loss coefficient
+    # checkpoints (JAX config.py:70-80; checkpoint.py)
+    checkpoint_dir: str = ""      # empty => checkpointing off
+    checkpoint_every: int = 0     # global epochs between checkpoints
+    ckpt_async: bool = True       # the writer thread; False = inline
+    ckpt_keep: int = 3            # committed checkpoints kept by the prune
+    resume: bool = False
+    # `main serve` (JAX config.py:330-369; serve/): the model comes from
+    # the checkpoint's MANIFEST metadata
+    serve_max_batch: int = 4      # decode slots (the fixed decode shape)
+    serve_page_size: int = 16     # tokens per KV-cache page
+    serve_max_pages: int = 64     # page-pool size (page 0 = trash page)
+    serve_prompt_buckets: str = "16,64"  # prefill lengths, csv
+    serve_eos_id: int = -1        # sampling this id evicts (-1 = off)
+    serve_max_new_tokens: int = 16  # per-request generation budget
+    serve_temperature: float = 0.0  # 0 = greedy
+    serve_requests: int = 8       # synthetic requests when no prompt given
+    serve_prompt: str = ""        # fixed prompt (csv token ids) for all
+    serve_request_timeout: float = 0.0  # seconds an admitted request may
+    #                                     run before eviction (0 = off)
+    serve_prefix_cache: bool = False    # content-addressed prompt pages
+    serve_prefill_chunk: int = 0  # > 0: one [1, C] prefill program
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     sync_mode: str = "auto"
@@ -97,10 +119,11 @@ class Config:
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
     stream_chunk_steps: int = 0
-    checkpoint_dir: str = ""
     chaos: str = ""
     sim_workers: int = 0
     num_slices: int = 1
+    serve_draft_ckpt: str = ""
+    serve_spec_tokens: int = 0
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -152,6 +175,88 @@ class Config:
             raise ValueError(
                 f"--batch_size {self.batch_size} must be divisible by "
                 f"--grad_accum {self.grad_accum} (microbatch split)")
+        self._check_checkpoint_and_serve()
+
+    def _check_checkpoint_and_serve(self) -> None:
+        """The JAX config's checks of the checkpoint and serve flags
+        (``config.py:572-585, 588-660``)."""
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
+        if self.checkpoint_every > 0 and not self.checkpoint_dir:
+            raise ValueError(
+                "--checkpoint_every needs --checkpoint_dir (nowhere to "
+                "write the shards)")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError(
+                "--resume needs --checkpoint_dir (nowhere to restore from)")
+        if self.ckpt_keep < 1:
+            raise ValueError(
+                f"ckpt_keep must be >= 1, got {self.ckpt_keep}")
+        if self.serve_max_batch < 1 or self.serve_page_size < 1:
+            raise ValueError(
+                f"serve_max_batch ({self.serve_max_batch}) and "
+                f"serve_page_size ({self.serve_page_size}) must be >= 1")
+        if self.serve_max_pages < 2:
+            raise ValueError(
+                f"serve_max_pages must be >= 2 (page 0 is the reserved "
+                f"trash page), got {self.serve_max_pages}")
+        if self.serve_max_new_tokens < 1 or self.serve_requests < 1:
+            raise ValueError(
+                "serve_max_new_tokens and serve_requests must be >= 1, "
+                f"got {self.serve_max_new_tokens}/{self.serve_requests}")
+        if self.serve_temperature < 0.0:
+            raise ValueError(
+                f"serve_temperature must be >= 0 (0 = greedy), got "
+                f"{self.serve_temperature}")
+        if self.serve_request_timeout < 0.0:
+            raise ValueError(
+                f"serve_request_timeout must be >= 0 (0 = off), got "
+                f"{self.serve_request_timeout}")
+        if self.serve_prefill_chunk < 0 or (
+                self.serve_prefill_chunk
+                and self.serve_prefill_chunk % self.serve_page_size):
+            raise ValueError(
+                f"--serve_prefill_chunk must be a positive multiple of "
+                f"--serve_page_size ({self.serve_page_size}) — chunk "
+                f"boundaries must land on page boundaries so every chunk "
+                f"writes whole pages (and the prefix cache can key them) "
+                f"— got {self.serve_prefill_chunk}; 0 disables chunking")
+        buckets = self.parse_prompt_buckets()   # validates the csv eagerly
+        if self.serve_prefix_cache:
+            # one max-length sequence (largest bucket + max_new) pinning
+            # the whole pool leaves no page to keep cached
+            longest = buckets[-1] + self.serve_max_new_tokens
+            seq_pages = -(-longest // self.serve_page_size)
+            if seq_pages >= self.serve_max_pages - 1:
+                raise ValueError(
+                    f"--serve_prefix_cache needs page-pool headroom "
+                    f"beyond one max-length sequence: a {longest}-token "
+                    f"sequence (largest bucket {buckets[-1]} + "
+                    f"serve_max_new_tokens {self.serve_max_new_tokens}) "
+                    f"pins {seq_pages} of the {self.serve_max_pages - 1} "
+                    f"usable pages (page 0 is the trash page), so no "
+                    f"page could ever stay cached — raise "
+                    f"--serve_max_pages past {seq_pages + 1}")
+
+    def parse_prompt_buckets(self) -> tuple[int, ...]:
+        """``--serve_prompt_buckets`` as ascending unique lengths."""
+        out = []
+        for part in self.serve_prompt_buckets.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            try:
+                out.append(int(part))
+            except ValueError:
+                raise ValueError(
+                    f"serve_prompt_buckets must be comma-separated "
+                    f"integers, got {self.serve_prompt_buckets!r}") from None
+        if not out or min(out) < 1:
+            raise ValueError(
+                f"serve_prompt_buckets needs at least one positive "
+                f"length, got {self.serve_prompt_buckets!r}")
+        return tuple(sorted(set(out)))
 
     def parse_remat_policy(self) -> tuple[str, tuple[str, ...]]:
         """``--remat_policy`` as ``(kind, names)``, validated as the JAX
@@ -228,6 +333,24 @@ def build_argparser() -> argparse.ArgumentParser:
                  "out_dir", "log_level"):
         p.add_argument(f"--{name}", type=str, default=getattr(d, name))
     p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--checkpoint_dir", type=str, default=d.checkpoint_dir)
+    p.add_argument("--checkpoint_every", type=int, default=d.checkpoint_every)
+    p.add_argument("--ckpt_async", choices=["on", "off"],
+                   default="on" if d.ckpt_async else "off",
+                   help="a writer thread serializes and commits the shards "
+                        "while training goes on (off: the same path, "
+                        "inline)")
+    p.add_argument("--ckpt_keep", type=int, default=d.ckpt_keep)
+    p.add_argument("--resume", action="store_true")
+    for name in ("serve_max_batch", "serve_page_size", "serve_max_pages",
+                 "serve_eos_id", "serve_max_new_tokens", "serve_requests",
+                 "serve_prefill_chunk"):
+        p.add_argument(f"--{name}", type=int, default=getattr(d, name))
+    for name in ("serve_temperature", "serve_request_timeout"):
+        p.add_argument(f"--{name}", type=float, default=getattr(d, name))
+    for name in ("serve_prompt_buckets", "serve_prompt"):
+        p.add_argument(f"--{name}", type=str, default=getattr(d, name))
+    p.add_argument("--serve_prefix_cache", action="store_true")
     for name, (default, _where) in NOT_PORTED.items():
         p.add_argument(f"--{name}", type=type(default), default=default,
                        help="not ported yet (rejected unless default)")
@@ -239,4 +362,5 @@ def config_from_args(argv: list[str] | None = None) -> Config:
     fields = {f.name for f in dataclasses.fields(Config)}
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw["augment"] = not args.no_augment
+    kw["ckpt_async"] = args.ckpt_async == "on"
     return Config(**kw)

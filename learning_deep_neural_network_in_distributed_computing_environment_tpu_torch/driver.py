@@ -22,10 +22,18 @@ engine trains on its own row.  A float that differed between ranks would
 desynchronise the shards without a sound, so the init and each round's
 partition are checked by a gathered checksum.
 
+With ``--checkpoint_dir`` every rank saves its worker row every
+``--checkpoint_every`` rounds through ``checkpoint.CheckpointEngine`` (the
+JAX package's format), and ``--resume`` restores the newest committed
+epoch and runs only the rounds after it (JAX ``driver.py:799-862``,
+without the chaos and elastic branches).
+
 Returns the reference's metric structures under their original names,
-plus ``step_caps``, ``shard_sizes``, ``round_timings``, the final
-``model``, ``variables`` and ``test`` set, and with several workers the
-round-0 train shards and every rank's final parameter checksum.
+plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
+``ckpt_snapshot_ms``/``ckpt_write_ms``, zero on rounds that save nothing),
+``checkpoint`` (the engine's summary), the final ``model``, ``variables``
+and ``test`` set, and with several workers the round-0 train shards and
+every rank's final parameter checksum.
 """
 
 from __future__ import annotations
@@ -33,14 +41,17 @@ from __future__ import annotations
 import hashlib
 import logging
 import os
+import sys
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt_lib
 from . import comms, mesh
 from . import probe as probe_lib
+from . import weights
 from .config import Config
 from .data import (
     adaptive_partition,
@@ -178,6 +189,48 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     return model.to(memory_format=torch.channels_last)
 
 
+def checkpoint_metadata(cfg: Config, num_classes: int, model) -> dict:
+    """The architecture facts MANIFEST.json carries, with the JAX driver's
+    keys (``driver.py:128-187``), so ``main serve`` rebuilds the model from
+    a checkpoint alone.  The port's layouts are fixed: one stacked layer
+    collection for the transformers (``scan_layers``), replicated
+    parameters, no slices; ``params_leaves`` lists every ``.params`` leaf
+    as [path, per-worker shape, dtype]."""
+    return {"model": cfg.model, "num_classes": int(num_classes),
+            "scan_layers": is_attention_model(cfg.model),
+            "compute_dtype": cfg.compute_dtype,
+            "num_kv_heads": int(cfg.num_kv_heads),
+            "num_experts": int(cfg.num_experts),
+            "capacity_factor": float(cfg.expert_capacity_factor),
+            "dataset": cfg.dataset,
+            "opt_placement": "replicated",
+            "param_residency": "replicated",
+            "sync_bucket_mb": 4.0,
+            "num_slices": 1,
+            "params_leaves": weights.params_leaves(model)}
+
+
+def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
+                      state, group):
+    """The run's checkpoint engine (None without --checkpoint_dir) and,
+    under --resume, the state restored from the newest committed epoch
+    with the epoch to start at."""
+    if not cfg.checkpoint_dir:
+        return None, state, 0
+    ckpt = ckpt_lib.CheckpointEngine(
+        cfg.checkpoint_dir, keep=cfg.ckpt_keep, async_write=cfg.ckpt_async,
+        metadata=checkpoint_metadata(cfg, num_classes, model), group=group)
+    latest = ckpt.latest_checkpoint() if cfg.resume else None
+    if not latest:
+        return ckpt, state, 0
+    # raises, naming both, when the worker count differs from the saved one
+    restored, start = ckpt_lib.restore_checkpoint(
+        latest, engine.checkpoint_state(state))
+    state = engine.load_checkpoint_state(state, restored)
+    log.info("resumed from %s at global epoch %d", latest, start)
+    return ckpt, state, start
+
+
 def _pack(ds, parts, batch: int, caps=None):
     """Worker-stacked [N, S, B, ...] arrays of each worker's (capped) shard,
     padded to the common step budget."""
@@ -203,6 +256,14 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     instead of the measured round walls (not divided by ``epochs_local``),
     as in the JAX driver (tests of the straggler feedback).
     ``progress``: the report lines and the "Global Epochs" bar (rank 0)."""
+    if cfg.serve_prefix_cache or cfg.serve_prefill_chunk:
+        # behaviour switches of the serving fast path: a training run
+        # never runs the serve engine, so refuse them (JAX driver.py:255)
+        raise ValueError(
+            "--serve_prefix_cache/--serve_prefill_chunk configure the "
+            "serving fast path and only apply under `main serve` — the "
+            "training driver never runs the serve engine; drop the flags "
+            "from this run")
     if group is None and mesh.resolve_num_workers(cfg.num_workers,
                                                   cfg.device) > 1:
         raise ValueError(
@@ -230,6 +291,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # device type; the JAX engine tiles one init (train.py:1187-1227)
         _check_same(group, "the initial parameters",
                     comms.checksum(engine.params))
+    ckpt, state, start_epoch = _open_checkpoints(
+        cfg, model, trainset.num_classes, engine, state, group)
 
     # --- probe -> ratios -> initial partition ---------------------------
     sample = to_device(trainset.images[:batch], device)
@@ -259,89 +322,114 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     }
     if group is not None:
         results["initial_train_shards"] = [p.copy() for p in train_parts]
-    epochs = range(cfg.epochs_global)
+    epochs = range(start_epoch, cfg.epochs_global)
     pbar = None
     if progress:
         try:  # the reference's global-epoch bar (trainer.py:27,174)
             from tqdm import tqdm
-            pbar = tqdm(epochs, desc="Global Epochs",
+            pbar = tqdm(epochs, desc="Global Epochs", initial=start_epoch,
                         total=cfg.epochs_global)
             epochs = pbar
         except ImportError:
             pass
     walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
     sync_bytes = 4 * sum(p.numel() for p in engine.params)
-    for epoch in epochs:
-        # straggler protocol: per-worker step cap from the sec/batch EMA
-        # and the time_limit budget
-        caps = [budget_from_time_limit(int(np.ceil(len(p) / batch)),
-                                       float(sec_per_batch[i]),
-                                       cfg.time_limit)
-                for i, p in enumerate(train_parts)]
-        steps_run = np.array([min(int(np.ceil(len(p) / batch)), caps[i])
-                              for i, p in enumerate(train_parts)],
-                             np.float64)
-        if group is not None:
-            _check_same(group, f"round {epoch}'s partition",
-                        _partition_digest(train_parts, val_parts, caps))
-        train_pack = _pack(trainset, train_parts, batch, caps)
-        val_pack = _pack(valset, val_parts, batch)
-        t0 = time.perf_counter()
-        state, mx = engine.round(state, train_pack, val_pack)
-        wall = time.perf_counter() - t0
-        _assemble_round_metrics(results, mx, n)
-        results["step_caps"].append(caps)
-        results["shard_sizes"].append([len(p) for p in train_parts])
-        timing = {
-            "epoch": epoch, "compute_ms": wall * 1e3,
-            "train_ms": mx["train_ms"], "train_steps": mx["train_steps"],
-            "val_steps": mx["val_steps"]}
-        if group is not None:
-            timing.update(
-                {k: mx[k] for k in mx if k.startswith("workers_")},
-                sync_bytes=sync_bytes, sync_wire_bytes=comms.wire_bytes(
-                    sync_bytes // 4, cfg.topology, n))
-        results["round_timings"].append(timing)
-        if progress:
-            _report(cfg, mx, epoch, wall, results, pbar)
-        if simulated_round_durations is not None:
-            worker_walls = np.asarray(simulated_round_durations(epoch),
-                                      np.float64)
-            if worker_walls.shape != (n,):
-                raise ValueError(
-                    f"simulated_round_durations({epoch}) returned shape "
-                    f"{worker_walls.shape}; the run has {n} workers")
-        else:
-            worker_walls = measured_worker_walls(mx["workers_wall_s"],
-                                                 cfg.epochs_local)
-        walls[epoch] = (worker_walls, steps_run)
-        if epoch + 1 == cfg.epochs_global:
-            break
-        # the EMA consumes walls one round late: rounds < epoch
-        for r in sorted(k for k in walls if k < epoch):
-            wall_r, steps_r = walls.pop(r)
-            sec_per_batch = (0.5 * sec_per_batch
-                             + 0.5 * wall_r / np.maximum(steps_r, 1.0))
-        new_ratios = efficiency_ratios(
-            sec_per_batch * np.maximum(steps_run, 1.0), cfg.proportionality)
-        train_parts, val_parts = (
-            [repartition(len(ds), parts[i], new_ratios[i], cfg.prev_fraction,
-                         cfg.next_fraction, rng, replace=disbalanced)
-             for i in range(n)]
-            for ds, parts in ((trainset, train_parts), (valset, val_parts)))
-        if disbalanced:
+    try:
+        for epoch in epochs:
+            # straggler protocol: per-worker step cap from the sec/batch EMA
+            # and the time_limit budget
+            caps = [budget_from_time_limit(int(np.ceil(len(p) / batch)),
+                                           float(sec_per_batch[i]),
+                                           cfg.time_limit)
+                    for i, p in enumerate(train_parts)]
+            steps_run = np.array([min(int(np.ceil(len(p) / batch)), caps[i])
+                                  for i, p in enumerate(train_parts)],
+                                 np.float64)
+            if group is not None:
+                _check_same(group, f"round {epoch}'s partition",
+                            _partition_digest(train_parts, val_parts, caps))
+            train_pack = _pack(trainset, train_parts, batch, caps)
+            val_pack = _pack(valset, val_parts, batch)
+            t0 = time.perf_counter()
+            state, mx = engine.round(state, train_pack, val_pack)
+            wall = time.perf_counter() - t0
+            _assemble_round_metrics(results, mx, n)
+            results["step_caps"].append(caps)
+            results["shard_sizes"].append([len(p) for p in train_parts])
+            timing = {
+                "epoch": epoch, "compute_ms": wall * 1e3,
+                "train_ms": mx["train_ms"], "train_steps": mx["train_steps"],
+                "val_steps": mx["val_steps"], "ckpt_snapshot_ms": 0.0,
+                "ckpt_write_ms": 0.0}
+            if group is not None:
+                timing.update(
+                    {k: mx[k] for k in mx if k.startswith("workers_")},
+                    sync_bytes=sync_bytes, sync_wire_bytes=comms.wire_bytes(
+                        sync_bytes // 4, cfg.topology, n))
+            results["round_timings"].append(timing)
+            if ckpt is not None:
+                if group is not None:
+                    # publish the previous save's manifest now, in the
+                    # same order on every rank (JAX driver.py:1764-1776)
+                    ckpt.wait()
+                if (cfg.checkpoint_every
+                        and (epoch + 1) % cfg.checkpoint_every == 0):
+                    ckpt.save(engine.checkpoint_state(state), epoch + 1,
+                              timing=timing)
+            if progress:
+                _report(cfg, mx, epoch, wall, results, pbar)
+            if simulated_round_durations is not None:
+                worker_walls = np.asarray(simulated_round_durations(epoch),
+                                          np.float64)
+                if worker_walls.shape != (n,):
+                    raise ValueError(
+                        f"simulated_round_durations({epoch}) returned shape "
+                        f"{worker_walls.shape}; the run has {n} workers")
+            else:
+                worker_walls = measured_worker_walls(mx["workers_wall_s"],
+                                                     cfg.epochs_local)
+            walls[epoch] = (worker_walls, steps_run)
+            if epoch + 1 == cfg.epochs_global:
+                break
+            # the EMA consumes walls one round late: rounds < epoch
+            for r in sorted(k for k in walls if k < epoch):
+                wall_r, steps_r = walls.pop(r)
+                sec_per_batch = (0.5 * sec_per_batch
+                                 + 0.5 * wall_r / np.maximum(steps_r, 1.0))
+            new_ratios = efficiency_ratios(
+                sec_per_batch * np.maximum(steps_run, 1.0),
+                cfg.proportionality)
             train_parts, val_parts = (
-                [skew_repartition(ds.labels, p, fixed_classes[i],
-                                  cfg.fixed_ratio, rng)
-                 for i, p in enumerate(parts)]
+                [repartition(len(ds), parts[i], new_ratios[i],
+                             cfg.prev_fraction, cfg.next_fraction, rng,
+                             replace=disbalanced)
+                 for i in range(n)]
                 for ds, parts in ((trainset, train_parts),
                                   (valset, val_parts)))
+            if disbalanced:
+                train_parts, val_parts = (
+                    [skew_repartition(ds.labels, p, fixed_classes[i],
+                                      cfg.fixed_ratio, rng)
+                     for i, p in enumerate(parts)]
+                    for ds, parts in ((trainset, train_parts),
+                                      (valset, val_parts)))
+    finally:
+        # success: drain the write in flight (N workers: the deferred
+        # commit runs here, on every rank) and release the writer; while
+        # unwinding: join the writer without the collective commit
+        if ckpt is not None:
+            if sys.exc_info()[0] is None:
+                ckpt.close()
+            else:
+                ckpt.abort()
     if pbar is not None:
         pbar.close()
     if group is not None:
         results["param_checksums"] = mesh.all_gather(
             group, comms.checksum(engine.params))
 
+    results["checkpoint"] = (ckpt.summary() if ckpt is not None
+                             else {"enabled": False})
     results["state"] = state
     results["variables"] = engine.rank0_variables()
     results["model"] = model

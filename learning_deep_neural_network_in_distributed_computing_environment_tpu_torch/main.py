@@ -1,8 +1,10 @@
 """CLI entry point of the PyTorch port (JAX package: ``main.py:21-55``).
 
-Run flow: config -> ``train_global`` (probe, partition, local-SGD rounds)
--> rank-0 test evaluation with P/R/F1 -> the six plots.  Runs on CUDA
-unless ``--device cpu`` is given.
+Run flow: config -> ``train_global`` (probe, partition, local-SGD rounds;
+checkpoints with ``--checkpoint_dir``, ``--resume``) -> rank-0 test
+evaluation with P/R/F1 -> the six plots.  ``main serve --checkpoint_dir
+D`` instead serves requests off a checkpoint (``serve/api.py``).  Runs on
+CUDA unless ``--device cpu`` is given.
 
 With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
 worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
@@ -16,6 +18,11 @@ Examples::
         --model gpt2_small --dataset synthetic_lm --attention_impl flash
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --num_workers 4 --aggregation_by weights --topology double_ring
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --model gpt2_small --dataset synthetic_lm --attention_impl flash \
+        --checkpoint_dir ckpt --checkpoint_every 1
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        serve --checkpoint_dir ckpt --serve_max_batch 8
 """
 
 from __future__ import annotations
@@ -26,12 +33,12 @@ import sys
 
 def run(argv=None) -> dict:
     """Train, evaluate and plot; returns the driver's results with the test
-    evaluation under ``results["test_eval"]``."""
+    evaluation under ``results["test_eval"]``.  ``serve ...`` serves off a
+    checkpoint instead and returns ``serve.api.run_serve``'s result."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
-        raise NotImplementedError(
-            "`main serve` is not ported to the PyTorch package yet; serving "
-            "arrives with ROADMAP queue A.10")
+        from .serve.api import serve_main
+        return serve_main(argv[1:])
     from .config import config_from_args
     cfg = config_from_args(argv)
     logging.basicConfig(

@@ -1,0 +1,288 @@
+"""``ServeEngine``: the paged KV pools, the two fixed-shape device programs
+and the checkpoint loader of the serving stack (port of the JAX package's
+``serve/engine.py``, without the speculative pair, ROADMAP queue A.10b).
+
+The programs, each one shape:
+
+- **prefill** — one shape per prompt-length bucket, ``[1, bucket]`` tokens
+  at a cache offset (0 for a cold prompt, the hit length when a
+  prefix-cache hit leaves only the tail).  The padding rows write to the
+  trash page; the logits are taken at the last real position.  With
+  ``prefill_chunk=C`` one ``[1, C]`` chunk program replaces the buckets.
+- **decode** — one ``[max_batch, 1]`` step advancing every active slot a
+  token; inactive rows write to the trash page.
+
+PyTorch runs them eagerly: there is no compile to count, so the engine
+records the distinct ``(program, shape)`` pairs it dispatched
+(``programs``), the counterpart of the JAX engine's zero-retrace gate, and
+refuses a call of another shape.
+
+``from_checkpoint`` builds the model from a checkpoint's MANIFEST
+metadata and loads worker 0's ``params`` row, one shard file at a time
+with the manifest's size and crc32 checks, so the other workers' rows and
+the optimizer state never become tensors.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import checkpoint as ckpt_lib
+from .. import weights
+from ..models import decode as D
+from ..models import get_model
+from ..utils.batching import pad_to_bucket, pick_bucket
+from .cache import PageAllocator, page_table_row, pages_needed
+
+log = logging.getLogger(__name__)
+
+
+def load_params_row0(path: str, model) -> None:
+    """Load worker 0's row of a committed sharded epoch's ``.params``
+    leaves into ``model`` (strictly: every parameter, no other)."""
+    manifest = ckpt_lib.read_manifest(path)
+    if not manifest:
+        raise FileNotFoundError(f"no committed manifest under {path}")
+    row = ckpt_lib.load_row(path, manifest, 0,
+                            keep=lambda k: k.startswith(".params["))
+    if not row:
+        raise ValueError(f"checkpoint {path} has no params leaves")
+    sd = weights.params_from_jax_leaves(row, weights.state_layout(model))
+    device = next(model.parameters()).device
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           .to(device) for k, v in sd.items()}, strict=True)
+
+
+def manifest_num_classes(path: str) -> Optional[int]:
+    """The vocabulary from the manifest's ``.params['tok_emb']['embedding']``
+    shape ``[workers, vocab, hidden]``: the fallback that serves a
+    metadata-less checkpoint under an explicit ``--model``."""
+    manifest = ckpt_lib.read_manifest(path)
+    info = (manifest or {}).get("leaves", {}).get(
+        ".params['tok_emb']['embedding']")
+    if not info or len(info.get("shape", ())) != 3:
+        return None
+    return int(info["shape"][1])
+
+
+def model_from_metadata(meta: dict, device=None):
+    """The serving model rebuilt from a checkpoint's manifest metadata."""
+    name = meta.get("model", "")
+    if not name.startswith(("gpt", "llama")):
+        raise ValueError(
+            f"checkpoint was trained with --model {name!r}; serving "
+            "supports the autoregressive families (gpt_*/llama_*)")
+    if not meta.get("scan_layers", False):
+        raise ValueError(
+            "checkpoint was saved with an unrolled (non-layer-scan) "
+            "parameter layout; serving decodes over the stacked stack — "
+            "retrain/save with --layer_scan auto|on")
+    dtype = (torch.bfloat16 if meta.get("compute_dtype") == "bfloat16"
+             else torch.float32)
+    kw: dict[str, Any] = dict(num_classes=int(meta["num_classes"]),
+                              dtype=dtype, device=device)
+    if meta.get("num_kv_heads"):
+        kw["num_kv_heads"] = int(meta["num_kv_heads"])
+    if meta.get("num_experts"):
+        kw["num_experts"] = int(meta["num_experts"])
+        kw["capacity_factor"] = float(meta.get("capacity_factor", 1.25))
+    return get_model(name, **kw)
+
+
+def resolve_checkpoint(ckpt_dir: str) -> str:
+    """A committed ``ckpt_<E>`` directory: ``ckpt_dir`` itself, or the
+    newest one under it."""
+    if os.path.isfile(os.path.join(ckpt_dir, ckpt_lib.MANIFEST)):
+        return ckpt_dir
+    path = ckpt_lib.latest_checkpoint(ckpt_dir)
+    if path is None:
+        raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+    if not os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a legacy single-file checkpoint; serving loads the "
+            "sharded (format 2) layout (the legacy restore is the rest of "
+            "ROADMAP queue A.9)")
+    return path
+
+
+class ServeEngine:
+    """Paged-KV inference engine for one model (its parameters where the
+    module holds them).  ``max_seq`` bounds the positions a sequence may
+    reach (page-table width ``ceil(max_seq / page_size)``); defaults to
+    twice the largest prompt bucket.  The continuous-batching policy
+    lives in ``serve.scheduler``."""
+
+    def __init__(self, model, *, max_batch: int = 4, page_size: int = 16,
+                 max_pages: int = 64, prompt_buckets=(16, 64),
+                 max_seq: Optional[int] = None, seed: int = 0,
+                 prefix_cache: bool = False, prefill_chunk: int = 0):
+        self.spec = D.spec_from_model(model)
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        if page_size < 1 or max_batch < 1:
+            raise ValueError(
+                f"page_size ({page_size}) and max_batch ({max_batch}) "
+                "must be >= 1")
+        buckets = tuple(sorted(set(int(b) for b in prompt_buckets)))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(
+                f"prompt_buckets must be positive lengths, got "
+                f"{prompt_buckets}")
+        self.prompt_buckets = buckets
+        self.max_batch = int(max_batch)
+        self.page_size = int(page_size)
+        self.max_seq = int(max_seq) if max_seq else 2 * buckets[-1]
+        if self.max_seq < buckets[-1]:
+            raise ValueError(
+                f"max_seq {self.max_seq} below the largest prompt bucket "
+                f"{buckets[-1]}")
+        if self.spec.max_len and self.max_seq > self.spec.max_len:
+            raise ValueError(
+                f"max_seq {self.max_seq} exceeds the model's position "
+                f"table ({self.spec.max_len})")
+        self.pages_per_seq = pages_needed(self.max_seq, self.page_size)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0 or (self.prefill_chunk
+                                      and self.prefill_chunk
+                                      % self.page_size):
+            raise ValueError(
+                f"prefill_chunk must be a positive multiple of page_size "
+                f"({self.page_size}) so chunk boundaries land on page "
+                f"boundaries, got {self.prefill_chunk}")
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache and self.pages_per_seq >= max_pages - 1:
+            raise ValueError(
+                f"prefix_cache needs page-pool headroom beyond one "
+                f"max-length sequence: a {self.max_seq}-token sequence "
+                f"pins {self.pages_per_seq} of the {max_pages - 1} usable "
+                f"pages (page 0 is the trash page), so nothing could ever "
+                f"stay cached — raise max_pages")
+        self.allocator = PageAllocator(max_pages)
+        self.seed = int(seed)
+        self.kcache, self.vcache = D.init_paged_cache(
+            self.spec, max_pages, self.page_size, self.device)
+        self.compiled_buckets: list[int] = []
+        self.programs: set[tuple[str, tuple[int, ...]]] = set()
+
+    # -- construction from a sharded checkpoint ------------------------
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, *, model=None, device=None,
+                        **engine_kw) -> "ServeEngine":
+        """The engine off a checkpoint root or one committed ``ckpt_<E>``
+        directory: the architecture from the manifest metadata (``model=``
+        only for metadata-less checkpoints), worker 0's params streamed
+        onto ``device`` (default: the card)."""
+        path = resolve_checkpoint(ckpt_dir)
+        meta = ckpt_lib.manifest_metadata(path)
+        if meta.get("param_residency") == "resident":
+            raise ValueError(
+                f"checkpoint {path} stores scatter-resident parameters; "
+                "serving them arrives with ROADMAP queue A.8")
+        if device is None:
+            from ..mesh import worker_device
+            device = worker_device(0, None)
+        if model is None:
+            if not meta:
+                raise ValueError(
+                    f"checkpoint {path} carries no serve metadata (saved "
+                    "by a pre-metadata engine?) — pass model= explicitly")
+            model = model_from_metadata(meta, device)
+        load_params_row0(path, model)
+        log.info("serve: restored %s params from %s onto %s",
+                 meta.get("model") or type(model).__name__, path,
+                 next(model.parameters()).device)
+        return cls(model, **engine_kw)
+
+    # -- page math -----------------------------------------------------
+    def pages_for(self, total_tokens: int) -> int:
+        return pages_needed(total_tokens, self.page_size)
+
+    def page_bytes(self) -> int:
+        """Bytes one page pins across both pools and every layer."""
+        itemsize = torch.empty((), dtype=self.spec.dtype).element_size()
+        return (2 * self.spec.num_layers * self.page_size
+                * self.spec.num_kv_heads * self.spec.head_dim * itemsize)
+
+    def table_row(self, pages: list[int]) -> np.ndarray:
+        return page_table_row(pages, self.pages_per_seq)
+
+    # -- the programs --------------------------------------------------
+    def _dispatch(self, program: str, shape: tuple, want: tuple) -> None:
+        if tuple(shape) != tuple(want):
+            raise ValueError(f"{program} takes shape {want}, got {shape}")
+        self.programs.add((program, tuple(int(d) for d in want)))
+
+    def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+
+    @torch.inference_mode()
+    def _span(self, tokens: np.ndarray, nvalid: int, offset: int,
+              page_row: np.ndarray, temperature: float, rid: int
+              ) -> tuple[int, torch.Tensor]:
+        """Prefill ``nvalid`` tokens of ``tokens [1, T]`` at cache position
+        ``offset``; the token is drawn at position ``offset + nvalid``,
+        the first generated position when the span ends the prompt."""
+        logits = D.forward_paged(
+            self.spec, self.model, self._tensor(tokens),
+            self._tensor([offset]), self._tensor([nvalid]),
+            self._tensor(page_row[None]), self.kcache, self.vcache)
+        last = logits[0, nvalid - 1]
+        nxt = D.sample_tokens(last[None], [temperature], [rid],
+                              [offset + nvalid], self.seed)
+        return int(nxt[0]), last
+
+    def prefill(self, prompt, page_row: np.ndarray, temperature: float,
+                rid: int, *, offset: int = 0) -> tuple[int, torch.Tensor]:
+        """One prompt span through the prefill program at its bucket shape
+        from cache position ``offset``; returns (first sampled token, the
+        last position's logits on the device)."""
+        prompt = np.asarray(prompt, np.int32)
+        plen = int(prompt.shape[0])
+        bucket = pick_bucket(plen, self.prompt_buckets)
+        if bucket not in self.compiled_buckets:
+            self.compiled_buckets.append(bucket)
+        padded = pad_to_bucket(prompt, bucket)[None]
+        self._dispatch("prefill", padded.shape, (1, bucket))
+        return self._span(padded, plen, offset, page_row, temperature, rid)
+
+    def prefill_chunk_step(self, chunk, offset: int, page_row: np.ndarray,
+                           temperature: float, rid: int
+                           ) -> tuple[int, torch.Tensor]:
+        """Advance one prompt by one ``[1, prefill_chunk]`` chunk at cache
+        position ``offset``; the final chunk's token is drawn where the
+        monolithic prefill draws it."""
+        if not self.prefill_chunk:
+            raise RuntimeError("engine built without prefill_chunk")
+        chunk = np.asarray(chunk, np.int32)
+        nvalid = int(chunk.shape[0])
+        if not 0 < nvalid <= self.prefill_chunk:
+            raise ValueError(
+                f"chunk of {nvalid} tokens outside (0, "
+                f"{self.prefill_chunk}]")
+        padded = pad_to_bucket(chunk, self.prefill_chunk)[None]
+        self._dispatch("prefill_chunk", padded.shape,
+                       (1, self.prefill_chunk))
+        return self._span(padded, nvalid, offset, page_row, temperature,
+                          rid)
+
+    @torch.inference_mode()
+    def decode(self, tokens, lengths, page_table, temps, rids, active
+               ) -> tuple[np.ndarray, torch.Tensor]:
+        """One batched decode step at the ``[max_batch, 1]`` shape; rows
+        with ``active == 0`` write to the trash page and their outputs are
+        meaningless.  Returns (next tokens [B] on the host, logits
+        [B, vocab] on the device)."""
+        tokens = np.asarray(tokens, np.int32)
+        lengths = np.asarray(lengths, np.int32)
+        self._dispatch("decode", (*tokens.shape, 1), (self.max_batch, 1))
+        logits = D.forward_paged(
+            self.spec, self.model, self._tensor(tokens[:, None]),
+            self._tensor(lengths), self._tensor(np.asarray(active, np.int32)),
+            self._tensor(page_table), self.kcache, self.vcache)[:, 0]
+        nxt = D.sample_tokens(logits, temps, rids, lengths + 1, self.seed)
+        return nxt.cpu().numpy(), logits

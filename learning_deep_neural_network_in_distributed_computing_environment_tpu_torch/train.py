@@ -149,14 +149,36 @@ def worker_seed(seed: int, rank: int) -> int:
         1, np.uint64)[0])
 
 
+def seed_words(seed: int) -> np.ndarray:
+    """A 64-bit seed as the uint32[2] (low, high) the checkpoint's ``.rng``
+    leaf holds (the JAX package keeps its raw PRNG key there)."""
+    return np.array([seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF],
+                    np.uint32)
+
+
+def round_seed(rng: np.ndarray, lr_epoch: int) -> int:
+    """The augmentation generator's seed for a round that starts after
+    ``lr_epoch`` local epochs: the worker's seed itself for the first
+    round, a ``SeedSequence`` of (seed words, lr_epoch) after it.  The
+    stream is a function of the checkpointed state alone, so a resumed
+    run draws what the uninterrupted run drew."""
+    lo, hi = (int(w) for w in np.asarray(rng, np.uint32).reshape(2))
+    if lr_epoch == 0:
+        return lo | (hi << 32)
+    return int(np.random.SeedSequence([lo, hi, int(lr_epoch)])
+               .generate_state(1, np.uint64)[0])
+
+
 @dataclasses.dataclass
 class TrainState:
-    """One worker's state between rounds.  The parameters live in the
-    engine's module; this holds what the JAX ``TrainState`` carries beside
-    them for this slice: the Adam moments and the StepLR clock."""
+    """One worker's state between rounds.  The parameters (and BatchNorm
+    statistics) live in the engine's module; this holds what the JAX
+    ``TrainState`` carries beside them: the Adam moments, the StepLR clock
+    and the seed words of the worker's augmentation stream."""
 
     opt: Adam
     lr_epoch: int = 0            # local epochs completed (StepLR clock)
+    rng: Optional[np.ndarray] = None   # uint32[2] (``seed_words``)
 
 
 class LocalSGDEngine:
@@ -172,13 +194,45 @@ class LocalSGDEngine:
         self.group = group
         self.rank = 0 if group is None else group.rank
         self.n_workers = 1 if group is None else group.world_size
+        self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for p in model.parameters()]
-        # the augmentation draws: one stream per worker, on its device
-        self.generator = torch.Generator(device=device).manual_seed(
-            worker_seed(cfg.seed, self.rank))
+        # the augmentation draws: one stream per worker, on its device,
+        # seeded at each round from the state (``round_seed``)
+        self.generator = torch.Generator(device=device)
 
     def init_state(self) -> TrainState:
-        return TrainState(opt=Adam(self.params))
+        return TrainState(opt=Adam(self.params),
+                          rng=seed_words(worker_seed(self.cfg.seed,
+                                                     self.rank)))
+
+    def checkpoint_state(self, state: TrainState):
+        """The live tensors of ``state`` as a ``checkpoint.WorkerState``
+        (the checkpoint engine snapshots them)."""
+        from .checkpoint import WorkerState
+        from .weights import state_layout
+        return WorkerState(
+            params=dict(zip(self.names, self.params)),
+            buffers=dict(self.model.named_buffers()),
+            mu=dict(zip(self.names, state.opt.mu)),
+            nu=dict(zip(self.names, state.opt.nu)),
+            count=state.opt.count, lr_epoch=state.lr_epoch, rng=state.rng,
+            layout=state_layout(self.model), worker=self.rank,
+            n_workers=self.n_workers)
+
+    @torch.no_grad()
+    def load_checkpoint_state(self, state: TrainState, restored
+                              ) -> TrainState:
+        """Copy a restored ``checkpoint.WorkerState`` (host arrays) into
+        the module and ``state``; returns ``state``."""
+        live = self.checkpoint_state(state)
+        for part in ("params", "buffers", "mu", "nu"):
+            src = getattr(restored, part)
+            for name, t in getattr(live, part).items():
+                t.copy_(torch.from_numpy(np.ascontiguousarray(src[name])))
+        state.opt.count = int(restored.count)
+        state.lr_epoch = int(restored.lr_epoch)
+        state.rng = np.asarray(restored.rng, np.uint32).reshape(2)
+        return state
 
     def rank0_variables(self) -> dict[str, torch.Tensor]:
         """Worker 0's parameters by ``state_dict`` name (detached)."""
@@ -250,6 +304,7 @@ class LocalSGDEngine:
         ``workers_*``."""
         cfg = self.cfg
         t_round = time.perf_counter()
+        self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
         x, y, m, real = self._to_device(train_pack)
         xv, yv, mv, real_v = self._to_device(val_pack)
         augment = cfg.augment and x.ndim == 5       # [S, B, H, W, C]

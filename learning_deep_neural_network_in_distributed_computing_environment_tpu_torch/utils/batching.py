@@ -1,10 +1,17 @@
-"""Static-shape batching for the final evaluation (a copy of the JAX
-package's ``utils/batching.py:24-45``): the last ragged batch pads by
-repeating the final real example and the mask zeroes its loss, metric and
-prediction contributions, so tail examples cannot skew the metrics.
+"""Static-shape batching shared by the final evaluation and the serving
+engine (a copy of the JAX package's ``utils/batching.py``):
+
+- ``pad_to_batches`` — the last ragged batch pads by repeating the final
+  real example and the mask zeroes its loss, metric and prediction
+  contributions, so tail examples cannot skew the metrics;
+- ``pick_bucket`` / ``pad_to_bucket`` — prompt-length bucketing for the
+  serve prefill: a prompt runs at the smallest covering bucket, so the
+  engine dispatches one prefill shape per bucket, not per prompt length.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -31,3 +38,28 @@ def pad_to_batches(x: np.ndarray, y: np.ndarray, batch_size: int
     xs = np.take(x, take, axis=0).reshape(steps, batch_size, *x.shape[1:])
     ys = np.take(y, take, axis=0).reshape(steps, batch_size, *y.shape[1:])
     return xs, ys, mask.reshape(steps, batch_size)
+
+
+def pick_bucket(length: int, buckets: Sequence[int]) -> int:
+    """The smallest bucket covering ``length`` (buckets ascending)."""
+    for b in buckets:
+        if length <= b:
+            return int(b)
+    raise ValueError(
+        f"prompt length {length} exceeds the largest bucket "
+        f"{max(buckets)} — extend --serve_prompt_buckets")
+
+
+def pad_to_bucket(ids: np.ndarray, bucket: int, fill: int = 0
+                  ) -> np.ndarray:
+    """``ids [n]`` right-padded with ``fill`` to ``[bucket]`` (int32).  The
+    prefill routes the padding rows' cache writes to the trash page by its
+    valid count, so ``fill`` only needs to be a legal token id."""
+    ids = np.asarray(ids, np.int32)
+    if ids.ndim != 1 or len(ids) > bucket:
+        raise ValueError(
+            f"pad_to_bucket needs a 1-D prompt of <= {bucket} ids, got "
+            f"shape {ids.shape}")
+    out = np.full(bucket, fill, np.int32)
+    out[:len(ids)] = ids
+    return out

@@ -19,6 +19,16 @@ their head axes (``qkv`` [hidden, 3, H, Dh] <-> [3*H*Dh, hidden], ``out``
 [H, Dh, hidden] <-> [hidden, H*Dh]).  Both directions only transpose and
 reshape, so a round trip is exact, for the image models too.
 
+The whole train state (``state_to_jax_leaves`` / ``state_from_jax_leaves``)
+goes by the key paths of the JAX package's checkpoints
+(``jax.tree_util.keystr`` of its ``TrainState``, dict keys sorted as
+``tree_flatten`` sorts them): ``.params[...]`` (transformers in the stacked
+``layers/layer`` layout, ``--layer_scan auto``), ``.batch_stats[...]``,
+optax Adam's ``.opt_state.count`` (int32) and ``.opt_state.mu[...]`` /
+``.opt_state.nu[...]`` (each moment laid out like its parameter),
+``.lr_epoch`` (int32) and ``.rng`` (uint32[2]).  These are one worker's
+rows; the checkpoint adds the leading worker axis.
+
 The transformer family follows from the leaves present: GPT has
 LayerNorms (``ln1``, ``ln2``, ``ln_f``), a position table and FFN biases;
 Llama has RMSNorms (``rms1``, ``rms2``, ``rms_f``), a SwiGLU ``ffn_up``
@@ -34,6 +44,7 @@ their layout.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -262,3 +273,123 @@ def _count_unrolled(params: dict) -> int:
     while f"layer{n}" in params:
         n += 1
     return n
+
+
+# ----------------------------------------------------------------------
+# The whole train state by JAX checkpoint key path
+# ----------------------------------------------------------------------
+
+_COLLECTION = re.compile(
+    r"^\.(params|batch_stats|opt_state\.mu|opt_state\.nu)((?:\['[^']*'\])+)$")
+_SEGMENT = re.compile(r"\['([^']*)'\]")
+SCALAR_KEYS = (".opt_state.count", ".lr_epoch", ".rng")
+
+
+def state_layout(model) -> dict:
+    """Which conversion a model's tensors take: the transformer families
+    carry ``num_heads`` (and Llama ``num_kv_heads``), the image models
+    neither."""
+    if hasattr(model, "num_heads"):
+        return {"kind": "transformer", "num_heads": int(model.num_heads),
+                "num_kv_heads": int(getattr(model, "num_kv_heads", 0) or 0)}
+    return {"kind": "image"}
+
+
+def _flax_collections(tensors: dict, layout: dict) -> dict:
+    """Port tensors by ``state_dict`` name -> {"params": tree,
+    "batch_stats": tree} of numpy arrays."""
+    if layout["kind"] == "transformer":
+        return {"params": torch_to_flax(
+            tensors, num_heads=layout["num_heads"],
+            num_kv_heads=layout["num_kv_heads"], stacked=True)}
+    return cnn_torch_to_flax(tensors)
+
+
+def _keyed(prefix: str, tree) -> list[tuple[str, np.ndarray]]:
+    """(key path, leaf) in ``jax.tree_util`` flatten order (sorted keys)."""
+    out = []
+    for k in sorted(tree):
+        v, key = tree[k], f"{prefix}['{k}']"
+        out.extend(_keyed(key, v) if isinstance(v, Mapping) else [(key, v)])
+    return out
+
+
+def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
+                        count: int, lr_epoch: int, rng, layout: dict
+                        ) -> dict[str, np.ndarray]:
+    """One worker's train state -> ``{JAX key path: numpy row}``, in the
+    JAX package's flatten order.  ``params``/``buffers``/``mu``/``nu`` map
+    ``state_dict`` names to tensors or arrays (host); ``rng`` is uint32[2]."""
+    main = _flax_collections({**params, **buffers}, layout)
+    moments = [_flax_collections(m, layout)["params"] for m in (mu, nu)]
+    leaves = dict(_keyed(".params", main["params"]))
+    leaves.update(_keyed(".batch_stats", main.get("batch_stats", {})))
+    leaves[".opt_state.count"] = np.asarray(count, np.int32)
+    leaves.update(_keyed(".opt_state.mu", moments[0]))
+    leaves.update(_keyed(".opt_state.nu", moments[1]))
+    leaves[".lr_epoch"] = np.asarray(lr_epoch, np.int32)
+    leaves[".rng"] = np.asarray(rng, np.uint32).reshape(2)
+    return leaves
+
+
+def _nest(pairs) -> dict:
+    tree: dict = {}
+    for segs, arr in pairs:
+        node = tree
+        for s in segs[:-1]:
+            node = node.setdefault(s, {})
+        node[segs[-1]] = arr
+    return tree
+
+
+def _trees(leaves: dict) -> dict[str, dict]:
+    """``{JAX key path: array}`` -> nested trees by collection (``params``,
+    ``batch_stats``, ``opt_state.mu``, ``opt_state.nu``)."""
+    pairs: dict[str, list] = {}
+    for key, arr in leaves.items():
+        m = _COLLECTION.match(key)
+        if m:
+            pairs.setdefault(m.group(1), []).append(
+                (_SEGMENT.findall(m.group(2)), arr))
+    return {k: _nest(v) for k, v in pairs.items()}
+
+
+def _to_port(params_tree: dict, stats: dict | None, layout: dict) -> dict:
+    if layout["kind"] == "transformer":
+        return flax_to_torch(params_tree)
+    return cnn_flax_to_torch({"params": params_tree,
+                              "batch_stats": stats or {}})
+
+
+def params_from_jax_leaves(leaves: dict, layout: dict
+                           ) -> dict[str, np.ndarray]:
+    """The ``.params[...]`` rows of ``leaves`` -> port parameters by
+    ``state_dict`` name (stacked or unrolled layer layout)."""
+    return _to_port(_trees(leaves).get("params", {}), None, layout)
+
+
+def state_from_jax_leaves(leaves: dict, layout: dict) -> dict:
+    """``{JAX key path: numpy row}`` (stacked or unrolled layer layout) ->
+    ``{"params", "buffers", "mu", "nu"}`` (``state_dict`` name -> numpy
+    array) plus ``count``, ``lr_epoch`` and ``rng``.  Keys outside the
+    TrainState's ``params``/``batch_stats``/``opt_state``/``lr_epoch``/
+    ``rng`` are not read here."""
+    trees = _trees(leaves)
+    sd = _to_port(trees.get("params", {}), trees.get("batch_stats"), layout)
+    return {"params": {k: v for k, v in sd.items() if ".running_" not in k},
+            "buffers": {k: v for k, v in sd.items() if ".running_" in k},
+            "mu": _to_port(trees.get("opt_state.mu", {}), None, layout),
+            "nu": _to_port(trees.get("opt_state.nu", {}), None, layout),
+            "count": int(leaves[".opt_state.count"]),
+            "lr_epoch": int(leaves[".lr_epoch"]),
+            "rng": np.asarray(leaves[".rng"], np.uint32).reshape(2)}
+
+
+def params_leaves(model) -> list:
+    """[[path segments], shape, dtype] of every ``.params`` leaf of one
+    worker (the manifest metadata's ``params_leaves``, JAX
+    ``driver.py:176-186``)."""
+    host = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    tree = _flax_collections(host, state_layout(model))["params"]
+    return [[_SEGMENT.findall(key), [int(d) for d in arr.shape],
+             str(arr.dtype)] for key, arr in _keyed("", tree)]

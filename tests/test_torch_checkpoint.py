@@ -1,0 +1,456 @@
+"""The port's checkpoint engine (``..._torch/checkpoint.py``) in the JAX
+package's format 2, held against the JAX package itself.
+
+- the engine contract, ported from ``tests/test_checkpoint.py``: round
+  trip, async bitwise the blocking write, prune, crash fallback at both
+  crash hooks, a corrupt same-size shard, a missing shard, dtype
+  mismatch, the open-time sweep; and the refusals that name the ROADMAP
+  queues of what is not ported;
+- across frameworks: a checkpoint written by JAX ``train_global``
+  (``gpt_tiny``, ``mlp``) and one with BatchNorm statistics written by JAX
+  ``save_checkpoint`` restore into the port bit for bit; a checkpoint
+  written by the port's ``train_global`` restores into JAX
+  ``restore_checkpoint``, ``host_tree`` and ``ServeEngine.from_checkpoint``
+  bit for bit, with the manifest JAX writes for the same config;
+- two worker processes (gloo) write ``shard_0``/``shard_1`` and one
+  manifest, which JAX ``host_tree`` merges.
+"""
+
+import dataclasses
+import json
+import os
+
+import jax
+import numpy as np
+import optax
+import pytest
+import torch
+
+from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
+    checkpoint as J,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
+    driver as j_driver,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu.config import (
+    Config as JConfig,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu.serve.engine import (
+    ServeEngine as JServeEngine,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu.train import (
+    TrainState as JTrainState,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+    checkpoint as C,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+    driver as t_driver,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+    main as t_main,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+    weights,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
+    Config,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
+    get_model,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.train import (
+    LocalSGDEngine,
+)
+
+# one config for both frameworks: JAX writes, the port writes, each reads
+RUN = dict(dataset="synthetic_lm", epochs_global=1, epochs_local=1,
+           batch_size=8, limit_train_samples=64, limit_eval_samples=16,
+           compute_dtype="float32", augment=False, checkpoint_every=1,
+           seed=3)
+RUNS = {"gpt_tiny": dict(RUN, model="gpt_tiny"),
+        "mlp": dict(RUN, model="mlp", dataset="mnist")}
+
+
+# ----------------------------------------------------------------------
+# helpers
+# ----------------------------------------------------------------------
+
+def _engine_state(seed=0, name="gpt_tiny", **kw):
+    """A tiny port model's engine and train state on the CPU, with the
+    moments, count, clock and seed words off their init."""
+    model = get_model(name, num_classes=97, **kw)
+    model.init_parameters(torch.Generator().manual_seed(seed))
+    engine = LocalSGDEngine(model, Config(model=name, device="cpu",
+                                          seed=seed), torch.device("cpu"))
+    state = engine.init_state()
+    g = torch.Generator().manual_seed(seed + 100)
+    for m in state.opt.mu + state.opt.nu:
+        m.normal_(generator=g)
+    state.opt.count, state.lr_epoch = 5 + seed, 2 + seed
+    return engine, state
+
+
+def _leaves(engine, state) -> dict:
+    """The worker's JAX-layout leaves of ``state`` (host numpy)."""
+    return C.jax_leaves(C.snapshot(engine.checkpoint_state(state)))
+
+
+def _assert_leaves_equal(a: dict, b: dict):
+    assert list(a) == list(b)
+    for k in a:
+        assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, k
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                      err_msg=k)
+
+
+def _restore(path, seed=9, **kw):
+    engine, state = _engine_state(seed, **kw)
+    restored, epoch = C.restore_checkpoint(path,
+                                           engine.checkpoint_state(state))
+    return engine, engine.load_checkpoint_state(state, restored), epoch
+
+
+def _jax_row0(state) -> dict:
+    """Row 0 of every leaf of a JAX TrainState, by key path."""
+    flat = jax.tree_util.tree_flatten_with_path(state)[0]
+    return {jax.tree_util.keystr(p): np.asarray(x)[0] for p, x in flat}
+
+
+# ----------------------------------------------------------------------
+# the engine contract (ported from tests/test_checkpoint.py)
+# ----------------------------------------------------------------------
+
+def test_save_restore_roundtrip(tmp_path):
+    engine, state = _engine_state(0)
+    eng = C.CheckpointEngine(str(tmp_path), async_write=False)
+    path = eng.save(engine.checkpoint_state(state), 3)
+    assert os.path.isfile(os.path.join(path, C.MANIFEST))
+    assert C.latest_checkpoint(str(tmp_path)) == path
+    fresh, fstate, epoch = _restore(path)
+    assert epoch == 3
+    _assert_leaves_equal(_leaves(fresh, fstate), _leaves(engine, state))
+    # the restored seed words drive the next round's generator
+    assert list(fstate.rng) == list(state.rng)
+
+
+def test_async_save_bitwise_equals_blocking(tmp_path):
+    engine, state = _engine_state(2)
+    da, db = str(tmp_path / "async"), str(tmp_path / "blocking")
+    ea = C.CheckpointEngine(da, async_write=True)
+    eb = C.CheckpointEngine(db, async_write=False)
+    timing = {}
+    ea.save(engine.checkpoint_state(state), 5, timing=timing)
+    eb.save(engine.checkpoint_state(state), 5)
+    ea.close()
+    assert timing["ckpt_snapshot_ms"] > 0 and timing["ckpt_write_ms"] > 0
+    raw = lambda d: open(os.path.join(d, "ckpt_5", "shard_0.msgpack"),
+                         "rb").read()
+    assert raw(da) == raw(db)
+    assert ea.summary()["async"] and not eb.summary()["async"]
+    assert ea.summary()["bytes_per_host"] == eb.summary()["bytes_per_host"]
+    assert ea.summary()["bytes_per_host"] == sum(
+        a.nbytes for a in _leaves(engine, state).values())
+    f, fs, _ = _restore(C.latest_checkpoint(da))
+    _assert_leaves_equal(_leaves(f, fs), _leaves(engine, state))
+
+
+def test_prune_keeps_newest_committed(tmp_path):
+    engine, state = _engine_state(0)
+    eng = C.CheckpointEngine(str(tmp_path), keep=2, async_write=False)
+    for e in range(1, 6):
+        eng.save(engine.checkpoint_state(state), e)
+    assert C.committed_epochs(str(tmp_path)) == [4, 5]
+    assert sorted(n for n in os.listdir(tmp_path)
+                  if n.startswith("ckpt_")) == ["ckpt_4", "ckpt_5"]
+
+
+class _Crash(Exception):
+    pass
+
+
+@pytest.mark.parametrize("point", ["mid_shard", "before_manifest"])
+def test_crash_hooks_fall_back_to_previous_committed(tmp_path, monkeypatch,
+                                                     point):
+    """A crash at either hook leaves an unmanifested epoch: the listing
+    falls back to the previous one, which restores, and the next engine
+    open sweeps the debris."""
+    engine, state = _engine_state(0)
+    eng = C.CheckpointEngine(str(tmp_path), async_write=False)
+    eng.save(engine.checkpoint_state(state), 1)
+
+    def crash(code):
+        raise _Crash(code)
+    monkeypatch.setenv(C._CRASH_ENV, point)
+    monkeypatch.setattr(C.os, "_exit", crash)
+    with pytest.raises(_Crash):
+        eng.save(engine.checkpoint_state(state), 2)
+    monkeypatch.delenv(C._CRASH_ENV)
+    d = tmp_path / "ckpt_2"
+    assert not (d / C.MANIFEST).exists()
+    assert (d / "shard_0.msgpack.tmp.0").exists() == (point == "mid_shard")
+    assert (d / "shard_0.msgpack").exists() == (point == "before_manifest")
+    assert C.committed_epochs(str(tmp_path)) == [1]
+    latest = C.latest_checkpoint(str(tmp_path))
+    assert latest.endswith("ckpt_1")
+    f, fs, epoch = _restore(latest)
+    assert epoch == 1
+    _assert_leaves_equal(_leaves(f, fs), _leaves(engine, state))
+    C.CheckpointEngine(str(tmp_path))            # open -> sweep
+    assert not d.exists()
+
+
+def test_corrupt_same_size_shard_falls_back(tmp_path):
+    engine, state = _engine_state(0)
+    eng = C.CheckpointEngine(str(tmp_path), async_write=False)
+    eng.save(engine.checkpoint_state(state), 1)
+    eng.save(engine.checkpoint_state(state), 2)
+    sh = tmp_path / "ckpt_2" / "shard_0.msgpack"
+    raw = bytearray(sh.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    sh.write_bytes(bytes(raw))
+    assert C.committed_epochs(str(tmp_path)) == [1]
+    assert C.latest_checkpoint(str(tmp_path)).endswith("ckpt_1")
+    with pytest.raises(ValueError, match="corrupt"):
+        C.host_tree(str(tmp_path / "ckpt_2"))
+
+
+def test_missing_shard_falls_back(tmp_path):
+    engine, state = _engine_state(0)
+    eng = C.CheckpointEngine(str(tmp_path), async_write=False)
+    eng.save(engine.checkpoint_state(state), 1)
+    eng.save(engine.checkpoint_state(state), 2)
+    os.remove(tmp_path / "ckpt_2" / "shard_0.msgpack")
+    assert C.committed_epochs(str(tmp_path)) == [1]
+    assert C.latest_checkpoint(str(tmp_path)).endswith("ckpt_1")
+
+
+def test_dtype_mismatch_rejected(tmp_path):
+    engine, state = _engine_state(0)
+    path = C.CheckpointEngine(str(tmp_path), async_write=False).save(
+        engine.checkpoint_state(state), 1)
+    template = engine.checkpoint_state(state)
+    bad = dataclasses.replace(template, mu={
+        k: v.to(torch.bfloat16) for k, v in template.mu.items()})
+    with pytest.raises(ValueError, match="dtype"):
+        C.restore_checkpoint(path, bad)
+
+
+def test_open_sweeps_stale_leftovers(tmp_path):
+    engine, state = _engine_state(0)
+    C.CheckpointEngine(str(tmp_path), async_write=False).save(
+        engine.checkpoint_state(state), 1)
+    os.makedirs(tmp_path / "ckpt_9")
+    (tmp_path / "ckpt_9" / "shard_0.msgpack").write_bytes(b"junk")
+    (tmp_path / "ckpt_4.msgpack.tmp.0").write_bytes(b"junk")
+    (tmp_path / "ckpt_1" / "shard_0.msgpack.tmp.0").write_bytes(b"junk")
+    C.CheckpointEngine(str(tmp_path), async_write=False)
+    names = {n for root, _d, fs in os.walk(tmp_path)
+             for n in fs + [os.path.basename(root)]}
+    assert not any(".tmp." in n for n in names), names
+    assert not (tmp_path / "ckpt_9").exists()
+    assert C.committed_epochs(str(tmp_path)) == [1]
+
+
+@pytest.mark.parametrize("case,where", [
+    ("legacy", "A.9"), ("resident", "A.8"), ("round_opt", "A.8"),
+    ("slices", "A.11"), ("workers", "worker")])
+def test_refusals_name_their_queue(tmp_path, case, where):
+    engine, state = _engine_state(0)
+    meta = {"num_slices": 2} if case == "slices" else None
+    path = C.CheckpointEngine(str(tmp_path), async_write=False,
+                              metadata=meta).save(
+        engine.checkpoint_state(state), 1)
+    template = engine.checkpoint_state(state)
+    if case == "legacy":
+        path = str(tmp_path / "ckpt_4.msgpack")
+        open(path, "wb").write(b"\x80")
+    elif case in ("resident", "round_opt"):
+        key = {"resident": ".params_resident['b0000']",
+               "round_opt": ".round_opt.mu['b0000']"}[case]
+        mpath = os.path.join(path, C.MANIFEST)
+        manifest = json.load(open(mpath))
+        manifest["leaves"][key] = {"shape": [1, 4], "dtype": "float32",
+                                   "bytes": 16}
+        json.dump(manifest, open(mpath, "w"))
+    elif case == "workers":
+        template = dataclasses.replace(template, n_workers=2)
+    with pytest.raises(ValueError, match=where):
+        C.restore_checkpoint(path, template)
+
+
+def test_config_validation():
+    with pytest.raises(ValueError, match="ckpt_keep"):
+        Config(ckpt_keep=0)
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        Config(checkpoint_every=1)
+    with pytest.raises(ValueError, match="resume"):
+        Config(resume=True)
+
+
+# ----------------------------------------------------------------------
+# across frameworks
+# ----------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_written(tmp_path_factory):
+    """{model: (JAX train_global results, checkpoint dir)} for RUNS."""
+    out = {}
+    for name, kw in RUNS.items():
+        d = str(tmp_path_factory.mktemp(f"jax_{name}"))
+        res = j_driver.train_global(JConfig(checkpoint_dir=d, num_workers=1,
+                                            **kw),
+                                    progress=False)
+        out[name] = (res, d)
+    return out
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_jax_written_checkpoint_restores_into_the_port(jax_written, name):
+    """Params, Adam count and moments (transposed like their kernels),
+    lr_epoch and rng bit for bit as the JAX state holds them."""
+    res, d = jax_written[name]
+    kw = RUNS[name]
+    cfg = Config(checkpoint_dir=d, device="cpu", **kw)
+    model = t_driver.build_model_for(
+        cfg, res["test"].num_classes, torch.device("cpu"),
+        res["test"].images.shape[1:])
+    engine = LocalSGDEngine(model, cfg, torch.device("cpu"))
+    state = engine.init_state()
+    restored, epoch = C.restore_checkpoint(C.latest_checkpoint(d),
+                                           engine.checkpoint_state(state))
+    state = engine.load_checkpoint_state(state, restored)
+    assert epoch == 1
+    _assert_leaves_equal(_leaves(engine, state), _jax_row0(res["state"]))
+
+
+def test_jax_written_batch_stats_restore_into_the_port(tmp_path):
+    """A worker-stacked JAX TrainState with BatchNorm statistics, written
+    by JAX ``save_checkpoint``: params, batch_stats, moments bit for bit."""
+    rng = np.random.default_rng(0)
+    src = get_model("enhanced_cnn", num_classes=10, width=4)
+    src.init_parameters(torch.Generator().manual_seed(0))
+    for name, buf in src.named_buffers():
+        buf.copy_(torch.from_numpy(rng.random(buf.shape).astype(np.float32)))
+    flax_vars = weights.cnn_torch_to_flax(src.state_dict())
+    stack = lambda t: jax.tree.map(lambda a: np.asarray(a)[None], t)
+    moment = lambda: jax.tree.map(
+        lambda a: rng.normal(size=(1, *a.shape)).astype(np.float32),
+        flax_vars["params"])
+    jstate = JTrainState(
+        params=stack(flax_vars["params"]),
+        batch_stats=stack(flax_vars["batch_stats"]),
+        opt_state=optax.ScaleByAdamState(
+            count=np.array([11], np.int32), mu=moment(), nu=moment()),
+        lr_epoch=np.array([6], np.int32),
+        rng=np.array([[123, 456]], np.uint32))
+    J.save_checkpoint(str(tmp_path), jstate, 2)
+    model = get_model("enhanced_cnn", num_classes=10, width=4)
+    engine = LocalSGDEngine(model, Config(device="cpu"), torch.device("cpu"))
+    state = engine.init_state()
+    restored, epoch = C.restore_checkpoint(
+        C.latest_checkpoint(str(tmp_path)), engine.checkpoint_state(state))
+    state = engine.load_checkpoint_state(state, restored)
+    assert epoch == 2
+    _assert_leaves_equal(_leaves(engine, state), _jax_row0(jstate))
+    assert any(k.startswith(".batch_stats") for k in _jax_row0(jstate))
+
+
+@pytest.fixture(scope="module")
+def port_written(tmp_path_factory):
+    """{model: (port train_global results, checkpoint dir)} for RUNS."""
+    out = {}
+    for name, kw in RUNS.items():
+        d = str(tmp_path_factory.mktemp(f"port_{name}"))
+        res = t_driver.train_global(
+            Config(checkpoint_dir=d, device="cpu", **kw), progress=False)
+        out[name] = (res, d)
+    return out
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_port_written_checkpoint_restores_into_jax(port_written,
+                                                   jax_written, name):
+    """JAX ``restore_checkpoint`` and ``host_tree`` read the port's
+    checkpoint bit for bit, and its manifest has the key, shape, dtype
+    and metadata set JAX writes for the same config."""
+    res, d = port_written[name]
+    path = J.latest_checkpoint(d)
+    engine = LocalSGDEngine(res["model"], Config(device="cpu"),
+                            torch.device("cpu"))
+    want = _leaves(engine, res["state"])
+    tree, epoch = J.host_tree(path)
+    assert epoch == 1
+    _assert_leaves_equal({k: v[0] for k, v in tree.items()}, want)
+    # restore into a JAX template of the same shapes (the JAX run's state)
+    jres, jd = jax_written[name]
+    restored, epoch = J.restore_checkpoint(path, jres["state"])
+    _assert_leaves_equal(_jax_row0(restored), want)
+    jm = json.load(open(os.path.join(J.latest_checkpoint(jd), C.MANIFEST)))
+    pm = json.load(open(os.path.join(path, C.MANIFEST)))
+    assert pm["leaves"] == jm["leaves"]
+    assert pm["metadata"] == jm["metadata"]
+    assert pm.keys() == jm.keys() and pm["format"] == 2
+    assert res["checkpoint"]["saves"] == 1 and res["checkpoint"]["enabled"]
+    assert res["round_timings"][0]["ckpt_write_ms"] > 0
+
+
+def test_port_written_checkpoint_serves_in_jax(port_written):
+    res, d = port_written["gpt_tiny"]
+    eng = JServeEngine.from_checkpoint(d, max_batch=2, page_size=4,
+                                       max_pages=16, prompt_buckets=(8,),
+                                       max_seq=12)
+    want = weights.torch_to_flax(res["model"].state_dict(), num_heads=4)
+    got = jax.tree.map(np.asarray, eng.params)
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_port_resume_runs_only_the_remaining_rounds(tmp_path):
+    kw = dict(RUNS["gpt_tiny"], checkpoint_dir=str(tmp_path), device="cpu")
+    first = t_driver.train_global(Config(**dict(kw, epochs_global=2)),
+                                  progress=False)
+    for t in first["round_timings"]:
+        assert t["ckpt_snapshot_ms"] > 0 and t["ckpt_write_ms"] > 0
+    assert set(first["checkpoint"]) == {
+        "enabled", "async", "layout", "keep", "saves", "bytes_per_host",
+        "stall_ms_total", "write_ms_total"}
+    second = t_driver.train_global(
+        Config(**dict(kw, epochs_global=3, resume=True)), progress=False)
+    assert [t["epoch"] for t in second["round_timings"]] == [2]
+    assert C.committed_epochs(str(tmp_path)) == [1, 2, 3]
+    assert second["state"].lr_epoch == 3
+    none = t_driver.train_global(
+        Config(**dict(RUNS["gpt_tiny"], device="cpu", checkpoint_every=0)),
+        progress=False)
+    assert none["checkpoint"] == {"enabled": False}
+    assert none["round_timings"][0]["ckpt_snapshot_ms"] == 0.0
+
+
+def test_two_workers_write_one_checkpoint_jax_merges(tmp_path):
+    """Two worker processes of a gloo group: rank r writes shard_r with its
+    row, one manifest commits both, and JAX ``host_tree`` merges them."""
+    d = str(tmp_path / "ck")
+    res = t_main.run([
+        "--device", "cpu", "--num_workers", "2", "--model", "gpt_tiny",
+        "--dataset", "synthetic_lm", "--epochs_global", "1",
+        "--epochs_local", "1", "--batch_size", "8", "--limit_train_samples",
+        "64", "--limit_eval_samples", "16", "--compute_dtype", "float32",
+        "--checkpoint_dir", d, "--checkpoint_every", "1", "--seed", "3",
+        "--out_dir", str(tmp_path / "plots")])
+    path = J.latest_checkpoint(d)
+    manifest = json.load(open(os.path.join(path, C.MANIFEST)))
+    assert manifest["process_count"] == 2
+    assert sorted(manifest["shards"]) == ["shard_0.msgpack",
+                                          "shard_1.msgpack"]
+    tree, _ = J.host_tree(path)
+    assert all(v.shape[0] == 2 for v in tree.values())
+    mine, _ = C.host_tree(path)
+    _assert_leaves_equal(mine, tree)
+    engine = LocalSGDEngine(res["model"], Config(device="cpu"),
+                            torch.device("cpu"))
+    _assert_leaves_equal({k: v[0] for k, v in tree.items()},
+                         _leaves(engine, res["state"]))
+    assert int(tree[".opt_state.count"][1]) > 0

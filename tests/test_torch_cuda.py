@@ -437,3 +437,99 @@ def test_remat_policies_on_card_are_bitwise_none(cuda):
     for policy, (loss, grads) in results.items():
         assert torch.equal(loss, loss0), policy
         assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), policy
+
+
+def _tiny_engine_state(name, device, seed, **kw):
+    """A tiny model's engine and train state on ``device``, with moments,
+    count, clock and seed words set off their init."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
+        Config,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.train import (
+        LocalSGDEngine,
+    )
+    model = get_model(name, num_classes=97, dtype=torch.float32,
+                      device=device, **kw)
+    model.init_parameters(torch.Generator(device=device).manual_seed(seed))
+    engine = LocalSGDEngine(model, Config(model=name, device="cpu",
+                                          seed=seed), device)
+    state = engine.init_state()
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    for m in state.opt.mu + state.opt.nu:
+        m.normal_(generator=g)
+    state.opt.count, state.lr_epoch = 7, 3
+    return engine, state
+
+
+def test_checkpoint_roundtrip_from_cuda_tensors(cuda, tmp_path):
+    """An async save of a train state on the card (snapshot = D2H copies
+    behind a synchronize), restored into a fresh engine on the card: every
+    tensor, the count, the clock and the seed words equal."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        checkpoint as t_ckpt,
+    )
+    engine, state = _tiny_engine_state("llama_tiny", cuda, 0,
+                                       num_kv_heads=2)
+    eng = t_ckpt.CheckpointEngine(str(tmp_path), async_write=True)
+    timing = {}
+    eng.save(engine.checkpoint_state(state), 4, timing=timing)
+    eng.close()
+    assert timing["ckpt_snapshot_ms"] > 0 and timing["ckpt_write_ms"] > 0
+    fresh, fstate = _tiny_engine_state("llama_tiny", cuda, 5,
+                                       num_kv_heads=2)
+    restored, epoch = t_ckpt.restore_checkpoint(
+        t_ckpt.latest_checkpoint(str(tmp_path)),
+        fresh.checkpoint_state(fstate))
+    fstate = fresh.load_checkpoint_state(fstate, restored)
+    want, got = (e.checkpoint_state(s) for e, s in ((engine, state),
+                                                     (fresh, fstate)))
+    assert epoch == 4
+    for k, t in want.tensors().items():
+        assert got.tensors()[k].device == t.device
+        assert torch.equal(got.tensors()[k], t), k
+    assert (got.count, got.lr_epoch, list(got.rng)) == (
+        want.count, want.lr_epoch, list(want.rng))
+
+
+@pytest.mark.parametrize("name,kw", [("gpt_tiny", {}),
+                                     ("llama_tiny", {"num_kv_heads": 2})],
+                         ids=["gpt", "llama_gqa"])
+def test_serve_engine_on_card_matches_cpu(cuda, name, kw):
+    """The paged decode on the card against the same engine on the CPU
+    (fp32, TF32 off): greedy streams equal through the scheduler, and the
+    prefill and decode logits within 1e-4."""
+    import copy
+
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        Request,
+        ServeEngine,
+    )
+    cpu_model = get_model(name, num_classes=97, dtype=torch.float32, **kw)
+    cpu_model.init_parameters(torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    geo = dict(max_batch=3, page_size=4, max_pages=32, prompt_buckets=(8, 16),
+               max_seq=24)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 97, 4 + 2 * i).tolist(),
+                    max_new_tokens=6) for i in range(5)]
+    streams = []
+    for model in (cpu_model, card_model):
+        out = ContinuousBatchingScheduler(ServeEngine(model, **geo)).run(
+            reqs)
+        streams.append([c.tokens for c in out["completions"]])
+        assert out["pages"]["leaked"] == 0
+    assert streams[0] == streams[1]
+    logits = []
+    for model in (cpu_model, card_model):
+        eng = ServeEngine(model, **geo)
+        row = eng.table_row(eng.allocator.alloc(4))
+        _, first = eng.prefill(reqs[3].prompt, row, 0.0, 3)
+        table = np.zeros((3, eng.pages_per_seq), np.int32)
+        table[0] = row
+        _, dec = eng.decode([5, 0, 0], [len(reqs[3].prompt), 0, 0], table,
+                            np.zeros(3, np.float32), [3, 0, 0],
+                            [True, False, False])
+        logits.append((first.cpu(), dec[0].cpu()))
+    for a, b in zip(*logits):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)

@@ -159,8 +159,10 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
 
 def test_serve_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.10"):
-        t_main.run(["serve", "--checkpoint_dir", "x"])
+    """`main serve` is ported; its speculative decoding is not (A.10b)."""
+    with pytest.raises(ValueError, match="A.10b"):
+        t_main.run(["serve", "--checkpoint_dir", "x", "--serve_draft_ckpt",
+                    "y", "--serve_spec_tokens", "2"])
 
 
 @pytest.mark.parametrize("flags,where", [
