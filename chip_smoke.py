@@ -43,6 +43,12 @@ Phases (any failure exits non-zero before the result line):
              output in bf16 and the logits in fp32, since a near-tie gate
              flips an expert under bf16 rounding), each moe layer's aux
              loss and dropped share; a profile of bert and vit;
+   stream vit - the vit path again with --stream_chunk_steps 2
+             --stream_prefetch 2 (pinned windows, side-stream copies):
+             batch losses and final parameters equal to the plain vit
+             run's bit for bit, the same launches; step ms, train wall and
+             peak memory of both; a profile of where the H2D copies run
+             (pinned or pageable, which stream, overlapped or not);
    remat   - bert at 4 train steps under remat none, everything,
              dots_saveable, save_names:attn_out,block_out and
              offload_names:attn_out, and under --grad_accum 4: launches
@@ -81,6 +87,21 @@ Phases (any failure exits non-zero before the result line):
              --serve_prefix_cache, whose streams must all be equal, with
              pages reused; tokens/s, decode and TTFT p50/p99, peak
              memory, restore ms;
+   draft   - the speculative draft: gpt_small (4 layers, hidden 128, 4
+             heads of 32) at vocab 1000 on synthetic_lm with flash, one
+             round of 16 steps, saving a checkpoint; launches exactly layers
+             x passes (the D=32 kernel instances, also held against their
+             plain versions in the kernels phase as draft_path);
+   serve gpt2 spec - serve gpt2's traffic again with --serve_draft_ckpt
+             (the draft) --serve_spec_tokens 4: 2,048 tokens, no page
+             leaked in either pool, the programs exactly the used buckets
+             and one verify shape (the draft's: its buckets and one decode
+             shape); every stream equal to serve gpt2's up to the first
+             position whose plain top-2 margin is within SERVE_LOGIT_TOL of
+             max |logit|, and how many are equal in full; tokens/s, decode
+             and TTFT p50/p99, acceptance, target steps per token, peak
+             memory with both pools, restore ms, beside the plain run's;
+             the target as its own draft (acceptance printed); a profile;
    serve llama - in the llama child, the llama path's run writes one
              checkpoint, and the child serves from it as serve gpt2 does
              (GQA and RoPE at the cache offsets);
@@ -100,8 +121,9 @@ Phases (any failure exits non-zero before the result line):
              losses, no flash launch, and bitwise-identical parameters on
              every rank after an equal all-reduce.
 
-The last lines are the nvidia-smi line, one JSON object with a row per
-kernel, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The last lines are the smoke's total wall, the nvidia-smi line, one JSON
+object with a row per kernel, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -167,6 +189,16 @@ PATHS = {
 CKPT_DIR = os.path.join(OUT_DIR, "ckpt_gpt2")
 CKPT_ARGV = [*PATHS["gpt2"][0], "--epochs_global", "2", "--checkpoint_dir",
              CKPT_DIR, "--checkpoint_every", "1", "--ckpt_keep", "2"]
+# phase draft: gpt_small (head_dim 32) as the speculative draft, one round
+# of 16 steps on the token paths' data, saving its checkpoint
+DRAFT_CKPT_DIR = os.path.join(OUT_DIR, "ckpt_draft")
+DRAFT_ARGV = ["--model", "gpt_small", "--dataset", "synthetic_lm",
+              *_TOKENS_ARGV, "--out_dir", os.path.join(OUT_DIR, "draft"),
+              "--checkpoint_dir", DRAFT_CKPT_DIR, "--checkpoint_every", "1"]
+DRAFT_LAYERS = 4
+SPEC_TOKENS = 4
+# phase stream vit: the vit path's windows of 2 steps, 2 staged ahead
+STREAM_ARGV = ["--stream_chunk_steps", "2", "--stream_prefetch", "2"]
 # phase serve: 32 greedy requests of 64 new tokens at 8 decode slots
 SERVE_ARGV = ["--serve_max_batch", "8", "--serve_page_size", "16",
               "--serve_max_pages", "160", "--serve_prompt_buckets", "32,128",
@@ -231,8 +263,8 @@ RESULT_TAG = "chip_smoke-llama-result "
 
 # (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape,
 # "llama_path" the llama path's, "bert_path" the bert and moe paths'
-# (bidirectional) and "vit_path" the vit path's (bidirectional, 196 = 3 x 64
-# + 4: a ragged last tile)
+# (bidirectional), "vit_path" the vit path's (bidirectional, 196 = 3 x 64
+# + 4: a ragged last tile) and "draft_path" the draft's (head_dim 32)
 SHAPES = [
     ("main", PATH_BATCH, PATH_LEN, 12, 12, 64, True),
     ("L2048_causal", 4, 2048, 12, 12, 64, True),
@@ -241,9 +273,10 @@ SHAPES = [
     ("llama_path", PATH_BATCH, PATH_LEN, 16, 4, 64, True),
     ("bert_path", PATH_BATCH, PATH_LEN, 12, 12, 64, False),
     ("vit_path", PATH_BATCH, 196, 6, 6, 64, False),
+    ("draft_path", PATH_BATCH, PATH_LEN, 4, 4, 32, True),
 ]
 # shapes whose numbers every kernel's JSON row carries beside its path's
-ENCODER_SHAPES = ("bert_path", "vit_path")
+ROW_SHAPES = ("bert_path", "vit_path", "draft_path")
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
 # gradients are rounded to bf16 (relative spacing 2^-8) after fp32
@@ -377,6 +410,13 @@ def check_tensor_cores(sass_by_library: dict[str, str]) -> dict[str, bool]:
             fail(f"{kernel} is designed for the tensor cores but its bf16 "
                  f"instances {sorted(found) or '(none found)'} hold no "
                  f"HMMA/HGMMA instruction")
+        # the draft's head_dim (the template argument D=32 mangles as
+        # Li32E); the rule above already fails on any bf16 instance
+        # without tensor-core instructions, this one among them
+        d32 = [ops for fn, ops in found.items() if "Li32E" in fn]
+        print(f"[build] sass {kernel} D=32 bf16 instance(s): "
+              + ("; ".join(' '.join(o) or 'no tensor-core instruction'
+                           for o in d32) or "none found"))
     return result
 
 
@@ -636,6 +676,7 @@ def drive(tag: str, argv: list[str], layers: int):
                                    if expect[n]):
         fail(f"{tag}: launch counts {counts} do not match the path's "
              f"{expect}")
+    results["smoke_wall_s"], results["smoke_peak_bytes"] = wall, peak
     return counts, results, wall, peak
 
 
@@ -938,20 +979,30 @@ def phase_profile(name: str, results, argv: list[str]) -> None:
                    engine.device)
 
 
-def profile_window(tag: str, what: str, fn, device) -> None:
+def profile_window(tag: str, what: str, fn, device, trace: str = "",
+                   top: int = 20) -> None:
     """``fn`` once to warm up, then once under torch.profiler: prints the
     window's wall, the device's busy and idle share, and device time by
-    kernel."""
+    kernel (the ``top`` rows); with ``trace``, writes the Chrome trace
+    there."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()                                        # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # late in a long process the tracer has dropped a window's first
+        # device events (a round's input copy comes first): open the
+        # window after a kernel and a pause
+        torch.ones(1, device=device).add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if trace:
+        prof.export_chrome_trace(trace)
     kind = (torch.autograd.DeviceType.CUDA if device.type == "cuda"
             else torch.autograd.DeviceType.CPU)
     rows = [e for e in prof.key_averages() if e.device_type == kind]
@@ -966,9 +1017,130 @@ def profile_window(tag: str, what: str, fn, device) -> None:
           f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), idle "
           f"{100 * (1 - busy / wall_us):.1f}%; "
           f"{sum(e.count for e in rows)} device kernels")
-    for e in rows[:20]:
+    for e in rows[:top]:
         print(f"{tag} {dev_us(e) / 1e3:9.3f} ms "
               f"{100 * dev_us(e) / busy:5.1f}% x{e.count:<5d} {e.key[:100]}")
+
+
+def h2d_copies(tag: str, trace: str) -> dict:
+    """The host-to-device copies in a profiler Chrome trace: count, bytes,
+    device ms, kind (pageable or pinned), their streams, how much of their
+    time overlaps compute kernels on other streams, and the host time each
+    thread spent in ``cudaMemcpyAsync`` (a pageable copy blocks its
+    caller for the whole transfer)."""
+    with open(trace) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X"]
+    host: dict = {}
+    for e in events:
+        if (e.get("cat") == "cuda_runtime"
+                and e.get("name") == "cudaMemcpyAsync"):
+            host[e.get("tid")] = host.get(e.get("tid"), 0.0) + e["dur"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    spans: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            spans.setdefault(e.get("args", {}).get("stream"), []).append(
+                (e["ts"], e["ts"] + e["dur"]))
+    overlap = 0.0
+    for c in copies:
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        cover = sorted((max(a, lo), min(b, hi))
+                       for st, iv in spans.items()
+                       if st != c.get("args", {}).get("stream")
+                       for a, b in iv if a < hi and b > lo)
+        end = lo
+        for a, b in cover:           # the union of the covering kernels
+            if b > end:
+                overlap += b - max(a, end)
+                end = b
+    out = dict(n=len(copies),
+               mb=sum(c.get("args", {}).get("bytes", 0) for c in copies)
+               / 1e6,
+               ms=sum(c["dur"] for c in copies) / 1e3,
+               kinds=sorted({c["name"] for c in copies}),
+               streams=sorted({str(c.get("args", {}).get("stream"))
+                               for c in copies}),
+               compute_streams=sorted(str(st) for st in spans),
+               overlap_ms=overlap / 1e3,
+               host_ms=sorted((v / 1e3 for v in host.values()),
+                              reverse=True))
+    print(f"{tag} H2D copies: {out['n']}, {out['mb']:.1f} MB, "
+          f"{out['ms']:.3f} device ms; {', '.join(out['kinds'])}; on "
+          f"stream(s) {', '.join(out['streams'])} (compute kernels on "
+          f"{', '.join(out['compute_streams'])}); {out['overlap_ms']:.3f} "
+          f"ms of them overlapped compute kernels on other streams; host ms "
+          f"in cudaMemcpyAsync per thread "
+          f"{[round(v, 3) for v in out['host_ms']]}")
+    return out
+
+
+def phase_stream_vit(plain: dict) -> dict:
+    """Phase stream vit: the vit path with STREAM_ARGV against the plain vit
+    run of this call (``plain``: its batch losses, final parameters on the
+    host, launches, step ms, train wall and peak), bit for bit; then where
+    its copies run.  Returns the launches."""
+    import torch
+    argv = [*PATHS["vit"][0][:-1], os.path.join(OUT_DIR, "stream_vit"),
+            *STREAM_ARGV]
+    counts, results, wall, peak = drive("[stream vit]", argv,
+                                        PATHS["vit"][1])
+    losses = results["all_workers_losses"][0]
+    params = {k: v.detach().cpu()
+              for k, v in results["model"].state_dict().items()}
+    loss_diff = max((abs(a - b) for a, b in zip(losses, plain["losses"])),
+                    default=0.0)
+    differ = [k for k in plain["params"]
+              if not torch.equal(params[k], plain["params"][k])]
+    worst = max((float((params[k].float() - plain["params"][k].float())
+                       .abs().max()) for k in differ), default=0.0)
+    rt = results["round_timings"]
+    steps = sum(r["train_steps"] for r in rt)
+    train_ms = sum(r["train_ms"] for r in rt)
+    n_diff = sum(a != b for a, b in zip(losses, plain["losses"]))
+    print(f"[stream vit] windows of 2 steps, 2 staged ahead: {len(losses)} "
+          f"batch losses, {n_diff} differ from the plain vit run's (max abs "
+          f"{loss_diff:.3g}); "
+          f"{len(differ)} of {len(params)} parameter tensors differ (max abs "
+          f"{worst:.3g}); launches {counts} vs plain {plain['counts']}")
+    print(f"[stream vit] streamed: train step {train_ms / steps:.3f} ms, "
+          f"train wall {train_ms:.1f} ms over {steps} steps, run wall "
+          f"{wall:.1f} s, max_memory_allocated {peak / 2**30:.2f} GiB; plain "
+          f"(same call): train step {plain['step_ms']:.3f} ms, train wall "
+          f"{plain['train_ms']:.1f} ms, run wall {plain['wall']:.1f} s, "
+          f"max_memory_allocated {plain['peak'] / 2**30:.2f} GiB")
+    if (losses != plain["losses"] or differ or counts != plain["counts"]
+            or steps != plain["steps"]):
+        fail("stream vit: the streamed run departs from the plain vit run "
+             "(losses, parameters, launches or steps; sizes above)")
+    profile_stream(results, argv)
+    return counts
+
+
+def profile_stream(results, argv: list[str]) -> None:
+    """Where the input copies run: one more round of PROFILE_STEPS train
+    steps + 1 val step of the trained model, as one whole-round pack
+    (pageable copies on the compute stream) and as windows of 2 (pinned,
+    on the side stream), each under torch.profiler."""
+    from importlib import import_module
+    import numpy as np
+    data = import_module(f"{PKG}.data")
+    engine, whole = steady_round(results, argv)
+    state, test = results["state"], results["test"]
+    idx = np.arange(PROFILE_STEPS * PATH_BATCH)
+    feed = data.window_feed(test.images, test.labels, idx, PATH_BATCH, 2,
+                            PROFILE_STEPS)
+    val = data.window_feed(test.images, test.labels, idx[:PATH_BATCH],
+                           PATH_BATCH, 2, 2)
+    for label, fn in (("whole-round pack", whole),
+                      ("streamed windows", lambda: engine.round_streamed(
+                          state, feed, val))):
+        trace = os.path.join(OUT_DIR, f"trace_{label.split()[0]}.json")
+        tag = f"[profile stream vit] {label}:"
+        profile_window(tag, f"{PROFILE_STEPS} train steps + 1 val step", fn,
+                       engine.device, trace=trace, top=6)
+        h2d_copies(tag, trace)
 
 
 def run_cnn() -> tuple[dict, dict]:
@@ -1143,8 +1315,9 @@ def phase_ckpt() -> dict:
 def _serve(argv: list[str], record: int = 0):
     """main.run(["serve", *argv]) with the launch counters reset; with
     ``record``, the logits of requests 0..record-1 at every generated
-    position (prefill's last position, then each decode step), on the
-    host.  Returns (results, {rid: [logits]}, launches, wall s)."""
+    position (prefill's last position, then each decode step), kept on the
+    device while the run goes (no copy, no sync) and moved to the host
+    after it.  Returns (results, {rid: [logits]}, launches, wall s)."""
     import torch
     from importlib import import_module
     from unittest import mock
@@ -1157,7 +1330,7 @@ def _serve(argv: list[str], record: int = 0):
     def rec_prefill(self, prompt, page_row, temperature, rid, **kw):
         tok, last = prefill(self, prompt, page_row, temperature, rid, **kw)
         if rid < record:
-            seen.setdefault(rid, []).append(last.float().cpu())
+            seen.setdefault(rid, []).append(last)
         return tok, last
 
     def rec_decode(self, tokens, lengths, table, temps, rids, active):
@@ -1165,7 +1338,7 @@ def _serve(argv: list[str], record: int = 0):
                              active)
         for i in range(len(rids)):
             if active[i] and rids[i] < record:
-                seen[int(rids[i])].append(logits[i].float().cpu())
+                seen[int(rids[i])].append(logits[i])
         return nxt, logits
 
     fl.reset_launch_counts()
@@ -1175,6 +1348,7 @@ def _serve(argv: list[str], record: int = 0):
         results = main.run(["serve", *argv])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    seen = {rid: [t.float().cpu() for t in ts] for rid, ts in seen.items()}
     return results, seen, dict(fl.LAUNCHES), wall
 
 
@@ -1190,10 +1364,13 @@ def _serve_checks(name: str, results, want_programs: set) -> dict:
 def phase_serve(name: str, ckpt_dir: str) -> dict:
     """Phase serve: 32 greedy requests off ``ckpt_dir`` through `main
     serve`, with the checks of the module docstring; returns the
-    telemetry."""
+    telemetry with ``streams`` (rid -> tokens) and ``margins`` (rid -> each
+    generated position's top-2 margin over max |logit| in this run's own
+    logits) added."""
     import torch
     argv = ["--checkpoint_dir", ckpt_dir, *SERVE_ARGV]
-    results, seen, launches, wall = _serve(argv, record=SERVE_CHECKED)
+    results, seen, launches, wall = _serve(argv,
+                                           record=SERVE_TOKENS // 64)
     tele = results["serve"]
     buckets = tele["prefill_buckets"]
     want = {("prefill", (1, b)) for b in buckets} | {("decode", (8, 1))}
@@ -1234,6 +1411,13 @@ def phase_serve(name: str, ckpt_dir: str) -> dict:
     if not (math.isfinite(worst) and worst <= SERVE_LOGIT_TOL
             and agree == margins):
         fail(f"serve {name}: paged decode departs from the full forward")
+    tele["streams"] = {c.rid: c.tokens for c in results["completions"]}
+    tele["margins"] = {}
+    for rid, logits in seen.items():
+        lg = torch.stack(logits)
+        top2 = lg.topk(2, -1).values
+        tele["margins"][rid] = ((top2[:, 0] - top2[:, 1])
+                                / lg.abs().amax(-1)).tolist()
     mem = tele["memory"]
     print(f"{tag} launches {launches} (paged decode runs no custom kernel)")
     print(f"{tag} {tele['tokens_generated']} tokens from "
@@ -1269,9 +1453,143 @@ def profile_serve(name: str, engine) -> None:
         sched.ContinuousBatchingScheduler(engine).run(
             [sched.Request(rid=i, prompt=p, max_new_tokens=16)
              for i, p in enumerate(prompts)])
+    steps = ("8 prefills in each pool + speculation ticks (draft decode x "
+             f"{engine.spec_tokens}, one verify)" if engine.draft is not None
+             else "8 prefills + 15 decode steps")
     profile_window(f"[profile serve {name}]",
-                   "8 requests x (32 prompt + 16 new) tokens, 8 prefills + "
-                   "15 decode steps", window, engine.device)
+                   f"8 requests x (32 prompt + 16 new) tokens, {steps}",
+                   window, engine.device)
+
+
+def phase_draft() -> dict:
+    """Phase draft: train the speculative draft (gpt_small, head_dim 32)
+    for one round of 16 steps, saving its checkpoint; ``drive`` checks the
+    launches of the D=32 kernel instances.  Returns the counts."""
+    from importlib import import_module
+    t_ckpt = import_module(f"{PKG}.checkpoint")
+    shutil.rmtree(DRAFT_CKPT_DIR, ignore_errors=True)
+    counts, results, wall, peak = drive("[draft]", DRAFT_ARGV, DRAFT_LAYERS)
+    steps = sum(r["train_steps"] for r in results["round_timings"])
+    first, last = check_losses("draft", results)
+    model = results["model"]
+    head_dim = model.blocks[0].attn.head_dim
+    committed = t_ckpt.committed_epochs(DRAFT_CKPT_DIR)
+    if steps < 16 or head_dim != 32 or committed != [1]:
+        fail(f"draft: {steps} train steps, head_dim {head_dim}, committed "
+             f"{committed}")
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[draft] gpt_small {params:,} params, head_dim {head_dim}; "
+          f"{steps} train steps in {wall:.1f} s (step "
+          f"{sum(r['train_ms'] for r in results['round_timings']) / steps:.3f}"
+          f" ms); first-batch loss {first:.4f} -> last-epoch mean "
+          f"{last:.4f}; checkpoint epochs {committed}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB")
+    del results, model
+    import torch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _serve_line(tele: dict) -> str:
+    mem = tele["memory"]
+    pools = mem["kv_pool_bytes"] + mem.get("draft_kv_pool_bytes", 0)
+    params = mem["params_bytes"] + mem.get("draft_params_bytes", 0)
+    return (f"{tele['tokens_per_s']:.1f} tokens/s; decode p50 "
+            f"{tele['latency_ms']['p50']:.3f} ms p99 "
+            f"{tele['latency_ms']['p99']:.3f} ms; TTFT p50 "
+            f"{tele['ttft_ms']['p50']:.3f} ms p99 {tele['ttft_ms']['p99']:.3f}"
+            f" ms; {tele['decode_steps']} target steps; acceptance "
+            f"{tele['spec']['acceptance_rate']}, target steps per token "
+            f"{tele['spec']['target_steps_per_token']}; max_memory_allocated "
+            f"{mem['max_memory_allocated'] / 2**30:.3f} GiB (params "
+            f"{params / 2**30:.3f}, pools {pools / 2**30:.3f}); restore "
+            f"{tele['restore_ms']:.1f} ms")
+
+
+def _against_plain(name: str, results, plain: dict) -> tuple:
+    """Hold a speculative run's streams against the plain run's (``plain``:
+    phase_serve's telemetry of this call): each equal up to the plain
+    run's first near tie (top-2 margin <= SERVE_LOGIT_TOL x max |logit|),
+    and, where the two split at all, split at a position whose plain
+    logits (the same context before the split) hold a near tie.  Returns
+    (streams equal in full, positions up to the first near ties, positions
+    agreed before the splits)."""
+    full, compared, agreed = 0, 0, 0
+    for c in results["completions"]:
+        ref, margins = plain["streams"][c.rid], plain["margins"][c.rid]
+        tie = [m <= SERVE_LOGIT_TOL for m in margins]
+        sure = tie.index(True) if True in tie else len(tie)
+        split = next((i for i, (a, b) in enumerate(zip(c.tokens, ref))
+                      if a != b), None)
+        if len(c.tokens) != len(ref):
+            fail(f"serve {name}: request {c.rid} has {len(c.tokens)} "
+                 f"tokens, the plain run {len(ref)}")
+        if split is not None and (split < sure or not tie[split]):
+            fail(f"serve {name}: request {c.rid} departs from the plain "
+                 f"stream at position {split} (plain top-2 margin "
+                 f"{margins[split]:.3g} of max |logit|; first near tie at "
+                 f"{sure})")
+        full += split is None
+        compared += sure
+        agreed += len(ref) if split is None else split
+    return full, compared, agreed
+
+
+def phase_serve_spec(plain: dict) -> dict:
+    """Phase serve gpt2 spec: serve gpt2's traffic with the draft and
+    SPEC_TOKENS, against the plain run ``plain`` (phase_serve's telemetry
+    of this call); then the target as its own draft.  Returns the
+    launches."""
+    import torch
+    base = ["--checkpoint_dir", CKPT_DIR, *SERVE_ARGV,
+            "--serve_spec_tokens", str(SPEC_TOKENS)]
+    results, _, launches, wall = _serve(
+        [*base, "--serve_draft_ckpt", DRAFT_CKPT_DIR])
+    tele = results["serve"]
+    buckets = tele["prefill_buckets"]
+    want = ({("prefill", (1, b)) for b in buckets}
+            | {("verify", (8, SPEC_TOKENS + 1))})
+    _serve_checks("gpt2 spec", results, want)
+    draft_programs = {(p, tuple(shape)) for p, shape
+                      in tele["draft_programs"]}
+    want_d = {("prefill", (1, b)) for b in buckets} | {("decode", (8, 1))}
+    if (tele["tokens_generated"] != SERVE_TOKENS
+            or tele["pages"]["draft_leaked"] or draft_programs != want_d
+            or any(launches.values())):
+        fail(f"serve gpt2 spec: {tele['tokens_generated']} tokens, draft "
+             f"leaked {tele['pages']['draft_leaked']}, draft programs "
+             f"{sorted(draft_programs)}, launches {launches}")
+    full, compared, agreed = _against_plain("gpt2 spec", results, plain)
+    tag = "[serve gpt2 spec]"
+    print(f"{tag} {len(results['completions'])} streams equal the plain "
+          f"serve gpt2 streams over {compared} of {SERVE_TOKENS} positions "
+          f"(each up to its first plain top-2 margin <= {SERVE_LOGIT_TOL} x "
+          f"max |logit|), and agree over {agreed} positions up to where "
+          f"they split, each split at a plain near tie; {full} of "
+          f"{len(results['completions'])} equal in "
+          f"full; launches {launches}; programs {tele['programs']}, draft "
+          f"{tele['draft_programs']}; peak pages "
+          f"{tele['pages']['peak_in_use']} / draft {tele['pages']['draft_peak_in_use']}; main.run wall "
+          f"{wall:.1f} s")
+    print(f"{tag} speculative (k={SPEC_TOKENS}): {_serve_line(tele)}")
+    print(f"{tag} plain (same call):  {_serve_line(plain)}")
+    profile_serve("gpt2 spec", results["engine"])
+    del results
+    torch.cuda.empty_cache()
+    selfd, _, _, wall = _serve([*base, "--serve_draft_ckpt", CKPT_DIR])
+    t_self = selfd["serve"]
+    if t_self["tokens_generated"] != SERVE_TOKENS or t_self["pages"][
+            "leaked"] or t_self["pages"]["draft_leaked"]:
+        fail(f"serve gpt2 self-draft: {t_self['tokens_generated']} tokens, "
+             f"pages {t_self['pages']}")
+    same, _, agreed = _against_plain("gpt2 self-draft", selfd, plain)
+    print(f"{tag} the target as its own draft: {_serve_line(t_self)}; "
+          f"{same} of {len(selfd['completions'])} streams equal the plain "
+          f"run's in full, the rest split at plain near ties ({agreed} "
+          f"positions agreed before); main.run wall {wall:.1f} s")
+    del selfd
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serve_shared(ckpt_dir: str) -> None:
@@ -1519,6 +1837,7 @@ def main() -> int:
     # the gpt2 path runs the two-pass backward: the switch is read once, at
     # the port's import, so it must be gone before anything imports it
     os.environ.pop("FLASH_BWD", None)
+    t_start = time.perf_counter()
     name, smi = phase_device()
     import torch  # noqa: F401  (device phase checked the card)
     phase_build()
@@ -1530,17 +1849,36 @@ def main() -> int:
     del results                    # give the card back
     torch.cuda.empty_cache()
     counts["ckpt"] = phase_ckpt()
-    phase_serve("gpt2", CKPT_DIR)
+    counts["draft"] = phase_draft()
+    plain = phase_serve("gpt2", CKPT_DIR)
+    counts["serve_spec"] = phase_serve_spec(plain)
     phase_serve_shared(CKPT_DIR)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(DRAFT_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
     for path in ("bert", "vit", "moe"):
         counts[path], results = run_path(path)
+        if path == "vit":           # before the profile trains it further
+            rt = results["round_timings"]
+            steps = sum(r["train_steps"] for r in rt)
+            plain_vit = dict(
+                losses=results["all_workers_losses"][0],
+                params={k: v.detach().cpu() for k, v
+                        in results["model"].state_dict().items()},
+                counts=counts[path], steps=steps,
+                train_ms=sum(r["train_ms"] for r in rt),
+                step_ms=sum(r["train_ms"] for r in rt) / steps,
+                wall=results["smoke_wall_s"],
+                peak=results["smoke_peak_bytes"])
         if path != "moe":
             phase_profile(path, results, PATHS[path][0])
         del results
         torch.cuda.empty_cache()
+        if path == "vit":
+            counts["stream_vit"] = phase_stream_vit(plain_vit)
+            del plain_vit
+            torch.cuda.empty_cache()
     phase_remat(REMAT_POLICIES)
     counts["cnn"], results = run_cnn()
     phase_profile("cnn", results, CNN_ARGV)
@@ -1559,7 +1897,8 @@ def main() -> int:
             path=path, tensor_cores=tensor_cores[kname], design=design,
             **rows[shape][kname],
             at_shapes={label: rows[label][kname]
-                       for label in ENCODER_SHAPES}))
+                       for label in ROW_SHAPES}))
+    print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,12 +24,9 @@ NOT_PORTED = {
                            "both JAX layouts)"),
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
     "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
-    "stream_chunk_steps": (0, "A.3 (streamed input pipeline)"),
     "chaos": ("", "A.11 (elastic membership + chaos)"),
     "sim_workers": (0, "A.11 (scenario lab)"),
     "num_slices": (1, "A.11 (hierarchical two-level sync)"),
-    "serve_draft_ckpt": ("", "A.10b (speculative decoding)"),
-    "serve_spec_tokens": (0, "A.10b (speculative decoding)"),
 }
 
 
@@ -109,6 +106,11 @@ class Config:
     #                                     run before eviction (0 = off)
     serve_prefix_cache: bool = False    # content-addressed prompt pages
     serve_prefill_chunk: int = 0  # > 0: one [1, C] prefill program
+    serve_draft_ckpt: str = ""    # draft checkpoint dir ("" = off)
+    serve_spec_tokens: int = 0    # draft tokens per verify (k); 0 = off
+    # streamed input pipeline (JAX config.py:153-157; train.ChunkStager)
+    stream_chunk_steps: int = 0   # > 0: windows of this many steps
+    stream_prefetch: int = 2      # windows staged ahead (0 = synchronous)
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     sync_mode: str = "auto"
@@ -118,12 +120,9 @@ class Config:
     layer_scan: str = "auto"
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
-    stream_chunk_steps: int = 0
     chaos: str = ""
     sim_workers: int = 0
     num_slices: int = 1
-    serve_draft_ckpt: str = ""
-    serve_spec_tokens: int = 0
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -175,11 +174,17 @@ class Config:
             raise ValueError(
                 f"--batch_size {self.batch_size} must be divisible by "
                 f"--grad_accum {self.grad_accum} (microbatch split)")
+        if self.stream_chunk_steps < 0 or self.stream_prefetch < 0:
+            raise ValueError(
+                f"stream_chunk_steps ({self.stream_chunk_steps}) and "
+                f"stream_prefetch ({self.stream_prefetch}) must be >= 0 "
+                "(0 = the whole-round pack / synchronous staging)")
         self._check_checkpoint_and_serve()
 
     def _check_checkpoint_and_serve(self) -> None:
         """The JAX config's checks of the checkpoint and serve flags
-        (``config.py:572-585, 588-660``)."""
+        (``config.py:572-585, 588-660``), speculative decoding's
+        included."""
         if self.checkpoint_every < 0:
             raise ValueError(
                 f"checkpoint_every must be >= 0, got {self.checkpoint_every}")
@@ -222,18 +227,42 @@ class Config:
                 f"boundaries must land on page boundaries so every chunk "
                 f"writes whole pages (and the prefix cache can key them) "
                 f"— got {self.serve_prefill_chunk}; 0 disables chunking")
+        # speculative decoding: every limit refused here with its reason
+        if bool(self.serve_draft_ckpt) != bool(self.serve_spec_tokens):
+            raise ValueError(
+                "--serve_draft_ckpt and --serve_spec_tokens arm "
+                "speculative decoding TOGETHER (the draft proposes, k "
+                "sizes the verify program) — one without the other is "
+                f"inert; got draft_ckpt={self.serve_draft_ckpt!r}, "
+                f"spec_tokens={self.serve_spec_tokens}")
+        if self.serve_spec_tokens < 0:
+            raise ValueError(
+                f"--serve_spec_tokens must be >= 1 (0 disables), got "
+                f"{self.serve_spec_tokens}")
+        if self.serve_draft_ckpt and self.serve_temperature > 0.0:
+            raise ValueError(
+                f"--serve_temperature {self.serve_temperature} with "
+                "--serve_draft_ckpt: speculative acceptance is greedy "
+                "argmax equality against the verify logits — temperature "
+                "sampling needs the stochastic rejection-sampling rule "
+                "(accept with prob min(1, p_target/p_draft)) that is not "
+                "implemented; serve greedy or drop the draft")
         buckets = self.parse_prompt_buckets()   # validates the csv eagerly
         if self.serve_prefix_cache:
-            # one max-length sequence (largest bucket + max_new) pinning
-            # the whole pool leaves no page to keep cached
-            longest = buckets[-1] + self.serve_max_new_tokens
+            # one max-length sequence (largest bucket + max_new, + the k
+            # positions the verify program writes past it) pinning the
+            # whole pool leaves no page to keep cached
+            longest = (buckets[-1] + self.serve_max_new_tokens
+                       + self.serve_spec_tokens)
             seq_pages = -(-longest // self.serve_page_size)
             if seq_pages >= self.serve_max_pages - 1:
                 raise ValueError(
                     f"--serve_prefix_cache needs page-pool headroom "
                     f"beyond one max-length sequence: a {longest}-token "
                     f"sequence (largest bucket {buckets[-1]} + "
-                    f"serve_max_new_tokens {self.serve_max_new_tokens}) "
+                    f"serve_max_new_tokens {self.serve_max_new_tokens}"
+                    + (f" + serve_spec_tokens {self.serve_spec_tokens}"
+                       if self.serve_spec_tokens else "") + ") "
                     f"pins {seq_pages} of the {self.serve_max_pages - 1} "
                     f"usable pages (page 0 is the trash page), so no "
                     f"page could ever stay cached — raise "
@@ -351,6 +380,22 @@ def build_argparser() -> argparse.ArgumentParser:
     for name in ("serve_prompt_buckets", "serve_prompt"):
         p.add_argument(f"--{name}", type=str, default=getattr(d, name))
     p.add_argument("--serve_prefix_cache", action="store_true")
+    p.add_argument("--serve_draft_ckpt", type=str, default=d.serve_draft_ckpt,
+                   help="speculative decoding: a smaller same-vocab dense "
+                        "checkpoint proposes --serve_spec_tokens tokens a "
+                        "tick; greedy output equals the plain run's")
+    p.add_argument("--serve_spec_tokens", type=int,
+                   default=d.serve_spec_tokens,
+                   help="draft tokens per verify (k >= 1; 0 = off; needs "
+                        "--serve_draft_ckpt)")
+    p.add_argument("--stream_chunk_steps", type=int,
+                   default=d.stream_chunk_steps,
+                   help="stream each round in windows of this many steps "
+                        "(0 = pack the whole round)")
+    p.add_argument("--stream_prefetch", type=int, default=d.stream_prefetch,
+                   help="windows staged on the device ahead of compute by "
+                        "a producer thread (2 = double buffering, 0 = "
+                        "synchronous)")
     for name, (default, _where) in NOT_PORTED.items():
         p.add_argument(f"--{name}", type=type(default), default=default,
                        help="not ported yet (rejected unless default)")

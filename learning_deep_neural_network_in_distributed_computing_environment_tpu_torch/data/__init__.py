@@ -11,4 +11,5 @@ from .partition import (  # noqa: F401
     repartition,
     skew_repartition,
     step_budget,
+    window_feed,
 )

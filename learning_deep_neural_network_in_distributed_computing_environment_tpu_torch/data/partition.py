@@ -1,7 +1,9 @@
 """Heterogeneity-aware adaptive data partitioning + non-IID injection.
 
 A copy of the JAX package's ``data/partition.py:1-268`` (numpy only), kept
-here so the port imports nothing from the JAX package.
+here so the port imports nothing from the JAX package, and its
+``window_feed`` (:315-341) for one worker: a process packs only its own
+worker's windows.
 
 Pure host-side numpy with explicit seeded RNGs (the reference uses global
 ``np.random`` state — ``Balanced All-Reduce/dataloader.py:93,99``; seeding
@@ -252,3 +254,29 @@ def pack_window(images: np.ndarray, labels: np.ndarray, indices: np.ndarray,
     # sequences [L] (MLM) — keep any trailing label dims
     y = labels[take].reshape(num_steps, batch_size, *labels.shape[1:])
     return x, y, mask.reshape(num_steps, batch_size)
+
+
+def window_feed(images: np.ndarray, labels: np.ndarray, indices: np.ndarray,
+                batch_size: int, chunk_steps: int, total_steps: int):
+    """Per-epoch iterator factory of the streamed input pipeline, for ONE
+    worker (the JAX ``window_feed`` stacks every worker's window; in the
+    port each process packs its own row only).
+
+    Returns ``gen(epoch) -> iterator`` of fixed-shape windows (x [chunk, B,
+    ...], y [chunk, B, ...], m [chunk, B]) covering steps [0, total_steps)
+    in ``chunk_steps`` strides: only the window being packed is ever
+    materialized on the host.  ``total_steps`` must be a multiple of
+    ``chunk_steps`` (callers round the step budget up; the masks zero the
+    padding tail)."""
+    if chunk_steps < 1 or total_steps % chunk_steps:
+        raise ValueError(
+            f"total_steps {total_steps} not a multiple of chunk_steps "
+            f"{chunk_steps} — fixed-shape windows would ragged-tail")
+
+    def gen(epoch):
+        del epoch  # every local epoch replays the same shard order
+        for s0 in range(0, total_steps, chunk_steps):
+            yield pack_window(images, labels, indices, batch_size, s0,
+                              chunk_steps)
+
+    return gen

@@ -8,7 +8,9 @@ group (one call per process; ``group=None`` is the one-worker run).
    disbalanced);
 4. per global epoch: pack the worker's capped shard, run the round
    (``epochs_local`` x train + validation, then the sync point), assemble
-   the reference metrics;
+   the reference metrics; with ``--stream_chunk_steps C`` the round
+   streams fixed-shape windows of C steps instead (``chunk_feed``,
+   ``LocalSGDEngine.round_streamed``; JAX ``driver.py:978-985, 1652``);
 5. straggler feedback: every worker's measured round wall, divided by
    ``epochs_local``, feeds the sec/batch EMA one round late (as in the JAX
    driver's overlapped pipeline, whose serial mode uses the same delay),
@@ -17,8 +19,8 @@ group (one call per process; ``group=None`` is the one-worker run).
 
 Every rank computes every worker's partition from the same
 ``np.random.default_rng(cfg.seed)`` stream and the same gathered inputs
-(probe durations, walls), and packs the same worker-stacked arrays; the
-engine trains on its own row.  A float that differed between ranks would
+(probe durations, walls), and packs its own worker's row of them, on
+which its engine trains.  A float that differed between ranks would
 desynchronise the shards without a sound, so the init and each round's
 partition are checked by a gathered checksum.
 
@@ -61,6 +63,7 @@ from .data import (
     load_dataset,
     pack_window,
     repartition,
+    window_feed,
     skew_repartition,
     step_budget,
     train_val_split,
@@ -231,15 +234,28 @@ def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
     return ckpt, state, start
 
 
-def _pack(ds, parts, batch: int, caps=None):
-    """Worker-stacked [N, S, B, ...] arrays of each worker's (capped) shard,
-    padded to the common step budget."""
+def _capped(parts, batch: int, caps=None) -> tuple[list, int]:
+    """Each worker's (capped) indices and the common step budget."""
     idxs = [p if caps is None else p[:caps[i] * batch]
             for i, p in enumerate(parts)]
-    steps = max(step_budget([len(p) for p in idxs], batch), 1)
-    packs = [pack_window(ds.images, ds.labels, p, batch, 0, steps)
-             for p in idxs]
-    return tuple(np.stack(a) for a in zip(*packs))
+    return idxs, max(step_budget([len(p) for p in idxs], batch), 1)
+
+
+def _pack(ds, parts, batch: int, rank: int, caps=None):
+    """Worker ``rank``'s (capped) shard as a one-row pack [1, S, B, ...],
+    padded to the common step budget: a process packs its own row only."""
+    idxs, steps = _capped(parts, batch, caps)
+    return tuple(a[None] for a in pack_window(ds.images, ds.labels,
+                                              idxs[rank], batch, 0, steps))
+
+
+def chunk_feed(ds, parts, batch: int, rank: int, chunk: int, caps=None):
+    """The streamed alternative to ``_pack`` (JAX ``driver.py:978-985``):
+    worker ``rank``'s per-epoch iterator of fixed-shape [chunk, B, ...]
+    windows over the common step budget rounded up to whole windows."""
+    idxs, steps = _capped(parts, batch, caps)
+    steps = -(-steps // chunk) * chunk
+    return window_feed(ds.images, ds.labels, idxs[rank], batch, chunk, steps)
 
 
 def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
@@ -256,11 +272,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     instead of the measured round walls (not divided by ``epochs_local``),
     as in the JAX driver (tests of the straggler feedback).
     ``progress``: the report lines and the "Global Epochs" bar (rank 0)."""
-    if cfg.serve_prefix_cache or cfg.serve_prefill_chunk:
+    if (cfg.serve_prefix_cache or cfg.serve_prefill_chunk
+            or cfg.serve_draft_ckpt or cfg.serve_spec_tokens):
         # behaviour switches of the serving fast path: a training run
         # never runs the serve engine, so refuse them (JAX driver.py:255)
         raise ValueError(
-            "--serve_prefix_cache/--serve_prefill_chunk configure the "
+            "--serve_prefix_cache/--serve_prefill_chunk/"
+            "--serve_draft_ckpt/--serve_spec_tokens configure the "
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
@@ -348,10 +366,19 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             if group is not None:
                 _check_same(group, f"round {epoch}'s partition",
                             _partition_digest(train_parts, val_parts, caps))
-            train_pack = _pack(trainset, train_parts, batch, caps)
-            val_pack = _pack(valset, val_parts, batch)
+            if cfg.stream_chunk_steps > 0:
+                # the windows are packed inside the round, by its stager
+                chunk = cfg.stream_chunk_steps
+                run_round = engine.round_streamed
+                inputs = (chunk_feed(trainset, train_parts, batch, rank,
+                                     chunk, caps),
+                          chunk_feed(valset, val_parts, batch, rank, chunk))
+            else:
+                run_round = engine.round
+                inputs = (_pack(trainset, train_parts, batch, rank, caps),
+                          _pack(valset, val_parts, batch, rank))
             t0 = time.perf_counter()
-            state, mx = engine.round(state, train_pack, val_pack)
+            state, mx = run_round(state, *inputs)
             wall = time.perf_counter() - t0
             _assemble_round_metrics(results, mx, n)
             results["step_caps"].append(caps)

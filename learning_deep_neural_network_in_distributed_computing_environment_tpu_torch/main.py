@@ -3,8 +3,10 @@
 Run flow: config -> ``train_global`` (probe, partition, local-SGD rounds;
 checkpoints with ``--checkpoint_dir``, ``--resume``) -> rank-0 test
 evaluation with P/R/F1 -> the six plots.  ``main serve --checkpoint_dir
-D`` instead serves requests off a checkpoint (``serve/api.py``).  Runs on
-CUDA unless ``--device cpu`` is given.
+D`` instead serves requests off a checkpoint (``serve/api.py``), with a
+draft checkpoint for speculative decoding under ``--serve_draft_ckpt``;
+``--stream_chunk_steps C`` streams each round in windows of C steps.
+Runs on CUDA unless ``--device cpu`` is given.
 
 With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
 worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
@@ -23,6 +25,10 @@ Examples::
         --checkpoint_dir ckpt --checkpoint_every 1
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         serve --checkpoint_dir ckpt --serve_max_batch 8
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        serve --checkpoint_dir ckpt --serve_draft_ckpt draft --serve_spec_tokens 4
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --model vit_s16 --dataset imagenet --stream_chunk_steps 2
 """
 
 from __future__ import annotations

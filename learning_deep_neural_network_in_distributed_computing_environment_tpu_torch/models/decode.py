@@ -16,9 +16,10 @@ package runs it as plain XLA, with no custom kernel):
   key/value run under the cache-offset causal mask ``kpos <= position``:
   stale rows of recycled pages sit where the mask excludes them.
 
-``forward_paged`` serves both programs: prefill at ``[1, bucket]`` tokens,
-decode at ``[max_batch, 1]``.  It writes the new keys and values into the
-pools in place.
+``forward_paged`` serves every program: prefill at ``[1, bucket]`` tokens,
+decode at ``[max_batch, 1]`` and a speculative pair's verify at
+``[max_batch, k+1]``.  It writes the new keys and values into the pools in
+place; ``speculative_accept`` is the verify's accept/reject step.
 
 Numerics: the JAX decode's operation for operation at fp32 (LayerNorm as
 E[x²] − μ² in fp32, RMSNorm, RoPE at the cache positions, grouped-query
@@ -247,6 +248,35 @@ def forward_paged(spec: DecodeSpec, model, tokens, lengths, num_valid,
         return torch.einsum("bth,vh->btv", _layernorm(x, model.ln_f),
                             emb.to(dt))
     return dense(_rmsnorm(x, model.rms_f), model.lm_head, dt)
+
+
+def speculative_accept(logits: torch.Tensor, draft: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy accept/reject of one speculation burst, on the device (JAX
+    ``models/decode.py:302-338``).
+
+    ``logits [B, k+1, vocab]`` are the target's verify logits at positions
+    ``C .. C+k`` (the pending token and the k drafted ones); ``draft
+    [B, k]`` the draft's proposals.  The target's token at ``C+j`` is
+    ``t_j = argmax``, the twin of the plain decode step's greedy sample.
+    ``acc = min(longest matching prefix, k-1)`` (a cumulative product of
+    the matches) and ``emitted = d_1 .. d_acc, t_acc`` with the tail -1.
+    The cap costs nothing (when all k match, ``t_{k-1}`` is ``d_k``) and
+    keeps both pools filled exactly to the new length after committing
+    ``acc + 1`` tokens: the draft wrote ``C .. C+k-1``, so no catch-up
+    program of another shape exists, and rollback is page-table
+    arithmetic.  Returns ``(emitted [B, k] int32, acc [B] int32)``."""
+    k = draft.shape[1]
+    tgt = logits.argmax(-1).to(torch.int32)                    # [B, k+1]
+    draft = draft.to(torch.int32)
+    match = (draft == tgt[:, :-1]).to(torch.int32)             # [B, k]
+    acc = torch.cumprod(match, dim=1).sum(1).clamp_max(k - 1).to(torch.int32)
+    bonus = tgt.gather(1, acc[:, None].long())                 # [B, 1]
+    idx = torch.arange(k, device=draft.device)[None, :]
+    emitted = torch.where(idx < acc[:, None], draft,
+                          torch.where(idx == acc[:, None], bonus,
+                                      torch.full_like(draft, -1)))
+    return emitted, acc
 
 
 def sample_seed(seed: int, rid: int, position: int) -> int:

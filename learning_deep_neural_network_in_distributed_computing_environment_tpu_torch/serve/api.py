@@ -1,12 +1,13 @@
 """``main serve`` / ``run_serve`` (port of the JAX package's
 ``serve/api.py:31-255``, without the sanitizer's retrace budget, which has
-no compile to count here, and without speculative decoding, ROADMAP queue
-A.10b).
+no compile to count here).
 
 The model configures itself from the checkpoint's manifest metadata: the
 user points ``--checkpoint_dir`` at a checkpoint root or one ``ckpt_<E>``
 directory and sets the ``--serve_*`` group; restating ``--model`` is
 optional and cross-checked (a mismatch is an error, not an override).
+``--serve_draft_ckpt D --serve_spec_tokens k`` pairs a draft engine, built
+from its own manifest at the target's geometry, for speculative decoding.
 It serves on the card unless ``--device cpu`` is given.
 """
 
@@ -49,16 +50,25 @@ def build_requests(cfg, vocab: int) -> list:
 
 def _memory(engine) -> dict:
     """What the served model holds on its device: the parameters, the two
-    page pools, and the device's peak allocation (0 on the CPU)."""
+    page pools (and the draft's, ``draft_*``, for a speculative pair), and
+    the device's peak allocation (0 on the CPU)."""
+    def held(eng) -> tuple[int, int]:
+        params = sum(p.numel() * p.element_size()
+                     for p in eng.model.parameters())
+        pools = sum(t.numel() * t.element_size()
+                    for t in (eng.kcache, eng.vcache))
+        return params, pools
+
     dev = engine.device
-    params = sum(p.numel() * p.element_size()
-                 for p in engine.model.parameters())
-    pools = sum(t.numel() * t.element_size()
-                for t in (engine.kcache, engine.vcache))
+    params, pools = held(engine)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    return {"device": str(dev), "params_bytes": params,
-            "kv_pool_bytes": pools, "max_memory_allocated": peak}
+    out = {"device": str(dev), "params_bytes": params,
+           "kv_pool_bytes": pools, "max_memory_allocated": peak}
+    if engine.draft is not None:
+        out["draft_params_bytes"], out["draft_kv_pool_bytes"] = held(
+            engine.draft)
+    return out
 
 
 def run_serve(cfg, requests: Optional[list] = None, *,
@@ -68,7 +78,8 @@ def run_serve(cfg, requests: Optional[list] = None, *,
     "completions": [...], "requests": [...], "engine": ServeEngine}``;
     the telemetry carries the scheduler's keys (the JAX engine's),
     ``memory``, ``programs`` (the distinct (program, shape) pairs
-    dispatched) and ``restore_ms`` (checkpoint to engine, wall).
+    dispatched, a draft's under ``draft_programs``) and ``restore_ms``
+    (checkpoints to engine, wall: the draft's included).
 
     ``model_flag_given``: whether ``--model`` was passed explicitly
     (default: given iff not the dataclass default).  Explicit and
@@ -120,14 +131,27 @@ def run_serve(cfg, requests: Optional[list] = None, *,
     buckets = cfg.parse_prompt_buckets()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    engine = ServeEngine.from_checkpoint(
-        path, model=model, device=device, max_batch=cfg.serve_max_batch,
+    # one geometry for both engines of a speculative pair (the pairing
+    # check enforces it); max_seq grows by k: the verify writes up to C + k
+    engine_kw = dict(
+        device=device, max_batch=cfg.serve_max_batch,
         page_size=cfg.serve_page_size, max_pages=cfg.serve_max_pages,
         prompt_buckets=buckets,
-        max_seq=buckets[-1] + cfg.serve_max_new_tokens, seed=cfg.seed,
-        prefix_cache=cfg.serve_prefix_cache,
+        max_seq=(buckets[-1] + cfg.serve_max_new_tokens
+                 + cfg.serve_spec_tokens),
+        seed=cfg.seed, prefix_cache=cfg.serve_prefix_cache,
         prefill_chunk=cfg.serve_prefill_chunk)
+    t0 = time.perf_counter()
+    draft = None
+    if cfg.serve_draft_ckpt:
+        # the draft configures itself from its own manifest (--model
+        # belongs to the target); the pairing checks run in the target's
+        # constructor below, before any request
+        draft = ServeEngine.from_checkpoint(cfg.serve_draft_ckpt,
+                                            **engine_kw)
+    engine = ServeEngine.from_checkpoint(
+        path, model=model, draft=draft, spec_tokens=cfg.serve_spec_tokens,
+        **engine_kw)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     restore_ms = (time.perf_counter() - t0) * 1e3
@@ -141,6 +165,9 @@ def run_serve(cfg, requests: Optional[list] = None, *,
     telemetry["memory"] = _memory(engine)
     telemetry["programs"] = sorted([name, list(shape)]
                                    for name, shape in engine.programs)
+    if draft is not None:
+        telemetry["draft_programs"] = sorted(
+            [name, list(shape)] for name, shape in draft.programs)
     telemetry["restore_ms"] = round(restore_ms, 3)
     return {"serve": telemetry, "completions": completions,
             "requests": requests, "engine": engine}

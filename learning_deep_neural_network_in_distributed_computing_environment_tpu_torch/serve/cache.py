@@ -1,6 +1,6 @@
 """Page pool bookkeeping for the serving engine's paged KV cache (a copy of
-the JAX package's ``serve/cache.py``, without the speculative pair's
-``paired_admit``, which arrives with ROADMAP queue A.10b).
+the JAX package's ``serve/cache.py``, with the speculative pair's
+``paired_admit``).
 
 The device-side cache layout and attention live in ``models/decode.py``;
 this module is the HOST side: which pages belong to which sequence, and
@@ -189,6 +189,43 @@ class PageAllocator:
                 break
             hits.append(p)
         return hits
+
+
+def paired_admit(target: PageAllocator, draft: PageAllocator,
+                 hits_t: list[int], hits_d: list[int], count: int
+                 ) -> tuple[list[int], list[int]] | None:
+    """All-or-nothing admission across a speculative pair's (target,
+    draft) allocators (JAX ``serve/cache.py:192-234``).
+
+    A speculating sequence needs its whole page span in BOTH pools before
+    it starts: the draft writes ``C .. C+k-1`` and the verify ``C .. C+k``
+    every tick, so a pair short of pages in one pool mid-decode would
+    wait on sequences that wait on the other.  This claims the
+    prefix-cache hits and allocates the fresh pages target first, and on
+    any failure rolls BOTH pools back to their entry state (the request
+    stays queued).  ``hits_t``/``hits_d`` cover the same token prefix
+    (one shared filled offset); ``count`` is the span per pool.  Returns
+    ``(target_pages, draft_pages)`` or None."""
+    if len(hits_t) != len(hits_d):
+        raise ValueError(
+            f"paired admission needs hit runs of equal length (one "
+            f"shared filled offset), got {len(hits_t)}/{len(hits_d)}")
+    for p in hits_t:
+        target.claim(p)
+    fresh_t = target.alloc(count - len(hits_t))
+    if fresh_t is None:
+        if hits_t:
+            target.free(hits_t)
+        return None
+    for p in hits_d:
+        draft.claim(p)
+    fresh_d = draft.alloc(count - len(hits_d))
+    if fresh_d is None:
+        if hits_d:
+            draft.free(hits_d)
+        target.free(hits_t + fresh_t)
+        return None
+    return hits_t + fresh_t, hits_d + fresh_d
 
 
 def page_table_row(pages: list[int], pages_per_seq: int) -> np.ndarray:

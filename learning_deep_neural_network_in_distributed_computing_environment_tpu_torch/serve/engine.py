@@ -1,6 +1,6 @@
-"""``ServeEngine``: the paged KV pools, the two fixed-shape device programs
+"""``ServeEngine``: the paged KV pools, the fixed-shape device programs
 and the checkpoint loader of the serving stack (port of the JAX package's
-``serve/engine.py``, without the speculative pair, ROADMAP queue A.10b).
+``serve/engine.py``, with its speculative pair).
 
 The programs, each one shape:
 
@@ -11,6 +11,13 @@ The programs, each one shape:
   ``prefill_chunk=C`` one ``[1, C]`` chunk program replaces the buckets.
 - **decode** — one ``[max_batch, 1]`` step advancing every active slot a
   token; inactive rows write to the trash page.
+- **verify** — a target paired with a draft engine (``draft=``,
+  ``spec_tokens=k``) scores a speculation burst in one ``[max_batch,
+  k+1]`` forward at the current lengths, writes the target's keys and
+  values for positions ``C .. C+k``, and runs ``speculative_accept`` on
+  the device; only ``(emitted, acc)`` cross to the host, in one copy.
+  Its plain decode never runs; the draft runs its own prefill and
+  ``[max_batch, 1]`` decode.
 
 PyTorch runs them eagerly: there is no compile to count, so the engine
 records the distinct ``(program, shape)`` pairs it dispatched
@@ -120,7 +127,9 @@ class ServeEngine:
     def __init__(self, model, *, max_batch: int = 4, page_size: int = 16,
                  max_pages: int = 64, prompt_buckets=(16, 64),
                  max_seq: Optional[int] = None, seed: int = 0,
-                 prefix_cache: bool = False, prefill_chunk: int = 0):
+                 prefix_cache: bool = False, prefill_chunk: int = 0,
+                 draft: Optional["ServeEngine"] = None,
+                 spec_tokens: int = 0):
         self.spec = D.spec_from_model(model)
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -168,6 +177,56 @@ class ServeEngine:
             self.spec, max_pages, self.page_size, self.device)
         self.compiled_buckets: list[int] = []
         self.programs: set[tuple[str, tuple[int, ...]]] = set()
+        self.draft = draft
+        self.spec_tokens = int(spec_tokens)
+        self._check_pair()
+
+    def _check_pair(self) -> None:
+        """The JAX engine's pairing checks (``engine.py:439-494``): a bad
+        pair fails at construction with its reason, never mid-run."""
+        draft = self.draft
+        if (draft is None) != (self.spec_tokens == 0):
+            raise ValueError(
+                "speculative decoding needs BOTH a draft engine and "
+                "spec_tokens >= 1 (--serve_draft_ckpt + "
+                "--serve_spec_tokens): the draft proposes, spec_tokens "
+                "sizes the verify program — one without the other is "
+                "inert")
+        if draft is None:
+            return
+        if self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens must be >= 1, got {self.spec_tokens}")
+        if draft.spec.vocab != self.spec.vocab:
+            raise ValueError(
+                f"draft/target vocabulary mismatch ({draft.spec.vocab} vs "
+                f"{self.spec.vocab}): the draft proposes TOKEN IDS that the "
+                "target's verify logits score — the two models must share "
+                "one id space")
+        if draft.spec.num_experts:
+            raise ValueError(
+                "MoE draft model rejected: the serving MoE decode computes "
+                "EVERY expert's FFN densely and combines by the top-1 gate "
+                "(models/decode._moe_ffn), so an MoE draft costs more per "
+                "step than its dense twin of the same hidden size — a draft "
+                "exists to be cheap; use a dense draft checkpoint")
+        if draft.draft is not None:
+            raise ValueError("draft engines cannot nest: the draft of a "
+                             "pair must be a plain engine")
+        mismatch = [(n, getattr(draft, n), getattr(self, n))
+                    for n in ("max_batch", "page_size", "max_seq",
+                              "prompt_buckets", "prefill_chunk",
+                              "prefix_cache")
+                    if getattr(draft, n) != getattr(self, n)]
+        if draft.allocator.max_pages != self.allocator.max_pages:
+            mismatch.append(("max_pages", draft.allocator.max_pages,
+                             self.allocator.max_pages))
+        if mismatch:
+            raise ValueError(
+                "draft/target engine geometry must match so the two page "
+                "pools stay position-for-position paired (one page table "
+                "schedule, joint admission): mismatched "
+                + ", ".join(f"{n} ({a} vs {b})" for n, a, b in mismatch))
 
     # -- construction from a sharded checkpoint ------------------------
     @classmethod
@@ -286,3 +345,28 @@ class ServeEngine:
             self._tensor(page_table), self.kcache, self.vcache)[:, 0]
         nxt = D.sample_tokens(logits, temps, rids, lengths + 1, self.seed)
         return nxt.cpu().numpy(), logits
+
+    @torch.inference_mode()
+    def verify(self, tokens, lengths, page_table, active
+               ) -> tuple[np.ndarray, np.ndarray]:
+        """Score one speculation burst: ``tokens [max_batch, k+1]`` (the
+        pending token and k draft proposals per row) at cache offsets
+        ``lengths``; writes the target's keys and values for positions
+        ``C .. C+k`` (inactive rows to the trash page) and returns the
+        accept verdict ``(emitted [B, k], acc [B])`` on the host: row i
+        commits ``emitted[i, :acc[i] + 1]``.  Greedy only (the config and
+        the scheduler refuse temperature with a draft)."""
+        if self.draft is None:
+            raise RuntimeError("engine built without a draft pair")
+        k = self.spec_tokens
+        tokens = np.asarray(tokens, np.int32)
+        self._dispatch("verify", tokens.shape, (self.max_batch, k + 1))
+        active = self._tensor(np.asarray(active, bool), torch.bool)
+        num_valid = torch.where(active, k + 1, 0)
+        tok = self._tensor(tokens)
+        logits = D.forward_paged(
+            self.spec, self.model, tok, self._tensor(lengths), num_valid,
+            self._tensor(page_table), self.kcache, self.vcache)
+        emitted, acc = D.speculative_accept(logits, tok[:, 1:])
+        out = torch.cat([emitted, acc[:, None]], 1).cpu().numpy()
+        return out[:, :k], out[:, k]

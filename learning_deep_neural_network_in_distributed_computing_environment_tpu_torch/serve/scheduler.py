@@ -1,6 +1,5 @@
 """Continuous-batching scheduler: the serving control loop (port of the JAX
-package's ``serve/scheduler.py``, without the speculative tick of ROADMAP
-queue A.10b).
+package's ``serve/scheduler.py``, with its speculative tick).
 
 Every loop iteration is one decode step of the whole engine batch:
 
@@ -22,6 +21,13 @@ Every loop iteration is one decode step of the whole engine batch:
 3. **decode** — ONE call of the fixed-shape decode program advances every
    decoding slot a token; free and still-prefilling slots ride along
    masked (their writes go to the trash page).
+   With a draft paired to the engine, step 3 is a **speculation tick**
+   (``_spec_step``) instead: the draft's decode runs k times, the
+   target's verify scores the burst once, and each slot commits its
+   accepted tokens plus the target's bonus token; admission takes the
+   span in both pools at once (``paired_admit``) and the draft prefills
+   (or chunks) the same prompt span.  Greedy output equals the plain
+   run's: speculation changes when tokens appear, never which.
 4. **evict** — slots whose new token is ``eos_id`` or whose budget is
    spent release their page references (an unshared page returns to the
    allocator head — the recycle the tests assert; a shared or cached
@@ -48,7 +54,7 @@ from typing import Optional
 
 import numpy as np
 
-from .cache import page_prefix_keys
+from .cache import page_prefix_keys, paired_admit
 from .engine import ServeEngine
 
 
@@ -89,6 +95,8 @@ class _Slot:
     t_last: float
     t_admit: float = 0.0          # wall clock at admission (timeout base)
     ttft_s: Optional[float] = None
+    draft_pages: Optional[list] = None   # the draft pool's twin span
+    draft_row: Optional[np.ndarray] = None
 
     @property
     def prefilling(self) -> bool:
@@ -119,7 +127,14 @@ class ContinuousBatchingScheduler:
                       "decode_steps": 0, "tokens_generated": 0,
                       "timed_out": 0, "prefill_chunks": 0,
                       "prefix_hit_pages": 0, "prefix_prompt_pages": 0,
-                      "prefill_tokens_saved": 0}
+                      "prefill_tokens_saved": 0,
+                      # speculation (0 without a draft): drafted = k per
+                      # active slot per tick; accepted = committed draft
+                      # tokens (the bonus is the target's); emitted = all
+                      # tokens committed by ticks
+                      "draft_steps": 0, "verify_steps": 0,
+                      "spec_drafted": 0, "spec_accepted": 0,
+                      "spec_emitted": 0}
         self._occupancy: list[int] = []
 
     # -- request validation (fail at submit, not mid-run) ---------------
@@ -144,11 +159,23 @@ class ContinuousBatchingScheduler:
             raise ValueError(
                 f"request {r.rid}: prompt length {plen} exceeds the "
                 f"largest prefill bucket {eng.prompt_buckets[-1]}")
-        total = plen + r.max_new_tokens
+        if eng.draft is not None and r.temperature > 0.0:
+            raise ValueError(
+                f"request {r.rid}: temperature {r.temperature} under "
+                "speculative decoding — acceptance is greedy argmax "
+                "equality against the verify logits; temperature sampling "
+                "needs the stochastic rejection-sampling rule, which is "
+                "not implemented.  Serve it at temperature 0 or without "
+                "--serve_draft_ckpt")
+        # a speculating sequence's verify writes up to position C + k, so
+        # its span (in both pools) covers k more tokens
+        total = plen + r.max_new_tokens + eng.spec_tokens
         if total > eng.max_seq:
             raise ValueError(
-                f"request {r.rid}: prompt + max_new ({total}) exceeds "
-                f"max_seq {eng.max_seq}")
+                f"request {r.rid}: prompt + max_new"
+                + (f" + spec_tokens ({total})" if eng.spec_tokens
+                   else f" ({total})")
+                + f" exceeds max_seq {eng.max_seq}")
         if eng.pages_for(total) > eng.allocator.max_pages - 1:
             raise ValueError(
                 f"request {r.rid}: needs {eng.pages_for(total)} pages but "
@@ -164,26 +191,45 @@ class ContinuousBatchingScheduler:
                 or sum(s is not None for s in slots) >= self.max_active):
             return False
         plen = len(r.prompt)
+        dra = eng.draft
         keys: list = []
         hits: list = []
+        d_hits: list = []
         if eng.prefix_cache:
             keys = page_prefix_keys(r.prompt, eng.page_size)
             # never reuse past (plen - 1): the tail prefill must keep at
             # least one real token so it produces the first-token logits
-            hits = eng.allocator.lookup(keys[:(plen - 1) // eng.page_size])
-        count = eng.pages_for(plen + r.max_new_tokens)
-        # claim the hits BEFORE the fresh alloc: alloc may evict
-        # refcount-0 cached pages to cover a shortfall, and a claimed
-        # page can never be on that LRU
-        for p in hits:
-            eng.allocator.claim(p)
-        fresh = eng.allocator.alloc(count - len(hits))
-        if fresh is None:
-            if hits:
-                eng.allocator.free(hits)
-            self.stats["admission_blocked"] += 1
-            return False
-        pages = hits + fresh
+            lim = keys[:(plen - 1) // eng.page_size]
+            hits = eng.allocator.lookup(lim)
+            if dra is not None:
+                # both pools prefill from one filled offset: the usable
+                # hit run is the shorter of the two pools'
+                d_hits = dra.allocator.lookup(lim)
+                nj = min(len(hits), len(d_hits))
+                hits, d_hits = hits[:nj], d_hits[:nj]
+        count = eng.pages_for(plen + r.max_new_tokens + eng.spec_tokens)
+        d_pages: Optional[list] = None
+        if dra is None:
+            # claim the hits BEFORE the fresh alloc: alloc may evict
+            # refcount-0 cached pages to cover a shortfall, and a claimed
+            # page can never be on that LRU
+            for p in hits:
+                eng.allocator.claim(p)
+            fresh = eng.allocator.alloc(count - len(hits))
+            if fresh is None:
+                if hits:
+                    eng.allocator.free(hits)
+                self.stats["admission_blocked"] += 1
+                return False
+            pages = hits + fresh
+        else:
+            # speculative pair: the whole span in BOTH pools or nothing
+            got = paired_admit(eng.allocator, dra.allocator, hits, d_hits,
+                               count)
+            if got is None:
+                self.stats["admission_blocked"] += 1
+                return False
+            pages, d_pages = got
         row = eng.table_row(pages)
         hit_tok = len(hits) * eng.page_size
         if eng.prefix_cache:
@@ -196,10 +242,19 @@ class ContinuousBatchingScheduler:
                      filled=hit_tok, length=plen,
                      temperature=r.temperature, max_new=r.max_new_tokens,
                      generated=[], decode_lat=[], keys=keys,
-                     registered=len(hits), t_last=t_adm, t_admit=t_adm)
+                     registered=len(hits), t_last=t_adm, t_admit=t_adm,
+                     draft_pages=d_pages,
+                     draft_row=(eng.table_row(d_pages)
+                                if d_pages is not None else None))
         if not eng.prefill_chunk:
             first, _ = eng.prefill(slot.prompt[hit_tok:], row,
                                    r.temperature, r.rid, offset=hit_tok)
+            if dra is not None:
+                # the draft prefills the same span so both caches sit at
+                # one filled offset; its token is dropped (the pending
+                # token is always the target's)
+                dra.prefill(slot.prompt[hit_tok:], slot.draft_row, 0.0,
+                            r.rid, offset=hit_tok)
             now = time.perf_counter()
             slot.generated = [first]
             slot.filled = plen
@@ -222,6 +277,11 @@ class ContinuousBatchingScheduler:
         nfull = min(slot.filled // self.engine.page_size, len(slot.keys))
         for i in range(slot.registered, nfull):
             self.engine.allocator.register(slot.keys[i], slot.pages[i])
+            if slot.draft_pages is not None:
+                # content keys are pool-agnostic: the draft's twin page
+                # publishes under the same key, so both pools hit together
+                self.engine.draft.allocator.register(slot.keys[i],
+                                                     slot.draft_pages[i])
         slot.registered = max(slot.registered, nfull)
 
     def _advance_chunk(self, slot: _Slot) -> None:
@@ -233,6 +293,11 @@ class ContinuousBatchingScheduler:
         tok, _ = eng.prefill_chunk_step(slot.prompt[start:end], start,
                                         slot.row, slot.temperature,
                                         slot.rid)
+        if eng.draft is not None:
+            # the same chunk through the draft pool (token dropped): the
+            # two caches advance through the prompt in lockstep
+            eng.draft.prefill_chunk_step(slot.prompt[start:end], start,
+                                         slot.draft_row, 0.0, slot.rid)
         slot.filled = end
         self.stats["prefill_chunks"] += 1
         self._register_prefix(slot)
@@ -243,8 +308,81 @@ class ContinuousBatchingScheduler:
             slot.t_last = now
             self.stats["tokens_generated"] += 1
 
+    def _spec_step(self, slots: list, active_idx: list, done: dict
+                   ) -> None:
+        """One speculation tick for every decoding slot (JAX
+        ``scheduler.py:319-390``).
+
+        At entry both pools hold positions ``0 .. C-1`` (C =
+        ``slot.length``) and the pending token ``g = generated[-1]``
+        belongs at C.  Draft step j feeds ``y_{j-1}`` at ``C+j-1`` (``y_0
+        = g``), writing its keys and proposing ``d_j``; after k steps the
+        draft pool holds ``0 .. C+k-1``.  The verify scores ``[g, d_1 ..
+        d_k]`` at C, writes the target's ``C .. C+k`` and returns the
+        accepted prefix (capped at k-1) plus the bonus: committing
+        ``acc+1`` tokens leaves both pools filled exactly to the new C,
+        and the rejected tail lies at positions the next burst overwrites
+        before the causal mask can read them (rollback is page-table
+        arithmetic only)."""
+        eng = self.engine
+        dra = eng.draft
+        k = eng.spec_tokens
+        b = eng.max_batch
+        tokens = np.zeros(b, np.int32)
+        lengths = np.zeros(b, np.int32)
+        table = np.zeros((b, eng.pages_per_seq), np.int32)
+        d_table = np.zeros((b, eng.pages_per_seq), np.int32)
+        temps = np.zeros(b, np.float32)     # greedy: speculation is temp 0
+        rids = np.zeros(b, np.int32)
+        active = np.zeros(b, bool)
+        for i in active_idx:
+            s = slots[i]
+            tokens[i] = s.generated[-1]
+            lengths[i] = s.length
+            table[i] = s.row
+            d_table[i] = s.draft_row
+            rids[i] = s.rid
+            active[i] = True
+        burst = np.empty((b, k + 1), np.int32)
+        burst[:, 0] = tokens
+        y = tokens
+        for j in range(k):
+            y, _ = dra.decode(y, lengths + j, d_table, temps, rids, active)
+            burst[:, j + 1] = y
+        emitted, acc = eng.verify(burst, lengths, table, active)
+        self.stats["decode_steps"] += 1     # one target dispatch per tick
+        self.stats["verify_steps"] += 1
+        self.stats["draft_steps"] += k
+        t_now = time.perf_counter()
+        for i in active_idx:
+            s = slots[i]
+            e = int(acc[i]) + 1
+            self.stats["spec_drafted"] += k
+            self.stats["spec_accepted"] += int(acc[i])
+            # commit one token at a time, so an eos or the budget cuts the
+            # burst exactly where the plain run stops; the tick's gap is
+            # split evenly over its tokens
+            gap = (t_now - s.t_last) / e
+            reason = None
+            for tok in emitted[i, :e]:
+                s.generated.append(int(tok))
+                s.decode_lat.append(gap)
+                self.stats["tokens_generated"] += 1
+                self.stats["spec_emitted"] += 1
+                reason = self._stop_reason(s)
+                if reason:
+                    break
+            s.t_last = t_now
+            if reason:
+                done[s.rid] = self._finish(s, reason)
+                slots[i] = None
+            else:
+                s.length += e
+
     def _finish(self, slot: _Slot, reason: str) -> Completion:
         self.engine.allocator.free(slot.pages)
+        if slot.draft_pages is not None:
+            self.engine.draft.allocator.free(slot.draft_pages)
         self.stats["evicted"] += 1
         return Completion(rid=slot.rid, prompt_len=slot.plen,
                           tokens=slot.generated, reason=reason,
@@ -322,6 +460,10 @@ class ContinuousBatchingScheduler:
                     time.sleep(max(0.0, min(
                         0.001, queue[0].arrival_s - now)))
                 continue
+            if eng.draft is not None:
+                self._spec_step(slots, active_idx, done)
+                self._occupancy.append(eng.allocator.in_use)
+                continue
             b = eng.max_batch
             tokens = np.zeros(b, np.int32)
             lengths = np.zeros(b, np.int32)
@@ -379,8 +521,9 @@ class ContinuousBatchingScheduler:
 
         occ = self._occupancy or [0]
         page_bytes = eng.page_bytes()
-        hit_pages = self.stats["prefix_hit_pages"]
-        prompt_pages = self.stats["prefix_prompt_pages"]
+        st = self.stats
+        hit_pages = st["prefix_hit_pages"]
+        prompt_pages = st["prefix_prompt_pages"]
         out = {
             "enabled": True,
             "requests": len(requests),
@@ -404,11 +547,22 @@ class ContinuousBatchingScheduler:
             "page_reuse_ratio": (round(hit_pages / prompt_pages, 4)
                                  if prompt_pages else 0.0),
             "prefill_tokens_saved": self.stats["prefill_tokens_saved"],
-            # speculative decoding (ROADMAP A.10b) is not ported: its
-            # counters are zero-filled, as the JAX engine fills them on a
-            # run without a draft
-            "spec": {"acceptance_rate": 0.0, "draft_steps": 0,
-                     "verify_steps": 0, "target_steps_per_token": 0.0},
+            # speculation, zero-filled without a draft (the JAX keys):
+            # acceptance_rate = committed draft tokens over drafted ones;
+            # target_steps_per_token = verify ticks a sequence sat through
+            # per token it emitted (spec_drafted / k sums active slots over
+            # ticks, so it does not depend on the batch width): 1.0 means
+            # speculation bought nothing, 1/k is the floor
+            "spec": {
+                "acceptance_rate": (
+                    round(st["spec_accepted"] / st["spec_drafted"], 4)
+                    if st["spec_drafted"] else 0.0),
+                "draft_steps": st["draft_steps"],
+                "verify_steps": st["verify_steps"],
+                "target_steps_per_token": (
+                    round(st["spec_drafted"] / eng.spec_tokens
+                          / st["spec_emitted"], 4)
+                    if st["spec_emitted"] else 0.0)},
             # byte-exact page accounting: in_use sampled after every
             # admission/step x the per-page pin across both pools
             "pages": {"page_size": eng.page_size,
@@ -420,7 +574,13 @@ class ContinuousBatchingScheduler:
                       "cached_pages": eng.allocator.cached_pages,
                       "cache_evictions": eng.allocator.cache_evictions,
                       "leaked": eng.allocator.in_use,
-                      "draft_peak_in_use": 0, "draft_leaked": 0},
+                      # the draft pool (0 without a draft): joint admission
+                      # mirrors the target's in_use, and leaked ends 0
+                      "draft_peak_in_use": (
+                          eng.draft.allocator.peak_in_use
+                          if eng.draft is not None else 0),
+                      "draft_leaked": (eng.draft.allocator.in_use
+                                       if eng.draft is not None else 0)},
         }
         out["completions"] = [done[r.rid] for r in requests
                               if r.rid in done]

@@ -22,13 +22,24 @@ worker-stacked packs; the sync point aggregates over the group
 (``comms.aggregate``), and the round's metrics are gathered so that every
 rank returns the JAX engine's [N, ...] arrays, the cross-worker means
 included.
+
+``round_streamed`` (``--stream_chunk_steps C``; JAX ``train.py:350-430,
+2554-2765``) runs the same step bodies over fixed-shape windows of C steps
+instead of one whole-round pack: a ``ChunkStager`` thread packs the next
+windows and stages them while the current one computes, on the card
+through pinned host buffers and a side-stream copy.  The same bytes reach
+the same steps in the same order, so a streamed round is bitwise the whole
+round.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
-from typing import Optional
+from collections import deque
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -133,9 +144,153 @@ def to_device(a: np.ndarray, device: torch.device,
     """A numpy array on ``device``: images as fp32 (NHWC), token ids as
     int64, unless ``dtype`` says otherwise."""
     if dtype is None:
-        dtype = (torch.float32 if np.issubdtype(a.dtype, np.floating)
-                 else torch.long)
+        dtype = input_dtype(a)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+
+def input_dtype(a: np.ndarray) -> torch.dtype:
+    """The device dtype of an input array: fp32 images, int64 token ids."""
+    return torch.float32 if np.issubdtype(a.dtype, np.floating) else torch.long
+
+
+def step_weights(y: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """Each step's count of real loss positions (0 = an all-padding step,
+    skipped) of a host window ``y [S, B, ...]``, ``m [S, B]``."""
+    return (masked_weights(torch.from_numpy(np.asarray(y)),
+                           torch.from_numpy(np.asarray(m)))
+            .reshape(len(m), -1).sum(-1).numpy())
+
+
+class ChunkStager:
+    """Bounded producer thread of the streamed round's input pipeline (JAX
+    ``train.py:350-430``).
+
+    Wraps a generator of host windows: the producer packs the next
+    window(s) and stages them (``stage_fn``) while the consumer's current
+    window computes.  ``depth`` bounds the staged windows ahead of the
+    consumer (2 = double buffering).  A generator or staging error
+    re-raises at the consumer's next pull.  A consumer that stops early
+    must ``close()`` the stager: it stops the producer, joins it and drops
+    what is already staged, so no device buffer stays pinned by a parked
+    thread."""
+
+    _DONE = object()
+
+    def __init__(self, gen: Iterable, stage_fn: Callable, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
+        self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._produce,
+                                   args=(gen, stage_fn), daemon=True,
+                                   name="chunk-stager")
+        self._t.start()
+
+    def _put(self, item) -> bool:
+        """A stop-aware bounded put: blocks while the consumer drains,
+        gives up once ``close()`` was called."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self, gen, stage_fn) -> None:
+        try:
+            for item in gen:
+                if self._stop.is_set() or not self._put(stage_fn(item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — re-raised at consumer
+            self._err = e
+        finally:
+            self._put(self._DONE)
+
+    def close(self) -> None:
+        """Stop the producer, join it, and drop every staged window.
+        Idempotent."""
+        self._stop.set()
+        # drain, let the producer see the stop (its puts give up within
+        # 0.1 s), then drain what its last put landed
+        for _ in range(2):
+            while True:
+                try:
+                    self._q.get_nowait()
+                except queue.Empty:
+                    break
+            self._t.join(timeout=5.0)
+
+    def __iter__(self):
+        while True:
+            item = self._q.get()
+            if item is self._DONE:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+
+
+class WindowStaging:
+    """Stages host windows ``(x, y, m)`` onto ``device`` as ``(x, y, m,
+    weights, ready)``: ``weights`` is ``step_weights`` on the host, and
+    ``ready`` the event the consumer waits on before it reads the tensors.
+
+    On the card each window is copied into a pinned host buffer (one of
+    ``slots``, reused only after its last copy's event has passed, in the
+    device dtypes: fp32 images, int64 labels, fp32 mask), then to the
+    device by a ``non_blocking`` copy on a side stream, so the copies
+    overlap the consumer's compute.  On the CPU it is ``from_numpy``
+    (``ready`` is None)."""
+
+    def __init__(self, device: torch.device, slots: int = 4):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self._slots: deque = deque()       # (pinned buffers, last event)
+        self._nslots = max(2, int(slots))
+
+    def _pinned(self, arrays: tuple) -> tuple:
+        x, y, m = arrays
+        want = [(x.shape, input_dtype(x)), (y.shape, torch.long),
+                (m.shape, torch.float32)]
+        if len(self._slots) >= self._nslots:
+            bufs, ev = self._slots.popleft()
+            ev.synchronize()               # its last H2D copy has finished
+            if [(tuple(b.shape), b.dtype) for b in bufs] == want:
+                return bufs
+        return tuple(torch.empty(shape, dtype=d, pin_memory=True)
+                     for shape, d in want)
+
+    def __call__(self, window):
+        x, y, m = (np.ascontiguousarray(a) for a in window)
+        weights = step_weights(y, m)
+        if not self.cuda:
+            return (to_device(x, self.device), to_device(y, self.device,
+                                                         torch.long),
+                    to_device(m, self.device, torch.float32), weights, None)
+        bufs = self._pinned((x, y, m))
+        for b, a in zip(bufs, (x, y, m)):
+            b.copy_(torch.from_numpy(a))
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            out = tuple(b.to(self.device, non_blocking=True) for b in bufs)
+            ready = torch.cuda.Event()
+            ready.record(self.stream)
+        self._slots.append((bufs, ready))
+        return (*out, weights, ready)
+
+
+def take_window(item, device: torch.device):
+    """The consumer's side of ``WindowStaging``: wait for the window's copy
+    on the current stream and tie its tensors to that stream (the
+    allocator must not hand their memory back to the side stream while the
+    current one still reads it).  Returns ``(x, y, m, weights)``."""
+    *tensors, weights, ready = item
+    if ready is not None:
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(ready)
+        for t in tensors:
+            t.record_stream(cur)
+    return (*tensors, weights)
 
 
 def worker_seed(seed: int, rank: int) -> int:
@@ -239,12 +394,20 @@ class LocalSGDEngine:
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
     def _to_device(self, pack):
-        x, y, m = (np.asarray(a)[self.rank] for a in pack)  # row of [N, S, ..]
-        real = (masked_weights(torch.from_numpy(y), torch.from_numpy(m))
-                .reshape(len(m), -1).sum(-1).numpy())
+        """This worker's row of a worker-stacked pack ``[N, S, ...]``, or
+        of a pack that holds this worker's row alone (``[1, S, ...]``,
+        what the driver builds), on the device with its step weights."""
+        rows = np.shape(pack[0])[0]
+        if rows not in (1, self.n_workers):
+            raise ValueError(
+                f"a pack of {rows} worker rows for a group of "
+                f"{self.n_workers}: give every worker's row, or this "
+                "worker's alone")
+        row = self.rank if rows > 1 else 0
+        x, y, m = (np.asarray(a)[row] for a in pack)
         dev = self.device
         return (to_device(x, dev), to_device(y, dev, torch.long),
-                to_device(m, dev, torch.float32), real)
+                to_device(m, dev, torch.float32), step_weights(y, m))
 
     def _loss(self, x, y, m, denom, aux_div: float):
         """(loss, correct) of one forward: the masked CE numerator over
@@ -293,59 +456,134 @@ class LocalSGDEngine:
 
     def round(self, state: TrainState, train_pack, val_pack):
         """Run one round on worker-stacked numpy packs ``(x, y, mask)`` of
-        shape [N, S, B, ...] (this worker reads row ``rank``); returns
-        ``(state, metrics)`` with the JAX engine's per-worker metric arrays
-        (leading worker axis N, gathered over the group) plus host timings:
-        this worker's ``train_ms``, ``train_steps`` and ``val_steps``, and
-        every worker's ``wall_s`` (round start to its sync point: a wait
-        for slower peers is not its own time), ``train_ms``,
-        ``train_steps``, ``sync_ms`` and its process's peak
-        ``max_memory_allocated`` on a card (0 on the CPU) under
-        ``workers_*``."""
-        cfg = self.cfg
+        shape [N, S, B, ...] (this worker reads row ``rank``; a pack of one
+        row is this worker's own); returns ``(state, metrics)`` with the
+        JAX engine's per-worker metric arrays (leading worker axis N,
+        gathered over the group) plus host timings: this worker's
+        ``train_ms``, ``train_steps`` and ``val_steps``, and every worker's
+        ``wall_s`` (round start to its sync point: a wait for slower peers
+        is not its own time), ``train_ms``, ``train_steps``, ``sync_ms``
+        and its process's peak ``max_memory_allocated`` on a card (0 on
+        the CPU) under ``workers_*``."""
         t_round = time.perf_counter()
-        self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
-        x, y, m, real = self._to_device(train_pack)
-        xv, yv, mv, real_v = self._to_device(val_pack)
-        augment = cfg.augment and x.ndim == 5       # [S, B, H, W, C]
+        train = (*self._to_device(train_pack), None)
+        val = (*self._to_device(val_pack), None)
+        return self._run_round(state, t_round, lambda e: [train],
+                               lambda e: [val])
+
+    def round_streamed(self, state: TrainState, train_chunks, val_chunks):
+        """``round`` over fixed-shape windows (JAX ``train.py:2554-2765``):
+        ``train_chunks(epoch)`` / ``val_chunks(epoch)`` give this worker's
+        host windows ``(x [C, B, ...], y [C, B, ...], m [C, B])``
+        (``data.window_feed``) for local epoch ``epoch``.  With
+        ``cfg.stream_prefetch > 0`` one ``ChunkStager`` of that depth
+        stages the round's windows ahead of compute, across the epochs'
+        boundaries; 0 stages each when it is needed (the serial twin).
+        The same step bodies run on the same bytes in the same order as
+        ``round``, all-padding steps skipped; the metrics have the JAX
+        streamed round's shapes (steps padded to whole windows, masked)."""
+        t_round = time.perf_counter()
+        depth = self.cfg.stream_prefetch
+        staging = WindowStaging(self.device, slots=depth + 2)
+
+        def source():
+            # the whole round's windows in the order the round consumes
+            # them, None closing each feed, so one producer keeps packing
+            # ahead across the epochs' boundaries
+            for epoch in range(self.cfg.epochs_local):
+                for chunks in (train_chunks, val_chunks):
+                    yield from chunks(epoch)
+                    yield None
+
+        def stage(window):
+            return None if window is None else staging(window)
+
+        staged = (ChunkStager(source(), stage, depth=depth) if depth > 0
+                  else map(stage, source()))
+        pull = iter(staged).__next__
+
+        def feed(epoch):
+            return iter(pull, None)        # this feed's windows
+        try:
+            return self._run_round(state, t_round, feed, feed)
+        finally:
+            if isinstance(staged, ChunkStager):
+                staged.close()
+
+    def _windows(self, feed, epoch: int):
+        """One epoch's staged windows as ``(x, y, m, weights)``."""
+        return (take_window(item, self.device) for item in feed(epoch))
+
+    def _epoch_scalars(self, losses, corrects, weights: np.ndarray):
+        """Reference per-epoch scalars: loss = mean over real batches,
+        accuracy = 100 * correct / total.  The sums stop at the last real
+        step, so trailing padding steps (a streamed round's whole-window
+        tail) leave them bit for bit unchanged."""
         dev = self.device
-        steps = len(real)
+        real = np.flatnonzero(weights > 0)
+        n = int(real[-1]) + 1 if len(real) else 0
+        real_step = torch.as_tensor(weights[:n] > 0, dtype=torch.float32,
+                                    device=dev)
+        totals = torch.as_tensor(weights[:n], dtype=torch.float32,
+                                 device=dev)
+        loss = ((losses[:n] * real_step).sum()
+                / real_step.sum().clamp_min(1))
+        acc = 100.0 * corrects[:n].sum() / totals.sum().clamp_min(1)
+        return loss, acc
+
+    def _run_round(self, state: TrainState, t_round: float, train_feed,
+                   val_feed):
+        """The round's body over windows: ``train_feed(epoch)`` and
+        ``val_feed(epoch)`` yield staged windows ``(x, y, m, weights,
+        ready)`` (one whole-round window, ready None, for ``round``)."""
+        cfg = self.cfg
+        self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
+        dev = self.device
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
                                      "train_loss", "train_acc", "val_loss",
                                      "val_acc")}
         last_grads: Optional[list] = None
         train_s, train_steps, val_steps = 0.0, 0, 0
-        for _ in range(cfg.epochs_local):
+        for e in range(cfg.epochs_local):
             lr = steplr(cfg.lr, cfg.lr_gamma, cfg.lr_step_size,
                         state.lr_epoch)
-            losses = torch.zeros(steps, device=dev)
-            corrects = torch.zeros(steps, device=dev)
+            losses, corrects, weights = [], [], []
             self.model.train()
             self._sync()
             t0 = time.perf_counter()
-            for s in range(steps):
-                if real[s] == 0:      # all padding: the step is a no-op
-                    continue
-                losses[s], corrects[s], last_grads = self._train_step(
-                    state, x[s], y[s], m[s], lr, augment)
-                train_steps += 1
+            for x, y, m, real in self._windows(train_feed, e):
+                augment = cfg.augment and x.ndim == 5   # [S, B, H, W, C]
+                lw = torch.zeros(len(real), device=dev)
+                cw = torch.zeros(len(real), device=dev)
+                for s in range(len(real)):
+                    if real[s] == 0:     # all padding: the step is a no-op
+                        continue
+                    lw[s], cw[s], last_grads = self._train_step(
+                        state, x[s], y[s], m[s], lr, augment)
+                    train_steps += 1
+                losses.append(lw)
+                corrects.append(cw)
+                weights.append(real)
             self._sync()
             train_s += time.perf_counter() - t0
-            real_step = torch.as_tensor(real > 0, dtype=torch.float32,
-                                        device=dev)
-            # reference per-epoch scalars: loss = mean over real batches,
-            # accuracy = 100 * correct / total
-            totals = torch.as_tensor(real, dtype=torch.float32, device=dev)
-            train_loss = (losses * real_step).sum() / real_step.sum().clamp_min(1)
-            train_acc = 100.0 * corrects.sum() / totals.sum().clamp_min(1)
+            losses = (torch.cat(losses) if losses
+                      else torch.zeros(0, device=dev))
+            corrects = (torch.cat(corrects) if corrects
+                        else torch.zeros(0, device=dev))
+            weights = (np.concatenate(weights) if weights
+                       else np.zeros(0, np.float32))
+            train_loss, train_acc = self._epoch_scalars(losses, corrects,
+                                                        weights)
             vsum = torch.zeros(3, device=dev)
             self.model.eval()
-            for s in range(len(real_v)):
-                if real_v[s] > 0:
-                    vsum += self._eval_step(xv[s], yv[s], mv[s])
-                    val_steps += 1
+            for xv, yv, mv, real_v in self._windows(val_feed, e):
+                for s in range(len(real_v)):
+                    if real_v[s] > 0:
+                        vsum += self._eval_step(xv[s], yv[s], mv[s])
+                        val_steps += 1
             per_epoch["batch_losses"].append(losses)
-            per_epoch["batch_mask"].append(real_step)
+            per_epoch["batch_mask"].append(torch.as_tensor(
+                weights > 0, dtype=torch.float32, device=dev))
             per_epoch["train_loss"].append(train_loss)
             per_epoch["train_acc"].append(train_acc)
             per_epoch["val_loss"].append(vsum[0] / vsum[2].clamp_min(1))

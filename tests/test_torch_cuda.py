@@ -533,3 +533,92 @@ def test_serve_engine_on_card_matches_cpu(cuda, name, kw):
         logits.append((first.cpu(), dec[0].cpu()))
     for a, b in zip(*logits):
         np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("name,kw", [("gpt_tiny", {}),
+                                     ("llama_tiny", {"num_kv_heads": 2})])
+def test_speculative_serve_on_card_matches_cpu(cuda, name, kw):
+    """Speculative decoding on the card (fp32, TF32 off): the streams equal
+    the card's plain run and the CPU's speculative run, with the same
+    accepted counts, and both pools end empty."""
+    import copy
+
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.serve import (
+        ContinuousBatchingScheduler,
+        Request,
+        ServeEngine,
+    )
+    geo = dict(max_batch=3, page_size=4, max_pages=32, prompt_buckets=(8, 16),
+               max_seq=24)
+    models = []
+    for seed in (0, 99):
+        m = get_model(name, num_classes=97, dtype=torch.float32, **kw)
+        m.init_parameters(torch.Generator().manual_seed(seed))
+        models.append(m)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(1, 97, 4 + 2 * i).tolist(),
+                    max_new_tokens=6) for i in range(5)]
+    outs = []
+    for device in ("cpu", cuda):
+        target, draft = (copy.deepcopy(m).to(device) for m in models)
+        eng = ServeEngine(target, draft=ServeEngine(draft, **geo),
+                          spec_tokens=3, **geo)
+        out = ContinuousBatchingScheduler(eng).run(reqs)
+        assert out["pages"]["leaked"] == out["pages"]["draft_leaked"] == 0
+        outs.append(out)
+    plain = ContinuousBatchingScheduler(ServeEngine(
+        copy.deepcopy(models[0]).to(cuda), **geo)).run(reqs)
+    streams = [[c.tokens for c in o["completions"]]
+               for o in (*outs, plain)]
+    assert streams[0] == streams[1] == streams[2]
+    assert outs[0]["spec"] == outs[1]["spec"]
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_streamed_round_on_card_is_bitwise_the_whole_round(cuda, prefetch):
+    """enhanced_cnn (width 8, bf16, augmentation on) on the card: a round
+    streamed in windows of 3 through pinned buffers and the side-stream
+    copies equals the whole round bit for bit."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        config as t_config,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        driver as t_driver,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        train as t_train,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
+        load_dataset,
+        pack_window,
+        window_feed,
+    )
+    cfg = t_config.Config(model="enhanced_cnn", model_width=8,
+                          dataset="cifar10", batch_size=16, epochs_local=2,
+                          stream_chunk_steps=3, stream_prefetch=prefetch)
+    ds, _ = load_dataset("cifar10", "data", 0, 200, 4)
+    tr, va = np.arange(150), np.arange(150, 190)
+    runs = []
+    for streamed in (False, True):
+        model = t_driver.build_model_for(cfg, 10, cuda, ds.images.shape[1:])
+        engine = t_train.LocalSGDEngine(model, cfg, cuda)
+        state = engine.init_state()
+        if streamed:
+            state, mx = engine.round_streamed(
+                state, window_feed(ds.images, ds.labels, tr, 16, 3, 12),
+                window_feed(ds.images, ds.labels, va, 16, 3, 3))
+        else:
+            state, mx = engine.round(
+                state, tuple(a[None] for a in pack_window(
+                    ds.images, ds.labels, tr, 16, 0, 10)),
+                tuple(a[None] for a in pack_window(
+                    ds.images, ds.labels, va, 16, 0, 3)))
+        runs.append((mx, {k: v.detach().cpu() for k, v in
+                          engine.checkpoint_state(state).tensors().items()}))
+    (w_mx, w_state), (s_mx, s_state) = runs
+    np.testing.assert_array_equal(s_mx["batch_losses"][..., :10],
+                                  w_mx["batch_losses"])
+    for key in ("train_loss", "train_acc", "val_loss", "val_acc"):
+        np.testing.assert_array_equal(s_mx[key], w_mx[key], err_msg=key)
+    for k in w_state:
+        assert torch.equal(s_state[k], w_state[k]), k

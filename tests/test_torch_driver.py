@@ -158,11 +158,14 @@ def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert not any(tmp_path.iterdir())
 
 
-def test_serve_is_not_ported():
-    """`main serve` is ported; its speculative decoding is not (A.10b)."""
-    with pytest.raises(ValueError, match="A.10b"):
-        t_main.run(["serve", "--checkpoint_dir", "x", "--serve_draft_ckpt",
-                    "y", "--serve_spec_tokens", "2"])
+def test_serve_is_not_ported(tmp_path):
+    """`main serve` is ported with its speculative decoding (ROADMAP A.10
+    and A.10b): the speculative flags pass the config, and the run stops
+    only at the checkpoint that is not there."""
+    with pytest.raises(FileNotFoundError, match="no committed checkpoint"):
+        t_main.run(["serve", "--checkpoint_dir", str(tmp_path / "x"),
+                    "--serve_draft_ckpt", str(tmp_path / "y"),
+                    "--serve_spec_tokens", "2"])
 
 
 @pytest.mark.parametrize("flags,where", [

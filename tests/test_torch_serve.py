@@ -533,16 +533,22 @@ def test_invalid_values_refused_by_both_configs(bad):
 
 
 def test_speculative_flags_name_their_queue():
-    with pytest.raises(ValueError, match="A.10b"):
-        Config(serve_draft_ckpt="d", serve_spec_tokens=2)
-    with pytest.raises(ValueError, match="A.10b"):
-        Config(serve_spec_tokens=2)
+    """Speculative decoding is ported (ROADMAP A.10b): the two flags arm it
+    together, and one alone is refused as the JAX config refuses it."""
+    cfg = Config(serve_draft_ckpt="d", serve_spec_tokens=2)
+    assert cfg.serve_spec_tokens == 2
+    for bad in (dict(serve_spec_tokens=2), dict(serve_draft_ckpt="d")):
+        with pytest.raises(ValueError, match="TOGETHER"):
+            JConfig(**bad)
+        with pytest.raises(ValueError, match="TOGETHER"):
+            Config(**bad)
 
 
 def test_fast_path_flags_refused_by_training_runs():
-    with pytest.raises(ValueError, match="serving fast path"):
-        t_driver.train_global(Config(device="cpu", serve_prefix_cache=True,
-                                     serve_max_pages=200))
+    for flags in (dict(serve_prefix_cache=True, serve_max_pages=200),
+                  dict(serve_draft_ckpt="/tmp/x", serve_spec_tokens=2)):
+        with pytest.raises(ValueError, match="serving fast path"):
+            t_driver.train_global(Config(device="cpu", **flags))
 
 
 @pytest.fixture(scope="module")
