@@ -119,7 +119,19 @@ Phases (any failure exits non-zero before the result line):
              per round and the bytes per worker, each process's peak
              memory, the host's core count; checks finite and falling
              losses, no flash launch, and bitwise-identical parameters on
-             every rank after an equal all-reduce.
+             every rank after an equal all-reduce;
+10. sim    - the scenario lab (--sim_workers, one process): the cnn run at
+             N=8 weighted double ring non-IID (2 x 2) and its profile, N=8
+             equal all-reduce (all rows bitwise equal after the sync) and
+             N=32 (the ceiling on one card): summed images/s beside the cnn
+             and sync phases', stacked-blend sync ms, bytes, peak memory;
+             sim parity n2 (fp32, 1,024 images) against 2 worker
+             processes at limits set between the sound reading and three
+             planted faults; sim scenario (the draws equal the seed's numpy
+             draw, dropped rows bitwise frozen); sim gpt2 n4 (one flash
+             launch per layer per pass for all 4 workers, worker 0's flash
+             vs dense logits), whose kernels the kernels phase holds at
+             sim_path [256,128,12,64].
 
 The last lines are the smoke's total wall, the nvidia-smi line, one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.  Imports
@@ -251,6 +263,45 @@ SYNC_RUNS = [
         "--aggregation_type", "weighted", "--topology", "double_ring",
         "--data_mode", "disbalanced", "--local_weight", "0.7"]),
 ]
+# the scenario lab (--sim_workers): the cnn run's N workers in one process
+SIM_WEIGHTED = ["--aggregation_by", "weights", "--aggregation_type",
+                "weighted", "--topology", "double_ring", "--data_mode",
+                "disbalanced", "--local_weight", "0.7"]
+SIM_ALLREDUCE = ["--aggregation_by", "weights", "--aggregation_type",
+                 "equal", "--topology", "allreduce", "--data_mode",
+                 "balanced", "--epochs_global", "1"]
+# phase sim scenario: N=8, 2 rounds x 1 local epoch on 1,024 images
+SIM_SCENARIO = ["--sim_sample_frac", "0.5", "--sim_dropout", "0.125",
+                "--sim_byzantine", "signflip:1", "--sim_lr_jitter", "0.2",
+                "--sim_staleness", "1"]
+# phase sim parity n2: --sim_workers 2 against 2 worker processes, fp32, 1
+# round of 1 local epoch on 1,024 images (7 steps a worker) at lr 1e-4;
+# uniform shares, so the two runs' probes (one tiled measurement, two
+# measured ranks) split alike
+SIM_PARITY_LR = 1e-4
+SIM_PARITY_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
+                   "--epochs_global", "1", "--epochs_local", "1",
+                   "--limit_train_samples", "1024", "--limit_eval_samples",
+                   "256", "--compute_dtype", "float32", "--aggregation_by",
+                   "weights", "--aggregation_type", "weighted",
+                   "--local_weight", "0.7", "--probe_batches", "1",
+                   "--proportionality", "uniform", "--lr",
+                   str(SIM_PARITY_LR)]
+# The two runs compute each worker's products with other cuDNN algorithms
+# (a vmapped conv is one grouped conv), so they differ by fp32 rounding,
+# which every step amplifies (train-mode BatchNorm; Adam moves an element
+# whose gradient is near zero by ~lr whatever its size).  Limits, as
+# relative differences between the runs: the first and second batch
+# losses, every batch loss, worker 0's parameter update and BatchNorm
+# statistics in L2, the validation losses.  Each lies between the sound
+# reading on the H100 (twice: 2.7e-7, 1.1e-4, 5.9e-3 and 1.2e-2, 0.068,
+# 1.9e-3, 1.3e-5 and 1.3e-4) and the least reading of the faults it
+# catches, planted in a run of this phase: every worker drawing worker
+# 0's augmentation (first 5.2e-2, stats 3.6e-2, val 3.8e-3), Adam's bias
+# correction a step ahead (second 3.4e-2, losses 6.8e-2, update 0.136),
+# BatchNorm statistics never written (stats 0.52, val 1.0e-2).
+SIM_PARITY_TOL = dict(first=1e-5, second=1e-3, losses=3e-2, update=0.1,
+                      stats=1e-2, val=1e-3)
 SYNC_MODE_SIZES = [(7,), (3, 5), (1,), (129,), (1_000_003,)]
 SYNC_LOCAL_WEIGHT = 0.7
 SYNC_TOL = 1e-6                # rtol and atol against the float64 formula
@@ -274,9 +325,11 @@ SHAPES = [
     ("bert_path", PATH_BATCH, PATH_LEN, 12, 12, 64, False),
     ("vit_path", PATH_BATCH, 196, 6, 6, 64, False),
     ("draft_path", PATH_BATCH, PATH_LEN, 4, 4, 32, True),
+    # the gpt2 path's shape with --sim_workers 4 folded into the batch
+    ("sim_path", 4 * PATH_BATCH, PATH_LEN, 12, 12, 64, True),
 ]
 # shapes whose numbers every kernel's JSON row carries beside its path's
-ROW_SHAPES = ("bert_path", "vit_path", "draft_path")
+ROW_SHAPES = ("bert_path", "vit_path", "draft_path", "sim_path")
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
 # gradients are rounded to bf16 (relative spacing 2^-8) after fp32
@@ -1766,19 +1819,336 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     return counts, dict(summed_images_s=summed, step_ms=step_ms, wall=wall)
 
 
-def phase_sync(one_worker_images_s: float) -> dict:
+def phase_sync(one_worker_images_s: float) -> tuple[dict, dict]:
     """Phase 8: the modes on CUDA at n=2 and 4, then the three N-worker
-    runs; returns rank 0's summed launch counts."""
+    runs; returns rank 0's summed launch counts and each run's summed
+    images/s."""
     t0 = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke", "sync")
     for n in (2, 4):
         check_sync_modes(n, work)
-    counts = {}
+    counts, rates = {}, {}
     for label, n, extra in SYNC_RUNS:
-        c, _ = run_sync(label, n, extra, one_worker_images_s)
+        c, info = run_sync(label, n, extra, one_worker_images_s)
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        rates[label] = info["summed_images_s"]
     print(f"[sync] phase wall {time.perf_counter() - t0:.1f} s")
+    return counts, rates
+
+
+def _sim_run(tag: str, argv: list[str]):
+    """main.run(argv) of a --sim_workers run with the launch counters reset
+    just before and read just after and the peak memory reset; returns
+    (counts, results, wall s, peak bytes)."""
+    import torch
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    main = import_module(f"{PKG}.main")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fl.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = main.run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fl.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return counts, results, wall, peak
+
+
+def _sim_rates(results) -> tuple[float, list[float], list[float],
+                                 list[float]]:
+    """(summed images/s over the train loops, each round's summed images/s,
+    round ms, sync ms).  The first round also pays cuDNN's first use of
+    the grouped convs (the probe ran the one-worker convs)."""
+    rt = results["round_timings"]
+    per_round = [sum(r["workers_train_steps"]) * PATH_BATCH
+                 / (r["train_ms"] / 1e3) for r in rt]
+    images = sum(sum(r["workers_train_steps"]) for r in rt) * PATH_BATCH
+    train_s = sum(r["train_ms"] for r in rt) / 1e3
+    return (images / train_s, per_round, [r["compute_ms"] for r in rt],
+            [r["sync_ms"] for r in rt])
+
+
+def _check_sim(tag: str, results, counts, n: int) -> None:
+    """No flash launch on a CNN path, N workers, every state value
+    finite."""
+    import torch
+    if any(counts.values()):
+        fail(f"{tag}: flash kernels launched on the CNN path: {counts}")
+    if results["sim"]["workers"] != n or len(
+            results["all_workers_losses"]) != n:
+        fail(f"{tag}: results['sim']['workers'] "
+             f"{results['sim']['workers']}, expected {n}")
+    state = results["state"]
+    bad = [i for i, t in enumerate((*state.params, *state.buffers,
+                                    *state.opt.mu, *state.opt.nu))
+           if not bool(torch.isfinite(t).all())]
+    if bad:
+        fail(f"{tag}: non-finite state tensors {bad[:5]}")
+
+
+def phase_sim_cnn(one_worker_images_s: float, sync_rates: dict) -> dict:
+    """Phase sim cnn: the scenario lab on the cnn run.  N=8 weighted
+    double ring non-IID (the sync phase's n4_weighted_double_ring traffic
+    at N=8, 2 rounds x 2 local epochs) and its profile; N=8 equal
+    all-reduce, 1 round, every parameter's 8 rows bitwise equal after the
+    sync; N=32 equal all-reduce, 1 round (the lab's ceiling on one card;
+    4 steps a worker, so only finite values are checked, not a falling
+    loss).  Returns the summed launches."""
+    import torch
+    t0 = time.perf_counter()
+    runs = [("sim cnn n8", 8, SIM_WEIGHTED),
+            ("sim cnn n8 allreduce", 8, SIM_ALLREDUCE),
+            ("sim cnn n32", 32, SIM_ALLREDUCE)]
+    counts = {}
+    for label, n, extra in runs:
+        tag = f"[{label}]"
+        argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label.replace(" ", "_")),
+                "--sim_workers", str(n), *extra]
+        c, results, wall, peak = _sim_run(tag, argv)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        _check_sim(tag, results, c, n)
+        losses = [x for w in results["all_workers_losses"] for x in w]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{tag}: non-finite losses")
+        first = results["all_workers_losses"][0][0]
+        last = results["worker_specific_train_losses"][-1]
+        if n == 8:
+            first, last = check_losses(label, results)
+        rate, per_round, round_ms, sync_ms = _sim_rates(results)
+        s = results["sim"]
+        state = results["state"]
+        print(f"{tag} launches {c} (no attention: all 0); {n} workers in "
+              f"one process; wall {wall:.1f} s; summed images/s {rate:.0f}, "
+              f"per round {[round(x) for x in per_round]} (the cnn phase's "
+              f"one worker {one_worker_images_s:.0f}"
+              + "".join(f"; {k} {v:.0f}" for k, v in sync_rates.items())
+              + f"); round ms {[round(x, 1) for x in round_ms]}; stacked "
+              f"blend sync ms {[round(x, 3) for x in sync_ms]}; "
+              f"per_worker_sync_bytes {s['per_worker_sync_bytes']:,}; "
+              f"per-worker state {s['per_worker_state_bytes']['params']:,} "
+              f"params + {s['per_worker_state_bytes']['opt_state']:,} Adam "
+              f"bytes; max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"first-batch loss {first:.4f} -> last-epoch mean {last:.4f}")
+        if label == "sim cnn n8 allreduce":
+            differ = [i for i, p in enumerate(state.params)
+                      if not all(torch.equal(p[0], p[r]) for r in range(n))]
+            print(f"{tag} after the equal all-reduce: {len(differ)} of "
+                  f"{len(state.params)} parameters differ between rows")
+            if differ:
+                fail(f"{tag}: rows differ after an equal all-reduce in "
+                     f"parameters {differ[:5]}")
+        if label == "sim cnn n32" and not peak < 80e9:
+            fail(f"{tag}: peak {peak / 2**30:.2f} GiB")
+        if label == "sim cnn n8":
+            phase_profile_sim(results, argv)
+        del results, state
+        torch.cuda.empty_cache()
+    print(f"[sim cnn] phase wall {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def phase_sim_parity() -> dict:
+    """Phase sim parity n2: --sim_workers 2 against 2 worker processes of
+    the same argv (fp32 compute, TF32 off in all three processes through
+    NVIDIA_TF32_OVERRIDE=0, which the spawned rank inherits; 1 round, 1
+    local epoch, 1,024 images), from the same seeded init (the spy records
+    it): each reading of SIM_PARITY_TOL within its limit, and worker 0's
+    parameters within 2 lr per Adam step.  Returns the readings."""
+    import numpy as np
+    from importlib import import_module
+    from unittest import mock
+    t_driver = import_module(f"{PKG}.driver")
+    main = import_module(f"{PKG}.main")
+    t0 = time.perf_counter()
+    out = os.path.join(OUT_DIR, "sim_parity")
+    inits = []
+    with mock.patch.object(t_driver, "build_model_for",
+                           _recording_inits(t_driver, inits)):
+        sim = _sim_run("[sim parity n2]",
+                       [*SIM_PARITY_ARGV, "--out_dir", out,
+                        "--sim_workers", "2"])[1]
+    old = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    try:
+        real = main.run([*SIM_PARITY_ARGV, "--out_dir", out,
+                         "--num_workers", "2"])
+    finally:
+        if old is None:
+            os.environ.pop("NVIDIA_TF32_OVERRIDE")
+        else:
+            os.environ["NVIDIA_TF32_OVERRIDE"] = old
+    if sim["shard_sizes"] != real["shard_sizes"]:
+        fail(f"sim parity: shards {sim['shard_sizes']} vs "
+             f"{real['shard_sizes']}")
+    got = dict(first=0.0, second=0.0, losses=0.0)
+    for w in range(2):
+        a = np.asarray(sim["all_workers_losses"][w])
+        b = np.asarray(real["all_workers_losses"][w])
+        if a.shape != b.shape or len(a) < 2:
+            fail(f"sim parity: worker {w} ran {a.shape} vs {b.shape} steps")
+        rel = np.abs(a - b) / np.abs(b)
+        got["first"] = max(got["first"], float(rel[0]))
+        got["second"] = max(got["second"], float(rel[1]))
+        got["losses"] = max(got["losses"], float(rel.max()))
+    a = np.asarray(sim["worker_specific_val_losses"])
+    b = np.asarray(real["worker_specific_val_losses"])
+    got["val"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    sums = {"update": [0.0, 0.0], "stats": [0.0, 0.0]}
+    p_max = 0.0
+    for k, v in real["variables"].items():
+        v = v.float().cpu()
+        d = sim["variables"][k].float().cpu() - v
+        key = "stats" if ".running_" in k else "update"
+        ref = v if key == "stats" else v - inits[0][k]
+        sums[key][0] += float(d.square().sum())
+        sums[key][1] += float(ref.square().sum())
+        if key == "update":
+            p_max = max(p_max, float(d.abs().max()))
+    for key, (num, den) in sums.items():
+        got[key] = math.sqrt(num / den)
+    steps = int(sim["state"].opt.count[0])
+    bound = 2 * SIM_PARITY_LR * steps
+    print(f"[sim parity n2] --sim_workers 2 vs 2 worker processes, fp32, lr "
+          f"{SIM_PARITY_LR}, {steps} Adam steps a worker; relative "
+          f"differences (limit): "
+          + ", ".join(f"{k} {got[k]:.3g} ({SIM_PARITY_TOL[k]})"
+                      for k in SIM_PARITY_TOL)
+          + f"; worker 0's parameters {p_max:.3g} at most (bound 2 lr x "
+          f"steps = {bound:.3g}); wall {time.perf_counter() - t0:.1f} s")
+    if p_max > bound or any(got[k] > SIM_PARITY_TOL[k]
+                            for k in SIM_PARITY_TOL):
+        fail("sim parity: the simulated run departs from the worker "
+             "processes beyond the stated limits")
+    return got
+
+
+def phase_sim_scenario() -> None:
+    """Phase sim scenario: N=8 cnn, 2 rounds x 1 local epoch on 1,024
+    images with every scenario knob: the active/dropped counts equal the
+    numpy draw for --seed, a dropped worker's parameters and moments are
+    bitwise unchanged across its round, every value finite."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    from unittest import mock
+    sim_mod = import_module(f"{PKG}.sim")
+    t0 = time.perf_counter()
+    draws, frozen = [], []
+    round_fn, draw_fn = sim_mod.SimEngine.round, \
+        sim_mod.SimEngine._draw_scenario
+
+    def spy_draw(self):
+        d = draw_fn(self)
+        draws.append(d)
+        return d
+
+    def spy_round(self, state, *packs):
+        before = [t.clone() for t in (*state.params, *state.opt.mu,
+                                      *state.opt.nu)]
+        state, mx = round_fn(self, state, *packs)
+        after = (*state.params, *state.opt.mu, *state.opt.nu)
+        for i in np.flatnonzero(draws[-1][1]):
+            frozen.append((len(draws) - 1, int(i), all(
+                torch.equal(a[i], b[i]) for a, b in zip(after, before))))
+        return state, mx
+
+    argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "sim_scenario"),
+            "--sim_workers", "8", "--aggregation_by", "weights",
+            "--epochs_local", "1", "--limit_train_samples", "1024",
+            "--limit_eval_samples", "256", *SIM_SCENARIO]
+    with mock.patch.object(sim_mod.SimEngine, "round", spy_round), \
+            mock.patch.object(sim_mod.SimEngine, "_draw_scenario",
+                              spy_draw):
+        counts, results, wall, peak = _sim_run("[sim scenario]", argv)
+    _check_sim("[sim scenario]", results, counts, 8)
+    seed = import_module(f"{PKG}.config").config_from_args(argv).seed
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0x51AB]))
+    want = []
+    for _ in results["sim"]["rounds_scenario"]:
+        part = np.zeros(8, bool)
+        part[rng.choice(8, size=4, replace=False)] = True
+        dropped = rng.random(8) < 0.125
+        want.append({"active": int((part & ~dropped).sum()),
+                     "dropped": int(dropped.sum()), "byzantine": 1})
+    got = results["sim"]["rounds_scenario"]
+    losses = [x for w in results["all_workers_losses"] for x in w]
+    print(f"[sim scenario] rounds_scenario {got} (numpy draw for --seed "
+          f"{seed}: {want}); dropped rows frozen bitwise "
+          f"{[(r, i, ok) for r, i, ok in frozen]}; staleness "
+          f"{results['sim']['staleness']}; wall {wall:.1f} s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    if got != want or not frozen or not all(ok for *_, ok in frozen):
+        fail("sim scenario: draws or frozen rows differ from the seed's")
+    if not all(math.isfinite(x) for x in losses):
+        fail("sim scenario: non-finite losses")
+    print(f"[sim scenario] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sim_gpt2() -> dict:
+    """Phase sim gpt2 n4: the gpt2 path with --sim_workers 4 (flash
+    two-pass): ``drive`` checks one launch per layer per pass for all 4
+    workers (the sim's own step counts), then the flash-vs-dense check on
+    worker 0's logits.  Returns the counts."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    train = import_module(f"{PKG}.train")
+    argv = [*PATHS["gpt2"][0][:-1], os.path.join(OUT_DIR, "sim_gpt2"),
+            "--sim_workers", "4"]
+    torch.cuda.empty_cache()
+    counts, results, wall, peak = drive("[sim gpt2 n4]", argv,
+                                        PATHS["gpt2"][1])
+    rt = results["round_timings"]
+    steps = sum(r["train_steps"] for r in rt)
+    val = sum(r["val_steps"] for r in rt)
+    if steps != 4 or val != 1 or results["sim"]["workers"] != 4:
+        fail(f"sim gpt2: {steps} vmapped train steps and {val} val steps "
+             "(expected 4 and 1)")
+    first, last = check_losses("sim gpt2", results)
+    model = results["model"]
+    x = train.to_device(np.asarray(results["test"].images[:4]),
+                        next(model.parameters()).device)
+    flash_vs_dense("sim gpt2 n4", model, x)
+    tokens = (sum(sum(r["workers_train_steps"]) for r in rt) * PATH_BATCH
+              * PATH_LEN)
+    train_ms = sum(r["train_ms"] for r in rt)
+    print(f"[sim gpt2 n4] 4 x {sum(p.numel() for p in model.parameters()):,}"
+          f" params in one process; {steps} vmapped train steps "
+          f"(step {train_ms / steps:.3f} ms for 4 x {PATH_BATCH} sequences); "
+          f"{tokens / (train_ms / 1e3):.0f} tokens/s summed; wall "
+          f"{wall:.1f} s; first-batch loss {first:.4f} -> last-epoch mean "
+          f"{last:.4f}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    del results, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_profile_sim(results, argv: list[str]) -> None:
+    """Phase profile sim cnn n8: one more round of PROFILE_STEPS vmapped
+    train steps + 1 val step of the N=8 run's trained state under
+    torch.profiler, every worker on the same test images."""
+    import numpy as np
+    from importlib import import_module
+    cfg = import_module(f"{PKG}.config").config_from_args(
+        [*argv, "--epochs_local", "1"])
+    sim_mod = import_module(f"{PKG}.sim")
+    device = next(results["model"].parameters()).device
+    engine = sim_mod.SimEngine(results["model"], cfg, device)
+    state = results["state"]
+    test = results["test"]
+    k = PROFILE_STEPS * PATH_BATCH
+    n = cfg.sim_workers
+    shape = (1, PROFILE_STEPS, PATH_BATCH)
+    one = (test.images[:k].reshape(shape + test.images.shape[1:]),
+           test.labels[:k].reshape(shape), np.ones(shape, np.float32))
+    pack = tuple(np.repeat(a, n, axis=0) for a in one)
+    val = tuple(a[:, :1] for a in pack)
+    profile_window("[profile sim cnn n8]",
+                   f"{PROFILE_STEPS} vmapped train steps + 1 val step of "
+                   f"{n} workers", lambda: engine.round(state, pack, val),
+                   device)
 
 
 def llama_child() -> int:
@@ -1887,7 +2257,13 @@ def main() -> int:
                 / (sum(r["train_ms"] for r in rt) / 1e3))
     del results
     torch.cuda.empty_cache()
-    counts["sync"] = phase_sync(images_s)
+    counts["sync"], sync_rates = phase_sync(images_s)
+    t_sim = time.perf_counter()
+    counts["sim_cnn"] = phase_sim_cnn(images_s, sync_rates)
+    phase_sim_parity()
+    phase_sim_scenario()
+    counts["sim_gpt2"] = phase_sim_gpt2()
+    print(f"[sim] phases wall {time.perf_counter() - t_sim:.1f} s")
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

@@ -202,3 +202,219 @@ def modes_worker(rank: int, world_size: int, store_path: str,
                 out[f"{how}-{topology}-leaf{j}"] = a.cpu().numpy()
             out[f"checksum-{how}-{topology}"] = np.array(checksum(agg))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+# --------------------------------------------------------------------------
+# The simulated sync (JAX ``comms.py:185-455``): ``aggregate`` as stacked
+# math on worker-stacked [N, ...] tensors in one process (the scenario lab,
+# sim.py).  No group: every "collective" has a stacked twin —
+#
+# - psum/pmean accumulate in rank order, a sequential left fold over the
+#   rows (``sim_fold``; a reassociating ``sum(0)`` would not match);
+# - the ring's receive-from-(rank - shift) is ``torch.roll(x, shift, 0)``;
+# - the blends are the JAX expressions, elementwise.
+#
+# The ``ok`` mask is the dense path's poison screen reused as the scenario
+# surface: client sampling and worker dropout exclude rows from the blend
+# the way a quarantined contribution is excluded, and an all-ones mask
+# selects the unscreened values (``all_ok``).
+# --------------------------------------------------------------------------
+
+GOSSIP_HOPS = {"ring": 1, "double_ring": 2}
+
+
+def sim_fold(x: torch.Tensor) -> torch.Tensor:
+    """Sequential left fold of a stacked [N, ...] tensor over its leading
+    axis in row order: ``((x[0] + x[1]) + x[2]) + ...``."""
+    acc = x[0]
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc
+
+
+def sim_fold_rows(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``sim_fold`` of each tensor, as one multi-tensor add per row (the
+    same additions in the same order, N launches instead of N per
+    tensor)."""
+    acc = [t[0].clone() for t in tensors]
+    for i in range(1, tensors[0].shape[0] if tensors else 0):
+        torch._foreach_add_(acc, [t[i] for t in tensors])
+    return acc
+
+
+def _recip(c: int) -> float:
+    """``1 / c`` rounded to fp32: XLA compiles a division by a constant
+    into a multiplication by its fp32 reciprocal, so the stacked twin
+    multiplies too (``x * _recip(3)``, not ``x / 3``), which keeps the
+    equal blends bitwise JAX's."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _rows(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A per-worker [N] vector broadcast against a stacked [N, ...] leaf."""
+    return v.reshape(v.shape[0], *([1] * (leaf.ndim - 1)))
+
+
+def sim_wire_bytes(shapes: Sequence, n: int, *, topology: str = "allreduce",
+                   wire_dtype: torch.dtype | None = None) -> int:
+    """Bytes ONE simulated worker's sync would move per round on the
+    fabric the simulation stands in for: every tensor once per hop
+    (gossip: ``GOSSIP_HOPS``; allreduce: one injection), in ``wire_dtype``
+    when the simulated wire is compressed.  ``shapes`` are one worker's
+    tensors (or ``(shape, dtype)`` pairs)."""
+    if not shapes or n <= 1:
+        return 0
+    hops = GOSSIP_HOPS.get(topology, 1)
+    total = 0
+    for t in shapes:
+        shape, dtype = ((t.shape, t.dtype) if isinstance(t, torch.Tensor)
+                        else t)
+        item = (wire_dtype or dtype).itemsize
+        total += int(np.prod(shape, dtype=np.int64)) * item
+    return hops * total
+
+
+def _decode_rows(x32: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
+    """Each worker row's payload as the simulated fabric delivers it (JAX
+    ``comms._wire_codec`` per row): encoded in ``wdt`` and decoded to
+    fp32.  bf16 is a plain downcast; int8 is symmetric round-half-to-even
+    on the row's own max|x|/127 grid (the sender's fp32 scale rides with
+    the payload)."""
+    if wdt != torch.int8:
+        return x32.to(wdt).float()
+    flat = x32.reshape(x32.shape[0], -1)
+    scale = torch.clamp_min(flat.abs().amax(1) / 127.0, 1e-30)
+    q = torch.clamp(torch.round(flat / scale[:, None]), -127.0, 127.0).to(
+        torch.int8)
+    return (q.float() * scale[:, None]).reshape(x32.shape)
+
+
+def aggregate_sim(tensors: Sequence[torch.Tensor], *, how: str = "equal",
+                  topology: str = "allreduce", local_weight: float = 0.5,
+                  ok: torch.Tensor | None = None,
+                  wire_dtype: torch.dtype | None = None,
+                  residual: Sequence[torch.Tensor] | None = None):
+    """``aggregate`` on worker-STACKED tensors (each [N, ...]; JAX
+    ``comms.aggregate_sim``): returns ``(aggregated, new_residual)``.
+
+    ``ok`` — optional [N] contribution mask (bool or 0/1): masked rows are
+    left out of every blend and the survivors renormalize, as the poison
+    screen does; an all-ones mask selects the unscreened values.
+
+    ``wire_dtype`` + ``residual`` — the simulated compressed wire
+    (bfloat16/int8) with single-stage error feedback: each worker's
+    transmitted payload is encoded per row, every value received from the
+    fabric is the decoded fp32 payload, own values blend exactly, and the
+    residual carries each worker's own transmission rounding into the
+    next round.  ``new_residual`` is None unless error feedback is armed."""
+    _validate(how, topology)
+    tensors = list(tensors)
+    if not tensors:
+        return tensors, residual
+    n = int(tensors[0].shape[0])
+    compressed = wire_dtype is not None and wire_dtype != torch.float32
+    ef = compressed and residual is not None
+    if n == 1:
+        return tensors, residual
+    w = local_weight
+    okf = okb = valid = all_ok = ok1f = ok2f = None
+    if ok is not None:
+        okf = ok.float()
+        okb = okf > 0
+        valid = torch.clamp_min(sim_fold(okf), 1.0)
+        all_ok = valid >= n
+        ok1f = torch.roll(okf, 1, 0)
+        if topology == "double_ring":
+            ok2f = torch.roll(okf, 2, 0)
+
+    # what each worker transmits, as the fabric delivers it (fp32), and
+    # what enters the blends (masked rows as zeros)
+    res_list = list(residual) if ef else [None] * len(tensors)
+    decs, new_res = [], []
+    for x, res in zip(tensors, res_list):
+        contrib = x.float() + res if ef else x.float()
+        dec = _decode_rows(contrib, wire_dtype) if compressed else contrib
+        decs.append(dec)
+        new_res.append(contrib - dec if ef else None)
+    xss = (decs if okb is None else
+           [torch.where(_rows(okb, d), d, torch.zeros_like(d))
+            for d in decs])
+    # the all-reduce's sums, one row-ordered fold for all tensors
+    totals = (sim_fold_rows(decs if how == "equal" else xss)
+              if topology == "allreduce" else [None] * len(tensors))
+    screened_totals = (sim_fold_rows(xss) if topology == "allreduce"
+                       and how == "equal" and okb is not None
+                       else [None] * len(tensors))
+
+    def per_leaf(x, dec, xs, total, total_s):
+        rows = lambda v: _rows(v, x)
+        if topology == "allreduce":
+            if how == "equal":
+                out = (total * _recip(n)).expand(x.shape).contiguous()
+                if okb is None:
+                    return out
+                screened = (total_s / valid).expand(x.shape)
+                return torch.where(all_ok, out, screened)
+            peers_mean = (total - dec) * _recip(n - 1)
+            out = w * x + (1.0 - w) * peers_mean
+            if okb is None:
+                return out
+            peers = torch.clamp_min(valid - 1.0, 1.0)
+            screened = torch.where(
+                rows(okb), w * x + (1.0 - w) * (total - xs) / peers,
+                (total / valid).expand(x.shape))
+            return torch.where(all_ok, out, screened)
+        if topology == "ring":
+            r = torch.roll(xs, 1, 0)
+            out = ((x + r) * _recip(2) if how == "equal"
+                   else w * x + (1.0 - w) * r)
+            if okb is None:
+                return out
+            r_ok = rows(ok1f > 0)
+            both = torch.logical_and(rows(okb), r_ok)
+            if how == "equal":
+                cnt = rows(okf + ok1f)
+                screened = torch.where(
+                    cnt > 0, (xs + r) / torch.clamp_min(cnt, 1.0), x)
+            else:
+                screened = torch.where(both, out, torch.where(r_ok, r, x))
+            return torch.where(both, out, screened)
+        # double_ring: blend with the two predecessors
+        r1 = torch.roll(xs, 1, 0)
+        r2 = torch.roll(xs, 2, 0)
+        out = ((x + r1 + r2) * _recip(3) if how == "equal"
+               else w * x + ((1.0 - w) / 2.0) * (r1 + r2))
+        if okb is None:
+            return out
+        every = torch.logical_and(rows(okb), torch.logical_and(
+            rows(ok1f > 0), rows(ok2f > 0)))
+        cnt = rows(okf + ok1f + ok2f)
+        if how == "equal":
+            screened = torch.where(
+                cnt > 0, (xs + r1 + r2) / torch.clamp_min(cnt, 1.0), x)
+        else:
+            pc = rows(ok1f + ok2f)
+            pmean = (r1 + r2) / torch.clamp_min(pc, 1.0)
+            screened = torch.where(
+                rows(okb),
+                torch.where(pc > 0, w * x + (1.0 - w) * pmean, x),
+                torch.where(pc > 0, pmean, x))
+        return torch.where(every, out, screened)
+
+    agg = [per_leaf(*a) for a in zip(tensors, decs, xss, totals,
+                                     screened_totals)]
+    return agg, (new_res if ef else None)
+
+
+def stale_delta(blended: Sequence[torch.Tensor],
+                base: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Consensus displacement ``blended - base`` per tensor (JAX
+    ``comms.stale_delta``): what a stale sync hands to a later round."""
+    return torch._foreach_sub(list(blended), list(base))
+
+
+def deliver_stale(params: Sequence[torch.Tensor],
+                  delta: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Fold a stale consensus delta into freshly trained params:
+    ``params + delta`` per tensor (JAX ``comms.deliver_stale``)."""
+    return torch._foreach_add(list(params), list(delta))

@@ -25,9 +25,14 @@ NOT_PORTED = {
     "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
     "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
     "chaos": ("", "A.11 (elastic membership + chaos)"),
-    "sim_workers": (0, "A.11 (scenario lab)"),
     "num_slices": (1, "A.11 (hierarchical two-level sync)"),
+    "opt_placement": ("auto", "A.8 (shard-resident optimizer apply)"),
+    "param_residency": ("auto", "A.8 (scatter-resident parameters)"),
+    "shard_redundancy": ("auto", "A.11 (elastic membership + chaos)"),
 }
+# the wire flags a simulated run may set (--sim_workers: the simulated
+# fabric's codec, comms.aggregate_sim); the real engine still refuses them
+SIM_WIRE_FLAGS = ("sync_dtype", "sync_compression")
 
 
 def _choices(name: str, value, allowed) -> None:
@@ -111,6 +116,16 @@ class Config:
     # streamed input pipeline (JAX config.py:153-157; train.ChunkStager)
     stream_chunk_steps: int = 0   # > 0: windows of this many steps
     stream_prefetch: int = 2      # windows staged ahead (0 = synchronous)
+    # scenario lab (JAX config.py:381-426; sim.py): > 0 runs that many
+    # local-SGD workers in ONE process on one device, their state stacked
+    # on a leading [N, ...] axis and each step one torch.func.vmap over
+    # the workers; 0 = one process per worker (the real engine)
+    sim_workers: int = 0
+    sim_sample_frac: float = 1.0  # (0, 1]: ceil(frac * N) train per round
+    sim_dropout: float = 0.0      # [0, 1): per-round worker dropout
+    sim_byzantine: str = ""       # "kind:count[:scale]", last count ids
+    sim_lr_jitter: float = 0.0    # [0, 1): lr * (1 + jitter * u_i)
+    sim_staleness: int = 0        # deliver each consensus K rounds late
 
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     sync_mode: str = "auto"
@@ -121,8 +136,10 @@ class Config:
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
     chaos: str = ""
-    sim_workers: int = 0
     num_slices: int = 1
+    opt_placement: str = "auto"
+    param_residency: str = "auto"
+    shard_redundancy: str = "auto"
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -139,7 +156,11 @@ class Config:
         _choices("compute_dtype", self.compute_dtype,
                  ("bfloat16", "float32"))
         _choices("device", self.device, (None, "cuda", "cpu"))
+        _choices("sync_dtype", self.sync_dtype,
+                 ("float32", "bfloat16", "int8"))
+        _choices("sync_compression", self.sync_compression, ("none", "ef"))
         self.parse_remat_policy()
+        self._check_sim()
         if self.dtype != "float32":
             raise NotImplementedError(
                 "param dtype other than float32 is not supported; use "
@@ -150,6 +171,8 @@ class Config:
                                     and value == "data=1"):
                 continue
             if name == "sync_mode" and value == "dense":
+                continue
+            if name in SIM_WIRE_FLAGS and self.sim_workers > 0:
                 continue
             raise ValueError(
                 f"--{name} {value} is not ported to the PyTorch package yet; "
@@ -180,6 +203,247 @@ class Config:
                 f"stream_prefetch ({self.stream_prefetch}) must be >= 0 "
                 "(0 = the whole-round pack / synchronous staging)")
         self._check_checkpoint_and_serve()
+
+    def _check_sim(self) -> None:
+        """The JAX config's checks of the scenario-lab flags
+        (``config.py:683-835``), with its messages: the scenario knobs'
+        ranges, knobs without ``--sim_workers``, every real-engine
+        feature a simulated run refuses, and the simulated wire.  Where
+        ``torch.func`` cannot carry a combination JAX allows (MoE's
+        capacity dispatch, ``torch.utils.checkpoint`` under vmap), the
+        refusal names ROADMAP A.11."""
+        if self.sim_workers < 0:
+            raise ValueError(
+                f"sim_workers must be >= 0 (0 = real-mesh driver), got "
+                f"{self.sim_workers}")
+        if not 0.0 < self.sim_sample_frac <= 1.0:
+            raise ValueError(
+                f"--sim_sample_frac must be in (0, 1] (each round samples "
+                f"ceil(frac * N) >= 1 participants), got "
+                f"{self.sim_sample_frac}")
+        if not 0.0 <= self.sim_dropout < 1.0:
+            raise ValueError(
+                f"--sim_dropout must be in [0, 1) (1.0 would drop every "
+                f"worker every round — no round could ever commit), got "
+                f"{self.sim_dropout}")
+        if not 0.0 <= self.sim_lr_jitter < 1.0:
+            raise ValueError(
+                f"--sim_lr_jitter must be in [0, 1): worker i trains at "
+                f"lr * (1 + jitter * u_i) with u_i in [-1, 1), and jitter "
+                f">= 1 could drive a learning rate to zero or negative; "
+                f"got {self.sim_lr_jitter}")
+        self.parse_sim_byzantine()   # validates the spec eagerly
+        compressed = self.sync_dtype in ("bfloat16", "int8")
+        if self.sim_workers == 0:
+            for flag, dflt, name in (
+                    (self.sim_sample_frac, 1.0, "--sim_sample_frac"),
+                    (self.sim_dropout, 0.0, "--sim_dropout"),
+                    (self.sim_byzantine, "", "--sim_byzantine"),
+                    (self.sim_lr_jitter, 0.0, "--sim_lr_jitter")):
+                if flag != dflt:
+                    raise ValueError(
+                        f"{name} is a simulated-scenario knob; it needs "
+                        "--sim_workers N (the real-mesh driver has no "
+                        "per-round participation/adversary machinery)")
+        else:
+            self._check_sim_combinations()
+            if compressed and self.sync_mode == "dense":
+                raise ValueError(
+                    f"--sync_dtype {self.sync_dtype} is the bucketed "
+                    "engines' compressed wire format; it cannot combine "
+                    "with --sync_mode dense")
+            if self.sync_compression == "ef" and not compressed:
+                raise ValueError(
+                    "--sync_compression ef compensates compressed-wire "
+                    "rounding; it requires a compressed --sync_dtype of "
+                    "bfloat16 or int8")
+        if self.sim_staleness < 0:
+            raise ValueError(
+                f"sim_staleness must be >= 0 (0 = the synchronous lab), "
+                f"got {self.sim_staleness}")
+        if self.sim_staleness > 0:
+            if self.sim_workers == 0:
+                raise ValueError(
+                    "--sim_staleness is a simulated-scenario knob; it "
+                    "needs --sim_workers N (the real engine's knob is "
+                    "--sync_staleness)")
+            if self.aggregation_by != "weights":
+                raise ValueError(
+                    "--sim_staleness requires --aggregation_by weights: "
+                    "in gradients mode every worker applies its own "
+                    "optimizer to the aggregate inside the round — there "
+                    "is no between-round consensus blend whose delivery "
+                    "could be deferred")
+
+    def _check_sim_combinations(self) -> None:
+        """What a simulated run refuses (``--sim_workers`` > 0)."""
+        if self.chaos:
+            raise ValueError(
+                "--chaos cannot combine with --sim_workers: the chaos "
+                "harness injects faults into the REAL driver's process "
+                "semantics (measured walls, membership boundaries, mesh "
+                "rebuilds) which the vmap'd simulator replaces with "
+                "stacked math — use --sim_dropout / --sim_byzantine for "
+                "simulated failure scenarios")
+        if self.num_slices > 1:
+            raise ValueError(
+                "--num_slices > 1 cannot combine with --sim_workers: the "
+                "hierarchical sync models a real multi-slice DCN fabric "
+                "(nested mesh axes, per-level wires) — the simulator's "
+                "fabric is stacked math on one chip; simulate the flat "
+                "topologies instead")
+        if self.shard_redundancy == "buddy":
+            raise ValueError(
+                "--shard_redundancy buddy cannot combine with "
+                "--sim_workers: buddy redundancy protects REAL "
+                "shard-resident state against a real worker's crash — "
+                "every simulated worker's rows already live on the one "
+                "chip (nothing is uniquely held; auto resolves to off)")
+        if self.opt_placement == "sharded":
+            raise ValueError(
+                "--opt_placement sharded cannot combine with "
+                "--sim_workers: the shard-resident apply is a stage of "
+                "the real bucketed sync engine (reduce-scatter/all-gather "
+                "over a real worker axis) — the simulated sync is the "
+                "dense-semantics stacked twin (comms.aggregate_sim), "
+                "which has no scatter phase to place an apply between")
+        if self.param_residency == "resident":
+            raise ValueError(
+                "--param_residency resident cannot combine with "
+                "--sim_workers: scatter-resident params ARE the real "
+                "engine's 1/N scatter output kept between rounds — the "
+                "simulated worker axis lives on one chip, where every "
+                "row is already resident (nothing to gather)")
+        if self.sync_mode == "sharded":
+            raise ValueError(
+                "--sync_mode sharded cannot combine with --sim_workers: "
+                "the bucketed sharded engine runs real collectives over "
+                "a real worker axis — the simulated sync is "
+                "comms.aggregate_sim, the stacked twin of the dense "
+                "reference path")
+        if self.stream_chunk_steps > 0:
+            raise ValueError(
+                "--stream_chunk_steps cannot combine with --sim_workers "
+                "in v1: the streamed round feeds per-chunk windows to "
+                "one worker's engine — the simulator runs the whole "
+                "round over one [N, S, B] stack on one device (ROADMAP "
+                "A.11)")
+        if self.checkpoint_dir or self.resume:
+            raise ValueError(
+                "--checkpoint_dir/--resume cannot combine with "
+                "--sim_workers in v1: the sharded checkpoint engine's "
+                "layouts and manifest worker-axis bookkeeping describe "
+                "the real worker group — simulated runs are cheap to "
+                "replay from seed (ROADMAP A.11 names sim "
+                "checkpointing as the follow-on)")
+        if self.num_workers:
+            raise ValueError(
+                f"--num_workers {self.num_workers} sizes the REAL "
+                "worker group (one process per worker); with "
+                "--sim_workers the worker axis is simulated in one "
+                "process — drop --num_workers (the simulated count is "
+                "--sim_workers)")
+        inner = [a for a, s in self._mesh_shape_axes().items()
+                 if a != "data" and (s > 1 or s <= 0)]
+        if inner:
+            raise ValueError(
+                f"--sim_workers cannot combine with inner mesh axes "
+                f"{inner} (--mesh_shape {self.mesh_shape!r}): "
+                "TP/PP/SP/EP/FSDP shard the parameter leaves over REAL "
+                "devices inside each worker — the simulator stacks whole "
+                "per-worker states on one device")
+        if self.sequence_parallel != "none":
+            raise ValueError(
+                "--sequence_parallel cannot combine with --sim_workers: "
+                "the ring/zigzag attention kernels run over a real 'seq' "
+                "mesh axis (see the inner-mesh-axes rejection)")
+        if self.sync_staleness > 0:
+            raise ValueError(
+                "--sync_staleness cannot combine with --sim_workers: the "
+                "real engine's staleness overlaps a REAL standalone sync "
+                "under the next round's compute — the lab's sync is "
+                "stacked math at the round's end (use --sim_staleness "
+                "for the simulated delivery-delay twin)")
+        # what torch.func cannot carry (the JAX package runs these)
+        if self.num_experts > 0:
+            raise ValueError(
+                "--num_experts with --sim_workers: the Switch FFN's "
+                "capacity dispatch (a data-dependent top-1 ranking and "
+                "scatter per worker) has no torch.func.vmap batching in "
+                "the port yet — ROADMAP A.11")
+        if self.remat_policy != "none":
+            raise ValueError(
+                f"--remat_policy {self.remat_policy} with --sim_workers: "
+                "torch.utils.checkpoint (models/remat.py) does not run "
+                "under torch.func transforms, so the vmapped step cannot "
+                "recompute a block — ROADMAP A.11")
+
+    SIM_BYZANTINE_KINDS = ("signflip", "noise")
+
+    def parse_sim_byzantine(self) -> tuple[str, int, float] | None:
+        """``--sim_byzantine`` as ``(kind, count, scale)`` or None (JAX
+        ``config.py:1112-1160``).
+
+        Spec: ``kind:count[:scale]`` with kind in
+        ``SIM_BYZANTINE_KINDS``, count >= 1 adversarial workers (the
+        LAST count worker ids), scale the noise stddev (noise kind only;
+        default 1.0)."""
+        spec = self.sim_byzantine.strip()
+        if not spec:
+            return None
+        parts = spec.split(":")
+        if len(parts) not in (2, 3):
+            raise ValueError(
+                f"--sim_byzantine must be 'kind:count[:scale]', got "
+                f"{self.sim_byzantine!r}")
+        kind = parts[0].strip()
+        if kind not in self.SIM_BYZANTINE_KINDS:
+            raise ValueError(
+                f"unknown --sim_byzantine kind {kind!r}: expected one of "
+                f"{self.SIM_BYZANTINE_KINDS}")
+        try:
+            count = int(parts[1])
+        except ValueError:
+            raise ValueError(
+                f"--sim_byzantine count must be an integer, got "
+                f"{parts[1]!r} in {self.sim_byzantine!r}") from None
+        if count < 1:
+            raise ValueError(
+                f"--sim_byzantine count must be >= 1, got {count}")
+        if self.sim_workers and count >= self.sim_workers:
+            raise ValueError(
+                f"--sim_byzantine count {count} must leave at least one "
+                f"honest worker (--sim_workers {self.sim_workers})")
+        scale = 1.0
+        if len(parts) == 3:
+            if kind != "noise":
+                raise ValueError(
+                    f"--sim_byzantine scale applies to the 'noise' kind "
+                    f"(the injected stddev); {kind!r} takes none — got "
+                    f"{self.sim_byzantine!r}")
+            try:
+                scale = float(parts[2])
+            except ValueError:
+                raise ValueError(
+                    f"--sim_byzantine scale must be a float, got "
+                    f"{parts[2]!r} in {self.sim_byzantine!r}") from None
+            if scale <= 0:
+                raise ValueError(
+                    f"--sim_byzantine noise scale must be > 0, got "
+                    f"{scale}")
+        return (kind, count, scale)
+
+    def _mesh_shape_axes(self) -> dict[str, int]:
+        """Raw ``--mesh_shape`` parse: axis name -> size (-1 when no size
+        is given)."""
+        axes: dict[str, int] = {}
+        for part in self.mesh_shape.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, size = part.partition("=")
+            axes[name.strip()] = int(size) if size else -1
+        return axes
 
     def _check_checkpoint_and_serve(self) -> None:
         """The JAX config's checks of the checkpoint and serve flags
@@ -396,9 +660,43 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="windows staged on the device ahead of compute by "
                         "a producer thread (2 = double buffering, 0 = "
                         "synchronous)")
+    p.add_argument("--sim_workers", type=int, default=d.sim_workers,
+                   help="simulate this many local-SGD workers in ONE "
+                        "process on one device (per-worker state, data "
+                        "and augmentation streams stacked on a leading "
+                        "axis; each step one torch.func.vmap over the "
+                        "workers; the sync is stacked math); 0 = one "
+                        "process per worker")
+    p.add_argument("--sim_sample_frac", type=float,
+                   default=d.sim_sample_frac,
+                   help="scenario: per-round client sampling — each "
+                        "round ceil(frac*N) seeded-drawn workers train "
+                        "and contribute; the rest skip the round but "
+                        "adopt the consensus (FedAvg sampling)")
+    p.add_argument("--sim_dropout", type=float, default=d.sim_dropout,
+                   help="scenario: per-round worker dropout probability "
+                        "— a dropped worker neither trains, contributes, "
+                        "nor adopts (the whole round is a no-op for it)")
+    p.add_argument("--sim_byzantine", type=str, default=d.sim_byzantine,
+                   help="scenario: adversarial workers, "
+                        "'kind:count[:scale]' — the last count ids "
+                        "corrupt their sync contribution every round "
+                        "(signflip = the round's update sign-flipped; "
+                        "noise = payload + scale*N(0,1), seeded)")
+    p.add_argument("--sim_lr_jitter", type=float, default=d.sim_lr_jitter,
+                   help="scenario: per-worker LR spread — worker i "
+                        "trains at lr*(1 + jitter*u_i), u_i a seeded "
+                        "uniform[-1,1) draw fixed for the run")
+    p.add_argument("--sim_staleness", type=int, default=d.sim_staleness,
+                   help="scenario: deliver each round's consensus delta "
+                        "K rounds late (0 = synchronous)")
     for name, (default, _where) in NOT_PORTED.items():
+        help_ = "not ported yet (rejected unless default)"
+        if name in SIM_WIRE_FLAGS:
+            help_ = ("the simulated wire under --sim_workers; otherwise "
+                     "not ported yet (rejected unless default)")
         p.add_argument(f"--{name}", type=type(default), default=default,
-                       help="not ported yet (rejected unless default)")
+                       help=help_)
     return p
 
 

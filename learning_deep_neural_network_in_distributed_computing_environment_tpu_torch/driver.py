@@ -24,6 +24,13 @@ which its engine trains.  A float that differed between ranks would
 desynchronise the shards without a sound, so the init and each round's
 partition are checked by a gathered checksum.
 
+With ``--sim_workers N`` the one process runs all N workers as the
+scenario lab (``sim.SimEngine``; JAX ``driver.py:299-392, 762-765``): the
+same probe (one measurement, tiled), partition and straggler feedback per
+simulated worker, every worker's row packed into one [N, S, B, ...] pack,
+the sync on the device, a drain of ``--sim_staleness``'s pending deltas
+after the loop, and ``results["sim"]`` / ``results["sync_engine"]``.
+
 With ``--checkpoint_dir`` every rank saves its worker row every
 ``--checkpoint_every`` rounds through ``checkpoint.CheckpointEngine`` (the
 JAX package's format), and ``--resume`` restores the newest committed
@@ -69,6 +76,7 @@ from .data import (
     train_val_split,
 )
 from .models import SHAPED_BY_INPUT, get_model, is_attention_model
+from .sim import SimEngine
 from .train import LocalSGDEngine, to_device
 
 log = logging.getLogger(__name__)
@@ -249,6 +257,13 @@ def _pack(ds, parts, batch: int, rank: int, caps=None):
                                               idxs[rank], batch, 0, steps))
 
 
+def _pack_all(ds, parts, batch: int, caps=None):
+    """Every worker's (capped) shard as one worker-stacked pack [N, S, B,
+    ...] (the scenario lab's round input): ``_pack``'s rows, stacked."""
+    rows = [_pack(ds, parts, batch, r, caps) for r in range(len(parts))]
+    return tuple(np.concatenate(a) for a in zip(*rows))
+
+
 def chunk_feed(ds, parts, batch: int, rank: int, chunk: int, caps=None):
     """The streamed alternative to ``_pack`` (JAX ``driver.py:978-985``):
     worker ``rank``'s per-epoch iterator of fixed-shape [chunk, B, ...]
@@ -282,12 +297,18 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
-    if group is None and mesh.resolve_num_workers(cfg.num_workers,
-                                                  cfg.device) > 1:
+    sim = cfg.sim_workers > 0
+    if sim and group is not None:
+        raise ValueError(
+            "--sim_workers runs every simulated worker in ONE process; "
+            "it takes no worker group")
+    if (not sim and group is None
+            and mesh.resolve_num_workers(cfg.num_workers, cfg.device) > 1):
         raise ValueError(
             f"--num_workers {cfg.num_workers}: train_global runs one rank; "
             "N workers run through main.run (or driver.train_rank per rank)")
-    n = 1 if group is None else group.world_size
+    n = (cfg.sim_workers if sim
+         else 1 if group is None else group.world_size)
     rank = 0 if group is None else group.rank
     device = resolve_device(cfg.device) if group is None else group.device
     progress = progress and rank == 0
@@ -302,7 +323,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     batch = cfg.batch_size
     model = build_model_for(cfg, trainset.num_classes, device,
                             trainset.images.shape[1:])
-    engine = LocalSGDEngine(model, cfg, device, group)
+    engine = (SimEngine(model, cfg, device) if sim
+              else LocalSGDEngine(model, cfg, device, group))
     state = engine.init_state()
     if group is not None:
         # one init on every rank: the same seed gives the same init on one
@@ -351,7 +373,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         except ImportError:
             pass
     walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    sync_bytes = 4 * sum(p.numel() for p in engine.params)
+    sync_bytes = 4 * sum(p.numel() for p in model.parameters())
     try:
         for epoch in epochs:
             # straggler protocol: per-worker step cap from the sec/batch EMA
@@ -375,8 +397,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                           chunk_feed(valset, val_parts, batch, rank, chunk))
             else:
                 run_round = engine.round
-                inputs = (_pack(trainset, train_parts, batch, rank, caps),
-                          _pack(valset, val_parts, batch, rank))
+                inputs = ((_pack_all(trainset, train_parts, batch, caps),
+                           _pack_all(valset, val_parts, batch)) if sim else
+                          (_pack(trainset, train_parts, batch, rank, caps),
+                           _pack(valset, val_parts, batch, rank)))
             t0 = time.perf_counter()
             state, mx = run_round(state, *inputs)
             wall = time.perf_counter() - t0
@@ -388,7 +412,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 "train_ms": mx["train_ms"], "train_steps": mx["train_steps"],
                 "val_steps": mx["val_steps"], "ckpt_snapshot_ms": 0.0,
                 "ckpt_write_ms": 0.0}
-            if group is not None:
+            if sim:
+                # the simulated fabric's row (JAX driver.py:1945-1950)
+                timing.update(
+                    {k: mx[k] for k in mx if k.startswith("workers_")},
+                    **engine.last_sync_stats)
+            elif group is not None:
                 timing.update(
                     {k: mx[k] for k in mx if k.startswith("workers_")},
                     sync_bytes=sync_bytes, sync_wire_bytes=comms.wire_bytes(
@@ -451,6 +480,16 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 ckpt.abort()
     if pbar is not None:
         pbar.close()
+    if sim:
+        state = engine.drain_pending(state)
+        results["sim"] = engine.sim_summary(results["round_timings"], state)
+        results["sync_engine"] = {
+            "mode": "sim", "levels": {"inner": "sim", "outer": None},
+            "per_worker_state_bytes": engine.state_resident_bytes(state)}
+        log.info("scenario lab: %d simulated workers in one process, %s "
+                 "rounds/s, %d bytes/worker sync wire",
+                 results["sim"]["workers"], results["sim"]["rounds_per_s"],
+                 results["sim"]["per_worker_sync_bytes"])
     if group is not None:
         results["param_checksums"] = mesh.all_gather(
             group, comms.checksum(engine.params))
@@ -458,7 +497,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     results["checkpoint"] = (ckpt.summary() if ckpt is not None
                              else {"enabled": False})
     results["state"] = state
-    results["variables"] = engine.rank0_variables()
+    results["variables"] = (engine.rank0_variables(state) if sim
+                            else engine.rank0_variables())
     results["model"] = model
     results["test"] = test
     return results

@@ -8,6 +8,9 @@ draft checkpoint for speculative decoding under ``--serve_draft_ckpt``;
 ``--stream_chunk_steps C`` streams each round in windows of C steps.
 Runs on CUDA unless ``--device cpu`` is given.
 
+With ``--sim_workers N`` the N workers run in this one process as the
+scenario lab (``sim.py``: stacked state, one vmapped step for all).
+
 With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
 worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
 0 runs in the calling process and returns the results, evaluates and
@@ -20,6 +23,8 @@ Examples::
         --model gpt2_small --dataset synthetic_lm --attention_impl flash
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --num_workers 4 --aggregation_by weights --topology double_ring
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --sim_workers 8 --aggregation_by weights --topology double_ring
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --model gpt2_small --dataset synthetic_lm --attention_impl flash \
         --checkpoint_dir ckpt --checkpoint_every 1
@@ -55,7 +60,9 @@ def run(argv=None) -> dict:
     from .driver import train_global
     from .eval import evaluate
 
-    n = mesh.resolve_num_workers(cfg.num_workers, cfg.device)
+    # --sim_workers: every simulated worker in this one process
+    n = (1 if cfg.sim_workers
+         else mesh.resolve_num_workers(cfg.num_workers, cfg.device))
     if n == 1:
         results = train_global(cfg)
     else:

@@ -23,7 +23,13 @@ writes each output once from registers, so its gradients are the same bits
 from run to run; the fused kernel sums dq by atomics.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the
-plain fp32 version for CPU tensors.  Before a launch it copies an operand
+plain fp32 version for CPU tensors.  The model calls them through three
+``autograd.Function`` ops (``FlashForward``, ``FlashAttention``,
+``FlashBackward``) whose forward takes no ctx, so ``torch.func`` takes
+them, and whose vmap rule folds a vmapped worker dim into the batch
+(``[N, B, L, H, D]`` -> ``[N*B, L, H, D]``): under ``torch.func.vmap`` one
+launch serves all N workers (the scenario lab, ``sim.py``), and the CPU's
+plain versions go through the same rule.  Before a launch it copies an operand
 the kernels cannot read in place (``_kernel_layout``: head_dim not
 contiguous, or rows not 16-byte aligned for cp.async).  ``LAUNCHES`` counts
 kernel launches, one per launch and nowhere else, so a run can show which
@@ -314,23 +320,106 @@ def flash_backward(q, k, v, o, lse, do, causal=False):
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: the forward keeps q, k, v, O and lse
-    as residuals and the backward runs the two backward kernels, or the
-    fused one under ``FLASH_BWD=fused``."""
+# --------------------------------------------------------------------------
+# the ops: autograd.Functions whose forward takes no ctx (setup_context), so
+# torch.func transforms take them, each with a vmap rule that folds the
+# vmapped worker dim into the batch: [N, B, L, H, D] -> [N*B, L, H, D], one
+# launch for all N workers (LAUNCHES counts launches, not workers)
+# --------------------------------------------------------------------------
+
+def _fold(t: torch.Tensor, dim: Optional[int], n: int) -> torch.Tensor:
+    """``t`` with its vmapped dim ``dim`` (None: not vmapped, shared by all
+    ``n`` rows) first and merged into the batch dim."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
+
+
+def _unfold(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.reshape(n, t.shape[0] // n, *t.shape[1:])
+
+
+class FlashForward(torch.autograd.Function):
+    """Inference flash attention (no lse, no backward): O of [B, L, H, D]
+    q, k, v.  The op a no-grad forward takes, also under ``vmap``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        o, lse = flash_forward(q, k, v, causal, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
+    def forward(q, k, v, causal: bool):
+        return flash_forward(q, k, v, causal)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, do):
+        raise RuntimeError("FlashForward has no backward; gradients go "
+                           "through FlashAttention")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        n = info.batch_size
+        o = FlashForward.apply(*(_fold(t, d, n) for t, d
+                                 in zip((q, k, v), in_dims[:3])), causal)
+        return _unfold(o, n), 0
+
+
+class FlashBackward(torch.autograd.Function):
+    """(dq, dk, dv) of flash attention from its residuals: the two-pass
+    pair, or the fused kernel under ``FLASH_BWD=fused``
+    (``flash_backward``).  The op ``FlashAttention.backward`` calls, so a
+    vmapped backward folds the workers and launches once."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal: bool):
+        return flash_backward(q, k, v, o, lse, do, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash attention has no double backward")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal):
+        n = info.batch_size
+        grads = FlashBackward.apply(
+            *(_fold(t, d, n) for t, d
+              in zip((q, k, v, o, lse, do), in_dims[:6])), causal)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward returns O and lse (not
+    differentiable) and keeps q, k, v, O and lse as residuals; the
+    backward is ``FlashBackward``."""
+
+    @staticmethod
+    def forward(q, k, v, causal: bool):
+        return flash_forward(q, k, v, causal, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.causal)
+        dq, dk, dv = FlashBackward.apply(q, k, v, o, lse, do, ctx.causal)
         return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        n = info.batch_size
+        o, lse = FlashAttention.apply(
+            *(_fold(t, d, n) for t, d in zip((q, k, v), in_dims[:3])),
+            causal)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,5 +441,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"dtype; got q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} "
             f"{k.dtype}, v {v.dtype} (use --attention_impl dense)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal)
-    return flash_forward(q, k, v, causal)[0]
+        return FlashAttention.apply(q, k, v, causal)[0]
+    return FlashForward.apply(q, k, v, causal)

@@ -60,8 +60,8 @@ def measure_step_time(model: nn.Module, sample_batch: torch.Tensor,
 def gather_durations(local_duration: float, world_size: int,
                      simulated_durations=None, group=None) -> np.ndarray:
     """All workers' probe durations as a [world_size] vector, in rank
-    order (JAX ``probe.py:222-250``): each rank's own measurement,
-    gathered over ``group``.  ``simulated_durations`` overrides (tests,
+    order (JAX ``probe.py:222-251``): each rank's own measurement,
+    gathered over ``group``; without a group the one measurement, tiled.  ``simulated_durations`` overrides (tests,
     heterogeneity experiments on homogeneous hardware)."""
     if simulated_durations is not None:
         d = np.asarray(simulated_durations, np.float64)
@@ -70,8 +70,15 @@ def gather_durations(local_duration: float, world_size: int,
                 f"simulated_durations must have shape ({world_size},), "
                 f"got {d.shape}")
         return d
-    return np.asarray(mesh.all_gather(group, float(local_duration)),
-                      np.float64)
+    gathered = np.asarray(mesh.all_gather(group, float(local_duration)),
+                          np.float64)
+    if group is None:
+        # no group: the one process measured for all ``world_size``
+        # workers (one worker, or the scenario lab's simulated ones), so
+        # its duration is every worker's, tiled as JAX tiles it
+        # (probe.py:251)
+        return np.full(world_size, gathered[0])
+    return gathered
 
 
 def estimate_epoch_duration(model: nn.Module, sample_batch: torch.Tensor,

@@ -61,28 +61,39 @@ class SoftmaxCrossEntropy(torch.autograd.Function):
     the backward recomputes the softmax instead of keeping an fp32
     [.., vocab] ``log_softmax``.  Labels are clamped into range once, so the
     forward's gather and the backward's one-hot agree for any input
-    (ignore-index positions are masked by the caller)."""
+    (ignore-index positions are masked by the caller).  The forward takes
+    no ctx (``setup_context``) and the vmap rule is generated, so the
+    scenario lab's ``torch.func.vmap(grad_and_value(...))`` step takes
+    it."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, logits: torch.Tensor, labels: torch.Tensor):
+    def forward(logits: torch.Tensor, labels: torch.Tensor):
         labels = labels.clamp(0, logits.shape[-1] - 1)
         lse = torch.logsumexp(logits.float(), dim=-1)
         ll = logits.float().gather(-1, labels[..., None])[..., 0]
-        ctx.save_for_backward(logits, labels, lse)
-        return lse - ll
+        return lse - ll, labels, lse
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def setup_context(ctx, inputs, output):
+        logits = inputs[0]
+        _, labels, lse = output
+        ctx.mark_non_differentiable(labels, lse)
+        ctx.save_for_backward(logits, labels, lse)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor, _g_labels, _g_lse):
         logits, labels, lse = ctx.saved_tensors
         d = torch.exp(logits.float() - lse[..., None])
-        d.scatter_add_(-1, labels[..., None],
-                       torch.full_like(lse[..., None], -1.0))
+        d = d.scatter_add(-1, labels[..., None],
+                          torch.full_like(lse[..., None], -1.0))
         return (d * g[..., None]).to(logits.dtype), None
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                           ) -> torch.Tensor:
-    return SoftmaxCrossEntropy.apply(logits, labels)
+    return SoftmaxCrossEntropy.apply(logits, labels)[0]
 
 
 def masked_weights(labels: torch.Tensor, batch_mask: torch.Tensor
@@ -104,9 +115,29 @@ def masked_token_stats(logits: torch.Tensor, labels: torch.Tensor,
     return ce, w, correct
 
 
+def _adam_update(params: list, grads: list, mu: list, nu: list, b1: float,
+                 b2: float, eps: float, count: int, lr: float) -> None:
+    """One optax ``scale_by_adam`` step followed by ``-lr * u``, in place,
+    with one ``count`` and ``lr`` for every tensor."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    # bias corrections in fp32, as optax computes them
+    one = np.float32(1.0)
+    bc1 = float(one - np.float32(b1) ** np.float32(count))
+    bc2 = float(one - np.float32(b2) ** np.float32(count))
+    mu_hat = torch._foreach_div(mu, bc1)
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_div_(mu_hat, denom)
+    torch._foreach_add_(params, mu_hat, alpha=-lr)
+
+
 class Adam:
-    """``optax.scale_by_adam(b1, b2, eps)`` followed by ``-lr * u``, in
-    place on fp32 parameters (moments are fp32, ``count`` advances only on
+    """``optax.scale_by_adam(b1, b2, eps)`` followed by ``-lr * u``, in place
+    on fp32 parameters (moments are fp32, ``count`` advances only on
     real steps)."""
 
     def __init__(self, params: list[torch.Tensor], b1: float = 0.9,
@@ -120,20 +151,71 @@ class Adam:
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
              lr: float) -> None:
         self.count += 1
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - self.b2)
-        # bias corrections in fp32, as optax computes them
-        one = np.float32(1.0)
-        bc1 = float(one - np.float32(self.b1) ** np.float32(self.count))
-        bc2 = float(one - np.float32(self.b2) ** np.float32(self.count))
+        _adam_update(params, grads, self.mu, self.nu, self.b1, self.b2,
+                     self.eps, self.count, lr)
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        return self.mu + self.nu
+
+
+class StackedAdam:
+    """``Adam`` for N workers whose tensors are stacked on a leading [N]
+    axis (the scenario lab): ``count`` is an [N] array, and each step
+    takes a per-row learning rate and a per-row gate.  A gated row
+    (a padding step, or nothing to train) keeps its parameters, moments
+    and count unchanged, as JAX's ``_tree_where(total > 0, ...)`` keeps
+    them (``train.py:1722-1731``).  When every row steps with one count
+    and one lr the update is ``Adam``'s, op for op; otherwise the betas,
+    bias corrections (fp32, per row, as optax computes them) and lr
+    become [N] coefficients, with a gated row's set to leave it as it
+    was (beta 1, weight 0, correction 1, lr 0)."""
+
+    def __init__(self, params: list[torch.Tensor], n: int, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.n = n
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = np.zeros(n, np.int64)
+
+    @torch.no_grad()
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+             lr: np.ndarray, do: np.ndarray) -> None:
+        """One step of every row ``i`` with ``do[i]`` at lr ``lr[i]``."""
+        do = np.asarray(do, bool)
+        lr = np.asarray(lr, np.float32)
+        count = self.count + do
+        if do.all() and (lr == lr[0]).all() and (count == count[0]).all():
+            _adam_update(params, grads, self.mu, self.nu, self.b1, self.b2,
+                         self.eps, int(count[0]), float(lr[0]))
+            self.count = count
+            return
+        f32 = np.float32
+        one = f32(1.0)
+        cols = np.stack([
+            np.where(do, f32(self.b1), one),
+            np.where(do, f32(1.0 - self.b1), f32(0.0)),
+            np.where(do, f32(self.b2), one),
+            np.where(do, f32(1.0 - self.b2), f32(0.0)),
+            np.where(do, one - f32(self.b1) ** count.astype(f32), one),
+            np.where(do, one - f32(self.b2) ** count.astype(f32), one),
+            np.where(do, -lr, f32(0.0))]).astype(f32)
+        c = torch.from_numpy(cols).to(params[0].device)
+        rows = lambda j: [c[j].view(self.n, *([1] * (p.ndim - 1)))
+                          for p in params]
+        b1, c1, b2, c2, bc1, bc2, neg_lr = (rows(j) for j in range(7))
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_addcmul_(self.mu, grads, c1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, torch._foreach_mul(grads, c2),
+                                grads)
         mu_hat = torch._foreach_div(self.mu, bc1)
         denom = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         torch._foreach_div_(mu_hat, denom)
-        torch._foreach_add_(params, mu_hat, alpha=-lr)
+        torch._foreach_addcmul_(params, mu_hat, neg_lr)
+        self.count = count
 
     def state_tensors(self) -> list[torch.Tensor]:
         return self.mu + self.nu
@@ -322,6 +404,20 @@ def round_seed(rng: np.ndarray, lr_epoch: int) -> int:
         return lo | (hi << 32)
     return int(np.random.SeedSequence([lo, hi, int(lr_epoch)])
                .generate_state(1, np.uint64)[0])
+
+
+def cross_worker_means(mx: dict) -> dict:
+    """Add the cross-worker means to a round's [N, ...] metric arrays, in
+    place (JAX ``train.py:1862, 1887-1898``): ``avg_acc`` per local epoch
+    and the ``global_*`` means of the per-worker epoch means, broadcast
+    over the workers."""
+    mx["avg_acc"] = np.broadcast_to(mx["train_acc"].mean(axis=0),
+                                    mx["train_acc"].shape)
+    for k in ("train_loss", "train_acc", "val_loss", "val_acc"):
+        per_worker = mx[k].mean(axis=1)
+        mx[f"global_{k}"] = np.broadcast_to(
+            per_worker.mean(keepdims=True), per_worker.shape)
+    return mx
 
 
 @dataclasses.dataclass
@@ -621,14 +717,9 @@ class LocalSGDEngine:
                 else 0)
         own["timing"] = (wall_s, train_s * 1e3, train_steps, sync_ms, peak)
         rows = mesh.all_gather(self.group, own)
-        mx = {k: np.stack([r[k] for r in rows]) for k in own if k != "timing"}
-        # cross-worker means (JAX train.py:1862, 1887-1898)
-        mx["avg_acc"] = np.broadcast_to(mx["train_acc"].mean(axis=0),
-                                        mx["train_acc"].shape)
-        for k in ("train_loss", "train_acc", "val_loss", "val_acc"):
-            per_worker = mx[k].mean(axis=1)
-            mx[f"global_{k}"] = np.broadcast_to(
-                per_worker.mean(keepdims=True), per_worker.shape)
+        mx = cross_worker_means(
+            {k: np.stack([r[k] for r in rows]) for k in own
+             if k != "timing"})
         mx["train_ms"] = train_s * 1e3
         mx["train_steps"] = train_steps
         mx["val_steps"] = val_steps

@@ -622,3 +622,45 @@ def test_streamed_round_on_card_is_bitwise_the_whole_round(cuda, prefetch):
         np.testing.assert_array_equal(s_mx[key], w_mx[key], err_msg=key)
     for k in w_state:
         assert torch.equal(s_state[k], w_state[k]), k
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["two_pass", "fused"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_ops_under_vmap_launch_once_for_all_workers(cuda, monkeypatch,
+                                                          fused, causal):
+    """The scenario lab's form: each flash op under ``torch.func.vmap``
+    over 3 workers of [2, 96, 8/4, 64] bf16 (the backward under
+    ``vmap(grad(...))``) launches its kernel once for all workers, and
+    each worker's O and gradients match its plain version (fp32 on the
+    same bf16 values) at REL_TOL."""
+    from torch.func import grad, vmap
+    monkeypatch.setattr(t_flash, "_FUSED_BWD", fused)
+    n = 3
+    rng = np.random.default_rng(9)
+    mk = lambda *s: torch.from_numpy(
+        rng.normal(size=s).astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v, w = mk(n, 2, 96, 8, 64), mk(n, 2, 96, 4, 64), \
+        mk(n, 2, 96, 4, 64), mk(n, 2, 96, 8, 64)
+    attn = lambda q, k, v: t_flash.flash_attention(q, k, v, causal=causal)
+    t_flash.reset_launch_counts()
+    with torch.no_grad():
+        o = vmap(attn)(q, k, v)
+    assert dict(t_flash.LAUNCHES) == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                                      "flash_bwd_dkv": 0,
+                                      "flash_bwd_fused": 0}
+    loss = lambda q, k, v, w: (attn(q, k, v).float() * w.float()).sum()
+    t_flash.reset_launch_counts()
+    grads = vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v, w)
+    torch.cuda.synchronize()
+    assert dict(t_flash.LAUNCHES) == {
+        "flash_fwd": 1, "flash_bwd_dq": 0 if fused else 1,
+        "flash_bwd_dkv": 0 if fused else 1,
+        "flash_bwd_fused": 1 if fused else 0}
+    for i in range(n):
+        f32 = [t[i].float().requires_grad_() for t in (q, k, v)]
+        o_ref, _ = t_flash.plain_forward(*f32, causal)
+        refs = torch.autograd.grad((o_ref * w[i].float()).sum(), f32)
+        assert _rel(o[i], o_ref) <= REL_TOL
+        for got, ref in zip(grads, refs):
+            assert got.dtype == torch.bfloat16
+            assert _rel(got[i], ref) <= REL_TOL
