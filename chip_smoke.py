@@ -105,21 +105,38 @@ Phases (any failure exits non-zero before the result line):
    serve llama - in the llama child, the llama path's run writes one
              checkpoint, and the child serves from it as serve gpt2 does
              (GQA and RoPE at the cache offsets);
-9. sync    - the N-worker slice: (a) all 12 sync modes (six blends, each
-             serving gradients and weights) on CUDA tensors of odd sizes
-             in 2 and in 4 worker processes of a gloo group, staged
-             through pinned host memory, against a float64 numpy formula
-             of each mode (rtol 1e-6, atol 1e-6), with post-sync
-             checksums; (b) main.run on the cnn phase's run with
-             --num_workers 2 and 4 and --aggregation_by weights (N=2
-             equal/allreduce balanced, N=4 equal/allreduce balanced, N=4
-             weighted/double_ring disbalanced), each worker its own
-             process on the one card: per-worker step time, summed
-             images/s beside the cnn phase's one worker, the sync wall
-             per round and the bytes per worker, each process's peak
-             memory, the host's core count; checks finite and falling
-             losses, no flash launch, and bitwise-identical parameters on
-             every rank after an equal all-reduce;
+9. sync    - the N-worker slice: [gloo] which gloo collectives the
+             card's torch has and what they give (all_to_all_single on
+             fp32/bf16/int8/uint8, all_gather into views,
+             all_gather_into_tensor, all_gather_single) on 2 processes;
+             (a) all 12 sync modes (six blends, each serving gradients
+             and weights) on CUDA tensors of odd sizes in 2 and in 4
+             worker processes of a gloo group, staged through pinned host
+             memory, against a float64 numpy formula of each mode (rtol
+             1e-6, atol 1e-6), with post-sync checksums; then the fast
+             engines on the same tensors (sharded equal/weighted, gossip
+             ring/double_ring equal/weighted): fp32 against the formula,
+             the sharded equal all-reduce bitwise equal on every rank,
+             bf16 and int8 with error feedback (worker r's leaves scaled
+             by 1 + r) within one quantum of each wire stage of fp32 per
+             element, the bytes handed to gloo equal to sync_wire_bytes, the
+             slowest rank's quickest-round ms beside the dense path's
+             timed the same way; (b) main.run on
+             the cnn phase's run with --num_workers 2 and 4 and
+             --aggregation_by weights (N=2 equal/allreduce balanced, N=4
+             equal/allreduce balanced, N=4 weighted/double_ring
+             disbalanced, N=4 sharded int8 with error feedback, N=4
+             weighted double ring bf16 with error feedback one round
+             stale over three rounds), each worker its own process on the one card:
+             per-worker step time, summed images/s beside the cnn phase's
+             one worker, the sync wall per round and the bytes per
+             worker (the modeled wire against the same engine's fp32
+             wire), async_rounds, each process's peak memory, the host's
+             core count; checks finite and falling losses, no flash
+             launch, every stale delta delivered (one at a round's
+             entry, with its sync wall on every rank, the in-loop and the
+             drain's hidden fractions apart), and bitwise-identical
+             parameters on every rank after an equal all-reduce;
 10. sim    - the scenario lab (--sim_workers, one process): the cnn run at
              N=8 weighted double ring non-IID (2 x 2) and its profile, N=8
              equal all-reduce (all rows bitwise equal after the sync) and
@@ -262,7 +279,29 @@ SYNC_RUNS = [
     ("n4_weighted_double_ring", 4, [
         "--aggregation_type", "weighted", "--topology", "double_ring",
         "--data_mode", "disbalanced", "--local_weight", "0.7"]),
+    # the fast engines: the reduce-scatter on the int8 wire
+    # with error feedback, and the bucketed gossip on the bf16 wire with
+    # error feedback under one round of staleness (three rounds: round 0's
+    # delta lands at round 2's entry, rounds 1 and 2 at the drain)
+    ("n4_sharded_int8_ef", 4, [
+        "--aggregation_type", "equal", "--topology", "allreduce",
+        "--data_mode", "balanced", "--sync_mode", "sharded", "--sync_dtype",
+        "int8", "--sync_compression", "ef"]),
+    ("n4_double_ring_bf16_stale1", 4, [
+        "--aggregation_type", "weighted", "--topology", "double_ring",
+        "--data_mode", "disbalanced", "--local_weight", "0.7",
+        "--sync_dtype", "bfloat16", "--sync_compression", "ef",
+        "--sync_staleness", "1", "--epochs_global", "3"]),
 ]
+# phase sync engines: (engine, how, topology) of each fast-engine case, on
+# each wire; rounds per case (the ms is the quickest round's)
+SYNC_ENGINES = [("sharded", "equal", "allreduce"),
+                ("sharded", "weighted", "allreduce"),
+                ("gossip", "equal", "ring"), ("gossip", "weighted", "ring"),
+                ("gossip", "equal", "double_ring"),
+                ("gossip", "weighted", "double_ring")]
+SYNC_WIRES = ("float32", "bfloat16", "int8")
+SYNC_ENGINE_ROUNDS = 3
 # the scenario lab (--sim_workers): the cnn run's N workers in one process
 SIM_WEIGHTED = ["--aggregation_by", "weights", "--aggregation_type",
                 "weighted", "--topology", "double_ring", "--data_mode",
@@ -1751,6 +1790,208 @@ def check_sync_modes(n: int, work_dir: str) -> dict:
     return ms
 
 
+def phase_gloo(work_dir: str) -> dict:
+    """Which gloo collectives this torch has and what they give, on a
+    2-process group (CPU tensors): all_to_all_single on fp32, bf16, int8
+    and uint8 (the bytes the fast engines move), all_gather into views
+    (the engines' gather), all_gather_into_tensor and all_gather_single.
+    Fails if a collective the engines use is missing or wrong."""
+    import torch
+    from importlib import import_module
+    sync_harness = import_module(f"{PKG}.sync_harness")
+    mesh = import_module(f"{PKG}.mesh")
+    d = os.path.join(work_dir, "gloo")
+    os.makedirs(d, exist_ok=True)
+    store = mesh.new_store_path()
+    try:
+        mesh.join_workers(mesh.spawn_workers(
+            sync_harness.gloo_probe_worker, 2, (store, d, 60.0),
+            ranks=range(2)), timeout_s=120.0)
+    finally:
+        mesh.remove_store(store)
+    rows = [json.load(open(os.path.join(d, f"gloo{r}.json")))
+            for r in range(2)]
+    print(f"[gloo] collectives (torch {torch.__version__}, 2 processes): "
+          + ", ".join(f"{k} {v}" for k, v in rows[0].items()))
+    used = [k for k in rows[0] if k.startswith(("all_to_all_single",
+                                                "all_gather/"))]
+    bad = [(r, k, row[k]) for r, row in enumerate(rows) for k in used
+           if not row[k].startswith("ok")]
+    if bad:
+        fail(f"gloo: collectives the fast engines use failed: {bad}")
+    return rows[0]
+
+
+def check_sync_engines(n: int, work_dir: str, dense_ms: dict) -> dict:
+    """The fast engines at ``n`` workers on the card
+    (sync_harness.engines_worker on SYNC_MODE_SIZES, worker r's leaves
+    scaled by 1 + r, the default 4 MiB buckets): fp32 against the float64
+    formula at SYNC_TOL, an equal all-reduce bitwise the same on every
+    rank; bf16 and int8 (with error feedback) within one quantum of each
+    wire stage of the fp32 result, per element
+    (sync_harness.compressed_bounds); the bytes handed to gloo equal to
+    sync_wire_bytes; the slowest rank's quickest-round ms per engine and
+    wire beside the dense modes' ms of this call."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    comms = import_module(f"{PKG}.comms")
+    mesh = import_module(f"{PKG}.mesh")
+    sync_harness = import_module(f"{PKG}.sync_harness")
+    d = os.path.join(work_dir, f"engines{n}")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(n)
+    leaves = [(rng.normal(size=(n, *s))
+               * (1.0 + np.arange(n)).reshape(n, *[1] * len(s)))
+              .astype(np.float32) for s in SYNC_MODE_SIZES]
+    np.savez(os.path.join(d, "in.npz"),
+             **{f"leaf{j}": a for j, a in enumerate(leaves)})
+    cases, labels = [], []
+    for engine, how, topology in SYNC_ENGINES:
+        for wire in SYNC_WIRES:
+            cases.append(dict(mode=engine, how=how, topology=topology,
+                              wire=wire, ef=wire != "float32",
+                              local_weight=SYNC_LOCAL_WEIGHT,
+                              rounds=SYNC_ENGINE_ROUNDS))
+            labels.append((engine, how, topology, wire))
+    # the dense path timed the same way (quickest of the same rounds)
+    for how, topology in {(h, t) for _e, h, t in SYNC_ENGINES}:
+        cases.append(dict(mode="dense", how=how, topology=topology,
+                          local_weight=SYNC_LOCAL_WEIGHT,
+                          rounds=SYNC_ENGINE_ROUNDS))
+        labels.append(("dense", how, topology, "float32"))
+    store = mesh.new_store_path()
+    t0 = time.perf_counter()
+    try:
+        mesh.join_workers(mesh.spawn_workers(
+            sync_harness.engines_worker, n,
+            (store, SYNC_DEVICE, os.path.join(d, "in.npz"), cases, d,
+             120.0), ranks=range(n)), timeout_s=300.0)
+    finally:
+        mesh.remove_store(store)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(n):
+        with np.load(os.path.join(d, f"rank{r}.npz")) as f:
+            outs.append({k: f[k] for k in f.files})
+    shapes = [(s, torch.float32) for s in SYNC_MODE_SIZES]
+    ms, worst, share, fp32 = {}, {}, {}, {}
+    for c, (engine, how, topology, wire) in enumerate(labels):
+        if engine == "dense":
+            ms[(engine, how, topology, wire)] = max(
+                float(o[f"{c}/ms_min"]) for o in outs)
+            continue
+        got = [np.stack([o[f"{c}/first{j}"] for o in outs])
+               for j in range(len(leaves))]
+        if wire == "float32":
+            fp32[(engine, how, topology)] = got
+            err = 0.0
+            for x, g in zip(leaves, got):
+                want = modes_reference(x, n, how, topology,
+                                       SYNC_LOCAL_WEIGHT)
+                e = np.abs(g.astype(np.float64) - want)
+                if (e > SYNC_TOL + SYNC_TOL * np.abs(want)).any():
+                    fail(f"sync engines n={n} {engine} {how}/{topology}: "
+                         f"max abs err {e.max():.3g} beyond rtol=atol="
+                         f"{SYNC_TOL}")
+                err = max(err, float(e.max()))
+            if how == "equal" and topology == "allreduce" and any(
+                    not np.array_equal(g[r], g[0]) for g in got
+                    for r in range(n)):
+                fail(f"sync engines n={n}: ranks differ after the sharded "
+                     "equal all-reduce")
+        else:
+            _j, bounds, _r = sync_harness.compressed_bounds(
+                leaves, n, mode=engine, how=how, wire=wire,
+                local_weight=SYNC_LOCAL_WEIGHT, slack=SYNC_TOL)
+            ref = fp32[(engine, how, topology)]
+            errs = [np.abs(g.astype(np.float64) - f)
+                    for g, f in zip(got, ref)]
+            err = max(float(e.max()) for e in errs)
+            share[(engine, how, topology, wire)] = max(
+                float((e / b).max()) for e, b in zip(errs, bounds))
+            if share[(engine, how, topology, wire)] > 1.0:
+                fail(f"sync engines n={n} {engine} {how}/{topology} {wire}: "
+                     f"{err:.3g} from the fp32 result, beyond one quantum "
+                     f"of each wire stage (worst element at "
+                     f"{share[(engine, how, topology, wire)]:.3g} of its "
+                     "bound)")
+        worst[(engine, how, topology, wire)] = err
+        wdt = comms.WIRE_DTYPES[wire]
+        want = comms.sync_wire_bytes(
+            shapes, n, mode=engine, topology=topology,
+            wire_dtype=None if wire == "float32" else wdt)
+        if engine == "gossip":
+            hops = comms._SHIFTS[topology]
+            want = want * sum(1 for s in hops if s % n) // len(hops)
+        sent = {int(o[f"{c}/wire_payload"]) for o in outs}
+        if sent != {want}:
+            fail(f"sync engines n={n} {engine} {how}/{topology} {wire}: "
+                 f"handed gloo {sent} bytes, sync_wire_bytes {want}")
+        ms[(engine, how, topology, wire)] = max(
+            float(o[f"{c}/ms_min"]) for o in outs)
+    numel = sum(int(np.prod(s)) for s in SYNC_MODE_SIZES)
+    print(f"[sync] engines n={n}: {len(cases)} cases (sharded equal/"
+          f"weighted, gossip ring/double_ring equal/weighted, each on the "
+          f"fp32, bf16 and int8 wire with error feedback) on {SYNC_DEVICE}; "
+          f"fp32 matches the float64 formula (max abs err "
+          f"{max(v for k, v in worst.items() if k[3] == 'float32'):.3g}, "
+          f"rtol=atol={SYNC_TOL}), the sharded equal all-reduce bitwise "
+          f"identical on all {n} ranks; bf16 within "
+          f"{max(v for k, v in worst.items() if k[3] == 'bfloat16'):.3g} "
+          f"and int8 within "
+          f"{max(v for k, v in worst.items() if k[3] == 'int8'):.3g} of "
+          f"fp32, every element within one quantum of each wire stage "
+          f"(worst at {max(share.values()):.3f} of its bound); bytes "
+          f"handed to gloo = "
+          f"sync_wire_bytes in every case; {numel:,} fp32 elements per "
+          f"worker; {n} processes in {wall:.1f} s")
+    for engine, how, topology in SYNC_ENGINES:
+        print(f"[sync] engines n={n} {engine} {how}/{topology}: slowest "
+              f"rank's ms (quickest of {SYNC_ENGINE_ROUNDS} rounds) "
+              + ", ".join(f"{w} {ms[(engine, how, topology, w)]:.2f}"
+                          for w in SYNC_WIRES)
+              + f"; dense fp32 {ms[('dense', how, topology, 'float32')]:.2f}"
+              f" the same way (one sync in [sync] modes: "
+              f"{dense_ms[f'{how}/{topology}']:.2f})")
+    return ms
+
+
+def check_stale_rounds(label: str, k: int, rt: list, ar: dict) -> None:
+    """A run under ``--sync_staleness k``: every round's delta delivered;
+    rows 0..k carry no delivery, and from row k+1 on each row's entry
+    took one in the loop, whose sync wall is above 0 on every rank.
+    Prints the hidden fraction of those in-loop deliveries (rank 0's)
+    apart from the drain's (the rest of async_rounds' totals)."""
+    tag = f"[sync {label}]"
+    if not (ar["enabled"] and ar["delivered"] == len(rt)):
+        fail(f"sync {label}: async_rounds {ar}: every round's delta must "
+             "be delivered")
+    early, looped = rt[:k + 1], rt[k + 1:]
+    if not looped:
+        fail(f"sync {label}: {len(rt)} rounds at K={k}: no delta landed at "
+             "a round's entry")
+    if any(max(r["workers_sync_ms"]) > 0 for r in early):
+        fail(f"sync {label}: a sync wall in rounds 0..{k}, before any delta "
+             "was due")
+    late = [r["epoch"] for r in looped if not min(r["workers_sync_ms"]) > 0]
+    if late:
+        fail(f"sync {label}: rounds {late} took a delta at their entry "
+             "with no sync wall on some rank")
+    loop_ms = sum(r["sync_ms"] for r in looped)
+    loop_hidden = sum(r["sync_hidden_ms"] for r in looped)
+    drain_ms = ar["sync_ms_total"] - loop_ms
+    drain_hidden = ar["sync_hidden_ms_total"] - loop_hidden
+    print(f"{tag} staleness K={k}: {len(looped)} delta(s) delivered at a "
+          f"round's entry: sync {loop_ms:.1f} ms, hidden {loop_hidden:.1f} "
+          f"ms, hidden_fraction {loop_hidden / loop_ms:.4f}; "
+          f"{ar['delivered'] - len(looped)} at the drain: sync "
+          f"{drain_ms:.1f} ms, hidden {drain_hidden:.1f} ms, "
+          f"hidden_fraction "
+          f"{drain_hidden / drain_ms if drain_ms > 0 else 0.0:.4f} "
+          f"(rank 0's)")
+
+
 def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
              ) -> tuple[dict, dict]:
     """Phase 8b: one N-worker run of CNN_ARGV through main.run (rank 0 in
@@ -1790,8 +2031,9 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     if equal_allreduce and not same:
         fail(f"sync {label}: ranks hold different parameters after an "
              f"equal all-reduce: {sums}")
-    mb = rt[-1]["sync_bytes"] / 1e6
+    buffer_mb = 4 * CNN_PARAMS / 1e6
     wire_mb = rt[-1]["sync_wire_bytes"] / 1e6
+    engine = results["sync_engine"]
     peaks = rt[-1]["workers_max_memory_allocated"]
     print(f"{tag} {n} worker processes on one card; wall {wall:.1f} s; "
           f"train steps per worker {steps}; step ms per worker "
@@ -1802,14 +2044,38 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
           f"{pooled:.0f}; first-batch loss {first:.4f} -> last-epoch mean "
           f"{last:.4f}; test loss {results['test_eval']['loss']:.4f}, "
           f"accuracy {results['test_eval']['accuracy']:.2f}%")
+    stale = ("; the wall of the sync delivered at this round's entry "
+             "(a stale sync's delta lands K+1 rounds on, the last ones "
+             "at the drain: async_rounds)" if "--sync_staleness" in extra
+             else "")
     for r in rt:
         print(f"{tag} round {r['epoch']}: sync ms per rank "
               + "[" + ", ".join(f"{x:.1f}" for x in r["workers_sync_ms"])
-              + f"]; round wall {r['compute_ms']:.1f} ms; train steps "
-              f"{r['workers_train_steps']}")
-    print(f"{tag} sync buffer {mb:.1f} MB per worker per round (staged to "
-          f"pinned host memory and back), modeled wire {wire_mb:.1f} MB sent "
-          f"per worker; least sync ms over the ranks per round "
+              + f"]{stale}; round wall {r['compute_ms']:.1f} ms; train "
+              f"steps {r['workers_train_steps']}")
+    if engine["mode"] != "dense":
+        # the same engine on the fp32 wire, from the bucket plan
+        comms = import_module(f"{PKG}.comms")
+        weights = import_module(f"{PKG}.weights")
+        leaves, _pieces = weights.wire_layout(results["model"])
+        fp32_mb = comms.sync_wire_bytes(
+            leaves, n, mode=engine["mode"],
+            topology=extra[extra.index("--topology") + 1]) / 1e6
+        print(f"{tag} engine {engine['mode']} (opt_placement "
+              f"{engine['opt_placement']}, residency "
+              f"{engine['param_residency']}); modeled wire {wire_mb:.1f} MB "
+              f"per worker per round = {wire_mb / fp32_mb:.4f} of the same "
+              f"engine's fp32 wire ({fp32_mb:.1f} MB); the dense runs' "
+              f"buffer {buffer_mb:.1f} MB (x{wire_mb / buffer_mb:.4f})")
+        ar = results["async_rounds"]
+        print(f"{tag} async_rounds {json.dumps(ar)}")
+        if "--sync_staleness" in extra:
+            check_stale_rounds(label, int(extra[extra.index(
+                "--sync_staleness") + 1]), rt, ar)
+    print(f"{tag} sync buffer {buffer_mb:.1f} MB per worker per round "
+          f"(staged to pinned host memory and back), modeled wire "
+          f"{wire_mb:.1f} MB sent per worker; least sync ms over the ranks "
+          f"per round "
           + str([round(min(r["workers_sync_ms"]), 1) for r in rt])
           + "; max_memory_allocated per process (GiB) "
           + "[" + ", ".join(f"{p / 2**30:.2f}" for p in peaks) + "]"
@@ -1825,8 +2091,9 @@ def phase_sync(one_worker_images_s: float) -> tuple[dict, dict]:
     images/s."""
     t0 = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke", "sync")
+    phase_gloo(work)
     for n in (2, 4):
-        check_sync_modes(n, work)
+        check_sync_engines(n, work, check_sync_modes(n, work))
     counts, rates = {}, {}
     for label, n, extra in SYNC_RUNS:
         c, info = run_sync(label, n, extra, one_worker_images_s)

@@ -31,10 +31,15 @@ next ``save``/``wait``/``close`` in the same order on every rank.  A crash
 anywhere before the manifest's rename leaves an unmanifested directory
 that ``latest_checkpoint`` ignores and the next engine open sweeps.
 
-Not ported, refused with the ROADMAP queue that ports them: the legacy
-v1 single-file restore (the rest of A.9), the re-layouts of the
-scatter-resident parameters, the sharded round optimizer and the
-error-feedback residuals (A.8), and per-slice hierarchical states (A.11).
+The fast sync engines' state rides along in JAX's layouts: the
+error-feedback residual as ``.sync_residual[...]`` (laid out like
+``.params``) and the round optimizer's moments as
+``.round_opt['b<i>']['mu'|'nu']`` (one row per worker: its shard under
+the sharded placement, the whole padded vector under the replicated one;
+a restore converts between the two).  Not ported, refused with the
+ROADMAP queue that ports them: the legacy v1 single-file restore (the
+rest of A.9), the scatter-resident parameters (A.11 item 2, the elastic
+slice) and per-slice hierarchical states (A.11).
 """
 
 from __future__ import annotations
@@ -69,10 +74,9 @@ FORMAT = 2
 _CRASH_ENV = "PORT_CKPT_TEST_CRASH"
 
 # leaves of the JAX TrainState the port has no counterpart for yet
-_REFUSED = ((".params_resident", "A.8 (scatter-resident parameters)"),
-            (".round_opt", "A.8 (the sharded round optimizer)"),
-            (".sync_residual_outer", "A.11 (hierarchical sync residuals)"),
-            (".sync_residual", "A.8 (error-feedback residuals)"))
+_REFUSED = ((".params_resident",
+             "A.11 item 2 (the elastic slice: scatter-resident parameters)"),
+            (".sync_residual_outer", "A.11 (hierarchical sync residuals)"))
 
 
 def _maybe_crash(point: str) -> None:
@@ -97,12 +101,19 @@ class WorkerState:
     layout: dict
     worker: int = 0
     n_workers: int = 1
+    residual: Optional[dict] = None     # EF residual, like ``params``
+    round_opt: Optional[dict] = None    # {bucket: {"mu", "nu"}}: this row
 
     def tensors(self) -> dict:
         return {**{f"params/{k}": v for k, v in self.params.items()},
                 **{f"buffers/{k}": v for k, v in self.buffers.items()},
                 **{f"mu/{k}": v for k, v in self.mu.items()},
-                **{f"nu/{k}": v for k, v in self.nu.items()}}
+                **{f"nu/{k}": v for k, v in self.nu.items()},
+                **{f"residual/{k}": v
+                   for k, v in (self.residual or {}).items()},
+                **{f"round_opt/{b}/{m}": v
+                   for b, ms in (self.round_opt or {}).items()
+                   for m, v in ms.items()}}
 
 
 def snapshot(state: WorkerState) -> WorkerState:
@@ -115,9 +126,17 @@ def snapshot(state: WorkerState) -> WorkerState:
     host = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
     part = lambda p: {k[len(p) + 1:]: v for k, v in host.items()
                       if k.startswith(p + "/")}
+    round_opt = None
+    if state.round_opt is not None:
+        round_opt = {}
+        for k, v in part("round_opt").items():
+            b, m = k.split("/")
+            round_opt.setdefault(b, {})[m] = v
     return dataclasses.replace(
         state, params=part("params"), buffers=part("buffers"),
-        mu=part("mu"), nu=part("nu"), rng=np.array(state.rng, np.uint32))
+        mu=part("mu"), nu=part("nu"), rng=np.array(state.rng, np.uint32),
+        residual=part("residual") if state.residual is not None else None,
+        round_opt=round_opt)
 
 
 def _numpy(d: dict) -> dict:
@@ -130,7 +149,10 @@ def jax_leaves(state: WorkerState) -> dict[str, np.ndarray]:
     return weights.state_to_jax_leaves(
         _numpy(state.params), _numpy(state.buffers), _numpy(state.mu),
         _numpy(state.nu), state.count, state.lr_epoch, state.rng,
-        state.layout)
+        state.layout,
+        residual=None if state.residual is None else _numpy(state.residual),
+        round_opt=None if state.round_opt is None else {
+            b: _numpy(ms) for b, ms in state.round_opt.items()})
 
 
 # ----------------------------------------------------------------------
@@ -527,15 +549,19 @@ def _place(out, index, arr) -> int:
     return int(np.prod(np.shape(arr), dtype=np.int64))
 
 
-def host_tree(path: str) -> tuple[dict[str, np.ndarray], int]:
-    """Every leaf of a committed sharded epoch merged into a full host
-    array (worker axis first), with the epoch; crc32 checked per shard."""
+def host_tree(path: str, keep=None) -> tuple[dict[str, np.ndarray], int]:
+    """Every leaf (or those ``keep(key)`` selects) of a committed sharded
+    epoch merged into a full host array (worker axis first), with the
+    epoch; crc32 checked per shard."""
     manifest = read_manifest(path)
     if not manifest:
         raise FileNotFoundError(f"no committed manifest under {path}")
+    wanted = [k for k in manifest["leaves"] if keep is None or keep(k)]
     out, filled = {}, {}
     for payload in verified_shards(path, manifest):
         for key, plist in payload["leaves"].items():
+            if keep is not None and not keep(key):
+                continue
             info = manifest["leaves"][key]
             if key not in out:
                 out[key] = np.empty(tuple(info["shape"]),
@@ -543,13 +569,12 @@ def host_tree(path: str) -> tuple[dict[str, np.ndarray], int]:
                 filled[key] = 0
             for index, arr in plist:
                 filled[key] += _place(out[key], index, arr)
-    for key in manifest["leaves"]:
+    for key in wanted:
         if key not in out or filled[key] != out[key].size:
             raise ValueError(
                 f"checkpoint leaf {key} is incomplete under {path} "
                 "(missing shard file?)")
-    return ({k: out[k] for k in manifest["leaves"]},
-            int(manifest["global_epoch"]))
+    return {k: out[k] for k in wanted}, int(manifest["global_epoch"])
 
 
 def load_row(path: str, manifest: dict, row: int, keep=None
@@ -618,7 +643,8 @@ def restore_checkpoint(path: str, template: WorkerState
             f"checkpoint {path} was written with {axis} worker(s) but this "
             f"run has {template.n_workers}: restart fresh or resume with "
             f"--num_workers {axis}")
-    row = load_row(path, manifest, template.worker)
+    row = load_row(path, manifest, template.worker,
+                   keep=lambda k: not k.startswith(".round_opt"))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key} required "
@@ -645,8 +671,79 @@ def restore_checkpoint(path: str, template: WorkerState
         if extra:
             raise ValueError(f"checkpoint {path} has {part} {extra[:3]} the "
                              "restore template lacks (another model?)")
+    residual = None
+    if template.residual is not None:
+        if "sync_residual" not in got:
+            raise ValueError(
+                f"checkpoint {path} has no .sync_residual leaves, required "
+                "by the restore template (--sync_compression ef)")
+        residual = _match_template(path, "sync_residual",
+                                   got["sync_residual"], template.residual)
+    round_opt = (None if template.round_opt is None else
+                 _restore_round_opt(path, manifest, template))
     state = dataclasses.replace(
         template, params=got["params"], buffers=got["buffers"],
         mu=got["mu"], nu=got["nu"], count=got["count"],
-        lr_epoch=got["lr_epoch"], rng=got["rng"])
+        lr_epoch=got["lr_epoch"], rng=got["rng"], residual=residual,
+        round_opt=round_opt)
     return state, int(manifest["global_epoch"])
+
+
+def _match_template(path: str, part: str, have: dict, want: dict) -> dict:
+    for name, t in want.items():
+        if name not in have:
+            raise ValueError(
+                f"checkpoint {path} has no leaf for {part} {name} required "
+                "by the restore template (another model?)")
+        if tuple(have[name].shape) != tuple(t.shape):
+            raise ValueError(
+                f"checkpoint {part} {name} shape {tuple(have[name].shape)} "
+                f"does not match template {tuple(t.shape)}")
+    return {name: have[name] for name in want}
+
+
+def _restore_round_opt(path: str, manifest: dict, template: WorkerState
+                       ) -> dict:
+    """This worker's round-optimizer rows (JAX ``restore_checkpoint``'s
+    round-opt branch): the saved layout as it is, or converted between
+    the sharded ([N, P/N] rows of one vector) and replicated ([N, P]
+    equal rows) layouts, which both hold the same vector; a checkpoint
+    without them restores zero moments, as JAX does."""
+    keys = {k for k in manifest["leaves"] if k.startswith(".round_opt")}
+    if not keys:
+        log.warning("checkpoint %s has no round-optimizer leaves — "
+                    "restoring zero moments", path)
+        return {b: {m: np.zeros(tuple(v.shape), np.float32)
+                    for m, v in ms.items()}
+                for b, ms in template.round_opt.items()}
+    full, _epoch = host_tree(path, keep=lambda k: k in keys)
+    n, w = template.n_workers, template.worker
+    out = {}
+    for b, ms in template.round_opt.items():
+        out[b] = {}
+        for m, t in ms.items():
+            key = f".round_opt['{b}']['{m}']"
+            if key not in full:
+                raise ValueError(
+                    f"checkpoint {path} has no round-optimizer leaf {key} "
+                    "(different --sync_bucket_mb?)")
+            val, row = full[key], int(t.shape[0])
+            if val.shape[0] != n or val.ndim != 2:
+                raise ValueError(
+                    f"checkpoint round-optimizer leaf {key} shape "
+                    f"{tuple(val.shape)} does not fit {n} worker(s)")
+            p = int(val.shape[1])
+            if p == row:                 # the same layout
+                out[b][m] = np.ascontiguousarray(val[w])
+            elif row == n * p:           # sharded on disk -> replicated
+                out[b][m] = np.ascontiguousarray(val.reshape(-1))
+            elif p == n * row:           # replicated on disk -> sharded
+                out[b][m] = np.ascontiguousarray(
+                    val[0][w * row:(w + 1) * row])
+            else:
+                raise ValueError(
+                    f"checkpoint round-optimizer leaf {key} shape "
+                    f"{tuple(val.shape)} matches neither the sharded nor "
+                    f"the replicated layout of a {row}-element row "
+                    "(different --sync_bucket_mb or worker count?)")
+    return out

@@ -30,7 +30,7 @@ from __future__ import annotations
 import hashlib
 import os
 import time
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -71,10 +71,11 @@ def unflatten(flat: torch.Tensor, like: Sequence[torch.Tensor]
 
 
 def _to_host(x: torch.Tensor, group: mesh.Group, slot: str) -> torch.Tensor:
-    """``x`` copied into the group's host buffer ``slot``; the copy from a
-    card has finished when this returns (gloo reads the buffer at once)."""
-    buf = group.host_buffer(slot, x.numel())
-    buf.copy_(x, non_blocking=x.is_cuda)
+    """``x`` (flattened) copied into the group's host buffer ``slot`` of
+    its dtype; the copy from a card has finished when this returns (gloo
+    reads the buffer at once)."""
+    buf = group.host_buffer(slot, x.numel(), x.dtype)
+    buf.copy_(x.reshape(-1), non_blocking=x.is_cuda)
     if x.is_cuda:
         done = torch.cuda.Event()
         done.record()
@@ -90,7 +91,7 @@ def _to_device(buf: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _all_reduce_sum(x: torch.Tensor, group: mesh.Group) -> torch.Tensor:
     host = _to_host(x, group, "x")
-    dist.all_reduce(host, op=dist.ReduceOp.SUM)
+    dist.all_reduce(host, op=dist.ReduceOp.SUM, group=group.pg)
     return _to_device(host, x.device)
 
 
@@ -107,8 +108,10 @@ def _shifted(x: torch.Tensor, group: mesh.Group,
         ops = []
         for s in remote:
             got[s] = group.host_buffer(f"recv{s}", x.numel())
-            ops.append(dist.P2POp(dist.isend, src, (i + s) % n, tag=s))
-            ops.append(dist.P2POp(dist.irecv, got[s], (i - s) % n, tag=s))
+            ops.append(dist.P2POp(dist.isend, src, (i + s) % n,
+                                  group=group.pg, tag=s))
+            ops.append(dist.P2POp(dist.irecv, got[s], (i - s) % n,
+                                  group=group.pg, tag=s))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     # a shift of 0 (mod n) is the worker's own value, taken locally
@@ -275,18 +278,10 @@ def sim_wire_bytes(shapes: Sequence, n: int, *, topology: str = "allreduce",
 
 
 def _decode_rows(x32: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
-    """Each worker row's payload as the simulated fabric delivers it (JAX
-    ``comms._wire_codec`` per row): encoded in ``wdt`` and decoded to
-    fp32.  bf16 is a plain downcast; int8 is symmetric round-half-to-even
-    on the row's own max|x|/127 grid (the sender's fp32 scale rides with
-    the payload)."""
-    if wdt != torch.int8:
-        return x32.to(wdt).float()
+    """Each worker row's payload as the simulated fabric delivers it:
+    ``wire_encode`` of each row (its own int8 scale), decoded to fp32."""
     flat = x32.reshape(x32.shape[0], -1)
-    scale = torch.clamp_min(flat.abs().amax(1) / 127.0, 1e-30)
-    q = torch.clamp(torch.round(flat / scale[:, None]), -127.0, 127.0).to(
-        torch.int8)
-    return (q.float() * scale[:, None]).reshape(x32.shape)
+    return wire_encode(flat, wdt)[1].reshape(x32.shape)
 
 
 def aggregate_sim(tensors: Sequence[torch.Tensor], *, how: str = "equal",
@@ -418,3 +413,499 @@ def deliver_stale(params: Sequence[torch.Tensor],
     """Fold a stale consensus delta into freshly trained params:
     ``params + delta`` per tensor (JAX ``comms.deliver_stale``)."""
     return torch._foreach_add(list(params), list(delta))
+
+
+# --------------------------------------------------------------------------
+# The bucketed sync engines (JAX ``comms.py:385-405, 454-704, 1092-1640``),
+# host-staged over the gloo group.
+#
+# A worker's tensors are packed into one fp32 vector in the JAX package's
+# flatten order (``WireLayout``: for a model, the order and element layout
+# of its flax leaves, so the buckets, the int8 scales, the round
+# optimizer's rows and the residual's positions are JAX's), cut into
+# ~``bucket_bytes`` buckets (``bucket_plan``), and each bucket is synced on
+# its own.  The arithmetic (pack, encode, decode, sums, blends) runs on the
+# worker's device; between the arithmetic steps the wire payload is copied
+# to pinned host memory, moved by gloo as bytes, and copied back:
+#
+# - ``sharded_opt_sync`` (allreduce): reduce-scatter as ``all_to_all_single``
+#   of the bucket's n slices plus a local fp32 sum of the received slices
+#   in rank order 0..n-1 (a compressed payload is decoded with its
+#   sender's scale before the sum), the apply on the owned 1/n shard (or on
+#   the gathered buffer under the replicated placement), then
+#   ``all_gather`` of the shard;
+# - ``gossip_sync`` (ring, double_ring): each hop one batch of
+#   point-to-point sends of the bucket's payload, blended locally in fp32.
+#
+# Every rank sums the same slices in the same order, so an equal blend is
+# bitwise the same on every rank.  ``group.wire`` counts the bytes handed
+# to gloo for other ranks: the payload bytes equal ``sync_wire_bytes``
+# (an int8 bucket's fp32 scale is counted apart, as JAX leaves it out).
+# --------------------------------------------------------------------------
+
+DEFAULT_BUCKET_BYTES = 4 << 20
+OPT_PLACEMENTS = ("replicated", "sharded")
+# the round optimizer's Adam moment rates (JAX ``ROUND_ADAM_B1/B2``)
+ROUND_ADAM_B1 = 0.9
+ROUND_ADAM_B2 = 0.999
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "int8": torch.int8}
+
+
+def wire_encode(x32: torch.Tensor, wdt: torch.dtype | None):
+    """The wire codec (JAX ``_wire_codec``): ``(payload, fp32 decode of the
+    payload, scale or None)``.  bf16 is a plain downcast; int8 is
+    symmetric round-half-to-even on a max|x|/127 grid, one fp32 scale per
+    row of a 2-D ``x32`` (per bucket for a 1-D one) riding next to the
+    payload.  fp32 (or None) is the identity."""
+    if wdt is None or wdt == torch.float32:
+        return x32, x32, None
+    if wdt != torch.int8:
+        y = x32.to(wdt)
+        return y, y.float(), None
+    rows = x32.ndim == 2
+    flat = x32 if rows else x32.reshape(1, -1)
+    scale = torch.clamp_min(flat.abs().amax(1) / 127.0, 1e-30)
+    q = torch.clamp(torch.round(flat / scale[:, None]), -127.0, 127.0).to(
+        torch.int8)
+    dec = q.float() * scale[:, None]
+    if rows:
+        return q, dec, scale
+    return q.reshape(x32.shape), dec.reshape(x32.shape), scale[0]
+
+
+class _Bucket(NamedTuple):
+    """One contiguous 1-D collective segment of the packed tensors."""
+
+    dtype: torch.dtype          # dtype of every leaf in the bucket
+    padded: int                 # elements with zero padding; % n == 0
+    items: tuple                # ((leaf_index, offset, size), ...)
+
+
+def _shape_dtype(leaf) -> tuple[tuple, torch.dtype]:
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), leaf.dtype
+    shape, dtype = leaf
+    if not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, str(np.dtype(dtype)))
+    return tuple(shape), dtype
+
+
+def _numel(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64)) if len(shape) else 1
+
+
+def bucket_plan(leaves, n: int, bucket_bytes: int = DEFAULT_BUCKET_BYTES
+                ) -> list[_Bucket]:
+    """Greedy bucketing of ``leaves`` (tensors or ``(shape, dtype)``
+    pairs) into ~``bucket_bytes`` segments (JAX ``bucket_plan``): leaves
+    in order, grouped by dtype; a bucket closes once it reaches the
+    target; a leaf is never split; each bucket is zero-padded to a
+    multiple of ``n`` so the reduce-scatter tiles evenly."""
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        groups.setdefault(_shape_dtype(leaf)[1], []).append(i)
+    out: list[_Bucket] = []
+    for dtype, idxs in groups.items():
+        target = max(1, int(bucket_bytes) // max(1, dtype.itemsize))
+        items: list[tuple] = []
+        offset = 0
+        for i in idxs:
+            size = _numel(_shape_dtype(leaves[i])[0])
+            items.append((i, offset, size))
+            offset += size
+            if offset >= target:
+                out.append(_Bucket(dtype, -(-offset // n) * n, tuple(items)))
+                items, offset = [], 0
+        if items:
+            out.append(_Bucket(dtype, -(-offset // n) * n, tuple(items)))
+    return out
+
+
+def _filled(b: _Bucket) -> int:
+    return sum(size for (_i, _off, size) in b.items)
+
+
+def sync_wire_bytes(leaves, n: int, *, mode: str = "sharded",
+                    wire_dtype: torch.dtype | None = None,
+                    bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                    topology: str = "allreduce") -> int:
+    """Per-worker bytes SENT by one round sync of ``leaves`` (JAX
+    ``sync_wire_bytes``): ``dense`` every leaf in fp32 once per gossip hop
+    (one injection for allreduce); ``sharded`` 2(n-1)/n of each padded
+    bucket in the wire dtype; ``gossip`` each hop every filled bucket in
+    the wire dtype.  The int8 scales are left out."""
+    if not leaves or n <= 1:
+        return 0
+    hops = GOSSIP_HOPS.get(topology, 1)
+    if mode == "dense":
+        return hops * sum(_numel(s) * d.itemsize
+                          for s, d in map(_shape_dtype, leaves))
+    item = lambda b: (wire_dtype or b.dtype).itemsize
+    plan = bucket_plan(leaves, n, bucket_bytes)
+    if mode == "gossip":
+        return sum(hops * _filled(b) * item(b) for b in plan)
+    return sum(2 * (n - 1) * (b.padded // n) * item(b) for b in plan)
+
+
+def bucket_name(i: int) -> str:
+    return f"b{i:04d}"
+
+
+def round_opt_init(leaves, n: int, rank: int, *, placement: str,
+                   bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                   device: torch.device | str = "cpu") -> dict:
+    """Worker ``rank``'s zero round-optimizer moments (JAX
+    ``round_opt_init``, one row of its worker-stacked layout): per bucket
+    ``{"mu", "nu"}`` of ``padded // n`` (sharded: the shard it owns) or
+    ``padded`` (replicated) fp32 elements."""
+    if placement not in OPT_PLACEMENTS:
+        raise ValueError(
+            f"placement must be one of {OPT_PLACEMENTS}, got {placement!r}")
+    out = {}
+    for i, b in enumerate(bucket_plan(leaves, n, bucket_bytes)):
+        row = b.padded // n if placement == "sharded" else b.padded
+        out[bucket_name(i)] = {
+            "mu": torch.zeros(row, dtype=torch.float32, device=device),
+            "nu": torch.zeros(row, dtype=torch.float32, device=device)}
+    return out
+
+
+class WireLayout:
+    """Where each element of a worker's tensors sits in the packed sync
+    vector.  ``leaves`` are the ``(shape, dtype)`` of the leaves the bucket
+    plan sees (for a model: its flax ``params`` leaves in JAX flatten
+    order, ``weights.wire_layout``); ``pieces`` lists, in packed order,
+    ``(tensor index, axes)``: the tensor permuted by ``axes`` (None: as it
+    is) and flattened.  Every tensor is one piece; the pieces of one leaf
+    are consecutive (a stacked leaf holds one per layer)."""
+
+    def __init__(self, leaves, pieces):
+        self.leaves = [_shape_dtype(leaf) for leaf in leaves]
+        self.pieces = [(int(i), None if axes is None else tuple(axes))
+                       for i, axes in pieces]
+
+    @classmethod
+    def identity(cls, tensors) -> "WireLayout":
+        return cls([_shape_dtype(t) for t in tensors],
+                   [(i, None) for i in range(len(tensors))])
+
+    @property
+    def numel(self) -> int:
+        return sum(_numel(s) for s, _d in self.leaves)
+
+    def pack(self, tensors) -> torch.Tensor:
+        """One fp32 vector of ``tensors`` in packed order (a copy)."""
+        return torch.cat([
+            (tensors[i] if axes is None else tensors[i].permute(*axes))
+            .detach().reshape(-1).float() for i, axes in self.pieces])
+
+    def unpack(self, flat: torch.Tensor, like) -> list[torch.Tensor]:
+        """``flat`` cut into tensors shaped and typed like ``like``."""
+        out = [None] * len(like)
+        sizes = [like[i].numel() for i, _axes in self.pieces]
+        for (i, axes), seg in zip(self.pieces, flat.split(sizes)):
+            t = like[i]
+            if axes is None:
+                out[i] = seg.view(t.shape).to(t.dtype)
+            else:
+                shape = [t.shape[a] for a in axes]
+                inv = [axes.index(d) for d in range(len(axes))]
+                out[i] = seg.view(shape).permute(*inv).to(t.dtype)
+        return out
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.uint8)
+
+
+def _all_to_all(x: torch.Tensor, group: mesh.Group, slot: str
+                ) -> torch.Tensor:
+    """The bucket ``x`` [padded] cut into n slices, slice j sent to rank
+    j: returns [n, padded // n], row j the slice rank j sent here."""
+    n = group.world_size
+    send = _to_host(x, group, slot + "/a2a")
+    recv = group.host_buffer(slot + "/a2a_recv", x.numel(), x.dtype)
+    dist.all_to_all_single(_bytes(recv), _bytes(send), group=group.pg)
+    group.count_wire("payload", (n - 1) * send.nbytes // n)
+    return _to_device(recv, x.device).view(n, -1)
+
+
+def _all_gather(x: torch.Tensor, group: mesh.Group, slot: str,
+                kind: str = "payload") -> torch.Tensor:
+    """Every rank's ``x`` (same size), concatenated in rank order."""
+    n = group.world_size
+    send = _to_host(x, group, slot + "/ag")
+    recv = group.host_buffer(slot + "/ag_recv", n * x.numel(), x.dtype)
+    dist.all_gather(list(_bytes(recv).view(n, -1).unbind(0)), _bytes(send),
+                    group=group.pg)
+    group.count_wire(kind, (n - 1) * send.nbytes)
+    return _to_device(recv, x.device)
+
+
+def _gather_decoded(payload, scale, group: mesh.Group, slot: str
+                    ) -> torch.Tensor:
+    """``all_gather`` of a wire payload (and, int8, of each sender's
+    scale), each rank's segment decoded with its own scale."""
+    full = _all_gather(payload, group, slot).float()
+    if scale is None:
+        return full
+    scales = _all_gather(scale.reshape(1), group, slot + "/scale", "scale")
+    return (full.view(group.world_size, -1) * scales[:, None]).reshape(-1)
+
+
+def _fold(rows: torch.Tensor) -> torch.Tensor:
+    """Sum of the rows of [n, k] in rank order: ``((r0 + r1) + r2) ...``."""
+    acc = rows[0]
+    for j in range(1, rows.shape[0]):
+        acc = acc + rows[j]
+    return acc
+
+
+def _check_fast(how: str, wire_dtype, residual, tensors) -> bool:
+    if how not in HOWS:
+        raise ValueError(f"how must be one of {HOWS}, got {how!r}")
+    if residual is not None and len(residual) != len(tensors):
+        raise ValueError(
+            "residual must mirror the synced tensors: "
+            f"{len(residual)} tensors vs {len(tensors)}")
+    return wire_dtype is not None and wire_dtype != torch.float32
+
+
+def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
+                     how: str = "equal", local_weight: float = 0.5,
+                     wire_dtype: torch.dtype | None = None,
+                     residual: Sequence[torch.Tensor] | None = None,
+                     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                     opt_placement: str = "sharded",
+                     tracker: dict | None = None,
+                     layout: WireLayout | None = None) -> tuple:
+    """The reduce-scatter sync of one worker's tensors (JAX
+    ``sharded_opt_sync`` with replicated residency, no buddy hop, no
+    screen): ``(synced tensors, new residual, new tracker)``.
+
+    Semantics of ``aggregate(topology="allreduce")``: ``equal`` the
+    cross-worker mean, ``weighted`` the self-exclusive peer-mean blend.
+    ``wire_dtype`` (bf16/int8) compresses both phases; ``residual``
+    (tensors like ``tensors``) arms error feedback: each worker carries
+    its own contribution's rounding and, on a compressed wire, n x the
+    rounding of the gathered mean over the shard it owns.
+    ``opt_placement``: the equal blend's scale on the owned shard
+    (``sharded``) or on the gathered buffer (``replicated``, fp32 only);
+    bitwise equal in fp32.  ``tracker`` (``round_opt_init``'s row) takes
+    one Adam moment update of the cross-worker mean."""
+    compressed = _check_fast(how, wire_dtype, residual, tensors)
+    if opt_placement not in OPT_PLACEMENTS:
+        raise ValueError(
+            f"opt_placement must be one of {OPT_PLACEMENTS}, got "
+            f"{opt_placement!r}")
+    if compressed and opt_placement != "sharded":
+        raise ValueError(
+            "a compressed wire quantizes the gathered mean, which forces "
+            "the scale-then-encode apply onto the shard: opt_placement "
+            f"must be 'sharded', got {opt_placement!r}")
+    n = 1 if group is None else group.world_size
+    tensors = list(tensors)
+    if not tensors or n == 1:
+        return tensors, residual, tracker
+    layout = layout or WireLayout.identity(tensors)
+    rank = group.rank
+    x = layout.pack(tensors)
+    r = layout.pack(residual) if residual is not None else None
+    out = torch.empty_like(x)
+    new_r = torch.empty_like(x) if r is not None else None
+    new_tracker = {} if tracker is not None else None
+    quantized = wire_dtype == torch.int8
+    w = local_weight
+    start = 0
+    for bi, b in enumerate(bucket_plan(layout.leaves, n, bucket_bytes)):
+        filled, row = _filled(b), b.padded // n
+        seg = slice(start, start + filled)
+        buf = x[seg] if r is None else x[seg] + r[seg]
+        if b.padded > filled:
+            buf = torch.cat([buf, buf.new_zeros(b.padded - filled)])
+        slot = f"sharded/{bucket_name(bi)}"
+        sent, sent32, sent_scale = wire_encode(buf, wire_dtype)
+        err = buf - sent32 if r is not None else None
+        pieces = _all_to_all(sent, group, slot)
+        if quantized:
+            scales = _all_gather(sent_scale.reshape(1), group,
+                                 slot + "/scale", "scale")
+            shard32 = _fold(pieces.float() * scales[:, None])
+        else:
+            shard32 = _fold(pieces.float())
+        if how == "equal":
+            if opt_placement == "replicated" and not compressed:
+                # gather the raw shard sums, scale the whole buffer on
+                # every worker (the ZeRO-1 baseline, bitwise the same)
+                full = _all_gather(shard32, group, slot + "/sum") / n
+                track32 = full
+            else:
+                mean32 = shard32 / n
+                mean, mean32_dec, mean_scale = wire_encode(mean32,
+                                                           wire_dtype)
+                if err is not None and compressed:
+                    # second stage: the gathered mean is wire-rounded too;
+                    # its owner carries n x that rounding at its span
+                    own = slice(rank * row, (rank + 1) * row)
+                    err[own] = err[own] + n * (mean32 - mean32_dec)
+                full = _gather_decoded(mean, mean_scale, group,
+                                       slot + "/mean")
+                track32 = mean32
+        else:
+            # the own term is per worker: gather the encoded sum, blend
+            # locally with the own contribution the peers received
+            tq, _tq32, tq_scale = wire_encode(shard32, wire_dtype)
+            total = _gather_decoded(tq, tq_scale, group, slot + "/sum")
+            own = sent32
+            full = w * own + (1.0 - w) * (total - own) / (n - 1)
+            track32 = (shard32 / n if opt_placement == "sharded"
+                       else total / n)
+        if new_tracker is not None:
+            name = bucket_name(bi)
+            if name not in tracker:
+                raise ValueError(
+                    f"round-optimizer tracker has no bucket {name} "
+                    "(bucket plan / tracker layout mismatch)")
+            mu, nu = tracker[name]["mu"], tracker[name]["nu"]
+            expect = row if opt_placement == "sharded" else b.padded
+            if mu.shape[-1] != expect:
+                raise ValueError(
+                    f"round-optimizer bucket {name} row has "
+                    f"{mu.shape[-1]} elements, expected {expect} for "
+                    f"opt_placement={opt_placement!r} (sync_bucket_mb "
+                    "or placement changed since the state was built?)")
+            g = track32
+            new_tracker[name] = {
+                "mu": ROUND_ADAM_B1 * mu + (1.0 - ROUND_ADAM_B1) * g,
+                "nu": ROUND_ADAM_B2 * nu + (1.0 - ROUND_ADAM_B2) * (g * g)}
+        out[seg] = full[:filled]
+        if new_r is not None:
+            new_r[seg] = err[:filled]
+        start += filled
+    synced = layout.unpack(out, tensors)
+    res = residual if new_r is None else layout.unpack(new_r, residual)
+    return synced, res, new_tracker
+
+
+def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
+          shifts: Sequence[int], slot: str) -> list[torch.Tensor]:
+    """For each shift s the fp32 decode of worker ``(rank - s) % n``'s
+    payload: one batch of point-to-point sends (an int8 payload's scale
+    travels beside it); a shift of 0 (mod n) is the worker's own payload,
+    taken locally."""
+    n, i = group.world_size, group.rank
+    remote = [s for s in shifts if s % n]
+    got, got_scale = {}, {}
+    if remote:
+        src = _to_host(sent, group, slot + "/send")
+        src_scale = scale.reshape(1).cpu() if scale is not None else None
+        ops = []
+        for s in remote:
+            got[s] = group.host_buffer(f"{slot}/recv{s}", sent.numel(),
+                                       sent.dtype)
+            ops += [dist.P2POp(dist.isend, _bytes(src), (i + s) % n,
+                               group=group.pg, tag=s),
+                    dist.P2POp(dist.irecv, _bytes(got[s]), (i - s) % n,
+                               group=group.pg, tag=s)]
+            group.count_wire("payload", src.nbytes)
+            if scale is not None:
+                got_scale[s] = torch.empty(1, dtype=torch.float32)
+                ops += [dist.P2POp(dist.isend, src_scale, (i + s) % n,
+                                   group=group.pg, tag=100 + s),
+                        dist.P2POp(dist.irecv, got_scale[s], (i - s) % n,
+                                   group=group.pg, tag=100 + s)]
+                group.count_wire("scale", 4)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    out = []
+    for s in shifts:
+        if s not in got:
+            out.append(sent32)
+            continue
+        r32 = _to_device(got[s], sent.device).float()
+        if scale is not None:
+            r32 = r32 * got_scale[s].to(sent.device)
+        out.append(r32)
+    return out
+
+
+def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
+                topology: str, how: str = "equal",
+                local_weight: float = 0.5,
+                wire_dtype: torch.dtype | None = None,
+                residual: Sequence[torch.Tensor] | None = None,
+                bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                layout: WireLayout | None = None) -> tuple:
+    """One bucketed ring/double-ring gossip round (JAX ``gossip_sync``
+    without the screen): ``(blended tensors, new residual)``.  The blends
+    are ``aggregate``'s expressions on the packed buckets (bitwise the
+    dense path in fp32); ``wire_dtype`` compresses the sent payload only;
+    ``residual`` arms error feedback: each worker sends ``encode(x +
+    residual)`` and keeps the rounding of that transmission."""
+    if topology not in GOSSIP_HOPS:
+        raise ValueError(
+            f"topology must be one of {tuple(GOSSIP_HOPS)}, got "
+            f"{topology!r} (allreduce rides sharded_opt_sync)")
+    _check_fast(how, wire_dtype, residual, tensors)
+    n = 1 if group is None else group.world_size
+    tensors = list(tensors)
+    if not tensors or n == 1:
+        return tensors, residual
+    layout = layout or WireLayout.identity(tensors)
+    x = layout.pack(tensors)
+    r = layout.pack(residual) if residual is not None else None
+    out = torch.empty_like(x)
+    new_r = torch.empty_like(x) if r is not None else None
+    w = local_weight
+    start = 0
+    for bi, b in enumerate(bucket_plan(layout.leaves, n, bucket_bytes)):
+        seg = slice(start, start + _filled(b))
+        buf = x[seg]
+        send = buf if r is None else buf + r[seg]
+        sent, sent32, scale = wire_encode(send, wire_dtype)
+        if new_r is not None:
+            new_r[seg] = send - sent32
+        received = _hops(sent, sent32, scale, group, _SHIFTS[topology],
+                         f"gossip/{bucket_name(bi)}")
+        if topology == "ring":
+            (r1,) = received
+            blended = ((buf + r1) / 2.0 if how == "equal"
+                       else w * buf + (1.0 - w) * r1)
+        else:
+            r1, r2 = received
+            blended = ((buf + r1 + r2) / 3.0 if how == "equal"
+                       else w * buf + ((1.0 - w) / 2.0) * (r1 + r2))
+        out[seg] = blended
+        start += seg.stop - seg.start
+    synced = layout.unpack(out, tensors)
+    res = residual if new_r is None else layout.unpack(new_r, residual)
+    return synced, res
+
+
+def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
+              topology: str = "allreduce", local_weight: float = 0.5,
+              wire_dtype: torch.dtype | None = None, residual=None,
+              bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+              opt_placement: str = "sharded", tracker: dict | None = None,
+              layout: WireLayout | None = None) -> tuple:
+    """One sync by engine ``mode`` (JAX ``make_host_sync``'s dispatch):
+    ``dense`` (``aggregate``), ``gossip`` (ring/double_ring) or
+    ``sharded`` (allreduce); ``(synced, new_residual, new_tracker)``."""
+    if mode == "dense":
+        return aggregate(tensors, how=how, topology=topology,
+                         local_weight=local_weight, group=group), \
+            residual, tracker
+    if mode == "gossip":
+        out, res = gossip_sync(
+            tensors, group=group, topology=topology, how=how,
+            local_weight=local_weight, wire_dtype=wire_dtype,
+            residual=residual, bucket_bytes=bucket_bytes, layout=layout)
+        return out, res, tracker
+    if mode != "sharded":
+        raise ValueError(f"mode must be dense, gossip or sharded, got "
+                         f"{mode!r}")
+    return sharded_opt_sync(
+        tensors, group=group, how=how, local_weight=local_weight,
+        wire_dtype=wire_dtype, residual=residual, bucket_bytes=bucket_bytes,
+        opt_placement=opt_placement, tracker=tracker, layout=layout)

@@ -12,27 +12,44 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-# flag -> (default, ROADMAP item that ports it).  A non-default value is
-# rejected in Config.__post_init__; "mesh_shape" also accepts data=1.
+# flag -> (default, ROADMAP item that ports it).  A value other than the
+# default (or one of ACCEPTED's) is rejected in Config.__post_init__.
+_ELASTIC = "A.11 item 2 (elastic membership + chaos)"
+_PIPELINE = "A.11 item 3 (the round pipeline and run observability)"
+_TIERS = "A.11 item 4 (tensor/pipeline/sequence parallelism)"
 NOT_PORTED = {
-    "sync_mode": ("auto", "A.8 (bucketed sync engines on NCCL)"),
-    "sync_dtype": ("float32", "A.8 (compressed sync wire)"),
-    "sync_compression": ("none", "A.8 (error-feedback residuals)"),
-    "sync_staleness": (0, "A.8 (semi-synchronous rounds)"),
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
                            "which is what auto gives; weights.py converts "
                            "both JAX layouts)"),
-    "mesh_shape": ("data=-1", "A.11 (tensor/pipeline/sequence parallelism)"),
-    "sequence_parallel": ("none", "A.11 (ring / Ulysses attention)"),
-    "chaos": ("", "A.11 (elastic membership + chaos)"),
-    "num_slices": (1, "A.11 (hierarchical two-level sync)"),
-    "opt_placement": ("auto", "A.8 (shard-resident optimizer apply)"),
-    "param_residency": ("auto", "A.8 (scatter-resident parameters)"),
-    "shard_redundancy": ("auto", "A.11 (elastic membership + chaos)"),
+    "mesh_shape": ("data=-1", _TIERS),
+    "sequence_parallel": ("none", _TIERS),
+    "pp_schedule": ("gpipe", _TIERS),
+    "pp_microbatches": (0, _TIERS),
+    "pp_remat": (False, _TIERS),
+    "chaos": ("", _ELASTIC),
+    "chaos_seed": (0, _ELASTIC),
+    "chaos_events": (4, _ELASTIC),
+    "chaos_kinds": ("kill,join,slow,stall", _ELASTIC),
+    "chaos_grace": (5.0, _ELASTIC),
+    "chaos_retries": (1, _ELASTIC),
+    "chaos_backoff": (0.5, _ELASTIC),
+    "elastic_min_workers": (1, _ELASTIC),
+    "num_slices": (1, "A.11 item 5 (hierarchical two-level sync)"),
+    "sync_dtype_outer": ("", "A.11 item 5 (hierarchical two-level sync)"),
+    "param_residency": ("auto", "A.11 item 2 (the elastic slice: "
+                                "scatter-resident parameters, whose rows "
+                                "crash recovery restores)"),
+    "shard_redundancy": ("auto", "A.11 item 2 (the elastic slice: the "
+                                 "buddy hop)"),
+    "profile_dir": ("", _PIPELINE),
+    "sanitize": (False, _PIPELINE),
+    "overlap_rounds": (True, _PIPELINE),
 }
-# the wire flags a simulated run may set (--sim_workers: the simulated
-# fabric's codec, comms.aggregate_sim); the real engine still refuses them
-SIM_WIRE_FLAGS = ("sync_dtype", "sync_compression")
+# values besides the default that a NOT_PORTED flag takes: data=1 is the
+# one-worker mesh, and the port resolves residency to replicated and the
+# buddy hop to off on every run
+ACCEPTED = {"mesh_shape": ("data=1",), "param_residency": ("replicated",),
+            "shard_redundancy": ("off",)}
 
 
 def _choices(name: str, value, allowed) -> None:
@@ -127,19 +144,41 @@ class Config:
     sim_lr_jitter: float = 0.0    # [0, 1): lr * (1 + jitter * u_i)
     sim_staleness: int = 0        # deliver each consensus K rounds late
 
-    # --- flags of features not ported yet (see NOT_PORTED) ------------------
+    # the bucketed sync engines (JAX config.py:182-267; comms.py):
+    # auto | dense | sharded (sharded = the fast engine of the topology:
+    # reduce-scatter for allreduce, bucketed gossip for ring/double_ring)
     sync_mode: str = "auto"
-    sync_dtype: str = "float32"
-    sync_compression: str = "none"
+    sync_dtype: str = "float32"   # wire of the fast engines: bf16 | int8
+    sync_compression: str = "none"   # ef: error-feedback residuals
+    sync_bucket_mb: float = 4.0   # MiB of fp32 per bucket (collective)
+    opt_placement: str = "auto"   # auto | replicated | sharded
+    # semi-synchronous rounds (JAX config.py:164-176): K > 0 runs round
+    # R's sync on a host thread under round R+1's compute and folds its
+    # consensus delta in at the entry of round R+K+1 (weights mode)
     sync_staleness: int = 0
+
+    # --- flags of features not ported yet (see NOT_PORTED) ------------------
     layer_scan: str = "auto"
     mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
+    pp_schedule: str = "gpipe"
+    pp_microbatches: int = 0
+    pp_remat: bool = False
     chaos: str = ""
+    chaos_seed: int = 0
+    chaos_events: int = 4
+    chaos_kinds: str = "kill,join,slow,stall"
+    chaos_grace: float = 5.0
+    chaos_retries: int = 1
+    chaos_backoff: float = 0.5
+    elastic_min_workers: int = 1
     num_slices: int = 1
-    opt_placement: str = "auto"
+    sync_dtype_outer: str = ""
     param_residency: str = "auto"
     shard_redundancy: str = "auto"
+    profile_dir: str = ""
+    sanitize: bool = False
+    overlap_rounds: bool = True
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -156,26 +195,31 @@ class Config:
         _choices("compute_dtype", self.compute_dtype,
                  ("bfloat16", "float32"))
         _choices("device", self.device, (None, "cuda", "cpu"))
+        _choices("sync_mode", self.sync_mode, ("auto", "dense", "sharded"))
         _choices("sync_dtype", self.sync_dtype,
                  ("float32", "bfloat16", "int8"))
         _choices("sync_compression", self.sync_compression, ("none", "ef"))
+        _choices("opt_placement", self.opt_placement,
+                 ("auto", "replicated", "sharded"))
+        _choices("param_residency", self.param_residency,
+                 ("auto", "replicated", "resident"))
+        _choices("shard_redundancy", self.shard_redundancy,
+                 ("auto", "buddy", "off"))
         self.parse_remat_policy()
         self._check_sim()
+        self._check_sync()
         if self.dtype != "float32":
             raise NotImplementedError(
                 "param dtype other than float32 is not supported; use "
                 "--compute_dtype for bfloat16 activations/matmuls")
         for name, (default, where) in NOT_PORTED.items():
             value = getattr(self, name)
-            if value == default or (name == "mesh_shape"
-                                    and value == "data=1"):
+            if value == default or value in ACCEPTED.get(name, ()):
                 continue
-            if name == "sync_mode" and value == "dense":
-                continue
-            if name in SIM_WIRE_FLAGS and self.sim_workers > 0:
-                continue
+            flag = (f"--{name} {value}" if name != "overlap_rounds"
+                    else "--no_overlap_rounds")
             raise ValueError(
-                f"--{name} {value} is not ported to the PyTorch package yet; "
+                f"{flag} is not ported to the PyTorch package yet; "
                 f"it arrives with ROADMAP queue {where}")
         if self.backend == "nccl":
             # N workers share one card here as N processes of a gloo group
@@ -208,10 +252,7 @@ class Config:
         """The JAX config's checks of the scenario-lab flags
         (``config.py:683-835``), with its messages: the scenario knobs'
         ranges, knobs without ``--sim_workers``, every real-engine
-        feature a simulated run refuses, and the simulated wire.  Where
-        ``torch.func`` cannot carry a combination JAX allows (MoE's
-        capacity dispatch, ``torch.utils.checkpoint`` under vmap), the
-        refusal names ROADMAP A.11."""
+        feature a simulated run refuses, and the simulated wire."""
         if self.sim_workers < 0:
             raise ValueError(
                 f"sim_workers must be >= 0 (0 = real-mesh driver), got "
@@ -233,7 +274,6 @@ class Config:
                 f">= 1 could drive a learning rate to zero or negative; "
                 f"got {self.sim_lr_jitter}")
         self.parse_sim_byzantine()   # validates the spec eagerly
-        compressed = self.sync_dtype in ("bfloat16", "int8")
         if self.sim_workers == 0:
             for flag, dflt, name in (
                     (self.sim_sample_frac, 1.0, "--sim_sample_frac"),
@@ -247,16 +287,6 @@ class Config:
                         "per-round participation/adversary machinery)")
         else:
             self._check_sim_combinations()
-            if compressed and self.sync_mode == "dense":
-                raise ValueError(
-                    f"--sync_dtype {self.sync_dtype} is the bucketed "
-                    "engines' compressed wire format; it cannot combine "
-                    "with --sync_mode dense")
-            if self.sync_compression == "ef" and not compressed:
-                raise ValueError(
-                    "--sync_compression ef compensates compressed-wire "
-                    "rounding; it requires a compressed --sync_dtype of "
-                    "bfloat16 or int8")
         if self.sim_staleness < 0:
             raise ValueError(
                 f"sim_staleness must be >= 0 (0 = the synchronous lab), "
@@ -364,19 +394,161 @@ class Config:
                 "under the next round's compute — the lab's sync is "
                 "stacked math at the round's end (use --sim_staleness "
                 "for the simulated delivery-delay twin)")
-        # what torch.func cannot carry (the JAX package runs these)
-        if self.num_experts > 0:
+
+    def _check_sync(self) -> None:
+        """The JAX config's checks of the sync engine's flags
+        (``config.py:436-545``) and of ``--sync_staleness`` (:804-891), with
+        its messages (the hierarchical ones name --num_slices, which the
+        port refuses after these checks)."""
+        compressed_wire = self.sync_dtype in ("bfloat16", "int8")
+        if compressed_wire and self.sync_mode == "dense":
             raise ValueError(
-                "--num_experts with --sim_workers: the Switch FFN's "
-                "capacity dispatch (a data-dependent top-1 ranking and "
-                "scatter per worker) has no torch.func.vmap batching in "
-                "the port yet — ROADMAP A.11")
-        if self.remat_policy != "none":
+                f"--sync_dtype {self.sync_dtype} is the bucketed engines' "
+                "compressed wire format; it cannot combine with "
+                "--sync_mode dense")
+        if self.opt_placement == "sharded" and self.sync_mode == "dense":
             raise ValueError(
-                f"--remat_policy {self.remat_policy} with --sim_workers: "
-                "torch.utils.checkpoint (models/remat.py) does not run "
-                "under torch.func transforms, so the vmapped step cannot "
-                "recompute a block — ROADMAP A.11")
+                "--opt_placement sharded runs the optimizer apply between "
+                "psum_scatter and all_gather — a bucketed-sync-engine "
+                "stage; it cannot combine with --sync_mode dense")
+        if self.opt_placement == "replicated" and compressed_wire:
+            raise ValueError(
+                f"--opt_placement replicated cannot combine with "
+                f"--sync_dtype {self.sync_dtype}: a compressed wire "
+                "quantizes the gathered mean, which forces the "
+                "scale-then-encode apply onto the 1/N shard (the sharded "
+                "placement) — a post-gather replicated apply would gather "
+                "the uncompressed fp32 sum instead")
+        if self.sync_compression == "ef" and not compressed_wire:
+            raise ValueError(
+                "--sync_compression ef compensates compressed-wire "
+                "rounding; it requires a compressed --sync_dtype (or, "
+                "hierarchically, --sync_dtype_outer) of bfloat16 or int8")
+        if self.sync_bucket_mb <= 0:
+            raise ValueError(
+                f"sync_bucket_mb must be positive, got {self.sync_bucket_mb}")
+        if self.sync_staleness < 0:
+            raise ValueError(
+                f"sync_staleness must be >= 0 (0 = fully synchronous), "
+                f"got {self.sync_staleness}")
+        if self.sync_staleness == 0:
+            return
+        if self.aggregation_by != "weights":
+            raise ValueError(
+                "--sync_staleness requires --aggregation_by weights "
+                "(FedAvg): the deferred delivery folds a consensus "
+                "DELTA into later params, which needs a consensus "
+                "blend to exist — in gradients mode the aggregate "
+                "feeds each worker's optimizer step inside the round "
+                "and there is nothing to deliver late")
+        if self.chaos:
+            raise ValueError(
+                "--chaos cannot combine with --sync_staleness in v1: "
+                "crash rollback and elastic membership both rebuild "
+                "state at a round boundary assuming NO consensus is "
+                "in flight — a pending stale delta would be computed "
+                "against a pre-crash (or pre-reshard) worker axis and "
+                "silently corrupt the restored params (per-fault "
+                "drain is the ROADMAP follow-on)")
+        if self.num_slices > 1:
+            raise ValueError(
+                "--num_slices > 1 cannot combine with "
+                "--sync_staleness in v1: the hierarchical sync "
+                "threads a DCN outer-EF residual through consecutive "
+                "sync programs — under staleness sync R+1 dispatches "
+                "before sync R's residual exists, so the two-level "
+                "chain cannot pipeline without restructuring the "
+                "outer hop (the ROADMAP follow-on)")
+        if self.param_residency == "resident":
+            raise ValueError(
+                "--param_residency resident cannot combine with "
+                "--sync_staleness: resident keeps the sync's scatter "
+                "output as the between-round state, which makes round "
+                "R+1's entry gather DEPEND on sync R finishing — the "
+                "exact serialization staleness exists to remove "
+                "(auto resolves to replicated)")
+        if self.shard_redundancy == "buddy":
+            raise ValueError(
+                "--shard_redundancy buddy cannot combine with "
+                "--sync_staleness: the buddy hop rides the sync "
+                "program to snapshot shard-resident state, and "
+                "staleness resolves param residency to replicated — "
+                "nothing is uniquely held, so there is nothing to "
+                "back up (its consumer, crash recovery, is rejected "
+                "under staleness anyway)")
+        if self.stream_chunk_steps > 0:
+            raise ValueError(
+                "--stream_chunk_steps cannot combine with "
+                "--sync_staleness in v1: the streamed round already "
+                "overlaps its standalone sync under the next round's "
+                "first chunks via the producer thread — composing a "
+                "second staleness window over the chunked dispatch "
+                "is the ROADMAP follow-on")
+        if self.checkpoint_dir or self.resume:
+            raise ValueError(
+                "--checkpoint_dir/--resume cannot combine with "
+                "--sync_staleness in v1: a snapshot taken between "
+                "fences would capture params WITHOUT the K in-flight "
+                "consensus deltas, so the restored trajectory would "
+                "silently diverge from the run that wrote it "
+                "(drain-before-snapshot is the ROADMAP follow-on)")
+
+    def resolve_sync_mode(self) -> str:
+        """``--sync_mode`` resolved per topology into the engine run:
+        ``dense`` | ``sharded`` | ``gossip`` (JAX ``resolve_sync_mode``
+        off a TPU).  ``sharded`` is the fast engine of the topology (the
+        reduce-scatter for allreduce, the bucketed gossip for ring and
+        double_ring); ``auto`` picks it only when a compressed wire or
+        ``--opt_placement sharded`` asks for it, and the dense path
+        otherwise (bitwise the same in fp32 at two workers)."""
+        fast = "sharded" if self.topology == "allreduce" else "gossip"
+        if self.sync_mode == "sharded":
+            return fast
+        if self.sync_mode == "dense":
+            return "dense"
+        if self.sync_dtype in ("bfloat16", "int8"):
+            return fast
+        if self.opt_placement == "sharded":
+            return fast
+        return "dense"
+
+    def resolve_sync_levels(self) -> dict:
+        """Per-level engines (JAX ``resolve_sync_levels``): the flat run's
+        one engine as the inner level, no outer level."""
+        return {"inner": self.resolve_sync_mode(), "outer": None}
+
+    def resolve_opt_placement(self) -> str:
+        """``--opt_placement`` resolved: ``replicated`` | ``sharded`` |
+        ``local`` (JAX ``resolve_opt_placement``): gossip topologies are
+        ``local`` (worker-local blends, nothing to shard); for allreduce
+        ``auto`` is ``sharded`` exactly when the sharded engine runs, and
+        the dense path reports ``replicated``."""
+        mode = self.resolve_sync_mode()
+        if mode == "gossip" or self.topology != "allreduce":
+            return "local"
+        if self.opt_placement in ("replicated", "sharded"):
+            return self.opt_placement
+        return "sharded" if mode == "sharded" else "replicated"
+
+    def resolve_param_residency(self) -> str:
+        """``replicated`` on every run: the scatter-resident layout JAX
+        resolves under weights x equal on the sharded engine arrives with
+        the elastic slice (ROADMAP A.11 item 2); ``resident`` is refused."""
+        return "replicated"
+
+    def resolve_shard_redundancy(self) -> str:
+        """``off`` on every run: nothing is shard-resident here except the
+        sharded round optimizer's rows, whose buddy hop (JAX resolves it
+        on under ``auto``) arrives with the elastic slice (ROADMAP A.11
+        item 2); the hop moves data only, so the sync's outputs are the
+        same without it."""
+        return "off"
+
+    def sync_wire_dtype(self):
+        """The compressed wire's torch dtype (None: the fp32 wire)."""
+        from .comms import WIRE_DTYPES
+        wire = WIRE_DTYPES[self.sync_dtype]
+        return None if wire == WIRE_DTYPES["float32"] else wire
 
     SIM_BYZANTINE_KINDS = ("signflip", "noise")
 
@@ -690,13 +862,66 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sim_staleness", type=int, default=d.sim_staleness,
                    help="scenario: deliver each round's consensus delta "
                         "K rounds late (0 = synchronous)")
+    p.add_argument("--sync_mode", default=d.sync_mode,
+                   choices=["auto", "dense", "sharded"],
+                   help="round-sync engine, resolved per topology: sharded "
+                        "= the bucketed fast engine (reduce-scatter for "
+                        "allreduce, bucketed gossip for ring/double_ring), "
+                        "host-staged over the gloo group; auto = dense "
+                        "unless a compressed wire or --opt_placement "
+                        "sharded asks for the fast engine")
+    p.add_argument("--sync_dtype", default=d.sync_dtype,
+                   choices=["float32", "bfloat16", "int8"],
+                   help="wire dtype of the fast engines (bfloat16 halves "
+                        "the bytes, int8 with a per-bucket scale quarters "
+                        "them); under --sim_workers the simulated wire")
+    p.add_argument("--sync_compression", default=d.sync_compression,
+                   choices=["none", "ef"],
+                   help="ef = carry fp32 error-feedback residuals so the "
+                        "compressed wire's rounding does not accumulate "
+                        "in the parameters (weights aggregation)")
+    p.add_argument("--sync_bucket_mb", type=float, default=d.sync_bucket_mb,
+                   help="fast-engine bucket size in MiB of fp32 per "
+                        "collective")
+    p.add_argument("--opt_placement", default=d.opt_placement,
+                   choices=["auto", "replicated", "sharded"],
+                   help="where the allreduce blend's scale runs: sharded = "
+                        "on each worker's 1/N shard between the reduce-"
+                        "scatter and the all-gather (and the gradients-"
+                        "mode round optimizer's moments at 1/N), "
+                        "replicated = on the gathered buffer; auto = "
+                        "sharded under the sharded engine")
+    p.add_argument("--sync_staleness", type=int, default=d.sync_staleness,
+                   help="semi-synchronous rounds: round R's sync runs on a "
+                        "host thread while round R+1 trains on the "
+                        "pre-sync parameters, and its consensus delta is "
+                        "folded in at the entry of round R+K+1 (0 = "
+                        "synchronous; weights aggregation only)")
+    p.add_argument("--param_residency", default=d.param_residency,
+                   choices=["auto", "replicated", "resident"],
+                   help="auto and replicated keep the full parameters on "
+                        "every worker; resident is not ported yet (the "
+                        "elastic slice)")
+    p.add_argument("--shard_redundancy", default=d.shard_redundancy,
+                   choices=["auto", "buddy", "off"],
+                   help="auto and off resolve to off; buddy is not ported "
+                        "yet (the elastic slice)")
+    # JAX's persistent XLA compile cache: a documented no-op here
+    p.add_argument("--compile_cache_dir", type=str, default=None,
+                   help="[compat no-op] the JAX package's XLA compile "
+                        "cache; the port compiles nothing ahead of time")
     for name, (default, _where) in NOT_PORTED.items():
+        if name in ("param_residency", "shard_redundancy"):
+            continue
         help_ = "not ported yet (rejected unless default)"
-        if name in SIM_WIRE_FLAGS:
-            help_ = ("the simulated wire under --sim_workers; otherwise "
-                     "not ported yet (rejected unless default)")
-        p.add_argument(f"--{name}", type=type(default), default=default,
-                       help=help_)
+        if name == "overlap_rounds":
+            p.add_argument("--no_overlap_rounds", action="store_true",
+                           help=help_)
+        elif isinstance(default, bool):
+            p.add_argument(f"--{name}", action="store_true", help=help_)
+        else:
+            p.add_argument(f"--{name}", type=type(default), default=default,
+                           help=help_)
     return p
 
 
@@ -706,4 +931,5 @@ def config_from_args(argv: list[str] | None = None) -> Config:
     kw = {k: v for k, v in vars(args).items() if k in fields}
     kw["augment"] = not args.no_augment
     kw["ckpt_async"] = args.ckpt_async == "on"
+    kw["overlap_rounds"] = not args.no_overlap_rounds
     return Config(**kw)

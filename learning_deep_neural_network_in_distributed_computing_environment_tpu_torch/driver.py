@@ -203,10 +203,12 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
 def checkpoint_metadata(cfg: Config, num_classes: int, model) -> dict:
     """The architecture facts MANIFEST.json carries, with the JAX driver's
     keys (``driver.py:128-187``), so ``main serve`` rebuilds the model from
-    a checkpoint alone.  The port's layouts are fixed: one stacked layer
-    collection for the transformers (``scan_layers``), replicated
-    parameters, no slices; ``params_leaves`` lists every ``.params`` leaf
-    as [path, per-worker shape, dtype]."""
+    a checkpoint alone: one stacked layer collection for the transformers
+    (``scan_layers``), no slices, the resolved optimizer placement and
+    parameter residency (replicated: the resident layout is not ported)
+    and the bucket size the round optimizer's rows follow;
+    ``params_leaves`` lists every ``.params`` leaf as [path, per-worker
+    shape, dtype]."""
     return {"model": cfg.model, "num_classes": int(num_classes),
             "scan_layers": is_attention_model(cfg.model),
             "compute_dtype": cfg.compute_dtype,
@@ -214,9 +216,9 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model) -> dict:
             "num_experts": int(cfg.num_experts),
             "capacity_factor": float(cfg.expert_capacity_factor),
             "dataset": cfg.dataset,
-            "opt_placement": "replicated",
-            "param_residency": "replicated",
-            "sync_bucket_mb": 4.0,
+            "opt_placement": cfg.resolve_opt_placement(),
+            "param_residency": cfg.resolve_param_residency(),
+            "sync_bucket_mb": float(cfg.sync_bucket_mb),
             "num_slices": 1,
             "params_leaves": weights.params_leaves(model)}
 
@@ -373,7 +375,26 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         except ImportError:
             pass
     walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    sync_bytes = 4 * sum(p.numel() for p in model.parameters())
+    if not sim:
+        # the engine provenance of the run (JAX driver.py:925-951)
+        results["sync_engine"] = {
+            "mode": engine.sync_mode, "levels": cfg.resolve_sync_levels(),
+            "num_slices": 1, "sync_bytes_ici": 0, "sync_bytes_dcn": 0,
+            "opt_placement": engine.opt_placement,
+            "param_residency": engine.param_residency,
+            "per_worker_state_bytes": engine.state_resident_bytes(state)}
+        log.info("round-sync engine: %s (topology=%s, wire=%s, "
+                 "opt_placement=%s, param_residency=%s, shard_redundancy="
+                 "%s, staleness=%d)", engine.sync_mode, cfg.topology,
+                 cfg.sync_dtype, engine.opt_placement,
+                 engine.param_residency, engine.shard_redundancy,
+                 cfg.sync_staleness)
+        sync_bytes = engine.sync_wire_bytes()
+        # the dense path's own wire model (a ring all-reduce sends
+        # 2(n-1)/n of the buffer); the fast engines send what they account
+        wire_bytes = (comms.wire_bytes(
+            sum(p.numel() for p in model.parameters()), cfg.topology, n)
+            if engine.sync_mode == "dense" else sync_bytes)
     try:
         for epoch in epochs:
             # straggler protocol: per-worker step cap from the sec/batch EMA
@@ -417,11 +438,17 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 timing.update(
                     {k: mx[k] for k in mx if k.startswith("workers_")},
                     **engine.last_sync_stats)
-            elif group is not None:
+            else:
+                # JAX's sync keys on every row (train.py:945-970): one flat
+                # level, every byte intra-slice
+                stats = engine.last_sync_stats
                 timing.update(
                     {k: mx[k] for k in mx if k.startswith("workers_")},
-                    sync_bytes=sync_bytes, sync_wire_bytes=comms.wire_bytes(
-                        sync_bytes // 4, cfg.topology, n))
+                    sync_bytes=sync_bytes, sync_wire_bytes=wire_bytes,
+                    sync_mode=stats["sync_mode"], sync_ms=stats["sync_ms"],
+                    sync_hidden_ms=stats["sync_hidden_ms"],
+                    sync_bytes_ici=sync_bytes, sync_bytes_dcn=0,
+                    sync_ms_ici=stats["sync_ms"], sync_ms_dcn=0.0)
             results["round_timings"].append(timing)
             if ckpt is not None:
                 if group is not None:
@@ -480,11 +507,24 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 ckpt.abort()
     if pbar is not None:
         pbar.close()
+    state = engine.drain_pending(state)
+    if not sim:
+        results["sync_engine"]["sync_bytes_ici"] = (
+            sync_bytes if results["round_timings"] else 0)
+        results["sync_engine"]["per_worker_state_bytes"] = \
+            engine.state_resident_bytes(state)
+    results["async_rounds"] = async_rounds(
+        cfg, getattr(engine, "stale_log", []))
     if sim:
-        state = engine.drain_pending(state)
         results["sim"] = engine.sim_summary(results["round_timings"], state)
         results["sync_engine"] = {
             "mode": "sim", "levels": {"inner": "sim", "outer": None},
+            "num_slices": 1,
+            "sync_bytes_ici": results["sim"]["per_worker_sync_bytes"],
+            "sync_bytes_dcn": 0,
+            # the lab's blend is stacked math on the whole rows (JAX
+            # sim.py:117-118)
+            "opt_placement": "replicated", "param_residency": "replicated",
             "per_worker_state_bytes": engine.state_resident_bytes(state)}
         log.info("scenario lab: %d simulated workers in one process, %s "
                  "rounds/s, %d bytes/worker sync wire",
@@ -504,6 +544,25 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     return results
 
 
+def async_rounds(cfg: Config, stale_log: list) -> dict:
+    """``results["async_rounds"]`` with JAX's keys (``driver.py:1954-1980``):
+    whether rounds overlapped their sync, how many deltas were delivered,
+    and how much of the measured sync wall ran under compute."""
+    if cfg.sync_staleness <= 0:
+        return {"enabled": False}
+    wall = sum(r["sync_ms"] for r in stale_log)
+    hidden = sum(r["sync_hidden_ms"] for r in stale_log)
+    out = {"enabled": True, "staleness": cfg.sync_staleness,
+           "delivered": len(stale_log), "sync_ms_total": round(wall, 3),
+           "sync_hidden_ms_total": round(hidden, 3),
+           "hidden_fraction": round(hidden / wall, 4) if wall > 0 else 0.0}
+    log.info("async rounds: staleness %d, %d consensus delta(s) delivered, "
+             "%.1f ms sync wall, %.1f ms hidden under compute (%.0f%%)",
+             cfg.sync_staleness, len(stale_log), wall, hidden,
+             100.0 * out["hidden_fraction"])
+    return out
+
+
 def train_rank(rank: int, world_size: int, store_path: str,
                timeout_s: float, cfg: Config,
                train_kwargs: dict | None = None) -> dict[str, Any]:
@@ -518,14 +577,18 @@ def train_rank(rank: int, world_size: int, store_path: str,
 
 def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
                  num_classes: int, state_path: str, packs_path: str,
-                 out_dir: str, timeout_s: float = mesh.GROUP_TIMEOUT_S
-                 ) -> None:
-    """One rank of a one-round check (a spawn target): for each config of
+                 out_dir: str, timeout_s: float = mesh.GROUP_TIMEOUT_S,
+                 rounds: list | None = None) -> None:
+    """One rank of a round check (a spawn target): for each config of
     ``cfgs``, builds the model from the ``state_dict`` in ``state_path``
-    (``torch.save``), runs one engine round over the group on its row of
-    the worker-stacked packs in ``packs_path`` (npz: x, y, m, xv, yv, mv)
-    and saves ``{out_dir}/rank{rank}-{i}.pt``: the round's metrics and the
-    model's ``state_dict`` after it."""
+    (``torch.save``), runs ``rounds[i]`` engine rounds (default one) over
+    the group on its row of the worker-stacked packs in ``packs_path``
+    (npz: x, y, m, xv, yv, mv), drains what ``--sync_staleness`` left in
+    flight, and saves ``{out_dir}/rank{rank}-{i}.pt``: the last round's
+    metrics (``mx``) and every round's (``mxs``), the model's
+    ``state_dict`` after the drain, the sync engine's state
+    (``sync_residual``, ``round_opt``) and how many stale deltas were
+    delivered in the rounds and in all."""
     state_dict = torch.load(state_path)
     with np.load(packs_path) as f:
         train_pack = (f["x"], f["y"], f["m"])
@@ -538,10 +601,19 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
                                     train_pack[0].shape[3:])
             model.load_state_dict(state_dict)
             engine = LocalSGDEngine(model, cfg, device, group)
-            state, mx = engine.round(engine.init_state(), train_pack,
-                                     val_pack)
-            torch.save({"mx": mx, "state_dict": model.state_dict(),
-                        "opt_count": state.opt.count},
+            state, mxs = engine.init_state(), []
+            for _ in range(rounds[i] if rounds else 1):
+                state, mx = engine.round(state, train_pack, val_pack)
+                mxs.append(mx)
+            in_rounds = len(engine.stale_log)
+            state = engine.drain_pending(state)
+            torch.save({"mx": mxs[-1], "mxs": mxs,
+                        "state_dict": model.state_dict(),
+                        "opt_count": state.opt.count,
+                        "sync_residual": state.sync_residual,
+                        "round_opt": state.round_opt,
+                        "stale_in_rounds": in_rounds,
+                        "stale_log_len": len(engine.stale_log)},
                        os.path.join(out_dir, f"rank{rank}-{i}.pt"))
 
 

@@ -40,28 +40,49 @@ GROUP_TIMEOUT_S = 300.0
 @dataclasses.dataclass
 class Group:
     """One rank's view of the worker group, and the pinned host buffers
-    its syncs stage through (kept across rounds: pinning is slow)."""
+    its syncs stage through (kept across rounds: pinning is slow).
+
+    ``pg`` is the ``torch.distributed`` process group its collectives run
+    on (None: the default group); ``split`` gives a second view over the
+    same ranks with a process group and buffers of its own, so a sync on
+    a host thread never interleaves its collectives with the main
+    thread's.  ``wire`` counts the bytes this rank handed to gloo for
+    other ranks, by kind (``payload``, ``scale``), for the fast engines'
+    accounting (``comms.sync_wire_bytes``)."""
 
     rank: int
     world_size: int
     device: torch.device
+    pg: object = None
     _host: dict = dataclasses.field(default_factory=dict, repr=False)
+    wire: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def host_buffer(self, slot: str, numel: int) -> torch.Tensor:
-        """A reusable fp32 host buffer of ``numel`` elements, pinned when
-        the group's device is a card."""
+    def host_buffer(self, slot: str, numel: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """A reusable host buffer of ``numel`` elements of ``dtype``,
+        pinned when the group's device is a card."""
         buf = self._host.get(slot)
-        if buf is None or buf.numel() != numel:
-            buf = torch.empty(numel, dtype=torch.float32,
+        if buf is None or buf.numel() != numel or buf.dtype != dtype:
+            buf = torch.empty(numel, dtype=dtype,
                               pin_memory=self.device.type == "cuda")
             self._host[slot] = buf
         return buf
 
+    def count_wire(self, kind: str, nbytes: int) -> None:
+        self.wire[kind] = self.wire.get(kind, 0) + int(nbytes)
+
     def all_gather(self, obj) -> list:
         """Every rank's ``obj`` (picklable), in rank order."""
         out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.pg)
         return out
+
+    def split(self, timeout_s: float = GROUP_TIMEOUT_S) -> "Group":
+        """A new view of the same ranks on a process group of its own (a
+        collective: every rank calls it at the same point)."""
+        pg = dist.new_group(list(range(self.world_size)), backend="gloo",
+                            timeout=datetime.timedelta(seconds=timeout_s))
+        return Group(self.rank, self.world_size, self.device, pg)
 
 
 def all_gather(group: Group | None, obj) -> list:

@@ -185,8 +185,62 @@ class Remat:
     def __call__(self, block, *args):
         if not self or not torch.is_grad_enabled():
             return block(*args)
+        if torch._C._functorch.is_functorch_wrapped_tensor(args[0]):
+            # under torch.func (the scenario lab's vmapped grad), which
+            # refuses checkpoint's saved-tensor hooks: recompute the whole
+            # block in the backward, whatever the policy selects
+            return recompute(block, *args)
         context_fn = self._context_fn(args[0].device.type)
         kw = {} if context_fn is None else {"context_fn": context_fn}
         # the blocks draw no random numbers: no RNG state to replay
         return checkpoint(block, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
+
+
+class _Recompute(torch.autograd.Function):
+    """A block whose forward saves only its inputs (and the parameters it
+    reads) and whose backward runs it again under ``torch.func.vjp``: the
+    recompute ``checkpoint`` does, in a form ``torch.func`` transforms
+    take (``setup_context``, a generated vmap rule)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, n_in, *tensors):
+        return run(tensors[:n_in], tensors[n_in:])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, n_in, *tensors = inputs
+        ctx.run, ctx.n_in = run, n_in
+        ctx.save_for_backward(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        n_in = ctx.n_in
+        _, vjp_fn = torch.func.vjp(ctx.run, tuple(saved[:n_in]),
+                                   tuple(saved[n_in:]))
+        g_in, g_params = vjp_fn(tuple(grads))
+        return (None, None, *g_in, *g_params)
+
+
+def recompute(block, *args):
+    """``block(*args)`` through ``_Recompute``; the block returns a tensor
+    or a tuple whose entries are tensors or None (an MoE block's aux
+    loss is None in a dense block)."""
+    names = [n for n, _ in block.named_parameters()]
+    params = tuple(p for _, p in block.named_parameters())
+    shape = {}
+
+    def run(inputs, ps):
+        out = torch.func.functional_call(block, dict(zip(names, ps)),
+                                         tuple(inputs))
+        outs = out if isinstance(out, tuple) else (out,)
+        shape["tuple"] = isinstance(out, tuple)
+        shape["none"] = [o is None for o in outs]
+        return tuple(o for o in outs if o is not None)
+
+    got = iter(_Recompute.apply(run, len(args), *args, *params))
+    outs = tuple(None if none else next(got) for none in shape["none"])
+    return outs if shape["tuple"] else outs[0]

@@ -241,7 +241,8 @@ class ServeEngine:
         if meta.get("param_residency") == "resident":
             raise ValueError(
                 f"checkpoint {path} stores scatter-resident parameters; "
-                "serving them arrives with ROADMAP queue A.8")
+                "serving them arrives with ROADMAP queue A.11 item 2 (the "
+                "elastic slice)")
         if device is None:
             from ..mesh import worker_device
             device = worker_device(0, None)

@@ -60,9 +60,6 @@ from .train import (
     worker_seed,
 )
 
-_WIRE_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
-
-
 @dataclasses.dataclass
 class SimState:
     """Every simulated worker's state, stacked on a leading [N] axis: the
@@ -125,7 +122,7 @@ class SimEngine:
         self._eval_fn = vmap(self._eval_sums, randomness="error")
         # the simulated wire (compressed only under --sim_workers) and its
         # error feedback, armed on weights aggregation as JAX arms it
-        self.wire_dtype = _WIRE_DTYPES.get(cfg.sync_dtype)
+        self.wire_dtype = cfg.sync_wire_dtype()
         self.sync_ef = (cfg.sync_compression == "ef"
                         and cfg.aggregation_by == "weights"
                         and self.wire_dtype is not None)
@@ -209,22 +206,29 @@ class SimEngine:
     # ------------------------------------------------------------------
     # the vmapped step bodies (one worker's view; vmap adds the [N] axis)
     # ------------------------------------------------------------------
-    def _call(self, params, buffers, x):
+    def _call(self, params, buffers, x, **kw):
         return functional_call(
             self.model, (dict(zip(self.names, params)),
-                         dict(zip(self.buffer_names, buffers))), (x,))
+                         dict(zip(self.buffer_names, buffers))), (x,), kw)
 
-    def _loss(self, params, buffers, x, y, m, denom):
+    def _loss(self, params, buffers, x, y, m, denom, *, aux_div):
         """(loss, (correct, new statistics)) of one worker's train step:
-        the masked CE numerator over ``denom``, as ``LocalSGDEngine._loss``
-        computes it."""
+        the masked CE numerator over ``denom``, plus ``moe_aux_weight``
+        times the summed MoE load-balance loss over ``aux_div``, as
+        ``LocalSGDEngine._loss`` computes it."""
         with running_stats_out() as stats:
-            logits = self._call(params, buffers, x)
+            if self.cfg.num_experts > 0:
+                logits, aux = self._call(params, buffers, x, with_aux=True)
+            else:
+                logits, aux = self._call(params, buffers, x), None
         ce, w, correct = masked_token_stats(logits, y, m)
         new = list(buffers)
         for mod, i_mean, i_var in self._stat_slots:
             new[i_mean], new[i_var] = stats[mod]
-        return (ce * w).sum() / denom, (correct, tuple(new))
+        loss = (ce * w).sum() / denom
+        if aux is not None:
+            loss = loss + self.cfg.moe_aux_weight * aux / aux_div
+        return loss, (correct, tuple(new))
 
     def _step(self, state: SimState, x, y, m, denom):
         """Every worker's gradients, loss, correct count and new statistics
@@ -236,12 +240,12 @@ class SimEngine:
         k = self.cfg.grad_accum
         if k == 1:
             grads, (loss, (correct, stats)) = self._grad_fn(
-                params, buffers, x, y, m, denom)
+                params, buffers, x, y, m, denom, aux_div=1.0)
             return list(grads), loss.detach(), correct, stats
         total = loss = correct = None
         for xs, ys, ms in zip(*(t.chunk(k, dim=1) for t in (x, y, m))):
             g_k, (loss_k, (correct_k, stats)) = self._grad_fn(
-                params, buffers, xs, ys, ms, denom)
+                params, buffers, xs, ys, ms, denom, aux_div=float(k))
             if total is None:
                 total, loss, correct = list(g_k), loss_k.detach(), correct_k
             else:

@@ -34,7 +34,9 @@ round.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -45,9 +47,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import comms, mesh
+from . import comms, mesh, weights
 from .config import Config
 from .data.augment import augment_batch
+
+# set (to anything) to run each stale sync to its end at dispatch: the
+# same delivery schedule with nothing overlapped, the serial twin the
+# staleness gates compare with (JAX's JAX_GRAFT_STALENESS_SERIAL)
+STALENESS_SERIAL_ENV = "PORT_STALENESS_SERIAL"
 
 
 def steplr(lr0: float, gamma: float, step_size: int, epoch: int) -> float:
@@ -424,12 +431,18 @@ def cross_worker_means(mx: dict) -> dict:
 class TrainState:
     """One worker's state between rounds.  The parameters (and BatchNorm
     statistics) live in the engine's module; this holds what the JAX
-    ``TrainState`` carries beside them: the Adam moments, the StepLR clock
-    and the seed words of the worker's augmentation stream."""
+    ``TrainState`` carries beside them: the Adam moments, the StepLR clock,
+    the seed words of the worker's augmentation stream, and the fast sync
+    engines' state: the error-feedback residual (fp32, shaped like the
+    parameters; weights mode with ``--sync_compression ef``) and the round
+    optimizer's moments (``comms.round_opt_init``'s row; gradients mode
+    under the sharded engine)."""
 
     opt: Adam
     lr_epoch: int = 0            # local epochs completed (StepLR clock)
     rng: Optional[np.ndarray] = None   # uint32[2] (``seed_words``)
+    sync_residual: Optional[list] = None
+    round_opt: Optional[dict] = None
 
 
 class LocalSGDEngine:
@@ -450,11 +463,201 @@ class LocalSGDEngine:
         # the augmentation draws: one stream per worker, on its device,
         # seeded at each round from the state (``round_seed``)
         self.generator = torch.Generator(device=device)
+        # --- the sync engine, resolved once (JAX train.py:530-700) ------
+        self.sync_mode = cfg.resolve_sync_mode()
+        self.opt_placement = cfg.resolve_opt_placement()
+        self.param_residency = cfg.resolve_param_residency()
+        self.shard_redundancy = cfg.resolve_shard_redundancy()
+        self.sync_wire_dtype = cfg.sync_wire_dtype()
+        fast = self.sync_mode in ("sharded", "gossip")
+        self.sync_ef = (cfg.sync_compression == "ef"
+                        and cfg.aggregation_by == "weights" and fast
+                        and self.sync_wire_dtype is not None)
+        self.sync_bucket_bytes = max(1, int(cfg.sync_bucket_mb * (1 << 20)))
+        # the round optimizer follows the cross-worker mean gradient:
+        # gradients mode under the sharded engine (JAX train.py:576-580)
+        self.round_opt_on = (cfg.aggregation_by == "gradients"
+                             and self.sync_mode == "sharded"
+                             and self.opt_placement in ("replicated",
+                                                        "sharded"))
+        # the packed order of the fast engines: the JAX package's flatten
+        # order of the model's flax params (buckets, int8 scales and the
+        # round optimizer's rows are JAX's)
+        self.layout = (comms.WireLayout(*weights.wire_layout(model))
+                       if fast else None)
+        self.last_sync_stats: dict = {}
+        # --- semi-synchronous rounds (JAX train.py:676-700, 2110-2290) --
+        self.staleness = max(0, int(cfg.sync_staleness))
+        self.staleness_serial = bool(os.environ.get(STALENESS_SERIAL_ENV))
+        self._pending: list[dict] = []     # in-flight syncs, oldest first
+        self.stale_log: list[dict] = []    # one row per delivered delta
+        self._stale_residual = None        # the EF residual, engine-side
+        self._delivered: Optional[dict] = None
+        self._sync_pool = None
+        # on a card the sync thread's kernels and copies run on a stream
+        # of their own, beside the next round's compute
+        self._sync_stream = None
+        # a stale sync runs its collectives on a process group of its own,
+        # so they never interleave with the main thread's gathers
+        self._sync_group = (group.split() if self.staleness and group
+                            is not None else group)
 
     def init_state(self) -> TrainState:
+        residual = ([torch.zeros_like(p, dtype=torch.float32)
+                     for p in self.params] if self.sync_ef else None)
+        round_opt = (comms.round_opt_init(
+            self.layout.leaves, self.n_workers, self.rank,
+            placement=self.opt_placement,
+            bucket_bytes=self.sync_bucket_bytes, device=self.device)
+            if self.round_opt_on else None)
         return TrainState(opt=Adam(self.params),
                           rng=seed_words(worker_seed(self.cfg.seed,
-                                                     self.rank)))
+                                                     self.rank)),
+                          sync_residual=residual, round_opt=round_opt)
+
+    # ------------------------------------------------------------------
+    # the sync point's engines
+    # ------------------------------------------------------------------
+    def sync_wire_bytes(self) -> int:
+        """Bytes this worker sends per round sync (JAX
+        ``comms.sync_wire_bytes`` for the resolved engine)."""
+        shapes = (self.layout.leaves if self.layout is not None
+                  else [(tuple(p.shape), p.dtype) for p in self.params])
+        wire = self.sync_wire_dtype if self.layout is not None else None
+        return comms.sync_wire_bytes(
+            shapes, self.n_workers, mode=self.sync_mode, wire_dtype=wire,
+            bucket_bytes=self.sync_bucket_bytes,
+            topology=self.cfg.topology)
+
+    def _engine_sync(self, tensors, residual=None, tracker=None,
+                     group: mesh.Group | None = None):
+        """One sync of ``tensors`` by the resolved engine over ``group``
+        (the engine's group by default): ``(synced, residual, tracker)``;
+        the fast engines never fall back to the dense path."""
+        cfg = self.cfg
+        return comms.fast_sync(
+            tensors, group=self.group if group is None else group,
+            mode=self.sync_mode, how=cfg.aggregation_type,
+            topology=cfg.topology, local_weight=cfg.local_weight,
+            wire_dtype=self.sync_wire_dtype, residual=residual,
+            bucket_bytes=self.sync_bucket_bytes,
+            opt_placement=("replicated" if self.opt_placement == "replicated"
+                           else "sharded"),
+            tracker=tracker, layout=self.layout)
+
+    def _stale_enter(self, state: TrainState) -> TrainState:
+        """Round entry under staleness: move the EF residual engine-side
+        (first round), then deliver every due consensus delta (oldest
+        first, while more than K are in flight)."""
+        if self.sync_ef and state.sync_residual is not None:
+            self._stale_residual = state.sync_residual
+            state.sync_residual = None
+        self._delivered = None
+        while len(self._pending) > self.staleness:
+            self._deliver_oldest()
+        return state
+
+    @torch.no_grad()
+    def _deliver_oldest(self) -> None:
+        """Fold the oldest in-flight delta into the parameters
+        (``comms.deliver_stale``, in place): ``exposed_ms`` is how long
+        this thread waited for it, ``hidden_ms`` the rest of its wall."""
+        rec = self._pending.pop(0)
+        t0 = time.perf_counter()
+        delta, wall_ms = rec["future"].result()
+        exposed_ms = (time.perf_counter() - t0) * 1e3
+        hidden_ms = (0.0 if self.staleness_serial
+                     else max(0.0, wall_ms - exposed_ms))
+        self._on_this_stream(delta)
+        torch._foreach_add_(self.params, delta)
+        self._delivered = {"sync_ms": round(wall_ms, 3),
+                           "sync_hidden_ms": round(hidden_ms, 3)}
+        self.stale_log.append({**self._delivered,
+                               "exposed_ms": round(exposed_ms, 3)})
+
+    def _on_this_stream(self, tensors) -> None:
+        """Tie tensors the sync stream made to the current stream (the
+        allocator must not hand their memory back to the sync stream
+        while this one still reads it)."""
+        if self._sync_stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            for t in tensors:
+                t.record_stream(cur)
+
+    def _stale_dispatch(self) -> None:
+        """Start this round's sync on the sync thread, on a copy of the
+        trained parameters taken now (the next round trains the live
+        ones), and enqueue it; the EF residual chains from sync to sync on
+        the thread (one thread: the syncs run in dispatch order)."""
+        from concurrent.futures import ThreadPoolExecutor
+        if self._sync_pool is None:
+            self._sync_pool = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="stale-sync")
+        base = [p.detach().clone() for p in self.params]
+        stream = ready = None
+        if self.device.type == "cuda":
+            if self._sync_stream is None:
+                self._sync_stream = torch.cuda.Stream(self.device)
+            stream = self._sync_stream
+            ready = torch.cuda.Event()
+            ready.record()                 # the copies above are queued
+            for t in base:
+                t.record_stream(stream)
+
+        def job():
+            t0 = time.perf_counter()
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()), torch.no_grad():
+                if stream is not None:
+                    stream.wait_event(ready)
+                agg, res, _ = self._engine_sync(
+                    base, self._stale_residual if self.sync_ef else None,
+                    group=self._sync_group)
+                if self.sync_ef:
+                    self._stale_residual = res
+                delta = comms.stale_delta(agg, base)
+                if stream is not None:
+                    stream.synchronize()
+            return delta, (time.perf_counter() - t0) * 1e3
+
+        fut = self._sync_pool.submit(job)
+        self._pending.append({"future": fut})
+        if self.staleness_serial:
+            fut.result()
+
+    def drain_pending(self, state: TrainState) -> TrainState:
+        """End of the run: deliver every delta still in flight (oldest
+        first) and put the engine-side EF residual back into the state;
+        a no-op without staleness."""
+        while self._pending:
+            self._deliver_oldest()
+        if self._stale_residual is not None:
+            self._on_this_stream(self._stale_residual)
+            state.sync_residual = self._stale_residual
+            self._stale_residual = None
+        if self._sync_pool is not None:
+            self._sync_pool.shutdown(wait=True)
+            self._sync_pool = None
+        return state
+
+    def state_resident_bytes(self, state: TrainState) -> dict:
+        """Per-worker bytes of each state component, with JAX's keys
+        (``train.py:996-1055``): the optimizer row counts the moments and
+        an int32 step count, the round optimizer its moment rows."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        round_opt = [m for b in (state.round_opt or {}).values()
+                     for m in b.values()]
+        return {"params": nbytes(self.params),
+                "params_gathered_peak": 0,
+                "opt_state": nbytes(state.opt.state_tensors()) + 4,
+                "ef_residual": nbytes(state.sync_residual or []),
+                "ef_residual_outer": 0,
+                "round_opt": nbytes(round_opt),
+                "buddy": 0,
+                "batch_stats": nbytes([b for n, b in
+                                       self.model.named_buffers()
+                                       if ".running_" in f".{n}"]),
+                "bookkeeping": 4 + 8}
 
     def checkpoint_state(self, state: TrainState):
         """The live tensors of ``state`` as a ``checkpoint.WorkerState``
@@ -468,7 +671,10 @@ class LocalSGDEngine:
             nu=dict(zip(self.names, state.opt.nu)),
             count=state.opt.count, lr_epoch=state.lr_epoch, rng=state.rng,
             layout=state_layout(self.model), worker=self.rank,
-            n_workers=self.n_workers)
+            n_workers=self.n_workers,
+            residual=(None if state.sync_residual is None
+                      else dict(zip(self.names, state.sync_residual))),
+            round_opt=state.round_opt)
 
     @torch.no_grad()
     def load_checkpoint_state(self, state: TrainState, restored
@@ -479,6 +685,17 @@ class LocalSGDEngine:
         for part in ("params", "buffers", "mu", "nu"):
             src = getattr(restored, part)
             for name, t in getattr(live, part).items():
+                t.copy_(torch.from_numpy(np.ascontiguousarray(src[name])))
+        for part in ("residual", "round_opt"):
+            src, dst = getattr(restored, part), getattr(live, part)
+            if dst is None:
+                continue
+            if part == "round_opt":
+                src = {f"{b}/{m}": v for b, ms in src.items()
+                       for m, v in ms.items()}
+                dst = {f"{b}/{m}": v for b, ms in dst.items()
+                       for m, v in ms.items()}
+            for name, t in dst.items():
                 t.copy_(torch.from_numpy(np.ascontiguousarray(src[name])))
         state.opt.count = int(restored.count)
         state.lr_epoch = int(restored.lr_epoch)
@@ -633,6 +850,8 @@ class LocalSGDEngine:
         ``val_feed(epoch)`` yield staged windows ``(x, y, m, weights,
         ready)`` (one whole-round window, ready None, for ``round``)."""
         cfg = self.cfg
+        if self.staleness:
+            state = self._stale_enter(state)
         self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
         dev = self.device
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
@@ -694,22 +913,37 @@ class LocalSGDEngine:
         # statistics and Adam moments stay per worker (JAX models/cnn.py:
         # 13-16); gradients mode aggregates the last real step's
         # gradients (zeros if the worker ran none) into agg_grad_norm and
-        # leaves the parameters untouched (JAX train.py:818-822)
+        # leaves the parameters untouched (JAX train.py:818-822), the
+        # round optimizer's moments taking the mean gradient.  Under
+        # --sync_staleness K the weights sync starts on the sync thread
+        # and its delta lands at the entry of round R+K+1.
         t0 = time.perf_counter()
-        sync = dict(how=cfg.aggregation_type, topology=cfg.topology,
-                    local_weight=cfg.local_weight, group=self.group)
         agg_norm = torch.zeros((), device=dev)
         if cfg.aggregation_by == "weights":
-            agg = comms.aggregate(self.params, **sync)
-            if self.group is not None:
-                with torch.no_grad():
-                    torch._foreach_copy_(self.params, agg)
+            if self.staleness:
+                self._stale_dispatch()
+            else:
+                agg, state.sync_residual, _ = self._engine_sync(
+                    self.params, state.sync_residual)
+                if self.group is not None:
+                    with torch.no_grad():
+                        torch._foreach_copy_(self.params, agg)
         else:
             grads = (last_grads if last_grads is not None
                      else [torch.zeros_like(p) for p in self.params])
-            agg_norm = comms.global_norm(comms.aggregate(grads, **sync))
+            agg, _, state.round_opt = self._engine_sync(
+                grads, tracker=state.round_opt)
+            agg_norm = comms.global_norm(agg)
         self._sync()
         sync_ms = (time.perf_counter() - t0) * 1e3
+        delivered = self._delivered or {}
+        if self.staleness:
+            # the wall of the sync whose delta landed at this round's
+            # entry (its dispatch here takes ~nothing)
+            sync_ms = delivered.get("sync_ms", 0.0)
+        self.last_sync_stats = {
+            "sync_mode": self.sync_mode, "sync_ms": round(sync_ms, 3),
+            "sync_hidden_ms": delivered.get("sync_hidden_ms", 0.0)}
 
         own = {k: torch.stack(v).cpu().numpy() for k, v in per_epoch.items()}
         own["agg_grad_norm"] = agg_norm.cpu().numpy()

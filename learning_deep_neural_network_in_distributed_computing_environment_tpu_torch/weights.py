@@ -280,7 +280,8 @@ def _count_unrolled(params: dict) -> int:
 # ----------------------------------------------------------------------
 
 _COLLECTION = re.compile(
-    r"^\.(params|batch_stats|opt_state\.mu|opt_state\.nu)((?:\['[^']*'\])+)$")
+    r"^\.(params|batch_stats|opt_state\.mu|opt_state\.nu|sync_residual)"
+    r"((?:\['[^']*'\])+)$")
 _SEGMENT = re.compile(r"\['([^']*)'\]")
 SCALAR_KEYS = (".opt_state.count", ".lr_epoch", ".rng")
 
@@ -315,11 +316,15 @@ def _keyed(prefix: str, tree) -> list[tuple[str, np.ndarray]]:
 
 
 def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
-                        count: int, lr_epoch: int, rng, layout: dict
+                        count: int, lr_epoch: int, rng, layout: dict,
+                        residual: dict | None = None,
+                        round_opt: dict | None = None
                         ) -> dict[str, np.ndarray]:
     """One worker's train state -> ``{JAX key path: numpy row}``, in the
     JAX package's flatten order.  ``params``/``buffers``/``mu``/``nu`` map
-    ``state_dict`` names to tensors or arrays (host); ``rng`` is uint32[2]."""
+    ``state_dict`` names to tensors or arrays (host); ``rng`` is uint32[2];
+    ``residual`` (like ``params``) becomes ``.sync_residual[...]`` and
+    ``round_opt`` ({bucket: {"mu", "nu"}}) ``.round_opt[...]``."""
     main = _flax_collections({**params, **buffers}, layout)
     moments = [_flax_collections(m, layout)["params"] for m in (mu, nu)]
     leaves = dict(_keyed(".params", main["params"]))
@@ -329,6 +334,11 @@ def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
     leaves.update(_keyed(".opt_state.nu", moments[1]))
     leaves[".lr_epoch"] = np.asarray(lr_epoch, np.int32)
     leaves[".rng"] = np.asarray(rng, np.uint32).reshape(2)
+    if residual is not None:
+        leaves.update(_keyed(".sync_residual",
+                             _flax_collections(residual, layout)["params"]))
+    if round_opt is not None:
+        leaves.update(_keyed(".round_opt", round_opt))
     return leaves
 
 
@@ -380,6 +390,9 @@ def state_from_jax_leaves(leaves: dict, layout: dict) -> dict:
             "buffers": {k: v for k, v in sd.items() if ".running_" in k},
             "mu": _to_port(trees.get("opt_state.mu", {}), None, layout),
             "nu": _to_port(trees.get("opt_state.nu", {}), None, layout),
+            **({"sync_residual": _to_port(trees["sync_residual"], None,
+                                          layout)}
+               if "sync_residual" in trees else {}),
             "count": int(leaves[".opt_state.count"]),
             "lr_epoch": int(leaves[".lr_epoch"]),
             "rng": np.asarray(leaves[".rng"], np.uint32).reshape(2)}
@@ -393,3 +406,53 @@ def params_leaves(model) -> list:
     tree = _flax_collections(host, state_layout(model))["params"]
     return [[_SEGMENT.findall(key), [int(d) for d in arr.shape],
              str(arr.dtype)] for key, arr in _keyed("", tree)]
+
+
+def _match_axes(local: np.ndarray, shape: tuple):
+    """The dims permutation that lays a tensor of ``shape`` out as the
+    flat index run ``local`` (None: as it is)."""
+    n = len(shape)
+    base = np.arange(local.size, dtype=local.dtype).reshape(shape)
+    candidates = [None]
+    if n >= 2:
+        candidates += [tuple(reversed(range(n))), (2, 3, 1, 0)]
+    for axes in candidates:
+        if axes is not None and len(axes) != n:
+            continue
+        want = base if axes is None else base.transpose(axes)
+        if np.array_equal(want.reshape(-1), local):
+            return axes
+    raise ValueError(f"no transpose of {shape} gives the flax layout")
+
+
+def wire_layout(model) -> tuple[list, list]:
+    """Where a model's parameters sit in the JAX package's flatten order
+    (``comms.WireLayout``'s arguments): the ``(shape, dtype)`` of its flax
+    ``params`` leaves in ``tree_flatten`` order, and ``(parameter index,
+    axes)`` pieces in that order (each parameter, permuted by ``axes``,
+    is one contiguous run of its leaf; a stacked leaf holds one per
+    layer).  Found by converting each parameter's global element indices
+    with the checkpoint conversion, so the packed vector is JAX's."""
+    named = list(model.named_parameters())
+    sizes = np.array([p.numel() for _n, p in named], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    if offsets[-1] >= 2 ** 31:
+        raise ValueError("more than 2**31 parameter elements")
+    index = {name: np.arange(offsets[i], offsets[i + 1], dtype=np.int32)
+             .reshape(tuple(p.shape)) for i, (name, p) in enumerate(named)}
+    tree = _flax_collections(index, state_layout(model))["params"]
+    leaves, pieces = [], []
+    for _key, arr in _keyed("", tree):
+        dtype = named[int(np.searchsorted(offsets, arr.reshape(-1)[0],
+                                          "right")) - 1][1].dtype
+        leaves.append((tuple(arr.shape), dtype))
+        flat, pos = arr.reshape(-1), 0
+        while pos < flat.size:
+            t = int(np.searchsorted(offsets, flat[pos], "right")) - 1
+            run = flat[pos:pos + sizes[t]] - offsets[t]
+            pieces.append((t, _match_axes(run, tuple(named[t][1].shape))))
+            pos += int(sizes[t])
+    if sorted(t for t, _a in pieces) != list(range(len(named))):
+        raise ValueError("the flax layout does not cover every parameter "
+                         "exactly once")
+    return leaves, pieces

@@ -253,8 +253,13 @@ def test_open_sweeps_stale_leftovers(tmp_path):
 
 
 @pytest.mark.parametrize("case,where", [
-    ("legacy", "A.9"), ("resident", "A.8"), ("round_opt", "A.8"),
-    ("slices", "A.11"), ("workers", "worker")])
+    ("legacy", "A.9"), ("resident", "A.11 item 2"),
+    # round-optimizer leaves restore; this one is in the manifest but in
+    # no shard
+    ("round_opt", r"\.round_opt"),
+    ("slices", "A.11"), ("workers", "worker")],
+    ids=["legacy-A.9", "resident-A.11 item 2", "round_opt-missing-leaf",
+         "slices-A.11", "workers-worker"])
 def test_refusals_name_their_queue(tmp_path, case, where):
     engine, state = _engine_state(0)
     meta = {"num_slices": 2} if case == "slices" else None
@@ -273,6 +278,9 @@ def test_refusals_name_their_queue(tmp_path, case, where):
         manifest["leaves"][key] = {"shape": [1, 4], "dtype": "float32",
                                    "bytes": 16}
         json.dump(manifest, open(mpath, "w"))
+    if case == "round_opt":     # a run that tracks a round optimizer
+        template = dataclasses.replace(template, round_opt={
+            "b0000": {"mu": torch.zeros(4), "nu": torch.zeros(4)}})
     elif case == "workers":
         template = dataclasses.replace(template, n_workers=2)
     with pytest.raises(ValueError, match=where):
@@ -454,3 +462,116 @@ def test_two_workers_write_one_checkpoint_jax_merges(tmp_path):
     _assert_leaves_equal({k: v[0] for k, v in tree.items()},
                          _leaves(engine, res["state"]))
     assert int(tree[".opt_state.count"][1]) > 0
+
+
+# ----------------------------------------------------------------------
+# the fast sync engines' state: .sync_residual and .round_opt
+# ----------------------------------------------------------------------
+
+def _mlp_sync_engine(placement="sharded", **over):
+    """A one-worker mlp engine with an EF residual and a round optimizer
+    (the two never arm together in a run; the template carries both)."""
+    model = get_model("mlp", num_classes=10, hidden=16,
+                      input_shape=(28, 28, 1))
+    model.init_parameters(torch.Generator().manual_seed(0))
+    cfg = Config(device="cpu", model="mlp", aggregation_by="gradients",
+                 sync_mode="sharded", opt_placement=placement,
+                 sync_bucket_mb=256 / 2**20, **over)
+    engine = LocalSGDEngine(model, cfg, torch.device("cpu"))
+    state = engine.init_state()
+    g = torch.Generator().manual_seed(5)
+    state.sync_residual = [torch.randn(p.shape, generator=g)
+                           for p in engine.params]
+    for b in state.round_opt.values():
+        for m in b.values():
+            m.copy_(torch.rand(m.shape, generator=g))
+    return engine, state
+
+
+def test_port_sync_state_restores_into_jax(tmp_path):
+    """The port's ``.sync_residual`` (laid out like ``.params``) and
+    ``.round_opt['b<i>']['mu'|'nu']`` rows, read by JAX ``host_tree`` and
+    restored by JAX ``restore_checkpoint`` into a template of JAX's own
+    structure, bit for bit; and back into the port."""
+    engine, state = _mlp_sync_engine()
+    path = C.CheckpointEngine(str(tmp_path), async_write=False).save(
+        engine.checkpoint_state(state), 2)
+    want = _leaves(engine, state)
+    assert any(k.startswith(".sync_residual[") for k in want)
+    assert ".round_opt['b0000']['mu']" in want and len(
+        [k for k in want if k.startswith(".round_opt")]) > 2
+    tree, _ = J.host_tree(path)
+    _assert_leaves_equal({k: v[0] for k, v in tree.items()}, want)
+    flax = weights.cnn_torch_to_flax(
+        {n: p.detach().numpy() for n, p in engine.model.named_parameters()})
+    stack = lambda t: jax.tree.map(lambda a: np.zeros((1, *np.shape(a)),
+                                                      np.asarray(a).dtype), t)
+    template = JTrainState(
+        params=stack(flax["params"]), batch_stats={},
+        opt_state=optax.ScaleByAdamState(count=np.zeros(1, np.int32),
+                                         mu=stack(flax["params"]),
+                                         nu=stack(flax["params"])),
+        lr_epoch=np.zeros(1, np.int32), rng=np.zeros((1, 2), np.uint32),
+        sync_residual=stack(flax["params"]),
+        round_opt={b: {m: np.zeros((1, v.numel()), np.float32)
+                       for m, v in ms.items()}
+                   for b, ms in state.round_opt.items()})
+    restored, epoch = J.restore_checkpoint(path, template)
+    assert epoch == 2
+    _assert_leaves_equal(_jax_row0(restored), want)
+    fresh, fstate = _mlp_sync_engine()
+    got, _ = C.restore_checkpoint(path, fresh.checkpoint_state(fstate))
+    fstate = fresh.load_checkpoint_state(fstate, got)
+    _assert_leaves_equal(_leaves(fresh, fstate), want)
+
+
+@pytest.mark.parametrize("placement", ["sharded", "replicated"])
+def test_jax_sync_state_restores_into_the_port(tmp_path, placement):
+    """A 2-worker JAX TrainState with an EF residual and sharded round-
+    optimizer rows, written by JAX ``save_checkpoint``: worker 1's
+    residual and its rows (the sharded layout's row 1, or the whole
+    vector for a replicated template) bit for bit."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
+        comms as j_comms,
+    )
+    engine, state = _mlp_sync_engine(placement)
+    rng = np.random.default_rng(1)
+    flax = weights.cnn_torch_to_flax(
+        {n: p.detach().numpy() for n, p in engine.model.named_parameters()})
+    rows = lambda: jax.tree.map(
+        lambda a: rng.normal(size=(2, *np.shape(a))).astype(np.float32),
+        flax["params"])
+    shapes = [jax.ShapeDtypeStruct(np.shape(a), np.float32)
+              for a in jax.tree.leaves(flax["params"])]
+    trk = j_comms.round_opt_init(shapes, 2, placement="sharded",
+                                 bucket_bytes=256)
+    trk = {b: {m: rng.random(np.shape(v)).astype(np.float32)
+               for m, v in ms.items()} for b, ms in trk.items()}
+    jstate = JTrainState(
+        params=rows(), batch_stats={},
+        opt_state=optax.ScaleByAdamState(count=np.array([4, 4], np.int32),
+                                         mu=rows(), nu=rows()),
+        lr_epoch=np.array([1, 1], np.int32),
+        rng=np.array([[1, 2], [3, 4]], np.uint32), sync_residual=rows(),
+        round_opt=trk)
+    J.save_checkpoint(str(tmp_path), jstate, 3)
+    # the port's worker 1 of 2, with its placement's round-optimizer rows
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        comms,
+    )
+    template = dataclasses.replace(
+        engine.checkpoint_state(state), worker=1, n_workers=2,
+        round_opt=comms.round_opt_init(
+            engine.layout.leaves, 2, 1, placement=placement,
+            bucket_bytes=256))
+    restored, epoch = C.restore_checkpoint(C.latest_checkpoint(
+        str(tmp_path)), template)
+    assert epoch == 3
+    want_res = weights.cnn_flax_to_torch({"params": jax.tree.map(
+        lambda a: a[1], jstate.sync_residual)})
+    for name, v in restored.residual.items():
+        np.testing.assert_array_equal(v, want_res[name], err_msg=name)
+    for b, ms in trk.items():
+        for m, v in ms.items():
+            want = v[1] if placement == "sharded" else v.reshape(-1)
+            np.testing.assert_array_equal(restored.round_opt[b][m], want)

@@ -169,7 +169,7 @@ def test_serve_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize("flags,where", [
-    (["--sync_mode", "sharded"], "A.8"),
+    (["--sync_mode", "sharded", "--param_residency", "resident"], "A.11"),
     # the transformer knobs are ported; what stays refused is refused as
     # the JAX config refuses it
     (["--remat_policy", "save_names:attn_out"], "enhanced_cnn has none"),
@@ -178,7 +178,7 @@ def test_serve_is_not_ported(tmp_path):
     (["--mesh_shape", "data=1,model=2"], "A.11"),
     (["--num_workers", "2", "--backend", "nccl"], "A.12"),
     (["--model", "bert_tiny", "--layer_scan", "off"], "A.11"),
-], ids=["sync_mode", "remat_policy", "grad_accum", "num_experts",
+], ids=["param_residency", "remat_policy", "grad_accum", "num_experts",
         "mesh_shape", "num_workers", "layer_scan"])
 def test_config_rejects_features_not_ported(flags, where):
     with pytest.raises(ValueError, match=where):

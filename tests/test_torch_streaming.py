@@ -344,12 +344,13 @@ def test_checkpoint_and_resume_under_streaming(tmp_path):
 
 
 @pytest.mark.parametrize("over,where", [
-    (dict(sim_workers=4), "A.11"), (dict(sync_staleness=1), "A.8")],
+    (dict(sim_workers=4), "A.11"),
+    (dict(sync_staleness=1), "stream_chunk_steps cannot combine")],
     ids=["sim_workers", "sync_staleness"])
 def test_streaming_with_the_unported_tiers_stays_refused(over, where):
     """JAX refuses --stream_chunk_steps with --sim_workers and with
-    --sync_staleness (config.py:764, :877); the port refuses both flags
-    before that, as features it has not ported."""
+    --sync_staleness (config.py:764, :877); the port refuses the first as
+    a tier it has not ported, the second with JAX's message."""
     with pytest.raises(ValueError, match="stream_chunk_steps"):
         JConfig(stream_chunk_steps=2, aggregation_by="weights", **over)
     with pytest.raises(ValueError, match=where):
