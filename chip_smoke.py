@@ -150,6 +150,22 @@ Phases (any failure exits non-zero before the result line):
              vs dense logits), whose kernels the kernels phase holds at
              sim_path [256,128,12,64].
 
+11. elastic cnn n4 - in a child process (CUBLAS_WORKSPACE_CONFIG set,
+             deterministic algorithms in it and in its ranks): the cnn run
+             on 4 worker processes, weights x equal on the sharded engine
+             (scatter-resident parameters, the buddy hop), 4,096 images,
+             5 rounds, under --chaos kill@1:w3,join@2,crash@3:w0,nan@4:w1
+             with the walls pinned: the roster per round (4 -> 3 -> 4 ->
+             3), events, reshard and recovery stalls, sync ms and bytes
+             (the buddy hop's apart), memory held after the sync and peak;
+             checks round 3 voided once and re-run from the buddy rows,
+             one quarantine strike in round 4, finite values, equal
+             parameters on every rank after every round and a falling
+             loss; a fresh twin from the round-2 snapshot bitwise the
+             continued run, and a twin whose joiner clones the wrong row
+             seen to differ; then the replicated against the resident
+             layout without chaos (memory, sync ms, bitwise parameters).
+
 The last lines are the smoke's total wall, the nvidia-smi line, one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
@@ -350,6 +366,28 @@ PROFILE_STEPS = 4              # 4 x 64 examples of the test set
 LLAMA_PHASE = "llama"          # the child's argument
 ACCUM_PHASE = "grad_accum"     # runs phase remat's K=4 vs K=1 alone
 RESULT_TAG = "chip_smoke-llama-result "
+# phase elastic cnn n4: the reference's cnn on 4 worker processes, weights
+# x equal on the sharded engine (resident parameters, the buddy hop),
+# 4,096 training images, 5 rounds of 1 local epoch, under chaos
+ELASTIC_PHASE = "elastic"      # the child's argument
+ELASTIC_RESULT_TAG = "chip_smoke-elastic-result "
+ELASTIC_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
+                "--num_workers", "4", "--aggregation_by", "weights",
+                "--aggregation_type", "equal", "--topology", "allreduce",
+                "--sync_mode", "sharded", "--epochs_global", "5",
+                "--epochs_local", "1", "--limit_train_samples", "5120",
+                "--limit_eval_samples", "512", "--log_level", "warning",
+                "--out_dir", os.path.join(OUT_DIR, "elastic")]
+ELASTIC_CHAOS = ["--chaos", "kill@1:w3,join@2,crash@3:w0,nan@4:w1",
+                 "--chaos_retries", "1"]
+ELASTIC_ROSTERS = [[0, 1, 2, 3], [0, 1, 2], [0, 1, 2, 4], [1, 2, 4],
+                   [1, 2, 4]]
+# the walls the straggler policy and the EMA read, pinned (seconds per
+# local epoch, per logical id 0..4 and round) so that a fresh twin makes
+# the continued run's host decisions
+ELASTIC_WALLS = [[1.0 + 0.05 * w for w in range(5)] for _ in range(5)]
+ELASTIC_TWIN_SNAPSHOT = 1      # the round-2 snapshot (after the join)
+ELASTIC_LAYOUT_ROUNDS = 3      # replicated vs resident, no chaos
 
 # (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape,
 # "llama_path" the llama path's, "bert_path" the bert and moe paths'
@@ -2462,9 +2500,219 @@ def phase_llama() -> dict:
     return result["counts"]
 
 
+def elastic_rank(*args) -> None:
+    """A spawned rank of the elastic phase (``driver.rank_entry``'s
+    arguments): deterministic algorithms on, then the port's worker."""
+    import torch
+    from importlib import import_module
+    torch.use_deterministic_algorithms(True)
+    import_module(f"{PKG}.main")._worker(*args)
+
+
+def _elastic_run(t_driver, argv: list[str], n: int, snapshot=None,
+                 checksums: bool = True) -> tuple[dict, float]:
+    import functools
+    import operator
+    from importlib import import_module
+    cfg = import_module(f"{PKG}.config").config_from_args(argv)
+    # a run without chaos reads one wall per rank, and its probe is
+    # pinned too: the replicated and resident runs must train the same
+    # shards
+    elastic = bool(cfg.chaos) or snapshot is not None
+    walls = ELASTIC_WALLS if elastic else [w[:n] for w in ELASTIC_WALLS]
+    kw = dict(simulated_round_durations=functools.partial(
+        operator.getitem, walls), progress=False, round_checksums=checksums)
+    if not elastic:
+        kw["simulated_durations"] = [1.0] * n
+    t0 = time.perf_counter()
+    res = t_driver.run_group(cfg, n, train_kwargs=kw,
+                             elastic_snapshot=snapshot, target=elastic_rank)
+    return res, time.perf_counter() - t0
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               for k in a if ".running_" not in k)
+
+
+def _planted_joiner(snap):
+    """The snapshot with one fault planted: the joiner's per-worker rows
+    (Adam moments and count, BatchNorm statistics, clock) cloned from the
+    second survivor instead of the first."""
+    import copy
+    import numpy as np
+    bad = copy.copy(snap)
+    host = copy.copy(snap.host_state)
+    j = snap.worker_ids.index(max(snap.worker_ids))
+    for part in ("mu", "nu", "buffers"):
+        tree = {k: np.array(v) for k, v in getattr(host, part).items()}
+        for v in tree.values():
+            v[j] = v[1]
+        setattr(host, part, tree)
+    bad.host_state = host
+    return bad
+
+
+def elastic_child() -> int:
+    """Phase elastic cnn n4, in a child process whose environment sets
+    CUBLAS_WORKSPACE_CONFIG before CUDA starts (the ranks it spawns
+    inherit it), under torch.use_deterministic_algorithms: the chaos run,
+    its fresh twin from the round-2 snapshot, a twin from a planted
+    fault, and the replicated against the resident layout without chaos.
+    Prints one tagged JSON line for the parent."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    torch.use_deterministic_algorithms(True)
+    t_driver = import_module(f"{PKG}.driver")
+    tag = "[elastic cnn n4]"
+    res, wall = _elastic_run(t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS], 4)
+    el, rt = res["elastic"], res["round_timings"]
+    eng = res["sync_engine"]
+    print(f"{tag} engine {eng['mode']}, residency {eng['param_residency']}"
+          f"; wall {wall:.1f} s; events {el['events']}; rejected "
+          f"{el['rejected']}; reshard_ms {el['reshard_ms']}; boundary_ms "
+          f"(rank 0's snapshot build + write) {el['boundary_ms']}; "
+          f"recovery_ms {el['recovery_ms']} via {el['recovery_source']}")
+    for r, sums in zip(rt, res["round_checksums"]):
+        applied = [e for e in el["events"] if e["round"] == r["epoch"]]
+        print(f"{tag} round {r['epoch']}: roster {r['worker_ids']}; events "
+              f"{applied}; sync ms per rank "
+              + str([round(x, 1) for x in r["workers_sync_ms"]])
+              + f"; entry gather {r['gather_ms']:.1f} ms (rank 0); wire "
+              f"{r['sync_bytes']:,} B per worker of which buddy "
+              f"{r['sync_buddy_bytes']:,} B; sync_ok {r.get('sync_ok')}; "
+              "held after the sync (GiB) "
+              + str([round(x / 2**30, 3) for x in r["workers_memory_allocated"]])
+              + "; max_memory_allocated (GiB) "
+              + str([round(x / 2**30, 2)
+                     for x in r["workers_max_memory_allocated"]])
+              + f"; param checksums {'all equal' if len(set(sums)) == 1 else 'DIFFER'}")
+    print(f"{tag} per_worker_state_bytes {eng['per_worker_state_bytes']}")
+    if el["rosters"] != ELASTIC_ROSTERS:
+        fail(f"elastic: rosters {el['rosters']}, expected {ELASTIC_ROSTERS}")
+    if (el["crashes"], el["recoveries"], el["recovery_source"]) != (
+            1, 1, ["buddy"]):
+        fail(f"elastic: crash recovery {el['crashes']} crash(es), "
+             f"{el['recoveries']} recoveries via {el['recovery_source']}")
+    if [r["epoch"] for r in rt] != list(range(5)):
+        fail(f"elastic: rounds run {[r['epoch'] for r in rt]}")
+    strikes = {r["epoch"]: r.get("sync_ok", []).count(0.0) for r in rt}
+    if el["quarantined_rounds"] != 1 or strikes.get(4) != 1:
+        fail(f"elastic: quarantine strikes {strikes}, "
+             f"{el['quarantined_rounds']} quarantined round(s)")
+    for k in ("global_train_losses", "global_val_losses"):
+        if not all(math.isfinite(x) for x in res[k]):
+            fail(f"elastic: non-finite {k}: {res[k]}")
+    if any(len(set(s)) != 1 for s in res["round_checksums"]):
+        fail(f"elastic: ranks differ after an equal all-reduce round: "
+             f"{res['round_checksums']}")
+    losses = res["global_train_losses"]
+    if not losses[-1] < losses[0]:
+        fail(f"elastic: the loss did not fall: {losses}")
+
+    snap = el["snapshots"][ELASTIC_TWIN_SNAPSHOT]
+    twin, twin_wall = _elastic_run(t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS],
+                                   snap.n_workers, snapshot=snap)
+    e = snap.epoch
+    sound = _max_diff(twin["variables"], res["variables"])
+    bitwise = (twin["param_checksums"] == res["param_checksums"]
+               and twin["global_train_losses"] == losses[e:]
+               and twin["round_checksums"] == res["round_checksums"][e:])
+    # one round from the planted snapshot is enough to see the fault:
+    # held against the continued run's parameters after that round
+    bad, bad_wall = _elastic_run(
+        t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS, "--epochs_global",
+                   str(e + 1)], snap.n_workers,
+        snapshot=_planted_joiner(snap))
+    planted_differs = bad["round_checksums"][0] != res["round_checksums"][e]
+    print(f"{tag} twin from the round-{e} snapshot (roster "
+          f"{snap.worker_ids}): bitwise {bitwise}; max |param diff| at the "
+          f"end {sound:.3g}; with the joiner cloning the wrong row "
+          f"(planted) the parameters after round {e} "
+          f"{'differ' if planted_differs else 'EQUAL'}; twin wall "
+          f"{twin_wall:.1f} s, planted {bad_wall:.1f} s")
+    if not bitwise or sound != 0.0:
+        fail(f"elastic: the fresh twin is not bitwise the continued run "
+             f"(max |diff| {sound})")
+    if not planted_differs:
+        fail("elastic: a joiner cloning the wrong row went unseen")
+    # rank 0 lives in this process: what the earlier runs left on the card
+    # would count in its memory below
+    summary = dict(wall=wall, reshard_ms=el["reshard_ms"],
+                   recovery_ms=el["recovery_ms"])
+    del res, twin, bad, snap, el
+    torch.cuda.empty_cache()
+    layouts = {}
+    for name, extra in (("replicated", ["--param_residency", "replicated",
+                                        "--shard_redundancy", "off"]),
+                        ("resident", [])):
+        argv = [*ELASTIC_ARGV, "--epochs_global",
+                str(ELASTIC_LAYOUT_ROUNDS), *extra]
+        torch.cuda.empty_cache()
+        lay, lay_wall = _elastic_run(t_driver, argv, 4, checksums=False)
+        lrt = lay["round_timings"]
+        layouts[name] = dict(
+            checksums=lay["param_checksums"], wall=lay_wall,
+            residency=lay["sync_engine"]["param_residency"],
+            state=lay["sync_engine"]["per_worker_state_bytes"],
+            sync_ms=[round(max(r["workers_sync_ms"]), 1) for r in lrt],
+            held=[max(r["workers_memory_allocated"]) for r in lrt],
+            peak=max(lrt[-1]["workers_max_memory_allocated"]),
+            wire=lrt[-1]["sync_bytes"],
+            buddy=lrt[-1]["sync_buddy_bytes"],
+            gather_ms=[r["gather_ms"] for r in lrt])
+        del lay
+        print(f"{tag} layout {name} ({layouts[name]['residency']}), no "
+              f"chaos, {ELASTIC_LAYOUT_ROUNDS} rounds: slowest rank's sync "
+              f"ms per round {layouts[name]['sync_ms']}; rank 0's entry "
+              f"gather ms {layouts[name]['gather_ms']}; held after the "
+              "sync (GiB, most of the 4) "
+              + str([round(x / 2**30, 3) for x in layouts[name]["held"]])
+              + f"; max_memory_allocated {layouts[name]['peak'] / 2**30:.2f}"
+              f" GiB; per_worker_state_bytes {layouts[name]['state']}; wire"
+              f" {layouts[name]['wire']:,} B (buddy "
+              f"{layouts[name]['buddy']:,}); wall {lay_wall:.1f} s")
+    if layouts["resident"]["residency"] != "resident":
+        fail("elastic: the resident layout resolved to "
+             f"{layouts['resident']['residency']}")
+    if layouts["resident"]["checksums"] != layouts["replicated"]["checksums"]:
+        fail("elastic: the resident run's parameters are not bitwise the "
+             "replicated run's")
+    print(f"{tag} resident parameters bitwise the replicated run's: True")
+    print(ELASTIC_RESULT_TAG + json.dumps({**summary, "layouts": {
+        k: {kk: vv for kk, vv in v.items() if kk != "checksums"}
+        for k, v in layouts.items()}}), flush=True)
+    return 0
+
+
+def phase_elastic() -> dict:
+    """Run elastic_child in a child process (CUBLAS_WORKSPACE_CONFIG set
+    before CUDA starts); echo its output and return its result."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           ELASTIC_PHASE], env=env, capture_output=True,
+                          text=True, timeout=900)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(ELASTIC_RESULT_TAG):
+            result = json.loads(line[len(ELASTIC_RESULT_TAG):])
+        else:
+            print(line)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-8000:])
+        fail(f"the elastic child exited with {proc.returncode}"
+             + ("" if result else " and printed no result line"))
+    print(f"[elastic cnn n4] phase wall {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
+    if sys.argv[1:] == [ELASTIC_PHASE]:
+        return elastic_child()
     if sys.argv[1:] == [ACCUM_PHASE]:
         # the [grad_accum] comparison alone (K=4 against K=1), e.g. on a
         # copy of the port with a fault planted in the accumulation
@@ -2531,6 +2779,7 @@ def main() -> int:
     phase_sim_scenario()
     counts["sim_gpt2"] = phase_sim_gpt2()
     print(f"[sim] phases wall {time.perf_counter() - t_sim:.1f} s")
+    phase_elastic()
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

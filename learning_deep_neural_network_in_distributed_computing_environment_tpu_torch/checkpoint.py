@@ -33,13 +33,16 @@ that ``latest_checkpoint`` ignores and the next engine open sweeps.
 
 The fast sync engines' state rides along in JAX's layouts: the
 error-feedback residual as ``.sync_residual[...]`` (laid out like
-``.params``) and the round optimizer's moments as
+``.params``), the round optimizer's moments as
 ``.round_opt['b<i>']['mu'|'nu']`` (one row per worker: its shard under
 the sharded placement, the whole padded vector under the replicated one;
-a restore converts between the two).  Not ported, refused with the
-ROADMAP queue that ports them: the legacy v1 single-file restore (the
-rest of A.9), the scatter-resident parameters (A.11 item 2, the elastic
-slice) and per-slice hierarchical states (A.11).
+a restore converts between the two) and the scatter-resident parameters
+as ``.params_resident['b<i>']`` (row w: worker w's 1/N shard of the
+consensus; such a checkpoint has no ``.params`` leaves, and a restore
+converts between the resident and replicated layouts).  The buddy rows
+are derived state: never saved, re-derived after a restore.  Not ported,
+refused with the ROADMAP queue that ports them: the legacy v1 single-file
+restore (the rest of A.9) and per-slice hierarchical states (A.11).
 """
 
 from __future__ import annotations
@@ -74,9 +77,7 @@ FORMAT = 2
 _CRASH_ENV = "PORT_CKPT_TEST_CRASH"
 
 # leaves of the JAX TrainState the port has no counterpart for yet
-_REFUSED = ((".params_resident",
-             "A.11 item 2 (the elastic slice: scatter-resident parameters)"),
-            (".sync_residual_outer", "A.11 (hierarchical sync residuals)"))
+_REFUSED = ((".sync_residual_outer", "A.11 (hierarchical sync residuals)"),)
 
 
 def _maybe_crash(point: str) -> None:
@@ -103,9 +104,13 @@ class WorkerState:
     n_workers: int = 1
     residual: Optional[dict] = None     # EF residual, like ``params``
     round_opt: Optional[dict] = None    # {bucket: {"mu", "nu"}}: this row
+    # {bucket: row}: this worker's resident shard (``params`` is then {})
+    params_resident: Optional[dict] = None
 
     def tensors(self) -> dict:
         return {**{f"params/{k}": v for k, v in self.params.items()},
+                **{f"params_resident/{k}": v
+                   for k, v in (self.params_resident or {}).items()},
                 **{f"buffers/{k}": v for k, v in self.buffers.items()},
                 **{f"mu/{k}": v for k, v in self.mu.items()},
                 **{f"nu/{k}": v for k, v in self.nu.items()},
@@ -136,7 +141,9 @@ def snapshot(state: WorkerState) -> WorkerState:
         state, params=part("params"), buffers=part("buffers"),
         mu=part("mu"), nu=part("nu"), rng=np.array(state.rng, np.uint32),
         residual=part("residual") if state.residual is not None else None,
-        round_opt=round_opt)
+        round_opt=round_opt,
+        params_resident=(part("params_resident")
+                         if state.params_resident is not None else None))
 
 
 def _numpy(d: dict) -> dict:
@@ -152,7 +159,9 @@ def jax_leaves(state: WorkerState) -> dict[str, np.ndarray]:
         state.layout,
         residual=None if state.residual is None else _numpy(state.residual),
         round_opt=None if state.round_opt is None else {
-            b: _numpy(ms) for b, ms in state.round_opt.items()})
+            b: _numpy(ms) for b, ms in state.round_opt.items()},
+        params_resident=(None if state.params_resident is None
+                         else _numpy(state.params_resident)))
 
 
 # ----------------------------------------------------------------------
@@ -184,6 +193,13 @@ class CheckpointEngine:
         self._pending = None      # (future, epoch, timing)
         self.stats = {"saves": 0, "payload_bytes_per_save": 0,
                       "snapshot_ms_total": 0.0, "write_ms_total": 0.0}
+
+    def rebind(self, group: mesh.Group | None) -> None:
+        """Continue on ``group`` (an elastic boundary's new roster; call
+        with nothing in flight: ``wait`` first)."""
+        self.group = group
+        self.rank = 0 if group is None else group.rank
+        self.process_count = 1 if group is None else group.world_size
 
     def _sweep_stale(self) -> None:
         """Delete what a crash mid-save left: ``*.tmp.*`` files and
@@ -621,13 +637,19 @@ def _refuse_unported(path: str, manifest: dict) -> None:
                     f"their re-layout arrives with ROADMAP queue {where}")
 
 
-def restore_checkpoint(path: str, template: WorkerState
+def restore_checkpoint(path: str, template: WorkerState, *,
+                       params_template=None,
+                       bucket_bytes: int | None = None
                        ) -> tuple[WorkerState, int]:
     """``(state, global_epoch)`` from a committed sharded epoch: worker
     ``template.worker``'s row of every leaf, converted to the port's
     layout, as host numpy arrays in a ``WorkerState`` shaped like
     ``template`` (its tensors give the names, shapes and dtypes; a
-    missing leaf or a shape or dtype mismatch raises)."""
+    missing leaf or a shape or dtype mismatch raises).  A resident
+    checkpoint restores into a replicated template and the reverse (JAX
+    ``_relayout_params_residency``): both hold one consensus vector;
+    ``params_template`` (``comms.ParamsTemplate``) addresses its buckets,
+    ``bucket_bytes`` sizes them when the manifest records none."""
     if not os.path.isdir(path):
         raise ValueError(
             f"{path} is a legacy single-file (format 1) checkpoint: its "
@@ -644,12 +666,15 @@ def restore_checkpoint(path: str, template: WorkerState
             f"run has {template.n_workers}: restart fresh or resume with "
             f"--num_workers {axis}")
     row = load_row(path, manifest, template.worker,
-                   keep=lambda k: not k.startswith(".round_opt"))
+                   keep=lambda k: not k.startswith((".round_opt",
+                                                    ".params_resident")))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key} required "
                              "by the restore template")
     got = weights.state_from_jax_leaves(row, template.layout)
+    params_resident = _relayout_residency(
+        path, manifest, template, got, params_template, bucket_bytes)
     for part in ("params", "buffers", "mu", "nu"):
         want, have = getattr(template, part), got[part]
         for name, t in want.items():
@@ -685,8 +710,71 @@ def restore_checkpoint(path: str, template: WorkerState
         template, params=got["params"], buffers=got["buffers"],
         mu=got["mu"], nu=got["nu"], count=got["count"],
         lr_epoch=got["lr_epoch"], rng=got["rng"], residual=residual,
-        round_opt=round_opt)
+        round_opt=round_opt, params_resident=params_resident)
     return state, int(manifest["global_epoch"])
+
+
+def _relayout_residency(path: str, manifest: dict, template: WorkerState,
+                        got: dict, params_template, bucket_bytes
+                        ) -> Optional[dict]:
+    """The template's parameters from the checkpoint, whatever layout
+    wrote them: ``got["params"]`` (port names) is filled in place for a
+    replicated template; the resident template's rows are returned."""
+    from . import comms
+    keys = [k for k in manifest["leaves"]
+            if k.startswith(".params_resident")]
+    meta_mb = manifest.get("metadata", {}).get("sync_bucket_mb")
+    if template.params_resident is None and not keys:
+        return None
+    if params_template is None:
+        raise ValueError(
+            f"restoring {path} into a {'resident' if keys else 'replicated'}"
+            " parameter layout from the other one needs params_template "
+            "(the engine's comms.ParamsTemplate)")
+    if template.params_resident is not None and keys:
+        row = load_row(path, manifest, template.worker,
+                       keep=lambda k: k in keys)
+        out = {}
+        for b, t in template.params_resident.items():
+            key = f".params_resident['{b}']"
+            if key not in row or tuple(row[key].shape) != tuple(t.shape):
+                raise ValueError(
+                    f"checkpoint {path} resident bucket {key} "
+                    f"{None if key not in row else row[key].shape} does "
+                    f"not match the template's {tuple(t.shape)} (saved "
+                    "with another --sync_bucket_mb or worker count?)")
+            out[b] = row[key]
+        return out
+    if keys:
+        # resident on disk -> replicated template: the gather, on host
+        bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
+              else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
+        full, _epoch = host_tree(path, keep=lambda k: k in keys)
+        resident = {k[len(".params_resident['"):-2]: v
+                    for k, v in full.items()}
+        got["params"] = dict(zip(params_template.names,
+                                 comms.resident_to_tree(
+                                     resident, template=params_template,
+                                     bucket_bytes=bb)))
+        return None
+    # replicated on disk -> resident template: only a consensus can
+    full, _epoch = host_tree(path, keep=lambda k: k.startswith(".params["))
+    for key, arr in full.items():
+        if not np.array_equal(arr, np.broadcast_to(arr[:1], arr.shape)):
+            raise ValueError(
+                f"checkpoint leaf {key} rows differ: only a consensus state "
+                "(weights x equal aggregation) can restore into the "
+                "scatter-resident layout")
+    params = weights.params_from_jax_leaves(
+        {k: v[0] for k, v in full.items()}, template.layout)
+    bb = bucket_bytes or (int(float(meta_mb) * (1 << 20)) if meta_mb
+                          else comms.DEFAULT_BUCKET_BYTES)
+    rows = comms.resident_from_tree(
+        [params[name] for name in params_template.names],
+        template.n_workers, template=params_template, bucket_bytes=bb)
+    got["params"] = {}
+    return {b: np.ascontiguousarray(v[template.worker])
+            for b, v in rows.items()}
 
 
 def _match_template(path: str, part: str, have: dict, want: dict) -> dict:

@@ -1,8 +1,7 @@
 """The once-per-round sync point: ``aggregate`` for all 12 modes
 (``gradients | weights`` x ``equal | weighted`` x ``allreduce | ring |
 double_ring``) over the worker group (port of the JAX package's
-``comms.py:63-183``, without the chaos screen's ``poison``; ROADMAP queue
-A.5).
+``comms.py:63-183``, with the chaos screen's ``poison``).
 
 The JAX package runs the modes as XLA collectives inside ``shard_map``;
 here each worker is a process of a gloo group (``mesh.py``).  gloo's
@@ -27,6 +26,7 @@ With one worker every mode is the identity, and no group exists.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import time
@@ -120,18 +120,32 @@ def _shifted(x: torch.Tensor, group: mesh.Group,
 
 def aggregate(tensors: Sequence[torch.Tensor], *, how: str = "equal",
               topology: str = "allreduce", local_weight: float = 0.5,
-              group: mesh.Group | None = None) -> list[torch.Tensor]:
+              group: mesh.Group | None = None, poison=None):
     """Aggregate one worker's tensors (parameters or gradients) across the
     group; returns new tensors shaped like ``tensors`` (the inputs
     themselves with one worker).  Every rank of the group must call it
-    with the same mode and the same shapes."""
+    with the same mode and the same shapes.
+
+    ``poison`` (the chaos screen, JAX ``aggregate(poison=...)``): this
+    worker's poison flag.  The contribution is screened sender-side (a
+    poisoned or non-finite one enters the collectives as exact zeros) and
+    every blend renormalizes over the valid contributions; the return is
+    then ``(aggregated, ok)`` with ``ok`` this worker's 0/1 flag.  The
+    flags ride one all_gather, so every rank knows them all: a round
+    whose contributions are all valid runs the unscreened arithmetic
+    itself (bitwise the unscreened round)."""
     _validate(how, topology)
     n = 1 if group is None else group.world_size
+    ok = None if poison is None else contribution_ok(poison, tensors)
     if n == 1:
-        return list(tensors)
+        return list(tensors) if ok is None else (list(tensors), float(ok))
     x = flatten(tensors)
+    flags = None if ok is None else gather_flags(ok, group)
+    screen = flags is not None and sum(flags) < n
     w = local_weight
-    if topology == "allreduce":
+    if screen:
+        out = _screened_dense(x, ok, flags, how, topology, w, group)
+    elif topology == "allreduce":
         total = _all_reduce_sum(x, group)
         if how == "equal":
             out = total / n
@@ -145,7 +159,59 @@ def aggregate(tensors: Sequence[torch.Tensor], *, how: str = "equal",
         r1, r2 = _shifted(x, group, _SHIFTS["double_ring"])
         out = ((x + r1 + r2) / 3.0 if how == "equal"
                else w * x + ((1.0 - w) / 2.0) * (r1 + r2))
-    return unflatten(out, tensors)
+    agg = unflatten(out, tensors)
+    return agg if ok is None else (agg, float(ok))
+
+
+def _screened_dense(x, ok: bool, flags: list, how: str, topology: str,
+                    w: float, group: mesh.Group) -> torch.Tensor:
+    """The dense blends of a round with a quarantined contribution (JAX
+    ``aggregate``'s screened branch): ``xs`` is the screened value."""
+    n, i = group.world_size, group.rank
+    valid = max(sum(flags), 1.0)
+    xs = x if ok else torch.zeros_like(x)
+    if topology == "allreduce":
+        total = _all_reduce_sum(xs, group)
+        if how == "equal":
+            return total / valid
+        if ok:
+            return w * x + (1.0 - w) * (total - xs) / max(valid - 1.0, 1.0)
+        return total / valid
+    shifts = _SHIFTS[topology]
+    received = _shifted(xs, group, shifts)
+    peer_ok = [flags[(i - s) % n] > 0 for s in shifts]
+    return gossip_screened(x, received, ok, peer_ok, how, w)
+
+
+def gossip_screened(x, received: list, ok: bool, peer_ok: list, how: str,
+                    w: float) -> torch.Tensor:
+    """A gossip blend renormalized over the valid terms (JAX ``aggregate``
+    / ``gossip_sync`` screened branches): ``received`` are the screened
+    predecessors' values, ``peer_ok`` their flags.  Equal: the mean of the
+    valid terms (own value when none is valid); weighted: a valid worker
+    blends with the mean of its valid peers, a quarantined one adopts
+    it."""
+    if how == "equal":
+        num = x if ok else torch.zeros_like(x)
+        for r, r_ok in zip(received, peer_ok):
+            if r_ok:
+                num = num + r
+        cnt = float(ok) + sum(float(f) for f in peer_ok)
+        return num / max(cnt, 1.0) if cnt > 0 else x
+    if len(received) == 1:
+        (r1,), (r1_ok,) = received, peer_ok
+        if ok and r1_ok:
+            return w * x + (1.0 - w) * r1
+        return r1 if r1_ok else x
+    pn = torch.zeros_like(x)
+    for r, r_ok in zip(received, peer_ok):
+        if r_ok:
+            pn = pn + r
+    pc = sum(float(f) for f in peer_ok)
+    pmean = pn / max(pc, 1.0)
+    if ok:
+        return w * x + (1.0 - w) * pmean if pc > 0 else x
+    return pmean if pc > 0 else x
 
 
 def wire_bytes(numel: int, topology: str, n: int) -> int:
@@ -679,10 +745,13 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                      opt_placement: str = "sharded",
                      tracker: dict | None = None,
-                     layout: WireLayout | None = None) -> tuple:
+                     layout: WireLayout | None = None,
+                     residency: str = "replicated", buddy: bool = False,
+                     poison=None) -> tuple:
     """The reduce-scatter sync of one worker's tensors (JAX
-    ``sharded_opt_sync`` with replicated residency, no buddy hop, no
-    screen): ``(synced tensors, new residual, new tracker)``.
+    ``sharded_opt_sync``): ``(synced tensors, new residual, new tracker)``,
+    with the buddy rows appended when ``buddy`` and this worker's 0/1
+    validity flag appended when ``poison`` is given.
 
     Semantics of ``aggregate(topology="allreduce")``: ``equal`` the
     cross-worker mean, ``weighted`` the self-exclusive peer-mean blend.
@@ -693,38 +762,81 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
     ``opt_placement``: the equal blend's scale on the owned shard
     (``sharded``) or on the gathered buffer (``replicated``, fp32 only);
     bitwise equal in fp32.  ``tracker`` (``round_opt_init``'s row) takes
-    one Adam moment update of the cross-worker mean."""
+    one Adam moment update of the cross-worker mean.
+
+    ``residency="resident"`` ends the sync at the scatter: the first
+    return value is then ``{bucket: [padded // n]}``, this worker's
+    decoded post-apply shard, and the next round's ``resident_gather``
+    rebuilds the tensors bit for bit (equal blend, sharded placement).
+    ``buddy`` sends this worker's shard-resident rows (the resident row in
+    the wire dtype, the EF residual's owned span, the sharded tracker's
+    rows) to its ring successor: the appended ``{bucket: {"params",
+    "res", "mu", "nu"}}`` holds the PREDECESSOR's rows, counted in
+    ``group.wire["buddy"]`` (``buddy_wire_bytes``).  ``poison``: the chaos
+    screen, as in ``aggregate``: a quarantined contribution enters the
+    sum as zeros (its EF residual resets with it) and the blend
+    renormalizes over the valid workers."""
     compressed = _check_fast(how, wire_dtype, residual, tensors)
     if opt_placement not in OPT_PLACEMENTS:
         raise ValueError(
             f"opt_placement must be one of {OPT_PLACEMENTS}, got "
             f"{opt_placement!r}")
+    if residency not in PARAM_RESIDENCIES:
+        raise ValueError(f"residency must be one of {PARAM_RESIDENCIES}, "
+                         f"got {residency!r}")
+    resident = residency == "resident"
+    if resident and (how != "equal" or opt_placement != "sharded"):
+        raise ValueError(
+            "a scatter-resident output requires the equal blend on the "
+            "sharded placement: the weighted own-term blend is "
+            "irreducibly per-worker and a replicated apply produces no "
+            f"shard-side output (got how={how!r}, "
+            f"opt_placement={opt_placement!r})")
     if compressed and opt_placement != "sharded":
         raise ValueError(
             "a compressed wire quantizes the gathered mean, which forces "
             "the scale-then-encode apply onto the shard: opt_placement "
             f"must be 'sharded', got {opt_placement!r}")
     n = 1 if group is None else group.world_size
+    if buddy and n < 2:
+        raise ValueError(
+            "buddy redundancy needs a worker axis of size >= 2 (a lone "
+            "worker has no ring successor to back its shard up on)")
     tensors = list(tensors)
+    ok = None if poison is None else contribution_ok(poison, tensors,
+                                                     residual)
     if not tensors or n == 1:
-        return tensors, residual, tracker
+        if resident:
+            raise ValueError(
+                "a scatter-resident output needs a worker axis of size "
+                ">= 2 and a non-empty tree (nothing to shard)")
+        out = (tensors, residual, tracker)
+        return out if ok is None else (*out, float(ok))
     layout = layout or WireLayout.identity(tensors)
     rank = group.rank
+    flags = None if ok is None else gather_flags(ok, group)
+    screen = flags is not None and sum(flags) < n
+    valid = max(sum(flags), 1.0) if flags is not None else float(n)
     x = layout.pack(tensors)
     r = layout.pack(residual) if residual is not None else None
-    out = torch.empty_like(x)
+    out = None if resident else torch.empty_like(x)
     new_r = torch.empty_like(x) if r is not None else None
     new_tracker = {} if tracker is not None else None
+    resident_out, buddy_out = {}, {}
     quantized = wire_dtype == torch.int8
     w = local_weight
     start = 0
     for bi, b in enumerate(bucket_plan(layout.leaves, n, bucket_bytes)):
         filled, row = _filled(b), b.padded // n
+        name = bucket_name(bi)
         seg = slice(start, start + filled)
         buf = x[seg] if r is None else x[seg] + r[seg]
         if b.padded > filled:
             buf = torch.cat([buf, buf.new_zeros(b.padded - filled)])
-        slot = f"sharded/{bucket_name(bi)}"
+        if screen and not ok:
+            # sender-side quarantine: exact zeros, never 0 * NaN
+            buf = torch.zeros_like(buf)
+        slot = f"sharded/{name}"
         sent, sent32, sent_scale = wire_encode(buf, wire_dtype)
         err = buf - sent32 if r is not None else None
         pieces = _all_to_all(sent, group, slot)
@@ -734,14 +846,16 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
             shard32 = _fold(pieces.float() * scales[:, None])
         else:
             shard32 = _fold(pieces.float())
+        full = None
         if how == "equal":
             if opt_placement == "replicated" and not compressed:
                 # gather the raw shard sums, scale the whole buffer on
                 # every worker (the ZeRO-1 baseline, bitwise the same)
-                full = _all_gather(shard32, group, slot + "/sum") / n
+                gathered = _all_gather(shard32, group, slot + "/sum")
+                full = gathered / valid if screen else gathered / n
                 track32 = full
             else:
-                mean32 = shard32 / n
+                mean32 = shard32 / valid if screen else shard32 / n
                 mean, mean32_dec, mean_scale = wire_encode(mean32,
                                                            wire_dtype)
                 if err is not None and compressed:
@@ -749,8 +863,25 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
                     # its owner carries n x that rounding at its span
                     own = slice(rank * row, (rank + 1) * row)
                     err[own] = err[own] + n * (mean32 - mean32_dec)
-                full = _gather_decoded(mean, mean_scale, group,
-                                       slot + "/mean")
+                if resident:
+                    # the sync ends here: the decoded shard IS the state
+                    resident_out[name] = mean32_dec
+                    if buddy:
+                        hop = [mean] + ([] if mean_scale is None
+                                        else [mean_scale.reshape(1)])
+                        if err is not None:
+                            hop.append(err[rank * row:(rank + 1) * row])
+                        got = ring_hop(hop, group, slot + "/buddy",
+                                       n_scale=int(mean_scale is not None))
+                        bud = {"params": got[0].float()}
+                        if mean_scale is not None:
+                            bud["params"] = bud["params"] * got[1]
+                        if err is not None:
+                            bud["res"] = got[-1]
+                        buddy_out[name] = bud
+                else:
+                    full = _gather_decoded(mean, mean_scale, group,
+                                           slot + "/mean")
                 track32 = mean32
         else:
             # the own term is per worker: gather the encoded sum, blend
@@ -758,11 +889,18 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
             tq, _tq32, tq_scale = wire_encode(shard32, wire_dtype)
             total = _gather_decoded(tq, tq_scale, group, slot + "/sum")
             own = sent32
-            full = w * own + (1.0 - w) * (total - own) / (n - 1)
-            track32 = (shard32 / n if opt_placement == "sharded"
-                       else total / n)
+            if not screen:
+                full = w * own + (1.0 - w) * (total - own) / (n - 1)
+                track32 = (shard32 / n if opt_placement == "sharded"
+                           else total / n)
+            else:
+                # a valid worker renormalizes its peer mean; a
+                # quarantined one adopts the valid consensus
+                full = (w * own + (1.0 - w) * (total - own)
+                        / max(valid - 1.0, 1.0) if ok else total / valid)
+                track32 = (shard32 if opt_placement == "sharded"
+                           else total) / valid
         if new_tracker is not None:
-            name = bucket_name(bi)
             if name not in tracker:
                 raise ValueError(
                     f"round-optimizer tracker has no bucket {name} "
@@ -779,13 +917,24 @@ def sharded_opt_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
             new_tracker[name] = {
                 "mu": ROUND_ADAM_B1 * mu + (1.0 - ROUND_ADAM_B1) * g,
                 "nu": ROUND_ADAM_B2 * nu + (1.0 - ROUND_ADAM_B2) * (g * g)}
-        out[seg] = full[:filled]
+            if buddy and opt_placement == "sharded":
+                got = ring_hop([new_tracker[name]["mu"],
+                                new_tracker[name]["nu"]], group,
+                               slot + "/buddy_opt")
+                buddy_out.setdefault(name, {}).update(mu=got[0], nu=got[1])
+        if full is not None:
+            out[seg] = full[:filled]
         if new_r is not None:
             new_r[seg] = err[:filled]
         start += filled
-    synced = layout.unpack(out, tensors)
     res = residual if new_r is None else layout.unpack(new_r, residual)
-    return synced, res, new_tracker
+    first = resident_out if resident else layout.unpack(out, tensors)
+    ret = [first, res, new_tracker]
+    if buddy:
+        ret.append(buddy_out)
+    if ok is not None:
+        ret.append(float(ok))
+    return tuple(ret)
 
 
 def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
@@ -836,13 +985,17 @@ def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
                 wire_dtype: torch.dtype | None = None,
                 residual: Sequence[torch.Tensor] | None = None,
                 bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-                layout: WireLayout | None = None) -> tuple:
-    """One bucketed ring/double-ring gossip round (JAX ``gossip_sync``
-    without the screen): ``(blended tensors, new residual)``.  The blends
-    are ``aggregate``'s expressions on the packed buckets (bitwise the
-    dense path in fp32); ``wire_dtype`` compresses the sent payload only;
-    ``residual`` arms error feedback: each worker sends ``encode(x +
-    residual)`` and keeps the rounding of that transmission."""
+                layout: WireLayout | None = None, poison=None) -> tuple:
+    """One bucketed ring/double-ring gossip round (JAX ``gossip_sync``):
+    ``(blended tensors, new residual)``, plus this worker's 0/1 validity
+    flag when ``poison`` is given.  The blends are ``aggregate``'s
+    expressions on the packed buckets (bitwise the dense path in fp32);
+    ``wire_dtype`` compresses the sent payload only; ``residual`` arms
+    error feedback: each worker sends ``encode(x + residual)`` and keeps
+    the rounding of that transmission.  ``poison``: a quarantined
+    transmission travels as zeros and the blend renormalizes over the
+    valid terms (a worker whose predecessor is quarantined keeps its own
+    value; a quarantined one adopts its valid neighbours')."""
     if topology not in GOSSIP_HOPS:
         raise ValueError(
             f"topology must be one of {tuple(GOSSIP_HOPS)}, got "
@@ -850,9 +1003,17 @@ def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
     _check_fast(how, wire_dtype, residual, tensors)
     n = 1 if group is None else group.world_size
     tensors = list(tensors)
+    ok = None if poison is None else contribution_ok(poison, tensors,
+                                                     residual)
     if not tensors or n == 1:
-        return tensors, residual
+        return ((tensors, residual) if ok is None
+                else (tensors, residual, float(ok)))
     layout = layout or WireLayout.identity(tensors)
+    flags = None if ok is None else gather_flags(ok, group)
+    shifts = _SHIFTS[topology]
+    peer_ok = (None if flags is None else
+               [flags[(group.rank - s) % n] > 0 for s in shifts])
+    screen = flags is not None and sum(flags) < n
     x = layout.pack(tensors)
     r = layout.pack(residual) if residual is not None else None
     out = torch.empty_like(x)
@@ -863,12 +1024,16 @@ def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
         seg = slice(start, start + _filled(b))
         buf = x[seg]
         send = buf if r is None else buf + r[seg]
+        if screen and not ok:
+            send = torch.zeros_like(send)
         sent, sent32, scale = wire_encode(send, wire_dtype)
         if new_r is not None:
             new_r[seg] = send - sent32
-        received = _hops(sent, sent32, scale, group, _SHIFTS[topology],
+        received = _hops(sent, sent32, scale, group, shifts,
                          f"gossip/{bucket_name(bi)}")
-        if topology == "ring":
+        if screen and not (ok and all(peer_ok)):
+            blended = gossip_screened(buf, received, ok, peer_ok, how, w)
+        elif topology == "ring":
             (r1,) = received
             blended = ((buf + r1) / 2.0 if how == "equal"
                        else w * buf + (1.0 - w) * r1)
@@ -880,7 +1045,7 @@ def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
         start += seg.stop - seg.start
     synced = layout.unpack(out, tensors)
     res = residual if new_r is None else layout.unpack(new_r, residual)
-    return synced, res
+    return (synced, res) if ok is None else (synced, res, float(ok))
 
 
 def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
@@ -888,24 +1053,439 @@ def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
               wire_dtype: torch.dtype | None = None, residual=None,
               bucket_bytes: int = DEFAULT_BUCKET_BYTES,
               opt_placement: str = "sharded", tracker: dict | None = None,
-              layout: WireLayout | None = None) -> tuple:
+              layout: WireLayout | None = None,
+              residency: str = "replicated", buddy: bool = False,
+              poison=None) -> tuple:
     """One sync by engine ``mode`` (JAX ``make_host_sync``'s dispatch):
     ``dense`` (``aggregate``), ``gossip`` (ring/double_ring) or
-    ``sharded`` (allreduce); ``(synced, new_residual, new_tracker)``."""
+    ``sharded`` (allreduce); ``(synced, new_residual, new_tracker)``, then
+    the buddy rows when ``buddy`` (sharded only) and this worker's
+    validity flag when ``poison`` is given."""
     if mode == "dense":
-        return aggregate(tensors, how=how, topology=topology,
-                         local_weight=local_weight, group=group), \
-            residual, tracker
+        out = aggregate(tensors, how=how, topology=topology,
+                        local_weight=local_weight, group=group,
+                        poison=poison)
+        if poison is None:
+            return out, residual, tracker
+        return out[0], residual, tracker, out[1]
     if mode == "gossip":
-        out, res = gossip_sync(
+        out = gossip_sync(
             tensors, group=group, topology=topology, how=how,
             local_weight=local_weight, wire_dtype=wire_dtype,
-            residual=residual, bucket_bytes=bucket_bytes, layout=layout)
-        return out, res, tracker
+            residual=residual, bucket_bytes=bucket_bytes, layout=layout,
+            poison=poison)
+        return (out[0], out[1], tracker, *out[2:])
     if mode != "sharded":
         raise ValueError(f"mode must be dense, gossip or sharded, got "
                          f"{mode!r}")
     return sharded_opt_sync(
         tensors, group=group, how=how, local_weight=local_weight,
         wire_dtype=wire_dtype, residual=residual, bucket_bytes=bucket_bytes,
-        opt_placement=opt_placement, tracker=tracker, layout=layout)
+        opt_placement=opt_placement, tracker=tracker, layout=layout,
+        residency=residency, buddy=buddy, poison=poison)
+
+
+# --------------------------------------------------------------------------
+# The chaos screen, scatter-resident parameters and the buddy hop (JAX
+# ``comms.py:646-1090``).  The host-side layouts are numpy, worker-stacked
+# as in JAX: a resident layout is ``{bucket: [n, padded // n]}`` (row w is
+# worker w's contiguous 1/n shard of the packed consensus vector, pad
+# positions exactly zero), the round optimizer's ``{bucket: {"mu", "nu"}}``
+# rows the same or ``[n, padded]``, a buddy layout ``{bucket: {"params",
+# "res", "mu", "nu": [n, row]}}`` whose row w is worker (w - 1) % n's.
+# They are copies and permutations, so they equal JAX's bit for bit.
+# --------------------------------------------------------------------------
+
+PARAM_RESIDENCIES = ("replicated", "resident")
+
+
+def contribution_ok(poison, tensors, residual=None) -> bool:
+    """Whether this worker's sync contribution is valid (JAX
+    ``_contribution_ok``): not poisoned, and every tensor (and the EF
+    residual folded into it) finite."""
+    if bool(poison):
+        return False
+    parts = list(tensors) + list(residual or [])
+    if not parts:
+        return True
+    return bool(torch.stack([torch.isfinite(t).all() for t in parts]).all())
+
+
+def gather_flags(ok: bool, group: mesh.Group) -> list[float]:
+    """Every rank's 0/1 validity flag, in rank order (one all_gather of a
+    float; the JAX screen's psum and ppermuted flags read the same)."""
+    flags = _all_gather(torch.tensor([float(ok)]), group, "screen/flag",
+                        "flag")
+    return [float(f) for f in flags]
+
+
+def ring_hop(tensors: list, group: mesh.Group, slot: str,
+             n_scale: int = 0, kind: str = "buddy") -> list:
+    """Send ``tensors`` to the ring successor ``(rank + 1) % n`` and return
+    the predecessor's, on this worker's device (one batch of
+    point-to-point ops).  The bytes count under ``group.wire[kind]``,
+    those of ``tensors[1:1 + n_scale]`` (int8 scales) under ``"scale"``."""
+    n, i = group.world_size, group.rank
+    ops, got = [], []
+    for j, t in enumerate(tensors):
+        src = _to_host(t.contiguous(), group, f"{slot}/send{j}")
+        dst = group.host_buffer(f"{slot}/recv{j}", t.numel(), t.dtype)
+        ops += [dist.P2POp(dist.isend, _bytes(src), (i + 1) % n,
+                           group=group.pg, tag=200 + j),
+                dist.P2POp(dist.irecv, _bytes(dst), (i - 1) % n,
+                           group=group.pg, tag=200 + j)]
+        group.count_wire("scale" if 1 <= j <= n_scale else kind,
+                         src.nbytes)
+        got.append(dst)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [_to_device(g, t.device).view(t.shape)
+            for g, t in zip(got, tensors)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamsTemplate:
+    """One worker's parameters as the host re-layouts see them (the
+    counterpart of JAX's per-worker ``ShapeDtypeStruct`` tree): the
+    tensors' names, shapes and dtypes in module order, and the
+    ``WireLayout`` that packs them in JAX's flatten order.  Picklable:
+    membership snapshots carry it."""
+
+    names: tuple
+    shapes: tuple
+    dtypes: tuple
+    leaves: tuple
+    pieces: tuple
+
+    @classmethod
+    def of(cls, names, tensors, layout: "WireLayout | None" = None):
+        tensors = list(tensors)
+        layout = layout or WireLayout.identity(tensors)
+        return cls(tuple(names), tuple(tuple(t.shape) for t in tensors),
+                   tuple(str(t.dtype).removeprefix("torch.")
+                         for t in tensors),
+                   tuple((tuple(s), str(d).removeprefix("torch."))
+                         for s, d in layout.leaves),
+                   tuple(layout.pieces))
+
+    def layout(self) -> "WireLayout":
+        return WireLayout(self.leaves, self.pieces)
+
+    def like(self) -> list[torch.Tensor]:
+        return [torch.empty(s, dtype=getattr(torch, d), device="meta")
+                for s, d in zip(self.shapes, self.dtypes)]
+
+
+def _packed(template: ParamsTemplate, row) -> np.ndarray:
+    """One worker's tensors (``template`` order) as the packed fp32
+    vector (numpy, a copy)."""
+    return template.layout().pack(
+        [torch.as_tensor(np.asarray(a)) for a in row]).numpy()
+
+
+def _unpacked(template: ParamsTemplate, vec: np.ndarray) -> list:
+    return [t.contiguous().numpy() for t in template.layout().unpack(
+        torch.from_numpy(np.ascontiguousarray(vec)), template.like())]
+
+
+def _leaf_starts(leaves) -> list[int]:
+    sizes = [_numel(_shape_dtype(leaf)[0]) for leaf in leaves]
+    return [int(x) for x in np.concatenate([[0], np.cumsum(sizes)])]
+
+
+def _positions(b: _Bucket, starts: list[int]) -> np.ndarray:
+    """Where a bucket's filled elements sit in the packed vector."""
+    return np.concatenate([np.arange(starts[j], starts[j] + size)
+                           for (j, _off, size) in b.items])
+
+
+def round_opt_relayout(tracker: dict, leaves, n_new: int, *, placement: str,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> dict:
+    """Re-lay a HOST round-optimizer tracker out for a new worker count
+    (JAX ``round_opt_relayout``): the moment vector is worker-invariant,
+    so it is rebuilt from the rows, re-padded (pad positions hold exact
+    zeros) and re-split.  ``leaves``: the layout's ``(shape, dtype)``."""
+    plan = bucket_plan(list(leaves), max(1, n_new), bucket_bytes)
+    out: dict = {}
+    for i, b in enumerate(plan):
+        name = bucket_name(i)
+        if name not in tracker:
+            raise ValueError(
+                f"round-optimizer tracker has no bucket {name} "
+                f"({len(tracker)} buckets vs plan {len(plan)})")
+        filled = _filled(b)
+        row_new = b.padded // n_new if placement == "sharded" else b.padded
+        out[name] = {}
+        for m in ("mu", "nu"):
+            arr = np.asarray(tracker[name][m])
+            vec = arr.reshape(-1) if placement == "sharded" else arr[0]
+            if vec.size < filled:
+                raise ValueError(
+                    f"round-optimizer bucket {name}/{m} carries "
+                    f"{vec.size} elements but the plan needs {filled}")
+            vec = vec[:filled]
+            pad = (n_new * row_new if placement == "sharded"
+                   else b.padded) - filled
+            if pad:
+                vec = np.concatenate([vec, np.zeros(pad, vec.dtype)])
+            out[name][m] = (vec.reshape(n_new, row_new)
+                            if placement == "sharded"
+                            else np.broadcast_to(vec, (n_new, b.padded))
+                            .copy())
+    return out
+
+
+def resident_from_tree(tensors, n: int, *, template: ParamsTemplate,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> dict:
+    """HOST: one worker's CONSENSUS tensors (``template`` order) packed
+    into the resident layout ``{bucket: [n, padded // n]}`` (JAX
+    ``resident_from_tree``)."""
+    vec = _packed(template, tensors)
+    starts = _leaf_starts(template.leaves)
+    out = {}
+    for i, b in enumerate(bucket_plan(list(template.leaves), n,
+                                      bucket_bytes)):
+        full = np.zeros(b.padded, np.float32)
+        full[:_filled(b)] = vec[_positions(b, starts)]
+        out[bucket_name(i)] = full.reshape(n, b.padded // n)
+    return out
+
+
+def resident_to_tree(resident: dict, *, template: ParamsTemplate,
+                     bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> list:
+    """HOST: a resident layout back into the consensus tensors (numpy, in
+    ``template`` order): the host twin of the round-entry gather, bit for
+    bit (JAX ``resident_to_tree``).  The worker count is read off the
+    rows."""
+    n = next((int(np.shape(a)[0]) for a in resident.values()), 0)
+    if not n:
+        raise ValueError("resident params layout is empty")
+    starts = _leaf_starts(template.leaves)
+    vec = np.empty(starts[-1], np.float32)
+    plan = bucket_plan(list(template.leaves), n, bucket_bytes)
+    for i, b in enumerate(plan):
+        name = bucket_name(i)
+        if name not in resident:
+            raise ValueError(
+                f"resident params layout has no bucket {name} "
+                f"({len(resident)} buckets vs plan {len(plan)})")
+        arr = np.asarray(resident[name])
+        if arr.shape != (n, b.padded // n):
+            raise ValueError(
+                f"resident params bucket {name} has shape {arr.shape}, "
+                f"expected {(n, b.padded // n)} (sync_bucket_mb or "
+                "worker count changed since the state was built?)")
+        vec[_positions(b, starts)] = arr.reshape(-1)[:_filled(b)]
+    return _unpacked(template, vec)
+
+
+def resident_relayout(resident: dict, leaves, n_new: int, *,
+                      bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> dict:
+    """Re-tile a HOST resident layout for a new worker count (JAX
+    ``resident_relayout``): rebuild the vector, re-pad, re-split."""
+    plan = bucket_plan(list(leaves), max(1, n_new), bucket_bytes)
+    out: dict = {}
+    for i, b in enumerate(plan):
+        name = bucket_name(i)
+        if name not in resident:
+            raise ValueError(
+                f"resident params layout has no bucket {name} "
+                f"({len(resident)} buckets vs plan {len(plan)})")
+        vec = np.asarray(resident[name]).reshape(-1)
+        filled = _filled(b)
+        if vec.size < filled:
+            raise ValueError(
+                f"resident params bucket {name} carries {vec.size} "
+                f"elements but the plan needs {filled}")
+        vec = vec[:filled]
+        if b.padded > filled:
+            vec = np.concatenate([vec, np.zeros(b.padded - filled,
+                                                vec.dtype)])
+        out[name] = vec.reshape(n_new, b.padded // n_new)
+    return out
+
+
+def resident_rows(tensors, n: int, rank: int, *, template: ParamsTemplate,
+                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                  device: torch.device | str = "cpu") -> dict:
+    """Worker ``rank``'s row of ``resident_from_tree`` on ``device``."""
+    full = resident_from_tree(
+        [t.detach().cpu() if isinstance(t, torch.Tensor) else t
+         for t in tensors], n, template=template, bucket_bytes=bucket_bytes)
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rank])).to(device)
+            for k, v in full.items()}
+
+
+def resident_gather(shards: dict, *, group: mesh.Group,
+                    layout: WireLayout, like,
+                    bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> list:
+    """The round-entry gather (JAX ``resident_gather``): every rank's
+    resident row of each bucket, all_gathered in rank order, unpacked into
+    tensors shaped and typed like ``like`` on the rows' device."""
+    n = group.world_size
+    plan = bucket_plan(layout.leaves, n, bucket_bytes)
+    parts = []
+    for i, b in enumerate(plan):
+        name = bucket_name(i)
+        if name not in shards:
+            raise ValueError(
+                f"resident params layout has no bucket {name} "
+                f"({len(shards)} buckets vs plan {len(plan)})")
+        row = shards[name]
+        if tuple(row.shape) != (b.padded // n,):
+            raise ValueError(
+                f"resident params bucket {name} row has shape "
+                f"{tuple(row.shape)}, expected {(b.padded // n,)} "
+                "(sync_bucket_mb or worker count changed?)")
+        parts.append(_all_gather(row, group,
+                                 f"resident/{name}")[:_filled(b)])
+    return layout.unpack(torch.cat(parts), like)
+
+
+def buddy_wire_bytes(leaves, n: int, *, wire_dtype=None,
+                     bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                     params: bool = True, tracker: bool = False,
+                     ef: bool = False) -> int:
+    """Per-worker bytes the buddy hop sends per sync (JAX
+    ``buddy_wire_bytes``): per bucket the ``padded / n`` resident row in
+    the wire dtype, the EF residual's owned span and the two tracker rows
+    in fp32; int8 scales left out.  Zero when nothing is shard-resident."""
+    if not leaves or n <= 1:
+        return 0
+    total = 0
+    for b in bucket_plan(list(leaves), n, bucket_bytes):
+        row = b.padded // n
+        if params:
+            total += row * (wire_dtype or b.dtype).itemsize
+        if ef:
+            total += row * 4
+        if tracker:
+            total += 2 * row * 4
+    return total
+
+
+def derive_buddy(template: ParamsTemplate, n: int, *,
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 params_resident: dict | None = None,
+                 round_opt: dict | None = None, residual=None,
+                 opt_placement: str = "sharded") -> dict | None:
+    """HOST: the buddy layout a state's shard-resident rows imply (JAX
+    ``derive_buddy``): ``buddy[bucket][comp][w]`` is worker ``(w - 1) %
+    n``'s row, what the hop delivers.  ``residual``: the stacked EF
+    residual, a list of ``[n, ...]`` arrays in ``template`` order (each
+    worker's OWN span goes in).  None when nothing is shard-resident."""
+    if n < 2 or not template.leaves:
+        return None
+    tracker_on = round_opt is not None and opt_placement == "sharded"
+    if params_resident is None and residual is None and not tracker_on:
+        return None
+    starts = _leaf_starts(template.leaves)
+    res_vecs = (None if residual is None else
+                [_packed(template, [np.asarray(a)[w] for a in residual])
+                 for w in range(n)])
+    out: dict = {}
+    for i, b in enumerate(bucket_plan(list(template.leaves), n,
+                                      bucket_bytes)):
+        name, row = bucket_name(i), b.padded // n
+        bud: dict = {}
+        if params_resident is not None:
+            arr = np.asarray(params_resident[name])
+            if arr.shape != (n, row):
+                raise ValueError(
+                    f"resident params bucket {name} has shape "
+                    f"{arr.shape}, expected {(n, row)}")
+            bud["params"] = np.roll(arr, 1, axis=0).copy()
+        if res_vecs is not None:
+            pos = _positions(b, starts)
+            mat = np.zeros((n, b.padded), np.float32)
+            for w in range(n):
+                mat[w, :len(pos)] = res_vecs[w][pos]
+            spans = np.stack([mat[w, w * row:(w + 1) * row]
+                              for w in range(n)])
+            bud["res"] = np.roll(spans, 1, axis=0).copy()
+        if tracker_on:
+            for m in ("mu", "nu"):
+                arr = np.asarray(round_opt[name][m])
+                if arr.shape != (n, row):
+                    raise ValueError(
+                        f"round-opt bucket {name}/{m} has shape "
+                        f"{arr.shape}, expected {(n, row)} (buddy "
+                        "redundancy covers the SHARDED placement)")
+                bud[m] = np.roll(arr, 1, axis=0).copy()
+        out[name] = bud
+    return out
+
+
+def buddy_restore_rows(parts: dict, buddy: dict, lost_positions,
+                       template: ParamsTemplate, *,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> dict:
+    """HOST: rebuild CRASHED workers' shard-resident rows from their
+    buddy copies (JAX ``buddy_restore_rows``).  ``parts``: any of
+    ``params_resident`` ({bucket: [n, row]}), ``round_opt`` ({bucket:
+    {"mu", "nu"}}) and ``residual`` (list of ``[n, ...]`` arrays in
+    ``template`` order).  Lost position p's holder is ``(p + 1) % n``; a
+    holder that is lost too is a double fault and raises.  The residual's
+    lost span is FOLDED into the holder's residual; the other rows are
+    patched in place.  Returns new arrays, inputs untouched."""
+    resident = parts.get("params_resident")
+    round_opt = parts.get("round_opt")
+    residual = parts.get("residual")
+    n = None
+    for comp in (resident, round_opt):
+        if comp:
+            first = next(iter(comp.values()))
+            arr = first.get("mu") if isinstance(first, dict) else first
+            n = int(np.shape(arr)[0])
+            break
+    if n is None and residual is not None:
+        n = int(np.shape(residual[0])[0])
+    if n is None:
+        raise ValueError("nothing shard-resident to restore")
+    lost = sorted(set(int(p) for p in lost_positions))
+    for p in lost:
+        if not 0 <= p < n:
+            raise ValueError(f"lost position {p} outside worker axis {n}")
+        if (p + 1) % n in lost:
+            raise ValueError(
+                f"double fault: crashed worker at position {p} and its "
+                f"buddy at position {(p + 1) % n} are both lost — the span "
+                "exists nowhere in memory (fall back to the newest "
+                "committed checkpoint)")
+    plan = bucket_plan(list(template.leaves), n, bucket_bytes)
+    out = dict(parts)
+    if resident is not None:
+        patched = {k: np.asarray(v).copy() for k, v in resident.items()}
+        for i in range(len(plan)):
+            name = bucket_name(i)
+            for p in lost:
+                patched[name][p] = np.asarray(
+                    buddy[name]["params"])[(p + 1) % n]
+        out["params_resident"] = patched
+    if round_opt is not None and any("mu" in bud for bud in buddy.values()):
+        patched = {k: {m: np.asarray(v).copy() for m, v in d.items()}
+                   for k, d in round_opt.items()}
+        for i in range(len(plan)):
+            name = bucket_name(i)
+            for p in lost:
+                for m in ("mu", "nu"):
+                    patched[name][m][p] = np.asarray(
+                        buddy[name][m])[(p + 1) % n]
+        out["round_opt"] = patched
+    if residual is not None and any("res" in bud for bud in buddy.values()):
+        starts = _leaf_starts(template.leaves)
+        rows = [np.asarray(a).copy() for a in residual]
+        for holder in sorted({(p + 1) % n for p in lost}):
+            vec = _packed(template, [a[holder] for a in rows])
+            for i, b in enumerate(plan):
+                row, pos = b.padded // n, _positions(b, starts)
+                span = np.asarray(buddy[bucket_name(i)]["res"])[holder]
+                for p in lost:
+                    if (p + 1) % n != holder:
+                        continue
+                    lo, hi = p * row, min((p + 1) * row, len(pos))
+                    if lo < hi:
+                        vec[pos[lo:hi]] += span[:hi - lo]
+            for a, v in zip(rows, _unpacked(template, vec)):
+                a[holder] = v
+        out["residual"] = rows
+    return out

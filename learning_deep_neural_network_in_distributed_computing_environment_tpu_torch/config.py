@@ -14,7 +14,6 @@ import dataclasses
 
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default (or one of ACCEPTED's) is rejected in Config.__post_init__.
-_ELASTIC = "A.11 item 2 (elastic membership + chaos)"
 _PIPELINE = "A.11 item 3 (the round pipeline and run observability)"
 _TIERS = "A.11 item 4 (tensor/pipeline/sequence parallelism)"
 NOT_PORTED = {
@@ -26,30 +25,15 @@ NOT_PORTED = {
     "pp_schedule": ("gpipe", _TIERS),
     "pp_microbatches": (0, _TIERS),
     "pp_remat": (False, _TIERS),
-    "chaos": ("", _ELASTIC),
-    "chaos_seed": (0, _ELASTIC),
-    "chaos_events": (4, _ELASTIC),
-    "chaos_kinds": ("kill,join,slow,stall", _ELASTIC),
-    "chaos_grace": (5.0, _ELASTIC),
-    "chaos_retries": (1, _ELASTIC),
-    "chaos_backoff": (0.5, _ELASTIC),
-    "elastic_min_workers": (1, _ELASTIC),
     "num_slices": (1, "A.11 item 5 (hierarchical two-level sync)"),
     "sync_dtype_outer": ("", "A.11 item 5 (hierarchical two-level sync)"),
-    "param_residency": ("auto", "A.11 item 2 (the elastic slice: "
-                                "scatter-resident parameters, whose rows "
-                                "crash recovery restores)"),
-    "shard_redundancy": ("auto", "A.11 item 2 (the elastic slice: the "
-                                 "buddy hop)"),
     "profile_dir": ("", _PIPELINE),
     "sanitize": (False, _PIPELINE),
     "overlap_rounds": (True, _PIPELINE),
 }
 # values besides the default that a NOT_PORTED flag takes: data=1 is the
-# one-worker mesh, and the port resolves residency to replicated and the
-# buddy hop to off on every run
-ACCEPTED = {"mesh_shape": ("data=1",), "param_residency": ("replicated",),
-            "shard_redundancy": ("off",)}
+# one-worker mesh
+ACCEPTED = {"mesh_shape": ("data=1",)}
 
 
 def _choices(name: str, value, allowed) -> None:
@@ -419,6 +403,43 @@ class Config:
                 "scale-then-encode apply onto the 1/N shard (the sharded "
                 "placement) — a post-gather replicated apply would gather "
                 "the uncompressed fp32 sum instead")
+        if (self.param_residency == "resident"
+                and self.topology != "allreduce"):
+            raise ValueError(
+                f"--param_residency resident cannot combine with "
+                f"--topology {self.topology}: gossip blends are "
+                "worker-local by construction — every worker's post-round "
+                "params are a different function of its own value, so "
+                "there is no cross-replica-redundant consensus tree to "
+                "keep scatter-resident (the same argument that resolves "
+                "--opt_placement to 'local' there)")
+        if self.param_residency == "resident" and self.sync_mode == "dense":
+            raise ValueError(
+                "--param_residency resident keeps the psum_scatter "
+                "output as the between-round parameter state — a bucketed-"
+                "sync-engine stage; it cannot combine with "
+                "--sync_mode dense (no scatter whose output could stay "
+                "resident)")
+        if (self.param_residency == "resident"
+                and self.opt_placement == "replicated"):
+            raise ValueError(
+                "--param_residency resident stores the SHARD-side apply "
+                "output (the scaled 1/N scatter shard) as the resident "
+                "state; --opt_placement replicated applies post-gather "
+                "full-size and leaves no per-shard apply output to keep "
+                "resident")
+        if self.shard_redundancy == "buddy" and (
+                self.topology != "allreduce" or self.sync_mode == "dense"):
+            raise ValueError(
+                "--shard_redundancy buddy protects SHARD-RESIDENT state "
+                "(scatter-resident params / sharded round-optimizer "
+                "rows), which only the bucketed sharded allreduce engine "
+                f"produces; --topology {self.topology} / --sync_mode "
+                f"{self.sync_mode} keeps every state worker-local or "
+                "replicated — nothing is uniquely held, so there is "
+                "nothing for a buddy to back up (auto resolves this to "
+                "off)")
+        self._check_chaos()
         if self.sync_compression == "ef" and not compressed_wire:
             raise ValueError(
                 "--sync_compression ef compensates compressed-wire "
@@ -493,6 +514,49 @@ class Config:
                 "silently diverge from the run that wrote it "
                 "(drain-before-snapshot is the ROADMAP follow-on)")
 
+    def _check_chaos(self) -> None:
+        """The JAX config's eager checks of the chaos flags
+        (``config.py:660-677``): a malformed ``--chaos`` spec or
+        ``--chaos_kinds`` selection fails here, not at round boundary 3."""
+        if self.chaos and self.chaos.strip().lower() != "random":
+            from .chaos import parse_chaos_spec
+            parse_chaos_spec(self.chaos)
+        self.parse_chaos_kinds()
+        if self.chaos_events < 0 or self.chaos_retries < 0:
+            raise ValueError(
+                f"chaos_events ({self.chaos_events}) and chaos_retries "
+                f"({self.chaos_retries}) must be >= 0")
+        if self.chaos_grace < 0.0 or self.chaos_backoff < 0.0:
+            raise ValueError(
+                f"chaos_grace ({self.chaos_grace}) and chaos_backoff "
+                f"({self.chaos_backoff}) must be >= 0")
+        if self.elastic_min_workers < 1:
+            raise ValueError(
+                f"elastic_min_workers must be >= 1, got "
+                f"{self.elastic_min_workers}")
+
+    def parse_chaos_kinds(self) -> tuple[str, ...]:
+        """``--chaos_kinds`` as a validated kind tuple (JAX
+        ``parse_chaos_kinds``): the kinds a ``--chaos random`` schedule
+        may draw, order kept, duplicates collapsed."""
+        from .chaos import KINDS
+        out: list[str] = []
+        for part in self.chaos_kinds.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if part not in KINDS:
+                raise ValueError(
+                    f"unknown chaos kind {part!r} in --chaos_kinds "
+                    f"{self.chaos_kinds!r}: expected a subset of {KINDS}")
+            if part not in out:
+                out.append(part)
+        if not out:
+            raise ValueError(
+                f"--chaos_kinds {self.chaos_kinds!r} selects no event "
+                "kinds — a random schedule needs at least one")
+        return tuple(out)
+
     def resolve_sync_mode(self) -> str:
         """``--sync_mode`` resolved per topology into the engine run:
         ``dense`` | ``sharded`` | ``gossip`` (JAX ``resolve_sync_mode``
@@ -509,6 +573,9 @@ class Config:
         if self.sync_dtype in ("bfloat16", "int8"):
             return fast
         if self.opt_placement == "sharded":
+            return fast
+        if self.param_residency == "resident":
+            # scatter-resident params are a layout of the bucketed engine
             return fast
         return "dense"
 
@@ -530,19 +597,52 @@ class Config:
             return self.opt_placement
         return "sharded" if mode == "sharded" else "replicated"
 
-    def resolve_param_residency(self) -> str:
-        """``replicated`` on every run: the scatter-resident layout JAX
-        resolves under weights x equal on the sharded engine arrives with
-        the elastic slice (ROADMAP A.11 item 2); ``resident`` is refused."""
-        return "replicated"
+    def resolve_param_residency(self, n_workers: int | None = None) -> str:
+        """``--param_residency`` resolved: ``resident`` | ``replicated``
+        (JAX ``resolve_param_residency``): resident needs the sharded
+        engine, its sharded apply, weights aggregation with the equal
+        blend (the between-round params are then one consensus, which the
+        scatter leaves 1/N per worker) and no staleness; ``auto`` picks it
+        exactly then, and an explicit ``resident`` resolves to replicated
+        otherwise.  ``n_workers`` applies the JAX engine's demotion of a
+        one-worker axis (nothing to shard, ``train.py:612-620``)."""
+        if self.sync_staleness > 0:
+            return "replicated"
+        if self.resolve_sync_mode() != "sharded":
+            return "replicated"
+        if self.resolve_opt_placement() != "sharded":
+            return "replicated"
+        if self.aggregation_by != "weights":
+            return "replicated"
+        if self.aggregation_type != "equal":
+            return "replicated"
+        if self.param_residency == "replicated":
+            return "replicated"
+        if n_workers is not None and n_workers < 2:
+            return "replicated"
+        return "resident"
 
-    def resolve_shard_redundancy(self) -> str:
-        """``off`` on every run: nothing is shard-resident here except the
-        sharded round optimizer's rows, whose buddy hop (JAX resolves it
-        on under ``auto``) arrives with the elastic slice (ROADMAP A.11
-        item 2); the hop moves data only, so the sync's outputs are the
-        same without it."""
-        return "off"
+    def round_opt_on(self) -> bool:
+        """Whether the round optimizer's moments are armed (JAX
+        ``train.py:576-580``): gradients mode under the sharded engine."""
+        return (self.aggregation_by == "gradients"
+                and self.resolve_sync_mode() == "sharded"
+                and self.resolve_opt_placement() in ("replicated",
+                                                     "sharded"))
+
+    def resolve_shard_redundancy(self, n_workers: int) -> str:
+        """``--shard_redundancy`` resolved for ``n_workers``: ``buddy`` |
+        ``off`` (the JAX engine's rule, ``train.py:631-652``): the hop
+        protects state no other worker holds, the scatter-resident params
+        rows or the sharded round optimizer's rows, so ``auto`` (and an
+        explicit ``buddy``) is on exactly when either resolves, on two or
+        more workers; ``off`` turns it off."""
+        if self.shard_redundancy == "off" or n_workers < 2:
+            return "off"
+        resident = self.resolve_param_residency(n_workers) == "resident"
+        sharded_opt = (self.round_opt_on()
+                       and self.resolve_opt_placement() == "sharded")
+        return "buddy" if resident or sharded_opt else "off"
 
     def sync_wire_dtype(self):
         """The compressed wire's torch dtype (None: the fp32 wire)."""
@@ -899,20 +999,51 @@ def build_argparser() -> argparse.ArgumentParser:
                         "synchronous; weights aggregation only)")
     p.add_argument("--param_residency", default=d.param_residency,
                    choices=["auto", "replicated", "resident"],
-                   help="auto and replicated keep the full parameters on "
-                        "every worker; resident is not ported yet (the "
-                        "elastic slice)")
+                   help="where the consensus parameters live between "
+                        "rounds: resident = each worker keeps its 1/N "
+                        "scatter shard and the next round's entry gathers "
+                        "it; auto = resident under the sharded engine with "
+                        "weights x equal aggregation and no staleness")
     p.add_argument("--shard_redundancy", default=d.shard_redundancy,
                    choices=["auto", "buddy", "off"],
-                   help="auto and off resolve to off; buddy is not ported "
-                        "yet (the elastic slice)")
+                   help="buddy = every worker also sends its shard-resident "
+                        "rows to its ring successor, so a crashed worker's "
+                        "span is rebuilt from memory; auto = buddy whenever "
+                        "something is shard-resident")
+    p.add_argument("--chaos", type=str, default=d.chaos,
+                   help="fault-injection plan: comma-separated "
+                        "kind@round[:wID][xF][+S][*K] events (kill/join/"
+                        "slow/stall/crash/nan) or 'random' (seeded "
+                        "schedule); membership changes apply at round "
+                        "boundaries by regrouping the worker processes, "
+                        "crashes mid-round by the rollback recovery")
+    p.add_argument("--chaos_seed", type=int, default=d.chaos_seed,
+                   help="seed for --chaos random's up-front event draw")
+    p.add_argument("--chaos_events", type=int, default=d.chaos_events,
+                   help="event count for --chaos random")
+    p.add_argument("--chaos_kinds", type=str, default=d.chaos_kinds,
+                   help="event kinds --chaos random may draw (csv; "
+                        "crash/nan are opt-in — the default keeps the "
+                        "cooperative kill/join/slow/stall faults)")
+    p.add_argument("--chaos_grace", type=float, default=d.chaos_grace,
+                   help="seconds past --time_limit before a round wall "
+                        "counts as a straggler overrun")
+    p.add_argument("--chaos_retries", type=int, default=d.chaos_retries,
+                   help="consecutive straggler overruns (or quarantined "
+                        "sync contributions) tolerated before the worker "
+                        "is treated as departed")
+    p.add_argument("--chaos_backoff", type=float, default=d.chaos_backoff,
+                   help="per-retry grace extension factor: attempt k's "
+                        "deadline is time_limit + grace*(1 + backoff*k)")
+    p.add_argument("--elastic_min_workers", type=int,
+                   default=d.elastic_min_workers,
+                   help="quorum floor: membership events that would drop "
+                        "below this many live workers are rejected")
     # JAX's persistent XLA compile cache: a documented no-op here
     p.add_argument("--compile_cache_dir", type=str, default=None,
                    help="[compat no-op] the JAX package's XLA compile "
                         "cache; the port compiles nothing ahead of time")
     for name, (default, _where) in NOT_PORTED.items():
-        if name in ("param_residency", "shard_redundancy"):
-            continue
         help_ = "not ported yet (rejected unless default)"
         if name == "overlap_rounds":
             p.add_argument("--no_overlap_rounds", action="store_true",

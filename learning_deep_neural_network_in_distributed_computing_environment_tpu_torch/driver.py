@@ -34,8 +34,19 @@ after the loop, and ``results["sim"]`` / ``results["sync_engine"]``.
 With ``--checkpoint_dir`` every rank saves its worker row every
 ``--checkpoint_every`` rounds through ``checkpoint.CheckpointEngine`` (the
 JAX package's format), and ``--resume`` restores the newest committed
-epoch and runs only the rounds after it (JAX ``driver.py:799-862``,
-without the chaos and elastic branches).
+epoch and runs only the rounds after it (JAX ``driver.py:799-862``).
+
+With ``--chaos`` the group is elastic (JAX ``driver.py:299-440,
+1246-1600``): a schedule of kill/join/slow/stall/crash/nan faults keyed by
+round (``chaos.py``), the straggler policy on the (perturbed) walls,
+membership boundaries that regroup the processes through a snapshot
+(``elastic.py``; ranks are roster positions, so the calling process stays
+rank 0), the crash rollback that voids a round, rebuilds the crashed
+positions' shard-resident rows from their buddies (or the newest
+committed checkpoint) and re-runs it on the survivors, and the quarantine
+of poisoned sync contributions with escalation to a departure.  The
+per-worker metric lists are keyed by logical worker id, and
+``results["elastic"]`` carries JAX's keys plus the roster of every round.
 
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
@@ -47,9 +58,12 @@ every rank's final parameter checksum.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import hashlib
 import logging
 import os
+import shutil
 import sys
 import time
 from typing import Any, Callable
@@ -57,8 +71,10 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from . import chaos as chaos_lib
 from . import checkpoint as ckpt_lib
 from . import comms, mesh
+from . import elastic as elastic_lib
 from . import probe as probe_lib
 from . import weights
 from .config import Config
@@ -200,13 +216,14 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     return model.to(memory_format=torch.channels_last)
 
 
-def checkpoint_metadata(cfg: Config, num_classes: int, model) -> dict:
+def checkpoint_metadata(cfg: Config, num_classes: int, model,
+                        param_residency: str | None = None) -> dict:
     """The architecture facts MANIFEST.json carries, with the JAX driver's
     keys (``driver.py:128-187``), so ``main serve`` rebuilds the model from
     a checkpoint alone: one stacked layer collection for the transformers
     (``scan_layers``), no slices, the resolved optimizer placement and
-    parameter residency (replicated: the resident layout is not ported)
-    and the bucket size the round optimizer's rows follow;
+    parameter residency (the engine's) and the bucket size the round
+    optimizer's and the resident layout's rows follow;
     ``params_leaves`` lists every ``.params`` leaf as [path, per-worker
     shape, dtype]."""
     return {"model": cfg.model, "num_classes": int(num_classes),
@@ -217,28 +234,59 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model) -> dict:
             "capacity_factor": float(cfg.expert_capacity_factor),
             "dataset": cfg.dataset,
             "opt_placement": cfg.resolve_opt_placement(),
-            "param_residency": cfg.resolve_param_residency(),
+            "param_residency": (param_residency
+                                or cfg.resolve_param_residency()),
             "sync_bucket_mb": float(cfg.sync_bucket_mb),
             "num_slices": 1,
             "params_leaves": weights.params_leaves(model)}
 
 
 def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
-                      state, group):
+                      state, group, *, schedule=None,
+                      from_snapshot: bool = False, n: int = 1):
     """The run's checkpoint engine (None without --checkpoint_dir) and,
     under --resume, the state restored from the newest committed epoch
-    with the epoch to start at."""
+    with the epoch to start at (JAX ``driver.py:799-862``, with its
+    refusals of a resume across earlier membership events)."""
     if not cfg.checkpoint_dir:
         return None, state, 0
     ckpt = ckpt_lib.CheckpointEngine(
         cfg.checkpoint_dir, keep=cfg.ckpt_keep, async_write=cfg.ckpt_async,
-        metadata=checkpoint_metadata(cfg, num_classes, model), group=group)
+        metadata=checkpoint_metadata(cfg, num_classes, model,
+                                     engine.param_residency), group=group)
+    if cfg.resume and from_snapshot:
+        raise ValueError(
+            "--resume and elastic_snapshot are mutually exclusive: a "
+            "membership snapshot already fixes the starting state")
     latest = ckpt.latest_checkpoint() if cfg.resume else None
     if not latest:
         return ckpt, state, 0
+    if schedule is not None:
+        resume_epoch = int(os.path.basename(latest).removesuffix(".msgpack")
+                           .rsplit("_", 1)[1])
+        past = [e.describe() for e in schedule.events
+                if e.kind in ("kill", "join", "crash")
+                and e.round < resume_epoch]
+        if past:
+            raise ValueError(
+                f"cannot resume at epoch {resume_epoch} across earlier "
+                f"membership events {past}: checkpoint resume replays "
+                "--chaos from the resume epoch, so membership events must "
+                "land at rounds >= it")
+        axis = (ckpt_lib.manifest_worker_axis(latest)
+                if os.path.isdir(latest) else None)
+        if axis is not None and axis != n:
+            raise ValueError(
+                f"cannot resume: checkpoint {latest} was written with "
+                f"{axis} worker(s) but this run starts with {n} — a "
+                "membership change (straggler departure or kill/join) "
+                "happened before it was saved; restart fresh or resume a "
+                "pre-change epoch")
     # raises, naming both, when the worker count differs from the saved one
     restored, start = ckpt_lib.restore_checkpoint(
-        latest, engine.checkpoint_state(state))
+        latest, engine.checkpoint_state(state),
+        params_template=engine.params_template,
+        bucket_bytes=engine.sync_bucket_bytes)
     state = engine.load_checkpoint_state(state, restored)
     log.info("resumed from %s at global epoch %d", latest, start)
     return ckpt, state, start
@@ -275,10 +323,35 @@ def chunk_feed(ds, parts, batch: int, rank: int, chunk: int, caps=None):
     return window_feed(ds.images, ds.labels, idxs[rank], batch, chunk, steps)
 
 
+def _snapshot_arg(elastic_snapshot, rank: int):
+    """``(snapshot, this rank's host row)`` of ``train_global``'s
+    ``elastic_snapshot`` argument: a directory ``elastic.save_snapshot``
+    wrote (what a spawned position gets), or a ``MembershipSnapshot``
+    with its worker-stacked host state."""
+    if elastic_snapshot is None:
+        return None, None
+    if isinstance(elastic_snapshot, str):
+        return elastic_lib.load_snapshot(elastic_snapshot, rank)
+    return (elastic_snapshot,
+            elastic_lib.host_row(elastic_snapshot.host_state, rank))
+
+
+def _host_row_of(ws) -> dict:
+    """A restored ``checkpoint.WorkerState`` (host arrays) as a host row
+    (``LocalSGDEngine.host_row``'s dict)."""
+    return {"params": ws.params or None, "buffers": ws.buffers,
+            "mu": ws.mu, "nu": ws.nu, "count": int(ws.count),
+            "lr_epoch": int(ws.lr_epoch), "rng": np.asarray(ws.rng),
+            "sync_residual": ws.residual, "round_opt": ws.round_opt,
+            "params_resident": ws.params_resident, "buddy": None}
+
+
 def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                  simulated_round_durations: Callable | None = None,
-                 group: mesh.Group | None = None, progress: bool = True
-                 ) -> dict[str, Any]:
+                 group: mesh.Group | None = None, progress: bool = True,
+                 membership: mesh.Membership | None = None,
+                 elastic_snapshot=None, initial_state_dict=None,
+                 round_checksums: bool = False) -> dict[str, Any]:
     """Run the experiment as worker ``group.rank`` of ``group`` (the one
     worker when None); returns the reference's metric structures.
 
@@ -287,8 +360,19 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     measuring (tests, heterogeneity experiments).
     ``simulated_round_durations``: callable ``epoch -> [N] seconds`` used
     instead of the measured round walls (not divided by ``epochs_local``),
-    as in the JAX driver (tests of the straggler feedback).
-    ``progress``: the report lines and the "Global Epochs" bar (rank 0)."""
+    as in the JAX driver (tests of the straggler feedback); under
+    elastic membership a vector indexed by logical worker id also works.
+    ``progress``: the report lines and the "Global Epochs" bar (rank 0).
+    ``membership``: the rank's ``mesh.Membership`` (``train_rank``'s), which
+    an elastic run regroups at its boundaries; ``group`` is then its
+    group.  ``elastic_snapshot``: a ``MembershipSnapshot`` (or the
+    directory ``elastic.save_snapshot`` wrote) to start from: the fresh
+    twin of an in-run membership transition, through the same install.
+    ``initial_state_dict``: the module's starting ``state_dict`` (host
+    arrays or tensors) in place of the seeded init (tests holding the port
+    against the JAX driver).  ``round_checksums``: after every round,
+    every rank's checksum of the parameters it holds for the next one
+    (``results["round_checksums"]``; a resident run gathers for it)."""
     if (cfg.serve_prefix_cache or cfg.serve_prefill_chunk
             or cfg.serve_draft_ckpt or cfg.serve_spec_tokens):
         # behaviour switches of the serving fast path: a training run
@@ -299,6 +383,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
+    if membership is not None:
+        group = membership.group
     sim = cfg.sim_workers > 0
     if sim and group is not None:
         raise ValueError(
@@ -309,9 +395,53 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         raise ValueError(
             f"--num_workers {cfg.num_workers}: train_global runs one rank; "
             "N workers run through main.run (or driver.train_rank per rank)")
+    rank = 0 if group is None else group.rank
+    # --- elastic membership + chaos (JAX driver.py:299-440) ------------
+    schedule = chaos_lib.ChaosSchedule.from_config(cfg)
+    snap, snap_row = _snapshot_arg(elastic_snapshot, rank)
+    if snap is not None and schedule is not None:
+        # the snapshot IS the post-event state: membership events at
+        # rounds <= its epoch are baked into its roster
+        schedule = chaos_lib.ChaosSchedule(
+            [e for e in schedule.events
+             if e.kind not in ("kill", "join", "crash")
+             or e.round > snap.epoch])
+    crash_armed = schedule is not None and schedule.has_kind("crash")
+    nan_armed = schedule is not None and schedule.has_kind("nan")
+    policy = (chaos_lib.StragglerPolicy(
+        cfg.time_limit, cfg.chaos_grace, cfg.chaos_retries,
+        cfg.chaos_backoff) if schedule is not None else None)
+    elastic_on = schedule is not None or snap is not None
+    if elastic_on and membership is None:
+        raise ValueError(
+            "elastic membership (--chaos, elastic_snapshot) regroups the "
+            "worker processes: run it through main.run or "
+            "driver.run_group, which give every rank its membership")
     n = (cfg.sim_workers if sim
          else 1 if group is None else group.world_size)
-    rank = 0 if group is None else group.rank
+    if snap is not None and snap.n_workers != n:
+        raise ValueError(
+            f"the membership snapshot holds {snap.n_workers} worker(s) but "
+            f"this group has {n}")
+    worker_ids = list(snap.worker_ids) if snap is not None else list(range(n))
+    n_round0 = snap.n_round0 if snap is not None and snap.n_round0 else n
+    if schedule is not None:
+        schedule.pin_wall_targets(range(n_round0))
+    # the capacity ceiling of a process group: none (a joiner is a new
+    # process; on one card every process shares it)
+    plan = elastic_lib.MembershipPlan(
+        n, min_workers=cfg.elastic_min_workers, worker_ids=worker_ids,
+        next_id=snap.next_worker_id if snap is not None else None)
+    n_start = n
+    pending_departs: list = []
+    quarantine_strikes: dict[int, int] = {}
+    el: dict[str, Any] = {"enabled": elastic_on, "events": [],
+                          "rejected": [], "sync_retries": [],
+                          "reshard_ms": [], "rounds_degraded": 0,
+                          "snapshots": [], "crashes": 0, "recoveries": 0,
+                          "recovery_source": [], "recovery_ms": [],
+                          "quarantined_rounds": 0, "rosters": [],
+                          "boundary_ms": []}
     device = resolve_device(cfg.device) if group is None else group.device
     progress = progress and rank == 0
     rng = np.random.default_rng(cfg.seed)
@@ -323,36 +453,16 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     else:
         trainset, valset, test = datasets
     batch = cfg.batch_size
-    model = build_model_for(cfg, trainset.num_classes, device,
+    num_classes = trainset.num_classes
+    model = build_model_for(cfg, num_classes, device,
                             trainset.images.shape[1:])
-    engine = (SimEngine(model, cfg, device) if sim
-              else LocalSGDEngine(model, cfg, device, group))
-    state = engine.init_state()
-    if group is not None:
-        # one init on every rank: the same seed gives the same init on one
-        # device type; the JAX engine tiles one init (train.py:1187-1227)
-        _check_same(group, "the initial parameters",
-                    comms.checksum(engine.params))
-    ckpt, state, start_epoch = _open_checkpoints(
-        cfg, model, trainset.num_classes, engine, state, group)
-
-    # --- probe -> ratios -> initial partition ---------------------------
-    sample = to_device(trainset.images[:batch], device)
-    durations, sec_per_batch = probe_lib.estimate_epoch_duration(
-        model, sample, n, cfg.probe_batches, simulated_durations, group)
-    ratios = efficiency_ratios(durations, cfg.proportionality)
-    log.info("probe durations %s -> ratios %s", durations, ratios)
-    disbalanced = cfg.data_mode == "disbalanced"
-    fixed_classes = ([fixed_classes_for_rank(r, trainset.num_classes)
-                      for r in range(n)] if disbalanced else None)
-    train_parts, val_parts = (
-        adaptive_partition(len(ds), ratios, labels=ds.labels,
-                           fixed_classes=fixed_classes,
-                           fixed_ratio=cfg.fixed_ratio, rng=rng)
-        for ds in (trainset, valset))
-
+    if initial_state_dict is not None:
+        with torch.no_grad():
+            for name, t in model.state_dict().items():
+                t.copy_(torch.from_numpy(np.array(initial_state_dict[name])))
     results: dict[str, Any] = {
-        "all_workers_losses": [[] for _ in range(n)],
+        # keyed by LOGICAL worker id (JAX driver.py:80-82)
+        "all_workers_losses": [[] for _ in range(max(worker_ids) + 1)],
         **{k: [] for k in (
             "all_epochs_losses", "global_epoch_losses",
             "global_epoch_accuracies", "global_train_losses",
@@ -362,8 +472,74 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "worker_specific_val_accuracies", "step_caps", "shard_sizes",
             "round_timings")},
     }
-    if group is not None:
-        results["initial_train_shards"] = [p.copy() for p in train_parts]
+    engine = state = ckpt = None
+    sec_per_batch = train_parts = val_parts = fixed_classes = None
+    disbalanced = cfg.data_mode == "disbalanced"
+
+    def new_engine(grp):
+        return (SimEngine(model, cfg, device) if sim
+                else LocalSGDEngine(model, cfg, device, grp,
+                                    nan_screen=nan_armed))
+
+    def install(snapshot, row, grp) -> None:
+        """Adopt a membership snapshot (JAX ``install_from_snapshot``):
+        a fresh engine on ``grp`` (the new group: the sync's buckets and
+        the gossip ring follow its size), this position's row restaged,
+        and the snapshot's roster, EMA, partitions and partition stream.
+        A fresh run from a snapshot calls this at setup, the continued run
+        at the boundary: the same staging."""
+        nonlocal engine, state, group, n, worker_ids, sec_per_batch, \
+            train_parts, val_parts, fixed_classes
+        group = grp
+        engine = new_engine(grp)
+        state = engine.stage_state(row)
+        n = snapshot.n_workers
+        worker_ids = list(snapshot.worker_ids)
+        sec_per_batch = np.asarray(snapshot.sec_per_batch, np.float64).copy()
+        train_parts = [np.asarray(p).copy() for p in snapshot.train_parts]
+        val_parts = [np.asarray(p).copy() for p in snapshot.val_parts]
+        fixed_classes = copy.deepcopy(snapshot.fixed_classes)
+        rng.bit_generator.state = copy.deepcopy(snapshot.rng_state)
+        for wid in worker_ids:   # joiners get lists of their own
+            while len(results["all_workers_losses"]) <= wid:
+                results["all_workers_losses"].append([])
+        # every position holds its row before the first round
+        mesh.all_gather(group, None)
+
+    if snap is None:
+        engine = new_engine(group)
+        state = engine.init_state()
+        if group is not None:
+            # one init on every rank: the same seed gives the same init on
+            # one device type; the JAX engine tiles one init
+            _check_same(group, "the initial parameters",
+                        comms.checksum(engine.params))
+    else:
+        install(snap, snap_row, group)
+        log.info("continuing from membership snapshot: round %d, workers "
+                 "%s", snap.epoch, worker_ids)
+    ckpt, state, start_epoch = _open_checkpoints(
+        cfg, model, num_classes, engine, state, group, schedule=schedule,
+        from_snapshot=snap is not None, n=n)
+
+    if snap is None:
+        # --- probe -> ratios -> initial partition -----------------------
+        sample = to_device(trainset.images[:batch], device)
+        durations, sec_per_batch = probe_lib.estimate_epoch_duration(
+            model, sample, n, cfg.probe_batches, simulated_durations, group)
+        ratios = efficiency_ratios(durations, cfg.proportionality)
+        log.info("probe durations %s -> ratios %s", durations, ratios)
+        fixed_classes = ([fixed_classes_for_rank(r, num_classes)
+                          for r in range(n)] if disbalanced else None)
+        train_parts, val_parts = (
+            adaptive_partition(len(ds), ratios, labels=ds.labels,
+                               fixed_classes=fixed_classes,
+                               fixed_ratio=cfg.fixed_ratio, rng=rng)
+            for ds in (trainset, valset))
+        if group is not None:
+            results["initial_train_shards"] = [p.copy() for p in train_parts]
+    else:
+        start_epoch = int(snap.epoch)
     epochs = range(start_epoch, cfg.epochs_global)
     pbar = None
     if progress:
@@ -375,7 +551,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         except ImportError:
             pass
     walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    if not sim:
+
+    def engine_summary() -> None:
         # the engine provenance of the run (JAX driver.py:925-951)
         results["sync_engine"] = {
             "mode": engine.sync_mode, "levels": cfg.resolve_sync_levels(),
@@ -383,49 +560,339 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "opt_placement": engine.opt_placement,
             "param_residency": engine.param_residency,
             "per_worker_state_bytes": engine.state_resident_bytes(state)}
+
+    def wire_bytes_of() -> tuple[int, int]:
+        sync_bytes = engine.sync_wire_bytes()
+        # the dense path's own wire model (a ring all-reduce sends
+        # 2(n-1)/n of the buffer); the fast engines send what they account
+        wire = (comms.wire_bytes(
+            sum(p.numel() for p in model.parameters()), cfg.topology, n)
+            if engine.sync_mode == "dense" else sync_bytes)
+        return sync_bytes, wire
+
+    if not sim:
+        engine_summary()
         log.info("round-sync engine: %s (topology=%s, wire=%s, "
                  "opt_placement=%s, param_residency=%s, shard_redundancy="
                  "%s, staleness=%d)", engine.sync_mode, cfg.topology,
                  cfg.sync_dtype, engine.opt_placement,
                  engine.param_residency, engine.shard_redundancy,
                  cfg.sync_staleness)
-        sync_bytes = engine.sync_wire_bytes()
-        # the dense path's own wire model (a ring all-reduce sends
-        # 2(n-1)/n of the buffer); the fast engines send what they account
-        wire_bytes = (comms.wire_bytes(
-            sum(p.numel() for p in model.parameters()), cfg.topology, n)
-            if engine.sync_mode == "dense" else sync_bytes)
+        sync_bytes, wire_bytes = wire_bytes_of()
+
+    def consume_walls(upto: int) -> None:
+        """Blend the recorded walls of rounds < ``upto`` into the EMA (one
+        round late, as the JAX driver's pipeline does)."""
+        nonlocal sec_per_batch
+        for r in sorted(k for k in walls if k < upto):
+            wall_r, steps_r = walls.pop(r)
+            sec_per_batch = (0.5 * sec_per_batch
+                             + 0.5 * wall_r / np.maximum(steps_r, 1.0))
+
+    def transition(rnd: int, change, row: dict, lost=None):
+        """Move the group to ``change``'s roster (module docstring of
+        ``elastic.py``); returns the recovery source of a crash (None
+        otherwise) and whether this rank retired."""
+        work = membership.boundary_dir()
+        elastic_lib.write_row(os.path.join(work, f"old{rank}.pkl"), row)
+        mesh.all_gather(group, None)
+        status: tuple = ("ok", None, 0.0)
+        if rank == 0:
+            try:
+                t0 = time.perf_counter()
+                host = elastic_lib.stack_rows(
+                    [elastic_lib.read_row(os.path.join(work, f"old{p}.pkl"))
+                     for p in range(n)])
+                source = None
+                if lost is not None:
+                    host, source = recover_rows(host, lost, rnd)
+                opt_pl = (engine.opt_placement if engine.round_opt_on
+                          else None)
+                new = elastic_lib.build_snapshot(
+                    epoch=rnd, change=change, old_state=host,
+                    sec_per_batch=sec_per_batch, seed=cfg.seed,
+                    num_classes=num_classes, trainset_len=len(trainset),
+                    valset_len=len(valset),
+                    proportionality=cfg.proportionality,
+                    data_mode=cfg.data_mode, fixed_ratio=cfg.fixed_ratio,
+                    rng=rng, trainset_labels=trainset.labels,
+                    valset_labels=valset.labels, next_worker_id=plan.next_id,
+                    n_round0=n_round0, round_opt_placement=opt_pl,
+                    sync_bucket_bytes=engine.sync_bucket_bytes,
+                    params_template=engine.params_template)
+                elastic_lib.save_snapshot(new, os.path.join(work, "new"))
+                el["snapshots"].append(elastic_lib.snapshot_copy(new))
+                status = ("ok", source, (time.perf_counter() - t0) * 1e3)
+            except Exception as err:   # every rank raises it below
+                log.exception("elastic: round %d transition failed", rnd)
+                status = ("error", f"{type(err).__name__}: {err}", 0.0)
+        status = mesh.all_gather(group, status)[0]
+        if status[0] != "ok":
+            raise RuntimeError(
+                f"the round-{rnd} membership transition failed on rank 0: "
+                f"{status[1]}")
+        new_group = membership.regroup(len(change.worker_ids),
+                                       os.path.join(work, "new"))
+        if new_group is None:
+            return status[1], True
+        new_snap, new_row = elastic_lib.load_snapshot(
+            os.path.join(work, "new"), rank)
+        install(new_snap, new_row, new_group)
+        if ckpt is not None:
+            ckpt.rebind(new_group)
+        if rank == 0:
+            shutil.rmtree(work, ignore_errors=True)
+        el["boundary_ms"].append(round(status[2], 3))
+        return status[1], False
+
+    def recover_rows(host, lost: list[int], rnd: int):
+        """Rank 0: the crashed positions' rows from their buddies, or the
+        newest committed checkpoint's rows (JAX ``recover_from_crash``'s
+        ladder)."""
+        uniquely_held = (engine.resident_on
+                         or (engine.round_opt_on
+                             and engine.opt_placement == "sharded"))
+        try:
+            host = elastic_lib.restore_crashed_rows(
+                host, lost, params_template=engine.params_template,
+                sync_bucket_bytes=engine.sync_bucket_bytes,
+                round_opt_placement=(engine.opt_placement
+                                     if engine.round_opt_on else None))
+            return host, "buddy" if uniquely_held else "snapshot"
+        except ValueError as e:
+            log.warning("elastic: in-memory buddy recovery unavailable (%s)"
+                        " — degrading to the newest committed checkpoint",
+                        e)
+            if ckpt is None:
+                raise RuntimeError(
+                    f"crash at round {rnd} is unrecoverable: {e}; no "
+                    "--checkpoint_dir is configured to degrade to") from e
+            latest = ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
+            if latest is None:
+                raise RuntimeError(
+                    f"crash at round {rnd} is unrecoverable: {e}; no "
+                    "committed checkpoint exists yet") from e
+            template = engine.checkpoint_state(state)
+            rows, ck_epoch = [], 0
+            for w in range(n):
+                ws, ck_epoch = ckpt_lib.restore_checkpoint(
+                    latest, dataclasses.replace(template, worker=w),
+                    params_template=engine.params_template,
+                    bucket_bytes=engine.sync_bucket_bytes)
+                rows.append(_host_row_of(ws))
+            if ck_epoch < rnd:
+                log.warning(
+                    "elastic: checkpoint fallback rewound %d round(s) "
+                    "(checkpoint epoch %d < crash round %d)", rnd - ck_epoch,
+                    ck_epoch, rnd)
+            return elastic_lib.stack_rows(rows), "checkpoint"
+
+    def membership_boundary(rnd: int) -> bool:
+        """The boundary entering ``rnd`` (JAX ``membership_boundary``):
+        scripted kill/join events plus last round's departures; on a
+        change, the transition.  Returns whether this rank retired."""
+        events = list(pending_departs)
+        if schedule is not None:
+            events += schedule.membership_events(rnd)
+        if not events:
+            return False
+        change = plan.apply(events, resolve=(schedule.resolve_target
+                                             if schedule is not None
+                                             else None))
+        pending_departs.clear()
+        if change.rejected:
+            el["rejected"].extend(change.rejected)
+            for r in change.rejected:
+                log.warning("elastic: membership event rejected: %s", r)
+        if not change.changed:
+            return False
+        t0 = time.perf_counter()
+        consume_walls(rnd)
+        walls.clear()
+        if policy is not None:
+            policy.reset()
+        if ckpt is not None:
+            ckpt.wait()
+        _source, retired = transition(rnd, change, engine.host_row(state))
+        el["events"].extend(change.applied)
+        reshard_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        el["reshard_ms"].append(reshard_ms)
+        log.info("elastic: round %d boundary applied %s -> %d worker(s) %s;"
+                 " reshard stall %.1f ms", rnd, change.applied,
+                 len(change.worker_ids), change.worker_ids, reshard_ms)
+        return retired
+
+    def recover_from_crash(rnd: int, crashed: list[int], row: dict) -> bool:
+        """Round ``rnd`` is void (JAX ``recover_from_crash``): roll back to
+        the boundary rows, rebuild the crashed positions' shard-resident
+        rows, remove the workers through the same plan -> snapshot ->
+        install path, and let the caller re-run the round.  Returns
+        whether this rank retired."""
+        t0 = time.perf_counter()
+        el["crashes"] += len(crashed)
+        log.warning("elastic: worker(s) %s missed the round-%d fence "
+                    "(CRASHED mid-round) — rolling back to the round "
+                    "boundary", crashed, rnd)
+        consume_walls(rnd)
+        walls.clear()
+        if policy is not None:
+            policy.reset()
+        pending_departs.clear()
+        quarantine_strikes.clear()
+        positions = [worker_ids.index(c) for c in crashed]
+        change = plan.apply([chaos_lib.ChaosEvent(kind="crash", round=rnd,
+                                                  worker=int(c))
+                             for c in crashed])
+        if change.rejected or not change.applied:
+            el["rejected"].extend(change.rejected)
+            raise RuntimeError(
+                f"crash of worker(s) {crashed} cannot be applied to the "
+                f"membership {worker_ids} (quorum floor "
+                f"{cfg.elastic_min_workers}): {change.rejected} — a "
+                "crashed worker is gone regardless, so the run cannot "
+                "continue")
+        if ckpt is not None:
+            ckpt.wait()
+        source, retired = transition(rnd, change, row, lost=positions)
+        el["events"].extend(change.applied)
+        el["recoveries"] += 1
+        el["recovery_source"].append(source)
+        recovery_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        el["recovery_ms"].append(recovery_ms)
+        log.info("elastic: round %d crash recovery via %s -> %d worker(s) "
+                 "%s; stall %.1f ms (the round re-runs)", rnd, source,
+                 len(change.worker_ids), change.worker_ids, recovery_ms)
+        return retired
+
+    def process_quarantine(rnd: int, okv) -> None:
+        """Per-worker sync validity -> quarantine strikes (JAX
+        ``process_quarantine``): more than ``--chaos_retries`` consecutive
+        strikes depart the worker at the next boundary."""
+        for pos, wid in enumerate(worker_ids):
+            if okv[pos] > 0:
+                quarantine_strikes.pop(wid, None)
+                continue
+            k = quarantine_strikes.get(wid, 0) + 1
+            quarantine_strikes[wid] = k
+            el["quarantined_rounds"] += 1
+            log.warning("elastic: worker %d's round-%d sync contribution "
+                        "was quarantined (poisoned/non-finite) — blend "
+                        "renormalized over the survivors; strike %d "
+                        "(budget %d)", wid, rnd, k, cfg.chaos_retries)
+            if k > cfg.chaos_retries:
+                quarantine_strikes.pop(wid, None)
+                log.warning("elastic: worker %d exhausted the quarantine "
+                            "strike budget — departing at the next round "
+                            "boundary", wid)
+                pending_departs.append(chaos_lib.ChaosEvent(
+                    kind="depart", round=rnd + 1, worker=int(wid)))
+
+    def round_walls(epoch: int, mx) -> np.ndarray:
+        if simulated_round_durations is None:
+            worker_walls = measured_worker_walls(mx["workers_wall_s"],
+                                                 cfg.epochs_local)
+        else:
+            worker_walls = np.asarray(simulated_round_durations(epoch),
+                                      np.float64)
+            if worker_walls.shape != (n,):
+                # elastic runs: a vector indexed by logical id also works
+                # (JAX driver.py:1214-1228)
+                if (elastic_on and worker_walls.ndim == 1
+                        and len(worker_walls) > max(worker_ids)):
+                    worker_walls = worker_walls[worker_ids]
+                else:
+                    raise ValueError(
+                        f"simulated_round_durations({epoch}) returned shape "
+                        f"{worker_walls.shape}; the run has {n} workers")
+        if schedule is not None:
+            worker_walls = schedule.perturb_walls(epoch, worker_ids,
+                                                  worker_walls)
+        return worker_walls
+
+    retired = False
     try:
         for epoch in epochs:
-            # straggler protocol: per-worker step cap from the sec/batch EMA
-            # and the time_limit budget
-            caps = [budget_from_time_limit(int(np.ceil(len(p) / batch)),
-                                           float(sec_per_batch[i]),
-                                           cfg.time_limit)
-                    for i, p in enumerate(train_parts)]
-            steps_run = np.array([min(int(np.ceil(len(p) / batch)), caps[i])
-                                  for i, p in enumerate(train_parts)],
-                                 np.float64)
-            if group is not None:
-                _check_same(group, f"round {epoch}'s partition",
-                            _partition_digest(train_parts, val_parts, caps))
-            if cfg.stream_chunk_steps > 0:
-                # the windows are packed inside the round, by its stager
-                chunk = cfg.stream_chunk_steps
-                run_round = engine.round_streamed
-                inputs = (chunk_feed(trainset, train_parts, batch, rank,
-                                     chunk, caps),
-                          chunk_feed(valset, val_parts, batch, rank, chunk))
-            else:
-                run_round = engine.round
-                inputs = ((_pack_all(trainset, train_parts, batch, caps),
-                           _pack_all(valset, val_parts, batch)) if sim else
-                          (_pack(trainset, train_parts, batch, rank, caps),
-                           _pack(valset, val_parts, batch, rank)))
-            t0 = time.perf_counter()
-            state, mx = run_round(state, *inputs)
-            wall = time.perf_counter() - t0
-            _assemble_round_metrics(results, mx, n)
+            if elastic_on:
+                if membership_boundary(epoch):
+                    retired = True
+                    break
+                if n < n_start:
+                    el["rounds_degraded"] += 1
+            while True:
+                boundary_row = (engine.host_row(state) if crash_armed
+                                else None)
+                # straggler protocol: per-worker step cap from the
+                # sec/batch EMA and the time_limit budget
+                caps = [budget_from_time_limit(
+                    int(np.ceil(len(p) / batch)), float(sec_per_batch[i]),
+                    cfg.time_limit) for i, p in enumerate(train_parts)]
+                steps_run = np.array(
+                    [min(int(np.ceil(len(p) / batch)), caps[i])
+                     for i, p in enumerate(train_parts)], np.float64)
+                if group is not None:
+                    _check_same(group, f"round {epoch}'s partition",
+                                _partition_digest(train_parts, val_parts,
+                                                  caps))
+                if cfg.stream_chunk_steps > 0:
+                    # the windows are packed inside the round, by its stager
+                    chunk = cfg.stream_chunk_steps
+                    run_round = engine.round_streamed
+                    inputs = (chunk_feed(trainset, train_parts, batch, rank,
+                                         chunk, caps),
+                              chunk_feed(valset, val_parts, batch, rank,
+                                         chunk))
+                else:
+                    run_round = engine.round
+                    inputs = ((_pack_all(trainset, train_parts, batch, caps),
+                               _pack_all(valset, val_parts, batch)) if sim
+                              else (_pack(trainset, train_parts, batch, rank,
+                                          caps),
+                                    _pack(valset, val_parts, batch, rank)))
+                if nan_armed:
+                    engine.stage_poison(worker_ids[rank] in
+                                        schedule.nan_targets(epoch,
+                                                             worker_ids))
+                t0 = time.perf_counter()
+                state, mx = run_round(state, *inputs)
+                wall = time.perf_counter() - t0
+                worker_walls = round_walls(epoch, mx)
+                crashed: list[int] = []
+                if policy is not None:
+                    # overruns past the backoff-extended deadline are
+                    # logged retries, then a departure at the next
+                    # boundary; a non-finite wall is the CRASHED verdict:
+                    # the round is void
+                    departed, crashed, retries = policy.observe(
+                        worker_ids, worker_walls)
+                    if not crashed:
+                        el["sync_retries"].extend(retries)
+                        for r in retries:
+                            log.warning("elastic: straggler retry %s", r)
+                        for wid in departed:
+                            log.warning(
+                                "elastic: worker %d overran its straggler "
+                                "budget in round %d — departing at the next "
+                                "round boundary", wid, epoch)
+                            pending_departs.append(chaos_lib.ChaosEvent(
+                                kind="depart", round=epoch + 1,
+                                worker=int(wid)))
+                if not crashed:
+                    break
+                if boundary_row is None:
+                    raise RuntimeError(
+                        f"worker(s) {crashed} reported a non-finite "
+                        f"round-{epoch} wall but no crash fault is armed "
+                        "(--chaos has no crash events), so no rollback "
+                        "boundary rows exist — fix the wall injection or "
+                        "script the crash")
+                if recover_from_crash(epoch, crashed, boundary_row):
+                    retired = True
+                    break
+            if retired:
+                break
+            if elastic_on:
+                el["rosters"].append(list(worker_ids))
+            _assemble_round_metrics(results, mx, worker_ids)
             results["step_caps"].append(caps)
             results["shard_sizes"].append([len(p) for p in train_parts])
             timing = {
@@ -439,17 +906,30 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                     {k: mx[k] for k in mx if k.startswith("workers_")},
                     **engine.last_sync_stats)
             else:
+                if elastic_on:
+                    # the engine (and its wire) follows the roster
+                    sync_bytes, wire_bytes = wire_bytes_of()
                 # JAX's sync keys on every row (train.py:945-970): one flat
                 # level, every byte intra-slice
                 stats = engine.last_sync_stats
                 timing.update(
                     {k: mx[k] for k in mx if k.startswith("workers_")},
                     sync_bytes=sync_bytes, sync_wire_bytes=wire_bytes,
+                    sync_buddy_bytes=engine.buddy_wire_bytes(),
                     sync_mode=stats["sync_mode"], sync_ms=stats["sync_ms"],
                     sync_hidden_ms=stats["sync_hidden_ms"],
+                    gather_ms=stats.get("gather_ms", 0.0),
                     sync_bytes_ici=sync_bytes, sync_bytes_dcn=0,
                     sync_ms_ici=stats["sync_ms"], sync_ms_dcn=0.0)
+                if elastic_on:
+                    timing["worker_ids"] = list(worker_ids)
             results["round_timings"].append(timing)
+            if round_checksums and group is not None:
+                results.setdefault("round_checksums", []).append(
+                    mesh.all_gather(group, engine.params_checksum(state)))
+            if nan_armed and "sync_ok" in mx:
+                timing["sync_ok"] = [float(x) for x in mx["sync_ok"]]
+                process_quarantine(epoch, np.asarray(mx["sync_ok"]))
             if ckpt is not None:
                 if group is not None:
                     # publish the previous save's manifest now, in the
@@ -460,25 +940,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                     ckpt.save(engine.checkpoint_state(state), epoch + 1,
                               timing=timing)
             if progress:
-                _report(cfg, mx, epoch, wall, results, pbar)
-            if simulated_round_durations is not None:
-                worker_walls = np.asarray(simulated_round_durations(epoch),
-                                          np.float64)
-                if worker_walls.shape != (n,):
-                    raise ValueError(
-                        f"simulated_round_durations({epoch}) returned shape "
-                        f"{worker_walls.shape}; the run has {n} workers")
-            else:
-                worker_walls = measured_worker_walls(mx["workers_wall_s"],
-                                                     cfg.epochs_local)
+                _report(cfg, mx, epoch, wall, results, pbar, worker_ids)
             walls[epoch] = (worker_walls, steps_run)
             if epoch + 1 == cfg.epochs_global:
                 break
             # the EMA consumes walls one round late: rounds < epoch
-            for r in sorted(k for k in walls if k < epoch):
-                wall_r, steps_r = walls.pop(r)
-                sec_per_batch = (0.5 * sec_per_batch
-                                 + 0.5 * wall_r / np.maximum(steps_r, 1.0))
+            consume_walls(epoch)
             new_ratios = efficiency_ratios(
                 sec_per_batch * np.maximum(steps_run, 1.0),
                 cfg.proportionality)
@@ -501,16 +968,22 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # commit runs here, on every rank) and release the writer; while
         # unwinding: join the writer without the collective commit
         if ckpt is not None:
-            if sys.exc_info()[0] is None:
+            if sys.exc_info()[0] is None and not retired:
                 ckpt.close()
             else:
                 ckpt.abort()
     if pbar is not None:
         pbar.close()
+    if retired:
+        # this position left the roster: its process is done
+        return {"retired": True, "elastic": el}
     state = engine.drain_pending(state)
     if not sim:
+        # a resident run's module gets the consensus back (a collective)
+        state = engine.materialize_params(state)
         results["sync_engine"]["sync_bytes_ici"] = (
             sync_bytes if results["round_timings"] else 0)
+        results["sync_engine"]["param_residency"] = engine.param_residency
         results["sync_engine"]["per_worker_state_bytes"] = \
             engine.state_resident_bytes(state)
     results["async_rounds"] = async_rounds(
@@ -533,7 +1006,15 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     if group is not None:
         results["param_checksums"] = mesh.all_gather(
             group, comms.checksum(engine.params))
-
+    el["final_worker_ids"] = list(worker_ids)
+    results["elastic"] = el
+    if el["events"]:
+        log.info("elastic: %d membership event(s), %d rejected, %d "
+                 "straggler retries, reshard stalls %s ms, %d round(s) "
+                 "degraded, final membership %s", len(el["events"]),
+                 len(el["rejected"]), len(el["sync_retries"]),
+                 el["reshard_ms"], el["rounds_degraded"],
+                 el["final_worker_ids"])
     results["checkpoint"] = (ckpt.summary() if ckpt is not None
                              else {"enabled": False})
     results["state"] = state
@@ -565,14 +1046,85 @@ def async_rounds(cfg: Config, stale_log: list) -> dict:
 
 def train_rank(rank: int, world_size: int, store_path: str,
                timeout_s: float, cfg: Config,
-               train_kwargs: dict | None = None) -> dict[str, Any]:
+               train_kwargs: dict | None = None, spawn=None,
+               generation: int = 0, snapshot_dir: str | None = None
+               ) -> dict[str, Any]:
     """Run ``train_global(cfg, **train_kwargs)`` as rank ``rank`` of a
     ``world_size``-worker group that meets at the FileStore
-    ``store_path`` (``main.run``'s ranks; a spawn target)."""
+    ``store_path`` (generation ``generation`` of an elastic group; a spawn
+    target).  ``snapshot_dir``: the membership snapshot this position
+    starts from (a joiner's, or a fresh twin's).  ``spawn``: rank 0's
+    callback that starts the joiners of an elastic boundary
+    (``run_group``'s)."""
     device = mesh.worker_device(rank, cfg.device)
-    with mesh.init_group(rank, world_size, device, store_path,
-                         timeout_s) as group:
-        return train_global(cfg, group=group, **(train_kwargs or {}))
+    member = mesh.Membership(rank, world_size, device, store_path,
+                             timeout_s, spawn=spawn, generation=generation)
+    member.join()
+    try:
+        kw = dict(train_kwargs or {})
+        if snapshot_dir is not None:
+            kw["elastic_snapshot"] = snapshot_dir
+        return train_global(cfg, membership=member, **kw)
+    finally:
+        member.leave()
+
+
+def rank_entry(rank: int, world_size: int, cfg: Config, store_path: str,
+               timeout_s: float, train_kwargs: dict | None,
+               generation: int, snapshot_dir: str | None) -> None:
+    """A spawned rank of ``run_group`` (its results stay in the child)."""
+    train_rank(rank, world_size, store_path, timeout_s, cfg, train_kwargs,
+               generation=generation, snapshot_dir=snapshot_dir)
+
+
+def run_group(cfg: Config, n: int, *, train_kwargs: dict | None = None,
+              elastic_snapshot=None, timeout_s: float | None = None,
+              target: Callable = rank_entry) -> dict[str, Any]:
+    """Run ``train_global`` as an ``n``-process gloo group: ranks 1..n-1
+    spawned (``target``, a module-level function of the port taking
+    ``rank_entry``'s arguments), rank 0 in the caller with its share of
+    the threads; an elastic boundary spawns its joiners the same way.
+    ``elastic_snapshot``: a ``MembershipSnapshot`` (saved for the
+    children) or its directory: a fresh run from it on its roster.
+    Returns rank 0's results; raises, naming the exit codes, when a child
+    failed (a dead peer ends the others' collectives at the timeout)."""
+    timeout_s = mesh.GROUP_TIMEOUT_S if timeout_s is None else timeout_s
+    store = mesh.new_store_path()
+    snapshot_dir = None
+    if isinstance(elastic_snapshot, str):
+        snapshot_dir = elastic_snapshot
+    elif elastic_snapshot is not None:
+        snapshot_dir = os.path.join(os.path.dirname(store), "start")
+        elastic_lib.save_snapshot(elastic_snapshot, snapshot_dir)
+    if snapshot_dir is not None:
+        n = elastic_lib.load_snapshot(snapshot_dir)[0].n_workers
+    threads = torch.get_num_threads()
+    procs: list = []
+
+    def spawn(ranks, world: int, generation: int, snap_dir) -> None:
+        procs.extend(mesh.spawn_workers(
+            target, world, (cfg, store, timeout_s, train_kwargs, generation,
+                            snap_dir),
+            ranks=ranks, threads=max(1, threads // world)))
+
+    spawn(range(1, n), n, 0, snapshot_dir)
+    try:
+        torch.set_num_threads(mesh.rank_threads(n))
+        results = train_rank(0, n, store, timeout_s, cfg, train_kwargs,
+                             spawn=spawn, snapshot_dir=snapshot_dir)
+    except BaseException as err:
+        # a child that failed first is the likelier cause: name it
+        failed = mesh.stop_workers(procs, wait_s=5.0)
+        if failed:
+            raise RuntimeError(
+                f"worker process(es) failed, exit codes {failed}") from err
+        raise
+    else:
+        mesh.join_workers(procs, timeout_s)
+    finally:
+        torch.set_num_threads(threads)
+        mesh.remove_store(store)
+    return results
 
 
 def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
@@ -607,6 +1159,8 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
                 mxs.append(mx)
             in_rounds = len(engine.stale_log)
             state = engine.drain_pending(state)
+            # the resident layout's consensus back in the module
+            state = engine.materialize_params(state)
             torch.save({"mx": mxs[-1], "mxs": mxs,
                         "state_dict": model.state_dict(),
                         "opt_count": state.opt.count,
@@ -618,19 +1172,21 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
 
 
 def _report(cfg: Config, mx: dict, epoch: int, wall: float,
-            results: dict, pbar=None) -> None:
+            results: dict, pbar=None, worker_ids=None) -> None:
     """The reference's per-rank per-local-epoch report lines
-    (trainer.py:109-110) for every worker, through ``pbar.write`` under
-    the "Global Epochs" bar (its loss/accuracy/wall postfix then stands
-    for the summary line), else ``print`` and a global-epoch summary."""
+    (trainer.py:109-110) for every worker (by logical id), through
+    ``pbar.write`` under the "Global Epochs" bar (its loss/accuracy/wall
+    postfix then stands for the summary line), else ``print`` and a
+    global-epoch summary."""
     say = pbar.write if pbar is not None else print
     n, epochs_local = np.asarray(mx["train_loss"]).shape
-    for r in range(n):
+    wids = list(range(n)) if worker_ids is None else worker_ids
+    for r, wid in enumerate(wids):
         for e in range(epochs_local):
-            say(f"Rank {r}, Global Epoch {epoch + 1}, Local Epoch {e + 1}, "
+            say(f"Rank {wid}, Global Epoch {epoch + 1}, Local Epoch {e + 1}, "
                 f"Loss: {mx['train_loss'][r, e]}, "
                 f"Accuracy: {mx['train_acc'][r, e]}")
-            say(f"Worker {r}, Global Epoch {epoch + 1}, "
+            say(f"Worker {wid}, Global Epoch {epoch + 1}, "
                 f"Validation Loss: {mx['val_loss'][r, e]:.4f}, "
                 f"Validation Accuracy: {mx['val_acc'][r, e]:.2f}%")
     if pbar is not None:  # trainer.py:174 postfix

@@ -15,7 +15,10 @@ With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
 worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
 0 runs in the calling process and returns the results, evaluates and
 plots.  A child that fails makes the run raise (a dead peer ends the
-others' collectives at the group timeout, never in a hang).
+others' collectives at the group timeout, never in a hang).  Under
+``--chaos`` the group is elastic: each membership boundary re-forms it on
+the new roster (``elastic.py``), spawning joiners and retiring surplus
+ranks; the calling process stays rank 0.
 
 Examples::
 
@@ -42,10 +45,13 @@ import logging
 import sys
 
 
-def run(argv=None) -> dict:
+def run(argv=None, elastic_snapshot=None) -> dict:
     """Train, evaluate and plot; returns the driver's results with the test
     evaluation under ``results["test_eval"]``.  ``serve ...`` serves off a
-    checkpoint instead and returns ``serve.api.run_serve``'s result."""
+    checkpoint instead and returns ``serve.api.run_serve``'s result.
+    ``elastic_snapshot``: a ``MembershipSnapshot`` of an earlier run (its
+    ``results["elastic"]["snapshots"]``) to continue from, on its roster:
+    the fresh twin of that run's boundary."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         from .serve.api import serve_main
@@ -57,16 +63,20 @@ def run(argv=None) -> dict:
         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
 
     from . import mesh, viz
-    from .driver import train_global
+    from .driver import run_group, train_global
     from .eval import evaluate
 
     # --sim_workers: every simulated worker in this one process
     n = (1 if cfg.sim_workers
          else mesh.resolve_num_workers(cfg.num_workers, cfg.device))
-    if n == 1:
+    if elastic_snapshot is not None or (cfg.chaos and not cfg.sim_workers):
+        # elastic membership regroups processes: always a group
+        results = run_group(cfg, n, elastic_snapshot=elastic_snapshot,
+                            target=_worker)
+    elif n == 1:
         results = train_global(cfg)
     else:
-        results = _run_group(cfg, argv, n)
+        results = run_group(cfg, n, target=_worker)
     test = results["test"]
     loss, acc, _preds, _labels, metrics = evaluate(
         results["model"], results["variables"], test.images, test.labels,
@@ -77,46 +87,18 @@ def run(argv=None) -> dict:
     return results
 
 
-def _worker(rank: int, world_size: int, argv: list[str], store_path: str,
-            timeout_s: float) -> None:
-    """A spawned rank of ``main.run``: the same flags, its own worker."""
-    from .config import config_from_args
-    from .driver import train_rank
-    cfg = config_from_args(argv)
+def _worker(rank: int, world_size: int, cfg, store_path: str,
+            timeout_s: float, train_kwargs, generation: int,
+            snapshot_dir) -> None:
+    """A spawned rank of ``main.run``: the same config, its own worker
+    (``driver.rank_entry`` with the rank in its log lines)."""
+    from .driver import rank_entry
     logging.basicConfig(
         level=getattr(logging, cfg.log_level.upper(), logging.INFO),
         format=f"%(asctime)s rank {rank} %(name)s %(levelname)s: "
                "%(message)s")
-    train_rank(rank, world_size, store_path, timeout_s, cfg)
-
-
-def _run_group(cfg, argv: list[str], n: int) -> dict:
-    """Spawn ranks 1..n-1, run rank 0 here (with its share of the
-    threads), join the children; raise if any of them failed."""
-    import torch
-
-    from . import mesh
-    from .driver import train_rank
-    store = mesh.new_store_path()
-    timeout_s = mesh.GROUP_TIMEOUT_S
-    threads = torch.get_num_threads()
-    procs = mesh.spawn_workers(_worker, n, (argv, store, timeout_s))
-    try:
-        torch.set_num_threads(mesh.rank_threads(n))
-        results = train_rank(0, n, store, timeout_s, cfg)
-    except BaseException as err:
-        # a child that failed first is the likelier cause: name it
-        failed = mesh.stop_workers(procs, wait_s=5.0)
-        if failed:
-            raise RuntimeError(
-                f"worker process(es) failed, exit codes {failed}") from err
-        raise
-    else:
-        mesh.join_workers(procs, timeout_s)
-    finally:
-        torch.set_num_threads(threads)
-        mesh.remove_store(store)
-    return results
+    rank_entry(rank, world_size, cfg, store_path, timeout_s, train_kwargs,
+               generation, snapshot_dir)
 
 
 def main(argv=None) -> int:

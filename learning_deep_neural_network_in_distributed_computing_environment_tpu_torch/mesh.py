@@ -131,6 +131,74 @@ def init_group(rank: int, world_size: int, device: torch.device,
         dist.destroy_process_group()
 
 
+class Membership:
+    """One rank's view of an elastic worker group: the gloo group of the
+    current roster, re-formed at each membership boundary.  Ranks are
+    positions: after a boundary, position p of the new roster runs on rank
+    p of a new group, met at a FileStore of its own (generation g of the
+    base path), so the main process stays rank 0.  ``spawn`` (rank 0's)
+    starts joiner processes: ``spawn(ranks, world_size, generation,
+    snapshot_dir)``."""
+
+    def __init__(self, rank: int, world_size: int, device: torch.device,
+                 store_path: str, timeout_s: float = GROUP_TIMEOUT_S,
+                 spawn: Callable | None = None, generation: int = 0):
+        self.rank = rank
+        self.world_size = world_size
+        self.device = device
+        self.base = store_path
+        self.timeout_s = timeout_s
+        self.spawn = spawn
+        self.generation = generation
+        self.group: Group | None = None
+
+    def store(self, generation: int) -> str:
+        return (self.base if generation == 0
+                else f"{self.base}.g{generation}")
+
+    def boundary_dir(self) -> str:
+        """A directory shared by every rank for the current boundary's
+        rows and snapshot (beside the FileStore)."""
+        d = os.path.join(os.path.dirname(self.base),
+                         f"boundary-{self.generation}")
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    def join(self) -> Group:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(self.store(self.generation),
+                                         self.world_size),
+            rank=self.rank, world_size=self.world_size,
+            timeout=datetime.timedelta(seconds=self.timeout_s))
+        self.group = Group(self.rank, self.world_size, self.device)
+        return self.group
+
+    def leave(self) -> None:
+        if self.group is not None:
+            self.group = None
+            dist.destroy_process_group()
+
+    def regroup(self, world_size: int, snapshot_dir: str) -> Group | None:
+        """Leave the current group and join the next roster's (every rank
+        calls it at the same boundary).  Rank 0 spawns positions
+        ``old..world_size-1``; a rank past the new roster retires (None)."""
+        old = self.world_size
+        self.leave()
+        self.generation += 1
+        self.world_size = world_size
+        if self.rank == 0 and world_size > old:
+            if self.spawn is None:
+                raise RuntimeError(
+                    "a join needs rank 0's spawner (driver.run_group)")
+            self.spawn(range(old, world_size), world_size, self.generation,
+                       snapshot_dir)
+        if self.rank >= world_size:
+            return None
+        return self.join()
+
+
 def new_store_path() -> str:
     """A FileStore path in a fresh temporary directory; the caller removes
     the directory (``remove_store``) when every rank is done."""
@@ -156,13 +224,15 @@ def _bootstrap(target: Callable, rank: int, world_size: int, threads: int,
 
 
 def spawn_workers(target: Callable, world_size: int, args: tuple = (),
-                  ranks: Sequence[int] | None = None) -> list:
+                  ranks: Sequence[int] | None = None,
+                  threads: int | None = None) -> list:
     """Start ``target(rank, world_size, *args)`` in a fresh ``spawn``
     process for each of ``ranks`` (default 1..world_size-1: rank 0 runs in
-    the caller), each with ``rank_threads(world_size)`` intra-op threads.
-    ``target`` must be a module-level function of the port."""
+    the caller), each with ``threads`` intra-op threads (default
+    ``rank_threads(world_size)``).  ``target`` must be a module-level
+    function of the port."""
     ctx = torch.multiprocessing.get_context("spawn")
-    threads = rank_threads(world_size)
+    threads = rank_threads(world_size) if threads is None else threads
     procs = []
     for rank in (range(1, world_size) if ranks is None else ranks):
         p = ctx.Process(target=_bootstrap,

@@ -94,3 +94,23 @@ def estimate_epoch_duration(model: nn.Module, sample_batch: torch.Tensor,
     durations = gather_durations(local, world_size, simulated_durations,
                                  group)
     return durations, durations / max(num_batches, 1)
+
+
+def joiner_sec_per_batch(survivor_spb: np.ndarray,
+                         mode: str = "mean") -> float:
+    """Probe-EMA seed for a worker joining mid-run (JAX
+    ``probe.joiner_sec_per_batch``): a joiner has no probe measurement
+    and no wall history, so its sec/batch is the survivors' ``mean``
+    (default), ``max`` (conservative) or ``min``."""
+    spb = np.asarray(survivor_spb, np.float64)
+    if spb.size == 0 or np.any(spb <= 0):
+        raise ValueError(
+            f"survivor sec/batch vector must be non-empty and positive, "
+            f"got {survivor_spb!r}")
+    if mode == "mean":
+        return float(spb.mean())
+    if mode == "max":
+        return float(spb.max())
+    if mode == "min":
+        return float(spb.min())
+    raise ValueError(f"unknown joiner_sec_per_batch mode {mode!r}")

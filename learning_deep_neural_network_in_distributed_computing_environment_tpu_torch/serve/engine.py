@@ -57,12 +57,36 @@ def load_params_row0(path: str, model) -> None:
         raise FileNotFoundError(f"no committed manifest under {path}")
     row = ckpt_lib.load_row(path, manifest, 0,
                             keep=lambda k: k.startswith(".params["))
-    if not row:
+    if row:
+        sd = weights.params_from_jax_leaves(row, weights.state_layout(model))
+    elif any(k.startswith(".params_resident[") for k in manifest["leaves"]):
+        sd = _resident_params(path, manifest, model)
+    else:
         raise ValueError(f"checkpoint {path} has no params leaves")
-    sd = weights.params_from_jax_leaves(row, weights.state_layout(model))
     device = next(model.parameters()).device
     model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
                            .to(device) for k, v in sd.items()}, strict=True)
+
+
+def _resident_params(path: str, manifest: dict, model) -> dict:
+    """The consensus of a scatter-resident checkpoint (``.params_resident``
+    rows, JAX ``load_params_resident``): its rows gathered on the host and
+    unpacked by the model's wire layout and the manifest's bucket size."""
+    from .. import comms
+    keys = [k for k in manifest["leaves"]
+            if k.startswith(".params_resident[")]
+    full, _epoch = ckpt_lib.host_tree(path, keep=lambda k: k in keys)
+    mb = manifest.get("metadata", {}).get("sync_bucket_mb")
+    named = list(model.named_parameters())
+    template = comms.ParamsTemplate.of(
+        [n for n, _p in named], [p for _n, p in named],
+        comms.WireLayout(*weights.wire_layout(model)))
+    tensors = comms.resident_to_tree(
+        {k[len(".params_resident['"):-2]: v for k, v in full.items()},
+        template=template,
+        bucket_bytes=(int(float(mb) * (1 << 20)) if mb
+                      else comms.DEFAULT_BUCKET_BYTES))
+    return dict(zip(template.names, tensors))
 
 
 def manifest_num_classes(path: str) -> Optional[int]:
@@ -234,15 +258,11 @@ class ServeEngine:
                         **engine_kw) -> "ServeEngine":
         """The engine off a checkpoint root or one committed ``ckpt_<E>``
         directory: the architecture from the manifest metadata (``model=``
-        only for metadata-less checkpoints), worker 0's params streamed
-        onto ``device`` (default: the card)."""
+        only for metadata-less checkpoints), worker 0's params (a resident
+        checkpoint's consensus) streamed onto ``device`` (default: the
+        card)."""
         path = resolve_checkpoint(ckpt_dir)
         meta = ckpt_lib.manifest_metadata(path)
-        if meta.get("param_residency") == "resident":
-            raise ValueError(
-                f"checkpoint {path} stores scatter-resident parameters; "
-                "serving them arrives with ROADMAP queue A.11 item 2 (the "
-                "elastic slice)")
         if device is None:
             from ..mesh import worker_device
             device = worker_device(0, None)

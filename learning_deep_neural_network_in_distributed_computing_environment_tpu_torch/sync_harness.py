@@ -122,12 +122,17 @@ def engines_worker(rank: int, world_size: int, store_path: str,
     leaves it syncs; default all), ``rounds`` (each round syncs the
     leaves again, carrying residual and tracker; with ``chain`` the next
     round syncs this round's output, plus ``step{j}`` with ``step``),
-    ``tail`` (how many last rounds ``sum`` adds up; default all).  Saved
-    per case ``c``: ``c/first{j}``, ``c/out{j}`` (last round), ``c/sum{j}``
-    (the outputs of the tail rounds summed, float64), ``c/res{j}``,
-    ``c/mu|nu/<bucket>``, ``c/wire_payload`` and ``c/wire_scale`` (bytes
-    handed to gloo per round), ``c/ms`` and ``c/ms_min`` (this rank's wall
-    of the first round and of its quickest round)."""
+    ``tail`` (how many last rounds ``sum`` adds up; default all),
+    ``residency`` (``resident``: the sync ends at the scatter), ``buddy``
+    (arm the buddy hop) and ``poison`` (one flag per rank: arm the chaos
+    screen).  Saved per case ``c``: ``c/first{j}``, ``c/out{j}`` (last
+    round; under ``resident`` ``c/resident/<bucket>`` instead),
+    ``c/sum{j}`` (the outputs of the tail rounds summed, float64),
+    ``c/res{j}``, ``c/mu|nu/<bucket>``, ``c/buddy/<bucket>/<comp>``,
+    ``c/ok`` (the screen's flag), ``c/wire_payload``, ``c/wire_scale`` and
+    ``c/wire_buddy`` (bytes handed to gloo per round), ``c/ms`` and
+    ``c/ms_min`` (this rank's wall of the first round and of its quickest
+    round)."""
     with np.load(in_path) as f:
         leaves = [f[f"leaf{j}"][rank] for j in range(len(
             [k for k in f.files if k.startswith("leaf")]))]
@@ -160,13 +165,32 @@ def engines_worker(rank: int, world_size: int, store_path: str,
             tail = int(case.get("tail", rounds))
             for k in range(rounds):
                 t0 = time.perf_counter()
-                synced, res, tracker = comms.fast_sync(
+                extra = {}
+                if case.get("residency"):
+                    extra["residency"] = case["residency"]
+                if case.get("buddy"):
+                    extra["buddy"] = True
+                if "poison" in case:
+                    extra["poison"] = bool(case["poison"][rank])
+                rets = comms.fast_sync(
                     xs, group=group, mode=case["mode"],
                     how=case.get("how", "equal"),
                     topology=case.get("topology", "allreduce"),
                     local_weight=case.get("local_weight", 0.5),
                     wire_dtype=wdt, residual=res, bucket_bytes=bucket_bytes,
-                    opt_placement=placement, tracker=tracker)
+                    opt_placement=placement, tracker=tracker, **extra)
+                synced, res, tracker = rets[:3]
+                rest = list(rets[3:])
+                if case.get("buddy"):
+                    for name, parts in rest.pop(0).items():
+                        for key, t in parts.items():
+                            out[f"{c}/buddy/{name}/{key}"] = t.cpu().numpy()
+                if "poison" in case:
+                    out[f"{c}/ok"] = np.array(rest.pop(0))
+                if isinstance(synced, dict):
+                    for name, t in synced.items():
+                        out[f"{c}/resident/{name}"] = t.cpu().numpy()
+                    synced = []
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 ms = (time.perf_counter() - t0) * 1e3
@@ -194,7 +218,7 @@ def engines_worker(rank: int, world_size: int, store_path: str,
             for name, m in (tracker or {}).items():
                 for key in ("mu", "nu"):
                     out[f"{c}/{key}/{name}"] = m[key].cpu().numpy()
-            for kind in ("payload", "scale"):
+            for kind in ("payload", "scale", "buddy"):
                 out[f"{c}/wire_{kind}"] = np.array(
                     group.wire.get(kind, 0) // rounds)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

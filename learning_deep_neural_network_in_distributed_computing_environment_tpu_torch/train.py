@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 import os
 import queue
 import threading
@@ -50,6 +51,8 @@ from torch import nn
 from . import comms, mesh, weights
 from .config import Config
 from .data.augment import augment_batch
+
+log = logging.getLogger(__name__)
 
 # set (to anything) to run each stale sync to its end at dispatch: the
 # same delivery schedule with nothing overlapped, the serial twin the
@@ -434,15 +437,27 @@ class TrainState:
     ``TrainState`` carries beside them: the Adam moments, the StepLR clock,
     the seed words of the worker's augmentation stream, and the fast sync
     engines' state: the error-feedback residual (fp32, shaped like the
-    parameters; weights mode with ``--sync_compression ef``) and the round
+    parameters; weights mode with ``--sync_compression ef``), the round
     optimizer's moments (``comms.round_opt_init``'s row; gradients mode
-    under the sharded engine)."""
+    under the sharded engine), the scatter-resident parameters and the
+    buddy rows (JAX ``train.py:71-134``)."""
 
     opt: Adam
     lr_epoch: int = 0            # local epochs completed (StepLR clock)
     rng: Optional[np.ndarray] = None   # uint32[2] (``seed_words``)
     sync_residual: Optional[list] = None
     round_opt: Optional[dict] = None
+    # the scatter-resident consensus (``--param_residency resident``):
+    # ``{bucket: [padded // n]}``, this worker's 1/n shard of the packed
+    # parameters after the sync's apply; between rounds it is the only
+    # parameter state (the module's parameter storage is released) and
+    # the next round's entry gathers the whole tensors from it
+    params_resident: Optional[dict] = None
+    # the buddy rows (``--shard_redundancy buddy``): ``{bucket: {"params",
+    # "res", "mu", "nu"}}``, the ring predecessor's shard-resident rows as
+    # the sync's extra hop delivered them; derived state, stripped from
+    # checkpoints
+    buddy: Optional[dict] = None
 
 
 class LocalSGDEngine:
@@ -451,7 +466,7 @@ class LocalSGDEngine:
     over ``group`` (None: one worker)."""
 
     def __init__(self, model: nn.Module, cfg: Config, device: torch.device,
-                 group: mesh.Group | None = None):
+                 group: mesh.Group | None = None, nan_screen: bool = False):
         self.model = model
         self.cfg = cfg
         self.device = device
@@ -460,14 +475,38 @@ class LocalSGDEngine:
         self.n_workers = 1 if group is None else group.world_size
         self.names = [n for n, _ in model.named_parameters()]
         self.params = [p for p in model.parameters()]
+        # a module reused across a membership boundary may come with its
+        # parameters released: give them their shapes back first
+        self._unrelease()
         # the augmentation draws: one stream per worker, on its device,
         # seeded at each round from the state (``round_seed``)
         self.generator = torch.Generator(device=device)
         # --- the sync engine, resolved once (JAX train.py:530-700) ------
         self.sync_mode = cfg.resolve_sync_mode()
         self.opt_placement = cfg.resolve_opt_placement()
-        self.param_residency = cfg.resolve_param_residency()
-        self.shard_redundancy = cfg.resolve_shard_redundancy()
+        # where the consensus lives between rounds, and whether its
+        # uniquely held rows have a second copy (JAX train.py:599-652;
+        # a one-worker axis demotes resident, with the log line JAX gives)
+        self.param_residency = cfg.resolve_param_residency(self.n_workers)
+        if (cfg.param_residency == "resident"
+                and self.param_residency == "replicated"):
+            log.info("param_residency resident requested but %s: resolved "
+                     "to 'replicated'",
+                     "the worker axis is 1" if self.n_workers < 2 else
+                     f"{cfg.aggregation_by}/{cfg.aggregation_type} "
+                     "aggregation leaves per-worker params")
+        self.resident_on = self.param_residency == "resident"
+        self.shard_redundancy = cfg.resolve_shard_redundancy(self.n_workers)
+        self.buddy_on = self.shard_redundancy == "buddy"
+        if cfg.shard_redundancy == "buddy" and not self.buddy_on:
+            log.info("shard_redundancy buddy requested but nothing resolves "
+                     "shard-resident (param_residency=%s, workers=%d): "
+                     "resolved to 'off'", self.param_residency,
+                     self.n_workers)
+        # the chaos screen (nan@R faults): the sync takes a poison flag,
+        # set per round by ``stage_poison``
+        self.nan_screen = bool(nan_screen)
+        self._poison = False
         self.sync_wire_dtype = cfg.sync_wire_dtype()
         fast = self.sync_mode in ("sharded", "gossip")
         self.sync_ef = (cfg.sync_compression == "ef"
@@ -485,6 +524,11 @@ class LocalSGDEngine:
         # round optimizer's rows are JAX's)
         self.layout = (comms.WireLayout(*weights.wire_layout(model))
                        if fast else None)
+        # the per-worker template the resident layout and the host
+        # re-layouts address buckets with
+        self.params_template = (comms.ParamsTemplate.of(
+            self.names, self.params, self.layout)
+            if self.layout is not None else None)
         self.last_sync_stats: dict = {}
         # --- semi-synchronous rounds (JAX train.py:676-700, 2110-2290) --
         self.staleness = max(0, int(cfg.sync_staleness))
@@ -510,10 +554,35 @@ class LocalSGDEngine:
             placement=self.opt_placement,
             bucket_bytes=self.sync_bucket_bytes, device=self.device)
             if self.round_opt_on else None)
-        return TrainState(opt=Adam(self.params),
-                          rng=seed_words(worker_seed(self.cfg.seed,
-                                                     self.rank)),
-                          sync_residual=residual, round_opt=round_opt)
+        state = TrainState(opt=Adam(self.params),
+                           rng=seed_words(worker_seed(self.cfg.seed,
+                                                      self.rank)),
+                           sync_residual=residual, round_opt=round_opt)
+        n, rank = self.n_workers, self.rank
+        full = None
+        if self.resident_on:
+            # the init is one consensus on every rank: its shard is the
+            # resident state from round 0 on
+            full = comms.resident_from_tree(
+                [p.detach().cpu() for p in self.params], n,
+                template=self.params_template,
+                bucket_bytes=self.sync_bucket_bytes)
+            state.params_resident = {
+                k: torch.from_numpy(np.ascontiguousarray(v[rank])).to(
+                    self.device) for k, v in full.items()}
+        if self.buddy_on:
+            # derivable here without a hop (JAX derives it on host): the
+            # predecessor's resident row is a row of the same consensus,
+            # its residual span and round-optimizer rows are zeros
+            prev = (rank - 1) % n
+            state.buddy = {}
+            for name, parts in self._own_buddy_rows(state):
+                state.buddy[name] = {
+                    k: (torch.from_numpy(np.ascontiguousarray(
+                        full[name][prev])).to(self.device)
+                        if k == "params" else torch.zeros_like(t))
+                    for k, t in parts.items()}
+        return state
 
     # ------------------------------------------------------------------
     # the sync point's engines
@@ -527,13 +596,27 @@ class LocalSGDEngine:
         return comms.sync_wire_bytes(
             shapes, self.n_workers, mode=self.sync_mode, wire_dtype=wire,
             bucket_bytes=self.sync_bucket_bytes,
-            topology=self.cfg.topology)
+            topology=self.cfg.topology) + self.buddy_wire_bytes()
+
+    def buddy_wire_bytes(self) -> int:
+        """Bytes this worker's buddy hop sends per round sync (JAX
+        ``comms.buddy_wire_bytes``; 0 without the hop)."""
+        if not self.buddy_on:
+            return 0
+        return comms.buddy_wire_bytes(
+            self.layout.leaves, self.n_workers,
+            wire_dtype=self.sync_wire_dtype,
+            bucket_bytes=self.sync_bucket_bytes, params=self.resident_on,
+            tracker=self.round_opt_on and self.opt_placement == "sharded",
+            ef=self.resident_on and self.sync_ef)
 
     def _engine_sync(self, tensors, residual=None, tracker=None,
-                     group: mesh.Group | None = None):
+                     group: mesh.Group | None = None, **extra):
         """One sync of ``tensors`` by the resolved engine over ``group``
-        (the engine's group by default): ``(synced, residual, tracker)``;
-        the fast engines never fall back to the dense path."""
+        (the engine's group by default): ``(synced, residual, tracker)``
+        and what ``extra`` arms (``residency``, ``buddy``, ``poison``;
+        ``comms.fast_sync``); the fast engines never fall back to the
+        dense path."""
         cfg = self.cfg
         return comms.fast_sync(
             tensors, group=self.group if group is None else group,
@@ -543,7 +626,7 @@ class LocalSGDEngine:
             bucket_bytes=self.sync_bucket_bytes,
             opt_placement=("replicated" if self.opt_placement == "replicated"
                            else "sharded"),
-            tracker=tracker, layout=self.layout)
+            tracker=tracker, layout=self.layout, **extra)
 
     def _stale_enter(self, state: TrainState) -> TrainState:
         """Round entry under staleness: move the EF residual engine-side
@@ -643,29 +726,236 @@ class LocalSGDEngine:
     def state_resident_bytes(self, state: TrainState) -> dict:
         """Per-worker bytes of each state component, with JAX's keys
         (``train.py:996-1055``): the optimizer row counts the moments and
-        an int32 step count, the round optimizer its moment rows."""
+        an int32 step count, the round optimizer its moment rows.  Under
+        the resident layout ``params`` counts the 1/N bucket rows (the
+        only between-round parameter state) and ``params_gathered_peak``
+        the padded vectors the entry gather rebuilds (exactly N x the
+        rows); ``buddy`` the second copy of the predecessor's rows."""
         nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
         round_opt = [m for b in (state.round_opt or {}).values()
                      for m in b.values()]
-        return {"params": nbytes(self.params),
-                "params_gathered_peak": 0,
+        resident = list((state.params_resident or {}).values())
+        buddy = [t for b in (state.buddy or {}).values() for t in b.values()]
+        return {"params": (nbytes(resident) if resident
+                           else nbytes(self.params)),
+                "params_gathered_peak": self.n_workers * nbytes(resident),
                 "opt_state": nbytes(state.opt.state_tensors()) + 4,
                 "ef_residual": nbytes(state.sync_residual or []),
                 "ef_residual_outer": 0,
                 "round_opt": nbytes(round_opt),
-                "buddy": 0,
+                "buddy": nbytes(buddy),
                 "batch_stats": nbytes([b for n, b in
                                        self.model.named_buffers()
                                        if ".running_" in f".{n}"]),
                 "bookkeeping": 4 + 8}
+
+    # ------------------------------------------------------------------
+    # the scatter-resident layout, the buddy rows and the screen
+    # ------------------------------------------------------------------
+    @property
+    def _released(self) -> bool:
+        return hasattr(self.model, "_released_params")
+
+    @torch.no_grad()
+    def _release_params(self) -> None:
+        """Free the parameters' memory between rounds (the resident
+        layout's point: the 1/N rows are the only parameter state).  The
+        Parameter objects stay (Adam holds them); their shapes and strides
+        are kept on the module for ``_unrelease``."""
+        if self._released:
+            return
+        self.model._released_params = [(tuple(p.shape), p.stride())
+                                       for p in self.params]
+        for p in self.params:
+            p.data = p.data.new_empty(0)
+
+    @torch.no_grad()
+    def _unrelease(self) -> None:
+        """Fresh (uninitialized) memory of the released shapes and
+        strides; the caller fills it."""
+        meta = getattr(self.model, "_released_params", None)
+        if meta is None:
+            return
+        for p, (shape, stride) in zip(self.params, meta):
+            p.data = torch.empty_strided(shape, stride, dtype=p.dtype,
+                                         device=p.device)
+        del self.model._released_params
+
+    @torch.no_grad()
+    def _gather_params(self, state: TrainState) -> float:
+        """The round-entry gather (JAX ``resident_gather``): every rank's
+        resident rows, unpacked into the module's parameters.  A
+        collective; returns its milliseconds."""
+        t0 = time.perf_counter()
+        self._unrelease()
+        full = comms.resident_gather(
+            state.params_resident, group=self.group, layout=self.layout,
+            like=self.params, bucket_bytes=self.sync_bucket_bytes)
+        torch._foreach_copy_(self.params, full)
+        self._sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    def params_checksum(self, state: TrainState) -> str:
+        """``comms.checksum`` of the parameters this worker trains the
+        next round with (a resident state's gather first: a collective)."""
+        self.materialize_params(state)
+        return comms.checksum(self.params)
+
+    def materialize_params(self, state: TrainState) -> TrainState:
+        """Give the module the consensus parameters of a resident state
+        (the entry gather, a collective: every rank calls it); a no-op
+        otherwise."""
+        if state.params_resident is not None and self._released:
+            self._gather_params(state)
+        return state
+
+    def stage_poison(self, poisoned: bool) -> None:
+        """This worker's poison flag for the next sync (the ``nan@R:wI``
+        fault; JAX ``stage_poison``)."""
+        if not self.nan_screen:
+            raise ValueError("stage_poison needs an engine built with "
+                             "nan_screen=True (the chaos schedule's nan "
+                             "faults arm it)")
+        self._poison = bool(poisoned)
+
+    def _own_buddy_rows(self, state: TrainState) -> list:
+        """This worker's shard-resident rows in the buddy layout's order:
+        per bucket the resident row, the EF residual's owned span and the
+        sharded round optimizer's rows (what the sync's hop sends)."""
+        out = []
+        n, rank = self.n_workers, self.rank
+        res = (self.layout.pack(state.sync_residual)
+               if self.resident_on and state.sync_residual is not None
+               else None)
+        starts = comms._leaf_starts(self.layout.leaves)
+        for i, b in enumerate(comms.bucket_plan(self.layout.leaves, n,
+                                                self.sync_bucket_bytes)):
+            name, row = comms.bucket_name(i), b.padded // n
+            parts = {}
+            if self.resident_on:
+                parts["params"] = state.params_resident[name]
+                if res is not None:
+                    pos = comms._positions(b, starts)
+                    full = res.new_zeros(b.padded)
+                    full[:len(pos)] = res[torch.from_numpy(pos).to(
+                        res.device)]
+                    parts["res"] = full[rank * row:(rank + 1) * row]
+            if self.round_opt_on and self.opt_placement == "sharded":
+                parts["mu"] = state.round_opt[name]["mu"]
+                parts["nu"] = state.round_opt[name]["nu"]
+            out.append((name, parts))
+        return out
+
+    @torch.no_grad()
+    def refresh_buddy(self, state: TrainState) -> TrainState:
+        """``state`` with its buddy rows (re)derived: one ring hop of this
+        worker's shard-resident rows (fp32), so every rank holds its
+        predecessor's (JAX ``refresh_buddy``/``derive_buddy``; used at
+        init, restore and restage, where the sync's hop has not run yet).
+        A collective; a no-op without the hop."""
+        if not self.buddy_on:
+            state.buddy = None
+            return state
+        rows = self._own_buddy_rows(state)
+        flat = [t for _n, parts in rows for t in parts.values()]
+        got = iter(comms.ring_hop(flat, self.group, "buddy/refresh",
+                                  kind="buddy_refresh"))
+        state.buddy = {name: {k: next(got) for k in parts}
+                       for name, parts in rows}
+        return state
+
+    def checkpoint_fence(self, state: TrainState) -> TrainState:
+        """The barrier a host copy of ``state`` needs: the card has
+        finished every kernel that writes it (JAX ``checkpoint_fence``)."""
+        self._sync()
+        return state
+
+    @torch.no_grad()
+    def host_row(self, state: TrainState) -> dict:
+        """This worker's state as host numpy (copies, behind the fence):
+        the row ``elastic.stack_rows`` stacks, ``stage_state`` restages."""
+        self.checkpoint_fence(state)
+        cpu = lambda t: t.detach().to("cpu", copy=True).numpy()
+        tree = lambda d: (None if d is None else
+                          {k: tree(v) if isinstance(v, dict) else cpu(v)
+                           for k, v in d.items()})
+        resident = state.params_resident is not None
+        return {
+            "params": (None if resident else
+                       {n: cpu(p) for n, p in zip(self.names, self.params)}),
+            "buffers": {n: cpu(b) for n, b in self.model.named_buffers()},
+            "mu": dict(zip(self.names, map(cpu, state.opt.mu))),
+            "nu": dict(zip(self.names, map(cpu, state.opt.nu))),
+            "count": int(state.opt.count), "lr_epoch": int(state.lr_epoch),
+            "rng": np.array(state.rng, np.uint32),
+            "sync_residual": (None if state.sync_residual is None else
+                              dict(zip(self.names,
+                                       map(cpu, state.sync_residual)))),
+            "round_opt": tree(state.round_opt),
+            "params_resident": tree(state.params_resident),
+            "buddy": tree(state.buddy)}
+
+    @torch.no_grad()
+    def stage_state(self, row: dict) -> TrainState:
+        """A host row (``host_row``'s dict, e.g. a membership snapshot's)
+        staged on this worker's device (JAX ``stage_state``): the module's
+        parameters (or, resident, the rows, with the parameters released
+        until the entry gather) and buffers, the Adam moments and count,
+        the clock, the seed words and the engine state.  Buddy rows
+        missing from the row are re-derived (a collective)."""
+        if not self.resident_on and row["params_resident"] is not None:
+            raise ValueError(
+                f"stage_state: the row's params are scatter-resident but "
+                f"the engine's residency is {self.param_residency!r} — "
+                "re-lay the host state out first")
+        if self.resident_on and row["params_resident"] is None:
+            # a replicated consensus row (e.g. a quorum of one that grew
+            # again): its shard is this position's resident row
+            row = {**row, "params_resident": {
+                k: v.numpy() for k, v in comms.resident_rows(
+                    [row["params"][n] for n in self.names], self.n_workers,
+                    self.rank, template=self.params_template,
+                    bucket_bytes=self.sync_bucket_bytes).items()},
+                "params": None}
+        dev = self.device
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        tree = lambda d: (None if d is None else
+                          {k: tree(v) if isinstance(v, dict) else put(v)
+                           for k, v in d.items()})
+        if row["params"] is not None:
+            for name, p in zip(self.names, self.params):
+                p.copy_(put(row["params"][name]))
+        buffers = dict(self.model.named_buffers())
+        for name, b in buffers.items():
+            b.copy_(put(row["buffers"][name]))
+        opt = Adam(self.params)
+        for dst, part in ((opt.mu, "mu"), (opt.nu, "nu")):
+            for t, name in zip(dst, self.names):
+                t.copy_(put(row[part][name]))
+        opt.count = int(row["count"])
+        state = TrainState(
+            opt=opt, lr_epoch=int(row["lr_epoch"]),
+            rng=np.asarray(row["rng"], np.uint32).reshape(2),
+            sync_residual=(None if row["sync_residual"] is None else
+                           [put(row["sync_residual"][n])
+                            for n in self.names]),
+            round_opt=tree(row["round_opt"]),
+            params_resident=tree(row["params_resident"]),
+            buddy=tree(row["buddy"]) if self.buddy_on else None)
+        if self.resident_on:
+            self._release_params()
+        if self.buddy_on and state.buddy is None:
+            state = self.refresh_buddy(state)
+        return state
 
     def checkpoint_state(self, state: TrainState):
         """The live tensors of ``state`` as a ``checkpoint.WorkerState``
         (the checkpoint engine snapshots them)."""
         from .checkpoint import WorkerState
         from .weights import state_layout
+        resident = state.params_resident is not None
         return WorkerState(
-            params=dict(zip(self.names, self.params)),
+            params={} if resident else dict(zip(self.names, self.params)),
             buffers=dict(self.model.named_buffers()),
             mu=dict(zip(self.names, state.opt.mu)),
             nu=dict(zip(self.names, state.opt.nu)),
@@ -674,7 +964,8 @@ class LocalSGDEngine:
             n_workers=self.n_workers,
             residual=(None if state.sync_residual is None
                       else dict(zip(self.names, state.sync_residual))),
-            round_opt=state.round_opt)
+            round_opt=state.round_opt,
+            params_resident=state.params_resident)
 
     @torch.no_grad()
     def load_checkpoint_state(self, state: TrainState, restored
@@ -686,7 +977,7 @@ class LocalSGDEngine:
             src = getattr(restored, part)
             for name, t in getattr(live, part).items():
                 t.copy_(torch.from_numpy(np.ascontiguousarray(src[name])))
-        for part in ("residual", "round_opt"):
+        for part in ("residual", "round_opt", "params_resident"):
             src, dst = getattr(restored, part), getattr(live, part)
             if dst is None:
                 continue
@@ -700,10 +991,17 @@ class LocalSGDEngine:
         state.opt.count = int(restored.count)
         state.lr_epoch = int(restored.lr_epoch)
         state.rng = np.asarray(restored.rng, np.uint32).reshape(2)
-        return state
+        # buddy rows are never saved: derive them from what was restored
+        return self.refresh_buddy(state)
 
-    def rank0_variables(self) -> dict[str, torch.Tensor]:
-        """Worker 0's parameters by ``state_dict`` name (detached)."""
+    def rank0_variables(self, state: TrainState | None = None
+                        ) -> dict[str, torch.Tensor]:
+        """This worker's parameters and buffers by ``state_dict`` name
+        (detached).  Given a resident ``state`` whose parameters are
+        released, the consensus is gathered into the module first (JAX
+        ``resident_consensus``; a collective: every rank calls it)."""
+        if state is not None:
+            self.materialize_params(state)
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
     def _to_device(self, pack):
@@ -763,6 +1061,14 @@ class LocalSGDEngine:
         ce, w, correct = masked_token_stats(self.model(x), y, m)
         return torch.stack([(ce * w).sum(), correct, w.sum()])
 
+    def _take_extras(self, state: TrainState, rest, extra: dict):
+        """Store the buddy rows a sync returned; its validity flag (None
+        without the screen)."""
+        rest = list(rest)
+        if extra.get("buddy"):
+            state.buddy = rest.pop(0)
+        return rest.pop(0) if "poison" in extra else None
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -775,9 +1081,10 @@ class LocalSGDEngine:
         gathered over the group) plus host timings: this worker's
         ``train_ms``, ``train_steps`` and ``val_steps``, and every worker's
         ``wall_s`` (round start to its sync point: a wait for slower peers
-        is not its own time), ``train_ms``, ``train_steps``, ``sync_ms``
-        and its process's peak ``max_memory_allocated`` on a card (0 on
-        the CPU) under ``workers_*``."""
+        is not its own time), ``train_ms``, ``train_steps``, ``sync_ms``,
+        its process's peak ``max_memory_allocated`` and the
+        ``memory_allocated`` it holds after the sync, on a card (0 on the
+        CPU), under ``workers_*``."""
         t_round = time.perf_counter()
         train = (*self._to_device(train_pack), None)
         val = (*self._to_device(val_pack), None)
@@ -852,6 +1159,10 @@ class LocalSGDEngine:
         cfg = self.cfg
         if self.staleness:
             state = self._stale_enter(state)
+        gather_ms = 0.0
+        if state.params_resident is not None:
+            # the resident layout: the round starts with the entry gather
+            gather_ms = self._gather_params(state)
         self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
         dev = self.device
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
@@ -919,20 +1230,41 @@ class LocalSGDEngine:
         # and its delta lands at the entry of round R+K+1.
         t0 = time.perf_counter()
         agg_norm = torch.zeros((), device=dev)
+        # the buddy hop and the chaos screen ride the sync when armed
+        extra = {}
+        if self.buddy_on:
+            extra["buddy"] = True
+        if self.nan_screen:
+            extra["poison"] = self._poison
+            self._poison = False
+        ok = None
         if cfg.aggregation_by == "weights":
             if self.staleness:
                 self._stale_dispatch()
+            elif self.resident_on:
+                # the sync ends at the scatter: the decoded shard is the
+                # state, and the parameters' storage goes until the entry
+                rets = self._engine_sync(self.params, state.sync_residual,
+                                         residency="resident", **extra)
+                state.params_resident, state.sync_residual = rets[:2]
+                rets = self._take_extras(state, rets[3:], extra)
+                ok = rets
+                self._release_params()
             else:
-                agg, state.sync_residual, _ = self._engine_sync(
-                    self.params, state.sync_residual)
+                rets = self._engine_sync(self.params, state.sync_residual,
+                                         **extra)
+                agg, state.sync_residual = rets[:2]
+                ok = self._take_extras(state, rets[3:], extra)
                 if self.group is not None:
                     with torch.no_grad():
                         torch._foreach_copy_(self.params, agg)
         else:
             grads = (last_grads if last_grads is not None
                      else [torch.zeros_like(p) for p in self.params])
-            agg, _, state.round_opt = self._engine_sync(
-                grads, tracker=state.round_opt)
+            rets = self._engine_sync(grads, tracker=state.round_opt,
+                                     **extra)
+            agg, state.round_opt = rets[0], rets[2]
+            ok = self._take_extras(state, rets[3:], extra)
             agg_norm = comms.global_norm(agg)
         self._sync()
         sync_ms = (time.perf_counter() - t0) * 1e3
@@ -943,13 +1275,18 @@ class LocalSGDEngine:
             sync_ms = delivered.get("sync_ms", 0.0)
         self.last_sync_stats = {
             "sync_mode": self.sync_mode, "sync_ms": round(sync_ms, 3),
-            "sync_hidden_ms": delivered.get("sync_hidden_ms", 0.0)}
+            "sync_hidden_ms": delivered.get("sync_hidden_ms", 0.0),
+            "gather_ms": round(gather_ms, 3)}
 
         own = {k: torch.stack(v).cpu().numpy() for k, v in per_epoch.items()}
         own["agg_grad_norm"] = agg_norm.cpu().numpy()
+        if ok is not None:
+            own["sync_ok"] = np.float32(ok)
         peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
                 else 0)
-        own["timing"] = (wall_s, train_s * 1e3, train_steps, sync_ms, peak)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        own["timing"] = (wall_s, train_s * 1e3, train_steps, sync_ms, peak,
+                         held)
         rows = mesh.all_gather(self.group, own)
         mx = cross_worker_means(
             {k: np.stack([r[k] for r in rows]) for k in own
@@ -958,6 +1295,7 @@ class LocalSGDEngine:
         mx["train_steps"] = train_steps
         mx["val_steps"] = val_steps
         for i, k in enumerate(("wall_s", "train_ms", "train_steps",
-                               "sync_ms", "max_memory_allocated")):
+                               "sync_ms", "max_memory_allocated",
+                               "memory_allocated")):
             mx[f"workers_{k}"] = [r["timing"][i] for r in rows]
         return state, mx

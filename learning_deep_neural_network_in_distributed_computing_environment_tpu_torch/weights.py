@@ -318,14 +318,18 @@ def _keyed(prefix: str, tree) -> list[tuple[str, np.ndarray]]:
 def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
                         count: int, lr_epoch: int, rng, layout: dict,
                         residual: dict | None = None,
-                        round_opt: dict | None = None
+                        round_opt: dict | None = None,
+                        params_resident: dict | None = None
                         ) -> dict[str, np.ndarray]:
     """One worker's train state -> ``{JAX key path: numpy row}``, in the
     JAX package's flatten order.  ``params``/``buffers``/``mu``/``nu`` map
     ``state_dict`` names to tensors or arrays (host); ``rng`` is uint32[2];
-    ``residual`` (like ``params``) becomes ``.sync_residual[...]`` and
-    ``round_opt`` ({bucket: {"mu", "nu"}}) ``.round_opt[...]``."""
-    main = _flax_collections({**params, **buffers}, layout)
+    ``residual`` (like ``params``) becomes ``.sync_residual[...]``,
+    ``round_opt`` ({bucket: {"mu", "nu"}}) ``.round_opt[...]`` and
+    ``params_resident`` ({bucket: row}; then ``params`` is empty)
+    ``.params_resident[...]``."""
+    main = (_flax_collections({**params, **buffers}, layout)
+            if params or buffers else {"params": {}})
     moments = [_flax_collections(m, layout)["params"] for m in (mu, nu)]
     leaves = dict(_keyed(".params", main["params"]))
     leaves.update(_keyed(".batch_stats", main.get("batch_stats", {})))
@@ -339,6 +343,8 @@ def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
                              _flax_collections(residual, layout)["params"]))
     if round_opt is not None:
         leaves.update(_keyed(".round_opt", round_opt))
+    if params_resident is not None:
+        leaves.update(_keyed(".params_resident", params_resident))
     return leaves
 
 

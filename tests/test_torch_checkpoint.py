@@ -253,13 +253,13 @@ def test_open_sweeps_stale_leftovers(tmp_path):
 
 
 @pytest.mark.parametrize("case,where", [
-    ("legacy", "A.9"), ("resident", "A.11 item 2"),
+    ("legacy", "A.9"),
     # round-optimizer leaves restore; this one is in the manifest but in
     # no shard
     ("round_opt", r"\.round_opt"),
     ("slices", "A.11"), ("workers", "worker")],
-    ids=["legacy-A.9", "resident-A.11 item 2", "round_opt-missing-leaf",
-         "slices-A.11", "workers-worker"])
+    ids=["legacy-A.9", "round_opt-missing-leaf", "slices-A.11",
+         "workers-worker"])
 def test_refusals_name_their_queue(tmp_path, case, where):
     engine, state = _engine_state(0)
     meta = {"num_slices": 2} if case == "slices" else None
@@ -270,9 +270,8 @@ def test_refusals_name_their_queue(tmp_path, case, where):
     if case == "legacy":
         path = str(tmp_path / "ckpt_4.msgpack")
         open(path, "wb").write(b"\x80")
-    elif case in ("resident", "round_opt"):
-        key = {"resident": ".params_resident['b0000']",
-               "round_opt": ".round_opt.mu['b0000']"}[case]
+    elif case == "round_opt":
+        key = ".round_opt.mu['b0000']"
         mpath = os.path.join(path, C.MANIFEST)
         manifest = json.load(open(mpath))
         manifest["leaves"][key] = {"shape": [1, 4], "dtype": "float32",
@@ -575,3 +574,158 @@ def test_jax_sync_state_restores_into_the_port(tmp_path, placement):
         for m, v in ms.items():
             want = v[1] if placement == "sharded" else v.reshape(-1)
             np.testing.assert_array_equal(restored.round_opt[b][m], want)
+
+
+# ----------------------------------------------------------------------
+# the scatter-resident parameters: .params_resident
+# ----------------------------------------------------------------------
+
+BUCKET = 256          # bytes: several buckets for the 16-wide mlp
+
+
+def _mlp_flax(engine):
+    return weights.cnn_torch_to_flax(
+        {n: p.detach().numpy() for n, p in engine.model.named_parameters()})
+
+
+@pytest.mark.parametrize("into", ["resident", "replicated"])
+def test_jax_resident_checkpoint_restores_into_the_port(tmp_path, into):
+    """A 2-worker JAX TrainState with ``params=None`` and
+    ``.params_resident`` rows (``comms.resident_from_tree`` of a consensus
+    tree), written by JAX ``save_checkpoint``: a resident port template
+    of worker 1 gets row 1 of every bucket, a replicated one the whole
+    consensus in its own layout, bit for bit."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
+        comms as j_comms,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        comms,
+    )
+    engine, state = _mlp_sync_engine()
+    rng = np.random.default_rng(4)
+    consensus = jax.tree.map(
+        lambda a: rng.normal(size=np.shape(a)).astype(np.float32),
+        _mlp_flax(engine)["params"])
+    resident = j_comms.resident_from_tree(consensus, 2, bucket_bytes=BUCKET)
+    rows = lambda: jax.tree.map(
+        lambda a: rng.normal(size=(2, *np.shape(a))).astype(np.float32),
+        consensus)
+    jstate = JTrainState(
+        params=None, batch_stats={},
+        opt_state=optax.ScaleByAdamState(count=np.array([4, 4], np.int32),
+                                         mu=rows(), nu=rows()),
+        lr_epoch=np.array([1, 1], np.int32),
+        rng=np.array([[1, 2], [3, 4]], np.uint32),
+        params_resident=resident)
+    J.save_checkpoint(str(tmp_path), jstate, 3)
+    template = dataclasses.replace(
+        engine.checkpoint_state(state), worker=1, n_workers=2,
+        round_opt=None, residual=None)
+    if into == "resident":
+        template = dataclasses.replace(template, params={}, params_resident={
+            b: torch.zeros(v.shape[1]) for b, v in resident.items()})
+    restored, epoch = C.restore_checkpoint(
+        C.latest_checkpoint(str(tmp_path)), template,
+        params_template=engine.params_template, bucket_bytes=BUCKET)
+    assert epoch == 3
+    if into == "resident":
+        assert restored.params == {}
+        for b, v in resident.items():
+            np.testing.assert_array_equal(restored.params_resident[b], v[1])
+    else:
+        assert restored.params_resident is None
+        want = weights.cnn_flax_to_torch({"params": consensus})
+        for name, v in restored.params.items():
+            np.testing.assert_array_equal(v, want[name], err_msg=name)
+        # the host gather is the JAX one, bit for bit
+        got = comms.resident_to_tree(
+            resident, template=engine.params_template, bucket_bytes=BUCKET)
+        for name, v in zip(engine.params_template.names, got):
+            np.testing.assert_array_equal(v, want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("into", ["resident", "replicated"])
+def test_port_resident_checkpoint_restores_into_jax(tmp_path, into):
+    """The port's resident save (``.params_resident`` rows, no
+    ``.params``; the buddy rows never saved) restores into a JAX resident
+    template bit for bit, and into a replicated JAX template as the
+    consensus tree; and back into the port."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        comms,
+    )
+    engine, state = _mlp_sync_engine()
+    rows = comms.resident_from_tree(
+        [p.detach() for p in engine.params], 1,
+        template=engine.params_template, bucket_bytes=BUCKET)
+    ws = dataclasses.replace(
+        engine.checkpoint_state(state), params={}, round_opt=None,
+        residual=None, params_resident={
+            b: torch.from_numpy(v[0]) for b, v in rows.items()})
+    path = C.CheckpointEngine(
+        str(tmp_path), async_write=False,
+        metadata={"sync_bucket_mb": BUCKET / 2**20}).save(ws, 2)
+    tree, _ = J.host_tree(path)
+    assert not any(k.startswith(".params[") for k in tree)
+    assert not any("buddy" in k for k in tree)
+    for b, v in rows.items():
+        np.testing.assert_array_equal(tree[f".params_resident['{b}']"], v)
+    flax = _mlp_flax(engine)
+    stack = lambda t: jax.tree.map(lambda a: np.zeros((1, *np.shape(a)),
+                                                      np.asarray(a).dtype), t)
+    opt = optax.ScaleByAdamState(count=np.zeros(1, np.int32),
+                                 mu=stack(flax["params"]),
+                                 nu=stack(flax["params"]))
+    common = dict(batch_stats={}, opt_state=opt,
+                  lr_epoch=np.zeros(1, np.int32),
+                  rng=np.zeros((1, 2), np.uint32))
+    if into == "resident":
+        template = JTrainState(params=None, params_resident={
+            b: np.zeros_like(v) for b, v in rows.items()}, **common)
+    else:
+        template = JTrainState(params=stack(flax["params"]), **common)
+    restored, epoch = J.restore_checkpoint(path, template)
+    assert epoch == 2
+    if into == "resident":
+        for b, v in rows.items():
+            np.testing.assert_array_equal(restored.params_resident[b], v)
+    else:
+        want = {jax.tree_util.keystr(p): np.asarray(a) for p, a in
+                jax.tree_util.tree_flatten_with_path(flax["params"])[0]}
+        got = {jax.tree_util.keystr(p): np.asarray(a)[0] for p, a in
+               jax.tree_util.tree_flatten_with_path(restored.params)[0]}
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    back, _ = C.restore_checkpoint(path, ws,
+                                   params_template=engine.params_template)
+    for b, v in rows.items():
+        np.testing.assert_array_equal(back.params_resident[b], v[0])
+
+
+def test_resident_checkpoint_serves_its_consensus(tmp_path):
+    """``main serve``'s loader takes a resident checkpoint's rows as the
+    consensus parameters (JAX ``load_params_resident``): the same tensors
+    as the replicated save of the same model."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        comms,
+    )
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.serve.engine import (
+        load_params_row0,
+    )
+    engine, state = _engine_state(3)
+    template = comms.ParamsTemplate.of(
+        engine.names, engine.params,
+        comms.WireLayout(*weights.wire_layout(engine.model)))
+    rows = comms.resident_from_tree([p.detach() for p in engine.params], 1,
+                                    template=template, bucket_bytes=BUCKET)
+    ws = dataclasses.replace(engine.checkpoint_state(state), params={},
+                             params_resident={b: torch.from_numpy(v[0])
+                                              for b, v in rows.items()})
+    path = C.CheckpointEngine(
+        str(tmp_path), async_write=False,
+        metadata={"sync_bucket_mb": BUCKET / 2**20}).save(ws, 1)
+    served, _ = _engine_state(8)
+    load_params_row0(path, served.model)
+    want = dict(engine.model.named_parameters())
+    for name, p in served.model.named_parameters():
+        assert torch.equal(p, want[name]), name
