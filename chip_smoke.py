@@ -165,6 +165,31 @@ Phases (any failure exits non-zero before the result line):
              continued run, and a twin whose joiner clones the wrong row
              seen to differ; then the replicated against the resident
              layout without chaos (memory, sync ms, bitwise parameters).
+   overlap cnn - first in the same child: the cnn run (probe and walls
+             pinned) with --no_overlap_rounds and with the overlapped
+             round loop, then the same on 4 worker processes on the sync
+             n4 traffic (one local epoch): every metric list, the
+             parameters (every rank's at N=4) and the partitions equal to
+             the bit; each round's stage, compute,
+             fetch, assemble, prep and gap ms in both flows.  Alone:
+             CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py overlap
+12. sanitize - which host waits torch's sync-debug mode counts;
+             --sanitize on short cnn and gpt2 runs (every counter 0); an
+             .item() planted in the train step, counted once and raised;
+             every path's implicit syncs listed by place (warn mode; they
+             fail nothing);
+   profile_dir - a short cnn run with --profile_dir: the trace file holds
+             CUDA kernel rows;
+13. memory - results["memory"] of the cnn, gpt2 and sim cnn n8 runs and
+             the serve gpt2 telemetry's: available, every registered
+             program with its row; the lab's total 8 x per worker; 1 GiB
+             allocated and freed before a tracked program's first call
+             still in the process peak; bert's train-step temp bytes none
+             >= dots_saveable >= everything (the remat runs);
+   mfu     - the FLOP count against 2*M*N*K of one layer, then each path's
+             FLOPs per train step (its dense twin on the meta device) and
+             MFU from this call's step times, beside the card's name and
+             power limit.
 
 The last lines are the smoke's total wall, the nvidia-smi line, one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.  Imports
@@ -388,6 +413,45 @@ ELASTIC_ROSTERS = [[0, 1, 2, 3], [0, 1, 2], [0, 1, 2, 4], [1, 2, 4],
 ELASTIC_WALLS = [[1.0 + 0.05 * w for w in range(5)] for _ in range(5)]
 ELASTIC_TWIN_SNAPSHOT = 1      # the round-2 snapshot (after the join)
 ELASTIC_LAYOUT_ROUNDS = 3      # replicated vs resident, no chaos
+# phase overlap cnn: the cnn run serial and overlapped, at
+# one worker and at N=4 on the sync n4 traffic (one local epoch), in the
+# deterministic child; the probe and the walls pinned, so the partitions
+# of both flows come from the same numbers
+DETERMINISTIC_PHASE = "deterministic"   # the child: overlap, then elastic
+OVERLAP_PHASE = "overlap"
+OVERLAP_ARGV = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "overlap")]
+OVERLAP_N4_ARGV = [*OVERLAP_ARGV, "--num_workers", "4", "--aggregation_by",
+                   "weights", "--epochs_local", "1", *SYNC_RUNS[1][2]]
+OVERLAP_PROBE = [1.0, 1.3, 0.9, 1.1]
+OVERLAP_WALLS = [[0.5 + 0.1 * w for w in range(4)] for _ in range(2)]
+OVERLAP_KEYS = ("stage_ms", "compute_ms", "fetch_ms", "assemble_ms",
+                "prep_ms", "gap_ms")
+# phase sanitize: each path cut to 2 rounds of a few steps (argparse keeps
+# a flag's last value)
+_SMALL = ["--epochs_global", "2", "--epochs_local", "1", "--probe_batches",
+          "1", "--checkpoint_dir", "", "--checkpoint_every", "0"]
+SANITIZE_RUNS = {
+    "cnn": [*CNN_ARGV, *_SMALL, "--limit_train_samples", "640",
+            "--limit_eval_samples", "128"],
+    **{name: [*PATHS[name][0], *_SMALL, "--limit_train_samples",
+              "160" if name == "vit" else "320", "--limit_eval_samples",
+              "64"] for name in ("gpt2", "llama", "bert", "vit", "moe")}}
+SANITIZE_CLEAN = ("cnn", "gpt2")          # the gate: no implicit sync
+PROFILE_DIR = os.path.join(OUT_DIR, "profile_dir")
+# phase memory: the programs every run registers
+MEMORY_PROGRAMS = {
+    "cnn": {"train_step", "eval_step", "sync"},
+    "gpt2": {"train_step", "eval_step", "sync"},
+    "sim cnn n8": {"sim_step", "sim_eval", "sim_blend"},
+    "serve gpt2": {"decode_step", "prefill"},
+}
+MFU_LINEAR = (512, 1024, 4096)   # M, K, N of the count's one-layer gate
+MFU_RTOL = 1e-6
+# filled by the phases: the memory rows and the train steps whose MFU the
+# mfu phase reports
+MEMORY_ROWS: dict = {}
+REMAT_TEMP: dict = {}
+MFU_RUNS: dict = {}
 
 # (label, B, L, H, KV, D, causal); "main" is the gpt2 path's shape,
 # "llama_path" the llama path's, "bert_path" the bert and moe paths'
@@ -439,6 +503,24 @@ TENSOR_CORE_OP = re.compile(r"\bHG?MMA(?:\.\w+)+")
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _peak_reset() -> None:
+    """Start a process-peak window (the port's probe: its programs' memory
+    rows reset the card's peak statistic, and the probe keeps the running
+    maximum across those resets)."""
+    import torch
+    from importlib import import_module
+    import_module(f"{PKG}.probe").reset_peak_memory_stats(
+        torch.device("cuda"))
+
+
+def _peak() -> int:
+    """The process's peak allocation since ``_peak_reset``."""
+    import torch
+    from importlib import import_module
+    return import_module(f"{PKG}.probe").max_memory_allocated(
+        torch.device("cuda"))
 
 
 def cuda_ms(fn, iters: int, paced: bool = False) -> float:
@@ -772,14 +854,14 @@ def drive(tag: str, argv: list[str], layers: int):
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
     cfg = import_module(f"{PKG}.config").config_from_args(argv)
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     results = main.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fl.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak()
 
     rt = results["round_timings"]
     train_steps = sum(r["train_steps"] for r in rt)
@@ -955,6 +1037,11 @@ def run_path(name: str) -> tuple[dict, dict]:
     per_step = PATH_BATCH * (x.shape[1] if tokens else 1)
     rate = train_steps * per_step / (train_ms / 1e3)
     params = sum(p.numel() for p in model.parameters())
+    MFU_RUNS[name] = dict(argv=argv, num_classes=test.num_classes,
+                          example=list(test.images.shape[1:]),
+                          tokens=tokens, step_ms=step_ms, workers=1)
+    if name == "gpt2":
+        MEMORY_ROWS[name] = results["memory"]
     print(f"[{name}] {params:,} params; wall {wall:.1f} s; train step "
           f"{step_ms:.3f} ms; {rate:.0f} {'tokens' if tokens else 'images'}"
           f"/s; first-batch loss {first:.4f} -> last-epoch mean {last:.4f}; "
@@ -1023,9 +1110,9 @@ def phase_remat(policies: list[str]) -> None:
         _, one_round = steady_round(results, argv)
         one_round()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        _peak_reset()
         mx = one_round()[1]
-        step_peak = torch.cuda.max_memory_allocated()
+        step_peak = _peak()
         steady_ms = mx["train_ms"] / mx["train_steps"]
         print(f"[remat] {label}: run's train step {step_ms:.3f} ms, run's "
               f"max_memory_allocated {peak / 2**30:.3f} GiB; steady round: "
@@ -1033,6 +1120,8 @@ def phase_remat(policies: list[str]) -> None:
               f"{step_peak / 2**30:.3f} GiB; batch losses "
               f"{[round(v, 6) for v in losses]}; wall {wall:.1f} s")
         runs[label] = dict(step_ms=steady_ms, peak=step_peak, losses=losses)
+        REMAT_TEMP[label] = results["memory"]["programs"]["train_step"][0][
+            "temp_bytes"]
         del results
         torch.cuda.empty_cache()
     base = runs["remat none"]["losses"]
@@ -1283,14 +1372,14 @@ def run_cnn() -> tuple[dict, dict]:
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
     models = import_module(f"{PKG}.models")
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     results = main.run(CNN_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fl.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak()
 
     rt = results["round_timings"]
     train_steps = sum(r["train_steps"] for r in rt)
@@ -1338,6 +1427,10 @@ def run_cnn() -> tuple[dict, dict]:
     train_ms = sum(r["train_ms"] for r in rt)
     step_ms = train_ms / train_steps
     images_s = train_steps * PATH_BATCH / (train_ms / 1e3)
+    MEMORY_ROWS["cnn"] = results["memory"]
+    MFU_RUNS["cnn"] = dict(argv=CNN_ARGV, num_classes=10,
+                           example=list(results["test"].images.shape[1:]),
+                           tokens=False, step_ms=step_ms, workers=1)
     print(f"[cnn] {params:,} params; {len(stats) // 2} BatchNorms, all "
           f"statistics finite and moved; wall {wall:.1f} s; "
           f"{train_steps} train steps; train step {step_ms:.3f} ms; "
@@ -1564,6 +1657,7 @@ def phase_serve(name: str, ckpt_dir: str) -> dict:
           f"{mem['kv_pool_bytes'] / 2**30:.3f}); restore "
           f"{tele['restore_ms']:.1f} ms; programs {tele['programs']}; "
           f"main.run wall {wall:.1f} s")
+    MEMORY_ROWS[f"serve {name}"] = tele["memory"]
     profile_serve(name, engine)
     return tele
 
@@ -2041,7 +2135,7 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     main = import_module(f"{PKG}.main")
     argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label), "--num_workers",
             str(n), "--aggregation_by", "weights", *extra]
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     results = main.run(argv)
@@ -2150,14 +2244,14 @@ def _sim_run(tag: str, argv: list[str]):
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
     results = main.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fl.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    peak = _peak()
     return counts, results, wall, peak
 
 
@@ -2247,6 +2341,14 @@ def phase_sim_cnn(one_worker_images_s: float, sync_rates: dict) -> dict:
         if label == "sim cnn n32" and not peak < 80e9:
             fail(f"{tag}: peak {peak / 2**30:.2f} GiB")
         if label == "sim cnn n8":
+            MEMORY_ROWS[label] = results["memory"]
+            rt = results["round_timings"]
+            MFU_RUNS[label] = dict(
+                argv=argv, num_classes=10,
+                example=list(results["test"].images.shape[1:]),
+                tokens=False, workers=n,
+                step_ms=(sum(r["train_ms"] for r in rt)
+                         / sum(r["train_steps"] for r in rt)))
             phase_profile_sim(results, argv)
         del results, state
         torch.cuda.empty_cache()
@@ -2341,7 +2443,7 @@ def phase_sim_scenario() -> None:
     sim_mod = import_module(f"{PKG}.sim")
     t0 = time.perf_counter()
     draws, frozen = [], []
-    round_fn, draw_fn = sim_mod.SimEngine.round, \
+    start_fn, draw_fn = sim_mod.SimEngine.round_start, \
         sim_mod.SimEngine._draw_scenario
 
     def spy_draw(self):
@@ -2352,18 +2454,18 @@ def phase_sim_scenario() -> None:
     def spy_round(self, state, *packs):
         before = [t.clone() for t in (*state.params, *state.opt.mu,
                                       *state.opt.nu)]
-        state, mx = round_fn(self, state, *packs)
+        state, handle = start_fn(self, state, *packs)
         after = (*state.params, *state.opt.mu, *state.opt.nu)
         for i in np.flatnonzero(draws[-1][1]):
             frozen.append((len(draws) - 1, int(i), all(
                 torch.equal(a[i], b[i]) for a, b in zip(after, before))))
-        return state, mx
+        return state, handle
 
     argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "sim_scenario"),
             "--sim_workers", "8", "--aggregation_by", "weights",
             "--epochs_local", "1", "--limit_train_samples", "1024",
             "--limit_eval_samples", "256", *SIM_SCENARIO]
-    with mock.patch.object(sim_mod.SimEngine, "round", spy_round), \
+    with mock.patch.object(sim_mod.SimEngine, "round_start", spy_round), \
             mock.patch.object(sim_mod.SimEngine, "_draw_scenario",
                               spy_draw):
         counts, results, wall, peak = _sim_run("[sim scenario]", argv)
@@ -2456,6 +2558,361 @@ def phase_profile_sim(results, argv: list[str]) -> None:
                    device)
 
 
+def _round_rows(tag: str, flow: str, rows: list) -> None:
+    for r in rows:
+        print(f"{tag} {flow} round {r['epoch']}: "
+              + ", ".join(f"{k} {r[k]:.3f}" if k in r else f"{k} -"
+                          for k in OVERLAP_KEYS))
+
+
+def _spy_partitions(t_driver, out: list):
+    """``t_driver._capped`` recording a digest of every shard set packed
+    (the prep thread's calls too); returns the original."""
+    import hashlib
+    import numpy as np
+    real = t_driver._capped
+
+    def spy(parts, batch, caps=None):
+        h = hashlib.sha256()
+        for p in parts:
+            h.update(np.asarray(p, np.int64).tobytes())
+        out.append(h.hexdigest())
+        return real(parts, batch, caps)
+    t_driver._capped = spy
+    return real
+
+
+def overlap_cnn() -> None:
+    """Phase overlap cnn, in the deterministic child: the cnn run (probe
+    and walls pinned) with --no_overlap_rounds and with the overlapped
+    loop, then the same at N=4 on the sync n4 traffic; every metric list,
+    the parameters (every rank's checksum at N=4) and the partitions
+    equal to the bit; each round's stage/compute/fetch/
+    assemble/prep/gap ms of both flows and the rounds' total wall."""
+    import functools
+    import gc
+    import operator
+    import torch
+    from importlib import import_module
+    t_driver = import_module(f"{PKG}.driver")
+    config = import_module(f"{PKG}.config")
+    keys = ("all_workers_losses", "global_train_losses", "global_val_losses",
+            "global_train_accuracies", "worker_specific_train_losses",
+            "step_caps", "shard_sizes")
+    t0 = time.perf_counter()
+    for tag, argv, n in (("[overlap cnn]", OVERLAP_ARGV, 1),
+                         ("[overlap cnn n4]", OVERLAP_N4_ARGV, 4)):
+        runs = {}
+        for flow in ("serial", "overlapped"):
+            cfg = config.config_from_args(
+                argv + (["--no_overlap_rounds"] if flow == "serial" else []))
+            kw = dict(simulated_durations=OVERLAP_PROBE[:n],
+                      simulated_round_durations=functools.partial(
+                          operator.getitem, [w[:n] for w in OVERLAP_WALLS]),
+                      progress=False)
+            parts: list = []
+            real = _spy_partitions(t_driver, parts)
+            t1 = time.perf_counter()
+            try:
+                if n == 1:
+                    res = t_driver.train_global(cfg, **kw)
+                else:
+                    res = t_driver.run_group(cfg, n, train_kwargs=kw,
+                                             target=elastic_rank)
+            finally:
+                t_driver._capped = real
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            rows = res["round_timings"]
+            rounds_ms = sum(r["compute_ms"] for r in rows) + sum(
+                r.get("gap_ms", 0.0) for r in rows)
+            runs[flow] = (res, parts)
+            _round_rows(tag, flow, rows)
+            print(f"{tag} {flow}: rounds' total wall (compute + gaps) "
+                  f"{rounds_ms:.1f} ms; gap_ms "
+                  f"{[r['gap_ms'] for r in rows if 'gap_ms' in r]}; run wall "
+                  f"{wall:.1f} s")
+        (a, pa), (b, pb) = runs["serial"], runs["overlapped"]
+        same = [k for k in keys if a[k] != b[k]]
+        if n == 1:
+            params = all(torch.equal(a["variables"][k], b["variables"][k])
+                         for k in a["variables"])
+        else:
+            params = a["param_checksums"] == b["param_checksums"]
+        print(f"{tag} serial vs overlapped: metrics "
+              f"{'bitwise equal' if not same else f'DIFFER in {same}'}; "
+              f"parameters{' on every rank' if n > 1 else ''}"
+              f" {'bitwise equal' if params else 'DIFFER'}; partitions "
+              f"{'equal' if pa == pb else 'DIFFER'} ({len(set(pa))} distinct "
+              "shard sets packed)")
+        if same or not params or pa != pb or not pa:
+            fail(f"{tag}: the overlapped run is not bitwise the serial run")
+    # rank 0 of the elastic phase lives in this process: leave nothing of
+    # these runs on the card
+    del runs, res, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[overlap cnn] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def _sync_debug_probe() -> dict:
+    """Which host waits torch's sync-debug mode counts on this card: each
+    call under set_sync_debug_mode("error"), raised or passed."""
+    import numpy as np
+    import torch
+    x = torch.ones(1024, device="cuda")
+    ev = torch.cuda.Event()
+    side = torch.cuda.Stream()
+    pinned = torch.empty(1024, pin_memory=True)
+    calls = {
+        "torch.cuda.synchronize()": torch.cuda.synchronize,
+        "Event.synchronize()": lambda: (ev.record(), ev.synchronize()),
+        "Event.query()": lambda: (ev.record(), ev.query()),
+        "Stream.synchronize()": side.synchronize,
+        "pinned D2H non_blocking": lambda: pinned.copy_(
+            x, non_blocking=True),
+        "tensor.item()": lambda: x.sum().item(),
+        "tensor.cpu()": lambda: x.cpu(),
+        "H2D torch.as_tensor(numpy)": lambda: torch.as_tensor(
+            np.ones(4, np.float32), device="cuda"),
+        "tensor.nonzero()": lambda: x.nonzero(),
+    }
+    out = {}
+    for name, fn in calls.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            out[name] = "passes"
+        except RuntimeError as e:
+            out[name] = ("counts" if "synchronizing" in str(e)
+                         else f"error {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+def _findings_guard(found: list):
+    """A stand-in for the driver's ``_round_guard`` that lists every
+    implicit sync of the guarded rounds instead of raising at the first:
+    the warn mode, each warning's Python location."""
+    import contextlib
+    import warnings
+    import torch
+
+    @contextlib.contextmanager
+    def guard(san, device):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        for w in rec:
+            if "synchronizing" in str(w.message):
+                path = os.path.relpath(w.filename, ROOT)
+                found.append(f"{path}:{w.lineno}")
+    return guard
+
+
+def phase_sanitize() -> None:
+    """Phase sanitize: which host waits count under the sync-debug mode;
+    --sanitize on the cnn and gpt2 paths (2 short rounds): clean, every
+    counter 0; an .item() planted in the train step: counted once and
+    raised; then what the guard finds on every path, listed by place
+    (warn mode), which fails nothing."""
+    import collections
+    import torch
+    from importlib import import_module
+    t_driver = import_module(f"{PKG}.driver")
+    t_train = import_module(f"{PKG}.train")
+    config = import_module(f"{PKG}.config")
+    t0 = time.perf_counter()
+    tag = "[sanitize]"
+    for name, verdict in _sync_debug_probe().items():
+        print(f"{tag} under the sync-debug mode: {name} {verdict}")
+    run = lambda argv: t_driver.train_global(
+        config.config_from_args([*argv, "--sanitize"]), progress=False)
+    for name in SANITIZE_CLEAN:
+        res = run(SANITIZE_RUNS[name])
+        san = res["sanitize"]
+        print(f"{tag} {name}: {json.dumps(san)}")
+        if not san["enabled"] or any(san[k] for k in (
+                "transfer_guard_violations", "retrace_count",
+                "recompile_count", "donation_failures")):
+            fail(f"sanitize: the {name} path is not clean: {san}")
+    guards = []
+    real_guard, real_step = t_driver._round_guard, t_train.LocalSGDEngine._train_step
+
+    def spy(san, device):
+        guards.append(san)
+        return real_guard(san, device)
+
+    def planted(self, *args):
+        out = real_step(self, *args)
+        out[0].item()                  # the planted implicit sync
+        return out
+
+    t_driver._round_guard, t_train.LocalSGDEngine._train_step = spy, planted
+    err = None
+    try:
+        run(SANITIZE_RUNS["cnn"])
+    except RuntimeError as e:
+        err = e
+    finally:
+        t_driver._round_guard = real_guard
+        t_train.LocalSGDEngine._train_step = real_step
+    count = guards[0]["transfer_guard_violations"] if guards else None
+    print(f"{tag} planted .item() in the train step: raised "
+          f"{type(err).__name__ if err else None}; "
+          f"transfer_guard_violations {count}")
+    if err is None or t_driver.SYNC_DEBUG_ERROR not in str(err) or count != 1:
+        fail(f"sanitize: the planted sync was not caught ({err!r}, {count})")
+    for name, argv in SANITIZE_RUNS.items():
+        found: list = []
+        t_driver._round_guard = _findings_guard(found)
+        try:
+            run(argv)
+        finally:
+            t_driver._round_guard = real_guard
+        sites = collections.Counter(found)
+        print(f"{tag} findings {name}: "
+              + (", ".join(f"{k} x{v}" for k, v in sites.most_common())
+                 or "none"))
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def phase_profile_dir() -> None:
+    """Phase profile_dir: one short cnn run with --profile_dir; the trace
+    file is there and holds CUDA kernel rows."""
+    from importlib import import_module
+    t_driver = import_module(f"{PKG}.driver")
+    config = import_module(f"{PKG}.config")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    t_driver.train_global(config.config_from_args(
+        [*SANITIZE_RUNS["cnn"], "--epochs_global", "1", "--profile_dir",
+         PROFILE_DIR]), progress=False)
+    wall = time.perf_counter() - t0
+    path = os.path.join(PROFILE_DIR, "trace_rank0.json")
+    if not os.path.isfile(path):
+        fail(f"profile_dir: no trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    print(f"[profile_dir] {os.path.relpath(path, ROOT)}: "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB, {len(events)} events, "
+          f"{len(kernels)} CUDA kernel rows "
+          f"({sum(e.get('dur', 0) for e in kernels) / 1e3:.1f} ms of "
+          f"kernels); run wall {wall:.1f} s")
+    if not kernels:
+        fail("profile_dir: the trace holds no CUDA kernel row")
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+
+
+def phase_memory() -> None:
+    """Phase memory: the memory rows of the cnn, gpt2 and sim cnn n8 runs
+    and of the serve gpt2 telemetry (available, every registered program
+    present); the lab's stacked total N x per worker; a peak reached
+    before a tracked program's first call surviving in the process peak;
+    bert's train-step temp bytes down the remat ladder."""
+    import gc
+    import torch
+    from importlib import import_module
+    probe = import_module(f"{PKG}.probe")
+    tag = "[memory]"
+    for label, want in MEMORY_PROGRAMS.items():
+        mem = MEMORY_ROWS.get(label)
+        if mem is None:
+            fail(f"memory: no row from the {label} run")
+        rows = {k: [(r["temp_bytes"], r["argument_bytes"], r["output_bytes"],
+                     r["alias_bytes"]) for r in v]
+                for k, v in mem["programs"].items()}
+        print(f"{tag} {label}: available {mem['available']}; programs "
+              f"(temp, argument, output, alias bytes) {rows}; unavailable "
+              f"{mem['programs_unavailable']}; temp total "
+              f"{mem['temp_bytes_total']:,}"
+              + (f"; per-worker resident {mem['per_worker_resident_bytes']:,}"
+                 f", state total {mem['state_bytes_total']:,} over "
+                 f"{mem['workers']} worker(s)"
+                 if "state_bytes_total" in mem else ""))
+        if not mem["available"] or set(mem["programs"]) != want:
+            fail(f"memory: {label}'s row is not available with programs "
+                 f"{sorted(want)}: {sorted(mem['programs'])}, unavailable "
+                 f"{mem['programs_unavailable']}")
+    sim = MEMORY_ROWS["sim cnn n8"]
+    if sim["state_bytes_total"] != 8 * sim["per_worker_resident_bytes"]:
+        fail("memory: the lab's state total is not 8 x per worker")
+    dev = torch.device("cuda")
+    gc.collect()                     # no garbage freed under the check
+    probe.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    del big
+    probe.TrackedProgram("peak_check", lambda a: a * 2)(
+        torch.ones(1 << 20, device=dev))
+    card, process = torch.cuda.max_memory_allocated(dev), _peak()
+    print(f"{tag} 1 GiB allocated and freed over {base / 2**30:.3f} GiB "
+          f"held, then a tracked program: the card's peak statistic "
+          f"{card / 2**30:.3f} GiB (reset by the program's measurement), "
+          f"the process peak {process / 2**30:.3f} GiB")
+    if not (process >= base + (1 << 30) > card):
+        fail("memory: the process peak lost a peak to the probe's reset")
+    ladder = [REMAT_TEMP.get(f"remat {p}") for p in
+              ("none", "dots_saveable", "everything")]
+    print(f"{tag} bert train_step temp_bytes: none {ladder[0]:,}, "
+          f"dots_saveable {ladder[1]:,}, everything {ladder[2]:,}; "
+          + ", ".join(f"{k.removeprefix('remat ')} {v:,}"
+                      for k, v in REMAT_TEMP.items()
+                      if k.removeprefix("remat ") not in
+                      ("none", "dots_saveable", "everything")))
+    if not ladder[0] >= ladder[1] >= ladder[2]:
+        fail(f"memory: bert's temp bytes break the remat ladder {ladder}")
+
+
+def phase_mfu(smi: str) -> None:
+    """Phase mfu: each path's FLOPs per train step, counted on its dense
+    twin on the meta device (the flash ops are opaque to the counter;
+    JAX's benchmark uses the dense formulation too), and its MFU from the
+    step time of this call; first the count against 2*M*N*K of one
+    matmul layer."""
+    import dataclasses
+    import torch
+    from importlib import import_module
+    t_driver = import_module(f"{PKG}.driver")
+    config = import_module(f"{PKG}.config")
+    flops = import_module(f"{PKG}.utils.flops")
+    m, k, n = MFU_LINEAR
+    layer = torch.nn.Linear(k, n, bias=False, device="meta")
+    got = flops.compiled_flops(layer, torch.empty(m, k, device="meta"))
+    print(f"[mfu] one [{m}, {k}] x [{k}, {n}] layer: counted {got:.0f}, "
+          f"2*M*N*K {2 * m * n * k}")
+    if not abs(got - 2 * m * n * k) <= MFU_RTOL * 2 * m * n * k:
+        fail("mfu: the FLOP count of one matmul layer is not 2*M*N*K")
+    dev = torch.device("cuda")
+    peak = flops.peak_flops(dev)
+    print(f"[mfu] card {torch.cuda.get_device_name(0)} ({smi}); peak "
+          f"{peak} FLOP/s bf16 dense, HBM {flops.hbm_bytes_per_sec(dev)} B/s "
+          "(data sheet)")
+    for name, run in MFU_RUNS.items():
+        cfg = dataclasses.replace(config.config_from_args(run["argv"]),
+                                  attention_impl="dense")
+        model = t_driver.build_model_for(cfg, run["num_classes"],
+                                         torch.device("meta"),
+                                         tuple(run["example"]))
+        x = torch.empty((PATH_BATCH, *run["example"]), device="meta",
+                        dtype=torch.long if run["tokens"] else torch.float32)
+        step = run["workers"] * flops.train_step_flops(model, x)
+        mfu = flops.mfu(step, run["step_ms"] / 1e3, dev)
+        print(f"[mfu] {name}: {step / 1e12:.4f} TFLOP per train step"
+              + (f" ({run['workers']} workers)" if run["workers"] > 1
+                 else "")
+              + f", step {run['step_ms']:.3f} ms, "
+              f"{step / (run['step_ms'] / 1e3) / 1e12:.1f} TFLOP/s, MFU "
+              + (f"{100 * mfu:.2f} %" if mfu is not None else "not known"))
+
+
 def llama_child() -> int:
     """The llama path, run in a child process whose environment has
     FLASH_BWD=fused before the port is imported; prints its counts as one
@@ -2476,7 +2933,8 @@ def llama_child() -> int:
     torch.cuda.empty_cache()
     phase_serve("llama", LLAMA_CKPT_DIR)
     shutil.rmtree(LLAMA_CKPT_DIR, ignore_errors=True)
-    print(RESULT_TAG + json.dumps({"counts": counts}), flush=True)
+    print(RESULT_TAG + json.dumps({"counts": counts,
+                                   "mfu": MFU_RUNS["llama"]}), flush=True)
     return 0
 
 
@@ -2497,6 +2955,7 @@ def phase_llama() -> dict:
         sys.stderr.write(proc.stderr[-6000:])
         fail(f"the llama child exited with {proc.returncode}"
              + ("" if result else " and printed no result line"))
+    MFU_RUNS["llama"] = result["mfu"]
     return result["counts"]
 
 
@@ -2686,14 +3145,27 @@ def elastic_child() -> int:
     return 0
 
 
+def deterministic_child(overlap: bool, elastic: bool) -> int:
+    """The phases that compare runs bit for bit, in a child process whose
+    environment sets CUBLAS_WORKSPACE_CONFIG before CUDA starts, under
+    torch.use_deterministic_algorithms (cuDNN's choice of algorithm could
+    otherwise make two runs of one flow differ by itself)."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    if overlap:
+        overlap_cnn()
+    return elastic_child() if elastic else 0
+
+
 def phase_elastic() -> dict:
-    """Run elastic_child in a child process (CUBLAS_WORKSPACE_CONFIG set
-    before CUDA starts); echo its output and return its result."""
+    """Run the overlap cnn and elastic cnn n4 phases in the deterministic
+    child (CUBLAS_WORKSPACE_CONFIG set before CUDA starts); echo its
+    output and return the elastic phase's result."""
     env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           ELASTIC_PHASE], env=env, capture_output=True,
-                          text=True, timeout=900)
+                           DETERMINISTIC_PHASE], env=env,
+                          capture_output=True, text=True, timeout=1000)
     result = None
     for line in proc.stdout.splitlines():
         if line.startswith(ELASTIC_RESULT_TAG):
@@ -2702,9 +3174,10 @@ def phase_elastic() -> dict:
             print(line)
     if proc.returncode != 0 or result is None:
         sys.stderr.write(proc.stderr[-8000:])
-        fail(f"the elastic child exited with {proc.returncode}"
+        fail(f"the deterministic child exited with {proc.returncode}"
              + ("" if result else " and printed no result line"))
-    print(f"[elastic cnn n4] phase wall {time.perf_counter() - t0:.1f} s")
+    print(f"[overlap cnn + elastic cnn n4] child wall "
+          f"{time.perf_counter() - t0:.1f} s")
     return result
 
 
@@ -2712,7 +3185,11 @@ def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
     if sys.argv[1:] == [ELASTIC_PHASE]:
-        return elastic_child()
+        return deterministic_child(overlap=False, elastic=True)
+    if sys.argv[1:] == [OVERLAP_PHASE]:
+        return deterministic_child(overlap=True, elastic=False)
+    if sys.argv[1:] == [DETERMINISTIC_PHASE]:
+        return deterministic_child(overlap=True, elastic=True)
     if sys.argv[1:] == [ACCUM_PHASE]:
         # the [grad_accum] comparison alone (K=4 against K=1), e.g. on a
         # copy of the port with a fault planted in the accumulation
@@ -2772,6 +3249,9 @@ def main() -> int:
                 / (sum(r["train_ms"] for r in rt) / 1e3))
     del results
     torch.cuda.empty_cache()
+    phase_sanitize()
+    phase_profile_dir()
+    torch.cuda.empty_cache()
     counts["sync"], sync_rates = phase_sync(images_s)
     t_sim = time.perf_counter()
     counts["sim_cnn"] = phase_sim_cnn(images_s, sync_rates)
@@ -2780,6 +3260,8 @@ def main() -> int:
     counts["sim_gpt2"] = phase_sim_gpt2()
     print(f"[sim] phases wall {time.perf_counter() - t_sim:.1f} s")
     phase_elastic()
+    phase_memory()
+    phase_mfu(smi)
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

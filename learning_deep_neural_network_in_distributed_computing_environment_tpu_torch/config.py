@@ -14,7 +14,6 @@ import dataclasses
 
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default (or one of ACCEPTED's) is rejected in Config.__post_init__.
-_PIPELINE = "A.11 item 3 (the round pipeline and run observability)"
 _TIERS = "A.11 item 4 (tensor/pipeline/sequence parallelism)"
 NOT_PORTED = {
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
@@ -27,9 +26,6 @@ NOT_PORTED = {
     "pp_remat": (False, _TIERS),
     "num_slices": (1, "A.11 item 5 (hierarchical two-level sync)"),
     "sync_dtype_outer": ("", "A.11 item 5 (hierarchical two-level sync)"),
-    "profile_dir": ("", _PIPELINE),
-    "sanitize": (False, _PIPELINE),
-    "overlap_rounds": (True, _PIPELINE),
 }
 # values besides the default that a NOT_PORTED flag takes: data=1 is the
 # one-worker mesh
@@ -141,13 +137,8 @@ class Config:
     # consensus delta in at the entry of round R+K+1 (weights mode)
     sync_staleness: int = 0
 
-    # --- flags of features not ported yet (see NOT_PORTED) ------------------
-    layer_scan: str = "auto"
-    mesh_shape: str = "data=-1"
-    sequence_parallel: str = "none"
-    pp_schedule: str = "gpipe"
-    pp_microbatches: int = 0
-    pp_remat: bool = False
+    # elastic membership and chaos (JAX config.py:299-440; chaos.py,
+    # elastic.py): the fault plan, the straggler policy and the quorum
     chaos: str = ""
     chaos_seed: int = 0
     chaos_events: int = 4
@@ -156,13 +147,25 @@ class Config:
     chaos_retries: int = 1
     chaos_backoff: float = 0.5
     elastic_min_workers: int = 1
-    num_slices: int = 1
-    sync_dtype_outer: str = ""
+    # where the consensus lives between rounds, and its buddy copy
     param_residency: str = "auto"
     shard_redundancy: str = "auto"
-    profile_dir: str = ""
+    # the round pipeline and run observability (JAX config.py:81, 164,
+    # 296): a torch.profiler trace of the round loop, the sync-debug guard
+    # around each round, and the overlapped round loop
+    profile_dir: str = ""         # empty => no trace
     sanitize: bool = False
-    overlap_rounds: bool = True
+    overlap_rounds: bool = True   # --no_overlap_rounds: the serial flow
+
+    # --- flags of features not ported yet (see NOT_PORTED) ------------------
+    layer_scan: str = "auto"
+    mesh_shape: str = "data=-1"
+    sequence_parallel: str = "none"
+    pp_schedule: str = "gpipe"
+    pp_microbatches: int = 0
+    pp_remat: bool = False
+    num_slices: int = 1
+    sync_dtype_outer: str = ""
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -200,11 +203,9 @@ class Config:
             value = getattr(self, name)
             if value == default or value in ACCEPTED.get(name, ()):
                 continue
-            flag = (f"--{name} {value}" if name != "overlap_rounds"
-                    else "--no_overlap_rounds")
             raise ValueError(
-                f"{flag} is not ported to the PyTorch package yet; "
-                f"it arrives with ROADMAP queue {where}")
+                f"--{name} {value} is not ported to the PyTorch package "
+                f"yet; it arrives with ROADMAP queue {where}")
         if self.backend == "nccl":
             # N workers share one card here as N processes of a gloo group
             # (mesh.py); NCCL refuses two ranks on one device
@@ -1039,16 +1040,26 @@ def build_argparser() -> argparse.ArgumentParser:
                    default=d.elastic_min_workers,
                    help="quorum floor: membership events that would drop "
                         "below this many live workers are rejected")
+    p.add_argument("--profile_dir", type=str, default=d.profile_dir,
+                   help="write a torch.profiler trace of the round loop "
+                        "(CPU and CUDA activity) into this directory, one "
+                        "file per worker process")
+    p.add_argument("--sanitize", action="store_true", default=d.sanitize,
+                   help="run each round under torch.cuda."
+                        "set_sync_debug_mode('error'): an implicit "
+                        "host-device sync in the round loop is counted "
+                        "(results['sanitize']) and raised")
+    p.add_argument("--no_overlap_rounds", action="store_true",
+                   help="the serial round loop: no prep of the next round "
+                        "and no metric fetch beside the running round "
+                        "(bit-identical results)")
     # JAX's persistent XLA compile cache: a documented no-op here
     p.add_argument("--compile_cache_dir", type=str, default=None,
                    help="[compat no-op] the JAX package's XLA compile "
                         "cache; the port compiles nothing ahead of time")
     for name, (default, _where) in NOT_PORTED.items():
         help_ = "not ported yet (rejected unless default)"
-        if name == "overlap_rounds":
-            p.add_argument("--no_overlap_rounds", action="store_true",
-                           help=help_)
-        elif isinstance(default, bool):
+        if isinstance(default, bool):
             p.add_argument(f"--{name}", action="store_true", help=help_)
         else:
             p.add_argument(f"--{name}", type=type(default), default=default,

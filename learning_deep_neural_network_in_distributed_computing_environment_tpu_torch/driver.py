@@ -1,21 +1,35 @@
 """``train_global``: the orchestration loop (port of the JAX package's
-``driver.py:67-125, 213-235``, serial), run by every rank of the worker
-group (one call per process; ``group=None`` is the one-worker run).
+``driver.py:67-125, 213-235``, with its overlapped round pipeline
+:996-1208), run by every rank of the worker group (one call per process;
+``group=None`` is the one-worker run).
 
 1. load -> 80/20 train/val split;
 2. timing probe -> shard-share ratios;
 3. proportional partition of train and val (non-IID skew when
    disbalanced);
-4. per global epoch: pack the worker's capped shard, run the round
-   (``epochs_local`` x train + validation, then the sync point), assemble
-   the reference metrics; with ``--stream_chunk_steps C`` the round
-   streams fixed-shape windows of C steps instead (``chunk_feed``,
-   ``LocalSGDEngine.round_streamed``; JAX ``driver.py:978-985, 1652``);
+4. per global epoch: pack the worker's capped shard and stage it on the
+   device, run the round (``epochs_local`` x train + validation, then the
+   sync point), assemble the reference metrics; with
+   ``--stream_chunk_steps C`` the round streams fixed-shape windows of C
+   steps instead (``chunk_feed``, ``LocalSGDEngine.round_streamed``; JAX
+   ``driver.py:978-985, 1652``);
 5. straggler feedback: every worker's measured round wall, divided by
-   ``epochs_local``, feeds the sec/batch EMA one round late (as in the JAX
-   driver's overlapped pipeline, whose serial mode uses the same delay),
-   and each shard is re-partitioned from ``prev_fraction`` of its own
-   indices plus ``next_fraction`` of the pool.
+   ``epochs_local``, feeds the sec/batch EMA one round late, and each
+   shard is re-partitioned from ``prev_fraction`` of its own indices plus
+   ``next_fraction`` of the pool.
+
+By default the rounds overlap their host work (JAX's default): while
+round r runs, a prep thread builds round r+1's inputs (step 5, then the
+pack and its staging), and a one-thread executor fetches, gathers and
+assembles round r's metrics; ``--no_overlap_rounds`` runs the same data
+flow inline, with bit-identical results.  ``round_timings`` carry JAX's
+``stage_ms``, ``compute_ms``, ``fetch_ms``, ``assemble_ms``, ``prep_ms``
+and ``gap_ms`` (the host time between a round's end and the next
+dispatch; absent on the last round).  ``--sanitize`` runs each round under
+the sync-debug guard (``_round_guard``; ``results["sanitize"]``),
+``--profile_dir`` writes a ``torch.profiler`` trace of the round loop, and
+every run reports ``results["memory"]`` (``probe.memory_report`` of the
+engine's programs and its state bytes).
 
 Every rank computes every worker's partition from the same
 ``np.random.default_rng(cfg.seed)`` stream and the same gathered inputs
@@ -60,12 +74,16 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import hashlib
 import logging
 import os
 import shutil
 import sys
+import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor, wait
+from contextlib import contextmanager
 from typing import Any, Callable
 
 import numpy as np
@@ -212,7 +230,9 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw["input_shape"] = tuple(input_shape)
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
                       device=device, **kw)
-    model.init_parameters(torch.Generator(device=device).manual_seed(cfg.seed))
+    if device.type != "meta":      # a meta model only propagates shapes
+        model.init_parameters(
+            torch.Generator(device=device).manual_seed(cfg.seed))
     return model.to(memory_format=torch.channels_last)
 
 
@@ -344,6 +364,74 @@ def _host_row_of(ws) -> dict:
             "lr_epoch": int(ws.lr_epoch), "rng": np.asarray(ws.rng),
             "sync_residual": ws.residual, "round_opt": ws.round_opt,
             "params_resident": ws.params_resident, "buddy": None}
+
+
+# the sanitizer checks of the JAX driver that watch XLA (retraces,
+# recompiles, declined donations): an eager round has none of them, so
+# their counters stay 0 and results["sanitize"] names them
+_XLA_ONLY_CHECKS = ("retrace_count", "recompile_count", "donation_failures")
+# the message of torch's sync-debug error (c10 ``warn_or_error_on_sync``)
+SYNC_DEBUG_ERROR = "called a synchronizing CUDA operation"
+
+
+@contextmanager
+def _round_guard(san: dict, device: torch.device):
+    """``--sanitize``'s guard around one round (JAX ``_round_guard``):
+    ``torch.cuda.set_sync_debug_mode("error")``, under which an implicit
+    host<->device sync (``.item()``, a blocking copy, ``nonzero``) raises.
+    An error of that kind is counted into
+    ``san["transfer_guard_violations"]`` and re-raised; any other error
+    passes uncounted.  The round's explicit staging (``stage_pack``) and
+    its metric fetch (``finish_metrics``) run outside it, as JAX's
+    explicit ``device_put``/``device_get`` pass its transfer guard.  The
+    mode is process-wide, so the threads beside a round wait for the card
+    by polling events, never by a blocking sync.  No-op when the sanitizer
+    is off or the round runs on the CPU (no device to sync with)."""
+    if not san["enabled"] or device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        if SYNC_DEBUG_ERROR in str(e):
+            san["transfer_guard_violations"] += 1
+            log.error("sanitizer: implicit host-device sync in the round "
+                      "loop: %s", e)
+        raise
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def _start_profile(profile_dir: str, device: torch.device):
+    """``--profile_dir``: a ``torch.profiler`` trace of the round loop
+    (JAX ``driver.py:987-994``), CPU and, on a card, CUDA activity; an
+    unavailable CUDA tracer on the card is an error.  None when off."""
+    if not profile_dir:
+        return None
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        if ProfilerActivity.CUDA not in supported_activities():
+            raise RuntimeError(
+                "--profile_dir: torch.profiler cannot trace the card here "
+                f"(supported activities: {supported_activities()})")
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, rank: int, write: bool) -> None:
+    """Stop the trace; when ``write``, export it as
+    ``{profile_dir}/trace_rank{rank}.json`` (one file per process)."""
+    prof.stop()
+    if write:
+        path = os.path.join(profile_dir, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(path)
+        log.info("profile: round-loop trace written to %s", path)
 
 
 def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
@@ -550,7 +638,14 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             epochs = pbar
         except ImportError:
             pass
-    walls: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+    # round -> (its walls, or a thunk that waits for its metric job; the
+    # steps it ran): the EMA consumes them one round late
+    walls: dict[int, tuple[Any, np.ndarray]] = {}
+    walls_lock = threading.Lock()
+    # the round pipeline's work beside the main thread: the next round's
+    # prep (a dict, or its future while it runs) and the metric jobs
+    prep: Any = None
+    pending: list[Future] = []
 
     def engine_summary() -> None:
         # the engine provenance of the run (JAX driver.py:925-951)
@@ -581,13 +676,30 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         sync_bytes, wire_bytes = wire_bytes_of()
 
     def consume_walls(upto: int) -> None:
-        """Blend the recorded walls of rounds < ``upto`` into the EMA (one
-        round late, as the JAX driver's pipeline does)."""
+        """Blend the recorded walls of rounds < ``upto`` into the EMA, in
+        round order (one round late, as the JAX driver's pipeline does).
+        Runs on the prep thread while a round computes: a round's walls
+        may still be the thunk that waits for its metric job."""
         nonlocal sec_per_batch
-        for r in sorted(k for k in walls if k < upto):
-            wall_r, steps_r = walls.pop(r)
+        with walls_lock:
+            due = [walls.pop(r) for r in sorted(k for k in walls if k < upto)]
+        for wall_r, steps_r in due:
+            if callable(wall_r):
+                wall_r = wall_r()
             sec_per_batch = (0.5 * sec_per_batch
                              + 0.5 * wall_r / np.maximum(steps_r, 1.0))
+
+    def settle_pipeline() -> None:
+        """Finish what runs beside the main thread (before a membership
+        boundary): the prep in flight, whose repartition has drawn from
+        ``rng`` (so the partitions the snapshot takes are final), and every
+        metric job (every wall on record, the metric group idle before
+        the group is re-formed)."""
+        nonlocal prep
+        if isinstance(prep, Future):
+            prep = prep.result()
+        while pending:
+            pending.pop(0).result()
 
     def transition(rnd: int, change, row: dict, lost=None):
         """Move the group to ``change``'s roster (module docstring of
@@ -691,6 +803,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         """The boundary entering ``rnd`` (JAX ``membership_boundary``):
         scripted kill/join events plus last round's departures; on a
         change, the transition.  Returns whether this rank retired."""
+        nonlocal prep
         events = list(pending_departs)
         if schedule is not None:
             events += schedule.membership_events(rnd)
@@ -707,6 +820,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         if not change.changed:
             return False
         t0 = time.perf_counter()
+        settle_pipeline()
         consume_walls(rnd)
         walls.clear()
         if policy is not None:
@@ -714,6 +828,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         if ckpt is not None:
             ckpt.wait()
         _source, retired = transition(rnd, change, engine.host_row(state))
+        # the prep built for the old roster is dead: the round's inputs
+        # are made again from the snapshot's partitions (as JAX does)
+        prep = None
         el["events"].extend(change.applied)
         reshard_ms = round((time.perf_counter() - t0) * 1e3, 3)
         el["reshard_ms"].append(reshard_ms)
@@ -728,6 +845,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         rows, remove the workers through the same plan -> snapshot ->
         install path, and let the caller re-run the round.  Returns
         whether this rank retired."""
+        nonlocal prep
         t0 = time.perf_counter()
         el["crashes"] += len(crashed)
         log.warning("elastic: worker(s) %s missed the round-%d fence "
@@ -754,6 +872,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         if ckpt is not None:
             ckpt.wait()
         source, retired = transition(rnd, change, row, lost=positions)
+        prep = None                # the re-run's inputs, from the snapshot
         el["events"].extend(change.applied)
         el["recoveries"] += 1
         el["recovery_source"].append(source)
@@ -787,83 +906,216 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 pending_departs.append(chaos_lib.ChaosEvent(
                     kind="depart", round=rnd + 1, worker=int(wid)))
 
-    def round_walls(epoch: int, mx) -> np.ndarray:
+    def round_walls(epoch: int, mx, n_: int, ids: list) -> np.ndarray:
+        """Round ``epoch``'s per-worker walls on roster ``ids`` (``n_``
+        workers): measured (``mx``, its metrics or their future) or
+        simulated, then the chaos schedule's perturbation."""
         if simulated_round_durations is None:
+            if isinstance(mx, Future):
+                mx = mx.result()
             worker_walls = measured_worker_walls(mx["workers_wall_s"],
                                                  cfg.epochs_local)
         else:
             worker_walls = np.asarray(simulated_round_durations(epoch),
                                       np.float64)
-            if worker_walls.shape != (n,):
+            if worker_walls.shape != (n_,):
                 # elastic runs: a vector indexed by logical id also works
                 # (JAX driver.py:1214-1228)
                 if (elastic_on and worker_walls.ndim == 1
-                        and len(worker_walls) > max(worker_ids)):
-                    worker_walls = worker_walls[worker_ids]
+                        and len(worker_walls) > max(ids)):
+                    worker_walls = worker_walls[ids]
                 else:
                     raise ValueError(
                         f"simulated_round_durations({epoch}) returned shape "
-                        f"{worker_walls.shape}; the run has {n} workers")
+                        f"{worker_walls.shape}; the run has {n_} workers")
         if schedule is not None:
-            worker_walls = schedule.perturb_walls(epoch, worker_ids,
-                                                  worker_walls)
+            worker_walls = schedule.perturb_walls(epoch, ids, worker_walls)
         return worker_walls
 
+    # --- the round pipeline (JAX driver.py:996-1208) ---------------------
+    # Overlapped (the default): while round r runs on the main thread, a
+    # prep thread builds round r+1's inputs (the walls through r-1 into
+    # the EMA, repartition, skew, caps, pack, and the copy to the card
+    # through pinned memory on a side stream), and after it a one-thread
+    # executor fetches, gathers (on the engine's own metric group) and
+    # assembles round r's metrics.  --no_overlap_rounds runs the same data
+    # flow inline; the EMA takes the walls one round late in both, so the
+    # two give bit-identical results.  An eager round is fenced when it
+    # returns, so there is no counterpart of JAX's two rounds in flight.
+    # Crash and NaN arming force the serial flow, as in JAX: a crash voids
+    # a round before its metrics are assembled, and the quarantine reads
+    # each round's validity flags before the next boundary.
+    overlap = cfg.overlap_rounds and not (crash_armed or nan_armed)
+    streaming = cfg.stream_chunk_steps > 0
+    prep_pool = metrics_pool = None
+    if overlap:
+        prep_pool = ThreadPoolExecutor(max_workers=1,
+                                       thread_name_prefix="round-prep")
+        metrics_pool = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="round-metrics")
+
+    def make_prep(tparts, vparts) -> dict:
+        """Caps and staged inputs of the round about to run, from the
+        current sec/batch EMA (the straggler protocol: per-worker step
+        cap from the EMA and the time_limit budget)."""
+        caps = [budget_from_time_limit(
+            int(np.ceil(len(p) / batch)), float(sec_per_batch[i]),
+            cfg.time_limit) for i, p in enumerate(tparts)]
+        steps_run = np.array([min(int(np.ceil(len(p) / batch)), caps[i])
+                              for i, p in enumerate(tparts)], np.float64)
+        if streaming:
+            # the windows are packed inside the round, by its stager
+            chunk = cfg.stream_chunk_steps
+            inputs = (chunk_feed(trainset, tparts, batch, rank, chunk, caps),
+                      chunk_feed(valset, vparts, batch, rank, chunk))
+        elif sim:
+            inputs = engine.stage_pack(_pack_all(trainset, tparts, batch,
+                                                 caps),
+                                       _pack_all(valset, vparts, batch))
+        else:
+            inputs = engine.stage_pack(
+                _pack(trainset, tparts, batch, rank, caps),
+                _pack(valset, vparts, batch, rank))
+        return dict(caps=caps, steps_run=steps_run,
+                    sizes=[len(p) for p in tparts], inputs=inputs,
+                    digest=(_partition_digest(tparts, vparts, caps)
+                            if group is not None else None))
+
+    def prepare_next(epoch: int, steps_run: np.ndarray,
+                     timing: dict) -> dict:
+        """Round ``epoch + 1``'s prep: the walls through ``epoch - 1``
+        into the EMA, then every worker's shard re-partitioned from
+        ``prev_fraction`` of its own indices plus ``next_fraction`` of the
+        pool, with the round durations modeled as EMA sec/batch x the
+        steps round ``epoch`` runs (JAX ``prepare_next``)."""
+        nonlocal train_parts, val_parts
+        t0 = time.perf_counter()
+        consume_walls(epoch)
+        new_ratios = efficiency_ratios(
+            sec_per_batch * np.maximum(steps_run, 1.0), cfg.proportionality)
+        train_parts, val_parts = (
+            [repartition(len(ds), parts[i], new_ratios[i],
+                         cfg.prev_fraction, cfg.next_fraction, rng,
+                         replace=disbalanced)
+             for i in range(len(parts))]
+            for ds, parts in ((trainset, train_parts), (valset, val_parts)))
+        if disbalanced:
+            train_parts, val_parts = (
+                [skew_repartition(ds.labels, p, fixed_classes[i],
+                                  cfg.fixed_ratio, rng)
+                 for i, p in enumerate(parts)]
+                for ds, parts in ((trainset, train_parts),
+                                  (valset, val_parts)))
+        out = make_prep(train_parts, val_parts)
+        timing["prep_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    def fetch(finish, handle, timing: dict) -> dict:
+        t0 = time.perf_counter()
+        mx = finish(handle)
+        timing["fetch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        timing.update({k: mx[k] for k in mx if k.startswith("workers_")})
+        return mx
+
+    def assemble(mx: dict, epoch: int, t_disp: float, timing: dict,
+                 ids: list) -> None:
+        t0 = time.perf_counter()
+        _assemble_round_metrics(results, mx, ids)
+        timing["assemble_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        if progress:
+            _report(cfg, mx, epoch, time.perf_counter() - t_disp, results,
+                    pbar, ids)
+
+    def metrics_job(finish, handle, epoch: int, t_disp: float,
+                    timing: dict, ids: list) -> dict:
+        """The overlapped flow's metric job (JAX ``metrics_job``): fetch
+        (``finish``: the round's engine's ``finish_metrics``), assemble and
+        report round ``epoch`` on the executor thread, with the round's
+        own roster ``ids``."""
+        mx = fetch(finish, handle, timing)
+        assemble(mx, epoch, t_disp, timing, ids)
+        return mx
+
+    san: dict[str, Any] = {"enabled": cfg.sanitize,
+                           "transfer_guard_violations": 0,
+                           "retrace_count": 0, "recompile_count": 0,
+                           "donation_failures": 0,
+                           "not_applicable": list(_XLA_ONLY_CHECKS)}
+    profiler = t_ready = None
     retired = False
     try:
+        profiler = _start_profile(cfg.profile_dir, device)
+        if start_epoch < cfg.epochs_global:
+            prep = make_prep(train_parts, val_parts)
         for epoch in epochs:
+            # a metric job's error ends the run within a round
+            while pending and pending[0].done():
+                pending.pop(0).result()
             if elastic_on:
                 if membership_boundary(epoch):
                     retired = True
                     break
                 if n < n_start:
                     el["rounds_degraded"] += 1
+            last_round = epoch + 1 == cfg.epochs_global
             while True:
+                if prep is None:
+                    prep = make_prep(train_parts, val_parts)
+                elif isinstance(prep, Future):
+                    prep = prep.result()
                 boundary_row = (engine.host_row(state) if crash_armed
                                 else None)
-                # straggler protocol: per-worker step cap from the
-                # sec/batch EMA and the time_limit budget
-                caps = [budget_from_time_limit(
-                    int(np.ceil(len(p) / batch)), float(sec_per_batch[i]),
-                    cfg.time_limit) for i, p in enumerate(train_parts)]
-                steps_run = np.array(
-                    [min(int(np.ceil(len(p) / batch)), caps[i])
-                     for i, p in enumerate(train_parts)], np.float64)
                 if group is not None:
                     _check_same(group, f"round {epoch}'s partition",
-                                _partition_digest(train_parts, val_parts,
-                                                  caps))
-                if cfg.stream_chunk_steps > 0:
-                    # the windows are packed inside the round, by its stager
-                    chunk = cfg.stream_chunk_steps
-                    run_round = engine.round_streamed
-                    inputs = (chunk_feed(trainset, train_parts, batch, rank,
-                                         chunk, caps),
-                              chunk_feed(valset, val_parts, batch, rank,
-                                         chunk))
-                else:
-                    run_round = engine.round
-                    inputs = ((_pack_all(trainset, train_parts, batch, caps),
-                               _pack_all(valset, val_parts, batch)) if sim
-                              else (_pack(trainset, train_parts, batch, rank,
-                                          caps),
-                                    _pack(valset, val_parts, batch, rank)))
+                                prep["digest"])
                 if nan_armed:
                     engine.stage_poison(worker_ids[rank] in
                                         schedule.nan_targets(epoch,
                                                              worker_ids))
-                t0 = time.perf_counter()
-                state, mx = run_round(state, *inputs)
-                wall = time.perf_counter() - t0
-                worker_walls = round_walls(epoch, mx)
+                timing: dict[str, Any] = {"epoch": epoch,
+                                          "ckpt_snapshot_ms": 0.0,
+                                          "ckpt_write_ms": 0.0}
+                nxt = None
+                if overlap and not last_round:
+                    # round epoch + 1's prep runs beside this round
+                    nxt = prep_pool.submit(prepare_next, epoch,
+                                           prep["steps_run"], timing)
+                t_disp = time.perf_counter()
+                if t_ready is not None:
+                    # the host gap between the previous round's end and
+                    # this dispatch: what the overlap exists to shrink
+                    results["round_timings"][-1]["gap_ms"] = round(
+                        (t_disp - t_ready) * 1e3, 3)
+                with _round_guard(san, device):
+                    state, handle = (engine.round_streamed_start
+                                     if streaming else engine.round_start)(
+                        state, *prep["inputs"])
+                t_ready = time.perf_counter()
+                timing.update(stage_ms=handle["stage_ms"],
+                              compute_ms=(t_ready - t_disp) * 1e3,
+                              train_ms=handle["train_ms"],
+                              train_steps=handle["train_steps"],
+                              val_steps=handle["val_steps"])
+                ids = list(worker_ids)
+                if overlap:
+                    mx = metrics_pool.submit(
+                        metrics_job, engine.finish_metrics, handle, epoch,
+                        t_disp, timing, ids)
+                    pending.append(mx)
+                else:
+                    mx = fetch(engine.finish_metrics, handle, timing)
                 crashed: list[int] = []
+                walls_src: Any = functools.partial(round_walls, epoch, mx,
+                                                   n, ids)
                 if policy is not None:
                     # overruns past the backoff-extended deadline are
                     # logged retries, then a departure at the next
                     # boundary; a non-finite wall is the CRASHED verdict:
-                    # the round is void
-                    departed, crashed, retries = policy.observe(
-                        worker_ids, worker_walls)
+                    # the round is void.  The verdict must stand before
+                    # the next boundary, so the walls are read now
+                    walls_src = walls_src()
+                    departed, crashed, retries = policy.observe(ids,
+                                                                walls_src)
                     if not crashed:
                         el["sync_retries"].extend(retries)
                         for r in retries:
@@ -885,6 +1137,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                         "(--chaos has no crash events), so no rollback "
                         "boundary rows exist — fix the wall injection or "
                         "script the crash")
+                # the voided attempt wrote the previous round's gap; the
+                # re-run must not overwrite it with the recovery stall
+                t_ready = None
                 if recover_from_crash(epoch, crashed, boundary_row):
                     retired = True
                     break
@@ -892,19 +1147,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 break
             if elastic_on:
                 el["rosters"].append(list(worker_ids))
-            _assemble_round_metrics(results, mx, worker_ids)
-            results["step_caps"].append(caps)
-            results["shard_sizes"].append([len(p) for p in train_parts])
-            timing = {
-                "epoch": epoch, "compute_ms": wall * 1e3,
-                "train_ms": mx["train_ms"], "train_steps": mx["train_steps"],
-                "val_steps": mx["val_steps"], "ckpt_snapshot_ms": 0.0,
-                "ckpt_write_ms": 0.0}
+            if not overlap:
+                assemble(mx, epoch, t_disp, timing, ids)
+            results["step_caps"].append(prep["caps"])
+            results["shard_sizes"].append(prep["sizes"])
             if sim:
                 # the simulated fabric's row (JAX driver.py:1945-1950)
-                timing.update(
-                    {k: mx[k] for k in mx if k.startswith("workers_")},
-                    **engine.last_sync_stats)
+                timing.update(engine.last_sync_stats)
             else:
                 if elastic_on:
                     # the engine (and its wire) follows the roster
@@ -913,7 +1162,6 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 # level, every byte intra-slice
                 stats = engine.last_sync_stats
                 timing.update(
-                    {k: mx[k] for k in mx if k.startswith("workers_")},
                     sync_bytes=sync_bytes, sync_wire_bytes=wire_bytes,
                     sync_buddy_bytes=engine.buddy_wire_bytes(),
                     sync_mode=stats["sync_mode"], sync_ms=stats["sync_ms"],
@@ -939,39 +1187,41 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                         and (epoch + 1) % cfg.checkpoint_every == 0):
                     ckpt.save(engine.checkpoint_state(state), epoch + 1,
                               timing=timing)
-            if progress:
-                _report(cfg, mx, epoch, wall, results, pbar, worker_ids)
-            walls[epoch] = (worker_walls, steps_run)
-            if epoch + 1 == cfg.epochs_global:
+            with walls_lock:
+                walls[epoch] = (walls_src, prep["steps_run"])
+            if last_round:
+                # leaving the loop closes the progress bar: the last
+                # round's report lands first
+                while pending:
+                    pending.pop(0).result()
                 break
-            # the EMA consumes walls one round late: rounds < epoch
-            consume_walls(epoch)
-            new_ratios = efficiency_ratios(
-                sec_per_batch * np.maximum(steps_run, 1.0),
-                cfg.proportionality)
-            train_parts, val_parts = (
-                [repartition(len(ds), parts[i], new_ratios[i],
-                             cfg.prev_fraction, cfg.next_fraction, rng,
-                             replace=disbalanced)
-                 for i in range(n)]
-                for ds, parts in ((trainset, train_parts),
-                                  (valset, val_parts)))
-            if disbalanced:
-                train_parts, val_parts = (
-                    [skew_repartition(ds.labels, p, fixed_classes[i],
-                                      cfg.fixed_ratio, rng)
-                     for i, p in enumerate(parts)]
-                    for ds, parts in ((trainset, train_parts),
-                                      (valset, val_parts)))
+            prep = (nxt if overlap
+                    else prepare_next(epoch, prep["steps_run"], timing))
     finally:
-        # success: drain the write in flight (N workers: the deferred
-        # commit runs here, on every rank) and release the writer; while
-        # unwinding: join the writer without the collective commit
-        if ckpt is not None:
-            if sys.exc_info()[0] is None and not retired:
-                ckpt.close()
-            else:
-                ckpt.abort()
+        # settle the pipeline (a worker thread's error is raised on the
+        # way out of a run that went well), then the checkpoints: drain
+        # the write in flight (N workers: the deferred commit runs here,
+        # on every rank) and release the writer; while unwinding: join the
+        # writer without the collective commit
+        ok = sys.exc_info()[0] is None
+        try:
+            for fut in ([prep] if isinstance(prep, Future) else []) + pending:
+                if ok:
+                    fut.result()
+                else:
+                    wait([fut])
+            pending.clear()
+            for pool in (prep_pool, metrics_pool):
+                if pool is not None:
+                    pool.shutdown(wait=True)
+        finally:
+            if profiler is not None:
+                _stop_profile(profiler, cfg.profile_dir, rank, ok)
+            if ckpt is not None:
+                if ok and not retired:
+                    ckpt.close()
+                else:
+                    ckpt.abort()
     if pbar is not None:
         pbar.close()
     if retired:
@@ -986,6 +1236,25 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         results["sync_engine"]["param_residency"] = engine.param_residency
         results["sync_engine"]["per_worker_state_bytes"] = \
             engine.state_resident_bytes(state)
+    # the memory row of every run, a zero-round run too (JAX
+    # driver.py:1866-1890)
+    results["memory"] = probe_lib.memory_report(
+        engine.memory_programs(),
+        state_bytes=engine.state_resident_bytes(state), n_workers=n, sim=sim)
+    mem = results["memory"]
+    log.info("program memory: %d program(s), %.2f MB temp total; per-worker "
+             "resident state %.2f MB (+%.2f MB transient gather peak), %s "
+             "total %.2f MB", len(mem["programs"]),
+             mem["temp_bytes_total"] / 2**20,
+             mem["per_worker_resident_bytes"] / 2**20,
+             mem["per_worker_state_bytes"].get("params_gathered_peak", 0)
+             / 2**20, "one-device stacked" if sim else "fleet",
+             mem["state_bytes_total"] / 2**20)
+    results["sanitize"] = san
+    if san["enabled"]:
+        log.info("sanitizer clean: 0 implicit host-device syncs in the "
+                 "round loop (the retrace, recompile and donation checks "
+                 "are XLA's: not applicable)")
     results["async_rounds"] = async_rounds(
         cfg, getattr(engine, "stale_log", []))
     if sim:

@@ -49,9 +49,12 @@ def build_requests(cfg, vocab: int) -> list:
 
 
 def _memory(engine) -> dict:
-    """What the served model holds on its device: the parameters, the two
-    page pools (and the draft's, ``draft_*``, for a speculative pair), and
-    the device's peak allocation (0 on the CPU)."""
+    """The serve memory row: JAX's ``probe.memory_report`` of the engine's
+    programs (``serve/api.py:209-210``), and beside it what the served
+    model holds on its device: the parameters, the two page pools (and the
+    draft's, ``draft_*``, for a speculative pair), and the process's peak
+    allocation (0 on the CPU)."""
+    from ..probe import max_memory_allocated, memory_report
     def held(eng) -> tuple[int, int]:
         params = sum(p.numel() * p.element_size()
                      for p in eng.model.parameters())
@@ -61,10 +64,9 @@ def _memory(engine) -> dict:
 
     dev = engine.device
     params, pools = held(engine)
-    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-            else 0)
-    out = {"device": str(dev), "params_bytes": params,
-           "kv_pool_bytes": pools, "max_memory_allocated": peak}
+    out = {**memory_report(engine.memory_programs()), "device": str(dev),
+           "params_bytes": params, "kv_pool_bytes": pools,
+           "max_memory_allocated": max_memory_allocated(dev)}
     if engine.draft is not None:
         out["draft_params_bytes"], out["draft_kv_pool_bytes"] = held(
             engine.draft)
@@ -89,6 +91,7 @@ def run_serve(cfg, requests: Optional[list] = None, *,
     from .. import checkpoint as ckpt_lib
     from ..mesh import worker_device
     from ..models import get_model
+    from ..probe import reset_peak_memory_stats
     from .engine import ServeEngine, manifest_num_classes, resolve_checkpoint
     from .scheduler import ContinuousBatchingScheduler
 
@@ -129,8 +132,7 @@ def run_serve(cfg, requests: Optional[list] = None, *,
         log.info("serve: no manifest metadata; rebuilt %s (vocab %d from "
                  "manifest leaf shapes)", cfg.model, ncls)
     buckets = cfg.parse_prompt_buckets()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    reset_peak_memory_stats(device)
     # one geometry for both engines of a speculative pair (the pairing
     # check enforces it); max_seq grows by k: the verify writes up to C + k
     engine_kw = dict(

@@ -22,7 +22,9 @@ The programs, each one shape:
 PyTorch runs them eagerly: there is no compile to count, so the engine
 records the distinct ``(program, shape)`` pairs it dispatched
 (``programs``), the counterpart of the JAX engine's zero-retrace gate, and
-refuses a call of another shape.
+refuses a call of another shape.  Each program is a
+``probe.TrackedProgram`` (the prefill one row per bucket), whose memory
+rows ``memory_programs`` hands to ``probe.memory_report``.
 
 ``from_checkpoint`` builds the model from a checkpoint's MANIFEST
 metadata and loads worker 0's ``params`` row, one shard file at a time
@@ -41,6 +43,7 @@ import torch
 
 from .. import checkpoint as ckpt_lib
 from .. import weights
+from ..probe import TrackedProgram
 from ..models import decode as D
 from ..models import get_model
 from ..utils.batching import pad_to_bucket, pick_bucket
@@ -204,6 +207,47 @@ class ServeEngine:
         self.draft = draft
         self.spec_tokens = int(spec_tokens)
         self._check_pair()
+        # the programs' memory rows: each reads the parameters and writes
+        # the page pools in place
+        self._decode = TrackedProgram("decode_step", self._forward,
+                                      state=self._held)
+        self._prefill = TrackedProgram("prefill", self._forward,
+                                       multi_shape=True, state=self._held)
+        self._chunk = (TrackedProgram("prefill_chunk", self._forward,
+                                      state=self._held)
+                       if self.prefill_chunk else None)
+        self._verify = (TrackedProgram("verify", self._verify_program,
+                                       state=self._held)
+                        if draft is not None else None)
+
+    def _held(self, *_args) -> list:
+        return [*self.model.parameters(), self.kcache, self.vcache]
+
+    def _forward(self, tokens, offsets, num_valid, table) -> torch.Tensor:
+        return D.forward_paged(self.spec, self.model, tokens, offsets,
+                               num_valid, table, self.kcache, self.vcache)
+
+    def _verify_program(self, tok, lengths, num_valid, table):
+        logits = self._forward(tok, lengths, num_valid, table)
+        return D.speculative_accept(logits, tok[:, 1:])
+
+    def memory_programs(self) -> dict:
+        """Label -> ``probe.TrackedProgram`` (JAX ``memory_programs``): the
+        decode step and the prefill (one row per bucket run), or the chunk
+        program under chunked prefill when no bucket ran; a speculative
+        pair has ``verify`` in place of the decode step, which never
+        runs, and the draft's programs under ``draft_``."""
+        out = {"decode_step": self._decode, "prefill": self._prefill}
+        if self._chunk is not None:
+            out["prefill_chunk"] = self._chunk
+            if not self.compiled_buckets:
+                del out["prefill"]
+        if self.draft is not None:
+            out["verify"] = self._verify
+            del out["decode_step"]
+            out.update({f"draft_{k}": v
+                        for k, v in self.draft.memory_programs().items()})
+        return out
 
     def _check_pair(self) -> None:
         """The JAX engine's pairing checks (``engine.py:439-494``): a bad
@@ -301,16 +345,16 @@ class ServeEngine:
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
     @torch.inference_mode()
-    def _span(self, tokens: np.ndarray, nvalid: int, offset: int,
+    def _span(self, program, tokens: np.ndarray, nvalid: int, offset: int,
               page_row: np.ndarray, temperature: float, rid: int
               ) -> tuple[int, torch.Tensor]:
         """Prefill ``nvalid`` tokens of ``tokens [1, T]`` at cache position
-        ``offset``; the token is drawn at position ``offset + nvalid``,
-        the first generated position when the span ends the prompt."""
-        logits = D.forward_paged(
-            self.spec, self.model, self._tensor(tokens),
-            self._tensor([offset]), self._tensor([nvalid]),
-            self._tensor(page_row[None]), self.kcache, self.vcache)
+        ``offset`` through ``program``; the token is drawn at position
+        ``offset + nvalid``, the first generated position when the span
+        ends the prompt."""
+        logits = program(
+            self._tensor(tokens), self._tensor([offset]),
+            self._tensor([nvalid]), self._tensor(page_row[None]))
         last = logits[0, nvalid - 1]
         nxt = D.sample_tokens(last[None], [temperature], [rid],
                               [offset + nvalid], self.seed)
@@ -328,7 +372,8 @@ class ServeEngine:
             self.compiled_buckets.append(bucket)
         padded = pad_to_bucket(prompt, bucket)[None]
         self._dispatch("prefill", padded.shape, (1, bucket))
-        return self._span(padded, plen, offset, page_row, temperature, rid)
+        return self._span(self._prefill, padded, plen, offset, page_row,
+                          temperature, rid)
 
     def prefill_chunk_step(self, chunk, offset: int, page_row: np.ndarray,
                            temperature: float, rid: int
@@ -347,8 +392,8 @@ class ServeEngine:
         padded = pad_to_bucket(chunk, self.prefill_chunk)[None]
         self._dispatch("prefill_chunk", padded.shape,
                        (1, self.prefill_chunk))
-        return self._span(padded, nvalid, offset, page_row, temperature,
-                          rid)
+        return self._span(self._chunk, padded, nvalid, offset, page_row,
+                          temperature, rid)
 
     @torch.inference_mode()
     def decode(self, tokens, lengths, page_table, temps, rids, active
@@ -360,10 +405,10 @@ class ServeEngine:
         tokens = np.asarray(tokens, np.int32)
         lengths = np.asarray(lengths, np.int32)
         self._dispatch("decode", (*tokens.shape, 1), (self.max_batch, 1))
-        logits = D.forward_paged(
-            self.spec, self.model, self._tensor(tokens[:, None]),
-            self._tensor(lengths), self._tensor(np.asarray(active, np.int32)),
-            self._tensor(page_table), self.kcache, self.vcache)[:, 0]
+        logits = self._decode(
+            self._tensor(tokens[:, None]), self._tensor(lengths),
+            self._tensor(np.asarray(active, np.int32)),
+            self._tensor(page_table))[:, 0]
         nxt = D.sample_tokens(logits, temps, rids, lengths + 1, self.seed)
         return nxt.cpu().numpy(), logits
 
@@ -384,10 +429,8 @@ class ServeEngine:
         self._dispatch("verify", tokens.shape, (self.max_batch, k + 1))
         active = self._tensor(np.asarray(active, bool), torch.bool)
         num_valid = torch.where(active, k + 1, 0)
-        tok = self._tensor(tokens)
-        logits = D.forward_paged(
-            self.spec, self.model, tok, self._tensor(lengths), num_valid,
-            self._tensor(page_table), self.kcache, self.vcache)
-        emitted, acc = D.speculative_accept(logits, tok[:, 1:])
+        emitted, acc = self._verify(self._tensor(tokens),
+                                    self._tensor(lengths), num_valid,
+                                    self._tensor(page_table))
         out = torch.cat([emitted, acc[:, None]], 1).cpu().numpy()
         return out[:, :k], out[:, k]

@@ -43,20 +43,21 @@ import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, vmap
 
-from . import comms
+from . import comms, probe
 from .config import Config
 from .data.augment import apply_augment, draw
 from .models.norm import BatchNorm, running_stats_out
 from .train import (
     StackedAdam,
+    WindowStaging,
     cross_worker_means,
     masked_token_stats,
     masked_weights,
     round_seed,
     seed_words,
-    step_weights,
     steplr,
-    to_device,
+    take_window,
+    to_host,
     worker_seed,
 )
 
@@ -150,6 +151,16 @@ class SimEngine:
             [(p.shape, p.dtype) for p in model.parameters()], n,
             topology=cfg.topology, wire_dtype=self.wire_dtype)
         self.last_sync_stats: dict = {}
+        # the programs' memory rows (JAX sim.py's "sim_round"): the
+        # vmapped train step with its stacked Adam, the vmapped eval step
+        # and the stacked blend, each registered at its first use
+        self._programs: dict[str, probe.TrackedProgram] = {}
+        self._staging: Optional[WindowStaging] = None
+
+    def memory_programs(self) -> dict:
+        """Label -> ``probe.TrackedProgram``: ``sim_step``, ``sim_eval``
+        and ``sim_blend`` (once they ran)."""
+        return dict(self._programs)
 
     # ------------------------------------------------------------------
     # state
@@ -200,8 +211,9 @@ class SimEngine:
                 "round_opt": 0,
                 "buddy": 0,
                 "batch_stats": per_worker(state.buffers),
-                "bookkeeping": (state.lr_epoch.nbytes
-                                + state.rng.nbytes) // n}
+                # the StepLR clock counted as JAX's int32 (the port keeps
+                # it on the host) and the seed words
+                "bookkeeping": 4 + state.rng.nbytes // n}
 
     # ------------------------------------------------------------------
     # the vmapped step bodies (one worker's view; vmap adds the [N] axis)
@@ -252,6 +264,27 @@ class SimEngine:
                 torch._foreach_add_(total, list(g_k))
                 loss, correct = loss + loss_k.detach(), correct + correct_k
         return total, loss, correct, stats
+
+    def _train_step(self, state: SimState, x, y, m, denom, lr, do):
+        """One vmapped train step of every worker and its stacked Adam
+        update: a row with ``do[i]`` false keeps its parameters, moments
+        and statistics.  Returns ``(loss [N], correct [N], grads, gate)``,
+        ``gate`` the [N] device mask of the rows that stepped (None: all
+        did)."""
+        grads, loss, correct, stats = self._step(state, x, y, m, denom)
+        state.opt.step(state.params, grads, lr, do)
+        if do.all():
+            state.buffers = list(stats)
+            return loss, correct, grads, None
+        gate = torch.from_numpy(do).to(self.device)
+        state.buffers = _row_where(gate, list(stats), state.buffers)
+        return loss, correct, grads, gate
+
+    @staticmethod
+    def _step_state(state: SimState, *_args) -> list:
+        """What the train step reads and updates besides its batch."""
+        return [*state.params, *state.buffers, *state.opt.mu,
+                *state.opt.nu]
 
     def _eval_sums(self, params, buffers, x, y, m):
         with running_stats_out():           # BatchNorm's vmapped form
@@ -335,19 +368,18 @@ class SimEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _stage(self, pack):
-        """A worker-stacked pack ``(x, y, m)`` [N, S, B, ...] on the
-        device, with each row's step weights [N, S] on the host."""
-        x, y, m = (np.asarray(a) for a in pack)
-        if x.shape[0] != self.n_workers:
-            raise ValueError(
-                f"a pack of {x.shape[0]} worker rows for "
-                f"{self.n_workers} simulated workers")
-        dev = self.device
-        weights = np.stack([step_weights(y[i], m[i])
-                            for i in range(self.n_workers)])
-        return (to_device(x, dev), to_device(y, dev, torch.long),
-                to_device(m, dev, torch.float32), weights)
+    def stage_pack(self, train_pack, val_pack):
+        """The worker-stacked packs ``(x, y, m)`` [N, S, B, ...] staged on
+        the device ahead of the round (``LocalSGDEngine.stage_pack``), each
+        with every row's step weights [N, S] on the host and the device."""
+        for pack in (train_pack, val_pack):
+            if np.shape(pack[0])[0] != self.n_workers:
+                raise ValueError(
+                    f"a pack of {np.shape(pack[0])[0]} worker rows for "
+                    f"{self.n_workers} simulated workers")
+        if self._staging is None:
+            self._staging = WindowStaging(self.device)
+        return self._staging(train_pack), self._staging(val_pack)
 
     def _snapshot(self, state: SimState):
         return dict(params=[p.clone() for p in state.params],
@@ -372,19 +404,34 @@ class SimEngine:
                                   entry["lr_epoch"])
 
     def round(self, state: SimState, train_pack, val_pack):
-        """One round of all N workers on worker-stacked numpy packs
-        ``(x, y, mask)`` [N, S, B, ...]; returns ``(state, metrics)`` with
-        ``LocalSGDEngine.round``'s [N, ...] metric arrays and timings:
-        ``train_steps`` / ``val_steps`` count the vmapped steps (one for
-        all workers), ``workers_train_steps`` each worker's real steps,
-        and the other ``workers_*`` rows tile the one process's wall,
-        train ms, sync ms and peak memory."""
+        """One round of all N workers on worker-stacked packs ``(x, y,
+        mask)`` [N, S, B, ...] (numpy, or what ``stage_pack`` staged):
+        ``round_start`` then ``finish_metrics``.  Returns ``(state,
+        metrics)`` with ``LocalSGDEngine.round``'s [N, ...] metric arrays
+        and timings: ``train_steps`` / ``val_steps`` count the vmapped
+        steps (one for all workers), ``workers_train_steps`` each worker's
+        real steps, and the other ``workers_*`` rows tile the one
+        process's wall, train ms, sync ms and peak memory."""
+        state, handle = self.round_start(state, train_pack, val_pack)
+        return state, self.finish_metrics(handle)
+
+    def round_start(self, state: SimState, train_pack, val_pack):
+        """The round up to its metrics, fenced on the card when it returns
+        (``LocalSGDEngine.round_start``); returns ``(state, handle)``."""
         cfg = self.cfg
         n = self.n_workers
         dev = self.device
         t_round = time.perf_counter()
-        x, y, m, w_train = self._stage(train_pack)
-        xv, yv, mv, w_val = self._stage(val_pack)
+        staged = isinstance(train_pack[0], torch.Tensor)
+        train, val = ((train_pack, val_pack) if staged
+                      else self.stage_pack(train_pack, val_pack))
+        stage_ms = (time.perf_counter() - t_round) * 1e3
+        x, y, m, wd_train, w_train = take_window(train, dev)
+        xv, yv, mv, _wd_val, w_val = take_window(val, dev)
+        train_step = probe.track(self._programs, "sim_step",
+                                 self._train_step, state=self._step_state)
+        eval_step = probe.track(self._programs, "sim_eval", self._eval_fn)
+        blend = probe.track(self._programs, "sim_blend", comms.aggregate_sim)
         if self.sim_staleness > 0 and len(self._pending) > self.sim_staleness:
             # the due (oldest) consensus delta, folded into the params
             # this round trains off
@@ -434,28 +481,19 @@ class SimEngine:
                 yb, mb = y[:, s], m[:, s]
                 denom = masked_weights(yb, mb).reshape(n, -1).sum(
                     1).clamp_min(1.0)
-                grads, loss, correct, stats = self._step(
-                    state, xb, yb, mb, denom)
+                loss, correct, grads, gate = train_step(
+                    state, xb, yb, mb, denom, lr, do)
                 losses[:, s] = loss
                 corrects[:, s] = correct
-                state.opt.step(state.params, grads, lr, do)
-                if do.all():
-                    state.buffers = list(stats)
-                    if last_grads is not None:
-                        last_grads = grads
-                else:
-                    gate = torch.from_numpy(do).to(dev)
-                    state.buffers = _row_where(gate, list(stats),
-                                               state.buffers)
-                    if last_grads is not None:
-                        last_grads = _row_where(gate, grads,
-                                                last_grads)
+                if last_grads is not None:
+                    last_grads = (grads if gate is None
+                                  else _row_where(gate, grads, last_grads))
                 train_steps += 1
                 real_steps += do
             self._sync()
             train_s += time.perf_counter() - t0
-            realf = torch.from_numpy(real.astype(np.float32)).to(dev)
-            totals = torch.from_numpy(w_train.astype(np.float32)).to(dev)
+            realf = (wd_train > 0).float()
+            totals = wd_train
             per_epoch["batch_losses"].append(losses)
             per_epoch["batch_mask"].append(realf)
             per_epoch["train_loss"].append(
@@ -467,9 +505,9 @@ class SimEngine:
             with torch.no_grad():
                 for s in range(w_val.shape[1]):
                     if (w_val[:, s] > 0).any():
-                        vsum += self._eval_fn(tuple(state.params),
-                                              tuple(state.buffers), xv[:, s],
-                                              yv[:, s], mv[:, s])
+                        vsum += eval_step(tuple(state.params),
+                                          tuple(state.buffers), xv[:, s],
+                                          yv[:, s], mv[:, s])
                         val_steps += 1
             per_epoch["val_loss"].append(vsum[:, 0]
                                          / vsum[:, 2].clamp_min(1))
@@ -493,7 +531,7 @@ class SimEngine:
             if weights_mode:
                 contrib = (state.params if entry is None else self._corrupt(
                     state.params, entry["params"], key))
-                blended, residual = comms.aggregate_sim(
+                blended, residual = blend(
                     contrib, residual=state.sync_residual, **kw)
                 if residual is not None:
                     state.sync_residual = residual
@@ -511,7 +549,7 @@ class SimEngine:
             else:
                 contrib = (last_grads if entry is None
                            else self._corrupt(last_grads, None, key))
-                agg, _ = comms.aggregate_sim(contrib, **kw)
+                agg, _ = blend(contrib, **kw)
                 # the aggregate is read for its norm only (params stay)
                 agg_norm = torch.sqrt(sum(
                     (g.float() ** 2).reshape(n, -1).sum(1) for g in agg))
@@ -523,20 +561,29 @@ class SimEngine:
             "sync_bytes_ici": self._sync_bytes, "sync_bytes_dcn": 0,
             "sync_ms_ici": sync_ms, "sync_ms_dcn": 0.0}
 
-        mx = {k: torch.stack(v, 1).cpu().numpy()
-              for k, v in per_epoch.items()}
-        mx["agg_grad_norm"] = agg_norm.cpu().numpy()
-        mx = cross_worker_means(mx)
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
-        mx.update(train_ms=train_s * 1e3, train_steps=train_steps,
-                  val_steps=val_steps,
-                  workers_wall_s=[wall_s] * n,
-                  workers_train_ms=[train_s * 1e3] * n,
-                  workers_train_steps=real_steps.tolist(),
-                  workers_sync_ms=[sync_ms] * n,
-                  workers_max_memory_allocated=[peak] * n)
-        return state, mx
+        own = {k: torch.stack(v, 1) for k, v in per_epoch.items()}
+        own["agg_grad_norm"] = agg_norm
+        own = to_host(own)
+        self._sync()                     # the copies are complete
+        own = {k: np.array(v.numpy()) for k, v in own.items()}
+        peak = probe.max_memory_allocated(dev)
+        return state, dict(
+            own=own, stage_ms=round(stage_ms, 3), train_ms=train_s * 1e3,
+            train_steps=train_steps, val_steps=val_steps,
+            workers_wall_s=[wall_s] * n,
+            workers_train_ms=[train_s * 1e3] * n,
+            workers_train_steps=real_steps.tolist(),
+            workers_sync_ms=[sync_ms] * n,
+            workers_max_memory_allocated=[peak] * n)
+
+    @staticmethod
+    def finish_metrics(handle) -> dict:
+        """A round's metrics from its ``round_start`` handle: the host
+        arrays with the cross-worker means and the timings."""
+        mx = cross_worker_means(dict(handle["own"]))
+        mx.update({k: v for k, v in handle.items()
+                   if k not in ("own", "stage_ms")})
+        return mx
 
     @torch.no_grad()
     def drain_pending(self, state: SimState) -> SimState:

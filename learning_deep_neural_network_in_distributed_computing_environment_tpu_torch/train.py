@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import comms, mesh, weights
+from . import comms, mesh, probe, weights
 from .config import Config
 from .data.augment import augment_batch
 
@@ -240,6 +240,20 @@ def to_device(a: np.ndarray, device: torch.device,
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
 
+def to_host(tensors: dict) -> dict:
+    """Device tensors to host memory: on a card pinned buffers filled by
+    ``non_blocking`` copies on the current stream (complete at the next
+    fence; no host wait now), on the CPU copies."""
+    out = {}
+    for k, v in tensors.items():
+        if not v.is_cuda:
+            out[k] = v.detach().clone()
+            continue
+        out[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        out[k].copy_(v, non_blocking=True)
+    return out
+
+
 def input_dtype(a: np.ndarray) -> torch.dtype:
     """The device dtype of an input array: fp32 images, int64 token ids."""
     return torch.float32 if np.issubdtype(a.dtype, np.floating) else torch.long
@@ -247,10 +261,21 @@ def input_dtype(a: np.ndarray) -> torch.dtype:
 
 def step_weights(y: np.ndarray, m: np.ndarray) -> np.ndarray:
     """Each step's count of real loss positions (0 = an all-padding step,
-    skipped) of a host window ``y [S, B, ...]``, ``m [S, B]``."""
+    skipped) of a host window ``y [..., S, B, ...]``, ``m [..., S, B]``
+    (a leading worker axis gives one row per worker)."""
+    m = np.asarray(m)
     return (masked_weights(torch.from_numpy(np.asarray(y)),
-                           torch.from_numpy(np.asarray(m)))
-            .reshape(len(m), -1).sum(-1).numpy())
+                           torch.from_numpy(m))
+            .reshape(*m.shape[:-1], -1).sum(-1).numpy())
+
+
+def wait_event(event) -> None:
+    """Wait on the host until ``event`` has passed, by polling: an
+    ``Event.synchronize`` could count under ``--sanitize``'s sync-debug
+    mode, which is process-wide, while a guarded round runs on the main
+    thread (the event waited on here has almost always passed)."""
+    while not event.query():
+        time.sleep(1e-4)
 
 
 class ChunkStager:
@@ -323,16 +348,20 @@ class ChunkStager:
 
 
 class WindowStaging:
-    """Stages host windows ``(x, y, m)`` onto ``device`` as ``(x, y, m,
-    weights, ready)``: ``weights`` is ``step_weights`` on the host, and
-    ``ready`` the event the consumer waits on before it reads the tensors.
+    """Stages host windows ``(x, y, m)`` onto ``device`` as ``(x, y, m, w,
+    weights, ready)``: ``weights`` is ``step_weights`` on the host (the
+    round's control flow), ``w`` the same counts on the device (its
+    per-epoch sums), and ``ready`` the event the consumer waits on before
+    it reads the tensors.
 
     On the card each window is copied into a pinned host buffer (one of
     ``slots``, reused only after its last copy's event has passed, in the
-    device dtypes: fp32 images, int64 labels, fp32 mask), then to the
-    device by a ``non_blocking`` copy on a side stream, so the copies
-    overlap the consumer's compute.  On the CPU it is ``from_numpy``
-    (``ready`` is None)."""
+    device dtypes: fp32 images, int64 labels, fp32 mask and counts), then
+    to the device by a ``non_blocking`` copy on a side stream, so the
+    copies overlap the consumer's compute and no host thread waits on the
+    card for them.  The device allocation holds ``probe.MEASURE_LOCK``, so
+    it never falls inside a program's measured first call.  On the CPU it
+    is ``from_numpy`` (``ready`` is None)."""
 
     def __init__(self, device: torch.device, slots: int = 4):
         self.device = device
@@ -342,12 +371,12 @@ class WindowStaging:
         self._nslots = max(2, int(slots))
 
     def _pinned(self, arrays: tuple) -> tuple:
-        x, y, m = arrays
-        want = [(x.shape, input_dtype(x)), (y.shape, torch.long),
-                (m.shape, torch.float32)]
+        dtypes = (input_dtype(arrays[0]), torch.long, torch.float32,
+                  torch.float32)
+        want = [(a.shape, d) for a, d in zip(arrays, dtypes)]
         if len(self._slots) >= self._nslots:
             bufs, ev = self._slots.popleft()
-            ev.synchronize()               # its last H2D copy has finished
+            wait_event(ev)                 # its last H2D copy has finished
             if [(tuple(b.shape), b.dtype) for b in bufs] == want:
                 return bufs
         return tuple(torch.empty(shape, dtype=d, pin_memory=True)
@@ -359,11 +388,13 @@ class WindowStaging:
         if not self.cuda:
             return (to_device(x, self.device), to_device(y, self.device,
                                                          torch.long),
-                    to_device(m, self.device, torch.float32), weights, None)
-        bufs = self._pinned((x, y, m))
-        for b, a in zip(bufs, (x, y, m)):
+                    to_device(m, self.device, torch.float32),
+                    torch.from_numpy(weights), weights, None)
+        bufs = self._pinned((x, y, m, weights))
+        for b, a in zip(bufs, (x, y, m, weights)):
             b.copy_(torch.from_numpy(a))
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+        with probe.MEASURE_LOCK, torch.cuda.device(self.device), \
+                torch.cuda.stream(self.stream):
             out = tuple(b.to(self.device, non_blocking=True) for b in bufs)
             ready = torch.cuda.Event()
             ready.record(self.stream)
@@ -375,7 +406,7 @@ def take_window(item, device: torch.device):
     """The consumer's side of ``WindowStaging``: wait for the window's copy
     on the current stream and tie its tensors to that stream (the
     allocator must not hand their memory back to the side stream while the
-    current one still reads it).  Returns ``(x, y, m, weights)``."""
+    current one still reads it).  Returns ``(x, y, m, w, weights)``."""
     *tensors, weights, ready = item
     if ready is not None:
         cur = torch.cuda.current_stream(device)
@@ -545,6 +576,36 @@ class LocalSGDEngine:
         # so they never interleave with the main thread's gathers
         self._sync_group = (group.split() if self.staleness and group
                             is not None else group)
+        # the metric gather of ``finish_metrics`` too (made at the first
+        # round's start, on every rank): the overlapped driver runs it on
+        # a thread while the main thread syncs the next round, and two
+        # threads' collectives on one group could meet in another order on
+        # each rank
+        self._metrics_group: Optional[mesh.Group] = None
+        # the programs' memory rows (JAX train.py:519-525): label ->
+        # probe.TrackedProgram, each registered at its first use
+        self._programs: dict[str, probe.TrackedProgram] = {}
+        # this worker's device tensors of the module (parameters and
+        # buffers), read by the step programs' memory rows
+        self._buffers = list(model.buffers())
+        self._staging: Optional[WindowStaging] = None   # stage_pack's
+
+    def memory_programs(self) -> dict:
+        """Label -> ``probe.TrackedProgram`` of every program this engine
+        ran (JAX ``memory_programs``): ``train_step`` and ``eval_step`` of
+        the packed rounds, ``chunk_train`` and ``chunk_eval`` of the
+        streamed ones, the engine's ``sync`` (``stale_sync`` under
+        ``--sync_staleness``) and the resident layout's
+        ``resident_enter`` gather."""
+        return dict(self._programs)
+
+    def _step_state(self, state: TrainState, *_args) -> list:
+        """What a train step reads and updates in place besides its
+        batch: the parameters, the buffers and Adam's moments."""
+        return [*self.params, *self._buffers, *state.opt.mu, *state.opt.nu]
+
+    def _module_state(self, *_args) -> list:
+        return [*self.params, *self._buffers]
 
     def init_state(self) -> TrainState:
         residual = ([torch.zeros_like(p, dtype=torch.float32)
@@ -618,7 +679,10 @@ class LocalSGDEngine:
         ``comms.fast_sync``); the fast engines never fall back to the
         dense path."""
         cfg = self.cfg
-        return comms.fast_sync(
+        sync = probe.track(self._programs,
+                           "sync" if group is None else "stale_sync",
+                           comms.fast_sync)
+        return sync(
             tensors, group=self.group if group is None else group,
             mode=self.sync_mode, how=cfg.aggregation_type,
             topology=cfg.topology, local_weight=cfg.local_weight,
@@ -788,9 +852,12 @@ class LocalSGDEngine:
         collective; returns its milliseconds."""
         t0 = time.perf_counter()
         self._unrelease()
-        full = comms.resident_gather(
-            state.params_resident, group=self.group, layout=self.layout,
-            like=self.params, bucket_bytes=self.sync_bucket_bytes)
+        gather = probe.track(self._programs, "resident_enter", lambda rows:
+                             comms.resident_gather(
+                                 rows, group=self.group, layout=self.layout,
+                                 like=self.params,
+                                 bucket_bytes=self.sync_bucket_bytes))
+        full = gather(state.params_resident)
         torch._foreach_copy_(self.params, full)
         self._sync()
         return (time.perf_counter() - t0) * 1e3
@@ -1004,10 +1071,20 @@ class LocalSGDEngine:
             self.materialize_params(state)
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
-    def _to_device(self, pack):
-        """This worker's row of a worker-stacked pack ``[N, S, ...]``, or
-        of a pack that holds this worker's row alone (``[1, S, ...]``,
-        what the driver builds), on the device with its step weights."""
+    def stage_pack(self, train_pack, val_pack):
+        """This worker's rows of the round's numpy packs, staged on the
+        device ahead of the round (JAX ``stage_pack``): each pack is
+        worker-stacked ``[N, S, ...]`` or holds this worker's row alone
+        (``[1, S, ...]``, what the driver builds).  The overlapped driver
+        calls this on its prep thread while the previous round computes:
+        on a card the copies run from pinned buffers on a side stream,
+        and the round waits for their event on its own stream."""
+        if self._staging is None:
+            self._staging = WindowStaging(self.device)
+        return tuple(self._staging(self._row(pack))
+                     for pack in (train_pack, val_pack))
+
+    def _row(self, pack) -> tuple:
         rows = np.shape(pack[0])[0]
         if rows not in (1, self.n_workers):
             raise ValueError(
@@ -1015,10 +1092,7 @@ class LocalSGDEngine:
                 f"{self.n_workers}: give every worker's row, or this "
                 "worker's alone")
         row = self.rank if rows > 1 else 0
-        x, y, m = (np.asarray(a)[row] for a in pack)
-        dev = self.device
-        return (to_device(x, dev), to_device(y, dev, torch.long),
-                to_device(m, dev, torch.float32), step_weights(y, m))
+        return tuple(np.asarray(a)[row] for a in pack)
 
     def _loss(self, x, y, m, denom, aux_div: float):
         """(loss, correct) of one forward: the masked CE numerator over
@@ -1074,34 +1148,56 @@ class LocalSGDEngine:
             torch.cuda.synchronize(self.device)
 
     def round(self, state: TrainState, train_pack, val_pack):
-        """Run one round on worker-stacked numpy packs ``(x, y, mask)`` of
-        shape [N, S, B, ...] (this worker reads row ``rank``; a pack of one
-        row is this worker's own); returns ``(state, metrics)`` with the
-        JAX engine's per-worker metric arrays (leading worker axis N,
-        gathered over the group) plus host timings: this worker's
-        ``train_ms``, ``train_steps`` and ``val_steps``, and every worker's
-        ``wall_s`` (round start to its sync point: a wait for slower peers
-        is not its own time), ``train_ms``, ``train_steps``, ``sync_ms``,
-        its process's peak ``max_memory_allocated`` and the
+        """``round_start`` then ``finish_metrics``: one round on
+        worker-stacked packs ``(x, y, mask)`` of shape [N, S, B, ...]
+        (this worker reads row ``rank``; a pack of one row is this
+        worker's own; numpy, or what ``stage_pack`` staged).  Returns
+        ``(state, metrics)`` with the JAX engine's per-worker metric arrays
+        (leading worker axis N, gathered over the group) plus host
+        timings: this worker's ``train_ms``, ``train_steps`` and
+        ``val_steps``, and every worker's ``wall_s`` (round start to its
+        sync point: a wait for slower peers is not its own time),
+        ``train_ms``, ``train_steps``, ``sync_ms``, its process's peak
+        ``max_memory_allocated`` (``probe.max_memory_allocated``) and the
         ``memory_allocated`` it holds after the sync, on a card (0 on the
         CPU), under ``workers_*``."""
+        state, handle = self.round_start(state, train_pack, val_pack)
+        return state, self.finish_metrics(handle)
+
+    def round_start(self, state: TrainState, train_pack, val_pack):
+        """The round up to its metrics (JAX ``round_start``): the local
+        epochs and the sync, fenced on the card when it returns (an eager
+        round leaves nothing in flight).  Returns ``(state, handle)``;
+        ``finish_metrics(handle)`` (from any thread) gives the metrics.
+        The per-epoch values are copied to pinned host memory before the
+        round's last fence, so the handle holds host arrays only."""
         t_round = time.perf_counter()
-        train = (*self._to_device(train_pack), None)
-        val = (*self._to_device(val_pack), None)
+        staged = isinstance(train_pack[0], torch.Tensor)
+        train, val = ((train_pack, val_pack) if staged
+                      else self.stage_pack(train_pack, val_pack))
+        stage_ms = (time.perf_counter() - t_round) * 1e3
         return self._run_round(state, t_round, lambda e: [train],
-                               lambda e: [val])
+                               lambda e: [val], stage_ms, False)
 
     def round_streamed(self, state: TrainState, train_chunks, val_chunks):
-        """``round`` over fixed-shape windows (JAX ``train.py:2554-2765``):
-        ``train_chunks(epoch)`` / ``val_chunks(epoch)`` give this worker's
-        host windows ``(x [C, B, ...], y [C, B, ...], m [C, B])``
-        (``data.window_feed``) for local epoch ``epoch``.  With
-        ``cfg.stream_prefetch > 0`` one ``ChunkStager`` of that depth
-        stages the round's windows ahead of compute, across the epochs'
-        boundaries; 0 stages each when it is needed (the serial twin).
-        The same step bodies run on the same bytes in the same order as
-        ``round``, all-padding steps skipped; the metrics have the JAX
-        streamed round's shapes (steps padded to whole windows, masked)."""
+        """``round_streamed_start`` then ``finish_metrics``."""
+        state, handle = self.round_streamed_start(state, train_chunks,
+                                                  val_chunks)
+        return state, self.finish_metrics(handle)
+
+    def round_streamed_start(self, state: TrainState, train_chunks,
+                             val_chunks):
+        """``round_start`` over fixed-shape windows (JAX
+        ``train.py:2554-2765``): ``train_chunks(epoch)`` /
+        ``val_chunks(epoch)`` give this worker's host windows ``(x [C, B,
+        ...], y [C, B, ...], m [C, B])`` (``data.window_feed``) for local
+        epoch ``epoch``.  With ``cfg.stream_prefetch > 0`` one
+        ``ChunkStager`` of that depth stages the round's windows ahead of
+        compute, across the epochs' boundaries; 0 stages each when it is
+        needed (the serial twin).  The same step bodies run on the same
+        bytes in the same order as ``round``, all-padding steps skipped;
+        the metrics have the JAX streamed round's shapes (steps padded to
+        whole windows, masked)."""
         t_round = time.perf_counter()
         depth = self.cfg.stream_prefetch
         staging = WindowStaging(self.device, slots=depth + 2)
@@ -1125,44 +1221,52 @@ class LocalSGDEngine:
         def feed(epoch):
             return iter(pull, None)        # this feed's windows
         try:
-            return self._run_round(state, t_round, feed, feed)
+            return self._run_round(state, t_round, feed, feed, 0.0, True)
         finally:
             if isinstance(staged, ChunkStager):
                 staged.close()
 
     def _windows(self, feed, epoch: int):
-        """One epoch's staged windows as ``(x, y, m, weights)``."""
+        """One epoch's staged windows as ``(x, y, m, w, weights)``."""
         return (take_window(item, self.device) for item in feed(epoch))
 
-    def _epoch_scalars(self, losses, corrects, weights: np.ndarray):
+    def _epoch_scalars(self, losses, corrects, weights: np.ndarray, w):
         """Reference per-epoch scalars: loss = mean over real batches,
-        accuracy = 100 * correct / total.  The sums stop at the last real
+        accuracy = 100 * correct / total (``weights`` on the host, ``w``
+        the same counts on the device).  The sums stop at the last real
         step, so trailing padding steps (a streamed round's whole-window
         tail) leave them bit for bit unchanged."""
-        dev = self.device
         real = np.flatnonzero(weights > 0)
         n = int(real[-1]) + 1 if len(real) else 0
-        real_step = torch.as_tensor(weights[:n] > 0, dtype=torch.float32,
-                                    device=dev)
-        totals = torch.as_tensor(weights[:n], dtype=torch.float32,
-                                 device=dev)
+        real_step = (w[:n] > 0).float()
         loss = ((losses[:n] * real_step).sum()
                 / real_step.sum().clamp_min(1))
-        acc = 100.0 * corrects[:n].sum() / totals.sum().clamp_min(1)
+        acc = 100.0 * corrects[:n].sum() / w[:n].sum().clamp_min(1)
         return loss, acc
 
     def _run_round(self, state: TrainState, t_round: float, train_feed,
-                   val_feed):
+                   val_feed, stage_ms: float, streamed: bool):
         """The round's body over windows: ``train_feed(epoch)`` and
-        ``val_feed(epoch)`` yield staged windows ``(x, y, m, weights,
-        ready)`` (one whole-round window, ready None, for ``round``)."""
+        ``val_feed(epoch)`` yield staged windows ``(x, y, m, w, weights,
+        ready)`` (one whole-round window for ``round_start``); the step
+        programs register as ``train_step``/``eval_step``, or
+        ``chunk_train``/``chunk_eval`` for ``streamed`` windows (JAX's
+        labels of its streamed programs).  Returns ``(state, handle)``."""
         cfg = self.cfg
+        if self._metrics_group is None and self.group is not None:
+            self._metrics_group = self.group.split()
         if self.staleness:
             state = self._stale_enter(state)
         gather_ms = 0.0
         if state.params_resident is not None:
             # the resident layout: the round starts with the entry gather
             gather_ms = self._gather_params(state)
+        train_name, eval_name = (("chunk_train", "chunk_eval") if streamed
+                                 else ("train_step", "eval_step"))
+        train_step = probe.track(self._programs, train_name,
+                                 self._train_step, state=self._step_state)
+        eval_step = probe.track(self._programs, eval_name, self._eval_step,
+                                state=self._module_state)
         self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
         dev = self.device
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
@@ -1173,23 +1277,24 @@ class LocalSGDEngine:
         for e in range(cfg.epochs_local):
             lr = steplr(cfg.lr, cfg.lr_gamma, cfg.lr_step_size,
                         state.lr_epoch)
-            losses, corrects, weights = [], [], []
+            losses, corrects, weights, ws = [], [], [], []
             self.model.train()
             self._sync()
             t0 = time.perf_counter()
-            for x, y, m, real in self._windows(train_feed, e):
+            for x, y, m, w, real in self._windows(train_feed, e):
                 augment = cfg.augment and x.ndim == 5   # [S, B, H, W, C]
                 lw = torch.zeros(len(real), device=dev)
                 cw = torch.zeros(len(real), device=dev)
                 for s in range(len(real)):
                     if real[s] == 0:     # all padding: the step is a no-op
                         continue
-                    lw[s], cw[s], last_grads = self._train_step(
+                    lw[s], cw[s], last_grads = train_step(
                         state, x[s], y[s], m[s], lr, augment)
                     train_steps += 1
                 losses.append(lw)
                 corrects.append(cw)
                 weights.append(real)
+                ws.append(w)
             self._sync()
             train_s += time.perf_counter() - t0
             losses = (torch.cat(losses) if losses
@@ -1198,18 +1303,18 @@ class LocalSGDEngine:
                         else torch.zeros(0, device=dev))
             weights = (np.concatenate(weights) if weights
                        else np.zeros(0, np.float32))
+            ws = torch.cat(ws) if ws else torch.zeros(0, device=dev)
             train_loss, train_acc = self._epoch_scalars(losses, corrects,
-                                                        weights)
+                                                        weights, ws)
             vsum = torch.zeros(3, device=dev)
             self.model.eval()
-            for xv, yv, mv, real_v in self._windows(val_feed, e):
+            for xv, yv, mv, _wv, real_v in self._windows(val_feed, e):
                 for s in range(len(real_v)):
                     if real_v[s] > 0:
-                        vsum += self._eval_step(xv[s], yv[s], mv[s])
+                        vsum += eval_step(xv[s], yv[s], mv[s])
                         val_steps += 1
             per_epoch["batch_losses"].append(losses)
-            per_epoch["batch_mask"].append(torch.as_tensor(
-                weights > 0, dtype=torch.float32, device=dev))
+            per_epoch["batch_mask"].append((ws > 0).float())
             per_epoch["train_loss"].append(train_loss)
             per_epoch["train_acc"].append(train_acc)
             per_epoch["val_loss"].append(vsum[0] / vsum[2].clamp_min(1))
@@ -1218,6 +1323,9 @@ class LocalSGDEngine:
 
         self._sync()
         wall_s = time.perf_counter() - t_round
+        # the per-epoch values to pinned host memory, queued now and
+        # complete at the sync point's fence below
+        own = to_host({k: torch.stack(v) for k, v in per_epoch.items()})
 
         # --- the sync point (the identity at one worker) -----------------
         # weights mode aggregates the parameters only: BatchNorm
@@ -1266,6 +1374,7 @@ class LocalSGDEngine:
             agg, state.round_opt = rets[0], rets[2]
             ok = self._take_extras(state, rets[3:], extra)
             agg_norm = comms.global_norm(agg)
+        own.update(to_host({"agg_grad_norm": agg_norm}))
         self._sync()
         sync_ms = (time.perf_counter() - t0) * 1e3
         delivered = self._delivered or {}
@@ -1277,25 +1386,33 @@ class LocalSGDEngine:
             "sync_mode": self.sync_mode, "sync_ms": round(sync_ms, 3),
             "sync_hidden_ms": delivered.get("sync_hidden_ms", 0.0),
             "gather_ms": round(gather_ms, 3)}
-
-        own = {k: torch.stack(v).cpu().numpy() for k, v in per_epoch.items()}
-        own["agg_grad_norm"] = agg_norm.cpu().numpy()
         if ok is not None:
             own["sync_ok"] = np.float32(ok)
-        peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-                else 0)
+        peak = probe.max_memory_allocated(dev)
         held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
-        own["timing"] = (wall_s, train_s * 1e3, train_steps, sync_ms, peak,
-                         held)
-        rows = mesh.all_gather(self.group, own)
+        return state, dict(
+            own=own, timing=(wall_s, train_s * 1e3, train_steps, sync_ms,
+                             peak, held),
+            train_ms=train_s * 1e3, train_steps=train_steps,
+            val_steps=val_steps, stage_ms=round(stage_ms, 3))
+
+    def finish_metrics(self, handle) -> dict:
+        """A round's metrics from its ``round_start`` handle (JAX
+        ``finish_metrics``; safe on another thread while the next round
+        runs): this worker's host values, every worker's gathered over
+        the engine's metric group, and the cross-worker means."""
+        own = {k: (np.array(v.numpy()) if isinstance(v, torch.Tensor)
+                   else v) for k, v in handle["own"].items()}
+        own["timing"] = handle["timing"]
+        rows = mesh.all_gather(self._metrics_group, own)
         mx = cross_worker_means(
             {k: np.stack([r[k] for r in rows]) for k in own
              if k != "timing"})
-        mx["train_ms"] = train_s * 1e3
-        mx["train_steps"] = train_steps
-        mx["val_steps"] = val_steps
+        mx["train_ms"] = handle["train_ms"]
+        mx["train_steps"] = handle["train_steps"]
+        mx["val_steps"] = handle["val_steps"]
         for i, k in enumerate(("wall_s", "train_ms", "train_steps",
                                "sync_ms", "max_memory_allocated",
                                "memory_allocated")):
             mx[f"workers_{k}"] = [r["timing"][i] for r in rows]
-        return state, mx
+        return mx

@@ -11,6 +11,8 @@ without it, skipping the repository's JAX conftest:
 ``chip_smoke.py`` runs the same comparisons at the main path's full size.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -664,3 +666,83 @@ def test_flash_ops_under_vmap_launch_once_for_all_workers(cuda, monkeypatch,
         for got, ref in zip(grads, refs):
             assert got.dtype == torch.bfloat16
             assert _rel(got[i], ref) <= REL_TOL
+
+
+def _tiny_cnn_run(cuda, **kw):
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        config as t_config,
+        driver as t_driver,
+    )
+    cfg = t_config.Config(model="enhanced_cnn", model_width=8,
+                          dataset="cifar10", batch_size=16, epochs_global=2,
+                          epochs_local=1, limit_train_samples=160,
+                          limit_eval_samples=32, probe_batches=1, **kw)
+    return t_driver.train_global(cfg, progress=False)
+
+
+def test_memory_rows_on_card(cuda):
+    """On the card every registered program has its row: the train step
+    updates the parameters, BatchNorm statistics and Adam moments in
+    place (alias bytes) and needs activations beyond them (temp bytes)."""
+    res = _tiny_cnn_run(cuda)
+    m = res["memory"]
+    assert m["available"] is True and m["programs_unavailable"] == []
+    assert set(m["programs"]) == {"train_step", "eval_step", "sync"}
+    step = m["programs"]["train_step"][0]
+    params = sum(p.numel() * 4 for p in res["model"].parameters())
+    assert step["alias_bytes"] >= 3 * params    # params, mu, nu in place
+    assert step["temp_bytes"] > 0 and step["argument_bytes"] > 0
+    assert m["temp_bytes_total"] == sum(
+        r["temp_bytes"] for rows in m["programs"].values() for r in rows)
+
+
+def test_process_peak_survives_the_probe(cuda):
+    """A peak reached before a tracked program's first call stays in the
+    process peak the rounds report, though measuring the program reset
+    the card's own peak statistic."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        probe,
+    )
+    gc.collect()                     # no garbage freed under the check
+    probe.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=cuda)
+    del big
+    tp = probe.TrackedProgram("p", lambda a: a * 2)
+    tp(torch.ones(1024, device=cuda))
+    assert torch.cuda.max_memory_allocated(cuda) < base + (1 << 30)
+    assert probe.max_memory_allocated(cuda) >= base + (1 << 30)
+    probe.reset_peak_memory_stats(cuda)
+    assert probe.max_memory_allocated(cuda) < base + (1 << 30)
+
+
+def test_planted_implicit_sync_trips_the_guard(cuda, monkeypatch):
+    """--sanitize: a clean round passes the guard; an ``.item()`` planted
+    in the train step is counted and raised."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        driver as t_driver,
+        train as t_train,
+    )
+    res = _tiny_cnn_run(cuda, sanitize=True)
+    assert res["sanitize"]["enabled"] is True
+    assert res["sanitize"]["transfer_guard_violations"] == 0
+    guards = []
+    real_guard = t_driver._round_guard
+
+    def spy(san, device):
+        guards.append(san)
+        return real_guard(san, device)
+
+    real_step = t_train.LocalSGDEngine._train_step
+
+    def planted(self, *args):
+        out = real_step(self, *args)
+        out[0].item()
+        return out
+
+    monkeypatch.setattr(t_driver, "_round_guard", spy)
+    monkeypatch.setattr(t_train.LocalSGDEngine, "_train_step", planted)
+    with pytest.raises(RuntimeError, match="synchronizing CUDA"):
+        _tiny_cnn_run(cuda, sanitize=True)
+    assert guards[0]["transfer_guard_violations"] == 1
+    assert torch.cuda.get_sync_debug_mode() == 0

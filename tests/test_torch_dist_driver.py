@@ -144,14 +144,16 @@ def test_measured_walls_are_divided_by_epochs_local(monkeypatch):
     1.6 s wall over 2 local epochs of 8 steps, i.e. 0.1 s/batch again, so
     the cap stays 8 (an undivided wall would make it 5 from round 2)."""
     assert list(t_driver.measured_worker_walls([2.0, 4.0], 4)) == [0.5, 1.0]
-    real_round = t_driver.LocalSGDEngine.round
+    # the driver reads a round's walls from its metrics (finish_metrics)
+    real_finish = t_driver.LocalSGDEngine.finish_metrics
 
-    def pinned_round(self, state, train_pack, val_pack):
-        state, mx = real_round(self, state, train_pack, val_pack)
+    def pinned_finish(self, handle):
+        mx = real_finish(self, handle)
         mx["workers_wall_s"] = [1.6]
-        return state, mx
+        return mx
 
-    monkeypatch.setattr(t_driver.LocalSGDEngine, "round", pinned_round)
+    monkeypatch.setattr(t_driver.LocalSGDEngine, "finish_metrics",
+                        pinned_finish)
     cfg = TConfig(device="cpu", **{**_ema_cfg(), "limit_train_samples": 160,
                                    "time_limit": 0.8})
     res = t_driver.train_global(cfg, simulated_durations=[1.0],

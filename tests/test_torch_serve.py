@@ -624,3 +624,29 @@ def test_bucket_helpers():
                                                               0, 0, 0]
     with pytest.raises(ValueError):
         pad_to_bucket(np.array([1] * 9), 8)
+
+
+# the serve memory row's keys beside JAX's: what the served model holds
+HELD_KEYS = {"device", "params_bytes", "kv_pool_bytes",
+             "max_memory_allocated"}
+
+
+@pytest.mark.parametrize("chunk", [0, 8], ids=["buckets", "chunked"])
+def test_serve_memory_row_has_jax_schema(jax_trained, chunk):
+    """``telemetry["memory"]`` is JAX's ``memory_report`` of the engine's
+    programs (``J/serve/api.py:209-210``), the held bytes beside it: the
+    same keys and the same program labels on the same checkpoint (the
+    decode step and the used prefill, or the chunk program alone); on
+    the CPU no program has a row, so ``available`` is false."""
+    kw = dict(checkpoint_dir=jax_trained, serve_max_batch=3,
+              serve_page_size=4, serve_max_pages=40,
+              serve_prompt_buckets="8,16", serve_requests=4,
+              serve_max_new_tokens=4, serve_prefill_chunk=chunk)
+    ours = run_serve(Config(device="cpu", **kw))["serve"]["memory"]
+    theirs = j_run_serve(JConfig(**kw))["serve"]["memory"]
+    assert set(ours) == set(theirs) | HELD_KEYS
+    labels = lambda m: set(m["programs"]) | set(m["programs_unavailable"])
+    assert labels(ours) == labels(theirs)
+    assert ours["available"] is False and ours["programs"] == {}
+    assert (ours["workers"], ours["simulated"]) == (1, False)
+    assert ours["params_bytes"] > 0 and ours["kv_pool_bytes"] > 0

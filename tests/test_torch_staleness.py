@@ -362,7 +362,8 @@ def test_every_jax_flag_parses_in_the_port(action):
         assert isinstance(cfg, Config)
 
 
-def test_sync_flags_parse_and_the_dead_cache_flag_is_a_no_op():
+def test_sync_flags_parse_and_the_dead_cache_flag_is_a_no_op(tmp_path,
+                                                             monkeypatch):
     cfg = config_from_args([
         "--device", "cpu", "--sync_mode", "sharded", "--sync_dtype", "int8",
         "--sync_compression", "ef", "--sync_bucket_mb", "0.5",
@@ -371,8 +372,36 @@ def test_sync_flags_parse_and_the_dead_cache_flag_is_a_no_op():
     assert (cfg.sync_mode, cfg.sync_dtype, cfg.sync_compression,
             cfg.sync_bucket_mb, cfg.opt_placement, cfg.sync_staleness) == (
         "sharded", "int8", "ef", 0.5, "sharded", 1)
-    with pytest.raises(ValueError, match="A.11 item 3"):
-        config_from_args(["--no_overlap_rounds"])
+    # the round pipeline's flags are ported: they parse, and a run takes
+    # the serial flow (no prep or metric thread), runs sanitized and
+    # writes the trace
+    cfg = config_from_args([
+        "--device", "cpu", "--model", "mlp", "--dataset", "mnist",
+        "--epochs_global", "2", "--epochs_local", "1", "--batch_size", "16",
+        "--limit_train_samples", "96", "--limit_eval_samples", "16",
+        "--probe_batches", "1", "--no_overlap_rounds", "--sanitize",
+        "--profile_dir", str(tmp_path)])
+    assert (cfg.overlap_rounds, cfg.sanitize, cfg.profile_dir) == (
+        False, True, str(tmp_path))
+    pools = []
+    real_pool = t_driver.ThreadPoolExecutor
+
+    def spy(*args, **kw):
+        pools.append(kw.get("thread_name_prefix"))
+        return real_pool(*args, **kw)
+
+    monkeypatch.setattr(t_driver, "ThreadPoolExecutor", spy)
+    res = t_driver.train_global(cfg, progress=False)
+    assert pools == [] and len(res["round_timings"]) == 2
+    assert res["sanitize"]["enabled"] is True
+    assert res["sanitize"]["transfer_guard_violations"] == 0
+    assert (tmp_path / "trace_rank0.json").is_file()
+    t_driver.train_global(config_from_args([
+        "--device", "cpu", "--model", "mlp", "--dataset", "mnist",
+        "--epochs_global", "2", "--epochs_local", "1", "--batch_size", "16",
+        "--limit_train_samples", "96", "--limit_eval_samples", "16",
+        "--probe_batches", "1"]), progress=False)
+    assert pools == ["round-prep", "round-metrics"]   # the default flow
 
 
 # ----------------------------------------------------------------------
