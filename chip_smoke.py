@@ -74,9 +74,9 @@ Phases (any failure exits non-zero before the result line):
              --epochs_global 3 --resume, which must train exactly one
              round and leave committed epochs [2, 3]; snapshot and write
              ms per save, payload bytes, restore wall;
-   serve gpt2 - `main serve` off that checkpoint: 32 greedy requests of 64
+   serve gpt2 - `main serve` off that checkpoint: 16 greedy requests of 64
              new tokens at 8 decode slots (pages of 16, 160 pages, prompt
-             buckets 32 and 128): 2,048 tokens, no page leaked, the
+             buckets 32 and 128): 1,024 tokens, no page leaked, the
              dispatched (program, shape) pairs exactly the used buckets
              and one decode shape; 4 requests' paged logits at every
              generated position against a full-sequence forward of the
@@ -93,7 +93,7 @@ Phases (any failure exits non-zero before the result line):
              x passes (the D=32 kernel instances, also held against their
              plain versions in the kernels phase as draft_path);
    serve gpt2 spec - serve gpt2's traffic again with --serve_draft_ckpt
-             (the draft) --serve_spec_tokens 4: 2,048 tokens, no page
+             (the draft) --serve_spec_tokens 4: 1,024 tokens, no page
              leaked in either pool, the programs exactly the used buckets
              and one verify shape (the draft's: its buckets and one decode
              shape); every stream equal to serve gpt2's up to the first
@@ -149,11 +149,35 @@ Phases (any failure exits non-zero before the result line):
              launch per layer per pass for all 4 workers, worker 0's flash
              vs dense logits), whose kernels the kernels phase holds at
              sim_path [256,128,12,64].
+10b. grid  - the rank grid (--mesh_shape; every rank a process on the
+             one card, every collective staged through pinned host
+             memory): [tp gpt2] the gpt2 path's fp32 pair at
+             data=2,model=2 against --num_workers 2 (losses rtol 2e-3),
+             both timed, then the bf16 run (512 training sequences) timed,
+             every rank's launches exactly layers x its passes; [tp fsdp
+             bert] bert_base at data=1,fsdp=2,model=2: the fp32 pair
+             against data=1, both timed, the grid's launches (fp32
+             instances) checked on every rank; [fsdp cnn] one fp32 step of the
+             full-width cnn at data=1,fsdp=2 against the dense twin that
+             normalises each half (logits atol 1e-5, gradients 2e-4), then
+             the cnn at data=2,fsdp=2 and its twin timed (one round on
+             2,048 images), BatchNorm statistics equal along fsdp; each
+             rank's step ms, TP all-reduce and FSDP gather/reduce-scatter
+             ms and bytes, parameter and moment bytes, peak memory; [tp
+             llama] in the llama child: llama_medium at data=1,model=2,
+             the fused backward's launches on every rank.  The kernels
+             phase holds the four kernels at the shard shapes tp_gpt2
+             [64,128,6,64] causal, tp_llama [64,128,8/2,64] causal and
+             tp_fsdp_bert [32,128,6,64] full.  Alone: python3 chip_smoke.py
+             grid.  (To make room for these phases the sync and overlap
+             runs take 2,048 images (the sync runs one local epoch a
+             round), the elastic phase 2,048 images and 2 layout rounds,
+             and serving 16 requests.)
 
 11. elastic cnn n4 - in a child process (CUBLAS_WORKSPACE_CONFIG set,
              deterministic algorithms in it and in its ranks): the cnn run
              on 4 worker processes, weights x equal on the sharded engine
-             (scatter-resident parameters, the buddy hop), 4,096 images,
+             (scatter-resident parameters, the buddy hop), 2,048 images,
              5 rounds, under --chaos kill@1:w3,join@2,crash@3:w0,nan@4:w1
              with the walls pinned: the roster per round (4 -> 3 -> 4 ->
              3), events, reshard and recovery stalls, sync ms and bytes
@@ -269,11 +293,12 @@ DRAFT_LAYERS = 4
 SPEC_TOKENS = 4
 # phase stream vit: the vit path's windows of 2 steps, 2 staged ahead
 STREAM_ARGV = ["--stream_chunk_steps", "2", "--stream_prefetch", "2"]
-# phase serve: 32 greedy requests of 64 new tokens at 8 decode slots
+# phase serve: 16 greedy requests of 64 new tokens at 8 decode slots (cut
+# from 32 to make room for the rank grid's phases)
 SERVE_ARGV = ["--serve_max_batch", "8", "--serve_page_size", "16",
               "--serve_max_pages", "160", "--serve_prompt_buckets", "32,128",
-              "--serve_requests", "32", "--serve_max_new_tokens", "64"]
-SERVE_TOKENS = 32 * 64
+              "--serve_requests", "16", "--serve_max_new_tokens", "64"]
+SERVE_TOKENS = 16 * 64
 SERVE_CHECKED = 4              # requests held against a full forward
 # paged logits vs a full-sequence forward with the flash kernels, bf16:
 # the flash-vs-dense limit of the paths, as a share of max |full|
@@ -342,7 +367,7 @@ SYNC_ENGINES = [("sharded", "equal", "allreduce"),
                 ("gossip", "equal", "double_ring"),
                 ("gossip", "weighted", "double_ring")]
 SYNC_WIRES = ("float32", "bfloat16", "int8")
-SYNC_ENGINE_ROUNDS = 3
+SYNC_ENGINE_ROUNDS = 2
 # the scenario lab (--sim_workers): the cnn run's N workers in one process
 SIM_WEIGHTED = ["--aggregation_by", "weights", "--aggregation_type",
                 "weighted", "--topology", "double_ring", "--data_mode",
@@ -393,15 +418,15 @@ ACCUM_PHASE = "grad_accum"     # runs phase remat's K=4 vs K=1 alone
 RESULT_TAG = "chip_smoke-llama-result "
 # phase elastic cnn n4: the reference's cnn on 4 worker processes, weights
 # x equal on the sharded engine (resident parameters, the buddy hop),
-# 4,096 training images, 5 rounds of 1 local epoch, under chaos
+# 2,048 training images, 5 rounds of 1 local epoch, under chaos
 ELASTIC_PHASE = "elastic"      # the child's argument
 ELASTIC_RESULT_TAG = "chip_smoke-elastic-result "
 ELASTIC_ARGV = ["--model", "enhanced_cnn", "--dataset", "cifar10",
                 "--num_workers", "4", "--aggregation_by", "weights",
                 "--aggregation_type", "equal", "--topology", "allreduce",
                 "--sync_mode", "sharded", "--epochs_global", "5",
-                "--epochs_local", "1", "--limit_train_samples", "5120",
-                "--limit_eval_samples", "512", "--log_level", "warning",
+                "--epochs_local", "1", "--limit_train_samples", "2560",
+                "--limit_eval_samples", "256", "--log_level", "warning",
                 "--out_dir", os.path.join(OUT_DIR, "elastic")]
 ELASTIC_CHAOS = ["--chaos", "kill@1:w3,join@2,crash@3:w0,nan@4:w1",
                  "--chaos_retries", "1"]
@@ -412,20 +437,51 @@ ELASTIC_ROSTERS = [[0, 1, 2, 3], [0, 1, 2], [0, 1, 2, 4], [1, 2, 4],
 # the continued run's host decisions
 ELASTIC_WALLS = [[1.0 + 0.05 * w for w in range(5)] for _ in range(5)]
 ELASTIC_TWIN_SNAPSHOT = 1      # the round-2 snapshot (after the join)
-ELASTIC_LAYOUT_ROUNDS = 3      # replicated vs resident, no chaos
+ELASTIC_LAYOUT_ROUNDS = 2      # replicated vs resident, no chaos
 # phase overlap cnn: the cnn run serial and overlapped, at
 # one worker and at N=4 on the sync n4 traffic (one local epoch), in the
 # deterministic child; the probe and the walls pinned, so the partitions
 # of both flows come from the same numbers
 DETERMINISTIC_PHASE = "deterministic"   # the child: overlap, then elastic
 OVERLAP_PHASE = "overlap"
-OVERLAP_ARGV = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "overlap")]
+OVERLAP_ARGV = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "overlap"),
+                "--limit_train_samples", "2560"]
 OVERLAP_N4_ARGV = [*OVERLAP_ARGV, "--num_workers", "4", "--aggregation_by",
                    "weights", "--epochs_local", "1", *SYNC_RUNS[1][2]]
 OVERLAP_PROBE = [1.0, 1.3, 0.9, 1.1]
 OVERLAP_WALLS = [[0.5 + 0.1 * w for w in range(4)] for _ in range(2)]
 OVERLAP_KEYS = ("stage_ms", "compute_ms", "fetch_ms", "assemble_ms",
                 "prep_ms", "gap_ms")
+# phases tp gpt2, tp llama, fsdp cnn and tp fsdp bert: the
+# rank grid's worker processes time-share the one card and stage every
+# collective (the per-layer TP all-reduces, the FSDP gather and
+# reduce-scatter) through pinned host memory; the numbers measure that,
+# not the speed of tensor parallelism.  The fp32 parity runs share their
+# partition (uniform shares, one probe batch) with their data-only twins.
+GRID_FP32 = ["--compute_dtype", "float32", "--proportionality", "uniform",
+             "--probe_batches", "1", "--epochs_global", "1",
+             "--limit_train_samples", "640", "--limit_eval_samples", "128"]
+# the timed bf16 runs: the paths' argv cut to 512 training sequences
+# (4-8 steps a worker) and one probe batch; tp llama to 256 (4 steps)
+GRID_CUT = ["--limit_train_samples", "640", "--limit_eval_samples", "128",
+            "--probe_batches", "1"]
+TP_LLAMA_CUT = ["--limit_train_samples", "320", "--limit_eval_samples",
+                "64", "--probe_batches", "1"]
+# fsdp cnn: one round of one local epoch on 2,048 training images
+FSDP_CNN_CUT = ["--epochs_global", "1", "--epochs_local", "1",
+                "--limit_train_samples", "2560", "--limit_eval_samples",
+                "256"]
+TP_GPT2_MESH = ["--mesh_shape", "data=2,model=2"]
+TP_LLAMA_MESH = ["--mesh_shape", "data=1,model=2"]
+FSDP_CNN_MESH = ["--mesh_shape", "data=2,fsdp=2"]
+TP_FSDP_BERT_MESH = ["--mesh_shape", "data=1,fsdp=2,model=2"]
+GRID_RTOL = 2e-3          # the CPU tests' gate (JAX test_tp/test_fsdp)
+# the one-step module checks (grid_harness): logits atol 1e-5, gradients
+# atol 2e-4 (the CPU tests' gates, fp32 on the card)
+GRID_LOGITS_ATOL, GRID_GRAD_ATOL = 1e-5, 2e-4
+TP_LLAMA_PHASE = "tp_llama"     # the FLASH_BWD=fused child, alone
+GRID_COUNTS: dict = {}          # tp llama's rank-0 launches (llama child)
+GRID_PHASE = "grid"             # the rank grid's phases alone
 # phase sanitize: each path cut to 2 rounds of a few steps (argparse keeps
 # a flag's last value)
 _SMALL = ["--epochs_global", "2", "--epochs_local", "1", "--probe_batches",
@@ -468,9 +524,17 @@ SHAPES = [
     ("draft_path", PATH_BATCH, PATH_LEN, 4, 4, 32, True),
     # the gpt2 path's shape with --sim_workers 4 folded into the batch
     ("sim_path", 4 * PATH_BATCH, PATH_LEN, 12, 12, 64, True),
+    # the rank grid's head shards: gpt2 at tp 2, llama at tp
+    # 2 (8 query heads over 2 K/V heads, groups of 4), bert at fsdp 2 x tp
+    # 2 (half the batch, half the heads)
+    ("tp_gpt2", PATH_BATCH, PATH_LEN, 6, 6, 64, True),
+    ("tp_llama", PATH_BATCH, PATH_LEN, 8, 2, 64, True),
+    ("tp_fsdp_bert", PATH_BATCH // 2, PATH_LEN, 6, 6, 64, False),
 ]
 # shapes whose numbers every kernel's JSON row carries beside its path's
-ROW_SHAPES = ("bert_path", "vit_path", "draft_path", "sim_path")
+ROW_SHAPES = ("bert_path", "vit_path", "draft_path", "sim_path", "tp_gpt2",
+              "tp_llama", "tp_fsdp_bert")
+TP_SHAPES = ("tp_gpt2", "tp_llama", "tp_fsdp_bert")
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
 # gradients are rounded to bf16 (relative spacing 2^-8) after fp32
@@ -1585,7 +1649,7 @@ def _serve_checks(name: str, results, want_programs: set) -> dict:
 
 
 def phase_serve(name: str, ckpt_dir: str) -> dict:
-    """Phase serve: 32 greedy requests off ``ckpt_dir`` through `main
+    """Phase serve: 16 greedy requests off ``ckpt_dir`` through `main
     serve`, with the checks of the module docstring; returns the
     telemetry with ``streams`` (rid -> tokens) and ``margins`` (rid -> each
     generated position's top-2 margin over max |logit| in this run's own
@@ -2133,8 +2197,11 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     from importlib import import_module
     fl = import_module(f"{PKG}.ops.flash")
     main = import_module(f"{PKG}.main")
+    # one local epoch a round on 2,048 images (the depth cut to make room
+    # for the rank grid's phases)
     argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label), "--num_workers",
-            str(n), "--aggregation_by", "weights", *extra]
+            str(n), "--aggregation_by", "weights", "--epochs_local", "1",
+            "--limit_train_samples", "2560", *extra]
     _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2933,8 +3000,11 @@ def llama_child() -> int:
     torch.cuda.empty_cache()
     phase_serve("llama", LLAMA_CKPT_DIR)
     shutil.rmtree(LLAMA_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    tp_counts = tp_llama()
     print(RESULT_TAG + json.dumps({"counts": counts,
-                                   "mfu": MFU_RUNS["llama"]}), flush=True)
+                                   "mfu": MFU_RUNS["llama"],
+                                   "tp_counts": tp_counts}), flush=True)
     return 0
 
 
@@ -2956,6 +3026,7 @@ def phase_llama() -> dict:
         fail(f"the llama child exited with {proc.returncode}"
              + ("" if result else " and printed no result line"))
     MFU_RUNS["llama"] = result["mfu"]
+    GRID_COUNTS["tp_llama"] = result["tp_counts"]
     return result["counts"]
 
 
@@ -3181,9 +3252,316 @@ def phase_elastic() -> dict:
     return result
 
 
+# ----------------------------------------------------------------------
+# The rank grid: --mesh_shape data=D,fsdp=F,model=T
+# ----------------------------------------------------------------------
+
+def grid_run(tag: str, argv: list[str]):
+    """main.run(argv) with this process's launch counters reset just
+    before; returns (results, wall s)."""
+    import torch
+    from importlib import import_module
+    import_module(f"{PKG}.ops.flash").reset_launch_counts()
+    _peak_reset()
+    t0 = time.perf_counter()
+    results = import_module(f"{PKG}.main").run(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in results["global_train_losses"]):
+        fail(f"{tag}: non-finite train loss")
+    return results, wall
+
+
+def check_grid_launches(tag: str, results: dict, layers: int,
+                        argv: list[str]) -> dict:
+    """Every rank's flash launches in its train_global (gathered before
+    rank 0's final evaluation): layers x its passes, the probe's on the
+    dense twin (1 + --probe_batches, all heads) and its train and
+    validation steps' (its head shard); the fused backward or the
+    two-pass pair as FLASH_BWD says.  Returns rank 0's counts."""
+    from importlib import import_module
+    fused = import_module(f"{PKG}.ops.flash")._use_fused_bwd()
+    probe_passes = 1 + import_module(f"{PKG}.config").config_from_args(
+        argv).probe_batches
+    g = results["grid"]
+    for r, (counts, (train, val)) in enumerate(zip(g["launches"],
+                                                   g["steps"])):
+        grad = layers * (probe_passes + train)
+        want = {"flash_fwd": layers * (probe_passes + train + val),
+                "flash_bwd_dq": 0 if fused else grad,
+                "flash_bwd_dkv": 0 if fused else grad,
+                "flash_bwd_fused": grad if fused else 0}
+        print(f"{tag} rank {r} {g['coords_of'][r]}: launches {counts}; "
+              f"expected {want} ({layers} layers; {train} train steps, "
+              f"{val} val steps, {probe_passes} probe passes)")
+        if counts != want:
+            fail(f"{tag}: rank {r}'s launch counts {counts} are not its "
+                 f"passes' {want}")
+    return g["launches"][0]
+
+
+def grid_lines(tag: str, results: dict, wall: float) -> dict:
+    """Per-rank step ms, TP all-reduce and FSDP gather/reduce-scatter ms
+    and bytes per step, parameter and moment bytes, peak memory; returns
+    them by rank."""
+    g, rt = results["grid"], results["round_timings"]
+    rows = []
+    for r in range(g["ranks"]):
+        train, val = g["steps"][r]
+        passes = max(train + val, 1)
+        tp, fs, st = g["tp"][r], g["fsdp"][r], g["state_bytes"][r]
+        row = dict(
+            coords=g["coords_of"][r], train_steps=train,
+            step_ms=sum(x["ranks_train_ms"][r] for x in rt) / max(train, 1),
+            tp_ms=tp["ms"] / passes, tp_bytes=tp["bytes"] / passes,
+            tp_calls=tp["calls"] / passes,
+            gather_ms=fs["gather_ms"] / max(train, 1),
+            reduce_scatter_ms=fs["reduce_scatter_ms"] / max(train, 1),
+            fsdp_bytes=(fs["gather_bytes"] + fs["reduce_scatter_bytes"])
+            / max(train, 1),
+            params_bytes=st["params"], opt_bytes=st["opt_state"],
+            peak=max(x["ranks_max_memory_allocated"][r] for x in rt))
+        rows.append(row)
+        print(f"{tag} rank {r} {row['coords']}: train step "
+              f"{row['step_ms']:.3f} ms over {train} steps; TP all-reduce "
+              f"{row['tp_ms']:.3f} ms, {row['tp_calls']:.0f} calls, "
+              f"{row['tp_bytes']:,.0f} B per pass (train + val); FSDP "
+              f"gather {row['gather_ms']:.3f} ms + reduce-scatter "
+              f"{row['reduce_scatter_ms']:.3f} ms, {row['fsdp_bytes']:,.0f} "
+              f"B per train step; params {row['params_bytes']:,} B, Adam "
+              f"moments {row['opt_bytes']:,} B; max_memory_allocated "
+              f"{row['peak'] / 2**30:.2f} GiB")
+    print(f"{tag} {g['ranks']} processes {g['axes']} on one card; wall "
+          f"{wall:.1f} s; losses {results['global_train_losses']}")
+    return rows
+
+
+def data_lines(tag: str, results: dict, wall: float) -> None:
+    """The data-only twin's per-worker step ms and peak memory."""
+    rt = results["round_timings"]
+    n = len(rt[0]["workers_train_ms"])
+    step = [sum(x["workers_train_ms"][w] for x in rt)
+            / max(sum(x["workers_train_steps"][w] for x in rt), 1)
+            for w in range(n)]
+    peak = [max(x["workers_max_memory_allocated"][w] for x in rt)
+            for w in range(n)]
+    print(f"{tag} {n} worker process(es): train step per worker "
+          f"{[round(x, 3) for x in step]} ms; max_memory_allocated per "
+          f"worker {[round(x / 2**30, 2) for x in peak]} GiB; params "
+          f"{results['sync_engine']['per_worker_state_bytes']['params']:,} B"
+          f"; wall {wall:.1f} s; losses {results['global_train_losses']}")
+
+
+def grid_parity(tag: str, twin_argv: list[str], grid_argv: list[str],
+                rtol: float = GRID_RTOL) -> dict:
+    """The fp32 pair: the grid run's global train and val losses against
+    its data-only twin's at ``rtol``; both runs' per-rank (per-worker)
+    step ms and memory printed side by side."""
+    import numpy as np
+    twin, twin_wall = grid_run(tag, twin_argv)
+    data_lines(f"{tag} fp32 data-only twin", twin, twin_wall)
+    grid, wall = grid_run(tag, grid_argv)
+    grid_lines(f"{tag} fp32", grid, wall)
+    for k in ("global_train_losses", "global_val_losses"):
+        a, b = np.asarray(grid[k]), np.asarray(twin[k])
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        print(f"{tag} fp32 parity {k}: grid {a.tolist()} vs twin "
+              f"{b.tolist()}: max rel diff {rel:.3g} (gate {rtol})")
+        if not np.allclose(a, b, rtol=rtol, atol=0):
+            fail(f"{tag}: fp32 {k} differ from the data-only twin's beyond "
+                 f"rtol {rtol}")
+    return grid
+
+
+def phase_tp_gpt2() -> dict:
+    """[tp gpt2]: the gpt2 path on data=2,model=2 (4 processes): the fp32
+    pair against --num_workers 2, both timed, then the bf16 run timed;
+    every rank launches each kernel once per layer per pass."""
+    argv, layers = PATHS["gpt2"]
+    tag = "[tp gpt2]"
+    t0 = time.perf_counter()
+    small = [*argv, *GRID_FP32]
+    grid_parity(tag, [*small, "--num_workers", "2"], [*small, *TP_GPT2_MESH])
+    argv = [*argv, *GRID_CUT]
+    tp, wall = grid_run(tag, [*argv, *TP_GPT2_MESH])
+    check_losses("tp gpt2", tp)
+    counts = check_grid_launches(tag, tp, layers, [*argv, *TP_GPT2_MESH])
+    grid_lines(tag, tp, wall)
+    del tp
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def tp_llama() -> dict:
+    """[tp llama] (in a FLASH_BWD=fused process): llama_medium with 4 K/V
+    heads on data=1,model=2; each rank's fused backward launches once per
+    layer per pass, the two-pass pair never."""
+    from importlib import import_module
+    if not import_module(f"{PKG}.ops.flash")._use_fused_bwd():
+        fail("the tp llama run does not see FLASH_BWD=fused")
+    argv, layers = PATHS["llama"]
+    tag = "[tp llama]"
+    argv = [*argv, *TP_LLAMA_CUT, "--checkpoint_dir", "",
+            "--checkpoint_every", "0", *TP_LLAMA_MESH, "--out_dir",
+            os.path.join(OUT_DIR, "tp_llama")]
+    res, wall = grid_run(tag, argv)
+    check_losses("tp llama", res)
+    counts = check_grid_launches(tag, res, layers, argv)
+    grid_lines(tag, res, wall)
+    return counts
+
+
+def fsdp_module_check(device: str = "cuda", width: int = 64) -> None:
+    """One fp32 step of the full-width enhanced_cnn at data=1,fsdp=2 (2
+    processes on the card, grid_harness): each rank's logits of its half
+    of the batch and the joined gradients against the dense twin that
+    normalises each half on its own (BatchNorm under FSDP, JAX
+    train.py:1617-1622)."""
+    import numpy as np
+    import tempfile
+    import torch
+    from importlib import import_module
+    mesh = import_module(f"{PKG}.mesh")
+    harness = import_module(f"{PKG}.grid_harness")
+    model = import_module(f"{PKG}.models").get_model(
+        "enhanced_cnn", num_classes=10, width=width)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    job = dict(model="enhanced_cnn", vocab=10, shape=(32, 32, 3),
+               kw={"model_width": width},
+               state_dict={k: v.numpy() for k, v in
+                           model.state_dict().items()},
+               x=rng.normal(size=(PATH_BATCH, 32, 32, 3)).astype(
+                   np.float32),
+               y=rng.integers(0, 10, PATH_BATCH),
+               m=np.ones(PATH_BATCH, np.float32))
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"axes": {"data": 1, "fsdp": 2}, "jobs": [job]},
+                   os.path.join(d, "jobs.pt"))
+        store = mesh.new_store_path()
+        try:
+            mesh.join_workers(mesh.spawn_workers(
+                harness.module_worker, 2,
+                (store, os.path.join(d, "jobs.pt"), d, device),
+                ranks=range(2)), timeout_s=300.0)
+        finally:
+            mesh.remove_store(store)
+        ranks = [torch.load(os.path.join(d, f"rank{r}-0.pt"),
+                            weights_only=False) for r in range(2)]
+    logits = np.concatenate([r["logits"] for r in ranks])
+    e_logits = float(np.abs(logits - ranks[0]["dense_logits"]).max())
+    e_grads = max(float(np.abs(g - ranks[0]["dense_grads"][k]).max())
+                  for k, g in ranks[0]["grads"].items())
+    sharded = sum("fsdp" in s for s in ranks[0]["specs"].values())
+    print(f"[fsdp cnn] one fp32 step at data=1,fsdp=2, {sharded} of "
+          f"{len(ranks[0]['specs'])} leaves sharded: logits max abs err "
+          f"{e_logits:.3g} (gate {GRID_LOGITS_ATOL}), gradients max abs "
+          f"err {e_grads:.3g} (gate {GRID_GRAD_ATOL}) against the dense "
+          "twin normalising each half")
+    if not (e_logits <= GRID_LOGITS_ATOL and e_grads <= GRID_GRAD_ATOL):
+        fail("fsdp cnn: the sharded step differs from its dense twin")
+
+
+def phase_fsdp_cnn() -> None:
+    """[fsdp cnn]: the reference's enhanced_cnn run on data=2,fsdp=2 (4
+    processes) against --num_workers 2, both bf16 and timed: finite
+    falling losses, BatchNorm statistics equal along fsdp, each rank's
+    parameter and moment bytes against the whole model's; the one-step
+    fp32 module check holds the sharded step against its dense twin."""
+    tag = "[fsdp cnn]"
+    t0 = time.perf_counter()
+    fsdp_module_check()
+    argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "fsdp_cnn"),
+            *FSDP_CNN_CUT]
+    dp, dp_wall = grid_run(tag, [*argv, "--num_workers", "2"])
+    data_lines(f"{tag} data=2 twin", dp, dp_wall)
+    whole = dp["sync_engine"]["per_worker_state_bytes"]
+    del dp
+    res, wall = grid_run(tag, [*argv, *FSDP_CNN_MESH])
+    check_losses("fsdp cnn", res)
+    rows = grid_lines(tag, res, wall)
+    sums = res["grid"]["buffer_checksums"]
+    if not (sums[0] == sums[1] and sums[2] == sums[3]):
+        fail("fsdp cnn: BatchNorm statistics differ along fsdp")
+    for r, row in enumerate(rows):
+        print(f"{tag} rank {r}: params {row['params_bytes']:,} B = "
+              f"{row['params_bytes'] / whole['params']:.3f} of the whole "
+              f"{whole['params']:,}; Adam moments {row['opt_bytes']:,} B = "
+              f"{row['opt_bytes'] / whole['opt_state']:.3f} of "
+              f"{whole['opt_state']:,}")
+    print(f"{tag} BatchNorm statistics equal along fsdp: True; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_tp_fsdp_bert() -> dict:
+    """[tp fsdp bert]: bert_base MLM on data=1,fsdp=2,model=2 (4
+    processes): the fp32 pair against data=1, both timed, every rank of
+    the grid run launching each kernel (its fp32 instance) once per layer
+    per pass."""
+    argv, layers = PATHS["bert"]
+    tag = "[tp fsdp bert]"
+    t0 = time.perf_counter()
+    small = [*argv, *GRID_FP32]
+    grid = grid_parity(tag, [*small, "--mesh_shape", "data=1"],
+                       [*small, *TP_FSDP_BERT_MESH])
+    counts = check_grid_launches(tag, grid, layers,
+                                 [*small, *TP_FSDP_BERT_MESH])
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def phase_tp_llama() -> dict:
+    """Run tp_llama in a FLASH_BWD=fused child; echo it; its counts."""
+    env = {**os.environ, "FLASH_BWD": "fused"}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           TP_LLAMA_PHASE], env=env, capture_output=True,
+                          text=True, timeout=600)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith(RESULT_TAG):
+            result = json.loads(line[len(RESULT_TAG):])
+        else:
+            print(line)
+    if proc.returncode != 0 or result is None:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"the tp llama child exited with {proc.returncode}")
+    return result["counts"]
+
+
+def phase_grid() -> dict:
+    """The rank grid's phases; returns their rank-0 launch counts."""
+    counts = {"tp_gpt2": phase_tp_gpt2()}
+    counts["tp_fsdp_bert"] = phase_tp_fsdp_bert()
+    phase_fsdp_cnn()
+    return counts
+
+
+def grid_alone() -> int:
+    """``python3 chip_smoke.py grid``: the rank grid's kernel shapes and
+    phases alone (a short card call while they change)."""
+    import torch
+    os.environ.pop("FLASH_BWD", None)
+    phase_device()
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for shape in SHAPES:
+        if shape[0] in TP_SHAPES:
+            check_shape(*shape)
+    counts = phase_grid()
+    counts["tp_llama"] = phase_tp_llama()
+    print(json.dumps({"grid_counts": counts}))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
+    if sys.argv[1:] == [TP_LLAMA_PHASE]:
+        print(RESULT_TAG + json.dumps({"counts": tp_llama()}), flush=True)
+        return 0
+    if sys.argv[1:] == [GRID_PHASE]:
+        return grid_alone()
     if sys.argv[1:] == [ELASTIC_PHASE]:
         return deterministic_child(overlap=False, elastic=True)
     if sys.argv[1:] == [OVERLAP_PHASE]:
@@ -3259,6 +3637,9 @@ def main() -> int:
     phase_sim_scenario()
     counts["sim_gpt2"] = phase_sim_gpt2()
     print(f"[sim] phases wall {time.perf_counter() - t_sim:.1f} s")
+    torch.cuda.empty_cache()
+    counts.update(phase_grid())
+    counts["tp_llama"] = GRID_COUNTS["tp_llama"]
     phase_elastic()
     phase_memory()
     phase_mfu(smi)

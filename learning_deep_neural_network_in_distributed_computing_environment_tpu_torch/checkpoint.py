@@ -106,6 +106,12 @@ class WorkerState:
     round_opt: Optional[dict] = None    # {bucket: {"mu", "nu"}}: this row
     # {bucket: row}: this worker's resident shard (``params`` is then {})
     params_resident: Optional[dict] = None
+    # on the rank grid: ``params``/``mu``/``nu``/``residual`` map the JAX
+    # ``params`` leaf keys to this rank's shards, and this holds each
+    # shard's global ``index``, the leaves' ``full_shapes``, which leaves
+    # this rank ``writes`` (their first replica) and whether it is the
+    # worker's ``lead`` rank (it writes the replicated rest)
+    grid: Optional[dict] = None
 
     def tensors(self) -> dict:
         return {**{f"params/{k}": v for k, v in self.params.items()},
@@ -162,6 +168,61 @@ def jax_leaves(state: WorkerState) -> dict[str, np.ndarray]:
             b: _numpy(ms) for b, ms in state.round_opt.items()},
         params_resident=(None if state.params_resident is None
                          else _numpy(state.params_resident)))
+
+
+def _piece(pieces: dict, meta: dict, key: str, w: int, n: int, index,
+           arr: np.ndarray, full_shape, write: bool) -> None:
+    """Leaf ``key``'s manifest entry (worker axis first) and, when
+    ``write``, worker ``w``'s piece at ``index`` of its row."""
+    shape = [n, *[int(d) for d in full_shape]]
+    meta[key] = {"shape": shape, "dtype": str(arr.dtype),
+                 "bytes": int(np.prod(shape, dtype=np.int64))
+                 * arr.dtype.itemsize}
+    if write:
+        pieces[key] = [[[[w, w + 1]] + [list(map(int, i)) for i in index],
+                        arr[None]]]
+
+
+def row_pieces(host: WorkerState) -> tuple[dict, dict]:
+    """The pieces of one worker's whole row (every leaf) and the leaves'
+    manifest entries."""
+    pieces, meta = {}, {}
+    for key, arr in jax_leaves(host).items():
+        _piece(pieces, meta, key, host.worker, host.n_workers,
+               [[0, int(d)] for d in arr.shape], arr, arr.shape, True)
+    return pieces, meta
+
+
+def grid_pieces(host: WorkerState) -> tuple[dict, dict]:
+    """A rank-grid shard's pieces (JAX ``snapshot_addressable``): each
+    parameter, moment and residual shard at its global index, written by
+    the leaf's first replica only; the BatchNorm statistics and the
+    scalars by the worker's lead rank.  The manifest entries cover every
+    leaf on every rank."""
+    g, n, w = host.grid, host.n_workers, host.worker
+    pieces, meta = {}, {}
+    for part, prefix in (("params", ".params"), ("mu", ".opt_state.mu"),
+                         ("nu", ".opt_state.nu"),
+                         ("residual", ".sync_residual")):
+        src = getattr(host, part)
+        if src is None:
+            continue
+        for key, t in src.items():
+            i = g["keys"].index(key)
+            _piece(pieces, meta, prefix + key, w, n, g["index"][i],
+                   np.asarray(t.numpy() if isinstance(t, torch.Tensor)
+                              else t), g["full_shapes"][i], g["writes"][i])
+    rest = {}
+    if host.buffers:
+        rest.update(weights._keyed(".batch_stats", weights.cnn_torch_to_flax(
+            _numpy(host.buffers)).get("batch_stats", {})))
+    rest[".opt_state.count"] = np.asarray(host.count, np.int32)
+    rest[".lr_epoch"] = np.asarray(host.lr_epoch, np.int32)
+    rest[".rng"] = np.asarray(host.rng, np.uint32).reshape(2)
+    for key, arr in rest.items():
+        _piece(pieces, meta, key, w, n, [[0, int(d)] for d in arr.shape],
+               arr, arr.shape, g["lead"])
+    return pieces, meta
 
 
 # ----------------------------------------------------------------------
@@ -315,15 +376,8 @@ class CheckpointEngine:
         Returns ({"bytes", "crc32", "payload_bytes"}, leaf metadata).  One
         worker commits here; N workers commit on the main thread."""
         t0 = time.perf_counter()
-        n, w = host.n_workers, host.worker
-        pieces, meta = {}, {}
-        for key, arr in jax_leaves(host).items():
-            shape = [n, *arr.shape]
-            pieces[key] = [[[[w, w + 1]] + [[0, int(d)] for d in arr.shape],
-                            arr[None]]]
-            meta[key] = {"shape": shape, "dtype": str(arr.dtype),
-                         "bytes": int(np.prod(shape, dtype=np.int64))
-                         * arr.dtype.itemsize}
+        pieces, meta = (grid_pieces(host) if host.grid is not None
+                        else row_pieces(host))
         d = os.path.join(self.dir, f"ckpt_{epoch}")
         os.makedirs(d, exist_ok=True)
         path = os.path.join(d, f"shard_{self.rank}.msgpack")
@@ -711,6 +765,52 @@ def restore_checkpoint(path: str, template: WorkerState, *,
         mu=got["mu"], nu=got["nu"], count=got["count"],
         lr_epoch=got["lr_epoch"], rng=got["rng"], residual=residual,
         round_opt=round_opt, params_resident=params_resident)
+    return state, int(manifest["global_epoch"])
+
+
+def restore_grid(path: str, template: WorkerState
+                 ) -> tuple[WorkerState, int]:
+    """``(state, global_epoch)`` for a rank of the grid: worker
+    ``template.worker``'s row of every leaf merged from the pieces of
+    whatever mesh wrote it (a grid's shards or whole rows), the parameter,
+    moment and residual leaves kept whole in the JAX layout (the engine
+    cuts them for the mesh being restored) and the BatchNorm statistics
+    converted to the port's names."""
+    manifest = read_manifest(path) if os.path.isdir(path) else None
+    if not manifest:
+        raise FileNotFoundError(f"no committed sharded checkpoint at {path}")
+    _refuse_unported(path, manifest)
+    axis = manifest_worker_axis(path)
+    if axis != template.n_workers:
+        raise ValueError(
+            f"checkpoint {path} was written with {axis} worker(s) but this "
+            f"run has {template.n_workers}: restart fresh or resume with "
+            f"--mesh_shape data={axis}")
+    if any(k.startswith(".params_resident") for k in manifest["leaves"]):
+        raise ValueError(
+            f"checkpoint {path} holds scatter-resident parameters: restore "
+            "it on a data-only mesh (the grid keeps them replicated)")
+    row = load_row(path, manifest, template.worker,
+                   keep=lambda k: not k.startswith(".round_opt"))
+    for key in weights.SCALAR_KEYS:
+        if key not in row:
+            raise ValueError(f"checkpoint {path} has no leaf {key}")
+    part = lambda prefix: {k[len(prefix):]: v for k, v in row.items()
+                           if k.startswith(prefix + "[")}
+    stats = weights._trees(row).get("batch_stats", {})
+    buffers = (weights.cnn_flax_to_torch({"params": {}, "batch_stats": stats})
+               if stats else {})
+    missing = sorted(set(template.buffers) - set(buffers))
+    if missing:
+        raise ValueError(f"checkpoint {path} has no statistics for "
+                         f"{missing[:3]} (another model?)")
+    residual = part(".sync_residual") or None
+    state = dataclasses.replace(
+        template, params=part(".params"), mu=part(".opt_state.mu"),
+        nu=part(".opt_state.nu"), residual=residual, buffers=buffers,
+        count=int(row[".opt_state.count"]),
+        lr_epoch=int(row[".lr_epoch"]),
+        rng=np.asarray(row[".rng"], np.uint32).reshape(2))
     return state, int(manifest["global_epoch"])
 
 

@@ -108,9 +108,11 @@ def _shifted(x: torch.Tensor, group: mesh.Group,
         ops = []
         for s in remote:
             got[s] = group.host_buffer(f"recv{s}", x.numel())
-            ops.append(dist.P2POp(dist.isend, src, (i + s) % n,
+            ops.append(dist.P2POp(dist.isend, src,
+                                  group.peer((i + s) % n),
                                   group=group.pg, tag=s))
-            ops.append(dist.P2POp(dist.irecv, got[s], (i - s) % n,
+            ops.append(dist.P2POp(dist.irecv, got[s],
+                                  group.peer((i - s) % n),
                                   group=group.pg, tag=s))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -953,16 +955,20 @@ def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
         for s in remote:
             got[s] = group.host_buffer(f"{slot}/recv{s}", sent.numel(),
                                        sent.dtype)
-            ops += [dist.P2POp(dist.isend, _bytes(src), (i + s) % n,
+            ops += [dist.P2POp(dist.isend, _bytes(src),
+                               group.peer((i + s) % n),
                                group=group.pg, tag=s),
-                    dist.P2POp(dist.irecv, _bytes(got[s]), (i - s) % n,
+                    dist.P2POp(dist.irecv, _bytes(got[s]),
+                               group.peer((i - s) % n),
                                group=group.pg, tag=s)]
             group.count_wire("payload", src.nbytes)
             if scale is not None:
                 got_scale[s] = torch.empty(1, dtype=torch.float32)
-                ops += [dist.P2POp(dist.isend, src_scale, (i + s) % n,
+                ops += [dist.P2POp(dist.isend, src_scale,
+                                   group.peer((i + s) % n),
                                    group=group.pg, tag=100 + s),
-                        dist.P2POp(dist.irecv, got_scale[s], (i - s) % n,
+                        dist.P2POp(dist.irecv, got_scale[s],
+                                   group.peer((i - s) % n),
                                    group=group.pg, tag=100 + s)]
                 group.count_wire("scale", 4)
         for req in dist.batch_isend_irecv(ops):
@@ -1130,9 +1136,11 @@ def ring_hop(tensors: list, group: mesh.Group, slot: str,
     for j, t in enumerate(tensors):
         src = _to_host(t.contiguous(), group, f"{slot}/send{j}")
         dst = group.host_buffer(f"{slot}/recv{j}", t.numel(), t.dtype)
-        ops += [dist.P2POp(dist.isend, _bytes(src), (i + 1) % n,
+        ops += [dist.P2POp(dist.isend, _bytes(src),
+                           group.peer((i + 1) % n),
                            group=group.pg, tag=200 + j),
-                dist.P2POp(dist.irecv, _bytes(dst), (i - 1) % n,
+                dist.P2POp(dist.irecv, _bytes(dst),
+                           group.peer((i - 1) % n),
                            group=group.pg, tag=200 + j)]
         group.count_wire("scale" if 1 <= j <= n_scale else kind,
                          src.nbytes)

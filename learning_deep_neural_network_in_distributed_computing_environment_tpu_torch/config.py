@@ -13,23 +13,26 @@ import argparse
 import dataclasses
 
 # flag -> (default, ROADMAP item that ports it).  A value other than the
-# default (or one of ACCEPTED's) is rejected in Config.__post_init__.
-_TIERS = "A.11 item 4 (tensor/pipeline/sequence parallelism)"
+# default is rejected in Config.__post_init__.
+_SEQ = "A.11 item 4b (sequence parallelism: ring, zigzag, Ulysses)"
+_PIPE = "A.11 item 4c (pipeline parallelism: GPipe, 1F1B, --pp_*)"
+_EXPERT = ("A.11 item 4d (the expert axis, MoE under model/fsdp, and "
+           "elastic/chaos/staleness over the rank grid)")
 NOT_PORTED = {
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
                            "which is what auto gives; weights.py converts "
                            "both JAX layouts)"),
-    "mesh_shape": ("data=-1", _TIERS),
-    "sequence_parallel": ("none", _TIERS),
-    "pp_schedule": ("gpipe", _TIERS),
-    "pp_microbatches": (0, _TIERS),
-    "pp_remat": (False, _TIERS),
+    "sequence_parallel": ("none", _SEQ),
+    "pp_schedule": ("gpipe", _PIPE),
+    "pp_microbatches": (0, _PIPE),
+    "pp_remat": (False, _PIPE),
     "num_slices": (1, "A.11 item 5 (hierarchical two-level sync)"),
     "sync_dtype_outer": ("", "A.11 item 5 (hierarchical two-level sync)"),
 }
-# values besides the default that a NOT_PORTED flag takes: data=1 is the
-# one-worker mesh
-ACCEPTED = {"mesh_shape": ("data=1",)}
+# the --mesh_shape axes the port runs (JAX mesh.py's names), and the ROADMAP
+# item of each axis it refuses
+MESH_AXES = ("data", "fsdp", "model")
+REFUSED_AXES = {"seq": _SEQ, "pipe": _PIPE, "expert": _EXPERT}
 
 
 def _choices(name: str, value, allowed) -> None:
@@ -157,9 +160,11 @@ class Config:
     sanitize: bool = False
     overlap_rounds: bool = True   # --no_overlap_rounds: the serial flow
 
+    # the rank grid: data x fsdp x model (mesh.Grid); data=-1 is
+    # --num_workers' count
+    mesh_shape: str = "data=-1"
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     layer_scan: str = "auto"
-    mesh_shape: str = "data=-1"
     sequence_parallel: str = "none"
     pp_schedule: str = "gpipe"
     pp_microbatches: int = 0
@@ -201,7 +206,7 @@ class Config:
                 "--compute_dtype for bfloat16 activations/matmuls")
         for name, (default, where) in NOT_PORTED.items():
             value = getattr(self, name)
-            if value == default or value in ACCEPTED.get(name, ()):
+            if value == default:
                 continue
             raise ValueError(
                 f"--{name} {value} is not ported to the PyTorch package "
@@ -232,6 +237,7 @@ class Config:
                 f"stream_prefetch ({self.stream_prefetch}) must be >= 0 "
                 "(0 = the whole-round pack / synchronous staging)")
         self._check_checkpoint_and_serve()
+        self._check_mesh()
 
     def _check_sim(self) -> None:
         """The JAX config's checks of the scenario-lab flags
@@ -609,6 +615,10 @@ class Config:
         one-worker axis (nothing to shard, ``train.py:612-620``)."""
         if self.sync_staleness > 0:
             return "replicated"
+        if self.inner_axes():
+            # the bucket plan must stay per-worker: inner axes shard the
+            # parameter leaves themselves (JAX train.py:604-613)
+            return "replicated"
         if self.resolve_sync_mode() != "sharded":
             return "replicated"
         if self.resolve_opt_placement() != "sharded":
@@ -629,7 +639,8 @@ class Config:
         return (self.aggregation_by == "gradients"
                 and self.resolve_sync_mode() == "sharded"
                 and self.resolve_opt_placement() in ("replicated",
-                                                     "sharded"))
+                                                     "sharded")
+                and not self.inner_axes())
 
     def resolve_shard_redundancy(self, n_workers: int) -> str:
         """``--shard_redundancy`` resolved for ``n_workers``: ``buddy`` |
@@ -705,6 +716,85 @@ class Config:
                     f"--sim_byzantine noise scale must be > 0, got "
                     f"{scale}")
         return (kind, count, scale)
+
+    def mesh_axes(self) -> dict[str, int]:
+        """``--mesh_shape`` as an ordered {axis: size} dict (JAX
+        ``config.mesh_axes``): ``data`` is prepended when absent; a size of
+        -1 (data only) is resolved by ``mesh.grid_axes``."""
+        axes = self._mesh_shape_axes()
+        if "slice" in axes:
+            raise ValueError(
+                "the 'slice' mesh axis is driven by --num_slices, not "
+                f"--mesh_shape (got --mesh_shape {self.mesh_shape!r})")
+        if "data" not in axes:
+            axes = {"data": -1, **axes}
+        return axes
+
+    def inner_axes(self) -> dict[str, int]:
+        """The mesh axes inside each worker that shard it (size > 1)."""
+        return {a: s for a, s in self.mesh_axes().items()
+                if a != "data" and s > 1}
+
+    def _check_mesh(self) -> None:
+        """The ``--mesh_shape`` checks: the axes the port runs (data, fsdp,
+        model), the refusals of the others with the ROADMAP item that
+        ports them, and the JAX driver's checks of the model and fsdp
+        axes (``driver.py:615-700``) that need no model built."""
+        axes = self.mesh_axes()
+        for name, size in axes.items():
+            if name in REFUSED_AXES:
+                if size != 1:
+                    raise ValueError(
+                        f"the '{name}' mesh axis (--mesh_shape "
+                        f"{self.mesh_shape!r}) is not ported to the PyTorch "
+                        "package yet; it arrives with ROADMAP queue "
+                        f"{REFUSED_AXES[name]}")
+            elif name not in MESH_AXES:
+                raise ValueError(
+                    f"unknown mesh axis {name!r} in --mesh_shape "
+                    f"{self.mesh_shape!r}: expected among "
+                    f"{MESH_AXES + tuple(REFUSED_AXES)}")
+            elif size == 0 or size < -1 or (size == -1 and name != "data"):
+                raise ValueError(
+                    f"mesh axis {name!r} needs a size >= 1 (data may be -1: "
+                    f"one worker per --num_workers), got {size}")
+        data = axes["data"]
+        if data > 0 and self.num_workers not in (0, data):
+            raise ValueError(
+                f"--mesh_shape data={data} and --num_workers "
+                f"{self.num_workers} disagree: give one worker count (data=-1 "
+                "takes --num_workers')")
+        inner = self.inner_axes()
+        if not inner:
+            return
+        tp, fsdp = inner.get("model", 1), inner.get("fsdp", 1)
+        if tp > 1:
+            from .models import is_attention_model
+            if not is_attention_model(self.model):
+                raise ValueError(
+                    "a 'model' mesh axis (tensor parallelism) applies to "
+                    "attention models (bert_*/gpt_*/vit_*/llama_*); got "
+                    f"--model {self.model}")
+        if fsdp > 1 and self.batch_size % fsdp:
+            raise ValueError(
+                f"--batch_size {self.batch_size} must be divisible by the "
+                f"'fsdp' axis size {fsdp} (the batch splits over it)")
+        per_dev = self.batch_size // fsdp
+        if self.grad_accum > 1 and per_dev % self.grad_accum:
+            raise ValueError(
+                f"per-device batch {per_dev} (batch_size {self.batch_size}"
+                f"{f' / fsdp {fsdp}' if fsdp > 1 else ''}) must be "
+                f"divisible by --grad_accum {self.grad_accum}")
+        # what the JAX package runs under inner axes and the port does not
+        # yet: each is refused, naming its ROADMAP item
+        for on, what in ((self.num_experts > 0, "--num_experts"),
+                         (bool(self.chaos), "--chaos (elastic membership)"),
+                         (self.sync_staleness > 0, "--sync_staleness")):
+            if on:
+                raise ValueError(
+                    f"{what} under the inner mesh axes {inner} (--mesh_shape"
+                    f" {self.mesh_shape!r}) is not ported to the PyTorch "
+                    f"package yet; it arrives with ROADMAP queue {_EXPERT}")
 
     def _mesh_shape_axes(self) -> dict[str, int]:
         """Raw ``--mesh_shape`` parse: axis name -> size (-1 when no size
@@ -1057,6 +1147,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compile_cache_dir", type=str, default=None,
                    help="[compat no-op] the JAX package's XLA compile "
                         "cache; the port compiles nothing ahead of time")
+    p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
+                   help="the rank grid, e.g. data=2,fsdp=2,model=2: each "
+                        "of the data workers is fsdp x model processes "
+                        "(ZeRO-3 over fsdp, tensor parallelism over model)")
     for name, (default, _where) in NOT_PORTED.items():
         help_ = "not ported yet (rejected unless default)"
         if isinstance(default, bool):

@@ -62,6 +62,22 @@ of poisoned sync contributions with escalation to a departure.  The
 per-worker metric lists are keyed by logical worker id, and
 ``results["elastic"]`` carries JAX's keys plus the roster of every round.
 
+On the rank grid (``--mesh_shape`` with ``fsdp`` or ``model``; JAX
+``driver.py:579-700``) the world of D x F x T processes is cut by
+``mesh.make_grid`` into per-axis gloo groups: each worker is the block of
+ranks with one data coordinate, and everything above keyed by worker runs
+on the data line (``group``) with one answer per worker that every rank
+of it agrees on: the probe is the worker's first rank's, the partitions
+and the initial parameters are checked across ranks, and the round's
+metrics are gathered over every rank (``LocalSGDEngine.finish_metrics``).
+Each rank builds the dense twin from the seed (the init, the probe), its
+module (tensor-parallel over ``model``) and its shards of the dense
+twin's parameters (``parallel.shards.GridParams``); the dense twin's
+parameters are released after the probe and get the worker's whole
+parameters back at the end, for the final evaluation.
+``results["grid"]`` has the axes, every rank's state bytes and its TP and
+FSDP collective counters.
+
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
 ``ckpt_snapshot_ms``/``ckpt_write_ms``, zero on rounds that save nothing),
@@ -177,13 +193,15 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
 
 
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
-                    input_shape: tuple | None = None):
+                    input_shape: tuple | None = None, tp=None):
     """The registry model at the configured compute dtype (and, for
     transformers, attention, remat policy and MoE FFN), initialized from
     ``cfg.seed`` with a generator on
     ``device``, in ``channels_last`` (a no-op for models without 4-D
     weights).  ``input_shape`` (one example's) sizes the first layer of
-    the models flax sizes from their input (``mlp``, ``lenet5``)."""
+    the models flax sizes from their input (``mlp``, ``lenet5``).  ``tp``
+    (the rank's ``model`` line) builds a transformer's tensor-parallel
+    shard; its init is not the dense model's (``GridParams`` fills it)."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
@@ -228,6 +246,8 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw["width"] = cfg.model_width
     if input_shape is not None and cfg.model in SHAPED_BY_INPUT:
         kw["input_shape"] = tuple(input_shape)
+    if tp is not None:
+        kw["tp"] = tp
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
                       device=device, **kw)
     if device.type != "meta":      # a meta model only propagates shapes
@@ -264,6 +284,7 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model,
 def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
                       state, group, *, schedule=None,
                       from_snapshot: bool = False, n: int = 1):
+    # ``group``: every rank that writes a file (the grid's world)
     """The run's checkpoint engine (None without --checkpoint_dir) and,
     under --resume, the state restored from the newest committed epoch
     with the epoch to start at (JAX ``driver.py:799-862``, with its
@@ -302,6 +323,14 @@ def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
                 "membership change (straggler departure or kill/join) "
                 "happened before it was saved; restart fresh or resume a "
                 "pre-change epoch")
+    if engine.gp is not None:
+        # the rank grid: whole leaves of this worker's row, cut for the
+        # mesh being restored
+        restored, start = ckpt_lib.restore_grid(
+            latest, engine.checkpoint_state(state))
+        state = engine.load_checkpoint_state(state, restored)
+        log.info("resumed from %s at global epoch %d", latest, start)
+        return ckpt, state, start
     # raises, naming both, when the worker count differs from the saved one
     restored, start = ckpt_lib.restore_checkpoint(
         latest, engine.checkpoint_state(state),
@@ -474,12 +503,25 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     if membership is not None:
         group = membership.group
     sim = cfg.sim_workers > 0
+    # the rank grid: the data line is the worker group from here on
+    grid = None
+    if cfg.inner_axes() and not sim:
+        if group is None:
+            raise ValueError(
+                f"--mesh_shape {cfg.mesh_shape} runs a grid of processes: "
+                "run it through main.run or driver.run_group")
+        grid = mesh.make_grid(group, mesh.grid_axes(cfg))
+        group = grid.groups["data"]
+        from .parallel import fsdp as fsdp_lib
+        from .parallel import tp as tp_lib
+        tp_lib.reset_stats()            # results["grid"] counts this run
+        fsdp_lib.reset_stats()
     if sim and group is not None:
         raise ValueError(
             "--sim_workers runs every simulated worker in ONE process; "
             "it takes no worker group")
     if (not sim and group is None
-            and mesh.resolve_num_workers(cfg.num_workers, cfg.device) > 1):
+            and mesh.world_size_of(mesh.grid_axes(cfg)) > 1):
         raise ValueError(
             f"--num_workers {cfg.num_workers}: train_global runs one rank; "
             "N workers run through main.run (or driver.train_rank per rank)")
@@ -531,7 +573,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                           "quarantined_rounds": 0, "rosters": [],
                           "boundary_ms": []}
     device = resolve_device(cfg.device) if group is None else group.device
-    progress = progress and rank == 0
+    progress = progress and (rank if grid is None else grid.world.rank) == 0
     rng = np.random.default_rng(cfg.seed)
     if datasets is None:
         full_train, test = load_dataset(
@@ -548,6 +590,28 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         with torch.no_grad():
             for name, t in model.state_dict().items():
                 t.copy_(torch.from_numpy(np.array(initial_state_dict[name])))
+    train_model, gp, vocab_parallel = model, None, False
+    if grid is not None:
+        # the rank's module and its shards of the dense twin (``model``,
+        # which keeps the init, the probe and the final evaluation)
+        tp = grid.groups["model"] if grid.size("model") > 1 else None
+        train_model = build_model_for(cfg, num_classes, device,
+                                      trainset.images.shape[1:], tp=tp)
+        train_model.load_state_dict(
+            {k: b for k, b in model.state_dict().items()
+             if k not in dict(model.named_parameters())}, strict=False)
+        from .parallel.shards import GridParams
+        gp = GridParams({k: p.detach() for k, p in model.named_parameters()},
+                        weights.state_layout(model), train_model, grid,
+                        device, shard_tok_emb=cfg.model.startswith("gpt"))
+        # the tensor-parallel decode's output is its vocab slice (ViT's
+        # classifier stays whole)
+        vocab_parallel = tp is not None and cfg.model.startswith(
+            ("bert", "gpt", "llama"))
+        log.info("rank grid %s: rank %d at %s, %d of %d parameter "
+                 "elements held", grid.axes, grid.world.rank, grid.coords,
+                 sum(p.numel() for p in gp.params),
+                 sum(p.numel() for p in model.parameters()))
     results: dict[str, Any] = {
         # keyed by LOGICAL worker id (JAX driver.py:80-82)
         "all_workers_losses": [[] for _ in range(max(worker_ids) + 1)],
@@ -566,8 +630,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
 
     def new_engine(grp):
         return (SimEngine(model, cfg, device) if sim
-                else LocalSGDEngine(model, cfg, device, grp,
-                                    nan_screen=nan_armed))
+                else LocalSGDEngine(train_model, cfg, device, grp,
+                                    nan_screen=nan_armed, grid_params=gp,
+                                    vocab_parallel=vocab_parallel))
 
     def install(snapshot, row, grp) -> None:
         """Adopt a membership snapshot (JAX ``install_from_snapshot``):
@@ -607,14 +672,25 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         log.info("continuing from membership snapshot: round %d, workers "
                  "%s", snap.epoch, worker_ids)
     ckpt, state, start_epoch = _open_checkpoints(
-        cfg, model, num_classes, engine, state, group, schedule=schedule,
+        cfg, model, num_classes, engine, state,
+        grid.world if grid is not None else group, schedule=schedule,
         from_snapshot=snap is not None, n=n)
 
     if snap is None:
         # --- probe -> ratios -> initial partition -----------------------
         sample = to_device(trainset.images[:batch], device)
-        durations, sec_per_batch = probe_lib.estimate_epoch_duration(
-            model, sample, n, cfg.probe_batches, simulated_durations, group)
+        if grid is not None and simulated_durations is None:
+            # the dense twin's step on every rank; a worker's duration is
+            # its first rank's, the same on each of its ranks
+            local = probe_lib.measure_step_time(model, sample,
+                                                cfg.probe_batches)
+            durations = np.asarray(mesh.all_gather(grid.world, local),
+                                   np.float64)[grid.block_leads()]
+            sec_per_batch = durations / max(cfg.probe_batches, 1)
+        else:
+            durations, sec_per_batch = probe_lib.estimate_epoch_duration(
+                model, sample, n, cfg.probe_batches, simulated_durations,
+                group)
         ratios = efficiency_ratios(durations, cfg.proportionality)
         log.info("probe durations %s -> ratios %s", durations, ratios)
         fixed_classes = ([fixed_classes_for_rank(r, num_classes)
@@ -628,6 +704,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             results["initial_train_shards"] = [p.copy() for p in train_parts]
     else:
         start_epoch = int(snap.epoch)
+    if grid is not None:
+        # the dense twin's parameters are the shards' now: its memory goes
+        # until the end of the run gives it the whole parameters back
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.new_empty(0)
     epochs = range(start_epoch, cfg.epochs_global)
     pbar = None
     if progress:
@@ -661,7 +743,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # the dense path's own wire model (a ring all-reduce sends
         # 2(n-1)/n of the buffer); the fast engines send what they account
         wire = (comms.wire_bytes(
-            sum(p.numel() for p in model.parameters()), cfg.topology, n)
+            sum(p.numel() for p in engine.params), cfg.topology, n)
             if engine.sync_mode == "dense" else sync_bytes)
         return sync_bytes, wire
 
@@ -1014,7 +1096,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         t0 = time.perf_counter()
         mx = finish(handle)
         timing["fetch_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
-        timing.update({k: mx[k] for k in mx if k.startswith("workers_")})
+        timing.update({k: mx[k] for k in mx
+                       if k.startswith(("workers_", "ranks_"))})
         return mx
 
     def assemble(mx: dict, epoch: int, t_disp: float, timing: dict,
@@ -1066,8 +1149,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 boundary_row = (engine.host_row(state) if crash_armed
                                 else None)
                 if group is not None:
-                    _check_same(group, f"round {epoch}'s partition",
-                                prep["digest"])
+                    # every rank (the grid's world, or the roster's group)
+                    _check_same(grid.world if grid is not None else group,
+                                f"round {epoch}'s partition", prep["digest"])
                 if nan_armed:
                     engine.stage_poison(worker_ids[rank] in
                                         schedule.nan_targets(epoch,
@@ -1289,6 +1373,34 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     results["state"] = state
     results["variables"] = (engine.rank0_variables(state) if sim
                             else engine.rank0_variables())
+    if grid is not None:
+        # the dense twin with the worker's whole parameters: the final
+        # evaluation's model (JAX evaluates its dense twin)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.data = results["variables"][name]
+        from .ops import flash as flash_lib
+        results["grid"] = {
+            "axes": dict(grid.axes), "coords": dict(grid.coords),
+            "ranks": grid.world.world_size,
+            "coords_of": [grid.coords_of(r)
+                          for r in range(grid.world.world_size)],
+            "state_bytes": mesh.all_gather(
+                grid.world, engine.state_resident_bytes(state)),
+            "tp": mesh.all_gather(grid.world, dict(tp_lib.STATS)),
+            # every rank's flash launches and the train and validation
+            # steps it ran (the launches of main.run's final evaluation on
+            # rank 0 come after)
+            "launches": mesh.all_gather(grid.world, dict(flash_lib.LAUNCHES)),
+            "steps": mesh.all_gather(grid.world, [
+                sum(r["train_steps"] for r in results["round_timings"]),
+                sum(r["val_steps"] for r in results["round_timings"])]),
+            # every rank's BatchNorm statistics (equal along fsdp)
+            "buffer_checksums": mesh.all_gather(
+                grid.world, comms.checksum(list(train_model.buffers()))
+                if list(train_model.buffers()) else None),
+            "fsdp": mesh.all_gather(grid.world, dict(fsdp_lib.STATS))}
+        grid.close()
     results["model"] = model
     results["test"] = test
     return results

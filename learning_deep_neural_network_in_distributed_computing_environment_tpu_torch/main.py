@@ -14,7 +14,10 @@ scenario lab (``sim.py``: stacked state, one vmapped step for all).
 With ``--num_workers N`` (N > 1) the run is N processes, one local-SGD
 worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
 0 runs in the calling process and returns the results, evaluates and
-plots.  A child that fails makes the run raise (a dead peer ends the
+plots.  With ``--mesh_shape data=D,fsdp=F,model=T`` each worker is F x T
+processes (ZeRO-3 over fsdp, tensor parallelism over model): D x F x T
+ranks in all, on the rank grid of ``mesh.make_grid``.  A child that fails
+makes the run raise (a dead peer ends the
 others' collectives at the group timeout, never in a hang).  Under
 ``--chaos`` the group is elastic: each membership boundary re-forms it on
 the new roster (``elastic.py``), spawning joiners and retiring surplus
@@ -28,6 +31,11 @@ Examples::
         --num_workers 4 --aggregation_by weights --topology double_ring
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --sim_workers 8 --aggregation_by weights --topology double_ring
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --model gpt2_small --dataset synthetic_lm --attention_impl flash \
+        --mesh_shape data=2,model=2
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --mesh_shape data=2,fsdp=2
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --model gpt2_small --dataset synthetic_lm --attention_impl flash \
         --checkpoint_dir ckpt --checkpoint_every 1
@@ -66,9 +74,9 @@ def run(argv=None, elastic_snapshot=None) -> dict:
     from .driver import run_group, train_global
     from .eval import evaluate
 
-    # --sim_workers: every simulated worker in this one process
-    n = (1 if cfg.sim_workers
-         else mesh.resolve_num_workers(cfg.num_workers, cfg.device))
+    # --sim_workers: every simulated worker in this one process; else one
+    # process per rank of the grid (data x fsdp x model)
+    n = 1 if cfg.sim_workers else mesh.world_size_of(mesh.grid_axes(cfg))
     if elastic_snapshot is not None or (cfg.chaos and not cfg.sim_workers):
         # elastic membership regroups processes: always a group
         results = run_group(cfg, n, elastic_snapshot=elastic_snapshot,

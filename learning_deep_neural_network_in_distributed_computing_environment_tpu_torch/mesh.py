@@ -15,6 +15,11 @@ port could collide between concurrent runs on one host), every collective
 waits at most ``GROUP_TIMEOUT_S``, and the group is destroyed when the
 rank's work ends, also when it raises.  Children are started with the
 ``spawn`` method (CUDA cannot fork) and import nothing but the port.
+
+With ``--mesh_shape data=D,fsdp=F,model=T`` the world of D x F x T ranks
+is a rank grid (``Grid``, ``make_grid``; JAX ``mesh.build_mesh``): one
+gloo group per line of each axis, each worker the block of ranks with one
+data coordinate.
 """
 
 from __future__ import annotations
@@ -54,6 +59,9 @@ class Group:
     world_size: int
     device: torch.device
     pg: object = None
+    # the global ranks of this group's members, in group-rank order (None:
+    # the group spans the world and group rank is global rank)
+    ranks: tuple | None = None
     _host: dict = dataclasses.field(default_factory=dict, repr=False)
     wire: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -77,12 +85,126 @@ class Group:
         dist.all_gather_object(out, obj, group=self.pg)
         return out
 
+    def peer(self, rank: int) -> int:
+        """The global rank of group rank ``rank`` (point-to-point ops name
+        their peer by global rank)."""
+        return rank if self.ranks is None else self.ranks[rank]
+
     def split(self, timeout_s: float = GROUP_TIMEOUT_S) -> "Group":
         """A new view of the same ranks on a process group of its own (a
-        collective: every rank calls it at the same point)."""
+        collective: every rank calls it at the same point).  Only a group
+        that spans the world splits alone: every process enters each
+        ``new_group``, so the lines of a grid axis are made together
+        (``Grid``)."""
+        if self.ranks is not None:
+            raise RuntimeError(
+                "a grid line's group cannot split alone: every process "
+                "must create every group, in the same order")
         pg = dist.new_group(list(range(self.world_size)), backend="gloo",
                             timeout=datetime.timedelta(seconds=timeout_s))
         return Group(self.rank, self.world_size, self.device, pg)
+
+
+@dataclasses.dataclass
+class Grid:
+    """One rank's place in the rank grid of ``--mesh_shape`` (JAX
+    ``mesh.build_mesh``: the devices reshaped row-major into the axes'
+    order): ``axes`` maps each axis to its size in the order the flag gives
+    them, ``data`` first unless named later; world rank r has the
+    row-major coordinates ``coords_of(r)``.  ``groups[axis]`` is this
+    rank's line along ``axis`` (the ranks that differ from it in that
+    coordinate only, in coordinate order, so group rank = coordinate);
+    ``world`` spans every rank.  Each worker of the local-SGD run is the
+    block of ranks with one data coordinate: its fsdp x model ranks shard
+    the worker's parameters, and the data line of each (fsdp, model)
+    coordinate syncs that coordinate's shards once per round."""
+
+    axes: dict
+    world: Group
+    groups: dict
+    coords: dict
+
+    def size(self, axis: str) -> int:
+        return int(self.axes.get(axis, 1))
+
+    def index(self, axis: str) -> int:
+        return int(self.coords.get(axis, 0))
+
+    def coords_of(self, rank: int) -> dict:
+        out = {}
+        for axis in reversed(list(self.axes)):
+            rank, out[axis] = divmod(rank, self.axes[axis])
+        return {a: out[a] for a in self.axes}
+
+    def rank_of(self, **coords) -> int:
+        """The world rank at ``coords`` (axes left out: coordinate 0)."""
+        rank = 0
+        for axis, size in self.axes.items():
+            rank = rank * size + int(coords.get(axis, 0))
+        return rank
+
+    def block_leads(self) -> list[int]:
+        """Each worker's first rank (its fsdp and model coordinates 0), in
+        data order: the rank whose values stand for the worker."""
+        return [self.rank_of(data=d) for d in range(self.size("data"))]
+
+    def close(self) -> None:
+        """Destroy the axis groups (the world group is the caller's)."""
+        for g in self.groups.values():
+            dist.destroy_process_group(g.pg)
+        self.groups = {}
+
+
+def make_grid(world: Group, axes: dict,
+              timeout_s: float = GROUP_TIMEOUT_S) -> Grid:
+    """The rank grid of ``axes`` over ``world`` (a collective: every rank
+    creates every line's gloo group of every axis, in the same order: the
+    data, fsdp and model axes, each line in the order of its first rank;
+    a line of one rank too, so no collective falls back to the world)."""
+    axes = {a: int(s) for a, s in axes.items()}
+    size = 1
+    for s in axes.values():
+        size *= s
+    if size != world.world_size:
+        raise ValueError(
+            f"mesh {axes} has {size} ranks but the group has "
+            f"{world.world_size}")
+    grid = Grid(axes, world, {}, {})
+    grid.coords = grid.coords_of(world.rank)
+    for axis in ("data", "fsdp", "model"):
+        if axis not in axes:
+            continue
+        lines: dict[tuple, list] = {}
+        for r in range(world.world_size):
+            c = grid.coords_of(r)
+            key = tuple(v for a, v in c.items() if a != axis)
+            lines.setdefault(key, []).append(r)
+        mine = tuple(v for a, v in grid.coords.items() if a != axis)
+        for key, ranks in sorted(lines.items(), key=lambda kv: kv[1][0]):
+            pg = dist.new_group(ranks, backend="gloo",
+                                timeout=datetime.timedelta(
+                                    seconds=timeout_s))
+            if key == mine:
+                grid.groups[axis] = Group(
+                    grid.coords[axis], len(ranks), world.device, pg,
+                    ranks=tuple(ranks))
+    return grid
+
+
+def grid_axes(cfg) -> dict:
+    """``cfg``'s mesh axes with the data size resolved (data=-1: the
+    ``--num_workers`` count, ``resolve_num_workers``)."""
+    axes = dict(cfg.mesh_axes())
+    if axes["data"] < 1:
+        axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
+    return {a: s for a, s in axes.items() if a in ("data", "fsdp", "model")}
+
+
+def world_size_of(axes: dict) -> int:
+    out = 1
+    for s in axes.values():
+        out *= int(s)
+    return out
 
 
 def all_gather(group: Group | None, obj) -> list:

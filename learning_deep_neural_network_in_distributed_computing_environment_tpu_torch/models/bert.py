@@ -12,16 +12,27 @@ Compute-dtype semantics mirror flax's ``dtype=``: parameters stay fp32 and
 each dense op casts its input, weight and bias to the compute dtype
 (``dense`` below), so a bf16 run does its products in bf16 exactly where
 the JAX package does.
+
+Tensor parallelism (``tp``: the rank's ``model`` line, a ``mesh.Group``;
+JAX ``bert.py:56-164, 312-368``): each module holds its shard, the local
+H/T heads (and K/V heads) of the attention, the F/T columns then rows of
+the FFN and the V/T vocabulary rows of the MLM decode, between the Megatron
+markers of ``parallel/tp.py``; the model's output is then its LOCAL vocab
+slice and the loss goes through ``tp.vocab_parallel_token_stats``.
+``tp_param_specs`` names the dimension of each parameter leaf, in the JAX
+package's layout, that the ``model`` axis shards.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import copy_to_tp_region, reduce_from_tp_region
 from .remat import Remat, checkpoint_name
 
 INIT_STD = 0.02
@@ -58,24 +69,34 @@ class SelfAttention(nn.Module):
                  num_kv_heads: Optional[int] = None, use_bias: bool = True,
                  causal: bool = False, attention_impl: str = "dense",
                  rope_theta: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, tp=None, device=None):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by num_heads "
                              f"{num_heads}")
-        self.num_heads = num_heads
+        t = tp_size(tp)
+        if num_heads % t:
+            raise ValueError(
+                f"num_heads {num_heads} not divisible by tp_size {t} "
+                "(head-sharded tensor parallelism)")
+        self.tp = tp
         self.head_dim = hidden // num_heads
         # falsy num_kv_heads (None or the config's 0 sentinel) means MHA
         self.gqa = bool(num_kv_heads) and num_kv_heads != num_heads
-        self.num_kv_heads = num_kv_heads if self.gqa else num_heads
         if self.gqa and num_heads % num_kv_heads:
             raise ValueError(f"num_heads {num_heads} not divisible by "
                              f"num_kv_heads {num_kv_heads}")
+        if self.gqa and num_kv_heads % t:
+            raise ValueError(f"num_kv_heads {num_kv_heads} not divisible by "
+                             f"tp_size {t}")
+        # this rank's heads (all of them without tensor parallelism)
+        self.num_heads = num_heads // t
+        self.num_kv_heads = (num_kv_heads if self.gqa else num_heads) // t
         self.causal = causal
         self.rope_theta = rope_theta
         self.attention_impl = attention_impl
         self.dtype = dtype
-        inner = num_heads * self.head_dim
+        inner = self.num_heads * self.head_dim
         if self.gqa:
             self.q = nn.Linear(hidden, inner, bias=use_bias, device=device)
             self.kv = nn.Linear(hidden, 2 * self.num_kv_heads * self.head_dim,
@@ -92,6 +113,7 @@ class SelfAttention(nn.Module):
         from ..ops.attention import attend, rope
         b, l, _ = x.shape
         h, kv, dh = self.num_heads, self.num_kv_heads, self.head_dim
+        x = copy_to_tp_region(x, self.tp)
         if self.gqa:
             q = dense(x, self.q, self.dtype).view(b, l, h, dh)
             k, v = dense(x, self.kv, self.dtype).view(b, l, 2, kv, dh).unbind(2)
@@ -107,10 +129,24 @@ class SelfAttention(nn.Module):
         # strides
         out = attend(q, k, v, mask=mask, impl=self.attention_impl,
                      causal=self.causal)
-        y = dense(out.reshape(b, l, h * dh), self.out, self.dtype)
+        y = reduce_from_tp_region(
+            dense(out.reshape(b, l, h * dh), self.out, self.dtype), self.tp)
         if self.out_bias is None:
             return y
         return y + self.out_bias.to(self.dtype)
+
+
+def tp_size(tp) -> int:
+    """The ``model`` axis size of ``tp`` (a ``mesh.Group``; None: 1)."""
+    return 1 if tp is None else tp.world_size
+
+
+def tp_local(n: int, tp, what: str) -> int:
+    """``n`` units split over ``tp``: this rank's count."""
+    t = tp_size(tp)
+    if n % t:
+        raise ValueError(f"{what} {n} not divisible by tp_size {t}")
+    return n // t
 
 
 def run_stack(blocks, x: torch.Tensor, remat: Remat):
@@ -162,12 +198,13 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = tp
         self.attn = SelfAttention(hidden, num_heads,
                                   attention_impl=attention_impl, dtype=dtype,
-                                  device=device)
+                                  tp=tp, device=device)
         self.ln_attn = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         if num_experts:
             from .moe import MoEFFN
@@ -175,9 +212,9 @@ class EncoderLayer(nn.Module):
                               capacity_factor=capacity_factor, dtype=dtype,
                               device=device)
         else:
-            self.ffn_in = nn.Linear(hidden, ffn_dim, device=device)
-            self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False,
-                                     device=device)
+            f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel FFN
+            self.ffn_in = nn.Linear(hidden, f, device=device)
+            self.ffn_out = nn.Linear(f, hidden, bias=False, device=device)
             self.ffn_bias = nn.Parameter(torch.zeros(hidden, device=device))
         self.ln_ffn = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
 
@@ -188,9 +225,10 @@ class EncoderLayer(nn.Module):
         if hasattr(self, "moe"):
             f, aux = self.moe(x)
         else:
-            f = F.gelu(dense(x, self.ffn_in, self.dtype), approximate="none")
-            f = dense(f, self.ffn_out, self.dtype) + self.ffn_bias.to(
-                self.dtype)
+            f = F.gelu(dense(copy_to_tp_region(x, self.tp), self.ffn_in,
+                             self.dtype), approximate="none")
+            f = reduce_from_tp_region(dense(f, self.ffn_out, self.dtype),
+                                      self.tp) + self.ffn_bias.to(self.dtype)
         f = checkpoint_name(f, "mlp_out")
         y = layer_norm(x + f, self.ln_ffn, self.dtype)
         return checkpoint_name(y, "block_out"), aux
@@ -210,25 +248,30 @@ class BertForMLM(nn.Module):
                  max_len: int = 512, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.num_classes = num_classes
-        self.num_heads = num_heads
         self.num_experts = num_experts
         self.max_len = max_len
         self.dtype = dtype
+        self.tp = tp
         self.remat = Remat(remat_policy)
+        v_local = tp_local(num_classes, tp,
+                           "vocab size (vocab-parallel MLM head)")
         self.tok_emb = nn.Embedding(num_classes, hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, hidden, device=device)
         self.ln_emb = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         self.blocks = nn.ModuleList(
             EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         attention_impl=attention_impl, device=device)
+                         attention_impl=attention_impl, tp=tp, device=device)
             for _ in range(num_layers))
+        # this rank's heads and their width (the weight conversion's)
+        self.num_heads = self.blocks[0].attn.num_heads
+        self.head_dim = hidden // num_heads
         self.mlm_dense = nn.Linear(hidden, hidden, device=device)
         self.mlm_ln = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
-        self.mlm_decoder = nn.Linear(hidden, num_classes, device=device)
+        self.mlm_decoder = nn.Linear(hidden, v_local, device=device)
 
     def init_parameters(self, generator: torch.Generator) -> None:
         init_flax(self, generator)
@@ -243,6 +286,57 @@ class BertForMLM(nn.Module):
                          self.ln_emb.bias, LN_EPS).to(self.dtype)
         x, aux = run_stack(self.blocks, x, self.remat)
         x = F.gelu(dense(x, self.mlm_dense, self.dtype), approximate="none")
-        x = layer_norm(x, self.mlm_ln, self.dtype)
+        x = copy_to_tp_region(layer_norm(x, self.mlm_ln, self.dtype),
+                              self.tp)
         logits = dense(x, self.mlm_decoder, self.dtype)
         return (logits, aux) if with_aux else logits
+
+
+def _tp_parts(names: list, ndim: int, axis: str,
+              shard_tok_emb: bool = False) -> list:
+    """The Megatron sharding of one leaf (JAX ``bert.py:386-440``), as one
+    entry per dimension of the UNSTACKED leaf in the JAX layout: qkv
+    kernel [H, 3, heads, hd] / bias [3, heads, hd] on heads; the GQA q
+    [H, heads, hd] and kv [H, 2, kv, hd] on heads; attn out kernel
+    [heads, hd, H] and ffn_out kernel [F, H] on dim 0 (row-parallel);
+    ffn_in / ffn_up kernel [H, F] / bias [F] on F (column-parallel); the
+    MLM decode and the Llama head kernel [H, V] / bias [V] on V; GPT's tied
+    table [V, H] on V with ``shard_tok_emb``; everything else replicated.
+    The MoE leaves are refused under ``model`` (ROADMAP A.11 item 4d)."""
+    parts = [None] * ndim
+    if "qkv" in names:
+        parts[2 if ndim == 4 else 1] = axis
+    elif "q" in names:
+        parts[1 if ndim == 3 else 0] = axis
+    elif "kv" in names:
+        parts[2 if ndim == 4 else 1] = axis
+    elif "out" in names and ndim == 3:
+        parts[0] = axis
+    elif "ffn_in" in names or "ffn_up" in names:
+        parts[1 if ndim == 2 else 0] = axis
+    elif "ffn_out" in names and ndim == 2:
+        parts[0] = axis
+    elif "mlm_decoder" in names or "lm_head" in names:
+        parts[1 if ndim == 2 else 0] = axis
+    elif shard_tok_emb and "tok_emb" in names and ndim == 2:
+        parts[0] = axis
+    return parts
+
+
+def tp_param_specs(shapes: dict, axis: str = "model", *,
+                   shard_tok_emb: bool = False) -> dict:
+    """{leaf key: spec} of the Megatron sharding over ``axis`` for the
+    ``params`` leaves of a transformer in the JAX layout (``shapes``:
+    ``weights.param_leaf_shapes``, keys like ``['layers']['layer']['attn']
+    ['qkv']['kernel']``); a spec has one axis name or None per dimension.
+    The stacked ``layers`` leaves lead with the [num_layers] dimension,
+    which ``model`` leaves alone (JAX ``tp_param_specs``)."""
+    out = {}
+    for key, shape in shapes.items():
+        names = re.findall(r"\['([^']*)'\]", key)
+        if "layers" in names:
+            out[key] = (None, *_tp_parts(names, len(shape) - 1, axis))
+        else:
+            out[key] = tuple(_tp_parts(names, len(shape), axis,
+                                       shard_tok_emb=shard_tok_emb))
+    return out

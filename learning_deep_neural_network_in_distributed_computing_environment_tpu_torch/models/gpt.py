@@ -8,6 +8,13 @@ head (logits = hidden @ tok_emb^T); ``gpt2_small`` has the canonical
 Parameters are fp32; ``dtype`` is the compute dtype, applied per op as in
 flax (``models/bert.py::dense`` / ``layer_norm``), and the logits come out
 in it.
+
+Under tensor parallelism (``tp``, the rank's ``model`` line; JAX
+``gpt.py:173-231``) the blocks hold their head and FFN shards
+(``bert.SelfAttention``, the column/row FFN) and the TIED head is
+vocab-parallel: the embedding table holds this rank's V/T rows, the lookup
+is masked to them and summed over ``model`` (g), and the logits are the
+local vocab slice of the same table (``shard_tok_emb``).
 """
 
 from __future__ import annotations
@@ -16,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bert import SelfAttention, dense, init_flax, layer_norm, run_stack
+from ..parallel.tp import copy_to_tp_region, reduce_from_tp_region
+from .bert import (SelfAttention, dense, init_flax, layer_norm, run_stack,
+                   tp_local)
 from .remat import Remat, checkpoint_name
 
 
@@ -27,13 +36,14 @@ class GPTBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = tp
         self.ln1 = nn.LayerNorm(hidden, eps=1e-5, device=device)
         self.attn = SelfAttention(hidden, num_heads, causal=True,
                                   attention_impl=attention_impl, dtype=dtype,
-                                  device=device)
+                                  tp=tp, device=device)
         self.ln2 = nn.LayerNorm(hidden, eps=1e-5, device=device)
         if num_experts:
             from .moe import MoEFFN
@@ -41,9 +51,9 @@ class GPTBlock(nn.Module):
                               capacity_factor=capacity_factor, dtype=dtype,
                               device=device)
         else:
-            self.ffn_in = nn.Linear(hidden, ffn_dim, device=device)
-            self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False,
-                                     device=device)
+            f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel FFN
+            self.ffn_in = nn.Linear(hidden, f, device=device)
+            self.ffn_out = nn.Linear(f, hidden, bias=False, device=device)
             self.ffn_bias = nn.Parameter(torch.zeros(hidden, device=device))
 
     def forward(self, x: torch.Tensor):
@@ -55,9 +65,11 @@ class GPTBlock(nn.Module):
         if hasattr(self, "moe"):
             f, aux = self.moe(f)
         else:
-            f = dense(F.gelu(dense(f, self.ffn_in, self.dtype),
+            f = dense(F.gelu(dense(copy_to_tp_region(f, self.tp),
+                                   self.ffn_in, self.dtype),
                              approximate="tanh"), self.ffn_out, self.dtype)
-            f = f + self.ffn_bias.to(self.dtype)
+            f = (reduce_from_tp_region(f, self.tp)
+                 + self.ffn_bias.to(self.dtype))
         f = checkpoint_name(f, "mlp_out")
         return checkpoint_name(x + f, "block_out"), aux
 
@@ -72,21 +84,27 @@ class GPTForCausalLM(nn.Module):
                  max_len: int = 1024, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.num_classes = num_classes
-        self.num_heads = num_heads
         self.num_experts = num_experts
         self.max_len = max_len
         self.dtype = dtype
+        self.tp = tp
         self.remat = Remat(remat_policy)
-        self.tok_emb = nn.Embedding(num_classes, hidden, device=device)
+        # the vocab-parallel tied head: this rank's rows of the table
+        self.tok_emb = nn.Embedding(
+            tp_local(num_classes, tp, "vocab size (vocab-parallel tied "
+                                      "head)"), hidden, device=device)
         self.pos_emb = nn.Embedding(max_len, hidden, device=device)
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, num_heads, ffn_dim, num_experts=num_experts,
                      capacity_factor=capacity_factor, dtype=dtype,
-                     attention_impl=attention_impl, device=device)
+                     attention_impl=attention_impl, tp=tp, device=device)
             for _ in range(num_layers))
+        # this rank's heads and their width (the weight conversion's)
+        self.num_heads = self.blocks[0].attn.num_heads
+        self.head_dim = hidden // num_heads
         self.ln_f = nn.LayerNorm(hidden, eps=1e-5, device=device)
 
     @torch.no_grad()
@@ -103,9 +121,26 @@ class GPTForCausalLM(nn.Module):
             raise ValueError(f"sequence length {l} exceeds max_len "
                              f"{self.max_len}")
         table = self.tok_emb.weight.to(self.dtype)
-        x = F.embedding(input_ids, table) + self.pos_emb.weight[:l].to(
+        x = self._embed(input_ids, table) + self.pos_emb.weight[:l].to(
             self.dtype)
         x, aux = run_stack(self.blocks, x, self.remat)
-        # tied LM head: logits = x @ tok_emb^T
-        logits = layer_norm(x, self.ln_f, self.dtype) @ table.t()
+        # tied LM head: logits = x @ tok_emb^T (the local vocab slice
+        # under tensor parallelism)
+        logits = copy_to_tp_region(layer_norm(x, self.ln_f, self.dtype),
+                                   self.tp) @ table.t()
         return (logits, aux) if with_aux else logits
+
+    def _embed(self, input_ids: torch.Tensor, table: torch.Tensor
+               ) -> torch.Tensor:
+        """Token lookup; under tensor parallelism this rank holds vocab rows
+        [t*V/tp, (t+1)*V/tp): the masked local lookups sum to the full
+        embedding over ``model`` (JAX ``gpt.py:211-226``), and each rank's
+        table gradient stays its local scatter-add."""
+        if self.tp is None or self.tp.world_size == 1:
+            return F.embedding(input_ids, table)
+        v_local = table.shape[0]
+        loc = input_ids - self.tp.rank * v_local
+        hit = (loc >= 0) & (loc < v_local)
+        tok = F.embedding(loc.clamp(0, v_local - 1), table)
+        tok = torch.where(hit[..., None], tok, torch.zeros_like(tok))
+        return reduce_from_tp_region(tok, self.tp)

@@ -7,8 +7,14 @@ gives grouped-query attention.
 Parameters are fp32; ``dtype`` is the compute dtype, applied per op as in
 flax (``models/bert.py::dense``), and the logits come out in it.
 ``num_experts > 0`` swaps SwiGLU for the Switch-MoE FFN; blocks run under
-the ``--remat_policy`` (``models/remat.py``).  Tensor/pipeline parallelism
-is not ported (the config rejects it).
+the ``--remat_policy`` (``models/remat.py``).
+
+Under tensor parallelism (``tp``, the rank's ``model`` line; JAX
+``llama.py:60-170``) each block holds its local query and K/V heads
+(``kv_local``), the SwiGLU split by columns (``ffn_in``, ``ffn_up``) then
+rows (``ffn_out``), and the untied head is vocab-parallel (the local V/T
+rows of ``lm_head``); the token table stays replicated.  Pipeline
+parallelism is ROADMAP item A.11 4c.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .bert import SelfAttention, dense, run_stack
+from ..parallel.tp import copy_to_tp_region, reduce_from_tp_region
+from .bert import SelfAttention, dense, run_stack, tp_local
 from .remat import Remat, checkpoint_name
 
 INIT_STD = 0.02
@@ -51,14 +58,15 @@ class LlamaBlock(nn.Module):
                  capacity_factor: float = 1.25,
                  rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.dtype = dtype
+        self.tp = tp
         self.rms1 = RMSNorm(hidden, device=device)
         self.attn = SelfAttention(hidden, num_heads,
                                   num_kv_heads=num_kv_heads, use_bias=False,
                                   causal=True, attention_impl=attention_impl,
-                                  rope_theta=rope_theta, dtype=dtype,
+                                  rope_theta=rope_theta, dtype=dtype, tp=tp,
                                   device=device)
         self.rms2 = RMSNorm(hidden, device=device)
         if num_experts:
@@ -67,12 +75,10 @@ class LlamaBlock(nn.Module):
                               capacity_factor=capacity_factor, dtype=dtype,
                               device=device)
         else:
-            self.ffn_in = nn.Linear(hidden, ffn_dim, bias=False,
-                                    device=device)
-            self.ffn_up = nn.Linear(hidden, ffn_dim, bias=False,
-                                    device=device)
-            self.ffn_out = nn.Linear(ffn_dim, hidden, bias=False,
-                                     device=device)
+            f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel SwiGLU
+            self.ffn_in = nn.Linear(hidden, f, bias=False, device=device)
+            self.ffn_up = nn.Linear(hidden, f, bias=False, device=device)
+            self.ffn_out = nn.Linear(f, hidden, bias=False, device=device)
 
     def forward(self, x: torch.Tensor):
         a = checkpoint_name(self.attn(self.rms1(x, self.dtype)), "attn_out")
@@ -82,9 +88,11 @@ class LlamaBlock(nn.Module):
         if hasattr(self, "moe"):
             f, aux = self.moe(f)
         else:
+            f = copy_to_tp_region(f, self.tp)
             gate = dense(f, self.ffn_in, self.dtype)
             up = dense(f, self.ffn_up, self.dtype)
-            f = dense(F.silu(gate) * up, self.ffn_out, self.dtype)
+            f = reduce_from_tp_region(
+                dense(F.silu(gate) * up, self.ffn_out, self.dtype), self.tp)
         f = checkpoint_name(f, "mlp_out")
         return checkpoint_name(x + f, "block_out"), aux
 
@@ -100,25 +108,32 @@ class LlamaForCausalLM(nn.Module):
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         self.num_classes = num_classes
-        self.num_heads = num_heads
-        self.num_kv_heads = num_kv_heads
         self.num_experts = num_experts
         self.dtype = dtype
+        self.tp = tp
         self.remat = Remat(remat_policy)
+        v_local = tp_local(num_classes, tp, "vocab size (vocab-parallel "
+                                            "head)")
         self.tok_emb = nn.Embedding(num_classes, hidden, device=device)
         self.blocks = nn.ModuleList(
             LlamaBlock(hidden, num_heads, ffn_dim, num_kv_heads=num_kv_heads,
                        num_experts=num_experts,
                        capacity_factor=capacity_factor,
                        rope_theta=rope_theta, dtype=dtype,
-                       attention_impl=attention_impl, device=device)
+                       attention_impl=attention_impl, tp=tp, device=device)
             for _ in range(num_layers))
+        # this rank's query and K/V heads and their width (the weight
+        # conversion's); without tensor parallelism the global counts
+        attn = self.blocks[0].attn
+        self.num_heads = attn.num_heads
+        self.num_kv_heads = attn.num_kv_heads if num_kv_heads else \
+            num_kv_heads
+        self.head_dim = hidden // num_heads
         self.rms_f = RMSNorm(hidden, device=device)
-        self.lm_head = nn.Linear(hidden, num_classes, bias=False,
-                                 device=device)
+        self.lm_head = nn.Linear(hidden, v_local, bias=False, device=device)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -139,5 +154,6 @@ class LlamaForCausalLM(nn.Module):
         loss (None without experts)."""
         x = F.embedding(input_ids, self.tok_emb.weight.to(self.dtype))
         x, aux = run_stack(self.blocks, x, self.remat)
-        logits = dense(self.rms_f(x, self.dtype), self.lm_head, self.dtype)
+        logits = dense(copy_to_tp_region(self.rms_f(x, self.dtype), self.tp),
+                       self.lm_head, self.dtype)
         return (logits, aux) if with_aux else logits

@@ -11,6 +11,11 @@ The patch embedding is the flax kernel [p*p*c, H] read in its (p, q, c)
 order against the patch view of the [B, H, W, C] image
 (``models/vit.py:31-54``); it is held here as an ``nn.Linear`` with the
 transposed [H, p*p*c] weight.
+
+Under tensor parallelism (``tp``, the rank's ``model`` line) the encoder
+blocks hold their head and FFN shards, as JAX's ViT wires BERT's
+``EncoderLayer``; the patch embedding, the position table and the
+classifier stay replicated, so the logits are whole on every rank.
 """
 
 from __future__ import annotations
@@ -34,16 +39,16 @@ class ViT(nn.Module):
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", device=None):
+                 attention_impl: str = "dense", tp=None, device=None):
         super().__init__()
         h, w, c = input_shape
         if h % patch or w % patch:
             raise ValueError(f"input {h}x{w} not divisible by patch {patch}")
         self.num_classes = num_classes
-        self.num_heads = num_heads
         self.num_experts = num_experts
         self.patch = patch
         self.dtype = dtype
+        self.tp = tp
         self.remat = Remat(remat_policy)
         n = (h // patch) * (w // patch)
         self.patch_embed = nn.Linear(patch * patch * c, hidden, device=device)
@@ -51,8 +56,11 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         attention_impl=attention_impl, device=device)
+                         attention_impl=attention_impl, tp=tp, device=device)
             for _ in range(num_layers))
+        # this rank's heads and their width (the weight conversion's)
+        self.num_heads = self.blocks[0].attn.num_heads
+        self.head_dim = hidden // num_heads
         self.head = nn.Linear(hidden, num_classes, device=device)
 
     def init_parameters(self, generator: torch.Generator) -> None:

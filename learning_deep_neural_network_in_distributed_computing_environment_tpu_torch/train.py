@@ -30,6 +30,22 @@ windows and stages them while the current one computes, on the card
 through pinned host buffers and a side-stream copy.  The same bytes reach
 the same steps in the same order, so a streamed round is bitwise the whole
 round.
+
+On the rank grid (``--mesh_shape`` with ``fsdp`` or ``model``; JAX
+``train.py:1405, 1503-1545, 1617-1622, 1687-1713, 1950-1953``) each worker
+is a block of ranks and ``grid_params`` (``parallel.shards.GridParams``)
+holds this rank's shards of the worker's parameters, in the JAX layout:
+the engine trains them, its Adam moments mirror them and the sync runs on
+them over the ``data`` line (``group``).  Each step gathers the ``fsdp``
+shards into the rank's module (tensor-parallel over ``model``), the
+worker's batch is split over ``fsdp`` (contiguous by index), the loss is
+the local numerator over the whole batch's denominator (vocab-parallel
+under ``model``: ``tp.vocab_parallel_token_stats``), the replicated
+leaves' gradients are summed over ``fsdp``, BatchNorm statistics are
+averaged over it, and the augmentation stream is decorrelated by the
+``fsdp`` index.  The per-step metric sums are summed over ``fsdp`` once per
+epoch; the round's metrics are gathered over every rank and each worker's
+are its first rank's.
 """
 
 from __future__ import annotations
@@ -497,18 +513,32 @@ class LocalSGDEngine:
     over ``group`` (None: one worker)."""
 
     def __init__(self, model: nn.Module, cfg: Config, device: torch.device,
-                 group: mesh.Group | None = None, nan_screen: bool = False):
+                 group: mesh.Group | None = None, nan_screen: bool = False,
+                 grid_params=None, vocab_parallel: bool = False):
         self.model = model
         self.cfg = cfg
         self.device = device
         self.group = group
         self.rank = 0 if group is None else group.rank
         self.n_workers = 1 if group is None else group.world_size
-        self.names = [n for n, _ in model.named_parameters()]
-        self.params = [p for p in model.parameters()]
-        # a module reused across a membership boundary may come with its
-        # parameters released: give them their shapes back first
-        self._unrelease()
+        # the rank grid's shards (parallel.shards.GridParams) or None: the
+        # whole worker in this process
+        self.gp = grid_params
+        self.grid = None if grid_params is None else grid_params.grid
+        # the fsdp line, when the worker's batch splits over it
+        self.fsdp = None if grid_params is None else grid_params.fsdp
+        # the model's output is its local vocab slice (tensor parallelism)
+        self.vp_group = (self.grid.groups["model"] if vocab_parallel
+                         else None)
+        if grid_params is not None:
+            self.names = list(grid_params.keys)
+            self.params = grid_params.params
+        else:
+            self.names = [n for n, _ in model.named_parameters()]
+            self.params = [p for p in model.parameters()]
+            # a module reused across a membership boundary may come with
+            # its parameters released: give them their shapes back first
+            self._unrelease()
         # the augmentation draws: one stream per worker, on its device,
         # seeded at each round from the state (``round_seed``)
         self.generator = torch.Generator(device=device)
@@ -523,6 +553,8 @@ class LocalSGDEngine:
                 and self.param_residency == "replicated"):
             log.info("param_residency resident requested but %s: resolved "
                      "to 'replicated'",
+                     "inner mesh axes shard the param leaves: the bucket "
+                     "plan must stay per-worker" if cfg.inner_axes() else
                      "the worker axis is 1" if self.n_workers < 2 else
                      f"{cfg.aggregation_by}/{cfg.aggregation_type} "
                      "aggregation leaves per-worker params")
@@ -546,15 +578,17 @@ class LocalSGDEngine:
         self.sync_bucket_bytes = max(1, int(cfg.sync_bucket_mb * (1 << 20)))
         # the round optimizer follows the cross-worker mean gradient:
         # gradients mode under the sharded engine (JAX train.py:576-580)
-        self.round_opt_on = (cfg.aggregation_by == "gradients"
-                             and self.sync_mode == "sharded"
-                             and self.opt_placement in ("replicated",
-                                                        "sharded"))
+        self.round_opt_on = cfg.round_opt_on() and self.sync_mode == \
+            "sharded"
         # the packed order of the fast engines: the JAX package's flatten
         # order of the model's flax params (buckets, int8 scales and the
-        # round optimizer's rows are JAX's)
-        self.layout = (comms.WireLayout(*weights.wire_layout(model))
-                       if fast else None)
+        # round optimizer's rows are JAX's); the grid's shards are leaves
+        # in that order already
+        self.layout = None
+        if fast:
+            self.layout = (comms.WireLayout.identity(self.params)
+                           if grid_params is not None else
+                           comms.WireLayout(*weights.wire_layout(model)))
         # the per-worker template the resident layout and the host
         # re-layouts address buckets with
         self.params_template = (comms.ParamsTemplate.of(
@@ -1021,6 +1055,25 @@ class LocalSGDEngine:
         from .checkpoint import WorkerState
         from .weights import state_layout
         resident = state.params_resident is not None
+        if self.gp is not None:
+            # this rank's shards, keyed by leaf, with where they sit in the
+            # whole leaves and whether this rank writes them
+            gp = self.gp
+            keyed = lambda ts: dict(zip(self.names, ts))
+            return WorkerState(
+                params=keyed(self.params),
+                buffers=dict(self.model.named_buffers()),
+                mu=keyed(state.opt.mu), nu=keyed(state.opt.nu),
+                count=state.opt.count, lr_epoch=state.lr_epoch,
+                rng=state.rng, layout=gp.dense_layout, worker=self.rank,
+                n_workers=self.n_workers,
+                residual=(None if state.sync_residual is None
+                          else keyed(state.sync_residual)),
+                grid=dict(keys=list(gp.keys), index=gp.index,
+                          full_shapes=[gp.full_shapes[k] for k in gp.keys],
+                          writes=[gp.writes(i) for i in range(len(gp.keys))],
+                          lead=all(self.grid.index(a) == 0
+                                   for a in ("fsdp", "model"))))
         return WorkerState(
             params={} if resident else dict(zip(self.names, self.params)),
             buffers=dict(self.model.named_buffers()),
@@ -1038,7 +1091,26 @@ class LocalSGDEngine:
     def load_checkpoint_state(self, state: TrainState, restored
                               ) -> TrainState:
         """Copy a restored ``checkpoint.WorkerState`` (host arrays) into
-        the module and ``state``; returns ``state``."""
+        the module and ``state``; returns ``state``.  On the grid the
+        restored leaves are whole (``checkpoint.restore_grid``) and this
+        rank's shard of each is taken."""
+        if self.gp is not None:
+            self.gp.load(self.params, restored.params)
+            self.gp.load(state.opt.mu, restored.mu)
+            self.gp.load(state.opt.nu, restored.nu)
+            if state.sync_residual is not None:
+                if restored.residual is None:
+                    raise ValueError(
+                        "the checkpoint has no .sync_residual leaves, "
+                        "required by --sync_compression ef")
+                self.gp.load(state.sync_residual, restored.residual)
+            for name, t in self.model.named_buffers():
+                t.copy_(torch.from_numpy(np.ascontiguousarray(
+                    restored.buffers[name])))
+            state.opt.count = int(restored.count)
+            state.lr_epoch = int(restored.lr_epoch)
+            state.rng = np.asarray(restored.rng, np.uint32).reshape(2)
+            return state
         live = self.checkpoint_state(state)
         for part in ("params", "buffers", "mu", "nu"):
             src = getattr(restored, part)
@@ -1069,6 +1141,14 @@ class LocalSGDEngine:
         ``resident_consensus``; a collective: every rank calls it)."""
         if state is not None:
             self.materialize_params(state)
+        if self.gp is not None:
+            # the worker's whole parameters, by the dense twin's names (a
+            # collective of the worker's ranks)
+            out = {k: torch.from_numpy(v).to(self.device)
+                   for k, v in self.gp.port_params().items()}
+            out.update({k: b.detach() for k, b in
+                        self.model.named_buffers()})
+            return out
         return {k: v.detach() for k, v in self.model.state_dict().items()}
 
     def stage_pack(self, train_pack, val_pack):
@@ -1094,6 +1174,28 @@ class LocalSGDEngine:
         row = self.rank if rows > 1 else 0
         return tuple(np.asarray(a)[row] for a in pack)
 
+    def _token_stats(self, logits, y, m):
+        """(ce, w, correct): vocab-parallel over the model line when the
+        logits are this rank's vocab slice (JAX ``train.py:1403-1407``)."""
+        if self.vp_group is not None:
+            from .parallel.tp import vocab_parallel_token_stats
+            return vocab_parallel_token_stats(logits, y, m, self.vp_group)
+        return masked_token_stats(logits, y, m)
+
+    def _applied(self):
+        """The context a forward (and its backward) runs in: on the grid,
+        the step's gathered parameters substituted into the module."""
+        return (self.gp.applied() if self.gp is not None
+                else contextlib.nullcontext())
+
+    def _fsdp_slice(self, *tensors):
+        """This rank's contiguous slice of the worker's batch (JAX
+        ``train.py:1950-1953``); the whole batch off the fsdp axis."""
+        if self.fsdp is None:
+            return tensors
+        f, n = self.fsdp.rank, self.fsdp.world_size
+        return tuple(t.chunk(n)[f] for t in tensors)
+
     def _loss(self, x, y, m, denom, aux_div: float):
         """(loss, correct) of one forward: the masked CE numerator over
         ``denom``, plus ``moe_aux_weight`` times the summed MoE
@@ -1102,7 +1204,7 @@ class LocalSGDEngine:
             logits, aux = self.model(x, with_aux=True)
         else:
             logits, aux = self.model(x), None
-        ce, w, correct = masked_token_stats(logits, y, m)
+        ce, w, correct = self._token_stats(logits, y, m)
         loss = (ce * w).sum() / denom
         if aux is not None:
             loss = loss + self.cfg.moe_aux_weight * aux / aux_div
@@ -1110,6 +1212,10 @@ class LocalSGDEngine:
 
     def _train_step(self, state: TrainState, x, y, m, lr: float,
                     augment: bool):
+        # the whole worker batch's denominator (on the grid the same on
+        # every fsdp rank, which then takes its slice of the batch)
+        denom = masked_weights(y, m).sum().clamp_min(1.0)
+        x, y, m = self._fsdp_slice(x, y, m)
         if augment:
             x = augment_batch(x, self.generator)
         # --grad_accum K (JAX train.py:1625-1674): K slices of the batch,
@@ -1117,23 +1223,46 @@ class LocalSGDEngine:
         # aux over K, gradients summed in fp32, one Adam step; MoE capacity
         # is per slice, as in JAX.  K=1 is the plain step.
         k = self.cfg.grad_accum
-        denom = masked_weights(y, m).sum().clamp_min(1.0)
         loss = correct = grads = None
         for xs, ys, ms in zip(*(t.chunk(k) for t in (x, y, m))):
-            loss_k, correct_k = self._loss(xs, ys, ms, denom, float(k))
-            g_k = torch.autograd.grad(loss_k, self.params)
+            with self._applied():
+                loss_k, correct_k = self._loss(xs, ys, ms, denom, float(k))
+                g_k = torch.autograd.grad(loss_k, self.params)
             if grads is None:
                 loss, correct, grads = loss_k.detach(), correct_k, g_k
             else:
                 loss, correct = loss + loss_k.detach(), correct + correct_k
                 torch._foreach_add_(grads, g_k)
+        if self.gp is not None:
+            grads = self.gp.reduce_grads(list(grads))
         state.opt.step(self.params, grads, lr)
+        if self.fsdp is not None and self._buffers:
+            self._average_buffers()
         return loss.detach(), correct.detach(), grads
 
     @torch.no_grad()
+    def _average_buffers(self) -> None:
+        """BatchNorm under FSDP: each rank normalised its slice of the
+        batch with its own statistics; the running statistics are averaged
+        over fsdp so they stay replicated (JAX ``train.py:1617-1622``)."""
+        total = comms._all_reduce_sum(comms.flatten(self._buffers),
+                                      self.fsdp)
+        avg = comms.unflatten(total / self.fsdp.world_size, self._buffers)
+        torch._foreach_copy_(self._buffers, avg)
+
+    @torch.no_grad()
     def _eval_step(self, x, y, m):
-        ce, w, correct = masked_token_stats(self.model(x), y, m)
+        x, y, m = self._fsdp_slice(x, y, m)
+        with self._applied():
+            ce, w, correct = self._token_stats(self.model(x), y, m)
         return torch.stack([(ce * w).sum(), correct, w.sum()])
+
+    def _fsdp_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the fsdp line (metric sums of each rank's
+        slice of the batch); ``t`` off it."""
+        if self.fsdp is None:
+            return t
+        return comms._all_reduce_sum(t, self.fsdp).view(t.shape)
 
     def _take_extras(self, state: TrainState, rest, extra: dict):
         """Store the buddy rows a sync returned; its validity flag (None
@@ -1253,7 +1382,10 @@ class LocalSGDEngine:
         ``chunk_train``/``chunk_eval`` for ``streamed`` windows (JAX's
         labels of its streamed programs).  Returns ``(state, handle)``."""
         cfg = self.cfg
-        if self._metrics_group is None and self.group is not None:
+        if self._metrics_group is None and self.grid is not None:
+            # every rank's metrics meet on the grid's world
+            self._metrics_group = self.grid.world.split()
+        elif self._metrics_group is None and self.group is not None:
             self._metrics_group = self.group.split()
         if self.staleness:
             state = self._stale_enter(state)
@@ -1267,7 +1399,14 @@ class LocalSGDEngine:
                                  self._train_step, state=self._step_state)
         eval_step = probe.track(self._programs, eval_name, self._eval_step,
                                 state=self._module_state)
-        self.generator.manual_seed(round_seed(state.rng, state.lr_epoch))
+        seed = round_seed(state.rng, state.lr_epoch)
+        if self.fsdp is not None:
+            # the worker's stream is the same on its fsdp ranks while the
+            # batch is split over them: decorrelate by the fsdp index (JAX
+            # train.py:1687-1692)
+            seed = int(np.random.SeedSequence([seed, self.fsdp.rank])
+                       .generate_state(1, np.uint64)[0])
+        self.generator.manual_seed(seed)
         dev = self.device
         per_epoch = {k: [] for k in ("batch_losses", "batch_mask",
                                      "train_loss", "train_acc", "val_loss",
@@ -1301,6 +1440,10 @@ class LocalSGDEngine:
                       else torch.zeros(0, device=dev))
             corrects = (torch.cat(corrects) if corrects
                         else torch.zeros(0, device=dev))
+            if self.fsdp is not None and len(losses):
+                # each rank's numerators of its slice, summed once an epoch
+                losses, corrects = self._fsdp_sum(
+                    torch.stack([losses, corrects])).unbind(0)
             weights = (np.concatenate(weights) if weights
                        else np.zeros(0, np.float32))
             ws = torch.cat(ws) if ws else torch.zeros(0, device=dev)
@@ -1313,6 +1456,7 @@ class LocalSGDEngine:
                     if real_v[s] > 0:
                         vsum += eval_step(xv[s], yv[s], mv[s])
                         val_steps += 1
+            vsum = self._fsdp_sum(vsum)
             per_epoch["batch_losses"].append(losses)
             per_epoch["batch_mask"].append((ws > 0).float())
             per_epoch["train_loss"].append(train_loss)
@@ -1373,7 +1517,8 @@ class LocalSGDEngine:
                                      **extra)
             agg, state.round_opt = rets[0], rets[2]
             ok = self._take_extras(state, rets[3:], extra)
-            agg_norm = comms.global_norm(agg)
+            agg_norm = (self.gp.global_norm(agg) if self.gp is not None
+                        else comms.global_norm(agg))
         own.update(to_host({"agg_grad_norm": agg_norm}))
         self._sync()
         sync_ms = (time.perf_counter() - t0) * 1e3
@@ -1405,6 +1550,16 @@ class LocalSGDEngine:
                    else v) for k, v in handle["own"].items()}
         own["timing"] = handle["timing"]
         rows = mesh.all_gather(self._metrics_group, own)
+        blocks = [[r] for r in rows]
+        if self.grid is not None:
+            # on the grid: each worker's values are its first rank's (every
+            # rank of the worker holds the same), its wall its slowest
+            # rank's; the memory counters stay per rank
+            data = [self.grid.coords_of(r)["data"]
+                    for r in range(len(rows))]
+            blocks = [[row for row, d in zip(rows, data) if d == w]
+                      for w in range(self.grid.size("data"))]
+            rows = [rows[r] for r in self.grid.block_leads()]
         mx = cross_worker_means(
             {k: np.stack([r[k] for r in rows]) for k in own
              if k != "timing"})
@@ -1414,5 +1569,11 @@ class LocalSGDEngine:
         for i, k in enumerate(("wall_s", "train_ms", "train_steps",
                                "sync_ms", "max_memory_allocated",
                                "memory_allocated")):
-            mx[f"workers_{k}"] = [r["timing"][i] for r in rows]
+            mx[f"workers_{k}"] = [max(b["timing"][i] for b in block)
+                                  for block in blocks]
+        if self.grid is not None:
+            for i, k in ((1, "train_ms"), (4, "max_memory_allocated"),
+                         (5, "memory_allocated")):
+                mx[f"ranks_{k}"] = [b["timing"][i] for block in blocks
+                                    for b in block]
         return mx

@@ -90,7 +90,7 @@ def _block_to_torch(block: dict) -> dict[str, np.ndarray]:
 
 
 def _block_to_flax(sd: dict, prefix: str, num_heads: int,
-                   num_kv_heads: int) -> dict:
+                   num_kv_heads: int, head_dim: int = 0) -> dict:
     get = lambda k: sd[prefix + k]
     has = lambda k: prefix + k in sd
     block: dict = {norm: {leaf: get(f"{norm}.{key}")
@@ -98,7 +98,9 @@ def _block_to_flax(sd: dict, prefix: str, num_heads: int,
                    for norm in _NORMS if has(f"{norm}.weight")}
     attn: dict = {}
     hidden = get("attn.out.weight").shape[0]
-    dh = hidden // num_heads
+    # a tensor-parallel shard holds num_heads of the model's heads, each
+    # of head_dim (hidden / all heads)
+    dh = head_dim or hidden // num_heads
     heads = {"qkv": (3, num_heads, dh), "q": (num_heads, dh),
              "kv": (2, num_kv_heads or num_heads, dh)}
     for proj, shape in heads.items():
@@ -164,13 +166,16 @@ def flax_to_torch(params: dict) -> dict[str, np.ndarray]:
 
 
 def torch_to_flax(state_dict: dict, *, num_heads: int,
-                  num_kv_heads: int = 0, stacked: bool = True) -> dict:
+                  num_kv_heads: int = 0, stacked: bool = True,
+                  head_dim: int = 0) -> dict:
     """Port ``state_dict`` (tensors or arrays) -> flax GPT, Llama, BERT or
     ViT ``params`` of numpy arrays, stacked (``layers/layer``) or unrolled
-    (``layerN``)."""
+    (``layerN``).  ``head_dim`` (default hidden / ``num_heads``) is given
+    for a tensor-parallel shard, whose ``num_heads`` are its own."""
     sd = {k: _as_numpy(v) for k, v in state_dict.items()}
     n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
-    blocks = [_block_to_flax(sd, f"blocks.{i}.", num_heads, num_kv_heads)
+    blocks = [_block_to_flax(sd, f"blocks.{i}.", num_heads, num_kv_heads,
+                             head_dim)
               for i in range(n)]
     params: dict = {}
     for (module, leaf), key in _TOP.items():
@@ -291,8 +296,12 @@ def state_layout(model) -> dict:
     carry ``num_heads`` (and Llama ``num_kv_heads``), the image models
     neither."""
     if hasattr(model, "num_heads"):
-        return {"kind": "transformer", "num_heads": int(model.num_heads),
-                "num_kv_heads": int(getattr(model, "num_kv_heads", 0) or 0)}
+        out = {"kind": "transformer", "num_heads": int(model.num_heads),
+               "num_kv_heads": int(getattr(model, "num_kv_heads", 0) or 0)}
+        if getattr(model, "tp", None) is not None:
+            # a tensor-parallel shard: its own heads of the model's width
+            out["head_dim"] = int(model.head_dim)
+        return out
     return {"kind": "image"}
 
 
@@ -302,7 +311,8 @@ def _flax_collections(tensors: dict, layout: dict) -> dict:
     if layout["kind"] == "transformer":
         return {"params": torch_to_flax(
             tensors, num_heads=layout["num_heads"],
-            num_kv_heads=layout["num_kv_heads"], stacked=True)}
+            num_kv_heads=layout["num_kv_heads"], stacked=True,
+            head_dim=layout.get("head_dim", 0))}
     return cnn_torch_to_flax(tensors)
 
 
@@ -462,3 +472,75 @@ def wire_layout(model) -> tuple[list, list]:
         raise ValueError("the flax layout does not cover every parameter "
                          "exactly once")
     return leaves, pieces
+
+
+# ----------------------------------------------------------------------
+# One rank's shard of the parameters on the rank grid (mesh.Grid)
+# ----------------------------------------------------------------------
+
+def jax_param_leaves(state_dict: dict, layout: dict) -> dict:
+    """Port parameters (``state_dict`` names -> tensors or arrays) -> the
+    JAX package's ``params`` leaves as numpy arrays, ``{key: array}`` in
+    its flatten order (keys like ``['layers']['layer']['attn']['qkv']
+    ['kernel']``: ``.params`` + key is the checkpoint's key path)."""
+    tree = _flax_collections(
+        {k: _as_numpy(v) for k, v in state_dict.items()}, layout)["params"]
+    return dict(_keyed("", tree))
+
+
+def param_leaf_shapes(model) -> dict:
+    """{key: shape} of a model's ``params`` leaves in the JAX layout (what
+    ``bert.tp_param_specs`` and ``fsdp.fsdp_param_specs`` read)."""
+    leaves = jax_param_leaves(
+        {n: np.empty(tuple(p.shape), np.float32)
+         for n, p in model.named_parameters()}, state_layout(model))
+    return {k: tuple(a.shape) for k, a in leaves.items()}
+
+
+def shard_index(shape: tuple, spec: tuple, coords: dict) -> list:
+    """The global index [[start, stop], ...] of the shard of a leaf of
+    ``shape`` that the rank at ``coords`` ({axis: (index, size)}) holds
+    under ``spec`` (one axis name or None per dimension)."""
+    out = []
+    for d, n in enumerate(shape):
+        axis = spec[d] if d < len(spec) else None
+        if axis is None:
+            out.append([0, int(n)])
+            continue
+        i, k = coords.get(axis, (0, 1))
+        if n % k:
+            raise ValueError(f"dimension {d} of {tuple(shape)} is not "
+                             f"divisible by the {axis!r} axis size {k}")
+        step = n // k
+        out.append([i * step, (i + 1) * step])
+    return out
+
+
+def shard_params(params: dict, specs: dict, coords: dict) -> dict:
+    """A full parameter tree ``{key: array}`` (JAX layout:
+    ``jax_param_leaves``, or a JAX numpy tree flattened the same way) ->
+    the shard of each leaf that the rank at ``coords`` ({axis: (index,
+    size)}) holds under ``specs``."""
+    out = {}
+    for key, arr in params.items():
+        index = shard_index(np.shape(arr), specs[key], coords)
+        out[key] = arr[tuple(slice(a, b) for a, b in index)]
+    return out
+
+
+def join_shards(shards: list, specs: dict, axes: dict) -> dict:
+    """The inverse of ``shard_params``: ``shards`` is a list of
+    ``(coords, {key: array})``, one per rank of a worker's block (coords
+    {axis: (index, size)}), ``axes`` {axis: size}; returns every leaf
+    whole.  A replicated leaf is taken from the first shard holding it."""
+    out = {}
+    for key, spec in specs.items():
+        arr0 = shards[0][1][key]
+        shape = [n * (axes.get(spec[d], 1) if d < len(spec) and spec[d]
+                      else 1) for d, n in enumerate(np.shape(arr0))]
+        full = np.empty(shape, np.asarray(arr0).dtype)
+        for coords, leaves in shards:
+            index = shard_index(shape, spec, coords)
+            full[tuple(slice(a, b) for a, b in index)] = leaves[key]
+        out[key] = full
+    return out
