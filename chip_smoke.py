@@ -74,9 +74,9 @@ Phases (any failure exits non-zero before the result line):
              --epochs_global 3 --resume, which must train exactly one
              round and leave committed epochs [2, 3]; snapshot and write
              ms per save, payload bytes, restore wall;
-   serve gpt2 - `main serve` off that checkpoint: 16 greedy requests of 64
+   serve gpt2 - `main serve` off that checkpoint: 16 greedy requests of 32
              new tokens at 8 decode slots (pages of 16, 160 pages, prompt
-             buckets 32 and 128): 1,024 tokens, no page leaked, the
+             buckets 32 and 128): 512 tokens, no page leaked, the
              dispatched (program, shape) pairs exactly the used buckets
              and one decode shape; 4 requests' paged logits at every
              generated position against a full-sequence forward of the
@@ -93,7 +93,7 @@ Phases (any failure exits non-zero before the result line):
              x passes (the D=32 kernel instances, also held against their
              plain versions in the kernels phase as draft_path);
    serve gpt2 spec - serve gpt2's traffic again with --serve_draft_ckpt
-             (the draft) --serve_spec_tokens 4: 1,024 tokens, no page
+             (the draft) --serve_spec_tokens 4: 512 tokens, no page
              leaked in either pool, the programs exactly the used buckets
              and one verify shape (the draft's: its buckets and one decode
              shape); every stream equal to serve gpt2's up to the first
@@ -151,28 +151,44 @@ Phases (any failure exits non-zero before the result line):
              sim_path [256,128,12,64].
 10b. grid  - the rank grid (--mesh_shape; every rank a process on the
              one card, every collective staged through pinned host
-             memory): [tp gpt2] the gpt2 path's fp32 pair at
-             data=2,model=2 against --num_workers 2 (losses rtol 2e-3),
-             both timed, then the bf16 run (512 training sequences) timed,
-             every rank's launches exactly layers x its passes; [tp fsdp
-             bert] bert_base at data=1,fsdp=2,model=2: the fp32 pair
-             against data=1, both timed, the grid's launches (fp32
-             instances) checked on every rank; [fsdp cnn] one fp32 step of the
-             full-width cnn at data=1,fsdp=2 against the dense twin that
-             normalises each half (logits atol 1e-5, gradients 2e-4), then
-             the cnn at data=2,fsdp=2 and its twin timed (one round on
-             2,048 images), BatchNorm statistics equal along fsdp; each
-             rank's step ms, TP all-reduce and FSDP gather/reduce-scatter
-             ms and bytes, parameter and moment bytes, peak memory; [tp
-             llama] in the llama child: llama_medium at data=1,model=2,
-             the fused backward's launches on every rank.  The kernels
-             phase holds the four kernels at the shard shapes tp_gpt2
-             [64,128,6,64] causal, tp_llama [64,128,8/2,64] causal and
-             tp_fsdp_bert [32,128,6,64] full.  Alone: python3 chip_smoke.py
-             grid.  (To make room for these phases the sync and overlap
-             runs take 2,048 images (the sync runs one local epoch a
-             round), the elastic phase 2,048 images and 2 layout rounds,
-             and serving 16 requests.)
+             memory): [tp gpt2] the gpt2 path's fp32 pair (2 steps a
+             worker) at data=2,model=2 against --num_workers 2 (losses
+             rtol 2e-3), both timed, then the bf16 run (about 3 steps a
+             worker) timed; each grid run's launches (the fp32, then the
+             tensor-core instances) exactly layers x its passes on every
+             rank, the bf16 run's loss falling; [tp
+             fsdp bert] bert_base at data=1,fsdp=2,model=2: the fp32 pair
+             (2 steps) against data=1, both timed, the grid's launches
+             (fp32 instances) checked on every rank; [fsdp cnn] one fp32
+             step of the full-width cnn at data=1,fsdp=2 against the dense
+             twin that normalises each half (logits atol 1e-5, gradients
+             2e-4), in one spawn with [sp attn], then the cnn at
+             data=2,fsdp=2 timed (one round on 2,048 images), BatchNorm
+             statistics equal along fsdp; [sp attn] ring, ring_zigzag and
+             all_to_all on a seq line of 2 processes at the gpt2
+             [64,128,12,64] and llama [64,128,16/4,64] shapes, causal, bf16
+             and fp32, the output and the q/k/v gradients against the
+             dense attention on the whole sequence (5e-2 and 1e-5 of max
+             |dense|); [sp gpt2] gpt2_small at data=1,seq=2 with
+             ring_zigzag and [sp bert] bert_base at data=1,seq=2 with
+             all_to_all (dense attention: JAX refuses flash under SP):
+             each an fp32 pair (one round of 2 steps) against data=1, then
+             a bf16 run (gpt2 4 steps, bert 8) under --sanitize: no flash
+             launch on any rank, the parameters bitwise equal along seq,
+             no implicit sync, the loss falling; each rank's step ms, TP
+             all-reduce, FSDP gather/reduce-scatter and SP hop ms and
+             bytes, the seq gradient all-reduce, parameter and moment
+             bytes, peak memory; [tp llama] in the llama child:
+             llama_medium at data=1,model=2, the fused backward's launches
+             on every rank.  The kernels phase holds the four kernels at
+             the shard shapes tp_gpt2 [64,128,6,64] causal, tp_llama
+             [64,128,8/2,64] causal and tp_fsdp_bert [32,128,6,64] full.
+             Alone: python3 chip_smoke.py grid; the SP phases alone:
+             python3 chip_smoke.py sp.  (To make room for these phases the
+             sync and overlap runs take 2,048 images (the sync runs one
+             local epoch a round), the elastic phase 2,048 images and 1
+             layout round, serving 16 requests of 32 new tokens, [tp
+             gpt2] a shallow bf16 run, [fsdp cnn] no data-only twin.)
 
 11. elastic cnn n4 - in a child process (CUBLAS_WORKSPACE_CONFIG set,
              deterministic algorithms in it and in its ranks): the cnn run
@@ -293,12 +309,15 @@ DRAFT_LAYERS = 4
 SPEC_TOKENS = 4
 # phase stream vit: the vit path's windows of 2 steps, 2 staged ahead
 STREAM_ARGV = ["--stream_chunk_steps", "2", "--stream_prefetch", "2"]
-# phase serve: 16 greedy requests of 64 new tokens at 8 decode slots (cut
-# from 32 to make room for the rank grid's phases)
+# phase serve: 16 greedy requests of 32 new tokens at 8 decode slots (cut
+# from 32 requests to make room for the rank grid's phases, and from 64
+# new tokens for the seq axis's)
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 32
 SERVE_ARGV = ["--serve_max_batch", "8", "--serve_page_size", "16",
               "--serve_max_pages", "160", "--serve_prompt_buckets", "32,128",
-              "--serve_requests", "16", "--serve_max_new_tokens", "64"]
-SERVE_TOKENS = 16 * 64
+              "--serve_requests", str(SERVE_REQUESTS),
+              "--serve_max_new_tokens", str(SERVE_NEW_TOKENS)]
+SERVE_TOKENS = SERVE_REQUESTS * SERVE_NEW_TOKENS
 SERVE_CHECKED = 4              # requests held against a full forward
 # paged logits vs a full-sequence forward with the flash kernels, bf16:
 # the flash-vs-dense limit of the paths, as a share of max |full|
@@ -412,7 +431,11 @@ SYNC_LOCAL_WEIGHT = 0.7
 SYNC_TOL = 1e-6                # rtol and atol against the float64 formula
 SYNC_DEVICE = "cuda"           # phase 8a's tensors
 CNN_LOGIT_TOL = 5e-2           # bf16 on the card vs fp32 on the CPU
-PROFILE_STEPS = 4              # 4 x 64 examples of the test set
+# a profile window: 2 x 64 examples of the test set, and a serve
+# profile's new tokens (short: the profiler's post-processing of a
+# window's events takes seconds on the card's host)
+PROFILE_STEPS = 2
+PROFILE_NEW_TOKENS = 8
 LLAMA_PHASE = "llama"          # the child's argument
 ACCUM_PHASE = "grad_accum"     # runs phase remat's K=4 vs K=1 alone
 RESULT_TAG = "chip_smoke-llama-result "
@@ -437,7 +460,7 @@ ELASTIC_ROSTERS = [[0, 1, 2, 3], [0, 1, 2], [0, 1, 2, 4], [1, 2, 4],
 # the continued run's host decisions
 ELASTIC_WALLS = [[1.0 + 0.05 * w for w in range(5)] for _ in range(5)]
 ELASTIC_TWIN_SNAPSHOT = 1      # the round-2 snapshot (after the join)
-ELASTIC_LAYOUT_ROUNDS = 2      # replicated vs resident, no chaos
+ELASTIC_LAYOUT_ROUNDS = 1      # replicated vs resident, no chaos
 # phase overlap cnn: the cnn run serial and overlapped, at
 # one worker and at N=4 on the sync n4 traffic (one local epoch), in the
 # deterministic child; the probe and the walls pinned, so the partitions
@@ -461,12 +484,18 @@ OVERLAP_KEYS = ("stage_ms", "compute_ms", "fetch_ms", "assemble_ms",
 GRID_FP32 = ["--compute_dtype", "float32", "--proportionality", "uniform",
              "--probe_batches", "1", "--epochs_global", "1",
              "--limit_train_samples", "640", "--limit_eval_samples", "128"]
-# the timed bf16 runs: the paths' argv cut to 512 training sequences
-# (4-8 steps a worker) and one probe batch; tp llama to 256 (4 steps)
+# [sp bert]'s timed bf16 run: the path's argv cut to 512 training
+# sequences (8 steps) and one probe batch; tp llama to 256 (4 steps);
+# [tp gpt2]'s bf16 run to 448 (a probe batch, then about 3 steps a
+# worker) and its fp32 pair to 320 (2 steps a worker)
 GRID_CUT = ["--limit_train_samples", "640", "--limit_eval_samples", "128",
             "--probe_batches", "1"]
 TP_LLAMA_CUT = ["--limit_train_samples", "320", "--limit_eval_samples",
                 "64", "--probe_batches", "1"]
+TP_GPT2_CUT = ["--limit_train_samples", "448", "--limit_eval_samples",
+               "64", "--probe_batches", "1"]
+TP_GPT2_FP32 = [*GRID_FP32, "--limit_train_samples", "320",
+                "--limit_eval_samples", "64"]
 # fsdp cnn: one round of one local epoch on 2,048 training images
 FSDP_CNN_CUT = ["--epochs_global", "1", "--epochs_local", "1",
                 "--limit_train_samples", "2560", "--limit_eval_samples",
@@ -482,6 +511,35 @@ GRID_LOGITS_ATOL, GRID_GRAD_ATOL = 1e-5, 2e-4
 TP_LLAMA_PHASE = "tp_llama"     # the FLASH_BWD=fused child, alone
 GRID_COUNTS: dict = {}          # tp llama's rank-0 launches (llama child)
 GRID_PHASE = "grid"             # the rank grid's phases alone
+# phases sp gpt2, sp bert and sp attn: sequence parallelism over a seq line
+# of 2 processes on the one card.  Every hop of the ring and the
+# all-to-all stages through pinned host memory, so the numbers measure the
+# staging, not the speed of sequence parallelism.  The runs attend densely
+# (the JAX package refuses flash under SP): their ranks launch no kernel.
+# The fp32 pairs: one round of 2 steps against the data=1 twin; the timed
+# bf16 runs: one probe batch and 256 training sequences for gpt2 (4
+# steps), 512 for bert (8: its loss falls slowly at lr 1e-4).
+SP_FP32 = [*GRID_FP32, "--limit_train_samples", "160",
+           "--limit_eval_samples", "32"]
+SP_RUNS = {
+    "gpt2": ("[sp gpt2]", ["--mesh_shape", "data=1,seq=2",
+                           "--sequence_parallel", "ring_zigzag"],
+             ["--limit_train_samples", "320", "--limit_eval_samples", "64",
+              "--probe_batches", "1"]),
+    "bert": ("[sp bert]", ["--mesh_shape", "data=1,seq=2",
+                           "--sequence_parallel", "all_to_all"], GRID_CUT),
+}
+# [sp attn]: the three functions on 2 processes at the gpt2 path's causal
+# shape and the llama path's grouped one, (label, B, L, H, KV, D), each
+# against the dense attention on the whole sequence at these fractions of
+# max |dense| (bf16: rounding of the outputs and gradients; fp32 with TF32
+# off: the same terms summed in another order)
+SP_ATTN_SHAPES = [("gpt2", PATH_BATCH, PATH_LEN, 12, 12, 64),
+                  ("llama", PATH_BATCH, PATH_LEN, 16, 4, 64)]
+SP_ATTN_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
+# the device and enhanced_cnn width of phase_module_checks' ranks
+GRID_CHECK_DEVICE, GRID_CHECK_WIDTH = "cuda", 64
+SP_PHASE = "sp"                 # the sp phases alone
 # phase sanitize: each path cut to 2 rounds of a few steps (argparse keeps
 # a flag's last value)
 _SMALL = ["--epochs_global", "2", "--epochs_local", "1", "--probe_batches",
@@ -1657,7 +1715,7 @@ def phase_serve(name: str, ckpt_dir: str) -> dict:
     import torch
     argv = ["--checkpoint_dir", ckpt_dir, *SERVE_ARGV]
     results, seen, launches, wall = _serve(argv,
-                                           record=SERVE_TOKENS // 64)
+                                           record=SERVE_REQUESTS)
     tele = results["serve"]
     buckets = tele["prefill_buckets"]
     want = {("prefill", (1, b)) for b in buckets} | {("decode", (8, 1))}
@@ -1677,7 +1735,7 @@ def phase_serve(name: str, ckpt_dir: str) -> dict:
         ids = torch.tensor([prompt + c.tokens], device=engine.device)
         with torch.no_grad():
             full = model(ids)[0, len(prompt) - 1:-1].float().cpu()
-        if paged.shape != full.shape or len(c.tokens) != 64:
+        if paged.shape != full.shape or len(c.tokens) != SERVE_NEW_TOKENS:
             fail(f"serve {name}: request {c.rid}: paged {tuple(paged.shape)} "
                  f"vs full {tuple(full.shape)}")
         scale = full.abs().amax(-1)
@@ -1728,8 +1786,8 @@ def phase_serve(name: str, ckpt_dir: str) -> dict:
 
 def profile_serve(name: str, engine) -> None:
     """Where a decode step's time goes: 8 requests of 32 prompt tokens and
-    16 new ones (one batch: 8 prefills, 15 decode steps) through the
-    served engine under torch.profiler."""
+    PROFILE_NEW_TOKENS new ones (one batch: 8 prefills, then the decode
+    steps) through the served engine under torch.profiler."""
     import numpy as np
     from importlib import import_module
     sched = import_module(f"{PKG}.serve.scheduler")
@@ -1739,13 +1797,15 @@ def profile_serve(name: str, engine) -> None:
 
     def window():
         sched.ContinuousBatchingScheduler(engine).run(
-            [sched.Request(rid=i, prompt=p, max_new_tokens=16)
+            [sched.Request(rid=i, prompt=p,
+                           max_new_tokens=PROFILE_NEW_TOKENS)
              for i, p in enumerate(prompts)])
     steps = ("8 prefills in each pool + speculation ticks (draft decode x "
              f"{engine.spec_tokens}, one verify)" if engine.draft is not None
-             else "8 prefills + 15 decode steps")
+             else f"8 prefills + {PROFILE_NEW_TOKENS - 1} decode steps")
     profile_window(f"[profile serve {name}]",
-                   f"8 requests x (32 prompt + 16 new) tokens, {steps}",
+                   f"8 requests x (32 prompt + {PROFILE_NEW_TOKENS} new) "
+                   f"tokens, {steps}",
                    window, engine.device)
 
 
@@ -1927,13 +1987,12 @@ def modes_reference(x, n: int, how: str, topology: str, w: float):
     return w * x + (1 - w) / 2 * (r1 + r2)
 
 
-def check_sync_modes(n: int, work_dir: str) -> dict:
-    """Phase 8a at ``n`` workers: comms.modes_worker in ``n`` processes on
-    the card; each mode against modes_reference.  Returns label -> ms."""
+def sync_modes_job(n: int, work_dir: str) -> tuple:
+    """Phase 8a's inputs at ``n`` workers: ``(target, args after the store
+    path, context)`` of comms.modes_worker on the card."""
     import numpy as np
     from importlib import import_module
     comms = import_module(f"{PKG}.comms")
-    mesh = import_module(f"{PKG}.mesh")
     d = os.path.join(work_dir, f"modes{n}")
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(n)
@@ -1941,17 +2000,19 @@ def check_sync_modes(n: int, work_dir: str) -> dict:
               for s in SYNC_MODE_SIZES]
     np.savez(os.path.join(d, "in.npz"),
              **{f"leaf{j}": a for j, a in enumerate(leaves)})
-    store = mesh.new_store_path()
-    t0 = time.perf_counter()
-    try:
-        mesh.join_workers(mesh.spawn_workers(
-            comms.modes_worker, n,
-            (store, SYNC_DEVICE, os.path.join(d, "in.npz"), d,
-             SYNC_LOCAL_WEIGHT,
-             120.0), ranks=range(n)), timeout_s=300.0)
-    finally:
-        mesh.remove_store(store)
-    wall = time.perf_counter() - t0
+    return (comms.modes_worker, (SYNC_DEVICE, os.path.join(d, "in.npz"), d,
+                                 SYNC_LOCAL_WEIGHT, 120.0),
+            dict(d=d, leaves=leaves))
+
+
+def check_sync_modes(n: int, ctx: dict, wall: float) -> dict:
+    """Phase 8a at ``n`` workers: each mode of comms.modes_worker's
+    outputs (``sync_modes_job``'s ``ctx``) against modes_reference.
+    Returns label -> ms."""
+    import numpy as np
+    from importlib import import_module
+    comms = import_module(f"{PKG}.comms")
+    d, leaves = ctx["d"], ctx["leaves"]
     outs = []
     for r in range(n):
         with np.load(os.path.join(d, f"rank{r}.npz")) as f:
@@ -1982,7 +2043,8 @@ def check_sync_modes(n: int, work_dir: str) -> dict:
           f"bitwise identical on all {n} ranks; {numel:,} fp32 elements per "
           f"worker; slowest rank's sync ms "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
-          + f"; {n} processes in {wall:.1f} s")
+          + f"; {n} processes (these modes, then the engines) in "
+          f"{wall:.1f} s")
     return ms
 
 
@@ -2018,21 +2080,14 @@ def phase_gloo(work_dir: str) -> dict:
     return rows[0]
 
 
-def check_sync_engines(n: int, work_dir: str, dense_ms: dict) -> dict:
-    """The fast engines at ``n`` workers on the card
-    (sync_harness.engines_worker on SYNC_MODE_SIZES, worker r's leaves
-    scaled by 1 + r, the default 4 MiB buckets): fp32 against the float64
-    formula at SYNC_TOL, an equal all-reduce bitwise the same on every
-    rank; bf16 and int8 (with error feedback) within one quantum of each
-    wire stage of the fp32 result, per element
-    (sync_harness.compressed_bounds); the bytes handed to gloo equal to
-    sync_wire_bytes; the slowest rank's quickest-round ms per engine and
-    wire beside the dense modes' ms of this call."""
+def sync_engines_job(n: int, work_dir: str) -> tuple:
+    """The fast engines' inputs at ``n`` workers: ``(target, args after
+    the store path, context)`` of sync_harness.engines_worker on
+    SYNC_MODE_SIZES, worker r's leaves scaled by 1 + r, the default 4 MiB
+    buckets, each engine and wire, and the dense path timed the same
+    way."""
     import numpy as np
-    import torch
     from importlib import import_module
-    comms = import_module(f"{PKG}.comms")
-    mesh = import_module(f"{PKG}.mesh")
     sync_harness = import_module(f"{PKG}.sync_harness")
     d = os.path.join(work_dir, f"engines{n}")
     os.makedirs(d, exist_ok=True)
@@ -2056,16 +2111,28 @@ def check_sync_engines(n: int, work_dir: str, dense_ms: dict) -> dict:
                           local_weight=SYNC_LOCAL_WEIGHT,
                           rounds=SYNC_ENGINE_ROUNDS))
         labels.append(("dense", how, topology, "float32"))
-    store = mesh.new_store_path()
-    t0 = time.perf_counter()
-    try:
-        mesh.join_workers(mesh.spawn_workers(
-            sync_harness.engines_worker, n,
-            (store, SYNC_DEVICE, os.path.join(d, "in.npz"), cases, d,
-             120.0), ranks=range(n)), timeout_s=300.0)
-    finally:
-        mesh.remove_store(store)
-    wall = time.perf_counter() - t0
+    return (sync_harness.engines_worker,
+            (SYNC_DEVICE, os.path.join(d, "in.npz"), cases, d, 120.0),
+            dict(d=d, leaves=leaves, cases=cases, labels=labels))
+
+
+def check_sync_engines(n: int, ctx: dict, wall: float,
+                       dense_ms: dict) -> dict:
+    """The fast engines at ``n`` workers on the card
+    (sync_harness.engines_worker's outputs, ``sync_engines_job``'s
+    ``ctx``): fp32 against the float64 formula at SYNC_TOL, an equal
+    all-reduce bitwise the same on every rank; bf16 and int8 (with error
+    feedback) within one quantum of each wire stage of the fp32 result,
+    per element (sync_harness.compressed_bounds); the bytes handed to gloo
+    equal to sync_wire_bytes; the slowest rank's quickest-round ms per
+    engine and wire beside the dense modes' ms of this call."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    comms = import_module(f"{PKG}.comms")
+    sync_harness = import_module(f"{PKG}.sync_harness")
+    d, leaves = ctx["d"], ctx["leaves"]
+    cases, labels = ctx["cases"], ctx["labels"]
     outs = []
     for r in range(n):
         with np.load(os.path.join(d, f"rank{r}.npz")) as f:
@@ -2141,7 +2208,8 @@ def check_sync_engines(n: int, work_dir: str, dense_ms: dict) -> dict:
           f"(worst at {max(share.values()):.3f} of its bound); bytes "
           f"handed to gloo = "
           f"sync_wire_bytes in every case; {numel:,} fp32 elements per "
-          f"worker; {n} processes in {wall:.1f} s")
+          f"worker; {n} processes (the modes, then these engines) in "
+          f"{wall:.1f} s")
     for engine, how, topology in SYNC_ENGINES:
         print(f"[sync] engines n={n} {engine} {how}/{topology}: slowest "
               f"rank's ms (quickest of {SYNC_ENGINE_ROUNDS} rounds) "
@@ -2284,6 +2352,29 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     return counts, dict(summed_images_s=summed, step_ms=step_ms, wall=wall)
 
 
+def check_sync_modes_and_engines(n: int, work_dir: str) -> None:
+    """Phase 8a at ``n`` workers: comms.modes_worker, then
+    sync_harness.engines_worker, in the same ``n`` processes on the card
+    (mesh.in_turn: one start of the processes, a gloo group each), then
+    check_sync_modes and check_sync_engines on their outputs."""
+    from importlib import import_module
+    mesh = import_module(f"{PKG}.mesh")
+    jobs = [sync_modes_job(n, work_dir), sync_engines_job(n, work_dir)]
+    stores = [mesh.new_store_path() for _ in jobs]
+    t0 = time.perf_counter()
+    try:
+        mesh.join_workers(mesh.spawn_workers(
+            mesh.in_turn, n,
+            ([(target, (store, *args)) for (target, args, _ctx), store
+              in zip(jobs, stores)],), ranks=range(n)), timeout_s=600.0)
+    finally:
+        for store in stores:
+            mesh.remove_store(store)
+    wall = time.perf_counter() - t0
+    dense_ms = check_sync_modes(n, jobs[0][2], wall)
+    check_sync_engines(n, jobs[1][2], wall, dense_ms)
+
+
 def phase_sync(one_worker_images_s: float) -> tuple[dict, dict]:
     """Phase 8: the modes on CUDA at n=2 and 4, then the three N-worker
     runs; returns rank 0's summed launch counts and each run's summed
@@ -2292,7 +2383,7 @@ def phase_sync(one_worker_images_s: float) -> tuple[dict, dict]:
     work = os.path.join(ROOT, "build", "chip_smoke", "sync")
     phase_gloo(work)
     for n in (2, 4):
-        check_sync_engines(n, work, check_sync_modes(n, work))
+        check_sync_modes_and_engines(n, work)
     counts, rates = {}, {}
     for label, n, extra in SYNC_RUNS:
         c, info = run_sync(label, n, extra, one_worker_images_s)
@@ -3302,14 +3393,16 @@ def check_grid_launches(tag: str, results: dict, layers: int,
 
 def grid_lines(tag: str, results: dict, wall: float) -> dict:
     """Per-rank step ms, TP all-reduce and FSDP gather/reduce-scatter ms
-    and bytes per step, parameter and moment bytes, peak memory; returns
-    them by rank."""
+    and bytes per step, parameter and moment bytes, peak memory, and on a
+    seq line the SP hops per pass, the seq gradient all-reduce per step and
+    the flash launches; returns them by rank."""
     g, rt = results["grid"], results["round_timings"]
     rows = []
     for r in range(g["ranks"]):
         train, val = g["steps"][r]
         passes = max(train + val, 1)
         tp, fs, st = g["tp"][r], g["fsdp"][r], g["state_bytes"][r]
+        sp = g["sp"][r]
         row = dict(
             coords=g["coords_of"][r], train_steps=train,
             step_ms=sum(x["ranks_train_ms"][r] for x in rt) / max(train, 1),
@@ -3320,7 +3413,12 @@ def grid_lines(tag: str, results: dict, wall: float) -> dict:
             fsdp_bytes=(fs["gather_bytes"] + fs["reduce_scatter_bytes"])
             / max(train, 1),
             params_bytes=st["params"], opt_bytes=st["opt_state"],
-            peak=max(x["ranks_max_memory_allocated"][r] for x in rt))
+            peak=max(x["ranks_max_memory_allocated"][r] for x in rt),
+            sp_ms=sp["ms"] / passes, sp_bytes=sp["bytes"] / passes,
+            sp_calls=sp["calls"] / passes,
+            sp_grad_ms=sp["grad_ms"] / max(train, 1),
+            sp_grad_bytes=sp["grad_bytes"] / max(train, 1),
+            launches=sum(g["launches"][r].values()))
         rows.append(row)
         print(f"{tag} rank {r} {row['coords']}: train step "
               f"{row['step_ms']:.3f} ms over {train} steps; TP all-reduce "
@@ -3331,6 +3429,13 @@ def grid_lines(tag: str, results: dict, wall: float) -> dict:
               f"B per train step; params {row['params_bytes']:,} B, Adam "
               f"moments {row['opt_bytes']:,} B; max_memory_allocated "
               f"{row['peak'] / 2**30:.2f} GiB")
+        if sp["calls"]:
+            print(f"{tag} rank {r} {row['coords']}: SP hops "
+                  f"{row['sp_ms']:.3f} ms, {row['sp_calls']:.0f} calls, "
+                  f"{row['sp_bytes']:,.0f} B per pass (train + val); seq "
+                  f"gradient all-reduce {row['sp_grad_ms']:.3f} ms, "
+                  f"{row['sp_grad_bytes']:,.0f} B per train step; flash "
+                  f"launches {row['launches']}")
     print(f"{tag} {g['ranks']} processes {g['axes']} on one card; wall "
           f"{wall:.1f} s; losses {results['global_train_losses']}")
     return rows
@@ -3376,16 +3481,22 @@ def grid_parity(tag: str, twin_argv: list[str], grid_argv: list[str],
 def phase_tp_gpt2() -> dict:
     """[tp gpt2]: the gpt2 path on data=2,model=2 (4 processes): the fp32
     pair against --num_workers 2, both timed, then the bf16 run timed;
-    every rank launches each kernel once per layer per pass."""
+    in both grid runs every rank launches each kernel (the fp32 instance,
+    then the tensor-core one) once per layer per pass.  Returns the bf16
+    run's rank-0 counts."""
     argv, layers = PATHS["gpt2"]
     tag = "[tp gpt2]"
     t0 = time.perf_counter()
-    small = [*argv, *GRID_FP32]
-    grid_parity(tag, [*small, "--num_workers", "2"], [*small, *TP_GPT2_MESH])
-    argv = [*argv, *GRID_CUT]
-    tp, wall = grid_run(tag, [*argv, *TP_GPT2_MESH])
+    small = [*argv, *TP_GPT2_FP32]
+    fp32 = grid_parity(tag, [*small, "--num_workers", "2"],
+                       [*small, *TP_GPT2_MESH])
+    check_grid_launches(f"{tag} fp32", fp32, layers,
+                        [*small, *TP_GPT2_MESH])
+    del fp32
+    argv = [*argv, *TP_GPT2_CUT, *TP_GPT2_MESH]
+    tp, wall = grid_run(tag, argv)
     check_losses("tp gpt2", tp)
-    counts = check_grid_launches(tag, tp, layers, [*argv, *TP_GPT2_MESH])
+    counts = check_grid_launches(tag, tp, layers, argv)
     grid_lines(tag, tp, wall)
     del tp
     print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
@@ -3411,50 +3522,32 @@ def tp_llama() -> dict:
     return counts
 
 
-def fsdp_module_check(device: str = "cuda", width: int = 64) -> None:
-    """One fp32 step of the full-width enhanced_cnn at data=1,fsdp=2 (2
-    processes on the card, grid_harness): each rank's logits of its half
-    of the batch and the joined gradients against the dense twin that
+def fsdp_module_job(width: int = 64) -> dict:
+    """[fsdp cnn]'s module job (grid_harness.module_job on data=1,fsdp=2):
+    one fp32 step of the enhanced_cnn at ``width`` (its seeded init, the
+    same on both ranks) on PATH_BATCH random images; each rank holds its
+    logits and the joined gradients against the dense twin that
     normalises each half on its own (BatchNorm under FSDP, JAX
-    train.py:1617-1622)."""
+    train.py:1617-1622) and returns the largest differences."""
     import numpy as np
-    import tempfile
-    import torch
-    from importlib import import_module
-    mesh = import_module(f"{PKG}.mesh")
-    harness = import_module(f"{PKG}.grid_harness")
-    model = import_module(f"{PKG}.models").get_model(
-        "enhanced_cnn", num_classes=10, width=width)
-    model.init_parameters(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    job = dict(model="enhanced_cnn", vocab=10, shape=(32, 32, 3),
-               kw={"model_width": width},
-               state_dict={k: v.numpy() for k, v in
-                           model.state_dict().items()},
-               x=rng.normal(size=(PATH_BATCH, 32, 32, 3)).astype(
-                   np.float32),
-               y=rng.integers(0, 10, PATH_BATCH),
-               m=np.ones(PATH_BATCH, np.float32))
-    with tempfile.TemporaryDirectory() as d:
-        torch.save({"axes": {"data": 1, "fsdp": 2}, "jobs": [job]},
-                   os.path.join(d, "jobs.pt"))
-        store = mesh.new_store_path()
-        try:
-            mesh.join_workers(mesh.spawn_workers(
-                harness.module_worker, 2,
-                (store, os.path.join(d, "jobs.pt"), d, device),
-                ranks=range(2)), timeout_s=300.0)
-        finally:
-            mesh.remove_store(store)
-        ranks = [torch.load(os.path.join(d, f"rank{r}-0.pt"),
-                            weights_only=False) for r in range(2)]
-    logits = np.concatenate([r["logits"] for r in ranks])
-    e_logits = float(np.abs(logits - ranks[0]["dense_logits"]).max())
-    e_grads = max(float(np.abs(g - ranks[0]["dense_grads"][k]).max())
-                  for k, g in ranks[0]["grads"].items())
-    sharded = sum("fsdp" in s for s in ranks[0]["specs"].values())
-    print(f"[fsdp cnn] one fp32 step at data=1,fsdp=2, {sharded} of "
-          f"{len(ranks[0]['specs'])} leaves sharded: logits max abs err "
+    return dict(model="enhanced_cnn", vocab=10, shape=(32, 32, 3),
+                axes={"data": 1, "fsdp": 2}, kw={"model_width": width},
+                summary=True,
+                x=rng.normal(size=(PATH_BATCH, 32, 32, 3)).astype(
+                    np.float32),
+                y=rng.integers(0, 10, PATH_BATCH),
+                m=np.ones(PATH_BATCH, np.float32))
+
+
+def check_fsdp_module(ranks: list) -> None:
+    """[fsdp cnn]'s one-step check: each rank's logits of its half of the
+    batch and the joined gradients against the dense twin."""
+    e_logits = max(r["logits_err"] for r in ranks)
+    e_grads = max(r["grads_err"] for r in ranks)
+    print(f"[fsdp cnn] one fp32 step at data=1,fsdp=2, "
+          f"{ranks[0]['sharded']} of {ranks[0]['leaves']} leaves sharded: "
+          f"logits max abs err "
           f"{e_logits:.3g} (gate {GRID_LOGITS_ATOL}), gradients max abs "
           f"err {e_grads:.3g} (gate {GRID_GRAD_ATOL}) against the dense "
           "twin normalising each half")
@@ -3462,27 +3555,88 @@ def fsdp_module_check(device: str = "cuda", width: int = 64) -> None:
         fail("fsdp cnn: the sharded step differs from its dense twin")
 
 
+def sp_attn_jobs() -> list:
+    """[sp attn]'s jobs (grid_harness.sp_attention_job on data=1,seq=2):
+    ring, ring_zigzag and all_to_all at each SP_ATTN_SHAPES shape, causal,
+    in bf16 and fp32, against the dense attention on the whole
+    sequence."""
+    return [dict(kind="sp", axes={"data": 1, "seq": 2}, impl=impl,
+                 causal=True, dtype=dtype, shape=shape[1:], seed=i,
+                 summary=True,
+                 label=f"{shape[0]} {list(shape[1:])} {impl} {dtype}")
+            for i, (shape, impl, dtype) in enumerate(
+                (s, m, d) for s in SP_ATTN_SHAPES
+                for m in ("ring", "ring_zigzag", "all_to_all")
+                for d in SP_ATTN_TOL)]
+
+
+def check_sp_attn(jobs: list, results: list) -> None:
+    """[sp attn]: each job's output and gradients of q, k and v within its
+    dtype's fraction of max |dense|; the slower rank's wall of the
+    forward and backward, rank 0's hops and bytes."""
+    for job, ranks in zip(jobs, results):
+        tol = SP_ATTN_TOL[job["dtype"]]
+        err = [max(r["errors"][j] for r in ranks) for j in range(4)]
+        st = ranks[0]["stats"]
+        print(f"[sp attn] {job['label']}: max err / max |dense| out "
+              f"{err[0]:.3g}, dq {err[1]:.3g}, dk {err[2]:.3g}, dv "
+              f"{err[3]:.3g} (gate {tol}); fwd+bwd "
+              f"{max(r['ms'] for r in ranks):.3f} ms, {st['calls']} hops "
+              f"{st['bytes']:,} B {st['ms']:.3f} ms on rank 0")
+        if not max(err) <= tol:
+            fail(f"[sp attn] {job['label']}: differs from the dense "
+                 f"attention beyond {tol}: {err}")
+
+
+def phase_module_checks() -> None:
+    """[fsdp cnn]'s one-step check and [sp attn], in one spawn of 2
+    processes on GRID_CHECK_DEVICE (grid_harness.module_worker makes each
+    job's grid)."""
+    import tempfile
+    import torch
+    from importlib import import_module
+    mesh = import_module(f"{PKG}.mesh")
+    harness = import_module(f"{PKG}.grid_harness")
+    t0 = time.perf_counter()
+    jobs = [fsdp_module_job(GRID_CHECK_WIDTH), *sp_attn_jobs()]
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({"axes": jobs[0]["axes"], "jobs": jobs},
+                   os.path.join(d, "jobs.pt"))
+        store = mesh.new_store_path()
+        try:
+            mesh.join_workers(mesh.spawn_workers(
+                harness.module_worker, 2,
+                (store, os.path.join(d, "jobs.pt"), d, GRID_CHECK_DEVICE),
+                ranks=range(2)), timeout_s=600.0)
+        finally:
+            mesh.remove_store(store)
+        res = [[torch.load(os.path.join(d, f"rank{r}-{i}.pt"),
+                           weights_only=False) for r in range(2)]
+               for i in range(len(jobs))]
+    check_fsdp_module(res[0])
+    check_sp_attn(jobs[1:], res[1:])
+    print(f"[fsdp cnn] + [sp attn] module checks wall "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_fsdp_cnn() -> None:
     """[fsdp cnn]: the reference's enhanced_cnn run on data=2,fsdp=2 (4
-    processes) against --num_workers 2, both bf16 and timed: finite
-    falling losses, BatchNorm statistics equal along fsdp, each rank's
-    parameter and moment bytes against the whole model's; the one-step
-    fp32 module check holds the sharded step against its dense twin."""
+    processes), bf16 and timed: finite falling losses, BatchNorm
+    statistics equal along fsdp, each rank's parameter and moment bytes
+    against the whole model's (its one-step fp32 check against the dense
+    twin runs in phase_module_checks)."""
     tag = "[fsdp cnn]"
     t0 = time.perf_counter()
-    fsdp_module_check()
     argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "fsdp_cnn"),
             *FSDP_CNN_CUT]
-    dp, dp_wall = grid_run(tag, [*argv, "--num_workers", "2"])
-    data_lines(f"{tag} data=2 twin", dp, dp_wall)
-    whole = dp["sync_engine"]["per_worker_state_bytes"]
-    del dp
     res, wall = grid_run(tag, [*argv, *FSDP_CNN_MESH])
     check_losses("fsdp cnn", res)
     rows = grid_lines(tag, res, wall)
     sums = res["grid"]["buffer_checksums"]
     if not (sums[0] == sums[1] and sums[2] == sums[3]):
         fail("fsdp cnn: BatchNorm statistics differ along fsdp")
+    # the whole worker's fp32 parameters, and Adam's two moments
+    whole = {"params": 4 * CNN_PARAMS, "opt_state": 8 * CNN_PARAMS}
     for r, row in enumerate(rows):
         print(f"{tag} rank {r}: params {row['params_bytes']:,} B = "
               f"{row['params_bytes'] / whole['params']:.3f} of the whole "
@@ -3501,7 +3655,8 @@ def phase_tp_fsdp_bert() -> dict:
     argv, layers = PATHS["bert"]
     tag = "[tp fsdp bert]"
     t0 = time.perf_counter()
-    small = [*argv, *GRID_FP32]
+    small = [*argv, *GRID_FP32, "--limit_train_samples", "320",
+             "--limit_eval_samples", "64"]
     grid = grid_parity(tag, [*small, "--mesh_shape", "data=1"],
                        [*small, *TP_FSDP_BERT_MESH])
     counts = check_grid_launches(tag, grid, layers,
@@ -3528,12 +3683,68 @@ def phase_tp_llama() -> dict:
     return result["counts"]
 
 
+def phase_sp(path: str) -> None:
+    """[sp gpt2] / [sp bert]: the path on a seq line of 2 processes with
+    its --sequence_parallel mode and dense attention: the fp32 pair (one
+    round) against the data=1 twin, both timed, then the bf16 run timed
+    under --sanitize (the parameters checked bitwise equal along seq after
+    the round, no implicit sync); no rank launches a flash kernel."""
+    from importlib import import_module
+    fl = import_module(f"{PKG}.ops.flash")
+    argv, _layers = PATHS[path]
+    tag, mesh_argv, cut = SP_RUNS[path]
+    t0 = time.perf_counter()
+    argv = [*argv, "--attention_impl", "dense", "--out_dir",
+            os.path.join(OUT_DIR, f"sp_{path}")]
+    small = [*argv, *SP_FP32]
+    grid_parity(tag, [*small, "--mesh_shape", "data=1"],
+                [*small, *mesh_argv])
+    res, wall = grid_run(tag, [*argv, *cut, *mesh_argv, "--sanitize"])
+    check_losses(f"sp {path}", res)
+    rows = grid_lines(tag, res, wall)
+    g = res["grid"]
+    if any(row["launches"] for row in rows) or any(fl.LAUNCHES.values()):
+        fail(f"{tag}: a flash kernel launched on the SP path: "
+             f"{g['launches']}, {fl.LAUNCHES}")
+    if not all(row["sp_calls"] > 0 for row in rows):
+        fail(f"{tag}: a rank ran no SP hop: {g['sp']}")
+    if g["seq_bitwise_rounds"] != len(res["round_timings"]):
+        fail(f"{tag}: the parameters were checked along seq after "
+             f"{g['seq_bitwise_rounds']} of {len(res['round_timings'])} "
+             "rounds")
+    if res["sanitize"]["transfer_guard_violations"]:
+        fail(f"{tag}: implicit host-device syncs {res['sanitize']}")
+    print(f"{tag} parameters bitwise equal along seq after "
+          f"{g['seq_bitwise_rounds']} round(s); 0 flash launches; 0 "
+          f"implicit syncs; phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def phase_grid() -> dict:
     """The rank grid's phases; returns their rank-0 launch counts."""
     counts = {"tp_gpt2": phase_tp_gpt2()}
     counts["tp_fsdp_bert"] = phase_tp_fsdp_bert()
+    phase_module_checks()
     phase_fsdp_cnn()
+    for path in SP_RUNS:
+        phase_sp(path)
     return counts
+
+
+def sp_alone() -> int:
+    """``python3 chip_smoke.py sp``: the sequence-parallel phases alone (no
+    kernel runs on their path), with [fsdp cnn]'s one-step check, which
+    shares [sp attn]'s spawn."""
+    import torch
+    os.environ.pop("FLASH_BWD", None)
+    t0 = time.perf_counter()
+    phase_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_module_checks()
+    for path in SP_RUNS:
+        phase_sp(path)
+    print(f"[sp] phases wall {time.perf_counter() - t0:.1f} s")
+    return 0
 
 
 def grid_alone() -> int:
@@ -3562,6 +3773,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [GRID_PHASE]:
         return grid_alone()
+    if sys.argv[1:] == [SP_PHASE]:
+        return sp_alone()
     if sys.argv[1:] == [ELASTIC_PHASE]:
         return deterministic_child(overlap=False, elastic=True)
     if sys.argv[1:] == [OVERLAP_PHASE]:
@@ -3578,25 +3791,41 @@ def main() -> int:
     # the port's import, so it must be gone before anything imports it
     os.environ.pop("FLASH_BWD", None)
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(what: str) -> None:
+        """Each phase's wall, for the room the limit leaves."""
+        marks.append(time.perf_counter())
+        print(f"[smoke] {what} wall {marks[-1] - marks[-2]:.1f} s")
+
     name, smi = phase_device()
     import torch  # noqa: F401  (device phase checked the card)
     phase_build()
     tensor_cores = phase_sass()
+    lap("device, build, sass")
     rows = phase_kernels()
+    lap("kernels")
     counts = {}
     counts["gpt2"], results = run_path("gpt2")
     phase_profile("gpt2", results, PATHS["gpt2"][0])
     del results                    # give the card back
     torch.cuda.empty_cache()
+    lap("gpt2 path, profile")
     counts["ckpt"] = phase_ckpt()
+    lap("ckpt")
     counts["draft"] = phase_draft()
+    lap("draft")
     plain = phase_serve("gpt2", CKPT_DIR)
+    lap("serve gpt2")
     counts["serve_spec"] = phase_serve_spec(plain)
+    lap("serve gpt2 spec")
     phase_serve_shared(CKPT_DIR)
+    lap("serve gpt2 shared")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     shutil.rmtree(DRAFT_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     counts["llama"] = phase_llama()
+    lap("llama child (path, profile, serve llama, tp llama)")
     for path in ("bert", "vit", "moe"):
         counts[path], results = run_path(path)
         if path == "vit":           # before the profile trains it further
@@ -3619,18 +3848,25 @@ def main() -> int:
             counts["stream_vit"] = phase_stream_vit(plain_vit)
             del plain_vit
             torch.cuda.empty_cache()
+        lap(f"{path} path" + ("" if path == "moe" else ", profile")
+            + (", stream vit" if path == "vit" else ""))
     phase_remat(REMAT_POLICIES)
+    lap("remat, grad_accum")
     counts["cnn"], results = run_cnn()
     phase_profile("cnn", results, CNN_ARGV)
+    lap("cnn, profile")
     rt = results["round_timings"]
     images_s = (sum(r["train_steps"] for r in rt) * PATH_BATCH
                 / (sum(r["train_ms"] for r in rt) / 1e3))
     del results
     torch.cuda.empty_cache()
     phase_sanitize()
+    lap("sanitize")
     phase_profile_dir()
     torch.cuda.empty_cache()
+    lap("profile_dir")
     counts["sync"], sync_rates = phase_sync(images_s)
+    lap("sync")
     t_sim = time.perf_counter()
     counts["sim_cnn"] = phase_sim_cnn(images_s, sync_rates)
     phase_sim_parity()
@@ -3638,11 +3874,16 @@ def main() -> int:
     counts["sim_gpt2"] = phase_sim_gpt2()
     print(f"[sim] phases wall {time.perf_counter() - t_sim:.1f} s")
     torch.cuda.empty_cache()
+    lap("sim")
     counts.update(phase_grid())
     counts["tp_llama"] = GRID_COUNTS["tp_llama"]
+    lap("grid (tp gpt2, tp fsdp bert, fsdp cnn, sp attn, sp gpt2, sp "
+        "bert)")
     phase_elastic()
+    lap("elastic child (overlap, elastic)")
     phase_memory()
     phase_mfu(smi)
+    lap("memory, mfu")
     kernels = []
     for kname, (src, replaces, path, shape, design) in KERNELS.items():
         kernels.append(dict(

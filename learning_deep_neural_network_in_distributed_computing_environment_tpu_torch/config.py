@@ -14,7 +14,6 @@ import dataclasses
 
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default is rejected in Config.__post_init__.
-_SEQ = "A.11 item 4b (sequence parallelism: ring, zigzag, Ulysses)"
 _PIPE = "A.11 item 4c (pipeline parallelism: GPipe, 1F1B, --pp_*)"
 _EXPERT = ("A.11 item 4d (the expert axis, MoE under model/fsdp, and "
            "elastic/chaos/staleness over the rank grid)")
@@ -22,7 +21,6 @@ NOT_PORTED = {
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
                            "which is what auto gives; weights.py converts "
                            "both JAX layouts)"),
-    "sequence_parallel": ("none", _SEQ),
     "pp_schedule": ("gpipe", _PIPE),
     "pp_microbatches": (0, _PIPE),
     "pp_remat": (False, _PIPE),
@@ -31,8 +29,9 @@ NOT_PORTED = {
 }
 # the --mesh_shape axes the port runs (JAX mesh.py's names), and the ROADMAP
 # item of each axis it refuses
-MESH_AXES = ("data", "fsdp", "model")
-REFUSED_AXES = {"seq": _SEQ, "pipe": _PIPE, "expert": _EXPERT}
+MESH_AXES = ("data", "fsdp", "seq", "model")
+REFUSED_AXES = {"pipe": _PIPE, "expert": _EXPERT}
+SEQUENCE_PARALLEL = ("none", "ring", "ring_zigzag", "all_to_all")
 
 
 def _choices(name: str, value, allowed) -> None:
@@ -160,12 +159,14 @@ class Config:
     sanitize: bool = False
     overlap_rounds: bool = True   # --no_overlap_rounds: the serial flow
 
-    # the rank grid: data x fsdp x model (mesh.Grid); data=-1 is
+    # the rank grid: data x fsdp x seq x model (mesh.Grid); data=-1 is
     # --num_workers' count
     mesh_shape: str = "data=-1"
+    # the attention of the train module over the seq axis: none | ring |
+    # ring_zigzag (causal models only) | all_to_all (parallel/sp.py)
+    sequence_parallel: str = "none"
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     layer_scan: str = "auto"
-    sequence_parallel: str = "none"
     pp_schedule: str = "gpipe"
     pp_microbatches: int = 0
     pp_remat: bool = False
@@ -184,6 +185,8 @@ class Config:
         _choices("proportionality", self.proportionality,
                  ("inverse", "direct", "uniform"))
         _choices("attention_impl", self.attention_impl, ("dense", "flash"))
+        _choices("sequence_parallel", self.sequence_parallel,
+                 SEQUENCE_PARALLEL)
         _choices("compute_dtype", self.compute_dtype,
                  ("bfloat16", "float32"))
         _choices("device", self.device, (None, "cuda", "cpu"))
@@ -737,9 +740,9 @@ class Config:
 
     def _check_mesh(self) -> None:
         """The ``--mesh_shape`` checks: the axes the port runs (data, fsdp,
-        model), the refusals of the others with the ROADMAP item that
-        ports them, and the JAX driver's checks of the model and fsdp
-        axes (``driver.py:615-700``) that need no model built."""
+        seq, model), the refusals of the others with the ROADMAP item that
+        ports them, and the JAX driver's checks of the model, fsdp and seq
+        axes (``driver.py:615-732``) that need no model built."""
         axes = self.mesh_axes()
         for name, size in axes.items():
             if name in REFUSED_AXES:
@@ -764,6 +767,7 @@ class Config:
                 f"--mesh_shape data={data} and --num_workers "
                 f"{self.num_workers} disagree: give one worker count (data=-1 "
                 "takes --num_workers')")
+        self._check_seq(axes)
         inner = self.inner_axes()
         if not inner:
             return
@@ -795,6 +799,37 @@ class Config:
                     f"{what} under the inner mesh axes {inner} (--mesh_shape"
                     f" {self.mesh_shape!r}) is not ported to the PyTorch "
                     f"package yet; it arrives with ROADMAP queue {_EXPERT}")
+
+    def _check_seq(self, axes: dict) -> None:
+        """The JAX driver's checks of ``--sequence_parallel``
+        (``driver.py:710-732``), with its messages.  A ``seq`` axis without
+        it runs as JAX runs it (``train.py:455-459``): seq is then no part
+        axis, and its ranks all take the same step on the whole batch."""
+        seq = axes.get("seq", 1)
+        if self.sequence_parallel == "none":
+            return
+        if self.attention_impl != "dense":
+            raise ValueError(
+                f"--attention_impl {self.attention_impl} cannot combine with "
+                f"--sequence_parallel {self.sequence_parallel}: the round "
+                "program's attention is the sequence-parallel kernel")
+        if seq < 2:
+            raise ValueError(
+                f"--sequence_parallel {self.sequence_parallel} needs a "
+                "'seq' mesh axis of size >= 2 (e.g. --mesh_shape "
+                f"data=2,seq=4); got mesh {axes}")
+        from .models import is_token_model
+        if not is_token_model(self.model):
+            raise ValueError(
+                "--sequence_parallel applies to token-sequence models "
+                f"(bert_*/gpt_*/llama_*); got --model {self.model}")
+        if (self.sequence_parallel == "ring_zigzag"
+                and not self.model.startswith(("gpt", "llama"))):
+            raise ValueError(
+                "--sequence_parallel ring_zigzag balances CAUSAL masking "
+                "work and applies to causal models (gpt_*/llama_*); "
+                f"got --model {self.model} — use 'ring' for bidirectional "
+                "attention")
 
     def _mesh_shape_axes(self) -> dict[str, int]:
         """Raw ``--mesh_shape`` parse: axis name -> size (-1 when no size
@@ -1149,8 +1184,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "cache; the port compiles nothing ahead of time")
     p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
                    help="the rank grid, e.g. data=2,fsdp=2,model=2: each "
-                        "of the data workers is fsdp x model processes "
-                        "(ZeRO-3 over fsdp, tensor parallelism over model)")
+                        "of the data workers is fsdp x seq x model "
+                        "processes (ZeRO-3 over fsdp, sequence parallelism "
+                        "over seq, tensor parallelism over model)")
+    p.add_argument("--sequence_parallel", default=d.sequence_parallel,
+                   choices=list(SEQUENCE_PARALLEL),
+                   help="the train module's attention over the 'seq' mesh "
+                        "axis: ring | ring_zigzag (causal models) | "
+                        "all_to_all (Ulysses)")
     for name, (default, _where) in NOT_PORTED.items():
         help_ = "not ported yet (rejected unless default)"
         if isinstance(default, bool):

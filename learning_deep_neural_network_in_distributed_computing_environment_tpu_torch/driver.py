@@ -62,8 +62,8 @@ of poisoned sync contributions with escalation to a departure.  The
 per-worker metric lists are keyed by logical worker id, and
 ``results["elastic"]`` carries JAX's keys plus the roster of every round.
 
-On the rank grid (``--mesh_shape`` with ``fsdp`` or ``model``; JAX
-``driver.py:579-700``) the world of D x F x T processes is cut by
+On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq`` or ``model``;
+JAX ``driver.py:579-736``) the world of D x F x S x T processes is cut by
 ``mesh.make_grid`` into per-axis gloo groups: each worker is the block of
 ranks with one data coordinate, and everything above keyed by worker runs
 on the data line (``group``) with one answer per worker that every rank
@@ -71,12 +71,15 @@ of it agrees on: the probe is the worker's first rank's, the partitions
 and the initial parameters are checked across ranks, and the round's
 metrics are gathered over every rank (``LocalSGDEngine.finish_metrics``).
 Each rank builds the dense twin from the seed (the init, the probe), its
-module (tensor-parallel over ``model``) and its shards of the dense
-twin's parameters (``parallel.shards.GridParams``); the dense twin's
-parameters are released after the probe and get the worker's whole
-parameters back at the end, for the final evaluation.
-``results["grid"]`` has the axes, every rank's state bytes and its TP and
-FSDP collective counters.
+module (tensor-parallel over ``model``; with ``--sequence_parallel`` its
+attention runs over the ``seq`` line; without it the seq ranks are
+replicas of the whole step, as in JAX) and its shards of the dense twin's
+parameters (``parallel.shards.GridParams``); the dense twin's parameters
+are released after the probe and get the worker's whole parameters back
+at the end, for the final evaluation.  Under ``--sanitize`` (or
+``round_checksums``) the parameters are checked bitwise equal along
+``seq`` after every round.  ``results["grid"]`` has the axes, every rank's
+state bytes and its TP, FSDP and SP collective counters.
 
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
@@ -193,7 +196,7 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
 
 
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
-                    input_shape: tuple | None = None, tp=None):
+                    input_shape: tuple | None = None, tp=None, sp=None):
     """The registry model at the configured compute dtype (and, for
     transformers, attention, remat policy and MoE FFN), initialized from
     ``cfg.seed`` with a generator on
@@ -201,7 +204,9 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     weights).  ``input_shape`` (one example's) sizes the first layer of
     the models flax sizes from their input (``mlp``, ``lenet5``).  ``tp``
     (the rank's ``model`` line) builds a transformer's tensor-parallel
-    shard; its init is not the dense model's (``GridParams`` fills it)."""
+    shard; its init is not the dense model's (``GridParams`` fills it).
+    ``sp`` (the rank's ``seq`` line) builds a token model whose attention
+    is ``--sequence_parallel``'s over that line."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
@@ -248,6 +253,10 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw["input_shape"] = tuple(input_shape)
     if tp is not None:
         kw["tp"] = tp
+    if sp is not None:
+        # JAX driver.py:733-736: the train module's attention is the
+        # sequence-parallel one (the dense twin keeps --attention_impl)
+        kw.update(sp=sp, attention_impl=cfg.sequence_parallel)
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
                       device=device, **kw)
     if device.type != "meta":      # a meta model only propagates shapes
@@ -513,9 +522,11 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         grid = mesh.make_grid(group, mesh.grid_axes(cfg))
         group = grid.groups["data"]
         from .parallel import fsdp as fsdp_lib
+        from .parallel import sp as sp_lib
         from .parallel import tp as tp_lib
         tp_lib.reset_stats()            # results["grid"] counts this run
         fsdp_lib.reset_stats()
+        sp_lib.reset_stats()
     if sim and group is not None:
         raise ValueError(
             "--sim_workers runs every simulated worker in ONE process; "
@@ -595,15 +606,22 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # the rank's module and its shards of the dense twin (``model``,
         # which keeps the init, the probe and the final evaluation)
         tp = grid.groups["model"] if grid.size("model") > 1 else None
+        # seq splits the sequences only under --sequence_parallel (JAX
+        # train.py:455-459); without it its ranks are replicas
+        split_seq = cfg.sequence_parallel != "none"
+        sp = (grid.groups["seq"] if grid.size("seq") > 1 and split_seq
+              else None)
         train_model = build_model_for(cfg, num_classes, device,
-                                      trainset.images.shape[1:], tp=tp)
+                                      trainset.images.shape[1:], tp=tp,
+                                      sp=sp)
         train_model.load_state_dict(
             {k: b for k, b in model.state_dict().items()
              if k not in dict(model.named_parameters())}, strict=False)
         from .parallel.shards import GridParams
         gp = GridParams({k: p.detach() for k, p in model.named_parameters()},
                         weights.state_layout(model), train_model, grid,
-                        device, shard_tok_emb=cfg.model.startswith("gpt"))
+                        device, shard_tok_emb=cfg.model.startswith("gpt"),
+                        split_seq=split_seq)
         # the tensor-parallel decode's output is its vocab slice (ViT's
         # classifier stays whole)
         vocab_parallel = tp is not None and cfg.model.startswith(
@@ -1119,6 +1137,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         assemble(mx, epoch, t_disp, timing, ids)
         return mx
 
+    seq_checked = (0 if grid is not None and grid.size("seq") > 1
+                   and (cfg.sanitize or round_checksums) else None)
     san: dict[str, Any] = {"enabled": cfg.sanitize,
                            "transfer_guard_violations": 0,
                            "retrace_count": 0, "recompile_count": 0,
@@ -1259,6 +1279,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             if round_checksums and group is not None:
                 results.setdefault("round_checksums", []).append(
                     mesh.all_gather(group, engine.params_checksum(state)))
+            if seq_checked is not None:
+                # the seq ranks of a worker apply the same summed
+                # gradients and sync the same shards: bitwise equal
+                _check_same(grid.groups["seq"],
+                            f"the parameters after round {epoch} (along "
+                            "seq)", engine.params_checksum(state))
+                seq_checked += 1
             if nan_armed and "sync_ok" in mx:
                 timing["sync_ok"] = [float(x) for x in mx["sync_ok"]]
                 process_quarantine(epoch, np.asarray(mx["sync_ok"]))
@@ -1399,7 +1426,11 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "buffer_checksums": mesh.all_gather(
                 grid.world, comms.checksum(list(train_model.buffers()))
                 if list(train_model.buffers()) else None),
-            "fsdp": mesh.all_gather(grid.world, dict(fsdp_lib.STATS))}
+            "fsdp": mesh.all_gather(grid.world, dict(fsdp_lib.STATS)),
+            "sp": mesh.all_gather(grid.world, dict(sp_lib.STATS)),
+            # rounds after which the parameters were checked bitwise
+            # equal along seq (None: not checked)
+            "seq_bitwise_rounds": seq_checked}
         grid.close()
     results["model"] = model
     results["test"] = test

@@ -6,13 +6,16 @@ the training path imports this module.
 shards (tensor-parallel module, ZeRO-3 shards) and of its dense twin in
 the same rank, from the same parameters; ``vocab_stats_worker`` holds
 ``tp.vocab_parallel_token_stats`` against ``train.masked_token_stats``;
-``gather_worker`` holds ``fsdp.gather_params`` and its reduce-scatter.
-Each writes what it found to ``{out_dir}/rank{r}-{i}.pt``.
+``gather_worker`` holds ``fsdp.gather_params`` and its reduce-scatter;
+``sp_attention_job`` runs one of ``parallel/sp.py``'s attentions on the
+rank's chunk of a sequence.  Each writes what it found to
+``{out_dir}/rank{r}-{i}.pt``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -28,10 +31,16 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     """One job of ``module_worker``: ``job`` has ``model``, ``vocab``,
     ``kw`` (Config fields), ``state_dict`` (the dense twin's parameters,
-    numpy), ``x``, ``y``, ``m`` (the worker's batch).  Returns this rank's
-    local logits and loss, the worker's whole gradients by JAX leaf key
-    (joined from the shards), and the dense twin's logits, loss and
-    gradients on the same batch."""
+    numpy; without it the seeded init of ``kw``'s seed, the same on every
+    rank of one device type), ``x``, ``y``, ``m`` (the worker's batch).
+    Returns the largest abs differences of this rank's logits (its slice of
+    the batch over fsdp, its chunk of every sequence over seq, its vocab
+    slice) and of the worker's joined gradients from the dense twin's
+    (``logits_err``, ``grads_err``: the comparison ``chip_smoke.py``
+    gates, which the CPU tests check against their own) and the count of
+    leaves a grid axis shards; unless ``summary``, also the rank's logits
+    and loss, the whole gradients by JAX leaf key and the dense twin's
+    logits, loss and gradients, for the tests' comparisons with JAX."""
     from .driver import build_model_for
     from .parallel.shards import GridParams
     from .parallel.tp import vocab_parallel_token_stats
@@ -39,19 +48,26 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     cfg = Config(model=job["model"], compute_dtype="float32",
                  device=device.type, **job.get("kw", {}))
     dense = build_model_for(cfg, job["vocab"], device, job.get("shape"))
-    dense.load_state_dict({k: torch.from_numpy(np.asarray(v))
-                           for k, v in job["state_dict"].items()})
+    if "state_dict" in job:
+        dense.load_state_dict({k: torch.from_numpy(np.asarray(v))
+                               for k, v in job["state_dict"].items()})
     tp = grid.groups["model"] if grid.size("model") > 1 else None
+    split_seq = cfg.sequence_parallel != "none"
+    sp = (grid.groups["seq"] if grid.size("seq") > 1 and split_seq
+          else None)
     module = build_model_for(cfg, job["vocab"], device, job.get("shape"),
-                             tp=tp)
+                             tp=tp, sp=sp)
     gp = GridParams({k: p.detach() for k, p in dense.named_parameters()},
                     weights.state_layout(dense), module, grid, device,
-                    shard_tok_emb=job["model"].startswith("gpt"))
+                    shard_tok_emb=job["model"].startswith("gpt"),
+                    split_seq=split_seq)
     x, y, m = (torch.as_tensor(job[k]).to(device) for k in ("x", "y", "m"))
     denom = masked_weights(y, m).sum().clamp_min(1.0)
     f = grid.groups.get("fsdp")
     xs, ys, ms = ((t.chunk(f.world_size)[f.rank] for t in (x, y, m))
                   if f is not None and f.world_size > 1 else (x, y, m))
+    if sp is not None:
+        xs, ys = (t.chunk(sp.world_size, dim=1)[sp.rank] for t in (xs, ys))
     vocab_parallel = tp is not None and not job["model"].startswith("vit")
     from .ops import flash
     flash.reset_launch_counts()
@@ -83,10 +99,26 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
         d_logits = dense(x)
         ce, w, _c = masked_token_stats(d_logits, y, m)
         d_loss = (ce * w).sum() / denom
-    d_grads = torch.autograd.grad(d_loss, list(dense.parameters()))
-    out.update(dense_logits=_np(d_logits), dense_loss=float(d_loss),
-               dense_grads=weights.jax_param_leaves(
-                   dict(zip(names, d_grads)), weights.state_layout(dense)))
+    d_grads = weights.jax_param_leaves(
+        dict(zip(names, torch.autograd.grad(d_loss,
+                                            list(dense.parameters())))),
+        weights.state_layout(dense))
+    # this rank's part of the dense twin's logits: its rows over fsdp, its
+    # positions over seq, its vocab slice under vocab parallelism
+    mine = d_logits.chunk(n_slices)[f.rank] if n_slices > 1 else d_logits
+    if sp is not None:
+        mine = mine.chunk(sp.world_size, dim=1)[sp.rank]
+    if vocab_parallel:
+        mine = mine.chunk(tp.world_size, dim=-1)[tp.rank]
+    errs = {"logits_err": float((logits - mine).detach().abs().max()),
+            "grads_err": max(float(np.abs(_np(g) - d_grads[k]).max())
+                             for k, g in zip(gp.keys, grads)),
+            "sharded": sum(any(gp.specs[k]) for k in gp.keys),
+            "leaves": len(gp.keys)}
+    if job.get("summary"):
+        return errs
+    out.update(errs, dense_logits=_np(d_logits), dense_loss=float(d_loss),
+               dense_grads=d_grads)
     return out
 
 
@@ -94,23 +126,87 @@ def module_worker(rank: int, world_size: int, store_path: str,
                   job_path: str, out_dir: str, device: str = "cpu") -> None:
     """A rank of the module checks (a spawn target): ``job_path`` holds
     ``{"axes": {axis: size}, "jobs": [job, ...]}`` (``torch.save``);
-    each job's ``module_job`` result goes to ``rank{rank}-{i}.pt``.  On
-    ``cuda`` every rank runs on the card (``mesh.worker_device``) and the
-    module jobs record the flash kernels' launches of the shard's pass."""
+    each job's result goes to ``rank{rank}-{i}.pt``.  A job with
+    ``"axes"`` of its own runs on that grid (every rank makes each grid
+    once, in job order).  On ``cuda`` every rank runs on the card
+    (``mesh.worker_device``) and the module jobs record the flash
+    kernels' launches of the shard's pass."""
     spec = torch.load(job_path, weights_only=False)
     device = mesh.worker_device(rank, device)
     # the fp32 comparisons must not drop to TF32 on a card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    jobs = {"module": lambda job, grid: module_job(job, grid, device),
+            "vocab": vocab_stats_job, "gather": gather_job,
+            "sp": lambda job, grid: sp_attention_job(job, grid, device)}
     with mesh.init_group(rank, world_size, device, store_path) as world:
-        grid = mesh.make_grid(world, spec["axes"])
+        grids = {}
         for i, job in enumerate(spec["jobs"]):
-            kind = job.get("kind", "module")
-            res = (module_job(job, grid, device) if kind == "module"
-                   else vocab_stats_job(job, grid) if kind == "vocab"
-                   else gather_job(job, grid))
+            axes = job.get("axes", spec["axes"])
+            key = tuple(axes.items())
+            if key not in grids:
+                grids[key] = mesh.make_grid(world, axes)
+            res = jobs[job.get("kind", "module")](job, grids[key])
             torch.save(res, os.path.join(out_dir, f"rank{rank}-{i}.pt"))
-        grid.close()
+        for grid in grids.values():
+            grid.close()
+
+
+def sp_inputs(job: dict) -> list[np.ndarray]:
+    """``job``'s whole q, k, v and the cotangent ``do``, fp32, drawn from
+    ``job["seed"]`` at ``job["shape"]`` (B, L, H, KV, D)."""
+    b, l, h, kv, d = job["shape"]
+    rng = np.random.default_rng(job["seed"])
+    return [rng.standard_normal((b, l, n, d), dtype=np.float32)
+            for n in (h, kv, kv, h)]
+
+
+def sp_attention_job(job: dict, grid: mesh.Grid, device: torch.device
+                     ) -> dict:
+    """``attend`` with ``job["impl"]`` (ring, ring_zigzag, all_to_all) over
+    the rank's ``seq`` line on its contiguous chunk of the whole q, k, v
+    [B, L, heads, D] (``sp_inputs``, cast to ``job["dtype"]``, default
+    fp32), and the gradients of ``sum(out * do)`` (``do`` the cotangent,
+    fp32) with respect to the chunk's q, k and v, with the hops' counters
+    and the pass's wall (ms, the card synchronised); and the same of the
+    port's dense attention on the whole sequence in this rank.  Returns
+    each result's max abs difference from the dense one's chunk over the
+    dense tensor's max |value| (``errors``: the comparison
+    ``chip_smoke.py`` gates, which the CPU tests check against their own);
+    unless ``summary``, also both results in fp32."""
+    from .ops.attention import attend
+    from .parallel import sp
+    g = grid.groups["seq"]
+    dtype = getattr(torch, job.get("dtype", "float32"))
+    causal = job.get("causal", False)
+    whole = [torch.as_tensor(a).to(device) for a in sp_inputs(job)]
+    lc = whole[0].shape[1] // g.world_size
+    part = lambda t: t[:, g.rank * lc:(g.rank + 1) * lc]
+    q, k, v = (part(t).to(dtype).requires_grad_() for t in whole[:3])
+    do = part(whole[3])
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    sp.reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    out = attend(q, k, v, impl=job["impl"], group=g, causal=causal)
+    grads = torch.autograd.grad((out.float() * do).sum(), (q, k, v))
+    sync()
+    res = {"seq": g.rank, "stats": dict(sp.STATS),
+           "ms": (time.perf_counter() - t0) * 1e3}
+    got = [out.detach().float(), *(t.float() for t in grads)]
+    full = [t.to(dtype).requires_grad_() for t in whole[:3]]
+    d_out = attend(*full, impl="dense", causal=causal)
+    d_grads = torch.autograd.grad((d_out.float() * whole[3]).sum(), full)
+    want = [d_out.detach().float(), *(t.float() for t in d_grads)]
+    res["errors"] = [float((a - part(b)).abs().max() / b.abs().max())
+                     for a, b in zip(got, want)]
+    if job.get("summary"):
+        return res
+    res.update(out=_np(got[0]), grads=[_np(t) for t in got[1:]],
+               dense_out=_np(want[0]),
+               dense_grads=[_np(t) for t in want[1:]])
+    return res
 
 
 def vocab_stats_job(job: dict, grid: mesh.Grid) -> dict:

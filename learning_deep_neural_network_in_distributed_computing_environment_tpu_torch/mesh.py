@@ -16,10 +16,10 @@ waits at most ``GROUP_TIMEOUT_S``, and the group is destroyed when the
 rank's work ends, also when it raises.  Children are started with the
 ``spawn`` method (CUDA cannot fork) and import nothing but the port.
 
-With ``--mesh_shape data=D,fsdp=F,model=T`` the world of D x F x T ranks
-is a rank grid (``Grid``, ``make_grid``; JAX ``mesh.build_mesh``): one
-gloo group per line of each axis, each worker the block of ranks with one
-data coordinate.
+With ``--mesh_shape data=D,fsdp=F,seq=S,model=T`` the world of
+D x F x S x T ranks is a rank grid (``Grid``, ``make_grid``; JAX
+``mesh.build_mesh``): one gloo group per line of each axis, each worker
+the block of ranks with one data coordinate.
 """
 
 from __future__ import annotations
@@ -116,8 +116,11 @@ class Grid:
     coordinate only, in coordinate order, so group rank = coordinate);
     ``world`` spans every rank.  Each worker of the local-SGD run is the
     block of ranks with one data coordinate: its fsdp x model ranks shard
-    the worker's parameters, and the data line of each (fsdp, model)
-    coordinate syncs that coordinate's shards once per round."""
+    the worker's parameters, its seq ranks each hold one chunk of every
+    sequence under --sequence_parallel (else the whole batch) and whole
+    copies of the parameters, and the data line of
+    each (fsdp, seq, model) coordinate syncs that coordinate's shards once
+    per round."""
 
     axes: dict
     world: Group
@@ -144,8 +147,8 @@ class Grid:
         return rank
 
     def block_leads(self) -> list[int]:
-        """Each worker's first rank (its fsdp and model coordinates 0), in
-        data order: the rank whose values stand for the worker."""
+        """Each worker's first rank (its fsdp, seq and model coordinates
+        0), in data order: the rank whose values stand for the worker."""
         return [self.rank_of(data=d) for d in range(self.size("data"))]
 
     def close(self) -> None:
@@ -159,8 +162,8 @@ def make_grid(world: Group, axes: dict,
               timeout_s: float = GROUP_TIMEOUT_S) -> Grid:
     """The rank grid of ``axes`` over ``world`` (a collective: every rank
     creates every line's gloo group of every axis, in the same order: the
-    data, fsdp and model axes, each line in the order of its first rank;
-    a line of one rank too, so no collective falls back to the world)."""
+    axes in ``axes``' order, each line in the order of its first rank; a
+    line of one rank too, so no collective falls back to the world)."""
     axes = {a: int(s) for a, s in axes.items()}
     size = 1
     for s in axes.values():
@@ -171,9 +174,7 @@ def make_grid(world: Group, axes: dict,
             f"{world.world_size}")
     grid = Grid(axes, world, {}, {})
     grid.coords = grid.coords_of(world.rank)
-    for axis in ("data", "fsdp", "model"):
-        if axis not in axes:
-            continue
+    for axis in axes:
         lines: dict[tuple, list] = {}
         for r in range(world.world_size):
             c = grid.coords_of(r)
@@ -197,7 +198,8 @@ def grid_axes(cfg) -> dict:
     axes = dict(cfg.mesh_axes())
     if axes["data"] < 1:
         axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
-    return {a: s for a, s in axes.items() if a in ("data", "fsdp", "model")}
+    return {a: s for a, s in axes.items()
+            if a in ("data", "fsdp", "seq", "model")}
 
 
 def world_size_of(axes: dict) -> int:
@@ -343,6 +345,14 @@ def _bootstrap(target: Callable, rank: int, world_size: int, threads: int,
     """A spawned rank: its share of the threads, then ``target``."""
     torch.set_num_threads(threads)
     target(rank, world_size, *args)
+
+
+def in_turn(rank: int, world_size: int, jobs: Sequence) -> None:
+    """Run each ``(target, args)`` of ``jobs`` as rank ``rank``, in order
+    (a spawn target): several checks from one start of the processes,
+    each target joining and leaving its own group."""
+    for target, args in jobs:
+        target(rank, world_size, *args)
 
 
 def spawn_workers(target: Callable, world_size: int, args: tuple = (),

@@ -75,6 +75,13 @@ def is_attention_model(name: str) -> bool:
     return name.lower().startswith(("bert", "gpt", "llama", "vit"))
 
 
+def is_token_model(name: str) -> bool:
+    """Models whose input is a token-id sequence [B, L], the shape
+    sequence parallelism shards (the JAX package's
+    ``models/__init__.py:114``); ViT takes images."""
+    return name.lower().startswith(("bert", "gpt", "llama"))
+
+
 def remat_name_vocab(name: str, num_experts: int = 0) -> tuple[str, ...]:
     """The ``checkpoint_name`` labels the ``name`` family's blocks emit:
     none for the CNN/MLP families, ``moe_dispatch`` only with experts."""

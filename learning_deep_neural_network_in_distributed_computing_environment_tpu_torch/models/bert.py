@@ -21,6 +21,11 @@ markers of ``parallel/tp.py``; the model's output is then its LOCAL vocab
 slice and the loss goes through ``tp.vocab_parallel_token_stats``.
 ``tp_param_specs`` names the dimension of each parameter leaf, in the JAX
 package's layout, that the ``model`` axis shards.
+
+Sequence parallelism (``sp``: the rank's ``seq`` line; JAX ``bert.py:91-95,
+324-328``): the model reads its chunk of every sequence, so the learned
+positions and the RoPE angles start at ``seq_offset``, and the attention
+(``attention_impl`` ring, ring_zigzag or all_to_all) runs over the line.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ class SelfAttention(nn.Module):
                  num_kv_heads: Optional[int] = None, use_bias: bool = True,
                  causal: bool = False, attention_impl: str = "dense",
                  rope_theta: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32, tp=None, device=None):
+                 dtype: torch.dtype = torch.float32, tp=None, sp=None,
+                 device=None):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} not divisible by num_heads "
@@ -80,6 +86,7 @@ class SelfAttention(nn.Module):
                 f"num_heads {num_heads} not divisible by tp_size {t} "
                 "(head-sharded tensor parallelism)")
         self.tp = tp
+        self.sp = sp
         self.head_dim = hidden // num_heads
         # falsy num_kv_heads (None or the config's 0 sentinel) means MHA
         self.gqa = bool(num_kv_heads) and num_kv_heads != num_heads
@@ -121,19 +128,27 @@ class SelfAttention(nn.Module):
             q, k, v = dense(x, self.qkv, self.dtype).view(
                 b, l, 3, h, dh).unbind(2)
         if self.rope_theta is not None:
-            pos = torch.arange(l, device=x.device)
+            # under sequence parallelism this rank holds chunk
+            # ``sp.rank``: rotated keys travel the ring position-encoded
+            pos = torch.arange(l, device=x.device) + seq_offset(self.sp, l)
             q = rope(q, pos, self.rope_theta)
             k = rope(k, pos, self.rope_theta)
         # q/k/v stay strided views of the projection output (q/k are new
         # tensors under RoPE); the flash kernels read them through their
         # strides
         out = attend(q, k, v, mask=mask, impl=self.attention_impl,
-                     causal=self.causal)
+                     group=self.sp, causal=self.causal)
         y = reduce_from_tp_region(
             dense(out.reshape(b, l, h * dh), self.out, self.dtype), self.tp)
         if self.out_bias is None:
             return y
         return y + self.out_bias.to(self.dtype)
+
+
+def seq_offset(sp, l: int) -> int:
+    """The global position of this rank's first token: chunk ``sp.rank``
+    of length ``l`` on the rank's ``seq`` line (None: 0)."""
+    return 0 if sp is None else sp.rank * l
 
 
 def tp_size(tp) -> int:
@@ -198,13 +213,14 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.tp = tp
         self.attn = SelfAttention(hidden, num_heads,
                                   attention_impl=attention_impl, dtype=dtype,
-                                  tp=tp, device=device)
+                                  tp=tp, sp=sp, device=device)
         self.ln_attn = nn.LayerNorm(hidden, eps=LN_EPS, device=device)
         if num_experts:
             from .moe import MoEFFN
@@ -248,13 +264,15 @@ class BertForMLM(nn.Module):
                  max_len: int = 512, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.num_classes = num_classes
         self.num_experts = num_experts
         self.max_len = max_len
         self.dtype = dtype
         self.tp = tp
+        self.sp = sp
         self.remat = Remat(remat_policy)
         v_local = tp_local(num_classes, tp,
                            "vocab size (vocab-parallel MLM head)")
@@ -264,7 +282,8 @@ class BertForMLM(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         attention_impl=attention_impl, tp=tp, device=device)
+                         attention_impl=attention_impl, tp=tp, sp=sp,
+                         device=device)
             for _ in range(num_layers))
         # this rank's heads and their width (the weight conversion's)
         self.num_heads = self.blocks[0].attn.num_heads
@@ -278,10 +297,11 @@ class BertForMLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
         l = input_ids.shape[1]
-        if l > self.max_len:
-            raise ValueError(f"sequence length {l} exceeds max_len "
+        off = seq_offset(self.sp, l)
+        if off + l > self.max_len:
+            raise ValueError(f"sequence length {off + l} exceeds max_len "
                              f"{self.max_len}")
-        x = self.tok_emb(input_ids) + self.pos_emb.weight[:l]
+        x = self.tok_emb(input_ids) + self.pos_emb.weight[off:off + l]
         x = F.layer_norm(x, self.ln_emb.normalized_shape, self.ln_emb.weight,
                          self.ln_emb.bias, LN_EPS).to(self.dtype)
         x, aux = run_stack(self.blocks, x, self.remat)

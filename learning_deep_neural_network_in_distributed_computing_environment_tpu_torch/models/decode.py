@@ -72,6 +72,10 @@ def spec_from_model(model) -> DecodeSpec:
             f"serving supports the autoregressive families (gpt_*/llama_*, "
             f"optionally MoE); got model class {type(model).__name__} — "
             "bert/vit/cnn models have no decode path")
+    if getattr(model, "sp", None) is not None:
+        # JAX decode.py:90
+        raise ValueError("serving runs the single-replica dense twin; "
+                         "TP/SP train-model variants are not servable")
     attn = model.blocks[0].attn
     return DecodeSpec(
         family=fam, num_layers=len(model.blocks),

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..parallel.tp import copy_to_tp_region, reduce_from_tp_region
 from .bert import (SelfAttention, dense, init_flax, layer_norm, run_stack,
-                   tp_local)
+                   seq_offset, tp_local)
 from .remat import Remat, checkpoint_name
 
 
@@ -36,14 +36,15 @@ class GPTBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.tp = tp
         self.ln1 = nn.LayerNorm(hidden, eps=1e-5, device=device)
         self.attn = SelfAttention(hidden, num_heads, causal=True,
                                   attention_impl=attention_impl, dtype=dtype,
-                                  tp=tp, device=device)
+                                  tp=tp, sp=sp, device=device)
         self.ln2 = nn.LayerNorm(hidden, eps=1e-5, device=device)
         if num_experts:
             from .moe import MoEFFN
@@ -84,13 +85,15 @@ class GPTForCausalLM(nn.Module):
                  max_len: int = 1024, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.num_classes = num_classes
         self.num_experts = num_experts
         self.max_len = max_len
         self.dtype = dtype
         self.tp = tp
+        self.sp = sp
         self.remat = Remat(remat_policy)
         # the vocab-parallel tied head: this rank's rows of the table
         self.tok_emb = nn.Embedding(
@@ -100,7 +103,8 @@ class GPTForCausalLM(nn.Module):
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, num_heads, ffn_dim, num_experts=num_experts,
                      capacity_factor=capacity_factor, dtype=dtype,
-                     attention_impl=attention_impl, tp=tp, device=device)
+                     attention_impl=attention_impl, tp=tp, sp=sp,
+                     device=device)
             for _ in range(num_layers))
         # this rank's heads and their width (the weight conversion's)
         self.num_heads = self.blocks[0].attn.num_heads
@@ -117,12 +121,14 @@ class GPTForCausalLM(nn.Module):
         """Logits, and with ``with_aux`` also the summed MoE load-balance
         loss (None without experts)."""
         l = input_ids.shape[1]
-        if l > self.max_len:
-            raise ValueError(f"sequence length {l} exceeds max_len "
+        # under sequence parallelism: this rank's chunk of every sequence
+        off = seq_offset(self.sp, l)
+        if off + l > self.max_len:
+            raise ValueError(f"sequence length {off + l} exceeds max_len "
                              f"{self.max_len}")
         table = self.tok_emb.weight.to(self.dtype)
-        x = self._embed(input_ids, table) + self.pos_emb.weight[:l].to(
-            self.dtype)
+        x = self._embed(input_ids, table) + self.pos_emb.weight[
+            off:off + l].to(self.dtype)
         x, aux = run_stack(self.blocks, x, self.remat)
         # tied LM head: logits = x @ tok_emb^T (the local vocab slice
         # under tensor parallelism)

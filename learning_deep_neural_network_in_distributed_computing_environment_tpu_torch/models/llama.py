@@ -58,7 +58,8 @@ class LlamaBlock(nn.Module):
                  capacity_factor: float = 1.25,
                  rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.tp = tp
@@ -67,7 +68,7 @@ class LlamaBlock(nn.Module):
                                   num_kv_heads=num_kv_heads, use_bias=False,
                                   causal=True, attention_impl=attention_impl,
                                   rope_theta=rope_theta, dtype=dtype, tp=tp,
-                                  device=device)
+                                  sp=sp, device=device)
         self.rms2 = RMSNorm(hidden, device=device)
         if num_experts:
             from .moe import MoEFFN
@@ -108,12 +109,14 @@ class LlamaForCausalLM(nn.Module):
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, sp=None,
+                 device=None):
         super().__init__()
         self.num_classes = num_classes
         self.num_experts = num_experts
         self.dtype = dtype
         self.tp = tp
+        self.sp = sp
         self.remat = Remat(remat_policy)
         v_local = tp_local(num_classes, tp, "vocab size (vocab-parallel "
                                             "head)")
@@ -123,7 +126,8 @@ class LlamaForCausalLM(nn.Module):
                        num_experts=num_experts,
                        capacity_factor=capacity_factor,
                        rope_theta=rope_theta, dtype=dtype,
-                       attention_impl=attention_impl, tp=tp, device=device)
+                       attention_impl=attention_impl, tp=tp, sp=sp,
+                       device=device)
             for _ in range(num_layers))
         # this rank's query and K/V heads and their width (the weight
         # conversion's); without tensor parallelism the global counts

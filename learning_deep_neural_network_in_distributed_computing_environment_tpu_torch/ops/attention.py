@@ -4,7 +4,9 @@ JAX package's ``ops/attention.py:29-137``).
 
 - ``dense``: plain PyTorch dot-product attention (fp32 softmax);
 - ``flash``: the hand-written Hopper kernels (``ops/flash.py``); on CPU
-  tensors their plain PyTorch versions.
+  tensors their plain PyTorch versions;
+- ``ring``, ``ring_zigzag``, ``all_to_all``: sequence parallelism over
+  the rank grid's ``seq`` line (``parallel/sp.py``).
 
 K/V may carry fewer heads than Q (grouped-query attention); every impl
 consumes the grouped K/V without expanding it to the full head count.
@@ -84,16 +86,32 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            mask: Optional[torch.Tensor] = None, impl: str = "dense",
-           axis_name: Optional[str] = None,
-           causal: bool = False) -> torch.Tensor:
+           group=None, causal: bool = False) -> torch.Tensor:
+    """``impl``'s attention; the sequence-parallel impls (``ring``,
+    ``ring_zigzag``, ``all_to_all``) take this rank's chunk of the
+    sequence and ``group``, the rank's ``seq`` line (``mesh.Group``)."""
     if impl == "dense":
         return dot_product_attention(q, k, v, mask, causal=causal)
     if impl == "flash":
         from .flash import flash_attention
         return flash_attention(q, k, v, mask, causal=causal)
     if impl in ("ring", "ring_zigzag", "all_to_all"):
-        raise NotImplementedError(
-            f"{impl} attention (sequence parallelism over axis "
-            f"{axis_name!r}) is not ported yet; it arrives with ROADMAP "
-            "queue A.11 (sequence-parallel slice)")
+        if group is None:
+            raise ValueError(f"{impl} attention requires a seq group (the "
+                             "mesh axis the sequence is sharded over)")
+        if mask is not None:
+            raise NotImplementedError(
+                f"{impl} attention supports full bidirectional or causal "
+                "attention (mask=None); arbitrary masks are not sharded")
+        from ..parallel import sp
+        if impl == "ring_zigzag":
+            if not causal:
+                raise ValueError(
+                    "ring_zigzag exists to balance CAUSAL masking work; "
+                    "bidirectional attention has no dead blocks — use "
+                    "impl='ring'")
+            return sp.ring_attention_zigzag(q, k, v, group)
+        if impl == "ring":
+            return sp.ring_attention(q, k, v, group, causal=causal)
+        return sp.ulysses_attention(q, k, v, group, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -13,7 +13,10 @@ shards are gathered (``fsdp.gather_params``) into the leaves of the
 rank's tensor-parallel module, whose parameters are views of them
 (``unpack``, through the module's own ``weights.wire_layout``) substituted
 into the module for the forward and the backward (``substituted``); the
-module's own parameter storage is released.
+module's own parameter storage is released.  The ``seq`` axis shards no
+leaf: each of its ranks holds the shards of its (fsdp, model) coordinate
+whole, and under ``--sequence_parallel`` their gradients are summed over
+the seq line (``reduce_grads``); without it the seq ranks are replicas.
 """
 
 from __future__ import annotations
@@ -78,9 +81,12 @@ class GridParams:
 
     def __init__(self, dense_state: dict, dense_layout: dict,
                  module: nn.Module, grid: mesh.Grid, device: torch.device,
-                 *, shard_tok_emb: bool = False):
+                 *, shard_tok_emb: bool = False, split_seq: bool = True):
         full = weights.jax_param_leaves(dense_state, dense_layout)
         self.grid = grid
+        # whether the seq line splits every sequence (--sequence_parallel)
+        # or holds replicas of the whole step
+        self.split_seq = split_seq
         self.dense_layout = dense_layout
         self.keys = list(full)
         self.full_shapes = {k: tuple(a.shape) for k, a in full.items()}
@@ -122,6 +128,12 @@ class GridParams:
         g = self.grid.groups.get("fsdp")
         return g if g is not None and g.world_size > 1 else None
 
+    @property
+    def seq(self) -> mesh.Group | None:
+        g = self.grid.groups.get("seq")
+        return (g if g is not None and g.world_size > 1 and self.split_seq
+                else None)
+
     def leaves(self) -> list[torch.Tensor]:
         """The module's leaves: the fsdp shards gathered (differentiable:
         the backward is the reduce-scatter)."""
@@ -160,10 +172,16 @@ class GridParams:
             yield
 
     def reduce_grads(self, grads: list) -> list:
-        """The replicated leaves' gradients summed over ``fsdp`` (each rank
-        computed them on its slice of the batch)."""
+        """Every gradient summed over ``seq`` (each rank computed it on its
+        chunk of every sequence; JAX ``train.py:1703-1706``), then the
+        replicated leaves' summed over ``fsdp`` (each rank computed them on
+        its slice of the batch)."""
+        grads = list(grads)
+        if self.seq is not None:
+            from .sp import all_reduce_grads
+            grads = all_reduce_grads(grads, self.seq)
         if self.fsdp is None:
-            return list(grads)
+            return grads
         return fsdp_lib.reduce_replicated_grads(grads, self.dims["fsdp"],
                                                 self.fsdp)
 
@@ -188,9 +206,10 @@ class GridParams:
     def writes(self, i: int) -> bool:
         """Whether this rank writes leaf i's checkpoint piece: it is the
         leaf's first replica (coordinate 0 on every axis that does not
-        shard it)."""
+        shard it, seq included)."""
         spec = self.specs[self.keys[i]]
-        return all(self.grid.index(a) == 0 for a in AXES if a not in spec)
+        return self.grid.index("seq") == 0 and all(
+            self.grid.index(a) == 0 for a in AXES if a not in spec)
 
     @torch.no_grad()
     def whole(self, tensors) -> list[torch.Tensor]:

@@ -43,9 +43,14 @@ the local numerator over the whole batch's denominator (vocab-parallel
 under ``model``: ``tp.vocab_parallel_token_stats``), the replicated
 leaves' gradients are summed over ``fsdp``, BatchNorm statistics are
 averaged over it, and the augmentation stream is decorrelated by the
-``fsdp`` index.  The per-step metric sums are summed over ``fsdp`` once per
-epoch; the round's metrics are gathered over every rank and each worker's
-are its first rank's.
+``fsdp`` index.  Under sequence parallelism (``seq``; JAX ``train.py:456-459,
+1640-1650, 1703-1706, 1954-1956``) each rank also takes its contiguous
+chunk of the sequence of every example (tokens and labels), the module's
+attention runs over the ``seq`` line, and every gradient is summed over it
+before the fsdp reduction, so the seq ranks stay bitwise equal.  The
+per-step metric sums are summed over ``fsdp`` and ``seq`` (the axes along
+which a rank's batch is partial) once per epoch; the round's metrics are
+gathered over every rank and each worker's are its first rank's.
 """
 
 from __future__ import annotations
@@ -525,8 +530,13 @@ class LocalSGDEngine:
         # whole worker in this process
         self.gp = grid_params
         self.grid = None if grid_params is None else grid_params.grid
-        # the fsdp line, when the worker's batch splits over it
+        # the fsdp line, when the worker's batch splits over it, and the
+        # seq line, when every sequence does; the axes along which this
+        # rank's batch is partial
         self.fsdp = None if grid_params is None else grid_params.fsdp
+        self.seq = None if grid_params is None else grid_params.seq
+        self.part_groups = [g for g in (self.fsdp, self.seq)
+                            if g is not None]
         # the model's output is its local vocab slice (tensor parallelism)
         self.vp_group = (self.grid.groups["model"] if vocab_parallel
                          else None)
@@ -1073,7 +1083,7 @@ class LocalSGDEngine:
                           full_shapes=[gp.full_shapes[k] for k in gp.keys],
                           writes=[gp.writes(i) for i in range(len(gp.keys))],
                           lead=all(self.grid.index(a) == 0
-                                   for a in ("fsdp", "model"))))
+                                   for a in ("fsdp", "seq", "model"))))
         return WorkerState(
             params={} if resident else dict(zip(self.names, self.params)),
             buffers=dict(self.model.named_buffers()),
@@ -1188,13 +1198,23 @@ class LocalSGDEngine:
         return (self.gp.applied() if self.gp is not None
                 else contextlib.nullcontext())
 
-    def _fsdp_slice(self, *tensors):
-        """This rank's contiguous slice of the worker's batch (JAX
-        ``train.py:1950-1953``); the whole batch off the fsdp axis."""
-        if self.fsdp is None:
-            return tensors
-        f, n = self.fsdp.rank, self.fsdp.world_size
-        return tuple(t.chunk(n)[f] for t in tensors)
+    def _part_slice(self, x, y, m):
+        """This rank's part of the worker's batch (JAX
+        ``train.py:1950-1956``): its contiguous slice of the examples over
+        fsdp, then its contiguous chunk of every sequence over seq (the
+        tokens and the labels; the batch mask is per example); the whole
+        batch off those axes."""
+        if self.fsdp is not None:
+            f, n = self.fsdp.rank, self.fsdp.world_size
+            x, y, m = (t.chunk(n)[f] for t in (x, y, m))
+        if self.seq is not None:
+            s, n = self.seq.rank, self.seq.world_size
+            if x.shape[1] % n:
+                raise ValueError(
+                    f"sequence length {x.shape[1]} is not divisible by the "
+                    f"'seq' axis size {n}")
+            x, y = (t.chunk(n, dim=1)[s] for t in (x, y))
+        return x, y, m
 
     def _loss(self, x, y, m, denom, aux_div: float):
         """(loss, correct) of one forward: the masked CE numerator over
@@ -1213,9 +1233,9 @@ class LocalSGDEngine:
     def _train_step(self, state: TrainState, x, y, m, lr: float,
                     augment: bool):
         # the whole worker batch's denominator (on the grid the same on
-        # every fsdp rank, which then takes its slice of the batch)
+        # every fsdp and seq rank, which then takes its part of the batch)
         denom = masked_weights(y, m).sum().clamp_min(1.0)
-        x, y, m = self._fsdp_slice(x, y, m)
+        x, y, m = self._part_slice(x, y, m)
         if augment:
             x = augment_batch(x, self.generator)
         # --grad_accum K (JAX train.py:1625-1674): K slices of the batch,
@@ -1252,17 +1272,17 @@ class LocalSGDEngine:
 
     @torch.no_grad()
     def _eval_step(self, x, y, m):
-        x, y, m = self._fsdp_slice(x, y, m)
+        x, y, m = self._part_slice(x, y, m)
         with self._applied():
             ce, w, correct = self._token_stats(self.model(x), y, m)
         return torch.stack([(ce * w).sum(), correct, w.sum()])
 
-    def _fsdp_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the fsdp line (metric sums of each rank's
-        slice of the batch); ``t`` off it."""
-        if self.fsdp is None:
-            return t
-        return comms._all_reduce_sum(t, self.fsdp).view(t.shape)
+    def _part_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the fsdp and seq lines (metric sums of each
+        rank's part of the batch; JAX ``_part_axes``); ``t`` off them."""
+        for g in self.part_groups:
+            t = comms._all_reduce_sum(t, g).view(t.shape)
+        return t
 
     def _take_extras(self, state: TrainState, rest, extra: dict):
         """Store the buddy rows a sync returned; its validity flag (None
@@ -1440,9 +1460,9 @@ class LocalSGDEngine:
                       else torch.zeros(0, device=dev))
             corrects = (torch.cat(corrects) if corrects
                         else torch.zeros(0, device=dev))
-            if self.fsdp is not None and len(losses):
-                # each rank's numerators of its slice, summed once an epoch
-                losses, corrects = self._fsdp_sum(
+            if self.part_groups and len(losses):
+                # each rank's numerators of its part, summed once an epoch
+                losses, corrects = self._part_sum(
                     torch.stack([losses, corrects])).unbind(0)
             weights = (np.concatenate(weights) if weights
                        else np.zeros(0, np.float32))
@@ -1456,7 +1476,7 @@ class LocalSGDEngine:
                     if real_v[s] > 0:
                         vsum += eval_step(xv[s], yv[s], mv[s])
                         val_steps += 1
-            vsum = self._fsdp_sum(vsum)
+            vsum = self._part_sum(vsum)
             per_epoch["batch_losses"].append(losses)
             per_epoch["batch_mask"].append((ws > 0).float())
             per_epoch["train_loss"].append(train_loss)

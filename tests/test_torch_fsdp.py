@@ -150,7 +150,8 @@ def test_batchnorm_shards_match_the_sliced_dense_twin(gathered):
     logits of its half of the batch and the joined parameter gradients
     equal the dense twin that normalises each half on its own over the
     whole batch's denominator (logits atol 1e-5, gradients atol 2e-4, the
-    JAX TP gate), on both ranks."""
+    JAX TP gate), on both ranks; each rank's own differences (the ones
+    chip_smoke.py gates) are these."""
     _, _, ranks = gathered
     logits = np.concatenate([r["logits"] for r in ranks])
     np.testing.assert_allclose(logits, ranks[0]["dense_logits"], atol=1e-5)
@@ -159,6 +160,12 @@ def test_batchnorm_shards_match_the_sliced_dense_twin(gathered):
         np.testing.assert_allclose(g, ranks[0]["dense_grads"][key],
                                    atol=2e-4, err_msg=key)
         np.testing.assert_array_equal(g, ranks[1]["grads"][key])
+    for r, res in enumerate(ranks):
+        half = np.array_split(res["dense_logits"], 2)[r]
+        assert res["logits_err"] == np.abs(res["logits"] - half).max()
+        assert res["grads_err"] == max(
+            np.abs(g - res["dense_grads"][k]).max()
+            for k, g in res["grads"].items())
 
 
 def _argv(model="mlp", dataset="mnist", *extra):

@@ -369,8 +369,8 @@ def test_driver_tp_gradients_mode_is_finite():
 @pytest.mark.parametrize("flags,match", [
     (["--model", "mlp", "--dataset", "mnist", "--mesh_shape",
       "data=2,model=2"], "attention models"),
-    (["--model", "bert_tiny", "--mesh_shape", "data=1,seq=2"],
-     "A.11 item 4b"),
+    (["--model", "bert_tiny", "--mesh_shape", "data=1,seq=2,model=2",
+      "--sequence_parallel", "ring_zigzag"], "CAUSAL"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2"],
      "A.11 item 4c"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,expert=2"],
@@ -385,14 +385,16 @@ def test_driver_tp_gradients_mode_is_finite():
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
       "--num_workers", "3"], "disagree"),
     (["--model", "bert_tiny", "--sequence_parallel", "ring"],
-     "A.11 item 4b"),
+     "needs a 'seq' mesh axis"),
     (["--model", "bert_tiny", "--pp_microbatches", "2"], "A.11 item 4c"),
 ], ids=["mlp_under_model", "seq", "pipe", "expert", "moe", "chaos",
         "staleness", "num_workers", "sequence_parallel", "pp"])
 def test_config_refusals(flags, match):
-    """JAX test_tp.py:205-213 (an mlp under ``model`` is refused) and the
+    """JAX test_tp.py:205-213 (an mlp under ``model`` is refused), the
     axes and compositions the port leaves out, each naming its ROADMAP
-    item."""
+    item, the zig-zag ring on bert over seq x model and
+    --sequence_parallel without a seq axis refused
+    (tests/test_torch_sp.py has the rest of SP's refusals)."""
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])
 
