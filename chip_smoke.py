@@ -121,13 +121,29 @@ Phases (any failure exits non-zero before the result line):
              by 1 + r) within one quantum of each wire stage of fp32 per
              element, the bytes handed to gloo equal to sync_wire_bytes, the
              slowest rank's quickest-round ms beside the dense path's
-             timed the same way; (b) main.run on
+             timed the same way; at n=4 the hierarchical engine at 2
+             slices x 2 workers (ring and double ring, equal and weighted,
+             on the fp32, fp32/bf16, fp32/int8 and int8/int8 inner/outer
+             wires with both levels' error feedback): fp32 bitwise its
+             dense twin comms.aggregate_hier on every rank and within 1e-6
+             of the float64 gossip of slice means, the compressed pairs
+             within one quantum of each wire stage, the bytes handed to
+             gloo per level equal to hier_wire_bytes; (b) main.run on
              the cnn phase's run with --num_workers 2 and 4 and
              --aggregation_by weights (N=2 equal/allreduce balanced, N=4
              equal/allreduce balanced, N=4 weighted/double_ring
              disbalanced, N=4 sharded int8 with error feedback, N=4
              weighted double ring bf16 with error feedback one round
-             stale over three rounds), each worker its own process on the one card:
+             stale over three rounds, and the hierarchical sync at
+             --num_slices 2 --num_workers 2 over the ring, the int8
+             outer wire with error feedback, 3 rounds under --sanitize
+             with a checkpoint a round: round 2's DCN bytes equal to
+             hier_wire_bytes, no implicit sync, each slice's workers
+             bitwise equal after every round, the last checkpoint restored
+             in this process bitwise the run's rows and outer residual),
+             each worker its own process on the one card (each process
+             count's gloo probe, modes, engines and runs from ONE start
+             of its ranks, main.run_shared):
              per-worker step time, summed images/s beside the cnn phase's
              one worker, the sync wall per round and the bytes per
              worker (the modeled wire against the same engine's fp32
@@ -204,11 +220,14 @@ Phases (any failure exits non-zero before the result line):
              loss; a fresh twin from the round-2 snapshot bitwise the
              continued run, and a twin whose joiner clones the wrong row
              seen to differ; then the replicated against the resident
-             layout without chaos (memory, sync ms, bitwise parameters).
+             layout without chaos (memory, sync ms, bitwise parameters),
+             run before the chaos run from the start the overlap pair's 4
+             ranks share (driver.SharedStart).
    overlap cnn - first in the same child: the cnn run (probe and walls
              pinned) with --no_overlap_rounds and with the overlapped
              round loop, then the same on 4 worker processes on the sync
-             n4 traffic (one local epoch): every metric list, the
+             n4 traffic (one local epoch; one start of the ranks for both
+             and the elastic layouts): every metric list, the
              parameters (every rank's at N=4) and the partitions equal to
              the bit; each round's stage, compute,
              fetch, assemble, prep and gap ms in both flows.  Alone:
@@ -377,6 +396,15 @@ SYNC_RUNS = [
         "--data_mode", "disbalanced", "--local_weight", "0.7",
         "--sync_dtype", "bfloat16", "--sync_compression", "ef",
         "--sync_staleness", "1", "--epochs_global", "3"]),
+    # the hierarchical sync: 2 slices of 2 workers, the sharded engine in
+    # each slice (fp32) and the ring gossip across them on the int8 wire
+    # with error feedback, 3 rounds under --sanitize, a checkpoint a round
+    ("n4_hier_ring_int8_ef", 4, [
+        "--num_slices", "2", "--aggregation_type", "equal", "--topology",
+        "ring", "--data_mode", "balanced", "--sync_dtype_outer", "int8",
+        "--sync_compression", "ef", "--epochs_global", "3", "--sanitize",
+        "--checkpoint_dir", os.path.join(OUT_DIR, "ckpt_hier"),
+        "--checkpoint_every", "1"]),
 ]
 # phase sync engines: (engine, how, topology) of each fast-engine case, on
 # each wire; rounds per case (the ms is the quickest round's)
@@ -387,6 +415,14 @@ SYNC_ENGINES = [("sharded", "equal", "allreduce"),
                 ("gossip", "weighted", "double_ring")]
 SYNC_WIRES = ("float32", "bfloat16", "int8")
 SYNC_ENGINE_ROUNDS = 2
+# the hierarchical engine's cases at n=4: 2 slices x 2 workers, each blend
+# on each (inner, outer) wire pair; a compressed pair carries both levels'
+# error feedback
+SYNC_HIER_SLICES = 2
+SYNC_HIER = [("equal", "ring"), ("weighted", "ring"),
+             ("equal", "double_ring"), ("weighted", "double_ring")]
+SYNC_HIER_WIRES = [("float32", "float32"), ("float32", "bfloat16"),
+                   ("float32", "int8"), ("int8", "int8")]
 # the scenario lab (--sim_workers): the cnn run's N workers in one process
 SIM_WEIGHTED = ["--aggregation_by", "weights", "--aggregation_type",
                 "weighted", "--topology", "double_ring", "--data_mode",
@@ -2005,6 +2041,31 @@ def sync_modes_job(n: int, work_dir: str) -> tuple:
             dict(d=d, leaves=leaves))
 
 
+def rank_outputs(d: str, n: int, name: str = "rank{r}.npz",
+                 timeout_s: float = 120.0) -> list:
+    """Every rank's output file of a job in ``d`` (each written whole, by a
+    rename), once all ``n`` are there: in a shared start the other ranks
+    finish a job after rank 0 may have; npz files load as dicts, json as
+    objects."""
+    import numpy as np
+    paths = [os.path.join(d, name.format(r=r)) for r in range(n)]
+    t0 = time.perf_counter()
+    while not all(os.path.exists(p) for p in paths):
+        if time.perf_counter() - t0 > timeout_s:
+            fail(f"outputs missing after {timeout_s:.0f} s: "
+                 f"{[p for p in paths if not os.path.exists(p)]}")
+        time.sleep(0.05)
+    out = []
+    for p in paths:
+        if p.endswith(".json"):
+            with open(p) as f:
+                out.append(json.load(f))
+        else:
+            with np.load(p) as f:
+                out.append({k: f[k] for k in f.files})
+    return out
+
+
 def check_sync_modes(n: int, ctx: dict, wall: float) -> dict:
     """Phase 8a at ``n`` workers: each mode of comms.modes_worker's
     outputs (``sync_modes_job``'s ``ctx``) against modes_reference.
@@ -2013,10 +2074,7 @@ def check_sync_modes(n: int, ctx: dict, wall: float) -> dict:
     from importlib import import_module
     comms = import_module(f"{PKG}.comms")
     d, leaves = ctx["d"], ctx["leaves"]
-    outs = []
-    for r in range(n):
-        with np.load(os.path.join(d, f"rank{r}.npz")) as f:
-            outs.append({k: f[k] for k in f.files})
+    outs = rank_outputs(d, n)
     ms, worst = {}, 0.0
     for how, topology in comms.MODES:
         for j, x in enumerate(leaves):
@@ -2043,32 +2101,29 @@ def check_sync_modes(n: int, ctx: dict, wall: float) -> dict:
           f"bitwise identical on all {n} ranks; {numel:,} fp32 elements per "
           f"worker; slowest rank's sync ms "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
-          + f"; {n} processes (these modes, then the engines) in "
-          f"{wall:.1f} s")
+          + f"; the modes' job in {wall:.1f} s (its {n} processes shared "
+          "with the engines and the driver runs)")
     return ms
 
 
-def phase_gloo(work_dir: str) -> dict:
+def gloo_job(work_dir: str) -> tuple:
+    """The gloo probe's job: ``(target, args after the store path,
+    context)`` of sync_harness.gloo_probe_worker."""
+    from importlib import import_module
+    sync_harness = import_module(f"{PKG}.sync_harness")
+    d = os.path.join(work_dir, "gloo")
+    os.makedirs(d, exist_ok=True)
+    return sync_harness.gloo_probe_worker, (d, 60.0), dict(d=d)
+
+
+def check_gloo(ctx: dict) -> dict:
     """Which gloo collectives this torch has and what they give, on a
     2-process group (CPU tensors): all_to_all_single on fp32, bf16, int8
     and uint8 (the bytes the fast engines move), all_gather into views
     (the engines' gather), all_gather_into_tensor and all_gather_single.
     Fails if a collective the engines use is missing or wrong."""
     import torch
-    from importlib import import_module
-    sync_harness = import_module(f"{PKG}.sync_harness")
-    mesh = import_module(f"{PKG}.mesh")
-    d = os.path.join(work_dir, "gloo")
-    os.makedirs(d, exist_ok=True)
-    store = mesh.new_store_path()
-    try:
-        mesh.join_workers(mesh.spawn_workers(
-            sync_harness.gloo_probe_worker, 2, (store, d, 60.0),
-            ranks=range(2)), timeout_s=120.0)
-    finally:
-        mesh.remove_store(store)
-    rows = [json.load(open(os.path.join(d, f"gloo{r}.json")))
-            for r in range(2)]
+    rows = rank_outputs(ctx["d"], 2, "gloo{r}.json")
     print(f"[gloo] collectives (torch {torch.__version__}, 2 processes): "
           + ", ".join(f"{k} {v}" for k, v in rows[0].items()))
     used = [k for k in rows[0] if k.startswith(("all_to_all_single",
@@ -2111,6 +2166,18 @@ def sync_engines_job(n: int, work_dir: str) -> tuple:
                           local_weight=SYNC_LOCAL_WEIGHT,
                           rounds=SYNC_ENGINE_ROUNDS))
         labels.append(("dense", how, topology, "float32"))
+    if n == 2 * SYNC_HIER_SLICES:
+        # the hierarchical engine at 2 x 2; its fp32 case also runs the
+        # dense twin comms.aggregate_hier
+        for how, topology in SYNC_HIER:
+            for wire, outer in SYNC_HIER_WIRES:
+                fp32 = wire == outer == "float32"
+                cases.append(dict(mode="hier", slices=SYNC_HIER_SLICES,
+                                  how=how, topology=topology, wire=wire,
+                                  outer_wire=outer, ef=not fp32, twin=fp32,
+                                  local_weight=SYNC_LOCAL_WEIGHT,
+                                  rounds=SYNC_ENGINE_ROUNDS))
+                labels.append(("hier", how, topology, f"{wire}/{outer}"))
     return (sync_harness.engines_worker,
             (SYNC_DEVICE, os.path.join(d, "in.npz"), cases, d, 120.0),
             dict(d=d, leaves=leaves, cases=cases, labels=labels))
@@ -2133,16 +2200,15 @@ def check_sync_engines(n: int, ctx: dict, wall: float,
     sync_harness = import_module(f"{PKG}.sync_harness")
     d, leaves = ctx["d"], ctx["leaves"]
     cases, labels = ctx["cases"], ctx["labels"]
-    outs = []
-    for r in range(n):
-        with np.load(os.path.join(d, f"rank{r}.npz")) as f:
-            outs.append({k: f[k] for k in f.files})
+    outs = rank_outputs(d, n)
     shapes = [(s, torch.float32) for s in SYNC_MODE_SIZES]
     ms, worst, share, fp32 = {}, {}, {}, {}
     for c, (engine, how, topology, wire) in enumerate(labels):
         if engine == "dense":
             ms[(engine, how, topology, wire)] = max(
                 float(o[f"{c}/ms_min"]) for o in outs)
+            continue
+        if engine == "hier":
             continue
         got = [np.stack([o[f"{c}/first{j}"] for o in outs])
                for j in range(len(leaves))]
@@ -2194,7 +2260,8 @@ def check_sync_engines(n: int, ctx: dict, wall: float,
         ms[(engine, how, topology, wire)] = max(
             float(o[f"{c}/ms_min"]) for o in outs)
     numel = sum(int(np.prod(s)) for s in SYNC_MODE_SIZES)
-    print(f"[sync] engines n={n}: {len(cases)} cases (sharded equal/"
+    flat = sum(1 for lab in labels if lab[0] != "hier")
+    print(f"[sync] engines n={n}: {flat} cases (sharded equal/"
           f"weighted, gossip ring/double_ring equal/weighted, each on the "
           f"fp32, bf16 and int8 wire with error feedback) on {SYNC_DEVICE}; "
           f"fp32 matches the float64 formula (max abs err "
@@ -2208,8 +2275,7 @@ def check_sync_engines(n: int, ctx: dict, wall: float,
           f"(worst at {max(share.values()):.3f} of its bound); bytes "
           f"handed to gloo = "
           f"sync_wire_bytes in every case; {numel:,} fp32 elements per "
-          f"worker; {n} processes (the modes, then these engines) in "
-          f"{wall:.1f} s")
+          f"worker; the engines' job in {wall:.1f} s")
     for engine, how, topology in SYNC_ENGINES:
         print(f"[sync] engines n={n} {engine} {how}/{topology}: slowest "
               f"rank's ms (quickest of {SYNC_ENGINE_ROUNDS} rounds) "
@@ -2218,7 +2284,103 @@ def check_sync_engines(n: int, ctx: dict, wall: float,
               + f"; dense fp32 {ms[('dense', how, topology, 'float32')]:.2f}"
               f" the same way (one sync in [sync] modes: "
               f"{dense_ms[f'{how}/{topology}']:.2f})")
+    if any(lab[0] == "hier" for lab in labels):
+        check_hier_engines(n, ctx, outs)
     return ms
+
+
+def check_hier_engines(n: int, ctx: dict, outs: list) -> None:
+    """The hierarchical engine's cases at ``n`` = 2 slices x 2 workers
+    (sync_harness.engines_worker): fp32 bitwise equal to the dense twin
+    comms.aggregate_hier on every rank and within SYNC_TOL of the float64
+    gossip of slice means (sync_harness.hier_reference); each compressed
+    pair within one quantum of each wire stage of the fp32 result
+    (sync_harness.hier_bounds); the bytes handed to gloo per level equal
+    to hier_wire_bytes, the shift-2 hop of the double ring over 2 slices
+    left out (the slice's own payload, taken locally)."""
+    import numpy as np
+    import torch
+    from importlib import import_module
+    comms = import_module(f"{PKG}.comms")
+    sync_harness = import_module(f"{PKG}.sync_harness")
+    leaves, labels = ctx["leaves"], ctx["labels"]
+    shapes = [(s, torch.float32) for s in SYNC_MODE_SIZES]
+    nw = n // SYNC_HIER_SLICES
+    fp32, worst, share, ms = {}, {}, {}, {}
+    for c, (engine, how, topology, wires) in enumerate(labels):
+        if engine != "hier":
+            continue
+        wire, outer = wires.split("/")
+        got = [np.stack([o[f"{c}/first{j}"] for o in outs])
+               for j in range(len(leaves))]
+        tag = f"sync engines n={n} hier {how}/{topology} {wires}"
+        if wires == "float32/float32":
+            fp32[(how, topology)] = got
+            twin = [np.stack([o[f"{c}/twin{j}"] for o in outs])
+                    for j in range(len(leaves))]
+            if any(not np.array_equal(g, t) for g, t in zip(got, twin)):
+                fail(f"{tag}: not bitwise the dense twin aggregate_hier")
+            err = 0.0
+            for x, g in zip(leaves, got):
+                want = sync_harness.hier_reference(
+                    x, SYNC_HIER_SLICES, topology=topology, how=how,
+                    local_weight=SYNC_LOCAL_WEIGHT)
+                e = np.abs(g.astype(np.float64) - want)
+                if (e > SYNC_TOL + SYNC_TOL * np.abs(want)).any():
+                    fail(f"{tag}: max abs err {e.max():.3g} beyond "
+                         f"rtol=atol={SYNC_TOL}")
+                err = max(err, float(e.max()))
+        else:
+            bounds = sync_harness.hier_bounds(
+                leaves, SYNC_HIER_SLICES, topology=topology, how=how,
+                wire=wire, outer_wire=outer, local_weight=SYNC_LOCAL_WEIGHT,
+                slack=SYNC_TOL)
+            errs = [np.abs(g.astype(np.float64) - f)
+                    for g, f in zip(got, fp32[(how, topology)])]
+            err = max(float(e.max()) for e in errs)
+            share[(how, topology, wires)] = max(
+                float((e / b).max()) for e, b in zip(errs, bounds))
+            if share[(how, topology, wires)] > 1.0:
+                fail(f"{tag}: {err:.3g} from the fp32 result, beyond one "
+                     "quantum of each wire stage (worst element at "
+                     f"{share[(how, topology, wires)]:.3g} of its bound)")
+        worst[(how, topology, wires)] = err
+        want = comms.hier_wire_bytes(
+            shapes, nw, topology=topology,
+            wire_dtype=comms.WIRE_DTYPES[wire],
+            outer_wire_dtype=comms.WIRE_DTYPES[outer])
+        hops = comms._SHIFTS[topology]
+        handed_dcn = (want["dcn"] * sum(1 for h in hops
+                                        if h % SYNC_HIER_SLICES)
+                      // len(hops))
+        sent = {(int(o[f"{c}/wire_ici"]), int(o[f"{c}/wire_dcn"]))
+                for o in outs}
+        if sent != {(want["ici"], handed_dcn)}:
+            fail(f"{tag}: handed gloo (ici, dcn) {sent} bytes, "
+                 f"hier_wire_bytes {want} (dcn handed {handed_dcn})")
+        ms[(how, topology, wires)] = max(float(o[f"{c}/ms_min"])
+                                         for o in outs)
+    print(f"[sync] engines n={n} hier ({SYNC_HIER_SLICES} slices x {nw} "
+          f"workers, {len(ms)} cases: ring/double_ring equal/weighted on "
+          "the inner/outer wires "
+          + ", ".join(f"{a}/{b}" for a, b in SYNC_HIER_WIRES)
+          + f", compressed with both levels' error feedback) on "
+          f"{SYNC_DEVICE}: fp32 bitwise the dense twin aggregate_hier on "
+          f"every rank and within "
+          f"{max(v for k, v in worst.items() if k[2] == 'float32/float32'):.3g}"
+          f" of the float64 gossip of slice means (rtol=atol={SYNC_TOL}); "
+          "compressed within "
+          + ", ".join(f"{w} {max(v for k, v in worst.items() if k[2] == w):.3g}"
+                      for w in (f"{a}/{b}" for a, b in SYNC_HIER_WIRES[1:]))
+          + f" of fp32, every element within one quantum of each wire "
+          f"stage (worst at {max(share.values()):.3f} of its bound); bytes "
+          "handed to gloo per level = hier_wire_bytes (ici, dcn) in every "
+          "case")
+    for how, topology in SYNC_HIER:
+        print(f"[sync] engines n={n} hier {how}/{topology}: slowest rank's "
+              f"ms (quickest of {SYNC_ENGINE_ROUNDS} rounds) "
+              + ", ".join(f"{a}/{b} {ms[(how, topology, f'{a}/{b}')]:.2f}"
+                          for a, b in SYNC_HIER_WIRES))
 
 
 def check_stale_rounds(label: str, k: int, rt: list, ar: dict) -> None:
@@ -2256,24 +2418,31 @@ def check_stale_rounds(label: str, k: int, rt: list, ar: dict) -> None:
           f"(rank 0's)")
 
 
-def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
-             ) -> tuple[dict, dict]:
-    """Phase 8b: one N-worker run of CNN_ARGV through main.run (rank 0 in
-    this process) with the launch counters reset just before and read just
-    after; checks it and prints its throughput, sync and memory."""
+def sync_argv(label: str, n: int, extra: list[str]) -> list[str]:
+    """Phase 8b's launch line of one N-worker run: CNN_ARGV at one local
+    epoch a round on 2,048 training images (the depth cut to make room for
+    the rank grid's phases), --num_workers N (per slice under
+    --num_slices)."""
+    slices = (int(extra[extra.index("--num_slices") + 1])
+              if "--num_slices" in extra else 1)
+    return [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label), "--num_workers",
+            str(n // slices), "--aggregation_by", "weights",
+            "--epochs_local", "1", "--limit_train_samples", "2560", *extra]
+
+
+def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float,
+             runner) -> tuple[dict, dict]:
+    """Phase 8b: one N-worker run of CNN_ARGV through main (rank 0 in this
+    process; ``runner()`` runs the next launch line of the shared start,
+    ``sync_argv``'s) with the launch counters reset just before and read
+    just after; checks it and prints its throughput, sync and memory."""
     import torch
     from importlib import import_module
     fl = import_module(f"{PKG}.ops.flash")
-    main = import_module(f"{PKG}.main")
-    # one local epoch a round on 2,048 images (the depth cut to make room
-    # for the rank grid's phases)
-    argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, label), "--num_workers",
-            str(n), "--aggregation_by", "weights", "--epochs_local", "1",
-            "--limit_train_samples", "2560", *extra]
     _peak_reset()
     fl.reset_launch_counts()
     t0 = time.perf_counter()
-    results = main.run(argv)
+    results = runner()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fl.LAUNCHES)
@@ -2298,6 +2467,8 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     if equal_allreduce and not same:
         fail(f"sync {label}: ranks hold different parameters after an "
              f"equal all-reduce: {sums}")
+    if "--num_slices" in extra:
+        check_hier_run(label, n, extra, results)
     buffer_mb = 4 * CNN_PARAMS / 1e6
     wire_mb = rt[-1]["sync_wire_bytes"] / 1e6
     engine = results["sync_engine"]
@@ -2325,9 +2496,11 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
         comms = import_module(f"{PKG}.comms")
         weights = import_module(f"{PKG}.weights")
         leaves, _pieces = weights.wire_layout(results["model"])
-        fp32_mb = comms.sync_wire_bytes(
-            leaves, n, mode=engine["mode"],
-            topology=extra[extra.index("--topology") + 1]) / 1e6
+        topology = extra[extra.index("--topology") + 1]
+        fp32_mb = (sum(comms.hier_wire_bytes(
+            leaves, n // engine["num_slices"], topology=topology).values())
+            if engine["mode"] == "hier" else comms.sync_wire_bytes(
+                leaves, n, mode=engine["mode"], topology=topology)) / 1e6
         print(f"{tag} engine {engine['mode']} (opt_placement "
               f"{engine['opt_placement']}, residency "
               f"{engine['param_residency']}); modeled wire {wire_mb:.1f} MB "
@@ -2352,43 +2525,174 @@ def run_sync(label: str, n: int, extra: list[str], one_worker_images_s: float
     return counts, dict(summed_images_s=summed, step_ms=step_ms, wall=wall)
 
 
-def check_sync_modes_and_engines(n: int, work_dir: str) -> None:
-    """Phase 8a at ``n`` workers: comms.modes_worker, then
-    sync_harness.engines_worker, in the same ``n`` processes on the card
-    (mesh.in_turn: one start of the processes, a gloo group each), then
-    check_sync_modes and check_sync_engines on their outputs."""
+def check_hier_run(label: str, n: int, extra: list[str], results) -> None:
+    """The hierarchical run's own checks: the engine and its slices, round
+    2's DCN bytes equal to hier_wire_bytes (and above 0), no implicit sync
+    under --sanitize, the workers of each slice bitwise equal after every
+    round (slices may differ), and the last checkpoint restored here (no
+    new start of the ranks) bitwise the run's state: the resident rows
+    (the parameters) and both levels' error-feedback residuals."""
+    import numpy as np
     from importlib import import_module
-    mesh = import_module(f"{PKG}.mesh")
-    jobs = [sync_modes_job(n, work_dir), sync_engines_job(n, work_dir)]
-    stores = [mesh.new_store_path() for _ in jobs]
+    comms = import_module(f"{PKG}.comms")
+    weights = import_module(f"{PKG}.weights")
+    ckpt = import_module(f"{PKG}.checkpoint")
+    tag = f"[sync {label}]"
+    engine = results["sync_engine"]
+    slices = int(extra[extra.index("--num_slices") + 1])
+    nw = n // slices
+    if (engine["mode"], engine["num_slices"]) != ("hier", slices):
+        fail(f"sync {label}: engine {engine['mode']} over "
+             f"{engine['num_slices']} slice(s)")
+    model, st = results["model"], results["state"]
+    leaves, pieces = weights.wire_layout(model)
+    outer = comms.WIRE_DTYPES[extra[extra.index("--sync_dtype_outer") + 1]]
+    topology = extra[extra.index("--topology") + 1]
+    want = comms.hier_wire_bytes(leaves, nw, topology=topology,
+                                 outer_wire_dtype=outer)
+    rt = results["round_timings"]
+    got = (rt[2]["sync_bytes_ici"], rt[2]["sync_bytes_dcn"])
+    if got != (want["ici"], want["dcn"]) or not want["dcn"] > 0:
+        fail(f"sync {label}: round 2 (ici, dcn) {got}, hier_wire_bytes "
+             f"{want}")
+    fp32_dcn = comms.hier_wire_bytes(leaves, nw, topology=topology)["dcn"]
+    san = results["sanitize"]
+    if not san["enabled"] or san["transfer_guard_violations"]:
+        fail(f"sync {label}: sanitizer {san}")
+    sums = results["round_checksums"]
+    split = [[len(set(r[g * nw:(g + 1) * nw])) for g in range(slices)]
+             for r in sums]
+    if len(sums) != len(rt) or any(k != 1 for row in split for k in row):
+        fail(f"sync {label}: the workers of a slice differ after a round: "
+             f"{sums}")
+    differ = [len(set(r[::nw])) > 1 for r in sums]
+    for r in rt:
+        print(f"{tag} round {r['epoch']}: of rank 0's sync "
+              f"{r['sync_ms']:.1f} ms, attributed ICI {r['sync_ms_ici']:.1f} "
+              f"ms, DCN "
+              f"{r['sync_ms_dcn']:.1f} ms (a byte-proportional model of one "
+              "measured wall; both levels are gloo over loopback on this one "
+              "card); entry gather "
+              f"{r['gather_ms']:.1f} ms; wire ICI {r['sync_bytes_ici']:,} B "
+              f"+ DCN {r['sync_bytes_dcn']:,} B per worker")
+    print(f"{tag} engine hier, {slices} slices x {nw} workers, levels "
+          f"{engine['levels']}, residency {engine['param_residency']}; "
+          f"round 2's DCN {got[1] / 1e6:.3f} MB = hier_wire_bytes "
+          f"({got[1] / fp32_dcn:.4f} of the fp32 outer wire's "
+          f"{fp32_dcn / 1e6:.3f} MB), ICI {got[0] / 1e6:.3f} MB; "
+          f"per_worker_state_bytes {engine['per_worker_state_bytes']}; "
+          f"--sanitize: {san['transfer_guard_violations']} implicit syncs "
+          "(a violation raises in its rank); each slice's workers bitwise "
+          f"equal after every round ({len(sums)} rounds); slices differ "
+          f"after rounds {[r['epoch'] for r, d in zip(rt, differ) if d]}")
+    # the last checkpoint, restored in this process into rank 0's template
+    ckpt_dir = extra[extra.index("--checkpoint_dir") + 1]
+    latest = ckpt.latest_checkpoint(ckpt_dir)
+    meta = ckpt.manifest_metadata(latest)
+    named = list(model.named_parameters())
+    names = [k for k, _p in named]
+    template = ckpt.WorkerState(
+        params={}, buffers=dict(model.named_buffers()),
+        mu=dict(zip(names, st.opt.mu)), nu=dict(zip(names, st.opt.nu)),
+        count=st.opt.count, lr_epoch=st.lr_epoch, rng=st.rng,
+        layout=weights.state_layout(model), worker=0, n_workers=n,
+        residual=(None if st.sync_residual is None
+                  else dict(zip(names, st.sync_residual))),
+        params_resident=st.params_resident,
+        residual_outer=st.sync_residual_outer)
     t0 = time.perf_counter()
-    try:
-        mesh.join_workers(mesh.spawn_workers(
-            mesh.in_turn, n,
-            ([(target, (store, *args)) for (target, args, _ctx), store
-              in zip(jobs, stores)],), ranks=range(n)), timeout_s=600.0)
-    finally:
-        for store in stores:
-            mesh.remove_store(store)
-    wall = time.perf_counter() - t0
-    dense_ms = check_sync_modes(n, jobs[0][2], wall)
-    check_sync_engines(n, jobs[1][2], wall, dense_ms)
+    restored, epoch = ckpt.restore_checkpoint(
+        latest, template, params_template=comms.ParamsTemplate.of(
+            names, [p for _k, p in named], comms.WireLayout(leaves, pieces)),
+        num_slices=slices)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    live, back = template.tensors(), restored.tensors()
+    bad = [k for k in live if k not in back or not np.array_equal(
+        live[k].detach().cpu().numpy(), np.asarray(back[k]))]
+    scalars = (restored.count, restored.lr_epoch, list(restored.rng)) == (
+        st.opt.count, st.lr_epoch, list(st.rng))
+    n_res = len(restored.residual_outer or {})
+    print(f"{tag} checkpoint epoch {epoch} (manifest num_slices "
+          f"{meta.get('num_slices')}) restored in this process in "
+          f"{restore_ms:.1f} ms into rank 0's template: {len(live)} tensors "
+          f"({len(restored.params_resident or {})} resident rows, "
+          f"{n_res} outer-residual rows, inner residual "
+          f"{'none: the inner wire is fp32' if restored.residual is None else len(restored.residual)}"
+          f"), {len(bad)} differ from the run's state; count, clock and "
+          f"seed {'equal' if scalars else 'DIFFER'}")
+    if (epoch != len(rt) or bad or not scalars or meta.get("num_slices")
+            != slices or not n_res or not restored.params_resident):
+        fail(f"sync {label}: the checkpoint of epoch {epoch} is not the "
+             f"run's state (differing {bad[:4]}, scalars {scalars}, "
+             f"metadata {meta.get('num_slices')})")
+
+
+def sync_jobs(n: int, work_dir: str) -> tuple[list, list]:
+    """Phase 8's jobs of one process count: at n=2 the gloo probe, then the
+    modes and the engines at ``n`` workers on the card, then SYNC_RUNS of
+    ``n`` workers through main.  Returns ``(jobs, contexts)``: the jobs of
+    main.run_shared, one start of their ranks, and per job what its check
+    needs."""
+    jobs, ctxs = [], []
+    if n == 2:
+        target, args, ctx = gloo_job(work_dir)
+        jobs.append((target, args))
+        ctxs.append(("gloo", ctx))
+    for kind, make in (("modes", sync_modes_job),
+                       ("engines", sync_engines_job)):
+        target, args, ctx = make(n, work_dir)
+        jobs.append((target, args))
+        ctxs.append((kind, ctx))
+    for label, workers, extra in SYNC_RUNS:
+        if workers != n:
+            continue
+        argv = sync_argv(label, n, extra)
+        if "--checkpoint_dir" in extra:
+            shutil.rmtree(extra[extra.index("--checkpoint_dir") + 1],
+                          ignore_errors=True)
+        # the slices' runs check every round's parameters on every rank
+        jobs.append((argv, {"round_checksums": True})
+                    if "--num_slices" in extra else argv)
+        ctxs.append(("run", (label, extra)))
+    return jobs, ctxs
 
 
 def phase_sync(one_worker_images_s: float) -> tuple[dict, dict]:
-    """Phase 8: the modes on CUDA at n=2 and 4, then the three N-worker
-    runs; returns rank 0's summed launch counts and each run's summed
-    images/s."""
+    """Phase 8: at n=2 and at n=4, one start of the ranks (main.run_shared)
+    runs the gloo probe (n=2), the 12 modes and the fast engines on CUDA
+    (the hierarchical one at n=4), then the N-worker runs; returns rank
+    0's summed launch counts and each run's summed images/s."""
+    from importlib import import_module
+    main = import_module(f"{PKG}.main")
     t0 = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke", "sync")
-    phase_gloo(work)
-    for n in (2, 4):
-        check_sync_modes_and_engines(n, work)
     counts, rates = {}, {}
-    for label, n, extra in SYNC_RUNS:
-        c, info = run_sync(label, n, extra, one_worker_images_s)
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
-        rates[label] = info["summed_images_s"]
+    for n in (2, 4):
+        t_group = time.perf_counter()
+        jobs, ctxs = sync_jobs(n, work)
+        dense_ms = None
+        with main.run_shared(jobs) as runner:
+            for kind, ctx in ctxs:
+                t_job = time.perf_counter()
+                if kind != "run":
+                    runner()
+                    wall = time.perf_counter() - t_job
+                if kind == "gloo":
+                    check_gloo(ctx)
+                elif kind == "modes":
+                    dense_ms = check_sync_modes(n, ctx, wall)
+                elif kind == "engines":
+                    check_sync_engines(n, ctx, wall, dense_ms)
+                else:
+                    label, extra = ctx
+                    c, info = run_sync(label, n, extra, one_worker_images_s,
+                                       runner)
+                    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+                    rates[label] = info["summed_images_s"]
+        print(f"[sync] n={n}: {len(jobs)} jobs ("
+              + ", ".join(k if k != "run" else ctx[0] for k, ctx in ctxs)
+              + f") from one start of {n} processes in "
+              f"{time.perf_counter() - t_group:.1f} s")
     print(f"[sync] phase wall {time.perf_counter() - t0:.1f} s")
     return counts, rates
 
@@ -2740,77 +3044,86 @@ def _spy_partitions(t_driver, out: list):
     return real
 
 
-def overlap_cnn() -> None:
-    """Phase overlap cnn, in the deterministic child: the cnn run (probe
-    and walls pinned) with --no_overlap_rounds and with the overlapped
-    loop, then the same at N=4 on the sync n4 traffic; every metric list,
-    the parameters (every rank's checksum at N=4) and the partitions
-    equal to the bit; each round's stage/compute/fetch/
-    assemble/prep/gap ms of both flows and the rounds' total wall."""
+def overlap_cfgs(n: int) -> list:
+    """The overlap phase's pair at ``n`` workers: ``(tag, flow, config,
+    train_kwargs)`` of the serial and the overlapped run, the probe and
+    the walls pinned."""
     import functools
-    import gc
     import operator
+    from importlib import import_module
+    config = import_module(f"{PKG}.config")
+    tag, argv = (("[overlap cnn]", OVERLAP_ARGV) if n == 1
+                 else ("[overlap cnn n4]", OVERLAP_N4_ARGV))
+    out = []
+    for flow in ("serial", "overlapped"):
+        cfg = config.config_from_args(
+            argv + (["--no_overlap_rounds"] if flow == "serial" else []))
+        kw = dict(simulated_durations=OVERLAP_PROBE[:n],
+                  simulated_round_durations=functools.partial(
+                      operator.getitem, [w[:n] for w in OVERLAP_WALLS]),
+                  progress=False)
+        out.append((tag, flow, cfg, kw))
+    return out
+
+
+def overlap_pair(n: int, run) -> None:
+    """Phase overlap cnn at ``n`` workers: the serial and the overlapped
+    run (``run(cfg, kw)`` runs one: in this process at n=1, the next run of
+    the deterministic child's shared start at n=4); every metric list, the
+    parameters (every rank's checksum at N=4) and the partitions equal to
+    the bit; each round's stage/compute/fetch/assemble/prep/gap ms of both
+    flows and the rounds' total wall."""
     import torch
     from importlib import import_module
     t_driver = import_module(f"{PKG}.driver")
-    config = import_module(f"{PKG}.config")
     keys = ("all_workers_losses", "global_train_losses", "global_val_losses",
             "global_train_accuracies", "worker_specific_train_losses",
             "step_caps", "shard_sizes")
-    t0 = time.perf_counter()
-    for tag, argv, n in (("[overlap cnn]", OVERLAP_ARGV, 1),
-                         ("[overlap cnn n4]", OVERLAP_N4_ARGV, 4)):
-        runs = {}
-        for flow in ("serial", "overlapped"):
-            cfg = config.config_from_args(
-                argv + (["--no_overlap_rounds"] if flow == "serial" else []))
-            kw = dict(simulated_durations=OVERLAP_PROBE[:n],
-                      simulated_round_durations=functools.partial(
-                          operator.getitem, [w[:n] for w in OVERLAP_WALLS]),
-                      progress=False)
-            parts: list = []
-            real = _spy_partitions(t_driver, parts)
-            t1 = time.perf_counter()
-            try:
-                if n == 1:
-                    res = t_driver.train_global(cfg, **kw)
-                else:
-                    res = t_driver.run_group(cfg, n, train_kwargs=kw,
-                                             target=elastic_rank)
-            finally:
-                t_driver._capped = real
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            rows = res["round_timings"]
-            rounds_ms = sum(r["compute_ms"] for r in rows) + sum(
-                r.get("gap_ms", 0.0) for r in rows)
-            runs[flow] = (res, parts)
-            _round_rows(tag, flow, rows)
-            print(f"{tag} {flow}: rounds' total wall (compute + gaps) "
-                  f"{rounds_ms:.1f} ms; gap_ms "
-                  f"{[r['gap_ms'] for r in rows if 'gap_ms' in r]}; run wall "
-                  f"{wall:.1f} s")
-        (a, pa), (b, pb) = runs["serial"], runs["overlapped"]
-        same = [k for k in keys if a[k] != b[k]]
-        if n == 1:
-            params = all(torch.equal(a["variables"][k], b["variables"][k])
-                         for k in a["variables"])
-        else:
-            params = a["param_checksums"] == b["param_checksums"]
-        print(f"{tag} serial vs overlapped: metrics "
-              f"{'bitwise equal' if not same else f'DIFFER in {same}'}; "
-              f"parameters{' on every rank' if n > 1 else ''}"
-              f" {'bitwise equal' if params else 'DIFFER'}; partitions "
-              f"{'equal' if pa == pb else 'DIFFER'} ({len(set(pa))} distinct "
-              "shard sets packed)")
-        if same or not params or pa != pb or not pa:
-            fail(f"{tag}: the overlapped run is not bitwise the serial run")
-    # rank 0 of the elastic phase lives in this process: leave nothing of
-    # these runs on the card
-    del runs, res, a, b
+    runs = {}
+    for tag, flow, cfg, kw in overlap_cfgs(n):
+        parts: list = []
+        real = _spy_partitions(t_driver, parts)
+        t1 = time.perf_counter()
+        try:
+            res = run(cfg, kw)
+        finally:
+            t_driver._capped = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        rows = res["round_timings"]
+        rounds_ms = sum(r["compute_ms"] for r in rows) + sum(
+            r.get("gap_ms", 0.0) for r in rows)
+        runs[flow] = (res, parts)
+        _round_rows(tag, flow, rows)
+        print(f"{tag} {flow}: rounds' total wall (compute + gaps) "
+              f"{rounds_ms:.1f} ms; gap_ms "
+              f"{[r['gap_ms'] for r in rows if 'gap_ms' in r]}; run wall "
+              f"{wall:.1f} s")
+        del res
+    (a, pa), (b, pb) = runs["serial"], runs["overlapped"]
+    same = [k for k in keys if a[k] != b[k]]
+    if n == 1:
+        params = all(torch.equal(a["variables"][k], b["variables"][k])
+                     for k in a["variables"])
+    else:
+        params = a["param_checksums"] == b["param_checksums"]
+    print(f"{tag} serial vs overlapped: metrics "
+          f"{'bitwise equal' if not same else f'DIFFER in {same}'}; "
+          f"parameters{' on every rank' if n > 1 else ''}"
+          f" {'bitwise equal' if params else 'DIFFER'}; partitions "
+          f"{'equal' if pa == pb else 'DIFFER'} ({len(set(pa))} distinct "
+          "shard sets packed)")
+    if same or not params or pa != pb or not pa:
+        fail(f"{tag}: the overlapped run is not bitwise the serial run")
+
+
+def _release_card() -> None:
+    """Rank 0 of the next runs lives in this process: leave nothing of the
+    last ones on the card."""
+    import gc
+    import torch
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[overlap cnn] phase wall {time.perf_counter() - t0:.1f} s")
 
 
 def _sync_debug_probe() -> dict:
@@ -3130,21 +3443,26 @@ def elastic_rank(*args) -> None:
     import_module(f"{PKG}.main")._worker(*args)
 
 
-def _elastic_run(t_driver, argv: list[str], n: int, snapshot=None,
-                 checksums: bool = True) -> tuple[dict, float]:
+def _elastic_kw(cfg, n: int, snapshot=None, checksums: bool = True) -> dict:
+    """The elastic phase's driver arguments: the walls pinned; a run
+    without chaos reads one wall per rank, and its probe is pinned too
+    (the replicated and resident runs must train the same shards)."""
     import functools
     import operator
-    from importlib import import_module
-    cfg = import_module(f"{PKG}.config").config_from_args(argv)
-    # a run without chaos reads one wall per rank, and its probe is
-    # pinned too: the replicated and resident runs must train the same
-    # shards
     elastic = bool(cfg.chaos) or snapshot is not None
     walls = ELASTIC_WALLS if elastic else [w[:n] for w in ELASTIC_WALLS]
     kw = dict(simulated_round_durations=functools.partial(
         operator.getitem, walls), progress=False, round_checksums=checksums)
     if not elastic:
         kw["simulated_durations"] = [1.0] * n
+    return kw
+
+
+def _elastic_run(t_driver, argv: list[str], n: int, snapshot=None,
+                 checksums: bool = True) -> tuple[dict, float]:
+    from importlib import import_module
+    cfg = import_module(f"{PKG}.config").config_from_args(argv)
+    kw = _elastic_kw(cfg, n, snapshot, checksums)
     t0 = time.perf_counter()
     res = t_driver.run_group(cfg, n, train_kwargs=kw,
                              elastic_snapshot=snapshot, target=elastic_rank)
@@ -3174,12 +3492,13 @@ def _planted_joiner(snap):
     return bad
 
 
-def elastic_child() -> int:
+def elastic_child(layouts: dict) -> int:
     """Phase elastic cnn n4, in a child process whose environment sets
     CUBLAS_WORKSPACE_CONFIG before CUDA starts (the ranks it spawns
     inherit it), under torch.use_deterministic_algorithms: the chaos run,
-    its fresh twin from the round-2 snapshot, a twin from a planted
-    fault, and the replicated against the resident layout without chaos.
+    its fresh twin from the round-2 snapshot and a twin from a planted
+    fault, after the replicated and the resident layout without chaos
+    (``elastic_layouts``, in the child's shared start: ``layouts``).
     Prints one tagged JSON line for the parent."""
     import numpy as np
     import torch
@@ -3258,20 +3577,41 @@ def elastic_child() -> int:
              f"(max |diff| {sound})")
     if not planted_differs:
         fail("elastic: a joiner cloning the wrong row went unseen")
-    # rank 0 lives in this process: what the earlier runs left on the card
-    # would count in its memory below
     summary = dict(wall=wall, reshard_ms=el["reshard_ms"],
                    recovery_ms=el["recovery_ms"])
     del res, twin, bad, snap, el
     torch.cuda.empty_cache()
+    print(ELASTIC_RESULT_TAG + json.dumps({**summary, "layouts": {
+        k: {kk: vv for kk, vv in v.items() if kk != "checksums"}
+        for k, v in layouts.items()}}), flush=True)
+    return 0
+
+
+def layout_cfgs() -> list:
+    """The elastic phase's layout runs: ``(name, config)`` of the
+    replicated and the resident layout without chaos, 4 workers."""
+    from importlib import import_module
+    config = import_module(f"{PKG}.config")
+    return [(name, config.config_from_args(
+        [*ELASTIC_ARGV, "--epochs_global", str(ELASTIC_LAYOUT_ROUNDS),
+         *extra]))
+        for name, extra in (("replicated", ["--param_residency",
+                                            "replicated",
+                                            "--shard_redundancy", "off"]),
+                            ("resident", []))]
+
+
+def elastic_layouts(run) -> dict:
+    """Phase elastic cnn n4's layouts: the replicated against the resident
+    layout without chaos (``run(cfg, kw)``: the next run of the
+    deterministic child's shared start): memory, sync ms, bitwise
+    parameters."""
+    tag = "[elastic cnn n4]"
     layouts = {}
-    for name, extra in (("replicated", ["--param_residency", "replicated",
-                                        "--shard_redundancy", "off"]),
-                        ("resident", [])):
-        argv = [*ELASTIC_ARGV, "--epochs_global",
-                str(ELASTIC_LAYOUT_ROUNDS), *extra]
-        torch.cuda.empty_cache()
-        lay, lay_wall = _elastic_run(t_driver, argv, 4, checksums=False)
+    for name, cfg in layout_cfgs():
+        t0 = time.perf_counter()
+        lay = run(cfg, _elastic_kw(cfg, 4, checksums=False))
+        lay_wall = time.perf_counter() - t0
         lrt = lay["round_timings"]
         layouts[name] = dict(
             checksums=lay["param_checksums"], wall=lay_wall,
@@ -3301,22 +3641,45 @@ def elastic_child() -> int:
         fail("elastic: the resident run's parameters are not bitwise the "
              "replicated run's")
     print(f"{tag} resident parameters bitwise the replicated run's: True")
-    print(ELASTIC_RESULT_TAG + json.dumps({**summary, "layouts": {
-        k: {kk: vv for kk, vv in v.items() if kk != "checksums"}
-        for k, v in layouts.items()}}), flush=True)
-    return 0
+    return layouts
 
 
 def deterministic_child(overlap: bool, elastic: bool) -> int:
     """The phases that compare runs bit for bit, in a child process whose
     environment sets CUBLAS_WORKSPACE_CONFIG before CUDA starts, under
     torch.use_deterministic_algorithms (cuDNN's choice of algorithm could
-    otherwise make two runs of one flow differ by itself)."""
+    otherwise make two runs of one flow differ by itself).  The overlap
+    pair at N=4 and the elastic layouts share one start of their 4 ranks;
+    the chaos run and its twins regroup, so they start their own."""
     import torch
+    from importlib import import_module
     torch.use_deterministic_algorithms(True)
+    t_driver = import_module(f"{PKG}.driver")
+    t0 = time.perf_counter()
     if overlap:
-        overlap_cnn()
-    return elastic_child() if elastic else 0
+        overlap_pair(1, lambda cfg, kw: t_driver.train_global(cfg, **kw))
+        _release_card()
+    jobs = ([(cfg, kw) for _t, _f, cfg, kw in overlap_cfgs(4)]
+            if overlap else [])
+    jobs += ([(cfg, _elastic_kw(cfg, 4, checksums=False))
+              for _n, cfg in layout_cfgs()] if elastic else [])
+    t1 = time.perf_counter()
+    with t_driver.SharedStart(4, jobs, target=elastic_rank) as start:
+        run = lambda _cfg, _kw: start.run()
+        if overlap:
+            overlap_pair(4, run)
+            print(f"[overlap cnn] phase wall {time.perf_counter() - t0:.1f}"
+                  " s")
+        layouts = elastic_layouts(run) if elastic else None
+    _release_card()
+    print(f"[deterministic] {len(jobs)} runs ("
+          + ", ".join((["overlap n4 serial", "overlap n4 overlapped"]
+                       if overlap else [])
+                      + (["layout replicated", "layout resident"]
+                         if elastic else []))
+          + f") from one start of 4 processes in "
+          f"{time.perf_counter() - t1:.1f} s")
+    return elastic_child(layouts) if elastic else 0
 
 
 def phase_elastic() -> dict:

@@ -39,10 +39,14 @@ the sharded placement, the whole padded vector under the replicated one;
 a restore converts between the two) and the scatter-resident parameters
 as ``.params_resident['b<i>']`` (row w: worker w's 1/N shard of the
 consensus; such a checkpoint has no ``.params`` leaves, and a restore
-converts between the resident and replicated layouts).  The buddy rows
-are derived state: never saved, re-derived after a restore.  Not ported,
-refused with the ROADMAP queue that ports them: the legacy v1 single-file
-restore (the rest of A.9) and per-slice hierarchical states (A.11).
+converts between the resident and replicated layouts).  The hierarchical
+sync's state rides too: the manifest records ``num_slices``, its resident
+rows hold each worker's 1/W shard of its SLICE's consensus (rows
+slice-major), its outer residual is ``.sync_residual_outer['b<i>']``, and
+a restore re-lays the rows across slice layouts as JAX does
+(``_relayout_resident_slices``).  The buddy rows are derived state: never
+saved, re-derived after a restore.  Not ported, refused with the ROADMAP
+queue that ports it: the legacy v1 single-file restore (the rest of A.9).
 """
 
 from __future__ import annotations
@@ -76,10 +80,6 @@ FORMAT = 2
 # shard in place, no manifest).
 _CRASH_ENV = "PORT_CKPT_TEST_CRASH"
 
-# leaves of the JAX TrainState the port has no counterpart for yet
-_REFUSED = ((".sync_residual_outer", "A.11 (hierarchical sync residuals)"),)
-
-
 def _maybe_crash(point: str) -> None:
     if os.environ.get(_CRASH_ENV) == point:
         os._exit(42)
@@ -106,6 +106,8 @@ class WorkerState:
     round_opt: Optional[dict] = None    # {bucket: {"mu", "nu"}}: this row
     # {bucket: row}: this worker's resident shard (``params`` is then {})
     params_resident: Optional[dict] = None
+    # {bucket: row}: the hierarchical sync's outer EF residual
+    residual_outer: Optional[dict] = None
     # on the rank grid: ``params``/``mu``/``nu``/``residual`` map the JAX
     # ``params`` leaf keys to this rank's shards, and this holds each
     # shard's global ``index``, the leaves' ``full_shapes``, which leaves
@@ -124,7 +126,9 @@ class WorkerState:
                    for k, v in (self.residual or {}).items()},
                 **{f"round_opt/{b}/{m}": v
                    for b, ms in (self.round_opt or {}).items()
-                   for m, v in ms.items()}}
+                   for m, v in ms.items()},
+                **{f"residual_outer/{k}": v
+                   for k, v in (self.residual_outer or {}).items()}}
 
 
 def snapshot(state: WorkerState) -> WorkerState:
@@ -149,7 +153,9 @@ def snapshot(state: WorkerState) -> WorkerState:
         residual=part("residual") if state.residual is not None else None,
         round_opt=round_opt,
         params_resident=(part("params_resident")
-                         if state.params_resident is not None else None))
+                         if state.params_resident is not None else None),
+        residual_outer=(part("residual_outer")
+                        if state.residual_outer is not None else None))
 
 
 def _numpy(d: dict) -> dict:
@@ -167,7 +173,9 @@ def jax_leaves(state: WorkerState) -> dict[str, np.ndarray]:
         round_opt=None if state.round_opt is None else {
             b: _numpy(ms) for b, ms in state.round_opt.items()},
         params_resident=(None if state.params_resident is None
-                         else _numpy(state.params_resident)))
+                         else _numpy(state.params_resident)),
+        residual_outer=(None if state.residual_outer is None
+                        else _numpy(state.residual_outer)))
 
 
 def _piece(pieces: dict, meta: dict, key: str, w: int, n: int, index,
@@ -676,25 +684,24 @@ def load_row(path: str, manifest: dict, row: int, keep=None
     return {k: out[k] for k in want}
 
 
-def _refuse_unported(path: str, manifest: dict) -> None:
-    meta = manifest.get("metadata", {})
-    if int(meta.get("num_slices", 1) or 1) > 1:
+def saved_slices(path: str, manifest: dict) -> int:
+    """The slice count of the run that wrote ``manifest`` (its metadata's
+    ``num_slices``, 1 when absent); raises when its worker rows do not
+    split evenly into that many slices."""
+    slices = int(manifest.get("metadata", {}).get("num_slices", 1) or 1)
+    axis = manifest_worker_axis(path)
+    if slices < 1 or (axis is not None and axis % slices):
         raise ValueError(
-            f"checkpoint {path} holds a per-slice hierarchical state "
-            f"({meta['num_slices']} slices): its restore arrives with "
-            "ROADMAP queue A.11")
-    for key in manifest["leaves"]:
-        for prefix, where in _REFUSED:
-            if key.startswith(prefix):
-                raise ValueError(
-                    f"checkpoint {path} holds {prefix} leaves ({key}); "
-                    f"their re-layout arrives with ROADMAP queue {where}")
+            f"checkpoint {path} records {slices} slice(s) but holds "
+            f"{axis} worker row(s): its rows do not split into its "
+            "slices (a damaged or hand-edited manifest?)")
+    return slices
 
 
 def restore_checkpoint(path: str, template: WorkerState, *,
                        params_template=None,
-                       bucket_bytes: int | None = None
-                       ) -> tuple[WorkerState, int]:
+                       bucket_bytes: int | None = None,
+                       num_slices: int = 1) -> tuple[WorkerState, int]:
     """``(state, global_epoch)`` from a committed sharded epoch: worker
     ``template.worker``'s row of every leaf, converted to the port's
     layout, as host numpy arrays in a ``WorkerState`` shaped like
@@ -703,7 +710,15 @@ def restore_checkpoint(path: str, template: WorkerState, *,
     checkpoint restores into a replicated template and the reverse (JAX
     ``_relayout_params_residency``): both hold one consensus vector;
     ``params_template`` (``comms.ParamsTemplate``) addresses its buckets,
-    ``bucket_bytes`` sizes them when the manifest records none."""
+    ``bucket_bytes`` sizes them when the manifest records none.
+
+    ``num_slices``: the restoring run's slice count; the manifest records
+    the saving run's (JAX ``restore_checkpoint(num_slices=)``).  Each
+    slice holds its own consensus: a flat checkpoint restores into any
+    S x W layout (every slice adopts the one consensus), a replicated
+    template's worker gets its own slice's consensus, and per-slice
+    consensuses that differ cannot re-shard to another slice count.  A
+    missing (or re-tiled) outer residual restores as zeros."""
     if not os.path.isdir(path):
         raise ValueError(
             f"{path} is a legacy single-file (format 1) checkpoint: its "
@@ -712,23 +727,29 @@ def restore_checkpoint(path: str, template: WorkerState, *,
     manifest = read_manifest(path)
     if not manifest:
         raise FileNotFoundError(f"no committed manifest under {path}")
-    _refuse_unported(path, manifest)
+    slices = saved_slices(path, manifest)
     axis = manifest_worker_axis(path)
     if axis != template.n_workers:
         raise ValueError(
             f"checkpoint {path} was written with {axis} worker(s) but this "
             f"run has {template.n_workers}: restart fresh or resume with "
             f"--num_workers {axis}")
+    if num_slices < 1 or template.n_workers % num_slices:
+        raise ValueError(
+            f"restore template worker rows ({template.n_workers}) not "
+            f"divisible by num_slices ({num_slices})")
+    # this worker's row of every leaf but the round optimizer's, in one
+    # pass over the shard files (its resident and outer rows with it)
     row = load_row(path, manifest, template.worker,
-                   keep=lambda k: not k.startswith((".round_opt",
-                                                    ".params_resident")))
+                   keep=lambda k: not k.startswith(".round_opt"))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key} required "
                              "by the restore template")
     got = weights.state_from_jax_leaves(row, template.layout)
     params_resident = _relayout_residency(
-        path, manifest, template, got, params_template, bucket_bytes)
+        path, manifest, template, got, row, params_template, bucket_bytes,
+        slices, num_slices)
     for part in ("params", "buffers", "mu", "nu"):
         want, have = getattr(template, part), got[part]
         for name, t in want.items():
@@ -760,12 +781,37 @@ def restore_checkpoint(path: str, template: WorkerState, *,
                                    got["sync_residual"], template.residual)
     round_opt = (None if template.round_opt is None else
                  _restore_round_opt(path, manifest, template))
+    residual_outer = (None if template.residual_outer is None else
+                      _restore_outer_residual(path, template, row))
     state = dataclasses.replace(
         template, params=got["params"], buffers=got["buffers"],
         mu=got["mu"], nu=got["nu"], count=got["count"],
         lr_epoch=got["lr_epoch"], rng=got["rng"], residual=residual,
-        round_opt=round_opt, params_resident=params_resident)
+        round_opt=round_opt, params_resident=params_resident,
+        residual_outer=residual_outer)
     return state, int(manifest["global_epoch"])
+
+
+def _restore_outer_residual(path: str, template: WorkerState,
+                            row: dict) -> dict:
+    """This worker's outer EF rows (JAX ``restore_checkpoint``'s outer
+    branch) from its ``row`` of the checkpoint: as saved when the shapes
+    agree; absent (a flat or older checkpoint) or re-tiled, zeros, since
+    the residual is sub-quantum correction mass that resets safely."""
+    out = {}
+    for b, t in template.residual_outer.items():
+        key = f".sync_residual_outer['{b}']"
+        val = row.get(key)
+        if val is not None and tuple(val.shape) == tuple(t.shape):
+            out[b] = np.ascontiguousarray(val)
+            continue
+        if val is not None:
+            log.warning(
+                "checkpoint %s outer-residual leaf %s shape %s does not "
+                "match template %s (slice/worker re-layout) — restoring "
+                "zero rows", path, key, tuple(val.shape), tuple(t.shape))
+        out[b] = np.zeros(tuple(t.shape), np.float32)
+    return out
 
 
 def restore_grid(path: str, template: WorkerState
@@ -779,7 +825,7 @@ def restore_grid(path: str, template: WorkerState
     manifest = read_manifest(path) if os.path.isdir(path) else None
     if not manifest:
         raise FileNotFoundError(f"no committed sharded checkpoint at {path}")
-    _refuse_unported(path, manifest)
+    saved_slices(path, manifest)
     axis = manifest_worker_axis(path)
     if axis != template.n_workers:
         raise ValueError(
@@ -791,7 +837,8 @@ def restore_grid(path: str, template: WorkerState
             f"checkpoint {path} holds scatter-resident parameters: restore "
             "it on a data-only mesh (the grid keeps them replicated)")
     row = load_row(path, manifest, template.worker,
-                   keep=lambda k: not k.startswith(".round_opt"))
+                   keep=lambda k: not k.startswith((".round_opt",
+                                                    ".sync_residual_outer")))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key}")
@@ -815,11 +862,17 @@ def restore_grid(path: str, template: WorkerState
 
 
 def _relayout_residency(path: str, manifest: dict, template: WorkerState,
-                        got: dict, params_template, bucket_bytes
+                        got: dict, row: dict, params_template, bucket_bytes,
+                        saved: int = 1, num_slices: int = 1
                         ) -> Optional[dict]:
     """The template's parameters from the checkpoint, whatever layout
-    wrote them: ``got["params"]`` (port names) is filled in place for a
-    replicated template; the resident template's rows are returned."""
+    wrote them (JAX ``_relayout_params_residency``): ``got["params"]``
+    (port names) is filled in place for a replicated template; the
+    resident template's rows are returned (from ``row``, this worker's
+    row of the leaves, when the layout is the saved one).  ``saved`` and
+    ``num_slices`` are the writing and the restoring run's slice counts:
+    each slice's rows hold its own consensus (JAX
+    ``checkpoint.py:745-1000``)."""
     from . import comms
     keys = [k for k in manifest["leaves"]
             if k.startswith(".params_resident")]
@@ -831,50 +884,131 @@ def _relayout_residency(path: str, manifest: dict, template: WorkerState,
             f"restoring {path} into a {'resident' if keys else 'replicated'}"
             " parameter layout from the other one needs params_template "
             "(the engine's comms.ParamsTemplate)")
+    n = template.n_workers
+    w_s, w_t = n // saved, n // num_slices
     if template.params_resident is not None and keys:
-        row = load_row(path, manifest, template.worker,
-                       keep=lambda k: k in keys)
-        out = {}
-        for b, t in template.params_resident.items():
-            key = f".params_resident['{b}']"
-            if key not in row or tuple(row[key].shape) != tuple(t.shape):
-                raise ValueError(
-                    f"checkpoint {path} resident bucket {key} "
-                    f"{None if key not in row else row[key].shape} does "
-                    f"not match the template's {tuple(t.shape)} (saved "
-                    "with another --sync_bucket_mb or worker count?)")
-            out[b] = row[key]
-        return out
+        if saved == num_slices:
+            out = {}
+            for b, t in template.params_resident.items():
+                key = f".params_resident['{b}']"
+                if (key not in row
+                        or tuple(row[key].shape) != tuple(t.shape)):
+                    raise ValueError(
+                        f"checkpoint {path} resident bucket {key} "
+                        f"{None if key not in row else row[key].shape} "
+                        f"does not match the template's {tuple(t.shape)} "
+                        "(saved with another --sync_bucket_mb or worker "
+                        "count?)")
+                out[b] = row[key]
+            return out
+        bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
+              else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
+        return _relayout_resident_slices(path, keys, template,
+                                         params_template, bb, saved,
+                                         num_slices)
     if keys:
-        # resident on disk -> replicated template: the gather, on host
+        # resident on disk -> replicated template: the gather, on host,
+        # of this worker's slice's rows
         bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
               else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
         full, _epoch = host_tree(path, keep=lambda k: k in keys)
-        resident = {k[len(".params_resident['"):-2]: v
-                    for k, v in full.items()}
+        s = template.worker // w_s
+        resident = {k[len(".params_resident['"):-2]:
+                    v[s * w_s:(s + 1) * w_s] for k, v in full.items()}
         got["params"] = dict(zip(params_template.names,
                                  comms.resident_to_tree(
                                      resident, template=params_template,
                                      bucket_bytes=bb)))
         return None
-    # replicated on disk -> resident template: only a consensus can
+    # replicated on disk -> resident template: only a consensus per slice
     full, _epoch = host_tree(path, keep=lambda k: k.startswith(".params["))
+    s = template.worker // w_t
     for key, arr in full.items():
-        if not np.array_equal(arr, np.broadcast_to(arr[:1], arr.shape)):
-            raise ValueError(
-                f"checkpoint leaf {key} rows differ: only a consensus state "
-                "(weights x equal aggregation) can restore into the "
-                "scatter-resident layout")
+        for g in range(num_slices):
+            rows = arr[g * w_t:(g + 1) * w_t]
+            if not np.array_equal(rows, np.broadcast_to(rows[:1],
+                                                        rows.shape)):
+                raise ValueError(
+                    f"checkpoint leaf {key} rows differ"
+                    + (f" within slice {g}" if num_slices > 1 else "")
+                    + ": only a consensus state (weights x equal "
+                    "aggregation) can restore into the scatter-resident "
+                    "layout")
     params = weights.params_from_jax_leaves(
-        {k: v[0] for k, v in full.items()}, template.layout)
+        {k: v[s * w_t] for k, v in full.items()}, template.layout)
     bb = bucket_bytes or (int(float(meta_mb) * (1 << 20)) if meta_mb
                           else comms.DEFAULT_BUCKET_BYTES)
     rows = comms.resident_from_tree(
         [params[name] for name in params_template.names],
-        template.n_workers, template=params_template, bucket_bytes=bb)
+        w_t, template=params_template, bucket_bytes=bb)
     got["params"] = {}
-    return {b: np.ascontiguousarray(v[template.worker])
+    return {b: np.ascontiguousarray(v[template.worker % w_t])
             for b, v in rows.items()}
+
+
+def _slice_consensus_vectors(rows: np.ndarray, filled: int,
+                             saved: int) -> list[np.ndarray]:
+    """One saved resident bucket's ``[S*W, row]`` rows as the S per-slice
+    FILLED consensus vectors, pad trimmed (JAX
+    ``_slice_consensus_vectors``): what each slice's entry gather would
+    rebuild."""
+    per = int(rows.shape[0]) // saved
+    return [rows[g * per:(g + 1) * per].reshape(-1)[:filled]
+            for g in range(saved)]
+
+
+def _relayout_resident_slices(path: str, keys: list, template: WorkerState,
+                              params_template, bucket_bytes: int,
+                              saved: int, num_slices: int) -> dict:
+    """This worker's resident rows when the slice layout changed (JAX
+    ``_relayout_resident_slices``): each bucket's per-slice consensus
+    vectors under the saved tiling, re-tiled under the template's.  A flat
+    checkpoint (or slices that agree bit for bit) gives every slice the
+    one consensus; distinct per-slice consensuses are refused."""
+    from . import comms
+    n = template.n_workers
+    w_s, w_t = n // saved, n // num_slices
+    leaves = list(params_template.leaves)
+    plan_s = comms.bucket_plan(leaves, w_s, bucket_bytes)
+    plan_t = comms.bucket_plan(leaves, w_t, bucket_bytes)
+    if len(plan_s) != len(plan_t):
+        raise ValueError(
+            f"checkpoint {path} resident bucket count ({len(plan_s)}) "
+            f"differs from the template's ({len(plan_t)}) — different "
+            "sync_bucket_mb?")
+    full, _epoch = host_tree(path, keep=lambda k: k in keys)
+    s, i = template.worker // w_t, template.worker % w_t
+    out = {}
+    for b, (bs, bt) in enumerate(zip(plan_s, plan_t)):
+        name = comms.bucket_name(b)
+        key = f".params_resident['{name}']"
+        if key not in full:
+            raise ValueError(
+                f"checkpoint {path} resident layout has no bucket leaf "
+                f"{key}")
+        arr = np.asarray(full[key])
+        if arr.shape != (n, bs.padded // w_s):
+            raise ValueError(
+                f"checkpoint resident bucket {key} has shape "
+                f"{arr.shape}, expected {(n, bs.padded // w_s)} "
+                "(different sync_bucket_mb or worker count?)")
+        filled = comms._filled(bs)
+        vecs = _slice_consensus_vectors(arr, filled, saved)
+        if saved != num_slices:
+            if not all(np.array_equal(vecs[0], v) for v in vecs[1:]):
+                raise ValueError(
+                    f"checkpoint {path} was saved with {saved} slice(s) "
+                    "whose consensuses DIFFER; it cannot re-shard to "
+                    f"{num_slices} slice(s) — a per-slice consensus has "
+                    "no defined assignment to a different slice count "
+                    "(restore into the saved topology, or into a "
+                    "replicated layout)")
+            vecs = [vecs[0]] * num_slices
+        vec = np.zeros(bt.padded, np.float32)
+        vec[:filled] = vecs[s]
+        row = bt.padded // w_t
+        out[name] = np.ascontiguousarray(vec[i * row:(i + 1) * row])
+    return out
 
 
 def _match_template(path: str, part: str, have: dict, want: dict) -> dict:

@@ -251,8 +251,9 @@ def modes_worker(rank: int, world_size: int, store_path: str,
     aggregates its own row of the worker-stacked leaves in ``in_path``
     (npz: ``leaf{j}`` of shape [world_size, ...]) in each of the six
     how x topology modes on ``device``, and writes
-    ``{out_dir}/rank{rank}.npz`` with ``{how}-{topology}-leaf{j}``, the
-    post-sync ``checksum-{how}-{topology}`` and the sync's wall
+    ``{out_dir}/rank{rank}.npz`` (``save_npz``) with
+    ``{how}-{topology}-leaf{j}``, the post-sync
+    ``checksum-{how}-{topology}`` and the sync's wall
     ``ms-{how}-{topology}`` of each mode."""
     with np.load(in_path) as f:
         leaves = [f[f"leaf{j}"][rank] for j in range(len(f.files))]
@@ -272,7 +273,16 @@ def modes_worker(rank: int, world_size: int, store_path: str,
             for j, a in enumerate(agg):
                 out[f"{how}-{topology}-leaf{j}"] = a.cpu().numpy()
             out[f"checksum-{how}-{topology}"] = np.array(checksum(agg))
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    save_npz(os.path.join(out_dir, f"rank{rank}.npz"), out)
+
+
+def save_npz(path: str, arrays: dict) -> None:
+    """``np.savez`` to ``path`` through a temporary file and a rename: a
+    reader that waits for ``path`` never sees a half-written file."""
+    tmp = os.path.join(os.path.dirname(path),
+                       f".{os.path.basename(path)}.tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
 
 
 # --------------------------------------------------------------------------
@@ -950,7 +960,10 @@ def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
     got, got_scale = {}, {}
     if remote:
         src = _to_host(sent, group, slot + "/send")
-        src_scale = scale.reshape(1).cpu() if scale is not None else None
+        # the scale stages through a pinned buffer too: a blocking copy
+        # would be an implicit sync (--sanitize)
+        src_scale = (_to_host(scale.reshape(1), group, slot + "/send_scale")
+                     if scale is not None else None)
         ops = []
         for s in remote:
             got[s] = group.host_buffer(f"{slot}/recv{s}", sent.numel(),
@@ -963,7 +976,7 @@ def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
                                group=group.pg, tag=s)]
             group.count_wire("payload", src.nbytes)
             if scale is not None:
-                got_scale[s] = torch.empty(1, dtype=torch.float32)
+                got_scale[s] = group.host_buffer(f"{slot}/recv_scale{s}", 1)
                 ops += [dist.P2POp(dist.isend, src_scale,
                                    group.peer((i + s) % n),
                                    group=group.pg, tag=100 + s),
@@ -980,7 +993,7 @@ def _hops(sent: torch.Tensor, sent32: torch.Tensor, scale, group: mesh.Group,
             continue
         r32 = _to_device(got[s], sent.device).float()
         if scale is not None:
-            r32 = r32 * got_scale[s].to(sent.device)
+            r32 = r32 * _to_device(got_scale[s], sent.device)
         out.append(r32)
     return out
 
@@ -1054,6 +1067,232 @@ def gossip_sync(tensors: Sequence[torch.Tensor], *, group: mesh.Group,
     return (synced, res) if ok is None else (synced, res, float(ok))
 
 
+# --------------------------------------------------------------------------
+# The hierarchical two-level sync (JAX ``comms.py:1692-2053``): S slices of
+# W workers, slice-major.  Per bucket, over each worker's two lines of the
+# slice grid (``mesh.make_grid(world, {"slice": S, "data": W})``):
+#
+# 1. inner level, the slice's data line: the sharded engine's pack, encode
+#    on ``wire_dtype`` and reduce-scatter (``_all_to_all`` + a fold in rank
+#    order), so each worker holds the sum of its 1/W shard of the bucket;
+# 2. the slice mean on the shard, ``m32 = shard32 / W``: the same on every
+#    worker of the slice, which is what lets the outer hop ride the shard;
+# 3. outer level, the slice line: the gossip hop(s) of ``topology``
+#    (``_hops``) carry the shard in ``outer_wire_dtype`` (an int8 scale
+#    travels beside its payload; the receiver decodes with the sender's);
+# 4. the blend, on the shard;
+# 5. the inner all-gather of the blended shard, or, resident, the sync ends
+#    at the scatter and the decoded shard is the state.
+#
+# Error feedback is per level: the inner residual is the flat engine's two
+# stages (own contribution, and W x the gather's rounding at the owned
+# span); the outer residual, ``{bucket: [padded // W]}``, carries the fp32
+# rounding of this worker's own outer transmission.  The double ring posts
+# both outer hops in one batch before either blend term is used (JAX fences
+# them with ``optimization_barrier``).  ``aggregate_hier`` is the dense
+# twin: per element the same sums in the same order, no buckets, no wire.
+# --------------------------------------------------------------------------
+
+
+def _check_hier(topology: str, how: str) -> None:
+    if topology not in GOSSIP_HOPS:
+        raise ValueError(
+            f"hierarchical outer topology must be one of "
+            f"{tuple(GOSSIP_HOPS)}, got {topology!r} (an allreduce outer "
+            "level is the flat S*W engine)")
+    if how not in HOWS:
+        raise ValueError(f"how must be one of {HOWS}, got {how!r}")
+
+
+def _check_inner(inner_group) -> int:
+    nw = 1 if inner_group is None else inner_group.world_size
+    if nw < 2:
+        raise ValueError(
+            "the hierarchical sync needs an inner worker axis of size "
+            ">= 2 (the outer gossip rides the 1/W scatter shard; with "
+            "W = 1 there is no inner level — run the flat gossip engine)")
+    return nw
+
+
+def _gossip_blend(m, received: list, topology: str, how: str, w: float):
+    """The gossip blend of ``m`` with its predecessors' values."""
+    if topology == "ring":
+        (r1,) = received
+        return (m + r1) / 2.0 if how == "equal" else w * m + (1.0 - w) * r1
+    r1, r2 = received
+    return ((m + r1 + r2) / 3.0 if how == "equal"
+            else w * m + ((1.0 - w) / 2.0) * (r1 + r2))
+
+
+def aggregate_hier(tensors: Sequence[torch.Tensor], *,
+                   inner_group: mesh.Group, outer_group: mesh.Group,
+                   topology: str, how: str = "equal",
+                   local_weight: float = 0.5) -> list[torch.Tensor]:
+    """The dense hierarchical twin (JAX ``aggregate_hier``): the slice mean
+    over the inner line (every worker's whole tensors gathered, summed in
+    rank order, over W), the gossip blend of ``topology`` over the outer
+    line in fp32, and for ``weighted`` the flat self-exclusive form with
+    the blended slice total (``W * g``).  No buckets, no wire: the
+    reference ``hierarchical_sync`` is held against bitwise in fp32."""
+    _check_hier(topology, how)
+    nw = _check_inner(inner_group)
+    x = flatten(tensors)
+    m = _fold(_all_gather(x, inner_group, "hier_dense/x").view(nw, -1)) / nw
+    g = _gossip_blend(m, _shifted(m, outer_group, _SHIFTS[topology]),
+                      topology, how, local_weight)
+    if how == "weighted":
+        w = local_weight
+        g = w * x + (1.0 - w) * (nw * g - x) / (nw - 1)
+    return unflatten(g, tensors)
+
+
+def hier_wire_bytes(leaves, n_inner: int, *, topology: str,
+                    wire_dtype: torch.dtype | None = None,
+                    outer_wire_dtype: torch.dtype | None = None,
+                    bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> dict:
+    """Per-worker bytes one hierarchical sync sends, by level (JAX
+    ``hier_wire_bytes``): ``ici``, the inner sharded engine's 2(W-1)/W of
+    each padded bucket in the inner wire; ``dcn``, hops x padded/W of each
+    bucket in the outer wire.  int8 scales left out."""
+    if not leaves or n_inner < 1:
+        return {"ici": 0, "dcn": 0}
+    hops = GOSSIP_HOPS.get(topology, 1)
+    ici = dcn = 0
+    for b in bucket_plan(list(leaves), n_inner, bucket_bytes):
+        row = b.padded // n_inner
+        ici += 2 * (n_inner - 1) * row * (wire_dtype or b.dtype).itemsize
+        dcn += hops * row * (outer_wire_dtype or b.dtype).itemsize
+    return {"ici": ici, "dcn": dcn}
+
+
+def hier_outer_residual_init(leaves, n_inner: int, *,
+                             bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                             device: torch.device | str = "cpu") -> dict:
+    """This worker's zero outer residual (JAX ``hier_outer_residual_init``,
+    one row of its worker-stacked layout): ``{bucket: [padded // W]}``
+    fp32."""
+    return {bucket_name(i): torch.zeros(b.padded // n_inner,
+                                        dtype=torch.float32, device=device)
+            for i, b in enumerate(bucket_plan(list(leaves), n_inner,
+                                              bucket_bytes))}
+
+
+def hierarchical_sync(tensors: Sequence[torch.Tensor], *,
+                      inner_group: mesh.Group, outer_group: mesh.Group,
+                      topology: str, how: str = "equal",
+                      local_weight: float = 0.5,
+                      wire_dtype: torch.dtype | None = None,
+                      outer_wire_dtype: torch.dtype | None = None,
+                      residual: Sequence[torch.Tensor] | None = None,
+                      outer_residual: dict | None = None,
+                      bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                      layout: WireLayout | None = None,
+                      residency: str = "replicated") -> tuple:
+    """One hierarchical round sync of one worker's tensors (JAX
+    ``hierarchical_sync``; the section comment above): ``(synced tensors,
+    new residual, new outer residual)``.  ``wire_dtype`` compresses the
+    inner collectives, ``outer_wire_dtype`` the outer hops; ``residual``
+    (tensors like ``tensors``) and ``outer_residual``
+    (``hier_outer_residual_init``'s) each arm their level's error
+    feedback.  ``residency="resident"`` ends at the inner scatter: the
+    first value is then ``{bucket: [padded // W]}``, this worker's decoded
+    shard of its slice's consensus, which ``resident_gather`` over the
+    inner line rebuilds bit for bit."""
+    _check_hier(topology, how)
+    if residency not in PARAM_RESIDENCIES:
+        raise ValueError(f"residency must be one of {PARAM_RESIDENCIES}, "
+                         f"got {residency!r}")
+    resident = residency == "resident"
+    if resident and how != "equal":
+        raise ValueError(
+            "a scatter-resident hierarchical output requires the equal "
+            "blend: the weighted own-term makes every worker's output "
+            "per-worker state (config.py resolves weighted to the "
+            "replicated residency)")
+    compressed_in = _check_fast(how, wire_dtype, residual, tensors)
+    nw = _check_inner(inner_group)
+    tensors = list(tensors)
+    if not tensors:
+        return tensors, residual, outer_residual
+    layout = layout or WireLayout.identity(tensors)
+    irank = inner_group.rank
+    shifts = _SHIFTS[topology]
+    x = layout.pack(tensors)
+    r = layout.pack(residual) if residual is not None else None
+    out = None if resident else torch.empty_like(x)
+    new_r = torch.empty_like(x) if r is not None else None
+    new_outer = {} if outer_residual is not None else None
+    resident_out = {}
+    w = local_weight
+    start = 0
+    for bi, b in enumerate(bucket_plan(layout.leaves, nw, bucket_bytes)):
+        filled, row = _filled(b), b.padded // nw
+        name = bucket_name(bi)
+        seg = slice(start, start + filled)
+        slot = f"hier/{name}"
+        # ---- inner level: pack, encode, reduce-scatter -----------------
+        buf = x[seg] if r is None else x[seg] + r[seg]
+        if b.padded > filled:
+            buf = torch.cat([buf, buf.new_zeros(b.padded - filled)])
+        sent, sent32, sent_scale = wire_encode(buf, wire_dtype)
+        err = buf - sent32 if r is not None else None
+        pieces = _all_to_all(sent, inner_group, slot)
+        if sent_scale is not None:
+            scales = _all_gather(sent_scale.reshape(1), inner_group,
+                                 slot + "/scale", "scale")
+            shard32 = _fold(pieces.float() * scales[:, None])
+        else:
+            shard32 = _fold(pieces.float())
+        # ---- the slice mean on the shard, then the outer hop(s) --------
+        m32 = shard32 / nw
+        o_send = m32
+        if new_outer is not None:
+            if name not in outer_residual:
+                raise ValueError(
+                    f"outer residual has no bucket {name} (bucket plan "
+                    "/ outer-residual layout mismatch)")
+            o_res = outer_residual[name]
+            if tuple(o_res.shape) != (row,):
+                raise ValueError(
+                    f"outer residual bucket {name} row has shape "
+                    f"{tuple(o_res.shape)}, expected {(row,)} "
+                    "(sync_bucket_mb or worker count changed?)")
+            o_send = m32 + o_res.float()
+        osent, osent32, oscale = wire_encode(o_send, outer_wire_dtype)
+        if new_outer is not None:
+            new_outer[name] = o_send - osent32
+        received = _hops(osent, osent32, oscale, outer_group, shifts,
+                         slot + "/outer")
+        g32 = _gossip_blend(m32, received, topology, how, w)
+        # ---- the apply on the shard, then the inner gather -------------
+        gq, gq_dec, gq_scale = wire_encode(g32, wire_dtype)
+        if err is not None and compressed_in and how == "equal":
+            # the inner stage 2: the owner of the span carries W x the
+            # gather payload's rounding into its next contribution
+            own = slice(irank * row, (irank + 1) * row)
+            err[own] = err[own] + nw * (g32 - gq_dec)
+        full = None
+        if how == "equal":
+            if resident:
+                resident_out[name] = gq_dec
+            else:
+                full = _gather_decoded(gq, gq_scale, inner_group,
+                                       slot + "/mean")
+        else:
+            gfull = _gather_decoded(gq, gq_scale, inner_group, slot + "/sum")
+            own = sent32
+            full = w * own + (1.0 - w) * (nw * gfull - own) / (nw - 1)
+        if full is not None:
+            out[seg] = full[:filled]
+        if new_r is not None:
+            new_r[seg] = err[:filled]
+        start += filled
+    res = residual if new_r is None else layout.unpack(new_r, residual)
+    outer = outer_residual if new_outer is None else new_outer
+    first = resident_out if resident else layout.unpack(out, tensors)
+    return first, res, outer
+
+
 def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
               topology: str = "allreduce", local_weight: float = 0.5,
               wire_dtype: torch.dtype | None = None, residual=None,
@@ -1061,12 +1300,29 @@ def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
               opt_placement: str = "sharded", tracker: dict | None = None,
               layout: WireLayout | None = None,
               residency: str = "replicated", buddy: bool = False,
-              poison=None) -> tuple:
+              poison=None, outer_group: mesh.Group | None = None,
+              outer_wire_dtype: torch.dtype | None = None,
+              outer_residual: dict | None = None) -> tuple:
     """One sync by engine ``mode`` (JAX ``make_host_sync``'s dispatch):
-    ``dense`` (``aggregate``), ``gossip`` (ring/double_ring) or
-    ``sharded`` (allreduce); ``(synced, new_residual, new_tracker)``, then
-    the buddy rows when ``buddy`` (sharded only) and this worker's
-    validity flag when ``poison`` is given."""
+    ``dense`` (``aggregate``), ``gossip`` (ring/double_ring), ``sharded``
+    (allreduce) or ``hier`` (``hierarchical_sync``: ``group`` is the inner
+    line, ``outer_group`` the outer one); ``(synced, new_residual,
+    new_tracker)``, then the buddy rows when ``buddy`` (sharded only) and
+    this worker's validity flag when ``poison`` is given; ``hier`` returns
+    its new outer residual fourth (it takes neither)."""
+    if mode == "hier":
+        if buddy or poison is not None or tracker is not None:
+            raise ValueError(
+                "the hierarchical sync takes no buddy hop, poison flag or "
+                "round optimizer (--chaos and buddy redundancy are refused "
+                "under --num_slices > 1; the tracker stays off)")
+        first, res, outer = hierarchical_sync(
+            tensors, inner_group=group, outer_group=outer_group,
+            topology=topology, how=how, local_weight=local_weight,
+            wire_dtype=wire_dtype, outer_wire_dtype=outer_wire_dtype,
+            residual=residual, outer_residual=outer_residual,
+            bucket_bytes=bucket_bytes, layout=layout, residency=residency)
+        return first, res, tracker, outer
     if mode == "dense":
         out = aggregate(tensors, how=how, topology=topology,
                         local_weight=local_weight, group=group,
@@ -1082,8 +1338,8 @@ def fast_sync(tensors, *, group: mesh.Group, mode: str, how: str = "equal",
             poison=poison)
         return (out[0], out[1], tracker, *out[2:])
     if mode != "sharded":
-        raise ValueError(f"mode must be dense, gossip or sharded, got "
-                         f"{mode!r}")
+        raise ValueError(f"mode must be dense, gossip, sharded or hier, "
+                         f"got {mode!r}")
     return sharded_opt_sync(
         tensors, group=group, how=how, local_weight=local_weight,
         wire_dtype=wire_dtype, residual=residual, bucket_bytes=bucket_bytes,

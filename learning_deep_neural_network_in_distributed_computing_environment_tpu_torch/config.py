@@ -24,8 +24,6 @@ NOT_PORTED = {
     "pp_schedule": ("gpipe", _PIPE),
     "pp_microbatches": (0, _PIPE),
     "pp_remat": (False, _PIPE),
-    "num_slices": (1, "A.11 item 5 (hierarchical two-level sync)"),
-    "sync_dtype_outer": ("", "A.11 item 5 (hierarchical two-level sync)"),
 }
 # the --mesh_shape axes the port runs (JAX mesh.py's names), and the ROADMAP
 # item of each axis it refuses
@@ -165,13 +163,18 @@ class Config:
     # the attention of the train module over the seq axis: none | ring |
     # ring_zigzag (causal models only) | all_to_all (parallel/sp.py)
     sequence_parallel: str = "none"
+    # the hierarchical two-level sync (JAX config.py:203-225; comms
+    # hierarchical_sync): S > 1 slices of --num_workers workers each, the
+    # sharded engine over each slice's data line (inner level) and the
+    # gossip hop of --topology over the slice line (outer level); the
+    # outer wire ("" inherits --sync_dtype)
+    num_slices: int = 1
+    sync_dtype_outer: str = ""
     # --- flags of features not ported yet (see NOT_PORTED) ------------------
     layer_scan: str = "auto"
     pp_schedule: str = "gpipe"
     pp_microbatches: int = 0
     pp_remat: bool = False
-    num_slices: int = 1
-    sync_dtype_outer: str = ""
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -391,9 +394,8 @@ class Config:
 
     def _check_sync(self) -> None:
         """The JAX config's checks of the sync engine's flags
-        (``config.py:436-545``) and of ``--sync_staleness`` (:804-891), with
-        its messages (the hierarchical ones name --num_slices, which the
-        port refuses after these checks)."""
+        (``config.py:436-575``), the hierarchical sync's among them, and of
+        ``--sync_staleness`` (:804-891), with its messages."""
         compressed_wire = self.sync_dtype in ("bfloat16", "int8")
         if compressed_wire and self.sync_mode == "dense":
             raise ValueError(
@@ -414,7 +416,9 @@ class Config:
                 "placement) — a post-gather replicated apply would gather "
                 "the uncompressed fp32 sum instead")
         if (self.param_residency == "resident"
-                and self.topology != "allreduce"):
+                and self.topology != "allreduce" and self.num_slices == 1):
+            # under slices the topology names the OUTER level, and each
+            # slice's consensus can stay resident (JAX config.py:474-480)
             raise ValueError(
                 f"--param_residency resident cannot combine with "
                 f"--topology {self.topology}: gossip blends are "
@@ -438,7 +442,7 @@ class Config:
                 "state; --opt_placement replicated applies post-gather "
                 "full-size and leaves no per-shard apply output to keep "
                 "resident")
-        if self.shard_redundancy == "buddy" and (
+        if self.shard_redundancy == "buddy" and self.num_slices == 1 and (
                 self.topology != "allreduce" or self.sync_mode == "dense"):
             raise ValueError(
                 "--shard_redundancy buddy protects SHARD-RESIDENT state "
@@ -450,7 +454,22 @@ class Config:
                 "nothing for a buddy to back up (auto resolves this to "
                 "off)")
         self._check_chaos()
-        if self.sync_compression == "ef" and not compressed_wire:
+        _choices("sync_dtype_outer", self.sync_dtype_outer,
+                 ("", "float32", "bfloat16", "int8"))
+        if self.num_slices < 1:
+            raise ValueError(
+                f"num_slices must be >= 1, got {self.num_slices}")
+        if self.sync_dtype_outer and self.num_slices == 1:
+            raise ValueError(
+                "--sync_dtype_outer sets the OUTER (DCN) gossip wire of "
+                "the hierarchical sync; it requires --num_slices >= 2 "
+                "(a flat run has no outer level)")
+        outer_compressed = (self.sync_dtype_outer or self.sync_dtype) in (
+            "bfloat16", "int8")
+        if self.num_slices > 1:
+            self._check_slices()
+        if self.sync_compression == "ef" and not (compressed_wire
+                                                  or outer_compressed):
             raise ValueError(
                 "--sync_compression ef compensates compressed-wire "
                 "rounding; it requires a compressed --sync_dtype (or, "
@@ -524,6 +543,48 @@ class Config:
                 "silently diverge from the run that wrote it "
                 "(drain-before-snapshot is the ROADMAP follow-on)")
 
+    def _check_slices(self) -> None:
+        """What ``--num_slices > 1`` refuses (JAX ``config.py:528-565``),
+        with its messages: an allreduce outer level, a dense inner level,
+        chaos, explicit buddy redundancy and the replicated apply."""
+        if self.topology == "allreduce":
+            raise ValueError(
+                "--num_slices > 1 syncs the outer slice level with "
+                "the ppermute GOSSIP engine (--topology ring | "
+                "double_ring); an allreduce outer level is just the "
+                "flat sharded allreduce over all S*W workers — run "
+                "it as --num_slices 1")
+        if self.sync_mode == "dense":
+            raise ValueError(
+                "--num_slices > 1 runs the bucketed sharded "
+                "psum_scatter/all_gather engine on the inner (ICI) "
+                "level — the outer gossip hop rides its 1/W scatter "
+                "shard; a dense inner level has no shard for the "
+                "hop to ride (--sync_mode dense rejected)")
+        if self.chaos:
+            raise ValueError(
+                "--chaos cannot combine with --num_slices > 1 in "
+                "v1: elastic membership and the crash/NaN fault "
+                "machinery operate on the flat worker axis (mesh "
+                "resize, ring buddy map, quorum floor are all "
+                "single-level) — per-slice membership is the "
+                "ROADMAP follow-on")
+        if self.shard_redundancy == "buddy":
+            raise ValueError(
+                "--shard_redundancy buddy cannot combine with "
+                "--num_slices > 1 in v1: the buddy map is the flat "
+                "worker-axis ring, and crash recovery (its consumer) "
+                "is rejected under slices anyway (auto resolves to "
+                "off)")
+        if self.opt_placement == "replicated":
+            raise ValueError(
+                "--opt_placement replicated cannot combine with "
+                "--num_slices > 1: the outer gossip hop rides the "
+                "1/W scatter shard, so the apply (inner mean scale, "
+                "gossip blend, wire encode) necessarily runs "
+                "shard-side — there is no post-gather full-size "
+                "apply stage in the hierarchical program")
+
     def _check_chaos(self) -> None:
         """The JAX config's eager checks of the chaos flags
         (``config.py:660-677``): a malformed ``--chaos`` spec or
@@ -569,12 +630,16 @@ class Config:
 
     def resolve_sync_mode(self) -> str:
         """``--sync_mode`` resolved per topology into the engine run:
-        ``dense`` | ``sharded`` | ``gossip`` (JAX ``resolve_sync_mode``
-        off a TPU).  ``sharded`` is the fast engine of the topology (the
-        reduce-scatter for allreduce, the bucketed gossip for ring and
-        double_ring); ``auto`` picks it only when a compressed wire or
-        ``--opt_placement sharded`` asks for it, and the dense path
-        otherwise (bitwise the same in fp32 at two workers)."""
+        ``dense`` | ``sharded`` | ``gossip`` | ``hier`` (JAX
+        ``resolve_sync_mode`` off a TPU).  ``sharded`` is the fast engine
+        of the topology (the reduce-scatter for allreduce, the bucketed
+        gossip for ring and double_ring); ``auto`` picks it only when a
+        compressed wire or ``--opt_placement sharded`` asks for it, and the
+        dense path otherwise (bitwise the same in fp32 at two workers).
+        ``--num_slices > 1`` is always ``hier``: the two fast engines
+        composed, one per level."""
+        if self.num_slices > 1:
+            return "hier"
         fast = "sharded" if self.topology == "allreduce" else "gossip"
         if self.sync_mode == "sharded":
             return fast
@@ -591,8 +656,17 @@ class Config:
 
     def resolve_sync_levels(self) -> dict:
         """Per-level engines (JAX ``resolve_sync_levels``): the flat run's
-        one engine as the inner level, no outer level."""
+        one engine as the inner level and no outer level; under slices the
+        sharded engine inside each slice and the gossip across them."""
+        if self.num_slices > 1:
+            return {"inner": "sharded", "outer": "gossip"}
         return {"inner": self.resolve_sync_mode(), "outer": None}
+
+    def resolve_sync_wire_dtypes(self) -> tuple[str, str]:
+        """``(inner, outer)`` wire names (JAX ``resolve_sync_wire_dtypes``):
+        ``--sync_dtype`` for the inner collectives, ``--sync_dtype_outer``
+        for the outer hops, which inherits the inner one when unset."""
+        return (self.sync_dtype, self.sync_dtype_outer or self.sync_dtype)
 
     def resolve_opt_placement(self) -> str:
         """``--opt_placement`` resolved: ``replicated`` | ``sharded`` |
@@ -601,6 +675,10 @@ class Config:
         ``auto`` is ``sharded`` exactly when the sharded engine runs, and
         the dense path reports ``replicated``."""
         mode = self.resolve_sync_mode()
+        if mode == "hier":
+            # the outer hop rides the 1/W scatter shard: the apply runs
+            # shard-side (the replicated placement is refused)
+            return "sharded"
         if mode == "gossip" or self.topology != "allreduce":
             return "local"
         if self.opt_placement in ("replicated", "sharded"):
@@ -615,14 +693,16 @@ class Config:
         scatter leaves 1/N per worker) and no staleness; ``auto`` picks it
         exactly then, and an explicit ``resident`` resolves to replicated
         otherwise.  ``n_workers`` applies the JAX engine's demotion of a
-        one-worker axis (nothing to shard, ``train.py:612-620``)."""
+        one-worker axis (nothing to shard, ``train.py:612-620``); under
+        slices it is the workers of one slice, whose consensus each keeps
+        1/W of (JAX ``config.py:1027-1032``)."""
         if self.sync_staleness > 0:
             return "replicated"
         if self.inner_axes():
             # the bucket plan must stay per-worker: inner axes shard the
             # parameter leaves themselves (JAX train.py:604-613)
             return "replicated"
-        if self.resolve_sync_mode() != "sharded":
+        if self.resolve_sync_mode() not in ("sharded", "hier"):
             return "replicated"
         if self.resolve_opt_placement() != "sharded":
             return "replicated"
@@ -652,7 +732,9 @@ class Config:
         rows or the sharded round optimizer's rows, so ``auto`` (and an
         explicit ``buddy``) is on exactly when either resolves, on two or
         more workers; ``off`` turns it off."""
-        if self.shard_redundancy == "off" or n_workers < 2:
+        if (self.shard_redundancy == "off" or n_workers < 2
+                or self.num_slices > 1):
+            # the buddy map is the flat worker ring (refused under slices)
             return "off"
         resident = self.resolve_param_residency(n_workers) == "resident"
         sharded_opt = (self.round_opt_on()
@@ -663,6 +745,12 @@ class Config:
         """The compressed wire's torch dtype (None: the fp32 wire)."""
         from .comms import WIRE_DTYPES
         wire = WIRE_DTYPES[self.sync_dtype]
+        return None if wire == WIRE_DTYPES["float32"] else wire
+
+    def sync_wire_dtype_outer(self):
+        """The outer hops' compressed wire's torch dtype (None: fp32)."""
+        from .comms import WIRE_DTYPES
+        wire = WIRE_DTYPES[self.resolve_sync_wire_dtypes()[1]]
         return None if wire == WIRE_DTYPES["float32"] else wire
 
     SIM_BYZANTINE_KINDS = ("signflip", "noise")
@@ -723,7 +811,9 @@ class Config:
     def mesh_axes(self) -> dict[str, int]:
         """``--mesh_shape`` as an ordered {axis: size} dict (JAX
         ``config.mesh_axes``): ``data`` is prepended when absent; a size of
-        -1 (data only) is resolved by ``mesh.grid_axes``."""
+        -1 (data only) is resolved by ``mesh.grid_axes``.  ``--num_slices
+        > 1`` puts the ``slice`` axis first; inner model axes are refused
+        under it (the hierarchical bucket plan is per worker)."""
         axes = self._mesh_shape_axes()
         if "slice" in axes:
             raise ValueError(
@@ -731,19 +821,30 @@ class Config:
                 f"--mesh_shape (got --mesh_shape {self.mesh_shape!r})")
         if "data" not in axes:
             axes = {"data": -1, **axes}
+        if self.num_slices > 1:
+            inner = [a for a, s in axes.items()
+                     if a != "data" and (s > 1 or s <= 0)]
+            if inner:
+                raise ValueError(
+                    f"--num_slices {self.num_slices} cannot combine with "
+                    f"inner mesh axes {inner} in v1: the hierarchical "
+                    "sync's bucket plan is per-worker, and TP/PP/SP/EP/"
+                    "FSDP shard the parameter leaves themselves "
+                    "(docs/ARCHITECTURE.md documents the demotion)")
+            axes = {"slice": self.num_slices, **axes}
         return axes
 
     def inner_axes(self) -> dict[str, int]:
         """The mesh axes inside each worker that shard it (size > 1)."""
         return {a: s for a, s in self.mesh_axes().items()
-                if a != "data" and s > 1}
+                if a not in ("slice", "data") and s > 1}
 
     def _check_mesh(self) -> None:
         """The ``--mesh_shape`` checks: the axes the port runs (data, fsdp,
         seq, model), the refusals of the others with the ROADMAP item that
         ports them, and the JAX driver's checks of the model, fsdp and seq
         axes (``driver.py:615-732``) that need no model built."""
-        axes = self.mesh_axes()
+        axes = {a: s for a, s in self.mesh_axes().items() if a != "slice"}
         for name, size in axes.items():
             if name in REFUSED_AXES:
                 if size != 1:
@@ -1192,6 +1293,18 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the train module's attention over the 'seq' mesh "
                         "axis: ring | ring_zigzag (causal models) | "
                         "all_to_all (Ulysses)")
+    p.add_argument("--num_slices", type=int, default=d.num_slices,
+                   help="hierarchical two-level sync: S slices of "
+                        "--num_workers workers each (S x W processes); each "
+                        "slice's workers reduce-scatter over their data "
+                        "line and the slices' means gossip over the slice "
+                        "line (--topology ring | double_ring) on the 1/W "
+                        "shard; 1 = the flat engine")
+    p.add_argument("--sync_dtype_outer", type=str,
+                   default=d.sync_dtype_outer,
+                   choices=["", "float32", "bfloat16", "int8"],
+                   help="wire dtype of the outer (slice) gossip hops; '' "
+                        "inherits --sync_dtype")
     for name, (default, _where) in NOT_PORTED.items():
         help_ = "not ported yet (rejected unless default)"
         if isinstance(default, bool):

@@ -270,9 +270,11 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model,
     """The architecture facts MANIFEST.json carries, with the JAX driver's
     keys (``driver.py:128-187``), so ``main serve`` rebuilds the model from
     a checkpoint alone: one stacked layer collection for the transformers
-    (``scan_layers``), no slices, the resolved optimizer placement and
-    parameter residency (the engine's) and the bucket size the round
-    optimizer's and the resident layout's rows follow;
+    (``scan_layers``), the slice count (a restore re-lays resident rows
+    across slice layouts, JAX ``driver.py:164-167``), the resolved
+    optimizer placement and parameter residency (the engine's) and the
+    bucket size the round optimizer's and the resident layout's rows
+    follow;
     ``params_leaves`` lists every ``.params`` leaf as [path, per-worker
     shape, dtype]."""
     return {"model": cfg.model, "num_classes": int(num_classes),
@@ -286,7 +288,7 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model,
             "param_residency": (param_residency
                                 or cfg.resolve_param_residency()),
             "sync_bucket_mb": float(cfg.sync_bucket_mb),
-            "num_slices": 1,
+            "num_slices": int(cfg.num_slices),
             "params_leaves": weights.params_leaves(model)}
 
 
@@ -344,7 +346,7 @@ def _open_checkpoints(cfg: Config, model, num_classes: int, engine,
     restored, start = ckpt_lib.restore_checkpoint(
         latest, engine.checkpoint_state(state),
         params_template=engine.params_template,
-        bucket_bytes=engine.sync_bucket_bytes)
+        bucket_bytes=engine.sync_bucket_bytes, num_slices=cfg.num_slices)
     state = engine.load_checkpoint_state(state, restored)
     log.info("resumed from %s at global epoch %d", latest, start)
     return ckpt, state, start
@@ -509,6 +511,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
+    if cfg.num_slices > 1 and elastic_snapshot is not None:
+        raise ValueError(
+            "elastic_snapshot cannot combine with --num_slices > 1 in "
+            "v1: membership snapshots describe the flat worker axis "
+            "(--chaos is likewise rejected at config time) — per-slice "
+            "membership is the ROADMAP follow-on")
     if membership is not None:
         group = membership.group
     sim = cfg.sim_workers > 0
@@ -531,6 +539,16 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         raise ValueError(
             "--sim_workers runs every simulated worker in ONE process; "
             "it takes no worker group")
+    # the hierarchical sync's slice grid (JAX driver.py:349-385): every
+    # partition, pack, probe and metric row below is per total worker
+    # (the world of S x W ranks); the engine syncs over the two lines
+    slices = None
+    if cfg.num_slices > 1:
+        if group is None:
+            raise ValueError(
+                f"--num_slices {cfg.num_slices} runs S x W worker "
+                "processes: run it through main.run or driver.run_group")
+        slices = mesh.make_grid(group, mesh.grid_axes(cfg))
     if (not sim and group is None
             and mesh.world_size_of(mesh.grid_axes(cfg)) > 1):
         raise ValueError(
@@ -650,7 +668,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         return (SimEngine(model, cfg, device) if sim
                 else LocalSGDEngine(train_model, cfg, device, grp,
                                     nan_screen=nan_armed, grid_params=gp,
-                                    vocab_parallel=vocab_parallel))
+                                    vocab_parallel=vocab_parallel,
+                                    slices=slices))
 
     def install(snapshot, row, grp) -> None:
         """Adopt a membership snapshot (JAX ``install_from_snapshot``):
@@ -751,29 +770,34 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # the engine provenance of the run (JAX driver.py:925-951)
         results["sync_engine"] = {
             "mode": engine.sync_mode, "levels": cfg.resolve_sync_levels(),
-            "num_slices": 1, "sync_bytes_ici": 0, "sync_bytes_dcn": 0,
+            "num_slices": int(cfg.num_slices), "sync_bytes_ici": 0,
+            "sync_bytes_dcn": 0,
             "opt_placement": engine.opt_placement,
             "param_residency": engine.param_residency,
             "per_worker_state_bytes": engine.state_resident_bytes(state)}
 
-    def wire_bytes_of() -> tuple[int, int]:
+    def wire_bytes_of() -> tuple[int, int, tuple[int, int]]:
         sync_bytes = engine.sync_wire_bytes()
         # the dense path's own wire model (a ring all-reduce sends
         # 2(n-1)/n of the buffer); the fast engines send what they account
         wire = (comms.wire_bytes(
             sum(p.numel() for p in engine.params), cfg.topology, n)
             if engine.sync_mode == "dense" else sync_bytes)
-        return sync_bytes, wire
+        return sync_bytes, wire, engine.sync_wire_split()
 
     if not sim:
         engine_summary()
+        # (JAX driver.py:776-780: the wire per level and the slices)
+        wires = cfg.resolve_sync_wire_dtypes()
         log.info("round-sync engine: %s (topology=%s, wire=%s, "
                  "opt_placement=%s, param_residency=%s, shard_redundancy="
-                 "%s, staleness=%d)", engine.sync_mode, cfg.topology,
-                 cfg.sync_dtype, engine.opt_placement,
-                 engine.param_residency, engine.shard_redundancy,
-                 cfg.sync_staleness)
-        sync_bytes, wire_bytes = wire_bytes_of()
+                 "%s, staleness=%d%s)", engine.sync_mode, cfg.topology,
+                 "/".join(wires) if cfg.num_slices > 1 else wires[0],
+                 engine.opt_placement, engine.param_residency,
+                 engine.shard_redundancy, cfg.sync_staleness,
+                 f", num_slices={cfg.num_slices}" if cfg.num_slices > 1
+                 else "")
+        sync_bytes, wire_bytes, wire_split = wire_bytes_of()
 
     def consume_walls(upto: int) -> None:
         """Blend the recorded walls of rounds < ``upto`` into the EMA, in
@@ -1261,9 +1285,11 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             else:
                 if elastic_on:
                     # the engine (and its wire) follows the roster
-                    sync_bytes, wire_bytes = wire_bytes_of()
-                # JAX's sync keys on every row (train.py:945-970): one flat
-                # level, every byte intra-slice
+                    sync_bytes, wire_bytes, wire_split = wire_bytes_of()
+                # JAX's sync keys on every row (train.py:945-970): a flat
+                # engine's bytes are all intra-slice (ICI), the
+                # hierarchical sync's split by level; the ms split is a
+                # byte-proportional model (probe.attribute_sync_wall)
                 stats = engine.last_sync_stats
                 timing.update(
                     sync_bytes=sync_bytes, sync_wire_bytes=wire_bytes,
@@ -1271,8 +1297,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                     sync_mode=stats["sync_mode"], sync_ms=stats["sync_ms"],
                     sync_hidden_ms=stats["sync_hidden_ms"],
                     gather_ms=stats.get("gather_ms", 0.0),
-                    sync_bytes_ici=sync_bytes, sync_bytes_dcn=0,
-                    sync_ms_ici=stats["sync_ms"], sync_ms_dcn=0.0)
+                    sync_bytes_ici=wire_split[0],
+                    sync_bytes_dcn=wire_split[1],
+                    sync_ms_ici=stats["sync_ms_ici"],
+                    sync_ms_dcn=stats["sync_ms_dcn"])
                 if elastic_on:
                     timing["worker_ids"] = list(worker_ids)
             results["round_timings"].append(timing)
@@ -1342,8 +1370,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     if not sim:
         # a resident run's module gets the consensus back (a collective)
         state = engine.materialize_params(state)
+        # (JAX driver.py:1844-1851: zeros when no round ran)
+        ran = bool(results["round_timings"])
         results["sync_engine"]["sync_bytes_ici"] = (
-            sync_bytes if results["round_timings"] else 0)
+            wire_split[0] if ran else 0)
+        results["sync_engine"]["sync_bytes_dcn"] = (
+            wire_split[1] if ran else 0)
         results["sync_engine"]["param_residency"] = engine.param_residency
         results["sync_engine"]["per_worker_state_bytes"] = \
             engine.state_resident_bytes(state)
@@ -1432,6 +1464,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             # equal along seq (None: not checked)
             "seq_bitwise_rounds": seq_checked}
         grid.close()
+    if slices is not None:
+        slices.close()
     results["model"] = model
     results["test"] = test
     return results
@@ -1539,6 +1573,126 @@ def run_group(cfg: Config, n: int, *, train_kwargs: dict | None = None,
     return results
 
 
+def fresh_rank() -> None:
+    """Between two runs in one process: what the last run left on the
+    card freed, the process-peak window and the kernel launch counters
+    started anew, so each run's memory and launch numbers are its own (a
+    process whose jobs so far ran on the host has no CUDA context)."""
+    import gc
+    from .ops import flash as flash_lib
+    gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+        probe_lib.reset_peak_memory_stats(
+            torch.device("cuda", torch.cuda.current_device()))
+    flash_lib.reset_launch_counts()
+
+
+def ranks_in_turn(rank: int, world_size: int, jobs: list) -> None:
+    """A spawned rank of ``SharedStart``: each ``(target, args)`` of
+    ``jobs`` in turn (``target(rank, world_size, *args)``), each from a
+    fresh process state (``fresh_rank``)."""
+    for i, (target, args) in enumerate(jobs):
+        if i:
+            fresh_rank()
+        target(rank, world_size, *args)
+
+
+class SharedStart:
+    """Several jobs of ``n`` ranks from ONE start of the ranks: ranks
+    1..n-1 are spawned once and run every job in turn (``ranks_in_turn``),
+    each job on a gloo group of its own (a FileStore each); rank 0 runs in
+    the caller, one ``run()`` per job, in order, and the caller may do its
+    own work between them.  A job is a ``train_global`` run, given as a
+    ``Config`` or ``(Config, train_kwargs)`` (its spawned ranks run
+    ``target``, ``rank_entry``'s arguments, and ``run()`` returns rank 0's
+    results), or a spawn target of the port with its arguments after the
+    store path, ``(fn, args)`` (every rank calls ``fn(rank, n, store,
+    *args)``; ``run()`` returns None).  A context manager: leaving it
+    joins the ranks, or terminates them when it is left by an error.
+    Elastic runs (chaos, snapshots) regroup and spawn: they keep
+    ``run_group``."""
+
+    def __init__(self, n: int, jobs: list, *, target: Callable = rank_entry):
+        self.n = int(n)
+        self.timeout_s = mesh.GROUP_TIMEOUT_S
+        self.target = target
+        self.jobs = []
+        for job in jobs:
+            if isinstance(job, Config):
+                job = (job, None)
+            if isinstance(job[0], Config):
+                cfg = job[0]
+                if cfg.chaos or cfg.sim_workers:
+                    raise ValueError(
+                        "a shared start runs fixed groups: --chaos regroups "
+                        "its processes and --sim_workers runs in one; run "
+                        "them through run_group / train_global")
+            self.jobs.append(job)
+        self.stores: list[str] = []
+        self.procs: list = []
+        self.done = 0
+
+    def _spawn_args(self, job, store: str) -> tuple:
+        first, rest = job
+        if isinstance(first, Config):
+            return self.target, (first, store, self.timeout_s, rest, 0, None)
+        return first, (store, *rest)
+
+    def __enter__(self) -> "SharedStart":
+        self.stores = [mesh.new_store_path() for _ in self.jobs]
+        self.threads = torch.get_num_threads()
+        self.procs = mesh.spawn_workers(
+            ranks_in_turn, self.n,
+            ([self._spawn_args(j, st) for j, st in zip(self.jobs,
+                                                        self.stores)],),
+            threads=max(1, self.threads // self.n))
+        return self
+
+    def run(self):
+        """Rank 0 of the next job: a run's results (None for a spawn
+        target's job)."""
+        i = self.done
+        if i >= len(self.jobs):
+            raise RuntimeError(f"all {len(self.jobs)} jobs have run")
+        self.done += 1
+        first, rest = self.jobs[i]
+        target, args = self._spawn_args(self.jobs[i], self.stores[i])
+        if i:
+            fresh_rank()
+        torch.set_num_threads(mesh.rank_threads(self.n))
+        try:
+            if isinstance(first, Config):
+                return train_rank(0, self.n, self.stores[i], self.timeout_s,
+                                  first, rest)
+            target(0, self.n, *args)
+            return None
+        except BaseException as err:
+            # a child that failed first is the likelier cause: name it
+            failed = mesh.stop_workers(self.procs, wait_s=5.0)
+            if failed:
+                raise RuntimeError(
+                    f"worker process(es) failed, exit codes {failed}"
+                ) from err
+            raise
+        finally:
+            torch.set_num_threads(self.threads)
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            if exc_type is None:
+                if self.done != len(self.jobs):
+                    raise RuntimeError(
+                        f"{self.done} of the shared start's "
+                        f"{len(self.jobs)} jobs ran")
+                mesh.join_workers(self.procs, self.timeout_s)
+            else:
+                mesh.stop_workers(self.procs, wait_s=5.0)
+        finally:
+            for store in self.stores:
+                mesh.remove_store(store)
+
+
 def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
                  num_classes: int, state_path: str, packs_path: str,
                  out_dir: str, timeout_s: float = mesh.GROUP_TIMEOUT_S,
@@ -1551,8 +1705,12 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
     flight, and saves ``{out_dir}/rank{rank}-{i}.pt``: the last round's
     metrics (``mx``) and every round's (``mxs``), the model's
     ``state_dict`` after the drain, the sync engine's state
-    (``sync_residual``, ``round_opt``) and how many stale deltas were
-    delivered in the rounds and in all."""
+    (``sync_residual``, ``round_opt``, ``sync_residual_outer``) and how
+    many stale deltas were delivered in the rounds and in all.  Under
+    ``--num_slices`` the world is the slice grid's, and a gradients run
+    (its sync leaves the parameters as trained) also saves ``hier_twin``:
+    the dense twin ``comms.aggregate_hier`` of its parameters, which a
+    weights run of the same round must equal."""
     state_dict = torch.load(state_path)
     with np.load(packs_path) as f:
         train_pack = (f["x"], f["y"], f["m"])
@@ -1560,11 +1718,18 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
     device = mesh.worker_device(rank, cfgs[0].device)
     with mesh.init_group(rank, world_size, device, store_path,
                          timeout_s) as group:
+        grids = {}
+        for cfg in cfgs:
+            if cfg.num_slices > 1 and cfg.num_slices not in grids:
+                grids[cfg.num_slices] = mesh.make_grid(
+                    group, {"slice": cfg.num_slices,
+                            "data": world_size // cfg.num_slices})
         for i, cfg in enumerate(cfgs):
             model = build_model_for(cfg, num_classes, device,
                                     train_pack[0].shape[3:])
             model.load_state_dict(state_dict)
-            engine = LocalSGDEngine(model, cfg, device, group)
+            slices = grids.get(cfg.num_slices)
+            engine = LocalSGDEngine(model, cfg, device, group, slices=slices)
             state, mxs = engine.init_state(), []
             for _ in range(rounds[i] if rounds else 1):
                 state, mx = engine.round(state, train_pack, val_pack)
@@ -1573,14 +1738,27 @@ def round_worker(rank: int, world_size: int, store_path: str, cfgs: list,
             state = engine.drain_pending(state)
             # the resident layout's consensus back in the module
             state = engine.materialize_params(state)
+            twin = None
+            if slices is not None and cfg.aggregation_by == "gradients":
+                twin = comms.aggregate_hier(
+                    engine.params, inner_group=slices.groups["data"],
+                    outer_group=slices.groups["slice"],
+                    topology=cfg.topology, how=cfg.aggregation_type,
+                    local_weight=cfg.local_weight)
+                twin = dict(zip(engine.names, twin))
             torch.save({"mx": mxs[-1], "mxs": mxs,
                         "state_dict": model.state_dict(),
                         "opt_count": state.opt.count,
                         "sync_residual": state.sync_residual,
+                        "sync_residual_outer": state.sync_residual_outer,
                         "round_opt": state.round_opt,
+                        "hier_twin": twin,
                         "stale_in_rounds": in_rounds,
-                        "stale_log_len": len(engine.stale_log)},
+                        "stale_log_len": len(engine.stale_log),
+                        "last_sync_stats": engine.last_sync_stats},
                        os.path.join(out_dir, f"rank{rank}-{i}.pt"))
+        for grid in grids.values():
+            grid.close()
 
 
 def _report(cfg: Config, mx: dict, epoch: int, wall: float,

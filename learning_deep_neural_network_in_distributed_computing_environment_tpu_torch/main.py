@@ -16,7 +16,9 @@ worker each, in a gloo group (``mesh.py``): ranks 1..N-1 are spawned, rank
 0 runs in the calling process and returns the results, evaluates and
 plots.  With ``--mesh_shape data=D,fsdp=F,model=T`` each worker is F x T
 processes (ZeRO-3 over fsdp, tensor parallelism over model): D x F x T
-ranks in all, on the rank grid of ``mesh.make_grid``.  A child that fails
+ranks in all, on the rank grid of ``mesh.make_grid``.  With ``--num_slices
+S`` the run is S x ``--num_workers`` processes and the round's sync is the
+hierarchical one (``comms.hierarchical_sync``).  A child that fails
 makes the run raise (a dead peer ends the
 others' collectives at the group timeout, never in a hang).  Under
 ``--chaos`` the group is elastic: each membership boundary re-forms it on
@@ -37,6 +39,9 @@ Examples::
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --mesh_shape data=2,fsdp=2
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --num_slices 2 --num_workers 2 --topology ring --aggregation_by \
+        weights --sync_dtype_outer int8 --sync_compression ef
+    python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --model gpt2_small --dataset synthetic_lm --attention_impl flash \
         --checkpoint_dir ckpt --checkpoint_every 1
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
@@ -49,8 +54,25 @@ Examples::
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import sys
+
+
+def _config(argv):
+    from .config import config_from_args
+    cfg = config_from_args(argv)
+    logging.basicConfig(
+        level=getattr(logging, cfg.log_level.upper(), logging.INFO),
+        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
+    return cfg
+
+
+def _ranks(cfg) -> int:
+    """The run's processes: one under --sim_workers, else one per rank of
+    the grid (slice x data x fsdp x seq x model)."""
+    from . import mesh
+    return 1 if cfg.sim_workers else mesh.world_size_of(mesh.grid_axes(cfg))
 
 
 def run(argv=None, elastic_snapshot=None) -> dict:
@@ -64,19 +86,10 @@ def run(argv=None, elastic_snapshot=None) -> dict:
     if argv and argv[0] == "serve":
         from .serve.api import serve_main
         return serve_main(argv[1:])
-    from .config import config_from_args
-    cfg = config_from_args(argv)
-    logging.basicConfig(
-        level=getattr(logging, cfg.log_level.upper(), logging.INFO),
-        format="%(asctime)s %(name)s %(levelname)s: %(message)s")
-
-    from . import mesh, viz
+    cfg = _config(argv)
     from .driver import run_group, train_global
-    from .eval import evaluate
 
-    # --sim_workers: every simulated worker in this one process; else one
-    # process per rank of the grid (data x fsdp x model)
-    n = 1 if cfg.sim_workers else mesh.world_size_of(mesh.grid_axes(cfg))
+    n = _ranks(cfg)
     if elastic_snapshot is not None or (cfg.chaos and not cfg.sim_workers):
         # elastic membership regroups processes: always a group
         results = run_group(cfg, n, elastic_snapshot=elastic_snapshot,
@@ -85,6 +98,49 @@ def run(argv=None, elastic_snapshot=None) -> dict:
         results = train_global(cfg)
     else:
         results = run_group(cfg, n, target=_worker)
+    return _finish(cfg, results)
+
+
+@contextlib.contextmanager
+def run_shared(jobs: list):
+    """``run`` of several launch lines of one process count from ONE start
+    of their ranks (``driver.SharedStart``): yields a function that runs
+    the next job and returns what ``run`` returns (rank 0 here, then its
+    evaluation and plots).  A job is a launch line (a list of flags, or
+    ``(flags, train_kwargs)`` with ``train_global``'s keyword arguments)
+    or a spawn target of the port with its arguments after the store path,
+    ``(fn, args)``, which every rank calls in turn (the function then
+    returns None).  Each launch line keeps its own gloo group, results and
+    checks; only the processes are shared."""
+    from .config import Config
+    from .driver import SharedStart
+    parsed = []
+    for job in jobs:
+        if isinstance(job, list):
+            job = (job, None)
+        parsed.append((_config(list(job[0])), job[1])
+                      if isinstance(job[0], list) else job)
+    cfgs = [j[0] for j in parsed if isinstance(j[0], Config)]
+    counts = {_ranks(c) for c in cfgs}
+    if len(counts) != 1 or counts == {1}:
+        raise ValueError(
+            f"a shared start runs launch lines of one process count > 1; "
+            f"got {sorted(_ranks(c) for c in cfgs)}")
+    with SharedStart(counts.pop(), parsed, target=_worker) as group:
+        job_iter = iter(parsed)
+
+        def next_job():
+            first, _rest = next(job_iter)
+            results = group.run()
+            return (_finish(first, results) if isinstance(first, Config)
+                    else None)
+        yield next_job
+
+
+def _finish(cfg, results: dict) -> dict:
+    """Rank 0's test evaluation and the six plots of a run."""
+    from . import viz
+    from .eval import evaluate
     test = results["test"]
     loss, acc, _preds, _labels, metrics = evaluate(
         results["model"], results["variables"], test.images, test.labels,

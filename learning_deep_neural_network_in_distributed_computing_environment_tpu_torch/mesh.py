@@ -19,7 +19,11 @@ rank's work ends, also when it raises.  Children are started with the
 With ``--mesh_shape data=D,fsdp=F,seq=S,model=T`` the world of
 D x F x S x T ranks is a rank grid (``Grid``, ``make_grid``; JAX
 ``mesh.build_mesh``): one gloo group per line of each axis, each worker
-the block of ranks with one data coordinate.
+the block of ranks with one data coordinate.  ``--num_slices S`` makes the
+world S x W workers on the grid ``{"slice": S, "data": W}``: each worker's
+data line is its slice (the inner level of the hierarchical sync), its
+slice line the workers of the same data coordinate in every slice (the
+outer level).
 """
 
 from __future__ import annotations
@@ -194,12 +198,15 @@ def make_grid(world: Group, axes: dict,
 
 def grid_axes(cfg) -> dict:
     """``cfg``'s mesh axes with the data size resolved (data=-1: the
-    ``--num_workers`` count, ``resolve_num_workers``)."""
+    ``--num_workers`` count, ``resolve_num_workers``).  Under
+    ``--num_slices S`` the ``slice`` axis leads: S x W worker processes,
+    slice-major (JAX ``P((SLICE_AXIS, DATA_AXIS))``), W = the workers of
+    one slice."""
     axes = dict(cfg.mesh_axes())
     if axes["data"] < 1:
         axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
     return {a: s for a, s in axes.items()
-            if a in ("data", "fsdp", "seq", "model")}
+            if a in ("slice", "data", "fsdp", "seq", "model")}
 
 
 def world_size_of(axes: dict) -> int:
@@ -345,14 +352,6 @@ def _bootstrap(target: Callable, rank: int, world_size: int, threads: int,
     """A spawned rank: its share of the threads, then ``target``."""
     torch.set_num_threads(threads)
     target(rank, world_size, *args)
-
-
-def in_turn(rank: int, world_size: int, jobs: Sequence) -> None:
-    """Run each ``(target, args)`` of ``jobs`` as rank ``rank``, in order
-    (a spawn target): several checks from one start of the processes,
-    each target joining and leaving its own group."""
-    for target, args in jobs:
-        target(rank, world_size, *args)
 
 
 def spawn_workers(target: Callable, world_size: int, args: tuple = (),

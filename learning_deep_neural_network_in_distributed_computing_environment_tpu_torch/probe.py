@@ -329,3 +329,21 @@ def joiner_sec_per_batch(survivor_spb: np.ndarray,
     if mode == "min":
         return float(spb.min())
     raise ValueError(f"unknown joiner_sec_per_batch mode {mode!r}")
+
+
+def attribute_sync_wall(sync_ms: float, ici_bytes: int, dcn_bytes: int,
+                        dcn_cost_factor: float = 1.0
+                        ) -> tuple[float, float]:
+    """One measured sync wall split over the two levels of the
+    hierarchical sync, ``(ici_ms, dcn_ms)`` (JAX
+    ``probe.attribute_sync_wall``).  A declared model, not a measurement:
+    the wall splits in proportion to each level's wire bytes, a DCN byte
+    weighted by ``dcn_cost_factor``.  On one card both levels are gloo
+    over loopback, staged through host memory, so 1.0 is the honest
+    weight.  A flat sync (no DCN bytes) is all ICI."""
+    total = float(ici_bytes) + float(dcn_bytes) * float(dcn_cost_factor)
+    if total <= 0 or sync_ms <= 0:
+        return (round(float(sync_ms), 3), 0.0)
+    dcn_ms = float(sync_ms) * (float(dcn_bytes) * float(dcn_cost_factor)
+                               / total)
+    return (round(float(sync_ms) - dcn_ms, 3), round(dcn_ms, 3))

@@ -74,11 +74,15 @@ def load_params_row0(path: str, model) -> None:
 def _resident_params(path: str, manifest: dict, model) -> dict:
     """The consensus of a scatter-resident checkpoint (``.params_resident``
     rows, JAX ``load_params_resident``): its rows gathered on the host and
-    unpacked by the model's wire layout and the manifest's bucket size."""
+    unpacked by the model's wire layout and the manifest's bucket size.
+    A hierarchical checkpoint holds one consensus per slice: slice 0's
+    (its first W rows) is served, the rank-0 convention."""
     from .. import comms
     keys = [k for k in manifest["leaves"]
             if k.startswith(".params_resident[")]
     full, _epoch = ckpt_lib.host_tree(path, keep=lambda k: k in keys)
+    slices = ckpt_lib.saved_slices(path, manifest)
+    full = {k: v[:len(v) // slices] for k, v in full.items()}
     mb = manifest.get("metadata", {}).get("sync_bucket_mb")
     named = list(model.named_parameters())
     template = comms.ParamsTemplate.of(

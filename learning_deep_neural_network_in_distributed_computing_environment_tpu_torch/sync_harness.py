@@ -107,6 +107,78 @@ def compressed_bounds(leaves, n: int, *, mode: str, how: str, wire: str,
     return to_jax, to_fp32, res
 
 
+def hier_reference(x, n_slices: int, *, topology: str, how: str,
+                   local_weight: float = 0.5) -> np.ndarray:
+    """The hierarchical sync's gossip of slice means in float64 on
+    worker-stacked ``x`` [S*W, ...] (slice-major): each slice's mean
+    blended with its predecessors' over the slices, then for ``weighted``
+    the flat self-exclusive form with the blended slice total."""
+    x = np.asarray(x, np.float64)
+    nw = x.shape[0] // n_slices
+    m = x.reshape(n_slices, nw, *x.shape[1:]).mean(1)
+    r1 = np.roll(m, 1, axis=0)
+    w = local_weight
+    if topology == "ring":
+        g = (m + r1) / 2 if how == "equal" else w * m + (1 - w) * r1
+    else:
+        r2 = np.roll(m, 2, axis=0)
+        g = ((m + r1 + r2) / 3 if how == "equal"
+             else w * m + (1 - w) / 2 * (r1 + r2))
+    g = np.repeat(g, nw, axis=0)
+    if how == "equal":
+        return g
+    return w * x + (1 - w) * (nw * g - x) / (nw - 1)
+
+
+def hier_bounds(leaves, n_slices: int, *, topology: str, how: str,
+                wire: str, outer_wire: str,
+                bucket_bytes: int = comms.DEFAULT_BUCKET_BYTES,
+                local_weight: float = 0.5, slack: float = 1e-6
+                ) -> list[np.ndarray]:
+    """Per leaf ([S*W, ...] like the outputs over the worker-stacked
+    ``leaves``), how far one compressed hierarchical sync (zero residuals
+    in) may land from the fp32 one: one quantum of each wire stage per
+    element.  The inner stage one encodes each worker's bucket (``q1``,
+    the largest sender's; it reaches the slice mean averaged); the outer
+    stage encodes each worker's shard of its slice's mean (``qo``, per
+    owned shard); the inner stage two encodes the owned shard of the blend
+    for the gather (``q2``).  The weighted form reaches the output through
+    ``(1-w) W / (W-1)`` times the blend, plus the own term's stage one;
+    ``slack`` is the fp32 rounding allowed, relative to the largest
+    input."""
+    xs = [np.asarray(x, np.float64) for x in leaves]
+    nw = xs[0].shape[0] // n_slices
+    bucket, owner = bucket_map([x.shape[1:] for x in xs], nw, bucket_bytes)
+    w = local_weight
+
+    def quantum(values, wire_name, own=None):
+        # one row: the largest quantum over the rows that encode
+        if wire_name == "float32":
+            return [np.zeros_like(v[:1]) for v in values]
+        return [q.max(0, keepdims=True)
+                for q in wire_quanta(values, wire_name, bucket, own)]
+
+    means = [x.reshape(n_slices, nw, *x.shape[1:]).mean(1) for x in xs]
+    blends = []
+    for m in means:
+        r1 = np.roll(m, 1, axis=0)
+        if topology == "ring":
+            g = (m + r1) / 2 if how == "equal" else w * m + (1 - w) * r1
+        else:
+            r2 = np.roll(m, 2, axis=0)
+            g = ((m + r1 + r2) / 3 if how == "equal"
+                 else w * m + (1 - w) / 2 * (r1 + r2))
+        blends.append(g)
+    q1 = quantum(xs, wire)
+    qo = quantum(means, outer_wire, owner)
+    q2 = quantum(blends, wire, owner)
+    f = 1.0 if how == "equal" else (1.0 - w) * nw / (nw - 1)
+    own = 0.0 if how == "equal" else 1.0
+    return [np.broadcast_to(own * a + f * (a + b + c)
+                            + slack * (1.0 + np.abs(x).max(0)), x.shape)
+            for a, b, c, x in zip(q1, qo, q2, xs)]
+
+
 def engines_worker(rank: int, world_size: int, store_path: str,
                    device: str, in_path: str, cases: list, out_dir: str,
                    timeout_s: float = mesh.GROUP_TIMEOUT_S) -> None:
@@ -115,7 +187,7 @@ def engines_worker(rank: int, world_size: int, store_path: str,
     leaves in ``in_path`` (npz ``leaf{j}`` [world_size, ...], optional
     ``step{j}``), writing ``{out_dir}/rank{rank}.npz``.
 
-    A case is a dict: ``mode`` (dense | gossip | sharded), ``how``,
+    A case is a dict: ``mode`` (dense | gossip | sharded | hier), ``how``,
     ``topology``, ``wire`` (a ``WIRE_DTYPES`` name), ``ef`` (carry a
     residual), ``placement``, ``track`` (thread a round optimizer),
     ``bucket_bytes``, ``local_weight``, ``leaves`` (the indices of the
@@ -125,8 +197,16 @@ def engines_worker(rank: int, world_size: int, store_path: str,
     ``tail`` (how many last rounds ``sum`` adds up; default all),
     ``residency`` (``resident``: the sync ends at the scatter), ``buddy``
     (arm the buddy hop) and ``poison`` (one flag per rank: arm the chaos
-    screen).  Saved per case ``c``: ``c/first{j}``, ``c/out{j}`` (last
-    round; under ``resident`` ``c/resident/<bucket>`` instead),
+    screen).  A ``hier`` case also takes ``slices`` (S: the world is S
+    slices of world_size / S workers, slice-major, on the grid
+    ``{"slice": S, "data": W}`` made once per S), ``outer_wire`` (the outer
+    hops' wire; ``ef`` then arms both levels' residuals) and ``twin``
+    (also run ``comms.aggregate_hier`` on the first round's inputs: saved
+    as ``c/twin{j}``); its bytes handed to gloo are saved by level,
+    ``c/wire_ici`` and ``c/wire_dcn``, and its outer residual as
+    ``c/outer_res/<bucket>``.  Saved per case ``c``: ``c/first{j}``,
+    ``c/out{j}`` (last round; under ``resident`` ``c/resident/<bucket>``
+    instead),
     ``c/sum{j}`` (the outputs of the tail rounds summed, float64),
     ``c/res{j}``, ``c/mu|nu/<bucket>``, ``c/buddy/<bucket>/<comp>``,
     ``c/ok`` (the screen's flag), ``c/wire_payload``, ``c/wire_scale`` and
@@ -142,6 +222,14 @@ def engines_worker(rank: int, world_size: int, store_path: str,
     out = {}
     with mesh.init_group(rank, world_size, dev, store_path,
                          timeout_s) as group:
+        # the slice grids of the hier cases, made in the cases' order on
+        # every rank (a collective)
+        grids = {}
+        for case in cases:
+            sl = case.get("slices")
+            if case["mode"] == "hier" and sl not in grids:
+                grids[sl] = mesh.make_grid(
+                    group, {"slice": sl, "data": world_size // sl})
         every = [torch.from_numpy(a).to(dev) for a in leaves]
         steps = {j: torch.from_numpy(a).to(dev) for j, a in steps.items()}
         for c, case in enumerate(cases):
@@ -159,8 +247,29 @@ def engines_worker(rank: int, world_size: int, store_path: str,
                                       placement=placement,
                                       bucket_bytes=bucket_bytes, device=dev)
                        if case.get("track") else None)
+            hier = case["mode"] == "hier"
+            lines = ()
+            if hier:
+                grid = grids[case["slices"]]
+                inner, outer = grid.groups["data"], grid.groups["slice"]
+                lines = (inner, outer)
+                owdt = comms.WIRE_DTYPES[case.get("outer_wire", "float32")]
+                owdt = None if owdt == torch.float32 else owdt
+                ores = (comms.hier_outer_residual_init(
+                    base, inner.world_size, bucket_bytes=bucket_bytes,
+                    device=dev) if case.get("ef") else None)
+                if case.get("twin"):
+                    twin = comms.aggregate_hier(
+                        base, inner_group=inner, outer_group=outer,
+                        topology=case["topology"],
+                        how=case.get("how", "equal"),
+                        local_weight=case.get("local_weight", 0.5))
+                    for j, a in enumerate(twin):
+                        out[f"{c}/twin{j}"] = a.cpu().numpy()
             xs, total = base, None
             group.wire.clear()
+            for line in lines:
+                line.wire.clear()
             rounds = int(case.get("rounds", 1))
             tail = int(case.get("tail", rounds))
             for k in range(rounds):
@@ -172,8 +281,11 @@ def engines_worker(rank: int, world_size: int, store_path: str,
                     extra["buddy"] = True
                 if "poison" in case:
                     extra["poison"] = bool(case["poison"][rank])
+                if hier:
+                    extra.update(outer_group=outer, outer_wire_dtype=owdt,
+                                 outer_residual=ores)
                 rets = comms.fast_sync(
-                    xs, group=group, mode=case["mode"],
+                    xs, group=inner if hier else group, mode=case["mode"],
                     how=case.get("how", "equal"),
                     topology=case.get("topology", "allreduce"),
                     local_weight=case.get("local_weight", 0.5),
@@ -181,6 +293,8 @@ def engines_worker(rank: int, world_size: int, store_path: str,
                     opt_placement=placement, tracker=tracker, **extra)
                 synced, res, tracker = rets[:3]
                 rest = list(rets[3:])
+                if hier:
+                    ores = rest.pop(0)
                 if case.get("buddy"):
                     for name, parts in rest.pop(0).items():
                         for key, t in parts.items():
@@ -218,10 +332,21 @@ def engines_worker(rank: int, world_size: int, store_path: str,
             for name, m in (tracker or {}).items():
                 for key in ("mu", "nu"):
                     out[f"{c}/{key}/{name}"] = m[key].cpu().numpy()
+            if hier:
+                for name, t in (ores or {}).items():
+                    out[f"{c}/outer_res/{name}"] = t.cpu().numpy()
+                for level, line in (("ici", inner), ("dcn", outer)):
+                    out[f"{c}/wire_{level}"] = np.array(
+                        line.wire.get("payload", 0) // rounds)
+                    out[f"{c}/wire_{level}_scale"] = np.array(
+                        line.wire.get("scale", 0) // rounds)
             for kind in ("payload", "scale", "buddy"):
                 out[f"{c}/wire_{kind}"] = np.array(
-                    group.wire.get(kind, 0) // rounds)
-    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+                    sum(g.wire.get(kind, 0) for g in (group, *lines))
+                    // rounds)
+        for grid in grids.values():
+            grid.close()
+    comms.save_npz(os.path.join(out_dir, f"rank{rank}.npz"), out)
 
 
 def gloo_probe_worker(rank: int, world_size: int, store_path: str,
@@ -282,5 +407,7 @@ def gloo_probe_worker(rank: int, world_size: int, store_path: str,
                 fn(buf, mine)
                 return torch.equal(buf, want)
             check(name, call)
-    with open(os.path.join(out_dir, f"gloo{rank}.json"), "w") as f:
+    path = os.path.join(out_dir, f"gloo{rank}.json")
+    with open(path + ".tmp", "w") as f:
         json.dump(out, f)
+    os.replace(path + ".tmp", path)

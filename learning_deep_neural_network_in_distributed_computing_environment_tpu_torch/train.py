@@ -510,6 +510,12 @@ class TrainState:
     # the sync's extra hop delivered them; derived state, stripped from
     # checkpoints
     buddy: Optional[dict] = None
+    # the hierarchical sync's outer error-feedback residual (a compressed
+    # --sync_dtype_outer with --sync_compression ef): ``{bucket: [padded //
+    # W]}``, the fp32 rounding of this worker's own outer transmission
+    # (JAX ``TrainState.sync_residual_outer``); the inner level keeps
+    # ``sync_residual``
+    sync_residual_outer: Optional[dict] = None
 
 
 class LocalSGDEngine:
@@ -519,13 +525,22 @@ class LocalSGDEngine:
 
     def __init__(self, model: nn.Module, cfg: Config, device: torch.device,
                  group: mesh.Group | None = None, nan_screen: bool = False,
-                 grid_params=None, vocab_parallel: bool = False):
+                 grid_params=None, vocab_parallel: bool = False,
+                 slices: mesh.Grid | None = None):
         self.model = model
         self.cfg = cfg
         self.device = device
         self.group = group
         self.rank = 0 if group is None else group.rank
         self.n_workers = 1 if group is None else group.world_size
+        # the hierarchical sync (--num_slices; JAX train.py:439-460): the
+        # world's slice grid, ``n_workers`` = S x W in all, slice-major;
+        # the inner level is this worker's slice (its data line), the
+        # outer one the same data coordinate in every slice
+        self.n_slices = 1 if slices is None else slices.size("slice")
+        self.n_inner = self.n_workers // self.n_slices
+        self.inner_group = group if slices is None else slices.groups["data"]
+        self.outer_group = None if slices is None else slices.groups["slice"]
         # the rank grid's shards (parallel.shards.GridParams) or None: the
         # whole worker in this process
         self.gp = grid_params
@@ -554,18 +569,32 @@ class LocalSGDEngine:
         self.generator = torch.Generator(device=device)
         # --- the sync engine, resolved once (JAX train.py:530-700) ------
         self.sync_mode = cfg.resolve_sync_mode()
+        self.hier = self.sync_mode == "hier"
+        if self.hier and slices is None:
+            raise ValueError(
+                f"--num_slices {cfg.num_slices}: the hierarchical sync "
+                "needs the slice grid of its S x W worker processes (run "
+                "it through main.run or driver.run_group)")
+        if self.hier and self.n_inner < 2:
+            raise ValueError(
+                f"--num_slices {self.n_slices} needs >= 2 workers per "
+                f"slice (got a data axis of {self.n_inner}): the outer "
+                "gossip hop rides the 1/W inner scatter shard — with "
+                "W = 1 there is no inner level, run the flat gossip "
+                "engine (--num_slices 1)")
         self.opt_placement = cfg.resolve_opt_placement()
         # where the consensus lives between rounds, and whether its
         # uniquely held rows have a second copy (JAX train.py:599-652;
-        # a one-worker axis demotes resident, with the log line JAX gives)
-        self.param_residency = cfg.resolve_param_residency(self.n_workers)
+        # a one-worker axis demotes resident, with the log line JAX gives;
+        # under slices each worker keeps 1/W of its slice's consensus)
+        self.param_residency = cfg.resolve_param_residency(self.n_inner)
         if (cfg.param_residency == "resident"
                 and self.param_residency == "replicated"):
             log.info("param_residency resident requested but %s: resolved "
                      "to 'replicated'",
                      "inner mesh axes shard the param leaves: the bucket "
                      "plan must stay per-worker" if cfg.inner_axes() else
-                     "the worker axis is 1" if self.n_workers < 2 else
+                     "the worker axis is 1" if self.n_inner < 2 else
                      f"{cfg.aggregation_by}/{cfg.aggregation_type} "
                      "aggregation leaves per-worker params")
         self.resident_on = self.param_residency == "resident"
@@ -581,10 +610,16 @@ class LocalSGDEngine:
         self.nan_screen = bool(nan_screen)
         self._poison = False
         self.sync_wire_dtype = cfg.sync_wire_dtype()
-        fast = self.sync_mode in ("sharded", "gossip")
-        self.sync_ef = (cfg.sync_compression == "ef"
-                        and cfg.aggregation_by == "weights" and fast
-                        and self.sync_wire_dtype is not None)
+        # the outer hops' wire (JAX train.py:533-538); EF per level: the
+        # inner residual when the inner wire is compressed, the outer one
+        # when the outer wire is
+        self.sync_wire_dtype_outer = (cfg.sync_wire_dtype_outer()
+                                      if self.hier else None)
+        fast = self.sync_mode in ("sharded", "gossip", "hier")
+        ef = cfg.sync_compression == "ef" and cfg.aggregation_by == "weights"
+        self.sync_ef = (ef and fast and self.sync_wire_dtype is not None)
+        self.sync_ef_outer = (ef and self.hier
+                              and self.sync_wire_dtype_outer is not None)
         self.sync_bucket_bytes = max(1, int(cfg.sync_bucket_mb * (1 << 20)))
         # the round optimizer follows the cross-worker mean gradient:
         # gradients mode under the sharded engine (JAX train.py:576-580)
@@ -659,11 +694,18 @@ class LocalSGDEngine:
             placement=self.opt_placement,
             bucket_bytes=self.sync_bucket_bytes, device=self.device)
             if self.round_opt_on else None)
+        outer = (comms.hier_outer_residual_init(
+            self.layout.leaves, self.n_inner,
+            bucket_bytes=self.sync_bucket_bytes, device=self.device)
+            if self.sync_ef_outer else None)
         state = TrainState(opt=Adam(self.params),
                            rng=seed_words(worker_seed(self.cfg.seed,
                                                       self.rank)),
-                           sync_residual=residual, round_opt=round_opt)
-        n, rank = self.n_workers, self.rank
+                           sync_residual=residual, round_opt=round_opt,
+                           sync_residual_outer=outer)
+        # the resident rows tile the inner line: a slice's W workers (JAX
+        # train.py:1205-1215: the one init is every slice's consensus)
+        n, rank = self.n_inner, self.inner_group_rank
         full = None
         if self.resident_on:
             # the init is one consensus on every rank: its shard is the
@@ -692,9 +734,28 @@ class LocalSGDEngine:
     # ------------------------------------------------------------------
     # the sync point's engines
     # ------------------------------------------------------------------
+    @property
+    def inner_group_rank(self) -> int:
+        """This worker's rank on its inner line (its slice)."""
+        return 0 if self.inner_group is None else self.inner_group.rank
+
+    def sync_wire_split(self) -> tuple[int, int]:
+        """``(ici, dcn)``: the bytes this worker sends per round sync by
+        level (JAX ``train.py:905-967``); a flat engine's are all ICI."""
+        if self.hier:
+            split = comms.hier_wire_bytes(
+                self.layout.leaves, self.n_inner, topology=self.cfg.topology,
+                wire_dtype=self.sync_wire_dtype,
+                outer_wire_dtype=self.sync_wire_dtype_outer,
+                bucket_bytes=self.sync_bucket_bytes)
+            return split["ici"], split["dcn"]
+        return self.sync_wire_bytes(), 0
+
     def sync_wire_bytes(self) -> int:
         """Bytes this worker sends per round sync (JAX
         ``comms.sync_wire_bytes`` for the resolved engine)."""
+        if self.hier:
+            return sum(self.sync_wire_split())
         shapes = (self.layout.leaves if self.layout is not None
                   else [(tuple(p.shape), p.dtype) for p in self.params])
         wire = self.sync_wire_dtype if self.layout is not None else None
@@ -726,6 +787,10 @@ class LocalSGDEngine:
         sync = probe.track(self._programs,
                            "sync" if group is None else "stale_sync",
                            comms.fast_sync)
+        if self.hier:
+            extra.update(outer_group=self.outer_group,
+                         outer_wire_dtype=self.sync_wire_dtype_outer)
+            group = self.inner_group
         return sync(
             tensors, group=self.group if group is None else group,
             mode=self.sync_mode, how=cfg.aggregation_type,
@@ -846,10 +911,13 @@ class LocalSGDEngine:
         buddy = [t for b in (state.buddy or {}).values() for t in b.values()]
         return {"params": (nbytes(resident) if resident
                            else nbytes(self.params)),
-                "params_gathered_peak": self.n_workers * nbytes(resident),
+                # the entry gather rebuilds the padded vectors from the
+                # rows of the inner line (the slice)
+                "params_gathered_peak": self.n_inner * nbytes(resident),
                 "opt_state": nbytes(state.opt.state_tensors()) + 4,
                 "ef_residual": nbytes(state.sync_residual or []),
-                "ef_residual_outer": 0,
+                "ef_residual_outer": nbytes(
+                    list((state.sync_residual_outer or {}).values())),
                 "round_opt": nbytes(round_opt),
                 "buddy": nbytes(buddy),
                 "batch_stats": nbytes([b for n, b in
@@ -898,7 +966,8 @@ class LocalSGDEngine:
         self._unrelease()
         gather = probe.track(self._programs, "resident_enter", lambda rows:
                              comms.resident_gather(
-                                 rows, group=self.group, layout=self.layout,
+                                 rows, group=self.inner_group,
+                                 layout=self.layout,
                                  like=self.params,
                                  bucket_bytes=self.sync_bucket_bytes))
         full = gather(state.params_resident)
@@ -1095,7 +1164,8 @@ class LocalSGDEngine:
             residual=(None if state.sync_residual is None
                       else dict(zip(self.names, state.sync_residual))),
             round_opt=state.round_opt,
-            params_resident=state.params_resident)
+            params_resident=state.params_resident,
+            residual_outer=state.sync_residual_outer)
 
     @torch.no_grad()
     def load_checkpoint_state(self, state: TrainState, restored
@@ -1126,7 +1196,8 @@ class LocalSGDEngine:
             src = getattr(restored, part)
             for name, t in getattr(live, part).items():
                 t.copy_(torch.from_numpy(np.ascontiguousarray(src[name])))
-        for part in ("residual", "round_opt", "params_resident"):
+        for part in ("residual", "round_opt", "params_resident",
+                     "residual_outer"):
             src, dst = getattr(restored, part), getattr(live, part)
             if dst is None:
                 continue
@@ -1509,6 +1580,9 @@ class LocalSGDEngine:
         if self.nan_screen:
             extra["poison"] = self._poison
             self._poison = False
+        if self.hier and cfg.aggregation_by == "weights":
+            # the outer level's residual rides the hierarchical sync
+            extra["outer_residual"] = state.sync_residual_outer
         ok = None
         if cfg.aggregation_by == "weights":
             if self.staleness:
@@ -1519,24 +1593,32 @@ class LocalSGDEngine:
                 rets = self._engine_sync(self.params, state.sync_residual,
                                          residency="resident", **extra)
                 state.params_resident, state.sync_residual = rets[:2]
-                rets = self._take_extras(state, rets[3:], extra)
-                ok = rets
+                if self.hier:
+                    state.sync_residual_outer = rets[3]
+                else:
+                    ok = self._take_extras(state, rets[3:], extra)
                 self._release_params()
             else:
                 rets = self._engine_sync(self.params, state.sync_residual,
                                          **extra)
                 agg, state.sync_residual = rets[:2]
-                ok = self._take_extras(state, rets[3:], extra)
+                if self.hier:
+                    state.sync_residual_outer = rets[3]
+                else:
+                    ok = self._take_extras(state, rets[3:], extra)
                 if self.group is not None:
                     with torch.no_grad():
                         torch._foreach_copy_(self.params, agg)
         else:
             grads = (last_grads if last_grads is not None
                      else [torch.zeros_like(p) for p in self.params])
+            # (hier: the collectives run replicated and the aggregate is
+            # discarded after its norm, JAX train.py:775-783)
             rets = self._engine_sync(grads, tracker=state.round_opt,
                                      **extra)
             agg, state.round_opt = rets[0], rets[2]
-            ok = self._take_extras(state, rets[3:], extra)
+            if not self.hier:
+                ok = self._take_extras(state, rets[3:], extra)
             agg_norm = (self.gp.global_norm(agg) if self.gp is not None
                         else comms.global_norm(agg))
         own.update(to_host({"agg_grad_norm": agg_norm}))
@@ -1547,10 +1629,15 @@ class LocalSGDEngine:
             # the wall of the sync whose delta landed at this round's
             # entry (its dispatch here takes ~nothing)
             sync_ms = delivered.get("sync_ms", 0.0)
+        # the per-level split of the wall: a byte-proportional model
+        # (JAX train.py:2104-2107), not a measurement
+        ici_ms, dcn_ms = probe.attribute_sync_wall(
+            sync_ms, *self.sync_wire_split())
         self.last_sync_stats = {
             "sync_mode": self.sync_mode, "sync_ms": round(sync_ms, 3),
             "sync_hidden_ms": delivered.get("sync_hidden_ms", 0.0),
-            "gather_ms": round(gather_ms, 3)}
+            "gather_ms": round(gather_ms, 3), "sync_ms_ici": ici_ms,
+            "sync_ms_dcn": dcn_ms}
         if ok is not None:
             own["sync_ok"] = np.float32(ok)
         peak = probe.max_memory_allocated(dev)

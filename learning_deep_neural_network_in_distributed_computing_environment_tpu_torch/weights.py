@@ -329,15 +329,17 @@ def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
                         count: int, lr_epoch: int, rng, layout: dict,
                         residual: dict | None = None,
                         round_opt: dict | None = None,
-                        params_resident: dict | None = None
+                        params_resident: dict | None = None,
+                        residual_outer: dict | None = None
                         ) -> dict[str, np.ndarray]:
     """One worker's train state -> ``{JAX key path: numpy row}``, in the
     JAX package's flatten order.  ``params``/``buffers``/``mu``/``nu`` map
     ``state_dict`` names to tensors or arrays (host); ``rng`` is uint32[2];
     ``residual`` (like ``params``) becomes ``.sync_residual[...]``,
-    ``round_opt`` ({bucket: {"mu", "nu"}}) ``.round_opt[...]`` and
+    ``round_opt`` ({bucket: {"mu", "nu"}}) ``.round_opt[...]``,
     ``params_resident`` ({bucket: row}; then ``params`` is empty)
-    ``.params_resident[...]``."""
+    ``.params_resident[...]`` and ``residual_outer`` ({bucket: row}, the
+    hierarchical sync's outer residual) ``.sync_residual_outer[...]``."""
     main = (_flax_collections({**params, **buffers}, layout)
             if params or buffers else {"params": {}})
     moments = [_flax_collections(m, layout)["params"] for m in (mu, nu)]
@@ -355,6 +357,8 @@ def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
         leaves.update(_keyed(".round_opt", round_opt))
     if params_resident is not None:
         leaves.update(_keyed(".params_resident", params_resident))
+    if residual_outer is not None:
+        leaves.update(_keyed(".sync_residual_outer", residual_outer))
     return leaves
 
 

@@ -257,7 +257,9 @@ def test_open_sweeps_stale_leftovers(tmp_path):
     # round-optimizer leaves restore; this one is in the manifest but in
     # no shard
     ("round_opt", r"\.round_opt"),
-    ("slices", "A.11"), ("workers", "worker")],
+    # slice checkpoints restore (tests/test_torch_hier_sync.py); a manifest
+    # whose slice count does not divide its worker rows is refused
+    ("slices", "records 2 slice"), ("workers", "worker")],
     ids=["legacy-A.9", "round_opt-missing-leaf", "slices-A.11",
          "workers-worker"])
 def test_refusals_name_their_queue(tmp_path, case, where):

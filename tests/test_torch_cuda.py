@@ -810,3 +810,90 @@ def test_tp_run_on_card_passes_the_sanitizer(cuda, tmp_path):
                       "--out_dir", str(tmp_path)])
     assert res["sanitize"]["transfer_guard_violations"] == 0
     assert np.isfinite(res["global_train_losses"]).all()
+
+
+def test_hier_sync_on_card_is_bitwise_its_dense_twin(cuda, tmp_path):
+    """The hierarchical sync on CUDA tensors: 4 gloo ranks on cuda:0 as 2
+    slices x 2 workers, uneven leaves in 1 KiB buckets.  fp32 equals the
+    dense twin ``aggregate_hier`` bit for bit on every rank (ring and
+    double ring, equal and weighted); the int8 inner and outer wires with
+    both levels' error feedback land within one quantum of each wire
+    stage (``sync_harness.hier_bounds``); the bytes handed to gloo per
+    level equal ``hier_wire_bytes`` (the double ring's shift-2 hop over 2
+    slices is the slice's own payload, taken locally)."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        comms,
+        mesh,
+        sync_harness,
+    )
+    shapes = [(13, 7), (257,), (31, 5), (3,)]
+    rng = np.random.default_rng(0)
+    leaves = [rng.normal(size=(4, *s)).astype(np.float32) for s in shapes]
+    np.savez(tmp_path / "in.npz",
+             **{f"leaf{j}": a for j, a in enumerate(leaves)})
+    cases = []
+    for topology in ("ring", "double_ring"):
+        for how in ("equal", "weighted"):
+            cases.append(dict(mode="hier", slices=2, how=how,
+                              topology=topology, local_weight=0.3,
+                              bucket_bytes=1024, twin=True))
+            cases.append(dict(mode="hier", slices=2, how=how,
+                              topology=topology, local_weight=0.3,
+                              bucket_bytes=1024, wire="int8",
+                              outer_wire="int8", ef=True))
+    store = mesh.new_store_path()
+    try:
+        mesh.join_workers(mesh.spawn_workers(
+            sync_harness.engines_worker, 4,
+            (store, "cuda", str(tmp_path / "in.npz"), cases, str(tmp_path),
+             120.0), ranks=range(4)), timeout_s=300.0)
+    finally:
+        mesh.remove_store(store)
+    outs = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    for c in range(0, len(cases), 2):
+        case = cases[c]
+        for j in range(len(shapes)):
+            for o in outs:
+                assert np.array_equal(o[f"{c}/first{j}"], o[f"{c}/twin{j}"])
+        bounds = sync_harness.hier_bounds(
+            leaves, 2, topology=case["topology"], how=case["how"],
+            wire="int8", outer_wire="int8", bucket_bytes=1024,
+            local_weight=0.3)
+        for j, b in enumerate(bounds):
+            fp32 = np.stack([o[f"{c}/first{j}"] for o in outs])
+            got = np.stack([o[f"{c + 1}/first{j}"] for o in outs])
+            assert (np.abs(got.astype(np.float64) - fp32) <= b).all()
+        for k, wire in ((c, torch.float32), (c + 1, torch.int8)):
+            want = comms.hier_wire_bytes(
+                [(s, torch.float32) for s in shapes], 2,
+                topology=case["topology"], wire_dtype=wire,
+                outer_wire_dtype=wire, bucket_bytes=1024)
+            hops = 2 if case["topology"] == "double_ring" else 1
+            for o in outs:
+                assert int(o[f"{k}/wire_ici"]) == want["ici"]
+                assert int(o[f"{k}/wire_dcn"]) == want["dcn"] // hops
+
+
+def test_hier_run_on_card_passes_the_sanitizer(cuda, tmp_path):
+    """--sanitize under the hierarchical sync: a short cnn run at 2 slices
+    x 2 workers with the int8 outer wire and error feedback stages every
+    collective (the int8 scales too) through pinned host memory, so the
+    sync-debug guard counts no implicit sync; the workers of each slice
+    end bitwise equal."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
+        main as t_main,
+    )
+    res = t_main.run(["--model", "enhanced_cnn", "--model_width", "8",
+                      "--dataset", "cifar10", "--num_slices", "2",
+                      "--num_workers", "2", "--topology", "ring",
+                      "--aggregation_by", "weights", "--sync_dtype_outer",
+                      "int8", "--sync_compression", "ef",
+                      "--epochs_global", "2", "--epochs_local", "1",
+                      "--batch_size", "16", "--limit_train_samples", "256",
+                      "--limit_eval_samples", "32", "--sanitize",
+                      "--out_dir", str(tmp_path)])
+    assert res["sanitize"]["transfer_guard_violations"] == 0
+    assert res["sync_engine"]["mode"] == "hier"
+    assert np.isfinite(res["global_train_losses"]).all()
+    sums = res["param_checksums"]
+    assert sums[0] == sums[1] and sums[2] == sums[3]

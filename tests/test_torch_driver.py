@@ -184,10 +184,10 @@ def test_serve_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize("flags,where", [
-    # the flat resident layout is ported; the per-slice one waits for the
-    # hierarchical sync
+    # the flat and the per-slice resident layouts are ported; an allreduce
+    # outer level is refused as JAX refuses it (the flat S*W engine)
     (["--sync_mode", "sharded", "--param_residency", "resident",
-      "--num_slices", "2"], "A.11"),
+      "--num_slices", "2"], "flat sharded allreduce"),
     # the transformer knobs are ported; what stays refused is refused as
     # the JAX config refuses it
     (["--remat_policy", "save_names:attn_out"], "enhanced_cnn has none"),
