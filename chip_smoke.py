@@ -167,7 +167,11 @@ Phases (any failure exits non-zero before the result line):
              sim_path [256,128,12,64].
 10b. grid  - the rank grid (--mesh_shape; every rank a process on the
              one card, every collective staged through pinned host
-             memory): [tp gpt2] the gpt2 path's fp32 pair (2 steps a
+             memory), from ONE start of 2 processes (main.run_shared: the
+             module checks, [tp gpt2]'s data-only twin, [sp gpt2], [sp
+             bert], [pp gpt2]) and then ONE start of 4 ([tp gpt2]'s grid
+             runs, [tp fsdp bert]'s, [fsdp cnn]): [tp gpt2] the gpt2
+             path's fp32 pair (2 steps a
              worker) at data=2,model=2 against --num_workers 2 (losses
              rtol 2e-3), both timed, then the bf16 run (about 3 steps a
              worker) timed; each grid run's launches (the fp32, then the
@@ -175,12 +179,13 @@ Phases (any failure exits non-zero before the result line):
              rank, the bf16 run's loss falling; [tp
              fsdp bert] bert_base at data=1,fsdp=2,model=2: the fp32 pair
              (2 steps) against data=1, both timed, the grid's launches
-             (fp32 instances) checked on every rank; [fsdp cnn] one fp32
-             step of the full-width cnn at data=1,fsdp=2 against the dense
-             twin that normalises each half (logits atol 1e-5, gradients
-             2e-4), in one spawn with [sp attn], then the cnn at
-             data=2,fsdp=2 timed (one round on 2,048 images), BatchNorm
-             statistics equal along fsdp; [sp attn] ring, ring_zigzag and
+             (fp32 instances) checked on every rank; [fsdp cnn] the cnn
+             at data=2,fsdp=2 timed (one round on 2,048 images), BatchNorm
+             statistics equal along fsdp; the module checks: [fsdp cnn] one
+             fp32 step of the full-width cnn at data=1,fsdp=2 against the
+             dense twin that normalises each half (logits atol 1e-5,
+             gradients 2e-4), [sp attn], [pp toy] and [pp gpt2]'s one
+             steps; [sp attn] ring, ring_zigzag and
              all_to_all on a seq line of 2 processes at the gpt2
              [64,128,12,64] and llama [64,128,16/4,64] shapes, causal, bf16
              and fp32, the output and the q/k/v gradients against the
@@ -194,13 +199,33 @@ Phases (any failure exits non-zero before the result line):
              no implicit sync, the loss falling; each rank's step ms, TP
              all-reduce, FSDP gather/reduce-scatter and SP hop ms and
              bytes, the seq gradient all-reduce, parameter and moment
-             bytes, peak memory; [tp llama] in the llama child:
+             bytes, peak memory; [pp toy] GPipe and 1F1B on a pipe line
+             of 2 processes over JAX tests/test_pp.py's tanh stages (4
+             microbatches) against the stages run in turn (atol 1e-5), the
+             microbatches in flight at each stage's bound; [pp gpt2]
+             gpt2_small at data=1,pipe=2 (6 blocks a stage, flash): one
+             fp32 step under each schedule against the dense twin (the last
+             stage's logits atol 1e-5, gradients 2e-4), the fp32 pair (one
+             round of 2 steps, M=2) under each schedule against one data=1
+             twin (losses rtol 2e-3), then a bf16 run under each schedule
+             at --pp_microbatches 4: every rank's launches exactly its 6
+             blocks x M x its train and val steps plus the dense twin's 12
+             blocks x the probe's passes, the replicated leaves bitwise
+             equal along pipe after every round, M microbatches in flight
+             under GPipe and at most 2 - s on stage s under 1F1B, each
+             rank's fp32 parameters and Adam moments 529.0 MB (its stage's
+             44,083,200 parameters), the loss falling; per rank step ms,
+             tokens/s, hop ms and bytes per pass, the replicated leaves'
+             all-reduce, memory at the most microbatches in flight and
+             peak; [tp llama] in the llama child:
              llama_medium at data=1,model=2, the fused backward's launches
              on every rank.  The kernels phase holds the four kernels at
              the shard shapes tp_gpt2 [64,128,6,64] causal, tp_llama
-             [64,128,8/2,64] causal and tp_fsdp_bert [32,128,6,64] full.
-             Alone: python3 chip_smoke.py grid; the SP phases alone:
-             python3 chip_smoke.py sp.  (To make room for these phases the
+             [64,128,8/2,64] causal and tp_fsdp_bert [32,128,6,64] full,
+             and the pipeline stage's microbatch pp_gpt2 [16,128,12,64]
+             causal.  Alone: python3 chip_smoke.py grid; the 2-process
+             phases alone: python3 chip_smoke.py pp (or sp).  (To make
+             room for these phases the
              sync and overlap runs take 2,048 images (the sync runs one
              local epoch a round), the elastic phase 2,048 images and 1
              layout round, serving 16 requests of 32 new tokens, [tp
@@ -573,9 +598,31 @@ SP_RUNS = {
 SP_ATTN_SHAPES = [("gpt2", PATH_BATCH, PATH_LEN, 12, 12, 64),
                   ("llama", PATH_BATCH, PATH_LEN, 16, 4, 64)]
 SP_ATTN_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
-# the device and enhanced_cnn width of phase_module_checks' ranks
+# the device and enhanced_cnn width of the module checks' ranks
 GRID_CHECK_DEVICE, GRID_CHECK_WIDTH = "cuda", 64
-SP_PHASE = "sp"                 # the sp phases alone
+SP_PHASE = "sp"                 # the 2-process phases alone (sp and pp)
+PP_PHASE = "pp"                 # the same
+# phase pp gpt2: the gpt2 path as two pipeline stages (data=1,pipe=2: 6 of
+# the 12 blocks a stage, the embeddings on stage 0, the head and the loss
+# on stage 1) on 2 processes of the card, flash attention.  Every stage
+# hop stages through pinned host memory, so the numbers measure the
+# staging, not the speed of pipeline parallelism.  The fp32 pairs: one
+# round of 2 steps (M = 2, microbatch [32,128]) under each schedule
+# against the data=1 twin; the bf16 runs: M = 4 (microbatch [16,128]), one
+# probe batch and 256 training sequences (4 steps).  The one-step module
+# checks run full-width fp32 on 8 sequences (M = 2); the toy schedule
+# checks on JAX tests/test_pp.py's tanh stages.
+PP_MESH = ["--mesh_shape", "data=1,pipe=2"]
+PP_STAGES, PP_STAGE_LAYERS = 2, 6
+PP_SCHEDULES = ("gpipe", "1f1b")
+PP_FP32 = SP_FP32
+PP_CUT = ["--limit_train_samples", "320", "--limit_eval_samples", "64",
+          "--probe_batches", "1", "--pp_microbatches", "4"]
+# a stage's parameters: 6 blocks of 7,087,872 and the 1,555,968 every stage
+# holds (the token and position tables, ln_f), of the worker's 86,610,432
+PP_RANK_PARAMS, GPT2_PARAMS = 44_083_200, 86_610_432
+PP_MODULE_BATCH = 8
+PP_TOY_ATOL = 1e-5              # fp32, TF32 off: the same sums in order
 # phase sanitize: each path cut to 2 rounds of a few steps (argparse keeps
 # a flag's last value)
 _SMALL = ["--epochs_global", "2", "--epochs_local", "1", "--probe_batches",
@@ -624,10 +671,12 @@ SHAPES = [
     ("tp_gpt2", PATH_BATCH, PATH_LEN, 6, 6, 64, True),
     ("tp_llama", PATH_BATCH, PATH_LEN, 8, 2, 64, True),
     ("tp_fsdp_bert", PATH_BATCH // 2, PATH_LEN, 6, 6, 64, False),
+    # a pipeline stage's microbatch: gpt2 at pipe 2, --pp_microbatches 4
+    ("pp_gpt2", PATH_BATCH // 4, PATH_LEN, 12, 12, 64, True),
 ]
 # shapes whose numbers every kernel's JSON row carries beside its path's
 ROW_SHAPES = ("bert_path", "vit_path", "draft_path", "sim_path", "tp_gpt2",
-              "tp_llama", "tp_fsdp_bert")
+              "tp_llama", "tp_fsdp_bert", "pp_gpt2")
 TP_SHAPES = ("tp_gpt2", "tp_llama", "tp_fsdp_bert")
 # Tolerances, as max |kernel - plain| / max |plain| on bf16 inputs (the
 # plain version computes in fp32 on the same bf16 values).  O and the
@@ -3710,15 +3759,17 @@ def phase_elastic() -> dict:
 # The rank grid: --mesh_shape data=D,fsdp=F,model=T
 # ----------------------------------------------------------------------
 
-def grid_run(tag: str, argv: list[str]):
+def grid_run(tag: str, argv: list[str], runner=None):
     """main.run(argv) with this process's launch counters reset just
-    before; returns (results, wall s)."""
+    before, or, given ``runner`` (main.run_shared's), the shared start's
+    next job, whose launch line is ``argv``; returns (results, wall s)."""
     import torch
     from importlib import import_module
     import_module(f"{PKG}.ops.flash").reset_launch_counts()
     _peak_reset()
     t0 = time.perf_counter()
-    results = import_module(f"{PKG}.main").run(argv)
+    results = (import_module(f"{PKG}.main").run(argv) if runner is None
+               else runner())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not all(math.isfinite(x) for x in results["global_train_losses"]):
@@ -3821,14 +3872,17 @@ def data_lines(tag: str, results: dict, wall: float) -> None:
 
 
 def grid_parity(tag: str, twin_argv: list[str], grid_argv: list[str],
-                rtol: float = GRID_RTOL) -> dict:
+                rtol: float = GRID_RTOL, runner=None, twin=None) -> dict:
     """The fp32 pair: the grid run's global train and val losses against
     its data-only twin's at ``rtol``; both runs' per-rank (per-worker)
-    step ms and memory printed side by side."""
+    step ms and memory printed side by side.  ``runner``: the grid run is
+    a shared start's next job (the twin, one process, runs here first);
+    ``twin``: an earlier run of the twin, reused."""
     import numpy as np
-    twin, twin_wall = grid_run(tag, twin_argv)
-    data_lines(f"{tag} fp32 data-only twin", twin, twin_wall)
-    grid, wall = grid_run(tag, grid_argv)
+    if twin is None:
+        twin, twin_wall = grid_run(tag, twin_argv)
+        data_lines(f"{tag} fp32 data-only twin", twin, twin_wall)
+    grid, wall = grid_run(tag, grid_argv, runner)
     grid_lines(f"{tag} fp32", grid, wall)
     for k in ("global_train_losses", "global_val_losses"):
         a, b = np.asarray(grid[k]), np.asarray(twin[k])
@@ -3841,23 +3895,30 @@ def grid_parity(tag: str, twin_argv: list[str], grid_argv: list[str],
     return grid
 
 
-def phase_tp_gpt2() -> dict:
+def tp_gpt2_argvs() -> tuple:
+    """[tp gpt2]'s launch lines: the fp32 pair's data-only twin (2 worker
+    processes) and grid run, and the timed bf16 run."""
+    argv = PATHS["gpt2"][0]
+    small = [*argv, *TP_GPT2_FP32]
+    return ([*small, "--num_workers", "2"], [*small, *TP_GPT2_MESH],
+            [*argv, *TP_GPT2_CUT, *TP_GPT2_MESH])
+
+
+def phase_tp_gpt2(runner, twin: dict) -> dict:
     """[tp gpt2]: the gpt2 path on data=2,model=2 (4 processes): the fp32
-    pair against --num_workers 2, both timed, then the bf16 run timed;
-    in both grid runs every rank launches each kernel (the fp32 instance,
-    then the tensor-core one) once per layer per pass.  Returns the bf16
-    run's rank-0 counts."""
-    argv, layers = PATHS["gpt2"]
+    pair against --num_workers 2 (``twin``, run in the 2-process start),
+    both timed, then the bf16 run timed; in both grid runs every rank
+    launches each kernel (the fp32 instance, then the tensor-core one)
+    once per layer per pass.  The grid runs are ``runner``'s next two
+    jobs.  Returns the bf16 run's rank-0 counts."""
+    layers = PATHS["gpt2"][1]
     tag = "[tp gpt2]"
     t0 = time.perf_counter()
-    small = [*argv, *TP_GPT2_FP32]
-    fp32 = grid_parity(tag, [*small, "--num_workers", "2"],
-                       [*small, *TP_GPT2_MESH])
-    check_grid_launches(f"{tag} fp32", fp32, layers,
-                        [*small, *TP_GPT2_MESH])
+    _twin_argv, fp32_argv, argv = tp_gpt2_argvs()
+    fp32 = grid_parity(tag, None, fp32_argv, runner=runner, twin=twin)
+    check_grid_launches(f"{tag} fp32", fp32, layers, fp32_argv)
     del fp32
-    argv = [*argv, *TP_GPT2_CUT, *TP_GPT2_MESH]
-    tp, wall = grid_run(tag, argv)
+    tp, wall = grid_run(tag, argv, runner)
     check_losses("tp gpt2", tp)
     counts = check_grid_launches(tag, tp, layers, argv)
     grid_lines(tag, tp, wall)
@@ -3951,48 +4012,20 @@ def check_sp_attn(jobs: list, results: list) -> None:
                  f"attention beyond {tol}: {err}")
 
 
-def phase_module_checks() -> None:
-    """[fsdp cnn]'s one-step check and [sp attn], in one spawn of 2
-    processes on GRID_CHECK_DEVICE (grid_harness.module_worker makes each
-    job's grid)."""
-    import tempfile
-    import torch
-    from importlib import import_module
-    mesh = import_module(f"{PKG}.mesh")
-    harness = import_module(f"{PKG}.grid_harness")
-    t0 = time.perf_counter()
-    jobs = [fsdp_module_job(GRID_CHECK_WIDTH), *sp_attn_jobs()]
-    with tempfile.TemporaryDirectory() as d:
-        torch.save({"axes": jobs[0]["axes"], "jobs": jobs},
-                   os.path.join(d, "jobs.pt"))
-        store = mesh.new_store_path()
-        try:
-            mesh.join_workers(mesh.spawn_workers(
-                harness.module_worker, 2,
-                (store, os.path.join(d, "jobs.pt"), d, GRID_CHECK_DEVICE),
-                ranks=range(2)), timeout_s=600.0)
-        finally:
-            mesh.remove_store(store)
-        res = [[torch.load(os.path.join(d, f"rank{r}-{i}.pt"),
-                           weights_only=False) for r in range(2)]
-               for i in range(len(jobs))]
-    check_fsdp_module(res[0])
-    check_sp_attn(jobs[1:], res[1:])
-    print(f"[fsdp cnn] + [sp attn] module checks wall "
-          f"{time.perf_counter() - t0:.1f} s")
+def fsdp_cnn_argv() -> list[str]:
+    return [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "fsdp_cnn"),
+            *FSDP_CNN_CUT, *FSDP_CNN_MESH]
 
 
-def phase_fsdp_cnn() -> None:
+def phase_fsdp_cnn(runner) -> None:
     """[fsdp cnn]: the reference's enhanced_cnn run on data=2,fsdp=2 (4
-    processes), bf16 and timed: finite falling losses, BatchNorm
-    statistics equal along fsdp, each rank's parameter and moment bytes
-    against the whole model's (its one-step fp32 check against the dense
-    twin runs in phase_module_checks)."""
+    processes, ``runner``'s next job), bf16 and timed: finite falling
+    losses, BatchNorm statistics equal along fsdp, each rank's parameter
+    and moment bytes against the whole model's (its one-step fp32 check
+    against the dense twin runs with the module checks)."""
     tag = "[fsdp cnn]"
     t0 = time.perf_counter()
-    argv = [*CNN_ARGV[:-1], os.path.join(OUT_DIR, "fsdp_cnn"),
-            *FSDP_CNN_CUT]
-    res, wall = grid_run(tag, [*argv, *FSDP_CNN_MESH])
+    res, wall = grid_run(tag, fsdp_cnn_argv(), runner)
     check_losses("fsdp cnn", res)
     rows = grid_lines(tag, res, wall)
     sums = res["grid"]["buffer_checksums"]
@@ -4010,20 +4043,24 @@ def phase_fsdp_cnn() -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def phase_tp_fsdp_bert() -> dict:
+def tp_fsdp_bert_argvs() -> tuple:
+    """[tp fsdp bert]'s fp32 pair: the data=1 twin and the grid run."""
+    small = [*PATHS["bert"][0], *GRID_FP32, "--limit_train_samples", "320",
+             "--limit_eval_samples", "64"]
+    return [*small, "--mesh_shape", "data=1"], [*small, *TP_FSDP_BERT_MESH]
+
+
+def phase_tp_fsdp_bert(runner) -> dict:
     """[tp fsdp bert]: bert_base MLM on data=1,fsdp=2,model=2 (4
-    processes): the fp32 pair against data=1, both timed, every rank of
-    the grid run launching each kernel (its fp32 instance) once per layer
-    per pass."""
-    argv, layers = PATHS["bert"]
+    processes, ``runner``'s next job): the fp32 pair against data=1, both
+    timed, every rank of the grid run launching each kernel (its fp32
+    instance) once per layer per pass."""
+    layers = PATHS["bert"][1]
     tag = "[tp fsdp bert]"
     t0 = time.perf_counter()
-    small = [*argv, *GRID_FP32, "--limit_train_samples", "320",
-             "--limit_eval_samples", "64"]
-    grid = grid_parity(tag, [*small, "--mesh_shape", "data=1"],
-                       [*small, *TP_FSDP_BERT_MESH])
-    counts = check_grid_launches(tag, grid, layers,
-                                 [*small, *TP_FSDP_BERT_MESH])
+    twin_argv, grid_argv = tp_fsdp_bert_argvs()
+    grid = grid_parity(tag, twin_argv, grid_argv, runner=runner)
+    counts = check_grid_launches(tag, grid, layers, grid_argv)
     print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
     return counts
 
@@ -4046,23 +4083,32 @@ def phase_tp_llama() -> dict:
     return result["counts"]
 
 
-def phase_sp(path: str) -> None:
+def sp_argvs(path: str) -> tuple:
+    """[sp <path>]'s launch lines: the fp32 pair's data-only twin and grid
+    run, and the timed bf16 run under --sanitize."""
+    argv, _layers = PATHS[path]
+    _tag, mesh_argv, cut = SP_RUNS[path]
+    argv = [*argv, "--attention_impl", "dense", "--out_dir",
+            os.path.join(OUT_DIR, f"sp_{path}")]
+    small = [*argv, *SP_FP32]
+    return ([*small, "--mesh_shape", "data=1"], [*small, *mesh_argv],
+            [*argv, *cut, *mesh_argv, "--sanitize"])
+
+
+def phase_sp(path: str, runner) -> None:
     """[sp gpt2] / [sp bert]: the path on a seq line of 2 processes with
     its --sequence_parallel mode and dense attention: the fp32 pair (one
     round) against the data=1 twin, both timed, then the bf16 run timed
     under --sanitize (the parameters checked bitwise equal along seq after
-    the round, no implicit sync); no rank launches a flash kernel."""
+    the round, no implicit sync); no rank launches a flash kernel.  The
+    2-process runs are ``runner``'s next two jobs."""
     from importlib import import_module
     fl = import_module(f"{PKG}.ops.flash")
-    argv, _layers = PATHS[path]
-    tag, mesh_argv, cut = SP_RUNS[path]
+    tag = SP_RUNS[path][0]
     t0 = time.perf_counter()
-    argv = [*argv, "--attention_impl", "dense", "--out_dir",
-            os.path.join(OUT_DIR, f"sp_{path}")]
-    small = [*argv, *SP_FP32]
-    grid_parity(tag, [*small, "--mesh_shape", "data=1"],
-                [*small, *mesh_argv])
-    res, wall = grid_run(tag, [*argv, *cut, *mesh_argv, "--sanitize"])
+    twin_argv, grid_argv, bf16_argv = sp_argvs(path)
+    grid_parity(tag, twin_argv, grid_argv, runner=runner)
+    res, wall = grid_run(tag, bf16_argv, runner)
     check_losses(f"sp {path}", res)
     rows = grid_lines(tag, res, wall)
     g = res["grid"]
@@ -4082,31 +4128,320 @@ def phase_sp(path: str) -> None:
           f"implicit syncs; phase wall {time.perf_counter() - t0:.1f} s")
 
 
-def phase_grid() -> dict:
-    """The rank grid's phases; returns their rank-0 launch counts."""
-    counts = {"tp_gpt2": phase_tp_gpt2()}
-    counts["tp_fsdp_bert"] = phase_tp_fsdp_bert()
-    phase_module_checks()
-    phase_fsdp_cnn()
-    for path in SP_RUNS:
-        phase_sp(path)
+def pp_argvs(schedule: str) -> tuple:
+    """[pp gpt2]'s launch lines under ``schedule``: the fp32 grid run (its
+    twin is the data=1 line of ``pp_twin_argv``) and the timed bf16 run."""
+    argv, _layers = PATHS["gpt2"]
+    argv = [*argv, "--out_dir", os.path.join(OUT_DIR, f"pp_{schedule}"),
+            "--pp_schedule", schedule]
+    return [*argv, *PP_FP32, *PP_MESH], [*argv, *PP_CUT, *PP_MESH]
+
+
+def pp_twin_argv() -> list[str]:
+    argv, _layers = PATHS["gpt2"]
+    return [*argv, "--out_dir", os.path.join(OUT_DIR, "pp_twin"),
+            *PP_FP32, "--mesh_shape", "data=1"]
+
+
+def pp_toy_jobs() -> list:
+    """The schedules on 2 processes of the card (grid_harness.
+    pp_schedule_job, JAX tests/test_pp.py's matmul stages and head, 4
+    microbatches of 2 x 16): each against the stages run in turn in the
+    rank."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(PP_STAGES, 16, 16)) * 0.3).astype(np.float32)
+    head = (rng.normal(size=(16, 3)) * 0.3).astype(np.float32)
+    xs = rng.normal(size=(4, 2, 16)).astype(np.float32)
+    tgt = rng.normal(size=(4, 2, 3)).astype(np.float32)
+    return [dict(kind="pp", axes={"data": 1, "pipe": PP_STAGES},
+                 schedule=schedule, xs=xs, w=w, head=head, tgt=tgt,
+                 summary=True) for schedule in PP_SCHEDULES]
+
+
+def pp_module_jobs() -> list:
+    """[pp gpt2]'s one-step checks (grid_harness.module_job on
+    data=1,pipe=2): full-width gpt2_small in fp32 with flash attention,
+    its seeded init (the same on both ranks), M = 2 microbatches of
+    PP_MODULE_BATCH / 2 random sequences, under each schedule: the last
+    stage's logits and the joined gradients against the dense twin."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    b = PP_MODULE_BATCH
+    argv = PATHS["gpt2"][0]
+    model = argv[argv.index("--model") + 1]
+    return [dict(model=model, vocab=1000, axes={"data": 1,
+                                                "pipe": PP_STAGES},
+                 schedule=schedule, summary=True,
+                 kw=dict(attention_impl="flash", pp_schedule=schedule,
+                         pp_microbatches=2,
+                         mesh_shape=f"data=1,pipe={PP_STAGES}"),
+                 x=rng.integers(0, 1000, (b, PATH_LEN)),
+                 y=rng.integers(0, 1000, (b, PATH_LEN)),
+                 m=np.ones(b, np.float32)) for schedule in PP_SCHEDULES]
+
+
+def check_pp_toy(jobs: list, results: list) -> None:
+    """The toy schedules: every piece within PP_TOY_ATOL of the stages
+    run in turn; each stage's microbatches in flight at its bound (M
+    under GPipe, min(P - s, M) under 1F1B)."""
+    for job, ranks in zip(jobs, results):
+        err = max(max(r["errors"].values()) for r in ranks)
+        flight = [r["in_flight"] for r in ranks]
+        bound = [r["in_flight_bound"] for r in ranks]
+        print(f"[pp toy] {job['schedule']} on {PP_STAGES} processes, 4 "
+              f"microbatches: max abs err {err:.3g} (gate {PP_TOY_ATOL}); "
+              f"in flight by stage {flight} (bound {bound}); "
+              f"{max(r['ms'] for r in ranks):.3f} ms")
+        if not (err <= PP_TOY_ATOL and flight == bound):
+            fail(f"[pp toy] {job['schedule']}: differs from the stages in "
+                 f"turn ({err}) or held {flight} microbatches, not {bound}")
+
+
+def check_pp_module(jobs: list, results: list) -> None:
+    """[pp gpt2]'s one-step checks: the last stage's logits and the
+    worker's joined gradients against the dense twin, at the grid's
+    gates."""
+    for job, ranks in zip(jobs, results):
+        e_logits = max(r["logits_err"] for r in ranks)
+        e_grads = max(r["grads_err"] for r in ranks)
+        print(f"[pp gpt2] one fp32 step at data=1,pipe={PP_STAGES}, "
+              f"{job['schedule']}, M=2, {ranks[0]['sharded']} of "
+              f"{ranks[0]['leaves']} leaves cut into stages: logits max "
+              f"abs err {e_logits:.3g} (gate {GRID_LOGITS_ATOL}), gradients "
+              f"max abs err {e_grads:.3g} (gate {GRID_GRAD_ATOL}) against "
+              "the dense twin")
+        if not (e_logits <= GRID_LOGITS_ATOL and e_grads <= GRID_GRAD_ATOL):
+            fail(f"pp gpt2 ({job['schedule']}): the staged step differs "
+                 "from its dense twin")
+
+
+def check_pp_run(tag: str, res: dict, schedule: str, m: int,
+                 argv: list[str], wall: float) -> dict:
+    """A [pp gpt2] run's gates and lines: every rank's flash launches =
+    its 6 blocks x its passes (each step's M microbatch forwards and
+    backwards, each validation step's M forwards) + the dense twin's 12
+    blocks x the probe's passes; the replicated leaves checked bitwise
+    equal along pipe after every round; the microbatches in flight (M
+    under GPipe, at most P - s on stage s under 1F1B); each rank's
+    parameter and moment bytes its stage's share.  Prints per rank the
+    step ms and tokens/s, hop ms and bytes per pass, the replicated
+    all-reduce, the microbatches in flight, state bytes and peak memory.
+    Returns rank 0's launch counts."""
+    from importlib import import_module
+    fused = import_module(f"{PKG}.ops.flash")._use_fused_bwd()
+    probe = 1 + import_module(f"{PKG}.config").config_from_args(
+        argv).probe_batches
+    g, rt = res["grid"], res["round_timings"]
+    for r in range(g["ranks"]):
+        s = g["coords_of"][r]["pipe"]
+        train, val = g["steps"][r]
+        grad = 2 * PP_STAGE_LAYERS * probe + PP_STAGE_LAYERS * m * train
+        want = {"flash_fwd": 2 * PP_STAGE_LAYERS * probe
+                + PP_STAGE_LAYERS * m * (train + val),
+                "flash_bwd_dq": 0 if fused else grad,
+                "flash_bwd_dkv": 0 if fused else grad,
+                "flash_bwd_fused": grad if fused else 0}
+        pp, st = g["pp"][r], g["state_bytes"][r]
+        step_ms = sum(x["ranks_train_ms"][r] for x in rt) / max(train, 1)
+        passes = max(train + val, 1)
+        bound = m if schedule == "gpipe" else min(PP_STAGES - s, m)
+        print(f"{tag} rank {r} stage {s}: launches {g['launches'][r]}; "
+              f"expected {want} (6 blocks x {m} microbatches x {train} "
+              f"train + {val} val steps, 12 blocks x {probe} probe passes)")
+        print(f"{tag} rank {r} stage {s}: train step {step_ms:.3f} ms over "
+              f"{train} steps, {PATH_BATCH * PATH_LEN / step_ms * 1e3:,.0f} "
+              f"tokens/s; hops forward {pp['fwd_ms'] / passes:.3f} ms, "
+              f"{pp['fwd_bytes'] / passes:,.0f} B per pass (train + val), "
+              f"backward {pp['bwd_ms'] / max(train, 1):.3f} ms, "
+              f"{pp['bwd_bytes'] / max(train, 1):,.0f} B per train step; "
+              f"replicated all-reduce {pp['grad_ms'] / max(train, 1):.3f} "
+              f"ms, {pp['grad_bytes'] / max(train, 1):,.0f} B per step; "
+              f"in flight {pp['in_flight']} (bound {bound}), "
+              f"{pp['mem_in_flight'] / 2**30:.2f} GiB allocated at the "
+              f"most; params {st['params']:,} B, Adam moments "
+              f"{st['opt_state']:,} B, {(st['params'] + st['opt_state'] - 4) / 1e6:.1f} MB; "
+              f"max_memory_allocated "
+              f"{max(x['ranks_max_memory_allocated'][r] for x in rt) / 2**30:.2f} GiB")
+        if g["launches"][r] != want:
+            fail(f"{tag}: rank {r}'s launch counts {g['launches'][r]} are "
+                 f"not its passes' {want}")
+        if (pp["in_flight"] > PP_STAGES - s if schedule == "1f1b"
+                else pp["in_flight"] != m):
+            fail(f"{tag}: stage {s} held {pp['in_flight']} microbatches in "
+                 f"flight under {schedule} (M = {m})")
+        if (st["params"], st["opt_state"]) != (4 * PP_RANK_PARAMS,
+                                               8 * PP_RANK_PARAMS + 4):
+            fail(f"{tag}: rank {r} holds {st['params']:,} B of parameters "
+                 f"and {st['opt_state']:,} B of moments, not its stage's "
+                 f"{4 * PP_RANK_PARAMS:,} and {8 * PP_RANK_PARAMS + 4:,}")
+        if not (pp["fwd_calls"] and pp["bwd_calls"] and pp["grad_calls"]):
+            fail(f"{tag}: rank {r} ran no hop or no replicated all-reduce "
+                 f"{pp}")
+    if g["pipe_bitwise_rounds"] != len(rt):
+        fail(f"{tag}: the replicated leaves were checked along pipe after "
+             f"{g['pipe_bitwise_rounds']} of {len(rt)} rounds")
+    print(f"{tag} {g['ranks']} processes {g['axes']} on one card, "
+          f"{schedule}, M={m}: replicated leaves bitwise equal along pipe "
+          f"after {g['pipe_bitwise_rounds']} round(s); stage parameters "
+          f"{PP_RANK_PARAMS:,} of {GPT2_PARAMS:,} "
+          f"({PP_RANK_PARAMS / GPT2_PARAMS:.3f}); wall {wall:.1f} s; losses "
+          f"{res['global_train_losses']}")
+    return g["launches"][0]
+
+
+def phase_pp(runner) -> dict:
+    """[pp gpt2]: the gpt2 path at data=1,pipe=2 with flash attention: the
+    fp32 pair under GPipe and under 1F1B (M = 2) against one data=1 twin,
+    then the bf16 runs at M = 4, each checked by ``check_pp_run``, the
+    bf16 ones' loss falling.  The 2-process runs are ``runner``'s next
+    four jobs.  Returns rank 0's launch counts of the bf16 1F1B run."""
+    tag = "[pp gpt2]"
+    t0 = time.perf_counter()
+    twin, twin_wall = grid_run(tag, pp_twin_argv())
+    data_lines(f"{tag} fp32 data-only twin", twin, twin_wall)
+    for schedule in PP_SCHEDULES:
+        argv = pp_argvs(schedule)[0]
+        t_run = time.perf_counter()
+        res = grid_parity(f"{tag} {schedule}", None, argv, runner=runner,
+                          twin=twin)
+        check_pp_run(f"{tag} {schedule} fp32", res, schedule, PP_STAGES,
+                     argv, time.perf_counter() - t_run)
+        del res
+    del twin
+    counts = None
+    for schedule in PP_SCHEDULES:
+        argv = pp_argvs(schedule)[1]
+        res, wall = grid_run(tag, argv, runner)
+        check_losses(f"pp gpt2 {schedule}", res)
+        counts = check_pp_run(f"{tag} {schedule}", res, schedule, 4, argv,
+                              wall)
+        del res
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
     return counts
 
 
-def sp_alone() -> int:
-    """``python3 chip_smoke.py sp``: the sequence-parallel phases alone (no
-    kernel runs on their path), with [fsdp cnn]'s one-step check, which
-    shares [sp attn]'s spawn."""
+def two_process_jobs(work_dir: str) -> tuple[list, list]:
+    """The jobs of one start of 2 processes (main.run_shared): the module
+    checks (grid_harness.module_worker: [fsdp cnn]'s one step, [sp attn],
+    the toy schedules, [pp gpt2]'s one steps), [tp gpt2]'s data-only twin
+    (2 worker processes), the SP runs (each path's fp32 grid run and bf16
+    run), then the PP runs (the fp32 grid run under each schedule, then
+    the bf16 ones).  Returns ``(jobs, module jobs)``."""
+    import torch
+    from importlib import import_module
+    harness = import_module(f"{PKG}.grid_harness")
+    module = [fsdp_module_job(GRID_CHECK_WIDTH), *sp_attn_jobs(),
+              *pp_toy_jobs(), *pp_module_jobs()]
+    os.makedirs(work_dir, exist_ok=True)
+    spec = os.path.join(work_dir, "jobs.pt")
+    torch.save({"axes": module[0]["axes"], "jobs": module}, spec)
+    jobs = [(harness.module_worker, (spec, work_dir, GRID_CHECK_DEVICE)),
+            tp_gpt2_argvs()[0]]
+    for path in SP_RUNS:
+        jobs += list(sp_argvs(path)[1:])
+    jobs += [pp_argvs(s)[0] for s in PP_SCHEDULES]
+    jobs += [pp_argvs(s)[1] for s in PP_SCHEDULES]
+    return jobs, module
+
+
+def module_outputs(d: str, n: int, count: int) -> list:
+    """Every rank's result of each of ``count`` module jobs in ``d``, once
+    all are there (written by rename)."""
+    import torch
+    names = [f"rank{r}-{i}.pt" for i in range(count) for r in range(n)]
+    t0 = time.perf_counter()
+    while not all(os.path.exists(os.path.join(d, x)) for x in names):
+        if time.perf_counter() - t0 > 120.0:
+            fail(f"module check outputs missing in {d}")
+        time.sleep(0.05)
+    return [[torch.load(os.path.join(d, f"rank{r}-{i}.pt"),
+                        weights_only=False) for r in range(n)]
+            for i in range(count)]
+
+
+def phase_two_process() -> tuple[dict, dict]:
+    """The 2-process phases from ONE start of their ranks: the module
+    checks ([fsdp cnn]'s one step, [sp attn], [pp toy], [pp gpt2]'s one
+    steps) on GRID_CHECK_DEVICE, [tp gpt2]'s data-only twin, [sp gpt2],
+    [sp bert], [pp gpt2].  The module checks run with TF32 off in this
+    process, restored after.  Returns [pp gpt2]'s rank-0 launch counts and
+    the twin's losses and round timings."""
+    import torch
+    from importlib import import_module
+    main = import_module(f"{PKG}.main")
+    t0 = time.perf_counter()
+    work = os.path.join(OUT_DIR, "two_process")
+    shutil.rmtree(work, ignore_errors=True)
+    jobs, module = two_process_jobs(work)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    with main.run_shared(jobs) as runner:
+        runner()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+        res = module_outputs(work, 2, len(module))
+        kinds = [j.get("kind", "module") for j in module]
+        check_fsdp_module(res[0])
+        check_sp_attn([j for j in module if j.get("kind") == "sp"],
+                      [r for r, k in zip(res, kinds) if k == "sp"])
+        check_pp_toy([j for j in module if j.get("kind") == "pp"],
+                     [r for r, k in zip(res, kinds) if k == "pp"])
+        check_pp_module(module[-len(PP_SCHEDULES):],
+                        res[-len(PP_SCHEDULES):])
+        print(f"[fsdp cnn] + [sp attn] + [pp toy] + [pp gpt2] module checks "
+              f"wall {time.perf_counter() - t0:.1f} s")
+        res, wall = grid_run("[tp gpt2]", tp_gpt2_argvs()[0], runner)
+        data_lines("[tp gpt2] fp32 data-only twin", res, wall)
+        twin = {k: res[k] for k in ("global_train_losses",
+                                    "global_val_losses", "round_timings",
+                                    "sync_engine")}
+        del res
+        for path in SP_RUNS:
+            phase_sp(path, runner)
+        counts = phase_pp(runner)
+    print(f"[two-process] {len(jobs)} jobs from one start of 2 processes "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return counts, twin
+
+
+def phase_grid() -> dict:
+    """The rank grid's phases, from one start of 2 processes (the module
+    checks, [tp gpt2]'s data-only twin, SP and PP) and one of 4 ([tp
+    gpt2]'s fp32 grid and bf16 runs, [tp fsdp bert]'s grid run, [fsdp
+    cnn]); returns their rank-0 launch counts."""
+    from importlib import import_module
+    main = import_module(f"{PKG}.main")
+    counts = {}
+    counts["pp_gpt2"], twin = phase_two_process()
+    t0 = time.perf_counter()
+    jobs = [*tp_gpt2_argvs()[1:], tp_fsdp_bert_argvs()[1], fsdp_cnn_argv()]
+    with main.run_shared(jobs) as runner:
+        counts["tp_gpt2"] = phase_tp_gpt2(runner, twin)
+        counts["tp_fsdp_bert"] = phase_tp_fsdp_bert(runner)
+        phase_fsdp_cnn(runner)
+    print(f"[grid] {len(jobs)} jobs from one start of 4 processes in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def two_process_alone() -> int:
+    """``python3 chip_smoke.py sp`` (or ``pp``): the 2-process phases alone
+    (module checks, sp gpt2, sp bert, pp gpt2), with the kernels built
+    and the pipeline stage's microbatch shape checked."""
     import torch
     os.environ.pop("FLASH_BWD", None)
     t0 = time.perf_counter()
     phase_device()
+    phase_build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_module_checks()
-    for path in SP_RUNS:
-        phase_sp(path)
-    print(f"[sp] phases wall {time.perf_counter() - t0:.1f} s")
+    for shape in SHAPES:
+        if shape[0] == "pp_gpt2":
+            check_shape(*shape)
+    counts, _twin = phase_two_process()
+    print(json.dumps({"pp_counts": counts}))
+    print(f"[two-process] phases wall {time.perf_counter() - t0:.1f} s")
     return 0
 
 
@@ -4120,7 +4455,7 @@ def grid_alone() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for shape in SHAPES:
-        if shape[0] in TP_SHAPES:
+        if shape[0] in (*TP_SHAPES, "pp_gpt2"):
             check_shape(*shape)
     counts = phase_grid()
     counts["tp_llama"] = phase_tp_llama()
@@ -4136,8 +4471,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [GRID_PHASE]:
         return grid_alone()
-    if sys.argv[1:] == [SP_PHASE]:
-        return sp_alone()
+    if sys.argv[1:] in ([SP_PHASE], [PP_PHASE]):
+        return two_process_alone()
     if sys.argv[1:] == [ELASTIC_PHASE]:
         return deterministic_child(overlap=False, elastic=True)
     if sys.argv[1:] == [OVERLAP_PHASE]:
@@ -4240,8 +4575,8 @@ def main() -> int:
     lap("sim")
     counts.update(phase_grid())
     counts["tp_llama"] = GRID_COUNTS["tp_llama"]
-    lap("grid (tp gpt2, tp fsdp bert, fsdp cnn, sp attn, sp gpt2, sp "
-        "bert)")
+    lap("grid (one start of 2: module checks, sp gpt2, sp bert, pp gpt2; "
+        "one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
     phase_elastic()
     lap("elastic child (overlap, elastic)")
     phase_memory()

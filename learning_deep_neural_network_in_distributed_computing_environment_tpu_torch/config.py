@@ -14,21 +14,18 @@ import dataclasses
 
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default is rejected in Config.__post_init__.
-_PIPE = "A.11 item 4c (pipeline parallelism: GPipe, 1F1B, --pp_*)"
-_EXPERT = ("A.11 item 4d (the expert axis, MoE under model/fsdp, and "
+_EXPERT = ("A.11 item 4d (the expert axis, MoE under model/fsdp/pipe, and "
            "elastic/chaos/staleness over the rank grid)")
 NOT_PORTED = {
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
                            "which is what auto gives; weights.py converts "
                            "both JAX layouts)"),
-    "pp_schedule": ("gpipe", _PIPE),
-    "pp_microbatches": (0, _PIPE),
-    "pp_remat": (False, _PIPE),
 }
 # the --mesh_shape axes the port runs (JAX mesh.py's names), and the ROADMAP
 # item of each axis it refuses
-MESH_AXES = ("data", "fsdp", "seq", "model")
-REFUSED_AXES = {"pipe": _PIPE, "expert": _EXPERT}
+MESH_AXES = ("data", "fsdp", "seq", "pipe", "model")
+REFUSED_AXES = {"expert": _EXPERT}
+PP_SCHEDULES = ("gpipe", "1f1b")
 SEQUENCE_PARALLEL = ("none", "ring", "ring_zigzag", "all_to_all")
 
 
@@ -157,7 +154,7 @@ class Config:
     sanitize: bool = False
     overlap_rounds: bool = True   # --no_overlap_rounds: the serial flow
 
-    # the rank grid: data x fsdp x seq x model (mesh.Grid); data=-1 is
+    # the rank grid: data x fsdp x seq x pipe x model (mesh.Grid); data=-1 is
     # --num_workers' count
     mesh_shape: str = "data=-1"
     # the attention of the train module over the seq axis: none | ring |
@@ -170,11 +167,14 @@ class Config:
     # outer wire ("" inherits --sync_dtype)
     num_slices: int = 1
     sync_dtype_outer: str = ""
-    # --- flags of features not ported yet (see NOT_PORTED) ------------------
-    layer_scan: str = "auto"
+    # pipeline parallelism over the pipe axis (JAX config.py:97-104;
+    # parallel/pp.py): the schedule, the microbatches per step (0 => the
+    # pipe size) and --remat_policy everything's alias under a pipe axis
     pp_schedule: str = "gpipe"
     pp_microbatches: int = 0
     pp_remat: bool = False
+    # --- flags of features not ported yet (see NOT_PORTED) ------------------
+    layer_scan: str = "auto"
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
@@ -190,6 +190,7 @@ class Config:
         _choices("attention_impl", self.attention_impl, ("dense", "flash"))
         _choices("sequence_parallel", self.sequence_parallel,
                  SEQUENCE_PARALLEL)
+        _choices("pp_schedule", self.pp_schedule, PP_SCHEDULES)
         _choices("compute_dtype", self.compute_dtype,
                  ("bfloat16", "float32"))
         _choices("device", self.device, (None, "cuda", "cpu"))
@@ -868,6 +869,7 @@ class Config:
                 f"--mesh_shape data={data} and --num_workers "
                 f"{self.num_workers} disagree: give one worker count (data=-1 "
                 "takes --num_workers')")
+        self._check_pipe(axes)
         self._check_seq(axes)
         inner = self.inner_axes()
         if not inner:
@@ -884,12 +886,23 @@ class Config:
             raise ValueError(
                 f"--batch_size {self.batch_size} must be divisible by the "
                 f"'fsdp' axis size {fsdp} (the batch splits over it)")
+        pp = inner.get("pipe", 1)
+        mb = self.pp_microbatches or pp
+        if pp > 1 and fsdp > 1 and mb > 1 and (self.batch_size // fsdp) % mb:
+            raise ValueError(
+                f"per-fsdp-slice batch {self.batch_size // fsdp} must "
+                f"be divisible by {mb} pipeline microbatches")
         per_dev = self.batch_size // fsdp
         if self.grad_accum > 1 and per_dev % self.grad_accum:
             raise ValueError(
                 f"per-device batch {per_dev} (batch_size {self.batch_size}"
                 f"{f' / fsdp {fsdp}' if fsdp > 1 else ''}) must be "
                 f"divisible by --grad_accum {self.grad_accum}")
+        if (self.grad_accum > 1 and pp > 1
+                and (per_dev // self.grad_accum) % mb):
+            raise ValueError(
+                f"per-accumulation-slice batch {per_dev // self.grad_accum} "
+                f"must be divisible by {mb} pipeline microbatches")
         # what the JAX package runs under inner axes and the port does not
         # yet: each is refused, naming its ROADMAP item
         for on, what in ((self.num_experts > 0, "--num_experts"),
@@ -900,6 +913,52 @@ class Config:
                     f"{what} under the inner mesh axes {inner} (--mesh_shape"
                     f" {self.mesh_shape!r}) is not ported to the PyTorch "
                     f"package yet; it arrives with ROADMAP queue {_EXPERT}")
+
+    def _check_pipe(self, axes: dict) -> None:
+        """The JAX driver's checks of the pipe axis and the ``--pp_*``
+        flags (``driver.py:504-548``, ``models/bert.py:231-233``), with its
+        messages and in its order; the per-fsdp-slice and
+        per-accumulation-slice checks follow in ``_check_mesh``, and
+        ``--pp_remat`` without a pipe axis, which JAX's config takes, is
+        refused where JAX refuses it, when a run starts
+        (``driver.train_global``)."""
+        pp = axes.get("pipe", 1)
+        from .models import is_attention_model
+        if self.pp_schedule == "1f1b":
+            if pp <= 1:
+                raise ValueError(
+                    "--pp_schedule 1f1b applies under pipeline parallelism "
+                    "(a 'pipe' mesh axis of size >= 2)")
+            if not self.model.startswith(("bert", "gpt", "llama", "vit")):
+                raise NotImplementedError(
+                    "--pp_schedule 1f1b supports bert_*/gpt_*/llama_*/vit_* "
+                    "(the per-microbatch head+loss runs inside the "
+                    "schedule)")
+        if pp <= 1:
+            return
+        if not is_attention_model(self.model):
+            raise ValueError(
+                "a 'pipe' mesh axis (pipeline parallelism) applies to "
+                "attention models (bert_*/gpt_*/vit_*/llama_*); got "
+                f"--model {self.model}")
+        mb_count = self.pp_microbatches or pp
+        if self.batch_size % mb_count:
+            raise ValueError(
+                f"--batch_size {self.batch_size} must be divisible by the "
+                f"{mb_count} pipeline microbatches (--pp_microbatches, 0 => "
+                f"the 'pipe' axis size {pp})")
+        from .models import num_layers_of
+        layers = num_layers_of(self.model)
+        if layers % pp:
+            raise ValueError(f"num_layers {layers} not divisible by pp_size "
+                             f"{pp}")
+
+    def resolve_remat_policy(self) -> str:
+        """``--remat_policy``, with ``--pp_remat`` its ``everything`` alias
+        (JAX ``driver.py:488-492``)."""
+        if self.pp_remat and self.remat_policy == "none":
+            return "everything"
+        return self.remat_policy
 
     def _check_seq(self, axes: dict) -> None:
         """The JAX driver's checks of ``--sequence_parallel``
@@ -1285,9 +1344,21 @@ def build_argparser() -> argparse.ArgumentParser:
                         "cache; the port compiles nothing ahead of time")
     p.add_argument("--mesh_shape", type=str, default=d.mesh_shape,
                    help="the rank grid, e.g. data=2,fsdp=2,model=2: each "
-                        "of the data workers is fsdp x seq x model "
+                        "of the data workers is fsdp x seq x pipe x model "
                         "processes (ZeRO-3 over fsdp, sequence parallelism "
-                        "over seq, tensor parallelism over model)")
+                        "over seq, pipeline stages over pipe, tensor "
+                        "parallelism over model)")
+    p.add_argument("--pp_microbatches", type=int, default=d.pp_microbatches,
+                   help="pipeline microbatches per step when the mesh has a "
+                        "pipe axis (0 = pipe size)")
+    p.add_argument("--pp_schedule", default=d.pp_schedule,
+                   choices=list(PP_SCHEDULES),
+                   help="pipeline schedule: gpipe (all forwards, then all "
+                        "backwards) | 1f1b (one forward, one backward: at "
+                        "most pipe - s microbatches in flight on stage s)")
+    p.add_argument("--pp_remat", action="store_true", default=d.pp_remat,
+                   help="recompute each block in the backward under "
+                        "pipeline parallelism: --remat_policy everything")
     p.add_argument("--sequence_parallel", default=d.sequence_parallel,
                    choices=list(SEQUENCE_PARALLEL),
                    help="the train module's attention over the 'seq' mesh "

@@ -62,8 +62,9 @@ of poisoned sync contributions with escalation to a departure.  The
 per-worker metric lists are keyed by logical worker id, and
 ``results["elastic"]`` carries JAX's keys plus the roster of every round.
 
-On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq`` or ``model``;
-JAX ``driver.py:579-736``) the world of D x F x S x T processes is cut by
+On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq``, ``pipe`` or
+``model``; JAX ``driver.py:459-736``) the world of D x F x S x P x T
+processes is cut by
 ``mesh.make_grid`` into per-axis gloo groups: each worker is the block of
 ranks with one data coordinate, and everything above keyed by worker runs
 on the data line (``group``) with one answer per worker that every rank
@@ -73,13 +74,17 @@ metrics are gathered over every rank (``LocalSGDEngine.finish_metrics``).
 Each rank builds the dense twin from the seed (the init, the probe), its
 module (tensor-parallel over ``model``; with ``--sequence_parallel`` its
 attention runs over the ``seq`` line; without it the seq ranks are
-replicas of the whole step, as in JAX) and its shards of the dense twin's
+replicas of the whole step, as in JAX; over ``pipe`` its stage's L/P
+blocks, the microbatches of each step run by ``--pp_schedule``) and its
+shards of the dense twin's
 parameters (``parallel.shards.GridParams``); the dense twin's parameters
 are released after the probe and get the worker's whole parameters back
 at the end, for the final evaluation.  Under ``--sanitize`` (or
 ``round_checksums``) the parameters are checked bitwise equal along
-``seq`` after every round.  ``results["grid"]`` has the axes, every rank's
-state bytes and its TP, FSDP and SP collective counters.
+``seq`` after every round; the leaves every pipe stage holds are checked
+bitwise equal along ``pipe`` after every round.  ``results["grid"]`` has
+the axes, every rank's state bytes and its TP, FSDP, SP and PP
+counters.
 
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
@@ -196,7 +201,8 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
 
 
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
-                    input_shape: tuple | None = None, tp=None, sp=None):
+                    input_shape: tuple | None = None, tp=None, sp=None,
+                    num_layers: int | None = None):
     """The registry model at the configured compute dtype (and, for
     transformers, attention, remat policy and MoE FFN), initialized from
     ``cfg.seed`` with a generator on
@@ -206,7 +212,8 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     (the rank's ``model`` line) builds a transformer's tensor-parallel
     shard; its init is not the dense model's (``GridParams`` fills it).
     ``sp`` (the rank's ``seq`` line) builds a token model whose attention
-    is ``--sequence_parallel``'s over that line."""
+    is ``--sequence_parallel``'s over that line.  ``num_layers`` builds a
+    transformer with that many blocks: a pipeline stage's module."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
@@ -216,13 +223,14 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     # the JAX driver's rules for the transformer knobs (driver.py:465-505,
     # 580-595): remat applies to the blocks of a transformer; the CNNs
     # have no blocks and run unrolled
-    if cfg.remat_policy != "none":
+    remat_policy = cfg.resolve_remat_policy()
+    if remat_policy != "none":
         if not attention:
             raise ValueError(
-                f"--remat_policy {cfg.remat_policy} applies to the layer "
+                f"--remat_policy {remat_policy} applies to the layer "
                 "stack of a homogeneous-block model (bert_*/gpt_*/llama_*/"
                 f"vit_*); --model {cfg.model} runs unrolled")
-        kw["remat_policy"] = cfg.remat_policy
+        kw["remat_policy"] = remat_policy
     if cfg.grad_accum > 1 and not attention:
         raise ValueError(
             f"--grad_accum applies to attention models (bert_*/gpt_*/"
@@ -253,6 +261,8 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw["input_shape"] = tuple(input_shape)
     if tp is not None:
         kw["tp"] = tp
+    if num_layers is not None:
+        kw["num_layers"] = num_layers
     if sp is not None:
         # JAX driver.py:733-736: the train module's attention is the
         # sequence-parallel one (the dense twin keeps --attention_impl)
@@ -511,6 +521,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
+    if cfg.pp_remat and "pipe" not in cfg.inner_axes():
+        # JAX driver.py:460-464 (its config takes the flag)
+        raise ValueError(
+            "--pp_remat applies under pipeline parallelism (a 'pipe' "
+            "mesh axis of size >= 2); without one the flag would "
+            "silently do nothing — use --remat_policy with --layer_scan "
+            "instead")
     if cfg.num_slices > 1 and elastic_snapshot is not None:
         raise ValueError(
             "elastic_snapshot cannot combine with --num_slices > 1 in "
@@ -530,11 +547,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         grid = mesh.make_grid(group, mesh.grid_axes(cfg))
         group = grid.groups["data"]
         from .parallel import fsdp as fsdp_lib
+        from .parallel import pp as pp_lib
         from .parallel import sp as sp_lib
         from .parallel import tp as tp_lib
         tp_lib.reset_stats()            # results["grid"] counts this run
         fsdp_lib.reset_stats()
         sp_lib.reset_stats()
+        pp_lib.reset_stats()
     if sim and group is not None:
         raise ValueError(
             "--sim_workers runs every simulated worker in ONE process; "
@@ -629,9 +648,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         split_seq = cfg.sequence_parallel != "none"
         sp = (grid.groups["seq"] if grid.size("seq") > 1 and split_seq
               else None)
+        # a pipe stage's module holds its L/P blocks (Config checks that
+        # P divides L, as JAX models/bert.py:231 does)
+        stage = (None if grid.size("pipe") == 1
+                 else len(model.blocks) // grid.size("pipe"))
         train_model = build_model_for(cfg, num_classes, device,
                                       trainset.images.shape[1:], tp=tp,
-                                      sp=sp)
+                                      sp=sp, num_layers=stage)
         train_model.load_state_dict(
             {k: b for k, b in model.state_dict().items()
              if k not in dict(model.named_parameters())}, strict=False)
@@ -1163,6 +1186,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
 
     seq_checked = (0 if grid is not None and grid.size("seq") > 1
                    and (cfg.sanitize or round_checksums) else None)
+    # the leaves every pipe stage holds: checked bitwise equal along pipe
+    # after every round
+    pipe_checked = (0 if grid is not None and grid.size("pipe") > 1
+                    else None)
     san: dict[str, Any] = {"enabled": cfg.sanitize,
                            "transfer_guard_violations": 0,
                            "retrace_count": 0, "recompile_count": 0,
@@ -1314,6 +1341,14 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                             f"the parameters after round {epoch} (along "
                             "seq)", engine.params_checksum(state))
                 seq_checked += 1
+            if pipe_checked is not None:
+                # the stages sum those leaves' gradients over pipe, take
+                # the same Adam step and sync the same shards
+                _check_same(grid.groups["pipe"],
+                            f"the replicated parameters after round {epoch} "
+                            "(along pipe)", comms.checksum(
+                                engine.gp.pipe_replicated_params()))
+                pipe_checked += 1
             if nan_armed and "sync_ok" in mx:
                 timing["sync_ok"] = [float(x) for x in mx["sync_ok"]]
                 process_quarantine(epoch, np.asarray(mx["sync_ok"]))
@@ -1462,7 +1497,16 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "sp": mesh.all_gather(grid.world, dict(sp_lib.STATS)),
             # rounds after which the parameters were checked bitwise
             # equal along seq (None: not checked)
-            "seq_bitwise_rounds": seq_checked}
+            "seq_bitwise_rounds": seq_checked,
+            # the pipeline: the schedule, the microbatches of a step, the
+            # stage hops per pass, the replicated leaves' all-reduce and
+            # the most microbatches in flight, by rank
+            "pp": mesh.all_gather(grid.world, dict(
+                pp_lib.STATS, schedule=cfg.pp_schedule,
+                microbatches=engine.pp_microbatches)),
+            # rounds after which the replicated leaves were checked
+            # bitwise equal along pipe (None: no pipe axis)
+            "pipe_bitwise_rounds": pipe_checked}
         grid.close()
     if slices is not None:
         slices.close()

@@ -8,8 +8,9 @@ the same rank, from the same parameters; ``vocab_stats_worker`` holds
 ``tp.vocab_parallel_token_stats`` against ``train.masked_token_stats``;
 ``gather_worker`` holds ``fsdp.gather_params`` and its reduce-scatter;
 ``sp_attention_job`` runs one of ``parallel/sp.py``'s attentions on the
-rank's chunk of a sequence.  Each writes what it found to
-``{out_dir}/rank{r}-{i}.pt``.
+rank's chunk of a sequence; ``pp_schedule_job`` runs one of
+``parallel/pp.py``'s schedules on a stack of toy stages.  Each writes what
+it found to ``{out_dir}/rank{r}-{i}.pt``.
 """
 
 from __future__ import annotations
@@ -33,9 +34,13 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     ``kw`` (Config fields), ``state_dict`` (the dense twin's parameters,
     numpy; without it the seeded init of ``kw``'s seed, the same on every
     rank of one device type), ``x``, ``y``, ``m`` (the worker's batch).
+    Under a pipe axis the rank's module is its stage and the step runs
+    the microbatches by ``job["schedule"]`` (``pp_microbatches`` in
+    ``kw``); the logits are the last stage's.
     Returns the largest abs differences of this rank's logits (its slice of
     the batch over fsdp, its chunk of every sequence over seq, its vocab
-    slice) and of the worker's joined gradients from the dense twin's
+    slice; 0.0 off the last stage) and of the worker's joined gradients
+    from the dense twin's
     (``logits_err``, ``grads_err``: the comparison ``chip_smoke.py``
     gates, which the CPU tests check against their own) and the count of
     leaves a grid axis shards; unless ``summary``, also the rank's logits
@@ -55,8 +60,11 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     split_seq = cfg.sequence_parallel != "none"
     sp = (grid.groups["seq"] if grid.size("seq") > 1 and split_seq
           else None)
-    module = build_model_for(cfg, job["vocab"], device, job.get("shape"),
-                             tp=tp, sp=sp)
+    pipe = grid.groups["pipe"] if grid.size("pipe") > 1 else None
+    module = build_model_for(
+        cfg, job["vocab"], device, job.get("shape"), tp=tp, sp=sp,
+        num_layers=None if pipe is None else
+        len(dense.blocks) // pipe.world_size)
     gp = GridParams({k: p.detach() for k, p in dense.named_parameters()},
                     weights.state_layout(dense), module, grid, device,
                     shard_tok_emb=job["model"].startswith("gpt"),
@@ -71,12 +79,20 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     vocab_parallel = tp is not None and not job["model"].startswith("vit")
     from .ops import flash
     flash.reset_launch_counts()
-    with gp.applied():
-        logits = module(xs)
+
+    def stats(logits, ys, ms):
         ce, w, _c = (vocab_parallel_token_stats(logits, ys, ms, tp)
                      if vocab_parallel else masked_token_stats(logits, ys, ms))
-        loss = (ce * w).sum() / denom
-        grads = torch.autograd.grad(loss, gp.params)
+        return (ce * w).sum() / denom
+
+    if pipe is None:
+        with gp.applied():
+            logits = module(xs)
+            loss = stats(logits, ys, ms)
+            grads = torch.autograd.grad(loss, gp.params)
+    else:
+        logits, loss, grads = _pipe_step(job, cfg, gp, module, pipe, stats,
+                                         xs, ys, ms)
     launches = dict(flash.LAUNCHES)
     grads = gp.whole(gp.reduce_grads(list(grads)))
     out = {"logits": _np(logits), "loss": float(loss), "launches": launches,
@@ -110,7 +126,8 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
         mine = mine.chunk(sp.world_size, dim=1)[sp.rank]
     if vocab_parallel:
         mine = mine.chunk(tp.world_size, dim=-1)[tp.rank]
-    errs = {"logits_err": float((logits - mine).detach().abs().max()),
+    errs = {"logits_err": (float((logits - mine).detach().abs().max())
+                           if logits.numel() else 0.0),
             "grads_err": max(float(np.abs(_np(g) - d_grads[k]).max())
                              for k, g in zip(gp.keys, grads)),
             "sharded": sum(any(gp.specs[k]) for k in gp.keys),
@@ -120,6 +137,27 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     out.update(errs, dense_logits=_np(d_logits), dense_loss=float(d_loss),
                dense_grads=d_grads)
     return out
+
+
+def _pipe_step(job, cfg, gp, module, pipe, stats, xs, ys, ms):
+    """One train step of a pipe stage (``job["schedule"]``, the engine's
+    construction): ``(logits, loss, gradients of the shards)``, the logits
+    and loss the last stage's (empty and 0.0 elsewhere)."""
+    from .parallel import pp
+    xm, ym, mm = pp.microbatches(cfg.pp_microbatches or pipe.world_size,
+                                 xs, ys, ms)
+    parts, sums = [], []
+
+    def last(h, i):
+        logits = module.logits(h)
+        parts.append(logits.detach())
+        return stats(logits, ym[i], mm[i]), torch.zeros(())
+
+    grads = gp.accumulate_grads(lambda: sums.append(pp.model_pass(
+        module, pipe, xm, last, job.get("schedule", "gpipe"), xs.device)))
+    loss = sums[0][0]
+    logits = torch.cat(parts) if parts else torch.zeros(0)
+    return logits, (0.0 if loss is None else loss), grads
 
 
 def module_worker(rank: int, world_size: int, store_path: str,
@@ -138,7 +176,8 @@ def module_worker(rank: int, world_size: int, store_path: str,
     torch.backends.cudnn.allow_tf32 = False
     jobs = {"module": lambda job, grid: module_job(job, grid, device),
             "vocab": vocab_stats_job, "gather": gather_job,
-            "sp": lambda job, grid: sp_attention_job(job, grid, device)}
+            "sp": lambda job, grid: sp_attention_job(job, grid, device),
+            "pp": lambda job, grid: pp_schedule_job(job, grid, device)}
     with mesh.init_group(rank, world_size, device, store_path) as world:
         grids = {}
         for i, job in enumerate(spec["jobs"]):
@@ -147,7 +186,10 @@ def module_worker(rank: int, world_size: int, store_path: str,
             if key not in grids:
                 grids[key] = mesh.make_grid(world, axes)
             res = jobs[job.get("kind", "module")](job, grids[key])
-            torch.save(res, os.path.join(out_dir, f"rank{rank}-{i}.pt"))
+            # whole or absent: a reader in a shared start polls for it
+            path = os.path.join(out_dir, f"rank{rank}-{i}.pt")
+            torch.save(res, path + ".tmp")
+            os.replace(path + ".tmp", path)
         for grid in grids.values():
             grid.close()
 
@@ -251,3 +293,86 @@ def gather_job(job: dict, grid: mesh.Grid) -> dict:
     return {"full": {k: _np(t) for k, t in zip(keys, full)},
             "grads": {k: _np(t) for k, t in zip(keys, grads)},
             "specs": specs}
+
+
+def pp_schedule_job(job: dict, grid: mesh.Grid, device: torch.device
+                    ) -> dict:
+    """``job["schedule"]`` (gpipe or 1f1b) over the rank's ``pipe`` line
+    on a stack of toy stages (the JAX ``tests/test_pp.py`` ones): stage s
+    maps ``a`` to ``tanh(a * w[s, 0])`` (``w`` [P, 1]) or ``tanh(a @
+    w[s])`` (``w`` [P, D, D]); the loss of microbatch i is ``sum(y**2)``,
+    or with ``head`` [D, K] and ``tgt`` [M, mb, K] ``sum((y @ head -
+    tgt[i])**2) / (M * mb)``.  ``xs`` [M, mb, D] are the microbatches.
+    Returns this rank's pieces (the last stage's outputs, loss and head
+    gradient, its stage's weight gradient, stage 0's input gradient), the
+    most microbatches it held in flight, the hops' counters, the pass's
+    wall (ms, the card synchronised) and each piece's largest abs
+    difference from the same computation run stage after stage in this
+    rank (``errors``: the comparison ``chip_smoke.py`` gates, which the
+    CPU tests check against their own); unless ``summary``, the pieces
+    themselves."""
+    from .parallel import pp
+    g = grid.groups["pipe"]
+    p, s = g.world_size, g.rank
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device)
+    xs_all, w_all = t(job["xs"]), t(job["w"])
+    head = None if job.get("head") is None else t(job["head"])
+    tgt = None if job.get("tgt") is None else t(job["tgt"])
+    m, mb = xs_all.shape[:2]
+    matmul = w_all.ndim == 3
+
+    def stage_fn(w, a):
+        return torch.tanh(a @ w) if matmul else torch.tanh(a * w[0])
+
+    def loss_fn(hp, y, i):
+        if hp is None:
+            return (y ** 2).sum()
+        return ((y @ hp - tgt[i]) ** 2).sum() / (m * mb)
+
+    xs = xs_all.clone().requires_grad_()
+    w = w_all[s].clone().requires_grad_()
+    hp = None if head is None else head.clone().requires_grad_()
+    outs = []
+
+    def last(y, i):
+        outs.append(y.detach())
+        return loss_fn(hp, y, i), torch.zeros((), device=device)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    pp.reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    loss, _ = pp.run(pp.order(job["schedule"], p, s, m), g,
+                     first=lambda i: xs[i], body=lambda a: stage_fn(w, a),
+                     last=last, shape=lambda i: tuple(xs_all.shape[1:]),
+                     dtype=torch.float32, device=device)
+    sync()
+    res = {"stage": s, "stats": dict(pp.STATS),
+           "ms": (time.perf_counter() - t0) * 1e3,
+           "in_flight": pp.STATS["in_flight"],
+           "in_flight_bound": pp.in_flight_bound(job["schedule"], p, s, m)}
+    got = {"w_grad": w.grad}
+    if s == 0:
+        got["xs_grad"] = xs.grad
+    if s == p - 1:
+        got.update(out=torch.stack(outs), loss=loss)
+        if hp is not None:
+            got["head_grad"] = hp.grad
+    # the same stack stage after stage, in this rank
+    wd = w_all.clone().requires_grad_()
+    xd = xs_all.clone().requires_grad_()
+    hd = None if head is None else head.clone().requires_grad_()
+    y = xd
+    for k in range(p):
+        y = stage_fn(wd[k], y)
+    dloss = sum(loss_fn(hd, y[i], i) for i in range(m))
+    dloss.backward()
+    want = {"w_grad": wd.grad[s], "xs_grad": xd.grad, "out": y.detach(),
+            "loss": dloss.detach(),
+            "head_grad": None if hd is None else hd.grad}
+    res["errors"] = {k: float((v - want[k]).abs().max())
+                     for k, v in got.items()}
+    if not job.get("summary"):
+        res["got"] = {k: _np(v) for k, v in got.items()}
+    return res

@@ -16,8 +16,8 @@ waits at most ``GROUP_TIMEOUT_S``, and the group is destroyed when the
 rank's work ends, also when it raises.  Children are started with the
 ``spawn`` method (CUDA cannot fork) and import nothing but the port.
 
-With ``--mesh_shape data=D,fsdp=F,seq=S,model=T`` the world of
-D x F x S x T ranks is a rank grid (``Grid``, ``make_grid``; JAX
+With ``--mesh_shape data=D,fsdp=F,seq=S,pipe=P,model=T`` the world of
+D x F x S x P x T ranks is a rank grid (``Grid``, ``make_grid``; JAX
 ``mesh.build_mesh``): one gloo group per line of each axis, each worker
 the block of ranks with one data coordinate.  ``--num_slices S`` makes the
 world S x W workers on the grid ``{"slice": S, "data": W}``: each worker's
@@ -122,9 +122,9 @@ class Grid:
     block of ranks with one data coordinate: its fsdp x model ranks shard
     the worker's parameters, its seq ranks each hold one chunk of every
     sequence under --sequence_parallel (else the whole batch) and whole
-    copies of the parameters, and the data line of
-    each (fsdp, seq, model) coordinate syncs that coordinate's shards once
-    per round."""
+    copies of the parameters, its pipe ranks are the stages of its layer
+    stack, and the data line of each (fsdp, seq, pipe, model) coordinate
+    syncs that coordinate's shards once per round."""
 
     axes: dict
     world: Group
@@ -151,8 +151,9 @@ class Grid:
         return rank
 
     def block_leads(self) -> list[int]:
-        """Each worker's first rank (its fsdp, seq and model coordinates
-        0), in data order: the rank whose values stand for the worker."""
+        """Each worker's first rank (its fsdp, seq, pipe and model
+        coordinates 0: under a pipe axis its first stage), in data order:
+        the rank whose values stand for the worker."""
         return [self.rank_of(data=d) for d in range(self.size("data"))]
 
     def close(self) -> None:
@@ -206,7 +207,7 @@ def grid_axes(cfg) -> dict:
     if axes["data"] < 1:
         axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
     return {a: s for a, s in axes.items()
-            if a in ("slice", "data", "fsdp", "seq", "model")}
+            if a in ("slice", "data", "fsdp", "seq", "pipe", "model")}
 
 
 def world_size_of(axes: dict) -> int:

@@ -91,6 +91,12 @@ def remat_name_vocab(name: str, num_experts: int = 0) -> tuple[str, ...]:
     return base + REMAT_NAMES[3:] if num_experts > 0 else base
 
 
+def num_layers_of(name: str) -> int:
+    """The block count of a transformer of the registry (the stacked
+    ``layers`` axis a pipe axis cuts into stages)."""
+    return len(get_model(name, device="meta").blocks)
+
+
 def get_model(name: str, **kw: Any):
     """Build a torch module by registry name."""
     name = name.lower()

@@ -296,20 +296,40 @@ class BertForMLM(nn.Module):
         init_flax(self, generator)
 
     def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
+        x, aux = self.stage(self.embed(input_ids))
+        logits = self.logits(x)
+        return (logits, aux) if with_aux else logits
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token + position embeddings and ``ln_emb``: the first pipeline
+        stage's part (JAX ``mode="embed"``)."""
         l = input_ids.shape[1]
         off = seq_offset(self.sp, l)
         if off + l > self.max_len:
             raise ValueError(f"sequence length {off + l} exceeds max_len "
                              f"{self.max_len}")
         x = self.tok_emb(input_ids) + self.pos_emb.weight[off:off + l]
-        x = F.layer_norm(x, self.ln_emb.normalized_shape, self.ln_emb.weight,
-                         self.ln_emb.bias, LN_EPS).to(self.dtype)
-        x, aux = run_stack(self.blocks, x, self.remat)
+        return F.layer_norm(x, self.ln_emb.normalized_shape,
+                            self.ln_emb.weight, self.ln_emb.bias,
+                            LN_EPS).to(self.dtype)
+
+    def stage(self, x: torch.Tensor):
+        """This module's blocks (a pipeline stage's, JAX ``mode="stage"``):
+        ``(x, summed MoE aux loss or None)``."""
+        return run_stack(self.blocks, x, self.remat)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The MLM decode: the last pipeline stage's part (JAX
+        ``mode="head"``)."""
         x = F.gelu(dense(x, self.mlm_dense, self.dtype), approximate="none")
         x = copy_to_tp_region(layer_norm(x, self.mlm_ln, self.dtype),
                               self.tp)
-        logits = dense(x, self.mlm_decoder, self.dtype)
-        return (logits, aux) if with_aux else logits
+        return dense(x, self.mlm_decoder, self.dtype)
+
+    def activation_shape(self, x: torch.Tensor) -> tuple:
+        """The shape of the activation between two blocks for input
+        ``x`` (what a pipeline stage receives)."""
+        return (*x.shape[:2], self.ln_emb.normalized_shape[0])
 
 
 def _tp_parts(names: list, ndim: int, axis: str,
@@ -359,4 +379,19 @@ def tp_param_specs(shapes: dict, axis: str = "model", *,
         else:
             out[key] = tuple(_tp_parts(names, len(shape), axis,
                                        shard_tok_emb=shard_tok_emb))
+    return out
+
+
+def pp_tp_param_specs(shapes: dict, *, pipe_axis: str = "pipe",
+                      axis: str = "model", shard_tok_emb: bool = False
+                      ) -> dict:
+    """{leaf key: spec} under both pipeline and tensor parallelism (JAX
+    ``pp_tp_param_specs``, shared by llama): the stacked ``layers`` leaves
+    shard their leading (layer) dimension over ``pipe_axis`` and their
+    inner dimensions by the Megatron pattern; the leaves outside the stack
+    take the plain tensor-parallel specs."""
+    out = tp_param_specs(shapes, axis, shard_tok_emb=shard_tok_emb)
+    for key, spec in out.items():
+        if "layers" in re.findall(r"\['([^']*)'\]", key):
+            out[key] = (pipe_axis, *spec[1:])
     return out

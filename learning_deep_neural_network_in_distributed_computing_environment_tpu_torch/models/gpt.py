@@ -120,21 +120,48 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
         """Logits, and with ``with_aux`` also the summed MoE load-balance
         loss (None without experts)."""
+        table = self.tok_emb.weight.to(self.dtype)
+        x, aux = self.stage(self.embed(input_ids, table))
+        logits = self.logits(x, table)
+        return (logits, aux) if with_aux else logits
+
+    def embed(self, input_ids: torch.Tensor,
+              table: torch.Tensor | None = None) -> torch.Tensor:
+        """Token + position embeddings: the first pipeline stage's part
+        (JAX ``mode="embed"``).  ``table``: the compute-dtype token table
+        (the forward casts it once for the lookup and the tied head)."""
         l = input_ids.shape[1]
         # under sequence parallelism: this rank's chunk of every sequence
         off = seq_offset(self.sp, l)
         if off + l > self.max_len:
             raise ValueError(f"sequence length {off + l} exceeds max_len "
                              f"{self.max_len}")
-        table = self.tok_emb.weight.to(self.dtype)
-        x = self._embed(input_ids, table) + self.pos_emb.weight[
+        if table is None:
+            table = self.tok_emb.weight.to(self.dtype)
+        return self._embed(input_ids, table) + self.pos_emb.weight[
             off:off + l].to(self.dtype)
-        x, aux = run_stack(self.blocks, x, self.remat)
-        # tied LM head: logits = x @ tok_emb^T (the local vocab slice
-        # under tensor parallelism)
-        logits = copy_to_tp_region(layer_norm(x, self.ln_f, self.dtype),
-                                   self.tp) @ table.t()
-        return (logits, aux) if with_aux else logits
+
+    def stage(self, x: torch.Tensor):
+        """This module's blocks (a pipeline stage's, JAX ``mode="stage"``):
+        ``(x, summed MoE aux loss or None)``."""
+        return run_stack(self.blocks, x, self.remat)
+
+    def logits(self, x: torch.Tensor,
+               table: torch.Tensor | None = None) -> torch.Tensor:
+        """``ln_f`` and the tied LM head, logits = x @ tok_emb^T (the local
+        vocab slice under tensor parallelism): the last pipeline stage's
+        part (JAX ``mode="head"``).  Under a pipe axis the first and the
+        last stage each hold the table, and its gradient is the sum of
+        their two contributions."""
+        if table is None:
+            table = self.tok_emb.weight.to(self.dtype)
+        return copy_to_tp_region(layer_norm(x, self.ln_f, self.dtype),
+                                 self.tp) @ table.t()
+
+    def activation_shape(self, x: torch.Tensor) -> tuple:
+        """The shape of the activation between two blocks for input
+        ``x`` (what a pipeline stage receives)."""
+        return (*x.shape[:2], self.pos_emb.embedding_dim)
 
     def _embed(self, input_ids: torch.Tensor, table: torch.Tensor
                ) -> torch.Tensor:

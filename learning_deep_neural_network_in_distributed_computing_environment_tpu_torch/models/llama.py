@@ -13,8 +13,9 @@ Under tensor parallelism (``tp``, the rank's ``model`` line; JAX
 ``llama.py:60-170``) each block holds its local query and K/V heads
 (``kv_local``), the SwiGLU split by columns (``ffn_in``, ``ffn_up``) then
 rows (``ffn_out``), and the untied head is vocab-parallel (the local V/T
-rows of ``lm_head``); the token table stays replicated.  Pipeline
-parallelism is ROADMAP item A.11 4c.
+rows of ``lm_head``); the token table stays replicated.  Under a pipe
+axis the first stage runs ``embed``, each stage ``stage`` on its blocks
+and the last ``head`` (``parallel/pp.py``).
 """
 
 from __future__ import annotations
@@ -156,8 +157,27 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, with_aux: bool = False):
         """Logits, and with ``with_aux`` also the summed MoE load-balance
         loss (None without experts)."""
-        x = F.embedding(input_ids, self.tok_emb.weight.to(self.dtype))
-        x, aux = run_stack(self.blocks, x, self.remat)
-        logits = dense(copy_to_tp_region(self.rms_f(x, self.dtype), self.tp),
-                       self.lm_head, self.dtype)
+        x, aux = self.stage(self.embed(input_ids))
+        logits = self.logits(x)
         return (logits, aux) if with_aux else logits
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token lookup: the first pipeline stage's part (JAX
+        ``mode="embed"``)."""
+        return F.embedding(input_ids, self.tok_emb.weight.to(self.dtype))
+
+    def stage(self, x: torch.Tensor):
+        """This module's blocks (a pipeline stage's, JAX ``mode="stage"``):
+        ``(x, summed MoE aux loss or None)``."""
+        return run_stack(self.blocks, x, self.remat)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``rms_f`` and the untied LM head: the last pipeline stage's part
+        (JAX ``mode="head"``)."""
+        return dense(copy_to_tp_region(self.rms_f(x, self.dtype), self.tp),
+                     self.lm_head, self.dtype)
+
+    def activation_shape(self, x: torch.Tensor) -> tuple:
+        """The shape of the activation between two blocks for input
+        ``x`` (what a pipeline stage receives)."""
+        return (*x.shape[:2], self.tok_emb.embedding_dim)

@@ -67,6 +67,13 @@ class ViT(nn.Module):
         init_flax(self, generator)
 
     def forward(self, x: torch.Tensor, with_aux: bool = False):
+        x, aux = self.stage(self.embed(x))
+        logits = self.logits(x)
+        return (logits, aux) if with_aux else logits
+
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """Patchify, the patch product and the position table: the first
+        pipeline stage's part (JAX ``mode="embed"``)."""
         b, h, w, c = x.shape
         p = self.patch
         # [B, h/p, p, w/p, p, c] -> [B, N, (p, q, c)]
@@ -74,8 +81,21 @@ class ViT(nn.Module):
                    .permute(0, 1, 3, 2, 4, 5)
                    .reshape(b, (h // p) * (w // p), p * p * c))
         x = dense(patches, self.patch_embed, self.dtype)
-        x = x + self.pos_emb.to(self.dtype)
-        x, aux = run_stack(self.blocks, x, self.remat)
-        logits = F.linear(x.mean(1).float(), self.head.weight,
-                          self.head.bias)
-        return (logits, aux) if with_aux else logits
+        return x + self.pos_emb.to(self.dtype)
+
+    def stage(self, x: torch.Tensor):
+        """This module's blocks (a pipeline stage's, JAX ``mode="stage"``):
+        ``(x, summed MoE aux loss or None)``."""
+        return run_stack(self.blocks, x, self.remat)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean-pool over patches and the fp32 classifier: the last
+        pipeline stage's part (JAX ``mode="head"``)."""
+        return F.linear(x.mean(1).float(), self.head.weight, self.head.bias)
+
+    def activation_shape(self, x: torch.Tensor) -> tuple:
+        """The shape of the activation between two blocks for images
+        ``x`` [B, H, W, C] (what a pipeline stage receives)."""
+        b, h, w, _c = x.shape
+        return (b, (h // self.patch) * (w // self.patch),
+                self.patch_embed.out_features)

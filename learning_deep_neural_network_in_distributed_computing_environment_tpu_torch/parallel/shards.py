@@ -1,12 +1,13 @@
 """One rank's share of a worker's parameters on the rank grid
-(``mesh.Grid``): the storage the engine trains under the ``model`` and
-``fsdp`` axes (JAX ``LocalSGDEngine._build_state_specs`` and the
-``shard_map`` in_specs of its round program).
+(``mesh.Grid``): the storage the engine trains under the ``model``,
+``pipe`` and ``fsdp`` axes (JAX ``LocalSGDEngine._build_state_specs`` and
+the ``shard_map`` in_specs of its round program).
 
 The shards are leaves of the JAX package's ``params`` tree, in its layout
 and flatten order (``weights.jax_param_leaves``): leaf i is cut by its spec
-(``bert.tp_param_specs``, extended by ``fsdp.add_fsdp_axis`` or made by
-``fsdp.fsdp_param_specs``) at this rank's coordinates, so the shard holds
+(``bert.tp_param_specs`` or ``bert.pp_tp_param_specs``, ``pp.pp_param_specs``,
+extended by ``fsdp.add_fsdp_axis`` or made by ``fsdp.fsdp_param_specs``) at
+this rank's coordinates, so the shard holds
 the elements of the JAX device at the same coordinates, and a checkpoint
 piece is a shard with its global index.  Before each forward the ``fsdp``
 shards are gathered (``fsdp.gather_params``) into the leaves of the
@@ -17,6 +18,8 @@ module's own parameter storage is released.  The ``seq`` axis shards no
 leaf: each of its ranks holds the shards of its (fsdp, model) coordinate
 whole, and under ``--sequence_parallel`` their gradients are summed over
 the seq line (``reduce_grads``); without it the seq ranks are replicas.
+Under ``pipe`` a stage holds its rows of every stacked ``layers`` leaf and
+the other leaves whole; their gradients are summed over the pipe line.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from torch import nn
 from .. import comms, mesh, weights
 from . import fsdp as fsdp_lib
 
-AXES = ("fsdp", "model")
+AXES = ("fsdp", "pipe", "model")
 
 
 @contextlib.contextmanager
@@ -56,16 +59,24 @@ def substituted(module: nn.Module, tensors: dict):
 def grid_specs(shapes: dict, grid: mesh.Grid, *,
                shard_tok_emb: bool = False) -> dict:
     """{leaf key: spec} for the grid's inner axes (JAX
-    ``driver.py:617-692``): the Megatron specs over ``model``, extended
-    with ``fsdp`` on a free dimension; or the fsdp specs alone."""
-    t, f = grid.size("model"), grid.size("fsdp")
+    ``driver.py:627-692``): the Megatron specs over ``model`` (with the
+    stacked layer dimension over ``pipe``), or the pipe specs alone,
+    extended with ``fsdp`` on a free dimension; or the fsdp specs
+    alone."""
+    t, f, p = grid.size("model"), grid.size("fsdp"), grid.size("pipe")
     specs = {k: (None,) * len(s) for k, s in shapes.items()}
     if t > 1:
-        from ..models.bert import tp_param_specs
-        specs = tp_param_specs(shapes, "model", shard_tok_emb=shard_tok_emb)
+        from ..models.bert import pp_tp_param_specs, tp_param_specs
+        specs = (pp_tp_param_specs(shapes, pipe_axis="pipe", axis="model",
+                                   shard_tok_emb=shard_tok_emb) if p > 1
+                 else tp_param_specs(shapes, "model",
+                                     shard_tok_emb=shard_tok_emb))
+    elif p > 1:
+        from .pp import pp_param_specs
+        specs = pp_param_specs(shapes, "pipe")
     if f > 1:
         specs = (fsdp_lib.add_fsdp_axis(specs, shapes, axis="fsdp",
-                                        axis_size=f) if t > 1 else
+                                        axis_size=f) if t > 1 or p > 1 else
                  fsdp_lib.fsdp_param_specs(shapes, axis="fsdp",
                                            axis_size=f))
     return specs
@@ -101,6 +112,8 @@ class GridParams:
                        .to(device).requires_grad_() for k in self.keys]
         self.dims = {a: [self.specs[k].index(a) if a in self.specs[k]
                          else None for k in self.keys] for a in AXES}
+        # the leaves every stage holds whole (embeddings, head, final norm)
+        self.pipe_replicated = [d is None for d in self.dims["pipe"]]
         # the module's leaves (after the fsdp gather) and its parameters
         leaves, self.pieces = weights.wire_layout(module)
         want = [tuple(s) for s, _d in leaves]
@@ -120,13 +133,24 @@ class GridParams:
     def _local_shape(self, i: int) -> list:
         """Leaf i's shape on this rank after the fsdp gather."""
         spec, shape = self.specs[self.keys[i]], self.full_shapes[self.keys[i]]
-        return [n // self.grid.size("model") if d < len(spec)
-                and spec[d] == "model" else n for d, n in enumerate(shape)]
+        return [n // self.grid.size(spec[d]) if d < len(spec)
+                and spec[d] in ("model", "pipe") else n
+                for d, n in enumerate(shape)]
 
     @property
     def fsdp(self) -> mesh.Group | None:
         g = self.grid.groups.get("fsdp")
         return g if g is not None and g.world_size > 1 else None
+
+    @property
+    def pipe(self) -> mesh.Group | None:
+        g = self.grid.groups.get("pipe")
+        return g if g is not None and g.world_size > 1 else None
+
+    def pipe_replicated_params(self) -> list[torch.Tensor]:
+        """This rank's shards of the leaves every stage holds (bitwise
+        equal along pipe)."""
+        return [p for p, r in zip(self.params, self.pipe_replicated) if r]
 
     @property
     def seq(self) -> mesh.Group | None:
@@ -171,12 +195,36 @@ class GridParams:
         with substituted(self.module, self.unpack(self.leaves())):
             yield
 
+    def accumulate_grads(self, body) -> list:
+        """Run ``body()`` with this step's gathered parameters substituted
+        into the module as leaves of their own, into whose ``.grad`` every
+        backward of the body accumulates (a pipeline stage's microbatches,
+        each its own graph); returns the shards' gradients: the fsdp
+        shards are gathered once before and the summed gradients
+        reduce-scattered once after (JAX gathers them outside its 1F1B
+        schedule)."""
+        full = self.leaves()
+        leaves = [t.detach().requires_grad_() for t in full]
+        with substituted(self.module, self.unpack(leaves)):
+            body()
+        grads = [t.grad if t.grad is not None else torch.zeros_like(t)
+                 for t in leaves]
+        if self.fsdp is not None:
+            grads = list(torch.autograd.grad(full, self.params, grads))
+        return grads
+
     def reduce_grads(self, grads: list) -> list:
-        """Every gradient summed over ``seq`` (each rank computed it on its
-        chunk of every sequence; JAX ``train.py:1703-1706``), then the
-        replicated leaves' summed over ``fsdp`` (each rank computed them on
-        its slice of the batch)."""
+        """The gradients of the leaves every stage holds summed over
+        ``pipe`` (each stage computed the part it ran), every gradient
+        summed over ``seq`` (each rank computed it on its chunk of every
+        sequence; JAX ``train.py:1703-1706``), then the fsdp-replicated
+        leaves' summed over ``fsdp`` (each rank computed them on its slice
+        of the batch)."""
         grads = list(grads)
+        if self.pipe is not None:
+            from .pp import all_reduce_replicated
+            grads = all_reduce_replicated(grads, self.pipe_replicated,
+                                          self.pipe)
         if self.seq is not None:
             from .sp import all_reduce_grads
             grads = all_reduce_grads(grads, self.seq)
@@ -214,7 +262,8 @@ class GridParams:
     @torch.no_grad()
     def whole(self, tensors) -> list[torch.Tensor]:
         """``tensors`` (shaped like the shards) whole: gathered over fsdp,
-        then over model (a collective of every rank of the worker)."""
+        then over pipe and model (a collective of every rank of the
+        worker)."""
         out = [t.detach() for t in tensors]
         for a in AXES:
             g = self.grid.groups.get(a)

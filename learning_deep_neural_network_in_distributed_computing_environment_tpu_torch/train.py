@@ -47,10 +47,19 @@ averaged over it, and the augmentation stream is decorrelated by the
 1640-1650, 1703-1706, 1954-1956``) each rank also takes its contiguous
 chunk of the sequence of every example (tokens and labels), the module's
 attention runs over the ``seq`` line, and every gradient is summed over it
-before the fsdp reduction, so the seq ranks stay bitwise equal.  The
-per-step metric sums are summed over ``fsdp`` and ``seq`` (the axes along
-which a rank's batch is partial) once per epoch; the round's metrics are
-gathered over every rank and each worker's are its first rank's.
+before the fsdp reduction, so the seq ranks stay bitwise equal.  Under
+pipeline parallelism (``pipe``; JAX ``train.py:464-473, 1409-1532``) the
+rank's module is one stage of the layer stack: each step runs its
+microbatches through ``parallel.pp``'s schedule (``--pp_schedule``), the
+loss of each microbatch its masked numerator over the whole batch's
+denominator, computed on the last stage; the fsdp shards are gathered
+once outside the schedule and reduce-scattered once after it, and the
+leaves every stage holds get their gradients summed over ``pipe``.
+Validation runs the microbatches forward in the GPipe order.  The
+per-step metric sums are summed over ``fsdp``, ``seq`` (the axes along
+which a rank's batch is partial) and ``pipe`` (only the last stage holds
+them) once per epoch; the round's metrics are gathered over every rank and
+each worker's are its first rank's.
 """
 
 from __future__ import annotations
@@ -550,7 +559,13 @@ class LocalSGDEngine:
         # rank's batch is partial
         self.fsdp = None if grid_params is None else grid_params.fsdp
         self.seq = None if grid_params is None else grid_params.seq
-        self.part_groups = [g for g in (self.fsdp, self.seq)
+        # the pipe line: this rank is one stage of the worker's layer
+        # stack, and only the last stage holds the loss and the metrics
+        self.pipe = None if grid_params is None else grid_params.pipe
+        self.pp_microbatches = (cfg.pp_microbatches
+                                or (1 if self.pipe is None
+                                    else self.pipe.world_size))
+        self.part_groups = [g for g in (self.fsdp, self.seq, self.pipe)
                             if g is not None]
         # the model's output is its local vocab slice (tensor parallelism)
         self.vp_group = (self.grid.groups["model"] if vocab_parallel
@@ -1152,7 +1167,8 @@ class LocalSGDEngine:
                           full_shapes=[gp.full_shapes[k] for k in gp.keys],
                           writes=[gp.writes(i) for i in range(len(gp.keys))],
                           lead=all(self.grid.index(a) == 0
-                                   for a in ("fsdp", "seq", "model"))))
+                                   for a in ("fsdp", "seq", "pipe",
+                                             "model"))))
         return WorkerState(
             params={} if resident else dict(zip(self.names, self.params)),
             buffers=dict(self.model.named_buffers()),
@@ -1314,6 +1330,21 @@ class LocalSGDEngine:
         # aux over K, gradients summed in fp32, one Adam step; MoE capacity
         # is per slice, as in JAX.  K=1 is the plain step.
         k = self.cfg.grad_accum
+        if self.pipe is not None:
+            loss, correct, grads = self._pipe_grads(x, y, m, denom, k)
+        else:
+            loss, correct, grads = self._accum_grads(x, y, m, denom, k)
+        if self.gp is not None:
+            grads = self.gp.reduce_grads(list(grads))
+        state.opt.step(self.params, grads, lr)
+        if self.fsdp is not None and self._buffers:
+            self._average_buffers()
+        return loss.detach(), correct.detach(), grads
+
+    def _accum_grads(self, x, y, m, denom, k: int):
+        """``(loss, correct, gradients)`` of a train step: K slices of the
+        batch, each slice's numerator over the full step's denominator,
+        gradients summed in fp32."""
         loss = correct = grads = None
         for xs, ys, ms in zip(*(t.chunk(k) for t in (x, y, m))):
             with self._applied():
@@ -1324,12 +1355,50 @@ class LocalSGDEngine:
             else:
                 loss, correct = loss + loss_k.detach(), correct + correct_k
                 torch._foreach_add_(grads, g_k)
-        if self.gp is not None:
-            grads = self.gp.reduce_grads(list(grads))
-        state.opt.step(self.params, grads, lr)
-        if self.fsdp is not None and self._buffers:
-            self._average_buffers()
-        return loss.detach(), correct.detach(), grads
+        return loss, correct, grads
+
+    def _pipe_pass(self, x, y, m, denom, train: bool):
+        """This stage's part of one pass of the microbatches of ``(x, y,
+        m)`` (JAX ``train.py:1409-1532``): stage 0 embeds, every stage
+        runs its blocks, the last computes each microbatch's masked CE
+        numerator over ``denom`` (the whole step's) and its metric sums.
+        Training runs ``--pp_schedule``'s order and returns the summed loss
+        and correct count; evaluation runs the forwards in the GPipe order
+        and returns the [CE sum, correct, weight] sums.  Each is None off
+        the last stage."""
+        from .parallel import pp
+        xs, ys, ms = pp.microbatches(self.pp_microbatches, x, y, m)
+
+        def last(h, i):
+            ce, w, correct = self._token_stats(self.model.logits(h), ys[i],
+                                               ms[i])
+            if train:
+                return (ce * w).sum() / denom, correct.detach()
+            return None, torch.stack([(ce * w).sum(), correct, w.sum()])
+
+        return pp.model_pass(self.model, self.pipe, xs, last,
+                             self.cfg.pp_schedule if train else None,
+                             self.device)
+
+    def _pipe_grads(self, x, y, m, denom, k: int):
+        """``(loss, correct, gradients)`` of a train step under the pipe
+        axis: K accumulation slices, each run through the schedule, the
+        gradients accumulated in fp32 over every microbatch (JAX
+        ``_accum_value_and_grad`` around ``_onef1b_loss_and_metrics``;
+        ``GridParams.accumulate_grads``).  Off the last stage the loss and
+        the correct count are zeros."""
+        sums = []
+
+        def passes():
+            for xs, ys, ms in zip(*(t.chunk(k) for t in (x, y, m))):
+                sums.append(self._pipe_pass(xs, ys, ms, denom, True))
+
+        grads = self.gp.accumulate_grads(passes)
+        loss = correct = torch.zeros((), device=self.device)
+        for loss_k, correct_k in sums:
+            if loss_k is not None:
+                loss, correct = loss + loss_k, correct + correct_k
+        return loss, correct, grads
 
     @torch.no_grad()
     def _average_buffers(self) -> None:
@@ -1345,6 +1414,10 @@ class LocalSGDEngine:
     def _eval_step(self, x, y, m):
         x, y, m = self._part_slice(x, y, m)
         with self._applied():
+            if self.pipe is not None:
+                _loss, sums = self._pipe_pass(x, y, m, None, False)
+                return (sums if sums is not None
+                        else torch.zeros(3, device=self.device))
             ce, w, correct = self._token_stats(self.model(x), y, m)
         return torch.stack([(ce * w).sum(), correct, w.sum()])
 

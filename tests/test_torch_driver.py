@@ -193,9 +193,10 @@ def test_serve_is_not_ported(tmp_path):
     (["--remat_policy", "save_names:attn_out"], "enhanced_cnn has none"),
     (["--grad_accum", "3"], "divisible by --grad_accum"),
     (["--num_experts", "4", "--mesh_shape", "data=1,expert=2"], "A.11"),
-    # the data, fsdp, seq and model axes run (tests/test_torch_tp.py,
-    # tests/test_torch_sp.py); the pipe axis stays refused
-    (["--mesh_shape", "data=1,pipe=2"], "A.11"),
+    # the data, fsdp, seq, pipe and model axes run (tests/test_torch_tp.py,
+    # tests/test_torch_sp.py, tests/test_torch_pp.py); a pipe axis on the
+    # default enhanced_cnn is refused as JAX refuses it
+    (["--mesh_shape", "data=1,pipe=2"], "applies to attention models"),
     (["--num_workers", "2", "--backend", "nccl"], "A.12"),
     (["--model", "bert_tiny", "--layer_scan", "off"], "A.11"),
 ], ids=["param_residency", "remat_policy", "grad_accum", "num_experts",

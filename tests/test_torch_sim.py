@@ -993,14 +993,19 @@ def test_valid_sim_config_accepted():
     # the chaos flags are ported; with the lab JAX refuses them
     (dict(sim_workers=2, chaos="random", chaos_seed=3),
      "cannot combine with --sim_workers"),
-    (dict(sim_workers=2, pp_microbatches=2), "A.11"),
+    # --pp_microbatches without a pipe axis is inert, as in JAX: accepted
+    (dict(sim_workers=2, pp_microbatches=2), None),
 ], ids=["kw0---aggregation_by weights", "kw1-compressed --sync_dtype",
         "kw2---sync_mode dense", "bf16-wire-on-dense", "ef-without-wire",
         "sim-chaos_seed-A.11", "sim-pp_microbatches-A.11"])
 def test_the_ports_own_refusals(kw, frag):
     """The wire flags' checks hold with and without ``--sim_workers`` (the
     real engines take the compressed wire too); what the port has not
-    ported yet names A.11."""
+    ported yet names A.11; the lab takes --pp_microbatches as JAX does,
+    inert without a pipe axis (frag None)."""
+    if frag is None:
+        assert Config(**{**_kw(), **kw}).sim_workers == 2
+        return
     with pytest.raises(ValueError, match=frag):
         Config(**{**_kw(), **kw})
 

@@ -266,8 +266,9 @@ def test_attend_refuses_as_jax_does(impl):
       "--sequence_parallel", "ring_zigzag"], "CAUSAL"),
     (["--model", "gpt_tiny", "--sim_workers", "4", "--sequence_parallel",
       "ring", "--mesh_shape", "data=-1"], "--sim_workers"),
+    # SP x PP runs, as in JAX (tests/test_torch_pp_driver.py): accepted
     (["--model", "gpt_tiny", "--mesh_shape", "data=1,seq=2,pipe=2",
-      "--sequence_parallel", "ring"], "A.11 item 4c"),
+      "--sequence_parallel", "ring"], None),
     (["--model", "bert_tiny", "--num_experts", "4", "--mesh_shape",
       "data=1,seq=2", "--sequence_parallel", "ring"], "A.11 item 4d"),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,seq=2",
@@ -282,8 +283,12 @@ def test_attend_refuses_as_jax_does(impl):
 def test_config_refusals(flags, match):
     """JAX's checks of --sequence_parallel (driver.py:710-732,
     config.py:797-802) with its messages; SP with
-    a pipe axis, MoE, elastic membership and staleness on a seq grid,
-    each naming its ROADMAP item."""
+    MoE, elastic membership and staleness on a seq grid, each naming its
+    ROADMAP item; SP with a pipe axis is accepted (match None)."""
+    if match is None:
+        cfg = t_config.config_from_args(["--device", "cpu", *flags])
+        assert mesh.grid_axes(cfg) == {"data": 1, "seq": 2, "pipe": 2}
+        return
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])
 

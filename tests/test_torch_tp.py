@@ -371,8 +371,8 @@ def test_driver_tp_gradients_mode_is_finite():
       "data=2,model=2"], "attention models"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,seq=2,model=2",
       "--sequence_parallel", "ring_zigzag"], "CAUSAL"),
-    (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2"],
-     "A.11 item 4c"),
+    # the pipe axis and the --pp_* flags run as JAX runs them: accepted
+    (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2"], None),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,expert=2"],
      "A.11 item 4d"),
     (["--model", "bert_tiny", "--num_experts", "4", "--mesh_shape",
@@ -386,7 +386,7 @@ def test_driver_tp_gradients_mode_is_finite():
       "--num_workers", "3"], "disagree"),
     (["--model", "bert_tiny", "--sequence_parallel", "ring"],
      "needs a 'seq' mesh axis"),
-    (["--model", "bert_tiny", "--pp_microbatches", "2"], "A.11 item 4c"),
+    (["--model", "bert_tiny", "--pp_microbatches", "2"], None),
 ], ids=["mlp_under_model", "seq", "pipe", "expert", "moe", "chaos",
         "staleness", "num_workers", "sequence_parallel", "pp"])
 def test_config_refusals(flags, match):
@@ -394,7 +394,13 @@ def test_config_refusals(flags, match):
     axes and compositions the port leaves out, each naming its ROADMAP
     item, the zig-zag ring on bert over seq x model and
     --sequence_parallel without a seq axis refused
-    (tests/test_torch_sp.py has the rest of SP's refusals)."""
+    (tests/test_torch_sp.py has the rest of SP's refusals); a pipe axis
+    and --pp_microbatches without one (inert, as in JAX) are accepted
+    (match None; tests/test_torch_pp.py has the pipe refusals)."""
+    if match is None:
+        cfg = t_config.config_from_args(["--device", "cpu", *flags])
+        assert mesh.grid_axes(cfg)["data"] == 1
+        return
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])
 
