@@ -602,6 +602,7 @@ SP_ATTN_TOL = {"bfloat16": 5e-2, "float32": 1e-5}
 GRID_CHECK_DEVICE, GRID_CHECK_WIDTH = "cuda", 64
 SP_PHASE = "sp"                 # the 2-process phases alone (sp and pp)
 PP_PHASE = "pp"                 # the same
+EP_PHASE = "ep"                 # the same
 # phase pp gpt2: the gpt2 path as two pipeline stages (data=1,pipe=2: 6 of
 # the 12 blocks a stage, the embeddings on stage 0, the head and the loss
 # on stage 1) on 2 processes of the card, flash attention.  Every stage
@@ -623,6 +624,22 @@ PP_CUT = ["--limit_train_samples", "320", "--limit_eval_samples", "64",
 PP_RANK_PARAMS, GPT2_PARAMS = 44_083_200, 86_610_432
 PP_MODULE_BATCH = 8
 PP_TOY_ATOL = 1e-5              # fp32, TF32 off: the same sums in order
+# phase ep moe: the moe path (bert_base, 8 experts) at data=1,expert=2 on
+# 2 processes of the card, flash attention: each rank holds 4 of the 8
+# experts of every layer and runs the whole attention of the whole batch
+# (routing and attention are replicated along expert); every MoE layer's
+# output, and the gradients of its tokens and gate, are summed over the
+# expert line through pinned host memory, so the numbers measure the
+# staging, not the speed of expert parallelism.  The fp32 pair: one round
+# of 2 steps against the data=1 twin; the bf16 run: one probe batch and
+# 512 training sequences (8 steps: the loss falls slowly at lr 1e-4).  The
+# one-step module check runs full-width fp32 on 8 sequences.
+EP_MESH = ["--mesh_shape", "data=1,expert=2"]
+EP_RANKS = 2
+EP_MODULE_BATCH = 8
+# each rank's aux loss (summed over the 12 layers, ~12) against the dense
+# twin's over the same tokens: fp32, the MoE outputs summed in another order
+EP_AUX_ATOL = 1e-4
 # phase sanitize: each path cut to 2 rounds of a few steps (argparse keeps
 # a flag's last value)
 _SMALL = ["--epochs_global", "2", "--epochs_local", "1", "--probe_batches",
@@ -4321,18 +4338,162 @@ def phase_pp(runner) -> dict:
     return counts
 
 
+def ep_argvs() -> tuple:
+    """[ep moe]'s launch lines: the fp32 pair's data=1 twin and grid run,
+    and the timed bf16 run."""
+    argv = [*PATHS["moe"][0], "--out_dir", os.path.join(OUT_DIR, "ep_moe")]
+    small = [*argv, *SP_FP32]
+    return ([*small, "--mesh_shape", "data=1"], [*small, *EP_MESH],
+            [*argv, *GRID_CUT, *EP_MESH])
+
+
+def ep_module_job() -> dict:
+    """[ep moe]'s one-step check (grid_harness.module_job on
+    data=1,expert=2): the moe path's model (bert_base, 8 experts) in fp32
+    with flash attention, its seeded init (the same on both ranks), on
+    EP_MODULE_BATCH random sequences: the logits and the joined gradients,
+    every gate leaf's included, against the dense twin; each rank's aux."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    b = EP_MODULE_BATCH
+    argv = PATHS["moe"][0]
+    model = argv[argv.index("--model") + 1]
+    return dict(model=model, vocab=1000, axes={"data": 1,
+                                               "expert": EP_RANKS},
+                summary=True, label="ep",
+                kw=dict(attention_impl="flash", num_experts=MOE_EXPERTS,
+                        mesh_shape=f"data=1,expert={EP_RANKS}"),
+                x=rng.integers(0, 1000, (b, PATH_LEN)),
+                y=rng.integers(0, 1000, (b, PATH_LEN)),
+                m=np.ones(b, np.float32))
+
+
+def check_ep_module(ranks: list) -> None:
+    """[ep moe]'s one-step check: the logits and the joined gradients
+    against the dense twin at the grid's gates; on every rank the flash
+    launches of its pass (one forward and one backward of each of the 12
+    layers) and its own aux loss, equal on both ranks, finite, at least
+    layers / E and within EP_AUX_ATOL of the dense twin's."""
+    layers = PATHS["moe"][1]
+    e_logits = max(r["logits_err"] for r in ranks)
+    e_grads = max(r["grads_err"] for r in ranks)
+    auxes = [r["aux"] for r in ranks]
+    e_aux = max(r["aux_err"] for r in ranks)
+    want = {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "flash_bwd_fused": 0}
+    print(f"[ep moe] one fp32 step at data=1,expert={EP_RANKS}, "
+          f"{ranks[0]['sharded']} of {ranks[0]['leaves']} leaves cut over "
+          f"expert: logits max abs err {e_logits:.3g} (gate "
+          f"{GRID_LOGITS_ATOL}), gradients (the gates' included) max abs err "
+          f"{e_grads:.3g} (gate {GRID_GRAD_ATOL}) against the dense twin; "
+          f"aux summed over {layers} layers by rank {auxes}, the dense "
+          f"twin's {ranks[0]['dense_aux']}, max abs err {e_aux:.3g} (gate "
+          f"{EP_AUX_ATOL}); launches by rank "
+          f"{[r['launches'] for r in ranks]} (expected {want})")
+    if not (e_logits <= GRID_LOGITS_ATOL and e_grads <= GRID_GRAD_ATOL):
+        fail("ep moe: the expert-parallel step differs from its dense twin")
+    if not (all(math.isfinite(a) and a >= layers / MOE_EXPERTS - 1e-6
+                for a in auxes) and len(set(auxes)) == 1):
+        fail(f"ep moe: the ranks' aux losses {auxes} are not finite, equal "
+             f"and at least {layers}/{MOE_EXPERTS}")
+    if not e_aux <= EP_AUX_ATOL:
+        fail(f"ep moe: a rank's aux loss is {e_aux} from the dense twin's")
+    if any(r["launches"] != want for r in ranks):
+        fail("ep moe: a rank's launches in the one-step check are not one "
+             "pass of each layer")
+
+
+def check_ep_run(tag: str, res: dict, argv: list[str], wall: float) -> dict:
+    """An [ep moe] run's gates and lines: every rank's flash launches =
+    the 12 layers x its passes (the whole attention of the whole batch on
+    every expert rank) + the dense twin's x the probe's; the replicated
+    leaves checked bitwise equal along expert after every round; each
+    rank's parameter and moment bytes its share (every leaf but the
+    experts whole, half of the expert stacks).  Prints per rank the step
+    ms and tokens/s, the EP all-reduce's calls, ms and bytes per pass,
+    the state bytes and the peak.  Returns rank 0's launch counts."""
+    layers = PATHS["moe"][1]
+    counts = check_grid_launches(tag, res, layers, argv)
+    g, rt = res["grid"], res["round_timings"]
+    named = list(res["model"].named_parameters())
+    total = sum(p.numel() for _n, p in named)
+    experts = sum(p.numel() for n, p in named
+                  if ".moe." in n and ".gate." not in n)
+    share = total - experts + experts // EP_RANKS
+    for r in range(g["ranks"]):
+        train, val = g["steps"][r]
+        passes = max(train + val, 1)
+        ep, st = g["ep"][r], g["state_bytes"][r]
+        step_ms = sum(x["ranks_train_ms"][r] for x in rt) / max(train, 1)
+        print(f"{tag} rank {r} {g['coords_of'][r]}: train step "
+              f"{step_ms:.3f} ms over {train} steps, "
+              f"{PATH_BATCH * PATH_LEN / step_ms * 1e3:,.0f} tokens/s; EP "
+              f"all-reduce {ep['ms'] / passes:.3f} ms, "
+              f"{ep['calls'] / passes:.1f} calls, "
+              f"{ep['bytes'] / passes:,.0f} B per pass (train + val), "
+              f"{ep['bytes']:,} B in all; params {st['params']:,} B, Adam "
+              f"moments {st['opt_state']:,} B, "
+              f"{(st['params'] + st['opt_state'] - 4) / 1e6:.1f} MB "
+              f"({share:,} of {total:,} parameters); max_memory_allocated "
+              f"{max(x['ranks_max_memory_allocated'][r] for x in rt) / 2**30:.2f} GiB")
+        if (st["params"], st["opt_state"]) != (4 * share, 8 * share + 4):
+            fail(f"{tag}: rank {r} holds {st['params']:,} B of parameters "
+                 f"and {st['opt_state']:,} B of moments, not its share's "
+                 f"{4 * share:,} and {8 * share + 4:,}")
+        if not ep["calls"]:
+            fail(f"{tag}: rank {r} ran no expert all-reduce {ep}")
+    if g["expert_bitwise_rounds"] != len(rt):
+        fail(f"{tag}: the replicated leaves were checked along expert after "
+             f"{g['expert_bitwise_rounds']} of {len(rt)} rounds")
+    print(f"{tag} {g['ranks']} processes {g['axes']} on one card: "
+          f"replicated leaves bitwise equal along expert after "
+          f"{g['expert_bitwise_rounds']} round(s); wall {wall:.1f} s; losses "
+          f"{res['global_train_losses']}")
+    return counts
+
+
+def phase_ep(runner) -> dict:
+    """[ep moe]: the moe path at data=1,expert=2 with flash attention: the
+    fp32 pair (one round of 2 steps) against the data=1 twin, then the
+    bf16 run, each checked by ``check_ep_run``, the bf16 one's loss
+    falling and the trained model's routing printed (``moe_routing``:
+    each layer's aux at least 1/E).  The 2-process runs are ``runner``'s
+    next two jobs.  Returns rank 0's launch counts of the bf16 run."""
+    import numpy as np
+    from importlib import import_module
+    train = import_module(f"{PKG}.train")
+    tag = "[ep moe]"
+    t0 = time.perf_counter()
+    twin_argv, grid_argv, bf16_argv = ep_argvs()
+    t_run = time.perf_counter()
+    res = grid_parity(tag, twin_argv, grid_argv, runner=runner)
+    check_ep_run(f"{tag} fp32", res, grid_argv, time.perf_counter() - t_run)
+    del res
+    res, wall = grid_run(tag, bf16_argv, runner)
+    check_losses("ep moe", res)
+    counts = check_ep_run(tag, res, bf16_argv, wall)
+    model = res["model"]
+    moe_routing(model, train.to_device(
+        np.asarray(res["test"].images[:PATH_BATCH]),
+        next(model.parameters()).device))
+    del res, model
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def two_process_jobs(work_dir: str) -> tuple[list, list]:
     """The jobs of one start of 2 processes (main.run_shared): the module
     checks (grid_harness.module_worker: [fsdp cnn]'s one step, [sp attn],
-    the toy schedules, [pp gpt2]'s one steps), [tp gpt2]'s data-only twin
-    (2 worker processes), the SP runs (each path's fp32 grid run and bf16
-    run), then the PP runs (the fp32 grid run under each schedule, then
-    the bf16 ones).  Returns ``(jobs, module jobs)``."""
+    the toy schedules, [pp gpt2]'s one steps, [ep moe]'s one step), [tp
+    gpt2]'s data-only twin (2 worker processes), the SP runs (each path's
+    fp32 grid run and bf16 run), the PP runs (the fp32 grid run under each
+    schedule, then the bf16 ones), then the EP runs (the fp32 grid run and
+    the bf16 one).  Returns ``(jobs, module jobs)``."""
     import torch
     from importlib import import_module
     harness = import_module(f"{PKG}.grid_harness")
     module = [fsdp_module_job(GRID_CHECK_WIDTH), *sp_attn_jobs(),
-              *pp_toy_jobs(), *pp_module_jobs()]
+              *pp_toy_jobs(), *pp_module_jobs(), ep_module_job()]
     os.makedirs(work_dir, exist_ok=True)
     spec = os.path.join(work_dir, "jobs.pt")
     torch.save({"axes": module[0]["axes"], "jobs": module}, spec)
@@ -4342,6 +4503,7 @@ def two_process_jobs(work_dir: str) -> tuple[list, list]:
         jobs += list(sp_argvs(path)[1:])
     jobs += [pp_argvs(s)[0] for s in PP_SCHEDULES]
     jobs += [pp_argvs(s)[1] for s in PP_SCHEDULES]
+    jobs += list(ep_argvs()[1:])
     return jobs, module
 
 
@@ -4362,11 +4524,12 @@ def module_outputs(d: str, n: int, count: int) -> list:
 
 def phase_two_process() -> tuple[dict, dict]:
     """The 2-process phases from ONE start of their ranks: the module
-    checks ([fsdp cnn]'s one step, [sp attn], [pp toy], [pp gpt2]'s one
-    steps) on GRID_CHECK_DEVICE, [tp gpt2]'s data-only twin, [sp gpt2],
-    [sp bert], [pp gpt2].  The module checks run with TF32 off in this
-    process, restored after.  Returns [pp gpt2]'s rank-0 launch counts and
-    the twin's losses and round timings."""
+    checks ([fsdp cnn]'s one step, [sp attn], [pp toy], [pp gpt2]'s and
+    [ep moe]'s one steps) on GRID_CHECK_DEVICE, [tp gpt2]'s data-only
+    twin, [sp gpt2], [sp bert], [pp gpt2], [ep moe].  The module checks
+    run with TF32 off in this process, restored after.  Returns [pp
+    gpt2]'s and [ep moe]'s rank-0 launch counts, by path, and the twin's
+    losses and round timings."""
     import torch
     from importlib import import_module
     main = import_module(f"{PKG}.main")
@@ -4387,10 +4550,13 @@ def phase_two_process() -> tuple[dict, dict]:
                       [r for r, k in zip(res, kinds) if k == "sp"])
         check_pp_toy([j for j in module if j.get("kind") == "pp"],
                      [r for r, k in zip(res, kinds) if k == "pp"])
-        check_pp_module(module[-len(PP_SCHEDULES):],
-                        res[-len(PP_SCHEDULES):])
-        print(f"[fsdp cnn] + [sp attn] + [pp toy] + [pp gpt2] module checks "
-              f"wall {time.perf_counter() - t0:.1f} s")
+        pp_module = [i for i, j in enumerate(module)
+                     if j.get("schedule") and "model" in j]
+        check_pp_module([module[i] for i in pp_module],
+                        [res[i] for i in pp_module])
+        check_ep_module(res[[j.get("label") for j in module].index("ep")])
+        print(f"[fsdp cnn] + [sp attn] + [pp toy] + [pp gpt2] + [ep moe] "
+              f"module checks wall {time.perf_counter() - t0:.1f} s")
         res, wall = grid_run("[tp gpt2]", tp_gpt2_argvs()[0], runner)
         data_lines("[tp gpt2] fp32 data-only twin", res, wall)
         twin = {k: res[k] for k in ("global_train_losses",
@@ -4399,7 +4565,8 @@ def phase_two_process() -> tuple[dict, dict]:
         del res
         for path in SP_RUNS:
             phase_sp(path, runner)
-        counts = phase_pp(runner)
+        counts = {"pp_gpt2": phase_pp(runner)}
+        counts["ep_moe"] = phase_ep(runner)
     print(f"[two-process] {len(jobs)} jobs from one start of 2 processes "
           f"in {time.perf_counter() - t0:.1f} s")
     return counts, twin
@@ -4407,13 +4574,12 @@ def phase_two_process() -> tuple[dict, dict]:
 
 def phase_grid() -> dict:
     """The rank grid's phases, from one start of 2 processes (the module
-    checks, [tp gpt2]'s data-only twin, SP and PP) and one of 4 ([tp
+    checks, [tp gpt2]'s data-only twin, SP, PP and EP) and one of 4 ([tp
     gpt2]'s fp32 grid and bf16 runs, [tp fsdp bert]'s grid run, [fsdp
     cnn]); returns their rank-0 launch counts."""
     from importlib import import_module
     main = import_module(f"{PKG}.main")
-    counts = {}
-    counts["pp_gpt2"], twin = phase_two_process()
+    counts, twin = phase_two_process()
     t0 = time.perf_counter()
     jobs = [*tp_gpt2_argvs()[1:], tp_fsdp_bert_argvs()[1], fsdp_cnn_argv()]
     with main.run_shared(jobs) as runner:
@@ -4426,9 +4592,10 @@ def phase_grid() -> dict:
 
 
 def two_process_alone() -> int:
-    """``python3 chip_smoke.py sp`` (or ``pp``): the 2-process phases alone
-    (module checks, sp gpt2, sp bert, pp gpt2), with the kernels built
-    and the pipeline stage's microbatch shape checked."""
+    """``python3 chip_smoke.py sp`` (or ``pp``, ``ep``): the 2-process
+    phases alone (module checks, sp gpt2, sp bert, pp gpt2, ep moe), with
+    the kernels built and the pipeline stage's microbatch shape and the
+    expert ranks' (the moe path's) checked."""
     import torch
     os.environ.pop("FLASH_BWD", None)
     t0 = time.perf_counter()
@@ -4437,10 +4604,10 @@ def two_process_alone() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for shape in SHAPES:
-        if shape[0] == "pp_gpt2":
+        if shape[0] in ("pp_gpt2", "bert_path"):
             check_shape(*shape)
     counts, _twin = phase_two_process()
-    print(json.dumps({"pp_counts": counts}))
+    print(json.dumps({"two_process_counts": counts}))
     print(f"[two-process] phases wall {time.perf_counter() - t0:.1f} s")
     return 0
 
@@ -4471,7 +4638,7 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [GRID_PHASE]:
         return grid_alone()
-    if sys.argv[1:] in ([SP_PHASE], [PP_PHASE]):
+    if sys.argv[1:] in ([SP_PHASE], [PP_PHASE], [EP_PHASE]):
         return two_process_alone()
     if sys.argv[1:] == [ELASTIC_PHASE]:
         return deterministic_child(overlap=False, elastic=True)
@@ -4575,8 +4742,8 @@ def main() -> int:
     lap("sim")
     counts.update(phase_grid())
     counts["tp_llama"] = GRID_COUNTS["tp_llama"]
-    lap("grid (one start of 2: module checks, sp gpt2, sp bert, pp gpt2; "
-        "one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
+    lap("grid (one start of 2: module checks, sp gpt2, sp bert, pp gpt2, "
+        "ep moe; one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
     phase_elastic()
     lap("elastic child (overlap, elastic)")
     phase_memory()

@@ -12,19 +12,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+# the ROADMAP item that ports --chaos and --sync_staleness over inner axes
+_GRID_CHAOS = "A.11 item 4d (--chaos and --sync_staleness over the rank grid)"
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default is rejected in Config.__post_init__.
-_EXPERT = ("A.11 item 4d (the expert axis, MoE under model/fsdp/pipe, and "
-           "elastic/chaos/staleness over the rank grid)")
 NOT_PORTED = {
     "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
                            "which is what auto gives; weights.py converts "
                            "both JAX layouts)"),
 }
-# the --mesh_shape axes the port runs (JAX mesh.py's names), and the ROADMAP
-# item of each axis it refuses
-MESH_AXES = ("data", "fsdp", "seq", "pipe", "model")
-REFUSED_AXES = {"expert": _EXPERT}
+# the --mesh_shape axes the port runs (JAX mesh.py's names)
+MESH_AXES = ("data", "fsdp", "seq", "pipe", "expert", "model")
 PP_SCHEDULES = ("gpipe", "1f1b")
 SEQUENCE_PARALLEL = ("none", "ring", "ring_zigzag", "all_to_all")
 
@@ -842,23 +840,15 @@ class Config:
 
     def _check_mesh(self) -> None:
         """The ``--mesh_shape`` checks: the axes the port runs (data, fsdp,
-        seq, model), the refusals of the others with the ROADMAP item that
-        ports them, and the JAX driver's checks of the model, fsdp and seq
-        axes (``driver.py:615-732``) that need no model built."""
+        seq, pipe, expert, model), and the JAX driver's checks of the
+        expert, model, fsdp and seq axes (``driver.py:578-732``,
+        ``models/moe.py:71-79``)."""
         axes = {a: s for a, s in self.mesh_axes().items() if a != "slice"}
         for name, size in axes.items():
-            if name in REFUSED_AXES:
-                if size != 1:
-                    raise ValueError(
-                        f"the '{name}' mesh axis (--mesh_shape "
-                        f"{self.mesh_shape!r}) is not ported to the PyTorch "
-                        "package yet; it arrives with ROADMAP queue "
-                        f"{REFUSED_AXES[name]}")
-            elif name not in MESH_AXES:
+            if name not in MESH_AXES:
                 raise ValueError(
                     f"unknown mesh axis {name!r} in --mesh_shape "
-                    f"{self.mesh_shape!r}: expected among "
-                    f"{MESH_AXES + tuple(REFUSED_AXES)}")
+                    f"{self.mesh_shape!r}: expected among {MESH_AXES}")
             elif size == 0 or size < -1 or (size == -1 and name != "data"):
                 raise ValueError(
                     f"mesh axis {name!r} needs a size >= 1 (data may be -1: "
@@ -871,6 +861,7 @@ class Config:
                 "takes --num_workers')")
         self._check_pipe(axes)
         self._check_seq(axes)
+        self._check_experts(axes)
         inner = self.inner_axes()
         if not inner:
             return
@@ -903,16 +894,38 @@ class Config:
             raise ValueError(
                 f"per-accumulation-slice batch {per_dev // self.grad_accum} "
                 f"must be divisible by {mb} pipeline microbatches")
-        # what the JAX package runs under inner axes and the port does not
-        # yet: each is refused, naming its ROADMAP item
-        for on, what in ((self.num_experts > 0, "--num_experts"),
-                         (bool(self.chaos), "--chaos (elastic membership)"),
+        # what the JAX package's config takes under inner axes and the
+        # port does not run yet: each is refused, naming its ROADMAP item
+        for on, what in ((bool(self.chaos), "--chaos (elastic membership)"),
                          (self.sync_staleness > 0, "--sync_staleness")):
             if on:
                 raise ValueError(
                     f"{what} under the inner mesh axes {inner} (--mesh_shape"
                     f" {self.mesh_shape!r}) is not ported to the PyTorch "
-                    f"package yet; it arrives with ROADMAP queue {_EXPERT}")
+                    f"package yet; it arrives with ROADMAP queue "
+                    f"{_GRID_CHAOS}")
+
+    def _check_experts(self, axes: dict) -> None:
+        """The JAX driver's checks of ``--num_experts`` and the expert
+        axis (``driver.py:578-615``), then the MoE layer's own
+        (``models.moe.check_shards``, JAX ``models/moe.py:71-79``), with
+        their messages and in their order."""
+        ep = axes.get("expert", 1)
+        if self.num_experts > 0:
+            from .models import is_attention_model
+            if not is_attention_model(self.model):
+                raise ValueError(
+                    "--num_experts applies to attention models (bert_*/"
+                    "gpt_*/vit_*/llama_*); got --model "
+                    f"{self.model}")
+        elif ep > 1:
+            raise ValueError(
+                "mesh has an 'expert' axis but --num_experts is 0")
+        if self.num_experts <= 0:
+            return
+        from .models import ffn_dim_of, moe
+        moe.check_shards(self.num_experts, ffn_dim_of(self.model), ep,
+                         axes.get("model", 1))
 
     def _check_pipe(self, axes: dict) -> None:
         """The JAX driver's checks of the pipe axis and the ``--pp_*``

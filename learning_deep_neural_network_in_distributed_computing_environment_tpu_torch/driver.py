@@ -62,9 +62,9 @@ of poisoned sync contributions with escalation to a departure.  The
 per-worker metric lists are keyed by logical worker id, and
 ``results["elastic"]`` carries JAX's keys plus the roster of every round.
 
-On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq``, ``pipe`` or
-``model``; JAX ``driver.py:459-736``) the world of D x F x S x P x T
-processes is cut by
+On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq``, ``pipe``,
+``expert`` or ``model``; JAX ``driver.py:459-736``) the world of D x F x
+S x P x E x T processes is cut by
 ``mesh.make_grid`` into per-axis gloo groups: each worker is the block of
 ranks with one data coordinate, and everything above keyed by worker runs
 on the data line (``group``) with one answer per worker that every rank
@@ -75,16 +75,17 @@ Each rank builds the dense twin from the seed (the init, the probe), its
 module (tensor-parallel over ``model``; with ``--sequence_parallel`` its
 attention runs over the ``seq`` line; without it the seq ranks are
 replicas of the whole step, as in JAX; over ``pipe`` its stage's L/P
-blocks, the microbatches of each step run by ``--pp_schedule``) and its
-shards of the dense twin's
+blocks, the microbatches of each step run by ``--pp_schedule``; over
+``expert`` its E/ep experts of every MoE layer) and its shards of the
+dense twin's
 parameters (``parallel.shards.GridParams``); the dense twin's parameters
 are released after the probe and get the worker's whole parameters back
 at the end, for the final evaluation.  Under ``--sanitize`` (or
 ``round_checksums``) the parameters are checked bitwise equal along
 ``seq`` after every round; the leaves every pipe stage holds are checked
-bitwise equal along ``pipe`` after every round.  ``results["grid"]`` has
-the axes, every rank's state bytes and its TP, FSDP, SP and PP
-counters.
+bitwise equal along ``pipe``, and those every expert rank holds along
+``expert``, after every round.  ``results["grid"]`` has the axes, every
+rank's state bytes and its TP, FSDP, SP, PP and EP counters.
 
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
@@ -202,7 +203,7 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
 
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
                     input_shape: tuple | None = None, tp=None, sp=None,
-                    num_layers: int | None = None):
+                    num_layers: int | None = None, ep=None):
     """The registry model at the configured compute dtype (and, for
     transformers, attention, remat policy and MoE FFN), initialized from
     ``cfg.seed`` with a generator on
@@ -213,7 +214,9 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     shard; its init is not the dense model's (``GridParams`` fills it).
     ``sp`` (the rank's ``seq`` line) builds a token model whose attention
     is ``--sequence_parallel``'s over that line.  ``num_layers`` builds a
-    transformer with that many blocks: a pipeline stage's module."""
+    transformer with that many blocks: a pipeline stage's module.  ``ep``
+    (the rank's ``expert`` line) builds MoE layers holding the rank's
+    experts."""
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     kw = {}
@@ -237,10 +240,7 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
             f"vit_*/llama_* — no BatchNorm running stats to split across "
             f"microbatches); got --model {cfg.model}")
     if cfg.num_experts > 0:
-        if not attention:
-            raise ValueError(
-                f"--num_experts applies to attention models (bert_*/gpt_*/"
-                f"vit_*/llama_*); got --model {cfg.model}")
+        # (Config refuses experts on the non-attention models)
         kw.update(num_experts=cfg.num_experts,
                   capacity_factor=cfg.expert_capacity_factor)
     if cfg.num_kv_heads > 0:
@@ -261,6 +261,8 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw["input_shape"] = tuple(input_shape)
     if tp is not None:
         kw["tp"] = tp
+    if ep is not None:
+        kw["ep"] = ep
     if num_layers is not None:
         kw["num_layers"] = num_layers
     if sp is not None:
@@ -546,11 +548,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 "run it through main.run or driver.run_group")
         grid = mesh.make_grid(group, mesh.grid_axes(cfg))
         group = grid.groups["data"]
+        from .parallel import ep as ep_lib
         from .parallel import fsdp as fsdp_lib
         from .parallel import pp as pp_lib
         from .parallel import sp as sp_lib
         from .parallel import tp as tp_lib
         tp_lib.reset_stats()            # results["grid"] counts this run
+        ep_lib.reset_stats()
         fsdp_lib.reset_stats()
         sp_lib.reset_stats()
         pp_lib.reset_stats()
@@ -652,9 +656,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         # P divides L, as JAX models/bert.py:231 does)
         stage = (None if grid.size("pipe") == 1
                  else len(model.blocks) // grid.size("pipe"))
+        # the MoE layers hold the rank's E/ep experts (Config checks that
+        # ep divides E, as JAX models/moe.py:71 does)
+        ep = grid.groups["expert"] if grid.size("expert") > 1 else None
         train_model = build_model_for(cfg, num_classes, device,
                                       trainset.images.shape[1:], tp=tp,
-                                      sp=sp, num_layers=stage)
+                                      sp=sp, num_layers=stage, ep=ep)
         train_model.load_state_dict(
             {k: b for k, b in model.state_dict().items()
              if k not in dict(model.named_parameters())}, strict=False)
@@ -1190,6 +1197,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     # after every round
     pipe_checked = (0 if grid is not None and grid.size("pipe") > 1
                     else None)
+    # the leaves every expert rank holds: checked bitwise equal along
+    # expert after every round
+    expert_checked = (0 if grid is not None and grid.size("expert") > 1
+                      else None)
     san: dict[str, Any] = {"enabled": cfg.sanitize,
                            "transfer_guard_violations": 0,
                            "retrace_count": 0, "recompile_count": 0,
@@ -1349,6 +1360,14 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                             "(along pipe)", comms.checksum(
                                 engine.gp.pipe_replicated_params()))
                 pipe_checked += 1
+            if expert_checked is not None:
+                # the MoE markers give those leaves their whole gradients
+                # on every expert rank: the same Adam step, the same sync
+                _check_same(grid.groups["expert"],
+                            f"the replicated parameters after round {epoch} "
+                            "(along expert)", comms.checksum(
+                                engine.gp.expert_replicated_params()))
+                expert_checked += 1
             if nan_armed and "sync_ok" in mx:
                 timing["sync_ok"] = [float(x) for x in mx["sync_ok"]]
                 process_quarantine(epoch, np.asarray(mx["sync_ok"]))
@@ -1482,6 +1501,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "state_bytes": mesh.all_gather(
                 grid.world, engine.state_resident_bytes(state)),
             "tp": mesh.all_gather(grid.world, dict(tp_lib.STATS)),
+            # the expert line's all-reduces of the MoE layers (f and g)
+            "ep": mesh.all_gather(grid.world, dict(ep_lib.STATS)),
             # every rank's flash launches and the train and validation
             # steps it ran (the launches of main.run's final evaluation on
             # rank 0 come after)
@@ -1506,7 +1527,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                 microbatches=engine.pp_microbatches)),
             # rounds after which the replicated leaves were checked
             # bitwise equal along pipe (None: no pipe axis)
-            "pipe_bitwise_rounds": pipe_checked}
+            "pipe_bitwise_rounds": pipe_checked,
+            # ... and along expert (None: no expert axis)
+            "expert_bitwise_rounds": expert_checked}
         grid.close()
     if slices is not None:
         slices.close()

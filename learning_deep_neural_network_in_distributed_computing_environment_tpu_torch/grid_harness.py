@@ -7,6 +7,7 @@ shards (tensor-parallel module, ZeRO-3 shards) and of its dense twin in
 the same rank, from the same parameters; ``vocab_stats_worker`` holds
 ``tp.vocab_parallel_token_stats`` against ``train.masked_token_stats``;
 ``gather_worker`` holds ``fsdp.gather_params`` and its reduce-scatter;
+``moe_block_job`` runs one MoE layer on the rank's experts and F slice;
 ``sp_attention_job`` runs one of ``parallel/sp.py``'s attentions on the
 rank's chunk of a sequence; ``pp_schedule_job`` runs one of
 ``parallel/pp.py``'s schedules on a stack of toy stages.  Each writes what
@@ -36,14 +37,22 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     rank of one device type), ``x``, ``y``, ``m`` (the worker's batch).
     Under a pipe axis the rank's module is its stage and the step runs
     the microbatches by ``job["schedule"]`` (``pp_microbatches`` in
-    ``kw``); the logits are the last stage's.
+    ``kw``); the logits are the last stage's.  With ``num_experts`` in
+    ``kw`` the loss adds ``moe_aux_weight`` times the MoE aux loss, over
+    the fsdp size (each fsdp slice routes its own tokens: the dense twin
+    runs the slices one by one).
     Returns the largest abs differences of this rank's logits (its slice of
     the batch over fsdp, its chunk of every sequence over seq, its vocab
     slice; 0.0 off the last stage) and of the worker's joined gradients
     from the dense twin's
     (``logits_err``, ``grads_err``: the comparison ``chip_smoke.py``
-    gates, which the CPU tests check against their own) and the count of
-    leaves a grid axis shards; unless ``summary``, also the rank's logits
+    gates, which the CPU tests check against their own), the count of
+    leaves a grid axis shards; with experts, the rank's MoE aux loss
+    (``aux``), the dense twin's over the same tokens (``dense_aux``: its
+    fsdp slice's) and their abs difference (``aux_err``), all three None
+    under pipe (a stage sums only its layers' aux, over its microbatches)
+    and under seq (a chunk routes on its own, the twin does not); the
+    flash launches of the rank's pass; unless ``summary``, also the rank's logits
     and loss, the whole gradients by JAX leaf key and the dense twin's
     logits, loss and gradients, for the tests' comparisons with JAX."""
     from .driver import build_model_for
@@ -61,10 +70,11 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     sp = (grid.groups["seq"] if grid.size("seq") > 1 and split_seq
           else None)
     pipe = grid.groups["pipe"] if grid.size("pipe") > 1 else None
+    ep = grid.groups["expert"] if grid.size("expert") > 1 else None
     module = build_model_for(
         cfg, job["vocab"], device, job.get("shape"), tp=tp, sp=sp,
         num_layers=None if pipe is None else
-        len(dense.blocks) // pipe.world_size)
+        len(dense.blocks) // pipe.world_size, ep=ep)
     gp = GridParams({k: p.detach() for k, p in dense.named_parameters()},
                     weights.state_layout(dense), module, grid, device,
                     shard_tok_emb=job["model"].startswith("gpt"),
@@ -72,8 +82,11 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     x, y, m = (torch.as_tensor(job[k]).to(device) for k in ("x", "y", "m"))
     denom = masked_weights(y, m).sum().clamp_min(1.0)
     f = grid.groups.get("fsdp")
-    xs, ys, ms = ((t.chunk(f.world_size)[f.rank] for t in (x, y, m))
-                  if f is not None and f.world_size > 1 else (x, y, m))
+    n_slices = f.world_size if f is not None else 1
+    xs, ys, ms = ((t.chunk(n_slices)[f.rank] for t in (x, y, m))
+                  if n_slices > 1 else (x, y, m))
+    experts = cfg.num_experts > 0
+    aux_w = cfg.moe_aux_weight / n_slices
     if sp is not None:
         xs, ys = (t.chunk(sp.world_size, dim=1)[sp.rank] for t in (xs, ys))
     vocab_parallel = tp is not None and not job["model"].startswith("vit")
@@ -85,36 +98,40 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
                      if vocab_parallel else masked_token_stats(logits, ys, ms))
         return (ce * w).sum() / denom
 
+    rank_aux = None
     if pipe is None:
         with gp.applied():
-            logits = module(xs)
+            logits, rank_aux = (module(xs, with_aux=True) if experts
+                                else (module(xs), None))
             loss = stats(logits, ys, ms)
+            if rank_aux is not None:
+                loss = loss + aux_w * rank_aux
             grads = torch.autograd.grad(loss, gp.params)
     else:
         logits, loss, grads = _pipe_step(job, cfg, gp, module, pipe, stats,
-                                         xs, ys, ms)
+                                         xs, ys, ms, aux_w)
     launches = dict(flash.LAUNCHES)
     grads = gp.whole(gp.reduce_grads(list(grads)))
-    out = {"logits": _np(logits), "loss": float(loss), "launches": launches,
+    out = {"logits": _np(logits), "loss": float(loss),
            "grads": {k: _np(g) for k, g in zip(gp.keys, grads)},
            "keys": list(gp.keys), "specs": gp.specs}
     names = [n for n, _p in dense.named_parameters()]
-    n_slices = f.world_size if f is not None else 1
-    if n_slices > 1 and list(dense.buffers()):
-        # BatchNorm normalises each fsdp slice with its own statistics:
-        # the dense twin runs the slices one by one over the whole batch's
-        # denominator (JAX's FSDP semantics, train.py:1617-1622)
-        parts, d_loss = [], 0.0
-        for xs_, ys_, ms_ in zip(x.chunk(n_slices), y.chunk(n_slices),
-                                 m.chunk(n_slices)):
-            parts.append(dense(xs_))
-            ce, w, _c = masked_token_stats(parts[-1], ys_, ms_)
-            d_loss = d_loss + (ce * w).sum() / denom
-        d_logits = torch.cat(parts)
-    else:
-        d_logits = dense(x)
-        ce, w, _c = masked_token_stats(d_logits, y, m)
-        d_loss = (ce * w).sum() / denom
+    # BatchNorm normalises, and an MoE layer routes, each fsdp slice on
+    # its own: the dense twin runs the slices one by one over the whole
+    # batch's denominator (JAX's FSDP semantics, train.py:1596-1622)
+    parts, d_auxes, d_loss = [], [], 0.0
+    for xs_, ys_, ms_ in zip(*(t.chunk(n_slices if experts
+                                       or list(dense.buffers()) else 1)
+                               for t in (x, y, m))):
+        o, d_aux = (dense(xs_, with_aux=True) if experts
+                    else (dense(xs_), None))
+        parts.append(o)
+        d_auxes.append(d_aux)
+        ce, w, _c = masked_token_stats(o, ys_, ms_)
+        d_loss = d_loss + (ce * w).sum() / denom
+        if d_aux is not None:
+            d_loss = d_loss + aux_w * d_aux
+    d_logits = torch.cat(parts)
     d_grads = weights.jax_param_leaves(
         dict(zip(names, torch.autograd.grad(d_loss,
                                             list(dense.parameters())))),
@@ -131,7 +148,17 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
             "grads_err": max(float(np.abs(_np(g) - d_grads[k]).max())
                              for k, g in zip(gp.keys, grads)),
             "sharded": sum(any(gp.specs[k]) for k in gp.keys),
-            "leaves": len(gp.keys)}
+            "leaves": len(gp.keys),
+            "launches": launches}
+    if rank_aux is not None and sp is None:
+        # the MoE aux losses summed over the layers: the rank's, and the
+        # dense twin's over the same tokens (its fsdp slice)
+        aux = float(rank_aux.detach())
+        dense_aux = float(d_auxes[f.rank if n_slices > 1 else 0].detach())
+        errs.update(aux=aux, dense_aux=dense_aux,
+                    aux_err=abs(aux - dense_aux))
+    else:
+        errs.update(aux=None, dense_aux=None, aux_err=None)
     if job.get("summary"):
         return errs
     out.update(errs, dense_logits=_np(d_logits), dense_loss=float(d_loss),
@@ -139,13 +166,14 @@ def module_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
     return out
 
 
-def _pipe_step(job, cfg, gp, module, pipe, stats, xs, ys, ms):
+def _pipe_step(job, cfg, gp, module, pipe, stats, xs, ys, ms, aux_w):
     """One train step of a pipe stage (``job["schedule"]``, the engine's
-    construction): ``(logits, loss, gradients of the shards)``, the logits
-    and loss the last stage's (empty and 0.0 elsewhere)."""
+    construction, each microbatch's MoE aux times ``aux_w`` over M):
+    ``(logits, loss, gradients of the shards)``, the logits and loss the
+    last stage's (empty and 0.0 elsewhere)."""
     from .parallel import pp
-    xm, ym, mm = pp.microbatches(cfg.pp_microbatches or pipe.world_size,
-                                 xs, ys, ms)
+    m = cfg.pp_microbatches or pipe.world_size
+    xm, ym, mm = pp.microbatches(m, xs, ys, ms)
     parts, sums = [], []
 
     def last(h, i):
@@ -154,7 +182,8 @@ def _pipe_step(job, cfg, gp, module, pipe, stats, xs, ys, ms):
         return stats(logits, ym[i], mm[i]), torch.zeros(())
 
     grads = gp.accumulate_grads(lambda: sums.append(pp.model_pass(
-        module, pipe, xm, last, job.get("schedule", "gpipe"), xs.device)))
+        module, pipe, xm, last, job.get("schedule", "gpipe"), xs.device,
+        aux_weight=aux_w / m)))
     loss = sums[0][0]
     logits = torch.cat(parts) if parts else torch.zeros(0)
     return logits, (0.0 if loss is None else loss), grads
@@ -177,6 +206,7 @@ def module_worker(rank: int, world_size: int, store_path: str,
     jobs = {"module": lambda job, grid: module_job(job, grid, device),
             "vocab": vocab_stats_job, "gather": gather_job,
             "sp": lambda job, grid: sp_attention_job(job, grid, device),
+            "moe": lambda job, grid: moe_block_job(job, grid, device),
             "pp": lambda job, grid: pp_schedule_job(job, grid, device)}
     with mesh.init_group(rank, world_size, device, store_path) as world:
         grids = {}
@@ -192,6 +222,80 @@ def module_worker(rank: int, world_size: int, store_path: str,
             os.replace(path + ".tmp", path)
         for grid in grids.values():
             grid.close()
+
+
+MOE_LEAVES = ("gate", "w1", "b1", "w2", "b2")
+
+
+def moe_slices(shapes: dict, e: tuple, t: tuple) -> dict:
+    """{leaf: index tuple} of the MoE leaves (JAX layout: gate kernel [H,
+    E], w1 [E, H, F], b1 [E, F], w2 [E, F, H], b2 [E, H]) that the rank at
+    expert coordinate ``e`` and model coordinate ``t`` ((index, size)
+    each) holds: its experts of the expert stacks, its F slice of w1, b1
+    and w2; the gate whole."""
+    def cut(n, c):
+        return slice(c[0] * n // c[1], (c[0] + 1) * n // c[1])
+    n_e, f = shapes["w1"][0], shapes["w1"][2]
+    return {"gate": (slice(None),) * 2,
+            "w1": (cut(n_e, e), slice(None), cut(f, t)),
+            "b1": (cut(n_e, e), cut(f, t)),
+            "w2": (cut(n_e, e), cut(f, t), slice(None)),
+            "b2": (cut(n_e, e), slice(None))}
+
+
+def moe_block_job(job: dict, grid: mesh.Grid, device: torch.device) -> dict:
+    """One MoE layer (``models/moe.py``) on the rank's experts and F slice
+    (its ``expert`` and ``model`` lines) and the dense layer in the same
+    rank, from the same parameters: ``job["params"]`` ({leaf: array}, the
+    JAX layout of ``MOE_LEAVES``), ``x`` [B, T, H] and the cotangent
+    ``do``, fp32; ``capacity_factor``; the loss ``sum(out * do) +
+    aux_weight * aux``.  Returns the largest abs differences of the
+    output, the aux loss and each leaf's gradient (the rank's slice) from
+    the dense layer's (``errors``); unless ``summary``, also the rank's
+    output, aux and gradients (JAX layout) and its slices."""
+    from .models.moe import MoEFFN
+    tp = grid.groups["model"] if grid.size("model") > 1 else None
+    ep = grid.groups["expert"] if grid.size("expert") > 1 else None
+    params = {k: np.asarray(v, np.float32) for k, v in job["params"].items()}
+    h, n_e = params["gate"].shape
+    f = params["w1"].shape[2]
+    idx = moe_slices({k: v.shape for k, v in params.items()},
+                     (grid.index("expert"), grid.size("expert")),
+                     (grid.index("model"), grid.size("model")))
+    x = torch.as_tensor(job["x"]).to(device)
+    do = torch.as_tensor(job["do"]).to(device)
+
+    def run(layer, mine: bool):
+        with torch.no_grad():
+            for k in MOE_LEAVES:
+                a = params[k][idx[k]] if mine else params[k]
+                t = torch.as_tensor(np.ascontiguousarray(
+                    a.T if k == "gate" else a))
+                dst = layer.gate.weight if k == "gate" else getattr(layer, k)
+                dst.copy_(t)
+        out, aux = layer(x)
+        loss = (out * do).sum() + job.get("aux_weight", 1.0) * aux
+        ps = [layer.gate.weight] + [getattr(layer, k)
+                                    for k in MOE_LEAVES[1:]]
+        grads = torch.autograd.grad(loss, ps)
+        g = {k: _np(v.T if k == "gate" else v)
+             for k, v in zip(MOE_LEAVES, grads)}
+        return _np(out), float(aux.detach()), g
+
+    kw = dict(capacity_factor=job.get("capacity_factor", 1.25),
+              device=device)
+    got = run(MoEFFN(h, n_e, f, tp=tp, ep=ep, **kw), True)
+    want = run(MoEFFN(h, n_e, f, **kw), False)
+    res = {"errors": {
+        "out": float(np.abs(got[0] - want[0]).max()),
+        "aux": abs(got[1] - want[1]),
+        **{k: float(np.abs(got[2][k] - want[2][k][idx[k]]).max())
+           for k in MOE_LEAVES}}}
+    if not job.get("summary"):
+        res.update(out=got[0], aux=got[1], grads=got[2],
+                   index={k: [(s.start, s.stop) for s in v]
+                          for k, v in idx.items()})
+    return res
 
 
 def sp_inputs(job: dict) -> list[np.ndarray]:
@@ -344,7 +448,8 @@ def pp_schedule_job(job: dict, grid: mesh.Grid, device: torch.device
     sync()
     t0 = time.perf_counter()
     loss, _ = pp.run(pp.order(job["schedule"], p, s, m), g,
-                     first=lambda i: xs[i], body=lambda a: stage_fn(w, a),
+                     first=lambda i: xs[i],
+                     body=lambda a: (stage_fn(w, a), None),
                      last=last, shape=lambda i: tuple(xs_all.shape[1:]),
                      dtype=torch.float32, device=device)
     sync()

@@ -123,8 +123,9 @@ class Grid:
     the worker's parameters, its seq ranks each hold one chunk of every
     sequence under --sequence_parallel (else the whole batch) and whole
     copies of the parameters, its pipe ranks are the stages of its layer
-    stack, and the data line of each (fsdp, seq, pipe, model) coordinate
-    syncs that coordinate's shards once per round."""
+    stack, its expert ranks each hold E/ep of the experts of every MoE
+    layer, and the data line of each (fsdp, seq, pipe, expert, model)
+    coordinate syncs that coordinate's shards once per round."""
 
     axes: dict
     world: Group
@@ -207,7 +208,8 @@ def grid_axes(cfg) -> dict:
     if axes["data"] < 1:
         axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
     return {a: s for a, s in axes.items()
-            if a in ("slice", "data", "fsdp", "seq", "pipe", "model")}
+            if a in ("slice", "data", "fsdp", "seq", "pipe", "expert",
+                     "model")}
 
 
 def world_size_of(axes: dict) -> int:

@@ -97,6 +97,12 @@ def num_layers_of(name: str) -> int:
     return len(get_model(name, device="meta").blocks)
 
 
+def ffn_dim_of(name: str) -> int:
+    """The FFN width of a transformer of the registry (each MoE expert's
+    F, which the ``model`` axis splits)."""
+    return get_model(name, device="meta").blocks[0].ffn_in.out_features
+
+
 def get_model(name: str, **kw: Any):
     """Build a torch module by registry name."""
     name = name.lower()

@@ -22,6 +22,10 @@ slice and the loss goes through ``tp.vocab_parallel_token_stats``.
 ``tp_param_specs`` names the dimension of each parameter leaf, in the JAX
 package's layout, that the ``model`` axis shards.
 
+Expert parallelism (``ep``: the rank's ``expert`` line): each MoE layer
+holds its rank's experts (``models/moe.py``); everything else is
+replicated along the line.
+
 Sequence parallelism (``sp``: the rank's ``seq`` line; JAX ``bert.py:91-95,
 324-328``): the model reads its chunk of every sequence, so the learned
 positions and the RoPE angles start at ``seq_offset``, and the attention
@@ -213,7 +217,7 @@ class EncoderLayer(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.dtype = dtype
@@ -226,7 +230,7 @@ class EncoderLayer(nn.Module):
             from .moe import MoEFFN
             self.moe = MoEFFN(hidden, num_experts, ffn_dim,
                               capacity_factor=capacity_factor, dtype=dtype,
-                              device=device)
+                              tp=tp, ep=ep, device=device)
         else:
             f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel FFN
             self.ffn_in = nn.Linear(hidden, f, device=device)
@@ -264,7 +268,7 @@ class BertForMLM(nn.Module):
                  max_len: int = 512, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.num_classes = num_classes
@@ -283,7 +287,7 @@ class BertForMLM(nn.Module):
             EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
                          capacity_factor=capacity_factor, dtype=dtype,
                          attention_impl=attention_impl, tp=tp, sp=sp,
-                         device=device)
+                         ep=ep, device=device)
             for _ in range(num_layers))
         # this rank's heads and their width (the weight conversion's)
         self.num_heads = self.blocks[0].attn.num_heads
@@ -341,9 +345,20 @@ def _tp_parts(names: list, ndim: int, axis: str,
     [heads, hd, H] and ffn_out kernel [F, H] on dim 0 (row-parallel);
     ffn_in / ffn_up kernel [H, F] / bias [F] on F (column-parallel); the
     MLM decode and the Llama head kernel [H, V] / bias [V] on V; GPT's tied
-    table [V, H] on V with ``shard_tok_emb``; everything else replicated.
-    The MoE leaves are refused under ``model`` (ROADMAP A.11 item 4d)."""
+    table [V, H] on V with ``shard_tok_emb``; the MoE expert stacks per
+    expert on F: w1 [E, H, F] and b1 [E, F] column-parallel, w2 [E, F, H]
+    row-parallel (the gate and b2 replicated; ``moe.with_expert_overlay``
+    puts the leading E dimension on ``expert``); everything else
+    replicated."""
     parts = [None] * ndim
+    if "moe" in names:
+        if "w1" in names and ndim == 3:
+            parts[2] = axis
+        elif "b1" in names and ndim == 2:
+            parts[1] = axis
+        elif "w2" in names and ndim == 3:
+            parts[1] = axis
+        return parts
     if "qkv" in names:
         parts[2 if ndim == 4 else 1] = axis
     elif "q" in names:

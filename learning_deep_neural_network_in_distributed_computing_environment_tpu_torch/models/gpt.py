@@ -36,7 +36,7 @@ class GPTBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, ffn_dim: int, *,
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.dtype = dtype
@@ -50,7 +50,7 @@ class GPTBlock(nn.Module):
             from .moe import MoEFFN
             self.moe = MoEFFN(hidden, num_experts, ffn_dim,
                               capacity_factor=capacity_factor, dtype=dtype,
-                              device=device)
+                              tp=tp, ep=ep, device=device)
         else:
             f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel FFN
             self.ffn_in = nn.Linear(hidden, f, device=device)
@@ -85,7 +85,7 @@ class GPTForCausalLM(nn.Module):
                  max_len: int = 1024, *, num_experts: int = 0,
                  capacity_factor: float = 1.25, remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.num_classes = num_classes
@@ -103,7 +103,7 @@ class GPTForCausalLM(nn.Module):
         self.blocks = nn.ModuleList(
             GPTBlock(hidden, num_heads, ffn_dim, num_experts=num_experts,
                      capacity_factor=capacity_factor, dtype=dtype,
-                     attention_impl=attention_impl, tp=tp, sp=sp,
+                     attention_impl=attention_impl, tp=tp, sp=sp, ep=ep,
                      device=device)
             for _ in range(num_layers))
         # this rank's heads and their width (the weight conversion's)

@@ -59,7 +59,7 @@ class LlamaBlock(nn.Module):
                  capacity_factor: float = 1.25,
                  rope_theta: float = 10000.0,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.dtype = dtype
@@ -75,7 +75,7 @@ class LlamaBlock(nn.Module):
             from .moe import MoEFFN
             self.moe = MoEFFN(hidden, num_experts, ffn_dim,
                               capacity_factor=capacity_factor, dtype=dtype,
-                              device=device)
+                              tp=tp, ep=ep, device=device)
         else:
             f = tp_local(ffn_dim, tp, "ffn_dim")   # column-parallel SwiGLU
             self.ffn_in = nn.Linear(hidden, f, bias=False, device=device)
@@ -110,7 +110,7 @@ class LlamaForCausalLM(nn.Module):
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, sp=None,
+                 attention_impl: str = "dense", tp=None, sp=None, ep=None,
                  device=None):
         super().__init__()
         self.num_classes = num_classes
@@ -127,7 +127,7 @@ class LlamaForCausalLM(nn.Module):
                        num_experts=num_experts,
                        capacity_factor=capacity_factor,
                        rope_theta=rope_theta, dtype=dtype,
-                       attention_impl=attention_impl, tp=tp, sp=sp,
+                       attention_impl=attention_impl, tp=tp, sp=sp, ep=ep,
                        device=device)
             for _ in range(num_layers))
         # this rank's query and K/V heads and their width (the weight

@@ -39,7 +39,8 @@ class ViT(nn.Module):
                  num_experts: int = 0, capacity_factor: float = 1.25,
                  remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", tp=None, device=None):
+                 attention_impl: str = "dense", tp=None, ep=None,
+                 device=None):
         super().__init__()
         h, w, c = input_shape
         if h % patch or w % patch:
@@ -56,7 +57,8 @@ class ViT(nn.Module):
         self.blocks = nn.ModuleList(
             EncoderLayer(hidden, num_heads, ffn_dim, num_experts=num_experts,
                          capacity_factor=capacity_factor, dtype=dtype,
-                         attention_impl=attention_impl, tp=tp, device=device)
+                         attention_impl=attention_impl, tp=tp, ep=ep,
+                         device=device)
             for _ in range(num_layers))
         # this rank's heads and their width (the weight conversion's)
         self.num_heads = self.blocks[0].attn.num_heads

@@ -33,7 +33,11 @@ in-flight microbatch's autograd graph until its backward, so the forward
 runs once per microbatch (``--remat_policy`` / ``--pp_remat`` recompute
 per block as on every other path).  The boundary of a stage is a leaf:
 the received activation requires grad, and its gradient is the cotangent
-the backward hop sends back.
+the backward hop sends back.  An MoE stage's load-balance loss of each
+microbatch, weighted, joins that microbatch's backward on its own stage
+(JAX seeds the 1F1B slot with a weight-valued cotangent and sums the
+GPipe stages' aux over pipe); a skipped bubble adds none, as JAX's
+validity scale 0 gives none.
 """
 
 from __future__ import annotations
@@ -195,40 +199,52 @@ def hop(group: mesh.Group, sends: list, recvs: list) -> list:
 
 def run(steps: list, group: mesh.Group, *, first: Callable,
         body: Callable, last: Callable, shape: Callable,
-        dtype: torch.dtype, device: torch.device, train: bool = True):
+        dtype: torch.dtype, device: torch.device, train: bool = True,
+        aux_weight: float = 0.0):
     """Execute ``steps`` (``gpipe_order`` / ``onef1b_order``) on this rank,
     stage ``group.rank`` of the pipe line ``group``.
 
     ``first(i)``: stage 0's input to its blocks for microbatch i (the
-    embedding); ``body(x)``: the stage's blocks; ``last(y, i)``: on the
+    embedding); ``body(x)``: the stage's blocks, ``(output, aux)`` with
+    ``aux`` their MoE load-balance loss or None; ``last(y, i)``: on the
     last stage, ``(loss, metrics)`` of microbatch i from the blocks'
     output (``loss`` a scalar the backward starts from, None when not
     ``train``; ``metrics`` a detached tensor); ``shape(i)``: the
     activation's shape for microbatch i, of ``dtype``.  With ``train`` each
     backward accumulates the gradients into the leaves the graph reaches
-    (``.grad``).  Returns ``(loss, metrics)`` summed over the microbatches
-    on the last stage, ``(None, None)`` elsewhere."""
+    (``.grad``), each microbatch's ``aux_weight`` x aux included.  Returns
+    ``(loss, metrics)`` summed over the microbatches: the loss on the
+    last stage, and elsewhere the weighted aux (None without it); the
+    metrics on the last stage, None elsewhere."""
     p, s = group.world_size, group.rank
     is_last = s == p - 1
     ins: dict = {}        # microbatch -> the stage's input leaf
     outs: dict = {}       # microbatch -> its output (the loss, last stage)
+    auxes: dict = {}      # microbatch -> the stage's weighted aux (not last)
     grads: dict = {}      # microbatch -> the cotangent of its output
     loss_sum = metric_sum = None
     for kind, arg in steps:
         if kind == "F":
             i = arg
             x = first(i) if s == 0 else (ins[i] if train else ins.pop(i))
-            y = body(x)
+            y, aux = body(x)
+            aux = aux * aux_weight if train and aux is not None else None
             if is_last:
                 loss, metrics = last(y, i)
                 metric_sum = (metrics if metric_sum is None
                               else metric_sum + metrics)
-                if loss is not None:
-                    loss_sum = (loss.detach() if loss_sum is None
-                                else loss_sum + loss.detach())
+                if aux is not None:
+                    loss, aux = loss + aux, None
                 y = loss
+            part = y if is_last else aux
+            if part is not None:
+                loss_sum = (part.detach() if loss_sum is None
+                            else loss_sum + part.detach())
             if train or not is_last:
-                outs[i] = y          # until its backward (or its send)
+                # until its backward (or its send)
+                outs[i] = y
+            if aux is not None:
+                auxes[i] = aux
             if train:
                 STATS["in_flight"] = max(STATS["in_flight"], len(outs))
                 if device.type == "cuda":
@@ -241,13 +257,18 @@ def run(steps: list, group: mesh.Group, *, first: Callable,
             if is_last:
                 torch.autograd.backward(y)
             else:
-                torch.autograd.backward(y, grads.pop(i))
+                # the cotangent and the stage's weighted aux, one backward
+                ys, cotangents = [y], [grads.pop(i)]
+                if i in auxes:
+                    ys.append(auxes.pop(i))
+                    cotangents.append(None)
+                torch.autograd.backward(ys, cotangents)
         else:
             sends, recvs = [], []
             for op, i in arg:
                 if op == "send_act":
-                    sends.append(("act", outs[i] if train else outs.pop(i),
-                                  s + 1))
+                    y = outs[i] if train else outs.pop(i)
+                    sends.append(("act", y, s + 1))
                 elif op == "send_grad":
                     x = ins.pop(i)
                     g = (x.grad if x.grad is not None
@@ -264,26 +285,29 @@ def run(steps: list, group: mesh.Group, *, first: Callable,
                     ins[i] = t.requires_grad_(train)
                 else:
                     grads[i] = t
-    if outs or grads or ins:
+    if outs or grads or ins or auxes:
         raise RuntimeError(f"pipeline stage {s}: microbatches left in "
                            f"flight {sorted(outs)}")
     return loss_sum, metric_sum
 
 
 def model_pass(model, group: mesh.Group, xs, last: Callable,
-               schedule: str | None, device: torch.device):
+               schedule: str | None, device: torch.device,
+               aux_weight: float = 0.0):
     """The microbatches ``xs`` through this stage of a transformer of the
     registry (``embed`` on stage 0, ``stage`` on its blocks, ``last`` on
     the blocks' output of the last stage): ``schedule``'s order when
-    training, the forwards alone in the GPipe order when None.  Returns
+    training (each microbatch's MoE aux times ``aux_weight`` in its
+    backward), the forwards alone in the GPipe order when None.  Returns
     ``run``'s sums."""
     p, s, m = group.world_size, group.rank, len(xs)
     steps = (gpipe_order(p, s, m, backward=False) if schedule is None
              else order(schedule, p, s, m))
     return run(steps, group, first=lambda i: model.embed(xs[i]),
-               body=lambda h: model.stage(h)[0], last=last,
+               body=model.stage, last=last,
                shape=lambda i: model.activation_shape(xs[i]),
-               dtype=model.dtype, device=device, train=schedule is not None)
+               dtype=model.dtype, device=device, train=schedule is not None,
+               aux_weight=aux_weight)
 
 
 @torch.no_grad()

@@ -1,12 +1,15 @@
 """One rank's share of a worker's parameters on the rank grid
 (``mesh.Grid``): the storage the engine trains under the ``model``,
-``pipe`` and ``fsdp`` axes (JAX ``LocalSGDEngine._build_state_specs`` and
-the ``shard_map`` in_specs of its round program).
+``expert``, ``pipe`` and ``fsdp`` axes (JAX
+``LocalSGDEngine._build_state_specs`` and the ``shard_map`` in_specs of its
+round program).
 
 The shards are leaves of the JAX package's ``params`` tree, in its layout
 and flatten order (``weights.jax_param_leaves``): leaf i is cut by its spec
 (``bert.tp_param_specs`` or ``bert.pp_tp_param_specs``, ``pp.pp_param_specs``,
-extended by ``fsdp.add_fsdp_axis`` or made by ``fsdp.fsdp_param_specs``) at
+``moe.ep_param_specs`` or ``moe.pp_ep_param_specs``, the Megatron ones
+under ``moe.with_expert_overlay``, extended by ``fsdp.add_fsdp_axis`` or
+made by ``fsdp.fsdp_param_specs``) at
 this rank's coordinates, so the shard holds
 the elements of the JAX device at the same coordinates, and a checkpoint
 piece is a shard with its global index.  Before each forward the ``fsdp``
@@ -20,6 +23,10 @@ whole, and under ``--sequence_parallel`` their gradients are summed over
 the seq line (``reduce_grads``); without it the seq ranks are replicas.
 Under ``pipe`` a stage holds its rows of every stacked ``layers`` leaf and
 the other leaves whole; their gradients are summed over the pipe line.
+Under ``expert`` a rank holds its experts of every MoE layer and every
+other leaf whole; no gradient is summed over the expert line, since the
+MoE layer's markers (``parallel/ep.py``) give every replicated leaf its
+whole gradient on every rank.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from torch import nn
 from .. import comms, mesh, weights
 from . import fsdp as fsdp_lib
 
-AXES = ("fsdp", "pipe", "model")
+AXES = ("fsdp", "pipe", "expert", "model")
 
 
 @contextlib.contextmanager
@@ -59,11 +66,14 @@ def substituted(module: nn.Module, tensors: dict):
 def grid_specs(shapes: dict, grid: mesh.Grid, *,
                shard_tok_emb: bool = False) -> dict:
     """{leaf key: spec} for the grid's inner axes (JAX
-    ``driver.py:627-692``): the Megatron specs over ``model`` (with the
-    stacked layer dimension over ``pipe``), or the pipe specs alone,
-    extended with ``fsdp`` on a free dimension; or the fsdp specs
+    ``driver.py:596-692``): the Megatron specs over ``model`` (with the
+    stacked layer dimension over ``pipe``), the expert stacks' expert
+    dimension overlaid on ``expert``; without ``model`` the expert specs
+    (with the layer dimension over ``pipe``) or the pipe specs alone;
+    extended with ``fsdp`` on a free dimension, or the fsdp specs
     alone."""
     t, f, p = grid.size("model"), grid.size("fsdp"), grid.size("pipe")
+    e = grid.size("expert")
     specs = {k: (None,) * len(s) for k, s in shapes.items()}
     if t > 1:
         from ..models.bert import pp_tp_param_specs, tp_param_specs
@@ -71,12 +81,20 @@ def grid_specs(shapes: dict, grid: mesh.Grid, *,
                                    shard_tok_emb=shard_tok_emb) if p > 1
                  else tp_param_specs(shapes, "model",
                                      shard_tok_emb=shard_tok_emb))
+        if e > 1:
+            from ..models.moe import with_expert_overlay
+            specs = with_expert_overlay(specs, "expert")
+    elif e > 1:
+        from ..models.moe import ep_param_specs, pp_ep_param_specs
+        specs = (pp_ep_param_specs(shapes, pipe_axis="pipe", axis="expert")
+                 if p > 1 else ep_param_specs(shapes, "expert"))
     elif p > 1:
         from .pp import pp_param_specs
         specs = pp_param_specs(shapes, "pipe")
     if f > 1:
         specs = (fsdp_lib.add_fsdp_axis(specs, shapes, axis="fsdp",
-                                        axis_size=f) if t > 1 or p > 1 else
+                                        axis_size=f)
+                 if t > 1 or p > 1 or e > 1 else
                  fsdp_lib.fsdp_param_specs(shapes, axis="fsdp",
                                            axis_size=f))
     return specs
@@ -114,6 +132,8 @@ class GridParams:
                          else None for k in self.keys] for a in AXES}
         # the leaves every stage holds whole (embeddings, head, final norm)
         self.pipe_replicated = [d is None for d in self.dims["pipe"]]
+        # the leaves every expert rank holds whole (all but the experts)
+        self.expert_replicated = [d is None for d in self.dims["expert"]]
         # the module's leaves (after the fsdp gather) and its parameters
         leaves, self.pieces = weights.wire_layout(module)
         want = [tuple(s) for s, _d in leaves]
@@ -134,7 +154,7 @@ class GridParams:
         """Leaf i's shape on this rank after the fsdp gather."""
         spec, shape = self.specs[self.keys[i]], self.full_shapes[self.keys[i]]
         return [n // self.grid.size(spec[d]) if d < len(spec)
-                and spec[d] in ("model", "pipe") else n
+                and spec[d] in ("model", "pipe", "expert") else n
                 for d, n in enumerate(shape)]
 
     @property
@@ -151,6 +171,11 @@ class GridParams:
         """This rank's shards of the leaves every stage holds (bitwise
         equal along pipe)."""
         return [p for p, r in zip(self.params, self.pipe_replicated) if r]
+
+    def expert_replicated_params(self) -> list[torch.Tensor]:
+        """This rank's shards of the leaves every expert rank holds
+        (bitwise equal along expert)."""
+        return [p for p, r in zip(self.params, self.expert_replicated) if r]
 
     @property
     def seq(self) -> mesh.Group | None:
@@ -219,7 +244,9 @@ class GridParams:
         summed over ``seq`` (each rank computed it on its chunk of every
         sequence; JAX ``train.py:1703-1706``), then the fsdp-replicated
         leaves' summed over ``fsdp`` (each rank computed them on its slice
-        of the batch)."""
+        of the batch).  Nothing is summed over ``expert``: the MoE layers'
+        markers gave every leaf an expert rank holds whole its whole
+        gradient (``parallel/ep.py``)."""
         grads = list(grads)
         if self.pipe is not None:
             from .pp import all_reduce_replicated
@@ -262,8 +289,8 @@ class GridParams:
     @torch.no_grad()
     def whole(self, tensors) -> list[torch.Tensor]:
         """``tensors`` (shaped like the shards) whole: gathered over fsdp,
-        then over pipe and model (a collective of every rank of the
-        worker)."""
+        then over pipe, expert and model (a collective of every rank of
+        the worker)."""
         out = [t.detach() for t in tensors]
         for a in AXES:
             g = self.grid.groups.get(a)

@@ -51,53 +51,55 @@ def active(group: mesh.Group | None) -> bool:
     return group is not None and group.world_size > 1
 
 
-def all_reduce(x: torch.Tensor, group: mesh.Group, op: str = "sum"
-               ) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group: mesh.Group, op: str = "sum",
+               stats: dict = STATS) -> torch.Tensor:
     """``x`` reduced over ``group`` (a new tensor of ``x``'s dtype): staged
-    through the group's pinned host buffer, floating types in fp32."""
+    through the group's pinned host buffer, floating types in fp32, and
+    counted in ``stats``."""
     t0 = time.perf_counter()
     wire = x.float() if x.is_floating_point() else x
     host = comms._to_host(wire, group, f"tp/{wire.numel()}/{wire.dtype}")
     dist.all_reduce(host, op=_OPS[op], group=group.pg)
     out = comms._to_device(host, x.device).view(x.shape).to(x.dtype)
-    STATS["calls"] += 1
-    STATS["bytes"] += host.nbytes
-    STATS["ms"] += (time.perf_counter() - t0) * 1e3
+    stats["calls"] += 1
+    stats["bytes"] += host.nbytes
+    stats["ms"] += (time.perf_counter() - t0) * 1e3
     return out
 
 
 class _CopyToRegion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, stats):
+        ctx.group, ctx.stats = group, stats
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.contiguous(), ctx.group), None
+        return (all_reduce(g.contiguous(), ctx.group, stats=ctx.stats),
+                None, None)
 
 
 class _ReduceFromRegion(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return all_reduce(x.contiguous(), group)
+    def forward(ctx, x, group, stats):
+        return all_reduce(x.contiguous(), group, stats=stats)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def copy_to_tp_region(x: torch.Tensor, group: mesh.Group | None
-                      ) -> torch.Tensor:
+def copy_to_tp_region(x: torch.Tensor, group: mesh.Group | None,
+                      stats: dict = STATS) -> torch.Tensor:
     """Entry marker (Megatron f): identity; the gradient all-reduced."""
-    return _CopyToRegion.apply(x, group) if active(group) else x
+    return _CopyToRegion.apply(x, group, stats) if active(group) else x
 
 
-def reduce_from_tp_region(x: torch.Tensor, group: mesh.Group | None
-                          ) -> torch.Tensor:
+def reduce_from_tp_region(x: torch.Tensor, group: mesh.Group | None,
+                          stats: dict = STATS) -> torch.Tensor:
     """Exit marker (Megatron g): the partial outputs summed over
     ``group``; the gradient passes as it is."""
-    return _ReduceFromRegion.apply(x, group) if active(group) else x
+    return _ReduceFromRegion.apply(x, group, stats) if active(group) else x
 
 
 def vocab_parallel_token_stats(logits: torch.Tensor, labels: torch.Tensor,

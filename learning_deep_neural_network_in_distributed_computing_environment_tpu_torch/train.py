@@ -31,7 +31,7 @@ through pinned host buffers and a side-stream copy.  The same bytes reach
 the same steps in the same order, so a streamed round is bitwise the whole
 round.
 
-On the rank grid (``--mesh_shape`` with ``fsdp`` or ``model``; JAX
+On the rank grid (``--mesh_shape`` with inner axes; JAX
 ``train.py:1405, 1503-1545, 1617-1622, 1687-1713, 1950-1953``) each worker
 is a block of ranks and ``grid_params`` (``parallel.shards.GridParams``)
 holds this rank's shards of the worker's parameters, in the JAX layout:
@@ -55,7 +55,13 @@ loss of each microbatch its masked numerator over the whole batch's
 denominator, computed on the last stage; the fsdp shards are gathered
 once outside the schedule and reduce-scattered once after it, and the
 leaves every stage holds get their gradients summed over ``pipe``.
-Validation runs the microbatches forward in the GPipe order.  The
+Validation runs the microbatches forward in the GPipe order.  Under
+expert parallelism (``expert``) the MoE layers hold the rank's experts
+and sum their outputs over the line, and every rank runs the whole
+step.  The MoE aux loss is divided by the fsdp and seq sizes (each part
+routes its own tokens; JAX ``train.py:1596-1615``); under ``pipe`` each
+stage adds its blocks' aux of each microbatch, over M, to what it
+backpropagates.  The
 per-step metric sums are summed over ``fsdp``, ``seq`` (the axes along
 which a rank's batch is partial) and ``pipe`` (only the last stage holds
 them) once per epoch; the round's metrics are gathered over every rank and
@@ -567,6 +573,12 @@ class LocalSGDEngine:
                                     else self.pipe.world_size))
         self.part_groups = [g for g in (self.fsdp, self.seq, self.pipe)
                             if g is not None]
+        # the MoE aux loss's divisor of the axes along which this rank's
+        # batch is partial (JAX ``_part_axes``): each part routed its own
+        # tokens, and the sum over the parts must be the mean
+        self.aux_parts = float(np.prod([g.world_size for g in
+                                        (self.fsdp, self.seq)
+                                        if g is not None]))
         # the model's output is its local vocab slice (tensor parallelism)
         self.vp_group = (self.grid.groups["model"] if vocab_parallel
                          else None)
@@ -1168,7 +1180,7 @@ class LocalSGDEngine:
                           writes=[gp.writes(i) for i in range(len(gp.keys))],
                           lead=all(self.grid.index(a) == 0
                                    for a in ("fsdp", "seq", "pipe",
-                                             "model"))))
+                                             "expert", "model"))))
         return WorkerState(
             params={} if resident else dict(zip(self.names, self.params)),
             buffers=dict(self.model.named_buffers()),
@@ -1306,7 +1318,8 @@ class LocalSGDEngine:
     def _loss(self, x, y, m, denom, aux_div: float):
         """(loss, correct) of one forward: the masked CE numerator over
         ``denom``, plus ``moe_aux_weight`` times the summed MoE
-        load-balance loss over ``aux_div`` (JAX ``train.py:1596-1615``)."""
+        load-balance loss over ``aux_div`` and the part axes' sizes (JAX
+        ``train.py:1596-1615``)."""
         if self.cfg.num_experts > 0:
             logits, aux = self.model(x, with_aux=True)
         else:
@@ -1314,7 +1327,8 @@ class LocalSGDEngine:
         ce, w, correct = self._token_stats(logits, y, m)
         loss = (ce * w).sum() / denom
         if aux is not None:
-            loss = loss + self.cfg.moe_aux_weight * aux / aux_div
+            loss = loss + (self.cfg.moe_aux_weight * aux
+                           / (aux_div * self.aux_parts))
         return loss, correct
 
     def _train_step(self, state: TrainState, x, y, m, lr: float,
@@ -1357,15 +1371,17 @@ class LocalSGDEngine:
                 torch._foreach_add_(grads, g_k)
         return loss, correct, grads
 
-    def _pipe_pass(self, x, y, m, denom, train: bool):
+    def _pipe_pass(self, x, y, m, denom, train: bool, aux_div: float = 1.0):
         """This stage's part of one pass of the microbatches of ``(x, y,
         m)`` (JAX ``train.py:1409-1532``): stage 0 embeds, every stage
         runs its blocks, the last computes each microbatch's masked CE
         numerator over ``denom`` (the whole step's) and its metric sums.
         Training runs ``--pp_schedule``'s order and returns the summed loss
-        and correct count; evaluation runs the forwards in the GPipe order
-        and returns the [CE sum, correct, weight] sums.  Each is None off
-        the last stage."""
+        (with every stage's MoE aux, each microbatch's over M, ``aux_div``
+        and the part axes' sizes) and correct count; evaluation runs the
+        forwards in the GPipe order and returns the [CE sum, correct,
+        weight] sums.  The correct count and the sums are None off the
+        last stage, and so is the loss without experts."""
         from .parallel import pp
         xs, ys, ms = pp.microbatches(self.pp_microbatches, x, y, m)
 
@@ -1376,9 +1392,11 @@ class LocalSGDEngine:
                 return (ce * w).sum() / denom, correct.detach()
             return None, torch.stack([(ce * w).sum(), correct, w.sum()])
 
+        aux_weight = (self.cfg.moe_aux_weight
+                      / (len(xs) * aux_div * self.aux_parts))
         return pp.model_pass(self.model, self.pipe, xs, last,
                              self.cfg.pp_schedule if train else None,
-                             self.device)
+                             self.device, aux_weight=aux_weight)
 
     def _pipe_grads(self, x, y, m, denom, k: int):
         """``(loss, correct, gradients)`` of a train step under the pipe
@@ -1391,13 +1409,16 @@ class LocalSGDEngine:
 
         def passes():
             for xs, ys, ms in zip(*(t.chunk(k) for t in (x, y, m))):
-                sums.append(self._pipe_pass(xs, ys, ms, denom, True))
+                sums.append(self._pipe_pass(xs, ys, ms, denom, True,
+                                            aux_div=float(k)))
 
         grads = self.gp.accumulate_grads(passes)
         loss = correct = torch.zeros((), device=self.device)
         for loss_k, correct_k in sums:
             if loss_k is not None:
-                loss, correct = loss + loss_k, correct + correct_k
+                loss = loss + loss_k
+            if correct_k is not None:
+                correct = correct + correct_k
         return loss, correct, grads
 
     @torch.no_grad()

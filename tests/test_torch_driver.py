@@ -192,10 +192,12 @@ def test_serve_is_not_ported(tmp_path):
     # the JAX config refuses it
     (["--remat_policy", "save_names:attn_out"], "enhanced_cnn has none"),
     (["--grad_accum", "3"], "divisible by --grad_accum"),
-    (["--num_experts", "4", "--mesh_shape", "data=1,expert=2"], "A.11"),
-    # the data, fsdp, seq, pipe and model axes run (tests/test_torch_tp.py,
-    # tests/test_torch_sp.py, tests/test_torch_pp.py); a pipe axis on the
-    # default enhanced_cnn is refused as JAX refuses it
+    (["--mesh_shape", "data=1,expert=2"],
+     "mesh has an 'expert' axis but --num_experts is 0"),
+    # the data, fsdp, seq, pipe, expert and model axes run
+    # (tests/test_torch_tp.py, tests/test_torch_sp.py, tests/test_torch_pp.py,
+    # tests/test_torch_ep.py); an expert axis without experts, and a pipe
+    # axis on the default enhanced_cnn, are refused as JAX refuses them
     (["--mesh_shape", "data=1,pipe=2"], "applies to attention models"),
     (["--num_workers", "2", "--backend", "nccl"], "A.12"),
     (["--model", "bert_tiny", "--layer_scan", "off"], "A.11"),

@@ -268,20 +268,23 @@ def test_grid_streamed_remat_accum_equal_the_plain_grid_run(both_run):
         np.testing.assert_allclose(res[k], both_run[k], rtol=1e-6)
 
 
-@pytest.mark.parametrize("model,dataset,axes,how", [
-    ("mlp", "mnist", "data=2,fsdp=2", "equal"),
-    ("bert_tiny", "synthetic_mlm", "data=2,model=2", "weighted")],
-    ids=["fsdp-equal", "tp-weighted"])
+@pytest.mark.parametrize("model,dataset,axes,how,extra", [
+    ("mlp", "mnist", "data=2,fsdp=2", "equal", ()),
+    ("bert_tiny", "synthetic_mlm", "data=2,model=2", "weighted", ()),
+    ("bert_tiny", "synthetic_mlm", "data=2,expert=2", "equal",
+     ("--num_experts", "4"))],
+    ids=["fsdp-equal", "tp-weighted", "ep-equal"])
 def test_sharded_sync_bitwise_dense_under_inner_axes(model, dataset, axes,
-                                                     how):
-    """The intent of JAX test_sync.py:457-500 (which fails on jax 0.9 at
+                                                     how, extra):
+    """The intent of JAX test_sync.py:457-505 (which fails on jax 0.9 at
     collection): under inner axes the sync runs on each coordinate's
     shards over the data line, and in fp32 the sharded engine's rounds
     are bitwise the dense engine's: every metric and the final
-    parameters."""
+    parameters; under an expert axis each expert coordinate's data line
+    syncs its own experts."""
     runs = [t_main.run(_argv(model, dataset, "--mesh_shape", axes,
                              "--aggregation_type", how, "--sync_mode",
-                             mode, "--epochs_global", "1"))
+                             mode, "--epochs_global", "1", *extra))
             for mode in ("dense", "sharded")]
     dense, sharded = runs
     assert sharded["sync_engine"]["mode"] == "sharded"

@@ -378,8 +378,9 @@ def test_specs_match_jax(name):
      "per-accumulation-slice batch 6 must be divisible by 4 pipeline"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2",
       "--layer_scan", "off"], ValueError, "A.11"),
-    (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2",
-      "--num_experts", "4"], ValueError, "A.11 item 4d"),
+    (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2,expert=4",
+      "--num_experts", "6"], ValueError,
+     "num_experts 6 not divisible by expert-parallel size 4"),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,pipe=2",
       "--chaos", "kill@1:w1"], ValueError, "A.11 item 4d"),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,pipe=2",
@@ -393,9 +394,10 @@ def test_config_refusals(flags, exc, match):
     (driver.py:459-548, 672-709, models/bert.py:231-233), with its
     messages and exception types, each at the config or, where JAX's
     config takes the flags (--pp_remat without a pipe axis), when the run
-    starts; --layer_scan off stays refused, as it is on every path, and
-    MoE, chaos and staleness under a pipe axis name ROADMAP A.11 item
-    4d."""
+    starts; --layer_scan off stays refused, as it is on every path; MoE
+    runs under a pipe axis, with JAX's check that the expert axis divides
+    the experts (models/moe.py:71-74); chaos and staleness under a pipe
+    axis name ROADMAP A.11 item 4d."""
     with pytest.raises(exc, match=match):
         cfg = t_config.config_from_args(["--device", "cpu", *flags])
         t_driver.train_global(cfg, progress=False)

@@ -269,8 +269,9 @@ def test_attend_refuses_as_jax_does(impl):
     # SP x PP runs, as in JAX (tests/test_torch_pp_driver.py): accepted
     (["--model", "gpt_tiny", "--mesh_shape", "data=1,seq=2,pipe=2",
       "--sequence_parallel", "ring"], None),
+    # MoE x SP runs, as in JAX (tests/test_torch_ep_driver.py): accepted
     (["--model", "bert_tiny", "--num_experts", "4", "--mesh_shape",
-      "data=1,seq=2", "--sequence_parallel", "ring"], "A.11 item 4d"),
+      "data=1,seq=2", "--sequence_parallel", "ring"], None),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,seq=2",
       "--sequence_parallel", "ring", "--chaos", "kill@1:w1"],
      "A.11 item 4d"),
@@ -282,12 +283,14 @@ def test_attend_refuses_as_jax_does(impl):
         "staleness"])
 def test_config_refusals(flags, match):
     """JAX's checks of --sequence_parallel (driver.py:710-732,
-    config.py:797-802) with its messages; SP with
-    MoE, elastic membership and staleness on a seq grid, each naming its
-    ROADMAP item; SP with a pipe axis is accepted (match None)."""
+    config.py:797-802) with its messages; SP with elastic membership and
+    staleness on a seq grid, each naming its ROADMAP item; SP with a pipe
+    axis and with MoE is accepted (match None), on the flag's grid."""
     if match is None:
         cfg = t_config.config_from_args(["--device", "cpu", *flags])
-        assert mesh.grid_axes(cfg) == {"data": 1, "seq": 2, "pipe": 2}
+        shape = flags[flags.index("--mesh_shape") + 1]
+        assert mesh.grid_axes(cfg) == {
+            a: int(n) for a, n in (kv.split("=") for kv in shape.split(","))}
         return
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])

@@ -373,10 +373,12 @@ def test_driver_tp_gradients_mode_is_finite():
       "--sequence_parallel", "ring_zigzag"], "CAUSAL"),
     # the pipe axis and the --pp_* flags run as JAX runs them: accepted
     (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2"], None),
+    # the expert axis runs with experts (tests/test_torch_ep.py); without
+    # them it is refused as JAX refuses it; MoE x TP runs: accepted
     (["--model", "bert_tiny", "--mesh_shape", "data=1,expert=2"],
-     "A.11 item 4d"),
+     "mesh has an 'expert' axis but --num_experts is 0"),
     (["--model", "bert_tiny", "--num_experts", "4", "--mesh_shape",
-      "data=1,model=2"], "A.11 item 4d"),
+      "data=1,model=2"], None),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
       "--chaos", "kill@1:w1"], "A.11 item 4d"),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
@@ -391,12 +393,14 @@ def test_driver_tp_gradients_mode_is_finite():
         "staleness", "num_workers", "sequence_parallel", "pp"])
 def test_config_refusals(flags, match):
     """JAX test_tp.py:205-213 (an mlp under ``model`` is refused), the
-    axes and compositions the port leaves out, each naming its ROADMAP
-    item, the zig-zag ring on bert over seq x model and
+    compositions the port leaves out (chaos, staleness), each naming its
+    ROADMAP item, an expert axis without experts refused with JAX's
+    message, the zig-zag ring on bert over seq x model and
     --sequence_parallel without a seq axis refused
-    (tests/test_torch_sp.py has the rest of SP's refusals); a pipe axis
-    and --pp_microbatches without one (inert, as in JAX) are accepted
-    (match None; tests/test_torch_pp.py has the pipe refusals)."""
+    (tests/test_torch_sp.py has the rest of SP's refusals); a pipe axis,
+    MoE under model and --pp_microbatches without a pipe axis (inert, as
+    in JAX) are accepted (match None; tests/test_torch_pp.py has the pipe
+    refusals)."""
     if match is None:
         cfg = t_config.config_from_args(["--device", "cpu", *flags])
         assert mesh.grid_axes(cfg)["data"] == 1
