@@ -230,6 +230,11 @@ Phases (any failure exits non-zero before the result line):
              local epoch a round), the elastic phase 2,048 images and 1
              layout round, serving 16 requests of 32 new tokens, [tp
              gpt2] a shallow bf16 run, [fsdp cnn] no data-only twin.)
+             [stale tp gpt2] the last job of the 4-process start: [tp
+             gpt2]'s bf16 run with --sync_staleness 1 over 3 rounds (each
+             coordinate's data line runs its stale sync on a second group
+             of the line): 3 deltas delivered, the hidden fraction, every
+             rank's launches, the loss falling.
 
 11. elastic cnn n4 - in a child process (CUBLAS_WORKSPACE_CONFIG set,
              deterministic algorithms in it and in its ranks): the cnn run
@@ -245,9 +250,27 @@ Phases (any failure exits non-zero before the result line):
              loss; a fresh twin from the round-2 snapshot bitwise the
              continued run, and a twin whose joiner clones the wrong row
              seen to differ; then the replicated against the resident
-             layout without chaos (memory, sync ms, bitwise parameters),
-             run before the chaos run from the start the overlap pair's 4
-             ranks share (driver.SharedStart).
+             layout without chaos (memory, sync ms, bitwise parameters).
+             The child's runs all come from one start of 6 ranks
+             (driver.SharedStart; 4-rank jobs leave two
+             idle): the overlap pair, the layouts, elastic tp gpt2, then
+             this phase's three runs.
+   elastic tp gpt2 - in the same child, before elastic cnn n4: the gpt2
+             path (bf16, flash) on data=3,model=2 (6 processes, 480
+             sequences: about 2 train steps of 64 a worker a round on 3
+             workers, 3 on 2; 5 rounds) under --chaos
+             kill@2:w1,join@3,crash@4:w0:
+             the roster of worker blocks 3 -> 2 -> 3 -> 2 (the model axis
+             fixed), round 4 voided and re-run from the boundary snapshot,
+             every final rank's launches (the voided round's included),
+             at least 2 train steps a worker a round, the boundary, join
+             and recovery stalls, each round's step ms (round 1, the only
+             one with no boundary or start before it, the steady figure)
+             and each rank's peak, a falling loss, and the fresh twin from
+             the round-2
+             snapshot bitwise over its one round.  Alone, with [stale tp
+             gpt2]: CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py
+             elastic_tp
    overlap cnn - first in the same child: the cnn run (probe and walls
              pinned) with --no_overlap_rounds and with the overlapped
              round loop, then the same on 4 worker processes on the sync
@@ -521,7 +544,26 @@ ELASTIC_ROSTERS = [[0, 1, 2, 3], [0, 1, 2], [0, 1, 2, 4], [1, 2, 4],
 # the continued run's host decisions
 ELASTIC_WALLS = [[1.0 + 0.05 * w for w in range(5)] for _ in range(5)]
 ELASTIC_TWIN_SNAPSHOT = 1      # the round-2 snapshot (after the join)
+ELASTIC_TWIN_EPOCH = 2
 ELASTIC_LAYOUT_ROUNDS = 1      # replicated vs resident, no chaos
+# phase elastic tp gpt2: the gpt2 path (bf16, flash) on data=3,model=2 (6
+# processes: 3 worker blocks of 2 tensor-parallel ranks), weights x equal,
+# 5 rounds on 480 sequences (384 train: about 128 a worker a round on 3
+# workers, 2 steps of 64, and 3 steps on 2), under kill, join and crash: the roster of blocks 3 -> 2 -> 3 -> 2, the model axis fixed;
+# in the deterministic child's shared start (6 ranks), before elastic cnn
+# n4
+ELASTIC_TP_PHASE = "elastic_tp"     # this phase and stale tp gpt2 alone
+ELASTIC_TP_ARGV = [*PATHS["gpt2"][0], "--mesh_shape", "data=3,model=2",
+                   "--aggregation_by", "weights", "--epochs_global", "5",
+                   "--limit_train_samples", "480", "--limit_eval_samples",
+                   "64", "--probe_batches", "1", "--log_level", "warning",
+                   "--out_dir", os.path.join(OUT_DIR, "elastic_tp")]
+ELASTIC_TP_CHAOS = ["--chaos", "kill@2:w1,join@3,crash@4:w0"]
+ELASTIC_TP_ROSTERS = [[0, 1, 2], [0, 1, 2], [0, 2], [0, 2, 3], [2, 3]]
+ELASTIC_TP_TWIN_SNAPSHOT = 0   # the round-2 snapshot (after the kill)
+ELASTIC_TP_TWIN_EPOCH = 2
+ELASTIC_TP_MIN_STEPS = 2       # train steps of every worker, every round
+ELASTIC_TP_STEADY_ROUND = 1    # no start or boundary just before it
 # phase overlap cnn: the cnn run serial and overlapped, at
 # one worker and at N=4 on the sync n4 traffic (one local epoch), in the
 # deterministic child; the probe and the walls pinned, so the partitions
@@ -562,6 +604,11 @@ FSDP_CNN_CUT = ["--epochs_global", "1", "--epochs_local", "1",
                 "--limit_train_samples", "2560", "--limit_eval_samples",
                 "256"]
 TP_GPT2_MESH = ["--mesh_shape", "data=2,model=2"]
+# phase stale tp gpt2: the tp gpt2 bf16 run's launch line with the stale
+# sync (K = 1) over 3 rounds of 2 train steps a worker (256 sequences), in
+# the grid's 4-process start
+STALE_TP_ARGV = ["--aggregation_by", "weights", "--sync_staleness", "1",
+                 "--epochs_global", "3", "--limit_train_samples", "256"]
 TP_LLAMA_MESH = ["--mesh_shape", "data=1,model=2"]
 FSDP_CNN_MESH = ["--mesh_shape", "data=2,fsdp=2"]
 TP_FSDP_BERT_MESH = ["--mesh_shape", "data=1,fsdp=2,model=2"]
@@ -3524,14 +3571,39 @@ def _elastic_kw(cfg, n: int, snapshot=None, checksums: bool = True) -> dict:
     return kw
 
 
-def _elastic_run(t_driver, argv: list[str], n: int, snapshot=None,
-                 checksums: bool = True) -> tuple[dict, float]:
+def elastic_jobs(snap_dir: str) -> tuple[list, dict]:
+    """The chaos runs of the deterministic child's shared start, in the
+    order it runs them: [elastic tp gpt2]'s run (6 ranks) and its fresh
+    twin, then [elastic cnn n4]'s run, its twin and its planted twin (4
+    ranks each); a twin's snapshot is written into its directory of
+    ``snap_dir`` before its job runs.  Returns the jobs and the
+    directories."""
     from importlib import import_module
-    cfg = import_module(f"{PKG}.config").config_from_args(argv)
-    kw = _elastic_kw(cfg, n, snapshot, checksums)
+    config = import_module(f"{PKG}.config")
+    dirs = {k: os.path.join(snap_dir, k)
+            for k in ("tp_twin", "cnn_twin", "cnn_planted")}
+
+    def job(argv, ranks, snapshot=None):
+        cfg = config.config_from_args(argv)
+        kw = _elastic_kw(cfg, ranks)
+        if snapshot is not None:
+            kw["elastic_snapshot"] = dirs[snapshot]
+        return cfg, kw, ranks
+    tp, cnn = ([*ELASTIC_TP_ARGV, *ELASTIC_TP_CHAOS],
+               [*ELASTIC_ARGV, *ELASTIC_CHAOS])
+    # a twin runs one round: the round after its snapshot
+    one_round = lambda e: ["--epochs_global", str(e + 1)]
+    return [job(tp, 6),
+            job([*tp, *one_round(ELASTIC_TP_TWIN_EPOCH)], 4, "tp_twin"),
+            job(cnn, 4), job(cnn, 4, "cnn_twin"),
+            job([*cnn, *one_round(ELASTIC_TWIN_EPOCH)], 4, "cnn_planted")
+            ], dirs
+
+
+def _timed(start) -> tuple[dict, float]:
+    """The shared start's next job: rank 0's results and the wall."""
     t0 = time.perf_counter()
-    res = t_driver.run_group(cfg, n, train_kwargs=kw,
-                             elastic_snapshot=snapshot, target=elastic_rank)
+    res = start.run()
     return res, time.perf_counter() - t0
 
 
@@ -3558,21 +3630,17 @@ def _planted_joiner(snap):
     return bad
 
 
-def elastic_child(layouts: dict) -> int:
-    """Phase elastic cnn n4, in a child process whose environment sets
-    CUBLAS_WORKSPACE_CONFIG before CUDA starts (the ranks it spawns
-    inherit it), under torch.use_deterministic_algorithms: the chaos run,
-    its fresh twin from the round-2 snapshot and a twin from a planted
-    fault, after the replicated and the resident layout without chaos
-    (``elastic_layouts``, in the child's shared start: ``layouts``).
-    Prints one tagged JSON line for the parent."""
-    import numpy as np
+def elastic_cnn(start, dirs: dict) -> dict:
+    """Phase elastic cnn n4, in the deterministic child (whose environment
+    sets CUBLAS_WORKSPACE_CONFIG before CUDA starts; its ranks inherit
+    it), under torch.use_deterministic_algorithms: the chaos run, its
+    fresh twin from the round-2 snapshot and a twin from a planted fault
+    (``start``'s next three jobs).  Returns the summary."""
     import torch
     from importlib import import_module
-    torch.use_deterministic_algorithms(True)
-    t_driver = import_module(f"{PKG}.driver")
+    elastic_lib = import_module(f"{PKG}.elastic")
     tag = "[elastic cnn n4]"
-    res, wall = _elastic_run(t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS], 4)
+    res, wall = _timed(start)
     el, rt = res["elastic"], res["round_timings"]
     eng = res["sync_engine"]
     print(f"{tag} engine {eng['mode']}, residency {eng['param_residency']}"
@@ -3618,19 +3686,20 @@ def elastic_child(layouts: dict) -> int:
         fail(f"elastic: the loss did not fall: {losses}")
 
     snap = el["snapshots"][ELASTIC_TWIN_SNAPSHOT]
-    twin, twin_wall = _elastic_run(t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS],
-                                   snap.n_workers, snapshot=snap)
     e = snap.epoch
+    if (e, snap.n_workers) != (ELASTIC_TWIN_EPOCH, 4):
+        fail(f"elastic: the twin's snapshot is round {e}'s of "
+             f"{snap.n_workers} workers")
+    elastic_lib.save_snapshot(snap, dirs["cnn_twin"])
+    twin, twin_wall = _timed(start)
     sound = _max_diff(twin["variables"], res["variables"])
     bitwise = (twin["param_checksums"] == res["param_checksums"]
                and twin["global_train_losses"] == losses[e:]
                and twin["round_checksums"] == res["round_checksums"][e:])
     # one round from the planted snapshot is enough to see the fault:
     # held against the continued run's parameters after that round
-    bad, bad_wall = _elastic_run(
-        t_driver, [*ELASTIC_ARGV, *ELASTIC_CHAOS, "--epochs_global",
-                   str(e + 1)], snap.n_workers,
-        snapshot=_planted_joiner(snap))
+    elastic_lib.save_snapshot(_planted_joiner(snap), dirs["cnn_planted"])
+    bad, bad_wall = _timed(start)
     planted_differs = bad["round_checksums"][0] != res["round_checksums"][e]
     print(f"{tag} twin from the round-{e} snapshot (roster "
           f"{snap.worker_ids}): bitwise {bitwise}; max |param diff| at the "
@@ -3647,10 +3716,104 @@ def elastic_child(layouts: dict) -> int:
                    recovery_ms=el["recovery_ms"])
     del res, twin, bad, snap, el
     torch.cuda.empty_cache()
-    print(ELASTIC_RESULT_TAG + json.dumps({**summary, "layouts": {
-        k: {kk: vv for kk, vv in v.items() if kk != "checksums"}
-        for k, v in layouts.items()}}), flush=True)
-    return 0
+    return summary
+
+
+def elastic_tp(start, twin_dir: str) -> dict:
+    """Phase elastic tp gpt2 (in the deterministic child's shared start,
+    its next two jobs): the gpt2 path on data=3,model=2 under kill, join
+    and crash; the roster of worker blocks and the crash's re-run from the
+    boundary snapshot; every rank of the final roster launches each flash
+    kernel (its head shard) once per layer per pass, the voided round's
+    included; falling losses; the boundary, join and recovery stalls and
+    each rank's peak memory; the fresh twin from the round-2 snapshot (its
+    one round) bitwise the continued run.  Returns the summary, rank 0's
+    launch counts among it."""
+    import torch
+    from importlib import import_module
+    tag = "[elastic tp gpt2]"
+    layers = PATHS["gpt2"][1]
+    argv = [*ELASTIC_TP_ARGV, *ELASTIC_TP_CHAOS]
+    t0 = time.perf_counter()
+    res, wall = _timed(start)
+    el, rt, g = res["elastic"], res["round_timings"], res["grid"]
+    print(f"{tag} 6 processes {{'data': 3, 'model': 2}} on one card; wall "
+          f"{wall:.1f} s; events {el['events']}; reshard_ms (boundary "
+          f"start to install: kill, join) {el['reshard_ms']}; boundary_ms "
+          f"(rank 0's snapshot build + write) {el['boundary_ms']}; "
+          f"recovery_ms {el['recovery_ms']} via {el['recovery_source']}; "
+          f"losses {res['global_train_losses']}")
+    peaks: dict[int, list] = {}
+    steps_ms = {}
+    for r in rt:
+        ranks = len(r["ranks_max_memory_allocated"])
+        step = max(r["ranks_train_ms"]) / max(r["train_steps"], 1)
+        steps_ms[r["epoch"]] = step
+        print(f"{tag} round {r['epoch']}: roster {r['worker_ids']} on "
+              f"{ranks} ranks; train steps per worker "
+              f"{r['workers_train_steps']}, slowest rank {step:.1f} ms a "
+              f"step (the round's mean, its first step included); sync "
+              f"{r['sync_ms']:.1f} ms; max_memory_allocated per rank (GiB) "
+              + str([round(x / 2**30, 2)
+                     for x in r["ranks_max_memory_allocated"]]))
+        for i, x in enumerate(r["ranks_max_memory_allocated"]):
+            peaks.setdefault(i, []).append(x)
+        if min(r["workers_train_steps"]) < ELASTIC_TP_MIN_STEPS:
+            fail(f"elastic tp: round {r['epoch']}'s workers ran "
+                 f"{r['workers_train_steps']} train steps, fewer than "
+                 f"{ELASTIC_TP_MIN_STEPS}")
+    print(f"{tag} steady step on 6 ranks (round {ELASTIC_TP_STEADY_ROUND}: "
+          f"no start or boundary before it) "
+          f"{steps_ms[ELASTIC_TP_STEADY_ROUND]:.1f} ms; after the kill "
+          f"(4 ranks) {steps_ms[2]:.1f} ms, the join (6) "
+          f"{steps_ms[3]:.1f} ms, the crash (4) {steps_ms[4]:.1f} ms")
+    if el["rosters"] != ELASTIC_TP_ROSTERS:
+        fail(f"elastic tp: rosters {el['rosters']}, expected "
+             f"{ELASTIC_TP_ROSTERS}")
+    if (el["crashes"], el["recoveries"], el["recovery_source"]) != (
+            1, 1, ["snapshot"]):
+        fail(f"elastic tp: crash recovery {el['crashes']} crash(es), "
+             f"{el['recoveries']} recoveries via {el['recovery_source']}")
+    if [r["epoch"] for r in rt] != list(range(5)):
+        fail(f"elastic tp: rounds run {[r['epoch'] for r in rt]}")
+    if g["axes"] != {"data": 2, "model": 2}:
+        fail(f"elastic tp: final grid {g['axes']}")
+    losses = res["global_train_losses"]
+    if not all(math.isfinite(x) for k in ("global_train_losses",
+                                          "global_val_losses")
+               for x in res[k]):
+        fail(f"elastic tp: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"elastic tp: the loss did not fall: {losses}")
+    if any(len(set(c)) != 1 for c in res["round_checksums"]):
+        fail(f"elastic tp: workers differ after an equal all-reduce round: "
+             f"{res['round_checksums']}")
+    counts = check_grid_launches(tag, res, layers, argv)
+    snap = el["snapshots"][ELASTIC_TP_TWIN_SNAPSHOT]
+    e = snap.epoch
+    if (e, snap.n_workers) != (ELASTIC_TP_TWIN_EPOCH, 2):
+        fail(f"elastic tp: the twin's snapshot is round {e}'s of "
+             f"{snap.n_workers} workers")
+    import_module(f"{PKG}.elastic").save_snapshot(snap, twin_dir)
+    twin, twin_wall = _timed(start)
+    bitwise = (twin["global_train_losses"] == losses[e:e + 1]
+               and twin["round_checksums"] == res["round_checksums"][e:e + 1])
+    print(f"{tag} twin from the round-{e} snapshot (roster "
+          f"{snap.worker_ids}, {2 * snap.n_workers} ranks), its one round: "
+          f"loss and every worker's parameters after it bitwise the "
+          f"continued run's: {bitwise}; twin wall {twin_wall:.1f} s")
+    if not bitwise:
+        fail("elastic tp: the fresh twin is not bitwise the continued run")
+    peak = [max(v) for _i, v in sorted(peaks.items())]
+    print(f"{tag} peak max_memory_allocated per rank (GiB, any round) "
+          f"{[round(x / 2**30, 2) for x in peak]}; phase wall "
+          f"{time.perf_counter() - t0:.1f} s")
+    del res, twin, snap
+    torch.cuda.empty_cache()
+    import_module(f"{PKG}.ops.flash").reset_launch_counts()
+    return dict(wall=wall, twin_wall=twin_wall,
+                reshard_ms=el["reshard_ms"], boundary_ms=el["boundary_ms"],
+                recovery_ms=el["recovery_ms"], counts=counts, peak=peak)
 
 
 def layout_cfgs() -> list:
@@ -3715,8 +3878,12 @@ def deterministic_child(overlap: bool, elastic: bool) -> int:
     environment sets CUBLAS_WORKSPACE_CONFIG before CUDA starts, under
     torch.use_deterministic_algorithms (cuDNN's choice of algorithm could
     otherwise make two runs of one flow differ by itself).  The overlap
-    pair at N=4 and the elastic layouts share one start of their 4 ranks;
-    the chaos run and its twins regroup, so they start their own."""
+    pair at N=4, the elastic layouts and the chaos runs with their twins
+    share one start of their ranks (6 with the chaos runs: [elastic tp
+    gpt2]'s; a 4-rank job leaves the last two idle; a join spawns its
+    block, a retired rank goes on to the next job).  Prints one tagged
+    JSON line for the parent."""
+    import tempfile
     import torch
     from importlib import import_module
     torch.use_deterministic_algorithms(True)
@@ -3725,27 +3892,42 @@ def deterministic_child(overlap: bool, elastic: bool) -> int:
     if overlap:
         overlap_pair(1, lambda cfg, kw: t_driver.train_global(cfg, **kw))
         _release_card()
-    jobs = ([(cfg, kw) for _t, _f, cfg, kw in overlap_cfgs(4)]
+    jobs = ([(cfg, kw, 4) for _t, _f, cfg, kw in overlap_cfgs(4)]
             if overlap else [])
-    jobs += ([(cfg, _elastic_kw(cfg, 4, checksums=False))
+    jobs += ([(cfg, _elastic_kw(cfg, 4, checksums=False), 4)
               for _n, cfg in layout_cfgs()] if elastic else [])
+    snap_dir = tempfile.mkdtemp(prefix="chip-smoke-snapshots-")
+    chaos, dirs = elastic_jobs(snap_dir) if elastic else ([], {})
     t1 = time.perf_counter()
-    with t_driver.SharedStart(4, jobs, target=elastic_rank) as start:
-        run = lambda _cfg, _kw: start.run()
-        if overlap:
-            overlap_pair(4, run)
-            print(f"[overlap cnn] phase wall {time.perf_counter() - t0:.1f}"
-                  " s")
-        layouts = elastic_layouts(run) if elastic else None
+    try:
+        with t_driver.SharedStart(6 if elastic else 4, jobs + chaos,
+                                  target=elastic_rank) as start:
+            run = lambda _cfg, _kw: start.run()
+            if overlap:
+                overlap_pair(4, run)
+                print(f"[overlap cnn] phase wall "
+                      f"{time.perf_counter() - t0:.1f} s")
+            if elastic:
+                layouts = elastic_layouts(run)
+                tp = elastic_tp(start, dirs["tp_twin"])
+                cnn = elastic_cnn(start, dirs)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
     _release_card()
-    print(f"[deterministic] {len(jobs)} runs ("
+    print(f"[deterministic] {len(jobs) + len(chaos)} runs ("
           + ", ".join((["overlap n4 serial", "overlap n4 overlapped"]
                        if overlap else [])
-                      + (["layout replicated", "layout resident"]
+                      + (["layout replicated", "layout resident",
+                          "elastic tp gpt2", "its twin", "elastic cnn n4",
+                          "its twin", "its planted twin"]
                          if elastic else []))
-          + f") from one start of 4 processes in "
+          + f") from one start of {6 if elastic else 4} processes in "
           f"{time.perf_counter() - t1:.1f} s")
-    return elastic_child(layouts) if elastic else 0
+    if elastic:
+        print(ELASTIC_RESULT_TAG + json.dumps({**cnn, "tp": tp, "layouts": {
+            k: {kk: vv for kk, vv in v.items() if kk != "checksums"}
+            for k, v in layouts.items()}}), flush=True)
+    return 0
 
 
 def phase_elastic() -> dict:
@@ -3941,6 +4123,40 @@ def phase_tp_gpt2(runner, twin: dict) -> dict:
     grid_lines(tag, tp, wall)
     del tp
     print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def stale_tp_argv() -> list[str]:
+    """[stale tp gpt2]'s launch line: [tp gpt2]'s bf16 run with the stale
+    sync over 3 rounds."""
+    return [*tp_gpt2_argvs()[2], *STALE_TP_ARGV, "--out_dir",
+            os.path.join(OUT_DIR, "stale_tp")]
+
+
+def phase_stale_tp(runner) -> dict:
+    """[stale tp gpt2]: the gpt2 path on data=2,model=2 with
+    --sync_staleness 1 (``runner``'s next job): each coordinate's data
+    line runs its stale sync on a second group of the line; one delta
+    delivered a round (the last at the drain), the hidden fraction of the
+    sync wall; every rank launches each kernel once per layer per pass;
+    the losses finite and falling.  Returns rank 0's launch counts."""
+    tag = "[stale tp gpt2]"
+    argv = stale_tp_argv()
+    res, wall = grid_run(tag, argv, runner)
+    check_losses("stale tp gpt2", res)
+    counts = check_grid_launches(tag, res, PATHS["gpt2"][1], argv)
+    ar = res["async_rounds"]
+    rounds = len(res["round_timings"])
+    print(f"{tag} 4 processes {res['grid']['axes']} on one card; staleness "
+          f"{ar['staleness']}: {ar['delivered']} deltas delivered over "
+          f"{rounds} rounds; sync wall {ar['sync_ms_total']} ms, "
+          f"{ar['sync_hidden_ms_total']} ms of it hidden under compute "
+          f"(fraction {ar['hidden_fraction']}); wall {wall:.1f} s; losses "
+          f"{res['global_train_losses']}")
+    grid_lines(tag, res, wall)
+    if not (ar["enabled"] and ar["delivered"] == rounds == 3):
+        fail(f"{tag}: {ar['delivered']} deltas delivered over {rounds} "
+             "rounds")
     return counts
 
 
@@ -4576,16 +4792,18 @@ def phase_grid() -> dict:
     """The rank grid's phases, from one start of 2 processes (the module
     checks, [tp gpt2]'s data-only twin, SP, PP and EP) and one of 4 ([tp
     gpt2]'s fp32 grid and bf16 runs, [tp fsdp bert]'s grid run, [fsdp
-    cnn]); returns their rank-0 launch counts."""
+    cnn], [stale tp gpt2]); returns their rank-0 launch counts."""
     from importlib import import_module
     main = import_module(f"{PKG}.main")
     counts, twin = phase_two_process()
     t0 = time.perf_counter()
-    jobs = [*tp_gpt2_argvs()[1:], tp_fsdp_bert_argvs()[1], fsdp_cnn_argv()]
+    jobs = [*tp_gpt2_argvs()[1:], tp_fsdp_bert_argvs()[1], fsdp_cnn_argv(),
+            stale_tp_argv()]
     with main.run_shared(jobs) as runner:
         counts["tp_gpt2"] = phase_tp_gpt2(runner, twin)
         counts["tp_fsdp_bert"] = phase_tp_fsdp_bert(runner)
         phase_fsdp_cnn(runner)
+        counts["stale_tp_gpt2"] = phase_stale_tp(runner)
     print(f"[grid] {len(jobs)} jobs from one start of 4 processes in "
           f"{time.perf_counter() - t0:.1f} s")
     return counts
@@ -4609,6 +4827,41 @@ def two_process_alone() -> int:
     counts, _twin = phase_two_process()
     print(json.dumps({"two_process_counts": counts}))
     print(f"[two-process] phases wall {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def elastic_tp_alone() -> int:
+    """``CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py elastic_tp``:
+    [elastic tp gpt2] and [stale tp gpt2] alone, with the kernels built
+    and the TP head-shard instance checked (a short card call while they
+    change)."""
+    import torch
+    from importlib import import_module
+    os.environ.pop("FLASH_BWD", None)
+    phase_device()
+    phase_build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for shape in SHAPES:
+        if shape[0] == "tp_gpt2":
+            check_shape(*shape)
+    import tempfile
+    main = import_module(f"{PKG}.main")
+    t_driver = import_module(f"{PKG}.driver")
+    with main.run_shared([stale_tp_argv()]) as runner:
+        counts = {"stale_tp_gpt2": phase_stale_tp(runner)}
+    torch.use_deterministic_algorithms(True)
+    t_driver.fresh_rank()
+    snap_dir = tempfile.mkdtemp(prefix="chip-smoke-snapshots-")
+    jobs, dirs = elastic_jobs(snap_dir)
+    try:
+        with t_driver.SharedStart(6, jobs[:2],
+                                  target=elastic_rank) as start:
+            counts["elastic_tp_gpt2"] = elastic_tp(
+                start, dirs["tp_twin"])["counts"]
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    print(json.dumps({"elastic_tp_counts": counts}))
     return 0
 
 
@@ -4642,6 +4895,8 @@ def main() -> int:
         return two_process_alone()
     if sys.argv[1:] == [ELASTIC_PHASE]:
         return deterministic_child(overlap=False, elastic=True)
+    if sys.argv[1:] == [ELASTIC_TP_PHASE]:
+        return elastic_tp_alone()
     if sys.argv[1:] == [OVERLAP_PHASE]:
         return deterministic_child(overlap=True, elastic=False)
     if sys.argv[1:] == [DETERMINISTIC_PHASE]:
@@ -4744,8 +4999,8 @@ def main() -> int:
     counts["tp_llama"] = GRID_COUNTS["tp_llama"]
     lap("grid (one start of 2: module checks, sp gpt2, sp bert, pp gpt2, "
         "ep moe; one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
-    phase_elastic()
-    lap("elastic child (overlap, elastic)")
+    counts["elastic_tp_gpt2"] = phase_elastic()["tp"]["counts"]
+    lap("elastic child (overlap, elastic cnn, elastic tp gpt2)")
     phase_memory()
     phase_mfu(smi)
     lap("memory, mfu")

@@ -45,8 +45,10 @@ rows hold each worker's 1/W shard of its SLICE's consensus (rows
 slice-major), its outer residual is ``.sync_residual_outer['b<i>']``, and
 a restore re-lays the rows across slice layouts as JAX does
 (``_relayout_resident_slices``).  The buddy rows are derived state: never
-saved, re-derived after a restore.  Not ported, refused with the ROADMAP
-queue that ports it: the legacy v1 single-file restore (the rest of A.9).
+saved, re-derived after a restore.  The legacy single-file format 1
+(``ckpt_<E>.msgpack``: ``{"state": the worker-stacked TrainState,
+"global_epoch": E}``, JAX ``save_checkpoint_legacy``) restores too, as a
+flat replicated epoch, as JAX's ``restore_checkpoint`` reads it.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ import shutil
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -548,7 +550,7 @@ def _manifested_epochs(ckpt_dir: str) -> list[int]:
 
 def committed_epochs(ckpt_dir: str) -> list[int]:
     """Restorable epochs (intact sharded directories, plus legacy single
-    files, which are listed though not restored here), ascending."""
+    files), ascending."""
     return sorted(set(_sharded_epochs(ckpt_dir))
                   | set(_legacy_epochs(ckpt_dir)))
 
@@ -698,11 +700,66 @@ def saved_slices(path: str, manifest: dict) -> int:
     return slices
 
 
+def legacy_tree(path: str) -> tuple[dict[str, np.ndarray], int]:
+    """Every leaf of a legacy single-file (format 1) checkpoint, worker
+    axis first, by JAX key path, with its epoch (JAX
+    ``restore_checkpoint``'s legacy branch, ``checkpoint.py:736-742``)."""
+    with open(path, "rb") as f:
+        payload = serialization.loads(bytearray(f.read()))
+    if not isinstance(payload, dict) or set(payload) != {"state",
+                                                         "global_epoch"}:
+        raise ValueError(
+            f"{path} is not a legacy single-file checkpoint (a MessagePack "
+            "map of 'state' and 'global_epoch')")
+    return (weights.leaves_of_state_dict(payload["state"]),
+            int(payload["global_epoch"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Saved:
+    """One restorable epoch, whatever its format: its worker rows
+    (``axis``), leaf keys, epoch, slice count and metadata, ``row(worker,
+    keep)`` (one worker's row of the leaves ``keep`` selects) and
+    ``full(keep)`` (those leaves whole, worker axis first)."""
+    path: str
+    axis: Optional[int]
+    keys: list
+    epoch: int
+    slices: int
+    metadata: dict
+    row: Callable
+    full: Callable
+
+
+def _open(path: str) -> _Saved:
+    """A committed sharded epoch directory (format 2) or a legacy single
+    file (format 1, read whole as JAX reads it)."""
+    if os.path.isfile(path):
+        tree, epoch = legacy_tree(path)
+        heads = {np.shape(v)[0] if np.ndim(v) else None
+                 for v in tree.values()}
+        return _Saved(
+            path, heads.pop() if len(heads) == 1 else None, list(tree),
+            epoch, 1, {},
+            row=lambda w, keep: {k: v[w] for k, v in tree.items()
+                                 if keep(k)},
+            full=lambda keep: {k: v for k, v in tree.items() if keep(k)})
+    manifest = read_manifest(path) if os.path.isdir(path) else None
+    if not manifest:
+        raise FileNotFoundError(f"no committed checkpoint at {path}")
+    return _Saved(
+        path, manifest_worker_axis(path), list(manifest["leaves"]),
+        int(manifest["global_epoch"]), saved_slices(path, manifest),
+        manifest.get("metadata", {}),
+        row=lambda w, keep: load_row(path, manifest, w, keep=keep),
+        full=lambda keep: host_tree(path, keep=keep)[0])
+
+
 def restore_checkpoint(path: str, template: WorkerState, *,
                        params_template=None,
                        bucket_bytes: int | None = None,
                        num_slices: int = 1) -> tuple[WorkerState, int]:
-    """``(state, global_epoch)`` from a committed sharded epoch: worker
+    """``(state, global_epoch)`` from a committed epoch: worker
     ``template.worker``'s row of every leaf, converted to the port's
     layout, as host numpy arrays in a ``WorkerState`` shaped like
     ``template`` (its tensors give the names, shapes and dtypes; a
@@ -718,38 +775,30 @@ def restore_checkpoint(path: str, template: WorkerState, *,
     S x W layout (every slice adopts the one consensus), a replicated
     template's worker gets its own slice's consensus, and per-slice
     consensuses that differ cannot re-shard to another slice count.  A
-    missing (or re-tiled) outer residual restores as zeros."""
-    if not os.path.isdir(path):
+    missing (or re-tiled) outer residual restores as zeros.  A legacy
+    single file (format 1) restores as a flat replicated epoch."""
+    saved = _open(path)
+    if saved.axis != template.n_workers:
         raise ValueError(
-            f"{path} is a legacy single-file (format 1) checkpoint: its "
-            "restore is the rest of ROADMAP queue A.9; the port restores "
-            "the sharded format 2")
-    manifest = read_manifest(path)
-    if not manifest:
-        raise FileNotFoundError(f"no committed manifest under {path}")
-    slices = saved_slices(path, manifest)
-    axis = manifest_worker_axis(path)
-    if axis != template.n_workers:
-        raise ValueError(
-            f"checkpoint {path} was written with {axis} worker(s) but this "
-            f"run has {template.n_workers}: restart fresh or resume with "
-            f"--num_workers {axis}")
+            f"checkpoint {path} was written with {saved.axis} worker(s) but "
+            f"this run has {template.n_workers}: restart fresh or resume "
+            f"with --num_workers {saved.axis}")
     if num_slices < 1 or template.n_workers % num_slices:
         raise ValueError(
             f"restore template worker rows ({template.n_workers}) not "
             f"divisible by num_slices ({num_slices})")
     # this worker's row of every leaf but the round optimizer's, in one
     # pass over the shard files (its resident and outer rows with it)
-    row = load_row(path, manifest, template.worker,
-                   keep=lambda k: not k.startswith(".round_opt"))
+    row = saved.row(template.worker,
+                    lambda k: not k.startswith(".round_opt"))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key} required "
                              "by the restore template")
     got = weights.state_from_jax_leaves(row, template.layout)
     params_resident = _relayout_residency(
-        path, manifest, template, got, row, params_template, bucket_bytes,
-        slices, num_slices)
+        saved, template, got, row, params_template, bucket_bytes,
+        num_slices)
     for part in ("params", "buffers", "mu", "nu"):
         want, have = getattr(template, part), got[part]
         for name, t in want.items():
@@ -780,7 +829,7 @@ def restore_checkpoint(path: str, template: WorkerState, *,
         residual = _match_template(path, "sync_residual",
                                    got["sync_residual"], template.residual)
     round_opt = (None if template.round_opt is None else
-                 _restore_round_opt(path, manifest, template))
+                 _restore_round_opt(saved, template))
     residual_outer = (None if template.residual_outer is None else
                       _restore_outer_residual(path, template, row))
     state = dataclasses.replace(
@@ -789,7 +838,7 @@ def restore_checkpoint(path: str, template: WorkerState, *,
         lr_epoch=got["lr_epoch"], rng=got["rng"], residual=residual,
         round_opt=round_opt, params_resident=params_resident,
         residual_outer=residual_outer)
-    return state, int(manifest["global_epoch"])
+    return state, saved.epoch
 
 
 def _restore_outer_residual(path: str, template: WorkerState,
@@ -822,23 +871,19 @@ def restore_grid(path: str, template: WorkerState
     moment and residual leaves kept whole in the JAX layout (the engine
     cuts them for the mesh being restored) and the BatchNorm statistics
     converted to the port's names."""
-    manifest = read_manifest(path) if os.path.isdir(path) else None
-    if not manifest:
-        raise FileNotFoundError(f"no committed sharded checkpoint at {path}")
-    saved_slices(path, manifest)
-    axis = manifest_worker_axis(path)
+    saved = _open(path)
+    axis = saved.axis
     if axis != template.n_workers:
         raise ValueError(
             f"checkpoint {path} was written with {axis} worker(s) but this "
             f"run has {template.n_workers}: restart fresh or resume with "
             f"--mesh_shape data={axis}")
-    if any(k.startswith(".params_resident") for k in manifest["leaves"]):
+    if any(k.startswith(".params_resident") for k in saved.keys):
         raise ValueError(
             f"checkpoint {path} holds scatter-resident parameters: restore "
             "it on a data-only mesh (the grid keeps them replicated)")
-    row = load_row(path, manifest, template.worker,
-                   keep=lambda k: not k.startswith((".round_opt",
-                                                    ".sync_residual_outer")))
+    row = saved.row(template.worker, lambda k: not k.startswith(
+        (".round_opt", ".sync_residual_outer")))
     for key in weights.SCALAR_KEYS:
         if key not in row:
             raise ValueError(f"checkpoint {path} has no leaf {key}")
@@ -858,25 +903,24 @@ def restore_grid(path: str, template: WorkerState
         count=int(row[".opt_state.count"]),
         lr_epoch=int(row[".lr_epoch"]),
         rng=np.asarray(row[".rng"], np.uint32).reshape(2))
-    return state, int(manifest["global_epoch"])
+    return state, saved.epoch
 
 
-def _relayout_residency(path: str, manifest: dict, template: WorkerState,
-                        got: dict, row: dict, params_template, bucket_bytes,
-                        saved: int = 1, num_slices: int = 1
-                        ) -> Optional[dict]:
+def _relayout_residency(ckpt: _Saved, template: WorkerState, got: dict,
+                        row: dict, params_template, bucket_bytes,
+                        num_slices: int = 1) -> Optional[dict]:
     """The template's parameters from the checkpoint, whatever layout
     wrote them (JAX ``_relayout_params_residency``): ``got["params"]``
     (port names) is filled in place for a replicated template; the
     resident template's rows are returned (from ``row``, this worker's
-    row of the leaves, when the layout is the saved one).  ``saved`` and
-    ``num_slices`` are the writing and the restoring run's slice counts:
-    each slice's rows hold its own consensus (JAX
+    row of the leaves, when the layout is the saved one).  ``ckpt.slices``
+    and ``num_slices`` are the writing and the restoring run's slice
+    counts: each slice's rows hold its own consensus (JAX
     ``checkpoint.py:745-1000``)."""
     from . import comms
-    keys = [k for k in manifest["leaves"]
-            if k.startswith(".params_resident")]
-    meta_mb = manifest.get("metadata", {}).get("sync_bucket_mb")
+    path, saved = ckpt.path, ckpt.slices
+    keys = [k for k in ckpt.keys if k.startswith(".params_resident")]
+    meta_mb = ckpt.metadata.get("sync_bucket_mb")
     if template.params_resident is None and not keys:
         return None
     if params_template is None:
@@ -903,15 +947,14 @@ def _relayout_residency(path: str, manifest: dict, template: WorkerState,
             return out
         bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
               else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
-        return _relayout_resident_slices(path, keys, template,
-                                         params_template, bb, saved,
-                                         num_slices)
+        return _relayout_resident_slices(ckpt, keys, template,
+                                         params_template, bb, num_slices)
     if keys:
         # resident on disk -> replicated template: the gather, on host,
         # of this worker's slice's rows
         bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
               else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
-        full, _epoch = host_tree(path, keep=lambda k: k in keys)
+        full = ckpt.full(lambda k: k in keys)
         s = template.worker // w_s
         resident = {k[len(".params_resident['"):-2]:
                     v[s * w_s:(s + 1) * w_s] for k, v in full.items()}
@@ -921,7 +964,7 @@ def _relayout_residency(path: str, manifest: dict, template: WorkerState,
                                      bucket_bytes=bb)))
         return None
     # replicated on disk -> resident template: only a consensus per slice
-    full, _epoch = host_tree(path, keep=lambda k: k.startswith(".params["))
+    full = ckpt.full(lambda k: k.startswith(".params["))
     s = template.worker // w_t
     for key, arr in full.items():
         for g in range(num_slices):
@@ -957,15 +1000,16 @@ def _slice_consensus_vectors(rows: np.ndarray, filled: int,
             for g in range(saved)]
 
 
-def _relayout_resident_slices(path: str, keys: list, template: WorkerState,
-                              params_template, bucket_bytes: int,
-                              saved: int, num_slices: int) -> dict:
+def _relayout_resident_slices(ckpt: _Saved, keys: list,
+                              template: WorkerState, params_template,
+                              bucket_bytes: int, num_slices: int) -> dict:
     """This worker's resident rows when the slice layout changed (JAX
     ``_relayout_resident_slices``): each bucket's per-slice consensus
     vectors under the saved tiling, re-tiled under the template's.  A flat
     checkpoint (or slices that agree bit for bit) gives every slice the
     one consensus; distinct per-slice consensuses are refused."""
     from . import comms
+    path, saved = ckpt.path, ckpt.slices
     n = template.n_workers
     w_s, w_t = n // saved, n // num_slices
     leaves = list(params_template.leaves)
@@ -976,7 +1020,7 @@ def _relayout_resident_slices(path: str, keys: list, template: WorkerState,
             f"checkpoint {path} resident bucket count ({len(plan_s)}) "
             f"differs from the template's ({len(plan_t)}) — different "
             "sync_bucket_mb?")
-    full, _epoch = host_tree(path, keep=lambda k: k in keys)
+    full = ckpt.full(lambda k: k in keys)
     s, i = template.worker // w_t, template.worker % w_t
     out = {}
     for b, (bs, bt) in enumerate(zip(plan_s, plan_t)):
@@ -1024,21 +1068,21 @@ def _match_template(path: str, part: str, have: dict, want: dict) -> dict:
     return {name: have[name] for name in want}
 
 
-def _restore_round_opt(path: str, manifest: dict, template: WorkerState
-                       ) -> dict:
+def _restore_round_opt(ckpt: _Saved, template: WorkerState) -> dict:
     """This worker's round-optimizer rows (JAX ``restore_checkpoint``'s
     round-opt branch): the saved layout as it is, or converted between
     the sharded ([N, P/N] rows of one vector) and replicated ([N, P]
     equal rows) layouts, which both hold the same vector; a checkpoint
     without them restores zero moments, as JAX does."""
-    keys = {k for k in manifest["leaves"] if k.startswith(".round_opt")}
+    path = ckpt.path
+    keys = {k for k in ckpt.keys if k.startswith(".round_opt")}
     if not keys:
         log.warning("checkpoint %s has no round-optimizer leaves — "
                     "restoring zero moments", path)
         return {b: {m: np.zeros(tuple(v.shape), np.float32)
                     for m, v in ms.items()}
                 for b, ms in template.round_opt.items()}
-    full, _epoch = host_tree(path, keep=lambda k: k in keys)
+    full = ckpt.full(lambda k: k in keys)
     n, w = template.n_workers, template.worker
     out = {}
     for b, ms in template.round_opt.items():

@@ -12,8 +12,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-# the ROADMAP item that ports --chaos and --sync_staleness over inner axes
-_GRID_CHAOS = "A.11 item 4d (--chaos and --sync_staleness over the rank grid)"
 # flag -> (default, ROADMAP item that ports it).  A value other than the
 # default is rejected in Config.__post_init__.
 NOT_PORTED = {
@@ -894,16 +892,6 @@ class Config:
             raise ValueError(
                 f"per-accumulation-slice batch {per_dev // self.grad_accum} "
                 f"must be divisible by {mb} pipeline microbatches")
-        # what the JAX package's config takes under inner axes and the
-        # port does not run yet: each is refused, naming its ROADMAP item
-        for on, what in ((bool(self.chaos), "--chaos (elastic membership)"),
-                         (self.sync_staleness > 0, "--sync_staleness")):
-            if on:
-                raise ValueError(
-                    f"{what} under the inner mesh axes {inner} (--mesh_shape"
-                    f" {self.mesh_shape!r}) is not ported to the PyTorch "
-                    f"package yet; it arrives with ROADMAP queue "
-                    f"{_GRID_CHAOS}")
 
     def _check_experts(self, axes: dict) -> None:
         """The JAX driver's checks of ``--num_experts`` and the expert

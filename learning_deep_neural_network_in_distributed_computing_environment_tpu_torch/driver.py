@@ -61,6 +61,13 @@ committed checkpoint) and re-runs it on the survivors, and the quarantine
 of poisoned sync contributions with escalation to a departure.  The
 per-worker metric lists are keyed by logical worker id, and
 ``results["elastic"]`` carries JAX's keys plus the roster of every round.
+On the rank grid the roster is of worker blocks: a boundary writes each
+rank's shards keyed by (position, inner coordinate), reshards every
+coordinate by the one change, closes the grid's lines, re-forms the world
+at D' x inner (``mesh.Membership.regroup``: a process keeps its inner
+coordinates; a join spawns a whole block) and every rank installs through
+``install``, which builds the grid anew; the screen's verdict is the AND
+over each block.
 
 On the rank grid (``--mesh_shape`` with ``fsdp``, ``seq``, ``pipe``,
 ``expert`` or ``model``; JAX ``driver.py:459-736``) the world of D x F x
@@ -395,17 +402,18 @@ def chunk_feed(ds, parts, batch: int, rank: int, chunk: int, caps=None):
     return window_feed(ds.images, ds.labels, idxs[rank], batch, chunk, steps)
 
 
-def _snapshot_arg(elastic_snapshot, rank: int):
+def _snapshot_arg(elastic_snapshot, rank: int, coord: int | None = None):
     """``(snapshot, this rank's host row)`` of ``train_global``'s
     ``elastic_snapshot`` argument: a directory ``elastic.save_snapshot``
     wrote (what a spawned position gets), or a ``MembershipSnapshot``
-    with its worker-stacked host state."""
+    with its worker-stacked host state.  ``rank`` is the position,
+    ``coord`` the inner coordinate on a rank grid."""
     if elastic_snapshot is None:
         return None, None
     if isinstance(elastic_snapshot, str):
-        return elastic_lib.load_snapshot(elastic_snapshot, rank)
+        return elastic_lib.load_snapshot(elastic_snapshot, rank, coord)
     return (elastic_snapshot,
-            elastic_lib.host_row(elastic_snapshot.host_state, rank))
+            elastic_lib.host_row(elastic_snapshot.host_state, rank, coord))
 
 
 def _host_row_of(ws) -> dict:
@@ -539,15 +547,17 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     if membership is not None:
         group = membership.group
     sim = cfg.sim_workers > 0
-    # the rank grid: the data line is the worker group from here on
-    grid = None
-    if cfg.inner_axes() and not sim:
+    # the rank grid (built below, with the rank's module): its data line
+    # is the worker group from then on; ``rank`` is the position (the
+    # data coordinate), ``coord`` the place in the worker's block
+    grid = coord = None
+    gridded = bool(cfg.inner_axes()) and not sim
+    world = group
+    if gridded:
         if group is None:
             raise ValueError(
                 f"--mesh_shape {cfg.mesh_shape} runs a grid of processes: "
                 "run it through main.run or driver.run_group")
-        grid = mesh.make_grid(group, mesh.grid_axes(cfg))
-        group = grid.groups["data"]
         from .parallel import ep as ep_lib
         from .parallel import fsdp as fsdp_lib
         from .parallel import pp as pp_lib
@@ -558,6 +568,14 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         fsdp_lib.reset_stats()
         sp_lib.reset_stats()
         pp_lib.reset_stats()
+
+    def grid_axes_of(world_group: mesh.Group) -> dict:
+        """The mesh axes of a world of ``world_group.world_size`` ranks:
+        the inner axes as the flag gives them, the data size the number
+        of worker blocks (the roster's after a membership boundary)."""
+        axes = mesh.grid_axes(cfg)
+        axes["data"] = world_group.world_size // mesh.inner_size(axes)
+        return axes
     if sim and group is not None:
         raise ValueError(
             "--sim_workers runs every simulated worker in ONE process; "
@@ -577,10 +595,15 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         raise ValueError(
             f"--num_workers {cfg.num_workers}: train_global runs one rank; "
             "N workers run through main.run (or driver.train_rank per rank)")
-    rank = 0 if group is None else group.rank
+    if gridded:
+        axes0 = grid_axes_of(world)
+        rank = mesh.coords_of(axes0, world.rank)["data"]
+        coord = mesh.inner_index(axes0, world.rank)
+    else:
+        rank = 0 if group is None else group.rank
     # --- elastic membership + chaos (JAX driver.py:299-440) ------------
     schedule = chaos_lib.ChaosSchedule.from_config(cfg)
-    snap, snap_row = _snapshot_arg(elastic_snapshot, rank)
+    snap, snap_row = _snapshot_arg(elastic_snapshot, rank, coord)
     if snap is not None and schedule is not None:
         # the snapshot IS the post-event state: membership events at
         # rounds <= its epoch are baked into its roster
@@ -599,7 +622,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "elastic membership (--chaos, elastic_snapshot) regroups the "
             "worker processes: run it through main.run or "
             "driver.run_group, which give every rank its membership")
-    n = (cfg.sim_workers if sim
+    n = (cfg.sim_workers if sim else axes0["data"] if gridded
          else 1 if group is None else group.world_size)
     if snap is not None and snap.n_workers != n:
         raise ValueError(
@@ -625,7 +648,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                           "quarantined_rounds": 0, "rosters": [],
                           "boundary_ms": []}
     device = resolve_device(cfg.device) if group is None else group.device
-    progress = progress and (rank if grid is None else grid.world.rank) == 0
+    progress = progress and (0 if world is None else world.rank) == 0
     rng = np.random.default_rng(cfg.seed)
     if datasets is None:
         full_train, test = load_dataset(
@@ -643,9 +666,20 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             for name, t in model.state_dict().items():
                 t.copy_(torch.from_numpy(np.array(initial_state_dict[name])))
     train_model, gp, vocab_parallel = model, None, False
-    if grid is not None:
-        # the rank's module and its shards of the dense twin (``model``,
-        # which keeps the init, the probe and the final evaluation)
+    # the dense twin's parameter shapes: a grid built at a membership
+    # boundary, when the twin holds none, cuts zeros of them (the row
+    # staged next overwrites every shard)
+    dense_shapes = {k: (tuple(p.shape), p.dtype)
+                    for k, p in model.named_parameters()}
+
+    def build_grid(world_group: mesh.Group) -> None:
+        """The rank grid over ``world_group``, the rank's module and its
+        shards of the dense twin's parameters (``model``, which keeps the
+        init, the probe and the final evaluation); at setup and at every
+        membership boundary (the new world's lines)."""
+        nonlocal grid, group, train_model, gp, vocab_parallel
+        grid = mesh.make_grid(world_group, grid_axes_of(world_group))
+        group = grid.groups["data"]
         tp = grid.groups["model"] if grid.size("model") > 1 else None
         # seq splits the sequences only under --sequence_parallel (JAX
         # train.py:455-459); without it its ranks are replicas
@@ -666,9 +700,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             {k: b for k, b in model.state_dict().items()
              if k not in dict(model.named_parameters())}, strict=False)
         from .parallel.shards import GridParams
-        gp = GridParams({k: p.detach() for k, p in model.named_parameters()},
-                        weights.state_layout(model), train_model, grid,
-                        device, shard_tok_emb=cfg.model.startswith("gpt"),
+        dense = {k: (p.detach() if p.numel() else
+                     torch.zeros(dense_shapes[k][0],
+                                 dtype=dense_shapes[k][1]))
+                 for k, p in model.named_parameters()}
+        gp = GridParams(dense, weights.state_layout(model), train_model,
+                        grid, device,
+                        shard_tok_emb=cfg.model.startswith("gpt"),
                         split_seq=split_seq)
         # the tensor-parallel decode's output is its vocab slice (ViT's
         # classifier stays whole)
@@ -677,7 +715,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         log.info("rank grid %s: rank %d at %s, %d of %d parameter "
                  "elements held", grid.axes, grid.world.rank, grid.coords,
                  sum(p.numel() for p in gp.params),
-                 sum(p.numel() for p in model.parameters()))
+                 sum(int(np.prod(s)) for s, _d in dense_shapes.values()))
+
+    if gridded and snap is None:
+        build_grid(world)
     results: dict[str, Any] = {
         # keyed by LOGICAL worker id (JAX driver.py:80-82)
         "all_workers_losses": [[] for _ in range(max(worker_ids) + 1)],
@@ -704,14 +745,17 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     def install(snapshot, row, grp) -> None:
         """Adopt a membership snapshot (JAX ``install_from_snapshot``):
         a fresh engine on ``grp`` (the new group: the sync's buckets and
-        the gossip ring follow its size), this position's row restaged,
-        and the snapshot's roster, EMA, partitions and partition stream.
-        A fresh run from a snapshot calls this at setup, the continued run
-        at the boundary: the same staging."""
-        nonlocal engine, state, group, n, worker_ids, sec_per_batch, \
-            train_parts, val_parts, fixed_classes
-        group = grp
-        engine = new_engine(grp)
+        the gossip ring follow its size; on a rank grid the new world,
+        whose grid, module and shards are built anew), this rank's row
+        restaged, and the snapshot's roster, EMA, partitions and partition
+        stream.  A fresh run from a snapshot calls this at setup, the
+        continued run at the boundary: the same staging."""
+        nonlocal engine, state, group, world, n, worker_ids, \
+            sec_per_batch, train_parts, val_parts, fixed_classes
+        world = group = grp
+        if gridded:
+            build_grid(grp)
+        engine = new_engine(group)
         state = engine.stage_state(row)
         n = snapshot.n_workers
         worker_ids = list(snapshot.worker_ids)
@@ -723,8 +767,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         for wid in worker_ids:   # joiners get lists of their own
             while len(results["all_workers_losses"]) <= wid:
                 results["all_workers_losses"].append([])
-        # every position holds its row before the first round
-        mesh.all_gather(group, None)
+        # every rank holds its row before the first round
+        mesh.all_gather(world, None)
 
     if snap is None:
         engine = new_engine(group)
@@ -739,8 +783,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         log.info("continuing from membership snapshot: round %d, workers "
                  "%s", snap.epoch, worker_ids)
     ckpt, state, start_epoch = _open_checkpoints(
-        cfg, model, num_classes, engine, state,
-        grid.world if grid is not None else group, schedule=schedule,
+        cfg, model, num_classes, engine, state, world, schedule=schedule,
         from_snapshot=snap is not None, n=n)
 
     if snap is None:
@@ -860,15 +903,22 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
         ``elastic.py``); returns the recovery source of a crash (None
         otherwise) and whether this rank retired."""
         work = membership.boundary_dir()
-        elastic_lib.write_row(os.path.join(work, f"old{rank}.pkl"), row)
-        mesh.all_gather(group, None)
+        old_row = lambda p, c: os.path.join(
+            work, f"old{p}.pkl" if c is None else f"old{p}_c{c}.pkl")
+        # 1. every rank's row, keyed by (position, inner coordinate)
+        elastic_lib.write_row(old_row(rank, coord), row)
+        mesh.all_gather(world, None)
         status: tuple = ("ok", None, 0.0)
-        if rank == 0:
+        if world.rank == 0:
             try:
                 t0 = time.perf_counter()
-                host = elastic_lib.stack_rows(
-                    [elastic_lib.read_row(os.path.join(work, f"old{p}.pkl"))
-                     for p in range(n)])
+                # 2. the rows stacked over the workers, per coordinate on
+                # a grid; the one change applied to each coordinate
+                stack = lambda c: elastic_lib.stack_rows(
+                    [elastic_lib.read_row(old_row(p, c)) for p in range(n)])
+                host = ({c: stack(c)
+                         for c in range(mesh.inner_size(grid.axes))}
+                        if grid is not None else stack(None))
                 source = None
                 if lost is not None:
                     host, source = recover_rows(host, lost, rnd)
@@ -892,21 +942,29 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             except Exception as err:   # every rank raises it below
                 log.exception("elastic: round %d transition failed", rnd)
                 status = ("error", f"{type(err).__name__}: {err}", 0.0)
-        status = mesh.all_gather(group, status)[0]
+        status = mesh.all_gather(world, status)[0]
         if status[0] != "ok":
             raise RuntimeError(
                 f"the round-{rnd} membership transition failed on rank 0: "
                 f"{status[1]}")
-        new_group = membership.regroup(len(change.worker_ids),
-                                       os.path.join(work, "new"))
-        if new_group is None:
+        # 3. the old lines closed and the world left; the new world of
+        # D' blocks (each process keeps its inner coordinates), the
+        # joiners' blocks spawned, the surplus blocks retired
+        axes = None
+        if grid is not None:
+            axes = dict(grid.axes)
+            grid.close()
+        new_world = membership.regroup(len(change.worker_ids),
+                                       os.path.join(work, "new"), axes)
+        if new_world is None:
             return status[1], True
+        # 4. every rank installs its row (a grid: its lines made anew)
         new_snap, new_row = elastic_lib.load_snapshot(
-            os.path.join(work, "new"), rank)
-        install(new_snap, new_row, new_group)
+            os.path.join(work, "new"), rank, coord)
+        install(new_snap, new_row, new_world)
         if ckpt is not None:
-            ckpt.rebind(new_group)
-        if rank == 0:
+            ckpt.rebind(world)
+        if world.rank == 0:
             shutil.rmtree(work, ignore_errors=True)
         el["boundary_ms"].append(round(status[2], 3))
         return status[1], False
@@ -919,11 +977,13 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                          or (engine.round_opt_on
                              and engine.opt_placement == "sharded"))
         try:
-            host = elastic_lib.restore_crashed_rows(
-                host, lost, params_template=engine.params_template,
-                sync_bucket_bytes=engine.sync_bucket_bytes,
-                round_opt_placement=(engine.opt_placement
-                                     if engine.round_opt_on else None))
+            host = elastic_lib.per_coordinate(
+                lambda h: elastic_lib.restore_crashed_rows(
+                    h, lost, params_template=engine.params_template,
+                    sync_bucket_bytes=engine.sync_bucket_bytes,
+                    round_opt_placement=(engine.opt_placement
+                                         if engine.round_opt_on else None)),
+                host)
             return host, "buddy" if uniquely_held else "snapshot"
         except ValueError as e:
             log.warning("elastic: in-memory buddy recovery unavailable (%s)"
@@ -1208,6 +1268,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                            "not_applicable": list(_XLA_ONLY_CHECKS)}
     profiler = t_ready = None
     retired = False
+    # the train and validation steps this rank ran, a voided (crashed)
+    # round's among them
+    steps_ran = [0, 0]
     try:
         profiler = _start_profile(cfg.profile_dir, device)
         if start_epoch < cfg.epochs_global:
@@ -1232,12 +1295,15 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                                 else None)
                 if group is not None:
                     # every rank (the grid's world, or the roster's group)
-                    _check_same(grid.world if grid is not None else group,
-                                f"round {epoch}'s partition", prep["digest"])
+                    _check_same(world, f"round {epoch}'s partition",
+                                prep["digest"])
                 if nan_armed:
-                    engine.stage_poison(worker_ids[rank] in
-                                        schedule.nan_targets(epoch,
-                                                             worker_ids))
+                    # on a grid the fault poisons one shard of the
+                    # worker's contribution, its first rank's: the
+                    # screen's block-wide verdict quarantines the worker
+                    engine.stage_poison(
+                        worker_ids[rank] in schedule.nan_targets(
+                            epoch, worker_ids) and not coord)
                 timing: dict[str, Any] = {"epoch": epoch,
                                           "ckpt_snapshot_ms": 0.0,
                                           "ckpt_write_ms": 0.0}
@@ -1257,6 +1323,8 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
                                      if streaming else engine.round_start)(
                         state, *prep["inputs"])
                 t_ready = time.perf_counter()
+                steps_ran[0] += handle["train_steps"]
+                steps_ran[1] += handle["val_steps"]
                 timing.update(stage_ms=handle["stage_ms"],
                               compute_ms=(t_ready - t_disp) * 1e3,
                               train_ms=handle["train_ms"],
@@ -1504,12 +1572,10 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             # the expert line's all-reduces of the MoE layers (f and g)
             "ep": mesh.all_gather(grid.world, dict(ep_lib.STATS)),
             # every rank's flash launches and the train and validation
-            # steps it ran (the launches of main.run's final evaluation on
-            # rank 0 come after)
+            # steps it ran, a voided round's too (the launches of
+            # main.run's final evaluation on rank 0 come after)
             "launches": mesh.all_gather(grid.world, dict(flash_lib.LAUNCHES)),
-            "steps": mesh.all_gather(grid.world, [
-                sum(r["train_steps"] for r in results["round_timings"]),
-                sum(r["val_steps"] for r in results["round_timings"])]),
+            "steps": mesh.all_gather(grid.world, steps_ran),
             # every rank's BatchNorm statistics (equal along fsdp)
             "buffer_checksums": mesh.all_gather(
                 grid.world, comms.checksum(list(train_model.buffers()))
@@ -1610,7 +1676,10 @@ def run_group(cfg: Config, n: int, *, train_kwargs: dict | None = None,
         snapshot_dir = os.path.join(os.path.dirname(store), "start")
         elastic_lib.save_snapshot(elastic_snapshot, snapshot_dir)
     if snapshot_dir is not None:
-        n = elastic_lib.load_snapshot(snapshot_dir)[0].n_workers
+        # the snapshot's roster: its workers, each a block of ranks on a
+        # grid
+        snap = elastic_lib.load_snapshot(snapshot_dir)[0]
+        n = snap.n_workers * max(snap.blocks, 1)
     threads = torch.get_num_threads()
     procs: list = []
 
@@ -1656,13 +1725,16 @@ def fresh_rank() -> None:
 
 
 def ranks_in_turn(rank: int, world_size: int, jobs: list) -> None:
-    """A spawned rank of ``SharedStart``: each ``(target, args)`` of
-    ``jobs`` in turn (``target(rank, world_size, *args)``), each from a
-    fresh process state (``fresh_rank``)."""
-    for i, (target, args) in enumerate(jobs):
+    """A spawned rank of ``SharedStart``: each ``(target, args, ranks)`` of
+    ``jobs`` in turn (``target(rank, ranks, *args)``; a job of fewer ranks
+    than this one's is skipped), each from a fresh process state
+    (``fresh_rank``)."""
+    for i, (target, args, ranks) in enumerate(jobs):
+        if rank >= ranks:
+            continue
         if i:
             fresh_rank()
-        target(rank, world_size, *args)
+        target(rank, ranks, *args)
 
 
 class SharedStart:
@@ -1675,10 +1747,15 @@ class SharedStart:
     ``target``, ``rank_entry``'s arguments, and ``run()`` returns rank 0's
     results), or a spawn target of the port with its arguments after the
     store path, ``(fn, args)`` (every rank calls ``fn(rank, n, store,
-    *args)``; ``run()`` returns None).  A context manager: leaving it
-    joins the ranks, or terminates them when it is left by an error.
-    Elastic runs (chaos, snapshots) regroup and spawn: they keep
-    ``run_group``."""
+    *args)``; ``run()`` returns None).  A third element, ``(job, rest,
+    ranks)``, runs the job on the first ``ranks`` ranks only (at most
+    ``n``).  A context manager: leaving it joins the ranks, or terminates
+    them when it is left by an error.  Elastic runs (chaos) regroup: rank
+    0 spawns a join's ranks as ``run_group`` does (each runs that one job)
+    and the retired ranks go on to the next job; a fresh run from a
+    membership snapshot gives its directory as the job's
+    ``elastic_snapshot`` (written before its ``run()``) and its roster's
+    rank count as the job's ``ranks``."""
 
     def __init__(self, n: int, jobs: list, *, target: Callable = rank_entry):
         self.n = int(n)
@@ -1688,23 +1765,25 @@ class SharedStart:
         for job in jobs:
             if isinstance(job, Config):
                 job = (job, None)
-            if isinstance(job[0], Config):
-                cfg = job[0]
-                if cfg.chaos or cfg.sim_workers:
-                    raise ValueError(
-                        "a shared start runs fixed groups: --chaos regroups "
-                        "its processes and --sim_workers runs in one; run "
-                        "them through run_group / train_global")
-            self.jobs.append(job)
+            if isinstance(job[0], Config) and job[0].sim_workers:
+                raise ValueError(
+                    "a shared start runs worker processes: --sim_workers "
+                    "runs in one; run it through train_global")
+            first, rest, ranks = (*job, self.n)[:3]
+            if not 1 <= int(ranks) <= self.n:
+                raise ValueError(f"a job of {ranks} ranks on a shared start "
+                                 f"of {self.n}")
+            self.jobs.append((first, rest, int(ranks)))
         self.stores: list[str] = []
         self.procs: list = []
         self.done = 0
 
     def _spawn_args(self, job, store: str) -> tuple:
-        first, rest = job
+        first, rest, ranks = job
         if isinstance(first, Config):
-            return self.target, (first, store, self.timeout_s, rest, 0, None)
-        return first, (store, *rest)
+            return (self.target, (first, store, self.timeout_s, rest, 0,
+                                  None), ranks)
+        return first, (store, *rest), ranks
 
     def __enter__(self) -> "SharedStart":
         self.stores = [mesh.new_store_path() for _ in self.jobs]
@@ -1723,16 +1802,18 @@ class SharedStart:
         if i >= len(self.jobs):
             raise RuntimeError(f"all {len(self.jobs)} jobs have run")
         self.done += 1
-        first, rest = self.jobs[i]
-        target, args = self._spawn_args(self.jobs[i], self.stores[i])
+        first, rest, ranks = self.jobs[i]
+        target, args, _ = self._spawn_args(self.jobs[i], self.stores[i])
         if i:
             fresh_rank()
         torch.set_num_threads(mesh.rank_threads(self.n))
         try:
             if isinstance(first, Config):
-                return train_rank(0, self.n, self.stores[i], self.timeout_s,
-                                  first, rest)
-            target(0, self.n, *args)
+                return train_rank(0, ranks, self.stores[i], self.timeout_s,
+                                  first, rest,
+                                  spawn=self._joiners(first, self.stores[i],
+                                                      rest))
+            target(0, ranks, *args)
             return None
         except BaseException as err:
             # a child that failed first is the likelier cause: name it
@@ -1744,6 +1825,16 @@ class SharedStart:
             raise
         finally:
             torch.set_num_threads(self.threads)
+
+    def _joiners(self, cfg: Config, store: str, train_kwargs):
+        """Rank 0's spawner of a job's joiners (a join's ranks)."""
+
+        def spawn(ranks, world: int, generation: int, snap_dir) -> None:
+            self.procs.extend(mesh.spawn_workers(
+                self.target, world, (cfg, store, self.timeout_s,
+                                     train_kwargs, generation, snap_dir),
+                ranks=ranks, threads=max(1, self.threads // world)))
+        return spawn
 
     def __exit__(self, exc_type, exc, tb) -> None:
         try:

@@ -24,6 +24,14 @@ That shared install path is what makes the bitwise twin gate mechanical,
 as in JAX: the continued run and a fresh run started from the same
 snapshot stage the same bytes and run the same rounds.
 
+On a rank grid (``--mesh_shape`` with inner axes) the roster is of worker
+blocks, and each rank's row holds its shards: the rows are keyed by
+(position, inner coordinate), stacked per coordinate over the workers,
+and the one ``MembershipChange`` is applied to every coordinate's stack
+(a grid host state is ``{coordinate: HostState}``), so a joiner's rows at
+coordinate c clone the first survivor's at c and its seed words are the
+worker's on every coordinate.
+
 The host state is worker-stacked numpy, as JAX's: per-worker rows
 (parameters, BatchNorm buffers, Adam moments and count, the StepLR clock,
 the seed words, the EF residual) are row-edited; the shared layouts (the
@@ -45,6 +53,19 @@ import numpy as np
 from . import comms
 
 log = logging.getLogger(__name__)
+
+# Test hook (JAX ``JAX_GRAFT_ELASTIC_TEST_CRASH``): raise at a defined
+# point INSIDE the membership transition — after the old roster's rows
+# are resharded, before the new group exists — so the recovery (resume
+# from the last committed checkpoint, replaying --chaos from its epoch)
+# runs end to end.  Value: "mid_reshard".
+_CRASH_ENV = "PORT_ELASTIC_TEST_CRASH"
+
+
+def _maybe_crash(point: str) -> None:
+    if os.environ.get(_CRASH_ENV) == point:
+        raise RuntimeError(
+            f"elastic test crash hook fired at {point!r} ({_CRASH_ENV})")
 
 # the per-worker rows of a HostState (row-edited at a boundary); the other
 # fields are shared layouts (re-laid out) or derived (re-derived)
@@ -108,12 +129,22 @@ def stack_rows(rows: list[dict]) -> HostState:
                         for f in dataclasses.fields(HostState)})
 
 
-def host_row(host: HostState, position: int) -> dict:
-    """Row ``position`` of a worker-stacked ``HostState`` as a host row
-    dict (copies)."""
+def host_row(host, position: int, coord: int | None = None) -> dict:
+    """Row ``position`` of a worker-stacked ``HostState`` (of coordinate
+    ``coord`` of a grid host state) as a host row dict (copies)."""
+    if isinstance(host, dict):
+        host = host[int(coord)]
     return {f.name: _map(lambda a: a[position].copy(),
                          getattr(host, f.name))
             for f in dataclasses.fields(HostState)}
+
+
+def per_coordinate(fn, host):
+    """``fn`` applied to a ``HostState``, or to each coordinate's of a grid
+    host state (``{coordinate: HostState}``, in coordinate order)."""
+    if isinstance(host, dict):
+        return {c: fn(h) for c, h in sorted(host.items())}
+    return fn(host)
 
 
 @dataclasses.dataclass
@@ -124,7 +155,9 @@ class MembershipSnapshot:
     ``rng_state`` the partition stream's numpy bit-generator state;
     ``next_worker_id`` the id allocator's position (never recycled);
     ``n_round0`` the run's round-0 worker count; ``params_template`` the
-    ``comms.ParamsTemplate`` the resident layout needs."""
+    ``comms.ParamsTemplate`` the resident layout needs; ``blocks`` the
+    ranks of a worker's block on a rank grid (0: one rank a worker), whose
+    ``host_state`` is then ``{inner coordinate: HostState}``."""
 
     epoch: int
     worker_ids: list[int]
@@ -137,6 +170,7 @@ class MembershipSnapshot:
     next_worker_id: int = 0
     n_round0: int = 0
     params_template: Any = None
+    blocks: int = 0
 
     @property
     def n_workers(self) -> int:
@@ -432,9 +466,10 @@ def build_snapshot(*, epoch: int, change: MembershipChange,
     """The full post-event configuration for round ``epoch`` (JAX
     ``build_snapshot``): the survivor EMA edit (joiners seeded by
     ``probe.joiner_sec_per_batch``), the adaptive re-partition drawn from
-    that EMA, and the row-edited host state.  ``rng`` is consumed by the
-    skew draws and its state captured LAST, so a fresh run from this
-    snapshot continues the identical stream."""
+    that EMA, and the row-edited host state (every coordinate's of a grid
+    host state, by the one change).  ``rng`` is consumed by the skew
+    draws and its state captured LAST, so a fresh run from this snapshot
+    continues the identical stream."""
     from . import probe as probe_lib
     from .data import (adaptive_partition, efficiency_ratios,
                        fixed_classes_for_rank)
@@ -454,11 +489,12 @@ def build_snapshot(*, epoch: int, change: MembershipChange,
     val_parts = adaptive_partition(
         valset_len, ratios, labels=valset_labels,
         fixed_classes=fixed_classes, fixed_ratio=fixed_ratio, rng=rng)
-    host_state = reshard_state(
-        old_state, change.kept_positions, change.joiner_ids, seed=seed,
+    host_state = per_coordinate(lambda h: reshard_state(
+        h, change.kept_positions, change.joiner_ids, seed=seed,
         round_opt_placement=round_opt_placement,
         sync_bucket_bytes=sync_bucket_bytes,
-        params_template=params_template)
+        params_template=params_template), old_state)
+    _maybe_crash("mid_reshard")
     return MembershipSnapshot(
         epoch=int(epoch), worker_ids=list(change.worker_ids),
         host_state=host_state, sec_per_batch=spb,
@@ -466,18 +502,20 @@ def build_snapshot(*, epoch: int, change: MembershipChange,
         fixed_classes=fixed_classes,
         rng_state=copy.deepcopy(rng.bit_generator.state),
         next_worker_id=int(next_worker_id), n_round0=int(n_round0),
-        params_template=params_template)
+        params_template=params_template,
+        blocks=len(old_state) if isinstance(old_state, dict) else 0)
 
 
 def snapshot_copy(snap: MembershipSnapshot) -> MembershipSnapshot:
     """Deep copy for ``results``: the driver keeps mutating the live
     partition lists the snapshot references."""
+    fields = [f.name for f in dataclasses.fields(HostState)]
     return dataclasses.replace(
         snap, worker_ids=list(snap.worker_ids),
         host_state=(None if snap.host_state is None
-                    else map_rows(np.copy, snap.host_state,
-                                  [f.name for f in
-                                   dataclasses.fields(HostState)])),
+                    else per_coordinate(
+                        lambda h: map_rows(np.copy, h, fields),
+                        snap.host_state)),
         sec_per_batch=snap.sec_per_batch.copy(),
         train_parts=[p.copy() for p in snap.train_parts],
         val_parts=[p.copy() for p in snap.val_parts],
@@ -493,14 +531,24 @@ def snapshot_copy(snap: MembershipSnapshot) -> MembershipSnapshot:
 _MANIFEST = "snapshot.pkl"
 
 
+def _row_file(directory: str, position: int, coord: int | None) -> str:
+    return os.path.join(directory, f"row{position}.pkl" if coord is None
+                        else f"row{position}_c{coord}.pkl")
+
+
+def _coords(snap: MembershipSnapshot) -> list:
+    return list(range(snap.blocks)) if snap.blocks else [None]
+
+
 def save_snapshot(snap: MembershipSnapshot, directory: str) -> None:
     """Write ``snap`` into ``directory``: the manifest (everything but the
-    host state) and one file per position with that position's host
-    row."""
+    host state) and one file per position (per position and inner
+    coordinate on a grid) with that rank's host row."""
     os.makedirs(directory, exist_ok=True)
     for p in range(snap.n_workers):
-        write_row(os.path.join(directory, f"row{p}.pkl"),
-                  host_row(snap.host_state, p))
+        for c in _coords(snap):
+            write_row(_row_file(directory, p, c),
+                      host_row(snap.host_state, p, c))
     write_row(os.path.join(directory, _MANIFEST),
               dataclasses.replace(snap, host_state=None))
 
@@ -517,19 +565,23 @@ def read_row(path: str):
         return pickle.load(f)
 
 
-def load_snapshot(directory: str, position: int | None = None
+def load_snapshot(directory: str, position: int | None = None,
+                  coord: int | None = None
                   ) -> tuple[MembershipSnapshot, dict | None]:
-    """``(snapshot without its host state, position's host row)`` from
-    ``directory`` (the row is None when ``position`` is None)."""
+    """``(snapshot without its host state, the host row of position
+    ``position`` at inner coordinate ``coord``)`` from ``directory`` (the
+    row is None when ``position`` is None)."""
     snap = read_row(os.path.join(directory, _MANIFEST))
-    row = (None if position is None
-           else read_row(os.path.join(directory, f"row{position}.pkl")))
+    row = (None if position is None else read_row(_row_file(
+        directory, position, coord if snap.blocks else None)))
     return snap, row
 
 
 def load_full_snapshot(directory: str) -> MembershipSnapshot:
     """A snapshot with its whole worker-stacked host state."""
     snap, _ = load_snapshot(directory)
-    rows = [read_row(os.path.join(directory, f"row{p}.pkl"))
-            for p in range(snap.n_workers)]
-    return dataclasses.replace(snap, host_state=stack_rows(rows))
+    host = {c: stack_rows([read_row(_row_file(directory, p, c))
+                           for p in range(snap.n_workers)])
+            for c in _coords(snap)}
+    return dataclasses.replace(
+        snap, host_state=host if snap.blocks else host[None])

@@ -19,7 +19,8 @@ rank's work ends, also when it raises.  Children are started with the
 With ``--mesh_shape data=D,fsdp=F,seq=S,pipe=P,model=T`` the world of
 D x F x S x P x T ranks is a rank grid (``Grid``, ``make_grid``; JAX
 ``mesh.build_mesh``): one gloo group per line of each axis, each worker
-the block of ranks with one data coordinate.  ``--num_slices S`` makes the
+the block of ranks with one data coordinate (with a group of its own for
+the verdicts a worker takes together).  ``--num_slices S`` makes the
 world S x W workers on the grid ``{"slice": S, "data": W}``: each worker's
 data line is its slice (the inner level of the hierarchical sync), its
 slice line the workers of the same data coordinate in every slice (the
@@ -131,6 +132,11 @@ class Grid:
     world: Group
     groups: dict
     coords: dict
+    # the worker's block: the ranks of this rank's data coordinate (None
+    # without inner axes), on a group of its own (``make_grid``)
+    block: Group | None = None
+    # the second groups of ``split_lines``
+    _extra: list = dataclasses.field(default_factory=list, repr=False)
 
     def size(self, axis: str) -> int:
         return int(self.axes.get(axis, 1))
@@ -139,17 +145,11 @@ class Grid:
         return int(self.coords.get(axis, 0))
 
     def coords_of(self, rank: int) -> dict:
-        out = {}
-        for axis in reversed(list(self.axes)):
-            rank, out[axis] = divmod(rank, self.axes[axis])
-        return {a: out[a] for a in self.axes}
+        return coords_of(self.axes, rank)
 
     def rank_of(self, **coords) -> int:
         """The world rank at ``coords`` (axes left out: coordinate 0)."""
-        rank = 0
-        for axis, size in self.axes.items():
-            rank = rank * size + int(coords.get(axis, 0))
-        return rank
+        return rank_of(self.axes, coords)
 
     def block_leads(self) -> list[int]:
         """Each worker's first rank (its fsdp, seq, pipe and model
@@ -157,11 +157,81 @@ class Grid:
         the rank whose values stand for the worker."""
         return [self.rank_of(data=d) for d in range(self.size("data"))]
 
+    def split_lines(self, axis: str,
+                    timeout_s: float = GROUP_TIMEOUT_S) -> Group:
+        """A second group of this rank's ``axis`` line, on a process group
+        of its own (a collective of every process: each creates every
+        line's group, in ``make_grid``'s order), so a sync on a host
+        thread never interleaves its collectives with the main thread's
+        on the line.  Closed with the grid."""
+        line = _lines(self.axes, self.world, axis, timeout_s, self.coords)
+        self._extra.append(line)
+        return line
+
     def close(self) -> None:
-        """Destroy the axis groups (the world group is the caller's)."""
-        for g in self.groups.values():
+        """Destroy the axis groups, the blocks' and the split lines' (the
+        world group is the caller's)."""
+        for g in (*self.groups.values(), *self._extra,
+                  *([self.block] if self.block is not None else [])):
             dist.destroy_process_group(g.pg)
-        self.groups = {}
+        self.groups, self._extra, self.block = {}, [], None
+
+
+# the axes of a rank grid whose coordinates make up a worker's block
+INNER = ("fsdp", "seq", "pipe", "expert", "model")
+
+
+def coords_of(axes: dict, rank: int) -> dict:
+    """World rank ``rank``'s row-major coordinates on the grid ``axes``."""
+    out = {}
+    for axis in reversed(list(axes)):
+        rank, out[axis] = divmod(rank, int(axes[axis]))
+    return {a: out[a] for a in axes}
+
+
+def rank_of(axes: dict, coords: dict) -> int:
+    """The world rank at ``coords`` on the grid ``axes`` (axes left out:
+    coordinate 0)."""
+    rank = 0
+    for axis, size in axes.items():
+        rank = rank * int(size) + int(coords.get(axis, 0))
+    return rank
+
+
+def inner_size(axes: dict) -> int:
+    """The ranks of one worker's block: the product of the inner axes."""
+    return world_size_of({a: s for a, s in axes.items() if a in INNER})
+
+
+def inner_index(axes: dict, rank: int) -> int:
+    """World rank ``rank``'s place in its worker's block: its inner
+    coordinates row-major in the axes' order (the key of its rows at a
+    membership boundary; the same for every worker)."""
+    c = coords_of(axes, rank)
+    return rank_of({a: s for a, s in axes.items() if a in INNER}, c)
+
+
+def _lines(axes: dict, world: Group, axis: str | None, timeout_s: float,
+           mine: dict) -> Group:
+    """A gloo group for every line of ``axis`` (the ranks that differ only
+    in that coordinate; ``axis`` None: the blocks, the ranks that share
+    the data coordinate), created in the order of their first ranks (a
+    collective of every process); returns this rank's ``Group`` (group
+    rank = its place on the line)."""
+    def line_of(c: dict) -> tuple:
+        return (tuple(v for a, v in c.items() if a != axis) if axis
+                else (c.get("slice", 0), c.get("data", 0)))
+    lines: dict[tuple, list] = {}
+    for r in range(world.world_size):
+        lines.setdefault(line_of(coords_of(axes, r)), []).append(r)
+    own = None
+    for key, ranks in sorted(lines.items(), key=lambda kv: kv[1][0]):
+        pg = dist.new_group(ranks, backend="gloo",
+                            timeout=datetime.timedelta(seconds=timeout_s))
+        if key == line_of(mine):
+            own = Group(ranks.index(world.rank), len(ranks), world.device,
+                        pg, ranks=tuple(ranks))
+    return own
 
 
 def make_grid(world: Group, axes: dict,
@@ -181,20 +251,13 @@ def make_grid(world: Group, axes: dict,
     grid = Grid(axes, world, {}, {})
     grid.coords = grid.coords_of(world.rank)
     for axis in axes:
-        lines: dict[tuple, list] = {}
-        for r in range(world.world_size):
-            c = grid.coords_of(r)
-            key = tuple(v for a, v in c.items() if a != axis)
-            lines.setdefault(key, []).append(r)
-        mine = tuple(v for a, v in grid.coords.items() if a != axis)
-        for key, ranks in sorted(lines.items(), key=lambda kv: kv[1][0]):
-            pg = dist.new_group(ranks, backend="gloo",
-                                timeout=datetime.timedelta(
-                                    seconds=timeout_s))
-            if key == mine:
-                grid.groups[axis] = Group(
-                    grid.coords[axis], len(ranks), world.device, pg,
-                    ranks=tuple(ranks))
+        grid.groups[axis] = _lines(axes, world, axis, timeout_s,
+                                   grid.coords)
+    if inner_size(axes) > 1:
+        # the blocks last: a worker's verdicts (the chaos screen's) are
+        # the AND over its ranks, which no one line holds under two inner
+        # axes
+        grid.block = _lines(axes, world, None, timeout_s, grid.coords)
     return grid
 
 
@@ -270,8 +333,11 @@ class Membership:
     current roster, re-formed at each membership boundary.  Ranks are
     positions: after a boundary, position p of the new roster runs on rank
     p of a new group, met at a FileStore of its own (generation g of the
-    base path), so the main process stays rank 0.  ``spawn`` (rank 0's)
-    starts joiner processes: ``spawn(ranks, world_size, generation,
+    base path), so the main process stays rank 0.  On a rank grid the
+    roster is of worker blocks: a process keeps its inner coordinates and
+    its data coordinate is its position, so its world rank is where those
+    coordinates sit on the grid of the new worker count.  ``spawn`` (rank
+    0's) starts joiner processes: ``spawn(ranks, world_size, generation,
     snapshot_dir)``."""
 
     def __init__(self, rank: int, world_size: int, device: torch.device,
@@ -314,22 +380,30 @@ class Membership:
             self.group = None
             dist.destroy_process_group()
 
-    def regroup(self, world_size: int, snapshot_dir: str) -> Group | None:
-        """Leave the current group and join the next roster's (every rank
-        calls it at the same boundary).  Rank 0 spawns positions
-        ``old..world_size-1``; a rank past the new roster retires (None)."""
-        old = self.world_size
+    def regroup(self, n_workers: int, snapshot_dir: str,
+                axes: dict | None = None) -> Group | None:
+        """Leave the current group and join the next roster's, of
+        ``n_workers`` workers (every rank calls it at the same boundary).
+        ``axes``: the rank grid of the current roster (data first unless
+        named later; None: one rank a worker).  Rank 0 spawns the ranks
+        of the positions past the old roster (each a whole block); a rank
+        whose position is past the new roster retires (None)."""
+        old = dict(axes or {"data": self.world_size})
+        new = {**old, "data": int(n_workers)}
+        mine = coords_of(old, self.rank)
         self.leave()
         self.generation += 1
-        self.world_size = world_size
-        if self.rank == 0 and world_size > old:
+        self.world_size = world_size_of(new)
+        if self.rank == 0 and n_workers > old["data"]:
             if self.spawn is None:
                 raise RuntimeError(
                     "a join needs rank 0's spawner (driver.run_group)")
-            self.spawn(range(old, world_size), world_size, self.generation,
-                       snapshot_dir)
-        if self.rank >= world_size:
+            self.spawn([r for r in range(self.world_size)
+                        if coords_of(new, r)["data"] >= old["data"]],
+                       self.world_size, self.generation, snapshot_dir)
+        if mine["data"] >= n_workers:
             return None
+        self.rank = rank_of(new, mine)
         return self.join()
 
 

@@ -141,10 +141,11 @@ def resolve_checkpoint(ckpt_dir: str) -> str:
     if path is None:
         raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
     if not os.path.isdir(path):
+        # JAX serve/engine.py:539: serving reads the manifest's metadata,
+        # which a legacy file does not have
         raise ValueError(
             f"{path} is a legacy single-file checkpoint; serving loads the "
-            "sharded (format 2) layout (the legacy restore is the rest of "
-            "ROADMAP queue A.9)")
+            "sharded (format 2) layout — re-save with the CheckpointEngine")
     return path
 
 

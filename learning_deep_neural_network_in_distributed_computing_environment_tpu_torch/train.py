@@ -679,9 +679,12 @@ class LocalSGDEngine:
         # of their own, beside the next round's compute
         self._sync_stream = None
         # a stale sync runs its collectives on a process group of its own,
-        # so they never interleave with the main thread's gathers
-        self._sync_group = (group.split() if self.staleness and group
-                            is not None else group)
+        # so they never interleave with the main thread's gathers (on a
+        # grid: a second group of every coordinate's data line)
+        self._sync_group = group
+        if self.staleness and group is not None:
+            self._sync_group = (group.split() if self.grid is None
+                                else self.grid.split_lines("data"))
         # the metric gather of ``finish_metrics`` too (made at the first
         # round's start, on every rank): the overlapped driver runs it on
         # a thread while the main thread syncs the next round, and two
@@ -1024,6 +1027,19 @@ class LocalSGDEngine:
                              "nan_screen=True (the chaos schedule's nan "
                              "faults arm it)")
         self._poison = bool(poisoned)
+
+    def _block_poison(self, poison: bool, tensors, residual) -> bool:
+        """The screen's verdict on this worker's contribution: on a rank
+        grid the AND over its block's ranks of each shard's own
+        (``comms.contribution_ok``), taken before the data line gathers
+        the flags, so that every coordinate's sync quarantines the same
+        workers; this rank's flag alone off the grid."""
+        if self.grid is None or self.grid.block is None:
+            return poison
+        ok = comms.contribution_ok(poison, tensors or [], residual)
+        flags = comms._all_reduce_sum(
+            torch.tensor([float(ok)]), self.grid.block)
+        return float(flags[0]) < self.grid.block.world_size
 
     def _own_buddy_rows(self, state: TrainState) -> list:
         """This worker's shard-resident rows in the buddy layout's order:
@@ -1672,7 +1688,9 @@ class LocalSGDEngine:
         if self.buddy_on:
             extra["buddy"] = True
         if self.nan_screen:
-            extra["poison"] = self._poison
+            extra["poison"] = self._block_poison(
+                self._poison, last_grads if cfg.aggregation_by != "weights"
+                else self.params, state.sync_residual)
             self._poison = False
         if self.hier and cfg.aggregation_by == "weights":
             # the outer level's residual rides the hierarchical sync
@@ -1750,7 +1768,7 @@ class LocalSGDEngine:
         own = {k: (np.array(v.numpy()) if isinstance(v, torch.Tensor)
                    else v) for k, v in handle["own"].items()}
         own["timing"] = handle["timing"]
-        rows = mesh.all_gather(self._metrics_group, own)
+        rows = ranks = mesh.all_gather(self._metrics_group, own)
         blocks = [[r] for r in rows]
         if self.grid is not None:
             # on the grid: each worker's values are its first rank's (every
@@ -1777,4 +1795,8 @@ class LocalSGDEngine:
                          (5, "memory_allocated")):
                 mx[f"ranks_{k}"] = [b["timing"][i] for block in blocks
                                     for b in block]
+            if "sync_ok" in own:
+                # every rank's verdict, by world rank (the same within a
+                # block: the screen's is block-wide)
+                mx["ranks_sync_ok"] = [float(r["sync_ok"]) for r in ranks]
         return mx

@@ -362,6 +362,30 @@ def state_to_jax_leaves(params: dict, buffers: dict, mu: dict, nu: dict,
     return leaves
 
 
+def leaves_of_state_dict(state: Mapping) -> dict[str, np.ndarray]:
+    """A JAX ``TrainState`` as flax's ``to_state_dict`` nests it (what a
+    legacy single-file checkpoint holds: ``{"params": tree, "opt_state":
+    {"count", "mu", "nu"}, "lr_epoch", "rng", ...}``, absent fields None)
+    -> ``{JAX key path: array}``, the keys ``state_to_jax_leaves``
+    writes (``.params[...]``, ``.opt_state.count``, ``.opt_state.mu[...]``,
+    ``.lr_epoch``, ...)."""
+    out: dict[str, np.ndarray] = {}
+    for field, value in state.items():
+        if value is None:
+            continue
+        if field == "opt_state":
+            for part, sub in value.items():
+                if isinstance(sub, Mapping):
+                    out.update(_keyed(f".opt_state.{part}", sub))
+                else:
+                    out[f".opt_state.{part}"] = np.asarray(sub)
+        elif isinstance(value, Mapping):
+            out.update(_keyed(f".{field}", value))
+        else:
+            out[f".{field}"] = np.asarray(value)
+    return out
+
+
 def _nest(pairs) -> dict:
     tree: dict = {}
     for segs, arr in pairs:

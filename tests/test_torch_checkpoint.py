@@ -252,7 +252,77 @@ def test_open_sweeps_stale_leftovers(tmp_path):
     assert C.committed_epochs(str(tmp_path)) == [1]
 
 
+def _jax_bn_state(seed: int):
+    """A worker-stacked JAX TrainState of enhanced_cnn (width 4) with
+    BatchNorm statistics, its moments, count, clock and seed words off
+    their init."""
+    rng = np.random.default_rng(seed)
+    src = get_model("enhanced_cnn", num_classes=10, width=4)
+    src.init_parameters(torch.Generator().manual_seed(seed))
+    for _name, buf in src.named_buffers():
+        buf.copy_(torch.from_numpy(rng.random(buf.shape).astype(np.float32)))
+    flax_vars = weights.cnn_torch_to_flax(src.state_dict())
+    stack = lambda t: jax.tree.map(lambda a: np.asarray(a)[None], t)
+    moment = lambda: jax.tree.map(
+        lambda a: rng.normal(size=(1, *a.shape)).astype(np.float32),
+        flax_vars["params"])
+    return JTrainState(
+        params=stack(flax_vars["params"]),
+        batch_stats=stack(flax_vars["batch_stats"]),
+        opt_state=optax.ScaleByAdamState(
+            count=np.array([11], np.int32), mu=moment(), nu=moment()),
+        lr_epoch=np.array([6], np.int32),
+        rng=np.array([[123, 456]], np.uint32))
+
+
+def _legacy_restores_and_resumes(tmp_path, jax_written):
+    """JAX ``save_checkpoint_legacy`` files (format 1: one MessagePack of
+    the whole TrainState) of gpt_tiny (a JAX run's state) and of a
+    BatchNorm model restore into the port bit for bit; ``--resume`` from
+    the gpt_tiny file, the newest epoch, trains exactly the remaining
+    round; ``main serve`` refuses the file as JAX's serve does."""
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.serve import (
+        engine as t_serve_engine,
+    )
+    res, _d = jax_written["gpt_tiny"]
+    d = str(tmp_path / "gpt")
+    path = J.save_checkpoint_legacy(d, res["state"], 1)
+    assert C.latest_checkpoint(d) == path
+    cfg = Config(device="cpu", checkpoint_dir=d, **RUNS["gpt_tiny"])
+    model = t_driver.build_model_for(cfg, res["test"].num_classes,
+                                     torch.device("cpu"))
+    engine = LocalSGDEngine(model, cfg, torch.device("cpu"))
+    state = engine.init_state()
+    restored, epoch = C.restore_checkpoint(path,
+                                           engine.checkpoint_state(state))
+    state = engine.load_checkpoint_state(state, restored)
+    assert epoch == 1
+    _assert_leaves_equal(_leaves(engine, state), _jax_row0(res["state"]))
+    with pytest.raises(ValueError, match="legacy single-file checkpoint"):
+        t_serve_engine.resolve_checkpoint(d)
+    # BatchNorm statistics ride the legacy file too
+    jstate = _jax_bn_state(1)
+    bn_path = J.save_checkpoint_legacy(str(tmp_path / "bn"), jstate, 2)
+    bn = LocalSGDEngine(get_model("enhanced_cnn", num_classes=10, width=4),
+                        Config(device="cpu"), torch.device("cpu"))
+    bn_state = bn.init_state()
+    restored, epoch = C.restore_checkpoint(bn_path,
+                                           bn.checkpoint_state(bn_state))
+    bn_state = bn.load_checkpoint_state(bn_state, restored)
+    assert epoch == 2
+    _assert_leaves_equal(_leaves(bn, bn_state), _jax_row0(jstate))
+    # a resume from the legacy epoch runs only the rounds after it
+    resumed = t_driver.train_global(
+        Config(device="cpu", checkpoint_dir=d,
+               **dict(RUNS["gpt_tiny"], epochs_global=3, resume=True)),
+        progress=False)
+    assert [t["epoch"] for t in resumed["round_timings"]] == [1, 2]
+    assert resumed["state"].lr_epoch == int(res["state"].lr_epoch[0]) + 2
+    assert C.committed_epochs(d) == [1, 2, 3]
+
+
 @pytest.mark.parametrize("case,where", [
+    # the legacy single file restores now: the case checks that it does
     ("legacy", "A.9"),
     # round-optimizer leaves restore; this one is in the manifest but in
     # no shard
@@ -262,17 +332,17 @@ def test_open_sweeps_stale_leftovers(tmp_path):
     ("slices", "records 2 slice"), ("workers", "worker")],
     ids=["legacy-A.9", "round_opt-missing-leaf", "slices-A.11",
          "workers-worker"])
-def test_refusals_name_their_queue(tmp_path, case, where):
+def test_refusals_name_their_queue(tmp_path, jax_written, case, where):
+    if case == "legacy":
+        _legacy_restores_and_resumes(tmp_path, jax_written)
+        return
     engine, state = _engine_state(0)
     meta = {"num_slices": 2} if case == "slices" else None
     path = C.CheckpointEngine(str(tmp_path), async_write=False,
                               metadata=meta).save(
         engine.checkpoint_state(state), 1)
     template = engine.checkpoint_state(state)
-    if case == "legacy":
-        path = str(tmp_path / "ckpt_4.msgpack")
-        open(path, "wb").write(b"\x80")
-    elif case == "round_opt":
+    if case == "round_opt":
         key = ".round_opt.mu['b0000']"
         mpath = os.path.join(path, C.MANIFEST)
         manifest = json.load(open(mpath))
@@ -336,23 +406,7 @@ def test_jax_written_checkpoint_restores_into_the_port(jax_written, name):
 def test_jax_written_batch_stats_restore_into_the_port(tmp_path):
     """A worker-stacked JAX TrainState with BatchNorm statistics, written
     by JAX ``save_checkpoint``: params, batch_stats, moments bit for bit."""
-    rng = np.random.default_rng(0)
-    src = get_model("enhanced_cnn", num_classes=10, width=4)
-    src.init_parameters(torch.Generator().manual_seed(0))
-    for name, buf in src.named_buffers():
-        buf.copy_(torch.from_numpy(rng.random(buf.shape).astype(np.float32)))
-    flax_vars = weights.cnn_torch_to_flax(src.state_dict())
-    stack = lambda t: jax.tree.map(lambda a: np.asarray(a)[None], t)
-    moment = lambda: jax.tree.map(
-        lambda a: rng.normal(size=(1, *a.shape)).astype(np.float32),
-        flax_vars["params"])
-    jstate = JTrainState(
-        params=stack(flax_vars["params"]),
-        batch_stats=stack(flax_vars["batch_stats"]),
-        opt_state=optax.ScaleByAdamState(
-            count=np.array([11], np.int32), mu=moment(), nu=moment()),
-        lr_epoch=np.array([6], np.int32),
-        rng=np.array([[123, 456]], np.uint32))
+    jstate = _jax_bn_state(0)
     J.save_checkpoint(str(tmp_path), jstate, 2)
     model = get_model("enhanced_cnn", num_classes=10, width=4)
     engine = LocalSGDEngine(model, Config(device="cpu"), torch.device("cpu"))

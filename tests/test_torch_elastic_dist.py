@@ -12,12 +12,22 @@ walls pinned (``simulated_round_durations``, indexed by logical id):
   departure and a quorum floor that rejects a kill: the same events,
   rejections, rosters, shard sizes and step caps every round, the losses
   within rtol 2e-4 (the same initial parameters);
-- a resume across an earlier membership event is refused."""
+- a resume across an earlier membership event is refused;
+- a crash inside a membership transition (the ``PORT_ELASTIC_TEST_CRASH``
+  hook, after the rows are resharded, before the new group exists)
+  resumes from the last committed checkpoint and replays ``--chaos``
+  from that epoch, flat and on a data=3,model=2 grid, against the JAX
+  driver's resume of the same crash (JAX
+  ``test_crash_during_reshard_resumes_and_replays``)."""
 
+import concurrent.futures
 import functools
+import multiprocessing
 import operator
+import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -45,6 +55,9 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 )
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
+)
+from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
+    load_dataset,
 )
 
 RUN = dict(model="mlp", dataset="mnist", epochs_global=6, epochs_local=1,
@@ -230,3 +243,119 @@ def test_unrecoverable_crash_raises():
         t_driver.run_group(cfg, 2, train_kwargs=_kw(probe=[0.2, 0.3]))
     chain = f"{err.value} {err.value.__cause__}"
     assert "unrecoverable" in chain and "no --checkpoint_dir" in chain
+
+
+# the crash-during-reshard runs: a flat mlp group and a gpt_tiny grid,
+# each as (config, mesh axes, pinned probe)
+RESHARD = {
+    "flat": (dict(RUN, num_workers=3, epochs_global=3), {"data": 3},
+             [0.2, 0.3, 0.25]),
+    "grid": (dict(RUN, model="gpt_tiny", dataset="synthetic_lm",
+                  mesh_shape="data=3,model=2", epochs_global=3,
+                  limit_train_samples=96, sync_mode="auto",
+                  proportionality="uniform"), {"data": 3, "model": 2},
+             [0.2, 0.3, 0.25]),
+}
+RESHARD_CHAOS = "kill@2:w1"
+
+
+def _jax_gpt_init() -> dict:
+    """The JAX driver's seeded init of the dense gpt_tiny (stacked layers,
+    fp32), in the port's layout."""
+    kw = RESHARD["grid"][0]
+    ds = load_dataset(kw["dataset"], limit_train=8, limit_test=8)[0]
+    model = j_get_model(kw["model"], num_classes=ds.num_classes,
+                        dtype=jnp.float32, scan_layers=True)
+    params = model.init(jax.random.key(kw["seed"]),
+                        jnp.zeros((kw["batch_size"], ds.images.shape[1]),
+                                  jnp.int32), train=False)["params"]
+    return weights.flax_to_torch(params)
+
+
+def _jax_crash_resume(layout: str, ckpt_dir: str) -> dict:
+    """JAX ``test_crash_during_reshard_resumes_and_replays``'s recovery on
+    the virtual CPU devices (a process of its own: the hook is read from
+    the environment): the run ended by the hook inside the round-2
+    transition, then its resume from the committed checkpoint; the
+    resume's losses and elastic record."""
+    import os
+    jax.config.update("jax_platforms", "cpu")
+    kw, axes, probe = RESHARD[layout]
+    n = int(np.prod(list(axes.values())))
+
+    def run(**over):
+        return j_train_global(
+            JConfig(chaos=RESHARD_CHAOS, checkpoint_dir=ckpt_dir,
+                    checkpoint_every=1, **kw, **over),
+            mesh=build_mesh(axes, jax.devices()[:n]),
+            simulated_durations=probe,
+            simulated_round_durations=functools.partial(operator.getitem,
+                                                        WALLS),
+            progress=False)
+    os.environ["JAX_GRAFT_ELASTIC_TEST_CRASH"] = "mid_reshard"
+    try:
+        run()
+    except RuntimeError as err:
+        assert "elastic test crash hook" in str(err), err
+    else:
+        raise AssertionError("the JAX crash hook did not fire")
+    del os.environ["JAX_GRAFT_ELASTIC_TEST_CRASH"]
+    res = run(resume=True)
+    el = res["elastic"]
+    return {"global_train_losses": list(res["global_train_losses"]),
+            "global_val_losses": list(res["global_val_losses"]),
+            "events": el["events"], "final": el["final_worker_ids"],
+            "step_caps": res["step_caps"]}
+
+
+@pytest.mark.parametrize("layout", sorted(RESHARD))
+def test_crash_during_reshard_resumes_and_replays(tmp_path, monkeypatch,
+                                                  layout):
+    """A crash INSIDE the round-2 membership transition (after the old
+    roster's rows are resharded, before the new group exists) ends the
+    run on every rank; a resume from the last committed checkpoint
+    (epoch 2) replays the schedule: the kill re-applies at the same
+    boundary and exactly the post-crash round runs.  The resume is held
+    against the JAX driver's resume of the same crash (its hook, the same
+    initial parameters, probe and walls): the events, the final roster,
+    the step caps and the losses within rtol 2e-4; and a second resume
+    from the same files is bitwise the first."""
+    kw, axes, probe = RESHARD[layout]
+    n = int(np.prod(list(axes.values())))
+    cfg = lambda d, **o: Config(device="cpu", chaos=RESHARD_CHAOS,
+                                checkpoint_dir=str(d), checkpoint_every=1,
+                                **kw, **o)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jax_run = pool.submit(_jax_crash_resume, layout,
+                              str(tmp_path / "jax"))
+        init = (_jax_gpt_init() if layout == "grid"
+                else _jax_init_state_dict(JConfig(**kw)))
+        train_kw = _kw(probe=probe, initial_state_dict=init)
+        monkeypatch.setenv("PORT_ELASTIC_TEST_CRASH", "mid_reshard")
+        with pytest.raises(RuntimeError) as err:
+            t_driver.run_group(cfg(tmp_path / "ck"), n, train_kwargs=train_kw)
+        assert "elastic test crash hook" in \
+            f"{err.value} {err.value.__cause__}"
+        monkeypatch.delenv("PORT_ELASTIC_TEST_CRASH")
+        # the recovery runs twice from the same files (the first resume
+        # writes its own epoch-3 checkpoint)
+        shutil.copytree(tmp_path / "ck", tmp_path / "twin")
+        jobs = [(cfg(tmp_path / d, resume=True), train_kw)
+                for d in ("ck", "twin")]
+        with t_driver.SharedStart(n, jobs) as start:
+            resumed, again = start.run(), start.run()
+        theirs = jax_run.result(timeout=600)
+    el = resumed["elastic"]
+    assert el["events"] == [{"round": 2, "kind": "kill", "worker": 1}]
+    assert el["events"] == theirs["events"]
+    assert el["final_worker_ids"] == theirs["final"] == [0, 2]
+    assert len(resumed["global_train_losses"]) == 1
+    assert len(el["reshard_ms"]) == 1
+    assert resumed["step_caps"] == theirs["step_caps"]
+    for key in ("global_train_losses", "global_val_losses"):
+        np.testing.assert_allclose(resumed[key], theirs[key], rtol=2e-4,
+                                   err_msg=key)
+    assert again["global_train_losses"] == resumed["global_train_losses"]
+    assert again["param_checksums"] == resumed["param_checksums"]
+    assert again["elastic"]["final_worker_ids"] == [0, 2]

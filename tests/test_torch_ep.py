@@ -17,6 +17,9 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
+from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
+    config as j_config,
+)
 from learning_deep_neural_network_in_distributed_computing_environment_tpu.models import (
     get_model as jax_get_model,
 )
@@ -347,14 +350,21 @@ def test_skipping_the_gate_sum_fails_the_gate_gradient_check(tmp_path,
      r"ffn_dim 128 not divisible by tp_size 3 \(column-parallel expert"),
     (["--mesh_shape", "data=1,expert=2", "--num_experts", "4"],
      "--num_experts applies to attention models"),
+    # elastic membership runs under an expert axis, as in JAX
+    # (tests/test_torch_grid_chaos_axes.py)
     (["--model", "bert_tiny", "--mesh_shape", "data=2,expert=2",
-      "--num_experts", "4", "--chaos", "kill@1:w1"], "A.11 item 4d"),
+      "--num_experts", "4", "--chaos", "kill@1:w1"], None),
 ], ids=["axis_without_experts", "experts_not_divisible", "model_axis",
         "cnn", "chaos"])
 def test_config_expert_checks(flags, match):
     """JAX's checks of the expert axis (driver.py:583-615, models/moe.py:
-    71-79) with its messages, at the config; --chaos over the grid stays
-    refused, naming the ROADMAP item."""
+    71-79) with its messages, at the config; --chaos under an expert axis
+    is taken by the port's Config and by JAX's (match None)."""
+    if match is None:
+        cfg = t_config.config_from_args(["--device", "cpu", *flags])
+        j_config.config_from_args(["--device", "cpu", *flags])
+        assert cfg.inner_axes() == {"expert": 2} and cfg.chaos
+        return
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])
 

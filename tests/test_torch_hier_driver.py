@@ -210,10 +210,16 @@ def test_shared_start_ran_a_spawn_target_job(runs):
 
 
 def test_shared_start_refuses_what_regroups(tmp_path):
+    """A shared start takes a chaos run (its rank 0 spawns a join's ranks,
+    its retired ranks go on to the next job) and refuses what does not
+    run on its processes: --sim_workers, and runs of mixed process
+    counts."""
     cfg = Config(device="cpu", num_workers=2, chaos="kill@1:w1",
                  aggregation_by="weights", sync_mode="sharded")
-    with pytest.raises(ValueError, match="shared start runs fixed groups"):
-        t_driver.SharedStart(2, [cfg])
+    start = t_driver.SharedStart(2, [cfg])
+    assert [(job[0].chaos, job[2]) for job in start.jobs] == [("kill@1:w1", 2)]
+    with pytest.raises(ValueError, match="--sim_workers runs in one"):
+        t_driver.SharedStart(2, [Config(device="cpu", sim_workers=2)])
     with pytest.raises(ValueError, match="one process count"):
         with t_main.run_shared([["--device", "cpu", "--num_workers", "2"],
                                 ["--device", "cpu", "--num_workers", "3"]]):

@@ -17,6 +17,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from learning_deep_neural_network_in_distributed_computing_environment_tpu import (
     checkpoint as j_checkpoint,
+    config as j_config,
 )
 from learning_deep_neural_network_in_distributed_computing_environment_tpu.models import (
     get_model as jax_get_model,
@@ -379,11 +380,12 @@ def test_driver_tp_gradients_mode_is_finite():
      "mesh has an 'expert' axis but --num_experts is 0"),
     (["--model", "bert_tiny", "--num_experts", "4", "--mesh_shape",
       "data=1,model=2"], None),
+    # elastic membership and staleness run on the grid, as in JAX
+    # (tests/test_torch_grid_elastic.py, test_torch_grid_staleness.py)
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
-      "--chaos", "kill@1:w1"], "A.11 item 4d"),
+      "--chaos", "kill@1:w1"], None),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
-      "--aggregation_by", "weights", "--sync_staleness", "1"],
-     "A.11 item 4d"),
+      "--aggregation_by", "weights", "--sync_staleness", "1"], None),
     (["--model", "bert_tiny", "--mesh_shape", "data=2,model=2",
       "--num_workers", "3"], "disagree"),
     (["--model", "bert_tiny", "--sequence_parallel", "ring"],
@@ -392,18 +394,21 @@ def test_driver_tp_gradients_mode_is_finite():
 ], ids=["mlp_under_model", "seq", "pipe", "expert", "moe", "chaos",
         "staleness", "num_workers", "sequence_parallel", "pp"])
 def test_config_refusals(flags, match):
-    """JAX test_tp.py:205-213 (an mlp under ``model`` is refused), the
-    compositions the port leaves out (chaos, staleness), each naming its
-    ROADMAP item, an expert axis without experts refused with JAX's
-    message, the zig-zag ring on bert over seq x model and
-    --sequence_parallel without a seq axis refused
-    (tests/test_torch_sp.py has the rest of SP's refusals); a pipe axis,
-    MoE under model and --pp_microbatches without a pipe axis (inert, as
-    in JAX) are accepted (match None; tests/test_torch_pp.py has the pipe
-    refusals)."""
+    """JAX test_tp.py:205-213 (an mlp under ``model`` is refused), an
+    expert axis without experts refused with JAX's message, the zig-zag
+    ring on bert over seq x model and --sequence_parallel without a seq
+    axis refused (tests/test_torch_sp.py has the rest of SP's refusals);
+    a pipe axis, MoE under model, --pp_microbatches without a pipe axis
+    (inert, as in JAX), --chaos and --sync_staleness under model are
+    accepted (match None) by the port's Config and by JAX's, on the
+    flag's grid (tests/test_torch_pp.py has the pipe refusals)."""
     if match is None:
         cfg = t_config.config_from_args(["--device", "cpu", *flags])
-        assert mesh.grid_axes(cfg)["data"] == 1
+        j_config.config_from_args(["--device", "cpu", *flags])
+        shape = (flags[flags.index("--mesh_shape") + 1]
+                 if "--mesh_shape" in flags else "data=1")
+        assert mesh.grid_axes(cfg) == {
+            a: int(n) for a, n in (kv.split("=") for kv in shape.split(","))}
         return
     with pytest.raises(ValueError, match=match):
         t_config.config_from_args(["--device", "cpu", *flags])
