@@ -32,7 +32,9 @@ Phases (any failure exits non-zero before the result line):
              trained model (torch.profiler), and the device's busy share;
 6. llama   - the same two phases for full-width llama_medium with 4 K/V
              heads under FLASH_BWD=fused (the fused backward kernel), in a
-             child process, since the switch is read once at import;
+             child process, since the switch is read once at import; the
+             child runs beside the sync phase (9), each mostly waiting on
+             the host, so both are timed under the other's load;
 7. bert, vit, moe - the encoder families through main.run, as the path
              phase does: bert_base MLM (87,578,344 params) and bert_base
              with 8 Switch experts (484,336,360) on synthetic_mlm at lr
@@ -280,6 +282,23 @@ Phases (any failure exits non-zero before the result line):
              the bit; each round's stage, compute,
              fetch, assemble, prep and gap ms in both flows.  Alone:
              CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py overlap
+   multihost cnn n4 - last in the same child, once the shared start's
+             ranks are gone: the N=4 serial run again as a launched world
+             (driver.run_launched): two processes started with Popen,
+             each told JAX_COORDINATOR_ADDRESS (127.0.0.1 and a free
+             port), JAX_NUM_PROCESSES=2 and its JAX_PROCESS_ID, each
+             hosting 2 ranks on the card, met at a TCPStore, one shared
+             --checkpoint_dir saved every round: both exit 0, their metric
+             lists bitwise equal to each other's and to the serial
+             overlap n4 run's, the partitions and every rank's parameter
+             checksum equal to that run's, the last manifest listing 4
+             shards, which this process merges bitwise to every rank's
+             final row (SHA-256 of each leaf), the loss falling; the
+             wall, each rank's seconds to its rendezvous and first round,
+             round and sync ms per rank, images/s, checkpoint ms.  (The
+             child's processes set the deterministic flag without
+             torch.use_deterministic_algorithms, whose import of
+             torch._inductor took 8-13 s of each process's start.)
 12. sanitize - which host waits torch's sync-debug mode counts;
              --sanitize on short cnn and gpt2 runs (every counter 0); an
              .item() planted in the train step, counted once and raised;
@@ -578,6 +597,20 @@ OVERLAP_PROBE = [1.0, 1.3, 0.9, 1.1]
 OVERLAP_WALLS = [[0.5 + 0.1 * w for w in range(4)] for _ in range(2)]
 OVERLAP_KEYS = ("stage_ms", "compute_ms", "fetch_ms", "assemble_ms",
                 "prep_ms", "gap_ms")
+# phase multihost cnn n4: [overlap cnn n4]'s serial run as a launched
+# world of 2 independently started processes x 2 ranks on the one card,
+# met at a TCPStore on localhost (JAX's three variables), one shared
+# checkpoint directory, a save every round; in the deterministic child
+MULTIHOST_PHASE = "multihost_rank"      # one launched process
+MULTIHOST_TAG = "chip_smoke-multihost-result "
+MULTIHOST_PROCESSES = 2
+MULTIHOST_DIR = os.path.join(OUT_DIR, "multihost")
+MULTIHOST_CKPT = ["--checkpoint_dir", os.path.join(MULTIHOST_DIR, "ckpt"),
+                  "--checkpoint_every", "1"]
+MULTIHOST_METRICS = ("all_workers_losses", "global_train_losses",
+                     "global_val_losses", "global_train_accuracies",
+                     "worker_specific_train_losses", "step_caps",
+                     "shard_sizes", "param_checksums")
 # phases tp gpt2, tp llama, fsdp cnn and tp fsdp bert: the
 # rank grid's worker processes time-share the one card and stage every
 # collective (the per-layer TP all-reduces, the FSDP gather and
@@ -774,6 +807,139 @@ TENSOR_CORE_OP = re.compile(r"\bHG?MMA(?:\.\w+)+")
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+PR_SET_CHILD_SUBREAPER = 36     # prctl option (linux/prctl.h)
+
+
+def _adopt_orphans() -> None:
+    """Make this process the subreaper of every process it starts (an
+    attribute of this process alone): a process whose parent exits before
+    it is handed to this one rather than to init, so ``_stop_leftovers``
+    still finds it however it was started (a new session included)."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(
+            PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _processes() -> dict[int, tuple[str, int, int, str]]:
+    """Every process /proc shows: pid -> (state, parent pid, process
+    group, command line)."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # the command's name may hold spaces: the fields follow its last ")"
+        state, ppid, pgrp = stat[stat.rindex(")") + 2:].split()[:3]
+        out[int(entry)] = (state, int(ppid), int(pgrp),
+                           cmd.strip()[:200] or stat[:stat.rindex(")") + 1])
+    return out
+
+
+def _descendants() -> dict[int, tuple[str, int, int, str]]:
+    """The processes below this one (``_processes``' rows)."""
+    procs, me = _processes(), os.getpid()
+    mine = {}
+    for pid in procs:
+        up, seen = procs[pid][1], {pid}
+        while up in procs and up not in seen and up != me:
+            seen.add(up)
+            up = procs[up][1]
+        if up == me:
+            mine[pid] = procs[pid]
+    return mine
+
+
+def _reap(pids, until: float) -> None:
+    """Collect the exit status of those of ``pids`` that are this
+    process's children, waiting for them until the time ``until``."""
+    pids = set(pids)
+    while pids and time.time() < until:
+        for pid in list(pids):
+            try:
+                done, _status = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:   # not a child, or reaped already
+                done = pid
+            if done:
+                pids.discard(pid)
+        if pids:
+            time.sleep(0.02)
+
+
+def _stop_leftovers() -> list[str]:
+    """Stop every process below this one that still runs, so that the
+    script leaves none behind: each is killed and reaped, then
+    multiprocessing's resource tracker (which ignores SIGTERM and ends
+    when the last process holding its pipe is gone) is stopped and
+    reaped.  Returns what was found running, one line each."""
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    me = os.getpid()
+    found = {pid: row for pid, row in _descendants().items()
+             if pid != tracker._pid}
+    left = [f"pid {pid} (parent {row[1]}, state {row[0]}): {row[3]}"
+            for pid, row in sorted(found.items()) if row[0] != "Z"]
+    for pid, row in found.items():
+        if row[0] != "Z":
+            try:
+                os.kill(pid, 9)
+            except (ProcessLookupError, PermissionError):
+                pass
+    deadline = time.time() + 10
+    while time.time() < deadline:
+        rest = {pid: row for pid, row in _descendants().items()
+                if pid != tracker._pid}
+        if not rest:
+            break
+        for pid, row in rest.items():   # killed in turn once orphaned
+            if row[1] == me and row[0] != "Z":
+                try:
+                    os.kill(pid, 9)
+                except ProcessLookupError:
+                    pass
+        _reap([pid for pid, row in rest.items() if row[1] == me],
+              time.time() + 0.2)
+    if tracker._pid is not None and tracker._fd is not None:
+        os.close(tracker._fd)           # the tracker ends on its own
+        tracker._fd = None
+        _reap([tracker._pid], time.time() + 10)
+        if tracker._pid in _descendants():
+            os.kill(tracker._pid, 9)
+            _reap([tracker._pid], time.time() + 5)
+        tracker._pid = None
+    return left
+
+
+def _end_session(proc, what: str, grace_s: float = 5.0) -> None:
+    """After ``proc`` (started with ``start_new_session``) has exited:
+    give what is left of its process group ``grace_s`` to exit (a rank's
+    or a resource tracker's last moments), then name and kill the rest."""
+    proc.wait()
+    deadline = time.time() + grace_s
+    while True:
+        rest = {pid: row for pid, row in _processes().items()
+                if row[2] == proc.pid and row[0] != "Z"}
+        if not rest or time.time() >= deadline:
+            break
+        time.sleep(0.05)
+    for pid, row in sorted(rest.items()):
+        print(f"{what}: pid {pid} (parent {row[1]}) outlived the process "
+              f"that started it and is killed: {row[3]}", flush=True)
+    if rest:
+        try:
+            os.killpg(proc.pid, 9)
+        except (ProcessLookupError, PermissionError):
+            pass
 
 
 def _peak_reset() -> None:
@@ -3179,13 +3345,14 @@ def overlap_cfgs(n: int) -> list:
     return out
 
 
-def overlap_pair(n: int, run) -> None:
+def overlap_pair(n: int, run) -> dict:
     """Phase overlap cnn at ``n`` workers: the serial and the overlapped
     run (``run(cfg, kw)`` runs one: in this process at n=1, the next run of
     the deterministic child's shared start at n=4); every metric list, the
     parameters (every rank's checksum at N=4) and the partitions equal to
     the bit; each round's stage/compute/fetch/assemble/prep/gap ms of both
-    flows and the rounds' total wall."""
+    flows and the rounds' total wall.  Returns the serial run's metric
+    lists, parameter checksums and partitions."""
     import torch
     from importlib import import_module
     t_driver = import_module(f"{PKG}.driver")
@@ -3228,6 +3395,7 @@ def overlap_pair(n: int, run) -> None:
           "shard sets packed)")
     if same or not params or pa != pb or not pa:
         fail(f"{tag}: the overlapped run is not bitwise the serial run")
+    return {**{k: a[k] for k in MULTIHOST_METRICS if k in a}, "parts": pa}
 
 
 def _release_card() -> None:
@@ -3525,21 +3693,42 @@ def llama_child() -> int:
     return 0
 
 
-def phase_llama() -> dict:
-    """Run llama_child in a child process with FLASH_BWD=fused; echo its
-    output and return its launch counts."""
+def start_llama() -> tuple:
+    """Start llama_child in a child process with FLASH_BWD=fused, its
+    output going to files (it runs beside the sync phase: a pipe nobody
+    reads meanwhile could fill and stall it); ``phase_llama`` ends it."""
     env = {**os.environ, "FLASH_BWD": "fused"}
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           LLAMA_PHASE], env=env, capture_output=True,
-                          text=True, timeout=900)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    logs = (os.path.join(OUT_DIR, "llama_child.out"),
+            os.path.join(OUT_DIR, "llama_child.err"))
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 LLAMA_PHASE], env=env, stdout=out,
+                                stderr=err, text=True,
+                                start_new_session=True)
+    return proc, logs
+
+
+def phase_llama(started: tuple) -> dict:
+    """Wait for the llama child ``start_llama`` started (900 s at most:
+    then it is killed with the ranks it spawned); echo its output and
+    return its launch counts."""
+    proc, (out_path, err_path) = started
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+    _end_session(proc, "the llama child")
     result = None
-    for line in proc.stdout.splitlines():
-        if line.startswith(RESULT_TAG):
-            result = json.loads(line[len(RESULT_TAG):])
-        else:
-            print(line)
+    with open(out_path) as f:
+        for line in f.read().splitlines():
+            if line.startswith(RESULT_TAG):
+                result = json.loads(line[len(RESULT_TAG):])
+            else:
+                print(line)
     if proc.returncode != 0 or result is None:
-        sys.stderr.write(proc.stderr[-6000:])
+        with open(err_path) as f:
+            sys.stderr.write(f.read()[-6000:])
         fail(f"the llama child exited with {proc.returncode}"
              + ("" if result else " and printed no result line"))
     MFU_RUNS["llama"] = result["mfu"]
@@ -3547,12 +3736,25 @@ def phase_llama() -> dict:
     return result["counts"]
 
 
+def _deterministic() -> None:
+    """``torch.use_deterministic_algorithms(True)`` for eager code: its
+    flag alone.  The public call also imports ``torch._inductor`` to set
+    the compiler's flag, 8-13 s of a process's start on an H100 host
+    (measured with ``python -X importtime``), and nothing here
+    compiles."""
+    import torch
+    setter = getattr(torch._C, "_set_deterministic_algorithms", None)
+    if setter is None:
+        torch.use_deterministic_algorithms(True)
+    else:
+        setter(True)
+
+
 def elastic_rank(*args) -> None:
     """A spawned rank of the elastic phase (``driver.rank_entry``'s
     arguments): deterministic algorithms on, then the port's worker."""
-    import torch
     from importlib import import_module
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     import_module(f"{PKG}.main")._worker(*args)
 
 
@@ -3873,6 +4075,279 @@ def elastic_layouts(run) -> dict:
     return layouts
 
 
+def _sha256s(arrays: dict) -> dict:
+    """The SHA-256 of each array's bytes, on 8 threads (hashlib lets go of
+    the GIL on large buffers)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+
+    def one(a):
+        a = np.ascontiguousarray(a)
+        return hashlib.sha256(a.reshape(-1).view(np.uint8)).hexdigest()
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip(arrays, pool.map(one, arrays.values())))
+
+
+def _row_digests(results: dict, rows_dir: str, rank: int) -> None:
+    """Write the SHA-256 of every leaf of this rank's final checkpoint row
+    (by JAX key path) into ``rows_dir``."""
+    from importlib import import_module
+    ckpt = import_module(f"{PKG}.checkpoint")
+    weights = import_module(f"{PKG}.weights")
+    model, st = results["model"], results["state"]
+    names = [k for k, _p in model.named_parameters()]
+    ws = ckpt.WorkerState(
+        params=dict(model.named_parameters()),
+        buffers=dict(model.named_buffers()),
+        mu=dict(zip(names, st.opt.mu)), nu=dict(zip(names, st.opt.nu)),
+        count=st.opt.count, lr_epoch=st.lr_epoch, rng=st.rng,
+        layout=weights.state_layout(model), worker=rank, n_workers=4)
+    leaves = ckpt.jax_leaves(ckpt.snapshot(ws))
+    with open(os.path.join(rows_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(_sha256s(leaves), f)
+
+
+def _rank_marks(t_driver, marks: dict) -> None:
+    """Record, on this process's ranks' clock (``time.time()``), when the
+    rank's rendezvous returned and when its first round started."""
+    t_mesh = t_driver.mesh
+    join, round_start = t_mesh.join_store, t_driver.LocalSGDEngine.round_start
+
+    def joined(*args, **kw):
+        out = join(*args, **kw)
+        marks.setdefault("joined", time.time())
+        return out
+
+    def started(self, *args):
+        marks.setdefault("first_round", time.time())
+        return round_start(self, *args)
+    t_mesh.join_store = joined
+    t_driver.LocalSGDEngine.round_start = started
+
+
+def _rank_done(results: dict, rank: int, marks: dict) -> None:
+    """This rank's final row digests and its marks, into the rows
+    directory."""
+    marks["ended"] = time.time()
+    rows_dir = os.path.join(MULTIHOST_DIR, "rows")
+    _row_digests(results, rows_dir, rank)
+    with open(os.path.join(rows_dir, f"marks{rank}.json"), "w") as f:
+        json.dump(marks, f)
+
+
+def multihost_rank(rank: int, world_size: int, cfg, store, timeout_s,
+                   train_kwargs, generation, snapshot_dir) -> None:
+    """A spawned rank of a launched process of [multihost cnn n4]
+    (``driver.rank_entry``'s arguments): deterministic algorithms on, the
+    run, then its final row's digests and its marks."""
+    marks = {"entered": time.time()}
+    from importlib import import_module
+    _deterministic()
+    t_driver = import_module(f"{PKG}.driver")
+    _rank_marks(t_driver, marks)
+    res = t_driver.train_rank(
+        rank, world_size, store, timeout_s, cfg, train_kwargs,
+        generation=generation, snapshot_dir=snapshot_dir)
+    _rank_done(res, rank, marks)
+
+
+def multihost_child() -> int:
+    """One launched process of [multihost cnn n4] (``python3 chip_smoke.py
+    multihost_rank`` with JAX's three variables set): [overlap cnn n4]'s
+    serial run with its probe and walls pinned and a save every round,
+    through ``driver.run_launched``; its first rank's final row digests
+    and marks, then one tagged JSON line of what it saw."""
+    marks = {"entered": time.time()}
+    import hashlib
+    from importlib import import_module
+    import torch  # noqa: F401  (the mark times its import)
+    marks["torch"] = time.time()
+    _deterministic()
+    t_driver = import_module(f"{PKG}.driver")
+    config = import_module(f"{PKG}.config")
+    marks["imported"] = time.time()
+    _tag, _flow, _cfg, kw = overlap_cfgs(4)[0]
+    cfg = config.config_from_args(
+        [*OVERLAP_N4_ARGV, "--no_overlap_rounds", *MULTIHOST_CKPT])
+    parts: list = []
+    real = _spy_partitions(t_driver, parts)
+    _rank_marks(t_driver, marks)
+    try:
+        res = t_driver.run_launched(cfg, train_kwargs=kw,
+                                    target=multihost_rank)
+    finally:
+        t_driver._capped = real
+    launch = res["launch"]
+    _rank_done(res, launch["ranks"][0], marks)
+    rt = res["round_timings"]
+    print(MULTIHOST_TAG + json.dumps({
+        "launch": launch, "round_flow": res["round_flow"],
+        **{k: res[k] for k in MULTIHOST_METRICS}, "parts": parts,
+        "parts_sha": hashlib.sha256("".join(parts).encode()).hexdigest(),
+        "first_round_t": marks["first_round"],
+        "checkpoint": res["checkpoint"],
+        "rounds": [{k: r[k] for k in ("compute_ms", "train_ms",
+                                      "workers_sync_ms",
+                                      "workers_train_steps",
+                                      "workers_wall_s", "ckpt_snapshot_ms",
+                                      "ckpt_write_ms")} for r in rt]}),
+        flush=True)
+    return 0
+
+
+def multihost_cnn(serial: dict) -> dict:
+    """Phase [multihost cnn n4] (in the deterministic child, after the
+    shared start): two OS processes started with ``subprocess.Popen``,
+    each told the coordinator (127.0.0.1 and a free port), the process
+    count and its id by JAX's three variables, each hosting 2 ranks on
+    the card; checks both exit 0, their metric lists bitwise equal to each
+    other's and to the serial [overlap cnn n4] run's of this call, the
+    partitions and every rank's parameter checksum equal to that run's,
+    the last manifest of the shared directory listing 4 shards, which this
+    process restores bitwise to every rank's final row, and a falling
+    loss.  Prints the wall, each process's ms from its start to its first
+    round, round ms, sync ms per rank and images/s."""
+    import socket
+    from importlib import import_module
+    ckpt = import_module(f"{PKG}.checkpoint")
+    tag = "[multihost cnn n4]"
+    shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    rows_dir = os.path.join(MULTIHOST_DIR, "rows")
+    os.makedirs(rows_dir)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    # each process's output goes to files: a pipe that nobody reads while
+    # the other process is waited for could fill and stall it
+    logs = [(os.path.join(MULTIHOST_DIR, f"process{pid}.out"),
+             os.path.join(MULTIHOST_DIR, f"process{pid}.err"))
+            for pid in range(MULTIHOST_PROCESSES)]
+    procs = []
+    for pid, (out_path, err_path) in enumerate(logs):
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), MULTIHOST_PHASE],
+                env={**os.environ,
+                     "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                     "JAX_NUM_PROCESSES": str(MULTIHOST_PROCESSES),
+                     "JAX_PROCESS_ID": str(pid)},
+                stdout=out, stderr=err, text=True, start_new_session=True))
+    deadline = time.time() + 400
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for pid, proc in enumerate(procs):  # stop any process still
+            if proc.poll() is None:         # running, and what it started
+                os.killpg(proc.pid, 9)
+            _end_session(proc, f"{tag} launched process {pid}")
+    outs = []
+    for pid, (proc, (out_path, err_path)) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            with open(err_path) as f:
+                sys.stderr.write(f.read()[-6000:])
+            fail(f"{tag}: launched process {pid} exited with "
+                 f"{proc.returncode} (killed after 400 s: -9)")
+        with open(out_path) as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith(MULTIHOST_TAG)]
+        if not lines:
+            fail(f"{tag}: launched process {pid} printed no result line")
+        outs.append(json.loads(lines[-1][len(MULTIHOST_TAG):]))
+    wall = time.time() - t0
+    a, b = outs
+    for r in outs:
+        pid = r["launch"]["process_id"]
+        print(f"{tag} process {pid}: ranks {r['launch']['ranks']} of "
+              f"{r['launch']['world_size']}, {r['round_flow']} flow, "
+              f"{(r['first_round_t'] - t0) * 1e3:.1f} ms from its start to "
+              "its first round")
+    for rank in range(4):
+        with open(os.path.join(rows_dir, f"marks{rank}.json")) as f:
+            m = json.load(f)
+        print(f"{tag} rank {rank}: s after the processes' start: entered "
+              f"{m['entered'] - t0:.1f}"
+              + (f", torch imported {m['torch'] - t0:.1f}, the port "
+                 f"{m['imported'] - t0:.1f}" if "imported" in m else "")
+              + f", rendezvous done {m['joined'] - t0:.1f}, first round "
+              f"{m['first_round'] - t0:.1f}, run returned "
+              f"{m['ended'] - t0:.1f}")
+    for i, row in enumerate(a["rounds"]):
+        images = sum(row["workers_train_steps"]) * PATH_BATCH
+        print(f"{tag} round {i}: {row['compute_ms']:.1f} ms (rank 0's "
+              f"train {row['train_ms']:.1f} ms), sync ms per rank "
+              f"{[round(x, 1) for x in row['workers_sync_ms']]}, walls s "
+              f"{[round(x, 3) for x in row['workers_wall_s']]}, "
+              f"{images / (row['compute_ms'] / 1e3):.1f} images/s summed "
+              f"({images} images of the 4 workers' train steps); rank 0's "
+              f"checkpoint snapshot {row['ckpt_snapshot_ms']:.1f} ms, "
+              f"write {row['ckpt_write_ms']:.1f} ms")
+    print(f"{tag} rank 0's checkpoint: {a['checkpoint']}")
+    differ = [k for k in MULTIHOST_METRICS if a[k] != b[k]]
+    vs_serial = [k for k in MULTIHOST_METRICS
+                 if json.loads(json.dumps(serial[k])) != a[k]]
+    parts_same = a["parts"] == b["parts"] == serial["parts"]
+    print(f"{tag} process 0 vs 1: metrics "
+          f"{'bitwise equal' if not differ else f'DIFFER in {differ}'}; vs "
+          f"the serial [overlap cnn n4] run: "
+          f"{'bitwise equal' if not vs_serial else f'DIFFER in {vs_serial}'}"
+          f" (every rank's parameter checksum among them); partitions "
+          f"{'equal' if parts_same else 'DIFFER'} "
+          f"({len(set(a['parts']))} distinct shard sets, sha256 "
+          f"{a['parts_sha'][:16]})")
+    if differ or vs_serial or not parts_same or not a["parts"]:
+        fail(f"{tag}: the launched run is not bitwise the serial run")
+    losses = a["all_workers_losses"][0]
+    curves = [c for w in a["all_workers_losses"] for c in w] + list(
+        a["global_train_losses"]) + list(a["global_val_losses"])
+    if not all(math.isfinite(x) for x in curves):
+        fail(f"{tag}: non-finite loss")
+    if not a["global_train_losses"][-1] < losses[0]:
+        fail(f"{tag}: train loss did not fall: first batch {losses[0]}, "
+             f"last epoch {a['global_train_losses'][-1]}")
+    # the shared directory's last epoch, restored in this process (every
+    # shard's size and crc32 checked against the manifest)
+    t1 = time.perf_counter()
+    ckpt_dir = MULTIHOST_CKPT[1]
+    epochs = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+                    if os.path.isfile(os.path.join(ckpt_dir, d,
+                                                   ckpt.MANIFEST)))
+    latest = os.path.join(ckpt_dir, f"ckpt_{epochs[-1]}")
+    manifest = ckpt.read_manifest(latest) or {}
+    tree, epoch = ckpt.host_tree(latest)
+    restore_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    got = _sha256s({(rank, k): v[rank] for k, v in tree.items()
+                    for rank in range(4)})
+    bad = []
+    for rank in range(4):
+        with open(os.path.join(rows_dir, f"rank{rank}.json")) as f:
+            want = json.load(f)
+        mine = {k: d for (r, k), d in got.items() if r == rank}
+        bad += [(rank, k) for k in set(want) | set(mine)
+                if want.get(k) != mine.get(k)]
+    nbytes = sum(int(v["bytes"]) for v in manifest.get("shards", {}).values())
+    print(f"{tag} checkpoint epochs {epochs}; epoch {epoch}: manifest of "
+          f"{len(manifest.get('shards', {}))} shards "
+          f"({nbytes / 2**30:.3f} GiB), merged in this process in "
+          f"{restore_s:.1f} s (crc32 checked), hashed in "
+          f"{time.perf_counter() - t1:.1f} s: {len(tree)} leaves x 4 "
+          f"ranks, {len(bad)} differ from the ranks' final rows")
+    if (epoch != len(a["rounds"]) or sorted(manifest.get("shards", {}))
+            != [f"shard_{r}.msgpack" for r in range(4)] or bad):
+        fail(f"{tag}: the checkpoint of epoch {epoch} is not the run's "
+             f"rows (differing {bad[:4]})")
+    del tree
+    shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    print(f"{tag} phase wall {time.time() - t0:.1f} s (the two processes "
+          f"{wall:.1f} s)")
+    return {"wall_s": wall, "epoch": epoch}
+
+
 def deterministic_child(overlap: bool, elastic: bool) -> int:
     """The phases that compare runs bit for bit, in a child process whose
     environment sets CUBLAS_WORKSPACE_CONFIG before CUDA starts, under
@@ -3884,9 +4359,8 @@ def deterministic_child(overlap: bool, elastic: bool) -> int:
     block, a retired rank goes on to the next job).  Prints one tagged
     JSON line for the parent."""
     import tempfile
-    import torch
     from importlib import import_module
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     t_driver = import_module(f"{PKG}.driver")
     t0 = time.perf_counter()
     if overlap:
@@ -3904,7 +4378,7 @@ def deterministic_child(overlap: bool, elastic: bool) -> int:
                                   target=elastic_rank) as start:
             run = lambda _cfg, _kw: start.run()
             if overlap:
-                overlap_pair(4, run)
+                serial = overlap_pair(4, run)
                 print(f"[overlap cnn] phase wall "
                       f"{time.perf_counter() - t0:.1f} s")
             if elastic:
@@ -3914,6 +4388,9 @@ def deterministic_child(overlap: bool, elastic: bool) -> int:
     finally:
         shutil.rmtree(snap_dir, ignore_errors=True)
     _release_card()
+    if overlap:
+        # its own processes, once the shared start's have gone
+        multihost_cnn(serial)
     print(f"[deterministic] {len(jobs) + len(chaos)} runs ("
           + ", ".join((["overlap n4 serial", "overlap n4 overlapped"]
                        if overlap else [])
@@ -4850,7 +5327,7 @@ def elastic_tp_alone() -> int:
     t_driver = import_module(f"{PKG}.driver")
     with main.run_shared([stale_tp_argv()]) as runner:
         counts = {"stale_tp_gpt2": phase_stale_tp(runner)}
-    torch.use_deterministic_algorithms(True)
+    _deterministic()
     t_driver.fresh_rank()
     snap_dir = tempfile.mkdtemp(prefix="chip-smoke-snapshots-")
     jobs, dirs = elastic_jobs(snap_dir)
@@ -4886,6 +5363,8 @@ def grid_alone() -> int:
 def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
+    if sys.argv[1:] == [MULTIHOST_PHASE]:
+        return multihost_child()
     if sys.argv[1:] == [TP_LLAMA_PHASE]:
         print(RESULT_TAG + json.dumps({"counts": tp_llama()}), flush=True)
         return 0
@@ -4944,8 +5423,6 @@ def main() -> int:
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     shutil.rmtree(DRAFT_CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    counts["llama"] = phase_llama()
-    lap("llama child (path, profile, serve llama, tp llama)")
     for path in ("bert", "vit", "moe"):
         counts[path], results = run_path(path)
         if path == "vit":           # before the profile trains it further
@@ -4985,8 +5462,14 @@ def main() -> int:
     phase_profile_dir()
     torch.cuda.empty_cache()
     lap("profile_dir")
+    # the llama child runs beside the sync phase (each of them mostly
+    # waits on the host, each on its own processes), which takes back the
+    # child's wall; the timings of both are taken under the other's load
+    llama = start_llama()
     counts["sync"], sync_rates = phase_sync(images_s)
-    lap("sync")
+    lap("sync (the llama child beside it)")
+    counts["llama"] = phase_llama(llama)
+    lap("llama child (path, profile, serve llama, tp llama) after sync")
     t_sim = time.perf_counter()
     counts["sim_cnn"] = phase_sim_cnn(images_s, sync_rates)
     phase_sim_parity()
@@ -5014,6 +5497,9 @@ def main() -> int:
             **rows[shape][kname],
             at_shapes={label: rows[label][kname]
                        for label in ROW_SHAPES}))
+    left = _stop_leftovers()
+    print(f"[smoke] processes left running at the end, now stopped: "
+          f"{left or 'none'}")
     print(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -5024,4 +5510,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _adopt_orphans()
+    try:
+        code = main()
+    finally:
+        for line in _stop_leftovers():
+            print(f"chip_smoke: left running at the end, now stopped: "
+                  f"{line}", file=sys.stderr)
+    sys.exit(code)

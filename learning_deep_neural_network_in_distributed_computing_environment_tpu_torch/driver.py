@@ -94,12 +94,25 @@ bitwise equal along ``pipe``, and those every expert rank holds along
 ``expert``, after every round.  ``results["grid"]`` has the axes, every
 rank's state bytes and its TP, FSDP, SP, PP and EP counters.
 
+Launched (``run_launched``; JAX ``mesh.initialize_distributed``): P
+independently started processes, one a host, told the coordinator by
+JAX's three variables, make one world of the mesh's ranks at a
+``TCPStore`` (``mesh.Launch``), process-major, every worker block within
+one process; each process runs its first rank and spawns its others.
+The run is the single launch's, in the serial round flow (JAX
+``driver.py:1035``); ``--sim_workers``, ``--chaos`` and a worker count
+the processes do not divide are refused before the rendezvous
+(``check_launch``).  Each rank writes its shard into its own process's
+``--checkpoint_dir`` and every rank the manifest (``--resume`` needs the
+directory shared).
+
 Returns the reference's metric structures under their original names,
 plus ``step_caps``, ``shard_sizes``, ``round_timings`` (with
 ``ckpt_snapshot_ms``/``ckpt_write_ms``, zero on rounds that save nothing),
-``checkpoint`` (the engine's summary), the final ``model``, ``variables``
-and ``test`` set, and with several workers the round-0 train shards and
-every rank's final parameter checksum.
+``checkpoint`` (the engine's summary), ``round_flow`` ("overlapped" or
+"serial"), the final ``model``, ``variables`` and ``test`` set, and with
+several workers the round-0 train shards and every rank's final
+parameter checksum.
 """
 
 from __future__ import annotations
@@ -589,7 +602,7 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             raise ValueError(
                 f"--num_slices {cfg.num_slices} runs S x W worker "
                 "processes: run it through main.run or driver.run_group")
-        slices = mesh.make_grid(group, mesh.grid_axes(cfg))
+        slices = mesh.make_grid(group, mesh.grid_axes(cfg, group.processes))
     if (not sim and group is None
             and mesh.world_size_of(mesh.grid_axes(cfg)) > 1):
         raise ValueError(
@@ -1159,7 +1172,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     # Crash and NaN arming force the serial flow, as in JAX: a crash voids
     # a round before its metrics are assembled, and the quarantine reads
     # each round's validity flags before the next boundary.
-    overlap = cfg.overlap_rounds and not (crash_armed or nan_armed)
+    # a launched world runs the serial flow, as JAX's multi-process
+    # driver does (driver.py:1035)
+    launched = world is not None and world.processes > 1
+    overlap = (cfg.overlap_rounds and not launched
+               and not (crash_armed or nan_armed))
+    results["round_flow"] = "overlapped" if overlap else "serial"
     streaming = cfg.stream_chunk_steps > 0
     prep_pool = metrics_pool = None
     if overlap:
@@ -1442,7 +1460,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             if ckpt is not None:
                 if group is not None:
                     # publish the previous save's manifest now, in the
-                    # same order on every rank (JAX driver.py:1764-1776)
+                    # same order on every rank: the commit window is one
+                    # round, never --checkpoint_every rounds of a durable
+                    # but unrestorable epoch (JAX driver.py:1764-1776)
                     ckpt.wait()
                 if (cfg.checkpoint_every
                         and (epoch + 1) % cfg.checkpoint_every == 0):
@@ -1623,7 +1643,7 @@ def async_rounds(cfg: Config, stale_log: list) -> dict:
     return out
 
 
-def train_rank(rank: int, world_size: int, store_path: str,
+def train_rank(rank: int, world_size: int, store_path: str | mesh.Launch,
                timeout_s: float, cfg: Config,
                train_kwargs: dict | None = None, spawn=None,
                generation: int = 0, snapshot_dir: str | None = None
@@ -1631,11 +1651,13 @@ def train_rank(rank: int, world_size: int, store_path: str,
     """Run ``train_global(cfg, **train_kwargs)`` as rank ``rank`` of a
     ``world_size``-worker group that meets at the FileStore
     ``store_path`` (generation ``generation`` of an elastic group; a spawn
-    target).  ``snapshot_dir``: the membership snapshot this position
-    starts from (a joiner's, or a fresh twin's).  ``spawn``: rank 0's
-    callback that starts the joiners of an elastic boundary
-    (``run_group``'s)."""
-    device = mesh.worker_device(rank, cfg.device)
+    target), or under a launch at the coordinator's store (a
+    ``mesh.Launch``; the device follows the rank's local rank).
+    ``snapshot_dir``: the membership snapshot this position starts from
+    (a joiner's, or a fresh twin's).  ``spawn``: rank 0's callback that
+    starts the joiners of an elastic boundary (``run_group``'s)."""
+    device = mesh.worker_device(mesh.local_rank(store_path, rank),
+                                cfg.device)
     member = mesh.Membership(rank, world_size, device, store_path,
                              timeout_s, spawn=spawn, generation=generation)
     member.join()
@@ -1645,7 +1667,7 @@ def train_rank(rank: int, world_size: int, store_path: str,
             kw["elastic_snapshot"] = snapshot_dir
         return train_global(cfg, membership=member, **kw)
     finally:
-        member.leave()
+        member.leave(ok=sys.exc_info()[0] is None)
 
 
 def rank_entry(rank: int, world_size: int, cfg: Config, store_path: str,
@@ -1691,21 +1713,98 @@ def run_group(cfg: Config, n: int, *, train_kwargs: dict | None = None,
 
     spawn(range(1, n), n, 0, snapshot_dir)
     try:
-        torch.set_num_threads(mesh.rank_threads(n))
-        results = train_rank(0, n, store, timeout_s, cfg, train_kwargs,
-                             spawn=spawn, snapshot_dir=snapshot_dir)
+        return _lead_rank(procs, mesh.rank_threads(n), timeout_s,
+                          lambda: train_rank(0, n, store, timeout_s, cfg,
+                                             train_kwargs, spawn=spawn,
+                                             snapshot_dir=snapshot_dir))
+    finally:
+        mesh.remove_store(store)
+
+
+def _lead_rank(procs: list, threads: int, timeout_s: float,
+               run: Callable) -> Any:
+    """``run()``, the caller's rank, on ``threads`` intra-op threads beside
+    its spawned ranks ``procs`` (a list an elastic run may extend): joined
+    when it returns; stopped when it raises, naming a child that failed
+    first (the likelier cause)."""
+    caller = torch.get_num_threads()
+    try:
+        torch.set_num_threads(threads)
+        out = run()
     except BaseException as err:
-        # a child that failed first is the likelier cause: name it
         failed = mesh.stop_workers(procs, wait_s=5.0)
         if failed:
             raise RuntimeError(
                 f"worker process(es) failed, exit codes {failed}") from err
         raise
-    else:
-        mesh.join_workers(procs, timeout_s)
     finally:
-        torch.set_num_threads(threads)
-        mesh.remove_store(store)
+        torch.set_num_threads(caller)
+    mesh.join_workers(procs, timeout_s)
+    return out
+
+
+def check_launch(cfg: Config, launch: mesh.Launch,
+                 elastic_snapshot=None) -> int:
+    """The refusals of a launched run, with the JAX driver's messages
+    (``driver.py:315-319, 393-406``), raised before any rendezvous;
+    returns the world's rank count."""
+    if cfg.sim_workers:
+        raise NotImplementedError(
+            "--sim_workers is single-process by construction: the "
+            "simulated worker axis lives on one chip (that is the "
+            "point) — run multi-process fleets on the real driver")
+    axes = mesh.grid_axes(cfg, launch.num_processes)
+    ranks = mesh.world_size_of(axes)
+    n = ranks // mesh.inner_size(axes)
+    if n % launch.num_processes:
+        raise ValueError(
+            f"worker axis ({n}) must be divisible by the process count "
+            f"({launch.num_processes}): per-process probe/wall attribution "
+            "maps whole worker-row blocks to whole processes")
+    if cfg.chaos or elastic_snapshot is not None:
+        raise NotImplementedError(
+            "elastic membership / --chaos drives the simulated N-worker "
+            "single-process driver; multi-process membership changes need "
+            "a coordinated mesh rebuild across hosts (ROADMAP follow-on)")
+    return ranks
+
+
+def run_launched(cfg: Config, *, launch: mesh.Launch | None = None,
+                 train_kwargs: dict | None = None,
+                 timeout_s: float | None = None,
+                 target: Callable = rank_entry) -> dict[str, Any]:
+    """Run ``train_global`` as this process's ranks of a launched world
+    (JAX ``mesh.initialize_distributed``): ``launch`` (default: the
+    environment's three variables, ``mesh.launch_from_env``) names the
+    coordinator, the process count P and this process's id p; the world
+    of R ranks (the mesh's) is laid out process-major, so this process
+    holds global ranks p*L .. p*L+L-1 (L = R/P): its first in the caller,
+    the other L-1 spawned (``target``, ``rank_entry``'s arguments), each
+    with 1/L of the caller's threads and the device of its local rank.
+    The run is the single launch's, on one world, in the serial round
+    flow (JAX ``driver.py:1035``); every process returns its first rank's
+    results (the global metric lists are every rank's) with
+    ``results["launch"]``."""
+    launch = launch if launch is not None else mesh.launch_from_env()
+    if launch is None:
+        raise ValueError(
+            f"run_launched needs a launch: set {mesh.COORDINATOR_ENV}, "
+            f"{mesh.NUM_PROCESSES_ENV} and {mesh.PROCESS_ID_ENV}")
+    launch = launch.with_world(check_launch(cfg, launch))
+    timeout_s = mesh.GROUP_TIMEOUT_S if timeout_s is None else timeout_s
+    first, *rest = launch.ranks
+    share = mesh.rank_threads(launch.ranks_per_process)
+    procs = mesh.spawn_workers(
+        target, launch.world_size,
+        (cfg, launch, timeout_s, train_kwargs, 0, None), ranks=rest,
+        threads=share)
+    results = _lead_rank(procs, share, timeout_s,
+                         lambda: train_rank(first, launch.world_size, launch,
+                                            timeout_s, cfg, train_kwargs))
+    results["launch"] = {
+        "coordinator": launch.address, "processes": launch.num_processes,
+        "process_id": launch.process_id, "ranks": list(launch.ranks),
+        "world_size": launch.world_size}
     return results
 
 

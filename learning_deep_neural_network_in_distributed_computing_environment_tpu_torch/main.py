@@ -25,6 +25,18 @@ others' collectives at the group timeout, never in a hang).  Under
 the new roster (``elastic.py``), spawning joiners and retiring surplus
 ranks; the calling process stays rank 0.
 
+Across hosts (JAX ``mesh.initialize_distributed``): start the same
+command on every host with ``JAX_COORDINATOR_ADDRESS=host:port`` (process
+0's host), ``JAX_NUM_PROCESSES=P`` and ``JAX_PROCESS_ID=p`` set.  The P
+processes meet there (``mesh.Launch``, a ``TCPStore``) and make one world
+of the mesh's ranks, process-major: each process runs its first rank and
+spawns its others (``driver.run_launched``); the round flow is serial.
+Every process returns the run's results; only process 0 evaluates on the
+test set and writes the plots.  ``--sim_workers``, ``--chaos`` and a
+worker count the process count does not divide are refused.  ``--resume``
+needs a ``--checkpoint_dir`` every host shares (each rank writes its own
+shard there, and every rank the manifest).
+
 Examples::
 
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
@@ -50,6 +62,15 @@ Examples::
         serve --checkpoint_dir ckpt --serve_draft_ckpt draft --serve_spec_tokens 4
     python -m learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
         --model vit_s16 --dataset imagenet --stream_chunk_steps 2
+    # on host A (10.0.0.1) and on host B, 2 processes x 2 workers:
+    JAX_COORDINATOR_ADDRESS=10.0.0.1:1234 JAX_NUM_PROCESSES=2 \
+    JAX_PROCESS_ID=0 python -m \
+        learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --num_workers 4 --aggregation_by weights --checkpoint_dir /shared/ck
+    JAX_COORDINATOR_ADDRESS=10.0.0.1:1234 JAX_NUM_PROCESSES=2 \
+    JAX_PROCESS_ID=1 python -m \
+        learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.main \
+        --num_workers 4 --aggregation_by weights --checkpoint_dir /shared/ck
 """
 
 from __future__ import annotations
@@ -87,8 +108,16 @@ def run(argv=None, elastic_snapshot=None) -> dict:
         from .serve.api import serve_main
         return serve_main(argv[1:])
     cfg = _config(argv)
-    from .driver import run_group, train_global
+    from . import mesh
+    from .driver import check_launch, run_group, run_launched, train_global
 
+    launch = mesh.launch_from_env()
+    if launch is not None:
+        # one process of a launched world; only process 0 evaluates and
+        # plots (JAX main.py:46)
+        check_launch(cfg, launch, elastic_snapshot)
+        results = run_launched(cfg, launch=launch, target=_worker)
+        return _finish(cfg, results) if launch.process_id == 0 else results
     n = _ranks(cfg)
     if elastic_snapshot is not None or (cfg.chaos and not cfg.sim_workers):
         # elastic membership regroups processes: always a group

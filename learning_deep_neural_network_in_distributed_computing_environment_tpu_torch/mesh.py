@@ -25,6 +25,18 @@ world S x W workers on the grid ``{"slice": S, "data": W}``: each worker's
 data line is its slice (the inner level of the hierarchical sync), its
 slice line the workers of the same data coordinate in every slice (the
 outer level).
+
+The launched mode (JAX ``mesh.initialize_distributed``, :44-61): with
+``JAX_COORDINATOR_ADDRESS=host:port``, ``JAX_NUM_PROCESSES=P`` and
+``JAX_PROCESS_ID=p`` set, P independently started processes (one a host)
+make one world of R ranks (``Launch``).  Process p holds the global ranks
+p*L .. p*L+L-1 (L = R/P, process-major, as JAX ``build_mesh`` lays its
+mesh out), so the leading axis (slice, then data) spans processes and
+every worker block lies within one; each rank's device and threads follow
+its local rank.  The ranks meet at a ``TCPStore`` on the coordinator's
+host:port, hosted by process 0's first rank (global rank 0), which stays
+until every other rank has left its group.  Without the variables the
+single-launch path and its FileStore run unchanged.
 """
 
 from __future__ import annotations
@@ -32,19 +44,90 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import logging
 import os
 import shutil
 import tempfile
+import time
 from typing import Callable, Iterator, Sequence
 
 import torch
 import torch.distributed as dist
+
+log = logging.getLogger(__name__)
 
 # seconds any collective (and the rendezvous) may wait for a peer: longer
 # than the widest gap between two ranks reaching the same sync point
 # (a full-data round of the reference's run), short enough that a dead
 # peer ends the run instead of hanging it
 GROUP_TIMEOUT_S = 300.0
+
+# the launch's variables, under JAX's names and with JAX's meaning
+COORDINATOR_ENV = "JAX_COORDINATOR_ADDRESS"
+NUM_PROCESSES_ENV = "JAX_NUM_PROCESSES"
+PROCESS_ID_ENV = "JAX_PROCESS_ID"
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One independently started process of a launched world: the
+    coordinator's ``host:port``, the process count and this process's id;
+    ``world_size`` is the world's rank count once the run's mesh is known
+    (``with_world``).  Picklable: spawned ranks get it in place of a
+    FileStore path."""
+
+    address: str
+    num_processes: int
+    process_id: int
+    world_size: int = 0
+
+    @property
+    def host(self) -> str:
+        return self.address.rsplit(":", 1)[0].strip("[]")
+
+    @property
+    def port(self) -> int:
+        return int(self.address.rsplit(":", 1)[1])
+
+    @property
+    def ranks_per_process(self) -> int:
+        return self.world_size // self.num_processes
+
+    @property
+    def ranks(self) -> range:
+        """This process's global ranks."""
+        per = self.ranks_per_process
+        return range(self.process_id * per, (self.process_id + 1) * per)
+
+    def process_of(self, rank: int) -> int:
+        return rank // self.ranks_per_process
+
+    def with_world(self, world_size: int) -> Launch:
+        return dataclasses.replace(self, world_size=int(world_size))
+
+
+def launch_from_env(environ=None) -> Launch | None:
+    """The launch the environment describes (JAX's three variables), or
+    None when ``JAX_COORDINATOR_ADDRESS`` is unset: a single launch."""
+    env = os.environ if environ is None else environ
+    address = env.get(COORDINATOR_ENV, "")
+    if not address:
+        return None
+    try:
+        int(address.rsplit(":", 1)[1])        # host:port
+        launch = Launch(address, int(env[NUM_PROCESSES_ENV]),
+                        int(env[PROCESS_ID_ENV]))
+    except (KeyError, ValueError, IndexError):
+        raise ValueError(
+            f"{COORDINATOR_ENV}={address!r} launches one process of a "
+            f"multi-process world: set {NUM_PROCESSES_ENV} (the process "
+            f"count) and {PROCESS_ID_ENV} (0 .. count-1) too, and give the "
+            "coordinator as host:port") from None
+    if not 0 <= launch.process_id < launch.num_processes:
+        raise ValueError(
+            f"{PROCESS_ID_ENV}={launch.process_id} is not a process id of "
+            f"{NUM_PROCESSES_ENV}={launch.num_processes}")
+    return launch
 
 
 @dataclasses.dataclass
@@ -67,6 +150,8 @@ class Group:
     # the global ranks of this group's members, in group-rank order (None:
     # the group spans the world and group rank is global rank)
     ranks: tuple | None = None
+    # the launched processes the world spans (1: a single launch)
+    processes: int = 1
     _host: dict = dataclasses.field(default_factory=dict, repr=False)
     wire: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -261,15 +346,17 @@ def make_grid(world: Group, axes: dict,
     return grid
 
 
-def grid_axes(cfg) -> dict:
+def grid_axes(cfg, processes: int = 1) -> dict:
     """``cfg``'s mesh axes with the data size resolved (data=-1: the
-    ``--num_workers`` count, ``resolve_num_workers``).  Under
-    ``--num_slices S`` the ``slice`` axis leads: S x W worker processes,
-    slice-major (JAX ``P((SLICE_AXIS, DATA_AXIS))``), W = the workers of
-    one slice."""
+    ``--num_workers`` count, ``resolve_num_workers``; its 0, one worker
+    per device, counts the devices of all ``processes`` of a launch).
+    Under ``--num_slices S`` the ``slice`` axis leads: S x W worker
+    processes, slice-major (JAX ``P((SLICE_AXIS, DATA_AXIS))``), W = the
+    workers of one slice."""
     axes = dict(cfg.mesh_axes())
     if axes["data"] < 1:
-        axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device)
+        axes["data"] = resolve_num_workers(cfg.num_workers, cfg.device) * (
+            processes if cfg.num_workers == 0 else 1)
     return {a: s for a, s in axes.items()
             if a in ("slice", "data", "fsdp", "seq", "pipe", "expert",
                      "model")}
@@ -297,10 +384,17 @@ def resolve_num_workers(num_workers: int, device: str | None) -> int:
     return max(torch.cuda.device_count(), 1)
 
 
+def local_rank(store: str | Launch, rank: int) -> int:
+    """Rank ``rank``'s place among its own process's ranks (its device
+    and threads follow it): the rank itself in a single launch."""
+    return (rank % store.ranks_per_process if isinstance(store, Launch)
+            else rank)
+
+
 def worker_device(rank: int, device: str | None) -> torch.device:
-    """Rank ``rank``'s device: ``cuda:{rank % device_count}`` (every rank
-    on ``cuda:0`` on a one-card host), or the CPU when asked for; raises
-    without a card unless the CPU was asked for."""
+    """Local rank ``rank``'s device: ``cuda:{rank % device_count}`` (every
+    rank on ``cuda:0`` on a one-card host), or the CPU when asked for;
+    raises without a card unless the CPU was asked for."""
     if device == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -310,22 +404,93 @@ def worker_device(rank: int, device: str | None) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
+def join_store(store: str | Launch, rank: int, world_size: int,
+               timeout_s: float = GROUP_TIMEOUT_S):
+    """The ``torch.distributed`` store rank ``rank`` of a ``world_size``
+    world meets at: the FileStore at ``store`` (a path), or under a
+    launch the ``TCPStore`` on the coordinator's host:port (hosted by
+    rank 0), returned once every rank of the world has arrived.  Raises
+    after ``timeout_s``, naming the processes that did not arrive (or, off
+    the coordinator, that it could not be reached): never hangs."""
+    if not isinstance(store, Launch):
+        return dist.FileStore(store, world_size)
+    where = f"rendezvous at {store.address}"
+    try:
+        tcp = dist.TCPStore(store.host, store.port, world_size, rank == 0,
+                            datetime.timedelta(seconds=timeout_s),
+                            wait_for_workers=False)
+    except RuntimeError as err:
+        raise RuntimeError(
+            f"{where}: rank {rank} (process {store.process_of(rank)}) could "
+            f"not {'host' if rank == 0 else 'reach'} the coordinator's "
+            f"store within {timeout_s:g} s: {err}") from None
+    tcp.set(f"arrived/{rank}", "1")
+    deadline = time.monotonic() + timeout_s
+    missing = list(range(world_size))
+    while True:
+        missing = [r for r in missing if not tcp.check([f"arrived/{r}"])]
+        if not missing:
+            return tcp
+        if time.monotonic() > deadline:
+            procs = sorted({store.process_of(r) for r in missing})
+            raise RuntimeError(
+                f"{where}: process(es) {procs} of {store.num_processes} "
+                f"(rank(s) {missing}) did not arrive within {timeout_s:g} s "
+                f"(rank {rank} waited; {NUM_PROCESSES_ENV} is "
+                f"{store.num_processes})")
+        time.sleep(0.05)
+
+
+def leave_store(store: str | Launch, tcp, rank: int, world_size: int,
+                timeout_s: float = GROUP_TIMEOUT_S, ok: bool = True) -> None:
+    """After rank ``rank`` destroyed its groups, under a launch: it says so
+    on the coordinator's store, and rank 0, the store's host, first waits
+    for every other rank's word (``timeout_s``; a few seconds when
+    unwinding, ``ok`` False), so that no rank is still inside a collective
+    or its group's teardown when the store goes.  A no-op in a single
+    launch."""
+    if not isinstance(store, Launch) or tcp is None:
+        return
+    if rank:
+        try:
+            tcp.set(f"left/{rank}", "1")
+        except RuntimeError:
+            pass             # the coordinator is gone: no one to tell
+        return
+    keys = [f"left/{r}" for r in range(1, world_size)]
+    try:
+        tcp.wait(keys, datetime.timedelta(seconds=timeout_s if ok else 5.0))
+    except RuntimeError:
+        gone = [k for k in keys if not tcp.check([k])]
+        log.warning("rendezvous at %s: %s had not left their groups when "
+                    "the coordinator's store closed", store.address, gone)
+
+
 @contextlib.contextmanager
 def init_group(rank: int, world_size: int, device: torch.device,
-               store_path: str, timeout_s: float = GROUP_TIMEOUT_S
-               ) -> Iterator[Group]:
-    """Join the gloo group through the FileStore at ``store_path``; the
-    group is destroyed on exit, also when the body raises."""
+               store_path: str | Launch,
+               timeout_s: float = GROUP_TIMEOUT_S) -> Iterator[Group]:
+    """Join the gloo group through the store of ``store_path`` (a
+    FileStore path, or a ``Launch``: ``join_store``); the group is
+    destroyed on exit, also when the body raises."""
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    store = join_store(store_path, rank, world_size, timeout_s)
     dist.init_process_group(
-        "gloo", store=dist.FileStore(store_path, world_size), rank=rank,
-        world_size=world_size,
+        "gloo", store=store, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
+    ok = False
     try:
-        yield Group(rank, world_size, device)
+        yield Group(rank, world_size, device,
+                    processes=_processes(store_path))
+        ok = True
     finally:
         dist.destroy_process_group()
+        leave_store(store_path, store, rank, world_size, timeout_s, ok)
+
+
+def _processes(store: str | Launch) -> int:
+    return store.num_processes if isinstance(store, Launch) else 1
 
 
 class Membership:
@@ -333,7 +498,9 @@ class Membership:
     current roster, re-formed at each membership boundary.  Ranks are
     positions: after a boundary, position p of the new roster runs on rank
     p of a new group, met at a FileStore of its own (generation g of the
-    base path), so the main process stays rank 0.  On a rank grid the
+    base path), so the main process stays rank 0.  Under a launch the
+    store is the coordinator's (``Launch``; generation 0: a launched world
+    does not regroup).  On a rank grid the
     roster is of worker blocks: a process keeps its inner coordinates and
     its data coordinate is its position, so its world rank is where those
     coordinates sit on the grid of the new worker count.  ``spawn`` (rank
@@ -341,7 +508,8 @@ class Membership:
     snapshot_dir)``."""
 
     def __init__(self, rank: int, world_size: int, device: torch.device,
-                 store_path: str, timeout_s: float = GROUP_TIMEOUT_S,
+                 store_path: str | Launch,
+                 timeout_s: float = GROUP_TIMEOUT_S,
                  spawn: Callable | None = None, generation: int = 0):
         self.rank = rank
         self.world_size = world_size
@@ -351,8 +519,15 @@ class Membership:
         self.spawn = spawn
         self.generation = generation
         self.group: Group | None = None
+        self._store = None
 
-    def store(self, generation: int) -> str:
+    def store(self, generation: int) -> str | Launch:
+        if isinstance(self.base, Launch):
+            if generation:
+                raise RuntimeError(
+                    "a launched world does not regroup (elastic runs are "
+                    "refused under a launch)")
+            return self.base
         return (self.base if generation == 0
                 else f"{self.base}.g{generation}")
 
@@ -367,18 +542,24 @@ class Membership:
     def join(self) -> Group:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        self._store = join_store(self.store(self.generation), self.rank,
+                                 self.world_size, self.timeout_s)
         dist.init_process_group(
-            "gloo", store=dist.FileStore(self.store(self.generation),
-                                         self.world_size),
-            rank=self.rank, world_size=self.world_size,
+            "gloo", store=self._store, rank=self.rank,
+            world_size=self.world_size,
             timeout=datetime.timedelta(seconds=self.timeout_s))
-        self.group = Group(self.rank, self.world_size, self.device)
+        self.group = Group(self.rank, self.world_size, self.device,
+                           processes=_processes(self.base))
         return self.group
 
-    def leave(self) -> None:
+    def leave(self, ok: bool = True) -> None:
+        """Destroy the group (``ok`` False: while unwinding an error)."""
         if self.group is not None:
             self.group = None
             dist.destroy_process_group()
+            leave_store(self.base, self._store, self.rank, self.world_size,
+                        self.timeout_s, ok)
+            self._store = None
 
     def regroup(self, n_workers: int, snapshot_dir: str,
                 axes: dict | None = None) -> Group | None:
@@ -420,7 +601,8 @@ def remove_store(store_path: str) -> None:
 def rank_threads(world_size: int) -> int:
     """Intra-op threads of one rank: an equal share of the caller's
     (``torch.get_num_threads()``, one per core unless the caller set
-    fewer), so N CPU ranks do not oversubscribe the host."""
+    fewer), so N CPU ranks do not oversubscribe the host (under a launch
+    N is the ranks of one process, its host's)."""
     return max(1, torch.get_num_threads() // world_size)
 
 
