@@ -9,10 +9,12 @@ Phases (any failure exits non-zero before the result line):
 1. device  - the card's name, count, and nvidia-smi name/power limit;
 2. build   - nvcc builds every kernel from csrc/ (sm_90a) and prints the
              ptxas report (registers, shared memory, spills); cuobjdump
-             lists the tensor-core instructions (HMMA, HGMMA) in each
-             kernel's bf16 instances, and the phase fails if a kernel
-             designed for the tensor cores (all four) has a bf16 instance
-             without them;
+             lists the tensor-core instructions (HMMA, HGMMA) and the TMA
+             copies (UTMALDG, UTMASTG) in each kernel's bf16 instances, and
+             the phase fails if a kernel designed for the tensor cores
+             (all four) has a bf16 instance without them, or a kernel
+             designed for wgmma (flash_fwd, flash_bwd_dkv) one without
+             HGMMA and UTMALDG;
 3. kernels - each flash kernel against its plain PyTorch version on the
              same bf16 inputs, at the gpt2 and llama paths' shapes, at the
              bert/moe [64,128,12,64] and vit [64,196,6,64] instances (full
@@ -320,6 +322,16 @@ Phases (any failure exits non-zero before the result line):
 The last lines are the smoke's total wall, the nvidia-smi line, one JSON
 object with a row per kernel, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
+
+Another tree's kernels beside this tree's, in one card call:
+    python3 chip_smoke.py kernels_ab <that tree's csrc directory>
+builds both (each build's wall) and, at every SHAPES entry, times each
+kernel in turns (other, this, this, other) at the device's and the host's
+pace beside SDPA's forward and aten's flash backward, and checks both
+against the plain versions, this tree's forward and two-pass pair for
+repeated bits, and the fused kernel's dk/dv for equal bits in both.  For
+the parent commit: git archive HEAD <package>/csrc | tar -x -C build/parent
+(build/ is ignored by git but copied to the card).
 """
 
 from __future__ import annotations
@@ -784,14 +796,15 @@ TP_SHAPES = ("tp_gpt2", "tp_llama", "tp_fsdp_bert")
 # once, so the same 2e-2 holds.  lse stays fp32 end to end: 1e-3 absolute.
 TOL_O, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 1e-3
 # kernel -> (source, TPU kernel it replaces, the path and shape its JSON
-# row reports, design of its bf16 instance)
+# row reports, design of its bf16 instance: "wgmma" (wgmma on TMA-fed
+# shared memory, csrc/flash_sm90.cuh) or "tensor-core" (mma.sync))
 KERNELS = {
     "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66", "gpt2",
-                  "main", "tensor-core"),
+                  "main", "wgmma"),
     "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192", "gpt2",
                      "main", "tensor-core"),
     "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235", "gpt2",
-                      "main", "tensor-core"),
+                      "main", "wgmma"),
     "flash_bwd_fused": ("csrc/flash_bwd_fused.cu", "ops/pallas_ops.py:290",
                         "llama", "llama_path", "tensor-core"),
 }
@@ -802,6 +815,7 @@ SASS_SYMBOLS = {"flash_fwd": ("flash_fwd", "fwd_kernel"),
                 "flash_bwd_dkv": ("flash_bwd", "bwd_dkv_kernel"),
                 "flash_bwd_fused": ("flash_bwd_fused", "bwd_fused_kernel")}
 TENSOR_CORE_OP = re.compile(r"\bHG?MMA(?:\.\w+)+")
+TMA_OP = re.compile(r"\bUTMA(?:LDG|STG)\b")
 
 
 def fail(msg: str) -> None:
@@ -1029,7 +1043,8 @@ def phase_build() -> None:
 
 def tensor_core_ops(sass: str) -> dict[str, list[str]]:
     """Each device function in ``cuobjdump -sass`` text -> the distinct
-    tensor-core instructions (HMMA, HGMMA) in it, sorted."""
+    tensor-core instructions (HMMA, HGMMA) and TMA copies (UTMALDG,
+    UTMASTG) in it, sorted."""
     ops: dict[str, set] = {}
     name = None
     for line in sass.splitlines():
@@ -1039,28 +1054,42 @@ def tensor_core_ops(sass: str) -> dict[str, list[str]]:
             ops[name] = set()
         elif name is not None:
             ops[name].update(TENSOR_CORE_OP.findall(line))
+            ops[name].update(TMA_OP.findall(line))
     return {n: sorted(found) for n, found in ops.items()}
 
 
 def check_tensor_cores(sass_by_library: dict[str, str]) -> dict[str, bool]:
     """kernel -> whether every bf16 instance of it runs tensor-core
     instructions; fails if a kernel designed for the tensor cores has no
-    bf16 instance or one without them."""
+    bf16 instance or one without them, and if a kernel designed for wgmma
+    has a bf16 instance (D = 32, 64 or 128) without HGMMA or without the
+    TMA loads (UTMALDG) that feed it."""
     result = {}
     for kernel, (library, symbol) in SASS_SYMBOLS.items():
+        design = KERNELS[kernel][4]
         found = {n: o for n, o in tensor_core_ops(
             sass_by_library[library]).items()
                  if symbol in n and "__nv_bfloat16" in n}
         for fn, ops in sorted(found.items()):
-            print(f"[build] sass {kernel} {fn[:70]}: "
+            print(f"[build] sass {kernel} ({design}) {fn[:70]}: "
                   f"{' '.join(ops) or 'no tensor-core instruction'}")
-        result[kernel] = bool(found) and all(found.values())
-        if KERNELS[kernel][4] == "tensor-core" and not result[kernel]:
+        mma = {fn: [o for o in ops if "MMA" in o] for fn, ops in found.items()}
+        result[kernel] = bool(found) and all(mma.values())
+        if not result[kernel]:
             fail(f"{kernel} is designed for the tensor cores but its bf16 "
                  f"instances {sorted(found) or '(none found)'} hold no "
                  f"HMMA/HGMMA instruction")
+        if design == "wgmma":
+            lacking = sorted(
+                fn for fn, ops in found.items()
+                if not any(o.startswith("HGMMA") for o in ops)
+                or "UTMALDG" not in ops)
+            if lacking:
+                fail(f"{kernel} is designed for wgmma on TMA-fed shared "
+                     f"memory but its bf16 instances {lacking} hold no "
+                     f"HGMMA or no UTMALDG instruction")
         # the draft's head_dim (the template argument D=32 mangles as
-        # Li32E); the rule above already fails on any bf16 instance
+        # Li32E); the rules above already fail on any bf16 instance
         # without tensor-core instructions, this one among them
         d32 = [ops for fn, ops in found.items() if "Li32E" in fn]
         print(f"[build] sass {kernel} D=32 bf16 instance(s): "
@@ -1134,6 +1163,20 @@ def _sdpa_backward_ms(q, k, v, do, causal, iters):
         return None, f"{note} unavailable: {refused}; expanded: {e}"
 
 
+def kernel_work(b, l, h, kv, d, causal) -> dict:
+    """kernel -> (bytes, FLOPs) each function must move and do at this
+    shape (causal: the visible pairs), each input read once and each output
+    written once in its own dtype: the fused kernel's fp32 dq accumulator
+    is its design, not the work."""
+    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
+    qb, kvb, rowb = b * l * h * d * 2, b * l * kv * d * 2, b * h * l * 4
+    return {"flash_fwd": (2 * qb + 2 * kvb + rowb, 4 * pairs * d),
+            "flash_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb, 6 * pairs * d),
+            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * pairs * d),
+            "flash_bwd_fused": (3 * qb + 4 * kvb + 2 * rowb,
+                                10 * pairs * d)}
+
+
 def check_shape(label, b, l, h, kv, d, causal) -> dict:
     """Each kernel against its plain version at one shape; returns the
     per-kernel numbers for that shape."""
@@ -1169,16 +1212,7 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
     if not lse_err <= TOL_LSE:
         fail(f"{label}: flash_fwd lse differs from plain by {lse_err}")
 
-    # work each function must do at this shape (causal: the visible pairs),
-    # each input read once and each output written once in its own dtype:
-    # the fused kernel's fp32 dq accumulator is its design, not the work
-    pairs = b * h * (l * (l + 1) // 2 if causal else l * l)
-    qb, kvb, rowb = b * l * h * d * 2, b * l * kv * d * 2, b * h * l * 4
-    work = {"flash_fwd": (2 * qb + 2 * kvb + rowb, 4 * pairs * d),
-            "flash_bwd_dq": (3 * qb + 2 * kvb + 2 * rowb, 6 * pairs * d),
-            "flash_bwd_dkv": (2 * qb + 4 * kvb + 2 * rowb, 8 * pairs * d),
-            "flash_bwd_fused": (3 * qb + 4 * kvb + 2 * rowb,
-                                10 * pairs * d)}
+    work = kernel_work(b, l, h, kv, d, causal)
     iters = 20 if l <= 128 else 5
     times = {
         "flash_fwd": (lambda: fl.kernel_forward(q, k, v, causal, True),
@@ -1229,11 +1263,12 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
             plain_ms=cuda_ms(plain_fn, max(iters // 4, 2)),
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library_note=lib_note, library_fwd_bwd_ms=sdpa_fb_ms,
-            shape=[b, l, h, kv, d, causal])
+            shape=[b, l, h, kv, d, causal], design=KERNELS[name][4])
         r = rows[name]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernels] {label} [B={b} L={l} H={h} KV={kv} D={d} "
-              f"causal={causal}] {name}: kernel_ms {r['ms']:.4f} (host-paced "
+              f"causal={causal}] {name} ({r['design']}): kernel_ms "
+              f"{r['ms']:.4f} (host-paced "
               f"{r['paced_ms']:.4f}) plain_ms "
               f"{r['plain_ms']:.4f} library_ms {lib} ({lib_note}) "
               f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
@@ -5360,6 +5395,153 @@ def grid_alone() -> int:
     return 0
 
 
+AB_PHASE = "kernels_ab"
+
+
+def _kernel_set(csrc: str, build_dir: str) -> tuple[dict, float]:
+    """Build the libraries of the kernel sources in ``csrc`` into
+    ``build_dir`` with ops/_build.py's flags; return their C entry points
+    by name and the build's wall (s).  ops/_build.py's own state is left
+    as it was."""
+    from importlib import import_module
+    from pathlib import Path
+    build = import_module(f"{PKG}.ops._build")
+    saved = (build.CSRC, build.BUILD_DIR, dict(build._loaded),
+             dict(build._functions))
+    build.CSRC, build.BUILD_DIR = Path(csrc), Path(build_dir)
+    build._loaded.clear()
+    build._functions.clear()
+    try:
+        t0 = time.perf_counter()
+        logs = build.build_all()
+        wall = time.perf_counter() - t0
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if any(w in line.lower() for w in ("ptxas", "spill", "error")):
+                    print(f"[ab build] {csrc} {name}: {line.strip()}")
+        fns = {sym: build.function(sym) for sym in build.SIGNATURES}
+    finally:
+        build.CSRC, build.BUILD_DIR = saved[:2]
+        build._loaded.clear()
+        build._loaded.update(saved[2])
+        build._functions.clear()
+        build._functions.update(saved[3])
+    return fns, wall
+
+
+def kernels_ab(other_csrc: str) -> int:
+    """``python3 chip_smoke.py kernels_ab <csrc>``: the kernels of another
+    tree (``csrc``, e.g. the parent commit's) beside this tree's in one
+    card call; see the module docstring."""
+    import torch
+    import torch.nn.functional as F
+    from importlib import import_module
+    os.environ.pop("FLASH_BWD", None)
+    name, smi = phase_device()
+    fl = import_module(f"{PKG}.ops.flash")
+    build = import_module(f"{PKG}.ops._build")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sets = {}
+    for tree, csrc, where in (
+            ("other", other_csrc, os.path.join(OUT_DIR, "ab_other")),
+            ("this", str(build.CSRC), str(build.BUILD_DIR))):
+        sets[tree], wall = _kernel_set(csrc, where)
+        print(f"[ab build] {tree} ({csrc}): {wall:.1f} s")
+    real_function = build.function
+    rows = {}
+    try:
+        for label, b, l, h, kv, d, causal in SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v, do = (torch.randn(b, l, n, d, generator=g, device="cuda",
+                                       dtype=torch.bfloat16)
+                           for n in (h, kv, kv, h))
+            f32 = [t.float() for t in (q, k, v, do)]
+            o_ref, lse = fl.plain_forward(*f32[:3], causal)
+            delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+            refs = {"flash_fwd": (o_ref,),
+                    "flash_bwd_dq": (fl.plain_bwd_dq(*f32, lse, delta,
+                                                     causal),),
+                    "flash_bwd_dkv": fl.plain_bwd_dkv(*f32, lse, delta,
+                                                      causal),
+                    "flash_bwd_fused": fl.plain_bwd_fused(*f32, lse, delta,
+                                                          causal)}
+            calls = {
+                "flash_fwd": lambda: fl.kernel_forward(q, k, v, causal,
+                                                       True)[:1],
+                "flash_bwd_dq": lambda: (fl.kernel_bwd_dq(
+                    q, k, v, do, lse, delta, causal),),
+                "flash_bwd_dkv": lambda: fl.kernel_bwd_dkv(
+                    q, k, v, do, lse, delta, causal),
+                "flash_bwd_fused": lambda: fl.kernel_bwd_fused(
+                    q, k, v, do, lse, delta, causal)}
+            iters = 50 if l <= 256 else 10
+            times = {kname: {"other": [], "this": [], "other_paced": [],
+                             "this_paced": []} for kname in calls}
+            outs = {}
+            for tree in ("other", "this", "this", "other"):
+                build.function = sets[tree].__getitem__
+                for kname, call in calls.items():
+                    first, second = call(), call()
+                    torch.cuda.synchronize()
+                    tol = TOL_O if kname == "flash_fwd" else TOL_GRAD
+                    for got, ref in zip(first, refs[kname]):
+                        e, rel = _err(got, ref)
+                        if not (math.isfinite(e) and rel <= tol):
+                            fail(f"[ab] {label} {tree} {kname}: {rel:.3g} of "
+                                 f"max |plain| exceeds {tol}")
+                    repeat = all(torch.equal(x, y)
+                                 for x, y in zip(first, second))
+                    if tree == "this" and kname != "flash_bwd_fused" \
+                            and not repeat:
+                        fail(f"[ab] {label} {kname}: two runs differ")
+                    outs[tree, kname] = first
+                    times[kname][tree].append(cuda_ms(call, iters))
+                    times[kname][tree + "_paced"].append(
+                        cuda_ms(call, iters, paced=True))
+            build.function = real_function
+            for got, ref in zip(outs["this", "flash_bwd_fused"][1:],
+                                outs["other", "flash_bwd_fused"][1:]):
+                if not torch.equal(got, ref):
+                    fail(f"[ab] {label} flash_bwd_fused dk/dv differ "
+                         f"between the trees")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=kv != h), iters)
+            aten_ms, aten_note = _sdpa_backward_ms(q, k, v, do, causal,
+                                                   iters)
+            work = kernel_work(b, l, h, kv, d, causal)
+            row = rows[label] = {"shape": [b, l, h, kv, d, causal],
+                                 "sdpa_fwd_ms": sdpa_ms,
+                                 "aten_bwd_ms": aten_ms}
+            for kname, t in times.items():
+                mean = {key: sum(vals) / len(vals) for key, vals in t.items()}
+                b_ms, b_by = bound(*work[kname])
+                row[kname] = dict(mean, runs=t, bound_ms=b_ms, bound_by=b_by)
+                runs = t["other"][:1] + t["this"] + t["other"][1:]  # in turn
+                print(f"[ab] {label} [B={b} L={l} H={h} KV={kv} D={d} "
+                      f"causal={causal}] {kname}: other "
+                      f"{mean['other']:.4f} ms this {mean['this']:.4f} ms "
+                      f"(x other {mean['this'] / mean['other']:.3f}; runs "
+                      f"{' '.join(f'{x:.4f}' for x in runs)}) "
+                      f"host-paced other {mean['other_paced']:.4f} this "
+                      f"{mean['this_paced']:.4f}; bound {b_ms:.5f} ({b_by}),"
+                      f" this x bound {mean['this'] / b_ms:.2f}")
+            pair = {tree: row["flash_bwd_dq"][tree]
+                    + row["flash_bwd_dkv"][tree] for tree in ("other", "this")}
+            aten = "null" if aten_ms is None else f"{aten_ms:.4f}"
+            print(f"[ab] {label} flash_fwd x SDPA fwd ({sdpa_ms:.4f} ms): "
+                  f"other {row['flash_fwd']['other'] / sdpa_ms:.3f} this "
+                  f"{row['flash_fwd']['this'] / sdpa_ms:.3f}; pair dq+dkv "
+                  f"other {pair['other']:.4f} this {pair['this']:.4f} ms vs "
+                  f"{aten_note} {aten}")
+    finally:
+        build.function = real_function
+    print(smi)
+    print(json.dumps({"kernels_ab": rows, "device": name, "smi": smi}))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:] == [LLAMA_PHASE]:
         return llama_child()
@@ -5380,6 +5562,8 @@ def main() -> int:
         return deterministic_child(overlap=True, elastic=False)
     if sys.argv[1:] == [DETERMINISTIC_PHASE]:
         return deterministic_child(overlap=True, elastic=True)
+    if sys.argv[1:2] == [AB_PHASE] and len(sys.argv) == 3:
+        return kernels_ab(sys.argv[2])
     if sys.argv[1:] == [ACCUM_PHASE]:
         # the [grad_accum] comparison alone (K=4 against K=1), e.g. on a
         # copy of the port with a fault planted in the accumulation
@@ -5488,12 +5672,12 @@ def main() -> int:
     phase_mfu(smi)
     lap("memory, mfu")
     kernels = []
-    for kname, (src, replaces, path, shape, design) in KERNELS.items():
+    for kname, (src, replaces, path, shape, _design) in KERNELS.items():
         kernels.append(dict(
             name=kname, route="cuda", source=f"{PKG}/{src}",
             replaces=f"{JAX_PKG}/{replaces}", launches=counts[path][kname],
             launches_by_path={p: c[kname] for p, c in counts.items()},
-            path=path, tensor_cores=tensor_cores[kname], design=design,
+            path=path, tensor_cores=tensor_cores[kname],
             **rows[shape][kname],
             at_shapes={label: rows[label][kname]
                        for label in ROW_SHAPES}))

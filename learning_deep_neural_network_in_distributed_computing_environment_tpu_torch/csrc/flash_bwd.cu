@@ -25,11 +25,11 @@
 //   ~64 and ~76 MB of inputs and outputs, so both are bound by bytes
 //   (~19 and ~23 us at 3.35 TB/s; the bf16 tensor cores need ~3 us).  The
 //   first versions ran every product on the fp32 FMA pipes from fp32
-//   shared tiles (~10x their bound); here every product is
-//   mma.sync.m16n8k16 (bf16 operands from cp.async-staged tiles read by
-//   ldmatrix, fp32 accumulators), and p and ds stay in registers, rounded
+//   shared tiles (~10x their bound); p and ds stay in registers, rounded
 //   only where the TPU kernels round.
-//   - bwd_dq_kernel_tc: the forward's arrangement.  One block of 4 warps
+//   - bwd_dq_kernel_tc: mma.sync.m16n8k16 (bf16 operands from
+//     cp.async-staged tiles read by ldmatrix, fp32 accumulators), in the
+//     forward's old arrangement.  One block of 4 warps
 //     per (64-row query tile, query head, batch), each warp owning 16 query
 //     rows; Q and dO are staged once, lse and delta of the lane's two rows
 //     live in registers, and K/V stream through a two-stage cp.async ring
@@ -41,19 +41,33 @@
 //     dq += ds K, with K read by transposed ldmatrix from the same staged
 //     tile: ds never touches shared memory.  dq is written once, as bf16,
 //     through the warp's own rows of the Q tile as 16-byte stores.
-//   - bwd_dkv_kernel_tc: bwd_kv_body<D, false> (flash_bwd_kv.cuh), the
-//     fused kernel's FA-2 body without its dq: one block per (64-row key
-//     tile, K/V head, batch), warps owning key rows, the group's (member,
-//     query tile) cells streaming through a Q/dO/lse/delta ring, and
-//     dv += p^T dO, dk += ds^T q fed from registers (p rounded to dO's
-//     dtype, :274; ds to q's, :281).  Without ds^T in shared memory and
-//     the dq cell it needs less of both than the fused kernel: 3 blocks
-//     per SM at D <= 64 (DkvOccupancy) where the fused kernel fits 2.
+//   - bwd_dkv_kernel_sm90: designed for this card (wgmma on TMA-fed shared
+//     memory, helpers in flash_sm90.cuh), organised around the key block
+//     so that Q and dO are read once per 128 keys, not once per 64.  An
+//     item is 128 key rows of one (batch, K/V head): two consumer
+//     warpgroups of 64 key rows (wgmma's M) and one producer warp a block.
+//     The producer loads the item's K and V once, then streams the group's
+//     (member, query tile) cells through a four-stage ring: Q and dO by
+//     TMA, lse and delta by its lanes' plain loads; each cell feeds every
+//     key row of the item.  Per cell S^T = K Q^T and dP^T = V dO^T are
+//     wgmma from shared memory, p and ds are fp32 on the accumulators, and
+//     dv += p^T dO, dk += ds^T q are wgmma with p^T and ds^T as register A
+//     operands (p rounded to dO's dtype, :274; ds to q's, :281) and dO, Q
+//     read transposed.  dk and dv sum in registers over the whole group
+//     and are written once through the warpgroup's own rows of the K and V
+//     tiles by TMA: no atomics, so the pair's bits repeat from run to run.
+//     The registers allow one block an SM, so the grid is persistent: the
+//     resident blocks walk the items (heaviest first under causal, in
+//     alternating order), K and V double-buffered, so the next item's K, V
+//     and first cells land while this one is multiplied and stored.  A
+//     ragged last query tile is cut to a multiple of 16 rows (vit's 196
+//     queries cost 208 columns); causal items start at their diagonal
+//     tile, and a warpgroup skips the cells its keys cannot be seen by.
 // - fp32, bwd_dq_kernel / bwd_dkv_kernel: the first version's FMA kernels,
 //   kept so that fp32 inputs keep full fp32 products (a TF32 product would
 //   drop to ~3 decimal digits).  One block per output tile, products from
 //   fp32 shared tiles, p and ds through shared memory (probs_and_ds).
-#include "flash_bwd_kv.cuh"
+#include "flash_sm90.cuh"
 
 namespace flash {
 
@@ -373,31 +387,305 @@ bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// Blocks per SM asked of ptxas for bwd_dkv_kernel_tc.  At D <= 64, 3 caps
-// the registers at 168 so that 3 blocks of 4 warps share an SM (56 KB of
-// shared memory each at D=64; uncapped, 180 registers allow 2), which ran
-// faster at every shape chip_smoke.py times despite 56 bytes of spill
-// stores at D=64, and gave the same bits.  At D = 128 the cap would spill heavily, so
-// it asks for none.
+}  // namespace tc
+
+namespace sm90 {
+
+constexpr int DKV_WG_KEYS = 64;                  // key rows of a consumer warpgroup (wgmma M)
+constexpr int DKV_BK = CONSUMERS * DKV_WG_KEYS;  // key rows of a block
+constexpr int DKV_STAGES = 4;                    // cells in the Q/dO/lse/delta ring
+
 template <int D>
-struct DkvOccupancy {
-  static constexpr int MIN_BLOCKS = D <= 64 ? 3 : 1;
+struct DkvSmem {
+  // query rows of a cell: 32 at D = 128 keeps dk, dv, S^T and dP^T in registers
+  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int KV_TILE = Layout<D>::bytes(DKV_BK);
+  static constexpr int Q_TILE = Layout<D>::bytes(BQ);
+  // K, V of two items (the next item's land while this one's are used),
+  // then the cell ring
+  static constexpr int Q = 4 * KV_TILE, DO = Q + DKV_STAGES * Q_TILE;
+  static constexpr int ROWS = DO + DKV_STAGES * Q_TILE;  // fp32 [stage][lse, delta][BQ]
+  static constexpr int TILES = ROWS + DKV_STAGES * 2 * BQ * 4;
+  static constexpr int BARRIERS = 4 + 2 * DKV_STAGES;
+  static constexpr size_t BYTES = TILES + BARRIERS * 8 + 1024;  // + the alignment of the tiles
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, DkvOccupancy<D>::MIN_BLOCKS)
-bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV, int Lq, int Lk,
-                  long long sqb, long long sql, long long sqh, long long skb, long long skl,
-                  long long skh, long long svb, long long svl, long long svh, long long sdb,
-                  long long sdl, long long sdh, int causal, float scale) {
-  bwd_kv_body<D, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, H, KV, Lq, Lk, sqb, sql, sqh,
-                        skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);
+// One cell of NQ query rows (BQ, or 16/32/48 for a ragged last tile) for
+// the warpgroup's 64 key rows from kw: S^T = K Q^T and dP^T = V dO^T, p and
+// ds on the accumulators, dv += p^T dO and dk += ds^T q.
+template <int D, int NQ>
+__device__ __forceinline__ void dkv_cell(float (&dk)[D / 2], float (&dv)[D / 2], uint32_t sk,
+                                         uint32_t sv, uint32_t sq, uint32_t sdo,
+                                         const float* rows, int q0, int kw, int Lq, int Lk,
+                                         int causal, float scale) {
+  constexpr int BQ = DkvSmem<D>::BQ;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  float s[NQ / 2], dp[NQ / 2];
+#pragma unroll
+  for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
+  hold(s);
+  hold(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<NQ>(s, desc_k<D>(sk, DKV_BK, wg * DKV_WG_KEYS, kk), desc_k<D>(sq, BQ, 0, kk),
+                 kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<NQ>(dp, desc_k<D>(sv, DKV_BK, wg * DKV_WG_KEYS, kk), desc_k<D>(sdo, BQ, 0, kk),
+                 kk > 0);
+  wgmma_commit();
+  wgmma_wait();
+  hold(s);
+  hold(dp);
+
+  // p = exp(s scale - lse), ds = p (dp - delta) scale, in fp32; masked
+  // pairs (causal, ragged keys or queries) get p = ds = 0
+  const float sl2 = scale * LOG2E;
+  const int kr = kw + warp * 16 + gid;  // this thread's key rows: kr, kr + 8
+  const bool edge = (causal && kw + DKV_WG_KEYS - 1 > q0) || kw + DKV_WG_KEYS > Lk ||
+                    q0 + NQ > Lq;
+#pragma unroll
+  for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = j * 8 + tig * 2 + (e & 1), kpos = kr + (e >> 1) * 8;
+      float p = exp2_fast(fmaf(s[4 * j + e], sl2, -rows[qc] * LOG2E));
+      if (edge && !(q0 + qc < Lq && visible(q0 + qc, kpos, Lk, causal))) p = 0.f;
+      s[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - rows[BQ + qc]) * scale;
+    }
+
+  // dv += p^T dO and dk += ds^T q, p and ds rounded to bf16 in registers
+  // (dO's and q's dtype), dO and Q read transposed
+  uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+#pragma unroll
+  for (int kq = 0; kq < NQ / 16; ++kq) {
+    a_from_acc(pa[kq], s, kq);
+    a_from_acc(da[kq], dp, kq);
+  }
+  hold(dk);
+  hold(dv);
+  hold(pa);
+  hold(da);
+  wgmma_fence();
+#pragma unroll
+  for (int kq = 0; kq < NQ / 16; ++kq) {
+    wgmma_rs_tb<D>(dv, pa[kq], desc_mn<D>(sdo, BQ, kq));
+    wgmma_rs_tb<D>(dk, da[kq], desc_mn<D>(sq, BQ, kq));
+  }
+  wgmma_commit();
+  wgmma_wait();
+  hold(dk);
+  hold(dv);
 }
 
-}  // namespace tc
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdk,
+                    const __grid_constant__ CUtensorMap tdv, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int B, int H, int KV, int Lq, int Lk,
+                    int causal, float scale) {
+  static_assert(sizeof(T) == 2, "the bf16 instance");
+  using S = DkvSmem<D>;
+  constexpr int BQ = S::BQ;
+  extern __shared__ __align__(16) unsigned char smem_dkv[];
+  const uint32_t raw = smem_addr(smem_dkv);
+  const uint32_t tiles = (raw + S::BARRIERS * 8 + 1023) & ~1023u;
+  unsigned char* tiles_p = smem_dkv + (tiles - raw);
+  float* rows_p = reinterpret_cast<float*>(tiles_p + S::ROWS);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem_dkv);  // [2]
+  uint64_t* kv_empty = kv_full + 2;                            // [2]
+  uint64_t* cell_full = kv_empty + 2;                          // [DKV_STAGES]
+  uint64_t* cell_empty = cell_full + DKV_STAGES;               // [DKV_STAGES]
+
+  const int rep = H / KV;
+  const int nq = (Lq + BQ - 1) / BQ, nkb = (Lk + DKV_BK - 1) / DKV_BK;
+  const int items = nkb * KV * B;
+  // item i: key block i / (KV B) of K/V head i % KV of batch (i / KV) % B, so
+  // under causal the items come heaviest first (the first key block sees
+  // every query tile); its cells: member c / ntv, query tile t0 + c % ntv,
+  // for c < rep ntv.  Block x takes item k G + x in even turns k and
+  // k G + G - 1 - x in odd ones (G blocks), which evens out the blocks'
+  // loads when the items' costs fall.
+  struct Item {
+    int k0, g, b, t0, ntv;
+  };
+  auto item = [&](int i) {
+    Item it;
+    it.k0 = (i / (KV * B)) * DKV_BK;
+    it.g = i % KV;
+    it.b = (i / KV) % B;
+    // causal: query tile t sees the block's keys iff t BQ + BQ - 1 >= k0
+    it.t0 = causal ? min(it.k0 / BQ, nq) : 0;
+    it.ntv = nq - it.t0;
+    return it;
+  };
+  auto turn = [&](int k) {  // this block's item in its k-th turn
+    return k * gridDim.x + (k & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      bar_init(&kv_full[i], 1);
+      bar_init(&kv_empty[i], CONSUMERS);  // thread 0 of each consumer warpgroup
+    }
+    for (int i = 0; i < DKV_STAGES; ++i) {
+      bar_init(&cell_full[i], 32);              // the producer warp's lanes
+      bar_init(&cell_empty[i], CONSUMERS * 4);  // lane 0 of every consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    const int lane = threadIdx.x % 32;
+    int cc = 0;  // cells streamed so far
+    for (int n = 0, i = turn(0); i < items; i = turn(++n)) {
+      const Item it = item(i);
+      const int buf = n & 1;
+      if (lane == 0) {
+        // the buffer's last item has been stored out of it
+        bar_wait(&kv_empty[buf], ((n >> 1) & 1) ^ 1);
+        bar_arrive_tx(&kv_full[buf], 2 * S::KV_TILE);
+        for (int w = 0; w < CONSUMERS; ++w) {
+          const uint32_t at = tiles + buf * 2 * S::KV_TILE + w * DKV_WG_KEYS * Layout<D>::ROW;
+          const int row0 = it.k0 + w * DKV_WG_KEYS;
+          load_tile<D>(at, &tk, &kv_full[buf], DKV_BK, it.g, row0, it.b);
+          load_tile<D>(at + S::KV_TILE, &tv, &kv_full[buf], DKV_BK, it.g, row0, it.b);
+        }
+      }
+      for (int c = 0; c < rep * it.ntv; ++c, ++cc) {
+        const int st = cc % DKV_STAGES;
+        const int h = it.g * rep + c / it.ntv, q0 = (it.t0 + c % it.ntv) * BQ;
+        bar_wait(&cell_empty[st], ((cc / DKV_STAGES) & 1) ^ 1);
+        float* sl = rows_p + st * 2 * BQ;
+        const long long at = ((long long)it.b * H + h) * Lq + q0;
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = q0 + r < Lq;
+          sl[r] = ok ? lse[at + r] : 0.f;
+          sl[BQ + r] = ok ? delta[at + r] : 0.f;
+        }
+        if (lane == 0) {
+          bar_arrive_tx(&cell_full[st], 2 * S::Q_TILE);
+          load_tile<D>(tiles + S::Q + st * S::Q_TILE, &tq, &cell_full[st], BQ, h, q0, it.b);
+          load_tile<D>(tiles + S::DO + st * S::Q_TILE, &tdo, &cell_full[st], BQ, h, q0, it.b);
+        } else {
+          bar_arrive(&cell_full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;
+  int cc = 0;  // cells consumed so far
+  for (int n = 0, i = turn(0); i < items; i = turn(++n)) {
+    const Item it = item(i);
+    const int buf = n & 1;
+    const int kw = it.k0 + wg * DKV_WG_KEYS;  // this warpgroup's first key row
+    const uint32_t sk = tiles + buf * 2 * S::KV_TILE, sv = sk + S::KV_TILE;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+    bar_wait(&kv_full[buf], (n >> 1) & 1);
+    if (leader && n > 0) {
+      // the previous item's dk/dv have left the other buffer: hand it back
+      tma_store_wait();
+      bar_arrive(&kv_empty[buf ^ 1]);
+    }
+    for (int c = 0; c < rep * it.ntv; ++c, ++cc) {
+      const int st = cc % DKV_STAGES;
+      const int q0 = (it.t0 + c % it.ntv) * BQ, rows = min(BQ, Lq - q0);
+      bar_wait(&cell_full[st], (cc / DKV_STAGES) & 1);
+      // causal: a cell whose queries all precede this warpgroup's keys adds nothing
+      if (!(causal && q0 + rows - 1 < kw)) {
+        const uint32_t sq = tiles + S::Q + st * S::Q_TILE, sdo = tiles + S::DO + st * S::Q_TILE;
+        const float* sl = rows_p + st * 2 * BQ;
+        const int n16 = (rows + 15) / 16;
+        if (n16 == 1) {
+          dkv_cell<D, 16>(dk, dv, sk, sv, sq, sdo, sl, q0, kw, Lq, Lk, causal, scale);
+        } else if (n16 == 2 || BQ == 32) {
+          dkv_cell<D, 32>(dk, dv, sk, sv, sq, sdo, sl, q0, kw, Lq, Lk, causal, scale);
+        } else if constexpr (BQ == 64) {
+          if (n16 == 3)
+            dkv_cell<D, 48>(dk, dv, sk, sv, sq, sdo, sl, q0, kw, Lq, Lk, causal, scale);
+          else
+            dkv_cell<D, 64>(dk, dv, sk, sv, sq, sdo, sl, q0, kw, Lq, Lk, causal, scale);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&cell_empty[st]);
+    }
+
+    // dk and dv into this warpgroup's rows of the item's K and V tiles
+    // (only this warpgroup reads them, and its last product is done), in
+    // the layout they came in, then out by TMA (rows past Lk are not
+    // written); the buffer goes back to the producer once TMA has read it
+    unsigned char* kp = tiles_p + buf * 2 * S::KV_TILE;
+    const int row = wg * DKV_WG_KEYS + warp * 16 + gid;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tig * 2;
+      const uint32_t lo = swizzled<D>(DKV_BK, row, col), hi = swizzled<D>(DKV_BK, row + 8, col);
+      *reinterpret_cast<uint32_t*>(kp + lo) = pack_bf16(dk[4 * j], dk[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(kp + hi) = pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(kp + S::KV_TILE + lo) = pack_bf16(dv[4 * j], dv[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(kp + S::KV_TILE + hi) =
+          pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+    }
+    fence_async_smem();
+    warpgroup_sync(wg);
+    if (leader) {
+      const uint32_t at = wg * DKV_WG_KEYS * Layout<D>::ROW;
+      store_tile<D>(&tdk, sk + at, DKV_BK, it.g, kw, it.b);
+      store_tile<D>(&tdv, sv + at, DKV_BK, it.g, kw, it.b);
+      tma_store_commit();
+    }
+  }
+  if (leader) tma_store_wait();
+}
+
+template <int D>
+int dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+        const float* delta, void* dk, void* dv, int B, int H, int KV, int Lq, int Lk,
+        long long sqb, long long sql, long long sqh, long long skb, long long skl,
+        long long skh, long long svb, long long svl, long long svh, long long sdb,
+        long long sdl, long long sdh, int causal, float scale, void* stream) {
+  using S = DkvSmem<D>;
+  const long long pb = (long long)Lk * KV * D, pl = (long long)KV * D;  // dk/dv: contiguous
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int err = encode<D>(&tq, q, B, Lq, H, sqb, sql, sqh, S::BQ);
+  if (!err) err = encode<D>(&tdo, dout, B, Lq, H, sdb, sdl, sdh, S::BQ);
+  if (!err) err = encode<D>(&tk, k, B, Lk, KV, skb, skl, skh, DKV_WG_KEYS);
+  if (!err) err = encode<D>(&tv, v, B, Lk, KV, svb, svl, svh, DKV_WG_KEYS);
+  if (!err) err = encode<D>(&tdk, dk, B, Lk, KV, pb, pl, D, DKV_WG_KEYS);
+  if (!err) err = encode<D>(&tdv, dv, B, Lk, KV, pb, pl, D, DKV_WG_KEYS);
+  if (err) return err;
+  auto kernel = bwd_dkv_kernel_sm90<bf16, D>;
+  constexpr size_t smem = S::BYTES;
+  static const int per_sm = resident_blocks(kernel, smem);
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t set = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (set != cudaSuccess) return (int)set;
+  // persistent: the resident blocks walk the (key block, K/V head, batch)
+  // items
+  const int items = (Lk + DKV_BK - 1) / DKV_BK * KV * B;
+  const dim3 grid(std::min(items, sm_count() * per_sm));
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(tq, tk, tv, tdo, tdk, tdv, lse, delta,
+                                                         B, H, KV, Lq, Lk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
 
 }  // namespace flash
 
@@ -447,13 +735,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int causal, float scale, void* stream) {
   using namespace flash;
   if (dtype == FLASH_DTYPE_BF16) {
-    using tc::bf16;
-    const dim3 grid((Lk + tc::BWD_BK - 1) / tc::BWD_BK, KV, B);
     FLASH_HEAD_DIM(head_dim, {
-      return tc::launch(tc::bwd_dkv_kernel_tc<D>, grid, tc::bwd_kv_smem<D, false>(), stream,
-                        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-                        delta, (bf16*)dk, (bf16*)dv, H, KV, Lq, Lk, sqb, sql, sqh, skb, skl,
-                        skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);
+      return sm90::dkv<D>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, Lq, Lk, sqb, sql, sqh,
+                          skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale, stream);
     });
   } else if (dtype == FLASH_DTYPE_F32) {
     const dim3 grid((Lk + BK - 1) / BK, KV, B);

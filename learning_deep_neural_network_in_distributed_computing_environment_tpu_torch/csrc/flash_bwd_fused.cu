@@ -33,10 +33,10 @@
 //   At its shape (B=64, L=128, H=16, KV=4, D=64, causal) the five products
 //   per visible (query, key) pair come to ~5 GFLOP against ~68 MB of
 //   inputs and outputs, so it is bound by bytes (~20 us at 3.35 TB/s).  Its
-//   body is bwd_kv_body<D, true> in flash_bwd_kv.cuh, the FA-2 backward
-//   arrangement it shares with the two-pass bwd_dkv_kernel_tc: warps own
-//   key rows, p and ds go from the C fragments of S^T and dP^T straight
-//   into dv += p^T dO and dk += ds^T q, and only ds^T goes to shared memory
+//   body is bwd_kv_body<D> in flash_bwd_kv.cuh, the FA-2 backward
+//   arrangement: warps own key rows, p and ds go from the C fragments of
+//   S^T and dP^T straight into dv += p^T dO and dk += ds^T q, and only
+//   ds^T goes to shared memory
 //   (bf16, once per cell) for dq_cell = ds k, which is added as float4
 //   reductions after a quad-neighbour exchange (a quarter of the scalar
 //   atomics).  Query tiles are 64 rows at D <= 64 and 32 at D = 128.
@@ -181,7 +181,7 @@ bwd_fused_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     long long skb, long long skl, long long skh, long long svb, long long svl,
                     long long svh, long long sdb, long long sdl, long long sdh, int causal,
                     float scale) {
-  bwd_kv_body<D, true>(q, k, v, dout, lse, delta, dq_acc, dk, dv, H, KV, Lq, Lk, sqb, sql, sqh,
+  bwd_kv_body<D>(q, k, v, dout, lse, delta, dq_acc, dk, dv, H, KV, Lq, Lk, sqb, sql, sqh,
                        skb, skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);
 }
 
@@ -206,7 +206,7 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v, cons
     using tc::bf16;
     const dim3 grid((Lk + tc::BWD_BK - 1) / tc::BWD_BK, KV, B);
     FLASH_HEAD_DIM(head_dim, {
-      return tc::launch(tc::bwd_fused_kernel_tc<D>, grid, tc::bwd_kv_smem<D, true>(), stream,
+      return tc::launch(tc::bwd_fused_kernel_tc<D>, grid, tc::bwd_kv_smem<D>(), stream,
                         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
                         delta, dq_acc, (bf16*)dk, (bf16*)dv, H, KV, Lq, Lk, sqb, sql, sqh, skb,
                         skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale);

@@ -1,8 +1,6 @@
-// The key-rows-per-warp tensor-core backward body (sm_90a), shared by the
-// bf16 instances of two kernels:
-// - bwd_fused_kernel_tc (flash_bwd_fused.cu), WITH_DQ = true: dk, dv and
-//   each cell's dq = ds k, added into a zero-filled fp32 accumulator;
-// - bwd_dkv_kernel_tc (flash_bwd.cu), WITH_DQ = false: dk and dv only.
+// The key-rows-per-warp tensor-core backward body (sm_90a) of the fused
+// kernel's bf16 instance, bwd_fused_kernel_tc (flash_bwd_fused.cu): dk, dv
+// and each cell's dq = ds k, added into a zero-filled fp32 accumulator.
 //
 // One block of 4 warps per (64-row key tile, K/V head, batch), each warp
 // owning 16 key rows (FA-2's backward arrangement).  The block walks the
@@ -16,10 +14,10 @@
 // so p and ds never touch shared memory and dk/dv sum in registers across
 // the whole group, written once with no atomics.  Rounding is where the
 // TPU kernels round: p to dO's dtype for dv (pallas_ops.py:274, :335), ds to
-// q's for dk (:281, :342) and, for dq, to k's (:345).  Only the fused
-// kernel's dq needs ds^T in shared memory (bf16, once per cell), read back
-// by a transposed ldmatrix; its warps each own a 16-row slice of the cell
-// and add it as float4 reductions after a quad-neighbour exchange.
+// q's for dk (:281, :342) and, for dq, to k's (:345).  dq needs ds^T in
+// shared memory (bf16, once per cell), read back by a transposed ldmatrix;
+// the warps each own a 16-row slice of the cell and add it as float4
+// reductions after a quad-neighbour exchange.
 #pragma once
 
 #include "flash_mma.cuh"
@@ -36,16 +34,15 @@ struct BwdTile {
   static constexpr int BQ = D <= 64 ? 64 : 32;
 };
 
-// Dynamic shared memory of the body: K, V, the Q/dO ring, ds^T (dq only)
-// and the lse/delta ring.
-template <int D, bool WITH_DQ>
+// Dynamic shared memory of the body: K, V, the Q/dO ring, ds^T and the
+// lse/delta ring.
+template <int D>
 constexpr size_t bwd_kv_smem() {
   constexpr int BQ = BwdTile<D>::BQ, LD = Pad<D>::LD, LDS = Pad<BQ>::LD;
-  return sizeof(bf16) * (2 * BWD_BK * LD + 4 * BQ * LD + (WITH_DQ ? BWD_BK * LDS : 0)) +
-         sizeof(float) * 4 * BQ;
+  return sizeof(bf16) * (2 * BWD_BK * LD + 4 * BQ * LD + BWD_BK * LDS) + sizeof(float) * 4 * BQ;
 }
 
-template <int D, bool WITH_DQ>
+template <int D>
 __device__ __forceinline__ void bwd_kv_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -59,9 +56,9 @@ __device__ __forceinline__ void bwd_kv_body(
   bf16* sV = sK + BK * LD;                      // [BK][LD]
   bf16* sQ = sV + BK * LD;                      // [2][BQ][LD] ring
   bf16* sdO = sQ + 2 * BQ * LD;                 // [2][BQ][LD] ring
-  bf16* sdS = sdO + 2 * BQ * LD;                // [BK][LDS] ds^T of the current cell (dq only)
-  float* sLse = reinterpret_cast<float*>(sdS + (WITH_DQ ? BK * LDS : 0));  // [2][BQ] ring
-  float* sDelta = sLse + 2 * BQ;                                           // [2][BQ] ring
+  bf16* sdS = sdO + 2 * BQ * LD;                // [BK][LDS] ds^T of the current cell
+  float* sLse = reinterpret_cast<float*>(sdS + BK * LDS);  // [2][BQ] ring
+  float* sDelta = sLse + 2 * BQ;                           // [2][BQ] ring
 
   const int kt = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int rep = H / KV;
@@ -171,53 +168,51 @@ __device__ __forceinline__ void bwd_kv_body(
       }
     }
 
-    if constexpr (WITH_DQ) {
-      // ds^T to shared memory as bf16, for dq
+    // ds^T to shared memory as bf16, for dq
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        bf16* at = sdS + (wrow + gid) * LDS + j * 8 + tig * 2;
-        *reinterpret_cast<uint32_t*>(at) = pack_bf16(dp[j][0], dp[j][1]);
-        *reinterpret_cast<uint32_t*>(at + 8 * LDS) = pack_bf16(dp[j][2], dp[j][3]);
-      }
-      __syncthreads();  // ds^T complete
+    for (int j = 0; j < BQ / 8; ++j) {
+      bf16* at = sdS + (wrow + gid) * LDS + j * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(at) = pack_bf16(dp[j][0], dp[j][1]);
+      *reinterpret_cast<uint32_t*>(at + 8 * LDS) = pack_bf16(dp[j][2], dp[j][3]);
+    }
+    __syncthreads();  // ds^T complete
 
-      // dq_cell = ds k: warp w owns query rows 16 (w % RG).. and head-dim
-      // columns [cp0, cp0 + DC)
-      constexpr int RG = BQ / 16, DC = D / (WARPS / RG);
-      const int rg = warp % RG, cp0 = (warp / RG) * DC;
-      float dqc[DC / 8][4];
+    // dq_cell = ds k: warp w owns query rows 16 (w % RG).. and head-dim
+    // columns [cp0, cp0 + DC)
+    constexpr int RG = BQ / 16, DC = D / (WARPS / RG);
+    const int rg = warp % RG, cp0 = (warp / RG) * DC;
+    float dqc[DC / 8][4];
 #pragma unroll
-      for (int j = 0; j < DC / 8; ++j)
+    for (int j = 0; j < DC / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dqc[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) dqc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4_t(a, at_addr<LDS>(sdS, rg * 16, kk * 16, lane));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_t(a, at_addr<LDS>(sdS, rg * 16, kk * 16, lane));
 #pragma unroll
-        for (int np = 0; np < DC / 16; ++np) {
-          uint32_t f[4];
-          ldsm_x4_t(f, bn_addr<LD>(sK, cp0 + np * 16, kk * 16, lane));
-          mma(dqc[2 * np], a, f[0], f[1]);
-          mma(dqc[2 * np + 1], a, f[2], f[3]);
-        }
+      for (int np = 0; np < DC / 16; ++np) {
+        uint32_t f[4];
+        ldsm_x4_t(f, bn_addr<LD>(sK, cp0 + np * 16, kk * 16, lane));
+        mma(dqc[2 * np], a, f[0], f[1]);
+        mma(dqc[2 * np + 1], a, f[2], f[3]);
       }
-      // into the fp32 accumulator as float4 reductions: the quad neighbours
-      // swap halves, so even lanes hold 4 columns of row gid and odd lanes 4
-      // columns of row gid + 8
-      const int h = g * rep + c / nqv;
-      const bool odd = tig & 1;
-      const int qpos = q0 + rg * 16 + gid + (odd ? 8 : 0);
-      float* dq_row = dq_acc + (((long long)b * Lq + qpos) * H + h) * D + cp0 + (tig & 2) * 2;
+    }
+    // into the fp32 accumulator as float4 reductions: the quad neighbours
+    // swap halves, so even lanes hold 4 columns of row gid and odd lanes 4
+    // columns of row gid + 8
+    const int h = g * rep + c / nqv;
+    const bool odd = tig & 1;
+    const int qpos = q0 + rg * 16 + gid + (odd ? 8 : 0);
+    float* dq_row = dq_acc + (((long long)b * Lq + qpos) * H + h) * D + cp0 + (tig & 2) * 2;
 #pragma unroll
-      for (int j = 0; j < DC / 8; ++j) {
-        const float y0 = __shfl_xor_sync(0xffffffffu, odd ? dqc[j][0] : dqc[j][2], 1);
-        const float y1 = __shfl_xor_sync(0xffffffffu, odd ? dqc[j][1] : dqc[j][3], 1);
-        if (qpos < Lq)
-          atomicAdd(reinterpret_cast<float4*>(dq_row + j * 8),
-                    odd ? make_float4(y0, y1, dqc[j][2], dqc[j][3])
-                        : make_float4(dqc[j][0], dqc[j][1], y0, y1));
-      }
+    for (int j = 0; j < DC / 8; ++j) {
+      const float y0 = __shfl_xor_sync(0xffffffffu, odd ? dqc[j][0] : dqc[j][2], 1);
+      const float y1 = __shfl_xor_sync(0xffffffffu, odd ? dqc[j][1] : dqc[j][3], 1);
+      if (qpos < Lq)
+        atomicAdd(reinterpret_cast<float4*>(dq_row + j * 8),
+                  odd ? make_float4(y0, y1, dqc[j][2], dqc[j][3])
+                      : make_float4(dqc[j][0], dqc[j][1], y0, y1));
     }
     __syncthreads();  // every warp is done with stage st (and sdS)
   }

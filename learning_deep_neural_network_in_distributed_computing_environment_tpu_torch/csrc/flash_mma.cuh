@@ -1,6 +1,8 @@
-// Tensor-core building blocks of the bf16 flash kernels (sm_90a): tiles
-// staged as bf16 in shared memory by 16-byte cp.async, read with ldmatrix,
-// multiplied by mma.sync.m16n8k16 (bf16 in, fp32 accumulate).
+// Tensor-core building blocks of the bf16 dq and fused backward kernels
+// (sm_90a): tiles staged as bf16 in shared memory by 16-byte cp.async, read
+// with ldmatrix, multiplied by mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate).  The wgmma kernels (flash_sm90.cuh) share its scalar
+// helpers: exp2_fast, pack_bf16, the constants.
 //
 // Fragment layouts of mma.m16n8k16 (gid = lane / 4, tig = lane % 4):
 //   A 16x16: a0 (gid, 2tig..+1), a1 (gid+8, 2tig..), a2 (gid, 8+2tig..),

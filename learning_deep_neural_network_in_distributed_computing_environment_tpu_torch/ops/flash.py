@@ -17,7 +17,9 @@ Four kernels (``csrc/``, built by ``ops/_build.py``):
 process is either the two-pass pair or the fused kernel, never a mix.
 
 The bf16 instances of all four kernels run their products on the tensor
-cores (``mma.sync`` from ``cp.async``-staged bf16 tiles); the fp32
+cores: ``flash_fwd`` and ``flash_bwd_dkv`` as ``wgmma`` on shared-memory
+tiles that TMA copies in (``csrc/flash_sm90.cuh``), ``flash_bwd_dq`` and
+``flash_bwd_fused`` as ``mma.sync`` from ``cp.async``-staged tiles; the fp32
 instances keep full fp32 products on the FMA pipes.  The two-pass pair
 writes each output once from registers, so its gradients are the same bits
 from run to run; the fused kernel sums dq by atomics.
@@ -31,7 +33,7 @@ them, and whose vmap rule folds a vmapped worker dim into the batch
 launch serves all N workers (the scenario lab, ``sim.py``), and the CPU's
 plain versions go through the same rule.  Before a launch it copies an operand
 the kernels cannot read in place (``_kernel_layout``: head_dim not
-contiguous, or rows not 16-byte aligned for cp.async).  ``LAUNCHES`` counts
+contiguous, or rows not 16-byte aligned for TMA and cp.async).  ``LAUNCHES`` counts
 kernel launches, one per launch and nowhere else, so a run can show which
 path it took.  The plain versions are also what ``chip_smoke.py`` holds the
 kernels against.
@@ -174,7 +176,8 @@ def plain_bwd_fused(q, k, v, do, lse, delta, causal=False):
 # kernel launches
 # --------------------------------------------------------------------------
 
-# cp.async stages operand rows in 16-byte chunks
+# TMA's tensor maps and cp.async's 16-byte copies both need the base and
+# every stride of an operand on a 16-byte boundary
 _ROW_ALIGN = 16
 
 

@@ -186,10 +186,13 @@ def _check_tensor_core_kernels(q, k, v, do, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 129, 200])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 129, 200, 196, 208,
+                                    255, 256, 257, 300, 1000])
 def test_tensor_core_kernels_at_tile_edges(cuda, length, causal):
     """Lengths on and around the 64-row tiles (ragged tails, a single
-    row), 8 query heads over 4 K/V heads, D=64."""
+    row), around the forward's resident K/V limit (256 keys: 257, 300 and
+    1000 stream through the ring) and the 16-key trim of a ragged chunk
+    (196, 208), 8 query heads over 4 K/V heads, D=64."""
     _check_tensor_core_kernels(*_inputs(cuda, 2, length, 8, 4, 64, seed=8),
                                causal)
 
@@ -239,6 +242,47 @@ def test_fused_tensor_core_kernel_repeats_within_tolerance(cuda):
     assert _close(second[0], first[0])
     assert torch.equal(second[1], first[1])
     assert torch.equal(second[2], first[2])
+
+
+@pytest.mark.parametrize("length", [200, 1000], ids=["resident", "streamed"])
+def test_forward_kernel_repeats_bitwise(cuda, length):
+    """Two runs of the forward on the same inputs give the same bits, O and
+    lse, with K/V resident and streamed: every cell is one warpgroup's,
+    summed in one order, with no atomics."""
+    q, k, v, _ = _inputs(cuda, 2, length, 8, 2, 64, seed=13)
+    runs = [t_flash.kernel_forward(q, k, v, True, with_lse=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, first, second in zip(("o", "lse"), *runs):
+        assert torch.equal(second, first), name
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_redesigned_kernels_on_projection_views(cuda, head_dim, rep):
+    """q/k/v as strided views of one projection [B, L, H + 2 KV, D], GQA
+    groups of 1, 2 and 4 at every instantiated head dim, L=196 (a ragged
+    last tile and chunk): the forward's O and lse and the pair's dk/dv
+    against the plain versions at chip_smoke.py's TOL_O, TOL_GRAD and
+    TOL_LSE, with no copy of the views."""
+    rng = np.random.default_rng(14)
+    h, kv = 4, 4 // rep
+    proj = torch.from_numpy(rng.normal(size=(2, 196, h + 2 * kv, head_dim))
+                            .astype(np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = proj[:, :, :h], proj[:, :, h:h + kv], proj[:, :, h + kv:]
+    do = torch.from_numpy(rng.normal(size=(2, 196, h, head_dim)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    assert all(t_flash._rows_aligned(t) for t in (q, k, v))
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], False)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    o, lse = t_flash.kernel_forward(q, k, v, False, with_lse=True)
+    dk, dv = t_flash.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, False)
+    torch.cuda.synchronize()
+    dk_ref, dv_ref = t_flash.plain_bwd_dkv(*f32, lse_ref, delta, False)
+    assert _rel(o, o_ref) <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    assert _rel(dk, dk_ref) <= REL_TOL and _rel(dv, dv_ref) <= REL_TOL
 
 
 def test_two_pass_tensor_core_kernels_repeat_bitwise(cuda):

@@ -290,26 +290,41 @@ def _sass(*functions):
     return "\n".join(lines) + "\n"
 
 
-_BF16_FWD = "_ZN5flash2tc13fwd_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_PS2_Pf"
+def _bf16_fwd(d=64):
+    return (f"_ZN5flash4sm9015fwd_kernel_sm90I13__nv_bfloat16Li{d}EEEv"
+            "14CUtensorMap_stS3_S3_S3_Pfiiiiiif")
+
+
+def _bf16_dkv(d=64):
+    return (f"_ZN5flash4sm9019bwd_dkv_kernel_sm90I13__nv_bfloat16Li{d}EEEv"
+            "14CUtensorMap_stS3_S3_S3_S3_S3_PKfS5_iiiiiif")
+
+
+_BF16_FWD = _bf16_fwd()
 _F32_FWD = "_ZN5flash10fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiiii"
 _BF16_DQ = ("_ZN5flash2tc16bwd_dq_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_S4_"
             "PKfS6_PS2_")
-_BF16_DKV = ("_ZN5flash2tc17bwd_dkv_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_S4_"
-             "PKfS6_PS2_S7_")
+_BF16_DKV = _bf16_dkv()
 _F32_DQ = "_ZN5flash13bwd_dq_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS6_PS1_"
 _BF16_DQ_FMA = "_ZN5flash13bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
 _BF16_FUSED = ("_ZN5flash2tc19bwd_fused_kernel_tcILi64EEEvPK13__nv_bfloat16"
                "S4_S4_S4_PKfS6_PfPS2_S8_")
 _HMMA = "HMMA.16816.F32.BF16 R24, R4.reuse, R16, R24"
+_HGMMA = "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0"
+_UTMALDG = "UTMALDG.4D [UR8], [UR4]"
+_WGMMA = (_UTMALDG, "SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR10], RZ", _HGMMA,
+          "WARPGROUP.DEPBAR.LE gsb0, 0x0")
 _FMA = ["LDS R8, [R2+0x100]", "FFMA R4, R8, R9, R4", "EXIT"]
 _KERNEL_IDS = ("forward", "fused", "dq", "dkv")
 
 
-def _libraries(forward=(_HMMA,), fused=(_HMMA,), dq=(_HMMA,), dkv=(_HMMA,),
-               extra_bwd=()):
+def _libraries(forward=_WGMMA, fused=(_HMMA,), dq=(_HMMA,), dkv=_WGMMA,
+               extra_bwd=(), extra_fwd=()):
     """Canned cuobjdump text of the three libraries: each kernel's bf16
-    instance with the given instructions beside its fp32 FMA instance."""
-    return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, forward)),
+    instance with the given instructions beside its fp32 FMA instance (the
+    wgmma kernels on HGMMA fed by TMA, the others on HMMA, by default)."""
+    return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, forward),
+                               *extra_fwd),
             "flash_bwd": _sass((_F32_DQ, _FMA), (_BF16_DQ, dq),
                                (_BF16_DKV, dkv), *extra_bwd),
             "flash_bwd_fused": _sass((_BF16_FUSED, fused))}
@@ -346,6 +361,72 @@ def test_smoke_sass_check_fails_on_a_bf16_fma_instance_left_beside(capsys):
             _libraries(extra_bwd=[(_BF16_DQ_FMA, _FMA)]))
     err = capsys.readouterr().err
     assert "flash_bwd_dq" in err and "hold no HMMA/HGMMA" in err
+
+
+def test_smoke_sass_check_passes_wgmma_kernels_at_every_head_dim(capsys):
+    """flash_fwd and flash_bwd_dkv on HGMMA fed by TMA at D = 32, 64 and
+    128, dq and the fused kernel on HMMA: the check passes and names each
+    instance's design and its TMA copies."""
+    smoke = _chip_smoke()
+    found = smoke.check_tensor_cores(_libraries(
+        extra_fwd=[(_bf16_fwd(d), _WGMMA) for d in (32, 128)],
+        extra_bwd=[(_bf16_dkv(d), _WGMMA) for d in (32, 128)]))
+    assert found == {"flash_fwd": True, "flash_bwd_dq": True,
+                     "flash_bwd_dkv": True, "flash_bwd_fused": True}
+    out = capsys.readouterr().out
+    assert out.count("(wgmma)") == 6 and out.count("(tensor-core)") == 2
+    assert "UTMALDG" in out
+    assert smoke.KERNELS["flash_fwd"][4] == "wgmma"
+    assert smoke.KERNELS["flash_bwd_dkv"][4] == "wgmma"
+
+
+@pytest.mark.parametrize("kernel", ("forward", "dkv"))
+def test_smoke_sass_check_fails_on_an_hmma_only_wgmma_kernel(capsys, kernel):
+    """A kernel designed for wgmma whose bf16 instance holds only HMMA (the
+    mma.sync design it replaced) fails, though HMMA is a tensor-core
+    instruction."""
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(_libraries(
+            **{kernel: (_UTMALDG, _HMMA)}))
+    err = capsys.readouterr().err
+    assert "designed for wgmma" in err and "no HGMMA" in err
+
+
+@pytest.mark.parametrize("head_dim", (32, 64, 128))
+@pytest.mark.parametrize("kernel", ("forward", "dkv"))
+def test_smoke_sass_check_fails_on_one_hmma_head_dim(capsys, kernel,
+                                                     head_dim):
+    """Every bf16 instance of a wgmma kernel must hold HGMMA: one head
+    dim's instance on HMMA alone fails the check while the others pass."""
+    name = _bf16_fwd if kernel == "forward" else _bf16_dkv
+    canned = [(name(d), (_UTMALDG, _HMMA) if d == head_dim else _WGMMA)
+              for d in (32, 64, 128)]
+    libraries = _libraries()
+    if kernel == "forward":
+        libraries["flash_fwd"] = _sass((_F32_FWD, _FMA), *canned)
+    else:
+        libraries["flash_bwd"] = _sass((_F32_DQ, _FMA), (_BF16_DQ, (_HMMA,)),
+                                       *canned)
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(libraries)
+    assert f"Li{head_dim}E" in capsys.readouterr().err
+
+
+def test_smoke_sass_check_fails_on_a_wgmma_kernel_without_tma(capsys):
+    """HGMMA from shared memory that no TMA copy fills (no UTMALDG) is not
+    the design the wgmma kernels claim."""
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(_libraries(forward=(_HGMMA,)))
+    assert "no UTMALDG" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kernel", ("dq", "fused"))
+def test_smoke_sass_check_keeps_hmma_for_the_tensor_core_kernels(kernel):
+    """dq and the fused kernel keep their mma.sync design: HMMA alone
+    passes for them, HGMMA is not asked of them."""
+    found = _chip_smoke().check_tensor_cores(
+        _libraries(**{kernel: (_HMMA, "EXIT")}))
+    assert all(found.values())
 
 
 def test_smoke_sass_check_fails_without_cuobjdump(capsys, monkeypatch):
