@@ -12,9 +12,8 @@ Phases (any failure exits non-zero before the result line):
              lists the tensor-core instructions (HMMA, HGMMA) and the TMA
              copies (UTMALDG, UTMASTG) in each kernel's bf16 instances, and
              the phase fails if a kernel designed for the tensor cores
-             (all four) has a bf16 instance without them, or a kernel
-             designed for wgmma (flash_fwd, flash_bwd_dkv) one without
-             HGMMA and UTMALDG;
+             has a bf16 instance without them, or a kernel designed for
+             wgmma (all four) one without HGMMA and UTMALDG;
 3. kernels - each flash kernel against its plain PyTorch version on the
              same bf16 inputs, at the gpt2 and llama paths' shapes, at the
              bert/moe [64,128,12,64] and vit [64,196,6,64] instances (full
@@ -23,7 +22,9 @@ Phases (any failure exits non-zero before the result line):
              plain version and a PyTorch attention call (a yardstick the
              port never calls), beside the least time the card could take,
              and the two-pass pair (dq + dkv) against PyTorch's flash
-             backward;
+             backward; the fused kernel's time is its launch alone, with
+             its wrapper's whole time (zero-fill and cast where dq is not
+             written whole) beside it;
 4. path    - the port's CLI flow (main.run) trains full-width gpt2_small
              with --attention_impl flash on synthetic_lm (two-pass
              backward), with launch counters reset just before and read
@@ -327,11 +328,14 @@ Another tree's kernels beside this tree's, in one card call:
     python3 chip_smoke.py kernels_ab <that tree's csrc directory>
 builds both (each build's wall) and, at every SHAPES entry, times each
 kernel in turns (other, this, this, other) at the device's and the host's
-pace beside SDPA's forward and aten's flash backward, and checks both
-against the plain versions, this tree's forward and two-pass pair for
-repeated bits, and the fused kernel's dk/dv for equal bits in both.  For
-the parent commit: git archive HEAD <package>/csrc | tar -x -C build/parent
-(build/ is ignored by git but copied to the card).
+pace beside SDPA's forward and aten's flash backward (the fused kernel
+alone and its wrapper whole, each tree's wrapper by its own protocol: dq
+written whole up to its flash_bwd_fused_whole_keys, else zero-fill and
+cast), and checks both against the plain versions, this tree's kernels for
+repeated bits (all but a dq the fused kernel sums by atomics), and the
+kernels AB_SAME names, which this tree leaves as they were, for equal bits
+in both.  For the parent commit: git archive HEAD <package>/csrc | tar -x
+-C build/parent (build/ is ignored by git but copied to the card).
 """
 
 from __future__ import annotations
@@ -797,16 +801,17 @@ TP_SHAPES = ("tp_gpt2", "tp_llama", "tp_fsdp_bert")
 TOL_O, TOL_GRAD, TOL_LSE = 1e-2, 2e-2, 1e-3
 # kernel -> (source, TPU kernel it replaces, the path and shape its JSON
 # row reports, design of its bf16 instance: "wgmma" (wgmma on TMA-fed
-# shared memory, csrc/flash_sm90.cuh) or "tensor-core" (mma.sync))
+# shared memory, csrc/flash_sm90.cuh; check_tensor_cores also takes
+# "tensor-core": HMMA or HGMMA))
 KERNELS = {
     "flash_fwd": ("csrc/flash_fwd.cu", "ops/pallas_ops.py:66", "gpt2",
                   "main", "wgmma"),
     "flash_bwd_dq": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:192", "gpt2",
-                     "main", "tensor-core"),
+                     "main", "wgmma"),
     "flash_bwd_dkv": ("csrc/flash_bwd.cu", "ops/pallas_ops.py:235", "gpt2",
                       "main", "wgmma"),
     "flash_bwd_fused": ("csrc/flash_bwd_fused.cu", "ops/pallas_ops.py:290",
-                        "llama", "llama_path", "tensor-core"),
+                        "llama", "llama_path", "wgmma"),
 }
 # kernel -> (its library in ops/_build.py, a name its device functions
 # carry); a bf16 instance has __nv_bfloat16 in its mangled name
@@ -1177,6 +1182,33 @@ def kernel_work(b, l, h, kv, d, causal) -> dict:
                                 10 * pairs * d)}
 
 
+def _fused_outputs(q, k, v, whole: bool) -> tuple:
+    """The fused kernel's dq, dk, dv: dq in q's dtype where the kernel
+    writes it whole, else a zero-filled fp32 accumulator."""
+    import torch
+    dq = (torch.empty_like(q) if whole
+          else torch.zeros(q.shape, dtype=torch.float32, device=q.device))
+    return dq, torch.empty_like(k), torch.empty_like(v)
+
+
+def _fused_kernel_alone(fl, q, k, v, do, lse, delta, causal, fn=None,
+                        whole_keys=None):
+    """A call that launches the fused kernel alone, into outputs allocated
+    once: dq in q's dtype where the kernel writes it whole (Lk <=
+    ``whole_keys``, the tree's ``flash_bwd_fused_whole_keys``; this tree's
+    by default), else an fp32 accumulator zero-filled once (each launch
+    adds into it again: the values grow, the work does not change).  ``fn``
+    is another tree's C entry point (this tree's wrapper by default)."""
+    whole = (fl.fused_dq_whole(q, k) if whole_keys is None
+             else k.shape[1] <= whole_keys)
+    dq, dk, dv = _fused_outputs(q, k, v, whole)
+    if fn is None:
+        return lambda: fl.launch_bwd_fused(q, k, v, do, lse, delta, dq, dk,
+                                           dv, causal)
+    return lambda: fl._check(fn(*fl._fused_args(
+        q, k, v, do, lse, delta, dq, dk, dv, causal)), "flash_bwd_fused")
+
+
 def check_shape(label, b, l, h, kv, d, causal) -> dict:
     """Each kernel against its plain version at one shape; returns the
     per-kernel numbers for that shape."""
@@ -1214,6 +1246,7 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
 
     work = kernel_work(b, l, h, kv, d, causal)
     iters = 20 if l <= 128 else 5
+    fused_alone = _fused_kernel_alone(fl, q, k, v, do, lse_ref, delta, causal)
     times = {
         "flash_fwd": (lambda: fl.kernel_forward(q, k, v, causal, True),
                       lambda: fl.plain_forward(q, k, v, causal)),
@@ -1224,9 +1257,13 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
             lambda: fl.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, causal),
             lambda: fl.plain_bwd_dkv(q, k, v, do, lse_ref, delta, causal)),
         "flash_bwd_fused": (
-            lambda: fl.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal),
+            fused_alone,
             lambda: fl.plain_bwd_fused(q, k, v, do, lse_ref, delta, causal)),
     }
+    # the fused wrapper whole: where dq is not written whole, the fp32
+    # accumulator's zero-fill and the cast beside the kernel
+    fused_wrapper_ms = cuda_ms(
+        lambda: fl.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal), iters)
     # yardsticks the port never calls: SDPA forward, forward+backward, and
     # PyTorch's flash backward alone
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1266,10 +1303,15 @@ def check_shape(label, b, l, h, kv, d, causal) -> dict:
             shape=[b, l, h, kv, d, causal], design=KERNELS[name][4])
         r = rows[name]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        wrapper = ""
+        if name == "flash_bwd_fused":
+            r["wrapper_ms"] = fused_wrapper_ms
+            wrapper = (f" wrapper_ms {fused_wrapper_ms:.4f} (dq "
+                       f"{'whole' if fl.fused_dq_whole(q, k) else 'fp32 accumulator, zero-fill and cast'})")
         print(f"[kernels] {label} [B={b} L={l} H={h} KV={kv} D={d} "
               f"causal={causal}] {name} ({r['design']}): kernel_ms "
               f"{r['ms']:.4f} (host-paced "
-              f"{r['paced_ms']:.4f}) plain_ms "
+              f"{r['paced_ms']:.4f}){wrapper} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {lib} ({lib_note}) "
               f"bound_ms {b_ms:.5f} ({b_by}) max_err {r['max_abs_err']:.3g}")
     # the two-pass pair computes what aten's flash backward computes
@@ -5398,11 +5440,15 @@ def grid_alone() -> int:
 AB_PHASE = "kernels_ab"
 
 
-def _kernel_set(csrc: str, build_dir: str) -> tuple[dict, float]:
+def _kernel_set(csrc: str, build_dir: str) -> tuple[dict, float, int]:
     """Build the libraries of the kernel sources in ``csrc`` into
     ``build_dir`` with ops/_build.py's flags; return their C entry points
-    by name and the build's wall (s).  ops/_build.py's own state is left
-    as it was."""
+    by name, the build's wall (s) and the largest Lk at which the tree's
+    fused kernel writes dq whole (its ``flash_bwd_fused_whole_keys``; 0
+    for a tree without it, whose fused kernel adds every dq into a
+    zero-filled fp32 accumulator).  ops/_build.py's own state is left as
+    it was."""
+    import ctypes
     from importlib import import_module
     from pathlib import Path
     build = import_module(f"{PKG}.ops._build")
@@ -5420,13 +5466,35 @@ def _kernel_set(csrc: str, build_dir: str) -> tuple[dict, float]:
                 if any(w in line.lower() for w in ("ptxas", "spill", "error")):
                     print(f"[ab build] {csrc} {name}: {line.strip()}")
         fns = {sym: build.function(sym) for sym in build.SIGNATURES}
+        try:
+            whole_keys = ctypes.c_int.in_dll(build._loaded["flash_bwd_fused"],
+                                             "flash_bwd_fused_whole_keys").value
+        except ValueError:              # the symbol is absent
+            whole_keys = 0
     finally:
         build.CSRC, build.BUILD_DIR = saved[:2]
         build._loaded.clear()
         build._loaded.update(saved[2])
         build._functions.clear()
         build._functions.update(saved[3])
-    return fns, wall
+    return fns, wall, whole_keys
+
+
+# kernels this tree leaves as its parent had them: kernels_ab holds their
+# outputs bitwise equal in the two trees
+AB_SAME = ("flash_fwd", "flash_bwd_dkv")
+
+
+def _fused_wrapper(fl, fn, whole_keys, q, k, v, do, lse, delta, causal):
+    """ops/flash.py's kernel_bwd_fused for another tree's C entry point
+    ``fn``: dq written whole at Lk <= ``whole_keys``, else the fp32
+    accumulator's zero-fill, the launch and the cast."""
+    import torch
+    dq, dk, dv = _fused_outputs(
+        q, k, v, q.dtype == torch.bfloat16 and k.shape[1] <= whole_keys)
+    fl._check(fn(*fl._fused_args(q, k, v, do, lse, delta, dq, dk, dv,
+                                 causal)), "flash_bwd_fused")
+    return dq.to(q.dtype), dk, dv
 
 
 def kernels_ab(other_csrc: str) -> int:
@@ -5442,12 +5510,17 @@ def kernels_ab(other_csrc: str) -> int:
     build = import_module(f"{PKG}.ops._build")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sets = {}
+    sets, whole_keys = {}, {}
     for tree, csrc, where in (
             ("other", other_csrc, os.path.join(OUT_DIR, "ab_other")),
             ("this", str(build.CSRC), str(build.BUILD_DIR))):
-        sets[tree], wall = _kernel_set(csrc, where)
-        print(f"[ab build] {tree} ({csrc}): {wall:.1f} s")
+        sets[tree], wall, whole_keys[tree] = _kernel_set(csrc, where)
+        print(f"[ab build] {tree} ({csrc}): {wall:.1f} s; fused dq whole "
+              f"up to Lk {whole_keys[tree]}")
+    if whole_keys["this"] != fl.FUSED_WHOLE_KEYS:
+        fail(f"[ab] csrc/flash_bwd_fused.cu writes dq whole up to Lk "
+             f"{whole_keys['this']}, ops/flash.py assumes "
+             f"{fl.FUSED_WHOLE_KEYS}")
     real_function = build.function
     rows = {}
     try:
@@ -5473,15 +5546,33 @@ def kernels_ab(other_csrc: str) -> int:
                     q, k, v, do, lse, delta, causal),),
                 "flash_bwd_dkv": lambda: fl.kernel_bwd_dkv(
                     q, k, v, do, lse, delta, causal),
-                "flash_bwd_fused": lambda: fl.kernel_bwd_fused(
-                    q, k, v, do, lse, delta, causal)}
+                # the wrapper whole: this tree's, the other's replayed
+                "flash_bwd_fused": {
+                    "this": lambda: fl.kernel_bwd_fused(
+                        q, k, v, do, lse, delta, causal),
+                    "other": lambda: _fused_wrapper(
+                        fl, sets["other"]["flash_bwd_fused"],
+                        whole_keys["other"], q, k, v, do, lse, delta,
+                        causal)}}
+            # the fused kernel's launch alone, without the wrapper's
+            # zero-fill and cast where the tree needs them
+            alone = {tree: _fused_kernel_alone(
+                fl, q, k, v, do, lse, delta, causal,
+                fn=sets[tree]["flash_bwd_fused"],
+                whole_keys=whole_keys[tree]) for tree in sets}
             iters = 50 if l <= 256 else 10
             times = {kname: {"other": [], "this": [], "other_paced": [],
-                             "this_paced": []} for kname in calls}
+                             "this_paced": []}
+                     for kname in (*calls, "flash_bwd_fused_kernel")}
             outs = {}
+            # the outputs that repeat bitwise in this tree: all but a dq
+            # the fused kernel sums by atomics
+            atomic_dq = k.shape[1] > whole_keys["this"]
             for tree in ("other", "this", "this", "other"):
                 build.function = sets[tree].__getitem__
                 for kname, call in calls.items():
+                    if isinstance(call, dict):
+                        call = call[tree]
                     first, second = call(), call()
                     torch.cuda.synchronize()
                     tol = TOL_O if kname == "flash_fwd" else TOL_GRAD
@@ -5490,21 +5581,27 @@ def kernels_ab(other_csrc: str) -> int:
                         if not (math.isfinite(e) and rel <= tol):
                             fail(f"[ab] {label} {tree} {kname}: {rel:.3g} of "
                                  f"max |plain| exceeds {tol}")
-                    repeat = all(torch.equal(x, y)
-                                 for x, y in zip(first, second))
-                    if tree == "this" and kname != "flash_bwd_fused" \
-                            and not repeat:
+                    skip = 1 if kname == "flash_bwd_fused" and atomic_dq \
+                        else 0
+                    repeat = all(torch.equal(x, y) for x, y
+                                 in zip(first[skip:], second[skip:]))
+                    if tree == "this" and not repeat:
                         fail(f"[ab] {label} {kname}: two runs differ")
                     outs[tree, kname] = first
                     times[kname][tree].append(cuda_ms(call, iters))
                     times[kname][tree + "_paced"].append(
                         cuda_ms(call, iters, paced=True))
+                times["flash_bwd_fused_kernel"][tree].append(
+                    cuda_ms(alone[tree], iters))
+                times["flash_bwd_fused_kernel"][tree + "_paced"].append(
+                    cuda_ms(alone[tree], iters, paced=True))
             build.function = real_function
-            for got, ref in zip(outs["this", "flash_bwd_fused"][1:],
-                                outs["other", "flash_bwd_fused"][1:]):
-                if not torch.equal(got, ref):
-                    fail(f"[ab] {label} flash_bwd_fused dk/dv differ "
-                         f"between the trees")
+            for kname in AB_SAME:
+                if not all(torch.equal(got, ref) for got, ref in zip(
+                        outs["this", kname], outs["other", kname])):
+                    fail(f"[ab] {label} {kname}: the outputs differ "
+                         f"between the trees, though this tree leaves it "
+                         f"as it was")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=kv != h), iters)
@@ -5516,7 +5613,7 @@ def kernels_ab(other_csrc: str) -> int:
                                  "aten_bwd_ms": aten_ms}
             for kname, t in times.items():
                 mean = {key: sum(vals) / len(vals) for key, vals in t.items()}
-                b_ms, b_by = bound(*work[kname])
+                b_ms, b_by = bound(*work[kname.removesuffix("_kernel")])
                 row[kname] = dict(mean, runs=t, bound_ms=b_ms, bound_by=b_by)
                 runs = t["other"][:1] + t["this"] + t["other"][1:]  # in turn
                 print(f"[ab] {label} [B={b} L={l} H={h} KV={kv} D={d} "
@@ -5530,11 +5627,17 @@ def kernels_ab(other_csrc: str) -> int:
             pair = {tree: row["flash_bwd_dq"][tree]
                     + row["flash_bwd_dkv"][tree] for tree in ("other", "this")}
             aten = "null" if aten_ms is None else f"{aten_ms:.4f}"
+            x_aten = lambda ms: ("null" if aten_ms is None
+                                 else f"{ms / aten_ms:.3f}")
+            fk, fw = row["flash_bwd_fused_kernel"], row["flash_bwd_fused"]
             print(f"[ab] {label} flash_fwd x SDPA fwd ({sdpa_ms:.4f} ms): "
                   f"other {row['flash_fwd']['other'] / sdpa_ms:.3f} this "
                   f"{row['flash_fwd']['this'] / sdpa_ms:.3f}; pair dq+dkv "
                   f"other {pair['other']:.4f} this {pair['this']:.4f} ms vs "
-                  f"{aten_note} {aten}")
+                  f"{aten_note} {aten} (x aten other {x_aten(pair['other'])}"
+                  f" this {x_aten(pair['this'])}); fused kernel x aten other "
+                  f"{x_aten(fk['other'])} this {x_aten(fk['this'])}, wrapper "
+                  f"other {x_aten(fw['other'])} this {x_aten(fw['this'])}")
     finally:
         build.function = real_function
     print(smi)

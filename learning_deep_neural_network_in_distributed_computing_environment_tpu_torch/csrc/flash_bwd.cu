@@ -19,31 +19,43 @@
 // run to run.
 //
 // Two instances of each, chosen by dtype in the C entry points below:
-// - bf16, the tensor-core kernels every backward of the gpt2 path runs.
-//   At its shape (B=64, L=128, H=12, D=64, causal) dq does 3 and dkv 4
-//   products per visible (query, key) pair, 2.4 and 3.2 GFLOP against
-//   ~64 and ~76 MB of inputs and outputs, so both are bound by bytes
-//   (~19 and ~23 us at 3.35 TB/s; the bf16 tensor cores need ~3 us).  The
-//   first versions ran every product on the fp32 FMA pipes from fp32
-//   shared tiles (~10x their bound); p and ds stay in registers, rounded
-//   only where the TPU kernels round.
-//   - bwd_dq_kernel_tc: mma.sync.m16n8k16 (bf16 operands from
-//     cp.async-staged tiles read by ldmatrix, fp32 accumulators), in the
-//     forward's old arrangement.  One block of 4 warps
-//     per (64-row query tile, query head, batch), each warp owning 16 query
-//     rows; Q and dO are staged once, lse and delta of the lane's two rows
-//     live in registers, and K/V stream through a two-stage cp.async ring
-//     over the key tiles, stopping at the last visible one under causal
-//     (each warp skips the 16-key slices its rows cannot see).  Per key
-//     tile S = Q K^T and dP = dO V^T come out in C fragments (K and V read
-//     by non-transposed ldmatrix), p and ds are fp32 on them, and ds packed
-//     to bf16 (k's dtype, pallas_ops.py:227) is the A fragment of
-//     dq += ds K, with K read by transposed ldmatrix from the same staged
-//     tile: ds never touches shared memory.  dq is written once, as bf16,
-//     through the warp's own rows of the Q tile as 16-byte stores.
-//   - bwd_dkv_kernel_sm90: designed for this card (wgmma on TMA-fed shared
-//     memory, helpers in flash_sm90.cuh), organised around the key block
-//     so that Q and dO are read once per 128 keys, not once per 64.  An
+// - bf16, the wgmma kernels every backward of the gpt2 path runs, both
+//   designed for this card (wgmma on TMA-fed shared memory, helpers in
+//   flash_sm90.cuh).  At its shape (B=64, L=128, H=12, D=64, causal) dq
+//   does 3 and dkv 4 products per visible (query, key) pair, 2.4 and 3.2
+//   GFLOP against ~64 and ~76 MB of inputs and outputs, so both are bound
+//   by bytes (~19 and ~23 us at 3.35 TB/s; the bf16 tensor cores need
+//   ~3 us).  p and ds stay in registers, rounded only where the TPU
+//   kernels round.
+//   - bwd_dq_kernel_sm90: organised around the K/V head, as the forward
+//     is, so each K/V byte is read once per head and not once per query
+//     tile and GQA member.  An item is one (batch, K/V head) and a slice
+//     of its cells (one 64-row query tile of one member; slices follow
+//     cells_per_block): one producer warp issues every copy by TMA, two
+//     consumer warpgroups of 64 query rows take the item's cells in
+//     turns (which takes the later tile of a pair alternates, so causal
+//     work splits evenly), each with two Q/dO slots.  The grid is
+//     persistent, one block an SM (168 registers: a 64-key chunk a step),
+//     because blocks that each load, multiply and store in lockstep leave
+//     memory idle while they multiply: the resident blocks walk the items,
+//     and a ring of four K/V chunks carries over from item to item, so the
+//     next head's K/V and cells land while this one is multiplied.  Where a
+//     head's K/V fits the ring (Lk <= 256) the producer loads each chunk
+//     once for all of the item's cells and GQA members and it is handed
+//     back when the item is done; longer heads stream their chunks a round
+//     of two cells at a time (an item is then one round).  Per chunk S =
+//     Q K^T and dP = dO V^T are wgmma from shared memory, p and ds fp32 on
+//     the accumulators (lse and delta of the thread's two rows in
+//     registers), and dq += ds K is wgmma with ds rounded to bf16 (k's
+//     dtype, pallas_ops.py:227) as the register A operand and K read
+//     transposed.  A chunk's key extent is the smallest multiple of 16
+//     that holds its keys (vit's 196 keys cost 208 columns), and causal
+//     cells stop at their last visible chunk.  dq is written once, as
+//     bf16, through the cell's Q slot by TMA, the slot handed back during
+//     the next cell; no atomics, so its bits repeat from run to run.
+//   - bwd_dkv_kernel_sm90: organised around the key block (its cell,
+//     dkv_cell, in flash_bwd_sm90.cuh, shared with the fused kernel) so
+//     that Q and dO are read once per 128 keys, not once per 64.  An
 //     item is 128 key rows of one (batch, K/V head): two consumer
 //     warpgroups of 64 key rows (wgmma's M) and one producer warp a block.
 //     The producer loads the item's K and V once, then streams the group's
@@ -67,7 +79,7 @@
 //   kept so that fp32 inputs keep full fp32 products (a TF32 product would
 //   drop to ~3 decimal digits).  One block per output tile, products from
 //   fp32 shared tiles, p and ds through shared memory (probs_and_ds).
-#include "flash_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace flash {
 
@@ -237,248 +249,366 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 
-namespace tc {
-
-constexpr int DQ_BQ = 64;  // query rows per block, 16 per warp
-constexpr int DQ_BK = 64;  // key rows per stage of the K/V ring
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int H, int KV, int Lq, int Lk, long long sqb,
-                 long long sql, long long sqh, long long skb, long long skl, long long skh,
-                 long long svb, long long svl, long long svh, long long sdb, long long sdl,
-                 long long sdh, int causal, float scale) {
-  constexpr int BQ = DQ_BQ, BK = DQ_BK, LD = Pad<D>::LD;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);  // [BQ][LD]; the dq tile at the end
-  bf16* sdO = sQ + BQ * LD;                     // [BQ][LD]
-  bf16* sK = sdO + BQ * LD;                     // [2][BK][LD] ring
-  bf16* sV = sK + 2 * BK * LD;                  // [2][BK][LD] ring
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / KV);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wrow = warp * 16;  // this warp's first query row in the tile
-
-  const bf16* kb = k + b * skb + g * skh;
-  const bf16* vb = v + b * svb + g * svh;
-  const int nk = (Lk + BK - 1) / BK;
-  // causal: key tiles past the tile's last query row are fully masked
-  const int kt_end = causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
-
-  copy_rows<D, BQ>(sQ, q + b * sqb + h * sqh, sql, q0, Lq);
-  copy_rows<D, BQ>(sdO, dout + b * sdb + h * sdh, sdl, q0, Lq);
-  copy_rows<D, BK>(sK, kb, skl, 0, Lk);
-  copy_rows<D, BK>(sV, vb, svl, 0, Lk);
-  cp_async_commit();
-
-  // rows gid (i = 0) and gid + 8 (i = 1): lse in log2 units, and delta
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + wrow + gid + 8 * i;
-    const long long at = ((long long)b * H + h) * Lq + qpos;
-    lse2[i] = qpos < Lq ? lse[at] * LOG2E : 0.f;
-    dlt[i] = qpos < Lq ? delta[at] : 0.f;
-  }
-  float acc[D / 8][4];  // dq rows gid (c0, c1) and gid + 8 (c2, c3), 8 columns per n-tile
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  const float sl2 = scale * LOG2E;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < kt_end) {  // the next tile into the other stage
-      copy_rows<D, BK>(sK + (st ^ 1) * BK * LD, kb, skl, (kt + 1) * BK, Lk);
-      copy_rows<D, BK>(sV + (st ^ 1) * BK * LD, vb, svl, (kt + 1) * BK, Lk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile kt (and Q, dO) has landed for every thread
-    const bf16* cK = sK + st * BK * LD;
-    const bf16* cV = sV + st * BK * LD;
-    const int k0 = kt * BK;
-    // causal: the last column of this tile any row of this warp can see;
-    // 16-key slices past it are skipped (their p and ds are exactly 0)
-    const int kmax = causal ? q0 + wrow + 15 - k0 : BK - 1;
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 query rows x BK keys
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldsm_x4(qa, a_addr<LD>(sQ, wrow, kk * 16, lane));
-      ldsm_x4(da, a_addr<LD>(sdO, wrow, kk * 16, lane));
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        if (np * 16 > kmax) continue;
-        uint32_t f[4];
-        ldsm_x4(f, bt_addr<LD>(cK, np * 16, kk * 16, lane));
-        mma(s[2 * np], qa, f[0], f[1]);
-        mma(s[2 * np + 1], qa, f[2], f[3]);
-        ldsm_x4(f, bt_addr<LD>(cV, np * 16, kk * 16, lane));
-        mma(dp[2 * np], da, f[0], f[1]);
-        mma(dp[2 * np + 1], da, f[2], f[3]);
-      }
-    }
-
-    // p = exp(s scale - lse), ds = p (dp - delta) scale, in fp32; masked
-    // pairs (causal, ragged keys) get p = ds = 0 on the diagonal and
-    // ragged tiles
-    const bool edge = (causal && k0 + BK - 1 > q0 + wrow) || k0 + BK > Lk;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, kpos = k0 + j * 8 + tig * 2 + (e & 1);
-        float p = exp2_fast(fmaf(s[j][e], sl2, -lse2[i]));
-        if (edge && !visible(q0 + wrow + gid + 8 * i, kpos, Lk, causal)) p = 0.f;
-        dp[j][e] = p * (dp[j][e] - dlt[i]) * scale;
-      }
-
-    // dq += ds K, ds rounded to bf16 (k's dtype) in registers
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      if (kk * 16 > kmax) continue;
-      uint32_t a[4];
-      c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t f[4];
-        ldsm_x4_t(f, bn_addr<LD>(cK, dn * 16, kk * 16, lane));
-        mma(acc[2 * dn], a, f[0], f[1]);
-        mma(acc[2 * dn + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-  cp_async_wait<0>();
-
-  // dq through this warp's own rows of sQ (no other warp reads them), then
-  // out as 16-byte row chunks
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    bf16* at = sQ + (wrow + gid) * LD + j * 8 + tig * 2;
-    *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[j][0], acc[j][1]);
-    *reinterpret_cast<uint32_t*>(at + 8 * LD) = pack_bf16(acc[j][2], acc[j][3]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 8;
-#pragma unroll
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    const int qpos = q0 + wrow + r;
-    if (qpos < Lq)
-      *reinterpret_cast<uint4*>(dq + (((long long)b * Lq + qpos) * H + h) * D + c) =
-          *reinterpret_cast<const uint4*>(sQ + (wrow + r) * LD + c);
-  }
-}
-
-}  // namespace tc
-
 namespace sm90 {
 
-constexpr int DKV_WG_KEYS = 64;                  // key rows of a consumer warpgroup (wgmma M)
-constexpr int DKV_BK = CONSUMERS * DKV_WG_KEYS;  // key rows of a block
-constexpr int DKV_STAGES = 4;                    // cells in the Q/dO/lse/delta ring
+constexpr int DQ_BQ = 64;     // query rows of a cell: one warpgroup's wgmma M
+constexpr int DQ_BK = 64;     // key rows of a K/V chunk
+constexpr int DQ_STAGES = 4;  // chunks in the K/V ring: a whole head up to Lk = 256
 
 template <int D>
-struct DkvSmem {
-  // query rows of a cell: 32 at D = 128 keeps dk, dv, S^T and dP^T in registers
-  static constexpr int BQ = D <= 64 ? 64 : 32;
-  static constexpr int KV_TILE = Layout<D>::bytes(DKV_BK);
-  static constexpr int Q_TILE = Layout<D>::bytes(BQ);
-  // K, V of two items (the next item's land while this one's are used),
-  // then the cell ring
-  static constexpr int Q = 4 * KV_TILE, DO = Q + DKV_STAGES * Q_TILE;
-  static constexpr int ROWS = DO + DKV_STAGES * Q_TILE;  // fp32 [stage][lse, delta][BQ]
-  static constexpr int TILES = ROWS + DKV_STAGES * 2 * BQ * 4;
-  static constexpr int BARRIERS = 4 + 2 * DKV_STAGES;
+struct DqSmem {
+  // Q/dO slots a warpgroup: two (the next cell's land while this one's
+  // are used), one at D = 128 for room
+  static constexpr int SLOTS = D <= 64 ? 2 : 1;
+  static constexpr int CHUNK = Layout<D>::bytes(DQ_BK);  // one chunk of K (or V)
+  static constexpr int QTILE = Layout<D>::bytes(DQ_BQ);
+  static constexpr int K = 0, V = DQ_STAGES * CHUNK, Q = 2 * DQ_STAGES * CHUNK;
+  static constexpr int DO = Q + CONSUMERS * SLOTS * QTILE;
+  static constexpr int TILES = DO + CONSUMERS * SLOTS * QTILE;
+  static constexpr int BARRIERS = 2 * DQ_STAGES + 2 * CONSUMERS * SLOTS;
   static constexpr size_t BYTES = TILES + BARRIERS * 8 + 1024;  // + the alignment of the tiles
 };
 
-// One cell of NQ query rows (BQ, or 16/32/48 for a ragged last tile) for
-// the warpgroup's 64 key rows from kw: S^T = K Q^T and dP^T = V dO^T, p and
-// ds on the accumulators, dv += p^T dO and dk += ds^T q.
-template <int D, int NQ>
-__device__ __forceinline__ void dkv_cell(float (&dk)[D / 2], float (&dv)[D / 2], uint32_t sk,
-                                         uint32_t sv, uint32_t sq, uint32_t sdo,
-                                         const float* rows, int q0, int kw, int Lq, int Lk,
-                                         int causal, float scale) {
-  constexpr int BQ = DkvSmem<D>::BQ;
-  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+// K/V chunks the query tile t sees
+__device__ __forceinline__ int dq_chunks(int t, int Lk, int causal) {
+  const int end = causal ? min(Lk, (t + 1) * DQ_BQ) : Lk;
+  return (end + DQ_BK - 1) / DQ_BK;
+}
+
+// NS keys (16..64) from row ks of the K/V chunk at sk/sv (keys k0 + ks..)
+// for the warpgroup's 64 query rows from q0: S = Q K^T and dP = dO V^T,
+// p = exp(s scale - lse) and ds = p (dp - delta) scale on the accumulators
+// (lse2: the thread's rows' lse in log2 units, dlt their delta), then
+// dq += ds K, ds rounded to bf16 (k's dtype) in registers and K read
+// transposed.
+template <int D, int NS>
+__device__ __forceinline__ void dq_step(float (&dq)[D / 2], uint32_t sq, uint32_t sdo,
+                                        uint32_t sk, uint32_t sv, int ks, const float (&lse2)[2],
+                                        const float (&dlt)[2], int q0, int k0, int Lk, int causal,
+                                        float scale) {
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int gid = lane >> 2, tig = lane & 3;
-  float s[NQ / 2], dp[NQ / 2];
+  float s[NS / 2], dp[NS / 2];
 #pragma unroll
-  for (int i = 0; i < NQ / 2; ++i) s[i] = dp[i] = 0.f;
+  for (int i = 0; i < NS / 2; ++i) s[i] = dp[i] = 0.f;
   hold(s);
   hold(dp);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<NQ>(s, desc_k<D>(sk, DKV_BK, wg * DKV_WG_KEYS, kk), desc_k<D>(sq, BQ, 0, kk),
-                 kk > 0);
+    wgmma_ss<NS>(s, desc_k<D>(sq, DQ_BQ, 0, kk), desc_k<D>(sk, DQ_BK, ks, kk), kk > 0);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss<NQ>(dp, desc_k<D>(sv, DKV_BK, wg * DKV_WG_KEYS, kk), desc_k<D>(sdo, BQ, 0, kk),
-                 kk > 0);
+    wgmma_ss<NS>(dp, desc_k<D>(sdo, DQ_BQ, 0, kk), desc_k<D>(sv, DQ_BK, ks, kk), kk > 0);
   wgmma_commit();
   wgmma_wait();
   hold(s);
   hold(dp);
 
-  // p = exp(s scale - lse), ds = p (dp - delta) scale, in fp32; masked
-  // pairs (causal, ragged keys or queries) get p = ds = 0
+  // masked pairs (causal, ragged keys) get p = ds = 0
   const float sl2 = scale * LOG2E;
-  const int kr = kw + warp * 16 + gid;  // this thread's key rows: kr, kr + 8
-  const bool edge = (causal && kw + DKV_WG_KEYS - 1 > q0) || kw + DKV_WG_KEYS > Lk ||
-                    q0 + NQ > Lq;
+  const int qw = q0 + warp * 16, kb = k0 + ks;  // this warp's first query, the step's first key
+  const bool edge = (causal && kb + NS - 1 > qw) || kb + NS > Lk;
 #pragma unroll
-  for (int j = 0; j < NQ / 8; ++j)
+  for (int j = 0; j < NS / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int qc = j * 8 + tig * 2 + (e & 1), kpos = kr + (e >> 1) * 8;
-      float p = exp2_fast(fmaf(s[4 * j + e], sl2, -rows[qc] * LOG2E));
-      if (edge && !(q0 + qc < Lq && visible(q0 + qc, kpos, Lk, causal))) p = 0.f;
-      s[4 * j + e] = p;
-      dp[4 * j + e] = p * (dp[4 * j + e] - rows[BQ + qc]) * scale;
+      const int i = e >> 1, kpos = kb + j * 8 + tig * 2 + (e & 1);
+      float p = exp2_fast(fmaf(s[4 * j + e], sl2, -lse2[i]));
+      if (edge && !visible(qw + gid + 8 * i, kpos, Lk, causal)) p = 0.f;
+      dp[4 * j + e] = p * (dp[4 * j + e] - dlt[i]) * scale;
     }
 
-  // dv += p^T dO and dk += ds^T q, p and ds rounded to bf16 in registers
-  // (dO's and q's dtype), dO and Q read transposed
-  uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+  uint32_t da[NS / 16][4];
 #pragma unroll
-  for (int kq = 0; kq < NQ / 16; ++kq) {
-    a_from_acc(pa[kq], s, kq);
-    a_from_acc(da[kq], dp, kq);
-  }
-  hold(dk);
-  hold(dv);
-  hold(pa);
+  for (int kq = 0; kq < NS / 16; ++kq) a_from_acc(da[kq], dp, kq);
+  hold(dq);
   hold(da);
   wgmma_fence();
 #pragma unroll
-  for (int kq = 0; kq < NQ / 16; ++kq) {
-    wgmma_rs_tb<D>(dv, pa[kq], desc_mn<D>(sdo, BQ, kq));
-    wgmma_rs_tb<D>(dk, da[kq], desc_mn<D>(sq, BQ, kq));
-  }
+  for (int kq = 0; kq < NS / 16; ++kq)
+    wgmma_rs_tb<D>(dq, da[kq], desc_mn<D>(sk, DQ_BK, ks / 16 + kq));
   wgmma_commit();
   wgmma_wait();
-  hold(dk);
-  hold(dv);
+  hold(dq);
+}
+
+// One K/V chunk for the warpgroup's cell: its keys rounded up to 16 (a
+// ragged last chunk is cut), in one step at D <= 64 and steps of 32 keys at
+// D = 128 (S, dP and dq fit the registers).
+template <int D>
+__device__ __forceinline__ void dq_chunk(float (&dq)[D / 2], uint32_t sq, uint32_t sdo,
+                                         uint32_t sk, uint32_t sv, const float (&lse2)[2],
+                                         const float (&dlt)[2], int q0, int k0, int Lk,
+                                         int causal, float scale) {
+  const int n16 = (min(DQ_BK, Lk - k0) + 15) / 16;
+  if constexpr (D <= 64) {
+    switch (n16) {
+      case 1: dq_step<D, 16>(dq, sq, sdo, sk, sv, 0, lse2, dlt, q0, k0, Lk, causal, scale); break;
+      case 2: dq_step<D, 32>(dq, sq, sdo, sk, sv, 0, lse2, dlt, q0, k0, Lk, causal, scale); break;
+      case 3: dq_step<D, 48>(dq, sq, sdo, sk, sv, 0, lse2, dlt, q0, k0, Lk, causal, scale); break;
+      default: dq_step<D, 64>(dq, sq, sdo, sk, sv, 0, lse2, dlt, q0, k0, Lk, causal, scale); break;
+    }
+  } else {
+    for (int ks = 0; ks < n16 * 16; ks += 32) {
+      if (n16 * 16 - ks >= 32)
+        dq_step<D, 32>(dq, sq, sdo, sk, sv, ks, lse2, dlt, q0, k0, Lk, causal, scale);
+      else
+        dq_step<D, 16>(dq, sq, sdo, sk, sv, ks, lse2, dlt, q0, k0, Lk, causal, scale);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+                   const float* __restrict__ delta, int B, int H, int KV, int Lq, int Lk,
+                   int cells_per_block, int causal, float scale) {
+  static_assert(sizeof(T) == 2, "the bf16 instance");
+  using S = DqSmem<D>;
+  constexpr int SLOTS = S::SLOTS;
+  extern __shared__ __align__(16) unsigned char smem_dq[];
+  const uint32_t raw = smem_addr(smem_dq);
+  const uint32_t tiles = (raw + S::BARRIERS * 8 + 1023) & ~1023u;
+  unsigned char* tiles_p = smem_dq + (tiles - raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem_dq);  // [DQ_STAGES]
+  uint64_t* kv_empty = kv_full + DQ_STAGES;                   // [DQ_STAGES]
+  uint64_t* q_full = kv_empty + DQ_STAGES;                    // [CONSUMERS][SLOTS]: Q and dO
+  uint64_t* q_empty = q_full + CONSUMERS * SLOTS;             // [CONSUMERS][SLOTS]
+
+  const int rep = H / KV;
+  const int cells = rep * ((Lq + DQ_BQ - 1) / DQ_BQ);
+  const int slices = (cells + cells_per_block - 1) / cells_per_block;
+  const int items = slices * KV * B;
+  const int nkv = (Lk + DQ_BK - 1) / DQ_BK;
+  const bool resident = nkv <= DQ_STAGES;
+  // item i: slice i % slices of K/V head (i / slices) % KV of batch
+  // i / (slices KV); its cells c (query tile c / rep of member c % rep)
+  // from cell0, in rounds that give warpgroup w the cell cell0 + 2 r + (w
+  // ^ flip), flip alternating from turn to turn so that under causal
+  // neither warpgroup always takes the later tile of a pair.  Block x
+  // takes item k G + x in even turns k and k G + G - 1 - x in odd ones (G
+  // blocks), as bwd_dkv_kernel_sm90 does.
+  struct Item {
+    int g, b, cell0, cell_end, rounds, flip;
+  };
+  auto item = [&](int i, int k) {
+    Item it;
+    it.g = (i / slices) % KV;
+    it.b = i / (slices * KV);
+    it.cell0 = (i % slices) * cells_per_block;
+    it.cell_end = min(cells, it.cell0 + cells_per_block);
+    it.rounds = (it.cell_end - it.cell0 + CONSUMERS - 1) / CONSUMERS;
+    it.flip = k & 1;
+    return it;
+  };
+  auto turn = [&](int k) {
+    return k * gridDim.x + (k & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  };
+  auto cell_of = [&](const Item& it, int r, int w) {
+    return it.cell0 + r * CONSUMERS + (w ^ it.flip);
+  };
+  auto round_chunks = [&](const Item& it, int r) {  // the chunks a streamed round walks
+    int n = 0;
+    for (int w = 0; w < CONSUMERS; ++w) {
+      const int c = cell_of(it, r, w);
+      if (c < it.cell_end) n = max(n, dq_chunks(c / rep, Lk, causal));
+    }
+    return n;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      bar_init(&kv_full[i], 1);
+      bar_init(&kv_empty[i], CONSUMERS * 4);  // lane 0 of every consumer warp
+    }
+    for (int i = 0; i < CONSUMERS * SLOTS; ++i) {
+      bar_init(&q_full[i], 1);
+      bar_init(&q_empty[i], 1);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    if (threadIdx.x % 32 == 0) {
+      int n = 0;                     // chunks loaded so far: the ring's position
+      int used[CONSUMERS] = {0, 0};  // cells loaded so far for each warpgroup
+      auto load_chunk = [&](int m, int kc, const Item& it) {  // the m-th chunk into the ring
+        const int st = m % DQ_STAGES;
+        bar_wait(&kv_empty[st], ((m / DQ_STAGES) & 1) ^ 1);
+        bar_arrive_tx(&kv_full[st], 2 * S::CHUNK);
+        load_tile<D>(tiles + S::K + st * S::CHUNK, &tk, &kv_full[st], DQ_BK, it.g, kc * DQ_BK,
+                     it.b);
+        load_tile<D>(tiles + S::V + st * S::CHUNK, &tv, &kv_full[st], DQ_BK, it.g, kc * DQ_BK,
+                     it.b);
+      };
+      for (int k = 0, i = turn(0); i < items; i = turn(++k)) {
+        const Item it = item(i, k);
+        // resident: the item's chunks once, kept until its last round is done
+        if (resident)
+          for (int kc = 0; kc < nkv; ++kc) load_chunk(n + kc, kc, it);
+        for (int r = 0; r < it.rounds; ++r) {
+          for (int w = 0; w < CONSUMERS; ++w) {
+            const int c = cell_of(it, r, w);
+            if (c >= it.cell_end) continue;
+            const int slot = w * SLOTS + used[w] % SLOTS;
+            const int h = it.g * rep + c % rep, q0 = (c / rep) * DQ_BQ;
+            bar_wait(&q_empty[slot], ((used[w] / SLOTS) & 1) ^ 1);
+            bar_arrive_tx(&q_full[slot], 2 * S::QTILE);
+            load_tile<D>(tiles + S::Q + slot * S::QTILE, &tq, &q_full[slot], DQ_BQ, h, q0, it.b);
+            load_tile<D>(tiles + S::DO + slot * S::QTILE, &tdo, &q_full[slot], DQ_BQ, h, q0,
+                         it.b);
+            ++used[w];
+          }
+          if (!resident)
+            for (int kc = 0, nk = round_chunks(it, r); kc < nk; ++kc, ++n) load_chunk(n, kc, it);
+        }
+        if (resident) n += nkv;
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool leader = threadIdx.x % 128 == 0;
+  int n = 0;          // chunks the ring has taken so far
+  int used = 0;       // cells of this warpgroup so far
+  int pending = -1;   // the slot whose dq store may still be reading it
+  // the slot back to the producer once TMA has read this warpgroup's last
+  // store out of it: with two slots, during the next cell's first chunk,
+  // when the store is long done (the next but one cell's copies still land
+  // a cell ahead); with one, at once
+  auto release = [&]() {
+    if (leader && pending >= 0) {
+      tma_store_wait();
+      bar_arrive(&q_empty[pending]);
+    }
+    pending = -1;
+  };
+  // wait for the m-th chunk; release it (every consumer warp's lane 0)
+  auto chunk_wait = [&](int m) { bar_wait(&kv_full[m % DQ_STAGES], (m / DQ_STAGES) & 1); };
+  auto chunk_release = [&](int m) {
+    __syncwarp();
+    if (lane == 0) bar_arrive(&kv_empty[m % DQ_STAGES]);
+  };
+  for (int k = 0, i = turn(0); i < items; i = turn(++k)) {
+    const Item it = item(i, k);
+    for (int r = 0; r < it.rounds; ++r) {
+      const int c = cell_of(it, r, wg);
+      const bool mine = c < it.cell_end;
+      const int t = mine ? c / rep : 0, h = it.g * rep + c % rep, q0 = t * DQ_BQ;
+      const int nk = mine ? dq_chunks(t, Lk, causal) : 0;
+      const int walk = resident ? nk : round_chunks(it, r);
+      const int slot = wg * SLOTS + used % SLOTS;
+      const uint32_t sq = tiles + S::Q + slot * S::QTILE, sdo = tiles + S::DO + slot * S::QTILE;
+
+      float dq[D / 2];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+      // rows gid (j = 0) and gid + 8 (j = 1) of this warp: lse in log2
+      // units and delta
+      float lse2[2] = {0.f, 0.f}, dlt[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qpos = q0 + warp * 16 + gid + 8 * j;
+        if (mine && qpos < Lq) {
+          const long long at = ((long long)it.b * H + h) * Lq + qpos;
+          lse2[j] = lse[at] * LOG2E;
+          dlt[j] = delta[at];
+        }
+      }
+      if (mine) bar_wait(&q_full[slot], (used / SLOTS) & 1);
+      for (int kc = 0; kc < walk; ++kc) {
+        const int m = resident ? n + kc : n;
+        chunk_wait(m);
+        if (kc < nk) {
+          const uint32_t st = m % DQ_STAGES;
+          dq_chunk<D>(dq, sq, sdo, tiles + S::K + st * S::CHUNK, tiles + S::V + st * S::CHUNK,
+                      lse2, dlt, q0, kc * DQ_BK, Lk, causal, scale);
+          release();
+        }
+        if (!resident) {
+          chunk_release(m);
+          ++n;
+        }
+      }
+      if (!mine) continue;
+
+      // dq into the cell's Q slot (its last reader, S = Q K^T, is done), in
+      // the layout the Q tile came in, then out by TMA (rows past Lq are
+      // not written)
+      unsigned char* so = tiles_p + (sq - tiles);
+      const int row = warp * 16 + gid;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = j * 8 + tig * 2;
+        *reinterpret_cast<uint32_t*>(so + swizzled<D>(DQ_BQ, row, col)) =
+            pack_bf16(dq[4 * j], dq[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(so + swizzled<D>(DQ_BQ, row + 8, col)) =
+            pack_bf16(dq[4 * j + 2], dq[4 * j + 3]);
+      }
+      fence_async_smem();
+      warpgroup_sync(wg);
+      if (leader) {
+        store_tile<D>(&tdq, sq, DQ_BQ, h, q0, it.b);
+        tma_store_commit();
+      }
+      pending = slot;
+      if (SLOTS == 1) release();
+      ++used;
+    }
+    if (resident) {
+      // the item's chunks go back once both warpgroups are done with them
+      // (a warpgroup that took no cell waits for them first, so that its
+      // release cannot count towards the slot's previous use)
+      for (int kc = 0; kc < nkv; ++kc) {
+        chunk_wait(n + kc);
+        chunk_release(n + kc);
+      }
+      n += nkv;
+    }
+  }
+  release();
+}
+
+template <int D>
+int dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+       const float* delta, void* dq, int B, int H, int KV, int Lq, int Lk, long long sqb,
+       long long sql, long long sqh, long long skb, long long skl, long long skh, long long svb,
+       long long svl, long long svh, long long sdb, long long sdl, long long sdh, int causal,
+       float scale, void* stream) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  int err = encode<D>(&tq, q, B, Lq, H, sqb, sql, sqh, DQ_BQ);
+  if (!err) err = encode<D>(&tdo, dout, B, Lq, H, sdb, sdl, sdh, DQ_BQ);
+  if (!err) err = encode<D>(&tk, k, B, Lk, KV, skb, skl, skh, DQ_BK);
+  if (!err) err = encode<D>(&tv, v, B, Lk, KV, svb, svl, svh, DQ_BK);
+  if (!err)  // dq: contiguous
+    err = encode<D>(&tdq, dq, B, Lq, H, (long long)Lq * H * D, (long long)H * D, D, DQ_BQ);
+  if (err) return err;
+  auto kernel = bwd_dq_kernel_sm90<bf16, D>;
+  constexpr size_t smem = DqSmem<D>::BYTES;
+  static const int per_sm = resident_blocks(kernel, smem);
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t set = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (set != cudaSuccess) return (int)set;
+  // persistent: the resident blocks walk the (slice, K/V head, batch)
+  // items; a head streamed through the ring reads its K/V once a round
+  // anyway, so its items are single rounds, which balance the blocks best
+  const int slots = sm_count() * per_sm;
+  const int cells = (H / KV) * ((Lq + DQ_BQ - 1) / DQ_BQ);
+  const bool resident = (Lk + DQ_BK - 1) / DQ_BK <= DQ_STAGES;
+  const int per_block = resident ? cells_per_block(cells, B * KV, slots) : CONSUMERS;
+  const int items = (cells + per_block - 1) / per_block * KV * B;
+  const dim3 grid(std::min(items, slots));
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(tq, tk, tv, tdo, tdq, lse, delta, B, H,
+                                                         KV, Lq, Lk, per_block, causal, scale);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -702,14 +832,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             float scale, void* stream) {
   using namespace flash;
   if (dtype == FLASH_DTYPE_BF16) {
-    using tc::bf16;
-    const dim3 grid((Lq + tc::DQ_BQ - 1) / tc::DQ_BQ, H, B);
     FLASH_HEAD_DIM(head_dim, {
-      const size_t smem = sizeof(bf16) * (2 * tc::DQ_BQ + 4 * tc::DQ_BK) * tc::Pad<D>::LD;
-      return tc::launch(tc::bwd_dq_kernel_tc<D>, grid, smem, stream, (const bf16*)q,
-                        (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
-                        H, KV, Lq, Lk, sqb, sql, sqh, skb, skl, skh, svb, svl, svh, sdb, sdl,
-                        sdh, causal, scale);
+      return sm90::dq<D>(q, k, v, dout, lse, delta, dq, B, H, KV, Lq, Lk, sqb, sql, sqh, skb,
+                         skl, skh, svb, svl, svh, sdb, sdl, sdh, causal, scale, stream);
     });
   } else if (dtype == FLASH_DTYPE_F32) {
     const dim3 grid((Lq + BQ - 1) / BQ, H, B);

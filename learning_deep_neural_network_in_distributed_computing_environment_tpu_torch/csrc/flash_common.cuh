@@ -120,3 +120,12 @@ int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
 // dtype codes shared with ops/flash.py
 #define FLASH_DTYPE_F32 0
 #define FLASH_DTYPE_BF16 1
+
+// Expand the body once per supported head dim (ops/flash.py
+// SUPPORTED_HEAD_DIMS), with D bound; an unsupported one falls through.
+#define FLASH_HEAD_DIM(head_dim, ...)                  \
+  switch (head_dim) {                                  \
+    case 32: { constexpr int D = 32; __VA_ARGS__; }    \
+    case 64: { constexpr int D = 64; __VA_ARGS__; }    \
+    case 128: { constexpr int D = 128; __VA_ARGS__; }  \
+  }

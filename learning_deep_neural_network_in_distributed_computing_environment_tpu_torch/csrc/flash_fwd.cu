@@ -49,7 +49,7 @@
 // - The grid: B x KV x slices, two blocks an SM (96 registers, 98 KB of
 //   shared memory at D = 64), the slices per head the resident blocks over
 //   the heads, rounded (each extra slice reads its head's K/V once more;
-//   fwd_cells_per_block below): one at every path shape but tp llama's
+//   cells_per_block in flash_sm90.cuh): one at every path shape but tp llama's
 //   shard (two) and the long ones.  Blocks come and go, so one block's
 //   copies overlap the other's products; a persistent grid measured slower.
 // - O goes back through the cell's Q slot as the 64-row tile TMA stores
@@ -452,16 +452,6 @@ fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// Slices of each head's cells: enough blocks to fill the card's resident
-// blocks (each extra slice re-reads its head's K/V once), an even number of
-// cells a slice (two warpgroups take them in turns).  Returns the cells a
-// block takes; the grid's x extent is ceil(cells / that).
-inline int fwd_cells_per_block(int cells, int heads, int slots) {
-  int slices = std::max(1, (slots + heads / 2) / heads);
-  slices = std::min(slices, (cells + CONSUMERS - 1) / CONSUMERS);
-  return CONSUMERS * ((cells + CONSUMERS * slices - 1) / (CONSUMERS * slices));
-}
-
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int KV,
         int Lq, int Lk, long long sqb, long long sql, long long sqh, long long skb, long long skl,
@@ -482,7 +472,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                                          (int)smem);
   if (set != cudaSuccess) return (int)set;
   const int cells = (H / KV) * ((Lq + FWD_BQ - 1) / FWD_BQ);
-  const int per_block = fwd_cells_per_block(cells, B * KV, sm_count() * per_sm);
+  const int per_block = cells_per_block(cells, B * KV, sm_count() * per_sm);
   const dim3 grid((cells + per_block - 1) / per_block, KV, B);
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(tq, tk, tv, to, lse, H, KV, Lq, Lk,
                                                          per_block, causal, scale);

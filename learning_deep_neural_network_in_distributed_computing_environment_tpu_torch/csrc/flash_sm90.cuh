@@ -1,9 +1,10 @@
-// Hopper building blocks of the bf16 flash kernels that are designed for
-// sm_90a: flash_fwd's fwd_kernel_sm90 (flash_fwd.cu) and flash_bwd_dkv's
-// bwd_dkv_kernel_sm90 (flash_bwd.cu).  Inline PTX only (no CuTe, no
-// CUTLASS): mbarriers, TMA tile copies, wgmma shared-memory descriptors and
-// the wgmma instructions the two kernels issue, plus the host code that
-// encodes their tensor maps.
+// Hopper building blocks of the bf16 flash kernels, all four designed for
+// sm_90a: flash_fwd's fwd_kernel_sm90 (flash_fwd.cu), flash_bwd_dq's
+// bwd_dq_kernel_sm90 and flash_bwd_dkv's bwd_dkv_kernel_sm90 (flash_bwd.cu)
+// and flash_bwd_fused's bwd_fused_kernel_sm90 (flash_bwd_fused.cu).  Inline
+// PTX only (no CuTe, no CUTLASS): mbarriers, TMA tile copies, wgmma
+// shared-memory descriptors and the wgmma instructions the kernels issue,
+// plus the host code that encodes their tensor maps.
 //
 // Tiles in shared memory.  TMA copies a tile of rows of one (batch, head)
 // slice of a strided [B, L, heads, D] tensor, a box {cols, 1, rows, 1} of
@@ -17,8 +18,8 @@
 //     B of a product over head_dim): one k-step of 16 columns is 32 bytes
 //     into the row's atom, 8-row groups SBO = 8 rows apart;
 //   MN-major operand (the contraction runs down the rows: V in P V, dO and
-//     Q in p^T dO and ds^T q, read transposed): one k-step is 16 rows
-//     further, 8-row groups SBO apart, the 64-column atoms LBO apart.
+//     Q in p^T dO and ds^T q, K in ds K, read transposed): one k-step is 16
+//     rows further, 8-row groups SBO apart, the 64-column atoms LBO apart.
 // Every tile starts on a 1024-byte boundary, so the swizzle, which works on
 // absolute shared-memory address bits, is the same for TMA, wgmma and the
 // epilogue's stores.
@@ -38,17 +39,33 @@
 
 #include <algorithm>
 
-#include "flash_mma.cuh"
+#include "flash_common.cuh"
 
 namespace flash {
 namespace sm90 {
 
-using tc::bf16;
-using tc::exp2_fast;
-using tc::LN2;
-using tc::LOG2E;
-using tc::pack_bf16;
-using tc::smem_addr;
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 2^x on the special-function unit: one MUFU.EX2, ~2 ulp, subnormal
+// results flushed to 0 (ex2(-inf) = 0, which masked scores rely on)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two fp32 values rounded to a bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
 
 constexpr int CONSUMERS = 2;                      // consumer warpgroups a block
 constexpr int THREADS = CONSUMERS * 128 + 32;     // and one producer warp
@@ -68,7 +85,7 @@ struct Layout {
   static constexpr CUtensorMapSwizzle SWIZZLE =
       ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   // bytes of a tile of `rows` rows
-  static constexpr int bytes(int rows) { return rows * D * 2; }
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * D * 2; }
 };
 
 // byte offset of element (row, col) in a tile of `rows` rows
@@ -150,6 +167,11 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 // the 128 threads of consumer warpgroup `wg` meet (barrier 0 is __syncthreads)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+// the threads of both consumer warpgroups meet (the producer warp does not)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMERS + 1), "n"(CONSUMERS * 128) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -264,6 +286,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
                                             uint64_t b);
+
+// d (+)= A B, m64n32k16, A and B both MN-major in shared memory (the
+// contraction runs down the rows of both tiles); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_tt32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 // The instances the kernels issue, the operand lists spelled out (PTX
 // takes the accumulator registers one by one).
@@ -455,6 +492,17 @@ inline int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   return n;
+}
+
+// Slices of each head's cells for a kernel organised around the K/V head
+// (the forward and dq): enough blocks to fill the card's resident blocks
+// (each extra slice re-reads its head's K/V once), an even number of cells
+// a slice (two warpgroups take them in turns).  Returns the cells a block
+// takes; the grid's x extent is ceil(cells / that).
+inline int cells_per_block(int cells, int heads, int slots) {
+  int slices = std::max(1, (slots + heads / 2) / heads);
+  slices = std::min(slices, (cells + CONSUMERS - 1) / CONSUMERS);
+  return CONSUMERS * ((cells + CONSUMERS * slices - 1) / (CONSUMERS * slices));
 }
 
 }  // namespace sm90

@@ -16,13 +16,14 @@ Four kernels (``csrc/``, built by ``ops/_build.py``):
 (``pallas_ops.py:522-534``): the backward of every flash call in the
 process is either the two-pass pair or the fused kernel, never a mix.
 
-The bf16 instances of all four kernels run their products on the tensor
-cores: ``flash_fwd`` and ``flash_bwd_dkv`` as ``wgmma`` on shared-memory
-tiles that TMA copies in (``csrc/flash_sm90.cuh``), ``flash_bwd_dq`` and
-``flash_bwd_fused`` as ``mma.sync`` from ``cp.async``-staged tiles; the fp32
+The bf16 instances of all four kernels run their products as ``wgmma`` on
+shared-memory tiles that TMA copies in (``csrc/flash_sm90.cuh``); the fp32
 instances keep full fp32 products on the FMA pipes.  The two-pass pair
 writes each output once from registers, so its gradients are the same bits
-from run to run; the fused kernel sums dq by atomics.
+from run to run.  So does the bf16 fused kernel where one of its 128-key
+blocks holds every key (Lk <= ``FUSED_WHOLE_KEYS``): its dq is complete in
+the block and written once as bf16.  Past that, and for fp32, the fused
+kernel sums dq by atomics into a zero-filled fp32 accumulator, cast once.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and computes the
 plain fp32 version for CPU tensors.  The model calls them through three
@@ -51,10 +52,14 @@ from .attention import NEG_INF, dot_product_attention, kv_group_size
 
 log = logging.getLogger(__name__)
 
-# head dims the kernels are instantiated for (csrc/flash_mma.cuh
+# head dims the kernels are instantiated for (csrc/flash_common.cuh
 # FLASH_HEAD_DIM lists the same)
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the largest Lk at which the bf16 fused kernel writes dq whole (one block
+# of 128 keys holds every key); csrc/flash_bwd_fused.cu exports the same as
+# flash_bwd_fused_whole_keys
+FUSED_WHOLE_KEYS = 128
 
 # kernel launches since the last reset_launch_counts()
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
@@ -266,23 +271,46 @@ def kernel_bwd_dkv(q, k, v, do, lse, delta, causal=False):
     return dk, dv
 
 
-def kernel_bwd_fused(q, k, v, do, lse, delta, causal=False):
-    """Launch ``flash_bwd_fused``: (dq, dk, dv).  dq is summed in a
-    zero-filled fp32 accumulator by atomic adds from the key-tile blocks,
-    then cast to q's dtype once."""
+def fused_dq_whole(q, k) -> bool:
+    """Whether the fused kernel writes dq whole, in q's dtype (bf16, Lk <=
+    ``FUSED_WHOLE_KEYS``), rather than adding into an fp32 accumulator."""
+    return q.dtype == torch.bfloat16 and k.shape[1] <= FUSED_WHOLE_KEYS
+
+
+def launch_bwd_fused(q, k, v, do, lse, delta, dq, dk, dv, causal=False):
+    """Launch ``flash_bwd_fused`` into outputs the caller allocated: dq in
+    q's dtype where ``fused_dq_whole``, else a zero-filled fp32
+    accumulator; dk, dv in k's.  The operands must be laid out for the
+    kernel (``_kernel_layout``)."""
     from ._build import function
-    q, k, v, do = _kernel_layout(q, k, v, do)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
         err = function("flash_bwd_fused")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_common_args(q, k), *_strides(q, k, v, do),
-            int(causal), q.shape[-1] ** -0.5, _stream(q))
+            *_fused_args(q, k, v, do, lse, delta, dq, dk, dv, causal))
     _check(err, "flash_bwd_fused")
     LAUNCHES["flash_bwd_fused"] += 1
+
+
+def _fused_args(q, k, v, do, lse, delta, dq, dk, dv, causal) -> list:
+    """``flash_bwd_fused``'s C arguments (csrc/flash_bwd_fused.cu)."""
+    return [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_common_args(q, k), *_strides(q, k, v, do),
+            int(causal), q.shape[-1] ** -0.5, _stream(q)]
+
+
+def kernel_bwd_fused(q, k, v, do, lse, delta, causal=False):
+    """Launch ``flash_bwd_fused``: (dq, dk, dv).  Where one key block holds
+    every key (``fused_dq_whole``) the kernel writes dq itself; else dq is
+    summed in a zero-filled fp32 accumulator by atomic adds from the
+    key-block items, then cast to q's dtype once."""
+    q, k, v, do = _kernel_layout(q, k, v, do)
+    if fused_dq_whole(q, k):
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    else:
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    launch_bwd_fused(q, k, v, do, lse, delta, dq, dk, dv, causal)
     return dq.to(q.dtype), dk, dv
 
 

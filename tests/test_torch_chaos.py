@@ -35,6 +35,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     Config,
     config_from_args,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 SPECS = ["kill@1:w3,join@2,crash@3:w0,nan@4:w1",
          "slow@2:w1x2.5; stall@3:w0+40*2, join@5",

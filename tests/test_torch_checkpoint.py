@@ -62,6 +62,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.train import (
     LocalSGDEngine,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # one config for both frameworks: JAX writes, the port writes, each reads
 RUN = dict(dataset="synthetic_lm", epochs_global=1, epochs_local=1,

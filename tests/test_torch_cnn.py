@@ -38,6 +38,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models.norm import (
     BatchNorm,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # case -> (small-size kwargs, input shape [B, H, W, C], data seed).  The
 # cases' resnet50 takes the cifar stem: with the imagenet stem a 32x32

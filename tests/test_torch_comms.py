@@ -29,22 +29,12 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     comms,
     mesh,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LOCAL_WEIGHT = 0.7
 RTOL = ATOL = 1e-6
 SIZES = ((7,), (3, 5), (1,), (129,))     # odd sizes; the last leaf is i
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    """One intra-op thread in this process and in the ranks it spawns
-    (``mesh.rank_threads``): the suite runs beside other test processes,
-    and OpenMP threads spinning on a full host slow all of them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _leaves(n: int) -> list[np.ndarray]:

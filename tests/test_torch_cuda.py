@@ -186,13 +186,15 @@ def _check_tensor_core_kernels(q, k, v, do, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 129, 200, 196, 208,
-                                    255, 256, 257, 300, 1000])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 128, 129, 192, 200,
+                                    196, 208, 255, 256, 257, 300, 1000])
 def test_tensor_core_kernels_at_tile_edges(cuda, length, causal):
     """Lengths on and around the 64-row tiles (ragged tails, a single
-    row), around the forward's resident K/V limit (256 keys: 257, 300 and
-    1000 stream through the ring) and the 16-key trim of a ragged chunk
-    (196, 208), 8 query heads over 4 K/V heads, D=64."""
+    row), around the forward's and dq's resident K/V limit (256 keys: 257,
+    300 and 1000 stream through the ring), the 16-key trim of a ragged
+    chunk (196, 208) and the fused kernel's 128-key block (at 128 one block
+    holds every key and writes dq whole; 129 and 192 add into the fp32
+    accumulator from two), 8 query heads over 4 K/V heads, D=64."""
     _check_tensor_core_kernels(*_inputs(cuda, 2, length, 8, 4, 64, seed=8),
                                causal)
 
@@ -229,9 +231,10 @@ def test_tensor_core_kernels_take_views_and_copy_misaligned_rows(cuda):
 
 
 def test_fused_tensor_core_kernel_repeats_within_tolerance(cuda):
-    """Two runs on the same inputs: dk and dv (summed in registers) are
-    identical; dq, summed by atomics in an order that changes from run to
-    run, agrees within the tolerance."""
+    """Two runs on the same inputs at L=200 (two 128-key blocks): dk and dv
+    (summed in registers) are identical; dq, added by atomics from both
+    blocks in an order that changes from run to run, agrees within the
+    tolerance."""
     q, k, v, do = _inputs(cuda, 2, 200, 8, 2, 64, seed=11)
     f32 = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = t_flash.plain_forward(*f32[:3], True)
@@ -257,32 +260,86 @@ def test_forward_kernel_repeats_bitwise(cuda, length):
         assert torch.equal(second, first), name
 
 
-@pytest.mark.parametrize("rep", [1, 2, 4])
-@pytest.mark.parametrize("head_dim", [32, 64, 128])
-def test_redesigned_kernels_on_projection_views(cuda, head_dim, rep):
-    """q/k/v as strided views of one projection [B, L, H + 2 KV, D], GQA
-    groups of 1, 2 and 4 at every instantiated head dim, L=196 (a ragged
-    last tile and chunk): the forward's O and lse and the pair's dk/dv
+def _check_projection_views(cuda, head_dim, rep, length):
+    """q/k/v as strided views of one projection [B, L, H + 2 KV, D]: the
+    forward's O and lse, the pair's dq, dk and dv and the fused kernel's
     against the plain versions at chip_smoke.py's TOL_O, TOL_GRAD and
     TOL_LSE, with no copy of the views."""
     rng = np.random.default_rng(14)
     h, kv = 4, 4 // rep
-    proj = torch.from_numpy(rng.normal(size=(2, 196, h + 2 * kv, head_dim))
+    proj = torch.from_numpy(rng.normal(size=(2, length, h + 2 * kv,
+                                             head_dim))
                             .astype(np.float32)).to(cuda, torch.bfloat16)
     q, k, v = proj[:, :, :h], proj[:, :, h:h + kv], proj[:, :, h + kv:]
-    do = torch.from_numpy(rng.normal(size=(2, 196, h, head_dim)).astype(
+    do = torch.from_numpy(rng.normal(size=(2, length, h, head_dim)).astype(
         np.float32)).to(cuda, torch.bfloat16)
     assert all(t_flash._rows_aligned(t) for t in (q, k, v))
     f32 = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = t_flash.plain_forward(*f32[:3], False)
     delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
     o, lse = t_flash.kernel_forward(q, k, v, False, with_lse=True)
+    dq = t_flash.kernel_bwd_dq(q, k, v, do, lse_ref, delta, False)
     dk, dv = t_flash.kernel_bwd_dkv(q, k, v, do, lse_ref, delta, False)
+    fused = t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, False)
     torch.cuda.synchronize()
-    dk_ref, dv_ref = t_flash.plain_bwd_dkv(*f32, lse_ref, delta, False)
+    want = t_flash.plain_bwd_fused(*f32, lse_ref, delta, False)
     assert _rel(o, o_ref) <= 1e-2
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
-    assert _rel(dk, dk_ref) <= REL_TOL and _rel(dv, dv_ref) <= REL_TOL
+    for kernel, got in (("pair", (dq, dk, dv)), ("fused", fused)):
+        for name, g, ref in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == torch.bfloat16, (kernel, name)
+            assert _rel(g, ref) <= REL_TOL, (kernel, name)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_redesigned_kernels_on_projection_views(cuda, head_dim, rep):
+    """Projection views (_check_projection_views), GQA groups of 1, 2 and 4
+    at every instantiated head dim, L=196: a ragged last tile and chunk,
+    the fused dq added from two key blocks."""
+    _check_projection_views(cuda, head_dim, rep, 196)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_redesigned_kernels_on_projection_views_in_one_key_block(
+        cuda, head_dim, rep):
+    """The same at L=100: one key block holds every key, so the fused dq is
+    written whole."""
+    _check_projection_views(cuda, head_dim, rep, 100)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("length,head_dim", [(128, 64), (100, 32), (97, 128)],
+                         ids=["L128_D64", "L100_D32", "L97_D128"])
+def test_fused_tensor_core_kernel_repeats_bitwise_in_one_key_block(
+        cuda, length, head_dim, causal):
+    """Where one 128-key block holds every key, the fused kernel writes
+    each output once from registers, dq included (no atomics, no fp32
+    accumulator, no cast): two runs give the same bits, and the library
+    writes dq whole up to the length the wrapper assumes."""
+    import ctypes
+
+    from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.ops import (
+        _build,
+    )
+
+    assert length <= t_flash.FUSED_WHOLE_KEYS
+    q, k, v, do = _inputs(cuda, 2, length, 8, 2, head_dim, seed=15)
+    assert t_flash.fused_dq_whole(q, k)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = t_flash.plain_forward(*f32[:3], causal)
+    delta = (f32[3] * o_ref).sum(-1).transpose(1, 2).contiguous()
+    runs = [t_flash.kernel_bwd_fused(q, k, v, do, lse_ref, delta, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    want = t_flash.plain_bwd_fused(*f32, lse_ref, delta, causal)
+    for name, first, second, ref in zip(("dq", "dk", "dv"), *runs, want):
+        assert torch.equal(second, first), name
+        assert _close(first, ref), name
+    lib = _build._loaded["flash_bwd_fused"]
+    assert ctypes.c_int.in_dll(lib, "flash_bwd_fused_whole_keys").value \
+        == t_flash.FUSED_WHOLE_KEYS
 
 
 def test_two_pass_tensor_core_kernels_repeat_bitwise(cuda):

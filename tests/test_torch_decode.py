@@ -30,6 +30,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
     get_model,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 VOCAB = 97
 PROMPTS = [[5, 9, 3, 7, 2, 11, 4, 1], [8, 6, 33, 2, 90]]

@@ -35,22 +35,12 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config as TConfig,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 PLOTS = ("training_metrics", "training_metrics_0",
          "loss_distribution_by_worker", "loss_distribution_per_epoch",
          "loss_distribution_per_epoch_global",
          "accuracy_distribution_per_epoch_global")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    """One intra-op thread in this process and in the ranks it spawns
-    (``mesh.rank_threads``): the suite runs beside other test processes,
-    and OpenMP threads spinning on a full host slow all of them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _argv(out_dir, *extra):

@@ -21,6 +21,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     main as t_main,
     viz as t_viz,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = "learning_deep_neural_network_in_distributed_computing_environment_tpu_torch"
@@ -38,21 +39,6 @@ PLOTS = ("training_metrics", "training_metrics_0",
          "loss_distribution_by_worker", "loss_distribution_per_epoch",
          "loss_distribution_per_epoch_global",
          "accuracy_distribution_per_epoch_global")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: beside the other test
-    processes of a loaded host, every OpenMP thread beyond a free core
-    spins at each parallel region's barrier, and the probe's measured
-    seconds per batch (which cap the steps under ``--time_limit``) grew
-    200-fold (0.018 s alone, 4.1 s beside five busy 8-thread processes on
-    8 cores): enough to cut the cnn run's 7 steps.  One thread keeps the
-    probe near its own cost under any load."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _argv(out_dir, *extra):
@@ -295,20 +281,30 @@ def _bf16_fwd(d=64):
             "14CUtensorMap_stS3_S3_S3_Pfiiiiiif")
 
 
+def _bf16_dq(d=64):
+    return (f"_ZN5flash4sm9018bwd_dq_kernel_sm90I13__nv_bfloat16Li{d}EEEv"
+            "14CUtensorMap_stS3_S3_S3_S3_PKfS5_iiiiiif")
+
+
 def _bf16_dkv(d=64):
     return (f"_ZN5flash4sm9019bwd_dkv_kernel_sm90I13__nv_bfloat16Li{d}EEEv"
             "14CUtensorMap_stS3_S3_S3_S3_S3_PKfS5_iiiiiif")
 
 
+def _bf16_fused(d=64):
+    return (f"_ZN5flash4sm9021bwd_fused_kernel_sm90I13__nv_bfloat16Li{d}EEEv"
+            "14CUtensorMap_stS3_S3_S3_S3_S3_S3_PKfS5_Pfiiiiiiif")
+
+
 _BF16_FWD = _bf16_fwd()
 _F32_FWD = "_ZN5flash10fwd_kernelIfLi64EEEvPKT_S3_S3_PS1_Pfiiii"
-_BF16_DQ = ("_ZN5flash2tc16bwd_dq_kernel_tcILi64EEEvPK13__nv_bfloat16S4_S4_S4_"
-            "PKfS6_PS2_")
+_BF16_DQ = _bf16_dq()
 _BF16_DKV = _bf16_dkv()
 _F32_DQ = "_ZN5flash13bwd_dq_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS6_PS1_"
 _BF16_DQ_FMA = "_ZN5flash13bwd_dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_"
-_BF16_FUSED = ("_ZN5flash2tc19bwd_fused_kernel_tcILi64EEEvPK13__nv_bfloat16"
-               "S4_S4_S4_PKfS6_PfPS2_S8_")
+_BF16_FUSED = _bf16_fused()
+_F32_FUSED = ("_ZN5flash16bwd_fused_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS6_PfPS1_"
+              "S8_")
 _HMMA = "HMMA.16816.F32.BF16 R24, R4.reuse, R16, R24"
 _HGMMA = "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24, gsb0"
 _UTMALDG = "UTMALDG.4D [UR8], [UR4]"
@@ -316,18 +312,31 @@ _WGMMA = (_UTMALDG, "SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR10], RZ", _HGMMA,
           "WARPGROUP.DEPBAR.LE gsb0, 0x0")
 _FMA = ["LDS R8, [R2+0x100]", "FFMA R4, R8, R9, R4", "EXIT"]
 _KERNEL_IDS = ("forward", "fused", "dq", "dkv")
+# each kernel's bf16 name and the extra instances' argument of _libraries
+_BF16_NAME = {"forward": _bf16_fwd, "dq": _bf16_dq, "dkv": _bf16_dkv,
+              "fused": _bf16_fused}
+_EXTRA_OF = {"forward": "extra_fwd", "dq": "extra_bwd", "dkv": "extra_bwd",
+             "fused": "extra_fused"}
 
 
-def _libraries(forward=_WGMMA, fused=(_HMMA,), dq=(_HMMA,), dkv=_WGMMA,
-               extra_bwd=(), extra_fwd=()):
+def _libraries(forward=_WGMMA, fused=_WGMMA, dq=_WGMMA, dkv=_WGMMA,
+               extra_bwd=(), extra_fwd=(), extra_fused=()):
     """Canned cuobjdump text of the three libraries: each kernel's bf16
-    instance with the given instructions beside its fp32 FMA instance (the
-    wgmma kernels on HGMMA fed by TMA, the others on HMMA, by default)."""
+    instance with the given instructions beside its fp32 FMA instance (all
+    four on HGMMA fed by TMA by default, the wgmma design)."""
     return {"flash_fwd": _sass((_F32_FWD, _FMA), (_BF16_FWD, forward),
                                *extra_fwd),
             "flash_bwd": _sass((_F32_DQ, _FMA), (_BF16_DQ, dq),
                                (_BF16_DKV, dkv), *extra_bwd),
-            "flash_bwd_fused": _sass((_BF16_FUSED, fused))}
+            "flash_bwd_fused": _sass((_F32_FUSED, _FMA), (_BF16_FUSED, fused),
+                                     *extra_fused)}
+
+
+def _at_head_dims(kernel, ops_at):
+    """_libraries with ``kernel``'s bf16 instances at D = 32, 64 and 128
+    holding ``ops_at(d)``, the other kernels on the wgmma design."""
+    return _libraries(**{kernel: ops_at(64), _EXTRA_OF[kernel]: [
+        (_BF16_NAME[kernel](d), ops_at(d)) for d in (32, 128)]})
 
 
 def test_smoke_sass_check_finds_tensor_core_instructions():
@@ -338,7 +347,7 @@ def test_smoke_sass_check_finds_tensor_core_instructions():
     assert smoke.tensor_core_ops(text) == {
         _BF16_FWD: ["HGMMA.64x64x16.F32.BF16", "HMMA.16816.F32.BF16"],
         _F32_FWD: []}
-    found = smoke.check_tensor_cores(_libraries(fused=[_HMMA, _HMMA]))
+    found = smoke.check_tensor_cores(_libraries(fused=[*_WGMMA, _HGMMA]))
     assert found == {"flash_fwd": True, "flash_bwd_dq": True,
                      "flash_bwd_dkv": True, "flash_bwd_fused": True}
 
@@ -355,7 +364,7 @@ def test_smoke_sass_check_fails_without_tensor_core_instructions(
 
 def test_smoke_sass_check_fails_on_a_bf16_fma_instance_left_beside(capsys):
     """A bf16 FMA-only bwd_dq_kernel instance left instantiated beside the
-    tensor-core one fails the check, though the _tc instance holds HMMA."""
+    wgmma one fails the check, though the _sm90 instance holds HGMMA."""
     with pytest.raises(SystemExit):
         _chip_smoke().check_tensor_cores(
             _libraries(extra_bwd=[(_BF16_DQ_FMA, _FMA)]))
@@ -364,23 +373,23 @@ def test_smoke_sass_check_fails_on_a_bf16_fma_instance_left_beside(capsys):
 
 
 def test_smoke_sass_check_passes_wgmma_kernels_at_every_head_dim(capsys):
-    """flash_fwd and flash_bwd_dkv on HGMMA fed by TMA at D = 32, 64 and
-    128, dq and the fused kernel on HMMA: the check passes and names each
-    instance's design and its TMA copies."""
+    """All four kernels on HGMMA fed by TMA at D = 32, 64 and 128: the
+    check passes and names each instance's design and its TMA copies."""
     smoke = _chip_smoke()
     found = smoke.check_tensor_cores(_libraries(
         extra_fwd=[(_bf16_fwd(d), _WGMMA) for d in (32, 128)],
-        extra_bwd=[(_bf16_dkv(d), _WGMMA) for d in (32, 128)]))
+        extra_bwd=[(name(d), _WGMMA) for name in (_bf16_dq, _bf16_dkv)
+                   for d in (32, 128)],
+        extra_fused=[(_bf16_fused(d), _WGMMA) for d in (32, 128)]))
     assert found == {"flash_fwd": True, "flash_bwd_dq": True,
                      "flash_bwd_dkv": True, "flash_bwd_fused": True}
     out = capsys.readouterr().out
-    assert out.count("(wgmma)") == 6 and out.count("(tensor-core)") == 2
+    assert out.count("(wgmma)") == 12 and "(tensor-core)" not in out
     assert "UTMALDG" in out
-    assert smoke.KERNELS["flash_fwd"][4] == "wgmma"
-    assert smoke.KERNELS["flash_bwd_dkv"][4] == "wgmma"
+    assert all(smoke.KERNELS[k][4] == "wgmma" for k in smoke.KERNELS)
 
 
-@pytest.mark.parametrize("kernel", ("forward", "dkv"))
+@pytest.mark.parametrize("kernel", ("forward", "dkv", "dq", "fused"))
 def test_smoke_sass_check_fails_on_an_hmma_only_wgmma_kernel(capsys, kernel):
     """A kernel designed for wgmma whose bf16 instance holds only HMMA (the
     mma.sync design it replaced) fails, though HMMA is a tensor-core
@@ -393,20 +402,13 @@ def test_smoke_sass_check_fails_on_an_hmma_only_wgmma_kernel(capsys, kernel):
 
 
 @pytest.mark.parametrize("head_dim", (32, 64, 128))
-@pytest.mark.parametrize("kernel", ("forward", "dkv"))
+@pytest.mark.parametrize("kernel", ("forward", "dkv", "dq", "fused"))
 def test_smoke_sass_check_fails_on_one_hmma_head_dim(capsys, kernel,
                                                      head_dim):
     """Every bf16 instance of a wgmma kernel must hold HGMMA: one head
     dim's instance on HMMA alone fails the check while the others pass."""
-    name = _bf16_fwd if kernel == "forward" else _bf16_dkv
-    canned = [(name(d), (_UTMALDG, _HMMA) if d == head_dim else _WGMMA)
-              for d in (32, 64, 128)]
-    libraries = _libraries()
-    if kernel == "forward":
-        libraries["flash_fwd"] = _sass((_F32_FWD, _FMA), *canned)
-    else:
-        libraries["flash_bwd"] = _sass((_F32_DQ, _FMA), (_BF16_DQ, (_HMMA,)),
-                                       *canned)
+    libraries = _at_head_dims(kernel, lambda d: (
+        (_UTMALDG, _HMMA) if d == head_dim else _WGMMA))
     with pytest.raises(SystemExit):
         _chip_smoke().check_tensor_cores(libraries)
     assert f"Li{head_dim}E" in capsys.readouterr().err
@@ -421,12 +423,16 @@ def test_smoke_sass_check_fails_on_a_wgmma_kernel_without_tma(capsys):
 
 
 @pytest.mark.parametrize("kernel", ("dq", "fused"))
-def test_smoke_sass_check_keeps_hmma_for_the_tensor_core_kernels(kernel):
-    """dq and the fused kernel keep their mma.sync design: HMMA alone
-    passes for them, HGMMA is not asked of them."""
-    found = _chip_smoke().check_tensor_cores(
-        _libraries(**{kernel: (_HMMA, "EXIT")}))
-    assert all(found.values())
+def test_smoke_sass_check_keeps_hmma_for_the_tensor_core_kernels(capsys,
+                                                                 kernel):
+    """dq and the fused kernel left their mma.sync design for wgmma: an
+    instance on HMMA alone (that design, with no TMA) now fails for them,
+    as it does for the forward and dkv."""
+    with pytest.raises(SystemExit):
+        _chip_smoke().check_tensor_cores(
+            _libraries(**{kernel: (_HMMA, "EXIT")}))
+    err = capsys.readouterr().err
+    assert "designed for wgmma" in err and "no HGMMA" in err
 
 
 def test_smoke_sass_check_fails_without_cuobjdump(capsys, monkeypatch):

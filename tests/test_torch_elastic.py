@@ -35,6 +35,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
     train as t_train,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # one worker's parameters: JAX flattens the dict in key order, which is
 # the template's order (an identity wire layout)

@@ -59,6 +59,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
     load_dataset,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RUN = dict(model="mlp", dataset="mnist", epochs_global=6, epochs_local=1,
            batch_size=16, limit_train_samples=300, limit_eval_samples=32,
@@ -72,17 +73,6 @@ WALLS = [[0.02 * (1 + 0.3 * w + 0.1 * e) for w in range(6)]
 TAIL = ("global_train_losses", "global_val_losses",
         "global_train_accuracies", "global_val_accuracies", "step_caps",
         "shard_sizes")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    """One intra-op thread here and in every rank spawned (joiners
-    included): the CPU's reduction order depends on the thread count, so
-    a continued run and its fresh twin run on the same one."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kw(**over):

@@ -51,6 +51,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     ep as t_ep,
     tp as t_tp,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 H, E, F, B, T = 32, 4, 64, 2, 16
 # fp32 on both sides, sums in another order (test_torch_moe.py's ATOL)
@@ -72,14 +73,6 @@ MODEL_AXES = {"ep": {"data": 2, "expert": 2},
 FAMILIES = {"bert": ("bert_tiny", {}), "gpt": ("gpt_tiny", {}),
             "llama": ("llama_tiny", {"num_kv_heads": 2}),
             "vit": ("vit_tiny", {})}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _layer_inputs(seed: int = 0):

@@ -51,6 +51,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
     get_model,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-3
 LOSSES = ("global_train_losses", "global_val_losses")
@@ -94,14 +95,6 @@ JAX_TWINS = {"ep": "jax", "ep_model": "jax", "ep_fsdp": "jax_fsdp",
              "ep_seq": "jax_seq", "ep_pipe": "jax_pipe",
              "ep_pipe_1f1b": "jax_pipe_1f1b", "fsdp": "jax_fsdp",
              "seq": "jax_seq", "pipe": "jax_pipe"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kw(**extra):

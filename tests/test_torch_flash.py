@@ -25,6 +25,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     attention as t_attn,
     flash as t_flash,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 B, L, H, D = 1, 128, 4, 16

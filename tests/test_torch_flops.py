@@ -30,6 +30,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.utils import (
     flops,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 B, HIDDEN, CLASSES, PIXELS = 32, 256, 10, 28 * 28
 # the mlp step: forward 2*B*K*N per layer, backward the weight gradient

@@ -54,6 +54,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
     load_dataset,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 KW = dict(model="gpt_tiny", dataset="synthetic_lm", epochs_global=4,
           epochs_local=1, batch_size=8, limit_train_samples=96,
@@ -78,14 +79,6 @@ RUNS = {
 }
 LOSSES = ("global_train_losses", "global_val_losses")
 RTOL = 2e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_init():

@@ -36,6 +36,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 N, SLICES = 4, 2
 WALLS = [[1.0 + 0.1 * w for w in range(N)] for _ in range(3)]
@@ -49,14 +50,6 @@ KW = dict(simulated_durations=[1.0] * N, progress=False,
           simulated_round_durations=functools.partial(operator.getitem,
                                                       WALLS),
           round_checksums=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -59,6 +59,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.train import (
     LocalSGDEngine,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # JAX's uneven leaves (nothing divisible by the worker counts: every bucket
 # pads) and tiny buckets (tests/test_hier_sync.py:38-40)
@@ -96,14 +97,6 @@ for _name, _kw in (("ref", {}), ("ef", dict(outer_wire="int8", ef=True)),
     CASES[4][f"drift/{_name}"] = dict(
         _case(2, "ring", **_kw), leaves=[EF_LEAF], chain=True, step=True,
         rounds=EF_ROUNDS)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(n: int):

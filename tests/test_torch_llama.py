@@ -32,6 +32,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     attention as t_attn,
     flash as t_flash,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 VOCAB, SEQ, HEADS = 97, 128, 4
 # fp32 on both sides; logits and grads differ by summation order only

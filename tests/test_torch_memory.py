@@ -29,6 +29,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RUN = dict(model="mlp", dataset="mnist", epochs_global=1, epochs_local=1,
            batch_size=16, limit_train_samples=128, limit_eval_samples=32,
@@ -41,14 +42,6 @@ CASES = {"dense": (1, {}),
          "resident_n2": (2, {"sync_mode": "sharded",
                              "param_residency": "resident"}),
          "sim_n4": (4, {"sim_workers": 4})}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -22,6 +22,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models.moe import (
     MoEFFN,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 EXPERTS, HEADS, VOCAB, SEQ, CLASSES, IMG = 4, 4, 97, 32, 10, 32
 # fp32 on both sides; sums in another order only (routing is discrete:

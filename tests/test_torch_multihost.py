@@ -74,20 +74,13 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_torch_multihost_worker.py")
 RTOL = 2e-4
 BITWISE = ("global_train_losses", "global_val_losses", "all_workers_losses",
            "step_caps", "shard_sizes", "param_checksums")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _free_port() -> int:

@@ -41,6 +41,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RUN = dict(model="mlp", dataset="mnist", epochs_global=3, epochs_local=2,
            batch_size=16, limit_train_samples=400, limit_eval_samples=64,
@@ -66,16 +67,6 @@ PORT_ROW_KEYS = {"epoch", "train_ms", "train_steps", "val_steps",
                  "workers_wall_s", "workers_train_ms", "workers_train_steps",
                  "workers_sync_ms", "workers_max_memory_allocated",
                  "workers_memory_allocated"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    """One intra-op thread here and in the spawned ranks: the reduction
-    order, and so the bits, follows the thread count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kw(n: int) -> dict:

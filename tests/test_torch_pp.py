@@ -47,6 +47,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.parallel import (
     pp,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 STAGES = 4
 # JAX TestGpipeSchedule: forward atol 1e-6, gradients atol 1e-5

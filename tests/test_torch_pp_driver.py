@@ -46,6 +46,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.parallel import (
     pp,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL = 2e-3
 LOSSES = ("global_train_losses", "global_val_losses")
@@ -53,16 +54,6 @@ LOSSES = ("global_train_losses", "global_val_losses")
 # parameters of two schedules of the same run: max, mean, and max on the
 # embedding tables
 PARAM_MAX, PARAM_MEAN, EMB_MAX = 5e-3, 2e-3, 3e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    """One intra-op thread here and in the spawned ranks (the suite runs
-    beside other test processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _kw(model="bert_tiny", dataset="synthetic_mlm", seed=7, **extra):

@@ -46,6 +46,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
     get_model,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 POLICIES = ["everything", "dots_saveable", "save_names:attn_out,block_out",

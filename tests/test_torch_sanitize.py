@@ -19,6 +19,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.config import (
     Config,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 RUN = dict(model="mlp", dataset="mnist", epochs_global=2, epochs_local=1,
            batch_size=16, limit_train_samples=128, limit_eval_samples=32,
@@ -29,14 +30,6 @@ RUN = dict(model="mlp", dataset="mnist", epochs_global=2, epochs_local=1,
 JAX_CLEAN = {"enabled": True, "transfer_guard_violations": 0,
              "retrace_count": 0, "recompile_count": 0, "donation_failures": 0}
 NOT_APPLICABLE = ["retrace_count", "recompile_count", "donation_failures"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _run(**kw):

@@ -17,6 +17,7 @@ from flax import serialization as fs
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch import (
     serialization as S,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 DTYPES = ["float32", "float16", "int32", "int64", "uint32", "uint8", "bool"]
 

@@ -75,6 +75,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     pad_to_bucket,
     pick_bucket,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 VOCAB = 97
 PROMPT = [5, 9, 3, 7, 2, 11, 4, 1]

@@ -41,6 +41,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.parallel import (
     sp,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 # forward: the blockwise online softmax sums the same terms in another
 # order (fp32); gradients: JAX's own gate of the grouped cases

@@ -61,6 +61,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     ServeEngine,
     paired_admit,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 VOCAB = 97
 PROMPT = [5, 9, 3, 7, 2, 11, 4, 1]
@@ -71,17 +72,6 @@ FAMILIES = {
 }
 GEOMETRY = dict(max_batch=3, page_size=4, max_pages=32,
                 prompt_buckets=(8, 16), max_seq=24, seed=0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread (and one per spawned rank): the suite runs
-    beside other test processes, and OpenMP threads spinning on a full
-    host slow all of them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -59,6 +59,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.sim import (
     SimEngine,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 KW = dict(model="mlp", dataset="mnist", epochs_local=1, batch_size=16,
           limit_train_samples=256, limit_eval_samples=32, probe_batches=1,
@@ -66,14 +67,6 @@ KW = dict(model="mlp", dataset="mnist", epochs_local=1, batch_size=16,
           proportionality="uniform", seed=0)
 SIMS = [1.0, 1.0]
 WALLS = [[0.5, 0.5]] * 6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _group_run(cfg):

@@ -50,19 +50,9 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
     pack_window,
     window_feed,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread (and one per spawned rank): the suite runs
-    beside other test processes, and OpenMP threads spinning on a full
-    host slow all of them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ----------------------------------------------------------------------

@@ -45,6 +45,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.data import (
     load_dataset,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 W = 0.7                       # local_weight of the weighted blends
 TINY = 64                     # bytes: 16 fp32 elements a bucket
@@ -96,14 +97,6 @@ for _top in ("ring", "double_ring"):
             mode="gossip", how="equal", topology=_top, leaves=[SPREAD],
             wire="bfloat16", ef=_ef, chain=True, rounds=60, tail=20)
 N4_ONLY = ("avg/", "stall/", "contract/")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread_per_rank():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _inputs(n: int):

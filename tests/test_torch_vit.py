@@ -16,6 +16,7 @@ from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch
 from learning_deep_neural_network_in_distributed_computing_environment_tpu_torch.models import (
     get_model,
 )
+from _torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
 CLASSES, IMG, HEADS = 10, 32, 4
 # fp32 on both sides; logits and grads differ by summation order only
