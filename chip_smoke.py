@@ -240,6 +240,18 @@ Phases (any failure exits non-zero before the result line):
              coordinate's data line runs its stale sync on a second group
              of the line): 3 deltas delivered, the hidden fraction, every
              rank's launches, the loss falling.
+             [unrolled gpt2] the last job of the 2-process start: the
+             gpt2 path under --layer_scan off (JAX's unrolled layout) on
+             2 worker processes, sharded int8 sync with error feedback
+             (replicated parameters), 2 rounds, a checkpoint of the last:
+             each worker's launches 12 x its passes, the loss falling,
+             both workers' parameters bitwise equal, 148 leaves in 37
+             buckets (the stacked layout's 5 printed beside them) and the
+             wire bytes comms.sync_wire_bytes gives, the MANIFEST's
+             scan_layers false and its 148 params_leaves in JAX's sorted
+             order, the epoch restored into a fresh engine bit for bit,
+             and JAX's refusals of it by an --layer_scan auto engine's
+             restore and by main serve.
 
 11. elastic cnn n4 - in a child process (CUBLAS_WORKSPACE_CONFIG set,
              deterministic algorithms in it and in its ranks): the cnn run
@@ -401,6 +413,23 @@ PATHS = {
 CKPT_DIR = os.path.join(OUT_DIR, "ckpt_gpt2")
 CKPT_ARGV = [*PATHS["gpt2"][0], "--epochs_global", "2", "--checkpoint_dir",
              CKPT_DIR, "--checkpoint_every", "1", "--ckpt_keep", "2"]
+# phase unrolled gpt2: the gpt2 path under --layer_scan off (JAX's unrolled
+# parameter layout: a layer{i} subtree per block) on 2 worker processes,
+# the sharded int8 sync with error feedback, 2 rounds (8 steps a worker a
+# round), one checkpoint at the end; replicated parameters, so that the
+# checkpoint holds the .params leaves a resume of the other layout misses
+UNROLLED_DIR = os.path.join(OUT_DIR, "ckpt_unrolled")
+UNROLLED_ARGV = [*PATHS["gpt2"][0], "--num_workers", "2", "--epochs_global",
+                 "2", "--layer_scan", "off", "--sync_mode", "sharded",
+                 "--sync_dtype", "int8", "--sync_compression", "ef",
+                 "--aggregation_by", "weights", "--param_residency",
+                 "replicated", "--checkpoint_dir", UNROLLED_DIR,
+                 "--checkpoint_every", "2", "--out_dir",
+                 os.path.join(OUT_DIR, "unrolled")]
+# gpt2_small at vocab 1000 (weights.wire_layout, comms.bucket_plan): 148
+# unrolled leaves in 37 buckets of 4 MiB at n = 2, where the stacked
+# layout's 16 leaves make 5
+UNROLLED_LEAVES, UNROLLED_BUCKETS, STACKED_BUCKETS = 148, 37, 5
 # phase draft: gpt_small (head_dim 32) as the speculative draft, one round
 # of 16 steps on the token paths' data, saving its checkpoint
 DRAFT_CKPT_DIR = os.path.join(OUT_DIR, "ckpt_draft")
@@ -5251,14 +5280,164 @@ def phase_ep(runner) -> dict:
     return counts
 
 
+def phase_unrolled(runner) -> dict:
+    """[unrolled gpt2]: the gpt2 path under --layer_scan off on 2 worker
+    processes (``runner``'s next job), sharded int8 sync with error
+    feedback, 2 rounds, a checkpoint of the last.  Checks each worker's
+    launches (12 x its passes), the falling loss, both workers' parameters
+    bitwise equal after the sync, the sync's 37 buckets and its wire bytes
+    (``comms.sync_wire_bytes`` of the unrolled leaves), the MANIFEST
+    (``scan_layers`` false, the 148 unrolled leaves in sorted order), the
+    epoch restored into a fresh engine bit for bit, the epoch refused by
+    an --layer_scan auto engine and by ``main serve`` with JAX's words.
+    Returns rank 0's launch counts (its evaluation's included)."""
+    import dataclasses
+    import torch
+    from importlib import import_module
+    t_ckpt = import_module(f"{PKG}.checkpoint")
+    t_driver = import_module(f"{PKG}.driver")
+    comms = import_module(f"{PKG}.comms")
+    config = import_module(f"{PKG}.config")
+    fl = import_module(f"{PKG}.ops.flash")
+    models = import_module(f"{PKG}.models")
+    train = import_module(f"{PKG}.train")
+    weights = import_module(f"{PKG}.weights")
+    tag = "[unrolled gpt2]"
+    layers = PATHS["gpt2"][1]
+    t0 = time.perf_counter()
+    shutil.rmtree(UNROLLED_DIR, ignore_errors=True)
+    cfg = config.config_from_args(UNROLLED_ARGV)
+    res, wall = grid_run(tag, UNROLLED_ARGV, runner)
+    counts = dict(fl.LAUNCHES)
+    first, last = check_losses("unrolled gpt2", res)
+    probe = 1 + cfg.probe_batches
+    for w, got in enumerate(res["worker_launches"]):
+        train_steps, val_steps = got["steps"]
+        want = {"flash_fwd": layers * (probe + train_steps + val_steps),
+                "flash_bwd_dq": layers * (probe + train_steps),
+                "flash_bwd_dkv": layers * (probe + train_steps),
+                "flash_bwd_fused": 0}
+        print(f"{tag} worker {w}: launches {got['launches']}; expected "
+              f"{want} ({layers} layers; {train_steps} train steps, "
+              f"{val_steps} val steps, {probe} probe passes)")
+        if got["launches"] != want:
+            fail(f"{tag}: worker {w}'s launches {got['launches']} are not "
+                 f"its passes' {want}")
+    sums = res["param_checksums"]
+    if len(set(sums)) != 1:
+        fail(f"{tag}: the workers hold different parameters after the "
+             f"sync: {sums}")
+    # the wire: JAX's unrolled leaves, buckets and bytes
+    leaves, _pieces = weights.wire_layout(res["model"])
+    bucket_bytes = int(cfg.sync_bucket_mb * (1 << 20))
+    plan = comms.bucket_plan(leaves, 2, bucket_bytes)
+    stacked = comms.bucket_plan(weights.wire_layout(models.get_model(
+        "gpt2_small", num_classes=1000, device="meta"))[0], 2, bucket_bytes)
+    want_bytes = comms.sync_wire_bytes(leaves, 2, mode="sharded",
+                                       wire_dtype=torch.int8,
+                                       bucket_bytes=bucket_bytes)
+    rt = res["round_timings"]
+    print(f"{tag} sync: {len(leaves)} leaves in {len(plan)} buckets (the "
+          f"stacked layout: {len(stacked)}), wire "
+          f"{[r['sync_wire_bytes'] for r in rt]} B a worker a round, "
+          f"sync_wire_bytes {want_bytes:,}; sync ms per worker "
+          f"{[r['workers_sync_ms'] for r in rt]}; losses first batch "
+          f"{first:.4f} -> last epoch {last:.4f}; wall {wall:.1f} s")
+    if (len(leaves), len(plan), len(stacked)) != (
+            UNROLLED_LEAVES, UNROLLED_BUCKETS, STACKED_BUCKETS) or any(
+            r["sync_wire_bytes"] != want_bytes for r in rt):
+        fail(f"{tag}: {len(leaves)} leaves, {len(plan)} buckets "
+             f"({len(stacked)} stacked), wire "
+             f"{[r['sync_wire_bytes'] for r in rt]} B vs {want_bytes}")
+    # the manifest: the unrolled layout, in JAX's sorted order
+    path = t_ckpt.latest_checkpoint(UNROLLED_DIR)
+    meta = t_ckpt.read_manifest(path)["metadata"]
+    tops = list(dict.fromkeys(p[0][0] for p in meta["params_leaves"]))
+    print(f"{tag} MANIFEST {os.path.basename(path)}: scan_layers "
+          f"{meta['scan_layers']}, {len(meta['params_leaves'])} "
+          f"params_leaves, top-level order (JAX's sorted keys: layer10 "
+          f"before layer2) {tops}")
+    if (meta["scan_layers"] is not False
+            or len(meta["params_leaves"]) != UNROLLED_LEAVES
+            or tops != sorted(tops) or "layers" in tops
+            or [t for t in tops if t.startswith("layer")]
+            != sorted(f"layer{i}" for i in range(layers))):
+        fail(f"{tag}: the manifest does not hold the unrolled layout: "
+             f"scan_layers {meta['scan_layers']}, top-level {tops}")
+    device = next(res["model"].parameters()).device
+    final = _worker_state_host(
+        train.LocalSGDEngine(res["model"], cfg, device), res["state"])
+    del res
+    torch.cuda.empty_cache()
+
+    def template(argv: list[str]):
+        c = config.config_from_args(argv)
+        engine = train.LocalSGDEngine(
+            t_driver.build_model_for(c, 1000, device, (PATH_LEN,)), c,
+            device)
+        state = engine.init_state()
+        return engine, state, dataclasses.replace(
+            engine.checkpoint_state(state), worker=0, n_workers=2)
+
+    # worker 0's row into a fresh engine, bit for bit
+    t1 = time.perf_counter()
+    engine, state, tmpl = template(UNROLLED_ARGV)
+    restored, epoch = t_ckpt.restore_checkpoint(path, tmpl)
+    state = engine.load_checkpoint_state(state, restored)
+    torch.cuda.synchronize()
+    got = _worker_state_host(engine, state)
+    differ = [k for k in final if not (
+        torch.equal(final[k], got[k]) if isinstance(final[k], torch.Tensor)
+        else final[k] == got[k])]
+    print(f"{tag} epoch {epoch} restored into a fresh engine in "
+          f"{(time.perf_counter() - t1) * 1e3:.1f} ms: "
+          f"{sum(isinstance(v, torch.Tensor) for v in final.values())} "
+          f"tensors + count/lr_epoch/rng, {len(differ)} differ")
+    if epoch != 2 or differ or not any(k.startswith("residual/")
+                                       for k in final):
+        fail(f"{tag}: restored epoch {epoch}; differing {differ[:5]}")
+    del engine, state, restored, final, got
+    # the other layout's resume and `main serve` refuse it, with JAX's words
+    _engine, _state, tmpl = template(
+        [*UNROLLED_ARGV, "--layer_scan", "auto", "--resume"])
+    refusals = {}
+    try:
+        t_ckpt.restore_checkpoint(path, tmpl)
+    except ValueError as e:
+        refusals["auto"] = str(e)
+    del _engine, _state, tmpl
+    try:
+        import_module(f"{PKG}.main").run([
+            "serve", "--checkpoint_dir", UNROLLED_DIR,
+            *(["--device", cfg.device] if cfg.device else [])])
+    except ValueError as e:
+        refusals["serve"] = str(e)
+    for what, text in refusals.items():
+        print(f"{tag} {what}: {text}")
+    if not re.fullmatch(
+            rf"checkpoint {re.escape(path)} has no leaf \.params\['layers'\]"
+            r"\S* required by the restore template \(engine config "
+            r"mismatch\?\)", refusals.get("auto", "")) or not refusals.get(
+                "serve", "").startswith(
+                    "checkpoint was saved with an unrolled (non-layer-scan) "
+                    "parameter layout"):
+        fail(f"{tag}: the other layout's refusals are not JAX's: "
+             f"{refusals}")
+    shutil.rmtree(UNROLLED_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"{tag} phase wall {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def two_process_jobs(work_dir: str) -> tuple[list, list]:
     """The jobs of one start of 2 processes (main.run_shared): the module
     checks (grid_harness.module_worker: [fsdp cnn]'s one step, [sp attn],
     the toy schedules, [pp gpt2]'s one steps, [ep moe]'s one step), [tp
     gpt2]'s data-only twin (2 worker processes), the SP runs (each path's
     fp32 grid run and bf16 run), the PP runs (the fp32 grid run under each
-    schedule, then the bf16 ones), then the EP runs (the fp32 grid run and
-    the bf16 one).  Returns ``(jobs, module jobs)``."""
+    schedule, then the bf16 ones), the EP runs (the fp32 grid run and
+    the bf16 one), then [unrolled gpt2].  Returns ``(jobs, module
+    jobs)``."""
     import torch
     from importlib import import_module
     harness = import_module(f"{PKG}.grid_harness")
@@ -5274,6 +5453,7 @@ def two_process_jobs(work_dir: str) -> tuple[list, list]:
     jobs += [pp_argvs(s)[0] for s in PP_SCHEDULES]
     jobs += [pp_argvs(s)[1] for s in PP_SCHEDULES]
     jobs += list(ep_argvs()[1:])
+    jobs.append(UNROLLED_ARGV)
     return jobs, module
 
 
@@ -5296,10 +5476,10 @@ def phase_two_process() -> tuple[dict, dict]:
     """The 2-process phases from ONE start of their ranks: the module
     checks ([fsdp cnn]'s one step, [sp attn], [pp toy], [pp gpt2]'s and
     [ep moe]'s one steps) on GRID_CHECK_DEVICE, [tp gpt2]'s data-only
-    twin, [sp gpt2], [sp bert], [pp gpt2], [ep moe].  The module checks
-    run with TF32 off in this process, restored after.  Returns [pp
-    gpt2]'s and [ep moe]'s rank-0 launch counts, by path, and the twin's
-    losses and round timings."""
+    twin, [sp gpt2], [sp bert], [pp gpt2], [ep moe], [unrolled gpt2].  The
+    module checks run with TF32 off in this process, restored after.
+    Returns [pp gpt2]'s, [ep moe]'s and [unrolled gpt2]'s rank-0 launch
+    counts, by path, and the twin's losses and round timings."""
     import torch
     from importlib import import_module
     main = import_module(f"{PKG}.main")
@@ -5337,6 +5517,7 @@ def phase_two_process() -> tuple[dict, dict]:
             phase_sp(path, runner)
         counts = {"pp_gpt2": phase_pp(runner)}
         counts["ep_moe"] = phase_ep(runner)
+        counts["unrolled_gpt2"] = phase_unrolled(runner)
     print(f"[two-process] {len(jobs)} jobs from one start of 2 processes "
           f"in {time.perf_counter() - t0:.1f} s")
     return counts, twin
@@ -5365,7 +5546,8 @@ def phase_grid() -> dict:
 
 def two_process_alone() -> int:
     """``python3 chip_smoke.py sp`` (or ``pp``, ``ep``): the 2-process
-    phases alone (module checks, sp gpt2, sp bert, pp gpt2, ep moe), with
+    phases alone (module checks, sp gpt2, sp bert, pp gpt2, ep moe,
+    unrolled gpt2), with
     the kernels built and the pipeline stage's microbatch shape and the
     expert ranks' (the moe path's) checked."""
     import torch
@@ -5768,7 +5950,7 @@ def main() -> int:
     counts.update(phase_grid())
     counts["tp_llama"] = GRID_COUNTS["tp_llama"]
     lap("grid (one start of 2: module checks, sp gpt2, sp bert, pp gpt2, "
-        "ep moe; one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
+        "ep moe, unrolled gpt2; one of 4: tp gpt2, tp fsdp bert, fsdp cnn)")
     counts["elastic_tp_gpt2"] = phase_elastic()["tp"]["counts"]
     lap("elastic child (overlap, elastic cnn, elastic tp gpt2)")
     phase_memory()

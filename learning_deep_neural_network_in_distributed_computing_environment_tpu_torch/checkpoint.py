@@ -791,14 +791,13 @@ def restore_checkpoint(path: str, template: WorkerState, *,
     # pass over the shard files (its resident and outer rows with it)
     row = saved.row(template.worker,
                     lambda k: not k.startswith(".round_opt"))
-    for key in weights.SCALAR_KEYS:
-        if key not in row:
-            raise ValueError(f"checkpoint {path} has no leaf {key} required "
-                             "by the restore template")
+    # JAX's order: the residency re-layout (with its refusals) first,
+    # then every template leaf looked up (``checkpoint.py:660-716``)
     got = weights.state_from_jax_leaves(row, template.layout)
     params_resident = _relayout_residency(
         saved, template, got, row, params_template, bucket_bytes,
         num_slices)
+    _require_leaves(path, template, row)
     for part in ("params", "buffers", "mu", "nu"):
         want, have = getattr(template, part), got[part]
         for name, t in want.items():
@@ -822,10 +821,6 @@ def restore_checkpoint(path: str, template: WorkerState, *,
                              "restore template lacks (another model?)")
     residual = None
     if template.residual is not None:
-        if "sync_residual" not in got:
-            raise ValueError(
-                f"checkpoint {path} has no .sync_residual leaves, required "
-                "by the restore template (--sync_compression ef)")
         residual = _match_template(path, "sync_residual",
                                    got["sync_residual"], template.residual)
     round_opt = (None if template.round_opt is None else
@@ -839,6 +834,34 @@ def restore_checkpoint(path: str, template: WorkerState, *,
         round_opt=round_opt, params_resident=params_resident,
         residual_outer=residual_outer)
     return state, saved.epoch
+
+
+def _require_leaves(path: str, template: WorkerState, row: dict) -> None:
+    """Raise JAX's refusal (``restore_checkpoint``, ``checkpoint.py:
+    712-714``) at the first leaf of the template's TrainState, in JAX's
+    flatten order, that ``row`` lacks: a checkpoint of the other
+    ``--layer_scan`` layout has none of the template's parameter and
+    moment leaves."""
+    if template.grid is not None:           # a grid's shards, JAX keys
+        keys = list(template.grid["keys"])
+    else:                                   # the moments mirror the params
+        keys = list(weights.leaf_shapes(
+            {k: tuple(v.shape) for k, v in template.mu.items()},
+            template.layout))
+    # a resident epoch's rows become the params of a replicated template
+    # (``_relayout_residency``), as in JAX's relayout before its check
+    resident = any(k.startswith(".params_resident[") for k in row)
+    want = ([".params" + k for k in keys]
+            if template.params and not resident else [])
+    want += [".opt_state.count", *(".opt_state.mu" + k for k in keys),
+             *(".opt_state.nu" + k for k in keys), ".lr_epoch", ".rng"]
+    if template.residual is not None:
+        want += [".sync_residual" + k for k in keys]
+    for key in want:
+        if key not in row:
+            raise ValueError(
+                f"checkpoint {path} has no leaf {key} required by the "
+                "restore template (engine config mismatch?)")
 
 
 def _restore_outer_residual(path: str, template: WorkerState,
@@ -884,9 +907,7 @@ def restore_grid(path: str, template: WorkerState
             "it on a data-only mesh (the grid keeps them replicated)")
     row = saved.row(template.worker, lambda k: not k.startswith(
         (".round_opt", ".sync_residual_outer")))
-    for key in weights.SCALAR_KEYS:
-        if key not in row:
-            raise ValueError(f"checkpoint {path} has no leaf {key}")
+    _require_leaves(path, template, row)
     part = lambda prefix: {k[len(prefix):]: v for k, v in row.items()
                            if k.startswith(prefix + "[")}
     stats = weights._trees(row).get("batch_stats", {})
@@ -931,20 +952,15 @@ def _relayout_residency(ckpt: _Saved, template: WorkerState, got: dict,
     n = template.n_workers
     w_s, w_t = n // saved, n // num_slices
     if template.params_resident is not None and keys:
-        if saved == num_slices:
-            out = {}
-            for b, t in template.params_resident.items():
-                key = f".params_resident['{b}']"
-                if (key not in row
-                        or tuple(row[key].shape) != tuple(t.shape)):
-                    raise ValueError(
-                        f"checkpoint {path} resident bucket {key} "
-                        f"{None if key not in row else row[key].shape} "
-                        f"does not match the template's {tuple(t.shape)} "
-                        "(saved with another --sync_bucket_mb or worker "
-                        "count?)")
-                out[b] = row[key]
-            return out
+        same = all(f".params_resident['{b}']" in row
+                   and tuple(row[f".params_resident['{b}']"].shape)
+                   == tuple(t.shape)
+                   for b, t in template.params_resident.items())
+        if same and saved == num_slices:
+            return {b: row[f".params_resident['{b}']"]
+                    for b in template.params_resident}
+        # another tiling (or another layout's buckets, which this refuses
+        # with JAX's words)
         bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
               else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
         return _relayout_resident_slices(ckpt, keys, template,
@@ -955,6 +971,19 @@ def _relayout_residency(ckpt: _Saved, template: WorkerState, got: dict,
         bb = (int(float(meta_mb) * (1 << 20)) if meta_mb
               else bucket_bytes or comms.DEFAULT_BUCKET_BYTES)
         full = ckpt.full(lambda k: k in keys)
+        for i, b in enumerate(comms.bucket_plan(list(params_template.leaves),
+                                                w_s, bb)):
+            key = f".params_resident['{comms.bucket_name(i)}']"
+            if key not in full:
+                raise ValueError(
+                    f"checkpoint {path} resident layout has no bucket "
+                    f"leaf {key} (saved with a different sync_bucket_mb "
+                    "than the manifest records?)")
+            if full[key].shape != (n, b.padded // w_s):
+                raise ValueError(
+                    f"checkpoint resident bucket {key} has shape "
+                    f"{full[key].shape}, expected {(n, b.padded // w_s)} "
+                    "(different sync_bucket_mb or worker count?)")
         s = template.worker // w_s
         resident = {k[len(".params_resident['"):-2]:
                     v[s * w_s:(s + 1) * w_s] for k, v in full.items()}
@@ -965,6 +994,13 @@ def _relayout_residency(ckpt: _Saved, template: WorkerState, got: dict,
         return None
     # replicated on disk -> resident template: only a consensus per slice
     full = ckpt.full(lambda k: k.startswith(".params["))
+    for key in weights.leaf_shapes(
+            {k: tuple(v.shape) for k, v in template.mu.items()},
+            template.layout):
+        if ".params" + key not in full:
+            raise ValueError(
+                f"checkpoint {path} has no params leaf .params{key} needed "
+                "to build the resident layout (engine config mismatch?)")
     s = template.worker // w_t
     for key, arr in full.items():
         for g in range(num_slices):

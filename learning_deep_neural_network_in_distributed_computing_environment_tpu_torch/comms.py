@@ -355,18 +355,29 @@ def sim_wire_bytes(shapes: Sequence, n: int, *, topology: str = "allreduce",
     return hops * total
 
 
-def _decode_rows(x32: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
+def _decode_rows(xs: Sequence[torch.Tensor], wdt: torch.dtype,
+                 groups: Sequence[Sequence[int]] | None = None
+                 ) -> list[torch.Tensor]:
     """Each worker row's payload as the simulated fabric delivers it:
-    ``wire_encode`` of each row (its own int8 scale), decoded to fp32."""
-    flat = x32.reshape(x32.shape[0], -1)
-    return wire_encode(flat, wdt)[1].reshape(x32.shape)
+    ``wire_encode`` of each row of each group of ``xs`` (one JAX leaf:
+    its own int8 scale a row; each tensor alone when ``groups`` is None),
+    decoded to fp32."""
+    out: list = [None] * len(xs)
+    for g in groups if groups is not None else [[i] for i in range(len(xs))]:
+        n = xs[g[0]].shape[0]
+        flat = torch.cat([xs[i].reshape(n, -1) for i in g], 1)
+        dec = wire_encode(flat, wdt)[1]
+        for i, part in zip(g, dec.split([xs[i][0].numel() for i in g], 1)):
+            out[i] = part.reshape(xs[i].shape)
+    return out
 
 
 def aggregate_sim(tensors: Sequence[torch.Tensor], *, how: str = "equal",
                   topology: str = "allreduce", local_weight: float = 0.5,
                   ok: torch.Tensor | None = None,
                   wire_dtype: torch.dtype | None = None,
-                  residual: Sequence[torch.Tensor] | None = None):
+                  residual: Sequence[torch.Tensor] | None = None,
+                  groups: Sequence[Sequence[int]] | None = None):
     """``aggregate`` on worker-STACKED tensors (each [N, ...]; JAX
     ``comms.aggregate_sim``): returns ``(aggregated, new_residual)``.
 
@@ -379,7 +390,10 @@ def aggregate_sim(tensors: Sequence[torch.Tensor], *, how: str = "equal",
     transmitted payload is encoded per row, every value received from the
     fabric is the decoded fp32 payload, own values blend exactly, and the
     residual carries each worker's own transmission rounding into the
-    next round.  ``new_residual`` is None unless error feedback is armed."""
+    next round.  ``new_residual`` is None unless error feedback is armed.
+    ``groups`` (``weights.leaf_groups``): the tensors each JAX leaf holds,
+    which share one int8 scale a row (a stacked leaf holds every layer's);
+    None: each tensor is a leaf."""
     _validate(how, topology)
     tensors = list(tensors)
     if not tensors:
@@ -403,12 +417,11 @@ def aggregate_sim(tensors: Sequence[torch.Tensor], *, how: str = "equal",
     # what each worker transmits, as the fabric delivers it (fp32), and
     # what enters the blends (masked rows as zeros)
     res_list = list(residual) if ef else [None] * len(tensors)
-    decs, new_res = [], []
-    for x, res in zip(tensors, res_list):
-        contrib = x.float() + res if ef else x.float()
-        dec = _decode_rows(contrib, wire_dtype) if compressed else contrib
-        decs.append(dec)
-        new_res.append(contrib - dec if ef else None)
+    contribs = [x.float() + res if ef else x.float()
+                for x, res in zip(tensors, res_list)]
+    decs = (_decode_rows(contribs, wire_dtype, groups) if compressed
+            else contribs)
+    new_res = [c - d if ef else None for c, d in zip(contribs, decs)]
     xss = (decs if okb is None else
            [torch.where(_rows(okb, d), d, torch.zeros_like(d))
             for d in decs])

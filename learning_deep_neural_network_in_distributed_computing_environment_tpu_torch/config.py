@@ -1,10 +1,7 @@
-"""Configuration: the flags the ported slice reads, with the JAX package's
-names and defaults (reference: ``..._tpu/config.py:20-125, 1232-1610``).
-
-Flags of features that are not ported yet still parse, so a launch line
-written for the JAX package fails with a clear message instead of an
-argparse error: any non-default value raises a ValueError naming the
-ROADMAP item that will port it.
+"""Configuration: the flags of the port, with the JAX package's names and
+defaults (reference: ``..._tpu/config.py:20-125, 1232-1610``).  Every flag
+of the JAX package parses; the ones JAX takes as no-ops (``--backend``,
+``--local-rank``, ...) are no-ops here too.
 """
 
 from __future__ import annotations
@@ -12,13 +9,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-# flag -> (default, ROADMAP item that ports it).  A value other than the
-# default is rejected in Config.__post_init__.
-NOT_PORTED = {
-    "layer_scan": ("auto", "A.11 (the port keeps one module per block, "
-                           "which is what auto gives; weights.py converts "
-                           "both JAX layouts)"),
-}
 # the --mesh_shape axes the port runs (JAX mesh.py's names)
 MESH_AXES = ("data", "fsdp", "seq", "pipe", "expert", "model")
 PP_SCHEDULES = ("gpipe", "1f1b")
@@ -36,7 +26,7 @@ class Config:
     as the JAX ``Config``)."""
 
     # --- reference-parity flags -------------------------------------------
-    backend: str = "jax"          # jax|gloo|mpi: the gloo group; nccl: A.12
+    backend: str = "jax"          # jax|gloo|nccl|mpi: no-ops, the gloo group
     epochs_local: int = 5
     epochs_global: int = 20
     batch_size: int = 64
@@ -76,6 +66,10 @@ class Config:
     # none | dots_saveable | everything | save_names:<set> |
     # offload_names:<set> (models/remat.py; names: models.REMAT_NAMES)
     remat_policy: str = "none"
+    # the transformers' parameter layout (JAX config.py:107-116): auto | on
+    # (one stacked ``layers/layer`` subtree) | off (``layer{i}`` subtrees);
+    # resolved with the model (driver.resolve_layer_scan)
+    layer_scan: str = "auto"
     grad_accum: int = 1           # microbatches per train step
     num_experts: int = 0          # > 0 => Switch-MoE FFN in every block
     expert_capacity_factor: float = 1.25
@@ -169,11 +163,10 @@ class Config:
     pp_schedule: str = "gpipe"
     pp_microbatches: int = 0
     pp_remat: bool = False
-    # --- flags of features not ported yet (see NOT_PORTED) ------------------
-    layer_scan: str = "auto"
 
     def __post_init__(self) -> None:
         _choices("backend", self.backend, ("jax", "gloo", "nccl", "mpi"))
+        _choices("layer_scan", self.layer_scan, ("auto", "on", "off"))
         _choices("aggregation_type", self.aggregation_type,
                  ("equal", "weighted"))
         _choices("aggregation_by", self.aggregation_by,
@@ -207,20 +200,6 @@ class Config:
             raise NotImplementedError(
                 "param dtype other than float32 is not supported; use "
                 "--compute_dtype for bfloat16 activations/matmuls")
-        for name, (default, where) in NOT_PORTED.items():
-            value = getattr(self, name)
-            if value == default:
-                continue
-            raise ValueError(
-                f"--{name} {value} is not ported to the PyTorch package "
-                f"yet; it arrives with ROADMAP queue {where}")
-        if self.backend == "nccl":
-            # N workers share one card here as N processes of a gloo group
-            # (mesh.py); NCCL refuses two ranks on one device
-            raise ValueError(
-                "--backend nccl: the PyTorch port runs its workers as a gloo "
-                "group with host-staged syncs (--backend jax|gloo|mpi); "
-                "NCCL with one rank per card is ROADMAP queue A.12")
         if self.num_workers < 0:
             raise ValueError(
                 f"--num_workers must be >= 0 (0 = one per device), got "
@@ -1140,8 +1119,7 @@ class Config:
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    """CLI with the JAX package's flag names and defaults for the ported
-    slice (plus the parse-then-reject flags of ``NOT_PORTED``)."""
+    """CLI with the JAX package's flag names and defaults."""
     d = Config()
     p = argparse.ArgumentParser(
         description="PyTorch/CUDA local-SGD distributed training framework")
@@ -1150,7 +1128,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--gpu_weight", type=float, default=None)
     p.add_argument("--dist-url", type=str, dest="dist_url", default=None)
     p.add_argument("--backend", type=str, default=d.backend,
-                   choices=["jax", "gloo", "nccl", "mpi"])
+                   choices=["jax", "gloo", "nccl", "mpi"],
+                   help="[compat] every value runs the workers as one gloo "
+                        "group with host-staged collectives; "
+                        "jax/gloo/nccl/mpi accepted as no-ops")
     for name in ("epochs_local", "epochs_global", "batch_size", "num_workers",
                  "seed", "probe_batches", "limit_train_samples",
                  "limit_eval_samples", "num_kv_heads", "model_width",
@@ -1181,6 +1162,15 @@ def build_argparser() -> argparse.ArgumentParser:
                         "| everything | save_names:<a,b> | "
                         "offload_names:<a,b> (names: attn_out, mlp_out, "
                         "block_out, moe_dispatch)")
+    p.add_argument("--layer_scan", type=str, default=d.layer_scan,
+                   choices=["auto", "on", "off"],
+                   help="the transformers' parameter layout (one module "
+                        "per block either way): on = one stacked "
+                        "layers/layer subtree, off = a layer{i} subtree per "
+                        "block, as the JAX package lays them out; it sets "
+                        "the sync's buckets, the grid's shards and the "
+                        "checkpoint's leaves; auto = on for "
+                        "bert_*/gpt_*/llama_*/vit_*")
     for name in ("model", "dataset", "dtype", "compute_dtype", "data_dir",
                  "out_dir", "log_level"):
         p.add_argument(f"--{name}", type=str, default=getattr(d, name))
@@ -1377,13 +1367,6 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["", "float32", "bfloat16", "int8"],
                    help="wire dtype of the outer (slice) gossip hops; '' "
                         "inherits --sync_dtype")
-    for name, (default, _where) in NOT_PORTED.items():
-        help_ = "not ported yet (rejected unless default)"
-        if isinstance(default, bool):
-            p.add_argument(f"--{name}", action="store_true", help=help_)
-        else:
-            p.add_argument(f"--{name}", type=type(default), default=default,
-                           help=help_)
     return p
 
 

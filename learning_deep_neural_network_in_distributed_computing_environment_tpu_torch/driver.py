@@ -221,14 +221,58 @@ def _assemble_round_metrics(results: dict, mx: dict, worker_ids) -> None:
         np.asarray(mx["val_acc"])[0].tolist())
 
 
+def resolve_layer_scan(cfg: Config) -> bool:
+    """``--layer_scan`` resolved as the JAX driver resolves it
+    (``driver.py:460-505``): on under a pipe axis, with ``on``, or with
+    ``auto`` and a transformer.  The port keeps one module per block
+    either way; the value is the parameter layout the sync, the grid and
+    the checkpoint follow (``weights.state_layout``).  Raises JAX's
+    refusals with its words and in its order: ``--pp_remat`` without a
+    pipe axis, ``on`` with a CNN or MLP, ``off`` with a pipe axis, a
+    remat policy on an unrolled config, ``--grad_accum`` on a model with
+    BatchNorm statistics."""
+    pp = int(cfg.inner_axes().get("pipe", 1))
+    if cfg.pp_remat and pp <= 1:
+        raise ValueError(
+            "--pp_remat applies under pipeline parallelism (a 'pipe' "
+            "mesh axis of size >= 2); without one the flag would "
+            "silently do nothing — use --remat_policy with --layer_scan "
+            "instead")
+    attention = is_attention_model(cfg.model)
+    if cfg.layer_scan == "on" and not attention:
+        raise ValueError(
+            f"--layer_scan on applies to homogeneous-block models "
+            f"(bert_*/gpt_*/llama_*/vit_*); got --model {cfg.model} "
+            "(heterogeneous CNN/MLP layers cannot stack)")
+    if cfg.layer_scan == "off" and pp > 1:
+        raise ValueError(
+            "--layer_scan off cannot combine with a 'pipe' mesh "
+            "axis: pipeline parallelism shards the stacked layer axis "
+            "(scan-over-layers IS the pipeline's parameter layout)")
+    on = (pp > 1 or cfg.layer_scan == "on"
+          or (cfg.layer_scan == "auto" and attention))
+    remat_policy = cfg.resolve_remat_policy()
+    if remat_policy != "none" and not on:
+        raise ValueError(
+            f"--remat_policy {remat_policy} applies to the scanned layer "
+            "stack (--layer_scan on/auto with a homogeneous-block model, "
+            "or pipeline parallelism); this config runs unrolled")
+    if cfg.grad_accum > 1 and not attention:
+        raise ValueError(
+            f"--grad_accum applies to attention models (bert_*/gpt_*/"
+            f"vit_*/llama_* — no BatchNorm running stats to split across "
+            f"microbatches); got --model {cfg.model}")
+    return on
+
+
 def build_model_for(cfg: Config, num_classes: int, device: torch.device,
                     input_shape: tuple | None = None, tp=None, sp=None,
                     num_layers: int | None = None, ep=None):
     """The registry model at the configured compute dtype (and, for
-    transformers, attention, remat policy and MoE FFN), initialized from
-    ``cfg.seed`` with a generator on
-    ``device``, in ``channels_last`` (a no-op for models without 4-D
-    weights).  ``input_shape`` (one example's) sizes the first layer of
+    transformers, attention, remat policy, MoE FFN and the parameter
+    layout of ``resolve_layer_scan``, as ``model.scan_layers``),
+    initialized from ``cfg.seed`` with a generator on ``device``, in
+    ``channels_last`` (a no-op for models without 4-D weights).  ``input_shape`` (one example's) sizes the first layer of
     the models flax sizes from their input (``mlp``, ``lenet5``).  ``tp``
     (the rank's ``model`` line) builds a transformer's tensor-parallel
     shard; its init is not the dense model's (``GridParams`` fills it).
@@ -243,22 +287,11 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
     attention = is_attention_model(cfg.model)
     if attention:
         kw["attention_impl"] = cfg.attention_impl
-    # the JAX driver's rules for the transformer knobs (driver.py:465-505,
-    # 580-595): remat applies to the blocks of a transformer; the CNNs
-    # have no blocks and run unrolled
+    # the JAX driver's rules for the transformer knobs (driver.py:460-505)
+    scan_layers = resolve_layer_scan(cfg)
     remat_policy = cfg.resolve_remat_policy()
     if remat_policy != "none":
-        if not attention:
-            raise ValueError(
-                f"--remat_policy {remat_policy} applies to the layer "
-                "stack of a homogeneous-block model (bert_*/gpt_*/llama_*/"
-                f"vit_*); --model {cfg.model} runs unrolled")
         kw["remat_policy"] = remat_policy
-    if cfg.grad_accum > 1 and not attention:
-        raise ValueError(
-            f"--grad_accum applies to attention models (bert_*/gpt_*/"
-            f"vit_*/llama_* — no BatchNorm running stats to split across "
-            f"microbatches); got --model {cfg.model}")
     if cfg.num_experts > 0:
         # (Config refuses experts on the non-attention models)
         kw.update(num_experts=cfg.num_experts,
@@ -291,6 +324,8 @@ def build_model_for(cfg: Config, num_classes: int, device: torch.device,
         kw.update(sp=sp, attention_impl=cfg.sequence_parallel)
     model = get_model(cfg.model, num_classes=num_classes, dtype=dtype,
                       device=device, **kw)
+    if attention:
+        model.scan_layers = scan_layers
     if device.type != "meta":      # a meta model only propagates shapes
         model.init_parameters(
             torch.Generator(device=device).manual_seed(cfg.seed))
@@ -301,8 +336,9 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model,
                         param_residency: str | None = None) -> dict:
     """The architecture facts MANIFEST.json carries, with the JAX driver's
     keys (``driver.py:128-187``), so ``main serve`` rebuilds the model from
-    a checkpoint alone: one stacked layer collection for the transformers
-    (``scan_layers``), the slice count (a restore re-lays resident rows
+    a checkpoint alone: the parameter layout (``scan_layers``: one stacked
+    layer collection, as ``resolve_layer_scan`` resolved it), the slice
+    count (a restore re-lays resident rows
     across slice layouts, JAX ``driver.py:164-167``), the resolved
     optimizer placement and parameter residency (the engine's) and the
     bucket size the round optimizer's and the resident layout's rows
@@ -310,7 +346,7 @@ def checkpoint_metadata(cfg: Config, num_classes: int, model,
     ``params_leaves`` lists every ``.params`` leaf as [path, per-worker
     shape, dtype]."""
     return {"model": cfg.model, "num_classes": int(num_classes),
-            "scan_layers": is_attention_model(cfg.model),
+            "scan_layers": weights.scan_layers(model),
             "compute_dtype": cfg.compute_dtype,
             "num_kv_heads": int(cfg.num_kv_heads),
             "num_experts": int(cfg.num_experts),
@@ -544,13 +580,9 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
             "serving fast path and only apply under `main serve` — the "
             "training driver never runs the serve engine; drop the flags "
             "from this run")
-    if cfg.pp_remat and "pipe" not in cfg.inner_axes():
-        # JAX driver.py:460-464 (its config takes the flag)
-        raise ValueError(
-            "--pp_remat applies under pipeline parallelism (a 'pipe' "
-            "mesh axis of size >= 2); without one the flag would "
-            "silently do nothing — use --remat_policy with --layer_scan "
-            "instead")
+    # JAX driver.py:460-500 (its config takes these flags): refused before
+    # the grid is built
+    resolve_layer_scan(cfg)
     if cfg.num_slices > 1 and elastic_snapshot is not None:
         raise ValueError(
             "elastic_snapshot cannot combine with --num_slices > 1 in "
@@ -1560,6 +1592,12 @@ def train_global(cfg: Config, *, datasets=None, simulated_durations=None,
     if group is not None:
         results["param_checksums"] = mesh.all_gather(
             group, comms.checksum(engine.params))
+        # every worker's flash launches and the train and validation steps
+        # it ran (a grid's ranks: results["grid"])
+        from .ops import flash as flash_lib
+        results["worker_launches"] = mesh.all_gather(
+            group, {"launches": dict(flash_lib.LAUNCHES),
+                    "steps": list(steps_ran)})
     el["final_worker_ids"] = list(worker_ids)
     results["elastic"] = el
     if el["events"]:

@@ -7,8 +7,10 @@ The JAX package runs N workers as one SPMD program on an N-device mesh.
 The port runs them as N processes, as the reference does.  On a host with
 one card all N processes share it: NCCL refuses two ranks on one device,
 so the group is gloo, whose collectives run on CPU tensors; ``comms``
-stages the once-per-round sync through pinned host memory.  NCCL with one
-rank per card is ROADMAP item A.12.
+stages the once-per-round sync through pinned host memory.  Every
+``--backend`` (jax, gloo, nccl, mpi) is this gloo group, as every value is
+XLA in the JAX package; device collectives with one rank per card are a
+speed item for a host with several cards.
 
 The rendezvous is a ``FileStore`` in a fresh temporary directory (a TCP
 port could collide between concurrent runs on one host), every collective

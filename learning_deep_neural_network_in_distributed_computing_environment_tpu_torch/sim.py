@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch.func import functional_call, grad_and_value, vmap
 
-from . import comms, probe
+from . import comms, probe, weights
 from .config import Config
 from .data.augment import apply_augment, draw
 from .models.norm import BatchNorm, running_stats_out
@@ -124,6 +124,10 @@ class SimEngine:
         # the simulated wire (compressed only under --sim_workers) and its
         # error feedback, armed on weights aggregation as JAX arms it
         self.wire_dtype = cfg.sync_wire_dtype()
+        # which tensors share a row's int8 scale: one JAX leaf each (a
+        # stacked leaf is every layer's tensor), as JAX's wire scales
+        self.wire_groups = (weights.leaf_groups(model)
+                            if self.wire_dtype == torch.int8 else None)
         self.sync_ef = (cfg.sync_compression == "ef"
                         and cfg.aggregation_by == "weights"
                         and self.wire_dtype is not None)
@@ -525,6 +529,7 @@ class SimEngine:
         agg_norm = torch.zeros(n, device=dev)
         kw = dict(how=cfg.aggregation_type, topology=cfg.topology,
                   local_weight=cfg.local_weight, wire_dtype=self.wire_dtype,
+                  groups=self.wire_groups,
                   ok=(None if active is None
                       else torch.from_numpy(active).to(dev)))
         with torch.no_grad():

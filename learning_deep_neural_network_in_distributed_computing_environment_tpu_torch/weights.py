@@ -11,9 +11,13 @@ cout] in flax and [cout, cin, kh, kw] here, Dense kernels [in, out] and
 ``running_var`` buffers.
 
 Transformers (``flax_to_torch`` / ``torch_to_flax``, ``params`` only): the
-flax tree is either stacked (``--layer_scan auto``: one ``layers/layer``
+flax tree is either stacked (``--layer_scan auto|on``: one ``layers/layer``
 subtree whose leaves carry a leading [num_layers] axis) or unrolled
-(``layer0``, ``layer1``, ...).  Dense kernels are [in, out...] in flax and
+(``--layer_scan off``: ``layer0``, ``layer1``, ..., which flatten in
+sorted order, ``layer10`` before ``layer2``).  A transformer's
+``scan_layers`` (``driver.build_model_for``; stacked when unset) picks
+the layout of every flat structure below: the checkpoint's leaves, the
+sync's packed order and buckets, the grid's shards.  Dense kernels are [in, out...] in flax and
 ``nn.Linear`` weights [out, in] here; ``DenseGeneral`` kernels flatten
 their head axes (``qkv`` [hidden, 3, H, Dh] <-> [3*H*Dh, hidden], ``out``
 [H, Dh, hidden] <-> [hidden, H*Dh]).  Both directions only transpose and
@@ -22,8 +26,8 @@ reshape, so a round trip is exact, for the image models too.
 The whole train state (``state_to_jax_leaves`` / ``state_from_jax_leaves``)
 goes by the key paths of the JAX package's checkpoints
 (``jax.tree_util.keystr`` of its ``TrainState``, dict keys sorted as
-``tree_flatten`` sorts them): ``.params[...]`` (transformers in the stacked
-``layers/layer`` layout, ``--layer_scan auto``), ``.batch_stats[...]``,
+``tree_flatten`` sorts them): ``.params[...]`` (transformers in the
+model's layout), ``.batch_stats[...]``,
 optax Adam's ``.opt_state.count`` (int32) and ``.opt_state.mu[...]`` /
 ``.opt_state.nu[...]`` (each moment laid out like its parameter),
 ``.lr_epoch`` (int32) and ``.rng`` (uint32[2]).  These are one worker's
@@ -288,21 +292,28 @@ _COLLECTION = re.compile(
     r"^\.(params|batch_stats|opt_state\.mu|opt_state\.nu|sync_residual)"
     r"((?:\['[^']*'\])+)$")
 _SEGMENT = re.compile(r"\['([^']*)'\]")
-SCALAR_KEYS = (".opt_state.count", ".lr_epoch", ".rng")
 
 
 def state_layout(model) -> dict:
     """Which conversion a model's tensors take: the transformer families
-    carry ``num_heads`` (and Llama ``num_kv_heads``), the image models
-    neither."""
+    carry ``num_heads`` (and Llama ``num_kv_heads``) and whether their
+    blocks are ``stacked`` (``model.scan_layers``, JAX's
+    ``--layer_scan``), the image models none of these."""
     if hasattr(model, "num_heads"):
         out = {"kind": "transformer", "num_heads": int(model.num_heads),
-               "num_kv_heads": int(getattr(model, "num_kv_heads", 0) or 0)}
+               "num_kv_heads": int(getattr(model, "num_kv_heads", 0) or 0),
+               "stacked": bool(getattr(model, "scan_layers", True))}
         if getattr(model, "tp", None) is not None:
             # a tensor-parallel shard: its own heads of the model's width
             out["head_dim"] = int(model.head_dim)
         return out
     return {"kind": "image"}
+
+
+def scan_layers(model) -> bool:
+    """Whether ``model``'s parameters are laid out stacked (the manifest's
+    ``scan_layers``; never for the image models, as in JAX)."""
+    return state_layout(model).get("stacked", False)
 
 
 def _flax_collections(tensors: dict, layout: dict) -> dict:
@@ -311,7 +322,8 @@ def _flax_collections(tensors: dict, layout: dict) -> dict:
     if layout["kind"] == "transformer":
         return {"params": torch_to_flax(
             tensors, num_heads=layout["num_heads"],
-            num_kv_heads=layout["num_kv_heads"], stacked=True,
+            num_kv_heads=layout["num_kv_heads"],
+            stacked=layout.get("stacked", True),
             head_dim=layout.get("head_dim", 0))}
     return cnn_torch_to_flax(tensors)
 
@@ -446,10 +458,12 @@ def params_leaves(model) -> list:
     """[[path segments], shape, dtype] of every ``.params`` leaf of one
     worker (the manifest metadata's ``params_leaves``, JAX
     ``driver.py:176-186``)."""
-    host = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    tree = _flax_collections(host, state_layout(model))["params"]
+    leaves = jax_param_leaves(
+        {n: np.broadcast_to(np.zeros((), str(p.dtype).removeprefix("torch.")),
+                            tuple(p.shape))
+         for n, p in model.named_parameters()}, state_layout(model))
     return [[_SEGMENT.findall(key), [int(d) for d in arr.shape],
-             str(arr.dtype)] for key, arr in _keyed("", tree)]
+             str(arr.dtype)] for key, arr in leaves.items()]
 
 
 def _match_axes(local: np.ndarray, shape: tuple):
@@ -502,6 +516,23 @@ def wire_layout(model) -> tuple[list, list]:
     return leaves, pieces
 
 
+def leaf_groups(model) -> list[list[int]]:
+    """The indices (``named_parameters`` order) of the parameters each JAX
+    ``params`` leaf holds, in flatten order: one per leaf of the unrolled
+    layout or an image model, one per layer of a stacked leaf."""
+    leaves, pieces = wire_layout(model)
+    sizes = [p.numel() for p in model.parameters()]
+    groups, it = [], iter(pieces)
+    for shape, _dtype in leaves:
+        need, group = int(np.prod(shape, dtype=np.int64)), []
+        while need:
+            t, _axes = next(it)
+            group.append(t)
+            need -= sizes[t]
+        groups.append(group)
+    return groups
+
+
 # ----------------------------------------------------------------------
 # One rank's shard of the parameters on the rank grid (mesh.Grid)
 # ----------------------------------------------------------------------
@@ -519,9 +550,17 @@ def jax_param_leaves(state_dict: dict, layout: dict) -> dict:
 def param_leaf_shapes(model) -> dict:
     """{key: shape} of a model's ``params`` leaves in the JAX layout (what
     ``bert.tp_param_specs`` and ``fsdp.fsdp_param_specs`` read)."""
+    return leaf_shapes({n: tuple(p.shape)
+                        for n, p in model.named_parameters()},
+                       state_layout(model))
+
+
+def leaf_shapes(shapes: dict, layout: dict) -> dict:
+    """{key: shape} of the JAX ``params`` leaves, in flatten order, of
+    tensors of ``shapes`` ({``state_dict`` name: shape}) in ``layout``."""
     leaves = jax_param_leaves(
-        {n: np.empty(tuple(p.shape), np.float32)
-         for n, p in model.named_parameters()}, state_layout(model))
+        {n: np.broadcast_to(np.float32(0), s) for n, s in shapes.items()},
+        layout)
     return {k: tuple(a.shape) for k, a in leaves.items()}
 
 

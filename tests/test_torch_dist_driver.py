@@ -2,8 +2,8 @@
 (balanced | disbalanced x allreduce | ring | double_ring) through
 ``main.run --num_workers 2`` (two gloo processes), the straggler feedback
 held against the JAX driver on 2 workers, the progress bars, and the
-failure paths (a failing child, ``--backend nccl``, no group at one
-worker)."""
+failure paths (a failing child, no group at one worker), and
+``--backend nccl`` as the no-op JAX takes it."""
 
 import functools
 import json
@@ -217,11 +217,18 @@ def test_one_worker_creates_no_group(tmp_path, monkeypatch):
     assert "param_checksums" not in results
 
 
-def test_backend_nccl_raises_and_compat_backends_run(tmp_path):
-    with pytest.raises(ValueError, match="A.12"):
-        t_main.run(_argv(tmp_path, "--backend", "nccl"))
-    assert not any(tmp_path.iterdir())
-    for backend in ("jax", "gloo", "mpi"):
+def test_backend_nccl_raises_and_compat_backends_run(tmp_path, monkeypatch):
+    """Every --backend is a no-op, as in JAX (config.py:1243-1245): nccl
+    runs the two workers as the same gloo group, with gloo's results to
+    the bit (uniform shares: the measured probe sizes no shard)."""
+    monkeypatch.setattr(t_viz, "_plt", lambda: None)
+    runs = {b: t_main.run(_argv(tmp_path / b, "--backend", b,
+                                "--proportionality", "uniform"))
+            for b in ("gloo", "nccl")}
+    for key in ("param_checksums", "global_train_losses",
+                "global_val_losses", "all_workers_losses", "shard_sizes"):
+        assert runs["nccl"][key] == runs["gloo"][key], key
+    for backend in ("jax", "gloo", "nccl", "mpi"):
         assert TConfig(backend=backend, num_workers=2).backend == backend
 
 

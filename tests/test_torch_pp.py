@@ -381,7 +381,8 @@ def test_specs_match_jax(name):
      ValueError,
      "per-accumulation-slice batch 6 must be divisible by 4 pipeline"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2",
-      "--layer_scan", "off"], ValueError, "A.11"),
+      "--layer_scan", "off"], ValueError,
+     "--layer_scan off cannot combine with a 'pipe' mesh axis"),
     (["--model", "bert_tiny", "--mesh_shape", "data=1,pipe=2,expert=4",
       "--num_experts", "6"], ValueError,
      "num_experts 6 not divisible by expert-parallel size 4"),
@@ -399,7 +400,7 @@ def test_config_refusals(flags, exc, match):
     (driver.py:459-548, 672-709, models/bert.py:231-233), with its
     messages and exception types, each at the config or, where JAX's
     config takes the flags (--pp_remat without a pipe axis), when the run
-    starts; --layer_scan off stays refused, as it is on every path; MoE
+    starts, as is --layer_scan off under a pipe axis; MoE
     runs under a pipe axis, with JAX's check that the expert axis divides
     the experts (models/moe.py:71-74); chaos and staleness under a pipe
     axis are taken by the port's Config and by JAX's (exc None)."""
